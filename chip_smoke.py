@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``simple_tensorflow_tpu_torch``) on one
-NVIDIA GPU and check every kernel of its serving path.
+NVIDIA GPU and check every kernel of its serving and training paths.
 
     python3 chip_smoke.py
 
@@ -8,14 +8,22 @@ NVIDIA GPU and check every kernel of its serving path.
    hand-written CUDA kernels from ``simple_tensorflow_tpu_torch/csrc/``
    with ``nvcc`` for ``sm_90a``.
 2. Kernel phases: each kernel against its plain PyTorch version on the
-   card, at the serving path's shapes (f32: rtol 1e-5, atol 1e-5; bf16:
-   2e-2; QuantMatMul bit-exact), with its device time, its bound (the
-   larger of bytes over 3.35 TB/s and operations over the peak of their
-   type), the plain version's time and one PyTorch library call's time
-   as a yardstick. Times come from CUDA graphs of back-to-back launches
-   timed with CUDA events, over input copies that together exceed the
-   50 MB L2 where the inputs are large, so large inputs are read cold
-   as the serving path reads them.
+   card, at the serving and training paths' shapes (f32: rtol 1e-5, atol
+   1e-5; bf16: 2e-2; QuantMatMul and Adam bit-exact; the training
+   kernels' outputs within a bound scaled by the largest reference value:
+   f32 1e-5 for forward values and 1e-4 for gradients and column sums,
+   bf16 2e-2; the xent backward, whose values span many orders of
+   magnitude, element by element within 1e-5 (f32) or 1e-2 (bf16) of
+   each value plus that times the mean magnitude, a limit the phase shows
+   failing planted faults), with its device time, its bound (the larger of bytes over
+   3.35 TB/s and operations over the peak of their type), the plain
+   version's time and one PyTorch library call's time as a yardstick
+   (never called by the port). Times come from CUDA graphs of
+   back-to-back launches timed with CUDA events, over input copies that
+   together exceed the 50 MB L2 where the inputs are large, so large
+   inputs are read cold as the paths read them; library calls that run
+   autograd or an optimizer are timed with CUDA events around repeated
+   calls instead.
 3. Serving phase: ``GenerativeEngine`` over ``CausalLMGenerativeModel``
    at ``TransformerConfig.big()`` width (6 layers, d_model 1024, 16
    heads, vocab 32768) with seeded random weights, 12 requests of 17-96
@@ -25,6 +33,21 @@ NVIDIA GPU and check every kernel of its serving path.
    kernel of the run must have launched. Every emitted token is checked,
    teacher-forced on the engine's own stream, against a plain full
    re-forward on the card (PyTorch ops only, no kernel).
+4. Training phase: ``causal_lm_train_model`` at ``TransformerConfig.big()``
+   with ``dropout=0.0``, batch 16 x 256, weights from ``init_params
+   (seed=0)``. One f32 step through the kernels against the same step
+   through the plain versions (a trainer built with ``plain=True``): the
+   loss within rtol 1e-5, every parameter's gradient within relative norm
+   1e-3 (the attention key biases, whose exact gradient is zero, below
+   1e-5 of the key kernel's gradient norm on both sides). That limit
+   covers the few FFN-input units whose ReLU gate flips on f32 roundoff
+   between the runs, which the phase counts; with the plain run's ReLU
+   masks shared the limit is 1e-4, and two planted faults (dQ x 1.001,
+   the xent backward without smoothing) must fail it. Then
+   ``TRAIN_STEPS`` bf16 steps on one repeated batch with a
+   ``TRAIN_WARMUP``-step noam warm-up: every loss finite and below the
+   one before, the exact launches per step, the p50 step time, tokens/s,
+   the kernels' device time per step and the peak device memory.
 
 Prints a ``{"kernels": [...]}`` line and ends with ``{"ok": true,
 "device": {...}}``. Exits non-zero, without that last line, on any
@@ -34,6 +57,9 @@ beside it.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import importlib
 import json
 import math
 import os
@@ -124,6 +150,60 @@ def check_close(name, out, ref, dtype):
         fail(f"{name}: kernel disagrees with its plain version "
              f"(max abs err {err:.3e}, rtol {rtol}, atol {atol})")
     return err
+
+
+def check_scaled(name, out, ref, tol):
+    """max |out - ref| <= tol * max(1, max |ref|); returns the error."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    bound = tol * max(1.0, ref.abs().max().item())
+    if not err <= bound:
+        fail(f"{name}: kernel disagrees with its plain version (max abs err "
+             f"{err:.3e} > {bound:.3e})")
+    return err
+
+
+def elementwise_ratio(out, ref, tol):
+    """The largest |out - ref| / (tol * (|ref| + mean |ref|)): each value
+    held to ``tol`` of its own size, with a floor of ``tol`` times the
+    mean magnitude where the reference cancels to near zero. Above 1
+    fails."""
+    ref = ref.float()
+    bound = tol * (ref.abs() + ref.abs().mean())
+    diff = (out.float() - ref).abs()
+    return (diff / bound.clamp_min(torch.finfo(torch.float32).tiny)).max(
+        ).item(), diff.max().item()
+
+
+def check_elementwise(name, out, ref, tol):
+    """``elementwise_ratio`` within 1; returns the max abs error."""
+    ratio, err = elementwise_ratio(out, ref, tol)
+    if not ratio <= 1.0:
+        fail(f"{name}: kernel disagrees with its plain version (max abs err "
+             f"{err:.3e}; worst element at {ratio:.3e} of its bound)")
+    return err
+
+
+def event_ms(fn, reps=5):
+    """Time of one call from CUDA events around ``reps`` calls, after one
+    warm-up call: for library calls that run autograd or an optimizer,
+    which the graph-based timer does not capture."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_row(err, ms, plain, bnd, lib, shape):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+            "shape": shape}
 
 
 def report(name, err, ms, plain, bnd, lib):
@@ -228,21 +308,20 @@ def phase_decode_attention(K, rng, dev):
         # the JSON row: f32, the largest decode / prefill bucket, no bias
         if dtype == torch.float32 and not biased and L == 256 and \
                 b == (16 if kq == 1 else 4):
-            main[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bnd[0], "bound_by": bnd[1],
-                         "library_ms": lib_ms, "shape": name}
+            main[key] = kernel_row(err, ms, plain_ms, bnd, lib_ms, name)
     return main
 
 
 def phase_layer_norm(K, rng, dev):
     """LayerNorm forward at n = d_model 1024: rows 16 (decode bucket 16,
-    one prefill chunk), 64 (prefill bucket 4 x page_len) and 256."""
+    one prefill chunk), 64 (prefill bucket 4 x page_len), 256, and 4096
+    (a training batch of 16 x 256 tokens)."""
     import torch.nn.functional as F
 
     n = 1024
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (16, 64, 256):
+        for rows in (16, 64, 256, 4096):
             elem = torch.tensor([], dtype=dtype).element_size()
             copies = [torch.from_numpy(rng.standard_normal((rows, n))).to(
                 dev, dtype) for _ in range(n_copies(2 * rows * n * elem))]
@@ -268,10 +347,11 @@ def phase_layer_norm(K, rng, dev):
                            8 * rows * n, torch.float32)
             report(name, err, ms, plain_ms, bnd, lib_ms)
             if dtype == torch.float32 and rows == 16:
-                main["layer_norm"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bnd[0], "bound_by": bnd[1],
-                    "library_ms": lib_ms, "shape": name}
+                main["layer_norm"] = kernel_row(err, ms, plain_ms, bnd,
+                                                lib_ms, name)
+            if dtype == torch.bfloat16 and rows == 4096:
+                main["layer_norm@train"] = kernel_row(
+                    err, ms, plain_ms, bnd, lib_ms, name)
     return main
 
 
@@ -315,10 +395,327 @@ def phase_quant_matmul(K, rng, dev):
                        2 * m * k * n, torch.int8)
         report(name, err, ms, plain_ms, bnd, lib_ms)
         if m == 16:
-            main["quant_matmul"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": lib_ms, "shape": name}
+            main["quant_matmul"] = kernel_row(err, ms, plain_ms, bnd,
+                                              lib_ms, name)
+    return main
+
+
+# -- training kernel phases --------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D = 16, 256, 16, 64
+
+
+def elem_size(dtype):
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def phase_flash_attention(K, gen, dev):
+    """FlashAttention forward, dK/dV and dQ at the training shape (B=16,
+    H=16, D=64: 256 heads of S=256, causal), at a ragged S=200, and
+    non-causal with a (B, S) key bias; f32 and bf16. The backward kernels
+    get the plain forward's lse and delta = rowsum(dO * O)."""
+    import torch.nn.functional as F
+
+    B, H, D = TRAIN_B, TRAIN_H, TRAIN_D
+    bh = B * H
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        tol_f, tol_g = (1e-5, 1e-4) if f32 else (2e-2, 2e-2)
+        elem = elem_size(dtype)
+        for s, causal, biased in ((256, True, False), (200, True, False),
+                                  (256, False, True)):
+            copies = [tuple(torch.randn((bh, s, D), generator=gen,
+                                        device=dev).to(dtype)
+                            for _ in range(4))
+                      for _ in range(n_copies(4 * bh * s * D * elem))]
+            bias = (torch.randn((B, s), generator=gen, device=dev)
+                    if biased else None)
+            args = dict(heads=H, sm_scale=D ** -0.5, causal=causal,
+                        bias=bias)
+            stats = []
+            for q, k, v, do in copies:
+                ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+                stats.append((ro, rlse, (do.float() * ro.float()).sum(-1)))
+            q, k, v, do = copies[0]
+            ro, rlse, delta = stats[0]
+            o, lse = K.flash_attention_fwd(q, k, v, **args)
+            dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+            rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta,
+                                                    **args)
+            dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+            rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+            torch.cuda.synchronize()
+            tag = (f"{str(dtype)[6:]} BH={bh} S={s} D={D}"
+                   f"{' causal' if causal else ''}{' bias' if biased else ''}")
+            err = {
+                "fwd": max(check_scaled(f"flash fwd o {tag}", o, ro, tol_f),
+                           check_scaled(f"flash fwd lse {tag}", lse, rlse,
+                                        1e-5)),
+                "dkdv": max(check_scaled(f"flash dk {tag}", dk, rdk, tol_g),
+                            check_scaled(f"flash dv {tag}", dv, rdv, tol_g)),
+                "dq": check_scaled(f"flash dq {tag}", dq, rdq, tol_g)}
+            fns = {
+                "fwd": (K.flash_attention_fwd, K.flash_attention_fwd_plain,
+                        lambda c, st: c[:3]),
+                "dkdv": (K.flash_attention_dkdv,
+                         K.flash_attention_dkdv_plain,
+                         lambda c, st: (*c, st[1], st[2])),
+                "dq": (K.flash_attention_dq, K.flash_attention_dq_plain,
+                       lambda c, st: (*c, st[1], st[2]))}
+            times = {}
+            for part, (kern, plain, pick) in fns.items():
+                times[part] = tuple(device_ms([
+                    lambda f=f, c=c, st=st: f(*pick(c, st), **args)
+                    for c, st in zip(copies, stats)]) for f in (kern, plain))
+            # yardsticks: SDPA forward, and SDPA forward + backward, on
+            # the same tensors as (B, H, S, D) views
+            mask = bias.view(B, 1, 1, s).to(dtype) if biased else None
+
+            def sdpa(c):
+                q4, k4, v4 = (t.view(B, H, s, D) for t in c[:3])
+                return lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, is_causal=causal)
+
+            lib_fwd = device_ms([sdpa(c) for c in copies])
+            qg, kg, vg = (t.view(B, H, s, D).detach().requires_grad_()
+                          for t in copies[0][:3])
+            do4 = copies[0][3].view(B, H, s, D)
+            lib_fb = event_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                               is_causal=causal),
+                (qg, kg, vg), do4))
+            # the work these inputs need: live (query, key) pairs only
+            pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+            io = bh * s * D * elem
+            extra = (B * s * 4 if biased else 0)
+            bnds = {"fwd": bound_ms(4 * io + bh * s * 4 + extra,
+                                    4 * D * pairs, dtype),
+                    "dkdv": bound_ms(6 * io + 2 * bh * s * 4 + extra,
+                                     8 * D * pairs, dtype),
+                    "dq": bound_ms(5 * io + 2 * bh * s * 4 + extra,
+                                   6 * D * pairs, dtype)}
+            libs = {"fwd": lib_fwd, "dkdv": lib_fb, "dq": lib_fb}
+            for part in ("fwd", "dkdv", "dq"):
+                name = f"flash_attention_{part} {tag}"
+                report(name, err[part], times[part][0], times[part][1],
+                       bnds[part], libs[part])
+                if not f32 and s == 256 and causal:
+                    main[f"flash_attention_{part}"] = kernel_row(
+                        err[part], times[part][0], times[part][1],
+                        bnds[part], libs[part], name)
+        print("  (flash library: fwd = SDPA forward; dkdv/dq = SDPA "
+              "forward + backward, which computes dq, dk and dv together)",
+              flush=True)
+    return main
+
+
+def phase_layer_norm_bwd(K, gen, dev):
+    """LayerNorm backward at the training shape: rows 4096, n 1024."""
+    rows, n = TRAIN_B * TRAIN_S, 1024
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        elem = elem_size(dtype)
+        copies = [(torch.randn((rows, n), generator=gen, device=dev)
+                   .mul(2).add(0.5).to(dtype),
+                   torch.randn((rows, n), generator=gen, device=dev)
+                   .to(dtype))
+                  for _ in range(n_copies(3 * rows * n * elem))]
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(n, generator=gen, device=dev)
+        stats = [K.layer_norm_plain(x, gamma, beta, return_stats=True)[1:]
+                 for x, _ in copies]
+        (x, dy), (mean, rstd) = copies[0], stats[0]
+        dx, dg, db = K.layer_norm_bwd(x, gamma, mean, rstd, dy)
+        rdx, rdg, rdb = K.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+        torch.cuda.synchronize()
+        name = f"layer_norm_bwd {str(dtype)[6:]} rows={rows} n={n}"
+        err = max(check_scaled(f"{name} dx", dx, rdx,
+                               1e-4 if dtype == torch.float32 else 2e-2),
+                  check_scaled(f"{name} dgamma", dg, rdg, 1e-4),
+                  check_scaled(f"{name} dbeta", db, rdb, 1e-4))
+        ms = device_ms([lambda c=c, st=st: K.layer_norm_bwd(
+            c[0], gamma, st[0], st[1], c[1])
+            for c, st in zip(copies, stats)])
+        plain_ms = device_ms([lambda c=c, st=st: K.layer_norm_bwd_plain(
+            c[0], gamma, st[0], st[1], c[1])
+            for c, st in zip(copies, stats)])
+        g_t, b_t = gamma.to(dtype), beta.to(dtype)
+        lib_ms = device_ms([
+            lambda c=c, st=st: torch.ops.aten.native_layer_norm_backward(
+                c[1], c[0], [n], st[0][:, None], st[1][:, None], g_t, b_t,
+                [True, True, True])
+            for c, st in zip(copies, stats)])
+        # read x, dO, gamma and the row statistics, write dx, dgamma,
+        # dbeta; ~12 flops an element
+        bnd = bound_ms(3 * rows * n * elem + 12 * n + 8 * rows,
+                       12 * rows * n, torch.float32)
+        report(name, err, ms, plain_ms, bnd, lib_ms)
+        if dtype == torch.bfloat16:
+            main["layer_norm_bwd"] = kernel_row(err, ms, plain_ms, bnd,
+                                                lib_ms, name)
+    print("  (layer_norm_bwd library: aten native_layer_norm_backward with "
+          "gamma/beta in the input dtype)", flush=True)
+    return main
+
+
+def phase_softmax_xent(K, gen, dev):
+    """Softmax cross-entropy forward and backward at the training shape:
+    (4096, 32768) logits, smoothing 0.1 and 0."""
+    import torch.nn.functional as F
+
+    rows, vocab = TRAIN_B * TRAIN_S, 32768
+    main = {}
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels_l = labels.long()
+    g = torch.rand(rows, generator=gen, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        elem = elem_size(dtype)
+        copies = [(3.0 * torch.randn((rows, vocab), generator=gen,
+                                     device=dev)).to(dtype)
+                  for _ in range(n_copies(rows * vocab * elem))]
+        for smoothing in (0.1, 0.0):
+            x = copies[0]
+            loss, lse = K.softmax_xent_fwd(x, labels, smoothing=smoothing)
+            rloss, rlse = K.softmax_xent_fwd_plain(x, labels,
+                                                   smoothing=smoothing)
+            dx = K.softmax_xent_bwd(x, labels, rlse, g, smoothing=smoothing)
+            rdx = K.softmax_xent_bwd_plain(x, labels, rlse, g,
+                                           smoothing=smoothing)
+            torch.cuda.synchronize()
+            tag = f"{str(dtype)[6:]} rows={rows} V={vocab} ls={smoothing}"
+            err_f = max(check_scaled(f"xent loss {tag}", loss, rloss, 1e-5),
+                        check_scaled(f"xent lse {tag}", lse, rlse, 1e-5))
+            tol_b = 1e-5 if f32 else 1e-2
+            err_b = check_elementwise(f"xent dx {tag}", dx, rdx, tol_b)
+            if smoothing > 0:
+                check_xent_bwd_faults(x, labels, rlse, g, rdx, smoothing,
+                                      tol_b, tag)
+            del dx, rdx
+            lses = [K.softmax_xent_fwd_plain(c, labels,
+                                             smoothing=smoothing)[1]
+                    for c in copies]
+            ms_f = device_ms([lambda c=c: K.softmax_xent_fwd(
+                c, labels, smoothing=smoothing) for c in copies])
+            plain_f = device_ms([lambda c=c: K.softmax_xent_fwd_plain(
+                c, labels, smoothing=smoothing) for c in copies])
+            ms_b = device_ms([lambda c=c, ls=ls: K.softmax_xent_bwd(
+                c, labels, ls, g, smoothing=smoothing)
+                for c, ls in zip(copies, lses)])
+            plain_b = device_ms([lambda c=c, ls=ls: K.softmax_xent_bwd_plain(
+                c, labels, ls, g, smoothing=smoothing)
+                for c, ls in zip(copies, lses)])
+            # yardstick: F.cross_entropy WITHOUT smoothing (PyTorch's
+            # smoothing convention is another function), forward, and
+            # forward + backward
+            lib_f = device_ms([lambda c=c: F.cross_entropy(
+                c, labels_l, reduction="none") for c in copies])
+            xg = x.detach().requires_grad_()
+            lib_fb = event_ms(lambda: torch.autograd.grad(
+                F.cross_entropy(xg, labels_l, reduction="none"), xg, g))
+            bnd_f = bound_ms(rows * vocab * elem + 12 * rows,
+                             5 * rows * vocab, torch.float32)
+            bnd_b = bound_ms(2 * rows * vocab * elem + 12 * rows,
+                             4 * rows * vocab, torch.float32)
+            report(f"softmax_xent_fwd {tag}", err_f, ms_f, plain_f, bnd_f,
+                   lib_f)
+            report(f"softmax_xent_bwd {tag}", err_b, ms_b, plain_b, bnd_b,
+                   lib_fb)
+            if not f32 and smoothing > 0:
+                main["softmax_xent_fwd"] = kernel_row(
+                    err_f, ms_f, plain_f, bnd_f, lib_f,
+                    f"softmax_xent_fwd {tag}")
+                main["softmax_xent_bwd"] = kernel_row(
+                    err_b, ms_b, plain_b, bnd_b, lib_fb,
+                    f"softmax_xent_bwd {tag}")
+            del xg
+        del copies
+    print("  (xent library: F.cross_entropy with label_smoothing=0, a "
+          "different smoothing convention; bwd = its forward + backward)",
+          flush=True)
+    return main
+
+
+def check_xent_bwd_faults(x, labels, lse, g, rdx, smoothing, tol, tag):
+    """The dx check above must fail a backward that leaves out the
+    smoothing mass ``low * g`` of every non-label column, and (at f32,
+    where the values resolve it) one that scales ``p`` by 1.001: both
+    faults built from the plain version on this phase's inputs."""
+    low = smoothing / (x.shape[-1] - 1)
+    gl = low * g
+    faults = {"no low": rdx.float() + gl[:, None]}
+    faults["no low"].scatter_add_(1, labels.long()[:, None], -gl[:, None])
+    if x.dtype == torch.float32:
+        p = torch.exp(x.float() - lse[:, None])
+        faults["p x 1.001"] = rdx.float() + 1e-3 * p * g[:, None]
+        del p
+    readings = []
+    for fault, dx in faults.items():
+        ratio, err = elementwise_ratio(dx.to(x.dtype), rdx, tol)
+        if not ratio > 1.0:
+            fail(f"xent dx {tag}: the check passes a planted fault "
+                 f"({fault}: max abs err {err:.3e}, {ratio:.3e} of the "
+                 f"bound)")
+        readings.append(f"{fault} at {ratio:.3e}x its bound")
+    print(f"  xent dx {tag}: the check fails planted faults: "
+          f"{', '.join(readings)}", flush=True)
+
+
+def adam_group_sizes(cfg):
+    """Elements of the (f32, f32) and (bf16, f32) Adam groups of the
+    causal LM under bf16 compute: the embedding and LayerNorm parameters,
+    and the Dense kernels and biases."""
+    from simple_tensorflow_tpu_torch import convert
+
+    sizes = [0, 0]
+    for name, shape in convert._shapes(cfg).items():
+        dense = name.endswith((".kernel", ".bias"))
+        sizes[int(dense)] += math.prod(shape)
+    return sizes
+
+
+def phase_adam(K, gen, dev, cfg):
+    """Fused Adam over the two flat groups of the bf16 training path: f32
+    parameters (embedding, LayerNorm) and bf16 parameters (Dense), f32
+    slots. Bit-exact with the plain version."""
+    main = {}
+    kw = dict(beta1=0.9, beta2=0.997, eps=1e-9)
+    alpha = torch.tensor(1e-3, device=dev)
+    for dtype, n in zip((torch.float32, torch.bfloat16),
+                        adam_group_sizes(cfg)):
+        p = torch.randn(n, generator=gen, device=dev).to(dtype)
+        m = 0.1 * torch.randn(n, generator=gen, device=dev)
+        v = 0.01 * torch.rand(n, generator=gen, device=dev)
+        g = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+        got = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha, **kw)
+        ref = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g, alpha,
+                                  **kw)
+        torch.cuda.synchronize()
+        name = f"adam_update {str(dtype)[6:]} params n={n}"
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{name}: kernel is not bit-exact with its plain version")
+        del got, ref
+        err = 0.0
+        ms = device_ms([lambda: K.adam_update(p, m, v, g, alpha, **kw)])
+        plain_ms = device_ms([lambda: K.adam_update_plain(p, m, v, g, alpha,
+                                                          **kw)])
+        pt = torch.nn.Parameter(p.clone())
+        pt.grad = g.clone()
+        opt = torch.optim.Adam([pt], lr=1e-3, betas=(0.9, 0.997), eps=1e-9,
+                               fused=True)
+        lib_ms = event_ms(opt.step)
+        pe = elem_size(dtype)
+        # read p, g, m, v; write p, m, v; ~12 flops an element
+        bnd = bound_ms(n * (3 * pe + 16), 12 * n, torch.float32)
+        report(name, err, ms, plain_ms, bnd, lib_ms)
+        if dtype == torch.bfloat16:
+            main["adam_update"] = kernel_row(err, ms, plain_ms, bnd, lib_ms,
+                                             name)
+        del p, m, v, g, pt, opt
+    print("  (adam library: torch.optim.Adam(fused=True).step, whose slots "
+          "take the parameter's dtype)", flush=True)
     return main
 
 
@@ -359,7 +756,7 @@ def check_stream(model, prompt, result, int8):
     toks = [int(t) for t in result["tokens"]]
     seq = list(prompt) + toks
     ids = torch.tensor([seq[:-1]], dtype=torch.long, device=model.device)
-    h = clm.causal_lm_hidden(model.stack, ids)[0, len(prompt) - 1:]
+    h = clm.causal_lm_hidden_plain(model.stack, ids)[0, len(prompt) - 1:]
     if int8:
         logits = K.quant_matmul_plain(h, model.wq, model.w_scale).float()
         _, xs = K.quantize_rowwise_plain(h)
@@ -457,6 +854,270 @@ def serve(params, cfg, int8, prompts, dev):
     return counts
 
 
+# -- training phase ------------------------------------------------------------
+
+TRAIN_STEPS = 16
+# a warm-up this long keeps the learning rate (1.2e-4 at step 16) below
+# the point where Adam overshoots on one repeated batch: with 16 the loss
+# stalled after five steps, so "falls at every step" would test nothing
+TRAIN_WARMUP = 256
+# launches of one training step (6 layers: one flash attention and two
+# LayerNorms each; one xent; one Adam kernel per flat group)
+PER_STEP = {"flash_attention_fwd": 6, "flash_attention_dkdv": 6,
+            "flash_attention_dq": 6, "layer_norm": 12, "layer_norm_bwd": 12,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+
+
+def expected_counts(names, steps, adam_groups):
+    want = {k: 0 for k in names}
+    for k, v in PER_STEP.items():
+        want[k] = v * steps
+    want["adam_update"] = adam_groups * steps
+    return want
+
+
+def train_batch(vocab, seed=7):
+    """One LM batch: random tokens, targets shifted by one, the last
+    target of every row the pad id (weight 0)."""
+    rng = np.random.RandomState(seed)
+    tok_in = rng.randint(2, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    tok_out = np.roll(tok_in, -1, axis=1)
+    tok_out[:, -1] = 0
+    return tok_in, tok_out
+
+
+def grad_rel_errs(a, b):
+    """{parameter: relative norm error of a's gradient against b's}, the
+    attention key biases apart (their exact gradient is zero: a softmax
+    does not change when the same q . b_k is added to every score of a
+    row, so both sides hold roundoff only)."""
+    grads_b = dict(b.stack.named_parameters())
+    out = {}
+    for name, pa in a.stack.named_parameters():
+        if not name.endswith("self_attn.k.bias"):
+            ga, gb = pa.grad.float(), grads_b[name].grad.float()
+            out[name] = ((ga - gb).norm() / gb.norm()).item()
+    return out
+
+
+def relu_recording(trainer, signs=None, masks=None):
+    """Swap each layer's FFN-input ReLU for one that appends its
+    pre-activation's sign mask to ``signs``; with ``masks`` (one per
+    layer), gate by those masks instead of the pre-activation's own
+    signs."""
+    for i, layer in enumerate(trainer.stack.layers):
+        def act(y, i=i):
+            if signs is not None:
+                signs.append(y.detach() > 0)
+            if masks is not None:
+                return y * masks[i].to(y.dtype)
+            return torch.relu(y)
+        layer.ffn["in"].activation = act
+
+
+@contextlib.contextmanager
+def planted(module, name, wrap):
+    """Within the block, ``module.name`` is ``wrap(module.name)``."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+F32_GRAD_TOL = 1e-3          # kernels vs plain, each with its own ReLU
+F32_SHARED_TOL = 1e-4        # kernels vs plain, the plain run's ReLU mask
+
+
+def check_f32_step(K, cfg, params, batch, dev):
+    """One f32 step through the kernels against the same step through
+    the plain versions, both on the card: the loss, and every parameter's
+    gradient by relative norm. Three more readings explain and test the
+    gradient limit: the FFN-input units whose ReLU gate differs between
+    the two runs; the kernel step again with the plain run's ReLU masks,
+    held to the tighter ``F32_SHARED_TOL``; and two planted faults under
+    those shared masks (dQ scaled by 1.001, the xent backward without
+    smoothing), each of which must fail that limit. A second plain step
+    gives the floor: the plain step is deterministic on the card."""
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+
+    # the modules (the package re-exports functions under their names)
+    kmod = "simple_tensorflow_tpu_torch.ops.kernels."
+    flash_attention = importlib.import_module(kmod + "flash_attention")
+    softmax_xent = importlib.import_module(kmod + "softmax_xent")
+
+    def run(plain=False, signs=None, masks=None):
+        t = clm.causal_lm_train_model(
+            TRAIN_B, TRAIN_S, cfg, compute_dtype=torch.float32,
+            params=params, device=dev, plain=plain)
+        relu_recording(t, signs, masks)
+        return t, t.step(*batch).item()
+
+    signs_p, signs_k = [], []
+    tp, loss_p = run(plain=True, signs=signs_p)
+    before = K.launch_counts()
+    tp2, _ = run(plain=True)
+    floor = max(grad_rel_errs(tp2, tp).values())
+    del tp2
+    if K.launch_counts() != before:
+        fail("train[f32]: the plain step launched kernels")
+    K.reset_launch_counts()
+    tk, loss_k = run(signs=signs_k)
+    counts = K.launch_counts()
+    want = expected_counts(counts, 1, 1)
+    if counts != want:
+        fail(f"train[f32]: launches {counts}, expected per step {want}")
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        fail(f"train[f32]: loss {loss_k} through the kernels, {loss_p} "
+             f"through the plain versions")
+    grads_p = dict(tp.stack.named_parameters())
+    for name, pk in tk.stack.named_parameters():
+        if name.endswith("self_attn.k.bias"):
+            scale = grads_p[name[:-4] + "kernel"].grad.float().norm().item()
+            for g in (pk.grad, grads_p[name].grad):
+                if g.float().norm().item() > 1e-5 * scale:
+                    fail(f"train[f32]: {name} gradient is not roundoff")
+    errs = grad_rel_errs(tk, tp)
+    del tk
+    flips = [int((a != b).sum().item()) for a, b in zip(signs_k, signs_p)]
+    tm, _ = run(masks=signs_p)
+    shared = grad_rel_errs(tm, tp)
+    del tm
+    faults = {}
+    for fault, module, name, wrap in (
+            ("dq x 1.001", flash_attention, "flash_attention_dq",
+             lambda f: lambda *a, **k: f(*a, **k) * 1.001),
+            ("xent bwd without smoothing", softmax_xent, "softmax_xent_bwd",
+             lambda f: lambda *a, **k: f(*a, **dict(k, smoothing=0.0)))):
+        with planted(module, name, wrap):
+            tf, _ = run(masks=signs_p)
+        faults[fault] = max(grad_rel_errs(tf, tp).values())
+        del tf
+    del tp
+
+    def worst(e, n=3):
+        return [(k, f"{v:.3e}") for k, v in
+                sorted(e.items(), key=lambda kv: -kv[1])[:n]]
+
+    units = signs_p[0].numel()
+    print(f"train[f32]: loss {loss_k:.7f} (kernels) vs {loss_p:.7f} "
+          f"(plain); launches {counts}", flush=True)
+    print(f"train[f32]: gradient rel err, worst: {worst(errs)} (limit "
+          f"{F32_GRAD_TOL}); plain vs plain worst {floor:.3e}", flush=True)
+    print(f"train[f32]: FFN-input ReLU gates that differ, kernels vs plain, "
+          f"per layer (of {units}): {flips}", flush=True)
+    print(f"train[f32]: with the plain run's ReLU masks shared, gradient "
+          f"rel err, worst: {worst(shared)} (limit {F32_SHARED_TOL})",
+          flush=True)
+    print(f"train[f32]: planted faults, shared masks, worst gradient rel "
+          f"err: {', '.join(f'{k} {v:.3e}' for k, v in faults.items())}",
+          flush=True)
+    bad = {n: e for n, e in errs.items() if not e <= F32_GRAD_TOL}
+    if bad:
+        fail(f"train[f32]: gradient rel err above {F32_GRAD_TOL}: {bad}")
+    bad = {n: e for n, e in shared.items() if not e <= F32_SHARED_TOL}
+    if bad:
+        fail(f"train[f32]: with shared ReLU masks, gradient rel err above "
+             f"{F32_SHARED_TOL}: {bad}")
+    missed = [k for k, v in faults.items() if not v > F32_SHARED_TOL]
+    if missed:
+        fail(f"train[f32]: the shared-mask limit passes planted faults "
+             f"{missed}: {faults}")
+
+
+def train_phase(K, cfg_big, params, dev, kernel_rows):
+    """The training main path (module docstring, phase 4)."""
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+
+    cfg = dataclasses.replace(cfg_big, dropout=0.0)
+    batch = train_batch(cfg.vocab_size)
+    check_f32_step(K, cfg, params, batch, dev)
+    torch.cuda.empty_cache()
+
+    trainer = clm.causal_lm_train_model(
+        TRAIN_B, TRAIN_S, cfg, compute_dtype=torch.bfloat16, params=params,
+        warmup_steps=TRAIN_WARMUP, device=dev)
+    n_groups = len(trainer.optimizer.flat_groups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = trainer.step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_counts(counts, TRAIN_STEPS, n_groups)
+    if n_groups != 2 or counts != want:
+        fail(f"train[bf16]: {n_groups} Adam groups, launches {counts}, "
+             f"expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train[bf16]: non-finite loss in {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"train[bf16]: the loss does not fall at every step: {losses}")
+    p50 = statistics.median(times)
+    tokens = TRAIN_B * TRAIN_S
+    rows = {k: kernel_rows[k] for k in PER_STEP if k != "layer_norm"}
+    rows["layer_norm"] = kernel_rows["layer_norm@train"]
+    rows["adam_update"] = kernel_rows["adam_update"]
+    per_step = dict(PER_STEP, adam_update=n_groups)
+    kern_ms = sum(rows[k]["ms"] * per_step[k] for k in per_step)
+    print(f"train[bf16]: TransformerConfig.big() dropout 0, batch "
+          f"{TRAIN_B} x {TRAIN_S}, warmup_steps {TRAIN_WARMUP}, "
+          f"{TRAIN_STEPS} steps on one repeated batch", flush=True)
+    print(f"train[bf16]: losses {[round(x, 5) for x in losses]}",
+          flush=True)
+    print(f"train[bf16]: p50 step {p50 * 1e3:.4f} ms (min "
+          f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
+          f"{tokens / p50:.1f} tokens/s; the kernels at their phase times "
+          f"{kern_ms:.4f} ms a step ({100 * kern_ms / (p50 * 1e3):.1f}% of "
+          f"the p50 step; Adam counted once per group at the bf16 group's "
+          f"time); peak device memory {peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"train[bf16]: launches {counts}", flush=True)
+    profile_steps(trainer, batch)
+    return counts
+
+
+def profile_steps(trainer, batch, n=3):
+    """Device time of ``n`` more training steps from a ``torch.profiler``
+    trace (CUDA kernels, copies and fills, summed), against the host
+    clock around them, and the kernels that take the most of it. Run
+    after the counted window; the profiler's host-side tracing slows the
+    host, so the busy share here is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    by_name = {}
+    for e in prof.events():
+        # device kernels, copies and fills; not the user-annotation ranges
+        # (e.g. the optimizer's step) that span kernels already counted
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / n
+    if not by_name:
+        print("train[bf16]: the profiler saw no device time; the device "
+              "busy share is not measured", flush=True)
+        return
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"train[bf16]: profiler, {n} steps: device busy {dev_ms:.4f} ms "
+          f"a step of {wall_ms:.4f} ms on the host clock "
+          f"({100 * dev_ms / wall_ms:.1f}%)", flush=True)
+    for name, ms in top:
+        print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures "
@@ -489,8 +1150,15 @@ def main():
     main_rows.update(phase_decode_attention(K, rng, dev))
     main_rows.update(phase_layer_norm(K, rng, dev))
     main_rows.update(phase_quant_matmul(K, rng, dev))
-
     cfg = tr.TransformerConfig.big()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    main_rows.update(phase_flash_attention(K, gen, dev))
+    main_rows.update(phase_layer_norm_bwd(K, gen, dev))
+    main_rows.update(phase_softmax_xent(K, gen, dev))
+    main_rows.update(phase_adam(K, gen, dev, cfg))
+    torch.cuda.empty_cache()
+
     params = convert.init_params(cfg, seed=0)
     prompts = make_prompts(cfg.vocab_size)
     launches = {}
@@ -498,6 +1166,10 @@ def main():
         counts = serve(params, cfg, int8, prompts, dev)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    counts = train_phase(K, cfg, params, dev, main_rows)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
 
     where = {
         "decode_attention": ("decode_attention.cu",
@@ -506,6 +1178,16 @@ def main():
                                    "decode_attention.py:108"),
         "layer_norm": ("layer_norm.cu", "layer_norm.py:29"),
         "quant_matmul": ("quant_matmul.cu", "quant_matmul.py:45"),
+        "flash_attention_fwd": ("flash_attention.cu",
+                                "flash_attention.py:102"),
+        "flash_attention_dkdv": ("flash_attention.cu",
+                                 "flash_attention.py:210"),
+        "flash_attention_dq": ("flash_attention.cu",
+                               "flash_attention.py:264"),
+        "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:42"),
+        "softmax_xent_fwd": ("softmax_xent.cu", "softmax_xent.py:32"),
+        "softmax_xent_bwd": ("softmax_xent.cu", "softmax_xent.py:78"),
+        "adam_update": ("fused_update.cu", "fused_update.py:59"),
     }
     rows = []
     for name, (src, tpu) in where.items():

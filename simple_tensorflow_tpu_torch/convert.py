@@ -1,16 +1,23 @@
-"""Carry causal-LM weights into the port.
+"""Carry causal-LM weights and training state into the port.
 
 - :func:`load_stfz` reads a checkpoint written by the JAX package's
   ``train.Saver`` (``<prefix>.stfz``, an npz whose keys are variable paths
   with ``|`` for ``/``, beside ``<prefix>.index.json``) with numpy alone,
   as ``simple_tensorflow_tpu/train/saver.py:load_checkpoint_values``
-  (:77-99) reads it.
+  (:77-99) reads it. bf16 variables are stored as raw 2-byte values with
+  ``"dtype": "bfloat16"`` in the index; they are widened to f32 exactly.
 - :func:`params_from_jax` maps JAX variable names
   (``causal_lm/shared_embedding``, ``causal_lm/decoder/layer_{i}/
   {self_attn/{q,k,v,out},ffn/{in,out}}/{kernel,bias}``,
   ``…/ln1|ln3/{gamma,beta}``) to a
   :class:`..models.transformer.DecoderStack` ``state_dict``. Dense kernels
-  are ``(in, out)`` on both sides.
+  are ``(in, out)`` on both sides, and in the compute dtype (bf16 under
+  bf16 training, as the JAX graph creates them).
+- :func:`load_training_state` maps the rest of a JAX training checkpoint
+  onto a trainer: ``global_step``, Adam's ``beta1_power``/``beta2_power``
+  and the flat slots ``fused_m_g{i}``/``fused_v_g{i}``
+  (``train/optimizers.py:104-106``), one per ``(param dtype, update
+  dtype)`` group in the same order.
 - :func:`init_params` makes numpy-seeded weights of the same shapes and
   initializers as the JAX model, so the card can run without JAX.
 """
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -34,6 +42,7 @@ def load_stfz(prefix: str) -> dict:
     if prefix.endswith(".stfz"):
         prefix = prefix[:-len(".stfz")]
     index = prefix + ".index.json"
+    tensors = {}
     if os.path.exists(index):
         with open(index) as f:
             tensors = json.load(f).get("tensors", {})
@@ -43,8 +52,25 @@ def load_stfz(prefix: str) -> dict:
             raise NotImplementedError(
                 f"per-shard checkpoint entries {sharded[:3]} are not read "
                 "by the port yet; save from a single-device session")
+    out = {}
     with np.load(prefix + ".stfz", allow_pickle=False) as data:
-        return {k.replace("|", "/"): data[k] for k in data.files}
+        for key in data.files:
+            name = key.replace("|", "/")
+            value = data[key]
+            if tensors.get(name, {}).get("dtype") == "bfloat16":
+                value = bf16_to_f32(value)
+            elif value.dtype.kind == "V":
+                raise ValueError(f"{name}: raw {value.dtype} values without "
+                                 "a dtype in the checkpoint index")
+            out[name] = value
+    return out
+
+
+def bf16_to_f32(raw: np.ndarray) -> np.ndarray:
+    """Widen raw bfloat16 bits (any 2-byte dtype) to f32, exactly: the
+    bf16 bits are the high half of the f32 bits."""
+    bits = raw.view(np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
 
 
 def _shapes(cfg: TransformerConfig) -> dict:
@@ -65,9 +91,12 @@ def _shapes(cfg: TransformerConfig) -> dict:
 
 
 def params_from_jax(named: dict, cfg: TransformerConfig,
-                    scope: str = "causal_lm") -> dict:
-    """Map JAX variable names to the port's ``state_dict`` (CPU f32
-    tensors). Raises on a missing variable or a shape mismatch."""
+                    scope: str = "causal_lm",
+                    compute_dtype=torch.float32) -> dict:
+    """Map JAX variable names to the port's ``state_dict`` (CPU tensors):
+    Dense kernels and biases in ``compute_dtype``, the embedding and the
+    LayerNorm parameters f32. Raises on a missing variable or a shape
+    mismatch."""
     state = {}
     for name, shape in _shapes(cfg).items():
         jax_name = f"{scope}/" + name.replace(".", "/")
@@ -77,8 +106,49 @@ def params_from_jax(named: dict, cfg: TransformerConfig,
         if value.shape != shape:
             raise ValueError(f"{jax_name}: shape {value.shape}, expected "
                              f"{shape}")
-        state[name] = torch.from_numpy(value.copy())
+        t = torch.from_numpy(value.copy())
+        if name.endswith((".kernel", ".bias")):
+            t = t.to(compute_dtype)
+        state[name] = t
     return state
+
+
+def _one(named: dict, pattern: str) -> str:
+    hits = [k for k in named if re.search(pattern, k)]
+    if len(hits) != 1:
+        raise KeyError(f"expected one checkpoint variable matching "
+                       f"{pattern!r}, found {sorted(hits)}")
+    return hits[0]
+
+
+def load_training_state(trainer, named: dict, optimizer_name: str = "Adam"):
+    """Carry a JAX training checkpoint's step and Adam state onto a
+    :class:`..models.causal_lm.CausalLMTrainer` (its weights come from
+    :func:`params_from_jax`): ``global_step``, ``…/beta1_power``,
+    ``…/beta2_power`` and ``…/fused_m_g{i}``/``fused_v_g{i}`` onto the
+    optimizer's groups, in order. A checkpoint without a global step (a
+    serving export) leaves the trainer as it is. Raises when the slots do
+    not match the groups' sizes."""
+    if not any(k.split("/")[-1] == "global_step" for k in named):
+        return
+    opt = trainer.optimizer
+    dev = opt.beta1_power.device
+    trainer.set_global_step(int(named[_one(named, r"(^|/)global_step$")]))
+    name = re.escape(optimizer_name)
+    for attr, which in (("beta1_power", "beta1_power"),
+                        ("beta2_power", "beta2_power")):
+        value = named[_one(named, rf"(^|/){name}/{which}$")]
+        getattr(opt, attr).fill_(float(np.asarray(value, np.float32)))
+    for gi, grp in enumerate(opt.flat_groups):
+        for slot in ("m", "v"):
+            value = np.asarray(
+                named[_one(named, rf"(^|/){name}/fused_{slot}_g{gi}$")],
+                np.float32)
+            if value.shape != (len(grp),):
+                raise ValueError(
+                    f"flat Adam slot {slot} of group {gi}: shape "
+                    f"{value.shape}, the port's group holds {len(grp)}")
+            getattr(grp, slot).copy_(torch.from_numpy(value).to(dev))
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:

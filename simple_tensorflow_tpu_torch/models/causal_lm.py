@@ -1,8 +1,15 @@
-"""Paged causal-LM serving model.
+"""Decoder-only causal LM: training and paged serving.
 
-Port of ``simple_tensorflow_tpu/models/causal_lm.py``:
-``build_causal_lm_program`` (:146) and ``CausalLMGenerativeModel`` (:325)
-with greedy ``_emit`` (:248), as eager PyTorch modules. Each layer keeps a
+Port of ``simple_tensorflow_tpu/models/causal_lm.py``, as eager PyTorch
+modules. Two halves, as there:
+
+- :func:`causal_lm_logits` / :func:`causal_lm_train_model` (:50, :83): the
+  training forward through the flash-attention, LayerNorm and softmax-xent
+  kernels, and a trainer that takes one Adam step (the fused flat-group
+  kernel) with the noam schedule per call. Dropout comes in slice 3:
+  ``cfg.dropout > 0`` raises.
+- ``build_causal_lm_program`` (:146) and ``CausalLMGenerativeModel`` (:325)
+  with greedy ``_emit`` (:248): paged serving. Each layer keeps a
 K and a V :class:`..ops.kv_cache.KVCache` of ``(num_pages + 1, page_len,
 H, hd)``; a sequence's state is its ordered page table, and attention
 reads the logical view the page-table gather builds. The serving engine
@@ -21,26 +28,196 @@ pad token at position 0 and point every page-table entry and the write
 target at the scratch page (:482-539 of the JAX module), so they never
 touch a live page.
 
-:func:`causal_lm_logits` is the plain full re-forward (causal attention,
-LayerNorm and the logits head in PyTorch ops, no kernel): the reference
-the engine's tokens are checked against. It is not on the serving path.
+:func:`causal_lm_logits_plain` is the plain full re-forward (causal
+attention, LayerNorm and the logits head in PyTorch ops, no kernel): the
+reference the engine's tokens are checked against. It is on neither path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops import fused_ops
 from ..ops.kernels.common import NEG_INF
+from ..ops.kernels.fused_update import adam_update, adam_update_plain
 from ..ops.kernels.layer_norm import layer_norm_plain
 from ..ops.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from ..ops.kv_cache import KVCache
+from ..train.optimizers import AdamOptimizer
 from .common import resolve_device
-from .transformer import (DecoderStack, TransformerConfig, block_decode,
-                          build_int8_logits_weights, incremental_decode)
+from .transformer import (DecoderStack, TransformerConfig, _attention,
+                          _embed, _ffn, _residual, block_decode,
+                          build_int8_logits_weights, incremental_decode,
+                          smoothed_xent)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def causal_lm_logits(stack: DecoderStack, ids, *, training=True,
+                     compute_dtype=torch.bfloat16):
+    """Next-token logits ``(B, S, vocab)`` in ``compute_dtype`` for token
+    ids ``(B, S)``: causal flash self-attention + FFN per layer, ``ln1``
+    after attention and ``ln3`` after the FFN, and the tied softmax
+    against the f32 table cast to the compute dtype. Differentiable."""
+    cfg = stack.cfg
+    h = _embed(stack, ids, compute_dtype, training)
+    for layer in stack.layers:
+        a = _attention(layer, h, cfg, training, causal=True)
+        h = layer.ln1(_residual(a, h, cfg, training))
+        f = _ffn(layer, h, cfg, training)
+        h = layer.ln3(h + f)
+    b, s = ids.shape
+    flat = h.reshape(b * s, cfg.d_model)
+    logits = torch.matmul(flat, stack.shared_embedding.to(h.dtype).t())
+    return logits.reshape(b, s, cfg.vocab_size)
+
+
+def _noam(step_t, learning_rate, d_model, warmup_steps):
+    """The noam schedule as a function of the device step counter (a
+    closure, not a bound method, so the optimizer holding it keeps no
+    reference cycle to the trainer)."""
+    scale = learning_rate * d_model ** -0.5
+    warm = warmup_steps ** -1.5
+
+    def lr():
+        """The f32 noam learning rate of the next step, on the device."""
+        step = step_t.to(torch.float32) + 1.0
+        return scale * torch.minimum(torch.pow(step, -0.5), step * warm)
+
+    return lr
+
+
+class CausalLMTrainer:
+    """The port's counterpart of the JAX training dict ``{"loss",
+    "train_op", "learning_rate", "global_step"}``: the model
+    (:attr:`stack`, Dense parameters in the compute dtype, the embedding
+    and LayerNorm parameters f32), an :class:`..train.optimizers.
+    AdamOptimizer` (beta1 0.9, beta2 0.997, epsilon 1e-9) and the global
+    step. :meth:`step` runs forward, backward and the fused Adam update,
+    then increments the global step. The learning rate is the noam
+    schedule ``learning_rate * d_model^-0.5 * min(step^-0.5, step *
+    warmup^-1.5)`` with ``step = global_step + 1``, formed in f32 on the
+    device before the increment, as at ``causal_lm.py:97-100``.
+
+    ``plain=True`` runs the whole step (the fused ops under
+    :func:`..ops.fused_ops.plain_versions` and the plain Adam update)
+    through the kernels' plain PyTorch versions on any device: the
+    reference the kernel step is held against on the card."""
+
+    def __init__(self, cfg: TransformerConfig, batch_size, seq_len,
+                 learning_rate, warmup_steps, compute_dtype, state, device,
+                 plain=False):
+        if cfg.dropout > 0:
+            raise NotImplementedError(
+                f"cfg.dropout={cfg.dropout}: dropout training comes in "
+                "slice 3 of the PyTorch port (the counter-hash keep masks "
+                "of the JAX kernels); this slice trains only with "
+                "dropout=0.0")
+        if seq_len > cfg.max_len:
+            raise ValueError(f"seq_len={seq_len} exceeds cfg.max_len="
+                             f"{cfg.max_len} (position-encoding table)")
+        self.cfg = cfg
+        self.device = device
+        self.batch_size = int(batch_size)
+        self.seq_len = int(seq_len)
+        self.compute_dtype = compute_dtype
+        self.plain = bool(plain)
+        self.stack = DecoderStack(cfg, dtype=compute_dtype, device=device)
+        self.stack.load_state_dict(state)
+        self.global_step = 0
+        # the device copy of the global step the learning rate reads
+        self._step_t = torch.zeros((), dtype=torch.int64, device=device)
+        self.learning_rate = _noam(self._step_t, learning_rate, cfg.d_model,
+                                   warmup_steps)
+        self.optimizer = AdamOptimizer(
+            self.stack.parameters(), learning_rate=self.learning_rate,
+            beta1=0.9, beta2=0.997, epsilon=1e-9,
+            update=adam_update_plain if self.plain else adam_update)
+
+    def _batch(self, tok):
+        tok = torch.as_tensor(tok).to(self.device, torch.int64)
+        if tuple(tok.shape) != (self.batch_size, self.seq_len):
+            raise ValueError(f"batch must be ({self.batch_size}, "
+                             f"{self.seq_len}), got {tuple(tok.shape)}")
+        return tok
+
+    def loss(self, tok_in, tok_out):
+        """The label-smoothed LM loss (f32 scalar) of one batch, recorded
+        for autograd."""
+        tok_in, tok_out = self._batch(tok_in), self._batch(tok_out)
+        with (fused_ops.plain_versions() if self.plain
+              else contextlib.nullcontext()):
+            logits = causal_lm_logits(self.stack, tok_in, training=True,
+                                      compute_dtype=self.compute_dtype)
+            weights = (tok_out != self.cfg.pad_id).float()
+            return smoothed_xent(logits, tok_out, weights, self.cfg)
+
+    def loss_and_grads(self, tok_in, tok_out):
+        """Forward and backward without an update: the loss, with the
+        gradients left in the optimizer's flat buffers (each parameter's
+        ``.grad``)."""
+        self.optimizer.zero_grad()
+        loss = self.loss(tok_in, tok_out)
+        loss.backward()
+        return loss.detach()
+
+    def step(self, tok_in, tok_out):
+        """One training step; returns the step's f32 loss (a device
+        scalar: reading it waits for the step)."""
+        loss = self.loss_and_grads(tok_in, tok_out)
+        self.optimizer.step()
+        self.global_step += 1
+        self._step_t += 1
+        return loss
+
+    def set_global_step(self, step: int):
+        self.global_step = int(step)
+        self._step_t.fill_(int(step))
+
+
+def causal_lm_train_model(batch_size=8, seq_len=32,
+                          cfg: Optional[TransformerConfig] = None,
+                          learning_rate=1.0, warmup_steps=4000,
+                          compute_dtype=torch.bfloat16, *, params=None,
+                          checkpoint=None, seed=0, scope="causal_lm",
+                          device="cuda", plain=False):
+    """The training model: a :class:`CausalLMTrainer` for ``(batch_size,
+    seq_len)`` token batches with the JAX function's recipe
+    (label-smoothed LM loss, Adam, noam schedule).
+
+    Weights come from ``checkpoint=`` (a JAX ``.stfz`` prefix; a training
+    checkpoint also carries the global step, the beta powers and the flat
+    Adam slots across), ``params=`` (a ``state_dict``), or
+    :func:`..convert.init_params` with ``seed``. ``device`` defaults to
+    ``"cuda"`` and raises without a card; pass ``device="cpu"`` to run the
+    kernels' plain versions on the CPU. ``plain=True`` runs them on any
+    device (:class:`CausalLMTrainer`)."""
+    from .. import convert
+
+    cfg = cfg or TransformerConfig.base()
+    device = resolve_device(device)
+    named = None
+    if checkpoint is not None:
+        named = convert.load_stfz(checkpoint)
+        state = convert.params_from_jax(named, cfg, scope=scope,
+                                        compute_dtype=compute_dtype)
+    elif params is not None:
+        state = params
+    else:
+        state = convert.init_params(cfg, seed)
+    trainer = CausalLMTrainer(cfg, batch_size, seq_len, learning_rate,
+                              warmup_steps, compute_dtype, state, device,
+                              plain=plain)
+    if named is not None:
+        convert.load_training_state(trainer, named)
+    return trainer
 
 
 class _PagedCaches:
@@ -135,6 +312,7 @@ class CausalLMGenerativeModel:
             state = convert.init_params(cfg, seed)
         self.stack = DecoderStack(cfg, device=self.device)
         self.stack.load_state_dict(state)
+        self.stack.requires_grad_(False)
         self.stack.eval()
         heads = cfg.num_heads
         hd = cfg.d_model // heads
@@ -277,7 +455,7 @@ class CausalLMGenerativeModel:
 
 
 @torch.inference_mode()
-def causal_lm_hidden(stack: DecoderStack, ids):
+def causal_lm_hidden_plain(stack: DecoderStack, ids):
     """Plain full re-forward: the last layer's hidden state ``(B, S,
     d_model)`` for token ids ``(B, S)``. Causal softmax attention and
     LayerNorm in PyTorch ops only — no kernel of the port runs here."""
@@ -306,13 +484,13 @@ def causal_lm_hidden(stack: DecoderStack, ids):
 
 
 @torch.inference_mode()
-def causal_lm_logits(stack: DecoderStack, ids, *,
-                     int8_weights: Optional[tuple] = None):
+def causal_lm_logits_plain(stack: DecoderStack, ids, *,
+                           int8_weights: Optional[tuple] = None):
     """Plain full re-forward: next-token logits ``(B, S, vocab)`` (f32) for
-    token ids ``(B, S)``: :func:`causal_lm_hidden` and the logits head
-    (``int8_weights=(wq, w_scale)`` for the int8 head) in PyTorch ops
+    token ids ``(B, S)``: :func:`causal_lm_hidden_plain` and the logits
+    head (``int8_weights=(wq, w_scale)`` for the int8 head) in PyTorch ops
     only."""
-    h = causal_lm_hidden(stack, ids)
+    h = causal_lm_hidden_plain(stack, ids)
     b, s, d = h.shape
     flat = h.reshape(b * s, d)
     if int8_weights is not None:

@@ -1,10 +1,11 @@
 """Building blocks of the port's transformer models.
 
 Port of ``simple_tensorflow_tpu/models/common.py`` (``layer_norm``,
-``dense``). Parameter names follow the JAX variables, so a module's
-``state_dict`` key is the JAX variable path with ``.`` for ``/``
-(``…/ln1/gamma``, ``…/q/kernel``, ``…/q/bias``). Dense kernels are
-``(in, out)`` as in JAX.
+``dense``, ``split_heads``, ``merge_heads``). Parameter names follow the
+JAX variables, so a module's ``state_dict`` key is the JAX variable path
+with ``.`` for ``/`` (``…/ln1/gamma``, ``…/q/kernel``, ``…/q/bias``). Dense
+kernels are ``(in, out)`` as in JAX. Parameters are trainable; the serving
+model switches their gradients off.
 """
 
 from __future__ import annotations
@@ -12,14 +13,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.kernels.layer_norm import layer_norm
+from ..ops.fused_ops import fused_layer_norm
 
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. A CUDA device needs a card: no
     silent move to the CPU. On CUDA, f32 matrix products (and cuDNN,
     which the port does not call) are pinned to full f32, no TF32: the
-    precision the JAX package runs its f32 serving programs at."""
+    precision the JAX package runs its f32 programs at."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -35,33 +36,35 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 class LayerNorm(nn.Module):
-    """f32 ``gamma``/``beta`` and the LayerNorm kernel over the last axis."""
+    """f32 ``gamma``/``beta`` (whatever the activations' dtype, as
+    ``common.layer_norm`` creates them) and the LayerNorm kernels over the
+    last axis."""
 
     def __init__(self, features: int, eps: float = 1e-6, device=None):
         super().__init__()
         self.eps = eps
-        self.gamma = nn.Parameter(torch.ones(features, device=device),
-                                  requires_grad=False)
-        self.beta = nn.Parameter(torch.zeros(features, device=device),
-                                 requires_grad=False)
+        self.gamma = nn.Parameter(torch.ones(features, device=device))
+        self.beta = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x):
-        return layer_norm(x, self.gamma, self.beta, eps=self.eps)
+        return fused_layer_norm(x, self.gamma, self.beta, eps=self.eps)
 
 
 class Dense(nn.Module):
     """``x @ kernel + bias`` (matmul then bias add, as ``stf.layers.dense``),
-    optionally followed by ReLU. The product is a plain large matrix
-    product, left to ``torch.matmul`` as the JAX package left it to XLA."""
+    optionally followed by ReLU. ``dtype`` is the parameters' dtype: the
+    JAX layer creates its kernel and bias in its input's dtype
+    (``layers/base.py:98-99``), so bf16 under bf16 compute. The product is
+    a plain large matrix product, left to ``torch.matmul`` as the JAX
+    package left it to XLA."""
 
     def __init__(self, in_features: int, out_features: int,
-                 activation=None, device=None):
+                 activation=None, dtype=torch.float32, device=None):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.zeros(in_features, out_features, device=device),
-            requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device),
-                                 requires_grad=False)
+        self.kernel = nn.Parameter(torch.zeros(
+            in_features, out_features, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype,
+                                             device=device))
         self.activation = activation
 
     def forward(self, x):
@@ -69,3 +72,13 @@ class Dense(nn.Module):
         if self.activation is not None:
             y = self.activation(y)
         return y
+
+
+def split_heads(x, b, s, heads, head_dim):
+    """(B,S,H*D) -> (B,H,S,D)."""
+    return x.reshape(b, s, heads, head_dim).permute(0, 2, 1, 3)
+
+
+def merge_heads(x, b, s, hidden):
+    """(B,H,S,D) -> (B,S,H*D)."""
+    return x.permute(0, 2, 1, 3).reshape(b, s, hidden)

@@ -1,11 +1,15 @@
-"""The decoder-only serving pieces of the Transformer.
+"""The decoder-only pieces of the Transformer: serving and training.
 
 Port of the parts of ``simple_tensorflow_tpu/models/transformer.py`` that
-paged causal-LM serving runs: ``TransformerConfig`` (:35),
-``sinusoidal_position_encoding`` (:131), ``_incremental_decode`` (:438)
-and ``_block_decode`` (:512) with ``cross_kv=None`` (no cross-attention
-sublayer, no ``ln2``), and ``build_int8_logits_weights`` (:743). The
-seq2seq model, beam search and training come in later slices.
+paged causal-LM serving and causal-LM training run:
+``TransformerConfig`` (:35), ``sinusoidal_position_encoding`` (:131),
+``_incremental_decode`` (:438) and ``_block_decode`` (:512) with
+``cross_kv=None`` (no cross-attention sublayer, no ``ln2``),
+``build_int8_logits_weights`` (:743), and the training sublayers
+``_residual`` (:142), ``_attention`` (:152), ``_ffn`` (:181), ``_embed``
+(:189) and ``smoothed_xent`` (:263); ``_ln`` (:67) is the
+:class:`.common.LayerNorm` module. The seq2seq model and beam search come
+in later slices.
 
 A :class:`DecoderStack`'s ``state_dict`` keys are the JAX variable paths
 under the model scope with ``.`` for ``/`` (``shared_embedding``,
@@ -22,9 +26,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import fused_ops
+from ..ops.embedding_ops import embedding_lookup
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.quant_matmul import div127
-from .common import Dense, LayerNorm
+from .common import Dense, LayerNorm, merge_heads, split_heads
 
 
 @dataclasses.dataclass
@@ -46,6 +52,10 @@ class TransformerConfig:
         return TransformerConfig()
 
     @staticmethod
+    def base():
+        return TransformerConfig(d_model=512, num_heads=8, d_ff=2048)
+
+    @staticmethod
     def tiny():
         return TransformerConfig(vocab_size=64, d_model=32, num_heads=2,
                                  d_ff=64, num_layers=2, dropout=0.0,
@@ -65,33 +75,38 @@ def sinusoidal_position_encoding(max_len, d_model):
 
 class DecoderLayer(nn.Module):
     """Self-attention (q, k, v, out), ``ln1``, FFN (in with ReLU, out),
-    ``ln3`` — the causal-LM layer, named as in the JAX graph."""
+    ``ln3`` — the causal-LM layer, named as in the JAX graph. ``dtype`` is
+    the Dense parameters' dtype (the compute dtype in training); the
+    LayerNorm parameters stay f32."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
+                 device=None):
         super().__init__()
         d = cfg.d_model
         self.self_attn = nn.ModuleDict(
-            {name: Dense(d, d, device=device)
+            {name: Dense(d, d, dtype=dtype, device=device)
              for name in ("q", "k", "v", "out")})
         self.ln1 = LayerNorm(d, cfg.layer_norm_eps, device=device)
         self.ffn = nn.ModuleDict({
-            "in": Dense(d, cfg.d_ff, activation=torch.relu, device=device),
-            "out": Dense(cfg.d_ff, d, device=device)})
+            "in": Dense(d, cfg.d_ff, activation=torch.relu, dtype=dtype,
+                        device=device),
+            "out": Dense(cfg.d_ff, d, dtype=dtype, device=device)})
         self.ln3 = LayerNorm(d, cfg.layer_norm_eps, device=device)
 
 
 class DecoderStack(nn.Module):
-    """The tied embedding, the sinusoidal position table and the decoder
-    layers of one causal LM."""
+    """The tied embedding (f32), the sinusoidal position table and the
+    decoder layers of one causal LM; ``dtype`` as in
+    :class:`DecoderLayer`."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.cfg = cfg
         self.shared_embedding = nn.Parameter(
-            torch.zeros(cfg.vocab_size, cfg.d_model, device=device),
-            requires_grad=False)
+            torch.zeros(cfg.vocab_size, cfg.d_model, device=device))
         self.decoder = nn.ModuleDict(
-            {f"layer_{i}": DecoderLayer(cfg, device=device)
+            {f"layer_{i}": DecoderLayer(cfg, dtype=dtype, device=device)
              for i in range(cfg.num_layers)})
         self.register_buffer(
             "pos_table",
@@ -180,3 +195,72 @@ def build_int8_logits_weights(emb):
     scale = div127(torch.clamp_min(w.abs().amax(dim=0), 1e-8))
     wq = torch.round(w / scale[None, :]).to(torch.int8).contiguous()
     return wq, scale.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Training sublayers (dropout 0: rate > 0 raises in the fused ops)
+# ---------------------------------------------------------------------------
+
+def _residual(sub_out, h, cfg: TransformerConfig, training):
+    """Sublayer tail ``h + dropout(sub_out)`` through the fused op; rate 0
+    is the plain add."""
+    rate = cfg.dropout if training else 0.0
+    return fused_ops.fused_bias_dropout_residual(sub_out, h, rate=rate)
+
+
+def _attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
+               causal=True):
+    """Self-attention of ``x (B, S, D)``: q/k/v projections, heads split
+    to ``(B, H, S, hd)``, the flash-attention kernels, heads merged, the
+    output projection."""
+    b, s, d = x.shape
+    heads = cfg.num_heads
+    hd = d // heads
+    att = layer.self_attn
+    q = split_heads(att["q"](x), b, s, heads, hd)
+    k = split_heads(att["k"](x), b, s, heads, hd)
+    v = split_heads(att["v"](x), b, s, heads, hd)
+    ctx = fused_ops.fused_attention(
+        q, k, v, causal=causal,
+        dropout_rate=cfg.dropout if training else 0.0)
+    return att["out"](merge_heads(ctx, b, s, d))
+
+
+def _ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training):
+    if training and cfg.dropout > 0:
+        raise NotImplementedError(
+            "FFN dropout comes in slice 3 of the PyTorch port; set "
+            "cfg.dropout=0.0")
+    return layer.ffn["out"](layer.ffn["in"](x))
+
+
+def _embed(stack: DecoderStack, ids, compute_dtype, training):
+    """Scaled shared-embedding rows plus sinusoidal positions, in the
+    compute dtype: the lookup gathers in ``compute_dtype`` and its
+    gradient scatter-adds into the f32 table; the scale and the position
+    table are f32 constants cast to the compute dtype."""
+    cfg = stack.cfg
+    if training and cfg.dropout > 0:
+        raise NotImplementedError(
+            "embedding dropout comes in slice 3 of the PyTorch port; set "
+            "cfg.dropout=0.0")
+    s = ids.shape[1]
+    h = embedding_lookup(stack.shared_embedding, ids,
+                         compute_dtype=compute_dtype) \
+        * stack.emb_scale.to(compute_dtype)
+    return h + stack.pos_table[:s].to(compute_dtype)
+
+
+def smoothed_xent(logits, labels, weights, cfg: TransformerConfig):
+    """Label-smoothed cross entropy minus the smoothed target's entropy,
+    weight-masked mean (f32 loss math), through the fused xent kernels."""
+    vocab = cfg.vocab_size
+    conf = 1.0 - cfg.label_smoothing
+    low = cfg.label_smoothing / (vocab - 1)
+    per_tok = fused_ops.fused_softmax_cross_entropy(
+        logits, labels, label_smoothing=cfg.label_smoothing)
+    norm = -(conf * math.log(conf) +
+             (vocab - 1) * low * math.log(low + 1e-20))
+    per_tok = per_tok - norm
+    w = weights.float()
+    return (per_tok * w).sum() / (w.sum() + 1e-9)

@@ -1,0 +1,81 @@
+"""Entry points of the fused kernels, as the JAX package's
+``simple_tensorflow_tpu/ops/fused_ops.py`` (``stf.nn.fused_*``) names them:
+``fused_attention``, ``fused_bias_dropout_residual``, ``fused_layer_norm``
+and ``fused_softmax_cross_entropy``. Each calls its kernel module's
+differentiable wrapper, so CPU tensors take the plain versions and CUDA
+tensors launch the kernels.
+
+:func:`plain_versions` runs every one of them through the kernels' plain
+PyTorch versions on any device: the reference the kernels are held
+against on the card. A trainer built with ``plain=True``
+(:func:`..models.causal_lm.causal_lm_train_model`) enters it and gives
+its optimizer the plain Adam update; nothing else enters it, and the
+kernel wrappers themselves never fall back.
+
+Dropout (``rate > 0``) builds the counter-hash masks of the JAX kernels,
+which come in slice 3 of the port: here it raises, never trains without.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+from .kernels.flash_attention import flash_attention
+from .kernels.layer_norm import layer_norm
+from .kernels.softmax_xent import softmax_cross_entropy
+
+_state = threading.local()
+
+_DROPOUT_LATER = ("dropout (the counter-hash keep masks of the JAX "
+                  "kernels) comes in slice 3 of the PyTorch port; "
+                  "set cfg.dropout=0.0")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block, on this thread, the fused ops run their kernels'
+    plain PyTorch versions on any device."""
+    prev = using_plain_versions()
+    _state.plain = True
+    try:
+        yield
+    finally:
+        _state.plain = prev
+
+
+def using_plain_versions() -> bool:
+    return getattr(_state, "plain", False)
+
+
+def fused_attention(q, k, v, *, bias=None, dropout_rate=0.0, causal=False,
+                    sm_scale=None):
+    """Flash attention over ``(batch, heads, seq, head_dim)``; ``bias`` an
+    additive ``(batch, kv_seq)`` key bias, constant under
+    differentiation."""
+    if dropout_rate and float(dropout_rate) > 0.0:
+        raise NotImplementedError(f"attention {_DROPOUT_LATER}")
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                           bias=bias, plain=using_plain_versions())
+
+
+def fused_bias_dropout_residual(x, residual, bias=None, *, rate):
+    """``residual + dropout(x + bias)``; rate 0 is the plain add the JAX
+    function builds at rate 0 (``fused_ops.py:70-72``)."""
+    if rate and float(rate) > 0.0:
+        raise NotImplementedError(f"residual {_DROPOUT_LATER}")
+    return x + bias + residual if bias is not None else x + residual
+
+
+def fused_layer_norm(x, gamma, beta, *, eps=1e-6):
+    """LayerNorm over the last axis; gamma/beta ``(features,)`` f32."""
+    return layer_norm(x, gamma, beta, eps=eps, plain=using_plain_versions())
+
+
+def fused_softmax_cross_entropy(logits, labels, *, label_smoothing=0.0):
+    """Per-example sparse softmax xent with the TPU kernel's label
+    smoothing; ``logits (..., vocab)``, int ``labels (...)``, f32 loss
+    ``(...)``."""
+    return softmax_cross_entropy(logits, labels,
+                                 label_smoothing=label_smoothing,
+                                 plain=using_plain_versions())

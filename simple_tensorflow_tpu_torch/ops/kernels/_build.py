@@ -30,13 +30,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry point: pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
-    "stf_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "stf_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "stf_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _P],
     "stf_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _I, _I, _P],
     "stf_quant_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "stf_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _I, _I, _P],
+    "stf_flash_attention_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _F, _I, _I, _P],
+    "stf_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _P],
+    "stf_softmax_xent_fwd": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+    "stf_softmax_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
+    "stf_adam_update": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -20,13 +20,20 @@ NEG_INF = -1e30  # finite "minus infinity" — avoids NaN from (-inf) - (-inf)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches per kernel wrapper: each wrapper adds one where it launches its
-# kernel, nowhere else (chip_smoke.py reads them to prove the serving path
-# went through the kernels)
+# kernel, nowhere else (chip_smoke.py reads them to prove the serving and
+# training paths went through the kernels)
 _LAUNCHES = {
     "layer_norm": 0,
+    "layer_norm_bwd": 0,
     "decode_attention": 0,
     "decode_attention_block": 0,
     "quant_matmul": 0,
+    "flash_attention_fwd": 0,
+    "flash_attention_dkdv": 0,
+    "flash_attention_dq": 0,
+    "softmax_xent_fwd": 0,
+    "softmax_xent_bwd": 0,
+    "adam_update": 0,
 }
 
 

@@ -1,0 +1,283 @@
+"""FlashAttention forward and backward: the CUDA kernels
+``csrc/flash_attention.cu`` and their plain PyTorch versions.
+
+Replaces the TPU kernels ``simple_tensorflow_tpu/ops/pallas/
+flash_attention.py:_fwd_kernel`` (called at :180), ``_bwd_dkdv_kernel``
+(:352) and ``_bwd_dq_kernel`` (:383), and the public ``flash_attention``
+(:470) with its custom VJP, without the dropout branch (a later slice:
+``dropout_rate > 0`` raises). Layout ``(batch, heads, seq, head_dim)``;
+an optional additive key bias ``(batch, kv_seq)`` (any squeezable
+``(batch, 1, 1, kv_seq)`` form) is a constant under differentiation.
+Ragged sequence lengths are masked inside the kernels; nothing is padded.
+
+The kernel-level functions work on ``(B*H, S, D)``-contiguous tensors:
+``flash_attention_fwd`` -> ``(o, lse)``, ``flash_attention_dkdv`` ->
+``(dk, dv)``, ``flash_attention_dq`` -> ``dq``, each beside its
+``*_plain`` version. ``delta = rowsum(dO * O)`` (minus the lse cotangent)
+is plain PyTorch, as it sits outside Pallas in JAX. Bounded by operations
+on the card; the source note in ``csrc/flash_attention.cu`` says what the
+design does about it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .common import (DTYPE_CODES, NEG_INF, check_cuda_arg, check_status,
+                     count_launch, uses_kernel)
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _scores(q, k, bias, heads, sm_scale, causal):
+    """f32 masked scores ``(BH, Sq, Sk)``: scale, the bias BEFORE the
+    mask, then NEG_INF where the causal mask refuses (the kernels'
+    ``masked_score``)."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    sq, sk = s.shape[1], s.shape[2]
+    if bias is not None:
+        s = s + bias.float().repeat_interleave(heads, dim=0)[:, None, :]
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def flash_attention_fwd_plain(q, k, v, *, heads, sm_scale, causal,
+                              bias=None):
+    """``(o, lse)`` of ``_fwd_kernel`` with a materialised score tensor:
+    ``q (BH, Sq, D)``, ``k``/``v (BH, Sk, D)``, ``bias (B, Sk)`` f32 or
+    None with ``B = BH / heads``. ``p`` is cast to the input dtype before
+    ``P.V``; ``l == 0 -> 1``; lse is f32."""
+    s = _scores(q, k, bias, heads, sm_scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    acc = torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v.float())
+    o = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l))[..., 0]
+    return o, lse
+
+
+def _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias):
+    s = _scores(q, k, bias, heads, sm_scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", dout.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * sm_scale).to(q.dtype)
+    return p, ds
+
+
+def flash_attention_dkdv_plain(q, k, v, dout, lse, delta, *, heads,
+                               sm_scale, causal, bias=None):
+    """``(dk, dv)`` of ``_bwd_dkdv_kernel``: ``p = exp(s - lse)``,
+    ``dV = p(cast)^T dO``, ``dS = (p (dP - delta) sm_scale)(cast)``,
+    ``dK = dS^T Q``, summed in f32, in the inputs' dtype."""
+    p, ds = _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(), dout.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds.float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dq_plain(q, k, v, dout, lse, delta, *, heads, sm_scale,
+                             causal, bias=None):
+    """``dq`` of ``_bwd_dq_kernel``: ``dQ = dS K`` summed in f32."""
+    _, ds = _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias)
+    return torch.einsum("bqk,bkd->bqd", ds.float(), k.float()).to(q.dtype)
+
+
+def _check(q, k, v, bias, heads, extra=()):
+    check_cuda_arg("q", q, DTYPE_CODES, 3)
+    check_cuda_arg("k", k, (q.dtype,), 3)
+    check_cuda_arg("v", v, (q.dtype,), 3)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if tuple(k.shape) != (bh, sk, d) or tuple(v.shape) != (bh, sk, d):
+        raise ValueError(f"k/v must be {(bh, sk, d)}, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if bh % heads:
+        raise ValueError(f"B*H={bh} is not a multiple of heads={heads}")
+    if bias is not None:
+        check_cuda_arg("bias", bias, (torch.float32,), 2)
+        if tuple(bias.shape) != (bh // heads, sk):
+            raise ValueError(f"bias must be {(bh // heads, sk)}, got "
+                             f"{tuple(bias.shape)}")
+    for name, t, dtypes, shape in extra:
+        check_cuda_arg(name, t, dtypes, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    return bh, sq, sk, d
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def flash_attention_fwd(q, k, v, *, heads, sm_scale, causal, bias=None):
+    """``(o, lse)`` for ``q (BH, Sq, D)``, ``k``/``v (BH, Sk, D)``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors = [q, k, v] + ([bias] if bias is not None else [])
+    if not uses_kernel(*tensors):
+        return flash_attention_fwd_plain(q, k, v, heads=heads,
+                                         sm_scale=sm_scale, causal=causal,
+                                         bias=bias)
+    bh, sq, sk, d = _check(q, k, v, bias, heads)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    status = lib.stf_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
+        lse.data_ptr(), bh, sq, sk, heads, d, float(sm_scale),
+        int(bool(causal)), DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device))
+    check_status("flash_attention_fwd", status)
+    count_launch("flash_attention_fwd")
+    return o, lse
+
+
+def _bwd_extra(q, dout, lse, delta):
+    bh, sq, d = q.shape
+    return (("dout", dout, (q.dtype,), (bh, sq, d)),
+            ("lse", lse, (torch.float32,), (bh, sq)),
+            ("delta", delta, (torch.float32,), (bh, sq)))
+
+
+def flash_attention_dkdv(q, k, v, dout, lse, delta, *, heads, sm_scale,
+                         causal, bias=None):
+    """``(dk, dv)``; CPU tensors take the plain version, CUDA tensors
+    launch the kernel."""
+    tensors = [q, k, v, dout, lse, delta] + (
+        [bias] if bias is not None else [])
+    if not uses_kernel(*tensors):
+        return flash_attention_dkdv_plain(q, k, v, dout, lse, delta,
+                                          heads=heads, sm_scale=sm_scale,
+                                          causal=causal, bias=bias)
+    bh, sq, sk, d = _check(q, k, v, bias, heads,
+                           _bwd_extra(q, dout, lse, delta))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.library()
+    status = lib.stf_flash_attention_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(bias), dk.data_ptr(),
+        dv.data_ptr(), bh, sq, sk, heads, d, float(sm_scale),
+        int(bool(causal)), DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device))
+    check_status("flash_attention_dkdv", status)
+    count_launch("flash_attention_dkdv")
+    return dk, dv
+
+
+def flash_attention_dq(q, k, v, dout, lse, delta, *, heads, sm_scale,
+                       causal, bias=None):
+    """``dq``; CPU tensors take the plain version, CUDA tensors launch the
+    kernel."""
+    tensors = [q, k, v, dout, lse, delta] + (
+        [bias] if bias is not None else [])
+    if not uses_kernel(*tensors):
+        return flash_attention_dq_plain(q, k, v, dout, lse, delta,
+                                        heads=heads, sm_scale=sm_scale,
+                                        causal=causal, bias=bias)
+    bh, sq, sk, d = _check(q, k, v, bias, heads,
+                           _bwd_extra(q, dout, lse, delta))
+    dq = torch.empty_like(q)
+    lib = _build.library()
+    status = lib.stf_flash_attention_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(bias), dq.data_ptr(), bh, sq,
+        sk, heads, d, float(sm_scale), int(bool(causal)),
+        DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+    check_status("flash_attention_dq", status)
+    count_launch("flash_attention_dq")
+    return dq
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``(o, lse)`` over ``(BH, S, D)`` with the two backward kernels as
+    its gradient (the JAX ``_flash_bhsd_lse`` custom VJP): the lse
+    cotangent folds into ``delta = rowsum(dO * O) - dlse``. The bias gets
+    no gradient. ``plain=True`` runs the plain versions of the three
+    kernels on any device (the reference the kernels are held against)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, heads, sm_scale, causal, plain):
+        fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
+        o, lse = fwd(q, k, v, heads=heads, sm_scale=sm_scale, causal=causal,
+                     bias=bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.args = dict(heads=heads, sm_scale=sm_scale, causal=causal)
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dkdv = flash_attention_dkdv_plain if ctx.plain else \
+            flash_attention_dkdv
+        dqf = flash_attention_dq_plain if ctx.plain else flash_attention_dq
+        dk, dv = dkdv(q, k, v, do, lse, delta, bias=bias, **ctx.args)
+        dq = dqf(q, k, v, do, lse, delta, bias=bias, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _key_bias(bias, b, kv_len):
+    """Squeeze a broadcast key bias to ``(batch, kv_seq)`` f32 (as the
+    JAX wrapper does at :521-540)."""
+    bb = bias.float()
+    while bb.dim() > 2:
+        sq = next((i for i in range(1, bb.dim() - 1) if bb.shape[i] == 1),
+                  None)
+        if sq is None:
+            raise NotImplementedError(
+                "flash attention bias must broadcast over heads and query "
+                f"positions (got shape {tuple(bias.shape)})")
+        bb = bb.squeeze(sq)
+    if tuple(bb.shape) != (b, kv_len):
+        raise ValueError(f"flash attention bias: expected (batch, kv_seq)="
+                         f"({b}, {kv_len}) after squeezing, got "
+                         f"{tuple(bb.shape)}")
+    return bb.detach().contiguous()
+
+
+def flash_attention(q, k, v, *, causal=False, sm_scale=None, bias=None,
+                    dropout_rate=0.0, return_lse=False, plain=False):
+    """Fused attention over ``(batch, heads, seq, head_dim)``; the kv seq
+    may differ from the q seq unless ``causal``. Returns ``(batch, heads,
+    q_seq, head_dim)`` in q's dtype, and with ``return_lse`` also the f32
+    ``(batch, heads, q_seq)`` log-sum-exp (differentiable). Gradients run
+    the backward kernels. CPU tensors take the plain versions; CUDA
+    tensors launch the kernels; ``plain=True`` runs the plain versions on
+    any device."""
+    b, h, q_len, d = q.shape
+    kv_len = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if causal and q_len != kv_len:
+        raise ValueError("causal flash attention needs q_len == kv_len")
+    if dropout_rate < 0.0 or dropout_rate >= 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1): {dropout_rate}")
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "flash attention dropout (the counter-hash keep mask) comes in "
+            "slice 3 of the PyTorch port")
+    bb = _key_bias(bias, b, kv_len) if bias is not None else None
+    o, lse = FlashAttentionFunction.apply(
+        q.reshape(b * h, q_len, d).contiguous(),
+        k.reshape(b * h, kv_len, d).contiguous(),
+        v.reshape(b * h, kv_len, d).contiguous(), bb, h, float(sm_scale),
+        bool(causal), bool(plain))
+    o = o.reshape(b, h, q_len, d)
+    if return_lse:
+        return o, lse.reshape(b, h, q_len)
+    return o

@@ -1,12 +1,18 @@
 """Each CUDA kernel of the PyTorch port against its plain PyTorch version,
-on the card. These tests skip without an NVIDIA GPU; they import neither
-JAX nor the JAX package, so they run on a machine with the card alone:
+on the card. These tests skip without an NVIDIA GPU (all but one CPU test
+of a comparison limit itself); they import neither JAX nor the JAX
+package, so they run on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
 (``--noconftest``: the suite's conftest sets JAX up.) f32 tolerances are
 rtol 1e-5, atol 1e-5 (the kernel sums in another order than PyTorch);
-bf16 2e-2 (one bf16 rounding of the output); QuantMatMul is bit-exact.
+bf16 2e-2 (one bf16 rounding of the output); QuantMatMul and Adam are
+bit-exact. The training kernels' outputs are held to a bound scaled by
+the largest reference value: f32 1e-5 for forward values and 1e-4 for
+gradients (sums of hundreds to thousands of products), bf16 2e-2; the
+xent backward element by element (``_close_elementwise``): f32 1e-5,
+bf16 1e-2 (one bf16 rounding of the same f32 value).
 """
 
 import numpy as np
@@ -112,3 +118,176 @@ def test_plain_quantizer_divides_exactly_on_card(cuda):
     _, scale = K.quantize_rowwise_plain(_t(x).to(cuda))
     want = np.abs(x).max(axis=1) / np.float32(127.0)
     np.testing.assert_array_equal(scale.cpu().numpy(), want)
+
+
+def _close(out, ref, tol):
+    """max |out - ref| <= tol * max(1, max |ref|)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def _close_elementwise(out, ref, tol):
+    """|out - ref| <= tol * (|ref| + mean |ref|) at every element: for
+    outputs whose values span many orders of magnitude (the xent
+    backward), where a bound scaled by the largest value would pass a
+    wrong small one."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    bound = tol * (ref.abs() + ref.abs().mean())
+    assert bool((diff <= bound).all()), (diff.max().item(),
+                                        (diff / bound).max().item())
+
+
+def _xent_inputs(device, dtype, vocab, rows=64, seed=24):
+    rng = np.random.RandomState(seed)
+    x = _t((rng.randn(rows, vocab) * 3).astype(np.float32)).to(device, dtype)
+    lab = rng.randint(0, vocab, rows).astype(np.int32)
+    lab[3] = vocab + 5                  # matches no column, as on the TPU
+    labels = _t(lab).to(device)
+    g = _t(rng.rand(rows).astype(np.float32)).to(device)
+    return x, labels, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_dx_limit_fails_planted_faults(dtype):
+    # runs on the CPU: the limit the card test below holds the kernel's dx
+    # to must fail a backward that leaves out the smoothing mass low * g
+    # of the non-label columns, and (f32) one that scales p by 1.001
+    vocab, smoothing = 32768, 0.1
+    x, labels, g = _xent_inputs("cpu", dtype, vocab)
+    _, lse = K.softmax_xent_fwd_plain(x, labels, smoothing=smoothing)
+    rdx = K.softmax_xent_bwd_plain(x, labels, lse, g, smoothing=smoothing)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    _close_elementwise(rdx, rdx, tol)
+    low = smoothing / (vocab - 1)
+    no_low = rdx.float() + low * g[:, None]
+    rows = torch.arange(len(labels))
+    ok = labels.long() < vocab
+    no_low[rows[ok], labels.long()[ok]] -= low * g[ok]
+    faults = [no_low]
+    if dtype == torch.float32:
+        p = torch.exp(x.float() - lse[:, None])
+        faults.append(rdx.float() + 1e-3 * p * g[:, None])
+    for bad in faults:
+        with pytest.raises(AssertionError):
+            _close_elementwise(bad.to(dtype), rdx, tol)
+
+
+def _flash_inputs(cuda, dtype, seed, b, h, sq, sk, d, biased):
+    rng = np.random.RandomState(seed)
+    q, k, v = (_t(rng.randn(b * h, n, d).astype(np.float32)).to(cuda, dtype)
+               for n in (sq, sk, sk))
+    do = _t(rng.randn(b * h, sq, d).astype(np.float32)).to(cuda, dtype)
+    bias = _t(rng.randn(b, sk).astype(np.float32)).to(cuda) \
+        if biased else None
+    return q, k, v, do, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,d,causal,biased", [
+    (256, 256, 64, True, False), (200, 200, 64, True, False),
+    (100, 200, 64, False, True), (130, 130, 32, True, True),
+    (64, 96, 128, False, False), (40, 40, 16, True, False)])
+def test_flash_attention_kernels_on_card(cuda, dtype, sq, sk, d, causal,
+                                         biased):
+    h = 4
+    q, k, v, do, bias = _flash_inputs(cuda, dtype, 21, 2, h, sq, sk, d,
+                                      biased)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    before = K.launch_counts()
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _close(o, ro, 1e-5 if f32 else 2e-2)
+    _close(lse, rlse, 1e-5)
+    for out, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(out, ref, 1e-4 if f32 else 2e-2)
+    after = K.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_dkdv",
+                 "flash_attention_dq"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_plain_on_card(cuda):
+    rng = np.random.RandomState(22)
+    q, k, v = (_t(rng.randn(2, 4, 77, 64).astype(np.float32)).to(cuda)
+               .requires_grad_() for _ in range(3))
+    go = _t(rng.randn(2, 4, 77, 64).astype(np.float32)).to(cuda)
+    glse = _t(rng.randn(2, 4, 77).astype(np.float32)).to(cuda)
+    grads = []
+    for plain in (False, True):
+        o, lse = K.flash_attention(q, k, v, causal=True, return_lse=True,
+                                   plain=plain)
+        grads.append(torch.autograd.grad((o * go).sum() + (lse * glse).sum(),
+                                         (q, k, v)))
+    for a, b in zip(*grads):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(300, 1024), (4096, 1024), (7, 96)])
+def test_layer_norm_bwd_kernel_on_card(cuda, dtype, rows, n):
+    rng = np.random.RandomState(23)
+    x = _t((rng.randn(rows, n) * 2 + 0.5).astype(np.float32)).to(cuda, dtype)
+    g = _t(rng.randn(n).astype(np.float32)).to(cuda)
+    b = _t(rng.randn(n).astype(np.float32)).to(cuda)
+    dy = _t(rng.randn(rows, n).astype(np.float32)).to(cuda, dtype)
+    y, mean, rstd = K.layer_norm_fwd(x, g, b, return_stats=True)
+    ry, rmean, rrstd = K.layer_norm_plain(x, g, b, return_stats=True)
+    dx, dg, db = K.layer_norm_bwd(x, g, rmean, rrstd, dy)
+    rdx, rdg, rdb = K.layer_norm_bwd_plain(x, g, rmean, rrstd, dy)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _close(mean, rmean, 1e-5)
+    _close(rstd, rrstd, 1e-5)
+    _close(y, ry, 1e-5 if f32 else 2e-2)
+    _close(dx, rdx, 1e-4 if f32 else 2e-2)
+    _close(dg, rdg, 1e-4)
+    _close(db, rdb, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vocab", [32768, 1000])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_softmax_xent_kernels_on_card(cuda, dtype, vocab, smoothing):
+    x, labels, g = _xent_inputs(cuda, dtype, vocab)
+    loss, lse = K.softmax_xent_fwd(x, labels, smoothing=smoothing)
+    rloss, rlse = K.softmax_xent_fwd_plain(x, labels, smoothing=smoothing)
+    dx = K.softmax_xent_bwd(x, labels, rlse, g, smoothing=smoothing)
+    rdx = K.softmax_xent_bwd_plain(x, labels, rlse, g, smoothing=smoothing)
+    torch.cuda.synchronize()
+    _close(loss, rloss, 1e-5)
+    _close(lse, rlse, 1e-5)
+    _close_elementwise(dx, rdx, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adam_kernel_on_card_is_bit_exact(cuda, dtype):
+    rng = np.random.RandomState(25)
+    n = 1000003
+    p = _t(rng.randn(n).astype(np.float32)).to(cuda, dtype)
+    m = _t((rng.randn(n) * 0.1).astype(np.float32)).to(cuda)
+    v = _t(rng.rand(n).astype(np.float32) * 0.01).to(cuda)
+    g = _t((rng.randn(n) * 0.1).astype(np.float32)).to(cuda, dtype)
+    alpha = torch.tensor(1e-3, device=cuda)
+    kw = dict(beta1=0.9, beta2=0.997, eps=1e-9)
+    pk, mk, vk = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha,
+                               **kw)
+    pp, mp, vp = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g,
+                                     alpha, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mp) and torch.equal(vk, vp)
+    assert torch.equal(pk, pp)

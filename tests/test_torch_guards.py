@@ -47,7 +47,10 @@ def test_importing_the_port_loads_no_jax():
         import simple_tensorflow_tpu_torch
         from simple_tensorflow_tpu_torch import convert, serving
         from simple_tensorflow_tpu_torch.models import causal_lm
-        from simple_tensorflow_tpu_torch.ops import kernels, kv_cache
+        from simple_tensorflow_tpu_torch.ops import (embedding_ops,
+                                                     fused_ops, kernels,
+                                                     kv_cache)
+        from simple_tensorflow_tpu_torch.train import optimizers
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -101,3 +104,18 @@ def test_model_defaults_to_the_gpu(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         clm.CausalLMGenerativeModel(tr.TransformerConfig.tiny(),
                                     init_fresh=True, device="meta")
+
+
+def test_trainer_defaults_to_the_gpu_and_refuses_dropout(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tr.TransformerConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg)
+    t = clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
+                                  device="cpu")
+    assert t.stack.shared_embedding.device.type == "cpu"
+    assert t.optimizer.flat_groups[0].m.device.type == "cpu"
+    cfg.dropout = 0.1
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
+                                  device="cpu")

@@ -225,7 +225,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                    torch.ones(4))
     assert K.launch_counts() == before
     assert set(before) == {"decode_attention", "decode_attention_block",
-                           "layer_norm", "quant_matmul"}
+                           "layer_norm", "quant_matmul", "layer_norm_bwd",
+                           "flash_attention_fwd", "flash_attention_dkdv",
+                           "flash_attention_dq", "softmax_xent_fwd",
+                           "softmax_xent_bwd", "adam_update"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -246,12 +249,16 @@ def test_no_kernel_is_built_at_import(monkeypatch, tmp_path):
 def test_build_key_covers_every_source_and_the_flags():
     srcs = sorted(p.name for p in _build.SRC_DIR.iterdir())
     assert {"decode_attention.cu", "layer_norm.cu", "quant_matmul.cu",
+            "flash_attention.cu", "softmax_xent.cu", "fused_update.cu",
             "common.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16
     assert set(_build.SIGNATURES) == {
-        "stf_layer_norm_fwd", "stf_decode_attention", "stf_quant_matmul"}
+        "stf_layer_norm_fwd", "stf_layer_norm_bwd", "stf_decode_attention",
+        "stf_quant_matmul", "stf_flash_attention_fwd",
+        "stf_flash_attention_dkdv", "stf_flash_attention_dq",
+        "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update"}
 
 
 def test_helpers_match_the_pallas_common_module():

@@ -196,7 +196,8 @@ def test_same_batch_joiners_read_filled_pages():
         assert eng._prefix.statusz_info()["hit_pages"] == 4
     for p, r in zip(joiners, results):
         ids = torch.tensor([p + list(r["tokens"][:-1])])
-        logits = clm.causal_lm_logits(model.stack, ids)[0, len(p) - 1:]
+        logits = clm.causal_lm_logits_plain(model.stack,
+                                            ids)[0, len(p) - 1:]
         lp = torch.log_softmax(logits, -1)
         assert logits.argmax(-1).tolist() == list(r["tokens"])
         ref = lp.gather(1, torch.as_tensor(r["tokens"]).long()[:, None])
