@@ -15,8 +15,11 @@ NVIDIA GPU and check every kernel of its serving and training paths.
    bf16 2e-2; the xent backward, whose values span many orders of
    magnitude, element by element within 1e-5 (f32) or 1e-2 (bf16) of
    each value plus that times the mean magnitude, a limit the phase shows
-   failing planted faults), with its device time, its bound (the larger of bytes over
-   3.35 TB/s and operations over the peak of their type), the plain
+   failing planted faults; the dropout kernels, whose masks are integer
+   functions of a seed or key, bit-exact, with 0 mask mismatches on x =
+   ones and a planted fault (another salt, key or seed) that must fail),
+   with its device time, its bound (the larger of bytes over 3.35 TB/s
+   and operations over the peak of their type), the plain
    version's time and one PyTorch library call's time as a yardstick
    (never called by the port). Times come from CUDA graphs of
    back-to-back launches timed with CUDA events, over input copies that
@@ -33,24 +36,35 @@ NVIDIA GPU and check every kernel of its serving and training paths.
    kernel of the run must have launched. Every emitted token is checked,
    teacher-forced on the engine's own stream, against a plain full
    re-forward on the card (PyTorch ops only, no kernel).
-4. Training phase: ``causal_lm_train_model`` at ``TransformerConfig.big()``
-   with ``dropout=0.0``, batch 16 x 256, weights from ``init_params
-   (seed=0)``. One f32 step through the kernels against the same step
-   through the plain versions (a trainer built with ``plain=True``): the
-   loss within rtol 1e-5, every parameter's gradient within relative norm
-   1e-3 (the attention key biases, whose exact gradient is zero, below
-   1e-5 of the key kernel's gradient norm on both sides). That limit
-   covers the few FFN-input units whose ReLU gate flips on f32 roundoff
-   between the runs, which the phase counts; with the plain run's ReLU
-   masks shared the limit is 1e-4, and two planted faults (dQ x 1.001,
-   the xent backward without smoothing) must fail it. Then
-   ``TRAIN_STEPS`` bf16 steps on one repeated batch with a
-   ``TRAIN_WARMUP``-step noam warm-up: every loss finite and below the
-   one before, the exact launches per step, the p50 step time, tokens/s,
-   the kernels' device time per step and the peak device memory.
+4. Training phase: ``causal_lm_train_model`` at ``TransformerConfig.big()``,
+   batch 16 x 256, weights from ``init_params(seed=0)``. At dropout 0 and
+   at the shipped 0.1: one f32 step through the kernels against the same
+   step through the plain versions (a trainer built with ``plain=True``,
+   drawing the same dropout masks): the loss within rtol 1e-5, every
+   parameter's gradient within relative norm 1e-3 (2e-3 at dropout 0.1;
+   the attention key biases, whose exact gradient is zero, below 1e-5 of
+   the key kernel's gradient norm on both sides). That limit covers the
+   few FFN-input units whose ReLU gate flips on f32 roundoff between the
+   runs, which the phase counts; with the plain run's ReLU masks shared
+   the limit is
+   1e-4, and two planted faults (dQ x 1.001, the xent backward without
+   smoothing) must fail it. Then ``TRAIN_STEPS`` bf16 steps of
+   ``TransformerConfig.big()`` as shipped (dropout 0.1) on one repeated
+   batch with a ``TRAIN_WARMUP``-step noam warm-up: every loss finite, the
+   mean of the last ``LOSS_MEAN_OF`` below the mean of the first ones and
+   the last loss below the first (dropout makes the loss noisy from step
+   to step), the exact launches per step, the p50 step time, tokens/s,
+   the kernels' device time per step, the host time to derive a step's
+   dropout keys and seeds, and the peak device memory. Interleaved step
+   by step with it, the same window at dropout 0 (its loss must fall at
+   every step), for the cost of dropout in one call: the p50 steps and
+   the device time a step from a profiler window of each.
 
-Prints a ``{"kernels": [...]}`` line and ends with ``{"ok": true,
-"device": {...}}``. Exits non-zero, without that last line, on any
+Each path (the two serving runs, the two f32 kernel steps and the two
+bf16 windows) is counted from zero just before it; a kernel's ``launches`` sum
+over the paths, the flash rows split by the path's dropout rate. Prints a
+``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
+{...}}``. Exits non-zero, without that last line, on any
 failure, when no CUDA device is available, or without the package
 beside it.
 """
@@ -77,6 +91,19 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12,      # f32 outside tensor cores
                   torch.bfloat16: 989e12,    # dense bf16 tensor cores
                   torch.int8: 1979e12}       # dense int8 tensor cores
+# 32-bit integer operations: an SM issues at most 4 warp instructions (128
+# lane operations) a clock, half the 67e12 f32 rate, which counts an FMA as
+# two operations. The 64 integer ALU lanes of an SM are not a bound: the
+# compiler moves integer adds and multiplies to the FMA pipes.
+INT32_OPS_PER_S = 67e12 / 2
+# integer operations an element: K0 (the counter-hash keep mask, two
+# murmur finalizers of 3 shifts, 3 xors and 2 multiplies, two xors and a
+# compare; the per-(seed, salt) hash hoisted) and threefry-2x32 (20 rounds
+# of add, rotate and xor; 5 key injections of two adds; two initial adds,
+# the final xor, the shift and or to a float, the compare)
+K0_OPS = 19
+THREEFRY_OPS = 76
+DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
@@ -134,9 +161,13 @@ def n_copies(bytes_per_call: int) -> int:
     return max(1, min(64, math.ceil(2 * L2_BYTES / max(bytes_per_call, 1))))
 
 
-def bound_ms(nbytes: float, ops: float, op_dtype) -> tuple:
+def bound_ms(nbytes: float, ops: float, op_dtype, int_ops: float = 0.0
+             ) -> tuple:
+    """The least time for ``nbytes`` moved, ``ops`` operations of
+    ``op_dtype`` and ``int_ops`` 32-bit integer operations (the two kinds
+    of operation run on separate units: the slower one bounds)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[op_dtype]
+    t_ops = max(ops / PEAK_OPS_PER_S[op_dtype], int_ops / INT32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -405,15 +436,44 @@ def phase_quant_matmul(K, rng, dev):
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_D = 16, 256, 16, 64
 
 
+KMOD = "simple_tensorflow_tpu_torch.ops.kernels."
+
+
 def elem_size(dtype):
     return torch.tensor([], dtype=dtype).element_size()
 
 
+FLASH_SEED = 424242
+
+
+def check_flash_fault(K, q, k, v, do, rlse, delta, args, outs, tols, tag):
+    """The limits above must fail the plain versions run under the next
+    seed (a wrong mask): each of o, dK, dV and dQ."""
+    bad = dict(args, dropout_seed=args["dropout_seed"] + 1)
+    bo, _ = K.flash_attention_fwd_plain(q, k, v, **bad)
+    bdk, bdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **bad)
+    bdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **bad)
+    readings = []
+    for part, out, ref, tol in zip(("o", "dk", "dv", "dq"), outs,
+                                   (bo, bdk, bdv, bdq), tols):
+        ref = ref.float()
+        ratio = ((out.float() - ref).abs().max().item()
+                 / (tol * max(1.0, ref.abs().max().item())))
+        if not ratio > 1.0:
+            fail(f"flash {tag}: the check passes the mask of seed + 1 "
+                 f"({part} at {ratio:.3e} of its bound)")
+        readings.append(f"{part} {ratio:.3e}x")
+    print(f"  flash {tag}: the check fails the mask of seed + 1: "
+          f"{', '.join(readings)} its bound", flush=True)
+
+
 def phase_flash_attention(K, gen, dev):
     """FlashAttention forward, dK/dV and dQ at the training shape (B=16,
-    H=16, D=64: 256 heads of S=256, causal), at a ragged S=200, and
-    non-causal with a (B, S) key bias; f32 and bf16. The backward kernels
-    get the plain forward's lse and delta = rowsum(dO * O)."""
+    H=16, D=64: 256 heads of S=256, causal) without and with dropout 0.1
+    (seed ``FLASH_SEED``; the limits must fail the next seed's mask), at a
+    ragged S=200, and non-causal with a (B, S) key bias; f32 and bf16. The
+    backward kernels get the plain forward's lse and delta = rowsum(dO *
+    O)."""
     import torch.nn.functional as F
 
     B, H, D = TRAIN_B, TRAIN_H, TRAIN_D
@@ -423,8 +483,10 @@ def phase_flash_attention(K, gen, dev):
         f32 = dtype == torch.float32
         tol_f, tol_g = (1e-5, 1e-4) if f32 else (2e-2, 2e-2)
         elem = elem_size(dtype)
-        for s, causal, biased in ((256, True, False), (200, True, False),
-                                  (256, False, True)):
+        for s, causal, biased, rate in ((256, True, False, 0.0),
+                                        (256, True, False, DROPOUT_RATE),
+                                        (200, True, False, 0.0),
+                                        (256, False, True, 0.0)):
             copies = [tuple(torch.randn((bh, s, D), generator=gen,
                                         device=dev).to(dtype)
                             for _ in range(4))
@@ -433,6 +495,8 @@ def phase_flash_attention(K, gen, dev):
                     if biased else None)
             args = dict(heads=H, sm_scale=D ** -0.5, causal=causal,
                         bias=bias)
+            if rate:
+                args.update(dropout_rate=rate, dropout_seed=FLASH_SEED)
             stats = []
             for q, k, v, do in copies:
                 ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
@@ -447,7 +511,8 @@ def phase_flash_attention(K, gen, dev):
             rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
             torch.cuda.synchronize()
             tag = (f"{str(dtype)[6:]} BH={bh} S={s} D={D}"
-                   f"{' causal' if causal else ''}{' bias' if biased else ''}")
+                   f"{' causal' if causal else ''}{' bias' if biased else ''}"
+                   f"{f' dropout {rate}' if rate else ''}")
             err = {
                 "fwd": max(check_scaled(f"flash fwd o {tag}", o, ro, tol_f),
                            check_scaled(f"flash fwd lse {tag}", lse, rlse,
@@ -455,6 +520,11 @@ def phase_flash_attention(K, gen, dev):
                 "dkdv": max(check_scaled(f"flash dk {tag}", dk, rdk, tol_g),
                             check_scaled(f"flash dv {tag}", dv, rdv, tol_g)),
                 "dq": check_scaled(f"flash dq {tag}", dq, rdq, tol_g)}
+            if rate:
+                check_flash_fault(K, q, k, v, do, rlse, delta, args,
+                                  (o, dk, dv, dq),
+                                  (tol_f, tol_g, tol_g, tol_g), tag)
+            del o, lse, dk, dv, rdk, rdv, dq, rdq
             fns = {
                 "fwd": (K.flash_attention_fwd, K.flash_attention_fwd_plain,
                         lambda c, st: c[:3]),
@@ -469,44 +539,217 @@ def phase_flash_attention(K, gen, dev):
                     lambda f=f, c=c, st=st: f(*pick(c, st), **args)
                     for c, st in zip(copies, stats)]) for f in (kern, plain))
             # yardsticks: SDPA forward, and SDPA forward + backward, on
-            # the same tensors as (B, H, S, D) views
+            # the same tensors as (B, H, S, D) views; with dropout, SDPA's
+            # own dropout (similar work, another mask), timed with CUDA
+            # events around eager calls (its RNG is kept out of a graph)
             mask = bias.view(B, 1, 1, s).to(dtype) if biased else None
 
             def sdpa(c):
                 q4, k4, v4 = (t.view(B, H, s, D) for t in c[:3])
                 return lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask, is_causal=causal)
+                    q4, k4, v4, attn_mask=mask, is_causal=causal,
+                    dropout_p=rate)
 
-            lib_fwd = device_ms([sdpa(c) for c in copies])
+            if rate:
+                lib_fwd = event_ms(sdpa(copies[0]), reps=20)
+            else:
+                lib_fwd = device_ms([sdpa(c) for c in copies])
             qg, kg, vg = (t.view(B, H, s, D).detach().requires_grad_()
                           for t in copies[0][:3])
             do4 = copies[0][3].view(B, H, s, D)
             lib_fb = event_ms(lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                               is_causal=causal),
+                                               is_causal=causal,
+                                               dropout_p=rate),
                 (qg, kg, vg), do4))
             # the work these inputs need: live (query, key) pairs only
             pairs = bh * (s * (s + 1) // 2 if causal else s * s)
             io = bh * s * D * elem
             extra = (B * s * 4 if biased else 0)
+            hashes = K0_OPS * pairs if rate else 0   # one mask per pair
             bnds = {"fwd": bound_ms(4 * io + bh * s * 4 + extra,
-                                    4 * D * pairs, dtype),
+                                    4 * D * pairs, dtype, hashes),
                     "dkdv": bound_ms(6 * io + 2 * bh * s * 4 + extra,
-                                     8 * D * pairs, dtype),
+                                     8 * D * pairs, dtype, hashes),
                     "dq": bound_ms(5 * io + 2 * bh * s * 4 + extra,
-                                   6 * D * pairs, dtype)}
+                                   6 * D * pairs, dtype, hashes)}
             libs = {"fwd": lib_fwd, "dkdv": lib_fb, "dq": lib_fb}
             for part in ("fwd", "dkdv", "dq"):
                 name = f"flash_attention_{part} {tag}"
                 report(name, err[part], times[part][0], times[part][1],
                        bnds[part], libs[part])
                 if not f32 and s == 256 and causal:
-                    main[f"flash_attention_{part}"] = kernel_row(
+                    key = f"flash_attention_{part}" + (
+                        "_dropout" if rate else "")
+                    main[key] = kernel_row(
                         err[part], times[part][0], times[part][1],
                         bnds[part], libs[part], name)
+            del copies, stats
         print("  (flash library: fwd = SDPA forward; dkdv/dq = SDPA "
-              "forward + backward, which computes dq, dk and dv together)",
-              flush=True)
+              "forward + backward, which computes dq, dk and dv together; "
+              "with dropout, SDPA's dropout_p: similar work, another "
+              "mask)", flush=True)
+    return main
+
+
+K4_SEED = 918273
+DROPOUT_KEY = (123456789, 987654321)
+
+
+def mismatches(a, b) -> int:
+    return int((a != b).sum().item())
+
+
+def check_exact(name, out, ref):
+    """Bit-exact (``torch.equal``); returns the max abs error, 0."""
+    if not torch.equal(out, ref):
+        fail(f"{name}: kernel is not bit-exact with its plain version "
+             f"({mismatches(out, ref)} elements differ)")
+    return 0.0
+
+
+def phase_dropout_residual(K, gen, dev):
+    """The fused dropout-residual kernel (K4) at the training shape, bf16
+    (4096, 1024) without a bias (the attention tail of every layer), and
+    at ragged f32 (300, 96) and bf16 (37, 1000) with a bias; forward and
+    the backward's dx. Bit-exact with the plain versions, on random inputs
+    and on x = ones, where the output is the mask itself (0 mismatches);
+    the mask of salt 1 must differ (a planted fault). Yardstick:
+    ``F.dropout(x) + residual`` and ``F.dropout(g)``, similar work with
+    another mask."""
+    import torch.nn.functional as F
+
+    main = {}
+    for dtype, rows, n, biased in ((torch.bfloat16, 4096, 1024, False),
+                                   (torch.float32, 300, 96, True),
+                                   (torch.bfloat16, 37, 1000, True)):
+        elem = elem_size(dtype)
+        copies = [tuple(torch.randn((rows, n), generator=gen, device=dev)
+                        .to(dtype) for _ in range(2))
+                  for _ in range(n_copies(3 * rows * n * elem))]
+        bias = (torch.randn(n, generator=gen, device=dev).to(dtype)
+                if biased else None)
+        kw = dict(rate=DROPOUT_RATE, seed=K4_SEED)
+        x, res = copies[0]
+        tag = (f"{str(dtype)[6:]} rows={rows} n={n}"
+               f"{' bias' if biased else ''}")
+        err_f = check_exact(f"dropout_residual {tag}",
+                            K.dropout_residual_fwd(x, res, bias, **kw),
+                            K.dropout_residual_fwd_plain(x, res, bias, **kw))
+        err_b = check_exact(f"dropout_residual_bwd {tag}",
+                            K.dropout_residual_bwd(x, **kw),
+                            K.dropout_residual_bwd_plain(x, **kw))
+        ones = torch.ones((rows, n), dtype=dtype, device=dev)
+        zeros = torch.zeros_like(ones)
+        got = K.dropout_residual_fwd(ones, zeros, **kw)
+        miss = mismatches(got, K.dropout_residual_fwd_plain(ones, zeros,
+                                                             **kw))
+        miss_b = mismatches(K.dropout_residual_bwd(ones, **kw),
+                            K.dropout_residual_bwd_plain(ones, **kw))
+        rr = torch.arange(rows, device=dev)[:, None]
+        cc = torch.arange(n, device=dev)[None, :]
+        salt1 = K.counter_keep_mask_plain(K4_SEED, 1, rr, cc,
+                                                 1.0 - DROPOUT_RATE)
+        fault = mismatches(got != 0, salt1)
+        kept = (got != 0).float().mean().item()
+        print(f"  dropout_residual {tag}: x = ones, kernel vs plain "
+              f"mismatches fwd {miss} bwd {miss_b}; against the salt-1 "
+              f"mask {fault}; kept {kept:.5f}", flush=True)
+        if miss or miss_b or not fault:
+            fail(f"dropout_residual {tag}: mask mismatches {miss}/{miss_b}, "
+                 f"salt-1 fault mismatches {fault}")
+        ms_f = device_ms([lambda c=c: K.dropout_residual_fwd(
+            c[0], c[1], bias, **kw) for c in copies])
+        plain_f = device_ms([lambda c=c: K.dropout_residual_fwd_plain(
+            c[0], c[1], bias, **kw) for c in copies])
+        ms_b = device_ms([lambda c=c: K.dropout_residual_bwd(c[0], **kw)
+                          for c in copies])
+        plain_b = device_ms([lambda c=c: K.dropout_residual_bwd_plain(
+            c[0], **kw) for c in copies])
+        lib_f = event_ms(lambda: F.dropout(x, DROPOUT_RATE) + res, reps=20)
+        lib_b = event_ms(lambda: F.dropout(x, DROPOUT_RATE), reps=20)
+        nb = elem * (n if biased else 0)
+        bnd_f = bound_ms(3 * rows * n * elem + nb, 2 * rows * n,
+                         torch.float32, K0_OPS * rows * n)
+        bnd_b = bound_ms(2 * rows * n * elem, rows * n, torch.float32,
+                         K0_OPS * rows * n)
+        report(f"dropout_residual {tag}", err_f, ms_f, plain_f, bnd_f, lib_f)
+        report(f"dropout_residual_bwd {tag}", err_b, ms_b, plain_b, bnd_b,
+               lib_b)
+        if rows == 4096:
+            main["dropout_residual"] = kernel_row(
+                err_f, ms_f, plain_f, bnd_f, lib_f, f"dropout_residual {tag}")
+            main["dropout_residual_bwd"] = kernel_row(
+                err_b, ms_b, plain_b, bnd_b, lib_b,
+                f"dropout_residual_bwd {tag}")
+        del copies
+    print("  (dropout_residual library: F.dropout(x) + residual and "
+          "F.dropout(g), similar work with another mask, CUDA events "
+          "around eager calls)", flush=True)
+    return main
+
+
+def phase_dropout(K, gen, dev):
+    """The threefry Dropout kernel at the training shapes, bf16: (16, 256,
+    4096) after each FFN-input ReLU and (16, 256, 1024) on the embedding;
+    forward and backward (the same function of the cotangent). Bit-exact
+    with the plain version, on random inputs and on x = ones (0
+    mismatches); the key's second word plus one must differ (a planted
+    fault). Yardstick: ``F.dropout``, similar work with another mask."""
+    import torch.nn.functional as F
+
+    main = {}
+    keep_prob = 1.0 - DROPOUT_RATE
+    for shape, key in (((TRAIN_B, TRAIN_S, 4096), "dropout"),
+                       ((TRAIN_B, TRAIN_S, 1024), "dropout@embedding")):
+        dtype = torch.bfloat16
+        elem = elem_size(dtype)
+        numel = math.prod(shape)
+        copies = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for _ in range(n_copies(2 * numel * elem))]
+        x = copies[0]
+        tag = f"bf16 {shape} keep_prob {keep_prob}"
+        err_f = check_exact(f"dropout {tag}",
+                            K.dropout_fwd(x, keep_prob, DROPOUT_KEY),
+                            K.dropout_plain(x, keep_prob, DROPOUT_KEY))
+        err_b = check_exact(f"dropout_bwd {tag}",
+                            K.dropout_bwd(x, keep_prob, DROPOUT_KEY),
+                            K.dropout_plain(x, keep_prob, DROPOUT_KEY))
+        ones = torch.ones(shape, dtype=dtype, device=dev)
+        got = K.dropout_fwd(ones, keep_prob, DROPOUT_KEY)
+        miss = mismatches(got, K.dropout_plain(ones, keep_prob,
+                                                DROPOUT_KEY))
+        other = (DROPOUT_KEY[0], DROPOUT_KEY[1] + 1)
+        fault = mismatches(got, K.dropout_plain(ones, keep_prob, other))
+        kept = (got != 0).float().mean().item()
+        print(f"  dropout {tag}: x = ones, kernel vs plain mismatches "
+              f"{miss}; against the next key {fault}; kept {kept:.5f}, "
+              f"kept value {got.max().item()}", flush=True)
+        if miss or not fault:
+            fail(f"dropout {tag}: mask mismatches {miss}, next-key fault "
+                 f"mismatches {fault}")
+        ms_f = device_ms([lambda c=c: K.dropout_fwd(c, keep_prob,
+                                                     DROPOUT_KEY)
+                          for c in copies])
+        plain_f = device_ms([lambda c=c: K.dropout_plain(c, keep_prob,
+                                                          DROPOUT_KEY)
+                             for c in copies])
+        ms_b = device_ms([lambda c=c: K.dropout_bwd(c, keep_prob,
+                                                     DROPOUT_KEY)
+                          for c in copies])
+        lib = event_ms(lambda: F.dropout(x, DROPOUT_RATE), reps=20)
+        bnd = bound_ms(2 * numel * elem, numel, torch.float32,
+                       THREEFRY_OPS * numel)
+        report(f"dropout {tag}", err_f, ms_f, plain_f, bnd, lib)
+        report(f"dropout_bwd {tag}", err_b, ms_b, plain_f, bnd, lib)
+        main[key] = kernel_row(err_f, ms_f, plain_f, bnd, lib,
+                               f"dropout {tag}")
+        main[key.replace("dropout", "dropout_bwd")] = kernel_row(
+            err_b, ms_b, plain_f, bnd, lib, f"dropout_bwd {tag}")
+        del copies
+    print("  (dropout library: F.dropout, similar work with another mask, "
+          "CUDA events around eager calls; dropout_bwd's plain version is "
+          "the forward's)", flush=True)
     return main
 
 
@@ -859,18 +1102,34 @@ def serve(params, cfg, int8, prompts, dev):
 TRAIN_STEPS = 16
 # a warm-up this long keeps the learning rate (1.2e-4 at step 16) below
 # the point where Adam overshoots on one repeated batch: with 16 the loss
-# stalled after five steps, so "falls at every step" would test nothing
+# stalled after five steps (at dropout 0)
 TRAIN_WARMUP = 256
-# launches of one training step (6 layers: one flash attention and two
-# LayerNorms each; one xent; one Adam kernel per flat group)
-PER_STEP = {"flash_attention_fwd": 6, "flash_attention_dkdv": 6,
-            "flash_attention_dq": 6, "layer_norm": 12, "layer_norm_bwd": 12,
-            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+# the bf16 window's loss check compares the means of its first and last
+# this many steps: with dropout, each step draws other masks, so the loss
+# on the repeated batch is noisy from step to step
+LOSS_MEAN_OF = 4
 
 
-def expected_counts(names, steps, adam_groups):
+def per_step(cfg):
+    """Launches of one training step: per layer one flash attention (fwd,
+    dK/dV, dQ) and two LayerNorms (fwd, bwd); one xent (fwd, bwd); with
+    dropout, per layer one dropout-residual (fwd, bwd) and one FFN
+    Dropout, and one embedding Dropout (fwd, bwd). Adam is counted apart
+    (one launch per flat group)."""
+    n = cfg.num_layers
+    want = {"flash_attention_fwd": n, "flash_attention_dkdv": n,
+            "flash_attention_dq": n, "layer_norm": 2 * n,
+            "layer_norm_bwd": 2 * n, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+    if cfg.dropout > 0:
+        want.update(dropout_residual=n, dropout_residual_bwd=n,
+                    dropout=n + 1, dropout_bwd=n + 1)
+    return want
+
+
+def expected_counts(names, steps, adam_groups, cfg):
     want = {k: 0 for k in names}
-    for k, v in PER_STEP.items():
+    for k, v in per_step(cfg).items():
         want[k] = v * steps
     want["adam_update"] = adam_groups * steps
     return want
@@ -926,7 +1185,13 @@ def planted(module, name, wrap):
         setattr(module, name, orig)
 
 
-F32_GRAD_TOL = 1e-3          # kernels vs plain, each with its own ReLU
+# kernels vs plain, each run with its own ReLU gates: the few gates that
+# flip on f32 roundoff carry their whole gradient row into the error. On an
+# H100 80GB HBM3 at 700 W dropout 0 reads 5.194e-4 (a few flips per layer)
+# and dropout 0.1 reads 1.170e-3 (two flips in layer 1, its activations
+# scaled by 1 / 0.9), so that rate takes 2e-3. The limit that planted
+# faults must fail is the shared-mask one, the same at both rates.
+F32_GRAD_TOL = {0.0: 1e-3, DROPOUT_RATE: 2e-3}
 F32_SHARED_TOL = 1e-4        # kernels vs plain, the plain run's ReLU mask
 
 
@@ -939,13 +1204,15 @@ def check_f32_step(K, cfg, params, batch, dev):
     held to the tighter ``F32_SHARED_TOL``; and two planted faults under
     those shared masks (dQ scaled by 1.001, the xent backward without
     smoothing), each of which must fail that limit. A second plain step
-    gives the floor: the plain step is deterministic on the card."""
+    gives the floor: the plain step is deterministic on the card. With
+    ``cfg.dropout > 0`` every trainer starts at the same RNG counter, so
+    each run draws the same dropout masks. Returns the kernel run's
+    launches."""
     from simple_tensorflow_tpu_torch.models import causal_lm as clm
 
     # the modules (the package re-exports functions under their names)
-    kmod = "simple_tensorflow_tpu_torch.ops.kernels."
-    flash_attention = importlib.import_module(kmod + "flash_attention")
-    softmax_xent = importlib.import_module(kmod + "softmax_xent")
+    flash_attention = importlib.import_module(KMOD + "flash_attention")
+    softmax_xent = importlib.import_module(KMOD + "softmax_xent")
 
     def run(plain=False, signs=None, masks=None):
         t = clm.causal_lm_train_model(
@@ -954,6 +1221,8 @@ def check_f32_step(K, cfg, params, batch, dev):
         relu_recording(t, signs, masks)
         return t, t.step(*batch).item()
 
+    tag = f"train[f32 dropout {cfg.dropout}]"
+    grad_tol = F32_GRAD_TOL[cfg.dropout]
     signs_p, signs_k = [], []
     tp, loss_p = run(plain=True, signs=signs_p)
     before = K.launch_counts()
@@ -961,15 +1230,15 @@ def check_f32_step(K, cfg, params, batch, dev):
     floor = max(grad_rel_errs(tp2, tp).values())
     del tp2
     if K.launch_counts() != before:
-        fail("train[f32]: the plain step launched kernels")
+        fail(f"{tag}: the plain step launched kernels")
     K.reset_launch_counts()
     tk, loss_k = run(signs=signs_k)
     counts = K.launch_counts()
-    want = expected_counts(counts, 1, 1)
+    want = expected_counts(counts, 1, 1, cfg)
     if counts != want:
-        fail(f"train[f32]: launches {counts}, expected per step {want}")
+        fail(f"{tag}: launches {counts}, expected per step {want}")
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
-        fail(f"train[f32]: loss {loss_k} through the kernels, {loss_p} "
+        fail(f"{tag}: loss {loss_k} through the kernels, {loss_p} "
              f"through the plain versions")
     grads_p = dict(tp.stack.named_parameters())
     for name, pk in tk.stack.named_parameters():
@@ -977,7 +1246,7 @@ def check_f32_step(K, cfg, params, batch, dev):
             scale = grads_p[name[:-4] + "kernel"].grad.float().norm().item()
             for g in (pk.grad, grads_p[name].grad):
                 if g.float().norm().item() > 1e-5 * scale:
-                    fail(f"train[f32]: {name} gradient is not roundoff")
+                    fail(f"{tag}: {name} gradient is not roundoff")
     errs = grad_rel_errs(tk, tp)
     del tk
     flips = [int((a != b).sum().item()) for a, b in zip(signs_k, signs_p)]
@@ -1001,93 +1270,173 @@ def check_f32_step(K, cfg, params, batch, dev):
                 sorted(e.items(), key=lambda kv: -kv[1])[:n]]
 
     units = signs_p[0].numel()
-    print(f"train[f32]: loss {loss_k:.7f} (kernels) vs {loss_p:.7f} "
+    print(f"{tag}: loss {loss_k:.7f} (kernels) vs {loss_p:.7f} "
           f"(plain); launches {counts}", flush=True)
-    print(f"train[f32]: gradient rel err, worst: {worst(errs)} (limit "
-          f"{F32_GRAD_TOL}); plain vs plain worst {floor:.3e}", flush=True)
-    print(f"train[f32]: FFN-input ReLU gates that differ, kernels vs plain, "
+    print(f"{tag}: gradient rel err, worst: {worst(errs)} (limit "
+          f"{grad_tol}); plain vs plain worst {floor:.3e}", flush=True)
+    print(f"{tag}: FFN-input ReLU gates that differ, kernels vs plain, "
           f"per layer (of {units}): {flips}", flush=True)
-    print(f"train[f32]: with the plain run's ReLU masks shared, gradient "
+    print(f"{tag}: with the plain run's ReLU masks shared, gradient "
           f"rel err, worst: {worst(shared)} (limit {F32_SHARED_TOL})",
           flush=True)
-    print(f"train[f32]: planted faults, shared masks, worst gradient rel "
+    print(f"{tag}: planted faults, shared masks, worst gradient rel "
           f"err: {', '.join(f'{k} {v:.3e}' for k, v in faults.items())}",
           flush=True)
-    bad = {n: e for n, e in errs.items() if not e <= F32_GRAD_TOL}
+    bad = {n: e for n, e in errs.items() if not e <= grad_tol}
     if bad:
-        fail(f"train[f32]: gradient rel err above {F32_GRAD_TOL}: {bad}")
+        fail(f"{tag}: gradient rel err above {grad_tol}: {bad}")
     bad = {n: e for n, e in shared.items() if not e <= F32_SHARED_TOL}
     if bad:
-        fail(f"train[f32]: with shared ReLU masks, gradient rel err above "
+        fail(f"{tag}: with shared ReLU masks, gradient rel err above "
              f"{F32_SHARED_TOL}: {bad}")
     missed = [k for k, v in faults.items() if not v > F32_SHARED_TOL]
     if missed:
-        fail(f"train[f32]: the shared-mask limit passes planted faults "
+        fail(f"{tag}: the shared-mask limit passes planted faults "
              f"{missed}: {faults}")
+    return counts
 
 
-def train_phase(K, cfg_big, params, dev, kernel_rows):
-    """The training main path (module docstring, phase 4)."""
-    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+def key_derivation_us(trainer, reps=20):
+    """Host microseconds a step to derive its dropout keys and seeds, as
+    the trainer does: one :meth:`StepRNG.for_steps` pass over a block of
+    ``RNG_BLOCK`` steps, divided by the block; the median of ``reps``
+    blocks."""
+    from simple_tensorflow_tpu_torch.framework.random_seed import StepRNG
+    from simple_tensorflow_tpu_torch.models.causal_lm import RNG_BLOCK
 
-    cfg = dataclasses.replace(cfg_big, dropout=0.0)
-    batch = train_batch(cfg.vocab_size)
-    check_f32_step(K, cfg, params, batch, dev)
-    torch.cuda.empty_cache()
-
-    trainer = clm.causal_lm_train_model(
-        TRAIN_B, TRAIN_S, cfg, compute_dtype=torch.bfloat16, params=params,
-        warmup_steps=TRAIN_WARMUP, device=dev)
-    n_groups = len(trainer.optimizer.flat_groups)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    times = []
+    for i in range(reps):
+        block = range(i * RNG_BLOCK + 1, (i + 1) * RNG_BLOCK + 1)
         t0 = time.perf_counter()
-        loss = trainer.step(*batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-    counts = K.launch_counts()
+        StepRNG.for_steps(block, trainer._key_sites, trainer._seed_sites)
+        times.append((time.perf_counter() - t0) / RNG_BLOCK)
+    return statistics.median(times) * 1e6
+
+
+def train_phase(K, cfg, params, dev, kernel_rows):
+    """The training main paths (module docstring, phase 4). Returns
+    ``[(path, dropout, launches)]``: the two f32 kernel steps and the two
+    bf16 windows, each counted from zero just before it."""
+    batch = train_batch(cfg.vocab_size)
+    paths = []
+    for rate in (0.0, cfg.dropout):
+        cfg_f32 = dataclasses.replace(cfg, dropout=rate)
+        paths.append((f"train f32 dropout {rate}", rate,
+                      check_f32_step(K, cfg_f32, params, batch, dev)))
+        torch.cuda.empty_cache()
+
+    # the shipped config's window and, interleaved step by step in the
+    # same call, the same window at dropout 0: the cost of dropout
+    rates = (cfg.dropout, 0.0)
+    runs = bf16_windows(K, [dataclasses.replace(cfg, dropout=r)
+                            for r in rates], params, batch, dev)
+    (trainer, losses, times, counts), (trainer0, losses0, times0,
+                                       counts0) = runs
     peak = torch.cuda.max_memory_allocated()
-    want = expected_counts(counts, TRAIN_STEPS, n_groups)
-    if n_groups != 2 or counts != want:
-        fail(f"train[bf16]: {n_groups} Adam groups, launches {counts}, "
-             f"expected {want}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"train[bf16]: non-finite loss in {losses}")
-    if not all(b < a for a, b in zip(losses, losses[1:])):
-        fail(f"train[bf16]: the loss does not fall at every step: {losses}")
-    p50 = statistics.median(times)
+    n_groups = len(trainer.optimizer.flat_groups)
+    paths.append(("train bf16", cfg.dropout, counts))
+    paths.append(("train bf16 dropout 0", 0.0, counts0))
+    first = statistics.mean(losses[:LOSS_MEAN_OF])
+    last = statistics.mean(losses[-LOSS_MEAN_OF:])
+    if not (last < first and losses[-1] < losses[0]):
+        fail(f"train[bf16]: the loss does not fall (mean of the first "
+             f"{LOSS_MEAN_OF} {first}, of the last {last}): {losses}")
+    if not all(b < a for a, b in zip(losses0, losses0[1:])):
+        fail(f"train[bf16 dropout 0]: the loss does not fall at every "
+             f"step: {losses0}")
+    p50, p50_0 = statistics.median(times), statistics.median(times0)
     tokens = TRAIN_B * TRAIN_S
-    rows = {k: kernel_rows[k] for k in PER_STEP if k != "layer_norm"}
+    steps = per_step(cfg)
+    suffix = "_dropout" if cfg.dropout > 0 else ""
+    rows = {k: kernel_rows[k + suffix if k.startswith("flash") else k]
+            for k in steps if k != "layer_norm"}
     rows["layer_norm"] = kernel_rows["layer_norm@train"]
     rows["adam_update"] = kernel_rows["adam_update"]
-    per_step = dict(PER_STEP, adam_update=n_groups)
-    kern_ms = sum(rows[k]["ms"] * per_step[k] for k in per_step)
-    print(f"train[bf16]: TransformerConfig.big() dropout 0, batch "
-          f"{TRAIN_B} x {TRAIN_S}, warmup_steps {TRAIN_WARMUP}, "
-          f"{TRAIN_STEPS} steps on one repeated batch", flush=True)
-    print(f"train[bf16]: losses {[round(x, 5) for x in losses]}",
+    kern_ms = sum(rows[k]["ms"] * v for k, v in steps.items())
+    kern_ms += rows["adam_update"]["ms"] * n_groups
+    if cfg.dropout > 0:
+        # one of the Dropouts (fwd and bwd) is the embedding's, narrower
+        for k in ("dropout", "dropout_bwd"):
+            kern_ms += kernel_rows[k + "@embedding"]["ms"] - rows[k]["ms"]
+    rng_us = key_derivation_us(trainer)
+    print(f"train[bf16]: TransformerConfig.big() as shipped (dropout "
+          f"{cfg.dropout}), batch {TRAIN_B} x {TRAIN_S}, warmup_steps "
+          f"{TRAIN_WARMUP}, {TRAIN_STEPS} steps on one repeated batch, "
+          f"each step followed by a step of a second trainer at dropout 0",
+          flush=True)
+    print(f"train[bf16]: losses {[round(x, 5) for x in losses]} (mean of "
+          f"the first {LOSS_MEAN_OF} {first:.5f}, of the last {last:.5f})",
           flush=True)
     print(f"train[bf16]: p50 step {p50 * 1e3:.4f} ms (min "
           f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
           f"{tokens / p50:.1f} tokens/s; the kernels at their phase times "
           f"{kern_ms:.4f} ms a step ({100 * kern_ms / (p50 * 1e3):.1f}% of "
           f"the p50 step; Adam counted once per group at the bf16 group's "
-          f"time); peak device memory {peak / 2 ** 30:.3f} GiB", flush=True)
+          f"time); peak device memory, both trainers resident, "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"train[bf16]: deriving the step's {len(trainer.dropout_sites)} "
+          f"dropout keys and seeds on the host: {rng_us:.2f} us a step "
+          f"(one pass over a block of steps, median of 20 blocks)",
+          flush=True)
     print(f"train[bf16]: launches {counts}", flush=True)
-    profile_steps(trainer, batch)
-    return counts
+    print(f"train[bf16 dropout 0]: losses {[round(x, 5) for x in losses0]}"
+          f"; p50 step {p50_0 * 1e3:.4f} ms (min {min(times0) * 1e3:.4f}, "
+          f"max {max(times0) * 1e3:.4f}), {tokens / p50_0:.1f} tokens/s; "
+          f"dropout {cfg.dropout} takes {(p50 - p50_0) * 1e3:.4f} ms more "
+          f"at the p50", flush=True)
+    busy = profile_steps(trainer, batch, f"dropout {cfg.dropout}")
+    busy0 = profile_steps(trainer0, batch, "dropout 0", top=0)
+    if busy is not None and busy0 is not None:
+        print(f"train[bf16]: dropout {cfg.dropout} adds {busy - busy0:.4f} "
+              f"ms of device time a step", flush=True)
+    return paths
 
 
-def profile_steps(trainer, batch, n=3):
+def bf16_windows(K, cfgs, params, batch, dev):
+    """``TRAIN_STEPS`` bf16 steps of one fresh trainer per config on one
+    repeated batch, interleaved step by step (so both see the same host),
+    each step timed on the host clock to its ``synchronize`` and its
+    launches counted around it; every loss finite and the launches exact.
+    Returns ``[(trainer, losses, times, launches)]``."""
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+
+    runs = []
+    for cfg in cfgs:
+        trainer = clm.causal_lm_train_model(
+            TRAIN_B, TRAIN_S, cfg, compute_dtype=torch.bfloat16,
+            params=params, warmup_steps=TRAIN_WARMUP, device=dev)
+        runs.append((trainer, [], [], {k: 0 for k in K.launch_counts()}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        for trainer, losses, times, counts in runs:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = trainer.step(*batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for k, v in K.launch_counts().items():
+                counts[k] += v
+            losses.append(loss.item())
+    for cfg, (trainer, losses, _, counts) in zip(cfgs, runs):
+        tag = f"train[bf16 dropout {cfg.dropout}]"
+        n_groups = len(trainer.optimizer.flat_groups)
+        want = expected_counts(counts, TRAIN_STEPS, n_groups, cfg)
+        if n_groups != 2 or counts != want:
+            fail(f"{tag}: {n_groups} Adam groups, launches {counts}, "
+                 f"expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{tag}: non-finite loss in {losses}")
+    return runs
+
+
+def profile_steps(trainer, batch, tag, n=3, top=10):
     """Device time of ``n`` more training steps from a ``torch.profiler``
     trace (CUDA kernels, copies and fills, summed), against the host
-    clock around them, and the kernels that take the most of it. Run
-    after the counted window; the profiler's host-side tracing slows the
-    host, so the busy share here is a lower bound."""
+    clock around them, and the ``top`` kernels that take the most of it;
+    returns the device ms a step (None when the trace saw no device
+    time). Run after the counted window; the profiler's host-side tracing
+    slows the host, so the busy share here is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1106,16 +1455,16 @@ def profile_steps(trainer, batch, n=3):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / n
     if not by_name:
-        print("train[bf16]: the profiler saw no device time; the device "
-              "busy share is not measured", flush=True)
-        return
+        print(f"train[bf16 {tag}]: the profiler saw no device time; the "
+              f"device busy share is not measured", flush=True)
+        return None
     dev_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(f"train[bf16]: profiler, {n} steps: device busy {dev_ms:.4f} ms "
-          f"a step of {wall_ms:.4f} ms on the host clock "
+    print(f"train[bf16 {tag}]: profiler, {n} steps: device busy "
+          f"{dev_ms:.4f} ms a step of {wall_ms:.4f} ms on the host clock "
           f"({100 * dev_ms / wall_ms:.1f}%)", flush=True)
-    for name, ms in top:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
+    return dev_ms
 
 
 def main():
@@ -1138,9 +1487,13 @@ def main():
     _build.library()
     print(f"kernels built from {SRC} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    spills = [ln.strip() for ln in _build.build_log.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill" not
-              in ln]
+    spills, entry = [], ""
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill" \
+                not in ln:
+            spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
 
@@ -1154,6 +1507,8 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     main_rows.update(phase_flash_attention(K, gen, dev))
+    main_rows.update(phase_dropout_residual(K, gen, dev))
+    main_rows.update(phase_dropout(K, gen, dev))
     main_rows.update(phase_layer_norm_bwd(K, gen, dev))
     main_rows.update(phase_softmax_xent(K, gen, dev))
     main_rows.update(phase_adam(K, gen, dev, cfg))
@@ -1161,15 +1516,23 @@ def main():
 
     params = convert.init_params(cfg, seed=0)
     prompts = make_prompts(cfg.vocab_size)
-    launches = {}
+    # (path, dropout rate, launches counted from zero around it)
+    paths = []
     for int8 in (False, True):
-        counts = serve(params, cfg, int8, prompts, dev)
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+        paths.append((f"serve {'int8' if int8 else 'f32'}", 0.0,
+                      serve(params, cfg, int8, prompts, dev)))
     torch.cuda.empty_cache()
-    counts = train_phase(K, cfg, params, dev, main_rows)
-    for k, v in counts.items():
-        launches[k] = launches.get(k, 0) + v
+    paths += train_phase(K, cfg, params, dev, main_rows)
+    # a kernel's launches over every path; the flash rows split by the
+    # path's dropout (the dropout branch runs only at rate > 0)
+    launches = {}
+    for _, rate, counts in paths:
+        for k, v in counts.items():
+            if k.startswith("flash_attention") and rate > 0:
+                k += "_dropout"
+            launches[k] = launches.get(k, 0) + v
+    print(f"launches over the paths {[p for p, _, _ in paths]}: {launches}",
+          flush=True)
 
     where = {
         "decode_attention": ("decode_attention.cu",
@@ -1188,12 +1551,28 @@ def main():
         "softmax_xent_fwd": ("softmax_xent.cu", "softmax_xent.py:32"),
         "softmax_xent_bwd": ("softmax_xent.cu", "softmax_xent.py:78"),
         "adam_update": ("fused_update.cu", "fused_update.py:59"),
+        "flash_attention_fwd_dropout": ("flash_attention.cu",
+                                        "flash_attention.py:141"),
+        "flash_attention_dkdv_dropout": ("flash_attention.cu",
+                                         "flash_attention.py:244"),
+        "flash_attention_dq_dropout": ("flash_attention.cu",
+                                       "flash_attention.py:297"),
+        "dropout_residual": ("dropout_residual.cu",
+                             "dropout_residual.py:41"),
+        "dropout_residual_bwd": ("dropout_residual.cu",
+                                 "dropout_residual.py:99"),
+        "dropout": ("dropout.cu", "../nn_ops.py:388"),
+        "dropout_bwd": ("dropout.cu", "../nn_ops.py:388"),
     }
+    missing = [k for k in where if not launches.get(k)]
+    if missing:
+        fail(f"kernels {missing} were not launched on any path")
     rows = []
     for name, (src, tpu) in where.items():
         r = main_rows[name]
         rows.append({"name": name, "route": "cuda", "source": SRC + src,
-                     "replaces": TPU + tpu, "launches": launches[name],
+                     "replaces": os.path.normpath(TPU + tpu),
+                     "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -17,7 +17,9 @@
   onto a trainer: ``global_step``, Adam's ``beta1_power``/``beta2_power``
   and the flat slots ``fused_m_g{i}``/``fused_v_g{i}``
   (``train/optimizers.py:104-106``), one per ``(param dtype, update
-  dtype)`` group in the same order.
+  dtype)`` group in the same order; and, from the index's ``host_state``
+  (:func:`load_host_state`), the session's RNG run counter, so a resumed
+  trainer draws the JAX session's next dropout masks.
 - :func:`init_params` makes numpy-seeded weights of the same shapes and
   initializers as the JAX model, so the card can run without JAX.
 """
@@ -37,10 +39,23 @@ _DENSE = [("self_attn", "q"), ("self_attn", "k"), ("self_attn", "v"),
           ("self_attn", "out"), ("ffn", "in"), ("ffn", "out")]
 
 
+def _prefix(prefix: str) -> str:
+    return prefix[:-len(".stfz")] if prefix.endswith(".stfz") else prefix
+
+
+def load_host_state(prefix: str) -> dict:
+    """The ``host_state`` of a checkpoint's index (``{"rng_run_counter":
+    …, …}``, ``client/session.py:snapshot_host_state``), or ``{}``."""
+    index = _prefix(prefix) + ".index.json"
+    if not os.path.exists(index):
+        return {}
+    with open(index) as f:
+        return json.load(f).get("host_state") or {}
+
+
 def load_stfz(prefix: str) -> dict:
     """``{variable_name: ndarray}`` from a ``.stfz`` checkpoint."""
-    if prefix.endswith(".stfz"):
-        prefix = prefix[:-len(".stfz")]
+    prefix = _prefix(prefix)
     index = prefix + ".index.json"
     tensors = {}
     if os.path.exists(index):
@@ -121,14 +136,18 @@ def _one(named: dict, pattern: str) -> str:
     return hits[0]
 
 
-def load_training_state(trainer, named: dict, optimizer_name: str = "Adam"):
+def load_training_state(trainer, named: dict, host_state=None,
+                        optimizer_name: str = "Adam"):
     """Carry a JAX training checkpoint's step and Adam state onto a
     :class:`..models.causal_lm.CausalLMTrainer` (its weights come from
     :func:`params_from_jax`): ``global_step``, ``…/beta1_power``,
     ``…/beta2_power`` and ``…/fused_m_g{i}``/``fused_v_g{i}`` onto the
-    optimizer's groups, in order. A checkpoint without a global step (a
-    serving export) leaves the trainer as it is. Raises when the slots do
-    not match the groups' sizes."""
+    optimizer's groups, in order, and ``host_state["rng_run_counter"]``
+    onto ``trainer.rng_counter``. From a checkpoint without a global step
+    (a serving export) only the counter is carried. Raises when the slots
+    do not match the groups' sizes."""
+    if host_state and "rng_run_counter" in host_state:
+        trainer.rng_counter = int(host_state["rng_run_counter"])
     if not any(k.split("/")[-1] == "global_step" for k in named):
         return
     opt = trainer.optimizer

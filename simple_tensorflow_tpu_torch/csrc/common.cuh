@@ -74,4 +74,29 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
+// K0, the counter-hash dropout keep mask of the TPU kernels
+// (ops/pallas/common.py:44-79: mix32, keep_threshold, counter_keep_mask), in
+// native uint32 arithmetic. A pure function of (seed, salt, row, col), so
+// forward and backward regenerate the same mask from the seed and nothing is
+// stored. The caller computes keep_hash0 once per (seed, salt) and the
+// threshold min(int(keep_prob * 2^32), 2^32 - 1) on the host.
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t keep_hash0(uint32_t seed, uint32_t salt) {
+  return mix32(seed ^ (salt * 0x9E3779B9u));
+}
+
+__device__ __forceinline__ bool counter_keep(uint32_t h0, uint32_t row,
+                                             uint32_t col,
+                                             uint32_t threshold) {
+  return mix32(mix32(h0 ^ row) ^ col) < threshold;
+}
+
 }  // namespace stf

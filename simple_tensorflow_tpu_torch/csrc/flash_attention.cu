@@ -1,7 +1,7 @@
 // FlashAttention-2 forward and backward over (B*H, S, D): the port of the TPU
 // kernels simple_tensorflow_tpu/ops/pallas/flash_attention.py:_fwd_kernel
 // (:102, called at :180), _bwd_dkdv_kernel (:210, called at :352) and
-// _bwd_dq_kernel (:264, called at :383), without their dropout branch.
+// _bwd_dq_kernel (:264, called at :383), with their dropout branch.
 //
 // What they compute, per head bh (bias row b = bh / H):
 //   s = (q . k) * sm_scale (+ bias[b, key]), then NEG_INF where key >= kv_len
@@ -11,6 +11,15 @@
 //   dkdv: p = exp(s - lse), dP = dO . V^T, dV += p(cast) ^T . dO,
 //   dS = (p * (dP - delta) * sm_scale)(cast), dK += dS^T . Q;
 //   dq: the same p and dS, dQ += dS . K.
+// Dropout (rate > 0), in the TPU kernels' order: keep = K0 (common.cuh
+// counter_keep) of (seed, salt = bh, GLOBAL query row, GLOBAL key column),
+// so the 64 x 64 tiles here draw the mask the TPU's 128 x 128 blocks draw,
+// and the backward regenerates it; inv = f32(1 / keep_prob).
+//   forward: l sums the UNDROPPED p; only the p stored for P.V is
+//   keep ? p * inv : 0 (then cast);
+//   backward: dV takes keep ? p * inv : 0 (cast), dP becomes keep ? dP * inv
+//   : 0, and dS = p_undropped * (dP - delta) * scale, delta = rowsum(dO . O)
+//   of the dropped O.
 // All products take the inputs widened to f32 and sum in f32 (the TPU's
 // preferred_element_type=f32 / Precision.HIGHEST); the casts to the input
 // dtype sit where the TPU kernels put them.
@@ -121,7 +130,8 @@ __global__ void __launch_bounds__(kFaThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, float* __restrict__ lse, int q_len,
-                     int kv_len, int H, float scale, int causal) {
+                     int kv_len, int H, float scale, int causal, int dropout,
+                     uint32_t seed, uint32_t threshold, float inv_keep) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -140,6 +150,7 @@ __global__ void __launch_bounds__(kFaThreads)
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
+  const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
   stage<T, D>(q_sh, qb, q0, q_len);
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -182,7 +193,13 @@ __global__ void __launch_bounds__(kFaThreads)
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        p_sh[(ty * 4 + i) * kPs + tx + 16 * j] = round_to<T>(p);
+        const int c = tx + 16 * j;
+        float pv = p;
+        if (dropout)
+          pv = counter_keep(h0, qg, k0 + c, threshold)
+                   ? __fmul_rn(p, inv_keep)
+                   : 0.0f;
+        p_sh[(ty * 4 + i) * kPs + c] = round_to<T>(pv);
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = alpha * l[i] + row16_sum(sum);
@@ -227,13 +244,15 @@ __global__ void __launch_bounds__(kFaThreads)
 
 // Computes, for the thread's 4 x 4 patch, p = exp(s - lse) and
 // dS = p * (dP - delta) * scale, and stores dS (cast to T) into ds_sh and,
-// when p_sh is given, p (cast to T) into p_sh.
+// when p_sh is given, p (cast to T) into p_sh. With dropout, dP and the
+// stored p are the dropped ones (h0 = keep_hash0(seed, bh)).
 template <typename T, int D>
 __device__ __forceinline__ void tile_p_ds(
     const float* q_sh, const float* k_sh, const float* v_sh,
     const float* do_sh, const float* lse_sh, const float* delta_sh,
     float* p_sh, float* ds_sh, const float* bias, int q0, int k0, int q_len,
-    int kv_len, float scale, int causal, int ty, int tx) {
+    int kv_len, float scale, int causal, int dropout, uint32_t h0,
+    uint32_t threshold, float inv_keep, int ty, int tx) {
   float s[4][4] = {}, dp[4][4] = {};
   patch_dot<D>(s, q_sh, k_sh, ty, tx);
   patch_dot<D>(dp, do_sh, v_sh, ty, tx);
@@ -246,8 +265,14 @@ __device__ __forceinline__ void tile_p_ds(
       const float sc = masked_score(s[i][j], scale, bias, q0 + r, k0 + c,
                                     q_len, kv_len, causal);
       const float p = expf(sc - lse_sh[r]);
-      if (p_sh != nullptr) p_sh[r * kPs + c] = round_to<T>(p);
-      ds_sh[r * kPs + c] = round_to<T>(p * (dp[i][j] - delta_sh[r]) * scale);
+      float pc = p, dpv = dp[i][j];
+      if (dropout) {
+        const bool keep = counter_keep(h0, q0 + r, k0 + c, threshold);
+        pc = keep ? __fmul_rn(p, inv_keep) : 0.0f;
+        dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
+      }
+      if (p_sh != nullptr) p_sh[r * kPs + c] = round_to<T>(pc);
+      ds_sh[r * kPs + c] = round_to<T>(p * (dpv - delta_sh[r]) * scale);
     }
   }
 }
@@ -269,7 +294,8 @@ __global__ void __launch_bounds__(kFaThreads)
                       const float* __restrict__ delta,
                       const float* __restrict__ bias, T* __restrict__ dk,
                       T* __restrict__ dv, int q_len, int kv_len, int H,
-                      float scale, int causal) {
+                      float scale, int causal, int dropout, uint32_t seed,
+                      uint32_t threshold, float inv_keep) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -291,6 +317,7 @@ __global__ void __launch_bounds__(kFaThreads)
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
+  const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
   stage<T, D>(k_sh, k + ko * D, k0, kv_len);
   stage<T, D>(v_sh, v + ko * D, k0, kv_len);
   float dk_acc[4][DJ], dv_acc[4][DJ];
@@ -314,7 +341,8 @@ __global__ void __launch_bounds__(kFaThreads)
     }
     __syncthreads();
     tile_p_ds<T, D>(q_sh, k_sh, v_sh, do_sh, lse_sh, delta_sh, p_sh, ds_sh,
-                    bb, q0, k0, q_len, kv_len, scale, causal, ty, tx);
+                    bb, q0, k0, q_len, kv_len, scale, causal, dropout, h0,
+                    threshold, inv_keep, ty, tx);
     __syncthreads();
 
     // dV[c] += sum_r p[r][c] dO[r]; dK[c] += sum_r dS[r][c] Q[r]; the
@@ -369,7 +397,9 @@ __global__ void __launch_bounds__(kFaThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const float* __restrict__ bias, T* __restrict__ dq,
-                    int q_len, int kv_len, int H, float scale, int causal) {
+                    int q_len, int kv_len, int H, float scale, int causal,
+                    int dropout, uint32_t seed, uint32_t threshold,
+                    float inv_keep) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -390,6 +420,7 @@ __global__ void __launch_bounds__(kFaThreads)
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
+  const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
   stage<T, D>(q_sh, q + qo * D, q0, q_len);
   stage<T, D>(do_sh, dout + qo * D, q0, q_len);
   for (int r = threadIdx.x; r < kBq; r += kFaThreads) {
@@ -412,7 +443,8 @@ __global__ void __launch_bounds__(kFaThreads)
     stage<T, D>(v_sh, v + ko * D, k0, kv_len);
     __syncthreads();
     tile_p_ds<T, D>(q_sh, k_sh, v_sh, do_sh, lse_sh, delta_sh, nullptr,
-                    ds_sh, bb, q0, k0, q_len, kv_len, scale, causal, ty, tx);
+                    ds_sh, bb, q0, k0, q_len, kv_len, scale, causal, dropout,
+                    h0, threshold, inv_keep, ty, tx);
     __syncthreads();
     const int nk = min(kBk, kv_len - k0);
     for (int c = 0; c < nk; ++c) {
@@ -457,6 +489,9 @@ struct FaArgs {
   int BH, q_len, kv_len, H;
   float scale;
   int causal;
+  int dropout;
+  uint32_t seed, threshold;
+  float inv_keep;
   cudaStream_t s;
 };
 
@@ -469,7 +504,8 @@ cudaError_t run_fwd(const FaArgs& a) {
   kernel<<<dim3(cdiv(a.q_len, kBq), a.BH), kFaThreads, smem, a.s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bias, static_cast<T*>(a.o),
-      static_cast<float*>(a.lse), a.q_len, a.kv_len, a.H, a.scale, a.causal);
+      static_cast<float*>(a.lse), a.q_len, a.kv_len, a.H, a.scale, a.causal,
+      a.dropout, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -484,7 +520,8 @@ cudaError_t run_dkdv(const FaArgs& a) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse_in),
       static_cast<const float*>(a.delta), a.bias, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.q_len, a.kv_len, a.H, a.scale, a.causal);
+      static_cast<T*>(a.dv), a.q_len, a.kv_len, a.H, a.scale, a.causal,
+      a.dropout, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -499,7 +536,8 @@ cudaError_t run_dq(const FaArgs& a) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse_in),
       static_cast<const float*>(a.delta), a.bias, static_cast<T*>(a.dq),
-      a.q_len, a.kv_len, a.H, a.scale, a.causal);
+      a.q_len, a.kv_len, a.H, a.scale, a.causal, a.dropout, a.seed,
+      a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -536,15 +574,19 @@ int dispatch(int which, int dtype, int D, const FaArgs& a) {
 
 // q (BH, q_len, D), k/v (BH, kv_len, D), o like q, lse (BH, q_len) f32;
 // bias (B, kv_len) f32 or null with B = BH / H. D in {16, 32, 64, 128}.
+// dropout 0/1; seed the int32 seed as uint32; threshold = min(int(keep_prob
+// * 2^32), 2^32 - 1); inv_keep = f32(1 / keep_prob).
 extern "C" int stf_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, void* lse, int BH, int q_len,
                                        int kv_len, int H, int D, float scale,
-                                       int causal, int dtype, void* stream) {
+                                       int causal, int dropout, unsigned seed,
+                                       unsigned threshold, float inv_keep,
+                                       int dtype, void* stream) {
   stf::FaArgs a{q, k, v, nullptr, nullptr, nullptr,
                 static_cast<const float*>(bias), o, lse, nullptr, nullptr,
-                nullptr, BH, q_len, kv_len, H, scale, causal,
-                static_cast<cudaStream_t>(stream)};
+                nullptr, BH, q_len, kv_len, H, scale, causal, dropout, seed,
+                threshold, inv_keep, static_cast<cudaStream_t>(stream)};
   return stf::dispatch(stf::kFwd, dtype, D, a);
 }
 
@@ -555,10 +597,13 @@ extern "C" int stf_flash_attention_dkdv(const void* q, const void* k,
                                         const void* bias, void* dk, void* dv,
                                         int BH, int q_len, int kv_len, int H,
                                         int D, float scale, int causal,
+                                        int dropout, unsigned seed,
+                                        unsigned threshold, float inv_keep,
                                         int dtype, void* stream) {
   stf::FaArgs a{q, k, v, dout, lse, delta, static_cast<const float*>(bias),
                 nullptr, nullptr, nullptr, dk, dv, BH, q_len, kv_len, H,
-                scale, causal, static_cast<cudaStream_t>(stream)};
+                scale, causal, dropout, seed, threshold, inv_keep,
+                static_cast<cudaStream_t>(stream)};
   return stf::dispatch(stf::kDkdv, dtype, D, a);
 }
 
@@ -568,10 +613,13 @@ extern "C" int stf_flash_attention_dq(const void* q, const void* k,
                                       const void* lse, const void* delta,
                                       const void* bias, void* dq, int BH,
                                       int q_len, int kv_len, int H, int D,
-                                      float scale, int causal, int dtype,
+                                      float scale, int causal, int dropout,
+                                      unsigned seed, unsigned threshold,
+                                      float inv_keep, int dtype,
                                       void* stream) {
   stf::FaArgs a{q, k, v, dout, lse, delta, static_cast<const float*>(bias),
                 nullptr, nullptr, dq, nullptr, nullptr, BH, q_len, kv_len, H,
-                scale, causal, static_cast<cudaStream_t>(stream)};
+                scale, causal, dropout, seed, threshold, inv_keep,
+                static_cast<cudaStream_t>(stream)};
   return stf::dispatch(stf::kDq, dtype, D, a);
 }

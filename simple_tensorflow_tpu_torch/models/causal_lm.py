@@ -5,9 +5,9 @@ modules. Two halves, as there:
 
 - :func:`causal_lm_logits` / :func:`causal_lm_train_model` (:50, :83): the
   training forward through the flash-attention, LayerNorm and softmax-xent
-  kernels, and a trainer that takes one Adam step (the fused flat-group
-  kernel) with the noam schedule per call. Dropout comes in slice 3:
-  ``cfg.dropout > 0`` raises.
+  kernels (and, at ``cfg.dropout > 0``, the dropout kernels with the JAX
+  program's masks), and a trainer that takes one Adam step (the fused
+  flat-group kernel) with the noam schedule per call.
 - ``build_causal_lm_program`` (:146) and ``CausalLMGenerativeModel`` (:325)
   with greedy ``_emit`` (:248): paged serving. Each layer keeps a
 K and a V :class:`..ops.kv_cache.KVCache` of ``(num_pages + 1, page_len,
@@ -42,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..framework.random_seed import StepRNG, fold_in_value
 from ..ops import fused_ops
 from ..ops.kernels.common import NEG_INF
 from ..ops.kernels.fused_update import adam_update, adam_update_plain
@@ -60,23 +61,49 @@ from .transformer import (DecoderStack, TransformerConfig, _attention,
 # Training
 # ---------------------------------------------------------------------------
 
+def dropout_sites(cfg: TransformerConfig, scope="causal_lm"):
+    """``[(JAX op name, kind)]`` of the training graph's random ops in
+    graph order: ``"key"`` for a ``Dropout`` (threefry key), ``"seed"``
+    for ``FlashAttentionDropout`` / ``FusedDropoutBiasResidual`` (int32
+    seed). Empty at dropout 0."""
+    if cfg.dropout <= 0:
+        return []
+    sites = [(f"{scope}/dropout", "key")]
+    for i in range(cfg.num_layers):
+        base = f"{scope}/decoder/layer_{i}"
+        sites += [(f"{base}/self_attn/flash_attention", "seed"),
+                  (f"{base}/fused_dropout_residual", "seed"),
+                  (f"{base}/ffn/dropout", "key")]
+    return sites
+
+
 def causal_lm_logits(stack: DecoderStack, ids, *, training=True,
-                     compute_dtype=torch.bfloat16):
+                     compute_dtype=torch.bfloat16, rng=None,
+                     scope="causal_lm"):
     """Next-token logits ``(B, S, vocab)`` in ``compute_dtype`` for token
     ids ``(B, S)``: causal flash self-attention + FFN per layer, ``ln1``
     after attention and ``ln3`` after the FFN, and the tied softmax
-    against the f32 table cast to the compute dtype. Differentiable."""
+    against the f32 table cast to the compute dtype. In training at
+    ``cfg.dropout > 0``, ``rng`` (a :class:`StepRNG` over
+    :func:`dropout_sites`) gives each random op its stream.
+    Differentiable."""
     cfg = stack.cfg
-    h = _embed(stack, ids, compute_dtype, training)
-    for layer in stack.layers:
-        a = _attention(layer, h, cfg, training, causal=True)
-        h = layer.ln1(_residual(a, h, cfg, training))
-        f = _ffn(layer, h, cfg, training)
+    h = _embed(stack, ids, compute_dtype, training, rng, scope)
+    for i, layer in enumerate(stack.layers):
+        at = f"{scope}/decoder/layer_{i}"
+        a = _attention(layer, h, cfg, training, causal=True, rng=rng,
+                       scope=f"{at}/self_attn")
+        h = layer.ln1(_residual(a, h, cfg, training, rng, at))
+        f = _ffn(layer, h, cfg, training, rng, f"{at}/ffn")
         h = layer.ln3(h + f)
     b, s = ids.shape
     flat = h.reshape(b * s, cfg.d_model)
     logits = torch.matmul(flat, stack.shared_embedding.to(h.dtype).t())
     return logits.reshape(b, s, cfg.vocab_size)
+
+
+# steps whose dropout streams the trainer derives in one host pass
+RNG_BLOCK = 64
 
 
 def _noam(step_t, learning_rate, d_model, warmup_steps):
@@ -109,17 +136,21 @@ class CausalLMTrainer:
     ``plain=True`` runs the whole step (the fused ops under
     :func:`..ops.fused_ops.plain_versions` and the plain Adam update)
     through the kernels' plain PyTorch versions on any device: the
-    reference the kernel step is held against on the card."""
+    reference the kernel step is held against on the card.
+
+    Dropout (``cfg.dropout > 0``) draws the JAX program's masks: the
+    trainer keeps the session's RNG run counter (:attr:`rng_counter`),
+    advances it on each :meth:`loss` as a session run that draws
+    randomness does, and derives every site's key or seed of the step on
+    the host (:class:`StepRNG`, unseeded graph: base key 0, stream id
+    ``crc32(op name)``). :attr:`dropout_sites` maps each site's JAX op
+    name to its stream id, in graph order."""
 
     def __init__(self, cfg: TransformerConfig, batch_size, seq_len,
                  learning_rate, warmup_steps, compute_dtype, state, device,
-                 plain=False):
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                f"cfg.dropout={cfg.dropout}: dropout training comes in "
-                "slice 3 of the PyTorch port (the counter-hash keep masks "
-                "of the JAX kernels); this slice trains only with "
-                "dropout=0.0")
+                 plain=False, scope="causal_lm"):
+        if not 0.0 <= cfg.dropout < 1.0:
+            raise ValueError(f"cfg.dropout must be in [0, 1): {cfg.dropout}")
         if seq_len > cfg.max_len:
             raise ValueError(f"seq_len={seq_len} exceeds cfg.max_len="
                              f"{cfg.max_len} (position-encoding table)")
@@ -140,6 +171,30 @@ class CausalLMTrainer:
             self.stack.parameters(), learning_rate=self.learning_rate,
             beta1=0.9, beta2=0.997, epsilon=1e-9,
             update=adam_update_plain if self.plain else adam_update)
+        self.scope = scope
+        sites = dropout_sites(cfg, scope)
+        self.dropout_sites = {name: fold_in_value(name) for name, _ in sites}
+        self._key_sites = [n for n, kind in sites if kind == "key"]
+        self._seed_sites = [n for n, kind in sites if kind == "seed"]
+        self.rng_counter = 0
+        self._rng_ahead = {}     # run counter -> StepRNG, derived ahead
+
+    def _step_rng(self):
+        """The next step's streams (advancing :attr:`rng_counter`), or
+        None when the model draws no randomness. Streams are derived
+        ``RNG_BLOCK`` steps at a time (one host pass amortised over the
+        block); a counter set from a checkpoint starts a new block."""
+        if not self.dropout_sites:
+            return None
+        self.rng_counter += 1
+        rng = self._rng_ahead.pop(self.rng_counter, None)
+        if rng is None:
+            block = range(self.rng_counter, self.rng_counter + RNG_BLOCK)
+            ahead = StepRNG.for_steps(block, self._key_sites,
+                                      self._seed_sites)
+            self._rng_ahead = dict(zip(block, ahead))
+            rng = self._rng_ahead.pop(self.rng_counter)
+        return rng
 
     def _batch(self, tok):
         tok = torch.as_tensor(tok).to(self.device, torch.int64)
@@ -152,10 +207,12 @@ class CausalLMTrainer:
         """The label-smoothed LM loss (f32 scalar) of one batch, recorded
         for autograd."""
         tok_in, tok_out = self._batch(tok_in), self._batch(tok_out)
+        rng = self._step_rng()
         with (fused_ops.plain_versions() if self.plain
               else contextlib.nullcontext()):
             logits = causal_lm_logits(self.stack, tok_in, training=True,
-                                      compute_dtype=self.compute_dtype)
+                                      compute_dtype=self.compute_dtype,
+                                      rng=rng, scope=self.scope)
             weights = (tok_out != self.cfg.pad_id).float()
             return smoothed_xent(logits, tok_out, weights, self.cfg)
 
@@ -193,8 +250,9 @@ def causal_lm_train_model(batch_size=8, seq_len=32,
     (label-smoothed LM loss, Adam, noam schedule).
 
     Weights come from ``checkpoint=`` (a JAX ``.stfz`` prefix; a training
-    checkpoint also carries the global step, the beta powers and the flat
-    Adam slots across), ``params=`` (a ``state_dict``), or
+    checkpoint also carries the global step, the beta powers, the flat
+    Adam slots and the session's RNG run counter across), ``params=`` (a
+    ``state_dict``), or
     :func:`..convert.init_params` with ``seed``. ``device`` defaults to
     ``"cuda"`` and raises without a card; pass ``device="cpu"`` to run the
     kernels' plain versions on the CPU. ``plain=True`` runs them on any
@@ -214,9 +272,10 @@ def causal_lm_train_model(batch_size=8, seq_len=32,
         state = convert.init_params(cfg, seed)
     trainer = CausalLMTrainer(cfg, batch_size, seq_len, learning_rate,
                               warmup_steps, compute_dtype, state, device,
-                              plain=plain)
+                              plain=plain, scope=scope)
     if named is not None:
-        convert.load_training_state(trainer, named)
+        convert.load_training_state(trainer, named,
+                                    convert.load_host_state(checkpoint))
     return trainer
 
 

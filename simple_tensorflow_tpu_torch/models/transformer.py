@@ -11,6 +11,14 @@ paged causal-LM serving and causal-LM training run:
 :class:`.common.LayerNorm` module. The seq2seq model and beam search come
 in later slices.
 
+In training with ``cfg.dropout > 0`` the sublayers drop as the JAX graph
+does, each random op drawing from a per-step
+:class:`..framework.random_seed.StepRNG` under its JAX op name (``scope``
+is the op's variable scope): the embedding and the FFN activation through
+``nn_ops.dropout`` (threefry keys), the attention probabilities inside the
+flash kernels and the attention tail through the fused dropout-residual
+kernel (int32 seeds of the counter-hash mask).
+
 A :class:`DecoderStack`'s ``state_dict`` keys are the JAX variable paths
 under the model scope with ``.`` for ``/`` (``shared_embedding``,
 ``decoder.layer_0.self_attn.q.kernel``, ``decoder.layer_0.ln1.gamma``, …);
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import fused_ops
+from ..ops import fused_ops, nn_ops
 from ..ops.embedding_ops import embedding_lookup
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.quant_matmul import div127
@@ -198,20 +206,29 @@ def build_int8_logits_weights(emb):
 
 
 # ---------------------------------------------------------------------------
-# Training sublayers (dropout 0: rate > 0 raises in the fused ops)
+# Training sublayers
 # ---------------------------------------------------------------------------
 
-def _residual(sub_out, h, cfg: TransformerConfig, training):
-    """Sublayer tail ``h + dropout(sub_out)`` through the fused op; rate 0
-    is the plain add."""
-    rate = cfg.dropout if training else 0.0
-    return fused_ops.fused_bias_dropout_residual(sub_out, h, rate=rate)
+def _dropping(cfg: TransformerConfig, training) -> bool:
+    return bool(training) and cfg.dropout > 0
+
+
+def _residual(sub_out, h, cfg: TransformerConfig, training, rng=None,
+              scope=""):
+    """Sublayer tail ``h + dropout(sub_out)`` through the fused op (JAX op
+    ``{scope}/fused_dropout_residual``); rate 0 is the plain add."""
+    if not _dropping(cfg, training):
+        return fused_ops.fused_bias_dropout_residual(sub_out, h, rate=0.0)
+    return fused_ops.fused_bias_dropout_residual(
+        sub_out, h, rate=cfg.dropout,
+        seed=rng.seed_for(f"{scope}/fused_dropout_residual"))
 
 
 def _attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
-               causal=True):
+               causal=True, rng=None, scope=""):
     """Self-attention of ``x (B, S, D)``: q/k/v projections, heads split
-    to ``(B, H, S, hd)``, the flash-attention kernels, heads merged, the
+    to ``(B, H, S, hd)``, the flash-attention kernels (probability
+    dropout from JAX op ``{scope}/flash_attention``), heads merged, the
     output projection."""
     b, s, d = x.shape
     heads = cfg.num_heads
@@ -220,35 +237,42 @@ def _attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
     q = split_heads(att["q"](x), b, s, heads, hd)
     k = split_heads(att["k"](x), b, s, heads, hd)
     v = split_heads(att["v"](x), b, s, heads, hd)
-    ctx = fused_ops.fused_attention(
-        q, k, v, causal=causal,
-        dropout_rate=cfg.dropout if training else 0.0)
+    rate, seed = 0.0, None
+    if _dropping(cfg, training):
+        rate, seed = cfg.dropout, rng.seed_for(f"{scope}/flash_attention")
+    ctx = fused_ops.fused_attention(q, k, v, causal=causal,
+                                    dropout_rate=rate, seed=seed)
     return att["out"](merge_heads(ctx, b, s, d))
 
 
-def _ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training):
-    if training and cfg.dropout > 0:
-        raise NotImplementedError(
-            "FFN dropout comes in slice 3 of the PyTorch port; set "
-            "cfg.dropout=0.0")
-    return layer.ffn["out"](layer.ffn["in"](x))
+def _ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training, rng=None,
+         scope=""):
+    """FFN in (ReLU), dropout of the activation (JAX op
+    ``{scope}/dropout``), FFN out."""
+    h = layer.ffn["in"](x)
+    if _dropping(cfg, training):
+        h = nn_ops.dropout(h, 1.0 - cfg.dropout,
+                           rng.key_for(f"{scope}/dropout"))
+    return layer.ffn["out"](h)
 
 
-def _embed(stack: DecoderStack, ids, compute_dtype, training):
+def _embed(stack: DecoderStack, ids, compute_dtype, training, rng=None,
+           scope=""):
     """Scaled shared-embedding rows plus sinusoidal positions, in the
     compute dtype: the lookup gathers in ``compute_dtype`` and its
     gradient scatter-adds into the f32 table; the scale and the position
-    table are f32 constants cast to the compute dtype."""
+    table are f32 constants cast to the compute dtype. Then dropout (JAX
+    op ``{scope}/dropout``)."""
     cfg = stack.cfg
-    if training and cfg.dropout > 0:
-        raise NotImplementedError(
-            "embedding dropout comes in slice 3 of the PyTorch port; set "
-            "cfg.dropout=0.0")
     s = ids.shape[1]
     h = embedding_lookup(stack.shared_embedding, ids,
                          compute_dtype=compute_dtype) \
         * stack.emb_scale.to(compute_dtype)
-    return h + stack.pos_table[:s].to(compute_dtype)
+    h = h + stack.pos_table[:s].to(compute_dtype)
+    if _dropping(cfg, training):
+        h = nn_ops.dropout(h, 1.0 - cfg.dropout,
+                           rng.key_for(f"{scope}/dropout"))
+    return h
 
 
 def smoothed_xent(logits, labels, weights, cfg: TransformerConfig):

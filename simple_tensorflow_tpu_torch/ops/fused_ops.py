@@ -12,8 +12,9 @@ against on the card. A trainer built with ``plain=True``
 its optimizer the plain Adam update; nothing else enters it, and the
 kernel wrappers themselves never fall back.
 
-Dropout (``rate > 0``) builds the counter-hash masks of the JAX kernels,
-which come in slice 3 of the port: here it raises, never trains without.
+Dropout (``rate > 0``) takes an int32 ``seed`` and draws the JAX
+kernels' counter-hash mask from it (the JAX lowering draws that seed from
+the op's per-step stream; the port's trainer passes it in).
 """
 
 from __future__ import annotations
@@ -21,15 +22,12 @@ from __future__ import annotations
 import contextlib
 import threading
 
+from .kernels.dropout_residual import dropout_bias_residual
 from .kernels.flash_attention import flash_attention
 from .kernels.layer_norm import layer_norm
 from .kernels.softmax_xent import softmax_cross_entropy
 
 _state = threading.local()
-
-_DROPOUT_LATER = ("dropout (the counter-hash keep masks of the JAX "
-                  "kernels) comes in slice 3 of the PyTorch port; "
-                  "set cfg.dropout=0.0")
 
 
 @contextlib.contextmanager
@@ -49,22 +47,29 @@ def using_plain_versions() -> bool:
 
 
 def fused_attention(q, k, v, *, bias=None, dropout_rate=0.0, causal=False,
-                    sm_scale=None):
+                    sm_scale=None, seed=None):
     """Flash attention over ``(batch, heads, seq, head_dim)``; ``bias`` an
     additive ``(batch, kv_seq)`` key bias, constant under
-    differentiation."""
-    if dropout_rate and float(dropout_rate) > 0.0:
-        raise NotImplementedError(f"attention {_DROPOUT_LATER}")
+    differentiation; ``dropout_rate > 0`` drops attention probabilities
+    with the mask of the int32 ``seed``."""
     return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                           bias=bias, plain=using_plain_versions())
+                           bias=bias, dropout_rate=float(dropout_rate or 0.0),
+                           dropout_seed=seed, plain=using_plain_versions())
 
 
-def fused_bias_dropout_residual(x, residual, bias=None, *, rate):
+def fused_bias_dropout_residual(x, residual, bias=None, *, rate, seed=None):
     """``residual + dropout(x + bias)``; rate 0 is the plain add the JAX
-    function builds at rate 0 (``fused_ops.py:70-72``)."""
-    if rate and float(rate) > 0.0:
-        raise NotImplementedError(f"residual {_DROPOUT_LATER}")
-    return x + bias + residual if bias is not None else x + residual
+    function builds at rate 0 (``fused_ops.py:70-72``); rate > 0 runs the
+    fused kernel with the mask of the int32 ``seed``."""
+    if bias is not None:
+        bias = bias.to(x.dtype)
+    if not rate or float(rate) <= 0.0:
+        return x + bias + residual if bias is not None else x + residual
+    if seed is None:
+        raise ValueError("fused_bias_dropout_residual with rate > 0 needs "
+                         "a seed")
+    return dropout_bias_residual(x, residual, bias, rate=float(rate),
+                                 seed=seed, plain=using_plain_versions())
 
 
 def fused_layer_norm(x, gamma, beta, *, eps=1e-6):

@@ -1,8 +1,14 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (``*_plain``) and behind a wrapper with a launch counter."""
 
-from .common import launch_counts, reset_launch_counts
+from .common import (counter_keep_mask_plain, launch_counts,
+                     reset_launch_counts)
 from .decode_attention import decode_attention, decode_attention_plain
+from .dropout import dropout_bwd, dropout_fwd, dropout_plain
+from .dropout_residual import (dropout_bias_residual, dropout_residual_bwd,
+                               dropout_residual_bwd_plain,
+                               dropout_residual_fwd,
+                               dropout_residual_fwd_plain)
 from .flash_attention import (flash_attention, flash_attention_dkdv,
                               flash_attention_dkdv_plain, flash_attention_dq,
                               flash_attention_dq_plain, flash_attention_fwd,
@@ -17,8 +23,11 @@ from .softmax_xent import (softmax_cross_entropy, softmax_xent_bwd,
                            softmax_xent_fwd_plain)
 
 __all__ = [
-    "adam_update", "adam_update_plain", "decode_attention",
-    "decode_attention_plain", "flash_attention", "flash_attention_dkdv",
+    "adam_update", "adam_update_plain", "counter_keep_mask_plain",
+    "decode_attention", "decode_attention_plain", "dropout_bias_residual",
+    "dropout_bwd", "dropout_fwd", "dropout_plain", "dropout_residual_bwd",
+    "dropout_residual_bwd_plain", "dropout_residual_fwd",
+    "dropout_residual_fwd_plain", "flash_attention", "flash_attention_dkdv",
     "flash_attention_dkdv_plain", "flash_attention_dq",
     "flash_attention_dq_plain", "flash_attention_fwd",
     "flash_attention_fwd_plain", "launch_counts", "layer_norm",

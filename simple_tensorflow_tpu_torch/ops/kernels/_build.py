@@ -31,6 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
+# the dropout arguments of the flash kernels: rate > 0 as 0/1, seed,
+# keep threshold, f32(1 / keep_prob)
+_DROP = [_I, _U, _U, _F]
 # argtypes of every C entry point: pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
@@ -41,14 +45,16 @@ SIGNATURES = {
                              _F, _I, _I, _P],
     "stf_quant_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stf_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _I, _I, _P],
+                                _F, _I, *_DROP, _I, _P],
     "stf_flash_attention_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _F, _I, _I, _P],
+                                 _I, _I, _I, _F, _I, *_DROP, _I, _P],
     "stf_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _F, _I, _I, _P],
+                               _I, _I, _F, _I, *_DROP, _I, _P],
     "stf_softmax_xent_fwd": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     "stf_softmax_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     "stf_adam_update": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _P],
+    "stf_dropout_residual": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _P],
+    "stf_dropout": [_P, _P, _L, _U, _U, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

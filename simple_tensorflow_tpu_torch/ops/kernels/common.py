@@ -1,7 +1,9 @@
 """Shared helpers for the port's hand-written CUDA kernels.
 
 Counterpart of ``simple_tensorflow_tpu/ops/pallas/common.py`` (``round_up``,
-``cdiv``, ``NEG_INF``), plus what every wrapper here shares: the launch
+``cdiv``, ``NEG_INF``, and the counter-hash keep mask ``mix32``,
+``keep_threshold``, ``counter_keep_mask`` as plain versions of
+``csrc/common.cuh``), plus what every wrapper here shares: the launch
 counters, the dtype codes of the C entry points, and the argument checks
 that run before a pointer is handed to native code.
 
@@ -12,6 +14,7 @@ launches the kernel or raises. No wrapper falls back inside a ``try``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30  # finite "minus infinity" — avoids NaN from (-inf) - (-inf)
@@ -34,7 +37,13 @@ _LAUNCHES = {
     "softmax_xent_fwd": 0,
     "softmax_xent_bwd": 0,
     "adam_update": 0,
+    "dropout_residual": 0,
+    "dropout_residual_bwd": 0,
+    "dropout": 0,
+    "dropout_bwd": 0,
 }
+
+_M32 = 0xFFFFFFFF
 
 
 def round_up(x: int, m: int) -> int:
@@ -43,6 +52,59 @@ def round_up(x: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+# -- K0: the counter-hash dropout keep mask (common.py:44-79) ----------------
+# The CUDA twin is csrc/common.cuh (mix32, counter_keep). Here uint32 values
+# ride int64 tensors; the products are split in 16-bit halves so no
+# intermediate leaves int64's range.
+
+def _mul32(h, c: int):
+    """``h * c mod 2**32`` for uint32 values ``h`` and a constant ``c``."""
+    lo = (h & 0xFFFF) * c
+    hi = (((h >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def mix32_plain(h):
+    """murmur3 finalizer over uint32 values held in an int64 tensor."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def keep_threshold(keep_prob: float) -> int:
+    """uint32 compare threshold of a keep mask, in Python doubles as JAX
+    forms it."""
+    return min(int(keep_prob * 4294967296.0), 4294967295)
+
+
+def counter_keep_mask_plain(seed: int, salt, rows, cols, keep_prob: float):
+    """Keep mask ``mix32(mix32(mix32(seed ^ salt * 0x9E3779B9) ^ row) ^
+    col) < keep_threshold`` from GLOBAL indices: ``salt``, ``rows`` and
+    ``cols`` int64 tensors (broadcast), ``seed`` an int (an int32 seed
+    wraps to uint32)."""
+    h0 = mix32_plain((int(seed) & _M32) ^ _mul32(salt & _M32, 0x9E3779B9))
+    h = mix32_plain(h0 ^ (rows & _M32))
+    h = mix32_plain(h ^ (cols & _M32))
+    return h < keep_threshold(keep_prob)
+
+
+def scale_kept(v, keep, keep_prob: float):
+    """``where(keep, v * f32(1 / keep_prob), 0)`` for f32 ``v``: the
+    kernels' dropout scaling, the scale a device tensor as their f32
+    constant."""
+    scale = torch.full((), 1.0 / keep_prob, dtype=torch.float32,
+                       device=v.device)
+    return torch.where(keep, v * scale, torch.zeros_like(v))
+
+
+def seed_word(seed) -> int:
+    """An int32 dropout seed (int, numpy or CPU tensor scalar, or a
+    one-element array) as the uint32 word the kernels take."""
+    return int(np.asarray(seed).reshape(-1)[0]) & _M32
 
 
 def count_launch(name: str) -> None:

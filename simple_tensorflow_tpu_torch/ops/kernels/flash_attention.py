@@ -4,11 +4,20 @@
 Replaces the TPU kernels ``simple_tensorflow_tpu/ops/pallas/
 flash_attention.py:_fwd_kernel`` (called at :180), ``_bwd_dkdv_kernel``
 (:352) and ``_bwd_dq_kernel`` (:383), and the public ``flash_attention``
-(:470) with its custom VJP, without the dropout branch (a later slice:
-``dropout_rate > 0`` raises). Layout ``(batch, heads, seq, head_dim)``;
-an optional additive key bias ``(batch, kv_seq)`` (any squeezable
-``(batch, 1, 1, kv_seq)`` form) is a constant under differentiation.
-Ragged sequence lengths are masked inside the kernels; nothing is padded.
+(:470) with its custom VJP, dropout branch included. Layout ``(batch,
+heads, seq, head_dim)``; an optional additive key bias ``(batch, kv_seq)``
+(any squeezable ``(batch, 1, 1, kv_seq)`` form) is a constant under
+differentiation. Ragged sequence lengths are masked inside the kernels;
+nothing is padded.
+
+Attention-probability dropout (``dropout_rate > 0`` with an int32
+``dropout_seed``) keeps the TPU kernels' order: the keep mask is K0, the
+counter hash of (seed, salt = flattened head ``b * H + h``, global query
+row, global key column), so it does not depend on tiling and the backward
+regenerates it; the softmax denominator sums the undropped ``p``, only the
+``p`` of ``P.V`` (and of ``dV``) is ``where(keep, p * f32(1/kp), 0)``,
+``dP`` is dropped the same way, and ``dS = p * (dP - delta) * sm_scale``
+with the undropped ``p``.
 
 The kernel-level functions work on ``(B*H, S, D)``-contiguous tensors:
 ``flash_attention_fwd`` -> ``(o, lse)``, ``flash_attention_dkdv`` ->
@@ -27,7 +36,8 @@ import torch
 
 from . import _build
 from .common import (DTYPE_CODES, NEG_INF, check_cuda_arg, check_status,
-                     count_launch, uses_kernel)
+                     count_launch, counter_keep_mask_plain, keep_threshold,
+                     scale_kept, seed_word, uses_kernel)
 
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -46,46 +56,76 @@ def _scores(q, k, bias, heads, sm_scale, causal):
     return s
 
 
+def _dropped(t, keep, dropout_rate):
+    """The kernels' dropped ``t`` (f32), or ``t`` itself without
+    dropout."""
+    return t if keep is None else scale_kept(t, keep, 1.0 - dropout_rate)
+
+
+def keep_mask_plain(bh, sq, sk, dropout_rate, dropout_seed, device):
+    """The ``(BH, Sq, Sk)`` keep mask of the kernels, or None at rate 0."""
+    if dropout_rate == 0.0:
+        return None
+    idx = [torch.arange(n, dtype=torch.int64, device=device)
+           for n in (bh, sq, sk)]
+    return counter_keep_mask_plain(
+        seed_word(dropout_seed), idx[0][:, None, None], idx[1][None, :, None],
+        idx[2][None, None, :], 1.0 - dropout_rate)
+
+
 def flash_attention_fwd_plain(q, k, v, *, heads, sm_scale, causal,
-                              bias=None):
+                              bias=None, dropout_rate=0.0,
+                              dropout_seed=None):
     """``(o, lse)`` of ``_fwd_kernel`` with a materialised score tensor:
     ``q (BH, Sq, D)``, ``k``/``v (BH, Sk, D)``, ``bias (B, Sk)`` f32 or
-    None with ``B = BH / heads``. ``p`` is cast to the input dtype before
-    ``P.V``; ``l == 0 -> 1``; lse is f32."""
+    None with ``B = BH / heads``. ``l`` sums the undropped ``p``; the
+    (dropped) ``p`` is cast to the input dtype before ``P.V``; ``l == 0
+    -> 1``; lse is f32."""
     s = _scores(q, k, bias, heads, sm_scale, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
+    keep = keep_mask_plain(*s.shape, dropout_rate, dropout_seed, q.device)
+    p = _dropped(p, keep, dropout_rate)
     acc = torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v.float())
     o = (acc / l).to(q.dtype)
     lse = (m + torch.log(l))[..., 0]
     return o, lse
 
 
-def _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias):
+def _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias,
+          dropout_rate, dropout_seed):
+    """The (dropped) ``p`` of ``dV`` and ``dS`` of the backward kernels."""
     s = _scores(q, k, bias, heads, sm_scale, causal)
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bqd,bkd->bqk", dout.float(), v.float())
+    keep = keep_mask_plain(*s.shape, dropout_rate, dropout_seed, q.device)
+    dp = _dropped(dp, keep, dropout_rate)
     ds = (p * (dp - delta[..., None]) * sm_scale).to(q.dtype)
-    return p, ds
+    return _dropped(p, keep, dropout_rate), ds
 
 
 def flash_attention_dkdv_plain(q, k, v, dout, lse, delta, *, heads,
-                               sm_scale, causal, bias=None):
+                               sm_scale, causal, bias=None, dropout_rate=0.0,
+                               dropout_seed=None):
     """``(dk, dv)`` of ``_bwd_dkdv_kernel``: ``p = exp(s - lse)``,
-    ``dV = p(cast)^T dO``, ``dS = (p (dP - delta) sm_scale)(cast)``,
-    ``dK = dS^T Q``, summed in f32, in the inputs' dtype."""
-    p, ds = _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias)
+    ``dV = p_dropped(cast)^T dO``, ``dS = (p (dP_dropped - delta)
+    sm_scale)(cast)``, ``dK = dS^T Q``, summed in f32, in the inputs'
+    dtype."""
+    p, ds = _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias,
+                  dropout_rate, dropout_seed)
     dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(), dout.float())
     dk = torch.einsum("bqk,bqd->bkd", ds.float(), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_dq_plain(q, k, v, dout, lse, delta, *, heads, sm_scale,
-                             causal, bias=None):
+                             causal, bias=None, dropout_rate=0.0,
+                             dropout_seed=None):
     """``dq`` of ``_bwd_dq_kernel``: ``dQ = dS K`` summed in f32."""
-    _, ds = _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias)
+    _, ds = _p_ds(q, k, v, dout, lse, delta, heads, sm_scale, causal, bias,
+                  dropout_rate, dropout_seed)
     return torch.einsum("bqk,bkd->bqd", ds.float(), k.float()).to(q.dtype)
 
 
@@ -119,14 +159,28 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def flash_attention_fwd(q, k, v, *, heads, sm_scale, causal, bias=None):
+def _drop_args(dropout_rate, dropout_seed):
+    """The kernels' dropout arguments: (on, seed word, keep threshold,
+    f32(1/keep_prob))."""
+    if dropout_rate == 0.0:
+        return 0, 0, 0, 1.0
+    if dropout_seed is None:
+        raise ValueError("flash attention dropout needs dropout_seed")
+    keep_prob = 1.0 - dropout_rate
+    return (1, seed_word(dropout_seed), keep_threshold(keep_prob),
+            1.0 / keep_prob)
+
+
+def flash_attention_fwd(q, k, v, *, heads, sm_scale, causal, bias=None,
+                        dropout_rate=0.0, dropout_seed=None):
     """``(o, lse)`` for ``q (BH, Sq, D)``, ``k``/``v (BH, Sk, D)``. CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     tensors = [q, k, v] + ([bias] if bias is not None else [])
     if not uses_kernel(*tensors):
         return flash_attention_fwd_plain(q, k, v, heads=heads,
                                          sm_scale=sm_scale, causal=causal,
-                                         bias=bias)
+                                         bias=bias, dropout_rate=dropout_rate,
+                                         dropout_seed=dropout_seed)
     bh, sq, sk, d = _check(q, k, v, bias, heads)
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -134,8 +188,8 @@ def flash_attention_fwd(q, k, v, *, heads, sm_scale, causal, bias=None):
     status = lib.stf_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
         lse.data_ptr(), bh, sq, sk, heads, d, float(sm_scale),
-        int(bool(causal)), DTYPE_CODES[q.dtype],
-        _build.stream_handle(q.device))
+        int(bool(causal)), *_drop_args(dropout_rate, dropout_seed),
+        DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     check_status("flash_attention_fwd", status)
     count_launch("flash_attention_fwd")
     return o, lse
@@ -149,15 +203,17 @@ def _bwd_extra(q, dout, lse, delta):
 
 
 def flash_attention_dkdv(q, k, v, dout, lse, delta, *, heads, sm_scale,
-                         causal, bias=None):
+                         causal, bias=None, dropout_rate=0.0,
+                         dropout_seed=None):
     """``(dk, dv)``; CPU tensors take the plain version, CUDA tensors
     launch the kernel."""
     tensors = [q, k, v, dout, lse, delta] + (
         [bias] if bias is not None else [])
     if not uses_kernel(*tensors):
-        return flash_attention_dkdv_plain(q, k, v, dout, lse, delta,
-                                          heads=heads, sm_scale=sm_scale,
-                                          causal=causal, bias=bias)
+        return flash_attention_dkdv_plain(
+            q, k, v, dout, lse, delta, heads=heads, sm_scale=sm_scale,
+            causal=causal, bias=bias, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed)
     bh, sq, sk, d = _check(q, k, v, bias, heads,
                            _bwd_extra(q, dout, lse, delta))
     dk = torch.empty_like(k)
@@ -167,23 +223,25 @@ def flash_attention_dkdv(q, k, v, dout, lse, delta, *, heads, sm_scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dk.data_ptr(),
         dv.data_ptr(), bh, sq, sk, heads, d, float(sm_scale),
-        int(bool(causal)), DTYPE_CODES[q.dtype],
-        _build.stream_handle(q.device))
+        int(bool(causal)), *_drop_args(dropout_rate, dropout_seed),
+        DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
     check_status("flash_attention_dkdv", status)
     count_launch("flash_attention_dkdv")
     return dk, dv
 
 
 def flash_attention_dq(q, k, v, dout, lse, delta, *, heads, sm_scale,
-                       causal, bias=None):
+                       causal, bias=None, dropout_rate=0.0,
+                       dropout_seed=None):
     """``dq``; CPU tensors take the plain version, CUDA tensors launch the
     kernel."""
     tensors = [q, k, v, dout, lse, delta] + (
         [bias] if bias is not None else [])
     if not uses_kernel(*tensors):
-        return flash_attention_dq_plain(q, k, v, dout, lse, delta,
-                                        heads=heads, sm_scale=sm_scale,
-                                        causal=causal, bias=bias)
+        return flash_attention_dq_plain(
+            q, k, v, dout, lse, delta, heads=heads, sm_scale=sm_scale,
+            causal=causal, bias=bias, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed)
     bh, sq, sk, d = _check(q, k, v, bias, heads,
                            _bwd_extra(q, dout, lse, delta))
     dq = torch.empty_like(q)
@@ -192,7 +250,8 @@ def flash_attention_dq(q, k, v, dout, lse, delta, *, heads, sm_scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dq.data_ptr(), bh, sq,
         sk, heads, d, float(sm_scale), int(bool(causal)),
-        DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+        *_drop_args(dropout_rate, dropout_seed), DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device))
     check_status("flash_attention_dq", status)
     count_launch("flash_attention_dq")
     return dq
@@ -201,17 +260,19 @@ def flash_attention_dq(q, k, v, dout, lse, delta, *, heads, sm_scale,
 class FlashAttentionFunction(torch.autograd.Function):
     """``(o, lse)`` over ``(BH, S, D)`` with the two backward kernels as
     its gradient (the JAX ``_flash_bhsd_lse`` custom VJP): the lse
-    cotangent folds into ``delta = rowsum(dO * O) - dlse``. The bias gets
-    no gradient. ``plain=True`` runs the plain versions of the three
+    cotangent folds into ``delta = rowsum(dO * O) - dlse`` (O the dropped
+    output). The bias gets no gradient; the dropout mask is regenerated
+    from the seed. ``plain=True`` runs the plain versions of the three
     kernels on any device (the reference the kernels are held against)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, heads, sm_scale, causal, plain):
+    def forward(ctx, q, k, v, bias, heads, sm_scale, causal, dropout_rate,
+                dropout_seed, plain):
         fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
-        o, lse = fwd(q, k, v, heads=heads, sm_scale=sm_scale, causal=causal,
-                     bias=bias)
+        ctx.args = dict(heads=heads, sm_scale=sm_scale, causal=causal,
+                        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        o, lse = fwd(q, k, v, bias=bias, **ctx.args)
         ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.args = dict(heads=heads, sm_scale=sm_scale, causal=causal)
         ctx.plain = plain
         ctx.set_materialize_grads(False)
         return o, lse
@@ -228,7 +289,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         dqf = flash_attention_dq_plain if ctx.plain else flash_attention_dq
         dk, dv = dkdv(q, k, v, do, lse, delta, bias=bias, **ctx.args)
         dq = dqf(q, k, v, do, lse, delta, bias=bias, **ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _key_bias(bias, b, kv_len):
@@ -251,14 +312,16 @@ def _key_bias(bias, b, kv_len):
 
 
 def flash_attention(q, k, v, *, causal=False, sm_scale=None, bias=None,
-                    dropout_rate=0.0, return_lse=False, plain=False):
+                    dropout_rate=0.0, dropout_seed=None, return_lse=False,
+                    plain=False):
     """Fused attention over ``(batch, heads, seq, head_dim)``; the kv seq
     may differ from the q seq unless ``causal``. Returns ``(batch, heads,
     q_seq, head_dim)`` in q's dtype, and with ``return_lse`` also the f32
     ``(batch, heads, q_seq)`` log-sum-exp (differentiable). Gradients run
-    the backward kernels. CPU tensors take the plain versions; CUDA
-    tensors launch the kernels; ``plain=True`` runs the plain versions on
-    any device."""
+    the backward kernels. ``dropout_rate > 0`` needs an int32
+    ``dropout_seed`` (module docstring). CPU tensors take the plain
+    versions; CUDA tensors launch the kernels; ``plain=True`` runs the
+    plain versions on any device."""
     b, h, q_len, d = q.shape
     kv_len = k.shape[2]
     if sm_scale is None:
@@ -267,16 +330,15 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, bias=None,
         raise ValueError("causal flash attention needs q_len == kv_len")
     if dropout_rate < 0.0 or dropout_rate >= 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1): {dropout_rate}")
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "flash attention dropout (the counter-hash keep mask) comes in "
-            "slice 3 of the PyTorch port")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("flash attention dropout needs dropout_seed")
+    seed = seed_word(dropout_seed) if dropout_rate > 0.0 else None
     bb = _key_bias(bias, b, kv_len) if bias is not None else None
     o, lse = FlashAttentionFunction.apply(
         q.reshape(b * h, q_len, d).contiguous(),
         k.reshape(b * h, kv_len, d).contiguous(),
         v.reshape(b * h, kv_len, d).contiguous(), bb, h, float(sm_scale),
-        bool(causal), bool(plain))
+        bool(causal), float(dropout_rate), seed, bool(plain))
     o = o.reshape(b, h, q_len, d)
     if return_lse:
         return o, lse.reshape(b, h, q_len)

@@ -291,3 +291,150 @@ def test_adam_kernel_on_card_is_bit_exact(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(mk, mp) and torch.equal(vk, vp)
     assert torch.equal(pk, pp)
+
+
+# ---------------------------------------------------------------------------
+# dropout: the fused dropout-residual kernel (K4), the threefry Dropout
+# kernel and flash attention's dropout branch. The masks are integer
+# functions of the seed or key, so K4 and Dropout are bit-exact with their
+# plain versions; a planted fault (another salt, key or seed) must fail.
+# ---------------------------------------------------------------------------
+
+def _kernel_module(name):
+    import importlib
+    return importlib.import_module(
+        f"simple_tensorflow_tpu_torch.ops.kernels.{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows,n,biased", [
+    (torch.bfloat16, 4096, 1024, False), (torch.float32, 300, 96, True),
+    (torch.bfloat16, 37, 1000, True)])
+def test_dropout_residual_kernel_on_card_is_bit_exact(cuda, dtype, rows, n,
+                                                      biased):
+    dr = _kernel_module("dropout_residual")
+    rng = np.random.RandomState(26)
+    x, res = (_t(rng.randn(rows, n).astype(np.float32)).to(cuda, dtype)
+              for _ in range(2))
+    bias = _t(rng.randn(n).astype(np.float32)).to(cuda, dtype) \
+        if biased else None
+    before = K.launch_counts()
+    out = dr.dropout_residual_fwd(x, res, bias, rate=0.1, seed=918273)
+    dx = dr.dropout_residual_bwd(x, rate=0.1, seed=918273)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dr.dropout_residual_fwd_plain(
+        x, res, bias, rate=0.1, seed=918273))
+    assert torch.equal(dx, dr.dropout_residual_bwd_plain(x, rate=0.1,
+                                                         seed=918273))
+    after = K.launch_counts()
+    for name in ("dropout_residual", "dropout_residual_bwd"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_dropout_residual_mask_fault_is_caught_on_card(cuda):
+    dr = _kernel_module("dropout_residual")
+    ones = torch.ones(4096, 1024, device=cuda, dtype=torch.bfloat16)
+    zeros = torch.zeros_like(ones)
+    out = dr.dropout_residual_fwd(ones, zeros, rate=0.1, seed=5)
+    rr = torch.arange(4096, device=cuda)[:, None]
+    cc = torch.arange(1024, device=cuda)[None, :]
+    salt1 = K.common.counter_keep_mask_plain(5, 1, rr, cc, 0.9)
+    assert int(((out != 0) != dr.keep_mask_plain(4096, 1024, 5, 0.9, cuda))
+               .sum()) == 0
+    assert int(((out != 0) != salt1).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (16, 256, 4096)), (torch.bfloat16, (16, 256, 1024)),
+    (torch.float32, (3, 77, 33))])
+def test_dropout_kernel_on_card_is_bit_exact(cuda, dtype, shape):
+    do = _kernel_module("dropout")
+    x = torch.randn(shape, device=cuda).to(dtype)
+    key = (123456789, 987654321)
+    before = K.launch_counts()
+    out = do.dropout_fwd(x, 0.9, key)
+    dx = do.dropout_bwd(x, 0.9, key)
+    ref = do.dropout_plain(x, 0.9, key)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(dx, ref)
+    ones = torch.ones_like(x)
+    assert int((do.dropout_fwd(ones, 0.9, key)
+                != do.dropout_plain(ones, 0.9, key)).sum()) == 0
+    # a planted fault: the key's second word plus one
+    assert int((do.dropout_fwd(ones, 0.9, key)
+                != do.dropout_plain(ones, 0.9, (key[0], key[1] + 1)))
+               .sum()) > 0
+    after = K.launch_counts()
+    assert after["dropout"] == before["dropout"] + 3
+    assert after["dropout_bwd"] == before["dropout_bwd"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal,biased", [
+    (256, 256, True, False), (200, 200, True, False),
+    (100, 200, False, True)])
+def test_flash_attention_dropout_kernels_on_card(cuda, dtype, sq, sk, causal,
+                                                 biased):
+    h, d = 4, 64
+    q, k, v, do, bias = _flash_inputs(cuda, dtype, 27, 2, h, sq, sk, d,
+                                      biased)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias,
+                dropout_rate=0.1, dropout_seed=424242)
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _close(o, ro, 1e-5 if f32 else 2e-2)
+    _close(lse, rlse, 1e-5)
+    for out, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(out, ref, 1e-4 if f32 else 2e-2)
+    # a planted fault: the plain version under seed + 1 fails each limit
+    bad = dict(args, dropout_seed=424243)
+    bo, _ = K.flash_attention_fwd_plain(q, k, v, **bad)
+    bdk, bdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **bad)
+    bdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **bad)
+    for out, ref, tol in ((o, bo, 1e-5 if f32 else 2e-2),
+                          (dk, bdk, 1e-4 if f32 else 2e-2),
+                          (dv, bdv, 1e-4 if f32 else 2e-2),
+                          (dq, bdq, 1e-4 if f32 else 2e-2)):
+        with pytest.raises(AssertionError):
+            _close(out, ref, tol)
+
+
+@pytest.mark.cuda
+def test_dropout_trainer_step_matches_plain_on_card(cuda):
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig.tiny()
+    cfg.dropout = 0.1
+    tok = np.random.RandomState(28).randint(2, cfg.vocab_size, (2, 32))
+    runs = []
+    for plain in (False, True):
+        t = clm.causal_lm_train_model(batch_size=2, seq_len=32, cfg=cfg,
+                                      compute_dtype=torch.float32,
+                                      warmup_steps=4, device="cuda",
+                                      plain=plain)
+        K.reset_launch_counts()
+        loss = t.loss_and_grads(tok, tok).item()
+        runs.append((t, loss, K.launch_counts()))
+    (tk, lk, ck), (tp, lp, cp) = runs
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    assert not any(cp.values())
+    want = {"dropout": 3, "dropout_bwd": 3, "dropout_residual": 2,
+            "dropout_residual_bwd": 2, "flash_attention_fwd": 2}
+    assert {k: ck[k] for k in want} == want
+    grads_p = dict(tp.stack.named_parameters())
+    for name, pk in tk.stack.named_parameters():
+        if name.endswith("self_attn.k.bias"):
+            continue
+        gk, gp = pk.grad.float(), grads_p[name].grad.float()
+        assert ((gk - gp).norm() / gp.norm()).item() <= 1e-4, name

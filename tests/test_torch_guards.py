@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.models import causal_lm
         from simple_tensorflow_tpu_torch.ops import (embedding_ops,
                                                      fused_ops, kernels,
-                                                     kv_cache)
+                                                     kv_cache, nn_ops)
+        from simple_tensorflow_tpu_torch.framework import (prng,
+                                                           random_seed)
         from simple_tensorflow_tpu_torch.train import optimizers
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
@@ -115,7 +117,8 @@ def test_trainer_defaults_to_the_gpu_and_refuses_dropout(monkeypatch):
                                   device="cpu")
     assert t.stack.shared_embedding.device.type == "cpu"
     assert t.optimizer.flat_groups[0].m.device.type == "cpu"
-    cfg.dropout = 0.1
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # dropout trains (slice 3); a rate the masks cannot take is refused
+    cfg.dropout = 1.0
+    with pytest.raises(ValueError, match="dropout"):
         clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
                                   device="cpu")

@@ -223,12 +223,17 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     K.layer_norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
     K.quant_matmul(torch.ones(2, 8), torch.ones(8, 4, dtype=torch.int8),
                    torch.ones(4))
+    K.dropout_fwd(torch.ones(2, 8), 0.9, (1, 2))
+    K.dropout_residual_fwd(torch.ones(2, 8), torch.ones(2, 8), rate=0.1,
+                           seed=3)
     assert K.launch_counts() == before
     assert set(before) == {"decode_attention", "decode_attention_block",
                            "layer_norm", "quant_matmul", "layer_norm_bwd",
                            "flash_attention_fwd", "flash_attention_dkdv",
                            "flash_attention_dq", "softmax_xent_fwd",
-                           "softmax_xent_bwd", "adam_update"}
+                           "softmax_xent_bwd", "adam_update",
+                           "dropout_residual", "dropout_residual_bwd",
+                           "dropout", "dropout_bwd"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -250,7 +255,7 @@ def test_build_key_covers_every_source_and_the_flags():
     srcs = sorted(p.name for p in _build.SRC_DIR.iterdir())
     assert {"decode_attention.cu", "layer_norm.cu", "quant_matmul.cu",
             "flash_attention.cu", "softmax_xent.cu", "fused_update.cu",
-            "common.cuh"} <= set(srcs)
+            "dropout_residual.cu", "dropout.cu", "common.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16
@@ -258,7 +263,8 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_layer_norm_fwd", "stf_layer_norm_bwd", "stf_decode_attention",
         "stf_quant_matmul", "stf_flash_attention_fwd",
         "stf_flash_attention_dkdv", "stf_flash_attention_dq",
-        "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update"}
+        "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update",
+        "stf_dropout_residual", "stf_dropout"}
 
 
 def test_helpers_match_the_pallas_common_module():

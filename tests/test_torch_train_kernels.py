@@ -130,8 +130,10 @@ def test_flash_attention_kernel_functions_match_the_pallas_pieces():
 
 def test_flash_attention_refuses_dropout_and_bad_shapes():
     q = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         K.flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        K.flash_attention(q, q, q, dropout_rate=1.0, dropout_seed=1)
     with pytest.raises(ValueError, match="q_len == kv_len"):
         K.flash_attention(q, torch.zeros(1, 2, 5, 8), torch.zeros(1, 2, 5, 8),
                           causal=True)
@@ -343,6 +345,7 @@ def test_adam_refuses_parameters_cut_off_from_the_flat_buffers():
 # ---------------------------------------------------------------------------
 
 def test_fused_ops_raise_on_dropout_and_add_at_rate_zero():
+    # rate > 0 without a seed raises: the mask is a function of the seed
     x, r = torch.ones(2, 3), torch.full((2, 3), 2.0)
     assert torch.equal(fused_ops.fused_bias_dropout_residual(x, r, rate=0.0),
                        x + r)
@@ -351,7 +354,7 @@ def test_fused_ops_raise_on_dropout_and_add_at_rate_zero():
                  lambda: fused_ops.fused_attention(
                      torch.zeros(1, 1, 2, 8), torch.zeros(1, 1, 2, 8),
                      torch.zeros(1, 1, 2, 8), dropout_rate=0.1)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(ValueError, match="seed"):
             call()
 
 

@@ -26,7 +26,20 @@ versions on CPU tensors). Stated tolerances, f32:
 
 bf16 (Dense weights bf16, the embedding and LayerNorm f32, two Adam
 groups): per-step losses within 2e-2 relative.
+
+Dropout 0.1 (the shipped configs' rate): the JAX graph is built WITHOUT
+``set_random_seed``, as users build it, so each random op's stream id is
+the crc32 of its name and the session's base key is ``key(0)``; its
+checkpoint after ``global_variables_initializer`` carries the session's
+RNG run counter. The port's trainer derives the same keys and seeds, so
+its masks are the JAX program's, and the same limits hold as at dropout
+0: losses over 3 steps rtol 1e-5, step-0 gradients relative norm 1e-5
+(key biases by norm), and the step-2 checkpoint continues to the JAX
+third loss.
 """
+
+import importlib
+import zlib
 
 import numpy as np
 import pytest
@@ -53,17 +66,25 @@ def _batches(vocab, seed=5):
     return out
 
 
-def _run_jax(dtype, ckpt_dir):
+RANDOM_OPS = ("Dropout", "FlashAttentionDropout", "FusedDropoutBiasResidual")
+
+
+def _run_jax(dtype, ckpt_dir, dropout=0.0):
     """Train the JAX graph STEPS steps; save before the first step and
     after the second. Returns losses, learning rates, step-0 gradients,
-    final parameters, the checkpoint prefixes and the flat slot sizes."""
+    final parameters, the checkpoint prefixes, the flat slot sizes and
+    the random ops' names. With dropout the graph takes no seed."""
     cfg = jtr.TransformerConfig.tiny()
+    cfg.dropout = dropout
     g = stf.Graph()
     with g.as_default():
-        stf.set_random_seed(3)
+        if not dropout:
+            stf.set_random_seed(3)
         m = jclm.causal_lm_train_model(batch_size=B, seq_len=S, cfg=cfg,
                                        compute_dtype=dtype,
                                        warmup_steps=WARMUP)
+        random_ops = [op.name for op in g.get_operations()
+                      if op.type in RANDOM_OPS]
         tvars = stf.trainable_variables()
         grads = stf.gradients(m["loss"], tvars)
         saver = stf.train.Saver()
@@ -89,7 +110,8 @@ def _run_jax(dtype, ckpt_dir):
     names = [v.name.split(":")[0] for v in tvars]
     return dict(losses=losses, lrs=lrs, grads0=dict(zip(names, grads0)),
                 params=params, ck0=ck0, ck2=ck2,
-                slot_sizes=[slots[k] for k in sorted(slots)])
+                slot_sizes=[slots[k] for k in sorted(slots)],
+                random_ops=random_ops)
 
 
 @pytest.fixture(scope="module")
@@ -97,11 +119,18 @@ def jax_f32(tmp_path_factory):
     return _run_jax(stf.float32, tmp_path_factory.mktemp("clm_f32"))
 
 
-def _trainer(ckpt, dtype=torch.float32):
+@pytest.fixture(scope="module")
+def jax_f32_dropout(tmp_path_factory):
+    return _run_jax(stf.float32, tmp_path_factory.mktemp("clm_f32_drop"),
+                    dropout=0.1)
+
+
+def _trainer(ckpt, dtype=torch.float32, dropout=0.0):
+    cfg = ptr.TransformerConfig.tiny()
+    cfg.dropout = dropout
     return clm.causal_lm_train_model(
-        batch_size=B, seq_len=S, cfg=ptr.TransformerConfig.tiny(),
-        warmup_steps=WARMUP, compute_dtype=dtype, checkpoint=ckpt,
-        device="cpu")
+        batch_size=B, seq_len=S, cfg=cfg, warmup_steps=WARMUP,
+        compute_dtype=dtype, checkpoint=ckpt, device="cpu")
 
 
 def _jax_name(port_name):
@@ -112,23 +141,26 @@ def _is_key_bias(name):
     return name.endswith("self_attn.k.bias")
 
 
-def test_step0_gradients_match_jax(jax_f32):
-    tr = _trainer(jax_f32["ck0"])
+def _check_step0_gradients(tr, want):
     tok_in, tok_out = _batches(64)[0]
     loss = tr.loss_and_grads(tok_in, tok_out)
-    np.testing.assert_allclose(float(loss), jax_f32["losses"][0], rtol=1e-5)
+    np.testing.assert_allclose(float(loss), want["losses"][0], rtol=1e-5)
     params = dict(tr.stack.named_parameters())
     for name, p in params.items():
         got = p.grad.float().numpy()
-        want = jax_f32["grads0"][_jax_name(name)]
+        ref = want["grads0"][_jax_name(name)]
         if _is_key_bias(name):
-            kernel = jax_f32["grads0"][_jax_name(name[:-4] + "kernel")]
+            kernel = want["grads0"][_jax_name(name[:-4] + "kernel")]
             scale = np.linalg.norm(kernel)
             assert np.linalg.norm(got) <= 1e-6 * scale, name
-            assert np.linalg.norm(want) <= 1e-6 * scale, name
+            assert np.linalg.norm(ref) <= 1e-6 * scale, name
             continue
-        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
         assert rel <= 1e-5, (name, rel)
+
+
+def test_step0_gradients_match_jax(jax_f32):
+    _check_step0_gradients(_trainer(jax_f32["ck0"]), jax_f32)
 
 
 def test_three_steps_match_jax(jax_f32):
@@ -197,12 +229,68 @@ def test_bf16_training_matches_jax(tmp_path):
     assert all(np.isfinite(losses))
 
 
-def test_dropout_is_refused_not_ignored():
+def test_dropout_sites_are_the_jax_random_ops(jax_f32_dropout):
+    tr = _trainer(jax_f32_dropout["ck0"], dropout=0.1)
+    assert list(tr.dropout_sites) == jax_f32_dropout["random_ops"]
+    assert len(tr.dropout_sites) == 1 + 3 * 2
+    assert tr.dropout_sites["causal_lm/dropout"] == \
+        zlib.crc32(b"causal_lm/dropout") & 0x7FFFFFFF
+    # the session ran the initializer: one run that drew randomness
+    assert tr.rng_counter == 1
+    big = clm.dropout_sites(ptr.TransformerConfig.big())
+    assert len(big) == 19 and not clm.dropout_sites(
+        ptr.TransformerConfig.tiny())
+
+
+def test_dropout_step0_gradients_match_jax(jax_f32_dropout):
+    tr = _trainer(jax_f32_dropout["ck0"], dropout=0.1)
+    _check_step0_gradients(tr, jax_f32_dropout)
+    assert tr.rng_counter == 2
+
+
+def test_dropout_three_steps_match_jax(jax_f32_dropout, jax_f32):
+    tr = _trainer(jax_f32_dropout["ck0"], dropout=0.1)
+    losses = [float(tr.step(*batch)) for batch in _batches(64)]
+    np.testing.assert_allclose(losses, jax_f32_dropout["losses"], rtol=1e-5)
+    assert tr.rng_counter == 1 + STEPS
+    # the masks matter: the same steps without dropout give other losses
+    assert not np.allclose(losses[1:], jax_f32["losses"][1:], rtol=1e-3)
+
+
+def test_dropout_checkpoint_after_two_steps_continues_like_jax(
+        jax_f32_dropout):
+    tr = _trainer(jax_f32_dropout["ck2"], dropout=0.1)
+    assert tr.global_step == 2 and tr.rng_counter == 3
+    loss = tr.step(*_batches(64)[2])
+    np.testing.assert_allclose(float(loss), jax_f32_dropout["losses"][2],
+                               rtol=1e-5)
+
+
+def test_dropout_plain_trainer_never_calls_a_kernel_wrapper(
+        jax_f32_dropout, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain trainer reached a kernel wrapper")
+
+    for mod, names in (
+            ("dropout", ("dropout_fwd", "dropout_bwd")),
+            ("dropout_residual", ("dropout_residual_fwd",
+                                  "dropout_residual_bwd")),
+            ("flash_attention", ("flash_attention_fwd",
+                                 "flash_attention_dkdv",
+                                 "flash_attention_dq"))):
+        module = importlib.import_module(
+            f"simple_tensorflow_tpu_torch.ops.kernels.{mod}")
+        for name in names:
+            monkeypatch.setattr(module, name, refuse)
     cfg = ptr.TransformerConfig.tiny()
     cfg.dropout = 0.1
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        clm.causal_lm_train_model(batch_size=B, seq_len=S, cfg=cfg,
-                                  device="cpu")
+    plain = clm.causal_lm_train_model(
+        batch_size=B, seq_len=S, cfg=cfg, warmup_steps=WARMUP,
+        compute_dtype=torch.float32, checkpoint=jax_f32_dropout["ck0"],
+        device="cpu", plain=True)
+    loss = plain.step(*_batches(64)[0])
+    np.testing.assert_allclose(float(loss), jax_f32_dropout["losses"][0],
+                               rtol=1e-5)
 
 
 def test_trainer_checks_its_batch_shape_and_position_table():
