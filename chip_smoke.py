@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``simple_tensorflow_tpu_torch``) on one
-NVIDIA GPU and check every kernel of its serving and training paths.
+NVIDIA GPU and check every kernel of its serving and training paths
+(causal LM and ResNet-50).
 
     python3 chip_smoke.py
 
@@ -17,7 +18,11 @@ NVIDIA GPU and check every kernel of its serving and training paths.
    each value plus that times the mean magnitude, a limit the phase shows
    failing planted faults; the dropout kernels, whose masks are integer
    functions of a seed or key, bit-exact, with 0 mask mismatches on x =
-   ones and a planted fault (another salt, key or seed) that must fail),
+   ones and a planted fault (another salt, key or seed) that must fail;
+   Momentum bit-exact over ResNet-50's two flat groups, plain and
+   Nesterov, from non-zero accumulators, with ``mu`` one ulp off and the
+   Nesterov flag flipped as planted faults that must differ; the xent
+   kernels also at ResNet-50's f32 256 x 1000 logits),
    with its device time, its bound (the larger of bytes over 3.35 TB/s
    and operations over the peak of their type), the plain
    version's time and one PyTorch library call's time as a yardstick
@@ -60,8 +65,24 @@ NVIDIA GPU and check every kernel of its serving and training paths.
    every step), for the cost of dropout in one call: the p50 steps and
    the device time a step from a profiler window of each.
 
-Each path (the two serving runs, the two f32 kernel steps and the two
-bf16 windows) is counted from zero just before it; a kernel's ``launches`` sum
+5. ResNet-50 phase: ``resnet50_train_model`` (batch 256 x 224^2, 1000
+   classes, bf16, lr 0.1, Momentum 0.9, weight decay 1e-4) with weights
+   from ``init_resnet_params(seed=0)`` on one repeated
+   ``synthetic_imagenet`` batch (seed 0). First ``RESNET_F32_STEPS`` f32
+   steps at ``RESNET_F32_B`` x 224^2 through the kernels against the same
+   steps through the plain versions, cuDNN deterministic: each loss
+   within rtol 1e-5, every parameter and the accumulators within the
+   ``RESNET_*_TOL`` relative norms, which two planted Momentum faults must
+   fail. Then ``RESNET_STEPS`` bf16 steps at full size: every loss finite,
+   the mean of steps 5-8 below that of steps 1-4 (the recipe overshoots on
+   a repeated batch later in the window), exactly
+   2 Momentum and 1 + 1 xent launches a step; the p50 step, images/s and
+   its share of the bf16 peak at 3 x ``resnet_flops_per_image``, the
+   peak memory, and a profiler window of 3 steps with its top kernels.
+
+Each path (the two serving runs, the two f32 kernel steps, the two
+causal-LM bf16 windows, the ResNet f32 kernel steps and the ResNet bf16
+window) is counted from zero just before it; a kernel's ``launches`` sum
 over the paths, the flash rows split by the path's dropout rate. Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
@@ -802,24 +823,42 @@ def phase_layer_norm_bwd(K, gen, dev):
     return main
 
 
+# (rows, vocab, dtypes, smoothings, key suffix of the JSON row): the causal
+# LM's logits (4096, 32768) and ResNet-50's (batch 256, 1000 classes, f32
+# after the fc, no smoothing)
+XENT_CASES = ((TRAIN_B * TRAIN_S, 32768, (torch.bfloat16, torch.float32),
+               (0.1, 0.0), ""),
+              (256, 1000, (torch.float32,), (0.0,), "@resnet"))
+
+
 def phase_softmax_xent(K, gen, dev):
-    """Softmax cross-entropy forward and backward at the training shape:
-    (4096, 32768) logits, smoothing 0.1 and 0."""
+    """Softmax cross-entropy forward and backward at the training shapes
+    of ``XENT_CASES``."""
+    main = {}
+    for rows, vocab, dtypes, smoothings, suffix in XENT_CASES:
+        main.update(xent_case(K, gen, dev, rows, vocab, dtypes, smoothings,
+                              suffix))
+    print("  (xent library: F.cross_entropy with label_smoothing=0, a "
+          "different smoothing convention; bwd = its forward + backward)",
+          flush=True)
+    return main
+
+
+def xent_case(K, gen, dev, rows, vocab, dtypes, smoothings, suffix):
     import torch.nn.functional as F
 
-    rows, vocab = TRAIN_B * TRAIN_S, 32768
     main = {}
     labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev,
                            dtype=torch.int32)
     labels_l = labels.long()
     g = torch.rand(rows, generator=gen, device=dev)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         f32 = dtype == torch.float32
         elem = elem_size(dtype)
         copies = [(3.0 * torch.randn((rows, vocab), generator=gen,
                                      device=dev)).to(dtype)
                   for _ in range(n_copies(rows * vocab * elem))]
-        for smoothing in (0.1, 0.0):
+        for smoothing in smoothings:
             x = copies[0]
             loss, lse = K.softmax_xent_fwd(x, labels, smoothing=smoothing)
             rloss, rlse = K.softmax_xent_fwd_plain(x, labels,
@@ -866,18 +905,15 @@ def phase_softmax_xent(K, gen, dev):
                    lib_f)
             report(f"softmax_xent_bwd {tag}", err_b, ms_b, plain_b, bnd_b,
                    lib_fb)
-            if not f32 and smoothing > 0:
-                main["softmax_xent_fwd"] = kernel_row(
+            if suffix or (not f32 and smoothing > 0):
+                main["softmax_xent_fwd" + suffix] = kernel_row(
                     err_f, ms_f, plain_f, bnd_f, lib_f,
                     f"softmax_xent_fwd {tag}")
-                main["softmax_xent_bwd"] = kernel_row(
+                main["softmax_xent_bwd" + suffix] = kernel_row(
                     err_b, ms_b, plain_b, bnd_b, lib_fb,
                     f"softmax_xent_bwd {tag}")
             del xg
         del copies
-    print("  (xent library: F.cross_entropy with label_smoothing=0, a "
-          "different smoothing convention; bwd = its forward + backward)",
-          flush=True)
     return main
 
 
@@ -959,6 +995,100 @@ def phase_adam(K, gen, dev, cfg):
         del p, m, v, g, pt, opt
     print("  (adam library: torch.optim.Adam(fused=True).step, whose slots "
           "take the parameter's dtype)", flush=True)
+    return main
+
+
+def resnet_group_sizes():
+    """Elements of ResNet-50's two Momentum groups under bf16: the conv
+    kernels (bf16 parameters) and BatchNorm gamma/beta with the fc (f32)."""
+    from simple_tensorflow_tpu_torch.models import resnet
+
+    model = resnet.ResNet(50, 1000, device="meta")
+    sizes = [0, 0]
+    for p in model.parameters():
+        sizes[int(p.dim() != 4)] += p.numel()
+    return sizes
+
+
+MOMENTUM_LR, MOMENTUM_MU = 0.1, 0.9           # resnet50_train_model's recipe
+
+
+def phase_momentum(K, gen, dev):
+    """Fused Momentum over the two flat groups of the ResNet-50 path:
+    bf16 parameters (the conv kernels) and f32 parameters (BatchNorm and
+    fc), f32 accumulators, plain and Nesterov, from non-zero accumulators
+    (a step from zero never reads ``mu``). Bit-exact with the plain
+    version (0 mismatches in p and acc); two planted faults, ``mu`` one
+    ulp larger and the Nesterov flag flipped, must each differ."""
+    main = {}
+    lr = torch.tensor(MOMENTUM_LR, device=dev)
+    mu = torch.tensor(MOMENTUM_MU, device=dev)
+    mu_off = torch.nextafter(mu, torch.tensor(1.0, device=dev))
+    for dtype, n in zip((torch.bfloat16, torch.float32),
+                        resnet_group_sizes()):
+        p = torch.randn(n, generator=gen, device=dev).to(dtype)
+        acc = 0.5 * torch.randn(n, generator=gen, device=dev)
+        g = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+        pe = elem_size(dtype)
+        for nesterov in (False, True):
+            # the timed launches update copies in place: repeated steps
+            # with one g drive acc to g / (1 - mu), where Nesterov and
+            # plain Momentum take the same step, so the checks below
+            # always see the fresh inputs
+            name = (f"momentum_update {str(dtype)[6:]} params n={n}"
+                    f"{' nesterov' if nesterov else ''}")
+            got = K.momentum_update(p.clone(), acc.clone(), g, lr, mu,
+                                    use_nesterov=nesterov)
+            ref = K.momentum_update_plain(p.clone(), acc.clone(), g, lr, mu,
+                                          use_nesterov=nesterov)
+            torch.cuda.synchronize()
+            miss = [mismatches(a, b) for a, b in zip(got, ref)]
+            faults = {
+                "mu + 1 ulp": K.momentum_update_plain(
+                    p.clone(), acc.clone(), g, lr, mu_off,
+                    use_nesterov=nesterov),
+                "nesterov flipped": K.momentum_update_plain(
+                    p.clone(), acc.clone(), g, lr, mu,
+                    use_nesterov=not nesterov)}
+            seen = {f: [mismatches(a, b) for a, b in zip(got, bad)]
+                    for f, bad in faults.items()}
+            print(f"  {name}: kernel vs plain mismatches p {miss[0]} acc "
+                  f"{miss[1]}; planted faults (p, acc) {seen}", flush=True)
+            if any(miss):
+                fail(f"{name}: kernel is not bit-exact with its plain "
+                     f"version ({miss} elements of p, acc differ)")
+            missed = [f for f, m in seen.items() if not any(m)]
+            if missed:
+                fail(f"{name}: the check passes planted faults {missed}")
+            del got, ref, faults
+            # copies past the L2 (the f32 group's 42 MB fits in it), read
+            # cold as the step after a backward reads them
+            copies = [(p.clone(), acc.clone(), g.clone()) for _ in
+                      range(n_copies(n * (3 * pe + 8)))]
+            ms = device_ms([lambda c=c: K.momentum_update(
+                *c, lr, mu, use_nesterov=nesterov) for c in copies])
+            plain_ms = device_ms([lambda c=c: K.momentum_update_plain(
+                *c, lr, mu, use_nesterov=nesterov) for c in copies])
+            del copies
+            pt = torch.nn.Parameter(p.clone())
+            pt.grad = g.clone()
+            opt = torch.optim.SGD([pt], lr=MOMENTUM_LR,
+                                  momentum=MOMENTUM_MU, nesterov=nesterov,
+                                  fused=True)
+            lib_ms = event_ms(opt.step)
+            # read p, g, acc; write p, acc; mu * acc + g, lr * acc and the
+            # subtraction (Nesterov: two more) an element
+            bnd = bound_ms(n * (3 * pe + 8), (6 if nesterov else 4) * n,
+                           torch.float32)
+            report(name, 0.0, ms, plain_ms, bnd, lib_ms)
+            if dtype == torch.bfloat16 and not nesterov:
+                main["momentum_update"] = kernel_row(0.0, ms, plain_ms, bnd,
+                                                     lib_ms, name)
+            del pt, opt
+        del p, acc, g
+    print("  (momentum library: torch.optim.SGD(momentum=0.9, fused=True)"
+          ".step, whose buffer takes the parameter's dtype: bf16 for the "
+          "bf16 group)", flush=True)
     return main
 
 
@@ -1430,7 +1560,7 @@ def bf16_windows(K, cfgs, params, batch, dev):
     return runs
 
 
-def profile_steps(trainer, batch, tag, n=3, top=10):
+def profile_steps(trainer, batch, tag, n=3, top=10, label="train"):
     """Device time of ``n`` more training steps from a ``torch.profiler``
     trace (CUDA kernels, copies and fills, summed), against the host
     clock around them, and the ``top`` kernels that take the most of it;
@@ -1455,16 +1585,219 @@ def profile_steps(trainer, batch, tag, n=3, top=10):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / n
     if not by_name:
-        print(f"train[bf16 {tag}]: the profiler saw no device time; the "
+        print(f"{label}[bf16 {tag}]: the profiler saw no device time; the "
               f"device busy share is not measured", flush=True)
         return None
     dev_ms = sum(by_name.values())
-    print(f"train[bf16 {tag}]: profiler, {n} steps: device busy "
+    print(f"{label}[bf16 {tag}]: profiler, {n} steps: device busy "
           f"{dev_ms:.4f} ms a step of {wall_ms:.4f} ms on the host clock "
           f"({100 * dev_ms / wall_ms:.1f}%)", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
     return dev_ms
+
+
+# -- ResNet-50 training phase ---------------------------------------------------
+
+RESNET_B, RESNET_SIZE = 256, 224       # resnet50_train_model as shipped
+RESNET_F32_B = 32                      # the f32 kernels-vs-plain check
+RESNET_F32_STEPS = 2                   # the second step reads mu
+RESNET_STEPS = 16
+# kernels vs plain after RESNET_F32_STEPS f32 steps, by relative norm per
+# parameter (parameters) and over the group (accumulators). cuDNN runs in
+# its deterministic mode there (plain vs plain reads 0), so the two runs
+# differ only by the softmax-xent kernels' roundoff, which the BatchNorm
+# backward amplifies: it cancels most of every gradient, and a parameter
+# that starts at 0 (bn0's beta) holds nothing but those gradients. On an
+# H100 80GB HBM3 at 700 W that reads 4.733e-2 (bn0.beta) and 2.264e-2;
+# the planted faults read 0.256-1.58 and 0.434-0.513
+RESNET_PARAM_TOL, RESNET_ACC_TOL = 0.15, 0.1
+# launches a step besides Momentum's one per flat group (2 under bf16:
+# the conv kernels, and BatchNorm with the fc; 1 under f32)
+RESNET_PER_STEP = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+
+
+def resnet_launches(counts, steps, groups):
+    """The launches ``steps`` ResNet steps must make: every other kernel
+    0."""
+    want = {k: 0 for k in counts}
+    want.update({k: v * steps for k, v in RESNET_PER_STEP.items()})
+    want["momentum_update"] = groups * steps
+    return want
+
+
+def resnet_trainer(params, batch, dtype, dev, plain=False):
+    from simple_tensorflow_tpu_torch.models import resnet
+
+    return resnet.resnet50_train_model(
+        batch_size=batch, image_size=RESNET_SIZE, dtype=dtype,
+        params=params, device=dev, plain=plain)
+
+
+def resnet_state(trainer):
+    """Every parameter and the flat accumulators, as f32 copies."""
+    params = {n: p.detach().float().clone()
+              for n, p in trainer.model.named_parameters()}
+    accs = [grp.momentum.clone() for grp in trainer.optimizer.flat_groups]
+    return params, accs
+
+
+def resnet_errs(a, b):
+    """(worst parameter rel-norm error and its name, worst accumulator
+    rel-norm error) of state ``a`` against state ``b``."""
+    (pa, aa), (pb, ab) = a, b
+    errs = {n: ((pa[n] - pb[n]).norm() / pb[n].norm()).item() for n in pb}
+    worst = max(errs, key=errs.get)
+    acc = max(((x - y).norm() / y.norm()).item() for x, y in zip(aa, ab))
+    return errs[worst], worst, acc
+
+
+def check_resnet_f32(K, params, images, labels, dev):
+    """``RESNET_F32_STEPS`` f32 steps at ``RESNET_F32_B`` x 224^2 through
+    the kernels against the same steps through the plain versions
+    (``plain=True``), both on the card with cuDNN deterministic: the loss
+    of each step within rtol 1e-5, then every parameter and the
+    accumulators within ``RESNET_PARAM_TOL``/``RESNET_ACC_TOL`` by
+    relative norm. A second plain run gives the floor; two planted
+    Momentum faults (the Nesterov flag flipped, ``mu`` x 0.5) must fail
+    the limits. Returns the kernel run's launches."""
+    from simple_tensorflow_tpu_torch.models import resnet
+
+    tag = f"train resnet[f32 {RESNET_F32_B} x {RESNET_SIZE}^2]"
+    x, y = images[:RESNET_F32_B], labels[:RESNET_F32_B]
+
+    def run(plain=False):
+        t = resnet_trainer(params, RESNET_F32_B, torch.float32, dev, plain)
+        losses = [t.step(x, y).item() for _ in range(RESNET_F32_STEPS)]
+        state = resnet_state(t)
+        if len(t.optimizer.flat_groups) != 1:
+            fail(f"{tag}: {len(t.optimizer.flat_groups)} Momentum groups "
+                 f"under f32, expected 1")
+        del t
+        return losses, state
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_p, state_p = run(plain=True)
+        before = K.launch_counts()
+        _, state_p2 = run(plain=True)
+        if K.launch_counts() != before:
+            fail(f"{tag}: the plain steps launched kernels")
+        K.reset_launch_counts()
+        loss_k, state_k = run()
+        counts = K.launch_counts()
+        faults = {}
+        for fault, wrap in (
+                ("nesterov flipped", lambda f: lambda *a, **k: f(
+                    *a, **dict(k, use_nesterov=not k["use_nesterov"]))),
+                ("mu x 0.5", lambda f: lambda p, acc, g, lr, mu, **k: f(
+                    p, acc, g, lr, mu * 0.5, **k))):
+            with planted(resnet, "momentum_update", wrap):
+                faults[fault] = resnet_errs(run()[1], state_p)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    want = resnet_launches(counts, RESNET_F32_STEPS, 1)
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+    floor = resnet_errs(state_p2, state_p)
+    errs = resnet_errs(state_k, state_p)
+    print(f"{tag}: losses {loss_k} (kernels) vs {loss_p} (plain)",
+          flush=True)
+    print(f"{tag}: after {RESNET_F32_STEPS} steps, worst parameter rel err "
+          f"{errs[0]:.3e} ({errs[1]}), accumulators {errs[2]:.3e} (limits "
+          f"{RESNET_PARAM_TOL}, {RESNET_ACC_TOL}); plain vs plain "
+          f"{floor[0]:.3e} / {floor[2]:.3e}", flush=True)
+    print(f"{tag}: planted Momentum faults, (parameter, accumulator) rel "
+          f"err: " + ", ".join(f"{k} ({v[0]:.3e} {v[1]}, {v[2]:.3e})"
+                               for k, v in faults.items()), flush=True)
+    bad = [f"step {i + 1}: {a} vs {b}" for i, (a, b) in
+           enumerate(zip(loss_k, loss_p)) if not abs(a - b) <= 1e-5 * abs(b)]
+    if bad:
+        fail(f"{tag}: losses through the kernels vs the plain versions: "
+             f"{bad}")
+    if not (errs[0] <= RESNET_PARAM_TOL and errs[2] <= RESNET_ACC_TOL):
+        fail(f"{tag}: state after {RESNET_F32_STEPS} steps off the plain "
+             f"run's: {errs}")
+    missed = [k for k, v in faults.items()
+              if v[0] <= RESNET_PARAM_TOL and v[2] <= RESNET_ACC_TOL]
+    if missed:
+        fail(f"{tag}: the limits pass planted faults {missed}: {faults}")
+    return counts
+
+
+def resnet_phase(K, dev):
+    """The ResNet-50 training path (module docstring, phase 5). Returns
+    ``[(path, dropout, launches)]``: the f32 kernel steps and the bf16
+    window, each counted from zero just before it."""
+    from simple_tensorflow_tpu_torch import convert
+    from simple_tensorflow_tpu_torch.models import resnet
+
+    params = convert.init_resnet_params(seed=0)
+    images, labels = resnet.synthetic_imagenet(RESNET_B, RESNET_SIZE)
+    paths = [("train resnet f32", 0.0,
+              check_resnet_f32(K, params, images, labels, dev))]
+    # the batch lives on the card, as a data pipeline would leave it
+    images = torch.from_numpy(images).to(dev, torch.bfloat16)
+    labels = torch.from_numpy(labels).to(dev)
+    torch.cuda.empty_cache()
+
+    tag = f"train resnet[bf16 {RESNET_B} x {RESNET_SIZE}^2]"
+    trainer = resnet_trainer(params, RESNET_B, torch.bfloat16, dev)
+    sizes = [len(grp) for grp in trainer.optimizer.flat_groups]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    counts = {k: 0 for k in K.launch_counts()}
+    K.reset_launch_counts()
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss = trainer.step(images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    paths.append(("train resnet bf16", 0.0, counts))
+    want = resnet_launches(counts, RESNET_STEPS, 2)
+    if len(sizes) != 2 or counts != want:
+        fail(f"{tag}: Momentum groups {sizes}, launches {counts}, expected "
+             f"{want}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite loss in {losses}")
+    # the recipe as shipped (lr 0.1, momentum 0.9, no warm-up) overshoots
+    # on one repeated batch after some ten steps, in the JAX package as in
+    # the port (PERF.md §6), so the window's first half is held to a
+    # falling loss: the mean of its second LOSS_MEAN_OF steps below that of
+    # its first
+    first = statistics.mean(losses[:LOSS_MEAN_OF])
+    second = statistics.mean(losses[LOSS_MEAN_OF:2 * LOSS_MEAN_OF])
+    last = statistics.mean(losses[-LOSS_MEAN_OF:])
+    if not second < first:
+        fail(f"{tag}: the loss does not fall (mean of steps 1-{LOSS_MEAN_OF}"
+             f" {first}, of steps {LOSS_MEAN_OF + 1}-{2 * LOSS_MEAN_OF} "
+             f"{second}): {losses}")
+    p50 = statistics.median(times)
+    ips = RESNET_B / p50
+    flops = 3 * resnet.resnet_flops_per_image(50, RESNET_SIZE)
+    print(f"{tag}: resnet50_train_model as shipped (lr 0.1, momentum 0.9, "
+          f"weight decay 1e-4), Momentum groups {sizes}, {RESNET_STEPS} "
+          f"steps on one repeated synthetic_imagenet batch (seed 0)",
+          flush=True)
+    print(f"{tag}: losses {[round(v, 5) for v in losses]} (means of "
+          f"{LOSS_MEAN_OF}: the first {first:.5f}, the next {second:.5f}, "
+          f"the last {last:.5f})", flush=True)
+    print(f"{tag}: p50 step {p50 * 1e3:.4f} ms (min {min(times) * 1e3:.4f},"
+          f" max {max(times) * 1e3:.4f}), {ips:.2f} images/s; 3 x "
+          f"resnet_flops_per_image at that rate: "
+          f"{ips * flops / 1e12:.2f} TFLOP/s, "
+          f"{100 * ips * flops / PEAK_OPS_PER_S[torch.bfloat16]:.2f}% of the "
+          f"dense bf16 peak; peak device memory {peak / 2 ** 30:.3f} GiB",
+          flush=True)
+    print(f"{tag}: launches {counts}", flush=True)
+    profile_steps(trainer, (images, labels), "resnet", top=12,
+                  label="train resnet")
+    return paths
 
 
 def main():
@@ -1512,6 +1845,7 @@ def main():
     main_rows.update(phase_layer_norm_bwd(K, gen, dev))
     main_rows.update(phase_softmax_xent(K, gen, dev))
     main_rows.update(phase_adam(K, gen, dev, cfg))
+    main_rows.update(phase_momentum(K, gen, dev))
     torch.cuda.empty_cache()
 
     params = convert.init_params(cfg, seed=0)
@@ -1523,6 +1857,9 @@ def main():
                       serve(params, cfg, int8, prompts, dev)))
     torch.cuda.empty_cache()
     paths += train_phase(K, cfg, params, dev, main_rows)
+    del params
+    torch.cuda.empty_cache()
+    paths += resnet_phase(K, dev)
     # a kernel's launches over every path; the flash rows split by the
     # path's dropout (the dropout branch runs only at rate > 0)
     launches = {}
@@ -1551,6 +1888,7 @@ def main():
         "softmax_xent_fwd": ("softmax_xent.cu", "softmax_xent.py:32"),
         "softmax_xent_bwd": ("softmax_xent.cu", "softmax_xent.py:78"),
         "adam_update": ("fused_update.cu", "fused_update.py:59"),
+        "momentum_update": ("fused_update.cu", "fused_update.py:135"),
         "flash_attention_fwd_dropout": ("flash_attention.cu",
                                         "flash_attention.py:141"),
         "flash_attention_dkdv_dropout": ("flash_attention.cu",

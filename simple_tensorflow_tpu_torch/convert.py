@@ -22,6 +22,14 @@
   trainer draws the JAX session's next dropout masks.
 - :func:`init_params` makes numpy-seeded weights of the same shapes and
   initializers as the JAX model, so the card can run without JAX.
+
+ResNet (:mod:`.models.resnet`): :func:`resnet_params_from_jax` maps
+``resnet/...`` variables to a :class:`..models.resnet.ResNet`
+``state_dict`` (conv kernels HWIO -> OIHW), :func:`load_resnet_training_
+state` carries the global step and the flat Momentum slots
+``Momentum/fused_momentum_g{i}`` (each conv kernel's segment transposed
+alike), and :func:`init_resnet_params` draws numpy-seeded weights from the
+JAX model's initializers.
 """
 
 from __future__ import annotations
@@ -184,6 +192,118 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
             limit = np.sqrt(3.0 / ((shape[0] + shape[1]) / 2.0))
             v = rng.uniform(-limit, limit, shape)
         elif name.endswith(".gamma"):
+            v = np.ones(shape)
+        else:
+            v = np.zeros(shape)
+        state[name] = torch.from_numpy(v.astype(np.float32))
+    return state
+
+
+# -- ResNet ----------------------------------------------------------------------
+
+def _resnet_shapes(num_classes: int) -> dict:
+    """Port ``state_dict`` name -> shape of ResNet-50 (parameters in
+    creation order, then the BatchNorm buffers), from a model on the meta
+    device."""
+    from .models.resnet import ResNet
+
+    model = ResNet(50, num_classes, device="meta")
+    return {name: tuple(t.shape) for name, t in model.state_dict().items()}
+
+
+def _hwio_to_oihw(value: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(value.transpose(3, 2, 0, 1))
+
+
+def resnet_params_from_jax(named: dict, dtype=torch.float32,
+                           scope: str = "resnet") -> dict:
+    """Map ResNet-50's ``resnet/...`` variables (``num_classes`` read
+    from ``fc/bias``) to the port's ``state_dict`` (CPU tensors): conv
+    kernels
+    HWIO -> OIHW in ``dtype``, BatchNorm parameters and statistics and the
+    fc f32. Raises on a missing variable or a shape mismatch."""
+    num_classes = int(np.asarray(named[f"{scope}/fc/bias"]).shape[0])
+    state = {}
+    for name, shape in _resnet_shapes(num_classes).items():
+        jax_name = f"{scope}/" + name.replace(".", "/")
+        if jax_name not in named:
+            raise KeyError(f"checkpoint has no variable {jax_name!r}")
+        value = np.asarray(named[jax_name], np.float32)
+        if value.ndim == 4:
+            value = _hwio_to_oihw(value)
+        if value.shape != shape:
+            raise ValueError(f"{jax_name}: shape {value.shape} (port "
+                             f"layout), expected {shape}")
+        t = torch.from_numpy(value.copy())
+        state[name] = t.to(dtype) if t.dim() == 4 else t
+    return state
+
+
+def resnet_slot_from_jax(group, flat: np.ndarray) -> np.ndarray:
+    """A JAX flat slot of ``group``'s layout (per-parameter segments in
+    the same order and sizes; conv kernels flattened HWIO) in the port's
+    element order (conv kernels flattened OIHW)."""
+    flat = np.asarray(flat, np.float32)
+    if flat.shape != (len(group),):
+        raise ValueError(f"flat slot of shape {flat.shape}, the port's "
+                         f"group holds {len(group)}")
+    out = flat.copy()
+    for p, off, size in zip(group.params, group.offsets, group.sizes):
+        if p.dim() == 4:
+            o, i, kh, kw = p.shape
+            seg = flat[off:off + size].reshape(kh, kw, i, o)
+            out[off:off + size] = _hwio_to_oihw(seg).reshape(-1)
+    return out
+
+
+def load_resnet_training_state(trainer, named: dict,
+                               optimizer_name: str = "Momentum"):
+    """Carry a JAX ResNet training checkpoint's ``global_step`` and flat
+    Momentum slots (``…/fused_momentum_g{i}``, one per ``(param dtype,
+    update dtype)`` group in the same order) onto a
+    :class:`..models.resnet.ResNetTrainer` (its weights come from
+    :func:`resnet_params_from_jax`). From a checkpoint without a global
+    step (weights only) nothing is carried."""
+    if not any(k.split("/")[-1] == "global_step" for k in named):
+        return
+    trainer.global_step = int(named[_one(named, r"(^|/)global_step$")])
+    name = re.escape(optimizer_name)
+    for gi, grp in enumerate(trainer.optimizer.flat_groups):
+        value = named[_one(named, rf"(^|/){name}/fused_momentum_g{gi}$")]
+        grp.momentum.copy_(torch.from_numpy(
+            resnet_slot_from_jax(grp, value)).to(grp.momentum.device))
+
+
+def _truncated_normal(rng, shape, stddev):
+    """N(0, stddev) redrawn beyond two standard deviations (TF's
+    ``truncated_normal``)."""
+    v = rng.standard_normal(int(np.prod(shape)))
+    bad = np.abs(v) > 2.0
+    while bad.any():
+        v[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(v) > 2.0
+    return (v * stddev).reshape(shape)
+
+
+def init_resnet_params(seed: int = 0, num_classes: int = 1000) -> dict:
+    """Random ResNet-50 weights from ``numpy.random.RandomState(seed)`` with
+    the JAX model's initializers: conv kernels
+    ``VarianceScaling(2.0, "fan_out", "truncated_normal")`` (stddev
+    ``sqrt(2 / (kh * kw * out)) / 0.8796``), fc kernel N(0, 0.01), biases
+    and BatchNorm beta and moving mean 0, gamma and moving variance 1.
+    The same distributions as JAX, not its bits. Returns a ``state_dict``
+    of CPU f32 tensors (conv kernels OIHW)."""
+    rng = np.random.RandomState(seed)
+    state = {}
+    for name, shape in _resnet_shapes(num_classes).items():
+        leaf = name.split(".")[-1]
+        if len(shape) == 4:
+            fan_out = shape[0] * shape[2] * shape[3]
+            v = _truncated_normal(rng, shape,
+                                  np.sqrt(2.0 / fan_out) / 0.87962566103423978)
+        elif leaf == "kernel":
+            v = rng.standard_normal(shape) * 0.01
+        elif leaf in ("gamma", "moving_variance"):
             v = np.ones(shape)
         else:
             v = np.zeros(shape)

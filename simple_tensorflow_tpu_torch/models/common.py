@@ -1,7 +1,8 @@
 """Building blocks of the port's transformer models.
 
 Port of ``simple_tensorflow_tpu/models/common.py`` (``layer_norm``,
-``dense``, ``split_heads``, ``merge_heads``). Parameter names follow the
+``split_heads``, ``merge_heads``; ``dense`` is
+:class:`..layers.core.Dense`) and the port's device rule. Parameter names follow the
 JAX variables, so a module's ``state_dict`` key is the JAX variable path
 with ``.`` for ``/`` (``…/ln1/gamma``, ``…/q/kernel``, ``…/q/bias``). Dense
 kernels are ``(in, out)`` as in JAX. Parameters are trainable; the serving
@@ -18,8 +19,8 @@ from ..ops.fused_ops import fused_layer_norm
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. A CUDA device needs a card: no
-    silent move to the CPU. On CUDA, f32 matrix products (and cuDNN,
-    which the port does not call) are pinned to full f32, no TF32: the
+    silent move to the CPU. On CUDA, f32 matrix products and cuDNN's f32
+    convolutions (the ResNet path's) are pinned to full f32, no TF32: the
     precision the JAX package runs its f32 programs at."""
     device = torch.device(device)
     if device.type == "cuda":
@@ -48,30 +49,6 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return fused_layer_norm(x, self.gamma, self.beta, eps=self.eps)
-
-
-class Dense(nn.Module):
-    """``x @ kernel + bias`` (matmul then bias add, as ``stf.layers.dense``),
-    optionally followed by ReLU. ``dtype`` is the parameters' dtype: the
-    JAX layer creates its kernel and bias in its input's dtype
-    (``layers/base.py:98-99``), so bf16 under bf16 compute. The product is
-    a plain large matrix product, left to ``torch.matmul`` as the JAX
-    package left it to XLA."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 activation=None, dtype=torch.float32, device=None):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(
-            in_features, out_features, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype,
-                                             device=device))
-        self.activation = activation
-
-    def forward(self, x):
-        y = torch.matmul(x, self.kernel) + self.bias
-        if self.activation is not None:
-            y = self.activation(y)
-        return y
 
 
 def split_heads(x, b, s, heads, head_dim):

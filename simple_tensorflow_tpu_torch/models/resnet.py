@@ -1,0 +1,279 @@
+"""ResNet-50 v1.5 for ImageNet, trained with Momentum.
+
+Port of ``simple_tensorflow_tpu/models/resnet.py`` as eager PyTorch:
+
+- :class:`ResNet` is ``resnet_forward`` (:56): NHWC activations (the JAX
+  layout; in PyTorch's NCHW terms, channels_last memory), conv kernels and
+  activations in the model dtype (bf16 for training), f32 BatchNorm
+  parameters, the global pool in f32 returning the model dtype, then an
+  f32 ``fc``. v1.5: a projection block strides in its 3x3 conv
+  (:51). Module names follow the JAX variable scopes, so a
+  ``state_dict`` key is the JAX variable path under ``resnet/`` with
+  ``.`` for ``/`` (``stage0_block0.conv1.kernel``); a projection block
+  creates ``proj_conv``/``proj_bn`` before ``conv1`` (:46-49), and
+  ``parameters()`` keeps that creation order, which is the order of the
+  optimizer's flat layout.
+- :func:`resnet50_train_model` (:126) and :class:`ResNetTrainer`, the
+  counterpart of the JAX dict ``{loss, train_op, accuracy,
+  global_step}``: the mean sparse softmax cross-entropy (through the
+  softmax-xent kernels) plus ``weight_decay`` times the l2 of every
+  ``kernel`` variable in f32 (not BatchNorm, not the fc bias), and one
+  :class:`..train.optimizers.MomentumOptimizer` step (the fused Momentum
+  kernel, one launch per flat group).
+
+BatchNorm's moving statistics are not updated by a training step, as the
+JAX ``train_op`` leaves them (:mod:`..layers.normalization`).
+``data_parallel``, ``recompute`` and ``conv0_space_to_depth`` are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..layers.convolutional import Conv2D
+from ..layers.core import Dense
+from ..layers.normalization import BatchNormalization
+from ..layers.pooling import max_pooling2d
+from ..ops import fused_ops, nn_ops
+from ..ops.kernels.fused_update import momentum_update, momentum_update_plain
+from ..train.optimizers import MomentumOptimizer
+from .common import resolve_device
+
+_BLOCKS = {  # per-stage bottleneck counts
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+
+
+def _conv(in_ch, filters, ksize, stride, dtype, device):
+    return Conv2D(in_ch, filters, ksize, stride, padding="same",
+                  use_bias=False, dtype=dtype, device=device)
+
+
+def _bn(channels, device):
+    return BatchNormalization(channels, epsilon=1e-5, device=device)
+
+
+class Bottleneck(nn.Module):
+    """``_bottleneck`` (:41): 1x1, 3x3 (stride here, v1.5), 1x1 to four
+    times ``filters``, each followed by BatchNorm; a projection shortcut
+    on a stage's first block."""
+
+    def __init__(self, in_ch, filters, stride, projection, dtype, device):
+        super().__init__()
+        if projection:
+            self.proj_conv = _conv(in_ch, 4 * filters, 1, stride, dtype,
+                                   device)
+            self.proj_bn = _bn(4 * filters, device)
+        else:
+            self.proj_conv = self.proj_bn = None
+        self.conv1 = _conv(in_ch, filters, 1, 1, dtype, device)
+        self.bn1 = _bn(filters, device)
+        self.conv2 = _conv(filters, filters, 3, stride, dtype, device)
+        self.bn2 = _bn(filters, device)
+        self.conv3 = _conv(filters, 4 * filters, 1, 1, dtype, device)
+        self.bn3 = _bn(4 * filters, device)
+
+    def forward(self, x):
+        shortcut = x
+        if self.proj_conv is not None:
+            shortcut = self.proj_bn(self.proj_conv(x))
+        y = nn_ops.relu(self.bn1(self.conv1(x)))
+        y = nn_ops.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return nn_ops.relu(y + shortcut)
+
+
+class ResNet(nn.Module):
+    """``resnet_forward`` (module docstring): NHWC images ``(B, H, W, 3)``
+    in ``dtype`` -> f32 logits ``(B, num_classes)``. BatchNorm uses the
+    batch statistics in training mode (``module.train()``, the default)
+    and the moving ones in ``module.eval()``."""
+
+    def __init__(self, depth=50, num_classes=1000, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        if depth not in _BLOCKS:
+            raise ValueError(f"depth must be one of {sorted(_BLOCKS)}: "
+                             f"{depth}")
+        self.conv0 = _conv(3, 64, 7, 2, dtype, device)
+        self.bn0 = _bn(64, device)
+        in_ch = 64
+        self.blocks = []
+        for stage, n_blocks in enumerate(_BLOCKS[depth]):
+            filters = 64 * 2 ** stage
+            for i in range(n_blocks):
+                stride = 2 if (stage > 0 and i == 0) else 1
+                block = Bottleneck(in_ch, filters, stride, i == 0, dtype,
+                                   device)
+                self.add_module(f"stage{stage}_block{i}", block)
+                self.blocks.append(block)
+                in_ch = 4 * filters
+        self.fc = Dense(in_ch, num_classes, dtype=torch.float32,
+                        device=device)
+
+    def forward(self, x):
+        h = nn_ops.relu(self.bn0(self.conv0(x)))
+        h = max_pooling2d(h, 3, 2, padding="same")
+        for block in self.blocks:
+            h = block(h)
+        # jnp.mean over H, W: summed in f32, returned in h's dtype
+        h = h.float().mean(dim=(1, 2)).to(h.dtype)
+        return self.fc(h.float())
+
+
+class ResNetTrainer:
+    """The port's counterpart of the JAX training dict (module
+    docstring): the model (:attr:`model`), a
+    :class:`..train.optimizers.MomentumOptimizer` (:attr:`optimizer`) and
+    the global step. :meth:`step` runs forward, backward and the fused
+    Momentum update, then increments the global step.
+
+    ``plain=True`` runs the whole step (the softmax-xent under
+    :func:`..ops.fused_ops.plain_versions` and the plain Momentum update)
+    through the kernels' plain PyTorch versions on any device: the
+    reference the kernel step is held against on the card."""
+
+    def __init__(self, batch_size, image_size, num_classes, dtype,
+                 learning_rate, momentum, weight_decay, state, device,
+                 plain=False):
+        self.device = device
+        self.batch_size = int(batch_size)
+        self.image_size = int(image_size)
+        self.dtype = dtype
+        self.weight_decay = float(weight_decay)
+        self.plain = bool(plain)
+        self.model = ResNet(50, num_classes, dtype, device)
+        self.model.load_state_dict(state)
+        self.model.train()
+        # the variables the recipe's weight decay covers: every conv and
+        # the fc kernel, in creation order
+        self.kernels = [p for name, p in self.model.named_parameters()
+                        if name.endswith("kernel")]
+        self.optimizer = MomentumOptimizer(
+            self.model.parameters(), learning_rate, momentum,
+            update=momentum_update_plain if self.plain else momentum_update)
+        self.global_step = 0
+
+    def _batch(self, images, labels):
+        images = torch.as_tensor(images).to(self.device, self.dtype)
+        labels = torch.as_tensor(labels).to(self.device, torch.int32)
+        want = (self.batch_size, self.image_size, self.image_size, 3)
+        if tuple(images.shape) != want or \
+                tuple(labels.shape) != (self.batch_size,):
+            raise ValueError(f"images must be {want} and labels "
+                             f"({self.batch_size},), got "
+                             f"{tuple(images.shape)}, {tuple(labels.shape)}")
+        return images, labels
+
+    def loss(self, images, labels):
+        """The f32 training loss of one batch, recorded for autograd:
+        mean xent plus ``weight_decay`` times the summed l2 of the
+        kernels, each cast to f32 (summed in creation order, as
+        ``add_n``)."""
+        images, labels = self._batch(images, labels)
+        with (fused_ops.plain_versions() if self.plain
+              else contextlib.nullcontext()):
+            logits = self.model(images)
+            xent = nn_ops.sparse_softmax_cross_entropy_with_logits(
+                labels, logits).mean()
+        l2 = [nn_ops.l2_loss(k.float()) for k in self.kernels]
+        return xent + self.weight_decay * sum(l2[1:], l2[0])
+
+    def loss_and_grads(self, images, labels):
+        """Forward and backward without an update: the loss, with the
+        gradients left in the optimizer's flat buffers (each parameter's
+        ``.grad``)."""
+        self.optimizer.zero_grad()
+        loss = self.loss(images, labels)
+        loss.backward()
+        return loss.detach()
+
+    def step(self, images, labels):
+        """One training step; returns the step's f32 loss (a device
+        scalar: reading it waits for the step)."""
+        loss = self.loss_and_grads(images, labels)
+        self.optimizer.step()
+        self.global_step += 1
+        return loss
+
+    @torch.no_grad()
+    def accuracy(self, images, labels):
+        """The share of the batch whose argmax logit is its label (f32
+        device scalar), from a training-mode forward as the JAX dict's
+        ``accuracy`` (batch statistics; nothing is updated)."""
+        images, labels = self._batch(images, labels)
+        logits = self.model(images)
+        return (torch.argmax(logits, dim=1).to(torch.int32)
+                == labels).float().mean()
+
+
+def resnet50_train_model(batch_size=64, image_size=224, num_classes=1000,
+                         dtype=torch.bfloat16, learning_rate=0.1,
+                         momentum=0.9, weight_decay=1e-4,
+                         data_parallel=False, recompute=False,
+                         conv0_space_to_depth=False, *, params=None,
+                         checkpoint: Optional[str] = None, seed=0,
+                         device="cuda", plain=False) -> ResNetTrainer:
+    """The training model: a :class:`ResNetTrainer` for NHWC ``(batch_size,
+    image_size, image_size, 3)`` image batches with the JAX function's
+    recipe (ResNet-50 v1.5, Momentum, weight decay on the kernels).
+
+    Weights come from ``checkpoint=`` (a JAX ``.stfz`` prefix; a training
+    checkpoint also carries the global step and the flat Momentum slots),
+    ``params=`` (a ``state_dict``), or :func:`..convert.init_resnet_params`
+    with ``seed``. ``device`` defaults to ``"cuda"`` and raises without a
+    card; pass ``device="cpu"`` to run the kernels' plain versions on the
+    CPU. ``plain=True`` runs them on any device."""
+    from .. import convert
+
+    for flag, value in (("data_parallel", data_parallel),
+                        ("recompute", recompute),
+                        ("conv0_space_to_depth", conv0_space_to_depth)):
+        if value:
+            raise NotImplementedError(
+                f"resnet50_train_model({flag}={value!r}) is not ported yet: "
+                "it comes with a later slice of the port (data parallelism "
+                "and rematerialisation with the Graph front end, the "
+                "space-to-depth stem after it)")
+    device = resolve_device(device)
+    named = None
+    if checkpoint is not None:
+        named = convert.load_stfz(checkpoint)
+        state = convert.resnet_params_from_jax(named, dtype)
+    elif params is not None:
+        state = params
+    else:
+        state = convert.init_resnet_params(seed, num_classes=num_classes)
+    trainer = ResNetTrainer(batch_size, image_size, num_classes, dtype,
+                            learning_rate, momentum, weight_decay, state,
+                            device, plain=plain)
+    if named is not None:
+        convert.load_resnet_training_state(trainer, named)
+    return trainer
+
+
+def resnet_flops_per_image(depth=50, image_size=224, num_classes=1000):
+    """Analytic forward FLOPs an image (2 x MACs); a training step is about
+    3x the forward."""
+    table = {50: 4.089e9, 18: 1.82e9, 34: 3.67e9, 101: 7.8e9, 152: 11.5e9}
+    scale = (image_size / 224.0) ** 2
+    return table[depth] * scale
+
+
+def synthetic_imagenet(batch_size, image_size=224, seed=0, dtype=np.float32):
+    """Random NHWC images in [0, 1) and labels in [0, 1000), from
+    ``numpy.random.RandomState(seed)``: the JAX function's batch."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(batch_size, image_size, image_size, 3).astype(dtype)
+    labels = rng.randint(0, 1000, size=batch_size).astype(np.int32)
+    return images, labels

@@ -34,11 +34,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..layers.core import Dense
 from ..ops import fused_ops, nn_ops
 from ..ops.embedding_ops import embedding_lookup
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.quant_matmul import div127
-from .common import Dense, LayerNorm, merge_heads, split_heads
+from .common import LayerNorm, merge_heads, split_heads
 
 
 @dataclasses.dataclass

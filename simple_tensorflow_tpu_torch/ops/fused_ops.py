@@ -8,9 +8,10 @@ tensors launch the kernels.
 :func:`plain_versions` runs every one of them through the kernels' plain
 PyTorch versions on any device: the reference the kernels are held
 against on the card. A trainer built with ``plain=True``
-(:func:`..models.causal_lm.causal_lm_train_model`) enters it and gives
-its optimizer the plain Adam update; nothing else enters it, and the
-kernel wrappers themselves never fall back.
+(:func:`..models.causal_lm.causal_lm_train_model`,
+:func:`..models.resnet.resnet50_train_model`) enters it and gives its
+optimizer the plain Adam or Momentum update; nothing else enters it, and
+the kernel wrappers themselves never fall back.
 
 Dropout (``rate > 0``) takes an int32 ``seed`` and draws the JAX
 kernels' counter-hash mask from it (the JAX lowering draws that seed from

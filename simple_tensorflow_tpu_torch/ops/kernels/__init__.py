@@ -13,7 +13,8 @@ from .flash_attention import (flash_attention, flash_attention_dkdv,
                               flash_attention_dkdv_plain, flash_attention_dq,
                               flash_attention_dq_plain, flash_attention_fwd,
                               flash_attention_fwd_plain)
-from .fused_update import adam_update, adam_update_plain
+from .fused_update import (adam_update, adam_update_plain, momentum_update,
+                           momentum_update_plain)
 from .layer_norm import (layer_norm, layer_norm_bwd, layer_norm_bwd_plain,
                          layer_norm_fwd, layer_norm_plain)
 from .quant_matmul import (quant_matmul, quant_matmul_plain,
@@ -32,7 +33,8 @@ __all__ = [
     "flash_attention_dq_plain", "flash_attention_fwd",
     "flash_attention_fwd_plain", "launch_counts", "layer_norm",
     "layer_norm_bwd", "layer_norm_bwd_plain", "layer_norm_fwd",
-    "layer_norm_plain", "quant_matmul", "quant_matmul_plain",
+    "layer_norm_plain", "momentum_update", "momentum_update_plain",
+    "quant_matmul", "quant_matmul_plain",
     "quantize_rowwise_plain", "reset_launch_counts", "softmax_cross_entropy",
     "softmax_xent_bwd", "softmax_xent_bwd_plain", "softmax_xent_fwd",
     "softmax_xent_fwd_plain",

@@ -37,6 +37,7 @@ _LAUNCHES = {
     "softmax_xent_fwd": 0,
     "softmax_xent_bwd": 0,
     "adam_update": 0,
+    "momentum_update": 0,
     "dropout_residual": 0,
     "dropout_residual_bwd": 0,
     "dropout": 0,

@@ -7,8 +7,12 @@ package, so they run on a machine with the card alone:
 
 (``--noconftest``: the suite's conftest sets JAX up.) f32 tolerances are
 rtol 1e-5, atol 1e-5 (the kernel sums in another order than PyTorch);
-bf16 2e-2 (one bf16 rounding of the output); QuantMatMul and Adam are
-bit-exact. The training kernels' outputs are held to a bound scaled by
+bf16 2e-2 (one bf16 rounding of the output); QuantMatMul, Adam and
+Momentum are bit-exact. A small bf16 ResNet trainer's first loss
+matches the plain trainer's within rtol 1e-5, and its optimizer steps are
+the plain Momentum update of its own gradients, bit for bit (its later
+losses are not compared: the BatchNorm backward amplifies the xent
+kernels' roundoff into gradient differences of per cent). The training kernels' outputs are held to a bound scaled by
 the largest reference value: f32 1e-5 for forward values and 1e-4 for
 gradients (sums of hundreds to thousands of products), bf16 2e-2; the
 xent backward element by element (``_close_elementwise``): f32 1e-5,
@@ -291,6 +295,64 @@ def test_adam_kernel_on_card_is_bit_exact(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(mk, mp) and torch.equal(vk, vp)
     assert torch.equal(pk, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_momentum_kernel_on_card_is_bit_exact(cuda, dtype, nesterov):
+    rng = np.random.RandomState(26)
+    n = 1000003
+    p = _t(rng.randn(n).astype(np.float32)).to(cuda, dtype)
+    acc = _t((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)  # mu is read
+    g = _t((rng.randn(n) * 0.1).astype(np.float32)).to(cuda, dtype)
+    lr, mu = torch.tensor(0.1, device=cuda), torch.tensor(0.9, device=cuda)
+    before = K.launch_counts()["momentum_update"]
+    pk, ak = K.momentum_update(p.clone(), acc.clone(), g, lr, mu,
+                               use_nesterov=nesterov)
+    pp, ap = K.momentum_update_plain(p.clone(), acc.clone(), g, lr, mu,
+                                     use_nesterov=nesterov)
+    torch.cuda.synchronize()
+    assert torch.equal(ak, ap) and torch.equal(pk, pp)
+    assert K.launch_counts()["momentum_update"] == before + 1
+    # the other Nesterov setting is another function
+    po, _ = K.momentum_update_plain(p.clone(), acc.clone(), g, lr, mu,
+                                    use_nesterov=not nesterov)
+    assert not torch.equal(pk, po)
+
+
+@pytest.mark.cuda
+def test_resnet_trainer_steps_match_plain_on_card(cuda):
+    # the first loss through the xent kernel matches the plain trainer's;
+    # each optimizer step is the plain Momentum update of the trainer's
+    # own gradient, bit for bit (the second step reads mu)
+    from simple_tensorflow_tpu_torch import convert
+    from simple_tensorflow_tpu_torch.models import resnet
+
+    images, labels = resnet.synthetic_imagenet(8, 64)
+    labels = labels % 10
+    params = convert.init_resnet_params(0, num_classes=10)
+    kw = dict(batch_size=8, image_size=64, num_classes=10,
+              dtype=torch.bfloat16, params=params, device=cuda)
+    plain = resnet.resnet50_train_model(plain=True, **kw)
+    trainer = resnet.resnet50_train_model(**kw)
+    lp = plain.step(images, labels).item()
+    before = K.launch_counts()
+    opt = trainer.optimizer
+    lr, mu = opt._learning_rate(), opt.mu
+    for step in range(2):
+        loss = trainer.loss_and_grads(images, labels).item()
+        if step == 0:
+            np.testing.assert_allclose(loss, lp, rtol=1e-5)
+        want = [K.momentum_update_plain(grp.p.clone(), grp.momentum.clone(),
+                                        grp.g, lr, mu)
+                for grp in opt.flat_groups]
+        opt.step()
+        for grp, (p, acc) in zip(opt.flat_groups, want):
+            assert torch.equal(grp.p, p) and torch.equal(grp.momentum, acc)
+    counts = K.launch_counts()
+    assert counts["momentum_update"] - before["momentum_update"] == 4
+    assert counts["softmax_xent_bwd"] - before["softmax_xent_bwd"] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from simple_tensorflow_tpu_torch.models import causal_lm as clm
+from simple_tensorflow_tpu_torch.models import resnet
 from simple_tensorflow_tpu_torch.models import transformer as tr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,10 +47,14 @@ def test_importing_the_port_loads_no_jax():
         sys.path.insert(0, {REPO!r})
         import simple_tensorflow_tpu_torch
         from simple_tensorflow_tpu_torch import convert, serving
-        from simple_tensorflow_tpu_torch.models import causal_lm
+        from simple_tensorflow_tpu_torch.models import causal_lm, resnet
+        from simple_tensorflow_tpu_torch.layers import (convolutional,
+                                                        core, normalization,
+                                                        pooling)
         from simple_tensorflow_tpu_torch.ops import (embedding_ops,
                                                      fused_ops, kernels,
-                                                     kv_cache, nn_ops)
+                                                     kv_cache, nn_impl,
+                                                     nn_ops)
         from simple_tensorflow_tpu_torch.framework import (prng,
                                                            random_seed)
         from simple_tensorflow_tpu_torch.train import optimizers
@@ -122,3 +127,13 @@ def test_trainer_defaults_to_the_gpu_and_refuses_dropout(monkeypatch):
     with pytest.raises(ValueError, match="dropout"):
         clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
                                   device="cpu")
+
+
+def test_resnet_trainer_defaults_to_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.resnet50_train_model()
+    t = resnet.resnet50_train_model(batch_size=2, image_size=32,
+                                    num_classes=10, device="cpu")
+    assert t.model.conv0.kernel.device.type == "cpu"
+    assert t.optimizer.flat_groups[0].momentum.device.type == "cpu"

@@ -226,14 +226,16 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     K.dropout_fwd(torch.ones(2, 8), 0.9, (1, 2))
     K.dropout_residual_fwd(torch.ones(2, 8), torch.ones(2, 8), rate=0.1,
                            seed=3)
+    K.momentum_update(torch.ones(4), torch.ones(4), torch.ones(4),
+                      torch.tensor(0.1), torch.tensor(0.9))
     assert K.launch_counts() == before
     assert set(before) == {"decode_attention", "decode_attention_block",
                            "layer_norm", "quant_matmul", "layer_norm_bwd",
                            "flash_attention_fwd", "flash_attention_dkdv",
                            "flash_attention_dq", "softmax_xent_fwd",
                            "softmax_xent_bwd", "adam_update",
-                           "dropout_residual", "dropout_residual_bwd",
-                           "dropout", "dropout_bwd"}
+                           "momentum_update", "dropout_residual",
+                           "dropout_residual_bwd", "dropout", "dropout_bwd"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -264,7 +266,7 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_quant_matmul", "stf_flash_attention_fwd",
         "stf_flash_attention_dkdv", "stf_flash_attention_dq",
         "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update",
-        "stf_dropout_residual", "stf_dropout"}
+        "stf_momentum_update", "stf_dropout_residual", "stf_dropout"}
 
 
 def test_helpers_match_the_pallas_common_module():
