@@ -30,8 +30,17 @@ NVIDIA GPU and check every kernel of its serving and training paths
    back-to-back launches timed with CUDA events, over input copies that
    together exceed the 50 MB L2 where the inputs are large, so large
    inputs are read cold as the paths read them; library calls that run
-   autograd or an optimizer are timed with CUDA events around repeated
-   calls instead.
+   an optimizer or PyTorch's dropout RNG are timed with CUDA events around
+   repeated calls instead. The flash backward kernels' yardstick is SDPA's
+   backward alone (its flash backward on a saved forward, which computes
+   dq, dk and dv in one call), graph-timed, beside SDPA forward +
+   backward captured in a graph. The bf16 flash forward's dropout mask is
+   also read off its output (q = 0, v one-hot) at the training shape: 0
+   mismatches with the plain mask, and the next seed's mask must differ.
+   The redesigned kernels (the bf16 flash forward, the query-block
+   DecodeAttention) and those that must hold their times get one line
+   each at the end: the time before the redesign (``EARLIER_MS``), this
+   run's, the bound and the library call's.
 3. Serving phase: ``GenerativeEngine`` over ``CausalLMGenerativeModel``
    at ``TransformerConfig.big()`` width (6 layers, d_model 1024, 16
    heads, vocab 32768) with seeded random weights, 12 requests of 17-96
@@ -125,6 +134,17 @@ INT32_OPS_PER_S = 67e12 / 2
 K0_OPS = 19
 THREEFRY_OPS = 76
 DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
+# times before the redesign of the flash forward (CUDA cores) and the
+# query-block decode (one block per head), and of the kernels that must
+# hold theirs within 5% (this script's runs on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md §6)
+EARLIER_MS = {"flash_attention_fwd": (0.16643, "redesigned"),
+          "decode_attention_block": (0.11102, "redesigned"),
+          "flash_attention_fwd_dropout": (0.17323, "redesigned"),
+          "decode_attention": (0.07467, "unchanged"),
+          "flash_attention_fwd@f32": (0.16185, "unchanged"),
+          "flash_attention_dkdv": (0.28561, "unchanged"),
+          "flash_attention_dq": (0.23243, "unchanged")}
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
@@ -559,10 +579,14 @@ def phase_flash_attention(K, gen, dev):
                 times[part] = tuple(device_ms([
                     lambda f=f, c=c, st=st: f(*pick(c, st), **args)
                     for c, st in zip(copies, stats)]) for f in (kern, plain))
-            # yardsticks: SDPA forward, and SDPA forward + backward, on
-            # the same tensors as (B, H, S, D) views; with dropout, SDPA's
-            # own dropout (similar work, another mask), timed with CUDA
-            # events around eager calls (its RNG is kept out of a graph)
+            # yardsticks on the same tensors as (B, H, S, D) views: SDPA
+            # forward; SDPA's backward alone (bf16 without a bias: its
+            # flash backward on the saved out and logsumexp), which
+            # computes dq, dk and dv in one call; SDPA forward + backward
+            # (torch.autograd.grad). At rate 0 all graph-timed; with
+            # dropout, SDPA's own dropout (similar work, another mask)
+            # timed with CUDA events around eager calls (its RNG is kept
+            # out of a graph) and no backward alone
             mask = bias.view(B, 1, 1, s).to(dtype) if biased else None
 
             def sdpa(c):
@@ -571,18 +595,25 @@ def phase_flash_attention(K, gen, dev):
                     q4, k4, v4, attn_mask=mask, is_causal=causal,
                     dropout_p=rate)
 
+            def sdpa_fb(c):
+                qg, kg, vg = (t.view(B, H, s, D).detach().requires_grad_()
+                              for t in c[:3])
+                do4 = c[3].view(B, H, s, D)
+                return lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(
+                        qg, kg, vg, attn_mask=mask, is_causal=causal,
+                        dropout_p=rate), (qg, kg, vg), do4)
+
+            lib_bwd = None
             if rate:
                 lib_fwd = event_ms(sdpa(copies[0]), reps=20)
+                lib_fb = event_ms(sdpa_fb(copies[0]))
             else:
                 lib_fwd = device_ms([sdpa(c) for c in copies])
-            qg, kg, vg = (t.view(B, H, s, D).detach().requires_grad_()
-                          for t in copies[0][:3])
-            do4 = copies[0][3].view(B, H, s, D)
-            lib_fb = event_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                               is_causal=causal,
-                                               dropout_p=rate),
-                (qg, kg, vg), do4))
+                lib_fb = device_ms([sdpa_fb(c) for c in copies])
+                if not f32 and not biased:
+                    lib_bwd = device_ms([sdpa_bwd(c, B, H, s, D, causal)
+                                         for c in copies])
             # the work these inputs need: live (query, key) pairs only
             pairs = bh * (s * (s + 1) // 2 if causal else s * s)
             io = bh * s * D * elem
@@ -594,23 +625,104 @@ def phase_flash_attention(K, gen, dev):
                                      8 * D * pairs, dtype, hashes),
                     "dq": bound_ms(5 * io + 2 * bh * s * 4 + extra,
                                    6 * D * pairs, dtype, hashes)}
-            libs = {"fwd": lib_fwd, "dkdv": lib_fb, "dq": lib_fb}
+            lib_g = lib_fb if lib_bwd is None else lib_bwd
+            libs = {"fwd": lib_fwd, "dkdv": lib_g, "dq": lib_g}
             for part in ("fwd", "dkdv", "dq"):
                 name = f"flash_attention_{part} {tag}"
                 report(name, err[part], times[part][0], times[part][1],
                        bnds[part], libs[part])
+                row = kernel_row(err[part], times[part][0], times[part][1],
+                                 bnds[part], libs[part], name)
                 if not f32 and s == 256 and causal:
-                    key = f"flash_attention_{part}" + (
-                        "_dropout" if rate else "")
-                    main[key] = kernel_row(
-                        err[part], times[part][0], times[part][1],
-                        bnds[part], libs[part], name)
+                    main[f"flash_attention_{part}"
+                         + ("_dropout" if rate else "")] = row
+                if f32 and s == 256 and causal and not rate and \
+                        part == "fwd":
+                    main["flash_attention_fwd@f32"] = row
+            bwd_txt = "n/a" if lib_bwd is None else f"{lib_bwd:.5f}"
+            print(f"  flash library {tag}: SDPA backward alone {bwd_txt} ms,"
+                  f" forward + backward {lib_fb:.5f} ms "
+                  f"({'CUDA events, eager' if rate else 'graph-timed'})",
+                  flush=True)
+            if lib_bwd is not None and s == 256 and causal:
+                c = copies[0]
+                print(f"  flash library {tag}: kernels of SDPA forward + "
+                      f"backward {device_kernels(sdpa_fb(c))}; of the "
+                      f"backward alone "
+                      f"{device_kernels(sdpa_bwd(c, B, H, s, D, causal))}",
+                      flush=True)
+            if not f32 and s == 256 and causal and rate:
+                check_flash_fwd_mask(K, dev, bh, s, rate)
+                ratio = times["fwd"][0] / main["flash_attention_fwd"]["ms"]
+                print(f"  flash fwd {tag}: {times['fwd'][0]:.5f} ms, "
+                      f"{ratio:.3f}x the rate-0 kernel", flush=True)
             del copies, stats
-        print("  (flash library: fwd = SDPA forward; dkdv/dq = SDPA "
-              "forward + backward, which computes dq, dk and dv together; "
-              "with dropout, SDPA's dropout_p: similar work, another "
-              "mask)", flush=True)
+        print("  (flash library: fwd = SDPA forward; dkdv/dq = SDPA's "
+              "backward alone where it runs (bf16, no bias, rate 0), else "
+              "SDPA forward + backward: one call computes dq, dk and dv "
+              "together; with dropout, SDPA's dropout_p: similar work, "
+              "another mask)", flush=True)
     return main
+
+
+def device_kernels(fn):
+    """The names (cut to 60 characters) of the device kernels one call of
+    ``fn`` runs, from a profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:60] for e in prof.events()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def sdpa_bwd(c, B, H, s, D, causal):
+    """SDPA's flash backward alone on the saved output and logsumexp of
+    one forward call over the (BH, S, D) tensors ``c`` (q, k, v, dO)."""
+    q4, k4, v4, do4 = (t.view(B, H, s, D) for t in c)
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, causal, False, scale=D ** -0.5)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
+        scale=D ** -0.5)
+
+
+def check_flash_fwd_mask(K, dev, bh, s, rate):
+    """The bf16 forward's dropout mask read off its output at the
+    training shape: with q = 0 every live score is 0 and p = 1, and v
+    one-hot over a block of D keys makes o[:, r, d] nonzero exactly where
+    key blk * D + d of row r was live and kept. 0 mismatches against the
+    plain K0 mask; the next seed's mask must differ (a planted fault)."""
+    fa = importlib.import_module(KMOD + "flash_attention")
+    D = TRAIN_D
+    q = torch.zeros((bh, s, D), device=dev, dtype=torch.bfloat16)
+    k = torch.ones((bh, s, D), device=dev, dtype=torch.bfloat16)
+    parts = []
+    for blk in range(s // D):
+        keys = torch.arange(s, device=dev)[:, None] - blk * D
+        v = (keys == torch.arange(D, device=dev)[None, :]).to(torch.bfloat16)
+        o, _ = K.flash_attention_fwd(
+            q, k, v.expand(bh, s, D).contiguous(), heads=TRAIN_H,
+            sm_scale=D ** -0.5, causal=True, dropout_rate=rate,
+            dropout_seed=FLASH_SEED)
+        parts.append(o != 0)
+    got = torch.cat(parts, dim=-1)
+    live = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    want = fa.keep_mask_plain(bh, s, s, rate, FLASH_SEED, dev) & live
+    bad = fa.keep_mask_plain(bh, s, s, rate, FLASH_SEED + 1, dev) & live
+    miss, fault = mismatches(got, want), mismatches(got, bad)
+    print(f"  flash fwd bf16 BH={bh} S={s} dropout {rate}: mask read off "
+          f"the output, mismatches {miss} of {got.numel()} (kept "
+          f"{got.sum().item()} of {live.sum().item() * bh} live); against "
+          f"the mask of seed + 1 {fault}", flush=True)
+    if miss or not fault:
+        fail(f"flash fwd mask: {miss} mismatches, seed + 1 fault "
+             f"mismatches {fault}")
 
 
 K4_SEED = 918273
@@ -1915,6 +2027,13 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
+    for name, (old, what) in EARLIER_MS.items():
+        r = main_rows[name]
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        print(f"{what} {name} ({r['shape']}): before {old:.5f} ms, now "
+              f"{r['ms']:.5f} ms ({r['ms'] / old:.3f}x), bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib} ms",
+              flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

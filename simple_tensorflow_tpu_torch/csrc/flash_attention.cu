@@ -40,12 +40,24 @@
 // odd stride (bank-conflict free); each of the 256 threads owns a 4 x 4
 // patch of the 64 x 64 score tile and a 4 x (D/16) patch of the output
 // tile. Ragged S is masked in the kernel (rows past S load zeros and are
-// never stored), so nothing is padded in device memory. Tensor cores
-// (mma.sync / wgmma), cp.async/TMA staging and a persistent schedule are
-// later work.
+// never stored), so nothing is padded in device memory.
+// The bf16 forward runs on tensor cores in flash_fwd_mma.cu; the f32
+// forward and both backward kernels (f32 and bf16) are the CUDA-core
+// kernels here. Tensor cores for the backward are later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace stf {
+
+// flash_fwd_mma.cu: the bf16 forward on tensor cores
+cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
+                               const float* bias, void* o, float* lse, int BH,
+                               int q_len, int kv_len, int H, int D,
+                               float scale, int causal, int dropout,
+                               uint32_t seed, uint32_t threshold,
+                               float inv_keep, cudaStream_t s);
+
 namespace {
 
 constexpr int kFaThreads = 256;
@@ -117,7 +129,7 @@ __device__ __forceinline__ float row16_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (q tiles, B*H)
+// f32 forward (bf16 runs flash_fwd_mma.cu): grid (q tiles, B*H)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -545,7 +557,17 @@ enum FaWhich { kFwd = 0, kDkdv = 1, kDq = 2 };
 
 template <typename T, int D>
 cudaError_t run(int which, const FaArgs& a) {
-  if (which == kFwd) return run_fwd<T, D>(a);
+  if (which == kFwd) {
+    // bf16 on tensor cores, f32 on the CUDA-core kernel above
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return flash_fwd_bf16_mma(a.q, a.k, a.v, a.bias, a.o,
+                                static_cast<float*>(a.lse), a.BH, a.q_len,
+                                a.kv_len, a.H, D, a.scale, a.causal,
+                                a.dropout, a.seed, a.threshold, a.inv_keep,
+                                a.s);
+    else
+      return run_fwd<T, D>(a);
+  }
   if (which == kDkdv) return run_dkdv<T, D>(a);
   return run_dq<T, D>(a);
 }

@@ -10,7 +10,10 @@ The contract is the JAX one: ``q (B, H, D)`` or ``(B, Kq, H, D)``,
 optional additive ``bias (B, L)`` f32. Positions ``>= lengths[b]`` are
 masked; with ``causal_offset`` query ``j`` sees ``< lengths[b] + j + 1``.
 Bounded by bytes on the card; ``csrc/decode_attention.cu`` says what its
-design does about it.
+design does about it. The query-block kernel splits the cache axis into
+chunks of ``SPLIT_L`` positions, one block each, and merges the chunks'
+partial softmax sums in a second pass; the wrapper allocates the f32
+workspace of those partials.
 """
 
 from __future__ import annotations
@@ -20,11 +23,19 @@ import math
 import torch
 
 from . import _build
-from .common import (DTYPE_CODES, NEG_INF, check_cuda_arg, check_status,
-                     count_launch, uses_kernel)
+from .common import (DTYPE_CODES, NEG_INF, cdiv, check_cuda_arg,
+                     check_status, count_launch, round_up, uses_kernel)
 
 MAX_KQ = 64
 MAX_HEAD_DIM = 256
+# cache positions a block of the query-block kernel (csrc kSplitL)
+SPLIT_L = 32
+
+
+def split_workspace_floats(b, kq, L, h, d):
+    """f32 elements of the query-block kernel's partials: per (b, h, chunk,
+    query) the accumulator (``d`` rounded up to 4) and (m, l)."""
+    return b * h * cdiv(L, SPLIT_L) * kq * (round_up(d, 4) + 2)
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, bias=None,
@@ -94,13 +105,16 @@ def decode_attention(q, k_cache, v_cache, lengths, *, bias=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q4)
+    ws = (torch.empty(split_workspace_floats(b, kq, L, h, d),
+                      dtype=torch.float32, device=q4.device)
+          if kq > 1 else None)
     lib = _build.library()
     status = lib.stf_decode_attention(
         q4.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), b, kq, L, h, d, float(sm_scale),
-        int(bool(causal_offset)), DTYPE_CODES[q4.dtype],
-        _build.stream_handle(q4.device))
+        out.data_ptr(), ws.data_ptr() if ws is not None else None, b, kq, L,
+        h, d, float(sm_scale), int(bool(causal_offset)), SPLIT_L,
+        DTYPE_CODES[q4.dtype], _build.stream_handle(q4.device))
     check_status("decode_attention", status)
     count_launch("decode_attention" if single else "decode_attention_block")
     return out[:, 0] if single else out

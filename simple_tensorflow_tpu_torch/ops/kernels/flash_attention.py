@@ -23,9 +23,10 @@ The kernel-level functions work on ``(B*H, S, D)``-contiguous tensors:
 ``flash_attention_fwd`` -> ``(o, lse)``, ``flash_attention_dkdv`` ->
 ``(dk, dv)``, ``flash_attention_dq`` -> ``dq``, each beside its
 ``*_plain`` version. ``delta = rowsum(dO * O)`` (minus the lse cotangent)
-is plain PyTorch, as it sits outside Pallas in JAX. Bounded by operations
-on the card; the source note in ``csrc/flash_attention.cu`` says what the
-design does about it.
+is plain PyTorch, as it sits outside Pallas in JAX. The bf16 forward runs
+on tensor cores (``csrc/flash_fwd_mma.cu``); the f32 forward and the
+backward kernels run on CUDA cores. The source notes of the two files say
+what bounds each kernel and what its design does about it.
 """
 
 from __future__ import annotations

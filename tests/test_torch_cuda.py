@@ -74,6 +74,48 @@ def test_decode_attention_kernel_on_card(cuda, dtype, kq, causal, biased):
     assert K.launch_counts()[name] == before[name] + 1
 
 
+def _split_l():
+    return _kernel_module("decode_attention").SPLIT_L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["split_edges", "length0_noncausal",
+                                  "ragged_L", "prefill_B1", "odd_head_dim"])
+def test_decode_attention_block_split_on_card(cuda, dtype, case):
+    # the split-K query-block kernel at the chunk edges (lengths SPLIT_L - 1,
+    # SPLIT_L, SPLIT_L + 1), a non-causal Kq=4 row of length 0 (zeros), an
+    # L that is no multiple of the chunk, the B=1 prefill bucket, and a
+    # head_dim that is no multiple of 4 (staged element by element)
+    sl = _split_l()
+    b, kq, L, d, causal, biased = {
+        "split_edges": (3, 16, 256, 64, True, False),
+        "length0_noncausal": (3, 4, 256, 64, False, True),
+        "ragged_L": (2, 16, 200, 64, True, True),
+        "prefill_B1": (1, 16, 256, 64, True, False),
+        "odd_head_dim": (2, 5, 77, 50, True, True)}[case]
+    q, k, v, lengths, bias = _attn_inputs(31, b, kq, L, 16, d, causal,
+                                          biased)
+    if case == "split_edges":
+        lengths[:] = (sl - 1, sl, sl + 1)
+    if case == "length0_noncausal":
+        lengths[1] = 0
+    args = [_t(a).to(cuda, dtype) for a in (q, k, v)]
+    lens = _t(lengths).to(cuda)
+    bias_t = None if bias is None else _t(bias).to(cuda)
+    before = K.launch_counts()["decode_attention_block"]
+    out = K.decode_attention(*args, lens, bias=bias_t, causal_offset=causal)
+    ref = K.decode_attention_plain(*args, lens, bias=bias_t,
+                                   causal_offset=causal)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert K.launch_counts()["decode_attention_block"] == before + 1
+    if case == "length0_noncausal":
+        assert not out[1].any()
+        assert out[0].abs().sum() > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_kernel_on_card(cuda, dtype):
@@ -219,6 +261,92 @@ def test_flash_attention_kernels_on_card(cuda, dtype, sq, sk, d, causal,
     for name in ("flash_attention_fwd", "flash_attention_dkdv",
                  "flash_attention_dq"):
         assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,biased", [
+    (77, 77, True, False), (100, 171, False, True), (130, 130, True, True)])
+def test_flash_fwd_bf16_tensor_core_kernel_on_card(cuda, d, sq, sk, causal,
+                                                   biased):
+    # the bf16 forward on tensor cores at every head_dim the wrapper takes,
+    # ragged S (no multiple of the 64-row tile), q_len != kv_len, key bias
+    h = 4
+    q, k, v, _, bias = _flash_inputs(cuda, torch.bfloat16, 32, 2, h, sq, sk,
+                                     d, biased)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    before = K.launch_counts()["flash_attention_fwd"]
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    torch.cuda.synchronize()
+    _close(o, ro, 2e-2)
+    _close(lse, rlse, 1e-5)
+    assert K.launch_counts()["flash_attention_fwd"] == before + 1
+
+
+def _flash_fwd_keep_mask(cuda, bh, s, causal, seed):
+    """The keep mask the bf16 forward applied, read off its output: with
+    q = 0 every live score is 0, so p = 1; v is one-hot over a 64-key
+    block, so o[:, r, d] is nonzero exactly where key 64 * blk + d of row r
+    was live and kept."""
+    d = 64
+    q = torch.zeros((bh, s, d), device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((bh, s, d), device=cuda).to(torch.bfloat16)
+    parts = []
+    for blk in range(-(-s // d)):
+        keys = torch.arange(s, device=cuda)[:, None] - blk * d
+        v = (keys == torch.arange(d, device=cuda)[None, :]).to(torch.bfloat16)
+        o, _ = K.flash_attention_fwd(
+            q, k, v.expand(bh, s, d).contiguous(), heads=1, sm_scale=0.125,
+            causal=causal, dropout_rate=0.1, dropout_seed=seed)
+        parts.append(o != 0)
+    return torch.cat(parts, dim=-1)[..., :s]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,causal", [(128, True), (100, True),
+                                      (192, False)])
+def test_flash_fwd_bf16_dropout_mask_on_card(cuda, s, causal):
+    # the tensor-core forward's dropout mask is K0's, bit for bit: 0
+    # mismatches; the mask of the next seed differs (a planted fault)
+    bh, seed = 6, 424242
+    got = _flash_fwd_keep_mask(cuda, bh, s, causal, seed)
+    live = torch.ones(s, s, dtype=torch.bool, device=cuda)
+    if causal:
+        live = live.tril()
+    fa = _kernel_module("flash_attention")
+    want = fa.keep_mask_plain(bh, s, s, 0.1, seed, cuda) & live
+    bad = fa.keep_mask_plain(bh, s, s, 0.1, seed + 1, cuda) & live
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+    assert int((got != bad).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_flash_fwd_dtype_picks_its_kernel_on_card(cuda):
+    # bf16 runs the tensor-core kernel, f32 keeps the CUDA-core kernel (its
+    # 1e-5 limit rules out TF32); read from the kernels' names in a trace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, _ = _flash_inputs(cuda, dtype, 33, 2, 4, 96, 96, 64,
+                                      False)
+        K.flash_attention_fwd(q, k, v, heads=4, sm_scale=0.125, causal=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            o, lse = K.flash_attention_fwd(q, k, v, heads=4, sm_scale=0.125,
+                                           causal=True)
+            torch.cuda.synchronize()
+        names[dtype] = [e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA]
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, heads=4,
+                                               sm_scale=0.125, causal=True)
+        _close(o, ro, 1e-5 if dtype == torch.float32 else 2e-2)
+    assert any("flash_fwd_kernel<float" in n for n in names[torch.float32])
+    assert not any("mma" in n for n in names[torch.float32])
+    assert any("flash_fwd_mma_kernel" in n for n in names[torch.bfloat16])
 
 
 @pytest.mark.cuda

@@ -30,6 +30,8 @@ from simple_tensorflow_tpu_torch.ops.kernels import common as kcommon
 jda = importlib.import_module("simple_tensorflow_tpu.ops.pallas."
                               "decode_attention")
 jln = importlib.import_module("simple_tensorflow_tpu.ops.pallas.layer_norm")
+kda = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "decode_attention")
 jqmm = importlib.import_module("simple_tensorflow_tpu.ops.pallas."
                                "quant_matmul")
 
@@ -106,6 +108,74 @@ def test_decode_attention_sm_scale_matches_jax():
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(lengths), sm_scale=0.3))
     np.testing.assert_allclose(got, want, **F32)
+
+
+def _split_merge(q, k, v, lengths, bias, causal, sm_scale):
+    """The query-block kernel's split-K algorithm, written in torch (f32):
+    chunk c of ``SPLIT_L`` positions gives each query j a partial (m_c,
+    l_c, acc_c) with p = 0 at its masked positions; chunks at or past the
+    row's horizon (length + Kq with causal_offset) are not computed; the
+    merge is m = max m_c, w_c = exp(m_c - m), l = sum w_c l_c, acc = sum
+    w_c acc_c, out = acc / (l == 0 ? 1 : l). Returns (out, the number of
+    (query, chunk) partials wholly masked)."""
+    b, kq, h, d = q.shape
+    L = k.shape[1]
+    sl = kda.SPLIT_L
+    out = torch.zeros_like(q)
+    dead = 0
+    for bi in range(b):
+        n = int(lengths[bi])
+        allowed = torch.full((kq,), n) + (torch.arange(kq) + 1 if causal
+                                          else 0)
+        horizon = min(n + (kq if causal else 0), L)
+        parts = []
+        for c0 in range(0, horizon, sl):
+            pos = torch.arange(c0, min(c0 + sl, L))
+            s = torch.einsum("qhd,lhd->qhl", q[bi], k[bi, pos]) * sm_scale
+            if bias is not None:
+                s = s + bias[bi, pos]
+            live = (pos[None, :] < allowed[:, None])[:, None, :]
+            s = torch.where(live, s, torch.full_like(s, kcommon.NEG_INF))
+            m_c = s.amax(dim=-1, keepdim=True)
+            p = torch.where(live, torch.exp(s - m_c), torch.zeros_like(s))
+            dead += int((~live.any(dim=-1)).sum())
+            parts.append((m_c, p.sum(dim=-1, keepdim=True),
+                          torch.einsum("qhl,lhd->qhd", p, v[bi, pos])))
+        if not parts:
+            continue
+        m = torch.stack([pt[0] for pt in parts]).amax(dim=0)
+        w = [torch.exp(pt[0] - m) for pt in parts]
+        l = sum(wc * pt[1] for wc, pt in zip(w, parts))
+        acc = sum(wc * pt[2] for wc, pt in zip(w, parts))
+        out[bi] = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out, dead
+
+
+@pytest.mark.parametrize("L", [256, 200])
+@pytest.mark.parametrize("kq,causal,biased", [(16, True, False),
+                                              (16, True, True),
+                                              (4, False, True),
+                                              (4, False, False)])
+def test_decode_attention_split_merge_matches_jax(kq, causal, biased, L):
+    # lengths: a full walk; SPLIT_L - 2, whose second chunk is wholly
+    # masked for the block's first queries (causal) and SPLIT_L + 1
+    # (non-causal: 0, a row with no live position, which returns zeros)
+    sl = kda.SPLIT_L
+    q, k, v, lengths, bias = _attn_inputs(41, 3, kq, L, 2, 8, causal, biased)
+    lengths[1:] = (sl - 2, sl + 1) if causal else (0, sl + 1)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    tb = None if bias is None else _t(bias)
+    got, dead = _split_merge(tq, tk, tv, _t(lengths), tb, causal, 8 ** -0.5)
+    assert dead > 0 if causal else not got[1].any()
+    plain = K.decode_attention_plain(tq, tk, tv, _t(lengths), bias=tb,
+                                     causal_offset=causal)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    want = np.asarray(jda.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        bias=None if bias is None else jnp.asarray(bias),
+        causal_offset=causal))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +327,8 @@ def test_build_key_covers_every_source_and_the_flags():
     srcs = sorted(p.name for p in _build.SRC_DIR.iterdir())
     assert {"decode_attention.cu", "layer_norm.cu", "quant_matmul.cu",
             "flash_attention.cu", "softmax_xent.cu", "fused_update.cu",
-            "dropout_residual.cu", "dropout.cu", "common.cuh"} <= set(srcs)
+            "dropout_residual.cu", "dropout.cu", "flash_fwd_mma.cu",
+            "common.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16
