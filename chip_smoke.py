@@ -35,10 +35,12 @@ NVIDIA GPU and check every kernel of its serving and training paths
    backward alone (its flash backward on a saved forward, which computes
    dq, dk and dv in one call), graph-timed, beside SDPA forward +
    backward captured in a graph. The bf16 flash forward's dropout mask is
-   also read off its output (q = 0, v one-hot) at the training shape: 0
-   mismatches with the plain mask, and the next seed's mask must differ.
-   The redesigned kernels (the bf16 flash forward, the query-block
-   DecodeAttention) and those that must hold their times get one line
+   also read off its output (q = 0, v one-hot) at the training shape, and
+   the bf16 backward's off each of dV, dK and dQ (``keep_mask_readoff``):
+   0 mismatches with the plain mask, and the next seed's mask must differ.
+   The registers and spills ``ptxas`` reports for the tensor-core backward
+   kernels are printed after the build. The redesigned kernels (the bf16
+   flash dK/dV and dQ) and those that must hold their times get one line
    each at the end: the time before the redesign (``EARLIER_MS``), this
    run's, the bound and the library call's.
 3. Serving phase: ``GenerativeEngine`` over ``CausalLMGenerativeModel``
@@ -107,6 +109,7 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -134,17 +137,21 @@ INT32_OPS_PER_S = 67e12 / 2
 K0_OPS = 19
 THREEFRY_OPS = 76
 DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
-# times before the redesign of the flash forward (CUDA cores) and the
-# query-block decode (one block per head), and of the kernels that must
-# hold theirs within 5% (this script's runs on an NVIDIA H100 80GB HBM3
-# at 700 W, PERF.md §6)
-EARLIER_MS = {"flash_attention_fwd": (0.16643, "redesigned"),
-          "decode_attention_block": (0.11102, "redesigned"),
-          "flash_attention_fwd_dropout": (0.17323, "redesigned"),
-          "decode_attention": (0.07467, "unchanged"),
-          "flash_attention_fwd@f32": (0.16185, "unchanged"),
-          "flash_attention_dkdv": (0.28561, "unchanged"),
-          "flash_attention_dq": (0.23243, "unchanged")}
+# times before the redesign of the bf16 flash backward (CUDA cores), and
+# of the kernels that must hold theirs within 5% (this script's runs on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6); None: a row without an
+# earlier time
+EARLIER_MS = {"flash_attention_dkdv": (0.28415, "redesigned"),
+          "flash_attention_dq": (0.23172, "redesigned"),
+          "flash_attention_dkdv_dropout": (0.28981, "redesigned"),
+          "flash_attention_dq_dropout": (0.23621, "redesigned"),
+          "flash_attention_fwd": (0.02961, "unchanged"),
+          "flash_attention_fwd_dropout": (0.03443, "unchanged"),
+          "decode_attention_block": (0.01415, "unchanged"),
+          "decode_attention": (0.07491, "unchanged"),
+          "flash_attention_fwd@f32": (0.16085, "unchanged"),
+          "flash_attention_dkdv@f32": (None, "unchanged"),
+          "flash_attention_dq@f32": (None, "unchanged")}
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
@@ -636,9 +643,8 @@ def phase_flash_attention(K, gen, dev):
                 if not f32 and s == 256 and causal:
                     main[f"flash_attention_{part}"
                          + ("_dropout" if rate else "")] = row
-                if f32 and s == 256 and causal and not rate and \
-                        part == "fwd":
-                    main["flash_attention_fwd@f32"] = row
+                if f32 and s == 256 and causal and not rate:
+                    main[f"flash_attention_{part}@f32"] = row
             bwd_txt = "n/a" if lib_bwd is None else f"{lib_bwd:.5f}"
             print(f"  flash library {tag}: SDPA backward alone {bwd_txt} ms,"
                   f" forward + backward {lib_fb:.5f} ms "
@@ -651,11 +657,19 @@ def phase_flash_attention(K, gen, dev):
                       f"backward alone "
                       f"{device_kernels(sdpa_bwd(c, B, H, s, D, causal))}",
                       flush=True)
+            if not f32 and s == 256 and causal and not rate:
+                pair = times["dkdv"][0] + times["dq"][0]
+                print(f"  flash bwd {tag}: dK/dV + dQ {pair:.5f} ms, "
+                      f"{pair / lib_bwd:.3f}x SDPA's backward alone "
+                      f"({lib_bwd:.5f} ms)", flush=True)
             if not f32 and s == 256 and causal and rate:
                 check_flash_fwd_mask(K, dev, bh, s, rate)
-                ratio = times["fwd"][0] / main["flash_attention_fwd"]["ms"]
-                print(f"  flash fwd {tag}: {times['fwd'][0]:.5f} ms, "
-                      f"{ratio:.3f}x the rate-0 kernel", flush=True)
+                check_flash_bwd_mask(K, dev, bh, s, rate)
+                for part in ("fwd", "dkdv", "dq"):
+                    ratio = (times[part][0]
+                             / main[f"flash_attention_{part}"]["ms"])
+                    print(f"  flash {part} {tag}: {times[part][0]:.5f} ms, "
+                          f"{ratio:.3f}x the rate-0 kernel", flush=True)
             del copies, stats
         print("  (flash library: fwd = SDPA forward; dkdv/dq = SDPA's "
               "backward alone where it runs (bf16, no bias, rate 0), else "
@@ -723,6 +737,35 @@ def check_flash_fwd_mask(K, dev, bh, s, rate):
     if miss or not fault:
         fail(f"flash fwd mask: {miss} mismatches, seed + 1 fault "
              f"mismatches {fault}")
+
+
+def check_flash_bwd_mask(K, dev, bh, s, rate):
+    """The bf16 backward's dropout mask read off each of dV, dK and dQ at
+    the training shape (``keep_mask_readoff``: lse = delta = 0, a zero q
+    or k so every live p is 1, one-hot dO, Q or K over blocks of D rows):
+    0 mismatches with the plain K0 mask; the next seed's mask must differ
+    (a planted fault)."""
+    fa = importlib.import_module(KMOD + "flash_attention")
+    args = dict(heads=TRAIN_H, sm_scale=TRAIN_D ** -0.5, causal=True,
+                dropout_rate=rate, dropout_seed=FLASH_SEED)
+
+    def bwd(q, k, v, do, lse, delta):
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta, **args)
+        return dk, dv, K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+
+    live = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    want = fa.keep_mask_plain(bh, s, s, rate, FLASH_SEED, dev) & live
+    bad = fa.keep_mask_plain(bh, s, s, rate, FLASH_SEED + 1, dev) & live
+    got = fa.keep_mask_readoff(bwd, bh, s, TRAIN_D, torch.bfloat16, dev)
+    for part, mask in zip(("dV", "dK", "dQ"), got):
+        miss, fault = mismatches(mask, want), mismatches(mask, bad)
+        print(f"  flash bwd bf16 BH={bh} S={s} dropout {rate}: mask read "
+              f"off {part}, mismatches {miss} of {mask.numel()} (kept "
+              f"{mask.sum().item()}); against the mask of seed + 1 {fault}",
+              flush=True)
+        if miss or not fault:
+            fail(f"flash bwd mask from {part}: {miss} mismatches, seed + 1 "
+                 f"fault mismatches {fault}")
 
 
 K4_SEED = 918273
@@ -1627,7 +1670,7 @@ def train_phase(K, cfg, params, dev, kernel_rows):
           f"dropout {cfg.dropout} takes {(p50 - p50_0) * 1e3:.4f} ms more "
           f"at the p50", flush=True)
     busy = profile_steps(trainer, batch, f"dropout {cfg.dropout}")
-    busy0 = profile_steps(trainer0, batch, "dropout 0", top=0)
+    busy0 = profile_steps(trainer0, batch, "dropout 0", top=5)
     if busy is not None and busy0 is not None:
         print(f"train[bf16]: dropout {cfg.dropout} adds {busy - busy0:.4f} "
               f"ms of device time a step", flush=True)
@@ -1912,6 +1955,30 @@ def resnet_phase(K, dev):
     return paths
 
 
+def kernel_props(log, prefix):
+    """``[(kernel<template args>, "N registers, spill stores/loads")]`` of
+    the kernels whose name starts with ``prefix``, from ``ptxas -v``."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            sym = m.group(1)
+            # the kernel's name follows its length in the mangled symbol
+            k = re.search(r"\d(" + prefix + r"\w*?kernel)I(\w*?)EE", sym)
+            name = None
+            if k:
+                targs = re.findall(r"L[ib](\d+)", k.group(2))
+                name = f"{k.group(1)}<{', '.join(targs)}>"
+            spill = None
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append((name, f"{regs} registers; {spill}"))
+            name = None
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures "
@@ -1941,6 +2008,8 @@ def main():
             spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
+    for name, props in kernel_props(_build.build_log, "flash_bwd_"):
+        print(f"  ptxas {name}: {props}", flush=True)
 
     rng = np.random.RandomState(0)
     print("kernel phases (times are per call, on the card):", flush=True)
@@ -1990,22 +2059,22 @@ def main():
                                    "decode_attention.py:108"),
         "layer_norm": ("layer_norm.cu", "layer_norm.py:29"),
         "quant_matmul": ("quant_matmul.cu", "quant_matmul.py:45"),
-        "flash_attention_fwd": ("flash_attention.cu",
+        "flash_attention_fwd": ("flash_fwd_mma.cu",
                                 "flash_attention.py:102"),
-        "flash_attention_dkdv": ("flash_attention.cu",
+        "flash_attention_dkdv": ("flash_bwd_mma.cu",
                                  "flash_attention.py:210"),
-        "flash_attention_dq": ("flash_attention.cu",
+        "flash_attention_dq": ("flash_bwd_mma.cu",
                                "flash_attention.py:264"),
         "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:42"),
         "softmax_xent_fwd": ("softmax_xent.cu", "softmax_xent.py:32"),
         "softmax_xent_bwd": ("softmax_xent.cu", "softmax_xent.py:78"),
         "adam_update": ("fused_update.cu", "fused_update.py:59"),
         "momentum_update": ("fused_update.cu", "fused_update.py:135"),
-        "flash_attention_fwd_dropout": ("flash_attention.cu",
+        "flash_attention_fwd_dropout": ("flash_fwd_mma.cu",
                                         "flash_attention.py:141"),
-        "flash_attention_dkdv_dropout": ("flash_attention.cu",
+        "flash_attention_dkdv_dropout": ("flash_bwd_mma.cu",
                                          "flash_attention.py:244"),
-        "flash_attention_dq_dropout": ("flash_attention.cu",
+        "flash_attention_dq_dropout": ("flash_bwd_mma.cu",
                                        "flash_attention.py:297"),
         "dropout_residual": ("dropout_residual.cu",
                              "dropout_residual.py:41"),
@@ -2030,10 +2099,11 @@ def main():
     for name, (old, what) in EARLIER_MS.items():
         r = main_rows[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
-        print(f"{what} {name} ({r['shape']}): before {old:.5f} ms, now "
-              f"{r['ms']:.5f} ms ({r['ms'] / old:.3f}x), bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {lib} ms",
-              flush=True)
+        ratio = "" if old is None else f" ({r['ms'] / old:.3f}x)"
+        before = "n/a" if old is None else f"{old:.5f} ms"
+        print(f"{what} {name} ({r['shape']}): before {before}, now "
+              f"{r['ms']:.5f} ms{ratio}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), library {lib} ms", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

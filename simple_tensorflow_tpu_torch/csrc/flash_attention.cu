@@ -1,33 +1,35 @@
 // FlashAttention-2 forward and backward over (B*H, S, D): the port of the TPU
 // kernels simple_tensorflow_tpu/ops/pallas/flash_attention.py:_fwd_kernel
 // (:102, called at :180), _bwd_dkdv_kernel (:210, called at :352) and
-// _bwd_dq_kernel (:264, called at :383), with their dropout branch.
+// _bwd_dq_kernel (:264, called at :383), with their dropout branch, and the
+// C entry points of all flash kernels. bf16 runs on tensor cores: the
+// forward in flash_fwd_mma.cu, dK/dV and dQ in flash_bwd_mma.cu. The
+// CUDA-core kernels here run f32: TF32 tensor cores would fail the f32
+// training check's limits (1e-5 on the loss, 1e-4 on the gradients).
 //
 // What they compute, per head bh (bias row b = bh / H):
 //   s = (q . k) * sm_scale (+ bias[b, key]), then NEG_INF where key >= kv_len
 //   or (causal) key > query — the bias is added BEFORE the mask;
-//   forward: online softmax over k-tiles (m, l, acc), p cast to the input
-//   dtype before P.V, o = acc / l and lse = m + log(l) with l == 0 -> 1;
-//   dkdv: p = exp(s - lse), dP = dO . V^T, dV += p(cast) ^T . dO,
-//   dS = (p * (dP - delta) * sm_scale)(cast), dK += dS^T . Q;
+//   forward: online softmax over k-tiles (m, l, acc), o = acc / l and
+//   lse = m + log(l) with l == 0 -> 1;
+//   dkdv: p = exp(s - lse), dP = dO . V^T, dV += p^T . dO,
+//   dS = p * (dP - delta) * sm_scale, dK += dS^T . Q;
 //   dq: the same p and dS, dQ += dS . K.
 // Dropout (rate > 0), in the TPU kernels' order: keep = K0 (common.cuh
 // counter_keep) of (seed, salt = bh, GLOBAL query row, GLOBAL key column),
 // so the 64 x 64 tiles here draw the mask the TPU's 128 x 128 blocks draw,
 // and the backward regenerates it; inv = f32(1 / keep_prob).
 //   forward: l sums the UNDROPPED p; only the p stored for P.V is
-//   keep ? p * inv : 0 (then cast);
-//   backward: dV takes keep ? p * inv : 0 (cast), dP becomes keep ? dP * inv
-//   : 0, and dS = p_undropped * (dP - delta) * scale, delta = rowsum(dO . O)
-//   of the dropped O.
-// All products take the inputs widened to f32 and sum in f32 (the TPU's
-// preferred_element_type=f32 / Precision.HIGHEST); the casts to the input
-// dtype sit where the TPU kernels put them.
+//   keep ? p * inv : 0;
+//   backward: dV takes keep ? p * inv : 0, dP becomes keep ? dP * inv : 0,
+//   and dS = p_undropped * (dP - delta) * scale, delta = rowsum(dO . O) of
+//   the dropped O.
+// All sums are f32 (the TPU's preferred_element_type=f32 /
+// Precision.HIGHEST).
 //
 // What bounds them on the card: operations. At the training shape (S=256,
-// D=64, causal) a head's Q, K, V are 96 KB in bf16 and take 8.6 MFLOP in the
-// forward: ~90 flops a byte, below the 295 of the bf16 tensor cores but far
-// above the ~20 of f32 CUDA cores, which these first kernels use. The
+// D=64, causal) a head's Q, K, V are 192 KB in f32 and take 8.6 MFLOP in
+// the forward: ~45 flops a byte, above the ~20 of f32 CUDA cores. The
 // TPU walked k-blocks as a sequential grid axis with (m, l, acc) in VMEM;
 // CUDA blocks run in no order, so here the sequential axis is a loop in
 // the block:
@@ -41,11 +43,6 @@
 // patch of the 64 x 64 score tile and a 4 x (D/16) patch of the output
 // tile. Ragged S is masked in the kernel (rows past S load zeros and are
 // never stored), so nothing is padded in device memory.
-// The bf16 forward runs on tensor cores in flash_fwd_mma.cu; the f32
-// forward and both backward kernels (f32 and bf16) are the CUDA-core
-// kernels here. Tensor cores for the backward are later work.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace stf {
@@ -58,6 +55,16 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                uint32_t seed, uint32_t threshold,
                                float inv_keep, cudaStream_t s);
 
+// flash_bwd_mma.cu: the bf16 dK/dV (dkdv != 0) or dQ on tensor cores
+cudaError_t flash_bwd_bf16_mma(int dkdv, const void* q, const void* k,
+                               const void* v, const void* dout,
+                               const float* lse, const float* delta,
+                               const float* bias, void* dq, void* dk,
+                               void* dv, int BH, int q_len, int kv_len, int H,
+                               int D, float scale, int causal, int dropout,
+                               uint32_t seed, uint32_t threshold,
+                               float inv_keep, cudaStream_t s);
+
 namespace {
 
 constexpr int kFaThreads = 256;
@@ -65,22 +72,17 @@ constexpr int kBq = 64;  // query rows per tile
 constexpr int kBk = 64;  // key rows per tile
 constexpr int kPs = kBk + 1;  // padded stride of a (query, key) tile
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// Stage rows [row0, row0 + 64) of a (rows, D) slice as f32 with stride DP;
-// rows past `limit` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
+// Stage rows [row0, row0 + 64) of a (rows, D) slice with stride DP; rows
+// past `limit` are zero.
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int limit) {
   constexpr int DP = D + 1;
   for (int i = threadIdx.x; i < kBq * D; i += kFaThreads) {
     const int r = i / D, d = i - r * D;
     const int g = row0 + r;
     dst[r * DP + d] =
-        g < limit ? to_f32(src[static_cast<long long>(g) * D + d]) : 0.0f;
+        g < limit ? src[static_cast<long long>(g) * D + d] : 0.0f;
   }
 }
 
@@ -129,7 +131,7 @@ __device__ __forceinline__ float row16_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 forward (bf16 runs flash_fwd_mma.cu): grid (q tiles, B*H)
+// forward: grid (q tiles, B*H)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -137,11 +139,12 @@ constexpr size_t fwd_smem_floats() {
   return 2 * kBq * (D + 1) + kBk * D + kBq * kPs;  // q, k | v | p
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFaThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ o, float* __restrict__ lse, int q_len,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ o,
+                     float* __restrict__ lse, int q_len,
                      int kv_len, int H, float scale, int causal, int dropout,
                      uint32_t seed, uint32_t threshold, float inv_keep) {
   constexpr int DP = D + 1;
@@ -155,15 +158,15 @@ __global__ void __launch_bounds__(kFaThreads)
   const int qi = blockIdx.x, bh = blockIdx.y;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = qi * kBq;
-  const T* qb = q + static_cast<long long>(bh) * q_len * D;
-  const T* kb = k + static_cast<long long>(bh) * kv_len * D;
-  const T* vb = v + static_cast<long long>(bh) * kv_len * D;
+  const float* qb = q + static_cast<long long>(bh) * q_len * D;
+  const float* kb = k + static_cast<long long>(bh) * kv_len * D;
+  const float* vb = v + static_cast<long long>(bh) * kv_len * D;
   const float* bb =
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
   const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
-  stage<T, D>(q_sh, qb, q0, q_len);
+  stage<D>(q_sh, qb, q0, q_len);
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -178,11 +181,11 @@ __global__ void __launch_bounds__(kFaThreads)
   for (int kt = 0; kt < n_kb; ++kt) {
     const int k0 = kt * kBk;
     __syncthreads();  // the previous tile's k, v, p are consumed
-    stage<T, D>(k_sh, kb, k0, kv_len);
+    stage<D>(k_sh, kb, k0, kv_len);
     for (int i = threadIdx.x; i < kBk * D; i += kFaThreads) {
       const int r = i / D, d = i - r * D;
       v_sh[i] = k0 + r < kv_len
-                    ? to_f32(vb[static_cast<long long>(k0 + r) * D + d])
+                    ? vb[static_cast<long long>(k0 + r) * D + d]
                     : 0.0f;
     }
     __syncthreads();
@@ -211,7 +214,7 @@ __global__ void __launch_bounds__(kFaThreads)
           pv = counter_keep(h0, qg, k0 + c, threshold)
                    ? __fmul_rn(p, inv_keep)
                    : 0.0f;
-        p_sh[(ty * 4 + i) * kPs + c] = round_to<T>(pv);
+        p_sh[(ty * 4 + i) * kPs + c] = pv;
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = alpha * l[i] + row16_sum(sum);
@@ -235,7 +238,7 @@ __global__ void __launch_bounds__(kFaThreads)
     }
   }
 
-  T* ob = o + static_cast<long long>(bh) * q_len * D;
+  float* ob = o + static_cast<long long>(bh) * q_len * D;
   float* lb = lse + static_cast<long long>(bh) * q_len;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -245,7 +248,7 @@ __global__ void __launch_bounds__(kFaThreads)
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       ob[static_cast<long long>(qg) * D + tx + 16 * j] =
-          from_f32<T>(acc[i][j] / l_safe);
+          acc[i][j] / l_safe;
     if (tx == 0) lb[qg] = m[i] + logf(l_safe);
   }
 }
@@ -255,10 +258,10 @@ __global__ void __launch_bounds__(kFaThreads)
 // ---------------------------------------------------------------------------
 
 // Computes, for the thread's 4 x 4 patch, p = exp(s - lse) and
-// dS = p * (dP - delta) * scale, and stores dS (cast to T) into ds_sh and,
-// when p_sh is given, p (cast to T) into p_sh. With dropout, dP and the
+// dS = p * (dP - delta) * scale, and stores dS into ds_sh and, when p_sh is
+// given, p into p_sh. With dropout, dP and the
 // stored p are the dropped ones (h0 = keep_hash0(seed, bh)).
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void tile_p_ds(
     const float* q_sh, const float* k_sh, const float* v_sh,
     const float* do_sh, const float* lse_sh, const float* delta_sh,
@@ -283,8 +286,8 @@ __device__ __forceinline__ void tile_p_ds(
         pc = keep ? __fmul_rn(p, inv_keep) : 0.0f;
         dpv = keep ? __fmul_rn(dpv, inv_keep) : 0.0f;
       }
-      if (p_sh != nullptr) p_sh[r * kPs + c] = round_to<T>(pc);
-      ds_sh[r * kPs + c] = round_to<T>(p * (dpv - delta_sh[r]) * scale);
+      if (p_sh != nullptr) p_sh[r * kPs + c] = pc;
+      ds_sh[r * kPs + c] = p * (dpv - delta_sh[r]) * scale;
     }
   }
 }
@@ -298,14 +301,17 @@ constexpr size_t dkdv_smem_floats() {
   return 4 * kBq * (D + 1) + 2 * kBq * kPs + 2 * kBq;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFaThreads)
-    flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const float* __restrict__ bias, T* __restrict__ dk,
-                      T* __restrict__ dv, int q_len, int kv_len, int H,
+                      const float* __restrict__ bias,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      int q_len, int kv_len, int H,
                       float scale, int causal, int dropout, uint32_t seed,
                       uint32_t threshold, float inv_keep) {
   constexpr int DP = D + 1;
@@ -330,8 +336,8 @@ __global__ void __launch_bounds__(kFaThreads)
                       : nullptr;
 
   const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
-  stage<T, D>(k_sh, k + ko * D, k0, kv_len);
-  stage<T, D>(v_sh, v + ko * D, k0, kv_len);
+  stage<D>(k_sh, k + ko * D, k0, kv_len);
+  stage<D>(v_sh, v + ko * D, k0, kv_len);
   float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -344,15 +350,15 @@ __global__ void __launch_bounds__(kFaThreads)
   for (int qt = qb0; qt < n_qb; ++qt) {
     const int q0 = qt * kBq;
     __syncthreads();  // the previous tile's q, dO, p, dS are consumed
-    stage<T, D>(q_sh, q + qo * D, q0, q_len);
-    stage<T, D>(do_sh, dout + qo * D, q0, q_len);
+    stage<D>(q_sh, q + qo * D, q0, q_len);
+    stage<D>(do_sh, dout + qo * D, q0, q_len);
     for (int r = threadIdx.x; r < kBq; r += kFaThreads) {
       const bool in = q0 + r < q_len;
       lse_sh[r] = in ? lse[qo + q0 + r] : 0.0f;
       delta_sh[r] = in ? delta[qo + q0 + r] : 0.0f;
     }
     __syncthreads();
-    tile_p_ds<T, D>(q_sh, k_sh, v_sh, do_sh, lse_sh, delta_sh, p_sh, ds_sh,
+    tile_p_ds<D>(q_sh, k_sh, v_sh, do_sh, lse_sh, delta_sh, p_sh, ds_sh,
                     bb, q0, k0, q_len, kv_len, scale, causal, dropout, h0,
                     threshold, inv_keep, ty, tx);
     __syncthreads();
@@ -387,8 +393,8 @@ __global__ void __launch_bounds__(kFaThreads)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const long long off = (ko + kg) * D + tx + 16 * j;
-      dk[off] = from_f32<T>(dk_acc[i][j]);
-      dv[off] = from_f32<T>(dv_acc[i][j]);
+      dk[off] = dk_acc[i][j];
+      dv[off] = dv_acc[i][j];
     }
   }
 }
@@ -402,13 +408,14 @@ constexpr size_t dq_smem_floats() {
   return 4 * kBq * (D + 1) + kBq * kPs + 2 * kBq;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFaThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const float* __restrict__ bias, T* __restrict__ dq,
+                    const float* __restrict__ bias, float* __restrict__ dq,
                     int q_len, int kv_len, int H, float scale, int causal,
                     int dropout, uint32_t seed, uint32_t threshold,
                     float inv_keep) {
@@ -433,8 +440,8 @@ __global__ void __launch_bounds__(kFaThreads)
                       : nullptr;
 
   const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
-  stage<T, D>(q_sh, q + qo * D, q0, q_len);
-  stage<T, D>(do_sh, dout + qo * D, q0, q_len);
+  stage<D>(q_sh, q + qo * D, q0, q_len);
+  stage<D>(do_sh, dout + qo * D, q0, q_len);
   for (int r = threadIdx.x; r < kBq; r += kFaThreads) {
     const bool in = q0 + r < q_len;
     lse_sh[r] = in ? lse[qo + q0 + r] : 0.0f;
@@ -451,10 +458,10 @@ __global__ void __launch_bounds__(kFaThreads)
   for (int kt = 0; kt < n_kb; ++kt) {
     const int k0 = kt * kBk;
     __syncthreads();  // the previous tile's k, v, dS are consumed
-    stage<T, D>(k_sh, k + ko * D, k0, kv_len);
-    stage<T, D>(v_sh, v + ko * D, k0, kv_len);
+    stage<D>(k_sh, k + ko * D, k0, kv_len);
+    stage<D>(v_sh, v + ko * D, k0, kv_len);
     __syncthreads();
-    tile_p_ds<T, D>(q_sh, k_sh, v_sh, do_sh, lse_sh, delta_sh, nullptr,
+    tile_p_ds<D>(q_sh, k_sh, v_sh, do_sh, lse_sh, delta_sh, nullptr,
                     ds_sh, bb, q0, k0, q_len, kv_len, scale, causal, dropout,
                     h0, threshold, inv_keep, ty, tx);
     __syncthreads();
@@ -478,7 +485,7 @@ __global__ void __launch_bounds__(kFaThreads)
     if (qg >= q_len) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dq[(qo + qg) * D + tx + 16 * j] = from_f32<T>(acc[i][j]);
+      dq[(qo + qg) * D + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -507,47 +514,47 @@ struct FaArgs {
   cudaStream_t s;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t run_fwd(const FaArgs& a) {
   const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(cdiv(a.q_len, kBq), a.BH), kFaThreads, smem, a.s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.bias, static_cast<T*>(a.o),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.bias, static_cast<float*>(a.o),
       static_cast<float*>(a.lse), a.q_len, a.kv_len, a.H, a.scale, a.causal,
       a.dropout, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t run_dkdv(const FaArgs& a) {
   const size_t smem = dkdv_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_dkdv_kernel<T, D>;
+  auto kernel = flash_dkdv_kernel<D>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(cdiv(a.kv_len, kBk), a.BH), kFaThreads, smem, a.s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse_in),
-      static_cast<const float*>(a.delta), a.bias, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.q_len, a.kv_len, a.H, a.scale, a.causal,
+      static_cast<const float*>(a.delta), a.bias, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.q_len, a.kv_len, a.H, a.scale, a.causal,
       a.dropout, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t run_dq(const FaArgs& a) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_dq_kernel<T, D>;
+  auto kernel = flash_dq_kernel<D>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(cdiv(a.q_len, kBq), a.BH), kFaThreads, smem, a.s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse_in),
-      static_cast<const float*>(a.delta), a.bias, static_cast<T*>(a.dq),
+      static_cast<const float*>(a.delta), a.bias, static_cast<float*>(a.dq),
       a.q_len, a.kv_len, a.H, a.scale, a.causal, a.dropout, a.seed,
       a.threshold, a.inv_keep);
   return cudaGetLastError();
@@ -555,40 +562,40 @@ cudaError_t run_dq(const FaArgs& a) {
 
 enum FaWhich { kFwd = 0, kDkdv = 1, kDq = 2 };
 
-template <typename T, int D>
-cudaError_t run(int which, const FaArgs& a) {
-  if (which == kFwd) {
-    // bf16 on tensor cores, f32 on the CUDA-core kernel above
-    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+template <int D>
+cudaError_t run_f32(int which, const FaArgs& a) {
+  if (which == kFwd) return run_fwd<D>(a);
+  if (which == kDkdv) return run_dkdv<D>(a);
+  return run_dq<D>(a);
+}
+
+// bf16 on tensor cores (flash_fwd_mma.cu, flash_bwd_mma.cu: each checks
+// D), f32 on the CUDA-core kernels above
+int dispatch(int which, int dtype, int D, const FaArgs& a) {
+  if (a.BH <= 0 || a.q_len <= 0) return cudaSuccess;
+  if (a.kv_len <= 0) return cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    if (which == kFwd)
       return flash_fwd_bf16_mma(a.q, a.k, a.v, a.bias, a.o,
                                 static_cast<float*>(a.lse), a.BH, a.q_len,
                                 a.kv_len, a.H, D, a.scale, a.causal,
                                 a.dropout, a.seed, a.threshold, a.inv_keep,
                                 a.s);
-    else
-      return run_fwd<T, D>(a);
+    return flash_bwd_bf16_mma(
+        which == kDkdv, a.q, a.k, a.v, a.dout,
+        static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.delta), a.bias, a.dq, a.dk, a.dv, a.BH,
+        a.q_len, a.kv_len, a.H, D, a.scale, a.causal, a.dropout, a.seed,
+        a.threshold, a.inv_keep, a.s);
   }
-  if (which == kDkdv) return run_dkdv<T, D>(a);
-  return run_dq<T, D>(a);
-}
-
-template <typename T>
-cudaError_t by_dim(int which, int D, const FaArgs& a) {
+  if (dtype != kF32) return cudaErrorInvalidValue;
   switch (D) {
-    case 16: return run<T, 16>(which, a);
-    case 32: return run<T, 32>(which, a);
-    case 64: return run<T, 64>(which, a);
-    case 128: return run<T, 128>(which, a);
+    case 16: return run_f32<16>(which, a);
+    case 32: return run_f32<32>(which, a);
+    case 64: return run_f32<64>(which, a);
+    case 128: return run_f32<128>(which, a);
     default: return cudaErrorInvalidValue;
   }
-}
-
-int dispatch(int which, int dtype, int D, const FaArgs& a) {
-  if (a.BH <= 0 || a.q_len <= 0) return cudaSuccess;
-  if (a.kv_len <= 0) return cudaErrorInvalidValue;
-  if (dtype == kF32) return by_dim<float>(which, D, a);
-  if (dtype == kBF16) return by_dim<__nv_bfloat16>(which, D, a);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -23,10 +23,11 @@ The kernel-level functions work on ``(B*H, S, D)``-contiguous tensors:
 ``flash_attention_fwd`` -> ``(o, lse)``, ``flash_attention_dkdv`` ->
 ``(dk, dv)``, ``flash_attention_dq`` -> ``dq``, each beside its
 ``*_plain`` version. ``delta = rowsum(dO * O)`` (minus the lse cotangent)
-is plain PyTorch, as it sits outside Pallas in JAX. The bf16 forward runs
-on tensor cores (``csrc/flash_fwd_mma.cu``); the f32 forward and the
-backward kernels run on CUDA cores. The source notes of the two files say
-what bounds each kernel and what its design does about it.
+is plain PyTorch, as it sits outside Pallas in JAX. bf16 runs on tensor
+cores: the forward in ``csrc/flash_fwd_mma.cu``, dK/dV and dQ in
+``csrc/flash_bwd_mma.cu``; f32 runs the CUDA-core kernels of
+``csrc/flash_attention.cu``. The source notes of the three files say what
+bounds each kernel and what its design does about it.
 """
 
 from __future__ import annotations
@@ -72,6 +73,39 @@ def keep_mask_plain(bh, sq, sk, dropout_rate, dropout_seed, device):
     return counter_keep_mask_plain(
         seed_word(dropout_seed), idx[0][:, None, None], idx[1][None, :, None],
         idx[2][None, None, :], 1.0 - dropout_rate)
+
+
+def keep_mask_readoff(bwd, bh, s, d, dtype, device):
+    """The dropout masks a backward applied, read off its outputs: ``(from
+    dV, from dK, from dQ)``, each ``(bh, s, s)`` bool over (query, key),
+    True where the pair was live and kept. ``bwd(q, k, v, dout, lse,
+    delta)`` returns ``(dk, dv, dq)`` for ``(bh, s, d)`` inputs (causal or
+    not, dropout on, ``d`` the head dim). With lse = delta = 0 and a zero
+    q (dV, dQ) or k (dK) every live p is 1; per block of ``d`` rows:
+    dO one-hot over the block's queries makes ``dV[key, i]`` the dropped
+    p of (query blk*d + i, key); with every row of dO and V e0 (dP = 1), Q
+    one-hot over the block makes ``dK[key, i]`` the dS of (blk*d + i,
+    key) and K one-hot over the block's keys makes ``dQ[query, i]`` the
+    dS of (query, blk*d + i). So each nonzero element is one live, kept
+    pair."""
+    zeros = torch.zeros((bh, s, d), dtype=dtype, device=device)
+    e0 = zeros.clone()
+    e0[..., 0] = 1
+    stats = torch.zeros((bh, s), dtype=torch.float32, device=device)
+    parts = ([], [], [])
+    for blk in range(-(-s // d)):
+        rows = torch.arange(s, device=device)[:, None] - blk * d
+        onehot = (rows == torch.arange(d, device=device)[None, :]).to(
+            dtype).expand(bh, s, d).contiguous()
+        dv = bwd(zeros, e0, e0, onehot, stats, stats)[1]
+        dk = bwd(onehot, zeros, e0, e0, stats, stats)[0]
+        dq = bwd(zeros, onehot, e0, e0, stats, stats)[2]
+        parts[0].append(dv.transpose(1, 2) != 0)
+        parts[1].append(dk.transpose(1, 2) != 0)
+        parts[2].append(dq != 0)
+    return (torch.cat(parts[0], dim=1)[:, :s],
+            torch.cat(parts[1], dim=1)[:, :s],
+            torch.cat(parts[2], dim=2)[:, :, :s])
 
 
 def flash_attention_fwd_plain(q, k, v, *, heads, sm_scale, causal,

@@ -344,9 +344,108 @@ def test_flash_fwd_dtype_picks_its_kernel_on_card(cuda):
         ro, rlse = K.flash_attention_fwd_plain(q, k, v, heads=4,
                                                sm_scale=0.125, causal=True)
         _close(o, ro, 1e-5 if dtype == torch.float32 else 2e-2)
-    assert any("flash_fwd_kernel<float" in n for n in names[torch.float32])
+    assert any("flash_fwd_kernel<" in n for n in names[torch.float32])
     assert not any("mma" in n for n in names[torch.float32])
     assert any("flash_fwd_mma_kernel" in n for n in names[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,biased", [
+    (77, 77, True, False), (130, 130, True, True), (100, 171, False, True)])
+def test_flash_bwd_bf16_tensor_core_kernels_on_card(cuda, rate, d, sq, sk,
+                                                    causal, biased):
+    # the bf16 dK/dV and dQ on tensor cores at every head_dim the wrapper
+    # takes, ragged S (no multiple of the 64-row tile), q_len != kv_len, a
+    # key bias, without and with dropout
+    h = 4
+    q, k, v, do, bias = _flash_inputs(cuda, torch.bfloat16, 34, 2, h, sq, sk,
+                                      d, biased)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    if rate:
+        args.update(dropout_rate=rate, dropout_seed=424242)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do.float() * ro.float()).sum(-1)
+    before = K.launch_counts()
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+    torch.cuda.synchronize()
+    for out, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(out, ref, 2e-2)
+    after = K.launch_counts()
+    for name in ("flash_attention_dkdv", "flash_attention_dq"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dtype_picks_its_kernel_on_card(cuda):
+    # bf16 runs the tensor-core dK/dV and dQ kernels, f32 keeps the
+    # CUDA-core kernels (its 1e-4 limit rules out TF32); read from the
+    # kernels' names in a trace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = dict(heads=4, sm_scale=0.125, causal=True)
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, _ = _flash_inputs(cuda, dtype, 35, 2, 4, 96, 96, 64,
+                                       False)
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+        delta = (do.float() * ro.float()).sum(-1)
+
+        def run():
+            dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+            return dk, dv, K.flash_attention_dq(q, k, v, do, rlse, delta,
+                                                **args)
+
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs = run()
+            torch.cuda.synchronize()
+        names[dtype] = [e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA]
+        rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta,
+                                                **args)
+        rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+        for out, ref in zip(outs, (rdk, rdv, rdq)):
+            _close(out, ref, 1e-4 if dtype == torch.float32 else 2e-2)
+    f32, bf16 = names[torch.float32], names[torch.bfloat16]
+    assert any("flash_dkdv_kernel<" in n for n in f32)
+    assert any("flash_dq_kernel<" in n for n in f32)
+    assert not any("mma" in n for n in f32)
+    assert any("flash_bwd_dkdv_mma_kernel" in n for n in bf16)
+    assert any("flash_bwd_dq_mma_kernel" in n for n in bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,causal", [(128, True), (100, True),
+                                      (192, False)])
+def test_flash_bwd_bf16_dropout_mask_on_card(cuda, s, causal):
+    # the tensor-core backward's dropout mask is K0's, bit for bit, read
+    # off each of dV, dK and dQ (keep_mask_readoff): 0 mismatches; the mask
+    # of the next seed differs (a planted fault)
+    bh, seed, d = 6, 424242, 64
+    args = dict(heads=1, sm_scale=0.125, causal=causal, dropout_rate=0.1,
+                dropout_seed=seed)
+
+    def bwd(q, k, v, do, lse, delta):
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta, **args)
+        return dk, dv, K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+
+    fa = _kernel_module("flash_attention")
+    live = torch.ones(s, s, dtype=torch.bool, device=cuda)
+    if causal:
+        live = live.tril()
+    want = fa.keep_mask_plain(bh, s, s, 0.1, seed, cuda) & live
+    bad = fa.keep_mask_plain(bh, s, s, 0.1, seed + 1, cuda) & live
+    for got in fa.keep_mask_readoff(bwd, bh, s, d, torch.bfloat16, cuda):
+        torch.cuda.synchronize()
+        assert int((got != want).sum()) == 0
+        assert int((got != bad).sum()) > 0
 
 
 @pytest.mark.cuda

@@ -18,6 +18,9 @@ rounds each operation alike on both sides.
 - flash attention with ``dropout_rate=0.1`` against the JAX
   ``flash_attention`` (interpret mode) and ``attention_xla``: o within
   1e-5 and dq/dk/dv within 1e-4 (f32; the two sides sum in other orders);
+  the backward's mask read off dV, dK and dQ (``keep_mask_readoff``, the
+  construction the card's mask checks use) through the port's plain
+  backward and the Pallas backward: the K0 mask exactly;
 - ``nn_ops.dropout`` against the JAX ``Dropout`` lowering given the same
   key, f32 and bf16, values and gradients;
 - ``random_seed.fold_in_value`` against the JAX rule, and the step
@@ -50,6 +53,8 @@ pdr = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                               "dropout_residual")
 pdo = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                               "dropout")
+pfa = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "flash_attention")
 
 U32_EDGES = [0, 1, 2 ** 16 - 1, 2 ** 16, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 2,
              2 ** 32 - 1]
@@ -354,6 +359,42 @@ def test_flash_attention_dropout_kernel_functions_match_the_pallas_pieces():
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_mask_readoff_gives_the_k0_mask(causal):
+    """``keep_mask_readoff`` (how the card's tests and chip_smoke.py read
+    the bf16 backward's mask) through the port's plain dK/dV/dQ and the
+    Pallas backward kernels: each of dV, dK and dQ gives the K0 mask of
+    the live pairs bit for bit, and not the mask of the next seed."""
+    bh, s, d, heads, rate, seed = 4, 24, 8, 2, 0.1, 2024
+    scale = d ** -0.5
+    args = dict(heads=heads, sm_scale=scale, causal=causal,
+                dropout_rate=rate, dropout_seed=seed)
+
+    def port(q, k, v, do, lse, delta):
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta, **args)
+        return dk, dv, K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+
+    def pallas(q, k, v, do, lse, delta):
+        jq, jk, jv, jdo, jlse, jdelta = (jnp.asarray(t.numpy())
+                                         for t in (q, k, v, do, lse, delta))
+        jdq, jdk, jdv = jfa._bwd_with_delta(
+            scale, causal, 8, 8, s, rate, heads,
+            (jq, jk, jv, None, jnp.asarray([seed], jnp.int32),
+             jlse[..., None]), jdo, jdelta[..., None])[:3]
+        return tuple(torch.tensor(_np(x)) for x in (jdk, jdv, jdq))
+
+    live = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    want = pfa.keep_mask_plain(bh, s, s, rate, seed, "cpu") & live
+    bad = pfa.keep_mask_plain(bh, s, s, rate, seed + 1, "cpu") & live
+    for bwd in (port, pallas):
+        for got in pfa.keep_mask_readoff(bwd, bh, s, d, torch.float32,
+                                         "cpu"):
+            assert int((got != want).sum()) == 0
+            assert int((got != bad).sum()) > 0
 
 
 # ---------------------------------------------------------------------------

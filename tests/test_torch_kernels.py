@@ -328,7 +328,7 @@ def test_build_key_covers_every_source_and_the_flags():
     assert {"decode_attention.cu", "layer_norm.cu", "quant_matmul.cu",
             "flash_attention.cu", "softmax_xent.cu", "fused_update.cu",
             "dropout_residual.cu", "dropout.cu", "flash_fwd_mma.cu",
-            "common.cuh"} <= set(srcs)
+            "flash_bwd_mma.cu", "common.cuh", "mma.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16
