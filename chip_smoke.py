@@ -38,11 +38,17 @@ NVIDIA GPU and check every kernel of its serving and training paths
    also read off its output (q = 0, v one-hot) at the training shape, and
    the bf16 backward's off each of dV, dK and dQ (``keep_mask_readoff``):
    0 mismatches with the plain mask, and the next seed's mask must differ.
-   The registers and spills ``ptxas`` reports for the tensor-core backward
-   kernels are printed after the build. The redesigned kernels (the bf16
-   flash dK/dV and dQ) and those that must hold their times get one line
-   each at the end: the time before the redesign (``EARLIER_MS``), this
-   run's, the bound and the library call's.
+   QuantMatMul runs on a K-major weight at m = 1, 4, 16 and 32 (a
+   row-major weight must be refused);
+   the LayerNorm backward on both of its paths (the vector path at n =
+   1024, the general one at n = 1000 and forced at 1024), its dgamma and
+   dbeta bitwise equal over two runs. The registers and spills ``ptxas``
+   reports for the tensor-core backward kernels, QuantMatMul and the
+   LayerNorm backward are printed after the build. The redesigned kernels
+   (QuantMatMul, the LayerNorm backward) and those that must hold their
+   times get one line each at the end: the time before the redesign
+   (``EARLIER_MS``), this run's, the bound and the library call's; the
+   LM training phase prints its device time a step beside the one before.
 3. Serving phase: ``GenerativeEngine`` over ``CausalLMGenerativeModel``
    at ``TransformerConfig.big()`` width (6 layers, d_model 1024, 16
    heads, vocab 32768) with seeded random weights, 12 requests of 17-96
@@ -137,21 +143,37 @@ INT32_OPS_PER_S = 67e12 / 2
 K0_OPS = 19
 THREEFRY_OPS = 76
 DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
-# times before the redesign of the bf16 flash backward (CUDA cores), and
-# of the kernels that must hold theirs within 5% (this script's runs on an
-# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6); None: a row without an
-# earlier time
-EARLIER_MS = {"flash_attention_dkdv": (0.28415, "redesigned"),
-          "flash_attention_dq": (0.23172, "redesigned"),
-          "flash_attention_dkdv_dropout": (0.28981, "redesigned"),
-          "flash_attention_dq_dropout": (0.23621, "redesigned"),
-          "flash_attention_fwd": (0.02961, "unchanged"),
-          "flash_attention_fwd_dropout": (0.03443, "unchanged"),
-          "decode_attention_block": (0.01415, "unchanged"),
-          "decode_attention": (0.07491, "unchanged"),
-          "flash_attention_fwd@f32": (0.16085, "unchanged"),
-          "flash_attention_dkdv@f32": (None, "unchanged"),
-          "flash_attention_dq@f32": (None, "unchanged")}
+# times before the redesign of QuantMatMul and the LayerNorm backward, and
+# of the kernels that must hold theirs within 5% (this script's run 5 of the
+# previous redesign on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
+EARLIER_MS = {"quant_matmul": (0.04530, "redesigned"),
+              "layer_norm_bwd": (0.05649, "redesigned"),
+              "flash_attention_dkdv": (0.03415, "unchanged"),
+              "flash_attention_dq": (0.02847, "unchanged"),
+              "flash_attention_dkdv_dropout": (0.04076, "unchanged"),
+              "flash_attention_dq_dropout": (0.03424, "unchanged"),
+              "flash_attention_fwd": (0.02985, "unchanged"),
+              "flash_attention_fwd_dropout": (0.03482, "unchanged"),
+              "flash_attention_fwd@f32": (0.16100, "unchanged"),
+              "flash_attention_dkdv@f32": (0.27891, "unchanged"),
+              "flash_attention_dq@f32": (0.22533, "unchanged"),
+              "decode_attention_block": (0.01417, "unchanged"),
+              "decode_attention": (0.07474, "unchanged"),
+              "layer_norm": (0.00254, "unchanged"),
+              "layer_norm@train": (0.01291, "unchanged"),
+              "softmax_xent_fwd": (0.15148, "unchanged"),
+              "softmax_xent_bwd": (0.20423, "unchanged"),
+              "softmax_xent_fwd@resnet": (0.00381, "unchanged"),
+              "softmax_xent_bwd@resnet": (0.00320, "unchanged"),
+              "adam_update": (0.70945, "unchanged"),
+              "momentum_update": (0.13886, "unchanged"),
+              "dropout_residual": (0.01559, "unchanged"),
+              "dropout_residual_bwd": (0.01409, "unchanged"),
+              "dropout": (0.07512, "unchanged"),
+              "dropout_bwd": (0.07572, "unchanged")}
+# LM training device ms a step at dropout 0.1 and 0 before this redesign
+# (the same run)
+EARLIER_TRAIN_DEVICE_MS = {0.1: 11.5156, 0.0: 10.2073}
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
@@ -436,15 +458,27 @@ def phase_layer_norm(K, rng, dev):
 
 def phase_quant_matmul(K, rng, dev):
     """Int8 QuantMatMul, the int8 logits head: x (m, 1024) f32 against
-    wq (1024, 32768) int8, m = decode buckets 1, 4, 16. Bit-exact."""
+    wq (1024, 32768) int8 in the K-major layout the kernel takes (strides
+    (1, k): the .t() of a contiguous (32768, 1024) tensor), m = decode
+    buckets 1, 4, 16 and 32 (where ``torch._int_mm`` runs the same rows).
+    Bit-exact; a row-major weight must be refused."""
     k, n = 1024, 32768
     main = {}
-    copies = [torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(
-        np.int8)).to(dev) for _ in range(n_copies(k * n))]
-    copies_cm = [w.t().contiguous().t() for w in copies]
+    copies = [torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(
+        np.int8)).to(dev).t() for _ in range(n_copies(k * n))]
     w_scale = torch.from_numpy(
         (rng.random_sample(n) * 0.01 + 1e-4).astype(np.float32)).to(dev)
-    for m in (1, 4, 16):
+    x = torch.from_numpy(rng.standard_normal((4, k))).to(dev, torch.float32)
+    try:
+        K.quant_matmul(x, copies[0].contiguous(), w_scale)
+    except ValueError as e:
+        if "K-major" not in str(e):
+            fail(f"quant_matmul: a row-major weight raised {e!r}")
+        print("  quant_matmul refuses a row-major (k, n) weight: "
+              f"{str(e)[:60]}...", flush=True)
+    else:
+        fail("quant_matmul: the kernel took a row-major weight")
+    for m in (1, 4, 16, 32):
         x = torch.from_numpy(rng.standard_normal((m, k))).to(
             dev, torch.float32)
         wq = copies[0]
@@ -463,19 +497,20 @@ def phase_quant_matmul(K, rng, dev):
                                                                w_scale)
                               for w in copies])
         # yardstick: torch._int_mm on the quantized rows (it takes more
-        # than 16 rows, so they are zero-padded to 32) and the same
-        # weights in the column-major layout cuBLASLt's int8 GEMM takes
+        # than 16 rows, so below 32 they are zero-padded to 32) and the
+        # same K-major weights, the layout cuBLASLt's int8 GEMM takes
         xq, _ = K.quantize_rowwise_plain(x)
-        xq32 = torch.zeros((32, k), dtype=torch.int8, device=dev)
+        xq32 = torch.zeros((max(m, 32), k), dtype=torch.int8, device=dev)
         xq32[:m] = xq
         lib_ms = device_ms([lambda w=w: torch._int_mm(xq32, w)
-                            for w in copies_cm])
+                            for w in copies])
         bnd = bound_ms(x.numel() * 4 + k * n + n * 4 + m * n * 4,
                        2 * m * k * n, torch.int8)
         report(name, err, ms, plain_ms, bnd, lib_ms)
         if m == 16:
             main["quant_matmul"] = kernel_row(err, ms, plain_ms, bnd,
                                               lib_ms, name)
+    del copies
     return main
 
 
@@ -930,10 +965,17 @@ def phase_dropout(K, gen, dev):
 
 
 def phase_layer_norm_bwd(K, gen, dev):
-    """LayerNorm backward at the training shape: rows 4096, n 1024."""
-    rows, n = TRAIN_B * TRAIN_S, 1024
+    """LayerNorm backward at the training shape, rows 4096, n 1024, bf16
+    and f32 (the vector path: a warp per row); then n = 1000 bf16, which
+    takes the general path, and the general path forced at n = 1024 for
+    the two designs side by side. dgamma and dbeta must be bitwise equal
+    over two runs."""
+    kln = importlib.import_module(KMOD + "layer_norm")
+    rows = TRAIN_B * TRAIN_S
     main = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    cases = ((torch.bfloat16, 1024, None), (torch.float32, 1024, None),
+             (torch.bfloat16, 1000, None), (torch.bfloat16, 1024, 0))
+    for dtype, n, force in cases:
         elem = elem_size(dtype)
         copies = [(torch.randn((rows, n), generator=gen, device=dev)
                    .mul(2).add(0.5).to(dtype),
@@ -945,17 +987,27 @@ def phase_layer_norm_bwd(K, gen, dev):
         stats = [K.layer_norm_plain(x, gamma, beta, return_stats=True)[1:]
                  for x, _ in copies]
         (x, dy), (mean, rstd) = copies[0], stats[0]
-        dx, dg, db = K.layer_norm_bwd(x, gamma, mean, rstd, dy)
+        nv = kln.bwd_vectors_per_lane(n, dtype, x, dy, gamma)
+        if force is not None:
+            nv = force
+
+        def bwd(c, st):
+            return kln.launch_bwd(c[0], gamma, st[0], st[1], c[1], nv)
+
+        path = f"vector path, {nv} vectors a lane" if nv else "general path"
+        dx, dg, db = bwd(copies[0], stats[0])
+        again = bwd(copies[0], stats[0])
         rdx, rdg, rdb = K.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
         torch.cuda.synchronize()
         name = f"layer_norm_bwd {str(dtype)[6:]} rows={rows} n={n}"
+        if not (torch.equal(dg, again[1]) and torch.equal(db, again[2])):
+            fail(f"{name}: dgamma/dbeta differ between two runs")
         err = max(check_scaled(f"{name} dx", dx, rdx,
                                1e-4 if dtype == torch.float32 else 2e-2),
                   check_scaled(f"{name} dgamma", dg, rdg, 1e-4),
                   check_scaled(f"{name} dbeta", db, rdb, 1e-4))
-        ms = device_ms([lambda c=c, st=st: K.layer_norm_bwd(
-            c[0], gamma, st[0], st[1], c[1])
-            for c, st in zip(copies, stats)])
+        ms = device_ms([lambda c=c, st=st: bwd(c, st)
+                        for c, st in zip(copies, stats)])
         plain_ms = device_ms([lambda c=c, st=st: K.layer_norm_bwd_plain(
             c[0], gamma, st[0], st[1], c[1])
             for c, st in zip(copies, stats)])
@@ -969,12 +1021,14 @@ def phase_layer_norm_bwd(K, gen, dev):
         # dbeta; ~12 flops an element
         bnd = bound_ms(3 * rows * n * elem + 12 * n + 8 * rows,
                        12 * rows * n, torch.float32)
-        report(name, err, ms, plain_ms, bnd, lib_ms)
-        if dtype == torch.bfloat16:
+        report(f"{name} ({path})", err, ms, plain_ms, bnd, lib_ms)
+        if dtype == torch.bfloat16 and n == 1024 and force is None:
             main["layer_norm_bwd"] = kernel_row(err, ms, plain_ms, bnd,
                                                 lib_ms, name)
+        del copies, stats
     print("  (layer_norm_bwd library: aten native_layer_norm_backward with "
-          "gamma/beta in the input dtype)", flush=True)
+          "gamma/beta in the input dtype; dgamma/dbeta bitwise equal over "
+          "two runs on every path)", flush=True)
     return main
 
 
@@ -1674,6 +1728,11 @@ def train_phase(K, cfg, params, dev, kernel_rows):
     if busy is not None and busy0 is not None:
         print(f"train[bf16]: dropout {cfg.dropout} adds {busy - busy0:.4f} "
               f"ms of device time a step", flush=True)
+        for rate, ms in ((cfg.dropout, busy), (0.0, busy0)):
+            old = EARLIER_TRAIN_DEVICE_MS[rate]
+            print(f"train[bf16]: device time a step at dropout {rate}: "
+                  f"{ms:.4f} ms, before the redesign {old:.4f} ms "
+                  f"({ms - old:+.4f} ms)", flush=True)
     return paths
 
 
@@ -1968,6 +2027,10 @@ def kernel_props(log, prefix):
             name = None
             if k:
                 targs = re.findall(r"L[ib](\d+)", k.group(2))
+                if "__nv_bfloat16" in k.group(2):
+                    targs.insert(0, "bf16")
+                elif k.group(2).startswith("f"):
+                    targs.insert(0, "f32")
                 name = f"{k.group(1)}<{', '.join(targs)}>"
             spill = None
         elif name and "spill" in ln:
@@ -1999,8 +2062,11 @@ def main():
     _build.library()
     print(f"kernels built from {SRC} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # the nvcc log of this build, or of the one that made the library
+    build_log = _build.build_log or (_build.BUILD_DIR / "build.log"
+                                     ).read_text()
     spills, entry = [], ""
-    for ln in _build.build_log.splitlines():
+    for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln.strip()
         elif "spill" in ln and "0 bytes spill stores, 0 bytes spill" \
@@ -2008,8 +2074,9 @@ def main():
             spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
-    for name, props in kernel_props(_build.build_log, "flash_bwd_"):
-        print(f"  ptxas {name}: {props}", flush=True)
+    for prefix in ("flash_bwd_", "qmm_", "layer_norm_bwd"):
+        for name, props in kernel_props(build_log, prefix):
+            print(f"  ptxas {name}: {props}", flush=True)
 
     rng = np.random.RandomState(0)
     print("kernel phases (times are per call, on the card):", flush=True)

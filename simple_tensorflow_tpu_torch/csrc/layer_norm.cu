@@ -17,17 +17,33 @@
 //
 // What bounds them on the card: bytes. Each element is read and written once
 // and takes about eight (forward) or twelve (backward) flops, far below the
-// H100's 295 flops per byte ridge. The design: one block of 256 threads per
-// row for the forward, three strided passes over the row (sum, centred
-// square sum, normalise); the second and third passes re-read the row from
-// L1/L2, not from HBM. The TPU backward summed dgamma/dbeta into ONE VMEM
-// tile across its sequential grid; CUDA blocks run in no order, so here each
-// block of the backward walks a run of rows, keeps its column partial sums
-// in shared memory (each thread owns the columns i = tid mod 256, so no
-// atomics), and writes them to a (blocks, n) workspace; a second kernel sums
-// the workspace over blocks in a fixed order. Both passes are deterministic.
-// Vectorised 16-byte loads and several rows per block for narrow rows are
-// later work.
+// H100's 295 flops per byte ridge.
+//
+// Forward: one block of 256 threads per row, three strided passes over the
+// row (sum, centred square sum, normalise); the second and third passes
+// re-read the row from L1/L2, not from HBM.
+//
+// Backward, vector path (n a multiple of 32 lanes x 16 bytes, at most 32
+// values a lane: n in {256, 512, 1024} bf16, {128, ..., 1024} f32, 16-byte
+// aligned pointers; the wrapper picks it): a warp per row. Lane l reads its
+// share of x and dO as 16-byte vectors, neighbouring lanes on neighbouring
+// chunks (bf16: columns 8 l + 256 j + e), and keeps them in registers across
+// both row sums and the dx pass, so x and dO are read from HBM once. Row
+// sums are warp shuffles (no block barrier per row); dx goes out as 16-byte
+// stores. Each lane accumulates its columns' dgamma/dbeta partials over the
+// warp's rows in its own slots of shared memory (64 partials a lane at n =
+// 1024 spill at the 128 registers that keep 16 warps an SM in flight); a
+// block of 8 warps walks 16 rows (two a warp: 256 blocks at 4096 rows, two
+// blocks an SM), then adds its warps' partials in warp order into one row of
+// the (2, blocks, n) workspace.
+// General path (any other n, or a misaligned view): a block of 256 threads
+// walks 32 rows, one element a thread a load, with two block reductions a
+// row and its column partials in shared memory. The TPU backward summed
+// dgamma/dbeta into ONE VMEM tile across its sequential grid; CUDA blocks
+// run in no order, so a second kernel sums the workspace over blocks in a
+// fixed order (8 warps over 32 columns a block, each warp a fixed stride of
+// blocks, then the warps in order). Both paths are deterministic: no float
+// atomics, the same bits on every run.
 #include "common.cuh"
 
 namespace stf {
@@ -118,44 +134,242 @@ __global__ void __launch_bounds__(kLnThreads)
   }
 }
 
-// dgamma[i] / dbeta[i] = the sum of the blocks' partials, in block order.
-__global__ void __launch_bounds__(kLnThreads)
+constexpr int kLnVecWarps = 8;
+constexpr int kLnVecThreads = 32 * kLnVecWarps;
+
+// 16 bytes of T as floats, and back (round to nearest even for bf16)
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x, f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
+// V consecutive f32 of gamma (16-byte aligned) from L1
+template <int V>
+__device__ __forceinline__ void load_gamma(const float* p, float (&g)[V]) {
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p) + i);
+    g[4 * i] = t.x, g[4 * i + 1] = t.y, g[4 * i + 2] = t.z,
+          g[4 * i + 3] = t.w;
+  }
+}
+
+// The vector path: n == 32 * NV * (16 / sizeof(T)). Rows [blockIdx.x * rpb,
+// ...) a warp each in turn; dx, and this block's column partial sums of
+// dO * xhat and dO into part (2, blocks, n). Each lane keeps its columns'
+// partials in its warp's region of shared memory, float4 q of lane l at
+// (q * 32 + l): lane-private (no barrier until the block adds its warps) and
+// lane-contiguous (no bank conflicts); registers hold only the row.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kLnVecThreads, 2)
+    layer_norm_bwd_vec_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ rstd,
+                              const T* __restrict__ dout, T* __restrict__ dx,
+                              float* __restrict__ part, int rows, int rpb) {
+  constexpr int V = 16 / sizeof(T);  // values in 16 bytes
+  constexpr int n = 32 * NV * V;
+  constexpr int Q = V / 4;           // float4 partials of one vector
+  extern __shared__ float4 sh4[];    // (2, warps, NV * Q, 32) float4
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* shg = sh4 + warp * (n / 4) + lane;
+  float4* shb = sh4 + (kLnVecWarps + warp) * (n / 4) + lane;
+#pragma unroll
+  for (int q = 0; q < NV * Q; ++q)
+    shg[32 * q] = shb[32 * q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  const int r1 = min(rows, static_cast<int>(blockIdx.x + 1) * rpb);
+  for (int r = blockIdx.x * rpb + warp; r < r1; r += kLnVecWarps) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x) +
+                      static_cast<long long>(r) * (n / V);
+    const uint4* gr = reinterpret_cast<const uint4*>(dout) +
+                      static_cast<long long>(r) * (n / V);
+    uint4 xv[NV], gv[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      xv[j] = __ldg(xr + lane + 32 * j);
+      gv[j] = __ldg(gr + lane + 32 * j);
+    }
+    const float mu = mean[r], rs = rstd[r];
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float xf[V], gf[V], gm[V];
+      unpack16(xv[j], xf);
+      unpack16(gv[j], gf);
+      load_gamma<V>(gamma + V * (lane + 32 * j), gm);
+#pragma unroll
+      for (int c = 0; c < Q; ++c) {
+        float4 pg = shg[32 * (j * Q + c)], pb = shb[32 * (j * Q + c)];
+        float* fg = reinterpret_cast<float*>(&pg);
+        float* fb = reinterpret_cast<float*>(&pb);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * c + i;
+          const float xhat = (xf[e] - mu) * rs;
+          const float wdo = gf[e] * gm[e];
+          s1 += wdo;
+          s2 += wdo * xhat;
+          fg[i] += gf[e] * xhat;
+          fb[i] += gf[e];
+        }
+        shg[32 * (j * Q + c)] = pg;
+        shb[32 * (j * Q + c)] = pb;
+      }
+    }
+    const float c1 = warp_sum(s1) / n;
+    const float c2 = warp_sum(s2) / n;
+    uint4* dr = reinterpret_cast<uint4*>(dx) +
+                static_cast<long long>(r) * (n / V);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float xf[V], gf[V], gm[V], o[V];
+      unpack16(xv[j], xf);
+      unpack16(gv[j], gf);
+      load_gamma<V>(gamma + V * (lane + 32 * j), gm);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xhat = (xf[e] - mu) * rs;
+        o[e] = (gf[e] * gm[e] - c1 - xhat * c2) * rs;
+      }
+      dr[lane + 32 * j] = pack16(o);
+    }
+  }
+
+  __syncthreads();
+  const float* sh = reinterpret_cast<const float*>(sh4);
+  float* pg = part + static_cast<long long>(blockIdx.x) * n;
+  float* pb = part + static_cast<long long>(gridDim.x + blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += kLnVecThreads) {
+    // column i = V (l + 32 j) + e sits in float4 j Q + e / 4 of lane l
+    const int v = i / V, e = i % V;
+    const int at = ((v / 32 * Q + e / 4) * 32 + v % 32) * 4 + e % 4;
+    float g = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kLnVecWarps; ++w) {
+      g += sh[w * n + at];
+      b += sh[(kLnVecWarps + w) * n + at];
+    }
+    pg[i] = g;
+    pb[i] = b;
+  }
+}
+
+// dgamma (blockIdx.y 0) or dbeta (1) of columns [32 blockIdx.x, +32): the
+// sum of the blocks' partials, warp w over blocks w, w + 8, ..., then the
+// warps in order.
+__global__ void __launch_bounds__(256)
     layer_norm_bwd_reduce_kernel(const float* __restrict__ part,
                                  float* __restrict__ dgamma,
                                  float* __restrict__ dbeta, int blocks,
                                  int n) {
-  const int i = blockIdx.x * kLnThreads + threadIdx.x;
-  if (i >= n) return;
-  float g = 0.0f, b = 0.0f;
-  for (int k = 0; k < blocks; ++k) {
-    g += part[static_cast<long long>(k) * n + i];
-    b += part[static_cast<long long>(blocks + k) * n + i];
+  __shared__ float red[8][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = blockIdx.x * 32 + lane;
+  const float* src =
+      part + static_cast<long long>(blockIdx.y) * blocks * n + col;
+  float s = 0.0f;
+  if (col < n)
+    for (int k = warp; k < blocks; k += 8)
+      s += src[static_cast<long long>(k) * n];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < n) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += red[w][lane];
+    (blockIdx.y == 0 ? dgamma : dbeta)[col] = t;
   }
-  dgamma[i] = g;
-  dbeta[i] = b;
 }
 
+template <typename T, int NV>
+cudaError_t launch_bwd_vec(const T* x, const float* gamma, const float* mean,
+                           const float* rstd, const T* dout, T* dx,
+                           float* part, int rows, int rpb, cudaStream_t s) {
+  constexpr int n = 32 * NV * (16 / sizeof(T));
+  constexpr int smem = 2 * kLnVecWarps * n * sizeof(float);
+  auto kernel = layer_norm_bwd_vec_kernel<T, NV>;
+  if (smem > 48 * 1024) {
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      attr_set = true;
+    }
+  }
+  kernel<<<cdiv(rows, rpb), kLnVecThreads, smem, s>>>(
+      x, gamma, mean, rstd, dout, dx, part, rows, rpb);
+  return cudaGetLastError();
+}
+
+// nv vectors of 16 bytes a lane: the vector path (n == 32 nv 16 /
+// sizeof(T)); 0: the general path
 template <typename T>
 cudaError_t run_bwd(const void* x, const float* gamma, const float* mean,
                     const float* rstd, const void* dout, void* dx,
                     float* part, float* dgamma, float* dbeta, int rows,
-                    int n, int rpb, cudaStream_t s) {
-  const int blocks = cdiv(rows, rpb);
-  const size_t smem = 2 * static_cast<size_t>(n) * sizeof(float);
-  auto kernel = layer_norm_bwd_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+                    int n, int rpb, int nv, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(dout);
+  T* dt = static_cast<T*>(dx);
+  cudaError_t e;
+  if (nv == 0) {
+    const size_t smem = 2 * static_cast<size_t>(n) * sizeof(float);
+    auto kernel = layer_norm_bwd_kernel<T>;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<cdiv(rows, rpb), kLnThreads, smem, s>>>(
+        xt, gamma, mean, rstd, gt, dt, part, rows, n, rpb);
+    e = cudaGetLastError();
+  } else if (n != 32 * nv * static_cast<int>(16 / sizeof(T))) {
+    return cudaErrorInvalidValue;
+  } else if (nv == 1) {
+    e = launch_bwd_vec<T, 1>(xt, gamma, mean, rstd, gt, dt, part, rows, rpb,
+                             s);
+  } else if (nv == 2) {
+    e = launch_bwd_vec<T, 2>(xt, gamma, mean, rstd, gt, dt, part, rows, rpb,
+                             s);
+  } else if (nv == 4) {
+    e = launch_bwd_vec<T, 4>(xt, gamma, mean, rstd, gt, dt, part, rows, rpb,
+                             s);
+  } else if (nv == 8) {
+    if constexpr (sizeof(T) == 4)  // 32 f32 a lane; bf16 stops at nv 4
+      e = launch_bwd_vec<T, 8>(xt, gamma, mean, rstd, gt, dt, part, rows,
+                               rpb, s);
+    else
+      return cudaErrorInvalidValue;
+  } else {
+    return cudaErrorInvalidValue;
   }
-  kernel<<<blocks, kLnThreads, smem, s>>>(
-      static_cast<const T*>(x), gamma, mean, rstd,
-      static_cast<const T*>(dout), static_cast<T*>(dx), part, rows, n, rpb);
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  layer_norm_bwd_reduce_kernel<<<cdiv(n, kLnThreads), kLnThreads, 0, s>>>(
-      part, dgamma, dbeta, blocks, n);
+  layer_norm_bwd_reduce_kernel<<<dim3(cdiv(n, 32), 2), 256, 0, s>>>(
+      part, dgamma, dbeta, cdiv(rows, rpb), n);
   return cudaGetLastError();
 }
 
@@ -190,16 +404,19 @@ extern "C" int stf_layer_norm_fwd(const void* x, const void* gamma,
 }
 
 // x, dout, dx (rows, n); gamma (n,) f32; mean, rstd (rows,) f32; part a
-// (2, cdiv(rows, rpb), n) f32 workspace; dgamma, dbeta (n,) f32.
+// (2, cdiv(rows, rpb), n) f32 workspace; dgamma, dbeta (n,) f32. nv > 0:
+// the vector path with nv 16-byte vectors a lane (n == 32 nv 16 / elem,
+// every pointer 16-byte aligned, nv in {1, 2, 4}, or 8 for f32); nv == 0:
+// the general path.
 extern "C" int stf_layer_norm_bwd(const void* x, const void* gamma,
                                   const void* mean, const void* rstd,
                                   const void* dout, void* dx, void* part,
                                   void* dgamma, void* dbeta, int rows, int n,
-                                  int rpb, int dtype, void* stream) {
+                                  int rpb, int nv, int dtype, void* stream) {
   using namespace stf;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0) return cudaSuccess;
-  if (rpb <= 0) return cudaErrorInvalidValue;
+  if (rpb <= 0 || nv < 0) return cudaErrorInvalidValue;
   const float* g = static_cast<const float*>(gamma);
   const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
@@ -207,9 +424,10 @@ extern "C" int stf_layer_norm_bwd(const void* x, const void* gamma,
   float* dg = static_cast<float*>(dgamma);
   float* db = static_cast<float*>(dbeta);
   if (dtype == kF32)
-    return run_bwd<float>(x, g, mu, rs, dout, dx, p, dg, db, rows, n, rpb, s);
+    return run_bwd<float>(x, g, mu, rs, dout, dx, p, dg, db, rows, n, rpb, nv,
+                          s);
   if (dtype == kBF16)
     return run_bwd<__nv_bfloat16>(x, g, mu, rs, dout, dx, p, dg, db, rows, n,
-                                  rpb, s);
+                                  rpb, nv, s);
   return cudaErrorInvalidValue;
 }

@@ -199,11 +199,13 @@ def build_int8_logits_weights(emb):
     ``emb (vocab, d)`` -> ``wq (d, vocab)`` int8 + ``scale (vocab,)``
     f32, with ``scale = max(amax, 1e-8) / 127`` and round half to even —
     exactly the JAX program (which differs from ``quantize_colwise``'s
-    ``amax == 0 -> 1``)."""
-    w = emb.float().t()
-    scale = div127(torch.clamp_min(w.abs().amax(dim=0), 1e-8))
-    wq = torch.round(w / scale[None, :]).to(torch.int8).contiguous()
-    return wq, scale.contiguous()
+    ``amax == 0 -> 1``). ``wq`` is K-major, strides ``(1, d)``: the
+    ``.t()`` of the contiguous ``(vocab, d)`` rows quantized against each
+    vocab entry's scale, the layout the QuantMatMul kernel reads."""
+    e = emb.float()
+    scale = div127(torch.clamp_min(e.abs().amax(dim=1), 1e-8))
+    wq_km = torch.round(e / scale[:, None]).to(torch.int8)
+    return wq_km.t(), scale.contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,10 @@ _DROP = [_I, _U, _U, _F]
 SIGNATURES = {
     "stf_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "stf_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _P],
+                           _I, _I, _P],
     "stf_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _I, _I, _I, _P],
-    "stf_quant_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "stf_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stf_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _I, *_DROP, _I, _P],
     "stf_flash_attention_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

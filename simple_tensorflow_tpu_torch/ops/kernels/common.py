@@ -134,15 +134,26 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
 
 
-def check_cuda_arg(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
-    """Validate a tensor before its pointer goes to a kernel."""
+def check_cuda_arg(name: str, t: torch.Tensor, dtypes, ndim: int,
+                   k_major: bool = False) -> None:
+    """Validate a tensor before its pointer goes to a kernel: contiguous,
+    or with ``k_major`` a ``(k, n)`` matrix with strides ``(1, k)``."""
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in "
                         f"{sorted(str(d) for d in dtypes)}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if k_major:
+        if not t.t().is_contiguous():
+            k = t.shape[0]
+            raise ValueError(
+                f"{name}: the kernel takes a K-major (k, n) = "
+                f"{tuple(t.shape)} matrix, strides (1, {k}); got strides "
+                f"{t.stride()}. Build it as w_km.t() from a contiguous "
+                f"(n, k) tensor (e.g. w.t().contiguous().t(), once, where "
+                f"the weight is made)")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

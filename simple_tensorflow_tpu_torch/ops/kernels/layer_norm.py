@@ -19,8 +19,13 @@ from .common import (DTYPE_CODES, cdiv, check_cuda_arg, check_status,
                      count_launch, uses_kernel)
 
 # rows of one backward block: its column partial sums are one row of the
-# (blocks, n) workspace the second pass reduces
+# (blocks, n) workspace the second pass reduces. The general path's block
+# of 256 threads walks 32 rows; the vector path's 8 warps walk 2 rows each
+# (256 blocks at the training shape's 4096 rows)
 BWD_ROWS_PER_BLOCK = 32
+BWD_VEC_ROWS_PER_BLOCK = 16
+# 16-byte vectors a lane the vector path holds: at most 32 values a lane
+BWD_VEC_NV = {torch.bfloat16: (1, 2, 4), torch.float32: (1, 2, 4, 8)}
 
 
 def layer_norm_plain(x, gamma, beta, *, eps=1e-6, return_stats=False):
@@ -95,11 +100,25 @@ def layer_norm_fwd(x, gamma, beta, *, eps=1e-6, return_stats=False):
     return y
 
 
+def bwd_vectors_per_lane(n, dtype, *tensors) -> int:
+    """Which backward kernel takes rows of ``n`` values of ``dtype``: the
+    vector path's 16-byte vectors a lane (a warp per row, ``n == 32 * nv *
+    16 / element size`` with ``nv`` in ``BWD_VEC_NV``, every tensor's data
+    16-byte aligned), or 0 for the general strided path."""
+    per_vec = 16 // (torch.finfo(dtype).bits // 8)
+    nv, rem = divmod(n, 32 * per_vec)
+    if rem or nv not in BWD_VEC_NV[dtype] or \
+            any(t.data_ptr() % 16 for t in tensors):
+        return 0
+    return nv
+
+
 def layer_norm_bwd(x, gamma, mean, rstd, dout):
     """The backward kernel: ``(dx, dgamma, dbeta)`` for ``x, dout (rows,
     n)`` and the forward's ``mean``/``rstd (rows,)``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (dx and the per-block
-    column partials, then the fixed-order reduction of the partials)."""
+    plain version; CUDA tensors launch the kernel of the path
+    :func:`bwd_vectors_per_lane` picks (dx and the per-block column
+    partials, then the fixed-order reduction of the partials)."""
     if not uses_kernel(x, gamma, mean, rstd, dout):
         return layer_norm_bwd_plain(x, gamma, mean, rstd, dout)
     check_cuda_arg("x", x, DTYPE_CODES, 2)
@@ -114,17 +133,24 @@ def layer_norm_bwd(x, gamma, mean, rstd, dout):
             f"layer_norm_bwd: x {tuple(x.shape)}, dout {tuple(dout.shape)}, "
             f"gamma {tuple(gamma.shape)}, mean {tuple(mean.shape)}, rstd "
             f"{tuple(rstd.shape)} do not agree")
+    return launch_bwd(x, gamma, mean, rstd, dout,
+                      bwd_vectors_per_lane(n, x.dtype, x, dout, gamma))
+
+
+def launch_bwd(x, gamma, mean, rstd, dout, nv):
+    """One backward on checked CUDA tensors: the vector path with ``nv``
+    vectors a lane, or the general path for ``nv == 0``."""
+    rows, n = x.shape
     dx = torch.empty_like(x)
     dg = torch.empty(n, dtype=torch.float32, device=x.device)
     db = torch.empty(n, dtype=torch.float32, device=x.device)
-    rpb = BWD_ROWS_PER_BLOCK
+    rpb = BWD_VEC_ROWS_PER_BLOCK if nv else BWD_ROWS_PER_BLOCK
     part = torch.empty((2, cdiv(rows, rpb), n), dtype=torch.float32,
                        device=x.device)
-    lib = _build.library()
-    status = lib.stf_layer_norm_bwd(
+    status = _build.library().stf_layer_norm_bwd(
         x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         dout.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
-        db.data_ptr(), rows, n, rpb, DTYPE_CODES[x.dtype],
+        db.data_ptr(), rows, n, rpb, nv, DTYPE_CODES[x.dtype],
         _build.stream_handle(x.device))
     check_status("layer_norm_bwd", status)
     count_launch("layer_norm_bwd")

@@ -1,5 +1,5 @@
-"""Int8 quantized matmul: the CUDA kernels ``csrc/quant_matmul.cu`` and
-their plain PyTorch version.
+"""Int8 quantized matmul: the CUDA kernel ``csrc/quant_matmul.cu`` and
+its plain PyTorch version.
 
 Replaces the TPU kernel ``simple_tensorflow_tpu/ops/pallas/quant_matmul.py:
 _qmm_kernel`` (:45) and its activation quantizer ``quantize_rowwise``
@@ -7,8 +7,12 @@ _qmm_kernel`` (:45) and its activation quantizer ``quantize_rowwise``
 on the fly, ``wq (k, n)`` int8 carries per-column scales ``w_scale (n,)``,
 the product accumulates in int32 and the epilogue is
 ``acc * (x_scale[m] * w_scale[n])``. Given identical inputs the kernel is
-bit-exact with the plain version. Bounded by the weight's bytes on the
-card; ``csrc/quant_matmul.cu`` says what its design does about it.
+bit-exact with the plain version. The kernel takes ``wq`` K-major (strides
+``(1, k)``: ``wq_km.t()`` of a contiguous ``(n, k)`` int8 tensor, as
+``models.transformer.build_int8_logits_weights`` builds it); the public
+function keeps the JAX package's logical ``(k, n)``. Bounded by the
+weight's bytes on the card; ``csrc/quant_matmul.cu`` says what its design
+does about it.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def quantize_rowwise_plain(x):
 
 
 def quant_matmul_plain(x, wq, w_scale):
-    """The kernels' function in PyTorch ops. The int8 product runs as a
+    """The kernel's function in PyTorch ops. The int8 product runs as a
     float64 matmul: every product and partial sum is an integer below
     2**53, so it is exact (PyTorch has no int32 matmul on CUDA)."""
     xq, xs = quantize_rowwise_plain(x)
@@ -52,11 +56,13 @@ def quant_matmul_plain(x, wq, w_scale):
 def quant_matmul(x, wq, w_scale):
     """``x (m, k) @ dequant(wq (k, n) int8, w_scale (n,) f32)`` with int8
     accumulation; output in x's dtype. CPU tensors take the plain
-    version; CUDA tensors launch the kernels."""
+    version (``wq`` in either layout); CUDA tensors launch the kernel,
+    which takes a K-major ``wq`` (strides ``(1, k)``) and raises on
+    another layout."""
     if not uses_kernel(x, wq, w_scale):
         return quant_matmul_plain(x, wq, w_scale)
     check_cuda_arg("x", x, DTYPE_CODES, 2)
-    check_cuda_arg("wq", wq, (torch.int8,), 2)
+    check_cuda_arg("wq", wq, (torch.int8,), 2, k_major=True)
     check_cuda_arg("w_scale", w_scale, (torch.float32,), 1)
     m, k = x.shape
     n = wq.shape[1]
@@ -66,15 +72,13 @@ def quant_matmul(x, wq, w_scale):
     if k % 4 or n % 4:
         raise ValueError(f"kernel takes k and n divisible by 4, got "
                          f"k={k}, n={n}")
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
-    acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if x.data_ptr() % (4 * x.element_size()) or wq.data_ptr() % 4:
+        raise ValueError("quant_matmul: x must start on a 4-element and wq "
+                         "on a 4-byte boundary")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    status = lib.stf_quant_matmul(
-        x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), acc.data_ptr(), out.data_ptr(), m, k, n,
-        DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
+    status = _build.library().stf_quant_matmul(
+        x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m,
+        k, n, DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
     check_status("quant_matmul", status)
     count_launch("quant_matmul")
     return out

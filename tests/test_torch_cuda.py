@@ -130,13 +130,23 @@ def test_layer_norm_kernel_on_card(cuda, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _qmm_inputs(cuda, dtype, m, k, n, seed=13):
+    """x (m, k), a K-major wq (k, n) (the ``.t()`` of a contiguous (n, k)
+    int8 tensor) and w_scale (n,) on the card."""
+    rng = np.random.RandomState(seed)
+    x = _t(rng.randn(m, k).astype(np.float32)).to(cuda, dtype)
+    wq = _t(rng.randint(-127, 128, (n, k)).astype(np.int8)).to(cuda).t()
+    ws = _t((rng.rand(n) * 0.01).astype(np.float32)).to(cuda)
+    return x, wq, ws
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 16, 33])
-def test_quant_matmul_kernel_on_card_is_bit_exact(cuda, m):
-    rng = np.random.RandomState(13)
-    x = _t(rng.randn(m, 1024).astype(np.float32)).to(cuda)
-    wq = _t(rng.randint(-127, 128, (1024, 4096)).astype(np.int8)).to(cuda)
-    ws = _t((rng.rand(4096) * 0.01).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 33, 64])
+@pytest.mark.parametrize("k,n", [(1024, 32768), (1020, 4100), (64, 8)])
+def test_quant_matmul_kernel_on_card_is_bit_exact(cuda, dtype, m, k, n):
+    # k = 1020 takes 4-byte loads, n = 4100 half an 8-column tile
+    x, wq, ws = _qmm_inputs(cuda, dtype, m, k, n)
     out = K.quant_matmul(x, wq, ws)
     ref = K.quant_matmul_plain(x, wq, ws)
     torch.cuda.synchronize()
@@ -144,11 +154,40 @@ def test_quant_matmul_kernel_on_card_is_bit_exact(cuda, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16])
+def test_quant_matmul_unaligned_weight_on_card(cuda, m):
+    # a K-major view 4 bytes into its storage: four 4-byte loads a lane
+    x, wq, ws = _qmm_inputs(cuda, torch.float32, m, 1024, 4096, seed=15)
+    ref = K.quant_matmul_plain(x, wq, ws)
+    buf = torch.empty(4 + wq.numel(), dtype=torch.int8, device=cuda)
+    w4 = buf[4:].view(wq.shape[1], wq.shape[0]).t()
+    w4.copy_(wq)
+    assert w4.data_ptr() % 16 == 4 and w4.stride() == (1, 1024)
+    assert torch.equal(K.quant_matmul(x, w4, ws), ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_a_row_major_weight_on_card(cuda):
+    x, wq, ws = _qmm_inputs(cuda, torch.float32, 4, 64, 8)
+    with pytest.raises(ValueError, match=r"K-major .*strides \(1, 64\)"):
+        K.quant_matmul(x, wq.contiguous(), ws)
+    # the plain version takes either layout
+    assert torch.equal(K.quant_matmul_plain(x, wq.contiguous(), ws),
+                       K.quant_matmul(x, wq, ws))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.ones(4, 10, device=cuda)
     with pytest.raises(ValueError, match="divisible by 4"):
-        K.quant_matmul(x, torch.ones(10, 8, dtype=torch.int8,
-                                     device=cuda),
+        K.quant_matmul(x, torch.ones(8, 10, dtype=torch.int8,
+                                     device=cuda).t(),
+                       torch.ones(8, device=cuda))
+    x1 = torch.ones(4 * 64 + 1, device=cuda)[1:].view(4, 64)
+    with pytest.raises(ValueError, match="4-element"):
+        K.quant_matmul(x1, torch.ones(8, 64, dtype=torch.int8,
+                                      device=cuda).t(),
                        torch.ones(8, device=cuda))
     with pytest.raises(TypeError):
         K.layer_norm(x.double(), torch.ones(10, device=cuda),
@@ -465,15 +504,21 @@ def test_flash_attention_autograd_matches_plain_on_card(cuda):
         _close(a, b, 1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,n", [(300, 1024), (4096, 1024), (7, 96)])
-def test_layer_norm_bwd_kernel_on_card(cuda, dtype, rows, n):
-    rng = np.random.RandomState(23)
+def _ln_bwd_inputs(cuda, dtype, rows, n, seed=23):
+    rng = np.random.RandomState(seed)
     x = _t((rng.randn(rows, n) * 2 + 0.5).astype(np.float32)).to(cuda, dtype)
     g = _t(rng.randn(n).astype(np.float32)).to(cuda)
     b = _t(rng.randn(n).astype(np.float32)).to(cuda)
     dy = _t(rng.randn(rows, n).astype(np.float32)).to(cuda, dtype)
+    return x, g, b, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 300, 4096])
+@pytest.mark.parametrize("n", [96, 1000, 1024, 4096])
+def test_layer_norm_bwd_kernel_on_card(cuda, dtype, rows, n):
+    x, g, b, dy = _ln_bwd_inputs(cuda, dtype, rows, n)
     y, mean, rstd = K.layer_norm_fwd(x, g, b, return_stats=True)
     ry, rmean, rrstd = K.layer_norm_plain(x, g, b, return_stats=True)
     dx, dg, db = K.layer_norm_bwd(x, g, rmean, rrstd, dy)
@@ -486,6 +531,56 @@ def test_layer_norm_bwd_kernel_on_card(cuda, dtype, rows, n):
     _close(dx, rdx, 1e-4 if f32 else 2e-2)
     _close(dg, rdg, 1e-4)
     _close(db, rdb, 1e-4)
+
+
+@pytest.mark.cuda
+def test_layer_norm_bwd_picks_its_path_on_card(cuda):
+    # the vector path (a warp per row) where n is 32 lanes x 16 bytes x
+    # nv; the general path elsewhere and on a misaligned view; read from
+    # the kernels' names in a trace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kln = _kernel_module("layer_norm")
+    cases = [(torch.bfloat16, 1024, 4, False), (torch.float32, 1024, 8, False),
+             (torch.bfloat16, 512, 2, False), (torch.float32, 128, 1, False),
+             (torch.bfloat16, 96, 0, False), (torch.float32, 1000, 0, False),
+             (torch.bfloat16, 4096, 0, False), (torch.bfloat16, 1024, 0, True)]
+    for dtype, n, nv, shifted in cases:
+        x, g, b, dy = _ln_bwd_inputs(cuda, dtype, 33, n)
+        if shifted:  # rows start 2 bytes past a 16-byte boundary
+            x = torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(33, n)
+        _, mean, rstd = K.layer_norm_plain(x, g, b, return_stats=True)
+        assert kln.bwd_vectors_per_lane(n, dtype, x, dy, g) == nv
+        K.layer_norm_bwd(x, g, mean, rstd, dy)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):  # a trace can drop a kernel's record
+                dx, dg, db = K.layer_norm_bwd(x, g, mean, rstd, dy)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        vec = any("layer_norm_bwd_vec_kernel" in nm for nm in names)
+        gen = any("layer_norm_bwd_kernel<" in nm for nm in names)
+        assert (vec, gen) == (nv > 0, nv == 0), (dtype, n, names)
+        rdx, rdg, rdb = K.layer_norm_bwd_plain(x, g, mean, rstd, dy)
+        _close(dx, rdx, 1e-4 if dtype == torch.float32 else 2e-2)
+        _close(dg, rdg, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_layer_norm_bwd_is_bitwise_reproducible_on_card(cuda, dtype, n):
+    # no float atomics: two runs give the same dgamma and dbeta bits, on
+    # both paths
+    x, g, b, dy = _ln_bwd_inputs(cuda, dtype, 4096, n, seed=29)
+    _, mean, rstd = K.layer_norm_plain(x, g, b, return_stats=True)
+    first = K.layer_norm_bwd(x, g, mean, rstd, dy)
+    second = K.layer_norm_bwd(x, g, mean, rstd, dy)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda

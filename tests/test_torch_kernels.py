@@ -34,6 +34,10 @@ kda = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                               "decode_attention")
 jqmm = importlib.import_module("simple_tensorflow_tpu.ops.pallas."
                                "quant_matmul")
+kqmm = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                               "quant_matmul")
+kln = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "layer_norm")
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -224,6 +228,31 @@ def test_layer_norm_eps_and_constant_row():
     np.testing.assert_allclose(got, np.broadcast_to(b, (2, 16)), **F32)
 
 
+@pytest.mark.parametrize("dtype,n,nv", [
+    (torch.bfloat16, 1024, 4), (torch.bfloat16, 512, 2),
+    (torch.bfloat16, 256, 1), (torch.float32, 1024, 8),
+    (torch.float32, 128, 1), (torch.bfloat16, 768, 0),
+    (torch.bfloat16, 2048, 0), (torch.bfloat16, 4096, 0),
+    (torch.float32, 4096, 0), (torch.bfloat16, 96, 0),
+    (torch.float32, 1000, 0), (torch.bfloat16, 1000, 0)])
+def test_layer_norm_bwd_path_by_shape(dtype, n, nv):
+    # the vector path (a warp per row, nv 16-byte vectors a lane) where n
+    # is 32 lanes x 16 bytes x nv, nv a supported count; else the general
+    # path (0). The choice is the wrapper's, made before the launch.
+    x = torch.zeros(3, n, dtype=dtype)
+    assert kln.bwd_vectors_per_lane(n, dtype, x, x) == nv
+
+
+def test_layer_norm_bwd_takes_the_general_path_off_alignment():
+    x = torch.zeros(3 * 1024 + 8, dtype=torch.bfloat16)
+    aligned = x[:3 * 1024].view(3, 1024)
+    shifted = x[1:3 * 1024 + 1].view(3, 1024)     # 2 bytes in
+    assert aligned.data_ptr() % 16 == 0
+    assert kln.bwd_vectors_per_lane(1024, torch.bfloat16, aligned) == 4
+    assert kln.bwd_vectors_per_lane(1024, torch.bfloat16, aligned,
+                                    shifted) == 0
+
+
 # ---------------------------------------------------------------------------
 # QuantMatMul
 # ---------------------------------------------------------------------------
@@ -242,14 +271,21 @@ def test_quantize_rowwise_bit_exact_with_jax():
     assert q[2, :6].tolist() == [127, 0, 2, 2, 0, -2]
 
 
+@pytest.mark.parametrize("layout", ["row_major", "k_major"])
 @pytest.mark.parametrize("m", [1, 3, 16])
-def test_quant_matmul_bit_exact_with_jax_kernel(m):
+def test_quant_matmul_bit_exact_with_jax_kernel(m, layout):
     rng = np.random.RandomState(10 + m)
     k, n = 64, 40
     x = rng.randn(m, k).astype(np.float32)
     wq = rng.randint(-127, 128, (k, n)).astype(np.int8)
     ws = (rng.rand(n) * 0.05 + 1e-3).astype(np.float32)
-    got = K.quant_matmul(_t(x), _t(wq), _t(ws)).numpy()
+    tw = _t(wq)
+    if layout == "k_major":        # the layout the CUDA kernel takes
+        tw = _t(wq.T).t()
+        assert tw.stride() == (1, k) and torch.equal(tw, _t(wq))
+    got = K.quant_matmul(_t(x), tw, _t(ws)).numpy()
+    np.testing.assert_array_equal(
+        got, K.quant_matmul(_t(x), _t(wq), _t(ws)).numpy())
     want = np.asarray(jqmm.quant_matmul(jnp.asarray(x), jnp.asarray(wq),
                                         jnp.asarray(ws)))
     # identical inputs: the same int32 sums and the same epilogue
@@ -278,8 +314,39 @@ def test_int8_logits_weights_bit_exact_with_jax():
             sess.run(init)
             want_q, want_s = sess.run([jwq, jscale])
     assert wq.dtype == torch.int8 and wq.shape == (d, vocab)
+    assert wq.stride() == (1, d)   # K-major, as the kernel reads it
     np.testing.assert_array_equal(wq.numpy(), want_q)
     np.testing.assert_array_equal(scale.numpy(), want_s)
+
+
+def test_int8_logits_weights_k_major_equal_the_row_major_construction():
+    # the K-major build quantizes emb's rows against each vocab entry's
+    # scale; the (d, vocab) row-major construction it replaced divided the
+    # transposed columns: the same true divisions, so the same bits
+    rng = np.random.RandomState(5)
+    vocab, d = 40, 24
+    emb = (rng.randn(vocab, d) * 0.2).astype(np.float32)
+    emb[7] = 0.0
+    emb[9, :3] = [2.54, 0.01, -0.03]   # 0.01 / 0.02 = 0.5 rounds to even
+    wq, scale = ptr.build_int8_logits_weights(_t(emb))
+    w = _t(emb).t()
+    want_s = kqmm.div127(
+        torch.clamp_min(w.abs().amax(dim=0), 1e-8))
+    want_q = torch.round(w / want_s[None, :]).to(torch.int8).contiguous()
+    assert wq.stride() == (1, d) and wq.t().is_contiguous()
+    assert torch.equal(wq, want_q) and torch.equal(scale, want_s)
+    assert scale.is_contiguous()
+
+
+def test_the_kernel_wants_a_k_major_weight():
+    km = torch.zeros(12, 64, dtype=torch.int8).t()     # (64, 12) K-major
+    kcommon.check_cuda_arg("wq", km, (torch.int8,), 2, k_major=True)
+    with pytest.raises(ValueError, match=r"K-major.*strides \(1, 64\).*"
+                                         r"got strides \(12, 1\)"):
+        kcommon.check_cuda_arg("wq", km.contiguous(), (torch.int8,), 2,
+                               k_major=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kcommon.check_cuda_arg("x", km, (torch.int8,), 2)
 
 
 # ---------------------------------------------------------------------------

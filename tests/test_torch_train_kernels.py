@@ -146,7 +146,7 @@ def test_flash_attention_refuses_dropout_and_bad_shapes():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(5, 32), (2, 9, 48)])
+@pytest.mark.parametrize("shape", [(5, 32), (2, 9, 48), (7, 96), (3, 1000)])
 def test_layer_norm_vjp_matches_jax(dtype, shape):
     rng = np.random.RandomState(32)
     x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
