@@ -3,7 +3,11 @@
 NVIDIA GPU and check every kernel of its serving and training paths
 (causal LM and ResNet-50).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--serving]
+
+``--serving`` runs only phase 3 (no kernel phases, no ``{"ok": ...}``
+line) and asks its traces for no kernel by name, so this script placed
+beside another tree's package measures that tree's serving path.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    hand-written CUDA kernels from ``simple_tensorflow_tpu_torch/csrc/``
@@ -38,17 +42,25 @@ NVIDIA GPU and check every kernel of its serving and training paths
    also read off its output (q = 0, v one-hot) at the training shape, and
    the bf16 backward's off each of dV, dK and dQ (``keep_mask_readoff``):
    0 mismatches with the plain mask, and the next seed's mask must differ.
+   DecodeAttention runs at every decode bucket (Kq = 1, B = 1, 4, 16,
+   each with the splits of the cache axis it takes) and a ragged L in
+   f32 and bf16, beside SDPA with the same mask;
    QuantMatMul runs on a K-major weight at m = 1, 4, 16 and 32 (a
    row-major weight must be refused);
-   the LayerNorm backward on both of its paths (the vector path at n =
-   1024, the general one at n = 1000 and forced at 1024), its dgamma and
-   dbeta bitwise equal over two runs. The registers and spills ``ptxas``
-   reports for the tensor-core backward kernels, QuantMatMul and the
-   LayerNorm backward are printed after the build. The redesigned kernels
-   (QuantMatMul, the LayerNorm backward) and those that must hold their
-   times get one line each at the end: the time before the redesign
-   (``EARLIER_MS``), this run's, the bound and the library call's; the
-   LM training phase prints its device time a step beside the one before.
+   the LayerNorm forward on both of its paths (the vector path at n =
+   1024, f32 and bf16, 16 to 4096 rows, the row statistics checked at
+   4096; the general one at n = 1000), the backward on both of its paths
+   (the vector path at n = 1024, the general one at n = 1000 and forced
+   at 1024), its dgamma and dbeta bitwise equal over two runs. The
+   registers and spills ``ptxas`` reports for the tensor-core backward
+   kernels, QuantMatMul, the LayerNorm kernels and the Kq = 1
+   DecodeAttention are printed after the build. The redesigned kernels
+   (the Kq = 1 DecodeAttention, the LayerNorm forward) and those that must
+   hold their times get one line each at the end: the time before the
+   redesign (``EARLIER_MS``), this run's, the bound and the library
+   call's; the LM training phase prints its device time a step beside the
+   one before, and its profiler windows must show both LayerNorm kernels
+   on their vector paths.
 3. Serving phase: ``GenerativeEngine`` over ``CausalLMGenerativeModel``
    at ``TransformerConfig.big()`` width (6 layers, d_model 1024, 16
    heads, vocab 32768) with seeded random weights, 12 requests of 17-96
@@ -57,7 +69,10 @@ NVIDIA GPU and check every kernel of its serving and training paths
    counters are zeroed just before each run and read just after; every
    kernel of the run must have launched. Every emitted token is checked,
    teacher-forced on the engine's own stream, against a plain full
-   re-forward on the card (PyTorch ops only, no kernel).
+   re-forward on the card (PyTorch ops only, no kernel). Then 16 more
+   requests fill decode bucket 16 and a ``torch.profiler`` window over
+   ``TRACE_STEPS`` engine steps gives the device ms a decode step beside
+   the host p50 step, and the top kernels.
 4. Training phase: ``causal_lm_train_model`` at ``TransformerConfig.big()``,
    batch 16 x 256, weights from ``init_params(seed=0)``. At dropout 0 and
    at the shipped 0.1: one f32 step through the kernels against the same
@@ -143,37 +158,43 @@ INT32_OPS_PER_S = 67e12 / 2
 K0_OPS = 19
 THREEFRY_OPS = 76
 DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
-# times before the redesign of QuantMatMul and the LayerNorm backward, and
-# of the kernels that must hold theirs within 5% (this script's run 5 of the
-# previous redesign on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
-EARLIER_MS = {"quant_matmul": (0.04530, "redesigned"),
-              "layer_norm_bwd": (0.05649, "redesigned"),
-              "flash_attention_dkdv": (0.03415, "unchanged"),
-              "flash_attention_dq": (0.02847, "unchanged"),
-              "flash_attention_dkdv_dropout": (0.04076, "unchanged"),
-              "flash_attention_dq_dropout": (0.03424, "unchanged"),
-              "flash_attention_fwd": (0.02985, "unchanged"),
-              "flash_attention_fwd_dropout": (0.03482, "unchanged"),
-              "flash_attention_fwd@f32": (0.16100, "unchanged"),
-              "flash_attention_dkdv@f32": (0.27891, "unchanged"),
-              "flash_attention_dq@f32": (0.22533, "unchanged"),
-              "decode_attention_block": (0.01417, "unchanged"),
-              "decode_attention": (0.07474, "unchanged"),
-              "layer_norm": (0.00254, "unchanged"),
-              "layer_norm@train": (0.01291, "unchanged"),
-              "softmax_xent_fwd": (0.15148, "unchanged"),
-              "softmax_xent_bwd": (0.20423, "unchanged"),
-              "softmax_xent_fwd@resnet": (0.00381, "unchanged"),
-              "softmax_xent_bwd@resnet": (0.00320, "unchanged"),
-              "adam_update": (0.70945, "unchanged"),
-              "momentum_update": (0.13886, "unchanged"),
-              "dropout_residual": (0.01559, "unchanged"),
-              "dropout_residual_bwd": (0.01409, "unchanged"),
-              "dropout": (0.07512, "unchanged"),
-              "dropout_bwd": (0.07572, "unchanged")}
+# times before the redesign of the Kq = 1 DecodeAttention and the LayerNorm
+# forward, and of the kernels that must hold theirs within 5% (this script's
+# run 9 of the previous redesign on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md §6)
+EARLIER_MS = {"decode_attention": (0.07464, "redesigned"),
+              "decode_attention@B1": (0.07250, "redesigned"),
+              "decode_attention@B4": (0.06715, "redesigned"),
+              "decode_attention@bf16": (0.07470, "redesigned"),
+              "layer_norm": (0.00256, "redesigned"),
+              "layer_norm@train": (0.01324, "redesigned"),
+              "layer_norm@train_f32": (0.01403, "redesigned"),
+              "layer_norm@general": (None, "unchanged"),
+              "quant_matmul": (0.01858, "unchanged"),
+              "layer_norm_bwd": (0.01486, "unchanged"),
+              "flash_attention_dkdv": (0.03431, "unchanged"),
+              "flash_attention_dq": (0.02845, "unchanged"),
+              "flash_attention_dkdv_dropout": (0.04056, "unchanged"),
+              "flash_attention_dq_dropout": (0.03399, "unchanged"),
+              "flash_attention_fwd": (0.02976, "unchanged"),
+              "flash_attention_fwd_dropout": (0.03498, "unchanged"),
+              "flash_attention_fwd@f32": (0.16257, "unchanged"),
+              "flash_attention_dkdv@f32": (0.27577, "unchanged"),
+              "flash_attention_dq@f32": (0.22372, "unchanged"),
+              "decode_attention_block": (0.01410, "unchanged"),
+              "softmax_xent_fwd": (0.15321, "unchanged"),
+              "softmax_xent_bwd": (0.20227, "unchanged"),
+              "softmax_xent_fwd@resnet": (0.00388, "unchanged"),
+              "softmax_xent_bwd@resnet": (0.00316, "unchanged"),
+              "adam_update": (0.70235, "unchanged"),
+              "momentum_update": (0.13924, "unchanged"),
+              "dropout_residual": (0.01554, "unchanged"),
+              "dropout_residual_bwd": (0.01416, "unchanged"),
+              "dropout": (0.07574, "unchanged"),
+              "dropout_bwd": (0.07637, "unchanged")}
 # LM training device ms a step at dropout 0.1 and 0 before this redesign
 # (the same run)
-EARLIER_TRAIN_DEVICE_MS = {0.1: 11.5156, 0.0: 10.2073}
+EARLIER_TRAIN_DEVICE_MS = {0.1: 10.9860, 0.0: 9.6914}
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
@@ -316,12 +337,15 @@ def report(name, err, ms, plain, bnd, lib):
 
 
 def phase_decode_attention(K, rng, dev):
-    """DecodeAttention at the decode (Kq=1, B = decode buckets) and
-    page-block prefill (Kq=16, causal_offset, B = prefill buckets)
+    """DecodeAttention at the decode (Kq=1, B = decode buckets 1, 4, 16)
+    and page-block prefill (Kq=16, causal_offset, B = prefill buckets)
     shapes, L = 16 pages x 16 = 256, H=16, D=64; one biased case each;
-    one ragged L to cover the tails."""
+    a ragged L for each (Kq=1: B=4, L=200, which splits the cache axis;
+    Kq=16: B=2) to cover the tails. Each Kq=1 case prints the splits of
+    the cache axis its B takes."""
     import torch.nn.functional as F
 
+    kda = importlib.import_module(KMOD + "decode_attention")
     H, D = 16, 64
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -330,6 +354,7 @@ def phase_decode_attention(K, rng, dev):
             for b in bs:
                 cases.append((dtype, kq, causal, b, 256, False))
             cases.append((dtype, kq, causal, 16, 256, True))
+        cases.append((dtype, 1, False, 4, 200, False))
         cases.append((dtype, 16, True, 2, 200, False))
     main = {}
     for dtype, kq, causal, b, L, biased in cases:
@@ -361,6 +386,11 @@ def phase_decode_attention(K, rng, dev):
         name = (f"decode_attention{'_block' if kq > 1 else ''} "
                 f"{str(dtype)[6:]} B={b} Kq={kq} L={L}"
                 f"{' bias' if biased else ''}")
+        if kq == 1:
+            splits = math.ceil(L / kda.one_split_len(
+                b, H, L, torch.cuda.get_device_properties(
+                    dev).multi_processor_count))
+            name += f" ({splits} split{'s' if splits > 1 else ''})"
         err = check_close(name, out, ref, dtype)
 
         def kern(c):
@@ -405,54 +435,80 @@ def phase_decode_attention(K, rng, dev):
         ops = 4 * allowed_pos * H * D
         bnd = bound_ms(moved, ops, dtype)
         report(name, err, ms, plain_ms, bnd, lib_ms)
-        key = "decode_attention" if kq == 1 else "decode_attention_block"
-        # the JSON row: f32, the largest decode / prefill bucket, no bias
-        if dtype == torch.float32 and not biased and L == 256 and \
-                b == (16 if kq == 1 else 4):
-            main[key] = kernel_row(err, ms, plain_ms, bnd, lib_ms, name)
+        row = kernel_row(err, ms, plain_ms, bnd, lib_ms, name)
+        if biased or L != 256:
+            continue
+        # the JSON rows: f32, the largest decode / prefill bucket; the
+        # other Kq=1 buckets and bf16 for the summary
+        if kq > 1 and dtype == torch.float32 and b == 4:
+            main["decode_attention_block"] = row
+        if kq == 1 and dtype == torch.float32:
+            main["decode_attention" + ("" if b == 16 else f"@B{b}")] = row
+        if kq == 1 and dtype == torch.bfloat16 and b == 16:
+            main["decode_attention@bf16"] = row
     return main
 
 
 def phase_layer_norm(K, rng, dev):
     """LayerNorm forward at n = d_model 1024: rows 16 (decode bucket 16,
     one prefill chunk), 64 (prefill bucket 4 x page_len), 256, and 4096
-    (a training batch of 16 x 256 tokens)."""
+    (a training batch of 16 x 256 tokens), f32 and bf16, all on the
+    vector path (a warp per row); then n = 1000 at 4096 rows, which
+    takes the general path. The row statistics (mean, rstd) are checked
+    too at 4096 rows, where the training path asks for them."""
     import torch.nn.functional as F
 
-    n = 1024
+    kln = importlib.import_module(KMOD + "layer_norm")
     main = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in (16, 64, 256, 4096):
-            elem = torch.tensor([], dtype=dtype).element_size()
-            copies = [torch.from_numpy(rng.standard_normal((rows, n))).to(
-                dev, dtype) for _ in range(n_copies(2 * rows * n * elem))]
-            gamma = torch.from_numpy(
-                1.0 + 0.1 * rng.standard_normal(n)).to(dev, torch.float32)
-            beta = torch.from_numpy(
-                0.1 * rng.standard_normal(n)).to(dev, torch.float32)
-            x = copies[0]
-            name = f"layer_norm {str(dtype)[6:]} rows={rows} n={n}"
+    cases = [(dtype, rows, 1024) for dtype in (torch.float32, torch.bfloat16)
+             for rows in (16, 64, 256, 4096)]
+    cases.append((torch.bfloat16, 4096, 1000))
+    for dtype, rows, n in cases:
+        elem = torch.tensor([], dtype=dtype).element_size()
+        copies = [torch.from_numpy(rng.standard_normal((rows, n))).to(
+            dev, dtype) for _ in range(n_copies(2 * rows * n * elem))]
+        gamma = torch.from_numpy(
+            1.0 + 0.1 * rng.standard_normal(n)).to(dev, torch.float32)
+        beta = torch.from_numpy(
+            0.1 * rng.standard_normal(n)).to(dev, torch.float32)
+        x = copies[0]
+        nv = kln.vectors_per_lane(n, dtype, x, gamma, beta)
+        path = f"vector path, {nv} vectors a lane" if nv else "general path"
+        name = f"layer_norm {str(dtype)[6:]} rows={rows} n={n}"
+        if rows == 4096:
+            y, mean, rstd = K.layer_norm_fwd(x, gamma, beta,
+                                             return_stats=True)
+            ry, rmean, rrstd = K.layer_norm_plain(x, gamma, beta,
+                                                  return_stats=True)
+            err = max(check_close(name, y, ry, dtype),
+                      check_close(f"{name} mean", mean, rmean,
+                                  torch.float32),
+                      check_close(f"{name} rstd", rstd, rrstd,
+                                  torch.float32))
+        else:
             err = check_close(name, K.layer_norm(x, gamma, beta),
                               K.layer_norm_plain(x, gamma, beta), dtype)
-            ms = device_ms([lambda c=c: K.layer_norm(c, gamma, beta)
-                            for c in copies])
-            plain_ms = device_ms([
-                lambda c=c: K.layer_norm_plain(c, gamma, beta)
-                for c in copies])
-            g_t, b_t = gamma.to(dtype), beta.to(dtype)
-            lib_ms = device_ms([
-                lambda c=c: F.layer_norm(c, (n,), g_t, b_t, eps=1e-6)
-                for c in copies])
-            # read x, gamma, beta once, write y; ~8 flops an element
-            bnd = bound_ms(2 * x.numel() * elem + 2 * n * 4,
-                           8 * rows * n, torch.float32)
-            report(name, err, ms, plain_ms, bnd, lib_ms)
-            if dtype == torch.float32 and rows == 16:
-                main["layer_norm"] = kernel_row(err, ms, plain_ms, bnd,
-                                                lib_ms, name)
-            if dtype == torch.bfloat16 and rows == 4096:
-                main["layer_norm@train"] = kernel_row(
-                    err, ms, plain_ms, bnd, lib_ms, name)
+        ms = device_ms([lambda c=c: K.layer_norm(c, gamma, beta)
+                        for c in copies])
+        plain_ms = device_ms([
+            lambda c=c: K.layer_norm_plain(c, gamma, beta)
+            for c in copies])
+        g_t, b_t = gamma.to(dtype), beta.to(dtype)
+        lib_ms = device_ms([
+            lambda c=c: F.layer_norm(c, (n,), g_t, b_t, eps=1e-6)
+            for c in copies])
+        # read x, gamma, beta once, write y; ~8 flops an element
+        bnd = bound_ms(2 * x.numel() * elem + 2 * n * 4,
+                       8 * rows * n, torch.float32)
+        report(f"{name} ({path})", err, ms, plain_ms, bnd, lib_ms)
+        row = kernel_row(err, ms, plain_ms, bnd, lib_ms, name)
+        if n != 1024:
+            main["layer_norm@general"] = row
+        elif dtype == torch.float32 and rows == 16:
+            main["layer_norm"] = row
+        elif rows == 4096:
+            main["layer_norm@train" + (
+                "" if dtype == torch.bfloat16 else "_f32")] = row
     return main
 
 
@@ -987,7 +1043,7 @@ def phase_layer_norm_bwd(K, gen, dev):
         stats = [K.layer_norm_plain(x, gamma, beta, return_stats=True)[1:]
                  for x, _ in copies]
         (x, dy), (mean, rstd) = copies[0], stats[0]
-        nv = kln.bwd_vectors_per_lane(n, dtype, x, dy, gamma)
+        nv = kln.vectors_per_lane(n, dtype, x, dy, gamma)
         if force is not None:
             nv = force
 
@@ -1309,6 +1365,10 @@ SHARED_AT = (2, 4, 7, 9)         # these four start with the same 32 tokens
 # of one of request 2's pages, so admission builds it by copy-on-write
 PREFIX_OF = {9: 2}
 MAX_NEW = 24
+# the traced decode window: this many requests (bucket 16) of TRACE_PROMPT
+# tokens and TRACE_NEW new ones (slack for the profiler's start while the
+# engine steps on), traced over TRACE_STEPS engine steps
+TRACE_REQUESTS, TRACE_PROMPT, TRACE_NEW, TRACE_STEPS = 16, 20, 96, 16
 
 
 def make_prompts(vocab, seed=1):
@@ -1365,7 +1425,84 @@ def check_stream(model, prompt, result, int8):
     return lp_err.max().item()
 
 
-def serve(params, cfg, int8, prompts, dev):
+def wait_for(cond, what, timeout=120.0):
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > t_end:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.0005)
+
+
+def trace_window(eng, vocab, seed):
+    """One traced window (``trace_decode``): ``(device_times, engine
+    steps, host step seconds)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(seed)
+    futs = [eng.generate(list(rng.randint(2, vocab, TRACE_PROMPT)),
+                         max_new_tokens=TRACE_NEW)
+            for _ in range(TRACE_REQUESTS)]
+    wait_for(lambda: eng.metrics.slots_active == TRACE_REQUESTS,
+             "the traced requests to start decoding")
+    s0 = eng.metrics.steps
+    wait_for(lambda: eng.metrics.steps > s0, "a decode step")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s1, n0 = eng.metrics.steps, len(eng.metrics.step_seconds)
+        wait_for(lambda: eng.metrics.steps >= s1 + TRACE_STEPS,
+                 "the traced decode steps")
+        steps = eng.metrics.steps - s1
+        host = list(eng.metrics.step_seconds)[n0:]
+    for f in futs:
+        f.result(timeout=600)
+    return device_times(prof), steps, host
+
+
+def trace_decode(eng, vocab, head, need, attempts=3):
+    """Device time a decode step of the engine at bucket 16: once
+    ``TRACE_REQUESTS`` fresh requests are all decoding, a
+    ``torch.profiler`` window (CUDA activity, which CUPTI records for the
+    engine's thread too) spans ``TRACE_STEPS`` engine steps, counted by
+    the engine (each step ends in a host read of its tokens, so the
+    window's edges cut at most one step's kernels on each side); device
+    ms a step is the trace's device time over them. A window whose trace
+    kept fewer kernel launches than steps lost its kernel records (seen
+    once in five windows: only the copies were traced) and is taken again
+    with fresh requests, up to ``attempts`` windows. Prints the device ms
+    a step beside the host p50 step of the same window and the top
+    kernels; fails when a kernel named in ``need`` is not in the trace.
+    The trace only reads: the engine runs as it does without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # set the tracer up
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    tag = f"serving[{head}] trace"
+    for attempt in range(attempts):
+        by_name, steps, host = trace_window(eng, vocab, 5 + attempt)
+        launches = sum(k for nm, (_, k) in by_name.items()
+                       if not nm.startswith(("Memcpy", "Memset")))
+        if launches >= steps:
+            break
+        print(f"{tag}: window {attempt + 1} kept {launches} kernel "
+              f"launches in {steps} steps (records lost); tracing again",
+              flush=True)
+    else:
+        print(f"{tag}: every window lost its kernel records; device ms a "
+              f"decode step not measured", flush=True)
+        return
+    check_traced(tag, by_name, need)
+    dev_ms = sum(ms for ms, _ in by_name.values()) / steps
+    p50 = statistics.median(host) * 1e3
+    print(f"{tag}: {steps} decode steps at bucket {TRACE_REQUESTS} "
+          f"traced, device {dev_ms:.4f} ms a step beside a host p50 step "
+          f"of {p50:.4f} ms in the same window ({100 * dev_ms / p50:.1f}% "
+          f"busy)", flush=True)
+    for nm, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ms / steps:9.4f} ms/step  {k / steps:5.2f} launches/step"
+              f"  {nm[:100]}", flush=True)
+
+
+def serve(params, cfg, int8, prompts, dev, need):
     from simple_tensorflow_tpu_torch import serving
     from simple_tensorflow_tpu_torch.models import causal_lm as clm
     from simple_tensorflow_tpu_torch.ops import kernels as K
@@ -1397,6 +1534,7 @@ def serve(params, cfg, int8, prompts, dev):
         step_s = list(eng.metrics.step_seconds)[samples0:]
         pc = eng.statusz_info()["prefix_cache"]
         hits = pc["hit_pages"] + pc["cow_hits"] - hits0
+        trace_decode(eng, cfg.vocab_size, head, need)
     emitted = sum(len(r["tokens"]) for r in results)
     print(f"serving[{head}]: {len(results)} requests, {emitted} tokens in "
           f"{wall:.4f} s = {emitted / wall:.2f} tokens/s, {steps} decode "
@@ -1723,8 +1861,11 @@ def train_phase(K, cfg, params, dev, kernel_rows):
           f"max {max(times0) * 1e3:.4f}), {tokens / p50_0:.1f} tokens/s; "
           f"dropout {cfg.dropout} takes {(p50 - p50_0) * 1e3:.4f} ms more "
           f"at the p50", flush=True)
-    busy = profile_steps(trainer, batch, f"dropout {cfg.dropout}")
-    busy0 = profile_steps(trainer0, batch, "dropout 0", top=5)
+    # the LayerNorm forward and backward on their vector paths
+    ln_vec = ("layer_norm_fwd_vec_kernel", "layer_norm_bwd_vec_kernel")
+    busy = profile_steps(trainer, batch, f"dropout {cfg.dropout}",
+                         need=ln_vec)
+    busy0 = profile_steps(trainer0, batch, "dropout 0", top=5, need=ln_vec)
     if busy is not None and busy0 is not None:
         print(f"train[bf16]: dropout {cfg.dropout} adds {busy - busy0:.4f} "
               f"ms of device time a step", flush=True)
@@ -1774,14 +1915,37 @@ def bf16_windows(K, cfgs, params, batch, dev):
     return runs
 
 
-def profile_steps(trainer, batch, tag, n=3, top=10, label="train"):
+def device_times(prof):
+    """``{name: (ms, launches)}`` of the device kernels, copies and fills
+    in a ``torch.profiler`` trace; not the user-annotation ranges (e.g.
+    the optimizer's step) that span kernels already counted."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            ms, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+    return by_name
+
+
+def check_traced(tag, by_name, need):
+    """Fail unless every name in ``need`` is part of a traced kernel's."""
+    missing = [k for k in need if not any(k in nm for nm in by_name)]
+    if missing:
+        fail(f"{tag}: no {missing} kernel in the trace (the path did not "
+             f"take it)")
+
+
+def profile_steps(trainer, batch, tag, n=3, top=10, label="train",
+                  need=()):
     """Device time of ``n`` more training steps from a ``torch.profiler``
     trace (CUDA kernels, copies and fills, summed), against the host
     clock around them, and the ``top`` kernels that take the most of it;
     returns the device ms a step (None when the trace saw no device
     time). Run after the counted window; the profiler's host-side tracing
-    slows the host, so the busy share here is a lower bound."""
-    from torch.autograd import DeviceType
+    slows the host, so the busy share here is a lower bound. Fails when
+    a trace with device time lacks a kernel named in ``need``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1791,17 +1955,12 @@ def profile_steps(trainer, batch, tag, n=3, top=10, label="train"):
             trainer.step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    by_name = {}
-    for e in prof.events():
-        # device kernels, copies and fills; not the user-annotation ranges
-        # (e.g. the optimizer's step) that span kernels already counted
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / n
+    by_name = {k: ms / n for k, (ms, _) in device_times(prof).items()}
     if not by_name:
         print(f"{label}[bf16 {tag}]: the profiler saw no device time; the "
               f"device busy share is not measured", flush=True)
         return None
+    check_traced(f"{label}[bf16 {tag}]", by_name, need)
     dev_ms = sum(by_name.values())
     print(f"{label}[bf16 {tag}]: profiler, {n} steps: device busy "
           f"{dev_ms:.4f} ms a step of {wall_ms:.4f} ms on the host clock "
@@ -2042,7 +2201,15 @@ def kernel_props(log, prefix):
     return out
 
 
+# kernels the serving traces must show: the Kq = 1 DecodeAttention and the
+# LayerNorm forward on its vector path
+SERVING_KERNELS = ("decode_one_kernel", "layer_norm_fwd_vec_kernel")
+
+
 def main():
+    serving_only = sys.argv[1:] == ["--serving"]
+    if sys.argv[1:] and not serving_only:
+        fail(f"usage: {sys.argv[0]} [--serving]")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures "
              "the port on an NVIDIA GPU")
@@ -2074,17 +2241,25 @@ def main():
             spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
-    for prefix in ("flash_bwd_", "qmm_", "layer_norm_bwd"):
+    for prefix in ("flash_bwd_", "qmm_", "layer_norm_", "decode_one"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
 
+    cfg = tr.TransformerConfig.big()
+    if serving_only:
+        # the serving phase alone, of whichever tree's package sits beside
+        # this script: its traces ask for no kernel by name
+        params = convert.init_params(cfg, seed=0)
+        for int8 in (False, True):
+            serve(params, cfg, int8, make_prompts(cfg.vocab_size), dev, ())
+        print("chip_smoke: the serving phase passed (--serving)", flush=True)
+        return
     rng = np.random.RandomState(0)
     print("kernel phases (times are per call, on the card):", flush=True)
     main_rows = {}
     main_rows.update(phase_decode_attention(K, rng, dev))
     main_rows.update(phase_layer_norm(K, rng, dev))
     main_rows.update(phase_quant_matmul(K, rng, dev))
-    cfg = tr.TransformerConfig.big()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     main_rows.update(phase_flash_attention(K, gen, dev))
@@ -2102,7 +2277,8 @@ def main():
     paths = []
     for int8 in (False, True):
         paths.append((f"serve {'int8' if int8 else 'f32'}", 0.0,
-                      serve(params, cfg, int8, prompts, dev)))
+                      serve(params, cfg, int8, prompts, dev,
+                            SERVING_KERNELS)))
     torch.cuda.empty_cache()
     paths += train_phase(K, cfg, params, dev, main_rows)
     del params
@@ -2167,6 +2343,8 @@ def main():
         r = main_rows[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
         ratio = "" if old is None else f" ({r['ms'] / old:.3f}x)"
+        if old is not None and what == "unchanged" and r["ms"] > 1.05 * old:
+            ratio += " OUTSIDE 5%"
         before = "n/a" if old is None else f"{old:.5f} ms"
         print(f"{what} {name} ({r['shape']}): before {before}, now "
               f"{r['ms']:.5f} ms{ratio}, bound {r['bound_ms']:.5f} ms "

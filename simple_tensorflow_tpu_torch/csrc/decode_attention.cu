@@ -15,15 +15,37 @@
 // What bounds it on the card: bytes. Each cache row (D values of K and of V)
 // is read once per (b, h) and takes 4 * kq * D flops; at kq <= 16 that is
 // below the ridge. The TPU walked the kv axis as a sequential grid
-// dimension with (m, l, acc) in VMEM; CUDA blocks run in no order.
+// dimension with (m, l, acc) in VMEM; CUDA blocks run in no order, and a
+// single (b, h) has too few bytes to keep a block busy for long.
 //
-// kq == 1 (decode_attention_kernel): one block of 128 threads owns one
-// (b, h) and walks the kv positions in a loop of 64-row tiles up to the
-// row's length. Each tile is staged in shared memory as f32 (K rows padded
-// to D + 1 floats so the per-thread dot products are bank-conflict free),
-// scored, folded into the online softmax, and accumulated into a shared f32
-// accumulator. Rows past L are zero filled and masked, so any L and D <= 256
-// work.
+// kq == 1 (decode_one_kernel), in-block split-K flash-decoding. The serving
+// decode step's kernel: one query per (b, h), so each K/V byte takes two
+// flops and only the number of bytes in flight, and the latency of walking
+// L, set the time. A block of 8 warps owns one (b, h) and a slice of L:
+//   - A group of G lanes scores one position: its row of D values is
+//     C = D * elem / 16 chunks of 16 bytes, lane i of the group loads
+//     chunks i (and i + 32 past 32 chunks) of K and V with one 16-byte
+//     load each, neighbouring lanes on neighbouring bytes; G is the
+//     smallest of 4, 8, 16, 32 that covers C (f32 D = 64: 16 lanes, two
+//     positions a warp). The lane's q chunk lives in registers; the dot
+//     product is the lane's chunk and a shuffle reduction over the group.
+//   - Group g of the block's NG takes positions t0 + u NG + g, U = 4 of
+//     them at once: their K, V and bias loads are all issued before the
+//     first is used (8 warps x 4 positions x 2 rows of D values in flight
+//     a block), then one max, one rescale and U exps update the group's
+//     (m, l, acc) in registers. Positions past the row's end take p = 0.
+//   - The NG partials merge once, in shared memory behind one barrier:
+//     m = max m_g, w_g = exp(m_g - m), l = sum w_g l_g, acc = sum w_g acc_g.
+//   - Across blocks only where B * H blocks leave SMs idle (B = 1 and 4 at
+//     16 heads): the wrapper's one_split_len cuts L into splits of a
+//     multiple of 64 positions, grid (B*H, splits); each block writes its
+//     merged partial to the f32 workspace and decode_block_combine_kernel
+//     merges them. Splits wholly past the row's end exit and are never read.
+// Rows that are not whole 16-byte chunks (D % (16 / elem) != 0) or
+// misaligned pointers load element by element into the same chunks. p = 0
+// at masked positions (not exp(NEG_INF - m)), so a row with no live
+// position writes l = 0, acc = 0 and returns zeros, as the split note
+// below explains for the query block.
 //
 // kq > 1 (the query block), split-K flash-decoding: at the prefill shape
 // (B <= 4, 16 heads) one block per (b, h) left 16-64 of the 132 SMs busy,
@@ -52,162 +74,178 @@
 namespace stf {
 namespace {
 
-constexpr int kDaThreads = 128;
-constexpr int kDaWarps = kDaThreads / 32;
+// ---------------------------------------------------------------------------
+// kq == 1: in-block split-K flash-decoding
+// ---------------------------------------------------------------------------
 
-constexpr int kDaTile = 64;  // kv rows a tile of the kq == 1 kernel
+constexpr int kOneWarps = 8;
+constexpr int kOneThreads = 32 * kOneWarps;
 
-template <int KQ>
-__host__ __device__ inline size_t da_smem_floats(int d) {
-  constexpr int BL = kDaTile;
-  // q (KQ, D) | k (BL, D+1) | v (BL, D) | s/p (KQ, BL) | acc (KQ, D) | m, l,
-  // alpha (KQ each)
-  return static_cast<size_t>(KQ) * d + static_cast<size_t>(BL) * (d + 1) +
-         static_cast<size_t>(BL) * d + static_cast<size_t>(KQ) * BL +
-         static_cast<size_t>(KQ) * d + 3 * KQ;
+// Chunk c (16 bytes: 4 f32 or 8 bf16 values, elements c E .. c E + E - 1)
+// of a row of D values; zeros past D. VEC: one 16-byte load (D % E == 0,
+// the row 16-byte aligned); else element by element.
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ row, int c,
+                                            int D) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(row) + c);
+  } else {
+    constexpr int E = 16 / sizeof(T);
+    uint4 r;
+    T* t = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      t[e] = c * E + e < D ? row[c * E + e] : from_f32<T>(0.0f);
+    return r;
+  }
 }
 
-template <typename T, int KQ>
-__global__ void __launch_bounds__(kDaThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ lengths,
-                            const float* __restrict__ bias,
-                            T* __restrict__ out, int kq, int L, int H, int D,
-                            float scale, int causal) {
-  constexpr int BL = kDaTile;
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* q_sh = smem;
-  float* k_sh = q_sh + KQ * D;
-  float* v_sh = k_sh + BL * DP;
-  float* s_sh = v_sh + BL * D;
-  float* acc_sh = s_sh + KQ * BL;
-  float* m_sh = acc_sh + KQ * D;
-  float* l_sh = m_sh + KQ;
-  float* a_sh = l_sh + KQ;
+// grid (B*H, n_split); block (b, h, split) walks positions [split * split_l,
+// +split_l) up to the row's end. A group of G lanes (16 bytes a lane, NC
+// chunks a lane) scores one position: 32 / G groups a warp, NG a block.
+// Group g takes positions t0 + u NG + g, U at a time with their K and V
+// loads in flight together, and keeps its own (m, l, acc) in registers;
+// the NG partials merge once in shared memory. One split: the block writes
+// out; several: its partial (m, l, acc) goes to ws for the combine kernel.
+template <typename T, int G, int NC, bool VEC>
+__global__ void __launch_bounds__(kOneThreads)
+    decode_one_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const int* __restrict__ lengths,
+                      const float* __restrict__ bias, T* __restrict__ out,
+                      float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
+                      int L, int H, int D, int split_l, float scale,
+                      int causal) {
+  constexpr int E = 16 / sizeof(T);    // values a chunk
+  constexpr int P = 32 / G;            // groups a warp
+  constexpr int NG = kOneWarps * P;    // groups a block
+  constexpr int W = G * NC * E;        // row values a group covers (>= D)
+  constexpr int U = 4 / NC;            // positions a group has in flight
+  __shared__ float sh_acc[NG][W];
+  __shared__ float sh_m[NG], sh_l[NG];
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  // live positions [0, end): p = 0 past it, and a row with none is zeros
+  const int end = max(0, min(lengths[b] + (causal ? 1 : 0), L));
+  const int l0 = split * split_l;
+  const int l1 = min(l0 + split_l, end);
+  if (gridDim.y > 1 && l0 >= end) return;  // the merge never reads it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane % G;                 // lane within its group
+  const int grp = warp * P + lane / G;
+  const int C = cdiv(D, E);                // chunks a row
   const long long row = static_cast<long long>(H) * D;  // position stride
-  const int length = lengths[b];
-  // the furthest position ANY query of this block may read
-  const int end = min(length + (causal ? kq : 0), L);
-
-  const T* qb = q + static_cast<long long>(b) * kq * row + h * D;
   const T* kb = k + static_cast<long long>(b) * L * row + h * D;
   const T* vb = v + static_cast<long long>(b) * L * row + h * D;
-  const float* bb = bias ? bias + static_cast<long long>(b) * L : nullptr;
+  const float* bb = bias != nullptr ? bias + static_cast<long long>(b) * L
+                                    : nullptr;
 
-  for (int i = tid; i < kq * D; i += kDaThreads) {
-    const int j = i / D, d = i - j * D;
-    q_sh[i] = to_f32(qb[j * row + d]);
-    acc_sh[i] = 0.0f;
+  float qf[NC][E], acc[NC][E];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = gl + G * i;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (c < C) raw = load_chunk<T, VEC>(q + b * row + h * D, c, D);
+    unpack16(raw, qf[i]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.0f;
   }
-  for (int j = tid; j < kq; j += kDaThreads) {
-    m_sh[j] = kNegInf;
-    l_sh[j] = 0.0f;
+  float m = kNegInf, lsum = 0.0f;
+
+  // the loop bound is the warp's first position of the step: uniform
+  for (int t0 = l0; t0 + warp * P < l1; t0 += NG * U) {
+    uint4 kr[U][NC], vr[U][NC];
+    float bv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pos = t0 + u * NG + grp;
+      bv[u] = bb != nullptr && pos < l1 ? __ldg(bb + pos) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = gl + G * i;
+        kr[u][i] = vr[u][i] = make_uint4(0u, 0u, 0u, 0u);
+        if (pos < l1 && c < C) {
+          kr[u][i] = load_chunk<T, VEC>(kb + pos * row, c, D);
+          vr[u][i] = load_chunk<T, VEC>(vb + pos * row, c, D);
+        }
+      }
+    }
+    float s[U];
+    float mt = m;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        float kf[E];
+        unpack16(kr[u][i], kf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot = fmaf(qf[i][e], kf[e], dot);
+      }
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const int pos = t0 + u * NG + grp;
+      s[u] = kNegInf;
+      if (pos < l1) {
+        s[u] = dot * scale + bv[u];  // bias, then the mask
+        mt = fmaxf(mt, s[u]);
+      }
+    }
+    // a step with no live position keeps mt == m: alpha 1, every p 0
+    const float alpha = expf(m - mt);
+    lsum *= alpha;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = t0 + u * NG + grp < l1 ? expf(s[u] - mt) : 0.0f;
+      lsum += p;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        float vf[E];
+        unpack16(vr[u][i], vf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p, vf[e], acc[i][e]);
+      }
+    }
+    m = mt;
   }
+
+  // merge the block's NG partials: m = max m_g, w_g = exp(m_g - m),
+  // l = sum w_g l_g, acc = sum w_g acc_g (a group that saw no live
+  // position has l_g = 0 and acc_g = 0)
+  if (gl == 0) {
+    sh_m[grp] = m;
+    sh_l[grp] = lsum;
+  }
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) sh_acc[grp][(gl + G * i) * E + e] = acc[i][e];
   __syncthreads();
-
-  for (int t0 = 0; t0 < end; t0 += BL) {
-    const int nl = min(BL, L - t0);
-    for (int i = tid; i < BL * D; i += kDaThreads) {
-      const int l = i / D, d = i - l * D;
-      float kv = 0.0f, vv = 0.0f;
-      if (l < nl) {
-        const long long off = (t0 + l) * row + d;
-        kv = to_f32(kb[off]);
-        vv = to_f32(vb[off]);
-      }
-      k_sh[l * DP + d] = kv;
-      v_sh[l * D + d] = vv;
-    }
-    __syncthreads();
-
-    // scores: lanes of a warp take consecutive positions of one query
-    for (int i = tid; i < kq * BL; i += kDaThreads) {
-      const int j = i / BL, l = i - j * BL;
-      const int pos = t0 + l;
-      const int allowed = length + (causal ? j + 1 : 0);
-      float s = kNegInf;
-      if (l < nl) {
-        const float* qj = q_sh + j * D;
-        const float* kl = k_sh + l * DP;
-        float dot = 0.0f;
-        for (int d = 0; d < D; ++d) dot += qj[d] * kl[d];
-        s = dot * scale;
-        if (bb != nullptr) s += bb[pos];  // bias before the mask
-        if (pos >= allowed) s = kNegInf;
-      }
-      s_sh[j * BL + l] = s;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query
-    for (int j = warp; j < kq; j += kDaWarps) {
-      float* sj = s_sh + j * BL;
-      float mx = kNegInf;
-      for (int l = lane; l < BL; l += 32) mx = fmaxf(mx, sj[l]);
-      mx = warp_max(mx);
-      const float m_prev = m_sh[j];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int l = lane; l < BL; l += 32) {
-        const float p = expf(sj[l] - m_new);
-        sj[l] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_sh[j] = alpha;
-        l_sh[j] = alpha * l_sh[j] + sum;
-        m_sh[j] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P . V
-    for (int i = tid; i < kq * D; i += kDaThreads) {
-      const int j = i / D, d = i - j * D;
-      const float* pj = s_sh + j * BL;
-      float a = acc_sh[i] * a_sh[j];
-      for (int l = 0; l < nl; ++l) a += pj[l] * v_sh[l * D + d];
-      acc_sh[i] = a;
-    }
-    __syncthreads();
+  float mm = kNegInf;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) mm = fmaxf(mm, sh_m[g]);
+  float l = 0.0f;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) l += expf(sh_m[g] - mm) * sh_l[g];
+  const int n_split = gridDim.y;
+  const long long part = static_cast<long long>(bh) * n_split + split;
+  for (int d = threadIdx.x; d < D; d += kOneThreads) {
+    float a = 0.0f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) a += expf(sh_m[g] - mm) * sh_acc[g][d];
+    if (n_split == 1)
+      out[b * row + h * D + d] = from_f32<T>(a / (l == 0.0f ? 1.0f : l));
+    else
+      ws_acc[part * (4 * cdiv(D, 4)) + d] = a;
   }
-
-  T* ob = out + static_cast<long long>(b) * kq * row + h * D;
-  for (int i = tid; i < kq * D; i += kDaThreads) {
-    const int j = i / D, d = i - j * D;
-    const float lj = l_sh[j];
-    ob[j * row + d] = from_f32<T>(acc_sh[i] / (lj == 0.0f ? 1.0f : lj));
-  }
-}
-
-template <typename T, int KQ>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, const float* bias, void* out, int B,
-                   int kq, int L, int H, int D, float scale, int causal,
-                   cudaStream_t s) {
-  const size_t smem = da_smem_floats<KQ>(D) * sizeof(float);
-  auto kernel = decode_attention_kernel<T, KQ>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<B * H, kDaThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, bias, static_cast<T*>(out), kq, L,
-      H, D, scale, causal);
-  return cudaGetLastError();
+  if (n_split > 1 && threadIdx.x == 0) ws_ml[part] = make_float2(mm, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -369,19 +407,21 @@ __global__ void __launch_bounds__(kSplitThreads)
 }
 
 // grid (B*H, kq): out[b, j, h] = sum_c w_c acc_c / (l == 0 ? 1 : l) with
-// w_c = exp(m_c - max m_c), l = sum_c w_c l_c over the chunks the split
-// kernel wrote (those below the block's horizon)
+// w_c = exp(m_c - max m_c), l = sum_c w_c l_c over the chunks of chunk_len
+// positions the split kernel wrote (those below the block's horizon). It
+// also merges the Kq = 1 kernel's splits (kq 1, chunk_len its split_l).
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
     decode_block_combine_kernel(const float* __restrict__ ws_acc,
                                 const float2* __restrict__ ws_ml,
                                 const int* __restrict__ lengths,
                                 T* __restrict__ out, int kq, int L, int H,
-                                int D, int d4, int n_chunks, int causal) {
+                                int D, int d4, int n_chunks, int chunk_len,
+                                int causal) {
   const int bh = blockIdx.x, j = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int horizon = max(0, min(lengths[b] + (causal ? kq : 0), L));
-  const int n_live = cdiv(horizon, kSplitL);
+  const int n_live = cdiv(horizon, chunk_len);
   const long long base = static_cast<long long>(bh) * n_chunks * kq + j;
   float m = kNegInf;
   for (int c = 0; c < n_live; ++c) m = fmaxf(m, ws_ml[base + c * kq].x);
@@ -434,7 +474,79 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
   decode_block_combine_kernel<T><<<dim3(BH, kq), kCombineThreads, 0, s>>>(
       ws_acc, ws_ml, lengths, static_cast<T*>(out), kq, L, H, D, d4,
-      n_chunks, causal);
+      n_chunks, kSplitL, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int G, int NC, bool VEC>
+cudaError_t launch_one_kernel(const void* q, const void* k, const void* v,
+                              const int* lengths, const float* bias,
+                              void* out, float* ws_acc, float2* ws_ml,
+                              int BH, int n_split, int L, int H, int D,
+                              int split_l, float scale, int causal,
+                              cudaStream_t s) {
+  decode_one_kernel<T, G, NC, VEC><<<dim3(BH, n_split), kOneThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, bias, static_cast<T*>(out), ws_acc,
+      ws_ml, L, H, D, split_l, scale, causal);
+  return cudaGetLastError();
+}
+
+// kq == 1: cdiv(L, split_l) splits of the cache axis a (b, h); more than
+// one writes partials to ws and merges them with the combine kernel.
+// Groups of G = 4 ... 32 lanes, the fewest that cover a row's 16-byte
+// chunks (two chunks a lane past 32); a row that is not whole 16-byte
+// chunks, or a misaligned pointer, loads element by element.
+template <typename T>
+cudaError_t launch_one(const void* q, const void* k, const void* v,
+                       const int* lengths, const float* bias, void* out,
+                       float* ws, int B, int L, int H, int D, int split_l,
+                       float scale, int causal, cudaStream_t s) {
+  constexpr int E = 16 / sizeof(T);
+  if (split_l <= 0) return cudaErrorInvalidValue;
+  const int n_split = cdiv(L, split_l);
+  const int BH = B * H;
+  const int d4 = cdiv(D, 4);
+  if (n_split > 65535) return cudaErrorInvalidValue;  // grid.y
+  if (n_split > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  float2* ws_ml = n_split > 1
+                      ? reinterpret_cast<float2*>(
+                            ws + static_cast<size_t>(BH) * n_split * 4 * d4)
+                      : nullptr;
+  const int C = cdiv(D, E);
+  const bool vec = D % E == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  cudaError_t e;
+  if (!vec)
+    e = launch_one_kernel<T, 32, 2, false>(q, k, v, lengths, bias, out, ws,
+                                           ws_ml, BH, n_split, L, H, D,
+                                           split_l, scale, causal, s);
+  else if (C <= 4)
+    e = launch_one_kernel<T, 4, 1, true>(q, k, v, lengths, bias, out, ws,
+                                         ws_ml, BH, n_split, L, H, D, split_l,
+                                         scale, causal, s);
+  else if (C <= 8)
+    e = launch_one_kernel<T, 8, 1, true>(q, k, v, lengths, bias, out, ws,
+                                         ws_ml, BH, n_split, L, H, D, split_l,
+                                         scale, causal, s);
+  else if (C <= 16)
+    e = launch_one_kernel<T, 16, 1, true>(q, k, v, lengths, bias, out, ws,
+                                          ws_ml, BH, n_split, L, H, D,
+                                          split_l, scale, causal, s);
+  else if (C <= 32)
+    e = launch_one_kernel<T, 32, 1, true>(q, k, v, lengths, bias, out, ws,
+                                          ws_ml, BH, n_split, L, H, D,
+                                          split_l, scale, causal, s);
+  else
+    e = launch_one_kernel<T, 32, 2, true>(q, k, v, lengths, bias, out, ws,
+                                          ws_ml, BH, n_split, L, H, D,
+                                          split_l, scale, causal, s);
+  if (e != cudaSuccess || n_split == 1) return e;
+  decode_block_combine_kernel<T><<<dim3(BH, 1), kCombineThreads, 0, s>>>(
+      ws, ws_ml, lengths, static_cast<T*>(out), 1, L, H, D, d4, n_split,
+      split_l, causal);
   return cudaGetLastError();
 }
 
@@ -442,11 +554,11 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* lengths, const float* bias, void* out,
                      float* ws, int B, int kq, int L, int H, int D,
-                     float scale, int causal, cudaStream_t s) {
+                     int split_l, float scale, int causal, cudaStream_t s) {
   if (kq == 1)
-    return launch<T, 1>(q, k, v, lengths, bias, out, B, kq, L, H, D, scale,
-                        causal, s);
-  if (ws == nullptr) return cudaErrorInvalidValue;
+    return launch_one<T>(q, k, v, lengths, bias, out, ws, B, L, H, D, split_l,
+                         scale, causal, s);
+  if (ws == nullptr || split_l != kSplitL) return cudaErrorInvalidValue;
   if (kq <= 4)
     return launch_split<T, 4>(q, k, v, lengths, bias, out, ws, B, kq, L, H,
                               D, scale, causal, s);
@@ -463,9 +575,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 }  // namespace stf
 
 // q (B, kq, H, D), k/v (B, L, H, D), out like q, all contiguous; lengths
-// (B,) int32; bias (B, L) f32 or null. kq <= 64, D <= 256. For kq > 1,
-// workspace holds B * H * cdiv(L, split_l) * kq * (4 * cdiv(D, 4) + 2) f32
-// and split_l must be the kernel's kSplitL (the wrapper's SPLIT_L).
+// (B,) int32; bias (B, L) f32 or null. kq <= 64, D <= 256. split_l: for
+// kq > 1 the kernel's kSplitL (the wrapper's SPLIT_L); for kq == 1 the
+// positions a block walks (the wrapper's one_split_len). workspace holds
+// B * H * cdiv(L, split_l) * kq * (4 * cdiv(D, 4) + 2) f32; null for kq ==
+// 1 with split_l >= L.
 extern "C" int stf_decode_attention(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     const void* bias, void* out,
@@ -476,15 +590,14 @@ extern "C" int stf_decode_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0) return cudaSuccess;
   if (D <= 0 || D > 256 || L <= 0) return cudaErrorInvalidValue;
-  if (kq > 1 && split_l != kSplitL) return cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   const float* bi = static_cast<const float*>(bias);
   float* ws = static_cast<float*>(workspace);
   if (dtype == kF32)
-    return dispatch<float>(q, k, v, len, bi, out, ws, B, kq, L, H, D, scale,
-                           causal, s);
+    return dispatch<float>(q, k, v, len, bi, out, ws, B, kq, L, H, D,
+                           split_l, scale, causal, s);
   if (dtype == kBF16)
     return dispatch<__nv_bfloat16>(q, k, v, len, bi, out, ws, B, kq, L, H, D,
-                                   scale, causal, s);
+                                   split_l, scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -19,9 +19,22 @@
 // and takes about eight (forward) or twelve (backward) flops, far below the
 // H100's 295 flops per byte ridge.
 //
-// Forward: one block of 256 threads per row, three strided passes over the
-// row (sum, centred square sum, normalise); the second and third passes
-// re-read the row from L1/L2, not from HBM.
+// Forward, vector path (n = 32 lanes x 16 bytes x nv with nv in {1, 2, 4}
+// bf16, {1, 2, 4, 8} f32: at most 32 values a lane, 16-byte aligned x, y,
+// gamma and beta; n in {256, 512, 1024} bf16, {128, ..., 1024} f32): a warp
+// per row. Lane l reads its share of the row as 16-byte vectors (bf16
+// columns 8 l + 256 j + e) and keeps them in registers: the mean and then
+// the centred variance are two passes over the registers with warp
+// shuffles (no re-read, no barrier, not E[x^2] - E[x]^2), and y goes out
+// as 16-byte stores. A block of 8 warps walks rows
+// 8 k + w, then every 8 grid-th row; the grid stops at two blocks an SM, so
+// at 4096 rows 16 warps an SM each take about two rows, and a 16-row serving
+// call is two blocks of one row a warp.
+// General path (any other n, or a misaligned view): one block of 256
+// threads per row, three strided passes over the row (sum, centred square
+// sum, normalise), one element a thread a load; the second and third passes
+// re-read the row from L1/L2, not from HBM. Both paths compute the same
+// arithmetic in the same order per element; only the sums' order differs.
 //
 // Backward, vector path (n a multiple of 32 lanes x 16 bytes, at most 32
 // values a lane: n in {256, 512, 1024} bf16, {128, ..., 1024} f32, 16-byte
@@ -44,6 +57,8 @@
 // fixed order (8 warps over 32 columns a block, each warp a fixed stride of
 // blocks, then the warps in order). Both paths are deterministic: no float
 // atomics, the same bits on every run.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace stf {
@@ -137,32 +152,6 @@ __global__ void __launch_bounds__(kLnThreads)
 constexpr int kLnVecWarps = 8;
 constexpr int kLnVecThreads = 32 * kLnVecWarps;
 
-// 16 bytes of T as floats, and back (round to nearest even for bf16)
-__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x, f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return v;
-}
-
 // V consecutive f32 of gamma (16-byte aligned) from L1
 template <int V>
 __device__ __forceinline__ void load_gamma(const float* p, float (&g)[V]) {
@@ -171,6 +160,68 @@ __device__ __forceinline__ void load_gamma(const float* p, float (&g)[V]) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p) + i);
     g[4 * i] = t.x, g[4 * i + 1] = t.y, g[4 * i + 2] = t.z,
           g[4 * i + 3] = t.w;
+  }
+}
+
+// The forward's vector path: n == 32 * NV * (16 / sizeof(T)). Warp w of
+// block k takes rows 8 k + w, then every 8 gridDim.x-th row; lane l holds
+// its NV 16-byte vectors of the row (chunks l + 32 j) in registers through
+// the mean, the centred variance and the output.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kLnVecThreads, 2)
+    layer_norm_fwd_vec_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              T* __restrict__ y, float* __restrict__ mean_out,
+                              float* __restrict__ rstd_out, int rows,
+                              float eps) {
+  constexpr int V = 16 / sizeof(T);  // values in 16 bytes
+  constexpr int n = 32 * NV * V;     // a power of two: / n is exact
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = blockIdx.x * kLnVecWarps + warp; r < rows;
+       r += gridDim.x * kLnVecWarps) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x) +
+                      static_cast<long long>(r) * (n / V);
+    uint4 xv[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) xv[j] = __ldg(xr + lane + 32 * j);
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float f[V];
+      unpack16(xv[j], f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += f[e];
+    }
+    const float mean = warp_sum(s) / n;
+    float c2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float f[V];
+      unpack16(xv[j], f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float c = f[e] - mean;
+        c2 += c * c;
+      }
+    }
+    const float rstd = 1.0f / sqrtf(warp_sum(c2) / n + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y) + static_cast<long long>(r) *
+                                                  (n / V);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float f[V], g[V], bt[V], o[V];
+      unpack16(xv[j], f);
+      load_gamma<V>(gamma + V * (lane + 32 * j), g);
+      load_gamma<V>(beta + V * (lane + 32 * j), bt);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = (f[e] - mean) * rstd * g[e] + bt[e];
+      yr[lane + 32 * j] = pack16(o);
+    }
+    if (lane == 0 && mean_out != nullptr) {
+      mean_out[r] = mean;
+      rstd_out[r] = rstd;
+    }
   }
 }
 
@@ -373,11 +424,80 @@ cudaError_t run_bwd(const void* x, const float* gamma, const float* mean,
   return cudaGetLastError();
 }
 
+// 16-byte vectors a lane of the vector paths for rows of n values of T,
+// or 0 (the general path): n == 32 nv 16 / sizeof(T) with nv in {1, 2, 4}
+// (at most 32 values a lane), or 8 for f32, and every pointer 16-byte
+// aligned
+template <typename T>
+int vectors_per_lane(int n, uintptr_t ptrs) {
+  constexpr int per = 32 * (16 / sizeof(T));
+  const int nv = n % per == 0 ? n / per : 0;
+  const bool ok =
+      nv == 1 || nv == 2 || nv == 4 || (nv == 8 && sizeof(T) == 4);
+  return ok && ptrs % 16 == 0 ? nv : 0;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, c = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev);
+    n = c > 0 ? c : 132;
+  }
+  return n;
+}
+
+// blocks of the forward's vector path an SM: 16 warps, each walking about
+// two rows at 4096 rows (four blocks an SM, a row a warp, ran 9% slower at
+// bf16: its 127 registers let two blocks an SM in at a time)
+constexpr int kLnFwdBlocksPerSm = 2;
+
+template <typename T>
+cudaError_t run_fwd(const void* x, const float* gamma, const float* beta,
+                    void* y, float* mean, float* rstd, int rows, int n,
+                    float eps, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const int nv = vectors_per_lane<T>(
+      n, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+             reinterpret_cast<uintptr_t>(gamma) |
+             reinterpret_cast<uintptr_t>(beta));
+  const int blocks =
+      std::min(cdiv(rows, kLnVecWarps), kLnFwdBlocksPerSm * sm_count());
+  switch (nv) {
+    case 0:
+      layer_norm_fwd_kernel<T><<<rows, kLnThreads, 0, s>>>(
+          xt, gamma, beta, yt, mean, rstd, n, eps);
+      break;
+    case 1:
+      layer_norm_fwd_vec_kernel<T, 1><<<blocks, kLnVecThreads, 0, s>>>(
+          xt, gamma, beta, yt, mean, rstd, rows, eps);
+      break;
+    case 2:
+      layer_norm_fwd_vec_kernel<T, 2><<<blocks, kLnVecThreads, 0, s>>>(
+          xt, gamma, beta, yt, mean, rstd, rows, eps);
+      break;
+    case 4:
+      layer_norm_fwd_vec_kernel<T, 4><<<blocks, kLnVecThreads, 0, s>>>(
+          xt, gamma, beta, yt, mean, rstd, rows, eps);
+      break;
+    default:  // 8: f32 only (32 values a lane)
+      if constexpr (sizeof(T) == 4)
+        layer_norm_fwd_vec_kernel<T, 8><<<blocks, kLnVecThreads, 0, s>>>(
+            xt, gamma, beta, yt, mean, rstd, rows, eps);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace stf
 
 // x, y (rows, n); gamma, beta (n,) f32; mean, rstd (rows,) f32, or both null
-// when the caller needs no statistics.
+// when the caller needs no statistics. Rows of 32 nv 16-byte vectors (nv in
+// {1, 2, 4}, or 8 for f32) with x, y, gamma and beta 16-byte aligned take
+// the vector path (layer_norm.py vectors_per_lane makes the same choice);
+// any other n or alignment the general path.
 extern "C" int stf_layer_norm_fwd(const void* x, const void* gamma,
                                   const void* beta, void* y, void* mean,
                                   void* rstd, int rows, int n, float eps,
@@ -389,18 +509,11 @@ extern "C" int stf_layer_norm_fwd(const void* x, const void* gamma,
   const float* b = static_cast<const float*>(beta);
   float* mo = static_cast<float*>(mean);
   float* ro = static_cast<float*>(rstd);
-  if (dtype == kF32) {
-    layer_norm_fwd_kernel<float><<<rows, kLnThreads, 0, s>>>(
-        static_cast<const float*>(x), g, b, static_cast<float*>(y), mo, ro, n,
-        eps);
-  } else if (dtype == kBF16) {
-    layer_norm_fwd_kernel<__nv_bfloat16><<<rows, kLnThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), g, b,
-        static_cast<__nv_bfloat16*>(y), mo, ro, n, eps);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == kF32)
+    return run_fwd<float>(x, g, b, y, mo, ro, rows, n, eps, s);
+  if (dtype == kBF16)
+    return run_fwd<__nv_bfloat16>(x, g, b, y, mo, ro, rows, n, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 // x, dout, dx (rows, n); gamma (n,) f32; mean, rstd (rows,) f32; part a

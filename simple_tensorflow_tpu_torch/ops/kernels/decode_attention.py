@@ -10,14 +10,20 @@ The contract is the JAX one: ``q (B, H, D)`` or ``(B, Kq, H, D)``,
 optional additive ``bias (B, L)`` f32. Positions ``>= lengths[b]`` are
 masked; with ``causal_offset`` query ``j`` sees ``< lengths[b] + j + 1``.
 Bounded by bytes on the card; ``csrc/decode_attention.cu`` says what its
-design does about it. The query-block kernel splits the cache axis into
-chunks of ``SPLIT_L`` positions, one block each, and merges the chunks'
-partial softmax sums in a second pass; the wrapper allocates the f32
-workspace of those partials.
+design does about it. The one-query kernel (the serving decode step) gives
+a (b, h) a block of 8 warps, each its own slice of the cache, merged once
+in shared memory; where ``B * H`` blocks leave SMs idle it also splits the
+cache axis over blocks (:func:`one_split_len`) and merges the splits in a
+second pass. The query-block kernel splits the cache axis into chunks of
+``SPLIT_L`` positions, one block each, and merges the chunks' partial
+softmax sums in a second pass. The wrapper allocates the f32 workspace of
+the partials (:func:`split_workspace_floats`); one count a call either
+way.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,12 +36,39 @@ MAX_KQ = 64
 MAX_HEAD_DIM = 256
 # cache positions a block of the query-block kernel (csrc kSplitL)
 SPLIT_L = 32
+# the Kq = 1 kernel splits the cache axis over blocks only while B * H
+# blocks leave SMs idle, into chunks of a multiple of this many positions
+# (one step of its 8 warps at f32 D = 64)
+ONE_MIN_SPLIT = 64
 
 
-def split_workspace_floats(b, kq, L, h, d):
-    """f32 elements of the query-block kernel's partials: per (b, h, chunk,
-    query) the accumulator (``d`` rounded up to 4) and (m, l)."""
-    return b * h * cdiv(L, SPLIT_L) * kq * (round_up(d, 4) + 2)
+def one_split_len(b, h, L, sms):
+    """Cache positions one block of the Kq = 1 kernel walks: all of ``L``
+    (one block per (b, h)) when ``b * h`` blocks fill the ``sms`` SMs;
+    else ``L`` cut into about ``sms / (b * h)`` splits of a multiple of
+    ``ONE_MIN_SPLIT`` positions, one block each, merged in a second
+    pass."""
+    blocks = b * h
+    splits = min(cdiv(sms, blocks), cdiv(L, ONE_MIN_SPLIT))
+    if blocks >= sms or splits <= 1:
+        return L
+    return round_up(cdiv(L, splits), ONE_MIN_SPLIT)
+
+
+def split_workspace_floats(b, kq, L, h, d, split_l=SPLIT_L):
+    """f32 elements of the split kernels' partials: per (b, h, chunk of
+    ``split_l`` positions, query) the accumulator (``d`` rounded up to 4)
+    and (m, l); 0 when one chunk covers ``L`` at ``kq == 1`` (the Kq = 1
+    kernel then writes its output directly)."""
+    chunks = cdiv(L, split_l)
+    if kq == 1 and chunks == 1:
+        return 0
+    return b * h * chunks * kq * (round_up(d, 4) + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, bias=None,
@@ -105,15 +138,17 @@ def decode_attention(q, k_cache, v_cache, lengths, *, bias=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q4)
-    ws = (torch.empty(split_workspace_floats(b, kq, L, h, d),
-                      dtype=torch.float32, device=q4.device)
-          if kq > 1 else None)
+    split_l = (one_split_len(b, h, L, _sm_count(q4.device.index))
+               if single else SPLIT_L)
+    n_ws = split_workspace_floats(b, kq, L, h, d, split_l)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=q4.device)
+          if n_ws else None)
     lib = _build.library()
     status = lib.stf_decode_attention(
         q4.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), bias.data_ptr() if bias is not None else None,
         out.data_ptr(), ws.data_ptr() if ws is not None else None, b, kq, L,
-        h, d, float(sm_scale), int(bool(causal_offset)), SPLIT_L,
+        h, d, float(sm_scale), int(bool(causal_offset)), split_l,
         DTYPE_CODES[q4.dtype], _build.stream_handle(q4.device))
     check_status("decode_attention", status)
     count_launch("decode_attention" if single else "decode_attention_block")

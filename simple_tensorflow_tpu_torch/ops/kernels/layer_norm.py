@@ -6,8 +6,12 @@ _fwd_kernel`` (called at :71) and ``_bwd_kernel`` (called at :109). The
 forward returns the row statistics ``mean``/``rstd`` (f32) beside the
 output when asked, as ``_fwd`` does, and the backward reads them.
 :func:`layer_norm` is differentiable through :class:`LayerNormFunction`
-(the JAX ``custom_vjp``). Bounded by bytes on the card; the source note in
-``csrc/layer_norm.cu`` says what the design does about it.
+(the JAX ``custom_vjp``). Bounded by bytes on the card: each element is
+read and written once. Both kernels have a vector path, a warp per row
+holding the row in registers as 16-byte vectors, for the rows
+:func:`vectors_per_lane` admits (the model widths 256-1024), and a
+general strided path for any other width or a misaligned view; the
+source note in ``csrc/layer_norm.cu`` says more.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ from .common import (DTYPE_CODES, cdiv, check_cuda_arg, check_status,
 # (256 blocks at the training shape's 4096 rows)
 BWD_ROWS_PER_BLOCK = 32
 BWD_VEC_ROWS_PER_BLOCK = 16
-# 16-byte vectors a lane the vector path holds: at most 32 values a lane
-BWD_VEC_NV = {torch.bfloat16: (1, 2, 4), torch.float32: (1, 2, 4, 8)}
+# 16-byte vectors a lane the vector paths (forward and backward) hold: at
+# most 32 values a lane
+VEC_NV = {torch.bfloat16: (1, 2, 4), torch.float32: (1, 2, 4, 8)}
 
 
 def layer_norm_plain(x, gamma, beta, *, eps=1e-6, return_stats=False):
@@ -70,7 +75,10 @@ def _check_affine(n, gamma, beta):
 def layer_norm_fwd(x, gamma, beta, *, eps=1e-6, return_stats=False):
     """The forward kernel on ``x (..., n)`` with f32 ``gamma``/``beta
     (n,)``: ``y`` or, with ``return_stats``, ``(y, mean, rstd)``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel: the
+    vector path (a warp per row) where :func:`vectors_per_lane` of ``x``,
+    ``y``, ``gamma`` and ``beta`` is not 0, else the general path (the C
+    entry point makes that choice by the same rule)."""
     if not uses_kernel(x, gamma, beta):
         return layer_norm_plain(x, gamma, beta, eps=eps,
                                 return_stats=return_stats)
@@ -100,14 +108,14 @@ def layer_norm_fwd(x, gamma, beta, *, eps=1e-6, return_stats=False):
     return y
 
 
-def bwd_vectors_per_lane(n, dtype, *tensors) -> int:
-    """Which backward kernel takes rows of ``n`` values of ``dtype``: the
-    vector path's 16-byte vectors a lane (a warp per row, ``n == 32 * nv *
-    16 / element size`` with ``nv`` in ``BWD_VEC_NV``, every tensor's data
-    16-byte aligned), or 0 for the general strided path."""
+def vectors_per_lane(n, dtype, *tensors) -> int:
+    """Which kernel, forward or backward, takes rows of ``n`` values of
+    ``dtype``: the vector path's 16-byte vectors a lane (a warp per row,
+    ``n == 32 * nv * 16 / element size`` with ``nv`` in ``VEC_NV``, every
+    tensor's data 16-byte aligned), or 0 for the general strided path."""
     per_vec = 16 // (torch.finfo(dtype).bits // 8)
     nv, rem = divmod(n, 32 * per_vec)
-    if rem or nv not in BWD_VEC_NV[dtype] or \
+    if rem or nv not in VEC_NV[dtype] or \
             any(t.data_ptr() % 16 for t in tensors):
         return 0
     return nv
@@ -117,7 +125,7 @@ def layer_norm_bwd(x, gamma, mean, rstd, dout):
     """The backward kernel: ``(dx, dgamma, dbeta)`` for ``x, dout (rows,
     n)`` and the forward's ``mean``/``rstd (rows,)``. CPU tensors take the
     plain version; CUDA tensors launch the kernel of the path
-    :func:`bwd_vectors_per_lane` picks (dx and the per-block column
+    :func:`vectors_per_lane` picks (dx and the per-block column
     partials, then the fixed-order reduction of the partials)."""
     if not uses_kernel(x, gamma, mean, rstd, dout):
         return layer_norm_bwd_plain(x, gamma, mean, rstd, dout)
@@ -134,7 +142,7 @@ def layer_norm_bwd(x, gamma, mean, rstd, dout):
             f"gamma {tuple(gamma.shape)}, mean {tuple(mean.shape)}, rstd "
             f"{tuple(rstd.shape)} do not agree")
     return launch_bwd(x, gamma, mean, rstd, dout,
-                      bwd_vectors_per_lane(n, x.dtype, x, dout, gamma))
+                      vectors_per_lane(n, x.dtype, x, dout, gamma))
 
 
 def launch_bwd(x, gamma, mean, rstd, dout, nv):

@@ -74,6 +74,115 @@ def test_decode_attention_kernel_on_card(cuda, dtype, kq, causal, biased):
     assert K.launch_counts()[name] == before[name] + 1
 
 
+def _trace_names(fn, reps=3):
+    """Names of the device kernels ``fn`` launches, from a profiler trace
+    (``reps`` calls: a trace can drop a kernel's record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("L", [256, 200, 17])
+@pytest.mark.parametrize("d", [16, 64, 100, 128, 256])
+def test_decode_attention_one_query_on_card(cuda, dtype, b, L, d):
+    # the Kq = 1 kernel at every decode bucket, ragged cache lengths and
+    # head dims whose rows are 1-4 16-byte chunks a lane group, 100 (f32:
+    # 25 chunks of 16 bytes; bf16: element by element) and 256 (f32: two
+    # chunks a lane); biased at D = 64. One count a call, whatever the
+    # split of the cache axis.
+    q, k, v, lengths, bias = _attn_inputs(51, b, 1, L, 16, d, False,
+                                          d == 64)
+    args = [_t(a).to(cuda, dtype) for a in (q, k, v)]
+    lens = _t(lengths).to(cuda)
+    bias_t = None if bias is None else _t(bias).to(cuda)
+    before = K.launch_counts()["decode_attention"]
+    out = K.decode_attention(*args, lens, bias=bias_t)
+    ref = K.decode_attention_plain(*args, lens, bias=bias_t)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert K.launch_counts()["decode_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [4, 16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_decode_attention_one_query_edge_rows_on_card(cuda, dtype, b,
+                                                      causal):
+    # a row of length 0 (zeros, or one live position with causal_offset),
+    # a row of length 1 (its one value row, or two with causal_offset), a
+    # full row; with a bias, which comes before the mask
+    q, k, v, lengths, bias = _attn_inputs(53, b, 1, 256, 16, 64, False,
+                                          True)
+    lengths[:3] = (0, 1, 256)
+    args = [_t(a).to(cuda, dtype) for a in (q, k, v)]
+    lens = _t(lengths).to(cuda)
+    bias_t = _t(bias).to(cuda)
+    out = K.decode_attention(*args, lens, bias=bias_t, causal_offset=causal)
+    ref = K.decode_attention_plain(*args, lens, bias=bias_t,
+                                   causal_offset=causal)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if causal:
+        torch.testing.assert_close(out[0], args[2][0, 0], rtol=0, atol=0)
+    else:
+        assert not out[0].any()
+        torch.testing.assert_close(out[1], args[2][1, 0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_one_query_misaligned_on_card(cuda, dtype):
+    # q, k and v 2 or 4 bytes past a 16-byte boundary: element-by-element
+    # loads
+    q, k, v, lengths, _ = _attn_inputs(55, 4, 1, 200, 16, 64, False, False)
+
+    def shifted(a):
+        t = _t(a).to(cuda, dtype).flatten()
+        return torch.cat([t.new_zeros(1), t])[1:].view(a.shape)
+
+    args = [shifted(a) for a in (q, k, v)]
+    assert all(a.data_ptr() % 16 for a in args)
+    lens = _t(lengths).to(cuda)
+    out = K.decode_attention(*args, lens)
+    ref = K.decode_attention_plain(*args, lens)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_one_query_split_by_batch_on_card(cuda):
+    # B * H blocks below the SM count split the cache axis and merge the
+    # splits in a second kernel; at B = 16 (256 blocks) one kernel; the
+    # kernels read from a trace
+    kda = _kernel_module("decode_attention")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b in (1, 4, 16):
+        q, k, v, lengths, _ = _attn_inputs(57, b, 1, 256, 16, 64, False,
+                                           False)
+        args = [_t(a).to(cuda) for a in (q, k, v)]
+        lens = _t(lengths).to(cuda)
+        names = _trace_names(lambda: K.decode_attention(*args, lens))
+        split = kda.one_split_len(b, 16, 256, sms) < 256
+        assert any("decode_one_kernel" in nm for nm in names), names
+        assert any("decode_block_combine_kernel" in nm
+                   for nm in names) == split, (b, names)
+        assert split == (b * 16 < sms)
+
+
 def _split_l():
     return _kernel_module("decode_attention").SPLIT_L
 
@@ -128,6 +237,50 @@ def test_layer_norm_kernel_on_card(cuda, dtype):
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [256, 512, 1024, 1000])
+@pytest.mark.parametrize("rows", [1, 16, 300, 4096])
+def test_layer_norm_fwd_kernel_on_card(cuda, dtype, n, rows):
+    # both forward paths (n = 1000 is the general one) with the row
+    # statistics the backward reads
+    x, g, b, _ = _ln_bwd_inputs(cuda, dtype, rows, n, seed=31)
+    y, mean, rstd = K.layer_norm_fwd(x, g, b, return_stats=True)
+    ry, rmean, rrstd = K.layer_norm_plain(x, g, b, return_stats=True)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_layer_norm_fwd_picks_its_path_on_card(cuda):
+    # the vector path (a warp per row) where vectors_per_lane says so; the
+    # general path at other n and on a misaligned view; read from the
+    # kernels' names in a trace
+    kln = _kernel_module("layer_norm")
+    cases = [(torch.bfloat16, 1024, 4, False), (torch.float32, 1024, 8, False),
+             (torch.bfloat16, 256, 1, False), (torch.float32, 512, 4, False),
+             (torch.bfloat16, 1000, 0, False), (torch.float32, 96, 0, False),
+             (torch.bfloat16, 2048, 0, False), (torch.bfloat16, 1024, 0, True),
+             (torch.float32, 1024, 0, True)]
+    for dtype, n, nv, shifted in cases:
+        x, g, b, _ = _ln_bwd_inputs(cuda, dtype, 33, n)
+        if shifted:  # rows start one element past a 16-byte boundary
+            x = torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(33, n)
+        assert kln.vectors_per_lane(n, dtype, x, g, b) == nv
+        names = _trace_names(lambda: K.layer_norm_fwd(x, g, b))
+        vec = any("layer_norm_fwd_vec_kernel" in nm for nm in names)
+        gen = any("layer_norm_fwd_kernel<" in nm for nm in names)
+        assert (vec, gen) == (nv > 0, nv == 0), (dtype, n, names)
+        y, mean, rstd = K.layer_norm_fwd(x, g, b, return_stats=True)
+        ry, rmean, rrstd = K.layer_norm_plain(x, g, b, return_stats=True)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
 
 
 def _qmm_inputs(cuda, dtype, m, k, n, seed=13):
@@ -551,7 +704,7 @@ def test_layer_norm_bwd_picks_its_path_on_card(cuda):
         if shifted:  # rows start 2 bytes past a 16-byte boundary
             x = torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(33, n)
         _, mean, rstd = K.layer_norm_plain(x, g, b, return_stats=True)
-        assert kln.bwd_vectors_per_lane(n, dtype, x, dy, g) == nv
+        assert kln.vectors_per_lane(n, dtype, x, dy, g) == nv
         K.layer_norm_bwd(x, g, mean, rstd, dy)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -182,6 +182,141 @@ def test_decode_attention_split_merge_matches_jax(kq, causal, biased, L):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("b,L,split_l", [
+    (1, 256, 64), (4, 256, 128), (16, 256, 256), (1, 200, 64),
+    (4, 200, 128), (16, 200, 200), (1, 17, 17), (8, 256, 128),
+    (2, 256, 64)])
+def test_decode_one_split_len_by_shape(b, L, split_l):
+    # the Kq = 1 kernel splits the cache axis over blocks only while the
+    # B * H = 16 B blocks leave the 132 SMs idle: B = 1 and 4 split, the
+    # B = 16 bucket does not (one block per (b, h), no second pass)
+    assert kda.one_split_len(b, 16, L, sms=132) == split_l
+    assert split_l % kda.ONE_MIN_SPLIT == 0 or split_l == L
+
+
+@pytest.mark.parametrize("b,floats", [(1, 16 * 4 * 66), (4, 4 * 16 * 2 * 66),
+                                      (16, 0)])
+def test_decode_one_workspace_floats(b, floats):
+    # per (b, h, split) the f32 accumulator (D = 64) and (m, l); none when
+    # one block covers L (the kernel writes its output directly)
+    split_l = kda.one_split_len(b, 16, 256, sms=132)
+    assert kda.split_workspace_floats(b, 1, 256, 16, 64, split_l) == floats
+    # never above what the query-block chunks of SPLIT_L would take
+    assert floats <= kda.split_workspace_floats(b, 1, 256, 16, 64)
+
+
+def _one_split_merge(q, k, v, lengths, bias, causal, sm_scale, split_l):
+    """The Kq = 1 kernel's algorithm, written in torch (f32). Block (b,
+    split) walks positions [split * split_l, +split_l) below the row's end
+    (length, + 1 with causal_offset); its NG lane groups (8 warps of 32 /
+    G groups, G lanes covering a row's 16-byte chunks) take positions
+    t0 + u NG + g, U = 4 at a time: m_t = max(m, s), alpha = exp(m - m_t),
+    p = exp(s - m_t) at live positions and 0 elsewhere. The groups merge
+    (m = max m_g, w_g = exp(m_g - m)), then the splits below the end (a
+    second pass when there are several). A row with no live position
+    returns zeros."""
+    b, h, d = q.shape
+    L = k.shape[1]
+    chunks = -(-d // 4)                    # f32: 4 values a 16-byte chunk
+    G = next(g for g in (4, 8, 16, 32, 64) if g >= chunks)
+    ng = 8 * 32 // min(G, 32)
+    n_split = -(-L // split_l)
+
+    def merge(parts):
+        m = torch.stack([pt[0] for pt in parts]).amax(dim=0)
+        w = [torch.exp(pt[0] - m) for pt in parts]
+        return (m, sum(wg * pt[1] for wg, pt in zip(w, parts)),
+                sum(wg[:, None] * pt[2] for wg, pt in zip(w, parts)))
+
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        end = max(0, min(int(lengths[bi]) + int(causal), L))
+        splits = []
+        for l0 in range(0, L, split_l):
+            if n_split > 1 and l0 >= end:
+                continue                   # the block exits, never read
+            l1 = min(l0 + split_l, end)
+            groups = []
+            for g in range(ng):
+                m = torch.full((h,), kcommon.NEG_INF)
+                lsum, acc = torch.zeros(h), torch.zeros(h, d)
+                for t0 in range(l0, l1, ng * 4):
+                    pos = [p for p in (t0 + u * ng + g for u in range(4))
+                           if p < l1]
+                    if not pos:
+                        continue           # alpha 1, every p 0
+                    idx = torch.tensor(pos)
+                    s = torch.einsum("hd,lhd->lh", q[bi], k[bi, idx]) * \
+                        sm_scale
+                    if bias is not None:
+                        s = s + bias[bi, idx][:, None]
+                    mt = torch.maximum(m, s.amax(dim=0))
+                    p = torch.exp(s - mt)
+                    alpha = torch.exp(m - mt)
+                    lsum = lsum * alpha + p.sum(dim=0)
+                    acc = acc * alpha[:, None] + torch.einsum(
+                        "lh,lhd->hd", p, v[bi, idx])
+                    m = mt
+                groups.append((m, lsum, acc))
+            splits.append(merge(groups))
+        if splits:
+            _, lsum, acc = merge(splits)
+            out[bi] = acc / torch.where(lsum == 0.0, torch.ones_like(lsum),
+                                        lsum)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("L", [200, 17])
+@pytest.mark.parametrize("causal,biased", [(False, False), (False, True),
+                                           (True, True)])
+def test_decode_one_split_merge_matches_jax(L, causal, biased):
+    # the Kq = 1 kernel's split-K algorithm against the plain version and
+    # the JAX kernel (interpret mode): B = 3 (L = 200 takes 64-position
+    # splits) with a full row, a row of length 0 (zeros without
+    # causal_offset) and one of length 1
+    q, k, v, lengths, bias = _attn_inputs(43, 3, 1, L, 2, 8, False, biased)
+    lengths[1:] = (0, 1)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    tb = None if bias is None else _t(bias)
+    split_l = kda.one_split_len(3, 2, L, sms=132)
+    assert (split_l < L) == (L == 200)
+    got = _one_split_merge(tq, tk, tv, _t(lengths), tb, causal, 8 ** -0.5,
+                           split_l)
+    assert causal or not got[1].any()
+    plain = K.decode_attention_plain(tq, tk, tv, _t(lengths), bias=tb,
+                                     causal_offset=causal)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # JAX's one-query entry has no causal_offset: with it, the Kq = 1 case
+    # is the query block of one query
+    jq = jnp.asarray(q[:, None] if causal else q)
+    want = np.asarray(jda.decode_attention(
+        jq, jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        bias=None if bias is None else jnp.asarray(bias),
+        causal_offset=causal))
+    np.testing.assert_allclose(got.numpy(), want.reshape(q.shape),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("L", [200, 17])
+@pytest.mark.parametrize("biased", [False, True])
+def test_decode_attention_one_query_b1_matches_jax(L, biased):
+    # the decode bucket B = 1 at a ragged cache length, through the
+    # wrapper (its plain version on CPU tensors), against the Pallas kernel
+    # in interpret mode and the composed reference
+    q, k, v, lengths, bias = _attn_inputs(45, 1, 1, L, 2, 8, False, biased)
+    lengths[0] = L - 3
+    got = K.decode_attention(
+        _t(q), _t(k), _t(v), _t(lengths),
+        bias=None if bias is None else _t(bias)).numpy()
+    jbias = None if bias is None else jnp.asarray(bias)
+    for fn in (jda.decode_attention, jda.decode_attention_xla):
+        want = np.asarray(fn(jnp.asarray(q), jnp.asarray(k),
+                             jnp.asarray(v), jnp.asarray(lengths),
+                             bias=jbias, block_l=8))
+        np.testing.assert_allclose(got, want, **F32)
+
+
 # ---------------------------------------------------------------------------
 # LayerNorm
 # ---------------------------------------------------------------------------
@@ -240,7 +375,36 @@ def test_layer_norm_bwd_path_by_shape(dtype, n, nv):
     # is 32 lanes x 16 bytes x nv, nv a supported count; else the general
     # path (0). The choice is the wrapper's, made before the launch.
     x = torch.zeros(3, n, dtype=dtype)
-    assert kln.bwd_vectors_per_lane(n, dtype, x, x) == nv
+    assert kln.vectors_per_lane(n, dtype, x, x) == nv
+
+
+@pytest.mark.parametrize("dtype,n,nv", [
+    (torch.bfloat16, 1024, 4), (torch.bfloat16, 512, 2),
+    (torch.bfloat16, 256, 1), (torch.float32, 1024, 8),
+    (torch.float32, 512, 4), (torch.float32, 256, 2),
+    (torch.float32, 128, 1), (torch.bfloat16, 1000, 0),
+    (torch.float32, 1000, 0), (torch.bfloat16, 2048, 0),
+    (torch.float32, 2048, 0), (torch.bfloat16, 128, 0)])
+def test_layer_norm_fwd_path_by_shape(dtype, n, nv):
+    # the forward's vector path (a warp per row) for rows of 32 lanes x 16
+    # bytes x nv; any other n takes the general path (0); x, gamma and beta
+    # aligned here
+    x = torch.zeros(3, n, dtype=dtype)
+    g = torch.zeros(n)
+    assert kln.vectors_per_lane(n, dtype, x, g, g) == nv
+
+
+def test_layer_norm_fwd_takes_the_general_path_off_alignment():
+    x = torch.zeros(3 * 1024 + 4)
+    g = torch.zeros(1024 + 4)
+    aligned, shifted = x[:3 * 1024].view(3, 1024), x[1:3 * 1024 + 1].view(
+        3, 1024)                                   # 4 bytes in
+    assert kln.vectors_per_lane(1024, torch.float32, aligned, g[:1024],
+                                g[:1024]) == 8
+    assert kln.vectors_per_lane(1024, torch.float32, shifted, g[:1024],
+                                g[:1024]) == 0
+    assert kln.vectors_per_lane(1024, torch.float32, aligned, g[:1024],
+                                g[2:]) == 0        # beta 8 bytes in
 
 
 def test_layer_norm_bwd_takes_the_general_path_off_alignment():
@@ -248,8 +412,8 @@ def test_layer_norm_bwd_takes_the_general_path_off_alignment():
     aligned = x[:3 * 1024].view(3, 1024)
     shifted = x[1:3 * 1024 + 1].view(3, 1024)     # 2 bytes in
     assert aligned.data_ptr() % 16 == 0
-    assert kln.bwd_vectors_per_lane(1024, torch.bfloat16, aligned) == 4
-    assert kln.bwd_vectors_per_lane(1024, torch.bfloat16, aligned,
+    assert kln.vectors_per_lane(1024, torch.bfloat16, aligned) == 4
+    assert kln.vectors_per_lane(1024, torch.bfloat16, aligned,
                                     shifted) == 0
 
 
