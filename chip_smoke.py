@@ -51,16 +51,20 @@ beside another tree's package measures that tree's serving path.
    1024, f32 and bf16, 16 to 4096 rows, the row statistics checked at
    4096; the general one at n = 1000), the backward on both of its paths
    (the vector path at n = 1024, the general one at n = 1000 and forced
-   at 1024), its dgamma and dbeta bitwise equal over two runs. The
-   registers and spills ``ptxas`` reports for the tensor-core backward
-   kernels, QuantMatMul, the LayerNorm kernels and the Kq = 1
-   DecodeAttention are printed after the build. The redesigned kernels
-   (the Kq = 1 DecodeAttention, the LayerNorm forward) and those that must
-   hold their times get one line each at the end: the time before the
-   redesign (``EARLIER_MS``), this run's, the bound and the library
-   call's; the LM training phase prints its device time a step beside the
-   one before, and its profiler windows must show both LayerNorm kernels
-   on their vector paths.
+   at 1024), its dgamma and dbeta bitwise equal over two runs; the fused
+   dropout-residual (K4) on both of its paths at four shapes; the threefry
+   Dropout forward (values and keep bits) and its backward from those
+   bits at both training shapes, the next key's values, bits and backward
+   as planted faults. The registers and spills ``ptxas`` reports for the
+   tensor-core backward kernels, QuantMatMul, the LayerNorm kernels, the
+   Kq = 1 DecodeAttention and the dropout kernels are printed after the
+   build. The redesigned kernels (the Dropout and K4) and
+   those that must hold their times get one line each at the end: the
+   time before the redesign (``EARLIER_MS``), this run's, the bound and
+   the library call's; the LM training phase prints its device time a
+   step beside the one before and one step's peak memory at both dropout
+   rates, and its profiler windows must show both LayerNorm kernels and,
+   at dropout 0.1, the three dropout kernels on their vector paths.
 3. Serving phase: ``GenerativeEngine`` over ``CausalLMGenerativeModel``
    at ``TransformerConfig.big()`` width (6 layers, d_model 1024, 16
    heads, vocab 32768) with seeded random weights, 12 requests of 17-96
@@ -147,54 +151,69 @@ PEAK_OPS_PER_S = {torch.float32: 67e12,      # f32 outside tensor cores
                   torch.int8: 1979e12}       # dense int8 tensor cores
 # 32-bit integer operations: an SM issues at most 4 warp instructions (128
 # lane operations) a clock, half the 67e12 f32 rate, which counts an FMA as
-# two operations. The 64 integer ALU lanes of an SM are not a bound: the
-# compiler moves integer adds and multiplies to the FMA pipes.
+# two operations. Adds, multiplies, shifts and rotates may issue on the FMA
+# pipe (IMAD, IMAD.SHL, IMAD.HI, IMAD.WIDE) as well as the integer ALU;
+# logic ops and compares (LOP3, ISETP) run only on the ALU, 64 lanes a clock
+# an SM: half that rate.
 INT32_OPS_PER_S = 67e12 / 2
+ALU_OPS_PER_S = INT32_OPS_PER_S / 2
 # integer operations an element: K0 (the counter-hash keep mask, two
 # murmur finalizers of 3 shifts, 3 xors and 2 multiplies, two xors and a
-# compare; the per-(seed, salt) hash hoisted) and threefry-2x32 (20 rounds
-# of add, rotate and xor; 5 key injections of two adds; two initial adds,
-# the final xor, the shift and or to a float, the compare)
+# compare; the per-(seed, salt) hash hoisted)
 K0_OPS = 19
-THREEFRY_OPS = 76
+# threefry-2x32 and the keep test, an element, in the fewest instructions:
+# 20 round adds, 5 injections into b, the last injection into a (the other
+# four fold into the next round's IADD3), the counter's add and 20 rotates,
+# any of which may issue on the FMA pipe (a rotate as IMAD.WIDE.U32 by 2^r,
+# its two halves OR-ed inside the round's 3-input xor); only the 20 xors of
+# the rounds, the final xor and the integer compare need the ALU
+THREEFRY_ALU_OPS = 22
+THREEFRY_OPS = 69
 DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
-# times before the redesign of the Kq = 1 DecodeAttention and the LayerNorm
-# forward, and of the kernels that must hold theirs within 5% (this script's
-# run 9 of the previous redesign on an NVIDIA H100 80GB HBM3 at 700 W,
-# PERF.md §6)
-EARLIER_MS = {"decode_attention": (0.07464, "redesigned"),
-              "decode_attention@B1": (0.07250, "redesigned"),
-              "decode_attention@B4": (0.06715, "redesigned"),
-              "decode_attention@bf16": (0.07470, "redesigned"),
-              "layer_norm": (0.00256, "redesigned"),
-              "layer_norm@train": (0.01324, "redesigned"),
-              "layer_norm@train_f32": (0.01403, "redesigned"),
-              "layer_norm@general": (None, "unchanged"),
-              "quant_matmul": (0.01858, "unchanged"),
-              "layer_norm_bwd": (0.01486, "unchanged"),
-              "flash_attention_dkdv": (0.03431, "unchanged"),
-              "flash_attention_dq": (0.02845, "unchanged"),
-              "flash_attention_dkdv_dropout": (0.04056, "unchanged"),
-              "flash_attention_dq_dropout": (0.03399, "unchanged"),
-              "flash_attention_fwd": (0.02976, "unchanged"),
-              "flash_attention_fwd_dropout": (0.03498, "unchanged"),
-              "flash_attention_fwd@f32": (0.16257, "unchanged"),
-              "flash_attention_dkdv@f32": (0.27577, "unchanged"),
-              "flash_attention_dq@f32": (0.22372, "unchanged"),
-              "decode_attention_block": (0.01410, "unchanged"),
-              "softmax_xent_fwd": (0.15321, "unchanged"),
-              "softmax_xent_bwd": (0.20227, "unchanged"),
+# times before the redesign of the threefry Dropout and the fused
+# dropout-residual (K4), and of the kernels that must hold theirs within 5%
+# (this script's run 4 of the previous redesign on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md §6); the ragged K4 rows come from the same run
+EARLIER_MS = {"dropout": (0.07672, "redesigned"),
+              "dropout_bwd": (0.07645, "redesigned"),
+              "dropout@embedding": (0.02124, "redesigned"),
+              "dropout_bwd@embedding": (0.02127, "redesigned"),
+              "dropout_residual": (0.01564, "redesigned"),
+              "dropout_residual_bwd": (0.01459, "redesigned"),
+              "dropout_residual@ragged_f32": (0.00173, "redesigned"),
+              "dropout_residual_bwd@ragged_f32": (0.00163, "redesigned"),
+              "dropout_residual@ragged_bf16": (0.00172, "redesigned"),
+              "dropout_residual_bwd@ragged_bf16": (0.00170, "redesigned"),
+              "dropout_residual@f32": (None, "redesigned"),
+              "decode_attention": (0.01025, "unchanged"),
+              "decode_attention@B1": (0.00659, "unchanged"),
+              "decode_attention@B4": (0.00771, "unchanged"),
+              "decode_attention@bf16": (0.00794, "unchanged"),
+              "layer_norm": (0.00251, "unchanged"),
+              "layer_norm@train": (0.00741, "unchanged"),
+              "layer_norm@train_f32": (0.01177, "unchanged"),
+              "layer_norm@general": (0.01606, "unchanged"),
+              "quant_matmul": (0.01869, "unchanged"),
+              "layer_norm_bwd": (0.01363, "unchanged"),
+              "flash_attention_dkdv": (0.03412, "unchanged"),
+              "flash_attention_dq": (0.02863, "unchanged"),
+              "flash_attention_dkdv_dropout": (0.04034, "unchanged"),
+              "flash_attention_dq_dropout": (0.03524, "unchanged"),
+              "flash_attention_fwd": (0.03059, "unchanged"),
+              "flash_attention_fwd_dropout": (0.03430, "unchanged"),
+              "flash_attention_fwd@f32": (0.16162, "unchanged"),
+              "flash_attention_dkdv@f32": (0.27513, "unchanged"),
+              "flash_attention_dq@f32": (0.22393, "unchanged"),
+              "decode_attention_block": (0.01416, "unchanged"),
+              "softmax_xent_fwd": (0.15245, "unchanged"),
+              "softmax_xent_bwd": (0.20225, "unchanged"),
               "softmax_xent_fwd@resnet": (0.00388, "unchanged"),
-              "softmax_xent_bwd@resnet": (0.00316, "unchanged"),
-              "adam_update": (0.70235, "unchanged"),
-              "momentum_update": (0.13924, "unchanged"),
-              "dropout_residual": (0.01554, "unchanged"),
-              "dropout_residual_bwd": (0.01416, "unchanged"),
-              "dropout": (0.07574, "unchanged"),
-              "dropout_bwd": (0.07637, "unchanged")}
+              "softmax_xent_bwd@resnet": (0.00309, "unchanged"),
+              "adam_update": (0.70266, "unchanged"),
+              "momentum_update": (0.13832, "unchanged")}
 # LM training device ms a step at dropout 0.1 and 0 before this redesign
 # (the same run)
-EARLIER_TRAIN_DEVICE_MS = {0.1: 10.9860, 0.0: 9.6914}
+EARLIER_TRAIN_DEVICE_MS = {0.1: 10.9258, 0.0: 9.5895}
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
@@ -252,13 +271,15 @@ def n_copies(bytes_per_call: int) -> int:
     return max(1, min(64, math.ceil(2 * L2_BYTES / max(bytes_per_call, 1))))
 
 
-def bound_ms(nbytes: float, ops: float, op_dtype, int_ops: float = 0.0
-             ) -> tuple:
+def bound_ms(nbytes: float, ops: float, op_dtype, int_ops: float = 0.0,
+             alu_ops: float = 0.0) -> tuple:
     """The least time for ``nbytes`` moved, ``ops`` operations of
-    ``op_dtype`` and ``int_ops`` 32-bit integer operations (the two kinds
-    of operation run on separate units: the slower one bounds)."""
+    ``op_dtype`` and ``int_ops`` 32-bit integer operations, ``alu_ops`` of
+    them ALU-only (the kinds of operation run on separate units: the
+    slowest one bounds)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(ops / PEAK_OPS_PER_S[op_dtype], int_ops / INT32_OPS_PER_S)
+    t_ops = max(ops / PEAK_OPS_PER_S[op_dtype], int_ops / INT32_OPS_PER_S,
+                alu_ops / ALU_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -877,19 +898,25 @@ def check_exact(name, out, ref):
 
 def phase_dropout_residual(K, gen, dev):
     """The fused dropout-residual kernel (K4) at the training shape, bf16
-    (4096, 1024) without a bias (the attention tail of every layer), and
-    at ragged f32 (300, 96) and bf16 (37, 1000) with a bias; forward and
-    the backward's dx. Bit-exact with the plain versions, on random inputs
-    and on x = ones, where the output is the mask itself (0 mismatches);
-    the mask of salt 1 must differ (a planted fault). Yardstick:
-    ``F.dropout(x) + residual`` and ``F.dropout(g)``, similar work with
-    another mask."""
+    (4096, 1024) without a bias (the attention tail of every layer), at
+    ragged f32 (300, 96) and bf16 (37, 1000) with a bias, and at f32
+    (4096, 1024); forward and the backward's dx through the wrappers
+    (``dropout_residual_fwd``, ``dropout_residual_bwd``: the path
+    ``vectors_per_lane`` picks, the vector path, a warp per row, but for
+    37 rows) and with the other path forced. Bit-exact with the plain
+    versions on both paths, on random inputs and on x = ones, where the
+    output is the mask itself (0 mismatches); the mask of salt 1 must
+    differ (a planted fault). Yardstick: ``F.dropout(x) +
+    residual`` and ``F.dropout(g)``, similar work with another mask."""
     import torch.nn.functional as F
 
+    kdr = importlib.import_module(KMOD + "dropout_residual")
     main = {}
-    for dtype, rows, n, biased in ((torch.bfloat16, 4096, 1024, False),
-                                   (torch.float32, 300, 96, True),
-                                   (torch.bfloat16, 37, 1000, True)):
+    for dtype, rows, n, biased, key in (
+            (torch.bfloat16, 4096, 1024, False, ""),
+            (torch.float32, 300, 96, True, "@ragged_f32"),
+            (torch.bfloat16, 37, 1000, True, "@ragged_bf16"),
+            (torch.float32, 4096, 1024, False, "@f32")):
         elem = elem_size(dtype)
         copies = [tuple(torch.randn((rows, n), generator=gen, device=dev)
                         .to(dtype) for _ in range(2))
@@ -898,75 +925,112 @@ def phase_dropout_residual(K, gen, dev):
                 if biased else None)
         kw = dict(rate=DROPOUT_RATE, seed=K4_SEED)
         x, res = copies[0]
+        tensors = [x, res] + ([bias] if biased else [])
+        picked = kdr.vectors_per_lane(rows, n, dtype, *tensors)
+        # the vector path's count at this width, taken at any row count
+        nv = kdr.vectors_per_lane(max(rows, kdr.VEC_MIN_ROWS), n, dtype,
+                                  *tensors)
         tag = (f"{str(dtype)[6:]} rows={rows} n={n}"
                f"{' bias' if biased else ''}")
-        err_f = check_exact(f"dropout_residual {tag}",
-                            K.dropout_residual_fwd(x, res, bias, **kw),
-                            K.dropout_residual_fwd_plain(x, res, bias, **kw))
-        err_b = check_exact(f"dropout_residual_bwd {tag}",
-                            K.dropout_residual_bwd(x, **kw),
-                            K.dropout_residual_bwd_plain(x, **kw))
+        if not nv:
+            fail(f"dropout_residual {tag}: no vector path at this width")
+
+        # path None: the wrappers, which pick the path; else the path forced
+        def fwd(c, path, b=bias):
+            if path is None:
+                return K.dropout_residual_fwd(c[0], c[1], b, **kw)
+            return kdr.launch("dropout_residual", c[0], c[1], b,
+                              DROPOUT_RATE, K4_SEED, path)
+
+        def bwd(c, path):
+            if path is None:
+                return K.dropout_residual_bwd(c[0], **kw)
+            return kdr.launch("dropout_residual_bwd", c[0], None, None,
+                              DROPOUT_RATE, K4_SEED, path)
+
         ones = torch.ones((rows, n), dtype=dtype, device=dev)
         zeros = torch.zeros_like(ones)
-        got = K.dropout_residual_fwd(ones, zeros, **kw)
-        miss = mismatches(got, K.dropout_residual_fwd_plain(ones, zeros,
-                                                             **kw))
-        miss_b = mismatches(K.dropout_residual_bwd(ones, **kw),
-                            K.dropout_residual_bwd_plain(ones, **kw))
         rr = torch.arange(rows, device=dev)[:, None]
         cc = torch.arange(n, device=dev)[None, :]
         salt1 = K.counter_keep_mask_plain(K4_SEED, 1, rr, cc,
-                                                 1.0 - DROPOUT_RATE)
-        fault = mismatches(got != 0, salt1)
-        kept = (got != 0).float().mean().item()
-        print(f"  dropout_residual {tag}: x = ones, kernel vs plain "
-              f"mismatches fwd {miss} bwd {miss_b}; against the salt-1 "
-              f"mask {fault}; kept {kept:.5f}", flush=True)
-        if miss or miss_b or not fault:
-            fail(f"dropout_residual {tag}: mask mismatches {miss}/{miss_b}, "
-                 f"salt-1 fault mismatches {fault}")
-        ms_f = device_ms([lambda c=c: K.dropout_residual_fwd(
-            c[0], c[1], bias, **kw) for c in copies])
-        plain_f = device_ms([lambda c=c: K.dropout_residual_fwd_plain(
-            c[0], c[1], bias, **kw) for c in copies])
-        ms_b = device_ms([lambda c=c: K.dropout_residual_bwd(c[0], **kw)
-                          for c in copies])
-        plain_b = device_ms([lambda c=c: K.dropout_residual_bwd_plain(
-            c[0], **kw) for c in copies])
-        lib_f = event_ms(lambda: F.dropout(x, DROPOUT_RATE) + res, reps=20)
-        lib_b = event_ms(lambda: F.dropout(x, DROPOUT_RATE), reps=20)
-        nb = elem * (n if biased else 0)
-        bnd_f = bound_ms(3 * rows * n * elem + nb, 2 * rows * n,
-                         torch.float32, K0_OPS * rows * n)
-        bnd_b = bound_ms(2 * rows * n * elem, rows * n, torch.float32,
-                         K0_OPS * rows * n)
-        report(f"dropout_residual {tag}", err_f, ms_f, plain_f, bnd_f, lib_f)
-        report(f"dropout_residual_bwd {tag}", err_b, ms_b, plain_b, bnd_b,
-               lib_b)
-        if rows == 4096:
-            main["dropout_residual"] = kernel_row(
-                err_f, ms_f, plain_f, bnd_f, lib_f, f"dropout_residual {tag}")
-            main["dropout_residual_bwd"] = kernel_row(
-                err_b, ms_b, plain_b, bnd_b, lib_b,
-                f"dropout_residual_bwd {tag}")
+                                          1.0 - DROPOUT_RATE)
+        paths = ((None, f"vector path, {nv} vectors a lane, picked"),
+                 (0, "general path, forced")) if picked else \
+            ((None, "general path, picked"),
+             (nv, f"vector path, {nv} vectors a lane, forced"))
+        for path, label in paths:
+            err_f = check_exact(f"dropout_residual {tag} ({label})",
+                                fwd(copies[0], path),
+                                K.dropout_residual_fwd_plain(x, res, bias,
+                                                             **kw))
+            err_b = check_exact(f"dropout_residual_bwd {tag} ({label})",
+                                bwd(copies[0], path),
+                                K.dropout_residual_bwd_plain(x, **kw))
+            got = fwd((ones, zeros), path, None)
+            miss = mismatches(got, K.dropout_residual_fwd_plain(
+                ones, zeros, None, **kw))
+            miss_b = mismatches(bwd((ones,), path),
+                                K.dropout_residual_bwd_plain(ones, **kw))
+            fault = mismatches(got != 0, salt1)
+            kept = (got != 0).float().mean().item()
+            print(f"  dropout_residual {tag} ({label}): x = ones, kernel vs "
+                  f"plain mismatches fwd {miss} bwd {miss_b}; against the "
+                  f"salt-1 mask {fault}; kept {kept:.5f}", flush=True)
+            if miss or miss_b or not fault:
+                fail(f"dropout_residual {tag} ({label}): mask mismatches "
+                     f"{miss}/{miss_b}, salt-1 fault mismatches {fault}")
+            ms_f = device_ms([lambda c=c: fwd(c, path) for c in copies])
+            ms_b = device_ms([lambda c=c: bwd(c, path) for c in copies])
+            if path is None:
+                plain_f = device_ms([
+                    lambda c=c: K.dropout_residual_fwd_plain(
+                        c[0], c[1], bias, **kw) for c in copies])
+                plain_b = device_ms([
+                    lambda c=c: K.dropout_residual_bwd_plain(c[0], **kw)
+                    for c in copies])
+                lib_f = event_ms(lambda: F.dropout(x, DROPOUT_RATE) + res,
+                                 reps=20)
+                lib_b = event_ms(lambda: F.dropout(x, DROPOUT_RATE),
+                                 reps=20)
+            nb = elem * (n if biased else 0)
+            bnd_f = bound_ms(3 * rows * n * elem + nb, 2 * rows * n,
+                             torch.float32, K0_OPS * rows * n)
+            bnd_b = bound_ms(2 * rows * n * elem, rows * n, torch.float32,
+                             K0_OPS * rows * n)
+            report(f"dropout_residual {tag} ({label})", err_f, ms_f,
+                   plain_f, bnd_f, lib_f)
+            report(f"dropout_residual_bwd {tag} ({label})", err_b, ms_b,
+                   plain_b, bnd_b, lib_b)
+            if path is None:
+                main["dropout_residual" + key] = kernel_row(
+                    err_f, ms_f, plain_f, bnd_f, lib_f,
+                    f"dropout_residual {tag}")
+                main["dropout_residual_bwd" + key] = kernel_row(
+                    err_b, ms_b, plain_b, bnd_b, lib_b,
+                    f"dropout_residual_bwd {tag}")
         del copies
     print("  (dropout_residual library: F.dropout(x) + residual and "
           "F.dropout(g), similar work with another mask, CUDA events "
-          "around eager calls)", flush=True)
+          "around eager calls; the forced path's plain and library "
+          "columns are the picked path's)", flush=True)
     return main
 
 
 def phase_dropout(K, gen, dev):
-    """The threefry Dropout kernel at the training shapes, bf16: (16, 256,
-    4096) after each FFN-input ReLU and (16, 256, 1024) on the embedding;
-    forward and backward (the same function of the cotangent). Bit-exact
-    with the plain version, on random inputs and on x = ones (0
-    mismatches); the key's second word plus one must differ (a planted
-    fault). Yardstick: ``F.dropout``, similar work with another mask."""
+    """The threefry Dropout kernels at the training shapes, bf16: (16,
+    256, 4096) after each FFN-input ReLU and (16, 256, 1024) on the
+    embedding; the forward (values and keep bits) and the backward from
+    those bits. Bit-exact with the plain versions, on random inputs and on
+    x = ones (0 mismatches); the key's second word plus one must differ in
+    the values and in the bits (planted faults). Yardsticks: ``F.dropout``
+    (similar work, another mask) and ``aten.native_dropout_backward`` on a
+    bool mask (the backward's same work, a mask byte an element)."""
     import torch.nn.functional as F
 
+    kdo = importlib.import_module(KMOD + "dropout")
     main = {}
     keep_prob = 1.0 - DROPOUT_RATE
+    other = (DROPOUT_KEY[0], DROPOUT_KEY[1] + 1)
     for shape, key in (((TRAIN_B, TRAIN_S, 4096), "dropout"),
                        ((TRAIN_B, TRAIN_S, 1024), "dropout@embedding")):
         dtype = torch.bfloat16
@@ -976,47 +1040,85 @@ def phase_dropout(K, gen, dev):
                   for _ in range(n_copies(2 * numel * elem))]
         x = copies[0]
         tag = f"bf16 {shape} keep_prob {keep_prob}"
-        err_f = check_exact(f"dropout {tag}",
-                            K.dropout_fwd(x, keep_prob, DROPOUT_KEY),
+        if not kdo.vector_path(numel, x):
+            fail(f"dropout {tag}: not on the vector path")
+        keep = kdo.keep_mask_plain(shape, keep_prob, DROPOUT_KEY, dev)
+        out, bits = K.dropout_fwd(x, keep_prob, DROPOUT_KEY,
+                                  return_bits=True)
+        err_f = check_exact(f"dropout {tag}", out,
                             K.dropout_plain(x, keep_prob, DROPOUT_KEY))
+        check_exact(f"dropout {tag} bits", bits,
+                    kdo.pack_keep_bits_plain(keep))
+        g = copies[-1]
         err_b = check_exact(f"dropout_bwd {tag}",
-                            K.dropout_bwd(x, keep_prob, DROPOUT_KEY),
-                            K.dropout_plain(x, keep_prob, DROPOUT_KEY))
+                            K.dropout_bwd(g, keep_prob, bits),
+                            K.dropout_plain(g, keep_prob, DROPOUT_KEY))
         ones = torch.ones(shape, dtype=dtype, device=dev)
-        got = K.dropout_fwd(ones, keep_prob, DROPOUT_KEY)
+        got, got_bits = K.dropout_fwd(ones, keep_prob, DROPOUT_KEY,
+                                      return_bits=True)
         miss = mismatches(got, K.dropout_plain(ones, keep_prob,
                                                 DROPOUT_KEY))
-        other = (DROPOUT_KEY[0], DROPOUT_KEY[1] + 1)
+        miss_b = mismatches(K.dropout_bwd(ones, keep_prob, got_bits),
+                            K.dropout_plain(ones, keep_prob, DROPOUT_KEY))
         fault = mismatches(got, K.dropout_plain(ones, keep_prob, other))
+        bad_bits = kdo.pack_keep_bits_plain(
+            kdo.keep_mask_plain(shape, keep_prob, other, dev))
+        fault_bits = mismatches(got_bits, bad_bits)
+        fault_b = mismatches(K.dropout_bwd(ones, keep_prob, got_bits),
+                             kdo.dropout_bwd_bits_plain(ones, bad_bits,
+                                                        keep_prob))
         kept = (got != 0).float().mean().item()
-        print(f"  dropout {tag}: x = ones, kernel vs plain mismatches "
-              f"{miss}; against the next key {fault}; kept {kept:.5f}, "
-              f"kept value {got.max().item()}", flush=True)
-        if miss or not fault:
-            fail(f"dropout {tag}: mask mismatches {miss}, next-key fault "
-                 f"mismatches {fault}")
-        ms_f = device_ms([lambda c=c: K.dropout_fwd(c, keep_prob,
-                                                     DROPOUT_KEY)
-                          for c in copies])
+        print(f"  dropout {tag}: x = ones, kernel vs plain mismatches fwd "
+              f"{miss} bwd {miss_b}; against the next key: values {fault}, "
+              f"mask bytes {fault_bits}, backward {fault_b}; kept "
+              f"{kept:.5f}, kept value {got.max().item()}", flush=True)
+        if miss or miss_b or not (fault and fault_bits and fault_b):
+            fail(f"dropout {tag}: mask mismatches {miss}/{miss_b}, "
+                 f"next-key faults {fault}/{fault_bits}/{fault_b}")
+        del ones, got, got_bits, bad_bits, keep
+        saved = [K.dropout_fwd(c, keep_prob, DROPOUT_KEY,
+                               return_bits=True)[1] for c in copies]
+        ms_f = device_ms([lambda c=c: K.dropout_fwd(
+            c, keep_prob, DROPOUT_KEY, return_bits=True) for c in copies])
         plain_f = device_ms([lambda c=c: K.dropout_plain(c, keep_prob,
                                                           DROPOUT_KEY)
                              for c in copies])
-        ms_b = device_ms([lambda c=c: K.dropout_bwd(c, keep_prob,
-                                                     DROPOUT_KEY)
-                          for c in copies])
-        lib = event_ms(lambda: F.dropout(x, DROPOUT_RATE), reps=20)
-        bnd = bound_ms(2 * numel * elem, numel, torch.float32,
-                       THREEFRY_OPS * numel)
-        report(f"dropout {tag}", err_f, ms_f, plain_f, bnd, lib)
-        report(f"dropout_bwd {tag}", err_b, ms_b, plain_f, bnd, lib)
-        main[key] = kernel_row(err_f, ms_f, plain_f, bnd, lib,
+        ms_b = device_ms([lambda c=c, b=b: K.dropout_bwd(c, keep_prob, b)
+                          for c, b in zip(copies, saved)])
+        plain_b = device_ms([
+            lambda c=c, b=b: kdo.dropout_bwd_bits_plain(c, b, keep_prob)
+            for c, b in zip(copies, saved)])
+        lib_f = event_ms(lambda: F.dropout(x, DROPOUT_RATE), reps=20)
+        masks = [torch.rand(shape, generator=gen, device=dev) < keep_prob
+                 for _ in copies]
+        lib_b = device_ms([
+            lambda c=c, m=m: torch.ops.aten.native_dropout_backward(
+                c, m, 1.0 / keep_prob) for c, m in zip(copies, masks)])
+        del masks, saved
+        bits_bytes = -(-numel // 8)
+        bnd_f = bound_ms(2 * numel * elem + bits_bytes, 0, torch.float32,
+                         THREEFRY_OPS * numel, THREEFRY_ALU_OPS * numel)
+        bnd_b = bound_ms(2 * numel * elem + bits_bytes, numel,
+                         torch.float32)
+        report(f"dropout {tag}", err_f, ms_f, plain_f, bnd_f, lib_f)
+        report(f"dropout_bwd {tag} (from the bits)", err_b, ms_b, plain_b,
+               bnd_b, lib_b)
+        bkey = key.replace("dropout", "dropout_bwd")
+        print(f"  dropout_bwd {tag}: from the saved bits {ms_b:.5f} ms, "
+              f"by regenerating the mask before this redesign "
+              f"{EARLIER_MS[bkey][0]:.5f} ms", flush=True)
+        main[key] = kernel_row(err_f, ms_f, plain_f, bnd_f, lib_f,
                                f"dropout {tag}")
-        main[key.replace("dropout", "dropout_bwd")] = kernel_row(
-            err_b, ms_b, plain_f, bnd, lib, f"dropout_bwd {tag}")
+        main[bkey] = kernel_row(err_b, ms_b, plain_b, bnd_b, lib_b,
+                                f"dropout_bwd {tag}")
         del copies
-    print("  (dropout library: F.dropout, similar work with another mask, "
-          "CUDA events around eager calls; dropout_bwd's plain version is "
-          "the forward's)", flush=True)
+    print(f"  (dropout bounds: the forward's the largest of its bytes "
+          f"(2 + 2 + 1/8 an element), {THREEFRY_OPS} integer instructions "
+          f"an element at 128 lanes a clock an SM and {THREEFRY_ALU_OPS} "
+          f"ALU-only ones at 64; the backward's its bytes. Library: "
+          f"F.dropout, similar work with another mask, CUDA events around "
+          f"eager calls; native_dropout_backward on a bool mask)",
+          flush=True)
     return main
 
 
@@ -1863,8 +1965,11 @@ def train_phase(K, cfg, params, dev, kernel_rows):
           f"at the p50", flush=True)
     # the LayerNorm forward and backward on their vector paths
     ln_vec = ("layer_norm_fwd_vec_kernel", "layer_norm_bwd_vec_kernel")
+    # and at dropout 0.1 the three dropout kernels on theirs
+    drop_vec = ("dropout_vec_kernel", "dropout_bwd_vec_kernel",
+                "dropout_residual_vec_kernel")
     busy = profile_steps(trainer, batch, f"dropout {cfg.dropout}",
-                         need=ln_vec)
+                         need=ln_vec + (drop_vec if cfg.dropout else ()))
     busy0 = profile_steps(trainer0, batch, "dropout 0", top=5, need=ln_vec)
     if busy is not None and busy0 is not None:
         print(f"train[bf16]: dropout {cfg.dropout} adds {busy - busy0:.4f} "
@@ -1874,7 +1979,30 @@ def train_phase(K, cfg, params, dev, kernel_rows):
             print(f"train[bf16]: device time a step at dropout {rate}: "
                   f"{ms:.4f} ms, before the redesign {old:.4f} ms "
                   f"({ms - old:+.4f} ms)", flush=True)
+    peaks = {rate: step_peak_mib(t, batch)
+             for rate, t in ((cfg.dropout, trainer), (0.0, trainer0))}
+    tok = TRAIN_B * TRAIN_S
+    bits_mib = (cfg.num_layers * -(-tok * cfg.d_ff // 8)
+                + -(-tok * cfg.d_model // 8)) / 2 ** 20
+    print(f"train[bf16]: peak device memory of one step above the "
+          f"trainer's resident state: {peaks[cfg.dropout]:.3f} MiB at "
+          f"dropout {cfg.dropout}, {peaks[0.0]:.3f} MiB at 0 "
+          f"({peaks[cfg.dropout] - peaks[0.0]:+.3f} MiB); the Dropout keep "
+          f"bits saved for the backward take {bits_mib:.3f} MiB of it",
+          flush=True)
     return paths
+
+
+def step_peak_mib(trainer, batch):
+    """MiB one training step allocates at its peak above what was
+    allocated before it (activations saved for the backward, gradients'
+    temporaries)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer.step(*batch)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
 def bf16_windows(K, cfgs, params, batch, dev):
@@ -2241,7 +2369,8 @@ def main():
             spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
-    for prefix in ("flash_bwd_", "qmm_", "layer_norm_", "decode_one"):
+    for prefix in ("flash_bwd_", "qmm_", "layer_norm_", "decode_one",
+                   "dropout"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
 

@@ -54,8 +54,10 @@ SIGNATURES = {
     "stf_softmax_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     "stf_adam_update": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _P],
     "stf_momentum_update": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
-    "stf_dropout_residual": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _P],
-    "stf_dropout": [_P, _P, _L, _U, _U, _F, _F, _I, _P],
+    "stf_dropout_residual": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _I,
+                             _P],
+    "stf_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _I, _I, _P],
+    "stf_dropout_bwd": [_P, _P, _P, _L, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,8 @@ Replaces the TPU kernel ``simple_tensorflow_tpu/ops/pallas/
 dropout_residual.py:_kernel`` (called at :71) and its custom VJP
 (``_dbr_bwd_rule``, :99-115). The keep mask is K0, the counter hash of
 (seed, salt 0, global row, column) (``common.counter_keep_mask_plain``),
-so the backward regenerates it from the int32 seed and nothing is saved:
+so the backward regenerates it from the int32 seed and nothing is saved,
+as the JAX VJP saves nothing:
 
 - forward: ``out = (residual + where(keep, (x + bias) * f32(1/kp), 0))``
   in f32, rounded once to ``x``'s dtype;
@@ -15,9 +16,12 @@ so the backward regenerates it from the int32 seed and nothing is saved:
   JAX sums it outside Pallas.
 
 The kernel-level functions take ``(rows, n)`` contiguous tensors;
-:func:`dropout_bias_residual` takes any ``(..., n)``. Bytes and integer
-operations are close on the card; the source note in
-``csrc/dropout_residual.cu`` says what the design does.
+:func:`dropout_bias_residual` takes any ``(..., n)``. Bound by bytes on
+the card. The kernel has a vector path, a warp per row with 16-byte loads
+and the row hash taken once a row, for the rows :func:`vectors_per_lane`
+admits, and a general path, one element a thread, for any other width or
+a misaligned view; the source note in ``csrc/dropout_residual.cu`` says
+more.
 """
 
 from __future__ import annotations
@@ -25,9 +29,16 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import (DTYPE_CODES, check_cuda_arg, check_status,
+from .common import (DTYPE_CODES, cdiv, check_cuda_arg, check_status,
                      count_launch, counter_keep_mask_plain, keep_threshold,
                      scale_kept, seed_word, uses_kernel)
+
+# 16-byte vectors a lane the vector path holds: those of the shipped
+# widths, d_model 512 and 1024 (a row of at most 1024 values)
+VEC_NV = {torch.bfloat16: (2, 4), torch.float32: (4, 8)}
+# rows below which the general path's grid (a block per 256 columns of a
+# row) keeps more SMs busy than the vector path's warp per row
+VEC_MIN_ROWS = 128
 
 
 def keep_mask_plain(rows, n, seed, keep_prob, device):
@@ -54,9 +65,22 @@ def dropout_residual_bwd_plain(g, *, rate, seed):
     return scale_kept(g.float(), keep, keep_prob).to(g.dtype)
 
 
-def _launch(name, x, residual, bias, rate, seed):
+def vectors_per_lane(rows, n, dtype, *tensors) -> int:
+    """Which kernel takes ``rows`` rows of ``n`` values of ``dtype``: the
+    vector path's 16-byte vectors a lane (a warp per row; at least
+    ``VEC_MIN_ROWS`` rows of whole vectors, every tensor's data 16-byte
+    aligned), the least count in ``VEC_NV[dtype]`` that holds the row, or
+    0 for the general path (also for a row longer than the largest)."""
+    per_vec = 16 // (torch.finfo(dtype).bits // 8)
+    if rows < VEC_MIN_ROWS or n % per_vec or \
+            any(t.data_ptr() % 16 for t in tensors):
+        return 0
+    need = cdiv(n // per_vec, 32)
+    return next((nv for nv in VEC_NV[dtype] if nv >= need), 0)
+
+
+def _check(x, residual, bias):
     check_cuda_arg("x", x, DTYPE_CODES, 2)
-    rows, n = x.shape
     if residual is not None:
         check_cuda_arg("residual", residual, (x.dtype,), 2)
         if residual.shape != x.shape:
@@ -64,23 +88,39 @@ def _launch(name, x, residual, bias, rate, seed):
                              f"{tuple(x.shape)}")
     if bias is not None:
         check_cuda_arg("bias", bias, (x.dtype,), 1)
-        if bias.shape[0] != n:
-            raise ValueError(f"bias {tuple(bias.shape)} must be ({n},)")
+        if bias.shape[0] != x.shape[1]:
+            raise ValueError(f"bias {tuple(bias.shape)} must be "
+                             f"({x.shape[1]},)")
+
+
+def launch(name, x, residual, bias, rate, seed, nv):
+    """One launch on checked CUDA tensors, counted under ``name``: the
+    vector path with ``nv`` vectors a lane, or the general path for ``nv
+    == 0``."""
+    rows, n = x.shape
     keep_prob = 1.0 - rate
     out = torch.empty_like(x)
     status = _build.library().stf_dropout_residual(
         x.data_ptr(), None if residual is None else residual.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), rows, n,
-        seed_word(seed), keep_threshold(keep_prob), 1.0 / keep_prob,
+        seed_word(seed), keep_threshold(keep_prob), 1.0 / keep_prob, nv,
         DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
     check_status(name, status)
     count_launch(name)
     return out
 
 
+def _launch(name, x, residual, bias, rate, seed):
+    _check(x, residual, bias)
+    tensors = [t for t in (x, residual, bias) if t is not None]
+    return launch(name, x, residual, bias, rate, seed,
+                  vectors_per_lane(*x.shape, x.dtype, *tensors))
+
+
 def dropout_residual_fwd(x, residual, bias=None, *, rate, seed):
     """The forward on ``(rows, n)`` tensors; CPU tensors take the plain
-    version, CUDA tensors launch the kernel."""
+    version, CUDA tensors launch the kernel of the path
+    :func:`vectors_per_lane` picks."""
     tensors = [x, residual] + ([bias] if bias is not None else [])
     if not uses_kernel(*tensors):
         return dropout_residual_fwd_plain(x, residual, bias, rate=rate,
@@ -90,7 +130,8 @@ def dropout_residual_fwd(x, residual, bias=None, *, rate, seed):
 
 def dropout_residual_bwd(g, *, rate, seed):
     """``dx`` on ``(rows, n)``; CPU tensors take the plain version, CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel of the path :func:`vectors_per_lane`
+    picks."""
     if not uses_kernel(g):
         return dropout_residual_bwd_plain(g, rate=rate, seed=seed)
     return _launch("dropout_residual_bwd", g, None, None, rate, seed)

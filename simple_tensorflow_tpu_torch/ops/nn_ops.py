@@ -20,6 +20,7 @@ activations, HWIO filters, TF ``SAME``/``VALID`` padding):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,10 +33,11 @@ def dropout(x, keep_prob: float, key):
     """``where(uniform(key, x.shape) < keep_prob, x / keep_prob, 0)``
     with ``keep_prob`` in ``x``'s dtype for the division; ``key`` is a raw
     threefry key (two uint32 words). ``keep_prob == 1`` returns ``x``, as
-    the JAX function does. Differentiable."""
+    the JAX function does; one that rounds to 0 in f32 (below about
+    7e-46) is refused on every device. Differentiable."""
     keep_prob = float(keep_prob)
-    if not 0.0 < keep_prob <= 1.0:
-        raise ValueError(f"keep_prob must be in (0, 1]: {keep_prob}")
+    if not (0.0 < np.float32(keep_prob) and keep_prob <= 1.0):
+        raise ValueError(f"keep_prob must be in (0, 1] in f32: {keep_prob}")
     if keep_prob == 1.0:
         return x
     return DropoutFunction.apply(x, keep_prob, tuple(int(w) for w in key),

@@ -74,19 +74,25 @@ def test_decode_attention_kernel_on_card(cuda, dtype, kq, causal, biased):
     assert K.launch_counts()[name] == before[name] + 1
 
 
-def _trace_names(fn, reps=3):
+def _trace_names(fn, reps=3, tries=3):
     """Names of the device kernels ``fn`` launches, from a profiler trace
-    (``reps`` calls: a trace can drop a kernel's record)."""
+    (``reps`` calls: a trace can drop a kernel's record), taken again, up
+    to ``tries`` times, while it holds no device record at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.cuda
@@ -843,69 +849,201 @@ def _kernel_module(name):
         f"simple_tensorflow_tpu_torch.ops.kernels.{name}")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rows,n,biased", [
-    (torch.bfloat16, 4096, 1024, False), (torch.float32, 300, 96, True),
-    (torch.bfloat16, 37, 1000, True)])
-def test_dropout_residual_kernel_on_card_is_bit_exact(cuda, dtype, rows, n,
-                                                      biased):
-    dr = _kernel_module("dropout_residual")
-    rng = np.random.RandomState(26)
+def _k4_inputs(cuda, dtype, rows, n, biased, seed=26):
+    rng = np.random.RandomState(seed)
     x, res = (_t(rng.randn(rows, n).astype(np.float32)).to(cuda, dtype)
               for _ in range(2))
     bias = _t(rng.randn(n).astype(np.float32)).to(cuda, dtype) \
         if biased else None
+    return x, res, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["picked", "general"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("rows,n", [(300, 8), (300, 96), (37, 1000),
+                                    (300, 1000), (4096, 1024)])
+def test_dropout_residual_kernel_on_card_is_bit_exact(cuda, path, dtype,
+                                                      biased, rows, n):
+    # the forward and dx on the path vectors_per_lane picks (the vector
+    # path at 300 and 4096 rows, the general one at 37) and forced onto the
+    # general path
+    dr = _kernel_module("dropout_residual")
+    x, res, bias = _k4_inputs(cuda, dtype, rows, n, biased)
+    kw = dict(rate=0.1, seed=918273)
+    want = dr.dropout_residual_fwd_plain(x, res, bias, **kw)
+    want_dx = dr.dropout_residual_bwd_plain(x, **kw)
     before = K.launch_counts()
-    out = dr.dropout_residual_fwd(x, res, bias, rate=0.1, seed=918273)
-    dx = dr.dropout_residual_bwd(x, rate=0.1, seed=918273)
+    if path == "picked":
+        assert (dr.vectors_per_lane(rows, n, dtype, x, res, *(
+            [bias] if biased else [])) > 0) == (rows >= dr.VEC_MIN_ROWS)
+        out = dr.dropout_residual_fwd(x, res, bias, **kw)
+        dx = dr.dropout_residual_bwd(x, **kw)
+    else:
+        out = dr.launch("dropout_residual", x, res, bias, 0.1, 918273, 0)
+        dx = dr.launch("dropout_residual_bwd", x, None, None, 0.1, 918273,
+                       0)
     torch.cuda.synchronize()
-    assert torch.equal(out, dr.dropout_residual_fwd_plain(
-        x, res, bias, rate=0.1, seed=918273))
-    assert torch.equal(dx, dr.dropout_residual_bwd_plain(x, rate=0.1,
-                                                         seed=918273))
+    assert torch.equal(out, want)
+    assert torch.equal(dx, want_dx)
     after = K.launch_counts()
     for name in ("dropout_residual", "dropout_residual_bwd"):
         assert after[name] == before[name] + 1
 
 
 @pytest.mark.cuda
-def test_dropout_residual_mask_fault_is_caught_on_card(cuda):
+@pytest.mark.parametrize("nv", [4, 0])
+def test_dropout_residual_mask_fault_is_caught_on_card(cuda, nv):
+    # x = ones: the output is the mask; 0 mismatches with K0's mask on
+    # both paths, and the mask of salt 1 differs
     dr = _kernel_module("dropout_residual")
     ones = torch.ones(4096, 1024, device=cuda, dtype=torch.bfloat16)
     zeros = torch.zeros_like(ones)
-    out = dr.dropout_residual_fwd(ones, zeros, rate=0.1, seed=5)
+    out = dr.launch("dropout_residual", ones, zeros, None, 0.1, 5, nv)
+    dx = dr.launch("dropout_residual_bwd", ones, None, None, 0.1, 5, nv)
     rr = torch.arange(4096, device=cuda)[:, None]
     cc = torch.arange(1024, device=cuda)[None, :]
     salt1 = K.common.counter_keep_mask_plain(5, 1, rr, cc, 0.9)
-    assert int(((out != 0) != dr.keep_mask_plain(4096, 1024, 5, 0.9, cuda))
-               .sum()) == 0
-    assert int(((out != 0) != salt1).sum()) > 0
+    keep = dr.keep_mask_plain(4096, 1024, 5, 0.9, cuda)
+    for got in (out, dx):
+        assert int(((got != 0) != keep).sum()) == 0
+        assert int(((got != 0) != salt1).sum()) > 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,shape", [
-    (torch.bfloat16, (16, 256, 4096)), (torch.bfloat16, (16, 256, 1024)),
-    (torch.float32, (3, 77, 33))])
+def test_dropout_residual_picks_its_path_on_card(cuda):
+    # the vector path (a warp per row) where vectors_per_lane says so; the
+    # general path at odd n, past 1024 values, below VEC_MIN_ROWS rows
+    # and on a misaligned view; read from the kernels' names in a trace
+    dr = _kernel_module("dropout_residual")
+    bf16, f32, rows = torch.bfloat16, torch.float32, dr.VEC_MIN_ROWS
+    cases = [(bf16, rows, 1024, 4, False), (f32, rows, 1024, 8, False),
+             (bf16, rows, 96, 2, False), (f32, 4096, 1000, 8, False),
+             (bf16, rows, 1001, 0, False), (bf16, rows, 4096, 0, False),
+             (bf16, 37, 1024, 0, False), (bf16, rows, 1024, 0, True),
+             (f32, rows, 96, 0, True)]
+    for dtype, m, n, nv, shifted in cases:
+        x, res, _ = _k4_inputs(cuda, dtype, m, n, False)
+        if shifted:  # rows start one element past a 16-byte boundary
+            x = torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(m, n)
+        assert dr.vectors_per_lane(m, n, dtype, x, res) == nv
+        names = _trace_names(lambda: dr.dropout_residual_fwd(
+            x, res, rate=0.1, seed=3))
+        vec = any("dropout_residual_vec_kernel" in nm for nm in names)
+        gen = any("dropout_residual_kernel<" in nm for nm in names)
+        assert (vec, gen) == (nv > 0, nv == 0), (dtype, m, n, names)
+        assert torch.equal(dr.dropout_residual_fwd(x, res, rate=0.1, seed=3),
+                           dr.dropout_residual_fwd_plain(x, res, rate=0.1,
+                                                         seed=3))
+
+
+@pytest.mark.cuda
+def test_dropout_residual_refuses_a_forced_vector_path_off_alignment(cuda):
+    dr = _kernel_module("dropout_residual")
+    x, res, _ = _k4_inputs(cuda, torch.bfloat16, 4, 1024, False)
+    shifted = torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(4, 1024)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        dr.launch("dropout_residual", shifted, res, None, 0.1, 3, 4)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        dr.launch("dropout_residual", x, res, None, 0.1, 3, 2)  # too few
+    # a count no shipped width of the dtype takes is not built
+    for dtype, nv in ((torch.bfloat16, 8), (torch.float32, 2),
+                      (torch.float32, 1)):
+        xd, rd, _ = _k4_inputs(cuda, dtype, 4, 64, False)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            dr.launch("dropout_residual", xd, rd, None, 0.1, 3, nv)
+
+
+DROPOUT_KEY = (123456789, 987654321)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (7,), (8,), (4096,), (70001,),
+                                   (16, 256, 1024), (16, 256, 4096),
+                                   (3, 77, 33)])
 def test_dropout_kernel_on_card_is_bit_exact(cuda, dtype, shape):
+    # the forward's values and bits, and the backward from those bits, bit
+    # for bit with the plain versions; one count a call each
     do = _kernel_module("dropout")
-    x = torch.randn(shape, device=cuda).to(dtype)
-    key = (123456789, 987654321)
+    rng = np.random.RandomState(29)
+    x, g = (_t(rng.randn(*shape).astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    keep = do.keep_mask_plain(shape, 0.9, DROPOUT_KEY, cuda)
     before = K.launch_counts()
-    out = do.dropout_fwd(x, 0.9, key)
-    dx = do.dropout_bwd(x, 0.9, key)
-    ref = do.dropout_plain(x, 0.9, key)
+    out, bits = do.dropout_fwd(x, 0.9, DROPOUT_KEY, return_bits=True)
+    dx = do.dropout_bwd(g, 0.9, bits)
     torch.cuda.synchronize()
-    assert torch.equal(out, ref) and torch.equal(dx, ref)
-    ones = torch.ones_like(x)
-    assert int((do.dropout_fwd(ones, 0.9, key)
-                != do.dropout_plain(ones, 0.9, key)).sum()) == 0
-    # a planted fault: the key's second word plus one
-    assert int((do.dropout_fwd(ones, 0.9, key)
-                != do.dropout_plain(ones, 0.9, (key[0], key[1] + 1)))
-               .sum()) > 0
     after = K.launch_counts()
-    assert after["dropout"] == before["dropout"] + 3
+    assert after["dropout"] == before["dropout"] + 1
     assert after["dropout_bwd"] == before["dropout_bwd"] + 1
+    assert torch.equal(out, do.dropout_plain(x, 0.9, DROPOUT_KEY))
+    assert torch.equal(bits, do.pack_keep_bits_plain(keep))
+    assert torch.equal(dx, do.dropout_plain(g, 0.9, DROPOUT_KEY))
+    assert torch.equal(dx, do.dropout_bwd_bits_plain(g, bits, 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4096, 70001])
+def test_dropout_general_path_on_card_is_bit_exact(cuda, dtype, n):
+    # a view 2 (bf16) or 4 (f32) bytes past a 16-byte boundary takes the
+    # general path, read from the kernels' names; and the general path
+    # forced at an aligned n gives the vector path's values and bits
+    do = _kernel_module("dropout")
+    rng = np.random.RandomState(30)
+    buf = _t(rng.randn(n + 1).astype(np.float32)).to(cuda, dtype)
+    x = buf[1:]
+    assert not do.vector_path(n, x)
+    names = _trace_names(lambda: do.dropout_fwd(x, 0.9, DROPOUT_KEY))
+    assert any("dropout_kernel<" in nm for nm in names), names
+    assert not any("dropout_vec_kernel" in nm for nm in names), names
+    out, bits = do.dropout_fwd(x, 0.9, DROPOUT_KEY, return_bits=True)
+    assert torch.equal(out, do.dropout_plain(x, 0.9, DROPOUT_KEY))
+    assert torch.equal(bits, do.pack_keep_bits_plain(
+        do.keep_mask_plain((n,), 0.9, DROPOUT_KEY, cuda)))
+    names = _trace_names(lambda: do.dropout_bwd(x, 0.9, bits))
+    assert any("dropout_bwd_kernel<" in nm for nm in names), names
+    assert torch.equal(do.dropout_bwd(x, 0.9, bits),
+                       do.dropout_bwd_bits_plain(x, bits, 0.9))
+    if n % 8 == 0:
+        y = buf[:n]
+        vec_out, vec_bits = do.launch_fwd(y, 0.9, DROPOUT_KEY, True)
+        gen_out, gen_bits = do.launch_fwd(y, 0.9, DROPOUT_KEY, False)
+        assert torch.equal(vec_out, gen_out)
+        assert torch.equal(vec_bits, gen_bits)
+        assert torch.equal(do.launch_bwd(y, vec_bits, 0.9, True),
+                           do.launch_bwd(y, vec_bits, 0.9, False))
+
+
+@pytest.mark.cuda
+def test_dropout_next_key_fault_is_caught_on_card(cuda):
+    # x = ones: the output is the mask scaled; 0 mismatches with the plain
+    # mask, and the plain output and bits of the key's second word plus
+    # one differ
+    do = _kernel_module("dropout")
+    ones = torch.ones((16, 256, 1024), device=cuda, dtype=torch.bfloat16)
+    other = (DROPOUT_KEY[0], DROPOUT_KEY[1] + 1)
+    out, bits = do.dropout_fwd(ones, 0.9, DROPOUT_KEY, return_bits=True)
+    assert int((out != do.dropout_plain(ones, 0.9, DROPOUT_KEY)).sum()) == 0
+    assert int((out != do.dropout_plain(ones, 0.9, other)).sum()) > 0
+    bad = do.pack_keep_bits_plain(do.keep_mask_plain(ones.shape, 0.9, other,
+                                                     cuda))
+    assert int((bits != bad).sum()) > 0
+    dx = do.dropout_bwd(ones, 0.9, bits)
+    assert int((dx != do.dropout_plain(ones, 0.9, other)).sum()) > 0
+    assert int((dx != out).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_dropout_refuses_a_forced_vector_path_off_alignment(cuda):
+    do = _kernel_module("dropout")
+    buf = torch.zeros(4097, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        do.launch_fwd(buf[1:], 0.9, DROPOUT_KEY, True)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        do.launch_fwd(buf[:4095], 0.9, DROPOUT_KEY, True)   # n % 8
 
 
 @pytest.mark.cuda

@@ -467,3 +467,99 @@ def test_trainer_derives_each_step_of_a_block_as_one_step_alone():
     for counter, rng in zip(want, got):
         ref = alone(counter)
         assert rng._keys == ref._keys and rng._seeds == ref._seeds
+
+
+# ---------------------------------------------------------------------------
+# Dropout: the kernels' integer keep test, the saved bits and the backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("keep_prob", [0.9, 0.5, 0.1, 1.0 - 2.0 ** -24,
+                                       2.0 ** -20])
+def test_keep_bits_limit_is_the_float_rule_over_every_mantissa(keep_prob):
+    """The kernels keep ``r <= keep_bits_limit`` where JAX keeps
+    ``bitcast(r >> 9 | 0x3F800000) - 1 < f32(keep_prob)``: the same for
+    all 2**23 values of ``r >> 9``, with the 9 low bits all 0 or all 1."""
+    m = np.arange(2 ** 23, dtype=np.uint32)
+    u = (m | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    want = u < np.float32(keep_prob)
+    limit = np.uint32(pdo.keep_bits_limit(keep_prob))
+    for low in (0, 511):
+        r = (m << np.uint32(9)) | np.uint32(low)
+        np.testing.assert_array_equal(r <= limit, want)
+    # and the draws of a key agree with the plain version's mask
+    key = (123456789, 987654321)
+    bits = prng.random_bits(np.asarray(key, np.uint32), (70001,))
+    np.testing.assert_array_equal(
+        bits <= limit,
+        pdo.keep_mask_plain((70001,), keep_prob, key, "cpu").numpy())
+
+
+@pytest.mark.parametrize("keep_prob", [1e-46, 5e-324])
+def test_keep_prob_that_is_zero_in_f32_is_refused(keep_prob):
+    """No integer limit keeps nothing, and the JAX rule keeps nothing
+    where ``f32(keep_prob)`` is 0: both the limit and the op refuse it
+    (on the card the kernel would otherwise keep everything)."""
+    assert np.float32(keep_prob) == 0
+    with pytest.raises(ValueError, match="keep"):
+        pdo.keep_bits_limit(keep_prob)
+    with pytest.raises(ValueError, match="keep_prob"):
+        nn_ops.dropout(torch.ones(8), keep_prob, (1, 2))
+    # the least positive f32 still has a limit: the uniform's 0 alone
+    assert pdo.keep_bits_limit(float(np.float32(2.0 ** -149))) == 511
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 70001])
+def test_keep_bits_layout_on_ragged_counts(n):
+    """Bit ``e`` of byte ``j`` is element ``8j + e``; the tail of the last
+    byte is zero (numpy's little-endian ``packbits``); unpacking gives the
+    mask back."""
+    keep = torch.from_numpy(np.random.RandomState(n).rand(n) < 0.9)
+    bits = pdo.pack_keep_bits_plain(keep)
+    assert bits.dtype == torch.uint8 and bits.shape == (-(-n // 8),)
+    np.testing.assert_array_equal(
+        bits.numpy(), np.packbits(keep.numpy(), bitorder="little"))
+    if n % 8:
+        assert int(bits[-1]) >> (n % 8) == 0
+    assert torch.equal(pdo.unpack_keep_bits_plain(bits, (n,)), keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (7,), (8,), (9,), (70001,),
+                                   (3, 5, 7)])
+def test_dropout_bwd_from_bits_is_the_forward_of_g(dtype, shape):
+    """The backward from the forward's bits equals the plain forward of
+    the cotangent under the same key (what the backward computed before
+    the mask was saved)."""
+    rng = np.random.RandomState(45)
+    key = (0, 2 ** 32 - 1)
+    x, g = (_t(rng.randn(*shape).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    out, bits = pdo.dropout_fwd(x, 0.9, key, return_bits=True)
+    assert torch.equal(out, pdo.dropout_plain(x, 0.9, key))
+    keep = pdo.keep_mask_plain(shape, 0.9, key, "cpu")
+    assert torch.equal(bits, pdo.pack_keep_bits_plain(keep))
+    want = pdo.dropout_plain(g, 0.9, key)
+    for dx in (pdo.dropout_bwd_bits_plain(g, bits, 0.9),
+               pdo.dropout_bwd(g, 0.9, bits)):
+        np.testing.assert_array_equal(_bits(dx.float()), _bits(want.float()))
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_dropout_backward_draws_nothing(monkeypatch, plain):
+    """After the forward no threefry draw is made: the backward runs from
+    the saved bits with the generator made to raise."""
+    rng = np.random.RandomState(46)
+    key = (7, 8)
+    x = _t(rng.randn(4, 33).astype(np.float32)).requires_grad_()
+    g = _t(rng.randn(4, 33).astype(np.float32))
+    out = pdo.DropoutFunction.apply(x, 0.9, key, plain)
+    want = pdo.dropout_plain(g, 0.9, key)
+
+    def drawn(*args, **kwargs):
+        raise AssertionError("the backward drew random bits")
+
+    monkeypatch.setattr(prng, "uniform_torch", drawn)
+    with pytest.raises(AssertionError, match="drew"):
+        pdo.dropout_plain(g, 0.9, key)
+    out.backward(g)
+    assert torch.equal(x.grad, want)

@@ -38,6 +38,10 @@ kqmm = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                                "quant_matmul")
 kln = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                               "layer_norm")
+kdr = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "dropout_residual")
+kdo = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "dropout")
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -418,6 +422,71 @@ def test_layer_norm_bwd_takes_the_general_path_off_alignment():
 
 
 # ---------------------------------------------------------------------------
+# The dropout kernels' paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,n,nv", [
+    (torch.bfloat16, 8, 2), (torch.bfloat16, 96, 2),
+    (torch.bfloat16, 512, 2), (torch.bfloat16, 520, 4),
+    (torch.bfloat16, 1000, 4), (torch.bfloat16, 1024, 4),
+    (torch.bfloat16, 1032, 0), (torch.bfloat16, 2048, 0),
+    (torch.bfloat16, 4096, 0), (torch.bfloat16, 7, 0),
+    (torch.bfloat16, 100, 0), (torch.bfloat16, 1001, 0),
+    (torch.float32, 4, 4), (torch.float32, 96, 4), (torch.float32, 512, 4),
+    (torch.float32, 1000, 8), (torch.float32, 1024, 8),
+    (torch.float32, 1028, 0), (torch.float32, 98, 0),
+    (torch.float32, 1, 0)])
+def test_dropout_residual_path_by_shape(dtype, n, nv):
+    # K4's vector path (a warp per row) for rows of whole 16-byte vectors,
+    # at most 1024 values, nv the least count in VEC_NV[dtype] (the shipped
+    # widths' 512 and 1024) that holds the row; any other n takes the
+    # general path (0)
+    x = torch.zeros(kdr.VEC_MIN_ROWS, n, dtype=dtype)
+    b = torch.zeros(n, dtype=dtype)
+    assert kdr.vectors_per_lane(*x.shape, dtype, x, x, b) == nv
+
+
+@pytest.mark.parametrize("rows,nv", [(1, 0), (37, 0), (127, 0), (128, 4),
+                                     (300, 4), (4096, 4)])
+def test_dropout_residual_path_by_rows(rows, nv):
+    # below VEC_MIN_ROWS rows the general path's wider grid takes them
+    x = torch.zeros(rows, 1024, dtype=torch.bfloat16)
+    assert kdr.vectors_per_lane(rows, 1024, torch.bfloat16, x, x) == nv
+
+
+def test_dropout_residual_takes_the_general_path_off_alignment():
+    rows = kdr.VEC_MIN_ROWS
+    x = torch.zeros(rows * 1024 + 8, dtype=torch.bfloat16)
+    aligned = x[:rows * 1024].view(rows, 1024)
+    shifted = x[1:rows * 1024 + 1].view(rows, 1024)     # 2 bytes in
+    assert aligned.data_ptr() % 16 == 0
+    bf16 = torch.bfloat16
+    assert kdr.vectors_per_lane(rows, 1024, bf16, aligned, aligned) == 4
+    assert kdr.vectors_per_lane(rows, 1024, bf16, aligned, shifted) == 0
+    b = torch.zeros(1024 + 8, dtype=torch.bfloat16)
+    assert kdr.vectors_per_lane(rows, 1024, bf16, aligned, aligned,
+                                b[4:]) == 0        # bias 8 bytes in
+
+
+@pytest.mark.parametrize("n,vec", [(8, True), (16 * 256 * 4096, True),
+                                   (2 ** 32, True), (7, False),
+                                   (70001, False), (12, False),
+                                   (2 ** 32 + 8, False)])
+def test_dropout_vector_path_by_count(n, vec):
+    # 8 elements a thread while the flat index fits 32 bits
+    assert kdo.vector_path(n) is vec
+
+
+def test_dropout_takes_the_general_path_off_alignment():
+    x = torch.zeros(1024 + 8, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 == 0
+    assert kdo.vector_path(1024, x[:1024])
+    assert not kdo.vector_path(1024, x[1:1025])    # 2 bytes in
+    assert not kdo.vector_path(1024, x[4:1028])    # 8 bytes in
+    assert kdo.vector_path(1024, x[8:1032])        # 16 bytes in
+
+
+# ---------------------------------------------------------------------------
 # QuantMatMul
 # ---------------------------------------------------------------------------
 
@@ -568,7 +637,8 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_quant_matmul", "stf_flash_attention_fwd",
         "stf_flash_attention_dkdv", "stf_flash_attention_dq",
         "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update",
-        "stf_momentum_update", "stf_dropout_residual", "stf_dropout"}
+        "stf_momentum_update", "stf_dropout_residual", "stf_dropout",
+        "stf_dropout_bwd"}
 
 
 def test_helpers_match_the_pallas_common_module():
