@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``simple_tensorflow_tpu_torch``) on one
 NVIDIA GPU and check every kernel of its serving and training paths
-(causal LM and ResNet-50).
+(causal LM and ResNet-50) and of its TF-1 front end (``stf.Session``
+training the MNIST convnet).
 
     python3 chip_smoke.py [--serving]
 
@@ -116,9 +117,32 @@ beside another tree's package measures that tree's serving path.
    its share of the bf16 peak at 3 x ``resnet_flops_per_image``, the
    peak memory, and a profiler window of 3 steps with its top kernels.
 
+6. Session phase (the TF-1 front end): ``models/mnist.py`` built with the
+   port's ``stf`` API and run by ``stf.Session`` on the card. First the
+   path's kernels at its shapes against their plain versions (the xent
+   forward and backward at f32 512 x 10, Adam over the convnet's f32
+   group of 3,274,634 parameters, bit-exact, the threefry Dropout at f32
+   (512, 1024), keep_prob 0.5, bit-exact), each with its time, bound and
+   library call. Then ``SESSION_CHECK_STEPS`` ``convnet_model`` steps
+   (batch 512, f32, keep_prob 0.5) through the kernels against the same
+   steps under ``fused_ops.plain_versions()``, cuDNN deterministic: each
+   loss within rtol 1e-5, the first step's Dropout output equal, every
+   step's masks equal on live units, every variable and Adam slot within
+   relative norm 1e-5; Adam's beta1 x (1 + 1e-4) and the Dropout op's
+   stream id + 1 are planted faults that must fail. Then
+   ``SESSION_STEPS`` ``Session.run([train_op, loss])`` steps on one
+   repeated ``synthetic_mnist(512, seed=0)`` batch fed as numpy: the
+   loss falls, exactly 1 + 1 xent, 1 Adam and 1 + 1 Dropout launches a
+   step, no plan-cache miss after the first step; the p50 step,
+   images/s, the device ms a step from a ``torch.profiler`` window of 3
+   steps and the host ms a step (p50 minus device). Last,
+   ``softmax_model`` (GradientDescent at ``SOFTMAX_LR``) for
+   ``SESSION_STEPS`` steps, its loss falling at every step.
+
 Each path (the two serving runs, the two f32 kernel steps, the two
-causal-LM bf16 windows, the ResNet f32 kernel steps and the ResNet bf16
-window) is counted from zero just before it; a kernel's ``launches`` sum
+causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
+window, the Session's checked steps and its window) is counted from zero
+just before it; a kernel's ``launches`` sum
 over the paths, the flash rows split by the path's dropout rate. Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
@@ -2301,6 +2325,321 @@ def resnet_phase(K, dev):
     return paths
 
 
+# -- Session (TF-1 front end) phase ------------------------------------------
+
+MNIST_B = 512                 # convnet_model at batch 512, f32 as shipped
+MNIST_CLASSES = 10
+MNIST_ADAM_N = 3_274_634      # the convnet's trainable parameters
+SESSION_STEPS = 16
+SESSION_CHECK_STEPS = 3
+SESSION_KEEP_PROB = 0.5
+# softmax_model's shipped learning rate, 0.5, diverges on synthetic_mnist's
+# uniform pixels in the JAX package as in the port (PERF.md §6); 0.05 falls
+SOFTMAX_LR = 0.05
+# kernels vs plain after SESSION_CHECK_STEPS steps: each loss by rtol, every
+# variable (the Adam slots included) by relative norm
+SESSION_LOSS_RTOL, SESSION_STATE_TOL = 1e-5, 1e-5
+SESSION_PER_STEP = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                    "adam_update": 1, "dropout": 1, "dropout_bwd": 1}
+MNIST_DROP_SHAPE = (MNIST_B, 1024)   # fc1's activations
+
+
+def session_kernel_rows(K, gen, dev):
+    """The Session path's kernels at its shapes, against their plain
+    versions: the xent forward and backward at f32 512 x 10, Adam over
+    the convnet's one f32 group (n = 3,274,634; 28 bytes an element) and
+    the threefry Dropout at f32 (512, 1024), keep_prob 0.5."""
+    import torch.nn.functional as F
+
+    kdo = importlib.import_module(KMOD + "dropout")
+    main = xent_case(K, gen, dev, MNIST_B, MNIST_CLASSES, (torch.float32,),
+                     (0.0,), "@mnist")
+    n = MNIST_ADAM_N
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    alpha = torch.tensor(1e-3, device=dev)
+    p = 0.05 * torch.randn(n, generator=gen, device=dev)
+    m = 0.01 * torch.randn(n, generator=gen, device=dev)
+    v = 1e-4 * torch.rand(n, generator=gen, device=dev)
+    g = 0.01 * torch.randn(n, generator=gen, device=dev)
+    got = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha, **kw)
+    ref = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g, alpha,
+                              **kw)
+    torch.cuda.synchronize()
+    name = f"adam_update float32 params n={n} (mnist)"
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        fail(f"{name}: kernel is not bit-exact with its plain version")
+    del got, ref
+    ms = device_ms([lambda: K.adam_update(p, m, v, g, alpha, **kw)])
+    plain_ms = device_ms([lambda: K.adam_update_plain(p, m, v, g, alpha,
+                                                      **kw)])
+    pt = torch.nn.Parameter(p.clone())
+    pt.grad = g.clone()
+    opt = torch.optim.Adam([pt], lr=1e-3, fused=True)
+    lib_ms = event_ms(opt.step)
+    bnd = bound_ms(28 * n, 12 * n, torch.float32)
+    report(name, 0.0, ms, plain_ms, bnd, lib_ms)
+    main["adam_update@mnist"] = kernel_row(0.0, ms, plain_ms, bnd, lib_ms,
+                                           name)
+    del p, m, v, g, pt, opt
+
+    kp, key = SESSION_KEEP_PROB, DROPOUT_KEY
+    numel = math.prod(MNIST_DROP_SHAPE)
+    copies = [torch.randn(MNIST_DROP_SHAPE, generator=gen, device=dev)
+              for _ in range(n_copies(8 * numel))]
+    x = copies[0]
+    tag = f"float32 {MNIST_DROP_SHAPE} keep_prob {kp} (mnist)"
+    if not kdo.vector_path(numel, x):
+        fail(f"dropout {tag}: not on the vector path")
+    out, bits = K.dropout_fwd(x, kp, key, return_bits=True)
+    err_f = check_exact(f"dropout {tag}", out, K.dropout_plain(x, kp, key))
+    check_exact(f"dropout {tag} bits", bits, kdo.pack_keep_bits_plain(
+        kdo.keep_mask_plain(MNIST_DROP_SHAPE, kp, key, dev)))
+    err_b = check_exact(f"dropout_bwd {tag}", K.dropout_bwd(x, kp, bits),
+                        K.dropout_plain(x, kp, key))
+    saved = [K.dropout_fwd(c, kp, key, return_bits=True)[1] for c in copies]
+    ms_f = device_ms([lambda c=c: K.dropout_fwd(c, kp, key, return_bits=True)
+                      for c in copies])
+    plain_f = device_ms([lambda c=c: K.dropout_plain(c, kp, key)
+                         for c in copies])
+    ms_b = device_ms([lambda c=c, b=b: K.dropout_bwd(c, kp, b)
+                      for c, b in zip(copies, saved)])
+    plain_b = device_ms([lambda c=c, b=b: kdo.dropout_bwd_bits_plain(
+        c, b, kp) for c, b in zip(copies, saved)])
+    lib_f = event_ms(lambda: F.dropout(x, 1.0 - kp), reps=20)
+    masks = [torch.rand(MNIST_DROP_SHAPE, generator=gen, device=dev) < kp
+             for _ in copies]
+    lib_b = device_ms([
+        lambda c=c, mk=mk: torch.ops.aten.native_dropout_backward(
+            c, mk, 1.0 / kp) for c, mk in zip(copies, masks)])
+    bits_bytes = -(-numel // 8)
+    bnd_f = bound_ms(8 * numel + bits_bytes, 0, torch.float32,
+                     THREEFRY_OPS * numel, THREEFRY_ALU_OPS * numel)
+    bnd_b = bound_ms(8 * numel + bits_bytes, numel, torch.float32)
+    report(f"dropout {tag}", err_f, ms_f, plain_f, bnd_f, lib_f)
+    report(f"dropout_bwd {tag} (from the bits)", err_b, ms_b, plain_b, bnd_b,
+           lib_b)
+    main["dropout@mnist"] = kernel_row(err_f, ms_f, plain_f, bnd_f, lib_f,
+                                       f"dropout {tag}")
+    main["dropout_bwd@mnist"] = kernel_row(err_b, ms_b, plain_b, bnd_b,
+                                           lib_b, f"dropout_bwd {tag}")
+    return main
+
+
+def mnist_session(stf, build):
+    """A graph from ``build()``, a Session on the card and its initializer
+    run: ``(graph, model dict, session)``."""
+    g = stf.Graph()
+    with g.as_default():
+        m = build()
+        init = stf.global_variables_initializer()
+    sess = stf.Session(graph=g)
+    sess.run(init)
+    return g, m, sess
+
+
+def session_state(sess):
+    return {k: v.detach().clone()
+            for k, v in sess._variable_store.values.items()}
+
+
+def session_errs(a, b):
+    """The worst relative-norm difference over the variables, and which."""
+    errs = {k: ((a[k].double() - b[k].double()).norm()
+                / b[k].double().norm().clamp_min(1e-30)).item() for k in b}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def check_session_steps(K, stf, mnist, feeds):
+    """``SESSION_CHECK_STEPS`` convnet steps through ``stf.Session`` with
+    the kernels against the same steps under
+    ``fused_ops.plain_versions()``, each from the same initializer run
+    (the same run counter, so the same Dropout masks), cuDNN
+    deterministic: each loss within ``SESSION_LOSS_RTOL``, the first
+    step's Dropout output equal, every step's mask equal where both ReLUs
+    are live, every variable and slot within ``SESSION_STATE_TOL`` by
+    relative norm. Two planted faults must fail: Adam's beta1 x (1 +
+    1e-4) and the Dropout op's stream id + 1."""
+    from simple_tensorflow_tpu_torch.framework import random_seed
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    tag = f"session convnet[f32 {MNIST_B}]"
+
+    def run(plain=False, fault=None):
+        g, m, sess = mnist_session(stf, mnist.convnet_model)
+        if fault == "adam beta1":
+            op = g.get_operation_by_name("Adam/fused_adam_update")
+            op.attrs["beta1"] = op.attrs["beta1"] * (1 + 1e-4)
+        elif fault == "dropout stream + 1":
+            op = g.get_operation_by_name("convnet/dropout")
+            op.attrs["_graph_seed"] = 0
+            op.attrs["seed"] = random_seed.fold_in_value(op.name) + 1
+        fetch = [m["train_op"], m["loss"], "convnet/dropout:0",
+                 "convnet/fc1/Relu:0"]
+        with (fused_ops.plain_versions() if plain
+              else contextlib.nullcontext()):
+            outs = [sess.run(fetch, feeds(m))[1:]
+                    for _ in range(SESSION_CHECK_STEPS)]
+        state = session_state(sess)
+        sess.close()
+        return outs, state
+
+    def compare(outs, state, ref, ref_state):
+        """``(bad losses, first-step dropout mismatches, mask mismatches
+        on live units, (worst relative state error, variable))``."""
+        bad = [(a[0], b[0]) for a, b in zip(outs, ref)
+               if not abs(a[0] - b[0]) <= SESSION_LOSS_RTOL * abs(b[0])]
+        first = int((outs[0][1] != ref[0][1]).sum())
+        masks = 0
+        for a, b in zip(outs, ref):
+            live = (a[2] != 0) & (b[2] != 0)
+            masks += int(((a[1] != 0) != (b[1] != 0))[live].sum())
+        return bad, first, masks, session_errs(state, ref_state)
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_state = run(plain=True)
+        before = K.launch_counts()
+        floor = compare(*run(plain=True), ref, ref_state)
+        if K.launch_counts() != before:
+            fail(f"{tag}: the plain steps launched kernels")
+        K.reset_launch_counts()
+        got = compare(*run(), ref, ref_state)
+        counts = K.launch_counts()
+        faults = {f: compare(*run(fault=f), ref, ref_state)
+                  for f in ("adam beta1", "dropout stream + 1")}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    want = {k: 0 for k in counts}
+    want.update({k: v * SESSION_CHECK_STEPS
+                 for k, v in SESSION_PER_STEP.items()})
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+    print(f"{tag}: {SESSION_CHECK_STEPS} steps, kernels vs plain: losses "
+          f"{[float(o[0]) for o in ref]} (plain); off the plain run: "
+          f"{got[0]} losses, first-step dropout values {got[1]}, masks "
+          f"{got[2]}, worst variable rel err {got[3][0]:.3e} ({got[3][1]}); "
+          f"plain vs plain {floor[3][0]:.3e}", flush=True)
+    print(f"{tag}: planted faults (bad losses, dropout values, masks, "
+          f"worst variable): " + "; ".join(
+              f"{k}: {len(v[0])}, {v[1]}, {v[2]}, {v[3][0]:.3e} ({v[3][1]})"
+              for k, v in faults.items()), flush=True)
+
+    def ok(r):
+        return not r[0] and r[1] == 0 and r[2] == 0 and \
+            r[3][0] <= SESSION_STATE_TOL
+
+    if not ok(got):
+        fail(f"{tag}: the kernels' steps are off the plain steps: {got}")
+    missed = [k for k, v in faults.items() if ok(v)]
+    if missed:
+        fail(f"{tag}: the check passes planted faults {missed}: {faults}")
+    return counts
+
+
+def session_phase(K, dev, kernel_rows):
+    """The TF-1 front end on the card (module docstring, phase 6).
+    Returns ``[(path, dropout, launches)]``: the checked steps and the
+    training window, each counted from zero just before it."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import mnist
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    print("session kernels at the MNIST shapes:", flush=True)
+    kernel_rows.update(session_kernel_rows(K, gen, dev))
+    x, labels, onehot = mnist.synthetic_mnist(MNIST_B, seed=0)
+    x4 = x.reshape(-1, 28, 28, 1)
+
+    def feeds(m):
+        return {m["x"]: x4, m["y_"]: labels, m["keep_prob"]:
+                SESSION_KEEP_PROB}
+
+    paths = [("session convnet f32 check", 0.0,
+              check_session_steps(K, stf, mnist, feeds))]
+    tag = f"session convnet[f32 {MNIST_B}]"
+    g, m, sess = mnist_session(stf, mnist.convnet_model)
+    fetch = [m["train_op"], m["loss"]]
+    losses, times = [], []
+    K.reset_launch_counts()
+    misses = None
+    for i in range(SESSION_STEPS):
+        t0 = time.perf_counter()
+        loss = sess.run(fetch, feeds(m))[1]
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            misses = sess.plan_cache_misses
+    counts = K.launch_counts()
+    paths.append(("session convnet f32", 0.0, counts))
+    want = {k: 0 for k in counts}
+    want.update({k: v * SESSION_STEPS for k, v in SESSION_PER_STEP.items()})
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+    late_misses = sess.plan_cache_misses - misses
+    if late_misses:
+        fail(f"{tag}: {late_misses} plan-cache misses after the first step")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite loss in {losses}")
+    first = statistics.mean(losses[:LOSS_MEAN_OF])
+    last = statistics.mean(losses[-LOSS_MEAN_OF:])
+    if not (last < first and losses[-1] < losses[0]):
+        fail(f"{tag}: the loss does not fall: {losses}")
+    p50 = statistics.median(times)
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            sess.run(fetch, feeds(m))
+        torch.cuda.synchronize()
+    by_name = {k: ms / n for k, (ms, _) in device_times(prof).items()}
+    gs = int(sess.run(m["global_step"]))
+    sess.close()
+    if gs != SESSION_STEPS + n:
+        fail(f"{tag}: global_step {gs} after {SESSION_STEPS + n} steps")
+    print(f"{tag}: models/mnist.py convnet_model through stf.Session, Adam "
+          f"lr 1e-3, keep_prob {SESSION_KEEP_PROB}, {SESSION_STEPS} steps of "
+          f"Session.run([train_op, loss]) on one repeated synthetic_mnist("
+          f"{MNIST_B}, seed=0) batch fed as numpy", flush=True)
+    print(f"{tag}: losses {[round(v, 5) for v in losses]} (means of "
+          f"{LOSS_MEAN_OF}: the first {first:.5f}, the last {last:.5f})",
+          flush=True)
+    print(f"{tag}: launches {counts}; plan-cache misses after the first "
+          f"step {late_misses}", flush=True)
+    if by_name:
+        check_traced(tag, by_name, ("dropout_vec_kernel",))
+        dev_ms = sum(by_name.values())
+        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms (min "
+              f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
+              f"{MNIST_B / p50:.2f} images/s; device {dev_ms:.4f} ms a step "
+              f"(torch.profiler, {n} steps), host {p50 * 1e3 - dev_ms:.4f} "
+              f"ms a step (p50 minus device)", flush=True)
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
+    else:
+        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms, {MNIST_B / p50:.2f} "
+              f"images/s; the profiler saw no device time: device and host "
+              f"ms a step not measured", flush=True)
+
+    stag = f"session softmax[f32 {MNIST_B}]"
+    _, sm, ssess = mnist_session(
+        stf, lambda: mnist.softmax_model(learning_rate=SOFTMAX_LR))
+    slosses = [float(ssess.run([sm["train_op"], sm["loss"]],
+                               {sm["x"]: x, sm["y_"]: onehot})[1])
+               for _ in range(SESSION_STEPS)]
+    acc = float(ssess.run(sm["accuracy"], {sm["x"]: x, sm["y_"]: onehot}))
+    ssess.close()
+    print(f"{stag}: softmax_model, GradientDescent lr {SOFTMAX_LR}, "
+          f"{SESSION_STEPS} steps: losses {[round(v, 5) for v in slosses]}, "
+          f"accuracy after {acc:.4f}", flush=True)
+    if not all(b < a for a, b in zip(slosses, slosses[1:])):
+        fail(f"{stag}: the loss does not fall at every step: {slosses}")
+    return paths
+
+
 def kernel_props(log, prefix):
     """``[(kernel<template args>, "N registers, spill stores/loads")]`` of
     the kernels whose name starts with ``prefix``, from ``ptxas -v``."""
@@ -2413,6 +2752,8 @@ def main():
     del params
     torch.cuda.empty_cache()
     paths += resnet_phase(K, dev)
+    torch.cuda.empty_cache()
+    paths += session_phase(K, dev, main_rows)
     # a kernel's launches over every path; the flash rows split by the
     # path's dropout (the dropout branch runs only at rate > 0)
     launches = {}

@@ -1,4 +1,9 @@
-"""Carry causal-LM weights and training state into the port.
+"""Carry weights and training state into the port.
+
+- :func:`load_session_variables` loads a JAX graph's variable values (by
+  store name: the model variables, Adam's flat ``m``/``v`` slots, the beta
+  powers, ``global_step``) into a port ``stf.Session`` built from the same
+  user code.
 
 - :func:`load_stfz` reads a checkpoint written by the JAX package's
   ``train.Saver`` (``<prefix>.stfz``, an npz whose keys are variable paths
@@ -309,3 +314,20 @@ def init_resnet_params(seed: int = 0, num_classes: int = 1000) -> dict:
             v = np.zeros(shape)
         state[name] = torch.from_numpy(v.astype(np.float32))
     return state
+
+
+def load_session_variables(sess, named: dict) -> None:
+    """Load ``named`` (``{JAX variable store name: numpy array}``, e.g. a
+    JAX session's ``_variable_store.values`` or :func:`load_stfz` of its
+    checkpoint) into the port Session ``sess``'s ``VariableStore``, each
+    in its graph variable's dtype. A name no Variable of ``sess.graph``
+    has raises ``KeyError``."""
+    from .ops import variables as variables_mod
+
+    registry = variables_mod.variables_by_store_name(sess.graph)
+    missing = sorted(set(named) - set(registry))
+    if missing:
+        raise KeyError(f"no variable named {missing[:5]} in the session's "
+                       "graph")
+    for name, value in named.items():
+        sess._variable_store.load(name, value, registry[name])

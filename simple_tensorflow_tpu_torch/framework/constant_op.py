@@ -1,0 +1,111 @@
+"""Constant and placeholder ops.
+
+Port of ``simple_tensorflow_tpu/framework/constant_op.py``: ``constant``
+(:102) keeps its value as a numpy array in the op's attrs; the Session
+copies it to its device once and keeps the tensor for later runs (the JAX
+package bakes it into the compiled program). ``constant_value`` reads a
+static value through ``Const``, ``Identity`` and ``Cast``. Left out:
+string constants and the shape-op cases of ``constant_value``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import dtypes as dtypes_mod
+from . import graph as ops
+from . import op_registry
+from . import tensor_shape as shape_mod
+
+
+def _to_numpy(value, dtype=None):
+    if dtype is not None:
+        dtype = dtypes_mod.as_dtype(dtype)
+    arr = value if isinstance(value, np.ndarray) else np.asarray(value)
+    if dtype is not None:
+        arr = arr.astype(dtype.np_dtype)
+    elif arr.dtype == np.float64 and not isinstance(value, np.ndarray):
+        arr = arr.astype(np.float32)  # Python floats default to float32
+    elif arr.dtype == np.int64 and not isinstance(value, np.ndarray):
+        arr = arr.astype(np.int32)  # Python ints default to int32
+    return arr
+
+
+def constant(value, dtype=None, shape=None, name="Const",
+             verify_shape=False):
+    """A constant tensor (ref: python/framework/constant_op.py:102)."""
+    g = ops.get_default_graph()
+    if isinstance(value, ops.Tensor):
+        return value
+    arr = _to_numpy(value, dtype)
+    if shape is not None:
+        shape = shape_mod.as_shape(shape)
+        n_target = shape.num_elements()
+        if arr.size == 1 and n_target is not None and n_target != arr.size:
+            arr = np.full(shape.as_list(), arr.reshape(()), dtype=arr.dtype)
+        elif verify_shape and list(arr.shape) != shape.as_list():
+            raise TypeError(f"Expected shape {shape}, got {list(arr.shape)}")
+        else:
+            arr = arr.reshape(shape.as_list())
+    dt = dtypes_mod.as_dtype(dtype) if dtype is not None \
+        else dtypes_mod.as_dtype(arr.dtype)
+    op = g.create_op("Const", [], attrs={"value": arr, "dtype": dt},
+                     name=name,
+                     output_specs=[(shape_mod.TensorShape(list(arr.shape)),
+                                    dt)])
+    return op.outputs[0]
+
+
+def constant_value(tensor):
+    """The static value of a tensor, or None (ref: python/framework/
+    tensor_util.py ``constant_value``)."""
+    if not isinstance(tensor, ops.Tensor):
+        return np.asarray(tensor)
+    op = tensor.op
+    if op.type == "Const":
+        return op.attrs["value"]
+    if op.type == "Identity":
+        return constant_value(op.inputs[0])
+    if op.type == "Cast":
+        v = constant_value(op.inputs[0])
+        if v is not None:
+            return v.astype(op.attrs["dtype"].np_dtype)
+    return None
+
+
+def to_torch(arr, device, dtype=None) -> torch.Tensor:
+    """A numpy value as a new tensor on ``device``, of ``dtype`` (a torch
+    dtype) or else its own dtype narrowed (bfloat16 numpy values pass
+    through f32, which holds them exactly)."""
+    arr = np.asarray(arr)
+    if dtype is None:
+        dtype = dtypes_mod.as_dtype(arr.dtype).torch_dtype
+    if arr.dtype.kind == "V":
+        arr = arr.astype(np.float32)
+    return torch.tensor(arr).to(device=device, dtype=dtype)
+
+
+def _lower_const(ctx, op, inputs):
+    return [ctx.constant(op)]
+
+
+op_registry.register("Const", lower=_lower_const)
+
+
+def _lower_placeholder(ctx, op, inputs):
+    raise RuntimeError(
+        f"Placeholder {op.name} was not fed. You must feed a value for it "
+        "via Session.run(..., feed_dict={...}).")
+
+
+op_registry.register("Placeholder", lower=_lower_placeholder,
+                     is_stateful=True)
+
+
+def _lower_placeholder_with_default(ctx, op, inputs):
+    return [inputs[0]]
+
+
+op_registry.register("PlaceholderWithDefault",
+                     lower=_lower_placeholder_with_default)

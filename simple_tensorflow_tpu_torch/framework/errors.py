@@ -1,12 +1,14 @@
 """The subset of ``simple_tensorflow_tpu/framework/errors.py`` that the
-serving engine raises: the same class names, codes and constructor
-(``Error(node_def, op, message)`` or ``Error("message")``)."""
+serving engine and the Session raise: the same class names, codes and
+constructor (``Error(node_def, op, message)`` or ``Error("message")``)."""
 
 from __future__ import annotations
 
 INVALID_ARGUMENT = 3
 DEADLINE_EXCEEDED = 4
+NOT_FOUND = 5
 RESOURCE_EXHAUSTED = 8
+FAILED_PRECONDITION = 9
 UNAVAILABLE = 14
 
 
@@ -48,6 +50,12 @@ def _make(name, code, doc):
 
 InvalidArgumentError = _make("InvalidArgumentError", INVALID_ARGUMENT,
                              "Op received an invalid argument.")
+NotFoundError = _make("NotFoundError", NOT_FOUND,
+                      "A requested entity was not found.")
+FailedPreconditionError = _make("FailedPreconditionError",
+                                FAILED_PRECONDITION,
+                                "Operation was rejected because the system "
+                                "is not in a state to execute it.")
 DeadlineExceededError = _make("DeadlineExceededError", DEADLINE_EXCEEDED,
                               "Deadline expired before operation completed.")
 ResourceExhaustedError = _make("ResourceExhaustedError", RESOURCE_EXHAUSTED,

@@ -13,7 +13,9 @@ package's dropout draws from:
   lo))`` over the 64-bit row-major flat index of each element
   (``_threefry_random_bits_partitionable``, ``iota_2x32_shape``);
 - ``uniform(key, shape)``: ``bitcast((bits >> 9) | 0x3F800000) - 1`` in
-  f32;
+  f32; with bounds, ``max(minval, u * (maxval - minval) + minval)``
+  (``_uniform``), whose multiply-add XLA contracts into one fused
+  multiply-add (:func:`fma_f32_torch`);
 - ``randint(key, shape, lo, hi)``: int32, two draws from ``split(key)``
   combined with JAX's multiplier-mod algorithm in wrapping uint32
   arithmetic.
@@ -167,3 +169,22 @@ def uniform_torch(key_, shape, device) -> torch.Tensor:
     bits = ((y0 ^ y1) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32).reshape(
         tuple(shape)) - 1.0
+
+
+def fma_f32_torch(a, b, c) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors with ONE rounding, as XLA's fused
+    multiply-add computes it. The product is exact in f64; the f64 sum
+    ``s`` is rounded once more, which is wrong only when ``s`` lands on an
+    f32 midpoint while the exact sum does not: TwoSum's error term ``err``
+    (``s + err`` is the exact sum) says on which side it lies."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - cd
+    err = (p - bp) + (cd - (s - bp))
+    r = s.float()
+    rd = r.double()
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(s > rd, inf, -inf))
+    tie = (s == (rd + other.double()) / 2) & (err != 0)
+    return torch.where(tie & ((err > 0) == (other > r)), other, r)

@@ -15,10 +15,11 @@ op draws ``uniform(key, shape)`` from it; ``FlashAttentionDropout`` and
 :meth:`StepRNG.for_steps` derives every site of a block of steps in one
 vectorized host pass over numpy arrays: no tensor, no device work.
 
-Only the unseeded rule is used by the trainer (no ``set_random_seed``:
-base key ``key(0)``, stream id ``crc32(op name)``). The seeded rule needs
-the JAX graph's op counter at the op's construction; it comes with the
-Graph front end.
+The eager trainers use the unseeded rule (no ``set_random_seed``: base
+key ``key(0)``, stream id ``crc32(op name)``). Graph ops take their seeds
+from :func:`get_seed` (:26) at construction, which reads the graph's op
+counter when only the graph seed is set, and :func:`fold_in_value` reads
+them back from the op's ``seed`` and ``_graph_seed`` attrs (:45-53).
 """
 
 from __future__ import annotations
@@ -29,13 +30,45 @@ import numpy as np
 
 from . import prng
 
+DEFAULT_GRAPH_SEED = 87654321
 
-def fold_in_value(name: str, graph_seed=None, op_seed=None) -> int:
+
+def get_seed(op_seed):
+    """``(graph_seed, op_seed)`` of a random op being built in the default
+    graph (ref: python/framework/random_seed.py:27 ``get_seed``): with a
+    graph seed and no op seed, the op seed is the graph's op counter."""
+    from . import graph as ops
+
+    g = ops.get_default_graph()
+    graph_seed = g.seed
+    if graph_seed is not None:
+        if op_seed is None:
+            op_seed = g._op_counter
+        return graph_seed, op_seed
+    if op_seed is not None:
+        return DEFAULT_GRAPH_SEED, op_seed
+    return None, None
+
+
+def set_random_seed(seed):
+    """The default graph's seed (ref: random_seed.py:75)."""
+    from . import graph as ops
+
+    ops.get_default_graph().seed = seed
+
+
+def fold_in_value(op_or_name, graph_seed=None, op_seed=None) -> int:
     """Stable 31-bit stream id of a random op, from its seeds or, when it
-    has none, from its name."""
+    has none, from its name. ``op_or_name`` is a graph Operation (its
+    ``_graph_seed`` and ``seed`` attrs are read) or an op name with the
+    seeds beside it."""
+    if hasattr(op_or_name, "attrs"):
+        graph_seed = op_or_name.attrs.get("_graph_seed")
+        op_seed = op_or_name.attrs.get("seed")
+        op_or_name = op_or_name.name
     if graph_seed is not None or op_seed is not None:
         return ((graph_seed or 0) * 1000003 + (op_seed or 0)) & 0x7FFFFFFF
-    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+    return zlib.crc32(op_or_name.encode()) & 0x7FFFFFFF
 
 
 class StepRNG:

@@ -1,1 +1,8 @@
-"""Layers of the port (``simple_tensorflow_tpu/layers``) as ``nn.Module``s."""
+"""stf.layers of the port (ref: tensorflow/python/layers): the graph
+layers, and the eager ``nn.Module`` layers of the port's models
+(``DenseModule``, ``Conv2DModule``, ``BatchNormalizationModule``)."""
+
+from .base import Layer
+from .convolutional import Conv2D, conv2d
+from .core import Dense, Flatten, dense, flatten
+from .pooling import MaxPooling2D, max_pooling2d

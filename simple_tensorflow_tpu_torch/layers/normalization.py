@@ -1,5 +1,6 @@
-"""``BatchNormalization``: port of ``simple_tensorflow_tpu/layers/
-normalization.py`` (:14-87) over the last (channel) axis.
+"""``BatchNormalizationModule``: the eager port of ``simple_tensorflow_tpu/
+layers/normalization.py`` (:14-87) over the last (channel) axis (the
+graph ``BatchNormalization`` layer is not ported yet).
 
 Training mode (``module.train()``) normalises with the batch statistics
 through :class:`..ops.nn_impl.FusedBatchNormFunction`. The JAX layer also
@@ -17,7 +18,7 @@ from torch import nn
 from ..ops import nn_impl
 
 
-class BatchNormalization(nn.Module):
+class BatchNormalizationModule(nn.Module):
     """f32 ``gamma``/``beta`` parameters and f32 ``moving_mean``/
     ``moving_variance`` buffers, whatever the activations' dtype. The JAX
     layer's ``momentum`` feeds only the moving-average assigns that never

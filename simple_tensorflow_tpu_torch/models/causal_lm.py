@@ -49,7 +49,7 @@ from ..ops.kernels.fused_update import adam_update, adam_update_plain
 from ..ops.kernels.layer_norm import layer_norm_plain
 from ..ops.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from ..ops.kv_cache import KVCache
-from ..train.optimizers import AdamOptimizer
+from ..train.optimizers import FlatAdam
 from .common import resolve_device
 from .transformer import (DecoderStack, TransformerConfig, _attention,
                           _embed, _ffn, _residual, block_decode,
@@ -125,8 +125,8 @@ class CausalLMTrainer:
     """The port's counterpart of the JAX training dict ``{"loss",
     "train_op", "learning_rate", "global_step"}``: the model
     (:attr:`stack`, Dense parameters in the compute dtype, the embedding
-    and LayerNorm parameters f32), an :class:`..train.optimizers.
-    AdamOptimizer` (beta1 0.9, beta2 0.997, epsilon 1e-9) and the global
+    and LayerNorm parameters f32), a :class:`..train.optimizers.
+    FlatAdam` (beta1 0.9, beta2 0.997, epsilon 1e-9) and the global
     step. :meth:`step` runs forward, backward and the fused Adam update,
     then increments the global step. The learning rate is the noam
     schedule ``learning_rate * d_model^-0.5 * min(step^-0.5, step *
@@ -167,7 +167,7 @@ class CausalLMTrainer:
         self._step_t = torch.zeros((), dtype=torch.int64, device=device)
         self.learning_rate = _noam(self._step_t, learning_rate, cfg.d_model,
                                    warmup_steps)
-        self.optimizer = AdamOptimizer(
+        self.optimizer = FlatAdam(
             self.stack.parameters(), learning_rate=self.learning_rate,
             beta1=0.9, beta2=0.997, epsilon=1e-9,
             update=adam_update_plain if self.plain else adam_update)

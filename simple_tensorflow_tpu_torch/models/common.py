@@ -2,11 +2,11 @@
 
 Port of ``simple_tensorflow_tpu/models/common.py`` (``layer_norm``,
 ``split_heads``, ``merge_heads``; ``dense`` is
-:class:`..layers.core.Dense`) and the port's device rule. Parameter names follow the
-JAX variables, so a module's ``state_dict`` key is the JAX variable path
-with ``.`` for ``/`` (``…/ln1/gamma``, ``…/q/kernel``, ``…/q/bias``). Dense
-kernels are ``(in, out)`` as in JAX. Parameters are trainable; the serving
-model switches their gradients off.
+:class:`..layers.core.DenseModule`) and the port's device rule. Parameter
+names follow the JAX variables, so a module's ``state_dict`` key is the
+JAX variable path with ``.`` for ``/`` (``…/ln1/gamma``, ``…/q/kernel``,
+``…/q/bias``). Dense kernels are ``(in, out)`` as in JAX. Parameters are
+trainable; the serving model switches their gradients off.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ Port of ``simple_tensorflow_tpu/models/resnet.py`` as eager PyTorch:
   global_step}``: the mean sparse softmax cross-entropy (through the
   softmax-xent kernels) plus ``weight_decay`` times the l2 of every
   ``kernel`` variable in f32 (not BatchNorm, not the fc bias), and one
-  :class:`..train.optimizers.MomentumOptimizer` step (the fused Momentum
+  :class:`..train.optimizers.FlatMomentum` step (the fused Momentum
   kernel, one launch per flat group).
 
 BatchNorm's moving statistics are not updated by a training step, as the
@@ -36,13 +36,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..layers.convolutional import Conv2D
-from ..layers.core import Dense
-from ..layers.normalization import BatchNormalization
-from ..layers.pooling import max_pooling2d
+from ..layers.convolutional import Conv2DModule
+from ..layers.core import DenseModule
+from ..layers.normalization import BatchNormalizationModule
+from ..layers.pooling import _max_pooling2d_impl
 from ..ops import fused_ops, nn_ops
 from ..ops.kernels.fused_update import momentum_update, momentum_update_plain
-from ..train.optimizers import MomentumOptimizer
+from ..train.optimizers import FlatMomentum
 from .common import resolve_device
 
 _BLOCKS = {  # per-stage bottleneck counts
@@ -55,12 +55,12 @@ _BLOCKS = {  # per-stage bottleneck counts
 
 
 def _conv(in_ch, filters, ksize, stride, dtype, device):
-    return Conv2D(in_ch, filters, ksize, stride, padding="same",
-                  use_bias=False, dtype=dtype, device=device)
+    return Conv2DModule(in_ch, filters, ksize, stride, padding="same",
+                        use_bias=False, dtype=dtype, device=device)
 
 
 def _bn(channels, device):
-    return BatchNormalization(channels, epsilon=1e-5, device=device)
+    return BatchNormalizationModule(channels, epsilon=1e-5, device=device)
 
 
 class Bottleneck(nn.Module):
@@ -87,10 +87,10 @@ class Bottleneck(nn.Module):
         shortcut = x
         if self.proj_conv is not None:
             shortcut = self.proj_bn(self.proj_conv(x))
-        y = nn_ops.relu(self.bn1(self.conv1(x)))
-        y = nn_ops.relu(self.bn2(self.conv2(y)))
+        y = nn_ops._relu_impl(self.bn1(self.conv1(x)))
+        y = nn_ops._relu_impl(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
-        return nn_ops.relu(y + shortcut)
+        return nn_ops._relu_impl(y + shortcut)
 
 
 class ResNet(nn.Module):
@@ -118,12 +118,12 @@ class ResNet(nn.Module):
                 self.add_module(f"stage{stage}_block{i}", block)
                 self.blocks.append(block)
                 in_ch = 4 * filters
-        self.fc = Dense(in_ch, num_classes, dtype=torch.float32,
-                        device=device)
+        self.fc = DenseModule(in_ch, num_classes, dtype=torch.float32,
+                              device=device)
 
     def forward(self, x):
-        h = nn_ops.relu(self.bn0(self.conv0(x)))
-        h = max_pooling2d(h, 3, 2, padding="same")
+        h = nn_ops._relu_impl(self.bn0(self.conv0(x)))
+        h = _max_pooling2d_impl(h, 3, 2, padding="same")
         for block in self.blocks:
             h = block(h)
         # jnp.mean over H, W: summed in f32, returned in h's dtype
@@ -134,7 +134,7 @@ class ResNet(nn.Module):
 class ResNetTrainer:
     """The port's counterpart of the JAX training dict (module
     docstring): the model (:attr:`model`), a
-    :class:`..train.optimizers.MomentumOptimizer` (:attr:`optimizer`) and
+    :class:`..train.optimizers.FlatMomentum` (:attr:`optimizer`) and
     the global step. :meth:`step` runs forward, backward and the fused
     Momentum update, then increments the global step.
 
@@ -159,7 +159,7 @@ class ResNetTrainer:
         # the fc kernel, in creation order
         self.kernels = [p for name, p in self.model.named_parameters()
                         if name.endswith("kernel")]
-        self.optimizer = MomentumOptimizer(
+        self.optimizer = FlatMomentum(
             self.model.parameters(), learning_rate, momentum,
             update=momentum_update_plain if self.plain else momentum_update)
         self.global_step = 0
@@ -184,9 +184,9 @@ class ResNetTrainer:
         with (fused_ops.plain_versions() if self.plain
               else contextlib.nullcontext()):
             logits = self.model(images)
-            xent = nn_ops.sparse_softmax_cross_entropy_with_logits(
+            xent = nn_ops._sparse_softmax_xent_impl(
                 labels, logits).mean()
-        l2 = [nn_ops.l2_loss(k.float()) for k in self.kernels]
+        l2 = [nn_ops._l2_loss_impl(k.float()) for k in self.kernels]
         return xent + self.weight_decay * sum(l2[1:], l2[0])
 
     def loss_and_grads(self, images, labels):

@@ -15,9 +15,9 @@ In training with ``cfg.dropout > 0`` the sublayers drop as the JAX graph
 does, each random op drawing from a per-step
 :class:`..framework.random_seed.StepRNG` under its JAX op name (``scope``
 is the op's variable scope): the embedding and the FFN activation through
-``nn_ops.dropout`` (threefry keys), the attention probabilities inside the
-flash kernels and the attention tail through the fused dropout-residual
-kernel (int32 seeds of the counter-hash mask).
+``nn_ops._dropout_impl`` (threefry keys), the attention probabilities
+inside the flash kernels and the attention tail through the fused
+dropout-residual kernel (int32 seeds of the counter-hash mask).
 
 A :class:`DecoderStack`'s ``state_dict`` keys are the JAX variable paths
 under the model scope with ``.`` for ``/`` (``shared_embedding``,
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..layers.core import Dense
+from ..layers.core import DenseModule
 from ..ops import fused_ops, nn_ops
 from ..ops.embedding_ops import embedding_lookup
 from ..ops.kernels.decode_attention import decode_attention
@@ -93,13 +93,13 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.self_attn = nn.ModuleDict(
-            {name: Dense(d, d, dtype=dtype, device=device)
+            {name: DenseModule(d, d, dtype=dtype, device=device)
              for name in ("q", "k", "v", "out")})
         self.ln1 = LayerNorm(d, cfg.layer_norm_eps, device=device)
         self.ffn = nn.ModuleDict({
-            "in": Dense(d, cfg.d_ff, activation=torch.relu, dtype=dtype,
-                        device=device),
-            "out": Dense(cfg.d_ff, d, dtype=dtype, device=device)})
+            "in": DenseModule(d, cfg.d_ff, activation=torch.relu,
+                              dtype=dtype, device=device),
+            "out": DenseModule(cfg.d_ff, d, dtype=dtype, device=device)})
         self.ln3 = LayerNorm(d, cfg.layer_norm_eps, device=device)
 
 
@@ -254,8 +254,8 @@ def _ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training, rng=None,
     ``{scope}/dropout``), FFN out."""
     h = layer.ffn["in"](x)
     if _dropping(cfg, training):
-        h = nn_ops.dropout(h, 1.0 - cfg.dropout,
-                           rng.key_for(f"{scope}/dropout"))
+        h = nn_ops._dropout_impl(h, 1.0 - cfg.dropout,
+                                 rng.key_for(f"{scope}/dropout"))
     return layer.ffn["out"](h)
 
 
@@ -273,8 +273,8 @@ def _embed(stack: DecoderStack, ids, compute_dtype, training, rng=None,
         * stack.emb_scale.to(compute_dtype)
     h = h + stack.pos_table[:s].to(compute_dtype)
     if _dropping(cfg, training):
-        h = nn_ops.dropout(h, 1.0 - cfg.dropout,
-                           rng.key_for(f"{scope}/dropout"))
+        h = nn_ops._dropout_impl(h, 1.0 - cfg.dropout,
+                                 rng.key_for(f"{scope}/dropout"))
     return h
 
 

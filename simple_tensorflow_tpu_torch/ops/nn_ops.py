@@ -1,35 +1,53 @@
-"""``stf.nn`` ops of the port that are not fused kernels of the JAX
-package, with the JAX package's layouts at their boundaries (NHWC
-activations, HWIO filters, TF ``SAME``/``VALID`` padding):
+"""``stf.nn`` ops of the port, with the JAX package's layouts at their
+boundaries (NHWC activations, HWIO filters, TF ``SAME``/``VALID``
+padding).
 
-- ``dropout``, as ``simple_tensorflow_tpu/ops/nn_ops.py:dropout`` (:699)
-  builds it and ``_dropout_lower`` (:388-398) lowers it, drawing JAX's
-  threefry bits from an explicit key (a JAX session derives the key per
-  step and per op; :class:`..framework.random_seed.StepRNG` is the port's
-  counterpart). It runs the Dropout kernel, or its plain version under
-  :func:`.fused_ops.plain_versions`.
-- ``conv2d`` (``_conv2d_impl`` :164) and ``max_pool`` (``_max_pool_impl``
-  :352): a plain convolution is left to ``F.conv2d`` (cuDNN on the card),
-  as the JAX package leaves it to XLA outside any Pallas kernel. PyTorch's
-  ``padding=`` is symmetric, so TF ``SAME`` padding, which puts the odd
-  element at the bottom/right (stride 2), is padded explicitly.
-- ``relu``, ``l2_loss`` (:53) and ``sparse_softmax_cross_entropy_with_
-  logits`` (:67-109), the last through the softmax-xent kernels without
-  smoothing: the function the JAX registry's routed lowering computes.
+The graph functions mirror ``simple_tensorflow_tpu/ops/nn_ops.py``:
+``relu`` (:423), ``bias_add`` (:489), ``conv2d`` (:538), ``max_pool``
+(:665), ``dropout`` (:699), ``softmax_cross_entropy_with_logits`` (:496)
+and ``sparse_softmax_cross_entropy_with_logits`` (:509) build graph ops;
+their lowerings call the eager implementations below, as the JAX module's
+lowerings call its ``_conv2d_impl`` (:164) and ``_max_pool_impl`` (:352):
+
+- ``_dropout_impl``, as ``_dropout_lower`` (:388-398) draws it: JAX's
+  threefry bits from an explicit key (a session derives the key per run
+  and per op; :class:`..framework.random_seed.StepRNG` is the eager
+  trainers' counterpart). It runs the Dropout kernel, or its plain version
+  under :func:`.fused_ops.plain_versions`.
+- ``_conv2d_impl`` and ``_max_pool_impl``: a plain convolution is left to
+  ``F.conv2d`` (cuDNN on the card), as the JAX package leaves it to XLA
+  outside any Pallas kernel. PyTorch's ``padding=`` is symmetric, so TF
+  ``SAME`` padding, which puts the odd element at the bottom/right
+  (stride 2), is padded explicitly.
+- ``_relu_impl``, ``_l2_loss_impl`` (:53) and
+  ``_sparse_softmax_xent_impl`` (:67-109), the last through the
+  softmax-xent kernels without smoothing: the function the JAX registry's
+  routed lowering computes (:92-104).
+
+Left out of the graph ops: NCHW data formats, dilations, the other
+activations, pools and convolutions.
 """
 
 from __future__ import annotations
+
+import builtins
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..framework import graph as ops_mod
+from ..framework import op_registry
+from ..framework import random_seed as random_seed_mod
 from .fused_ops import using_plain_versions
 from .kernels.dropout import DropoutFunction
 from .kernels.softmax_xent import softmax_cross_entropy
+from .op_util import make_op, unary
+
+Tensor = ops_mod.Tensor
 
 
-def dropout(x, keep_prob: float, key):
+def _dropout_impl(x, keep_prob: float, key):
     """``where(uniform(key, x.shape) < keep_prob, x / keep_prob, 0)``
     with ``keep_prob`` in ``x``'s dtype for the division; ``key`` is a raw
     threefry key (two uint32 words). ``keep_prob == 1`` returns ``x``, as
@@ -44,16 +62,16 @@ def dropout(x, keep_prob: float, key):
                                  using_plain_versions())
 
 
-def relu(x):
+def _relu_impl(x):
     return torch.relu(x)
 
 
-def l2_loss(x):
+def _l2_loss_impl(x):
     """``0.5 * sum(x**2)`` summed in f32, cast back to ``x``'s dtype."""
     return (0.5 * torch.sum(torch.square(x.float()))).to(x.dtype)
 
 
-def sparse_softmax_cross_entropy_with_logits(labels, logits):
+def _sparse_softmax_xent_impl(labels, logits):
     """Per-example ``-log softmax(logits)[label]`` in the logits' dtype:
     ``logits (..., classes)``, int ``labels (...)``."""
     loss = softmax_cross_entropy(logits, labels,
@@ -86,10 +104,10 @@ def _spatial(v, name):
     return v[1:3]
 
 
-def conv2d(x, filter, strides, padding):  # noqa: A002 (the TF name)
+def _conv2d_impl(x, filter, strides, padding):  # noqa: A002 (the TF name)
     """2-D convolution of NHWC ``x`` with an HWIO ``filter``, NHWC out.
     Strides ``[1, sh, sw, 1]``. The filter is handed to ``F.conv2d`` as
-    the OIHW tensor it views (a port ``Conv2D`` stores its kernel
+    the OIHW tensor it views (a port ``Conv2DModule`` stores its kernel
     contiguous OIHW, so no copy); ``x`` goes as the NCHW view of NHWC
     memory (channels_last), so activations stay in the JAX layout."""
     sh, sw = _spatial(strides, "strides")
@@ -105,7 +123,7 @@ def conv2d(x, filter, strides, padding):  # noqa: A002 (the TF name)
     return y.permute(0, 2, 3, 1)
 
 
-def max_pool(x, ksize, strides, padding):
+def _max_pool_impl(x, ksize, strides, padding):
     """Max pooling of NHWC ``x``; ``ksize``/``strides`` ``[1, h, w, 1]``;
     ``SAME`` pads with -inf, as ``reduce_window`` with a -inf init."""
     kh, kw = _spatial(ksize, "ksize")
@@ -115,3 +133,173 @@ def max_pool(x, ksize, strides, padding):
         x = F.pad(x, (0, 0, pl, pr, pt, pb), value=float("-inf"))
     y = F.max_pool2d(x.permute(0, 3, 1, 2), (kh, kw), stride=(sh, sw))
     return y.permute(0, 2, 3, 1)
+
+
+# -- graph ops ---------------------------------------------------------------
+
+def _nhwc(data_format):
+    if (data_format or "NHWC") != "NHWC":
+        raise NotImplementedError(f"data_format {data_format!r} is not "
+                                  "ported (NHWC only)")
+
+
+def _conv2d_op(x, w, strides=(1, 1, 1, 1), padding="SAME",
+               data_format="NHWC", dilations=(1, 1, 1, 1)):
+    _nhwc(data_format)
+    if tuple(dilations) != (1, 1, 1, 1):
+        raise NotImplementedError("dilated conv2d is not ported")
+    return _conv2d_impl(x, w, strides, padding)
+
+
+def _max_pool_op(x, ksize=None, strides=None, padding="VALID",
+                 data_format="NHWC"):
+    _nhwc(data_format)
+    return _max_pool_impl(x, ksize, strides, padding)
+
+
+def _bias_add_op(x, b, data_format="NHWC"):
+    _nhwc(data_format)
+    return x + b
+
+
+def _softmax_xent(logits, labels):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (-(labels.float() * logp).sum(dim=-1)).to(logits.dtype)
+
+
+op_registry.register_pure("Relu", _relu_impl)
+op_registry.register_pure("BiasAdd", _bias_add_op)
+op_registry.register_pure("Conv2D", _conv2d_op)
+op_registry.register_pure("MaxPool", _max_pool_op)
+op_registry.register_pure("SoftmaxCrossEntropyWithLogits", _softmax_xent)
+
+
+def _lower_sparse_xent(ctx, op, inputs):
+    logits, labels = inputs
+    return [_sparse_softmax_xent_impl(labels, logits)]
+
+
+def _infer_sparse_xent(graph, attrs, inputs):
+    logits, labels = inputs
+    return [(labels.shape, logits.dtype.base_dtype)]
+
+
+op_registry.register("SparseSoftmaxCrossEntropyWithLogits",
+                     lower=_lower_sparse_xent, infer_fn=_infer_sparse_xent)
+
+
+def _lower_dropout(ctx, op, inputs):
+    """The JAX lowering's draw (``u = uniform(key, x.shape)``, keep ``u <
+    keep_prob``) through the Dropout kernel; a tensor ``keep_prob`` is
+    read on the host (:meth:`LoweringContext.host_value`: a feed or a
+    constant default costs no sync, anything else one ``.item()``)."""
+    x = inputs[0]
+    keep_prob = op.attrs["keep_prob"]
+    if keep_prob is None:
+        keep_prob = ctx.host_value(op.inputs[1])
+    ns = op.attrs.get("noise_shape")
+    if ns is not None and tuple(ns) != tuple(x.shape):
+        raise NotImplementedError("dropout noise_shape other than the "
+                                  "input's shape is not ported")
+    return [_dropout_impl(x, keep_prob, ctx.rng_for(op))]
+
+
+op_registry.register("Dropout", lower=_lower_dropout,
+                     effects=op_registry.Effects(rng=True))
+
+
+def relu(features, name=None):
+    return unary("Relu", features, name)
+
+
+def bias_add(value, bias, data_format="NHWC", name=None):
+    value = ops_mod.convert_to_tensor(value)
+    bias = ops_mod.convert_to_tensor(bias, dtype=value.dtype.base_dtype)
+    return make_op("BiasAdd", [value, bias],
+                   attrs={"data_format": data_format or "NHWC"}, name=name)
+
+
+def softmax_cross_entropy_with_logits(labels=None, logits=None, dim=-1,
+                                      name=None, _sentinel=None):
+    if _sentinel is not None:
+        raise ValueError("Use named arguments for "
+                         "softmax_cross_entropy_with_logits")
+    logits = ops_mod.convert_to_tensor(logits)
+    labels = ops_mod.convert_to_tensor(labels, dtype=logits.dtype.base_dtype)
+    return make_op("SoftmaxCrossEntropyWithLogits", [logits, labels],
+                   name=name)
+
+
+softmax_cross_entropy_with_logits_v2 = softmax_cross_entropy_with_logits
+
+
+def sparse_softmax_cross_entropy_with_logits(labels=None, logits=None,
+                                             name=None, _sentinel=None):
+    logits = ops_mod.convert_to_tensor(logits)
+    labels = ops_mod.convert_to_tensor(labels)
+    if not labels.dtype.is_integer:
+        raise TypeError("labels must be integer class ids")
+    return make_op("SparseSoftmaxCrossEntropyWithLogits", [logits, labels],
+                   name=name)
+
+
+def conv2d(input, filter=None, strides=None, padding=None,  # noqa: A002
+           use_cudnn_on_gpu=True, data_format="NHWC", dilations=None,
+           name=None, filters=None):
+    """2-D convolution (ref: nn_ops.py ``conv2d``)."""
+    w = filters if filters is not None else filter
+    x = ops_mod.convert_to_tensor(input)
+    w = ops_mod.convert_to_tensor(w, dtype=x.dtype.base_dtype)
+    strides = strides or [1, 1, 1, 1]
+    if isinstance(strides, int):
+        strides = [1, strides, strides, 1]
+    dilations = dilations or [1, 1, 1, 1]
+    if isinstance(dilations, int):
+        dilations = [1, dilations, dilations, 1]
+    return make_op("Conv2D", [x, w],
+                   attrs={"strides": builtins.tuple(strides),
+                          "padding": padding or "SAME",
+                          "data_format": data_format or "NHWC",
+                          "dilations": builtins.tuple(dilations)},
+                   name=name)
+
+
+def max_pool(value, ksize, strides, padding, data_format="NHWC", name=None):
+    x = ops_mod.convert_to_tensor(value)
+    return make_op("MaxPool", [x],
+                   attrs={"ksize": builtins.tuple(ksize),
+                          "strides": builtins.tuple(strides),
+                          "padding": padding,
+                          "data_format": data_format or "NHWC"}, name=name)
+
+
+def dropout(x, keep_prob=None, noise_shape=None, seed=None, name=None,
+            rate=None):
+    """(ref: nn_ops.py ``dropout``). The mask is drawn from the run's
+    stream for this op; the backward applies the forward's mask."""
+    from . import math_ops
+
+    x = ops_mod.convert_to_tensor(x)
+    if rate is not None:
+        keep_prob = 1.0 - rate
+    if keep_prob is None:
+        raise ValueError("dropout: pass keep_prob or rate")
+    g = ops_mod.get_default_graph()
+    graph_seed, op_seed = random_seed_mod.get_seed(seed)
+    ns = None
+    if noise_shape is not None:
+        ns = builtins.tuple(int(d) for d in np.ravel(np.asarray(noise_shape)))
+    inputs = [x]
+    if isinstance(keep_prob, Tensor):
+        inputs.append(math_ops.cast(keep_prob, "float32"))
+        kp_attr = None
+    else:
+        kp_attr = float(keep_prob)
+        if kp_attr == 1.0:
+            return x
+    op = g.create_op("Dropout", inputs,
+                     attrs={"keep_prob": kp_attr, "noise_shape": ns,
+                            "seed": op_seed, "_graph_seed": graph_seed},
+                     name=name or "dropout",
+                     output_specs=[(x.shape, x.dtype)])
+    return op.outputs[0]

@@ -1,9 +1,24 @@
-"""Adam and Momentum with the fused flat-group update.
+"""Optimizers with the fused flat-group update.
 
-Port of ``simple_tensorflow_tpu/train/optimizers.py:AdamOptimizer`` (:367)
-and ``MomentumOptimizer`` (:314) on their fused paths
-(``_maybe_build_fused_update``, lowered by ``_lower_fused_adam`` :189 and
-``_lower_fused_momentum`` :241), as ``torch.optim.Optimizer`` subclasses:
+The graph optimizers of ``simple_tensorflow_tpu/train/optimizers.py``:
+``GradientDescentOptimizer`` (:294), whose update is one ``AssignSub``
+chain per variable, and ``AdamOptimizer`` (:367) on its fused path
+(``_maybe_build_fused_update`` :422): one ``FusedAdamUpdate`` op over
+per-group flat ``m``/``v`` slot variables with the JAX names
+(``Adam/Adam/fused_m_g0``; ``_build_groups`` :78, ``_flat_slot_layout``
+:89), lowered to one Adam kernel launch per group
+(``_lower_fused_adam`` :189-238). Where that lowering concatenates the
+group's parameters and splits the result (``_split_write_params`` :184),
+the Session's store keeps each parameter as a view into one flat buffer
+per group, built at the first update and rebuilt only after an assign
+replaced a member, and the kernel updates it in place. Left out of the
+graph optimizers: Adam's per-variable path (the JAX kernel-registry mode
+"off"), Momentum and the other optimizers.
+
+The eager ``FlatAdam`` and ``FlatMomentum`` are the same fused paths of
+``AdamOptimizer`` and ``MomentumOptimizer`` (:314, ``_lower_fused_momentum``
+:241) as ``torch.optim.Optimizer`` subclasses for the port's ``nn.Module``
+trainers:
 
 - parameters are grouped by ``(param dtype, update dtype)`` in order of
   first occurrence (``_build_groups`` :78); the update dtype is f32 for
@@ -38,7 +53,15 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.kernels.fused_update import adam_update, momentum_update
+from ..framework import dtypes as dtypes_mod
+from ..framework import graph as ops_mod
+from ..framework import op_registry
+from ..ops import array_ops, math_ops, state_ops
+from ..ops import variables as variables_mod
+from ..ops.fused_ops import using_plain_versions
+from ..ops.kernels.fused_update import (adam_update, adam_update_plain,
+                                        momentum_update)
+from .optimizer import Optimizer, _var_key
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -144,7 +167,7 @@ class _FlatOptimizer(torch.optim.Optimizer):
             grp.check_views()
 
 
-class AdamOptimizer(_FlatOptimizer):
+class FlatAdam(_FlatOptimizer):
     """Adam over flat groups (module docstring). ``update`` is the
     flat-group update each step runs per group: the kernel wrapper
     :func:`..ops.kernels.fused_update.adam_update`, or a function of the
@@ -185,7 +208,7 @@ class AdamOptimizer(_FlatOptimizer):
         return loss
 
 
-class MomentumOptimizer(_FlatOptimizer):
+class FlatMomentum(_FlatOptimizer):
     """Momentum (``use_nesterov=True``: Nesterov) over flat groups, one
     flat ``momentum`` slot per group (module docstring). ``momentum`` is
     a float, held as an f32 device scalar. ``update`` is the flat-group
@@ -218,3 +241,216 @@ class MomentumOptimizer(_FlatOptimizer):
             self.update(grp.p, grp.momentum, grp.g, lr.to(ud),
                         self.mu.to(ud), use_nesterov=self.use_nesterov)
         return loss
+
+
+# -- graph optimizers --------------------------------------------------------
+
+def _ud(var):
+    """The update dtype of a graph variable: f32 for low-precision floats
+    (``slot_creator.update_dtype``)."""
+    d = var.dtype.base_dtype
+    return dtypes_mod.float32 if d.name in ("bfloat16", "float16") else d
+
+
+def _store_name(var):
+    return var._ref.op.attrs["var_name"]
+
+
+def _c(value, var):
+    """A hyperparameter in the variable's update dtype."""
+    return ops_mod.convert_to_tensor(value, dtype=_ud(var))
+
+
+def _g(grad, var):
+    ud = _ud(var)
+    return math_ops.cast(grad, ud) if grad.dtype.base_dtype != ud else grad
+
+
+def _back(x, var):
+    d = var.dtype.base_dtype
+    return math_ops.cast(x, d) if x.dtype.base_dtype != d else x
+
+
+def _np_prod(xs):
+    n = 1
+    for x in xs:
+        n *= int(x)
+    return n
+
+
+def _build_groups(pairs):
+    """``{(param dtype, update dtype): [(grad, var), ...]}`` by first
+    occurrence."""
+    groups = {}
+    for grad, var in pairs:
+        groups.setdefault((var.dtype.base_dtype, _ud(var)), []).append(
+            (grad, var))
+    return groups
+
+
+def _flat_slot_layout(opt, slot_names, groups):
+    """The per-group flat slot variables (``{name}/fused_{slot}_g{i}``)
+    and their per-variable view tensors, as the JAX package builds them.
+    Returns ``{slot_name: [flat var names]}`` and the groups' parameter
+    names."""
+    layout = {sn: [] for sn in slot_names}
+    group_params = []
+    for gi, ((_pdt, ud), pairs) in enumerate(groups.items()):
+        sizes = [_np_prod(v.shape.as_list()) for _, v in pairs]
+        n = sum(sizes)
+        for sn in slot_names:
+            ck = (sn, gi, n, ud.name, tuple(_var_key(v) for _, v in pairs))
+            flat = opt._flat_slot_cache.get(ck)
+            if flat is None:
+                flat = variables_mod.Variable(
+                    array_ops.zeros([n], dtype=ud), trainable=False,
+                    name=f"{opt._name}/fused_{sn}_g{gi}")
+                opt._flat_slot_cache[ck] = flat
+                opt._fused_slot_vars.append(flat)
+                off = 0
+                views = opt._slot_views.setdefault(sn, {})
+                for (_, v), sz in zip(pairs, sizes):
+                    views[_var_key(v)] = array_ops.reshape(
+                        array_ops.slice(flat._ref, [off], [sz]),
+                        [int(d) for d in v.shape.as_list()])
+                    off += sz
+            layout[sn].append(_store_name(flat))
+        group_params.append(tuple(_store_name(v) for _, v in pairs))
+    return layout, group_params
+
+
+def flat_group(ctx, names):
+    """The flat buffer the store entries ``names`` are views into, in
+    order; built (one copy) when an entry is not such a view, e.g. at the
+    first update or after an assign replaced it. The store entries become
+    views into it, so an in-place update of the buffer updates them."""
+    cache = ctx.session._flat_groups
+    vals = [ctx.read_var(n) for n in names]
+    flat = cache.get(names)
+    if flat is not None:
+        elem, off = flat.element_size(), 0
+        ok = True
+        for v in vals:
+            if v.data_ptr() != flat.data_ptr() + off * elem or \
+                    not v.is_contiguous() or v.dtype != flat.dtype:
+                ok = False
+                break
+            off += v.numel()
+        if ok and off == flat.numel():
+            return flat
+    flat = torch.cat([v.detach().reshape(-1) for v in vals])
+    off = 0
+    for n, v in zip(names, vals):
+        ctx.state[n] = flat[off:off + v.numel()].view(v.shape)
+        off += v.numel()
+    cache[names] = flat
+    return flat
+
+
+def _lower_fused_adam(ctx, op, inputs):
+    """One Adam kernel launch per group over the flat parameters, the flat
+    ``m``/``v`` slots and the concatenated gradients, in place; then the
+    beta powers decay, after every group's update."""
+    attrs = op.attrs
+    n_groups = len(attrs["group_params"])
+    lrs = inputs[:n_groups]
+    grads = inputs[n_groups:]
+    beta1, beta2, eps = attrs["beta1"], attrs["beta2"], attrs["epsilon"]
+    b1p = ctx.read_var(attrs["beta1_power"], op)
+    b2p = ctx.read_var(attrs["beta2_power"], op)
+    update = adam_update_plain if using_plain_versions() else adam_update
+    lo = 0
+    with torch.no_grad():
+        for gi, pnames in enumerate(attrs["group_params"]):
+            ud = dtypes_mod.as_dtype(attrs["group_ud"][gi]).torch_dtype
+            alpha = lrs[gi].to(ud) * torch.sqrt(1 - b2p.to(ud)) \
+                / (1 - b1p.to(ud))
+            p_flat = flat_group(ctx, tuple(pnames))
+            # the kernel takes the gradients in the parameters' dtype and
+            # widens them itself (JAX widens before the call: the same
+            # values, bf16 -> f32 being exact)
+            g_flat = torch.cat([g.reshape(-1) for g in
+                                grads[lo:lo + len(pnames)]]).to(p_flat.dtype)
+            lo += len(pnames)
+            update(p_flat, ctx.read_var(attrs["group_m"][gi], op),
+                   ctx.read_var(attrs["group_v"][gi], op), g_flat, alpha,
+                   beta1=beta1, beta2=beta2, eps=eps)
+        for name, beta in ((attrs["beta1_power"], beta1),
+                           (attrs["beta2_power"], beta2)):
+            cur = ctx.read_var(name, op)
+            ctx.write_var(name, cur * torch.full((), beta, dtype=cur.dtype,
+                                                 device=cur.device))
+    return []
+
+
+op_registry.register(
+    "FusedAdamUpdate", lower=_lower_fused_adam,
+    effects=op_registry.Effects(reads=("var_name",), writes=("var_name",)),
+    in_place=True)
+
+
+class GradientDescentOptimizer(Optimizer):
+    """(ref: python/training/gradient_descent.py)."""
+
+    def __init__(self, learning_rate, use_locking=False,
+                 name="GradientDescent"):
+        super().__init__(use_locking, name)
+        self._learning_rate = learning_rate
+
+    def _apply_dense(self, grad, var):
+        grad = _g(grad, var)
+        lr = _c(self._call_if_callable(self._learning_rate), var)
+        return state_ops.assign_sub(var._ref, _back(lr * grad, var)).op
+
+
+class AdamOptimizer(Optimizer):
+    """(ref: python/training/adam.py) on the fused path: one
+    ``FusedAdamUpdate`` op over flat slots."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, use_locking=False, name="Adam"):
+        super().__init__(use_locking, name)
+        self._lr = learning_rate
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._beta1_power = None
+        self._beta2_power = None
+
+    def _maybe_build_fused_update(self, grads_and_vars):
+        if any(isinstance(h, ops_mod.Tensor) or callable(h)
+               for h in (self._beta1, self._beta2, self._epsilon)):
+            raise NotImplementedError("AdamOptimizer with tensor beta1, "
+                                      "beta2 or epsilon is not ported")
+        pairs = [(g, v) for g, v in grads_and_vars if g is not None]
+        if not pairs:
+            return None
+        if self._beta1_power is None:
+            self._beta1_power = variables_mod.Variable(
+                float(self._beta1), trainable=False,
+                name=self._name + "/beta1_power")
+            self._beta2_power = variables_mod.Variable(
+                float(self._beta2), trainable=False,
+                name=self._name + "/beta2_power")
+        groups = _build_groups(pairs)
+        layout, group_params = _flat_slot_layout(self, ("m", "v"), groups)
+        lr_val = self._call_if_callable(self._lr)
+        inputs = ([ops_mod.convert_to_tensor(lr_val, dtype=ud)
+                   for (_pdt, ud) in groups]
+                  + [g for pairs_g in groups.values() for g, _ in pairs_g])
+        all_params = [p for grp in group_params for p in grp]
+        b1p = _store_name(self._beta1_power)
+        b2p = _store_name(self._beta2_power)
+        g = ops_mod.get_default_graph()
+        return g.create_op(
+            "FusedAdamUpdate", inputs,
+            attrs={"var_name": (all_params + layout["m"] + layout["v"]
+                                + [b1p, b2p]),
+                   "group_params": tuple(group_params),
+                   "group_m": tuple(layout["m"]),
+                   "group_v": tuple(layout["v"]),
+                   "group_ud": tuple(ud.name for (_p, ud) in groups),
+                   "beta1_power": b1p, "beta2_power": b2p,
+                   "beta1": float(self._beta1), "beta2": float(self._beta2),
+                   "epsilon": float(self._epsilon)},
+            name="fused_adam_update", output_specs=[])

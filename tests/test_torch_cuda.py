@@ -1113,3 +1113,49 @@ def test_dropout_trainer_step_matches_plain_on_card(cuda):
             continue
         gk, gp = pk.grad.float(), grads_p[name].grad.float()
         assert ((gk - gp).norm() / gp.norm()).item() <= 1e-4, name
+
+
+SESSION_PER_STEP = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                    "adam_update": 1, "dropout": 1, "dropout_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_session_trains_the_convnet_through_the_kernels(cuda, dtype):
+    """``models/mnist.py``'s convnet through ``stf.Session()`` (the card by
+    default): every step launches the xent forward and backward, one Adam
+    and the Dropout forward and backward once; under
+    ``fused_ops.plain_versions()`` none, with the first loss within rtol
+    1e-5 (f32) or 2e-2 (bf16) of the kernels' run."""
+    import contextlib
+
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import mnist
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    x, labels, _ = mnist.synthetic_mnist(16, seed=0)
+    runs = []
+    for plain in (False, True):
+        g = stf.Graph()
+        with g.as_default():
+            m = mnist.convnet_model(dtype=getattr(stf, dtype))
+            init = stf.global_variables_initializer()
+        with stf.Session(graph=g) as s:
+            assert s.device.type == "cuda"
+            s.run(init)
+            feeds = {m["x"]: x.reshape(-1, 28, 28, 1), m["y_"]: labels,
+                     m["keep_prob"]: 0.5}
+            with (fused_ops.plain_versions() if plain
+                  else contextlib.nullcontext()):
+                K.reset_launch_counts()
+                losses = [float(s.run([m["train_op"], m["loss"]],
+                                      feeds)[1]) for _ in range(2)]
+                counts = K.launch_counts()
+            assert int(s.run(m["global_step"])) == 2
+        runs.append((losses, counts))
+    (lk, ck), (lp, cp) = runs
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert abs(lk[0] - lp[0]) <= tol * abs(lp[0])
+    assert all(np.isfinite(lk + lp))
+    assert not any(cp.values())
+    assert ck == {k: 2 * SESSION_PER_STEP.get(k, 0) for k in ck}

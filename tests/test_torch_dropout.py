@@ -21,7 +21,7 @@ rounds each operation alike on both sides.
   the backward's mask read off dV, dK and dQ (``keep_mask_readoff``, the
   construction the card's mask checks use) through the port's plain
   backward and the Pallas backward: the K0 mask exactly;
-- ``nn_ops.dropout`` against the JAX ``Dropout`` lowering given the same
+- ``nn_ops._dropout_impl`` against the JAX ``Dropout`` lowering given the same
   key, f32 and bf16, values and gradients;
 - ``random_seed.fold_in_value`` against the JAX rule, and the step
   streams of ``StepRNG`` against a JAX session's key chain.
@@ -423,7 +423,7 @@ def test_dropout_matches_the_jax_lowering(dtype, shape, counter):
                         jnp.asarray(x, jd))
     (jdx,) = vjp(jnp.asarray(g, jd))
     tx = _t(x).to(dtype).requires_grad_()
-    out = nn_ops.dropout(tx, 0.9, tuple(int(w) for w in _raw(key)))
+    out = nn_ops._dropout_impl(tx, 0.9, tuple(int(w) for w in _raw(key)))
     (dx,) = torch.autograd.grad(out, tx, _t(g).to(dtype))
     got = _bits(out.detach().float())
     np.testing.assert_array_equal(got, _bits(_np(jout)))
@@ -437,9 +437,9 @@ def test_dropout_divides_by_keep_prob_in_the_input_dtype():
     kept = out[out != 0].float()
     # 1 / 0.8984375 (bf16 0.9) rounds to bf16 1.109375, not 1 / 0.9
     assert torch.equal(kept, torch.full_like(kept, 1.109375))
-    assert nn_ops.dropout(x, 1.0, key) is x
+    assert nn_ops._dropout_impl(x, 1.0, key) is x
     with pytest.raises(ValueError, match="keep_prob"):
-        nn_ops.dropout(x, 0.0, key)
+        nn_ops._dropout_impl(x, 0.0, key)
 
 
 def test_trainer_derives_each_step_of_a_block_as_one_step_alone():
@@ -503,7 +503,7 @@ def test_keep_prob_that_is_zero_in_f32_is_refused(keep_prob):
     with pytest.raises(ValueError, match="keep"):
         pdo.keep_bits_limit(keep_prob)
     with pytest.raises(ValueError, match="keep_prob"):
-        nn_ops.dropout(torch.ones(8), keep_prob, (1, 2))
+        nn_ops._dropout_impl(torch.ones(8), keep_prob, (1, 2))
     # the least positive f32 still has a limit: the uniform's 0 alone
     assert pdo.keep_bits_limit(float(np.float32(2.0 ** -149))) == 511
 

@@ -58,6 +58,18 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.framework import (prng,
                                                            random_seed)
         from simple_tensorflow_tpu_torch.train import optimizers
+        from simple_tensorflow_tpu_torch.framework import (
+            config_pb, constant_op, dtypes, errors, gradients, graph,
+            lowering, op_registry, tensor_shape)
+        from simple_tensorflow_tpu_torch.client import session
+        from simple_tensorflow_tpu_torch.ops import (
+            array_ops, control_flow_ops, init_ops, math_ops, op_util,
+            random_ops, state_ops, variable_scope, variables)
+        from simple_tensorflow_tpu_torch.layers import base
+        from simple_tensorflow_tpu_torch.train import (optimizer,
+                                                       training_util)
+        from simple_tensorflow_tpu_torch.models import mnist
+        from simple_tensorflow_tpu_torch import nn, layers, train
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -127,6 +139,24 @@ def test_trainer_defaults_to_the_gpu_and_refuses_dropout(monkeypatch):
     with pytest.raises(ValueError, match="dropout"):
         clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
                                   device="cpu")
+
+
+def test_session_defaults_to_the_gpu(monkeypatch):
+    """``stf.Session()`` runs on the card and raises without one; only
+    ``ConfigProto(device_count={"GPU": 0})`` asks for the CPU."""
+    import simple_tensorflow_tpu_torch as stf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with stf.Graph().as_default():
+        c = stf.constant(2.0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stf.Session()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stf.Session(config=stf.ConfigProto(device_count={"GPU": 1}))
+        with stf.Session(config=stf.ConfigProto(
+                device_count={"GPU": 0})) as s:
+            assert s.device.type == "cpu"
+            assert s.run(c) == 2.0
 
 
 def test_resnet_trainer_defaults_to_the_gpu(monkeypatch):

@@ -126,7 +126,7 @@ def test_momentum_update_matches_jax(dtype, nesterov):
 def test_momentum_optimizer_names_its_slot_and_itself():
     a = torch.nn.Parameter(torch.ones(3))
     w = torch.nn.Parameter(torch.ones(2, 2, dtype=torch.bfloat16))
-    opt = popt.MomentumOptimizer([a, w], learning_rate=0.5, momentum=0.9)
+    opt = popt.FlatMomentum([a, w], learning_rate=0.5, momentum=0.9)
     assert [len(grp) for grp in opt.flat_groups] == [3, 4]
     assert [list(grp.slots) for grp in opt.flat_groups] == [["momentum"]] * 2
     assert opt.update is K.momentum_update
@@ -137,7 +137,7 @@ def test_momentum_optimizer_names_its_slot_and_itself():
     torch.testing.assert_close(opt.flat_groups[0].momentum,
                                torch.full((3,), 1.9))
     a.grad = None
-    with pytest.raises(RuntimeError, match="MomentumOptimizer: parameter 0"):
+    with pytest.raises(RuntimeError, match="FlatMomentum: parameter 0"):
         opt.step()
 
 
@@ -155,13 +155,14 @@ def test_conv2d_same_padding_matches_jax(k, stride, size):
     strides = [1, stride, stride, 1]
     want = _np(jnn_ops._conv2d_impl(jnp.asarray(x), jnp.asarray(w),
                                     strides=strides, padding="SAME"))
-    got = nn_ops.conv2d(_t(x), _t(w), strides, "SAME")
+    got = nn_ops._conv2d_impl(_t(x), _t(w), strides, "SAME")
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, **FWD)
     # through the layer: a contiguous OIHW kernel viewed as HWIO
-    from simple_tensorflow_tpu_torch.layers.convolutional import Conv2D
+    from simple_tensorflow_tpu_torch.layers.convolutional import \
+        Conv2DModule
 
-    layer = Conv2D(5, 6, k, stride, padding="same")
+    layer = Conv2DModule(5, 6, k, stride, padding="same")
     bias = rng.randn(6).astype(np.float32)
     with torch.no_grad():
         layer.kernel.copy_(_t(w.transpose(3, 2, 0, 1)))
@@ -190,7 +191,7 @@ def test_max_pool_same_and_vjp_match_jax(size):
                         jnp.asarray(x))
     (want_dx,) = vjp(jnp.asarray(dy))
     xt = _t(x).requires_grad_()
-    got = nn_ops.max_pool(xt, [1, 3, 3, 1], [1, 2, 2, 1], "SAME")
+    got = nn_ops._max_pool_impl(xt, [1, 3, 3, 1], [1, 2, 2, 1], "SAME")
     got.backward(_t(dy))
     np.testing.assert_array_equal(got.detach().numpy(), _np(want))
     np.testing.assert_array_equal(xt.grad.numpy(), _np(want_dx))

@@ -277,7 +277,7 @@ def test_adam_optimizer_keeps_flat_groups_in_first_occurrence_order():
     a = torch.nn.Parameter(torch.ones(3))
     w = torch.nn.Parameter(torch.ones(2, 2, dtype=torch.bfloat16))
     c = torch.nn.Parameter(torch.full((2,), 2.0))
-    opt = popt.AdamOptimizer([a, w, c], learning_rate=0.1)
+    opt = popt.FlatAdam([a, w, c], learning_rate=0.1)
     assert [len(grp) for grp in opt.flat_groups] == [5, 4]
     assert [grp.m.dtype for grp in opt.flat_groups] == [torch.float32] * 2
     f32, bf16 = opt.flat_groups
@@ -320,12 +320,12 @@ def test_plain_versions_reach_the_adam_update(monkeypatch):
         assert set(seen) == {plain} and not fused_ops.using_plain_versions()
         seen.clear()
     p = torch.nn.Parameter(torch.ones(4))
-    assert popt.AdamOptimizer([p]).update is K.adam_update
+    assert popt.FlatAdam([p]).update is K.adam_update
 
 
 def test_adam_refuses_parameters_cut_off_from_the_flat_buffers():
     lin = torch.nn.Linear(3, 2)
-    opt = popt.AdamOptimizer(lin.parameters(), learning_rate=0.1)
+    opt = popt.FlatAdam(lin.parameters(), learning_rate=0.1)
     lin(torch.ones(1, 3)).sum().backward()
     opt.step()
     opt.zero_grad()
@@ -334,7 +334,7 @@ def test_adam_refuses_parameters_cut_off_from_the_flat_buffers():
     with pytest.raises(RuntimeError, match="no longer views"):
         opt.step()
     lin2 = torch.nn.Linear(3, 2)
-    opt2 = popt.AdamOptimizer(lin2.parameters())
+    opt2 = popt.FlatAdam(lin2.parameters())
     lin2.weight.data = lin2.weight.data.clone()
     with pytest.raises(RuntimeError, match="no longer views"):
         opt2.step()
