@@ -77,7 +77,16 @@ beside another tree's package measures that tree's serving path.
    re-forward on the card (PyTorch ops only, no kernel). Then 16 more
    requests fill decode bucket 16 and a ``torch.profiler`` window over
    ``TRACE_STEPS`` engine steps gives the device ms a decode step beside
-   the host p50 step, and the top kernels.
+   the host p50 step, and the top kernels. The model captures every
+   decode and prefill bucket as a CUDA graph when it is built
+   (``aot_warmup``, the default); its launches count through the
+   replays. Then, per head, the model with ``aot_warmup`` on and off on
+   one fixed script of prefill and decode calls (every bucket, partial
+   buckets, a small batch right after a larger one): tokens int-exact
+   and log-probs bit-identical. Last, the f32 head served with
+   ``aot_warmup=False`` (eager dispatch) on the same prompts, its
+   tokens/s, p50 decode step, p50 time to first token and traced
+   bucket-16 step printed beside the graphs'.
 4. Training phase: ``causal_lm_train_model`` at ``TransformerConfig.big()``,
    batch 16 x 256, weights from ``init_params(seed=0)``. At dropout 0 and
    at the shipped 0.1: one f32 step through the kernels against the same
@@ -129,20 +138,35 @@ beside another tree's package measures that tree's serving path.
    loss within rtol 1e-5, the first step's Dropout output equal, every
    step's masks equal on live units, every variable and Adam slot within
    relative norm 1e-5; Adam's beta1 x (1 + 1e-4) and the Dropout op's
-   stream id + 1 are planted faults that must fail. Then
-   ``SESSION_STEPS`` ``Session.run([train_op, loss])`` steps on one
-   repeated ``synthetic_mnist(512, seed=0)`` batch fed as numpy: the
-   loss falls, exactly 1 + 1 xent, 1 Adam and 1 + 1 Dropout launches a
-   step, no plan-cache miss after the first step; the p50 step,
-   images/s, the device ms a step from a ``torch.profiler`` window of 3
-   steps and the host ms a step (p50 minus device). Last,
-   ``softmax_model`` (GradientDescent at ``SOFTMAX_LR``) for
-   ``SESSION_STEPS`` steps, its loss falling at every step.
+   stream id + 1 are planted faults that must fail (these steps
+   dispatch eagerly, ``_capture`` off). The Dropout forward's device-key
+   entry (the key read through a pointer, as a captured step launches
+   it) is held bit for bit against the launch-argument entry and the
+   plain version at the MNIST shape and at both training shapes. Then the
+   Session's CUDA graphs: ``GRAPH_CHECK_STEPS`` convnet steps of a
+   Session that captures its step (step 1 eager, step 2 captured, then
+   replays) against the same steps dispatched eagerly from the same run
+   counters: losses, Dropout outputs, every variable and Adam slot
+   bit-identical, exactly one capture; a planted fault (the key buffer
+   not refilled before the replays) must change the Dropout outputs.
+   Then two windows of ``SESSION_STEPS`` ``Session.run([train_op,
+   loss])`` steps on one repeated ``synthetic_mnist(512, seed=0)`` batch
+   fed as numpy, the graph one first, then the eager one: the loss falls,
+   exactly 1 + 1 xent, 1 Adam and 1 + 1 Dropout launches a step (in the
+   graph window the first step's Dropout is the launch-argument entry,
+   the other 15 the device-key entry, all counted through the replays),
+   no plan-cache miss and no further capture after the first step; each
+   window's p50 step, images/s, the device ms a step from a
+   ``torch.profiler`` window of 3 steps, the host ms a step (p50 minus
+   device) and the host time by kind (op dispatch, autograd, feeds; for
+   the graph, staging and replay). Last, ``softmax_model``
+   (GradientDescent at ``SOFTMAX_LR``) for ``SESSION_STEPS`` steps, its
+   loss falling at every step.
 
-Each path (the two serving runs, the two f32 kernel steps, the two
+Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
-window, the Session's checked steps and its window) is counted from zero
-just before it; a kernel's ``launches`` sum
+window, the Session's checked steps and its two windows) is counted from
+zero just before it; a kernel's ``launches`` sum
 over the paths, the flash rows split by the path's dropout rate. Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
@@ -154,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import importlib
 import json
 import math
@@ -162,6 +187,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1040,6 +1066,57 @@ def phase_dropout_residual(K, gen, dev):
     return main
 
 
+def key_tensor(key, dev):
+    """A threefry key's two uint32 words as the ``(2,)`` int32 device
+    tensor the device-key entry reads."""
+    return torch.tensor(np.array(key, np.uint32).view(np.int32), device=dev)
+
+
+def device_key_row(K, kdo, key, tag, copies, keep_prob, dtype, dev, main):
+    """The Dropout forward's device-key entry (the key read through a
+    pointer, as a captured Session step launches it) against the
+    launch-argument entry and the plain version on the same key, at the
+    same inputs: values and bits bit-identical, 0 mask mismatches on x =
+    ones, and the next key (the buffer refilled) must differ. Times it and
+    the plain version with the key tensor. Returns the row's pieces for
+    :func:`report_device_key`."""
+    kt = key_tensor(DROPOUT_KEY, dev)
+    nxt = key_tensor((DROPOUT_KEY[0], DROPOUT_KEY[1] + 1), dev)
+    x = copies[0]
+    want, want_bits = K.dropout_fwd(x, keep_prob, DROPOUT_KEY,
+                                    return_bits=True)
+    got, got_bits = K.dropout_fwd(x, keep_prob, kt, return_bits=True)
+    err = check_exact(f"dropout_device_key {tag}", got, want)
+    check_exact(f"dropout_device_key {tag} bits", got_bits, want_bits)
+    check_exact(f"dropout_device_key {tag} vs plain", got,
+                kdo.dropout_plain(x, keep_prob, kt))
+    ones = torch.ones(x.shape, dtype=dtype, device=dev)
+    miss = mismatches(K.dropout_fwd(ones, keep_prob, kt),
+                      K.dropout_fwd(ones, keep_prob, DROPOUT_KEY))
+    fault = mismatches(K.dropout_fwd(ones, keep_prob, nxt),
+                       K.dropout_fwd(ones, keep_prob, DROPOUT_KEY))
+    print(f"  dropout_device_key {tag}: x = ones, device-key vs "
+          f"launch-argument entry mismatches {miss}; the next key in the "
+          f"buffer: {fault}", flush=True)
+    if miss or not fault:
+        fail(f"dropout_device_key {tag}: mismatches {miss}, next-key "
+             f"fault {fault}")
+    ms = device_ms([lambda c=c: K.dropout_fwd(c, keep_prob, kt,
+                                              return_bits=True)
+                    for c in copies])
+    plain = device_ms([lambda c=c: kdo.dropout_plain(c, keep_prob, kt)
+                       for c in copies])
+    name = key.replace("dropout", "dropout_device_key")
+    return name, err, ms, plain, tag
+
+
+def report_device_key(main, kkey, bnd, lib):
+    name, err, ms, plain, tag = kkey
+    report(f"dropout_device_key {tag}", err, ms, plain, bnd, lib)
+    main[name] = kernel_row(err, ms, plain, bnd, lib,
+                            f"dropout_device_key {tag}")
+
+
 def phase_dropout(K, gen, dev):
     """The threefry Dropout kernels at the training shapes, bf16: (16,
     256, 4096) after each FFN-input ReLU and (16, 256, 1024) on the
@@ -1100,6 +1177,8 @@ def phase_dropout(K, gen, dev):
             fail(f"dropout {tag}: mask mismatches {miss}/{miss_b}, "
                  f"next-key faults {fault}/{fault_bits}/{fault_b}")
         del ones, got, got_bits, bad_bits, keep
+        kkey = device_key_row(K, kdo, key, tag, copies, keep_prob, dtype,
+                              dev, main)
         saved = [K.dropout_fwd(c, keep_prob, DROPOUT_KEY,
                                return_bits=True)[1] for c in copies]
         ms_f = device_ms([lambda c=c: K.dropout_fwd(
@@ -1135,6 +1214,7 @@ def phase_dropout(K, gen, dev):
                                f"dropout {tag}")
         main[bkey] = kernel_row(err_b, ms_b, plain_b, bnd_b, lib_b,
                                 f"dropout_bwd {tag}")
+        report_device_key(main, kkey, bnd_f, lib_f)
         del copies
     print(f"  (dropout bounds: the forward's the largest of its bytes "
           f"(2 + 2 + 1/8 an element), {THREEFRY_OPS} integer instructions "
@@ -1561,23 +1641,46 @@ def wait_for(cond, what, timeout=120.0):
 
 def trace_window(eng, vocab, seed):
     """One traced window (``trace_decode``): ``(device_times, engine
-    steps, host step seconds)``."""
+    steps, host step seconds)``. The profiler starts and stops only while
+    the engine thread is parked in a token callback, between two steps:
+    stopping it while that thread launched a CUDA graph deadlocked the
+    two (the profiler's flush and the graph launch)."""
     from torch.profiler import ProfilerActivity, profile
+
+    gate, parked = threading.Event(), threading.Event()
+    gate.set()
+
+    def park(tok, lp):
+        if not gate.is_set():
+            parked.set()
+            gate.wait()
+
+    def pause():
+        parked.clear()
+        gate.clear()
+        if not parked.wait(120):
+            fail("the engine did not reach a token callback")
 
     rng = np.random.RandomState(seed)
     futs = [eng.generate(list(rng.randint(2, vocab, TRACE_PROMPT)),
-                         max_new_tokens=TRACE_NEW)
+                         max_new_tokens=TRACE_NEW, on_token=park)
             for _ in range(TRACE_REQUESTS)]
     wait_for(lambda: eng.metrics.slots_active == TRACE_REQUESTS,
              "the traced requests to start decoding")
     s0 = eng.metrics.steps
     wait_for(lambda: eng.metrics.steps > s0, "a decode step")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        s1, n0 = eng.metrics.steps, len(eng.metrics.step_seconds)
-        wait_for(lambda: eng.metrics.steps >= s1 + TRACE_STEPS,
-                 "the traced decode steps")
-        steps = eng.metrics.steps - s1
-        host = list(eng.metrics.step_seconds)[n0:]
+    pause()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            s1, n0 = eng.metrics.steps, len(eng.metrics.step_seconds)
+            gate.set()
+            wait_for(lambda: eng.metrics.steps >= s1 + TRACE_STEPS,
+                     "the traced decode steps")
+            pause()
+            steps = eng.metrics.steps - s1
+            host = list(eng.metrics.step_seconds)[n0:]
+    finally:
+        gate.set()
     for f in futs:
         f.result(timeout=600)
     return device_times(prof), steps, host
@@ -1587,16 +1690,17 @@ def trace_decode(eng, vocab, head, need, attempts=3):
     """Device time a decode step of the engine at bucket 16: once
     ``TRACE_REQUESTS`` fresh requests are all decoding, a
     ``torch.profiler`` window (CUDA activity, which CUPTI records for the
-    engine's thread too) spans ``TRACE_STEPS`` engine steps, counted by
-    the engine (each step ends in a host read of its tokens, so the
-    window's edges cut at most one step's kernels on each side); device
-    ms a step is the trace's device time over them. A window whose trace
+    engine's thread too) spans at least ``TRACE_STEPS`` engine steps,
+    counted by the engine; the window opens and closes while the engine
+    is parked between two steps (``trace_window``), so it holds exactly
+    those steps; device ms a step is the trace's device time over them. A window whose trace
     kept fewer kernel launches than steps lost its kernel records (seen
     once in five windows: only the copies were traced) and is taken again
     with fresh requests, up to ``attempts`` windows. Prints the device ms
     a step beside the host p50 step of the same window and the top
     kernels; fails when a kernel named in ``need`` is not in the trace.
-    The trace only reads: the engine runs as it does without it."""
+    The engine runs as it does without the trace but for the two parks,
+    which fall outside its steps' timed spans."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]):  # set the tracer up
@@ -1615,7 +1719,7 @@ def trace_decode(eng, vocab, head, need, attempts=3):
     else:
         print(f"{tag}: every window lost its kernel records; device ms a "
               f"decode step not measured", flush=True)
-        return
+        return None
     check_traced(tag, by_name, need)
     dev_ms = sum(ms for ms, _ in by_name.values()) / steps
     p50 = statistics.median(host) * 1e3
@@ -1626,18 +1730,28 @@ def trace_decode(eng, vocab, head, need, attempts=3):
     for nm, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {ms / steps:9.4f} ms/step  {k / steps:5.2f} launches/step"
               f"  {nm[:100]}", flush=True)
+    return dev_ms, p50
 
 
-def serve(params, cfg, int8, prompts, dev, need):
+def serve(params, cfg, int8, prompts, dev, need, aot=True):
+    """Serve ``prompts`` through ``GenerativeEngine`` at the model's
+    published width, the decode and prefill buckets captured as CUDA
+    graphs (``aot_warmup``) or, with ``aot`` False, dispatched eagerly.
+    Returns the run's launches and its numbers: tokens/s, p50 decode
+    step, p50 time to first token, device ms a decode step at bucket 16
+    and the host p50 step of that traced window."""
     from simple_tensorflow_tpu_torch import serving
     from simple_tensorflow_tpu_torch.models import causal_lm as clm
     from simple_tensorflow_tpu_torch.ops import kernels as K
 
-    head = "int8" if int8 else "f32"
+    head = ("int8" if int8 else "f32") + ("" if aot else " eager")
+    t_build = time.perf_counter()
     model = clm.CausalLMGenerativeModel(
         cfg, page_len=16, pages_per_seq=16, num_pages=256, max_live=16,
         decode_bucket_sizes=[1, 4, 16], prefill_bucket_sizes=[1, 4],
-        int8=int8, params=params, device=dev)
+        int8=int8, params=params, aot_warmup=aot, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t_build
     policy = serving.DecodePolicy(num_slots=16, max_decode_len=256,
                                   bucket_sizes=[1, 4, 16],
                                   max_new_tokens=MAX_NEW)
@@ -1649,9 +1763,18 @@ def serve(params, cfg, int8, prompts, dev, need):
         samples0 = len(eng.metrics.step_seconds)
         pc0 = eng.statusz_info()["prefix_cache"]
         hits0 = pc0["hit_pages"] + pc0["cow_hits"]
+        first = [None] * len(prompts)
+
+        def on_token(i):
+            def cb(tok, lp):
+                if first[i] is None:
+                    first[i] = time.perf_counter()
+            return cb
+
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        futs = [eng.generate(p, max_new_tokens=MAX_NEW) for p in prompts]
+        futs = [eng.generate(p, max_new_tokens=MAX_NEW, on_token=on_token(i))
+                for i, p in enumerate(prompts)]
         results = [f.result(timeout=600) for f in futs]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1660,14 +1783,18 @@ def serve(params, cfg, int8, prompts, dev, need):
         step_s = list(eng.metrics.step_seconds)[samples0:]
         pc = eng.statusz_info()["prefix_cache"]
         hits = pc["hit_pages"] + pc["cow_hits"] - hits0
-        trace_decode(eng, cfg.vocab_size, head, need)
+        traced = trace_decode(eng, cfg.vocab_size, head, need)
+    ttft = statistics.median(f - t0 for f in first if f is not None) * 1e3
     emitted = sum(len(r["tokens"]) for r in results)
+    p50 = statistics.median(step_s) * 1e3
     print(f"serving[{head}]: {len(results)} requests, {emitted} tokens in "
           f"{wall:.4f} s = {emitted / wall:.2f} tokens/s, {steps} decode "
-          f"steps, p50 decode step {statistics.median(step_s) * 1e3:.4f} "
-          f"ms, prefix-cache hit pages {hits} (cow {pc['cow_hits']}), "
-          f"outcomes {sorted({r['outcome'] for r in results})}",
-          flush=True)
+          f"steps, p50 decode step {p50:.4f} ms, p50 time to first token "
+          f"{ttft:.4f} ms (the 12 requests submitted together), "
+          f"prefix-cache hit pages {hits} (cow {pc['cow_hits']}), outcomes "
+          f"{sorted({r['outcome'] for r in results})}; model built "
+          f"{'with its bucket graphs captured ' if aot else ''}in "
+          f"{t_build:.3f} s", flush=True)
     print(f"serving[{head}]: launches {counts}", flush=True)
     need = ["decode_attention", "decode_attention_block", "layer_norm"]
     if int8:
@@ -1697,7 +1824,70 @@ def serve(params, cfg, int8, prompts, dev, need):
         worst = max(worst, err)
     print(f"serving[{head}]: every token matches the plain re-forward "
           f"(max logp err {worst:.3e})", flush=True)
-    return counts
+    return counts, {"tokens_s": emitted / wall, "p50_ms": p50,
+                    "ttft_ms": ttft, "traced": traced}
+
+
+# the fixed call script of check_serving_graphs: decode batch sizes (rows
+# 0 .. n-1), every bucket, partial buckets, and a small batch replayed
+# right after a larger one in the same bucket
+GRAPH_DECODE_ROWS = (16, 3, 1, 9, 4, 2, 16, 1, 3)
+
+
+def check_serving_graphs(params, cfg, dev):
+    """The serving model with ``aot_warmup=True`` against ``False`` at the
+    published width, both heads, on one fixed script of calls: prefill of
+    16 sequences' first page (four bucket-4 replays), five sequences'
+    second page (buckets 4 and 1), then decode steps of
+    ``GRAPH_DECODE_ROWS`` rows. Tokens int-exact and log-probs
+    bit-identical at every step."""
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+
+    rng = np.random.RandomState(3)
+    n, pl = 16, 16
+    chunks = rng.randint(2, cfg.vocab_size, (n, 2, pl)).astype(np.int32)
+    for int8 in (False, True):
+        got = {}
+        for aot in (True, False):
+            model = clm.CausalLMGenerativeModel(
+                cfg, page_len=pl, pages_per_seq=16, num_pages=256,
+                max_live=16, decode_bucket_sizes=[1, 4, 16],
+                prefill_bucket_sizes=[1, 4], int8=int8, params=params,
+                aot_warmup=aot, device=dev)
+            tables = np.full((n, 16), model.scratch_page, np.int32)
+            tables[:, :3] = np.arange(3 * n).reshape(n, 3)
+            model.prefill_chunk(chunks[:, 0], np.zeros(n, np.int32), tables,
+                                tables[:, 0])
+            model.prefill_chunk(chunks[:5, 1], np.full(5, pl, np.int32),
+                                tables[:5], tables[:5, 1])
+            pos = np.where(np.arange(n) < 5, 2 * pl, pl).astype(np.int32)
+            last = np.where(np.arange(n) < 5, chunks[:, 1, -1],
+                            chunks[:, 0, -1]).astype(np.int32)
+            outs = []
+            for rows in GRAPH_DECODE_ROWS:
+                tok, lp, _ = model.decode(last[:rows], pos[:rows],
+                                          tables[:rows])
+                outs.append((tok.copy(), lp.copy()))
+                last[:rows], pos[:rows] = tok, pos[:rows] + 1
+            got[aot] = outs
+            model.close()
+            del model
+        tok_eq = all(np.array_equal(a[0], b[0])
+                     for a, b in zip(got[True], got[False]))
+        lp_eq = all(np.array_equal(a[1], b[1])
+                    for a, b in zip(got[True], got[False]))
+        rel = max(float(np.max(np.abs(a[1] - b[1])
+                               / np.maximum(np.abs(b[1]), 1e-30)))
+                  for a, b in zip(got[True], got[False]))
+        head = "int8" if int8 else "f32"
+        print(f"serving graphs[{head}]: aot_warmup True vs False over "
+              f"{len(GRAPH_DECODE_ROWS)} decode steps of {GRAPH_DECODE_ROWS}"
+              f" rows after 6 prefill replays: tokens identical {tok_eq}, "
+              f"log-probs bit-identical {lp_eq} (max relative difference "
+              f"{rel:.3e})", flush=True)
+        if not (tok_eq and lp_eq):
+            fail(f"serving graphs[{head}]: the captured buckets are off the "
+                 f"eager ones")
 
 
 # -- training phase ------------------------------------------------------------
@@ -2396,6 +2586,8 @@ def session_kernel_rows(K, gen, dev):
         kdo.keep_mask_plain(MNIST_DROP_SHAPE, kp, key, dev)))
     err_b = check_exact(f"dropout_bwd {tag}", K.dropout_bwd(x, kp, bits),
                         K.dropout_plain(x, kp, key))
+    kkey = device_key_row(K, kdo, "dropout@mnist", tag, copies, kp,
+                          torch.float32, dev, main)
     saved = [K.dropout_fwd(c, kp, key, return_bits=True)[1] for c in copies]
     ms_f = device_ms([lambda c=c: K.dropout_fwd(c, kp, key, return_bits=True)
                       for c in copies])
@@ -2422,6 +2614,7 @@ def session_kernel_rows(K, gen, dev):
                                        f"dropout {tag}")
     main["dropout_bwd@mnist"] = kernel_row(err_b, ms_b, plain_b, bnd_b,
                                            lib_b, f"dropout_bwd {tag}")
+    report_device_key(main, kkey, bnd_f, lib_f)
     return main
 
 
@@ -2467,6 +2660,7 @@ def check_session_steps(K, stf, mnist, feeds):
 
     def run(plain=False, fault=None):
         g, m, sess = mnist_session(stf, mnist.convnet_model)
+        sess._capture = False
         if fault == "adam beta1":
             op = g.get_operation_by_name("Adam/fused_adam_update")
             op.attrs["beta1"] = op.attrs["beta1"] * (1 + 1e-4)
@@ -2538,10 +2732,156 @@ def check_session_steps(K, stf, mnist, feeds):
     return counts
 
 
+GRAPH_CHECK_STEPS = 5   # a warm-up, a capture, then 3 replayed steps
+
+
+def check_session_graph(K, stf, mnist, feeds):
+    """``GRAPH_CHECK_STEPS`` convnet steps through a Session that captures
+    its step as a CUDA graph (step 1 eager, the warm-up; step 2 captured
+    and replayed; then replays) against the same steps with ``_capture``
+    off, each session from its own initializer run (so the same run
+    counters), cuDNN deterministic: every loss, Dropout output and, after
+    the steps, every variable and Adam slot bit-identical. The planted
+    fault replays without refilling the key buffer (``_refresh_keys``
+    off after the capture): its Dropout outputs must differ."""
+    tag = f"session graph convnet[f32 {MNIST_B}]"
+
+    def run(capture, stale_keys=False):
+        _, m, sess = mnist_session(stf, mnist.convnet_model)
+        sess._capture = capture
+        fetch = [m["train_op"], m["loss"], "convnet/dropout:0"]
+        outs = []
+        for i in range(GRAPH_CHECK_STEPS):
+            if stale_keys and i == 2:
+                sess._refresh_keys = False
+            outs.append(sess.run(fetch, feeds(m))[1:])
+        state = session_state(sess)
+        captures = sess.captures
+        sess.close()
+        return outs, state, captures
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_state, _ = run(False)
+        got, state, captures = run(True)
+        stale, _, _ = run(True, stale_keys=True)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    losses = sum(a[0] != b[0] for a, b in zip(got, ref))
+    drops = [mismatches(torch.from_numpy(a[1]), torch.from_numpy(b[1]))
+             for a, b in zip(got, ref)]
+    bad_vars = [k for k in ref_state
+                if not torch.equal(state[k], ref_state[k])]
+    fault = [mismatches(torch.from_numpy(a[1]), torch.from_numpy(b[1]))
+             for a, b in zip(stale, ref)]
+    print(f"{tag}: {GRAPH_CHECK_STEPS} steps (eager warm-up, capture, "
+          f"{GRAPH_CHECK_STEPS - 2} replays) vs the eager session: losses "
+          f"{[float(a[0]) for a in got]}, {losses} differ; Dropout output "
+          f"mismatches by step {drops}; variables and slots differing "
+          f"{bad_vars} of {len(ref_state)}; captures {captures}", flush=True)
+    print(f"{tag}: planted fault, the key buffer not refilled from step 3: "
+          f"Dropout output mismatches by step {fault}", flush=True)
+    if losses or any(drops) or bad_vars or captures != 1:
+        fail(f"{tag}: the replayed steps are off the eager steps")
+    if not all(fault[2:]):
+        fail(f"{tag}: the check passes replays with stale keys: {fault}")
+
+
+def session_window(K, stf, mnist, feeds, capture, n_prof=3):
+    """``SESSION_STEPS`` steps of ``Session.run([train_op, loss])``, the
+    step captured as a CUDA graph or (``capture`` False) dispatched
+    eagerly, then a ``torch.profiler`` window of ``n_prof`` steps: losses,
+    step seconds, launches (counted from zero just before the window),
+    plan-cache misses and captures after the first step, the host seconds
+    a step by kind (``Session._timings``) and the device ms a step by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, m, sess = mnist_session(stf, mnist.convnet_model)
+    sess._capture = capture
+    fetch = [m["train_op"], m["loss"]]
+    losses, times = [], []
+    sess._timings = {}
+    K.reset_launch_counts()
+    for i in range(SESSION_STEPS):
+        t0 = time.perf_counter()
+        loss = sess.run(fetch, feeds(m))[1]
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            misses, captures = sess.plan_cache_misses, sess.captures
+    counts = K.launch_counts()
+    split = {k: v / SESSION_STEPS for k, v in sess._timings.items()}
+    sess._timings = None
+    late = (sess.plan_cache_misses - misses, sess.captures - captures)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            sess.run(fetch, feeds(m))
+        torch.cuda.synchronize()
+    by_name = {k: ms / n_prof for k, (ms, _) in device_times(prof).items()}
+    gs = int(sess.run(m["global_step"]))
+    total = sess.captures
+    sess.close()
+    return dict(losses=losses, times=times, counts=counts, split=split,
+                late=late, by_name=by_name, gs=gs, captures=total,
+                steps=SESSION_STEPS + n_prof)
+
+
+def report_window(tag, w, expect):
+    """Check one Session window (launches ``expect``, no plan-cache miss
+    after the first step, the loss falling, the global step) and print
+    its numbers; returns its p50 step and device ms a step."""
+    counts = w["counts"]
+    want = {k: 0 for k in counts}
+    want.update(expect)
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+    losses = w["losses"]
+    if w["late"][0]:
+        fail(f"{tag}: {w['late'][0]} plan-cache misses after the first step")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: non-finite loss in {losses}")
+    first = statistics.mean(losses[:LOSS_MEAN_OF])
+    last = statistics.mean(losses[-LOSS_MEAN_OF:])
+    if not (last < first and losses[-1] < losses[0]):
+        fail(f"{tag}: the loss does not fall: {losses}")
+    if w["gs"] != w["steps"]:
+        fail(f"{tag}: global_step {w['gs']} after {w['steps']} steps")
+    times = w["times"]
+    p50 = statistics.median(times)
+    print(f"{tag}: losses {[round(v, 5) for v in losses]} (means of "
+          f"{LOSS_MEAN_OF}: the first {first:.5f}, the last {last:.5f})",
+          flush=True)
+    print(f"{tag}: launches {counts}; after the first step: plan-cache "
+          f"misses {w['late'][0]}, captures {w['late'][1]} (in all "
+          f"{w['captures']})", flush=True)
+    by_name = w["by_name"]
+    dev_ms = sum(by_name.values()) if by_name else None
+    split = ", ".join(f"{k} {v * 1e3:.4f}" for k, v in
+                      sorted(w["split"].items()))
+    if dev_ms is None:
+        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms, {MNIST_B / p50:.2f} "
+              f"images/s; the profiler saw no device time: device and "
+              f"host ms a step not measured; host ms a step by kind "
+              f"(window mean): {split}", flush=True)
+        return p50, None
+    print(f"{tag}: p50 step {p50 * 1e3:.4f} ms (min "
+          f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
+          f"{MNIST_B / p50:.2f} images/s; device {dev_ms:.4f} ms a step "
+          f"(torch.profiler, 3 steps), host {p50 * 1e3 - dev_ms:.4f} ms a "
+          f"step (p50 minus device); host ms a step by kind (window "
+          f"mean, Session._timings): {split}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
+    return p50, dev_ms
+
+
 def session_phase(K, dev, kernel_rows):
     """The TF-1 front end on the card (module docstring, phase 6).
     Returns ``[(path, dropout, launches)]``: the checked steps and the
-    training window, each counted from zero just before it."""
+    training windows, each counted from zero just before it."""
     import simple_tensorflow_tpu_torch as stf
     from simple_tensorflow_tpu_torch.models import mnist
 
@@ -2558,71 +2898,42 @@ def session_phase(K, dev, kernel_rows):
 
     paths = [("session convnet f32 check", 0.0,
               check_session_steps(K, stf, mnist, feeds))]
-    tag = f"session convnet[f32 {MNIST_B}]"
-    g, m, sess = mnist_session(stf, mnist.convnet_model)
-    fetch = [m["train_op"], m["loss"]]
-    losses, times = [], []
-    K.reset_launch_counts()
-    misses = None
-    for i in range(SESSION_STEPS):
-        t0 = time.perf_counter()
-        loss = sess.run(fetch, feeds(m))[1]
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-        if i == 0:
-            misses = sess.plan_cache_misses
-    counts = K.launch_counts()
-    paths.append(("session convnet f32", 0.0, counts))
-    want = {k: 0 for k in counts}
-    want.update({k: v * SESSION_STEPS for k, v in SESSION_PER_STEP.items()})
-    if counts != want:
-        fail(f"{tag}: launches {counts}, expected {want}")
-    late_misses = sess.plan_cache_misses - misses
-    if late_misses:
-        fail(f"{tag}: {late_misses} plan-cache misses after the first step")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"{tag}: non-finite loss in {losses}")
-    first = statistics.mean(losses[:LOSS_MEAN_OF])
-    last = statistics.mean(losses[-LOSS_MEAN_OF:])
-    if not (last < first and losses[-1] < losses[0]):
-        fail(f"{tag}: the loss does not fall: {losses}")
-    p50 = statistics.median(times)
-    from torch.profiler import ProfilerActivity, profile
-
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            sess.run(fetch, feeds(m))
-        torch.cuda.synchronize()
-    by_name = {k: ms / n for k, (ms, _) in device_times(prof).items()}
-    gs = int(sess.run(m["global_step"]))
-    sess.close()
-    if gs != SESSION_STEPS + n:
-        fail(f"{tag}: global_step {gs} after {SESSION_STEPS + n} steps")
-    print(f"{tag}: models/mnist.py convnet_model through stf.Session, Adam "
-          f"lr 1e-3, keep_prob {SESSION_KEEP_PROB}, {SESSION_STEPS} steps of "
-          f"Session.run([train_op, loss]) on one repeated synthetic_mnist("
-          f"{MNIST_B}, seed=0) batch fed as numpy", flush=True)
-    print(f"{tag}: losses {[round(v, 5) for v in losses]} (means of "
-          f"{LOSS_MEAN_OF}: the first {first:.5f}, the last {last:.5f})",
-          flush=True)
-    print(f"{tag}: launches {counts}; plan-cache misses after the first "
-          f"step {late_misses}", flush=True)
-    if by_name:
-        check_traced(tag, by_name, ("dropout_vec_kernel",))
-        dev_ms = sum(by_name.values())
-        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms (min "
-              f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
-              f"{MNIST_B / p50:.2f} images/s; device {dev_ms:.4f} ms a step "
-              f"(torch.profiler, {n} steps), host {p50 * 1e3 - dev_ms:.4f} "
-              f"ms a step (p50 minus device)", flush=True)
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
-    else:
-        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms, {MNIST_B / p50:.2f} "
-              f"images/s; the profiler saw no device time: device and host "
-              f"ms a step not measured", flush=True)
+    check_session_graph(K, stf, mnist, feeds)
+    print(f"session convnet[f32 {MNIST_B}]: models/mnist.py convnet_model "
+          f"through stf.Session, Adam lr 1e-3, keep_prob "
+          f"{SESSION_KEEP_PROB}, {SESSION_STEPS} steps of Session.run("
+          f"[train_op, loss]) on one repeated synthetic_mnist({MNIST_B}, "
+          f"seed=0) batch fed as numpy; the graph window first (step 1 "
+          f"eager, step 2 captured), then the eager one", flush=True)
+    graph = session_window(K, stf, mnist, feeds, capture=True)
+    eager = session_window(K, stf, mnist, feeds, capture=False)
+    per = {k: v * SESSION_STEPS for k, v in SESSION_PER_STEP.items()}
+    # the graph window's first step is its eager warm-up: one launch of
+    # the launch-argument Dropout entry, then the device-key entry
+    want_graph = dict(per, dropout=1,
+                      dropout_device_key=SESSION_STEPS - 1)
+    # one bucket and one keep_prob: exactly one capture, at step 2
+    if graph["late"][1] != 1 or graph["captures"] != 1:
+        fail(f"session graph: captures {graph['captures']} (after the "
+             f"first step {graph['late'][1]}), expected exactly 1")
+    if eager["captures"]:
+        fail(f"session eager: {eager['captures']} captures")
+    g50, gdev = report_window(f"session graph convnet[f32 {MNIST_B}]",
+                              graph, want_graph)
+    e50, edev = report_window(f"session eager convnet[f32 {MNIST_B}]",
+                              eager, per)
+    if graph["by_name"]:
+        check_traced("session graph", graph["by_name"],
+                     ("dropout_vec_kernel",))
+    if eager["by_name"]:
+        check_traced("session eager", eager["by_name"],
+                     ("dropout_vec_kernel",))
+    print(f"session convnet[f32 {MNIST_B}]: graph vs eager p50 step "
+          f"{g50 * 1e3:.4f} vs {e50 * 1e3:.4f} ms ({e50 / g50:.3f}x), "
+          f"images/s {MNIST_B / g50:.2f} vs {MNIST_B / e50:.2f}; device ms "
+          f"a step {gdev} vs {edev}", flush=True)
+    paths += [("session convnet f32 graph", 0.0, graph["counts"]),
+              ("session convnet f32 eager", 0.0, eager["counts"])]
 
     stag = f"session softmax[f32 {MNIST_B}]"
     _, sm, ssess = mnist_session(
@@ -2633,8 +2944,9 @@ def session_phase(K, dev, kernel_rows):
     acc = float(ssess.run(sm["accuracy"], {sm["x"]: x, sm["y_"]: onehot}))
     ssess.close()
     print(f"{stag}: softmax_model, GradientDescent lr {SOFTMAX_LR}, "
-          f"{SESSION_STEPS} steps: losses {[round(v, 5) for v in slosses]}, "
-          f"accuracy after {acc:.4f}", flush=True)
+          f"{SESSION_STEPS} steps (captured from the second): losses "
+          f"{[round(v, 5) for v in slosses]}, accuracy after {acc:.4f}",
+          flush=True)
     if not all(b < a for a, b in zip(slosses, slosses[1:])):
         fail(f"{stag}: the loss does not fall at every step: {slosses}")
     return paths
@@ -2673,7 +2985,14 @@ def kernel_props(log, prefix):
 SERVING_KERNELS = ("decode_one_kernel", "layer_norm_fwd_vec_kernel")
 
 
+# a hang (a kernel or a capture that never returns) dumps every thread's
+# stack and exits non-zero this long after the start, inside the 1200 s
+# the run is given
+HANG_DUMP_S = 1140
+
+
 def main():
+    faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     serving_only = sys.argv[1:] == ["--serving"]
     if sys.argv[1:] and not serving_only:
         fail(f"usage: {sys.argv[0]} [--serving]")
@@ -2719,7 +3038,7 @@ def main():
         # this script: its traces ask for no kernel by name
         params = convert.init_params(cfg, seed=0)
         for int8 in (False, True):
-            serve(params, cfg, int8, make_prompts(cfg.vocab_size), dev, ())
+            serve(params, cfg, int8, make_prompts(cfg.vocab_size), dev, ())[0]
         print("chip_smoke: the serving phase passed (--serving)", flush=True)
         return
     rng = np.random.RandomState(0)
@@ -2742,11 +3061,22 @@ def main():
     params = convert.init_params(cfg, seed=0)
     prompts = make_prompts(cfg.vocab_size)
     # (path, dropout rate, launches counted from zero around it)
-    paths = []
+    paths, stats = [], {}
     for int8 in (False, True):
-        paths.append((f"serve {'int8' if int8 else 'f32'}", 0.0,
-                      serve(params, cfg, int8, prompts, dev,
-                            SERVING_KERNELS)))
+        counts, stats[int8] = serve(params, cfg, int8, prompts, dev,
+                                    SERVING_KERNELS)
+        paths.append((f"serve {'int8' if int8 else 'f32'}", 0.0, counts))
+    check_serving_graphs(params, cfg, dev)
+    counts, eager = serve(params, cfg, False, prompts, dev, SERVING_KERNELS,
+                          aot=False)
+    paths.append(("serve f32 eager", 0.0, counts))
+    g = stats[False]
+    print(f"serving[f32] graph vs eager: tokens/s {g['tokens_s']:.2f} vs "
+          f"{eager['tokens_s']:.2f}, p50 decode step {g['p50_ms']:.4f} vs "
+          f"{eager['p50_ms']:.4f} ms, p50 time to first token "
+          f"{g['ttft_ms']:.4f} vs {eager['ttft_ms']:.4f} ms; bucket-16 "
+          f"traced (device ms, host p50 ms) a decode step {g['traced']} vs "
+          f"{eager['traced']}", flush=True)
     torch.cuda.empty_cache()
     paths += train_phase(K, cfg, params, dev, main_rows)
     del params
@@ -2794,6 +3124,7 @@ def main():
         "dropout_residual_bwd": ("dropout_residual.cu",
                                  "dropout_residual.py:99"),
         "dropout": ("dropout.cu", "../nn_ops.py:388"),
+        "dropout_device_key": ("dropout.cu", "../nn_ops.py:388"),
         "dropout_bwd": ("dropout.cu", "../nn_ops.py:388"),
     }
     missing = [k for k in where if not launches.get(k)]

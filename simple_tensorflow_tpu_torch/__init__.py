@@ -43,4 +43,4 @@ from .ops.variables import (Variable, global_variables,
                             initialize_all_variables, trainable_variables,
                             variables_initializer)
 from .client.session import Session, get_default_session
-from . import layers, nn, train
+from . import analysis, layers, nn, train

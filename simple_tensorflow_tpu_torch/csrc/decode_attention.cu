@@ -460,11 +460,16 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
                     reinterpret_cast<uintptr_t>(v)) % align == 0;
   const size_t smem = split_smem_floats<KQ>(d4) * sizeof(float);
   auto kernel = decode_block_split_kernel<T, KQ>;
-  if (smem > 48 * 1024) {
+  // raised once to the largest size asked so far (a process-wide
+  // attribute): a call at a shape already seen, such as a CUDA graph's
+  // capture after its eager warm-up, makes no attribute call
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
+    smem_set = smem;
   }
   kernel<<<dim3(n_chunks, BH), kSplitThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -13,7 +13,10 @@
 // u is (y0 ^ y1) >> 9 times 2^-23 exactly, so the keep test is the integer
 // compare (y0 ^ y1) <= limit, limit = 512 * ceil(f32(keep_prob) * 2^23) - 1
 // (ops/kernels/dropout.py keep_bits_limit): no shift, or, float subtract or
-// float compare an element.
+// float compare an element. The forward has two entries over the same
+// kernels: the key as launch arguments (stf_dropout, the eager callers), or
+// read through a device pointer (stf_dropout_key, for a CUDA graph whose
+// replays must each draw with the run's new key).
 //
 // The forward also writes the keep mask as bits, for the backward: a uint8
 // tensor of ceil(n / 8) bytes, bit e of byte j the element 8j + e, the tail
@@ -122,14 +125,29 @@ __device__ __forceinline__ void store8(float* p, uint32_t g,
                     __float_as_uint(f[6]), __float_as_uint(f[7]));
 }
 
+// The key: (k0, k1) as launch arguments, or, where dkey is not null, the
+// two words it points at on the device (read once a thread). A CUDA graph
+// that captured a launch replays its arguments unchanged; a key read
+// through a pointer can change between replays.
+__device__ __forceinline__ Threefry make_threefry(const uint32_t* dkey,
+                                                  uint32_t k0, uint32_t k1,
+                                                  uint32_t one) {
+  if (dkey != nullptr) {
+    k0 = __ldg(dkey);
+    k1 = __ldg(dkey + 1);
+  }
+  return Threefry(k0, k1, one);
+}
+
 // vector path: thread g of the grid-stride walk takes elements 8g .. 8g + 7
 template <typename T>
 __global__ void __launch_bounds__(kDoThreads)
     dropout_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
                        uint8_t* __restrict__ bits, uint32_t groups,
-                       uint32_t k0, uint32_t k1, uint32_t limit, float kp,
+                       const uint32_t* __restrict__ dkey, uint32_t k0,
+                       uint32_t k1, uint32_t limit, float kp,
                        uint32_t one) {
-  const Threefry tf(k0, k1, one);
+  const Threefry tf = make_threefry(dkey, k0, k1, one);
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t g = blockIdx.x * blockDim.x + threadIdx.x; g < groups;
        g += stride) {
@@ -156,9 +174,10 @@ __global__ void __launch_bounds__(kDoThreads)
 template <typename T>
 __global__ void __launch_bounds__(kDoThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
-                   uint8_t* __restrict__ bits, long long n, uint32_t k0,
+                   uint8_t* __restrict__ bits, long long n,
+                   const uint32_t* __restrict__ dkey, uint32_t k0,
                    uint32_t k1, uint32_t limit, float kp, uint32_t one) {
-  const Threefry tf(k0, k1, one);
+  const Threefry tf = make_threefry(dkey, k0, k1, one);
   const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -229,19 +248,34 @@ bool vector_ok(long long n, const void* a, const void* b) {
 
 template <typename T>
 cudaError_t launch_fwd(const void* x, void* out, void* bits, long long n,
-                       uint32_t k0, uint32_t k1, uint32_t limit, float kp,
-                       bool vec, cudaStream_t s) {
+                       const uint32_t* dkey, uint32_t k0, uint32_t k1,
+                       uint32_t limit, float kp, bool vec, cudaStream_t s) {
   if (vec) {
     const uint32_t groups = static_cast<uint32_t>(n / kVec);
     dropout_vec_kernel<T><<<blocks_for(groups), kDoThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
-        static_cast<uint8_t*>(bits), groups, k0, k1, limit, kp, 1u);
+        static_cast<uint8_t*>(bits), groups, dkey, k0, k1, limit, kp, 1u);
   } else {
     dropout_kernel<T><<<blocks_for(n), kDoThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
-        static_cast<uint8_t*>(bits), n, k0, k1, limit, kp, 1u);
+        static_cast<uint8_t*>(bits), n, dkey, k0, k1, limit, kp, 1u);
   }
   return cudaGetLastError();
+}
+
+cudaError_t dispatch_fwd(const void* x, void* out, void* bits, long long n,
+                         const uint32_t* dkey, uint32_t k0, uint32_t k1,
+                         uint32_t limit, float kp, int vec, int dtype,
+                         cudaStream_t s) {
+  if (n <= 0) return cudaSuccess;
+  if (vec && !vector_ok(n, x, out)) return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return launch_fwd<float>(x, out, bits, n, dkey, k0, k1, limit, kp, vec,
+                             s);
+  if (dtype == kBF16)
+    return launch_fwd<__nv_bfloat16>(x, out, bits, n, dkey, k0, k1, limit,
+                                     kp, vec, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -270,16 +304,21 @@ cudaError_t launch_bwd(const void* g, const void* bits, void* out,
 extern "C" int stf_dropout(const void* x, void* out, void* bits, long long n,
                            unsigned k0, unsigned k1, unsigned limit,
                            float kp, int vec, int dtype, void* stream) {
-  using namespace stf;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaSuccess;
-  if (vec && !vector_ok(n, x, out)) return cudaErrorInvalidValue;
-  if (dtype == kF32)
-    return launch_fwd<float>(x, out, bits, n, k0, k1, limit, kp, vec, s);
-  if (dtype == kBF16)
-    return launch_fwd<__nv_bfloat16>(x, out, bits, n, k0, k1, limit, kp,
-                                     vec, s);
-  return cudaErrorInvalidValue;
+  return stf::dispatch_fwd(x, out, bits, n, nullptr, k0, k1, limit, kp, vec,
+                           dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The same forward with the key read on the device: key points at the two
+// uint32 words (k0, k1), which may change between the replays of a CUDA
+// graph that captured this launch. Same kernels, so the same bits as
+// stf_dropout for the same key.
+extern "C" int stf_dropout_key(const void* x, void* out, void* bits,
+                               long long n, const void* key, unsigned limit,
+                               float kp, int vec, int dtype, void* stream) {
+  if (key == nullptr) return cudaErrorInvalidValue;
+  return stf::dispatch_fwd(x, out, bits, n, static_cast<const uint32_t*>(key),
+                           0u, 0u, limit, kp, vec, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // g, out (n,) contiguous in one dtype; bits the forward's mask bytes; kp as

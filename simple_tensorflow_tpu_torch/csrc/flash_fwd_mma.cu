@@ -268,10 +268,12 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v,
                        cudaStream_t s) {
   constexpr int smem = mma_smem_bytes<D>();
   auto kernel = flash_fwd_mma_kernel<D, kCausal, kDropout>;
-  if (smem > 48 * 1024) {
+  static bool attr_set = false;  // once a process, before any capture
+  if (smem > 48 * 1024 && !attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
+    attr_set = true;
   }
   kernel<<<dim3(BH, cdiv(q_len, kTile)), kMmaThreads, smem, s>>>(
       q, k, v, bias, o, lse, q_len, kv_len, H, scale, seed, threshold,

@@ -4,17 +4,29 @@
 Port of the part of ``simple_tensorflow_tpu/framework/config_pb.py`` the
 port's Session reads: ``device_count``, where ``{"GPU": 0}`` is the TF-1
 idiom for a CPU session (the JAX package's ``ConfigProto`` accepts it too,
-:157, so the same user code runs on either package). Left out: the other
-fields (thread pools, GPU options, transfer guards, analysis, kernel
-registry, telemetry, memory budget).
+:157, so the same user code runs on either package), and
+``variable_hazard_mode`` (:57, :193): None (the process default of
+``stf.analysis``, ``"raise"`` unless ``STF_HAZARD_MODE`` or
+``set_hazard_mode`` says otherwise) or one of ``off|warn|raise|
+auto_deps``. Left out: the other fields (thread pools, GPU options,
+transfer guards, graph analysis, kernel registry, telemetry, memory
+budget).
 """
 
 from __future__ import annotations
 
+_HAZARD_MODES = ("off", "warn", "raise", "auto_deps")
+
 
 class ConfigProto:
-    def __init__(self, device_count=None):
+    def __init__(self, device_count=None, variable_hazard_mode=None):
         self.device_count = dict(device_count or {})
+        if variable_hazard_mode is not None and \
+                variable_hazard_mode not in _HAZARD_MODES:
+            raise ValueError(
+                "variable_hazard_mode must be None|off|warn|raise|"
+                f"auto_deps, got {variable_hazard_mode!r}")
+        self.variable_hazard_mode = variable_hazard_mode
 
     def device(self) -> str:
         """``"cpu"`` when ``device_count`` asks for no GPU, else

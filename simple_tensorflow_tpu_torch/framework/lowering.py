@@ -6,15 +6,20 @@ the Python DFS; its postorder is the JAX package's, so ops run in the same
 order and a variable read that no edge orders against a write sees the
 same value), ``ancestors_between`` (the gradient builder's path), the
 ``LoweringContext`` (:186) with the variable state, the value environment,
-``read_var``/``write_var`` and ``rng_for`` (:283, one key per op and step)
-and ``execute_ops`` (:326). Where the JAX package traces the op list into
-one XLA program, the port dispatches each op's lowering eagerly: the torch
-ops go to the device as they are issued. Left out: the native C++ pruner,
-``FuncGraph`` bodies and the plan-time CSE alias map.
+``read_var``/``write_var`` (staged, committed when the run ends, as the
+JAX program returns its new state), ``rng_for`` (:283, one key per op and
+step), ``host_value`` (:184) and ``execute_ops`` (:326). Where the JAX
+package traces the op list into one XLA program, the port dispatches each
+op's lowering eagerly; the Session captures a repeated run's dispatch into
+a CUDA graph (``compiler/aot.py``), for which the context has a compiled
+mode (no host reads of the device, keys from a device buffer). Left out:
+the native C++ pruner, ``FuncGraph`` bodies and the plan-time CSE alias
+map.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Sequence, Set, Tuple
 
 import numpy as np
@@ -101,50 +106,107 @@ def ancestors_between(xs: Sequence[Tensor], ys: Sequence[Tensor]
 class LoweringContext:
     """The state of one run while its ops execute.
 
-    ``state``: variable name -> device tensor (the Session's store,
-    written through). ``env``: Tensor -> value. ``feeds``: the fed tensors'
-    numpy values, staged to the device on first use. ``rng_root``: the
-    run's threefry key (None when no op of the plan draws). ``grad_leaves``:
-    tensors whose values become ``requires_grad`` leaves as they are made,
-    so a ``SymbolicGradient`` can take ``torch.autograd.grad`` of its ys
-    against them. ``preserve``: per in-place op, the values made before it
-    that the run reads after it (copied if they alias what it updates)."""
+    ``store``: the Session's ``VariableStore``; ``state`` its name ->
+    tensor dict. Writes are staged (``staged``): a read later in the run
+    sees the staged value, and :meth:`commit` writes them into the store
+    when the run has executed every op, so a run that raises midway
+    leaves the store as it was. The one write made mid-run is an
+    in-place kernel update (the fused Adam update, the last op of every
+    optimizer plan). ``env``: Tensor -> value. ``feeds``: the fed
+    tensors' values, staged to the device on first use (a compiled run
+    puts its static feed buffers in ``env`` instead). ``rng_root``: the
+    run's threefry key (None when no op of the plan draws).
+    ``grad_leaves``: tensors whose values become ``requires_grad`` leaves
+    as they are made, so a ``SymbolicGradient`` can take
+    ``torch.autograd.grad`` of its ys against them. ``preserve``: per
+    in-place op, the values made before it that the run reads after it
+    (copied if they alias what it updates).
 
-    def __init__(self, state: Dict[str, Any], device, rng_root=None,
-                 feeds=None, session=None, grad_leaves=(),
-                 retain_graph=False, preserve=None):
-        self.state = state
+    A compiled run (``compiled``: captured into a CUDA graph, or its CPU
+    replay) may not read the device from the host: :meth:`host_value`
+    takes only values known on the host, a random op draws its key from
+    row ``rng_slots[op]`` of the device ``key_buffer`` (:meth:`rng_key`),
+    and the commit copies into the store's tensors in place. A ``dry``
+    run (the warm-up of ``ExecutionPlan.compile``) commits nothing and
+    runs in-place updates on copies."""
+
+    def __init__(self, store, device, rng_root=None, feeds=None,
+                 session=None, grad_leaves=(), retain_graph=False,
+                 preserve=None):
+        self.store = store
+        self.state = store.values
+        self.staged: Dict[str, torch.Tensor] = {}
         self.device = device
         self.rng_root = rng_root
-        self.feeds: Dict[Tensor, np.ndarray] = dict(feeds or {})
+        self.feeds: Dict[Tensor, Any] = dict(feeds or {})
         self.env: Dict[Tensor, Any] = {}
         self.session = session
         self.grad_leaves = frozenset(grad_leaves)
         self.retain_graph = retain_graph
         self.preserve = preserve or {}
+        self.compiled = False
+        self.dry = False
+        self.key_buffer = None
+        self.rng_slots: Dict[Operation, int] = {}
+        self.host_reads: List[Tensor] = []
+        self.timings = None  # {category: host seconds} when measured
         self._rng_cache: Dict[int, np.ndarray] = {}
         self._const_cache = (session._const_cache if session is not None
                              else {})
 
     # -- state ---------------------------------------------------------------
     def read_var(self, name: str, op=None):
+        v = self.staged.get(name)
+        if v is not None:
+            return v
         if name not in self.state:
             raise FailedPreconditionError(
-                None, op,
-                f"Attempting to use uninitialized variable {name!r}. "
-                "Run stf.global_variables_initializer() first.")
+                None, op, uninitialized_message(name))
         return self.state[name]
 
     def write_var(self, name: str, value):
-        self.state[name] = value.detach()
+        self.staged[name] = value.detach()
 
     def var_exists(self, name: str) -> bool:
-        return name in self.state
+        return name in self.staged or name in self.state
+
+    def commit_targets(self) -> Set[int]:
+        """Storage addresses the commit will copy into."""
+        return {self.state[n].untyped_storage().data_ptr()
+                for n in self.staged if n in self.state}
+
+    def commit(self, names=None):
+        """Write the staged values (those of ``names``, or all) into the
+        store: by ``copy_`` into the store's tensor where its shape and
+        dtype stay (the address stays), else as a new entry (the store's
+        version moves on), which a compiled run refuses."""
+        for name in list(self.staged if names is None else names):
+            v = self.staged.pop(name, None)
+            if v is None or self.dry:
+                continue
+            cur = self.state.get(name)
+            if cur is not None and cur.shape == v.shape and \
+                    cur.dtype == v.dtype:
+                cur.copy_(v)
+            elif self.compiled:
+                raise InvalidArgumentError(
+                    None, None,
+                    f"variable {name!r} changes shape, dtype or is created "
+                    "inside a compiled step; its store tensor must keep "
+                    "its address across replays")
+            else:
+                self.store.set(name, v)
 
     # -- rng -----------------------------------------------------------------
     def rng_for(self, op: Operation) -> np.ndarray:
-        """The op's threefry key this run: ``fold_in(root,
-        fold_in_value(op))``, the same for every use within the run."""
+        """The op's threefry key this run on the host: ``fold_in(root,
+        fold_in_value(op))``, the same for every use within the run. A
+        compiled run has no host key (it would be baked into the graph):
+        use :meth:`rng_key`."""
+        if self.compiled:
+            raise InvalidArgumentError(
+                None, op, f"{op.name} ({op.type}) draws with a host key, "
+                "which a compiled step would replay unchanged")
         fold = random_seed.fold_in_value(op)
         if fold not in self._rng_cache:
             if self.rng_root is None:
@@ -153,6 +215,15 @@ class LoweringContext:
                     "declared no RNG effect")
             self._rng_cache[fold] = prng.fold_in(self.rng_root, fold)
         return self._rng_cache[fold]
+
+    def rng_key(self, op: Operation):
+        """The op's key for a lowering that takes it on the device too: in
+        a compiled run the ``(2,)`` int32 row of the device key buffer the
+        Session refills before every replay (the uint32 words' bits),
+        else the host key of :meth:`rng_for`."""
+        if self.compiled:
+            return self.key_buffer[self.rng_slots[op]]
+        return self.rng_for(op)
 
     # -- values --------------------------------------------------------------
     def constant(self, op: Operation) -> torch.Tensor:
@@ -181,27 +252,55 @@ class LoweringContext:
         raise RuntimeError(f"Tensor {tensor.name} has no value in the run "
                            "— pruning/ordering bug.")
 
-    def host_value(self, tensor: Tensor) -> float:
-        """A scalar's value on the host without a device sync where it is
+    def host_value(self, tensor: Tensor, op=None) -> float:
+        """A scalar's value on the host, without a device sync where it is
         known there: a feed, a constant, a ``PlaceholderWithDefault`` or
-        ``Identity``/``Cast`` of one. Else ``.item()`` (a device sync)."""
-        t = tensor
-        while True:
-            if t in self.feeds:
-                v = self.feeds[t]
-                return float(v.item() if isinstance(v, torch.Tensor)
-                             else np.asarray(v).reshape(()))
-            if t.op.type == "Const":
-                return float(np.asarray(t.op.attrs["value"]).reshape(()))
-            if t.op.type in ("PlaceholderWithDefault", "Identity", "Cast"):
-                t = t.op.inputs[0]
-                continue
-            return float(self.value_of(tensor).item())
+        ``Identity``/``Cast`` of one (:func:`host_scalar`). Else
+        ``.item()`` (a device sync), which a compiled run refuses. The
+        tensor is recorded in ``host_reads``: its value keys the
+        compiled executables of the plan."""
+        self.host_reads.append(tensor)
+        v = host_scalar(tensor, self.feeds)
+        if v is not None:
+            return v
+        if self.compiled:
+            raise InvalidArgumentError(
+                None, op,
+                f"{op.name if op is not None else tensor.name} reads "
+                f"{tensor.name} on the host, which is not known there "
+                "(a feed or a constant); a compiled step cannot sync")
+        return float(self.value_of(tensor).item())
 
     def _maybe_leaf(self, tensor, value):
         if tensor in self.grad_leaves:
             return value.detach().requires_grad_(True)
         return value
+
+
+def uninitialized_message(name: str) -> str:
+    return (f"Attempting to use uninitialized variable {name!r}. "
+            "Run stf.global_variables_initializer() first.")
+
+
+def host_scalar(tensor: Tensor, feeds) -> Any:
+    """``tensor``'s value as a float when the host knows it without the
+    device (a feed, a constant, or a ``PlaceholderWithDefault``,
+    ``Identity`` or ``Cast`` of one), else None."""
+    t = tensor
+    while True:
+        if t in feeds:
+            v = feeds[t]
+            if isinstance(v, torch.Tensor):
+                if v.device.type != "cpu":
+                    return None
+                return float(v.item())
+            return float(np.asarray(v).reshape(()))
+        if t.op.type == "Const":
+            return float(np.asarray(t.op.attrs["value"]).reshape(()))
+        if t.op.type in ("PlaceholderWithDefault", "Identity", "Cast"):
+            t = t.op.inputs[0]
+            continue
+        return None
 
 
 def _storages(ctx, op) -> Set[int]:
@@ -214,9 +313,16 @@ def _storages(ctx, op) -> Set[int]:
 
 
 def execute_ops(ctx: LoweringContext, op_list: Sequence[Operation]):
-    """Run ``op_list`` in order, filling ``ctx.env``."""
+    """Run ``op_list`` in order, filling ``ctx.env``. With
+    ``ctx.timings`` a dict, adds the host seconds spent staging inputs
+    (``"feeds"``: the fed values' copies to the device), in
+    ``SymbolicGradient`` (``"autograd"``) and in every other lowering
+    (``"dispatch"``)."""
     env = ctx.env
+    timings = ctx.timings
     for op in op_list:
+        if timings is not None:
+            t0 = time.perf_counter()
         opdef = op.op_def
         if op.outputs and not opdef.is_stateful and \
                 all(o in env for o in op.outputs):
@@ -230,7 +336,14 @@ def execute_ops(ctx: LoweringContext, op_list: Sequence[Operation]):
                     env[t] = v.detach().clone()
         inputs = [env[t] if t in env else ctx.value_of(t)
                   for t in op.inputs]
+        if timings is not None:
+            t1 = time.perf_counter()
+            timings["feeds"] = timings.get("feeds", 0.0) + t1 - t0
         outputs = opdef.lower(ctx, op, inputs)
+        if timings is not None:
+            cat = "autograd" if op.type == "SymbolicGradient" \
+                else "dispatch"
+            timings[cat] = timings.get(cat, 0.0) + time.perf_counter() - t1
         if len(outputs) != len(op.outputs):
             raise RuntimeError(
                 f"Op {op.name} ({op.type}) lowered to {len(outputs)} "

@@ -12,8 +12,10 @@ rule for partial shapes (``_PROBE_A``/``_PROBE_B`` :31-32,
 primes, and an output dim that differs between the two runs is unknown.
 Kernel-backed ops (the softmax-xent and Dropout wrappers test the device)
 pass an ``infer_fn`` or explicit output specs, never a meta launch.
-Left out: sharding rules, ``runs_on_host`` staging, the ``io`` and
-``update`` effects and their resolution by the hazard detector.
+Effects resolve against an op's attrs into concrete resources
+(``Effects._resolve`` :75) for the variable-hazard detector
+(``analysis/hazards.py``). Left out: sharding rules and ``runs_on_host``
+staging.
 """
 
 from __future__ import annotations
@@ -31,25 +33,61 @@ _PROBE_B = 17
 
 
 class Effects:
-    """Declared effect set of an op type: ``reads``/``writes`` are
-    variable selectors (the name of the attr holding the variable name);
-    ``rng`` marks an op that draws from the per-step random stream (the
-    Session advances its run counter only for plans with such an op)."""
+    """Declared effect set of an op type.
 
-    __slots__ = ("reads", "writes", "rng")
+    ``reads``/``writes``: resource selectors, each the name of an attr
+    holding the resource id (``"var_name"`` resolves to
+    ``"var_name=<name>"``, a list-valued attr to one resource per element)
+    or a literal resource prefixed with ``=``. ``update``: how a write
+    combines with the previous value: None overwrites (Assign),
+    ``"add"``/``"sub"``/... mark read-modify-write updates, which the
+    hazard detector lets commute. ``rng``: draws from the per-step random
+    stream (the Session advances its run counter only for plans with such
+    an op). ``io``: an observable host-side effect."""
 
-    def __init__(self, reads=(), writes=(), rng=False):
+    __slots__ = ("reads", "writes", "rng", "io", "update")
+
+    def __init__(self, reads=(), writes=(), rng=False, io=False,
+                 update=None):
         self.reads = (reads,) if isinstance(reads, str) else tuple(reads)
         self.writes = (writes,) if isinstance(writes, str) else tuple(writes)
         self.rng = bool(rng)
+        self.io = bool(io)
+        self.update = update
 
     def __bool__(self):
-        return bool(self.reads or self.writes or self.rng)
+        return bool(self.reads or self.writes or self.rng or self.io)
+
+    @staticmethod
+    def _resolve(selectors, op) -> frozenset:
+        out = set()
+        for sel in selectors:
+            if sel.startswith("="):
+                out.add(sel[1:])
+                continue
+            v = op.attrs.get(sel)
+            if v is None:
+                # a resource unique to this op: it aliases nothing
+                out.add(f"{sel}@{op.name}")
+            elif isinstance(v, (list, tuple)):
+                out.update(f"{sel}={x}" for x in v)
+            else:
+                out.add(f"{sel}={v}")
+        return frozenset(out)
+
+    def resolved_reads(self, op) -> frozenset:
+        return self._resolve(self.reads, op)
+
+    def resolved_writes(self, op) -> frozenset:
+        return self._resolve(self.writes, op)
 
     def __repr__(self):
         parts = [f"{k}={getattr(self, k)!r}" for k in ("reads", "writes")
                  if getattr(self, k)]
-        return "Effects(" + ", ".join(parts + ["rng"] * self.rng) + ")"
+        if self.update:
+            parts.append(f"update={self.update!r}")
+        parts += ["rng"] * self.rng + ["io"] * self.io
+        return "Effects(" + ", ".join(parts) + ")"
 
 
 NO_EFFECTS = Effects()

@@ -143,9 +143,9 @@ def randint(key_, shape, lo: int, hi: int) -> np.ndarray:
 # torch form (int64 tensors holding uint32 values)
 # ---------------------------------------------------------------------------
 
-def threefry2x32_torch(k0: int, k1: int, x0, x1):
+def threefry2x32_torch(k0, k1, x0, x1):
     """Threefry-2x32 over int64 tensors of uint32 values and a scalar key
-    of two Python ints: ``(y0, y1)``. Every add and shift is masked to 32
+    of two Python ints or int64 scalar tensors: ``(y0, y1)``. Every add and shift is masked to 32
     bits, so no intermediate leaves int64's range."""
     ks = (k0 & _M32, k1 & _M32, (k0 ^ k1 ^ _PARITY) & _M32)
     a = (x0 + ks[0]) & _M32
@@ -160,9 +160,21 @@ def threefry2x32_torch(k0: int, k1: int, x0, x1):
     return a, b
 
 
-def uniform_torch(key_, shape, device) -> torch.Tensor:
-    """:func:`uniform` of one key as an f32 tensor on ``device``."""
+def key_words_torch(key_):
+    """The two words of a key given on the host (two Python ints), or of
+    a ``(2,)`` int32 tensor holding their bits (two int64 scalar tensors
+    of uint32 values, read on its device without a sync)."""
+    if isinstance(key_, torch.Tensor):
+        k = key_.to(torch.int64) & _M32
+        return k[0], k[1]
     k0, k1 = (int(w) for w in _u32(key_))
+    return k0, k1
+
+
+def uniform_torch(key_, shape, device) -> torch.Tensor:
+    """:func:`uniform` of one key (:func:`key_words_torch`) as an f32
+    tensor on ``device``."""
+    k0, k1 = key_words_torch(key_)
     idx = torch.arange(int(np.prod(shape, dtype=np.int64)),
                        dtype=torch.int64, device=device)
     y0, y1 = threefry2x32_torch(k0, k1, idx >> 32, idx & _M32)

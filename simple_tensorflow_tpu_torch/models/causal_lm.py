@@ -26,7 +26,16 @@ half:
 Decode and prefill run at per-bucket batch shapes; padding rows feed the
 pad token at position 0 and point every page-table entry and the write
 target at the scratch page (:482-539 of the JAX module), so they never
-touch a live page.
+touch a live page. With ``aot_warmup=True`` (the JAX name and default,
+:343, :420-441) the model captures, when it is built, one CUDA graph per
+decode bucket (``decode_hidden``, the logits head and ``greedy_emit``
+over static ``tok/pos/tbl/dst/off`` inputs and static ``next_tok/logp``
+outputs) and one per prefill bucket (``block_decode`` over static
+``tok/base/tbl/dst``), each after an eager warm-up on all-padding rows
+(which write only the scratch page); ``decode`` and ``prefill_chunk``
+then stage their rows, padding included, through pinned host buffers and
+replay (``compiler/aot.py``). On the CPU the same buckets run their
+function eagerly into the static buffers. Copy-on-write stays eager.
 
 :func:`causal_lm_logits_plain` is the plain full re-forward (causal
 attention, LayerNorm and the logits head in PyTorch ops, no kernel): the
@@ -42,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..compiler import DeviceGraph, StagedInput, on_side_stream
 from ..framework.random_seed import StepRNG, fold_in_value
 from ..ops import fused_ops
 from ..ops.kernels.common import NEG_INF
@@ -313,6 +323,33 @@ def greedy_emit(logits):
     return tok, logp_all.gather(-1, tok[:, None])[:, 0]
 
 
+class _BucketProgram:
+    """One bucket's program over static inputs (``{name: (shape,
+    dtype)}``), captured as a CUDA graph: :meth:`build` warms it up on
+    ``pad`` rows and captures it, :meth:`run` stages a bucket's rows and
+    replays it, returning the static outputs."""
+
+    def __init__(self, fn, specs, device):
+        self.inputs = {k: StagedInput(shape, dtype, device)
+                       for k, (shape, dtype) in specs.items()}
+        self._fn = fn
+        self.graph = DeviceGraph(self._call, device)
+
+    def _call(self):
+        return self._fn(**{k: v.static for k, v in self.inputs.items()})
+
+    def build(self, pad):
+        for k, v in pad.items():
+            self.inputs[k].stage(v)
+        on_side_stream(self._call, self.graph.device)
+        self.graph.capture()
+
+    def run(self, values):
+        for k, v in values.items():
+            self.inputs[k].stage(v)
+        return self.graph.replay()
+
+
 class CausalLMGenerativeModel:
     """Paged causal-LM decode programs for the engine's prefix-cache path
     (module docstring).
@@ -322,6 +359,9 @@ class CausalLMGenerativeModel:
     ``init_fresh=True`` (:func:`..convert.init_params` with ``seed``).
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU.
+    ``aot_warmup`` (default True) captures every decode and prefill
+    bucket's CUDA graph at build (module docstring); False dispatches
+    every step eagerly.
     """
 
     def __init__(self, cfg: TransformerConfig, *, page_len=8,
@@ -329,7 +369,7 @@ class CausalLMGenerativeModel:
                  decode_bucket_sizes=None, prefill_bucket_sizes=None,
                  int8=False, sampling=None, checkpoint=None, params=None,
                  init_fresh=False, seed=0, scope="causal_lm",
-                 device="cuda"):
+                 aot_warmup=True, device="cuda"):
         from .. import convert
 
         if sampling is not None:
@@ -386,6 +426,38 @@ class CausalLMGenerativeModel:
             with torch.inference_mode():
                 self.wq, self.w_scale = build_int8_logits_weights(
                     self.stack.shared_embedding)
+        self.aot_warmup = bool(aot_warmup)
+        self._decode_programs = {}
+        self._prefill_programs = {}
+        if self.aot_warmup:
+            self._build_programs()
+
+    @torch.inference_mode()
+    def _build_programs(self):
+        """Warm up and capture every bucket's program (all-padding rows:
+        pad token, position 0, scratch-page tables and targets)."""
+        i64, i32 = torch.int64, torch.int32
+        pps, pl = self.pages_per_seq, self.page_len
+        for sb in self._decode_buckets:
+            prog = _BucketProgram(self._decode_step, {
+                "tok": ((sb,), i64), "pos": ((sb,), i32),
+                "tbl": ((sb, pps), i64), "dst": ((sb,), i64),
+                "off": ((sb,), i64)}, self.device)
+            prog.build(self._decode_rows(
+                np.full((sb,), self.pad_id, np.int32),
+                np.zeros((sb,), np.int32), self._scratch_tables(sb)))
+            self._decode_programs[sb] = prog
+        for pb in self._prefill_buckets:
+            prog = _BucketProgram(self._prefill_step, {
+                "tok": ((pb, pl), i64), "base": ((pb,), i32),
+                "tbl": ((pb, pps), i64), "dst": ((pb,), i64),
+                "off": ((pb,), i64)}, self.device)
+            prog.build({"tok": np.full((pb, pl), self.pad_id, np.int32),
+                        "base": np.zeros((pb,), np.int32),
+                        "tbl": self._scratch_tables(pb),
+                        "dst": np.full((pb,), self.scratch_page, np.int32),
+                        "off": np.zeros((pb,), np.int32)})
+            self._prefill_programs[pb] = prog
 
     @property
     def decode_buckets(self):
@@ -441,26 +513,48 @@ class CausalLMGenerativeModel:
             base[:take] = bases[sl]
             tbl[:take] = page_tables[sl]
             dst[:take] = dst_pages[sl]
-            base_t = self._tensor(base, torch.int32)
-            cache = _PagedCaches(
-                self.caches, self._tensor(tbl), self._tensor(dst),
-                torch.zeros(pb, dtype=torch.int64, device=self.device),
-                base_t)
             # pad rows of a partial final chunk write K/V past the real
             # length: dead rows, masked by committed length and
             # overwritten in place by the next append
-            block_decode(self.stack, self._tensor(tok), base_t, cache)
+            prog = self._prefill_programs.get(pb)
+            if prog is not None:
+                prog.run({"tok": tok, "base": base, "tbl": tbl, "dst": dst})
+            else:
+                self._prefill_step(
+                    self._tensor(tok), self._tensor(base, torch.int32),
+                    self._tensor(tbl), self._tensor(dst),
+                    torch.zeros(pb, dtype=torch.int64, device=self.device))
             done += take
+
+    def _prefill_step(self, tok, base, tbl, dst, off):
+        """One prefill bucket on device tensors: the block decode appends
+        each row's chunk into its page (off: zeros)."""
+        block_decode(self.stack, tok, base,
+                     _PagedCaches(self.caches, tbl, dst, off, base))
+        return ()
+
+    def _decode_rows(self, tok, pos, tbl):
+        """The decode program's host inputs of one padded batch: the write
+        page and offset of each row resolved from its page table."""
+        return {"tok": tok, "pos": pos, "tbl": tbl,
+                "dst": tbl[np.arange(len(pos)), pos // self.page_len],
+                "off": pos % self.page_len}
+
+    def _decode_step(self, tok, pos, tbl, dst, off):
+        """One decode bucket on device tensors: ``(next_tok, logp)``."""
+        cache = _PagedCaches(self.caches, tbl, dst, off, pos)
+        h = incremental_decode(self.stack, tok, pos, cache)
+        return greedy_emit(self.logits_head(h).float())
 
     def decode_hidden(self, tok, pos, tbl):
         """The decode step's hidden state ``(sb, d_model)`` for one
         already bucket-padded batch (numpy ``tok``, ``pos``, ``tbl``);
         appends each row's K/V on the way."""
-        dst = tbl[np.arange(len(pos)), pos // self.page_len]
-        off = pos % self.page_len
+        rows = self._decode_rows(tok, pos, tbl)
         pos_t = self._tensor(pos, torch.int32)
         cache = _PagedCaches(self.caches, self._tensor(tbl),
-                             self._tensor(dst), self._tensor(off), pos_t)
+                             self._tensor(rows["dst"]),
+                             self._tensor(rows["off"]), pos_t)
         return incremental_decode(self.stack, self._tensor(tok), pos_t,
                                   cache)
 
@@ -488,10 +582,15 @@ class CausalLMGenerativeModel:
         n = len(tokens)
         tok, pos, tbl, sb = self.pad_decode_batch(tokens, positions,
                                                   page_tables)
-        h = self.decode_hidden(tok, pos, tbl)
-        next_tok, logp = greedy_emit(self.logits_head(h).float())
-        return (next_tok.to(torch.int32).cpu().numpy()[:n],
-                logp.cpu().numpy()[:n], sb)
+        prog = self._decode_programs.get(sb)
+        if prog is not None:
+            next_tok, logp = prog.run(self._decode_rows(tok, pos, tbl))
+        else:
+            h = self.decode_hidden(tok, pos, tbl)
+            next_tok, logp = greedy_emit(self.logits_head(h).float())
+        # copies: on the CPU a static output would be returned as a view
+        return (next_tok[:n].to("cpu", torch.int32, copy=True).numpy(),
+                logp[:n].to("cpu", copy=True).numpy(), sb)
 
     @torch.inference_mode()
     def copy_page(self, dst, src):
@@ -502,6 +601,10 @@ class CausalLMGenerativeModel:
             vc.copy_page(int(dst), int(src))
 
     def close(self):
+        for progs in (self._decode_programs, self._prefill_programs):
+            for prog in progs.values():
+                prog.graph.release()
+            progs.clear()
         self.caches = []
 
     def statusz_info(self):
@@ -510,6 +613,7 @@ class CausalLMGenerativeModel:
                 "page_len": self.page_len, "num_pages": self.num_pages,
                 "pages_per_seq": self.pages_per_seq,
                 "num_slots": self.num_slots, "int8": self.int8,
+                "aot_warmup": self.aot_warmup,
                 "device": str(self.device)}
 
 

@@ -57,6 +57,7 @@ SIGNATURES = {
     "stf_dropout_residual": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _I,
                              _P],
     "stf_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _I, _I, _P],
+    "stf_dropout_key": [_P, _P, _P, _L, _P, _U, _F, _I, _I, _P],
     "stf_dropout_bwd": [_P, _P, _P, _L, _F, _I, _I, _P],
 }
 

@@ -41,6 +41,7 @@ _LAUNCHES = {
     "dropout_residual": 0,
     "dropout_residual_bwd": 0,
     "dropout": 0,
+    "dropout_device_key": 0,
     "dropout_bwd": 0,
 }
 
@@ -120,6 +121,25 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def take_launches(before: dict) -> dict:
+    """The launches counted since the snapshot ``before`` (a
+    :func:`launch_counts`), taken off the counters: a CUDA graph's capture
+    counts launches that run only when it is replayed, so the capture
+    hands them to the graph, whose every replay adds them back
+    (:func:`add_launches`)."""
+    made = {k: _LAUNCHES[k] - before.get(k, 0) for k in _LAUNCHES}
+    for k, v in made.items():
+        _LAUNCHES[k] -= v
+    return {k: v for k, v in made.items() if v}
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``counts`` (kernel -> launches): one replay of a CUDA graph
+    that captured them."""
+    for k, v in counts.items():
+        _LAUNCHES[k] += v
 
 
 def uses_kernel(*tensors: torch.Tensor) -> bool:

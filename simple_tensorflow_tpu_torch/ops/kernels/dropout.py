@@ -18,6 +18,14 @@ of ``where(mask, x / kp, 0)`` with the mask kept as its residual, as the
 JAX program keeps it. The forward is bound by integer instruction issue on
 the card (the threefry rounds), the backward by bytes; the source note in
 ``csrc/dropout.cu`` says more.
+
+A key is two uint32 words given on the host (a tuple or array), or a
+``(2,)`` int32 tensor holding their bits on the tensor's device: the
+Session's compiled steps read each random op's key from a device buffer
+they refill before every CUDA-graph replay. A CUDA forward with a tensor
+key launches the kernels' device-key entry (``stf_dropout_key``, counted
+as ``dropout_device_key``), which reads the words through a pointer; the
+plain versions take either form.
 """
 
 from __future__ import annotations
@@ -88,8 +96,10 @@ def pack_keep_bits_plain(keep):
     pad = -flat.numel() % 8
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    weights = torch.tensor([1 << e for e in range(8)], dtype=torch.int32,
-                           device=keep.device)
+    # made on the device (no host copy, so a CUDA graph can capture it)
+    weights = torch.bitwise_left_shift(
+        torch.ones(8, dtype=torch.int32, device=keep.device),
+        torch.arange(8, dtype=torch.int32, device=keep.device))
     return (flat.view(-1, 8).to(torch.int32) * weights).sum(
         dim=1, dtype=torch.int32).to(torch.uint8)
 
@@ -119,18 +129,27 @@ def vector_path(n: int, *tensors) -> bool:
 
 def launch_fwd(x, keep_prob, key, vec):
     """One forward launch on a checked contiguous CUDA ``x``: the vector
-    path or, with ``vec`` False, the general one. Returns ``(out,
-    bits)``."""
-    k0, k1 = (int(w) for w in np.asarray(key, np.uint32))
+    path or, with ``vec`` False, the general one; a tensor ``key`` (a
+    checked ``(2,)`` int32 on ``x``'s device) through the device-key
+    entry. Returns ``(out, bits)``."""
     n = x.numel()
     out = torch.empty_like(x)
     bits = torch.empty(-(-n // 8), dtype=torch.uint8, device=x.device)
-    status = _build.library().stf_dropout(
-        x.data_ptr(), out.data_ptr(), bits.data_ptr(), n, k0, k1,
-        keep_bits_limit(keep_prob), _kp(keep_prob, x.dtype), int(vec),
-        DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
-    check_status("dropout", status)
-    count_launch("dropout")
+    lib = _build.library()
+    args = (keep_bits_limit(keep_prob), _kp(keep_prob, x.dtype), int(vec),
+            DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
+    if isinstance(key, torch.Tensor):
+        status = lib.stf_dropout_key(x.data_ptr(), out.data_ptr(),
+                                     bits.data_ptr(), n, key.data_ptr(),
+                                     *args)
+        name = "dropout_device_key"
+    else:
+        k0, k1 = (int(w) for w in np.asarray(key, np.uint32))
+        status = lib.stf_dropout(x.data_ptr(), out.data_ptr(),
+                                 bits.data_ptr(), n, k0, k1, *args)
+        name = "dropout"
+    check_status(name, status)
+    count_launch(name)
     return out, bits
 
 
@@ -151,12 +170,19 @@ def dropout_fwd(x, keep_prob, key, *, return_bits=False):
     """``where(u < keep_prob, x / kp, 0)`` for any contiguous shape, and
     with ``return_bits`` the keep bits beside it. CPU tensors take the
     plain versions, CUDA tensors launch the kernel of the path
-    :func:`vector_path` picks."""
-    if not uses_kernel(x):
+    :func:`vector_path` picks, by the entry the key's form picks (module
+    docstring)."""
+    key_t = (key,) if isinstance(key, torch.Tensor) else ()
+    if not uses_kernel(x, *key_t):
         keep = keep_mask_plain(x.shape, keep_prob, key, x.device)
         out = _scaled(x, keep, keep_prob)
         return (out, pack_keep_bits_plain(keep)) if return_bits else out
     check_cuda_arg("x", x, DTYPE_CODES, x.dim())
+    if key_t:
+        check_cuda_arg("key", key, (torch.int32,), 1)
+        if key.numel() != 2 or key.device != x.device:
+            raise ValueError(f"key must be (2,) on {x.device}, got "
+                             f"{tuple(key.shape)} on {key.device}")
     out, bits = launch_fwd(x, keep_prob, key, vector_path(x.numel(), x))
     return (out, bits) if return_bits else out
 

@@ -50,16 +50,18 @@ Tensor = ops_mod.Tensor
 def _dropout_impl(x, keep_prob: float, key):
     """``where(uniform(key, x.shape) < keep_prob, x / keep_prob, 0)``
     with ``keep_prob`` in ``x``'s dtype for the division; ``key`` is a raw
-    threefry key (two uint32 words). ``keep_prob == 1`` returns ``x``, as
-    the JAX function does; one that rounds to 0 in f32 (below about
-    7e-46) is refused on every device. Differentiable."""
+    threefry key (two uint32 words, or a ``(2,)`` int32 device tensor of
+    their bits: :mod:`.kernels.dropout`). ``keep_prob == 1`` returns
+    ``x``, as the JAX function does; one that rounds to 0 in f32 (below
+    about 7e-46) is refused on every device. Differentiable."""
     keep_prob = float(keep_prob)
     if not (0.0 < np.float32(keep_prob) and keep_prob <= 1.0):
         raise ValueError(f"keep_prob must be in (0, 1] in f32: {keep_prob}")
     if keep_prob == 1.0:
         return x
-    return DropoutFunction.apply(x, keep_prob, tuple(int(w) for w in key),
-                                 using_plain_versions())
+    if not isinstance(key, torch.Tensor):
+        key = tuple(int(w) for w in key)
+    return DropoutFunction.apply(x, keep_prob, key, using_plain_versions())
 
 
 def _relu_impl(x):
@@ -190,18 +192,21 @@ op_registry.register("SparseSoftmaxCrossEntropyWithLogits",
 
 def _lower_dropout(ctx, op, inputs):
     """The JAX lowering's draw (``u = uniform(key, x.shape)``, keep ``u <
-    keep_prob``) through the Dropout kernel; a tensor ``keep_prob`` is
-    read on the host (:meth:`LoweringContext.host_value`: a feed or a
-    constant default costs no sync, anything else one ``.item()``)."""
+    keep_prob``) through the Dropout kernel, its key from
+    :meth:`LoweringContext.rng_key` (a device-buffer row in a compiled
+    step); a tensor ``keep_prob`` is read on the host
+    (:meth:`LoweringContext.host_value`: a feed or a constant default
+    costs no sync, anything else one ``.item()``, which a compiled step
+    refuses)."""
     x = inputs[0]
     keep_prob = op.attrs["keep_prob"]
     if keep_prob is None:
-        keep_prob = ctx.host_value(op.inputs[1])
+        keep_prob = ctx.host_value(op.inputs[1], op)
     ns = op.attrs.get("noise_shape")
     if ns is not None and tuple(ns) != tuple(x.shape):
         raise NotImplementedError("dropout noise_shape other than the "
                                   "input's shape is not ported")
-    return [_dropout_impl(x, keep_prob, ctx.rng_for(op))]
+    return [_dropout_impl(x, keep_prob, ctx.rng_key(op))]
 
 
 op_registry.register("Dropout", lower=_lower_dropout,

@@ -39,7 +39,12 @@ def _ru(key, op, device):
 
 
 def _lower_random_uniform(ctx, op, inputs):
-    return [_ru(ctx.rng_for(op), op, ctx.device)]
+    """The float draw takes its key on the device in a compiled step
+    (:meth:`LoweringContext.rng_key`); the integer draw forms it on the
+    host (``prng.randint``), which a compiled step refuses."""
+    key = ctx.rng_key(op) if op.attrs["dtype"].is_floating \
+        else ctx.rng_for(op)
+    return [_ru(key, op, ctx.device)]
 
 
 op_registry.register("RandomUniform", lower=_lower_random_uniform,

@@ -4,10 +4,12 @@ reads, ``Assign``, ``AssignAdd`` and ``AssignSub``).
 
 A variable is an entry of the Session's store (name -> device tensor). A
 read returns the entry at the op's place in the run's order; an assign
-replaces it with a tensor the store owns (a copy of the assigned value),
-so a value read earlier in the run keeps its old contents, as in the JAX
-package's functional state. Only the fused optimizer update writes in
-place (``train/optimizers.py``). Left out: the scatter updates,
+stages a tensor of its own (a copy of the assigned value), which later
+reads of the run see and the end of the run commits into the store
+(``LoweringContext.commit``), so a value read earlier in the run keeps its
+old contents, as in the JAX package's functional state. Only the fused
+optimizer update writes the store in place mid-run
+(``train/optimizers.py``). Left out: the scatter updates,
 ``CountUpTo`` and ``IsVariableInitialized``.
 """
 
@@ -33,7 +35,7 @@ def _lower_assign(ctx, op, inputs):
     name = op.attrs["var_name"]
     val = inputs[0]
     if ctx.var_exists(name):
-        prev = ctx.state[name]
+        prev = ctx.read_var(name, op)
         if op.attrs.get("validate_shape", True) and \
                 tuple(prev.shape) != tuple(val.shape):
             raise ValueError(
@@ -62,9 +64,11 @@ def _make_aug_assign(fn):
 
 
 op_registry.register("AssignAdd", lower=_make_aug_assign(lambda a, b: a + b),
-                     effects=op_registry.Effects(writes=("var_name",)))
+                     effects=op_registry.Effects(writes=("var_name",),
+                                                 update="add"))
 op_registry.register("AssignSub", lower=_make_aug_assign(lambda a, b: a - b),
-                     effects=op_registry.Effects(writes=("var_name",)))
+                     effects=op_registry.Effects(writes=("var_name",),
+                                                 update="sub"))
 
 
 def _var_name_of(ref) -> str:

@@ -10,10 +10,10 @@ per-group flat ``m``/``v`` slot variables with the JAX names
 (``_lower_fused_adam`` :189-238). Where that lowering concatenates the
 group's parameters and splits the result (``_split_write_params`` :184),
 the Session's store keeps each parameter as a view into one flat buffer
-per group, built at the first update and rebuilt only after an assign
-replaced a member, and the kernel updates it in place. Left out of the
-graph optimizers: Adam's per-variable path (the JAX kernel-registry mode
-"off"), Momentum and the other optimizers.
+per group, built at the first update and rebuilt only after a load
+replaced a member (an assign copies into it), and the kernel updates it
+in place. Left out of the graph optimizers: Adam's per-variable path
+(the JAX kernel-registry mode "off"), Momentum and the other optimizers.
 
 The eager ``FlatAdam`` and ``FlatMomentum`` are the same fused paths of
 ``AdamOptimizer`` and ``MomentumOptimizer`` (:314, ``_lower_fused_momentum``
@@ -56,6 +56,7 @@ import torch
 from ..framework import dtypes as dtypes_mod
 from ..framework import graph as ops_mod
 from ..framework import op_registry
+from ..framework.errors import InvalidArgumentError
 from ..ops import array_ops, math_ops, state_ops
 from ..ops import variables as variables_mod
 from ..ops.fused_ops import using_plain_versions
@@ -322,8 +323,12 @@ def _flat_slot_layout(opt, slot_names, groups):
 def flat_group(ctx, names):
     """The flat buffer the store entries ``names`` are views into, in
     order; built (one copy) when an entry is not such a view, e.g. at the
-    first update or after an assign replaced it. The store entries become
-    views into it, so an in-place update of the buffer updates them."""
+    first update or after a load replaced it. The store entries become
+    views into it (new addresses: the store's version moves on, which a
+    compiled step refuses), so an in-place update of the buffer updates
+    them. A value of ``names`` staged earlier in the run is committed
+    first: the in-place update is the one write made mid-run."""
+    ctx.commit(names)
     cache = ctx.session._flat_groups
     vals = [ctx.read_var(n) for n in names]
     flat = cache.get(names)
@@ -338,10 +343,14 @@ def flat_group(ctx, names):
             off += v.numel()
         if ok and off == flat.numel():
             return flat
+    if ctx.compiled:
+        raise InvalidArgumentError(
+            None, None, f"the flat buffer of {names[:3]}... is rebuilt "
+            "inside a compiled step; its address must stay across replays")
     flat = torch.cat([v.detach().reshape(-1) for v in vals])
     off = 0
     for n, v in zip(names, vals):
-        ctx.state[n] = flat[off:off + v.numel()].view(v.shape)
+        ctx.store.set(n, flat[off:off + v.numel()].view(v.shape))
         off += v.numel()
     cache[names] = flat
     return flat
@@ -350,7 +359,10 @@ def flat_group(ctx, names):
 def _lower_fused_adam(ctx, op, inputs):
     """One Adam kernel launch per group over the flat parameters, the flat
     ``m``/``v`` slots and the concatenated gradients, in place; then the
-    beta powers decay, after every group's update."""
+    beta powers decay (staged: committed when the run ends), after every
+    group's update. The in-place update is the last op of every optimizer
+    plan, and the one write a run makes before it ends. A dry run (the
+    warm-up of ``ExecutionPlan.compile``) updates copies."""
     attrs = op.attrs
     n_groups = len(attrs["group_params"])
     lrs = inputs[:n_groups]
@@ -372,9 +384,12 @@ def _lower_fused_adam(ctx, op, inputs):
             g_flat = torch.cat([g.reshape(-1) for g in
                                 grads[lo:lo + len(pnames)]]).to(p_flat.dtype)
             lo += len(pnames)
-            update(p_flat, ctx.read_var(attrs["group_m"][gi], op),
-                   ctx.read_var(attrs["group_v"][gi], op), g_flat, alpha,
-                   beta1=beta1, beta2=beta2, eps=eps)
+            m = ctx.read_var(attrs["group_m"][gi], op)
+            v = ctx.read_var(attrs["group_v"][gi], op)
+            if ctx.dry:
+                p_flat, m, v = p_flat.clone(), m.clone(), v.clone()
+            update(p_flat, m, v, g_flat, alpha, beta1=beta1, beta2=beta2,
+                   eps=eps)
         for name, beta in ((attrs["beta1_power"], beta1),
                            (attrs["beta2_power"], beta2)):
             cur = ctx.read_var(name, op)

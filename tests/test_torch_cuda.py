@@ -1158,4 +1158,158 @@ def test_session_trains_the_convnet_through_the_kernels(cuda, dtype):
     assert abs(lk[0] - lp[0]) <= tol * abs(lp[0])
     assert all(np.isfinite(lk + lp))
     assert not any(cp.values())
-    assert ck == {k: 2 * SESSION_PER_STEP.get(k, 0) for k in ck}
+    # step 1 runs eagerly (the launch-argument Dropout entry), step 2 is
+    # captured and replayed (the device-key entry)
+    want = {k: 2 * SESSION_PER_STEP.get(k, 0) for k in ck}
+    want.update(dropout=1, dropout_device_key=1)
+    assert ck == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7,), (512, 1024), (16, 256, 4096)])
+def test_dropout_device_key_entry_on_card_is_bit_exact(cuda, dtype, shape):
+    # the forward with its key read through a device pointer: the values
+    # and bits of the launch-argument entry and of the plain version on
+    # the same key tensor; one dropout_device_key count a call; another
+    # key in the same buffer gives another mask
+    do = _kernel_module("dropout")
+    x = _t(np.random.RandomState(31).randn(*shape).astype(
+        np.float32)).to(cuda, dtype)
+    key_t = torch.tensor(np.array(DROPOUT_KEY, np.uint32).view(np.int32),
+                         device=cuda)
+    want, want_bits = do.dropout_fwd(x, 0.9, DROPOUT_KEY, return_bits=True)
+    before = K.launch_counts()
+    out, bits = do.dropout_fwd(x, 0.9, key_t, return_bits=True)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["dropout_device_key"] == before["dropout_device_key"] + 1
+    assert after["dropout"] == before["dropout"]
+    assert torch.equal(out, want) and torch.equal(bits, want_bits)
+    assert torch.equal(out, do.dropout_plain(x, 0.9, key_t))
+    key_t[1] += 1
+    if x.numel() > 64:
+        assert not torch.equal(do.dropout_fwd(x, 0.9, key_t), want)
+
+
+@pytest.mark.cuda
+def test_session_graph_replays_match_eager_steps_on_card(cuda):
+    # a Session that captures its step: 4 steps (warm-up, capture, two
+    # replays) bit-identical to the same steps dispatched eagerly; one
+    # capture; a store load makes the next run a warm-up and the one
+    # after a second capture
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch import convert
+    from simple_tensorflow_tpu_torch.models import mnist
+
+    x, labels, _ = mnist.synthetic_mnist(32, seed=0)
+    g = stf.Graph()
+    with g.as_default():
+        m = mnist.convnet_model()
+        init = stf.global_variables_initializer()
+    feeds = {m["x"]: x.reshape(-1, 28, 28, 1), m["y_"]: labels,
+             m["keep_prob"]: 0.5}
+    fetch = [m["train_op"], m["loss"], "convnet/dropout:0"]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for capture in (True, False):
+            with stf.Session(graph=g) as s:
+                s._capture = capture
+                s.run(init)
+                out = [s.run(fetch, feeds) for _ in range(4)]
+                w = s.run("convnet/fc2/bias:0")
+                convert.load_session_variables(
+                    s, {"convnet/fc2/bias": w + 0.5})
+                out += [s.run(fetch, feeds) for _ in range(3)]
+                runs.append((out, {k: v.cpu().numpy().copy() for k, v in
+                                   s._variable_store.values.items()},
+                             s.captures))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (og, sg, cg), (oe, se, ce) = runs
+    assert cg == 2 and ce == 0
+    for a, b in zip(og, oe):
+        assert a[1] == b[1]
+        np.testing.assert_array_equal(a[2], b[2])
+    for k in se:
+        np.testing.assert_array_equal(sg[k], se[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_execution_plan_compile_then_execute_on_card(cuda):
+    # ExecutionPlan.compile captures ahead of traffic (a dry warm-up:
+    # nothing committed, no run counter consumed); every execute after it
+    # replays, bit-identical to eager steps from the same initializer run
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import mnist
+
+    x, labels, _ = mnist.synthetic_mnist(32, seed=0)
+    g = stf.Graph()
+    with g.as_default():
+        m = mnist.convnet_model()
+        init = stf.global_variables_initializer()
+    feeds = {m["x"]: x.reshape(-1, 28, 28, 1), m["y_"]: labels,
+             m["keep_prob"]: 0.5}
+    fetch = [m["train_op"], m["loss"], "convnet/dropout:0"]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with stf.Session(graph=g) as s:
+            s.run(init)
+            counter = s._run_counter
+            plan = s.plan(fetch, feeds=list(feeds))
+            exe = plan.compile(
+                feed_shapes={m["x"]: (32, 28, 28, 1), m["y_"]: (32,)},
+                feed_dict={m["keep_prob"]: 0.5})
+            assert s._run_counter == counter and s.captures == 1
+            assert exe.launches["dropout_device_key"] == 1
+            got = [plan.execute(feeds) for _ in range(3)]
+            assert s.captures == 1 and len(plan.compiled_buckets()) == 1
+        with stf.Session(graph=g) as s:
+            s._capture = False
+            s.run(init)
+            want = [s.run(fetch, feeds) for _ in range(3)]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for a, b in zip(got, want):
+        assert a[1] == b[1]
+        np.testing.assert_array_equal(a[2], b[2])
+
+
+@pytest.mark.cuda
+def test_serving_bucket_graphs_match_eager_on_card(cuda):
+    # the paged model with aot_warmup on and off at a small width: the
+    # same tokens and bit-identical log-probs through prefill and decode
+    # at every bucket, partial buckets included
+    from simple_tensorflow_tpu_torch import convert
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig.tiny()
+    params = convert.init_params(cfg, seed=0)
+    rng = np.random.RandomState(5)
+    chunks = rng.randint(2, cfg.vocab_size, (6, 4)).astype(np.int32)
+    got = []
+    for aot in (True, False):
+        model = clm.CausalLMGenerativeModel(
+            cfg, page_len=4, pages_per_seq=4, num_pages=16, max_live=4,
+            prefill_bucket_sizes=[1, 4], params=params, aot_warmup=aot)
+        tables = np.full((4, 4), model.scratch_page, np.int32)
+        tables[:, :3] = np.arange(12).reshape(4, 3)
+        model.prefill_chunk(chunks[:4], np.zeros(4, np.int32), tables,
+                            tables[:, 0])
+        pos = np.full(4, 4, np.int32)
+        last = chunks[:4, -1].copy()
+        out = []
+        for rows in (4, 1, 3, 4, 2):
+            tok, lp, _ = model.decode(last[:rows], pos[:rows],
+                                      tables[:rows])
+            out.append((tok, lp))
+            last[:rows], pos[:rows] = tok, pos[:rows] + 1
+        model.close()
+        got.append(out)
+    for (ta, la), (tb, lb) in zip(*got):
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_array_equal(la, lb)

@@ -594,6 +594,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     K.quant_matmul(torch.ones(2, 8), torch.ones(8, 4, dtype=torch.int8),
                    torch.ones(4))
     K.dropout_fwd(torch.ones(2, 8), 0.9, (1, 2))
+    K.dropout_fwd(torch.ones(2, 8), 0.9,
+                  torch.tensor([1, 2], dtype=torch.int32))
     K.dropout_residual_fwd(torch.ones(2, 8), torch.ones(2, 8), rate=0.1,
                            seed=3)
     K.momentum_update(torch.ones(4), torch.ones(4), torch.ones(4),
@@ -605,7 +607,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            "flash_attention_dq", "softmax_xent_fwd",
                            "softmax_xent_bwd", "adam_update",
                            "momentum_update", "dropout_residual",
-                           "dropout_residual_bwd", "dropout", "dropout_bwd"}
+                           "dropout_residual_bwd", "dropout",
+                           "dropout_device_key", "dropout_bwd"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -638,7 +641,7 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_flash_attention_dkdv", "stf_flash_attention_dq",
         "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update",
         "stf_momentum_update", "stf_dropout_residual", "stf_dropout",
-        "stf_dropout_bwd"}
+        "stf_dropout_key", "stf_dropout_bwd"}
 
 
 def test_helpers_match_the_pallas_common_module():

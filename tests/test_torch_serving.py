@@ -7,7 +7,8 @@ reads the same ``.stfz`` checkpoint (``convert.load_stfz`` ->
 ``params_from_jax``) and both engines serve the same shared-prefix
 prompts, with the f32 head and with ``int8=True``: the token streams must
 be identical and the log-probs agree within 1e-5. The decode step's
-hidden state is compared directly too. Everything runs on the CPU (the
+hidden state is compared directly too, and the per-bucket executables
+(``aot_warmup=True``, the default) on a fixed call script. Everything runs on the CPU (the
 port's kernels take their plain versions on CPU tensors).
 """
 
@@ -168,6 +169,52 @@ def test_decode_step_hidden_state_matches_jax(jax_models, tmp_path):
         assert np.isfinite(got).all()
     finally:
         jm.close()
+
+
+def test_aot_buckets_match_jax_with_partial_and_shrinking_batches(
+        jax_models):
+    """``aot_warmup=True`` (the default: one executable per bucket, replayed
+    from static inputs) on the CPU: prefill then decode steps of 3, 1, 2,
+    3 and 1 rows, so decode bucket 4 runs partly filled and replays a
+    2-row batch right after a 3-row one (a stale third row would show).
+    Tokens equal the JAX model's and log-probs within 1e-5; against the
+    port's own eager dispatch (``aot_warmup=False``) both are
+    bit-identical."""
+    _, ckpt = jax_models(False)
+    jm = jclm.CausalLMGenerativeModel(
+        jtr.TransformerConfig.tiny(), checkpoint=ckpt, aot_warmup=False,
+        **GEOMETRY)
+    models = {"jax": jm, "aot": _port_model(ckpt),
+              "eager": _port_model(ckpt, aot_warmup=False)}
+    assert models["aot"].statusz_info()["aot_warmup"]
+    rng = np.random.RandomState(9)
+    chunks = rng.randint(2, 64, (3, PAGE_LEN)).astype(np.int32)
+    tables = np.full((3, PAGES_PER_SEQ), NUM_PAGES, np.int32)
+    tables[:, :3] = np.arange(9).reshape(3, 3)
+    got = {}
+    try:
+        for name, model in models.items():
+            model.prefill_chunk(chunks, np.zeros(3, np.int32), tables,
+                                tables[:, 0])
+            pos = np.full(3, PAGE_LEN, np.int32)
+            last = chunks[:, -1].copy()
+            out = []
+            for rows in (3, 1, 2, 3, 1):
+                tok, lp, sb = model.decode(last[:rows], pos[:rows],
+                                           tables[:rows])
+                out.append((np.asarray(tok), np.asarray(lp), sb))
+                last[:rows], pos[:rows] = tok, pos[:rows] + 1
+            got[name] = out
+    finally:
+        jm.close()
+    for a, e, j in zip(got["aot"], got["eager"], got["jax"]):
+        assert a[2] == e[2] == j[2]
+        np.testing.assert_array_equal(a[0], e[0])
+        np.testing.assert_array_equal(a[1], e[1])
+        np.testing.assert_array_equal(a[0], j[0])
+        np.testing.assert_allclose(a[1], j[1], rtol=0, atol=1e-5)
+    assert [o[2] for o in got["aot"]] == [MAX_LIVE, 1, MAX_LIVE, MAX_LIVE,
+                                          1]
 
 
 def test_same_batch_joiners_read_filled_pages():

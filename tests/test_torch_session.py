@@ -8,8 +8,11 @@ name, the errors of a wrong-shape feed, an uninitialized variable, a
 closed session and a mixed-dtype add, the 64-bit rule (int64 computes and
 fetches as int32), plan-cache hits, the RNG consume rule over runs that
 mix RNG and non-RNG plans, ``random_uniform`` bit for bit (seeded and
-unseeded) and the gradient of a variable read twice. Values are exact
-unless a tolerance is stated.
+unseeded), the gradient of a variable read twice, a run that fails
+committing nothing, and the variable-hazard detector's modes (``raise``
+refusing an unordered read and write, ``warn``, ``off``, ``auto_deps``,
+WAW pairs left as warnings). Values are exact unless a tolerance is
+stated.
 """
 
 import collections
@@ -26,9 +29,9 @@ PKGS = {"jax": jstf, "port": pstf}
 ERRORS = {"jax": jerrors, "port": perrors}
 
 
-def cpu_session(stf, graph=None):
+def cpu_session(stf, graph=None, **kw):
     return stf.Session(graph=graph, config=stf.ConfigProto(
-        device_count={"GPU": 0}))
+        device_count={"GPU": 0}, **kw))
 
 
 def in_both(build):
@@ -282,25 +285,42 @@ def test_values_read_before_the_in_place_adam_update_keep_them():
     """The fused Adam update writes the flat parameter and slot buffers in
     place; a fetched value read before it in the run (a variable, an Adam
     slot view) keeps its contents, as in the JAX package's functional
-    state."""
-    stf = pstf
-    with stf.Graph().as_default():
+    state. Nothing orders the slot view's read against the update, so the
+    default hazard mode refuses that fetch, as the JAX package does;
+    ``auto_deps`` orders the read first (program order)."""
+    def build(stf):
         w = stf.Variable(stf.constant([1.0, -2.0, 3.0]), name="w")
         v = stf.Variable(stf.constant([[0.5], [0.25]]), name="v")
         loss = stf.reduce_sum(w * w) + stf.reduce_sum(v * v)
         opt = stf.train.AdamOptimizer(0.1)
         train = opt.minimize(loss)
-        m_view = opt.get_slot(w, "m")
-        with cpu_session(stf) as s:
+        return w, train, opt.get_slot(w, "m")
+
+    for name, stf in PKGS.items():
+        with stf.Graph().as_default():
+            w, train, m_view = build(stf)
+            with cpu_session(stf) as s:
+                s.run(stf.global_variables_initializer())
+                with pytest.raises(ERRORS[name].InvalidArgumentError,
+                                   match="WAR hazard on 'Adam/Adam/"
+                                         "fused_m_g0'"):
+                    s.run([m_view, w, train])
+    stf = pstf
+    with stf.Graph().as_default():
+        w, train, m_view = build(stf)
+        config = stf.ConfigProto(device_count={"GPU": 0},
+                                 variable_hazard_mode="auto_deps")
+        with stf.Session(config=config) as s:
             s.run(stf.global_variables_initializer())
             s.run(train)
-            m1, w1 = s.run([m_view, w])
-            got_m, got_w, _ = s.run([m_view, w, train])
-            np.testing.assert_array_equal(got_m, m1)
-            np.testing.assert_array_equal(got_w, w1)
-            m2, w2 = s.run([m_view, w])
-            assert not np.array_equal(m2, m1)
-            assert not np.array_equal(w2, w1)
+            for _ in range(3):  # each plan: warm-up, capture, replay
+                m1, w1 = s.run([m_view, w])
+                got_m, got_w, _ = s.run([m_view, w, train])
+                np.testing.assert_array_equal(got_m, m1)
+                np.testing.assert_array_equal(got_w, w1)
+                m2, w2 = s.run([m_view, w])
+                assert not np.array_equal(m2, m1)
+                assert not np.array_equal(w2, w1)
             # the parameters now view one flat buffer the kernel updates
             p = s._flat_groups[("w", "v")]
             assert s._variable_store.values["w"].data_ptr() == p.data_ptr()
@@ -320,3 +340,132 @@ def test_variable_load_and_eval_in_the_default_session(pkg):
             np.testing.assert_array_equal(
                 v.eval(), np.arange(6, dtype=np.float32).reshape(2, 3))
             assert y.eval() == 30.0
+
+
+def _fault_graph(stf):
+    a = stf.Variable(1.0, name="a")
+    b = stf.Variable(2.0, name="b")
+    return a, b
+
+
+@pytest.mark.parametrize("pkg", list(PKGS))
+def test_a_run_that_fails_commits_nothing(pkg):
+    """Only ``a`` is initialized: ``run(assign(a, 5) * 1 + b)`` raises on
+    the uninitialized ``b`` before anything commits, so ``a`` still reads
+    1.0 afterwards, as in the JAX package."""
+    stf = PKGS[pkg]
+    with stf.Graph().as_default():
+        a, b = _fault_graph(stf)
+        y = stf.assign(a, 5.0) * 1.0 + b
+        with cpu_session(stf) as s:
+            s.run(a.initializer)
+            with pytest.raises(ERRORS[pkg].FailedPreconditionError,
+                               match="uninitialized variable 'b'"):
+                s.run(y)
+            assert s.run(a) == 1.0
+            s.run(b.initializer)
+            assert s.run(y) == 7.0 and s.run(a) == 5.0
+
+
+@pytest.mark.parametrize("order", ["write_first", "read_first"])
+@pytest.mark.parametrize("pkg", list(PKGS))
+def test_an_unordered_read_and_write_raise_a_war_hazard(pkg, order):
+    """``r = a * 1`` and ``up = assign(a, 5)`` with nothing ordering them:
+    the default hazard mode refuses the plan in either fetch order, as the
+    JAX package does, and nothing runs."""
+    stf = PKGS[pkg]
+    with stf.Graph().as_default():
+        a, _ = _fault_graph(stf)
+        r = a * 1.0
+        up = stf.assign(a, 5.0)
+        with cpu_session(stf) as s:
+            s.run(a.initializer)
+            with pytest.raises(ERRORS[pkg].InvalidArgumentError,
+                               match="WAR hazard on 'a'"):
+                s.run([up, r] if order == "write_first" else [r, up])
+            assert s.run(a) == 1.0
+
+
+def _hazard_runs(stf, mode):
+    """Both fetch orders of the unordered pair, and two unordered
+    overwrites (a WAW pair), each from a fresh session in ``mode``."""
+    out = []
+    with stf.Graph().as_default():
+        a, _ = _fault_graph(stf)
+        r = a * 1.0
+        up = stf.assign(a, 5.0)
+        w1 = stf.assign(a, 2.0)
+        w2 = stf.assign(a, 3.0)
+        for fetch in ([up, r], [r, up], [w1, w2]):
+            with cpu_session(stf, variable_hazard_mode=mode) as s:
+                s.run(a.initializer)
+                out.append([float(v) for v in s.run(fetch)]
+                           + [float(s.run(a))])
+    return out
+
+
+@pytest.mark.parametrize("mode", ["warn", "off", "auto_deps"])
+def test_hazard_modes_match_jax(mode, caplog):
+    """``warn`` and ``off`` run the pair in the plan's order, ``auto_deps``
+    in program order (the read, made first, before the assign): the same
+    values as the JAX package in each mode; ``warn`` logs the hazard."""
+    got = {}
+    for name, stf in PKGS.items():
+        caplog.clear()
+        got[name] = _hazard_runs(stf, mode)
+        if name == "port":
+            logged = [r.getMessage() for r in caplog.records]
+            war = [m for m in logged if "WAR hazard on 'a'" in m]
+            assert bool(war) == (mode == "warn"), logged
+    assert got["port"] == got["jax"]
+    if mode == "auto_deps":
+        assert got["port"][0][1] == got["port"][1][0] == 1.0
+
+
+def test_waw_pairs_stay_warnings_under_raise(caplog):
+    """Two unordered overwrites run under the default "raise" mode, as in
+    the JAX package (the last writer in plan order wins), and are logged
+    as a warning."""
+    got = {}
+    for name, stf in PKGS.items():
+        with stf.Graph().as_default():
+            a, _ = _fault_graph(stf)
+            w1 = stf.assign(a, 2.0)
+            w2 = stf.assign(a, 3.0)
+            caplog.clear()
+            with cpu_session(stf) as s:
+                s.run(a.initializer)
+                got[name] = [float(v) for v in s.run([w1, w2])] \
+                    + [float(s.run(a))]
+            if name == "port":
+                assert any("WAW hazard on 'a'" in r.getMessage()
+                           for r in caplog.records)
+    assert got["port"] == got["jax"]
+
+
+def test_hazard_mode_default_and_config():
+    """``set_hazard_mode`` sets the process default (``raise`` unless
+    ``STF_HAZARD_MODE`` says otherwise), a ``ConfigProto`` overrides it,
+    and an unknown mode is refused in both places."""
+    from simple_tensorflow_tpu_torch import analysis
+
+    assert analysis.get_hazard_mode() == "raise"
+    with pytest.raises(ValueError, match="variable_hazard_mode"):
+        pstf.ConfigProto(variable_hazard_mode="sometimes")
+    with pytest.raises(ValueError, match="hazard mode"):
+        analysis.set_hazard_mode("sometimes")
+    prev = analysis.set_hazard_mode("off")
+    try:
+        with pstf.Graph().as_default():
+            a, _ = _fault_graph(pstf)
+            r = a * 1.0
+            up = pstf.assign(a, 5.0)
+            with cpu_session(pstf) as s:
+                s.run(a.initializer)
+                s.run([up, r])
+            with cpu_session(pstf, variable_hazard_mode="raise") as s:
+                s.run(a.initializer)
+                with pytest.raises(perrors.InvalidArgumentError):
+                    s.run([up, r])
+    finally:
+        analysis.set_hazard_mode(prev)
