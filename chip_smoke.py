@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``simple_tensorflow_tpu_torch``) on one
 NVIDIA GPU and check every kernel of its serving and training paths
 (causal LM and ResNet-50) and of its TF-1 front end (``stf.Session``
-training the MNIST convnet).
+training the MNIST convnet and the seq2seq transformer).
 
     python3 chip_smoke.py [--serving]
 
@@ -162,12 +162,53 @@ beside another tree's package measures that tree's serving path.
    the graph, staging and replay). Last, ``softmax_model``
    (GradientDescent at ``SOFTMAX_LR``) for ``SESSION_STEPS`` steps, its
    loss falling at every step.
+7. Transformer Session phase: ``models/transformer.py``
+   ``transformer_train_model`` (the reference's headline model) built with
+   the port's ``stf`` API and trained by ``stf.Session``. First its new
+   kernel shapes against their plain versions: the bf16 flash kernels at
+   64 x 16 heads of S = 64, D = 64, non-causal with a pad bias, dropout
+   0.1, through the launch-argument entry and the seed-pointer entry
+   (bit-identical; both timed in the same call; the next seed's mask must
+   fail), the dropout-residual kernel and its dx through the seed-pointer
+   entry at bf16 4096 x 1024 (bit-exact, beside the launch-argument
+   entry's time), Adam over the transformer's bf16 group (176,295,936
+   bf16 parameters, f32 m and v). Then ``TF_CHECK_STEPS`` f32 steps at
+   ``TransformerConfig.big()`` widths with the depth cut to
+   ``TF_CHECK_LAYERS`` + ``TF_CHECK_LAYERS`` layers, batch ``TF_CHECK_B``
+   x 64 / 64 with pads in src and tgt, dropout 0.1, through the kernels
+   against the same steps under ``plain_versions()`` (eager): the losses
+   within rtol 1e-5, the parameters (as the flat vector the Adam kernel
+   updates) and the beta powers within relative norm 1e-4, the flat Adam
+   slots (gradient averages) within the LM check's f32 gradient limit at
+   dropout 0.1 (2e-3: ReLU gates that flip on roundoff), and a planted
+   fault (the decoder's first cross-attention drawn
+   with its self-attention's seed) that must fail. Then the shipped config uncut (bf16, 6 + 6 layers, batch 64, 64
+   / 64, ``warmup_steps`` ``TF_WARMUP``) on one repeated
+   ``synthetic_wmt_batch(64, 64, 64, seed=0)``: ``TF_GRAPH_STEPS`` steps
+   captured and replayed against the same steps dispatched eagerly,
+   losses, the first encoder flash and dropout-residual outputs, every
+   variable and Adam slot bit-identical, one capture; replays whose seed
+   buffer is not refilled (a planted fault) must change the flash and
+   dropout-residual outputs. Last, two windows of ``TF_STEPS``
+   ``Session.run([loss, train_op])`` steps, the graph one first: every
+   loss finite and the mean of steps 9-16 below that of steps 1-8; the
+   exact launches a step (18 of each flash kernel, 30 + 30 LayerNorm, 1 +
+   1 xent, 18 + 18 dropout-residual, 14 + 14 Dropout, 2 Adam; in the graph
+   window step 1 through the launch-argument entries and the 15 replays
+   through the seed-pointer and device-key ones); one capture and no
+   plan-cache miss after step 1; each window's p50 step, target tokens/s,
+   source + target tokens/s and the share of the dense bf16 peak at 3 x
+   ``transformer_flops_per_token`` a token (the reference's count), the
+   device ms a step from a ``torch.profiler`` window of 3 steps, the host
+   ms a step and the host time by kind.
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
-window, the Session's checked steps and its two windows) is counted from
-zero just before it; a kernel's ``launches`` sum
-over the paths, the flash rows split by the path's dropout rate. Prints a
+window, the Session's checked steps and its two windows, the transformer's
+f32 kernel steps and its two windows) is counted from zero just before
+it; a kernel's ``launches`` sum over the paths, the flash rows split by
+the path's dropout rate (the seed-pointer entries are rows of their
+own). Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
 failure, when no CUDA device is available, or without the package
@@ -2788,51 +2829,50 @@ def check_session_graph(K, stf, mnist, feeds):
         fail(f"{tag}: the check passes replays with stale keys: {fault}")
 
 
-def session_window(K, stf, mnist, feeds, capture, n_prof=3):
-    """``SESSION_STEPS`` steps of ``Session.run([train_op, loss])``, the
-    step captured as a CUDA graph or (``capture`` False) dispatched
-    eagerly, then a ``torch.profiler`` window of ``n_prof`` steps: losses,
-    step seconds, launches (counted from zero just before the window),
-    plan-cache misses and captures after the first step, the host seconds
-    a step by kind (``Session._timings``) and the device ms a step by
-    kernel."""
+def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3):
+    """``steps`` steps of ``sess.run(fetch, feeds)`` (``fetch[0]`` the
+    loss), the step captured as a CUDA graph or (``capture`` False)
+    dispatched eagerly, then a ``torch.profiler`` window of ``n_prof``
+    steps: losses, step seconds, launches (counted from zero just before
+    the window), plan-cache misses and captures after the first step, the
+    host seconds a step by kind (``Session._timings``) and the device ms a
+    step by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    g, m, sess = mnist_session(stf, mnist.convnet_model)
     sess._capture = capture
-    fetch = [m["train_op"], m["loss"]]
     losses, times = [], []
     sess._timings = {}
     K.reset_launch_counts()
-    for i in range(SESSION_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
-        loss = sess.run(fetch, feeds(m))[1]
+        loss = sess.run(fetch, feeds)[0]
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
         if i == 0:
             misses, captures = sess.plan_cache_misses, sess.captures
     counts = K.launch_counts()
-    split = {k: v / SESSION_STEPS for k, v in sess._timings.items()}
+    split = {k: v / steps for k, v in sess._timings.items()}
     sess._timings = None
     late = (sess.plan_cache_misses - misses, sess.captures - captures)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
-            sess.run(fetch, feeds(m))
+            sess.run(fetch, feeds)
         torch.cuda.synchronize()
     by_name = {k: ms / n_prof for k, (ms, _) in device_times(prof).items()}
-    gs = int(sess.run(m["global_step"]))
-    total = sess.captures
-    sess.close()
     return dict(losses=losses, times=times, counts=counts, split=split,
-                late=late, by_name=by_name, gs=gs, captures=total,
-                steps=SESSION_STEPS + n_prof)
+                late=late, by_name=by_name, captures=sess.captures,
+                steps=steps + n_prof)
 
 
-def report_window(tag, w, expect):
+def report_window(tag, w, expect, items, unit, mean_of=LOSS_MEAN_OF,
+                  last_below_first=True):
     """Check one Session window (launches ``expect``, no plan-cache miss
-    after the first step, the loss falling, the global step) and print
-    its numbers; returns its p50 step and device ms a step."""
+    after the first step, every loss finite, the mean of the last
+    ``mean_of`` losses below that of the first ``mean_of`` and, with
+    ``last_below_first``, the last loss below the first) and print its
+    numbers, ``items`` ``unit`` a step; returns its p50 step and device ms
+    a step (None when the trace saw no device time)."""
     counts = w["counts"]
     want = {k: 0 for k in counts}
     want.update(expect)
@@ -2843,16 +2883,15 @@ def report_window(tag, w, expect):
         fail(f"{tag}: {w['late'][0]} plan-cache misses after the first step")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{tag}: non-finite loss in {losses}")
-    first = statistics.mean(losses[:LOSS_MEAN_OF])
-    last = statistics.mean(losses[-LOSS_MEAN_OF:])
-    if not (last < first and losses[-1] < losses[0]):
+    first = statistics.mean(losses[:mean_of])
+    last = statistics.mean(losses[-mean_of:])
+    if not (last < first and (losses[-1] < losses[0]
+                              or not last_below_first)):
         fail(f"{tag}: the loss does not fall: {losses}")
-    if w["gs"] != w["steps"]:
-        fail(f"{tag}: global_step {w['gs']} after {w['steps']} steps")
     times = w["times"]
     p50 = statistics.median(times)
     print(f"{tag}: losses {[round(v, 5) for v in losses]} (means of "
-          f"{LOSS_MEAN_OF}: the first {first:.5f}, the last {last:.5f})",
+          f"{mean_of}: the first {first:.5f}, the last {last:.5f})",
           flush=True)
     print(f"{tag}: launches {counts}; after the first step: plan-cache "
           f"misses {w['late'][0]}, captures {w['late'][1]} (in all "
@@ -2862,20 +2901,33 @@ def report_window(tag, w, expect):
     split = ", ".join(f"{k} {v * 1e3:.4f}" for k, v in
                       sorted(w["split"].items()))
     if dev_ms is None:
-        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms, {MNIST_B / p50:.2f} "
-              f"images/s; the profiler saw no device time: device and "
+        print(f"{tag}: p50 step {p50 * 1e3:.4f} ms, {items / p50:.2f} "
+              f"{unit}/s; the profiler saw no device time: device and "
               f"host ms a step not measured; host ms a step by kind "
               f"(window mean): {split}", flush=True)
         return p50, None
     print(f"{tag}: p50 step {p50 * 1e3:.4f} ms (min "
           f"{min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
-          f"{MNIST_B / p50:.2f} images/s; device {dev_ms:.4f} ms a step "
+          f"{items / p50:.2f} {unit}/s; device {dev_ms:.4f} ms a step "
           f"(torch.profiler, 3 steps), host {p50 * 1e3 - dev_ms:.4f} ms a "
           f"step (p50 minus device); host ms a step by kind (window "
           f"mean, Session._timings): {split}", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:9.4f} ms/step  {name[:110]}", flush=True)
     return p50, dev_ms
+
+
+def mnist_window(K, stf, mnist, feeds, capture):
+    """``SESSION_STEPS`` convnet steps (:func:`session_window`) of a new
+    Session; checks the global step after them."""
+    _, m, sess = mnist_session(stf, mnist.convnet_model)
+    w = session_window(K, sess, [m["loss"], m["train_op"]], feeds(m),
+                       SESSION_STEPS, capture)
+    gs = int(sess.run(m["global_step"]))
+    sess.close()
+    if gs != w["steps"]:
+        fail(f"session convnet: global_step {gs} after {w['steps']} steps")
+    return w
 
 
 def session_phase(K, dev, kernel_rows):
@@ -2905,8 +2957,8 @@ def session_phase(K, dev, kernel_rows):
           f"[train_op, loss]) on one repeated synthetic_mnist({MNIST_B}, "
           f"seed=0) batch fed as numpy; the graph window first (step 1 "
           f"eager, step 2 captured), then the eager one", flush=True)
-    graph = session_window(K, stf, mnist, feeds, capture=True)
-    eager = session_window(K, stf, mnist, feeds, capture=False)
+    graph = mnist_window(K, stf, mnist, feeds, capture=True)
+    eager = mnist_window(K, stf, mnist, feeds, capture=False)
     per = {k: v * SESSION_STEPS for k, v in SESSION_PER_STEP.items()}
     # the graph window's first step is its eager warm-up: one launch of
     # the launch-argument Dropout entry, then the device-key entry
@@ -2919,9 +2971,9 @@ def session_phase(K, dev, kernel_rows):
     if eager["captures"]:
         fail(f"session eager: {eager['captures']} captures")
     g50, gdev = report_window(f"session graph convnet[f32 {MNIST_B}]",
-                              graph, want_graph)
+                              graph, want_graph, MNIST_B, "images")
     e50, edev = report_window(f"session eager convnet[f32 {MNIST_B}]",
-                              eager, per)
+                              eager, per, MNIST_B, "images")
     if graph["by_name"]:
         check_traced("session graph", graph["by_name"],
                      ("dropout_vec_kernel",))
@@ -2950,6 +3002,523 @@ def session_phase(K, dev, kernel_rows):
     if not all(b < a for a, b in zip(slosses, slosses[1:])):
         fail(f"{stag}: the loss does not fall at every step: {slosses}")
     return paths
+
+
+# -- the transformer Session phase (TF-1, the seq2seq headline model) -------
+
+TF_B, TF_SRC, TF_TGT = 64, 64, 64   # transformer_train_model's defaults
+TF_WARMUP = 256                 # the LM smoke's choice (module docstring)
+TF_CHECK_B, TF_CHECK_LAYERS, TF_CHECK_STEPS = 8, 2, 2
+TF_GRAPH_STEPS = 5              # a warm-up, a capture, then 3 replays
+TF_STEPS = 16
+TF_LOSS_RTOL, TF_STATE_TOL = 1e-5, 1e-4
+# the graph's fused and dropout ops per layer of encoder and decoder
+FLASH_PARTS = ("flash_attention_fwd", "flash_attention_dkdv",
+               "flash_attention_dq")
+SEEDED = FLASH_PARTS + ("dropout_residual", "dropout_residual_bwd")
+
+
+def tf_per_step(layers, adam_groups):
+    """Launches a training step of ``transformer_train_model`` with
+    ``layers`` + ``layers`` layers at dropout > 0: 3 flash ops a layer pair
+    (encoder self, decoder self and cross), 2 + 3 LayerNorms, 1 + 2
+    dropout-residual tails, a Dropout on each embedding and FFN
+    activation, the xent, one Adam per group (at bf16 compute two: the
+    bf16 Dense variables, the f32 embedding and LayerNorm ones; at f32
+    one)."""
+    per = {k: 3 * layers for k in SEEDED}
+    per.update(layer_norm=5 * layers, layer_norm_bwd=5 * layers,
+               dropout=2 + 2 * layers, dropout_bwd=2 + 2 * layers,
+               softmax_xent_fwd=1, softmax_xent_bwd=1,
+               adam_update=adam_groups)
+    return per
+
+
+def tf_batch(b, src, tgt, vocab, pads):
+    """``synthetic_wmt_batch(b, src, tgt, vocab, seed=0)``; with ``pads``
+    the ends of two rows padded (id 0) in src, tgt_in and tgt_out."""
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    batch = tr.synthetic_wmt_batch(b, src, tgt, vocab_size=vocab, seed=0)
+    if pads:
+        batch["src_ids"][0, -9:] = 0
+        batch["src_ids"][b - 1, -2:] = 0
+        batch["tgt_in"][1, -5:] = 0
+        batch["tgt_out"][1, -6:] = 0
+    return batch
+
+
+def tf_session(stf, tr, cfg, b, dtype, graph_seed=1, fault=False):
+    """``transformer_train_model(b, TF_SRC, TF_TGT, cfg, warmup_steps=
+    TF_WARMUP, compute_dtype=dtype)`` under ``set_random_seed(
+    graph_seed)`` and a Session on the card after its initializer run:
+    ``(model dict, session)``. ``fault``: the decoder's first
+    cross-attention op is given its self-attention op's seed (a planted
+    fault: another mask)."""
+    g = stf.Graph()
+    with g.as_default():
+        stf.set_random_seed(graph_seed)
+        m = tr.transformer_train_model(b, TF_SRC, TF_TGT, cfg=cfg,
+                                       warmup_steps=TF_WARMUP,
+                                       compute_dtype=dtype)
+        init = stf.global_variables_initializer()
+    if fault:
+        at = "transformer_1/decoder/layer_0/"
+        cross = g.get_operation_by_name(at + "cross_attn/flash_attention")
+        own = g.get_operation_by_name(at + "self_attn/flash_attention")
+        cross.attrs["seed"] = own.attrs["seed"]
+    sess = stf.Session(graph=g)
+    sess.run(init)
+    return m, sess
+
+
+def tf_feeds(m, batch):
+    return {m[k]: batch[k] for k in ("src_ids", "tgt_in", "tgt_out")}
+
+
+def tf_group_errs(state, ref):
+    """``{part: relative-norm error}`` of a transformer Session state
+    against ``ref``: each Adam group's parameters as one flat vector (the
+    buffer the kernel updates: the variables of one dtype, in name order)
+    and each of the other store entries (the flat ``m`` and ``v`` slots,
+    the beta powers, the global step) on its own."""
+    def rel(a, b):
+        return ((a.double() - b.double()).norm()
+                / b.double().norm().clamp_min(1e-30)).item()
+
+    slots = [k for k in ref if k.startswith("Adam/") or k == "global_step"]
+    groups = {}
+    for k in sorted(ref):
+        if k not in slots:
+            groups.setdefault(str(ref[k].dtype), []).append(k)
+    errs = {f"params {dt} ({len(ks)} variables)": rel(
+        torch.cat([state[k].reshape(-1) for k in ks]),
+        torch.cat([ref[k].reshape(-1) for k in ks]))
+        for dt, ks in groups.items()}
+    errs.update({k: rel(state[k], ref[k]) for k in slots})
+    return errs
+
+
+def check_transformer_f32(K, stf, tr):
+    """``TF_CHECK_STEPS`` f32 steps of ``transformer_train_model`` at
+    ``TransformerConfig.big()`` widths cut to ``TF_CHECK_LAYERS`` +
+    ``TF_CHECK_LAYERS`` layers, batch ``TF_CHECK_B`` x 64 / 64 with pads,
+    dropout 0.1, through the kernels against the same steps under
+    ``fused_ops.plain_versions()`` (eager dispatch, one graph seed: the
+    same initial values and masks): each loss within ``TF_LOSS_RTOL``;
+    the parameters, as the flat vector the Adam kernel updates, and the
+    beta powers within ``TF_STATE_TOL`` by relative norm
+    (:func:`tf_group_errs`; the worst single variable is printed: the key
+    biases, whose gradient is zero in exact arithmetic, hold only Adam's
+    lr-sized steps on roundoff); the flat ``m`` and ``v`` slots, averages
+    of the gradients and their squares, within the f32 gradient limit of
+    the LM check at dropout 0.1 (``F32_GRAD_TOL``: a few FFN-input units
+    whose ReLU gate flips on f32 roundoff between the two runs move their
+    gradients). A planted fault, the decoder's first cross-attention
+    drawn with another op's seed, must fail."""
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    cfg = dataclasses.replace(tr.TransformerConfig.big(),
+                              num_layers=TF_CHECK_LAYERS)
+    batch = tf_batch(TF_CHECK_B, TF_SRC, TF_TGT, cfg.vocab_size, pads=True)
+    tag = (f"transformer[f32 {TF_CHECK_LAYERS}+{TF_CHECK_LAYERS} layers "
+           f"{TF_CHECK_B}x{TF_SRC}/{TF_TGT}]")
+
+    def run(plain=False, fault=False):
+        m, sess = tf_session(stf, tr, cfg, TF_CHECK_B, stf.float32,
+                             fault=fault)
+        sess._capture = False
+        with (fused_ops.plain_versions() if plain
+              else contextlib.nullcontext()):
+            outs = [sess.run([m["loss"], m["train_op"]],
+                             tf_feeds(m, batch))[0]
+                    for _ in range(TF_CHECK_STEPS)]
+        state = session_state(sess)
+        sess.close()
+        return outs, state
+
+    def compare(outs, state, ref, ref_state):
+        """``(bad losses, {part: error}, (worst variable error, name))``."""
+        bad = [(float(a), float(b)) for a, b in zip(outs, ref)
+               if not abs(a - b) <= TF_LOSS_RTOL * abs(b)]
+        return bad, tf_group_errs(state, ref_state), session_errs(
+            state, ref_state)
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_state = run(plain=True)
+        K.reset_launch_counts()
+        got = compare(*run(), ref, ref_state)
+        counts = K.launch_counts()
+        fault = compare(*run(fault=True), ref, ref_state)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    want = {k: 0 for k in counts}
+    want.update({k: v * TF_CHECK_STEPS
+                 for k, v in tf_per_step(TF_CHECK_LAYERS, 1).items()})
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+
+    def txt(errs):
+        return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+
+    print(f"{tag}: {TF_CHECK_STEPS} steps, kernels vs plain: losses "
+          f"{[float(o) for o in ref]} (plain); off the plain run: "
+          f"{got[0]} losses; relative norms: {txt(got[1])}; the worst "
+          f"single variable {got[2][0]:.3e} ({got[2][1]})", flush=True)
+    print(f"{tag}: planted fault (the decoder's first cross-attention "
+          f"drawn with its self-attention's seed): bad losses {fault[0]}; "
+          f"{txt(fault[1])}", flush=True)
+
+    def ok(r):
+        return not r[0] and all(
+            v <= (F32_GRAD_TOL[DROPOUT_RATE] if "/fused_" in k
+                  else TF_STATE_TOL) for k, v in r[1].items())
+
+    if not ok(got):
+        fail(f"{tag}: the kernels' steps are off the plain steps: {got}")
+    if ok(fault):
+        fail(f"{tag}: the check passes the planted seed fault: {fault}")
+    return counts
+
+
+def check_transformer_graph(K, stf, tr, cfg, batch):
+    """``TF_GRAPH_STEPS`` bf16 steps of ``transformer_train_model`` as
+    shipped through a Session that captures its step (step 1 eager, the
+    warm-up; step 2 captured and replayed; then replays) against the same
+    steps with ``_capture`` off, each from its own initializer run under
+    one graph seed: every loss, the first encoder flash op's and
+    dropout-residual tail's outputs, and after the steps every variable
+    and Adam slot bit-identical; one capture. The planted fault replays
+    without refilling the seed buffer (``_refresh_seeds`` off): the flash
+    and tail outputs of the replayed steps must differ."""
+    tag = f"transformer graph[bf16 {TF_B}x{TF_SRC}/{TF_TGT}]"
+    at = "transformer/encoder/layer_0/"
+    probes = [at + "self_attn/flash_attention:0",
+              at + "fused_dropout_residual:0"]
+
+    def run(capture, refresh=True):
+        m, sess = tf_session(stf, tr, cfg, TF_B, stf.bfloat16)
+        sess._capture = capture
+        sess._refresh_seeds = refresh
+        outs = [sess.run([m["loss"], m["train_op"]] + probes,
+                         tf_feeds(m, batch))
+                for _ in range(TF_GRAPH_STEPS)]
+        state = session_state(sess) if refresh else None
+        captures = sess.captures
+        sess.close()
+        return outs, state, captures
+
+    ref, ref_state, _ = run(False)
+    got, state, captures = run(True)
+    stale, _, _ = run(True, refresh=False)
+
+    def diffs(outs):
+        return [(int(a[0] != b[0]),
+                 mismatches(torch.from_numpy(a[2].astype(np.float32)),
+                            torch.from_numpy(b[2].astype(np.float32))),
+                 mismatches(torch.from_numpy(a[3].astype(np.float32)),
+                            torch.from_numpy(b[3].astype(np.float32))))
+                for a, b in zip(outs, ref)]
+
+    d_got, d_stale = diffs(got), diffs(stale)
+    bad_vars = [k for k in ref_state
+                if not torch.equal(state[k], ref_state[k])]
+    print(f"{tag}: {TF_GRAPH_STEPS} steps (eager warm-up, capture, "
+          f"{TF_GRAPH_STEPS - 2} replays) vs the eager session: losses "
+          f"{[float(a[0]) for a in got]}; (loss differs, flash output "
+          f"mismatches, tail mismatches) by step {d_got}; variables and "
+          f"slots differing {bad_vars[:5]} ({len(bad_vars)} of "
+          f"{len(ref_state)}); captures {captures}", flush=True)
+    print(f"{tag}: planted fault, the seed buffer not refilled before the "
+          f"replays: by step {d_stale}", flush=True)
+    if any(any(d) for d in d_got) or bad_vars or captures != 1:
+        fail(f"{tag}: the replayed steps are off the eager steps")
+    if not all(d[1] and d[2] for d in d_stale[1:]):
+        fail(f"{tag}: the check passes replays with stale seeds: {d_stale}")
+
+
+def tf_kernel_rows(K, gen, dev, tf_adam_n):
+    """The transformer path's new kernel shapes against their plain
+    versions: the bf16 flash kernels at B x H = 64 x 16 heads of S = 64,
+    D = 64, non-causal with a (B, S) pad bias (-1e9 on padded keys; the
+    encoder and cross-attention case), dropout 0.1, through the
+    launch-argument entry and the seed-pointer entry (bit-identical, both
+    timed); the dropout-residual kernel and its dx at bf16 4096 x 1024
+    through the seed-pointer entry beside the launch-argument one; Adam
+    over the transformer's bf16 group (bf16 parameters, f32 m and v)."""
+    import torch.nn.functional as F
+
+    kdr = importlib.import_module(KMOD + "dropout_residual")
+    B, H, s, D = TF_B, 16, TF_SRC, 64
+    bh, rate = B * H, DROPOUT_RATE
+    dtype, elem = torch.bfloat16, 2
+    seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device=dev)
+    copies = [tuple(torch.randn((bh, s, D), generator=gen, device=dev).to(
+        dtype) for _ in range(4))
+        for _ in range(n_copies(4 * bh * s * D * elem))]
+    bias = torch.zeros((B, s), device=dev)
+    bias[::3, -11:] = -1e9
+    args = dict(heads=H, sm_scale=D ** -0.5, causal=False, bias=bias,
+                dropout_rate=rate)
+    host = dict(args, dropout_seed=FLASH_SEED)
+    ptr = dict(args, dropout_seed=seed_t)
+    stats = []
+    for q, k, v, do in copies:
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, **host)
+        stats.append((ro, rlse, (do.float() * ro.float()).sum(-1)))
+    q, k, v, do = copies[0]
+    ro, rlse, delta = stats[0]
+    tag = f"bf16 BH={bh} S={s} D={D} bias dropout {rate} (transformer)"
+    outs = {}
+    for entry, a in (("host", host), ("ptr", ptr)):
+        o, lse = K.flash_attention_fwd(q, k, v, **a)
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **a)
+        dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **a)
+        outs[entry] = (o, lse, dk, dv, dq)
+    torch.cuda.synchronize()
+    for a, b_ in zip(outs["host"], outs["ptr"]):
+        if not torch.equal(a, b_):
+            fail(f"flash {tag}: the seed-pointer entry is not bit-identical "
+                 "to the launch-argument entry")
+    o, lse, dk, dv, dq = outs["ptr"]
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **host)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **host)
+    err = {"fwd": max(check_scaled(f"flash fwd o {tag}", o, ro, 2e-2),
+                      check_scaled(f"flash fwd lse {tag}", lse, rlse, 1e-5)),
+           "dkdv": max(check_scaled(f"flash dk {tag}", dk, rdk, 2e-2),
+                       check_scaled(f"flash dv {tag}", dv, rdv, 2e-2)),
+           "dq": check_scaled(f"flash dq {tag}", dq, rdq, 2e-2)}
+    check_flash_fault(K, q, k, v, do, rlse, delta, host, (o, dk, dv, dq),
+                      (2e-2,) * 4, tag)
+    del outs, o, lse, dk, dv, dq, rdk, rdv, rdq
+    fns = {"fwd": (K.flash_attention_fwd, K.flash_attention_fwd_plain,
+                   lambda c, st: c[:3]),
+           "dkdv": (K.flash_attention_dkdv, K.flash_attention_dkdv_plain,
+                    lambda c, st: (*c, st[1], st[2])),
+           "dq": (K.flash_attention_dq, K.flash_attention_dq_plain,
+                  lambda c, st: (*c, st[1], st[2]))}
+    mask = bias.view(B, 1, 1, s).to(dtype)
+    q4, k4, v4 = (t.view(B, H, s, D) for t in copies[0][:3])
+    lib_fwd = event_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, dropout_p=rate), reps=20)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    do4 = copies[0][3].view(B, H, s, D)
+    lib_fb = event_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                       dropout_p=rate), (qg, kg, vg), do4))
+    pairs = bh * s * s
+    io = bh * s * D * elem
+    hashes = K0_OPS * pairs
+    bnds = {"fwd": bound_ms(4 * io + bh * s * 4 + B * s * 4, 4 * D * pairs,
+                            dtype, hashes),
+            "dkdv": bound_ms(6 * io + 2 * bh * s * 4 + B * s * 4,
+                             8 * D * pairs, dtype, hashes),
+            "dq": bound_ms(5 * io + 2 * bh * s * 4 + B * s * 4,
+                           6 * D * pairs, dtype, hashes)}
+    libs = {"fwd": lib_fwd, "dkdv": lib_fb, "dq": lib_fb}
+    main = {}
+    for part, (kern, plain, pick) in fns.items():
+        t = {entry: device_ms([
+            lambda c=c, st=st, a=a: kern(*pick(c, st), **a)
+            for c, st in zip(copies, stats)]) for entry, a in
+            (("host", host), ("ptr", ptr))}
+        plain_ms = device_ms([lambda c=c, st=st: plain(*pick(c, st), **host)
+                              for c, st in zip(copies, stats)])
+        name = f"flash_attention_{part}"
+        report(f"{name} {tag}", err[part], t["host"], plain_ms, bnds[part],
+               libs[part])
+        report(f"{name}_device_seed {tag}", err[part], t["ptr"], plain_ms,
+               bnds[part], libs[part])
+        print(f"  {name} {tag}: seed-pointer entry {t['ptr']:.5f} ms, "
+              f"{t['ptr'] / t['host']:.3f}x the launch-argument entry "
+              f"{t['host']:.5f} ms (same call)", flush=True)
+        main[f"{name}@transformer"] = kernel_row(
+            err[part], t["host"], plain_ms, bnds[part], libs[part],
+            f"{name} {tag}")
+        main[f"{name}_device_seed"] = kernel_row(
+            err[part], t["ptr"], plain_ms, bnds[part], libs[part],
+            f"{name}_device_seed {tag}")
+    print("  (flash library at the transformer shape: SDPA with the pad "
+          "mask and dropout_p, CUDA events; dkdv/dq = SDPA forward + "
+          "backward)", flush=True)
+    del copies, stats
+
+    rows, n = TF_B * TF_TGT, 1024
+    tag = f"bf16 rows={rows} n={n} (transformer, seed pointer)"
+    kc = [tuple(torch.randn((rows, n), generator=gen, device=dev).to(dtype)
+                for _ in range(2)) for _ in range(n_copies(6 * rows * n))]
+    x, res = kc[0]
+    for name, fn, pl in (
+            ("dropout_residual",
+             lambda c, sd: kdr.dropout_residual_fwd(c[0], c[1], rate=rate,
+                                                    seed=sd),
+             lambda c: kdr.dropout_residual_fwd_plain(c[0], c[1], rate=rate,
+                                                      seed=FLASH_SEED)),
+            ("dropout_residual_bwd",
+             lambda c, sd: kdr.dropout_residual_bwd(c[0], rate=rate,
+                                                    seed=sd),
+             lambda c: kdr.dropout_residual_bwd_plain(c[0], rate=rate,
+                                                      seed=FLASH_SEED))):
+        err_d = check_exact(f"{name} {tag}", fn(kc[0], seed_t), pl(kc[0]))
+        check_exact(f"{name} {tag} vs the launch-argument entry",
+                    fn(kc[0], seed_t), fn(kc[0], FLASH_SEED))
+        t_ptr = device_ms([lambda c=c: fn(c, seed_t) for c in kc])
+        t_host = device_ms([lambda c=c: fn(c, FLASH_SEED) for c in kc])
+        plain_ms = device_ms([lambda c=c: pl(c) for c in kc])
+        fwd = name == "dropout_residual"
+        bnd = bound_ms((6 if fwd else 4) * rows * n, 0, dtype,
+                       K0_OPS * rows * n)
+        lib = device_ms([lambda c=c: F.dropout(c[0], rate) + c[1]
+                         for c in kc]) if fwd else \
+            device_ms([lambda c=c: F.dropout(c[0], rate) for c in kc])
+        report(f"{name}_device_seed {tag}", err_d, t_ptr, plain_ms, bnd, lib)
+        print(f"  {name} {tag}: seed-pointer entry {t_ptr:.5f} ms, "
+              f"{t_ptr / t_host:.3f}x the launch-argument entry "
+              f"{t_host:.5f} ms (same call)", flush=True)
+        main[f"{name}_device_seed"] = kernel_row(
+            err_d, t_ptr, plain_ms, bnd, lib, f"{name}_device_seed {tag}")
+    del kc, x, res
+
+    n = tf_adam_n
+    kw = dict(beta1=0.9, beta2=0.997, eps=1e-9)
+    alpha = torch.tensor(1e-4, device=dev)
+    p = (0.03 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+    m = 0.01 * torch.randn(n, generator=gen, device=dev)
+    v = 1e-4 * torch.rand(n, generator=gen, device=dev)
+    g = (0.01 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+    got = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha, **kw)
+    ref = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g, alpha,
+                              **kw)
+    torch.cuda.synchronize()
+    name = f"adam_update bfloat16 params n={n} f32 m/v (transformer)"
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, ref)):
+        fail(f"{name}: kernel is not bit-exact with its plain version")
+    del got, ref
+    ms = device_ms([lambda: K.adam_update(p, m, v, g, alpha, **kw)])
+    plain_ms = device_ms([lambda: K.adam_update_plain(p, m, v, g, alpha,
+                                                      **kw)])
+    pt = torch.nn.Parameter(p.clone())
+    pt.grad = g.clone()
+    opt = torch.optim.Adam([pt], lr=1e-4, betas=(0.9, 0.997), eps=1e-9,
+                           fused=True)
+    lib_ms = event_ms(opt.step)
+    # p, g bf16 read, p written; m, v f32 read and written: 14 + 8 bytes
+    bnd = bound_ms(22 * n, 12 * n, torch.float32)
+    report(name, 0.0, ms, plain_ms, bnd, lib_ms)
+    main["adam_update@transformer"] = kernel_row(0.0, ms, plain_ms, bnd,
+                                                 lib_ms, name)
+    del p, m, v, g, pt, opt
+    torch.cuda.empty_cache()
+    return main
+
+
+def tf_adam_groups(cfg):
+    """The element counts of ``transformer_train_model``'s two Adam groups
+    at ``cfg``: the bf16 Dense kernels and biases, and the f32 embedding
+    with the LayerNorm gammas and betas."""
+    d, ff, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    attn = 4 * (d * d + d)
+    ffn = d * ff + ff + ff * d + d
+    bf16 = L * (attn + ffn) + L * (2 * attn + ffn)
+    f32 = cfg.vocab_size * d + L * 2 * 2 * d + L * 3 * 2 * d
+    return bf16, f32
+
+
+def transformer_session_phase(K, dev, kernel_rows):
+    """The reference's headline model through the TF-1 front end
+    (module docstring, phase 7). Returns ``[(path, dropout,
+    launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig.big()
+    bf16_n, f32_n = tf_adam_groups(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    print("transformer kernels at the transformer_train_model shapes:",
+          flush=True)
+    kernel_rows.update(tf_kernel_rows(K, gen, dev, bf16_n))
+    paths = [("transformer f32 check", DROPOUT_RATE,
+              check_transformer_f32(K, stf, tr))]
+    torch.cuda.empty_cache()
+    batch = tf_batch(TF_B, TF_SRC, TF_TGT, cfg.vocab_size, pads=False)
+    check_transformer_graph(K, stf, tr, cfg, batch)
+    torch.cuda.empty_cache()
+    tag = f"transformer[bf16 {TF_B}x{TF_SRC}/{TF_TGT}]"
+    print(f"{tag}: transformer_train_model(TransformerConfig.big()) as "
+          f"shipped ({cfg.num_layers}+{cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, dropout {cfg.dropout}, label smoothing "
+          f"{cfg.label_smoothing}, bf16, Adam 0.9/0.997/1e-9, noam lr with "
+          f"warmup_steps {TF_WARMUP}), Adam groups bf16 {bf16_n} and f32 "
+          f"{f32_n} elements; {TF_STEPS} steps of Session.run([loss, "
+          f"train_op]) on one repeated synthetic_wmt_batch({TF_B}, "
+          f"{TF_SRC}, {TF_TGT}, seed=0) fed as numpy; the graph window "
+          f"first (step 1 eager, step 2 captured), then the eager one",
+          flush=True)
+    windows = {}
+    for capture in (True, False):
+        m, sess = tf_session(stf, tr, cfg, TF_B, stf.bfloat16)
+        windows[capture] = session_window(
+            K, sess, [m["loss"], m["train_op"]], tf_feeds(m, batch),
+            TF_STEPS, capture)
+        gs = int(sess.run(m["global_step"]))
+        sess.close()
+        if gs != windows[capture]["steps"]:
+            fail(f"{tag}: global_step {gs} after "
+                 f"{windows[capture]['steps']} steps")
+        torch.cuda.empty_cache()
+    graph, eager = windows[True], windows[False]
+    per = {k: v * TF_STEPS
+           for k, v in tf_per_step(cfg.num_layers, 2).items()}
+    # the graph window's first step is its eager warm-up (launch-argument
+    # entries), the 15 replays launch the device-key and seed-pointer ones
+    want_graph = dict(per)
+    for k in SEEDED:
+        want_graph[k] = per[k] // TF_STEPS
+        want_graph[k + "_device_seed"] = per[k] // TF_STEPS * (TF_STEPS - 1)
+    want_graph["dropout"] = per["dropout"] // TF_STEPS
+    want_graph["dropout_device_key"] = \
+        per["dropout"] // TF_STEPS * (TF_STEPS - 1)
+    if graph["late"][1] != 1 or graph["captures"] != 1:
+        fail(f"{tag}: captures {graph['captures']} (after the first step "
+             f"{graph['late'][1]}), expected exactly 1")
+    if eager["captures"]:
+        fail(f"{tag}: the eager window captured {eager['captures']} times")
+    tokens = TF_B * TF_TGT
+    half = TF_STEPS // 2
+    g50, gdev = report_window(f"transformer graph[bf16 {TF_B}x{TF_SRC}/"
+                              f"{TF_TGT}]", graph, want_graph, tokens,
+                              "target tokens", mean_of=half,
+                              last_below_first=False)
+    e50, edev = report_window(f"transformer eager[bf16 {TF_B}x{TF_SRC}/"
+                              f"{TF_TGT}]", eager, per, tokens,
+                              "target tokens", mean_of=half,
+                              last_below_first=False)
+    for w, name in ((graph, "graph"), (eager, "eager")):
+        if w["by_name"]:
+            check_traced(f"transformer {name}", w["by_name"],
+                         ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+                          "flash_bwd_dq_mma_kernel",
+                          "dropout_residual_vec_kernel"))
+    flops = 3 * tr.transformer_flops_per_token(cfg, TF_SRC, TF_TGT)
+    both = TF_B * (TF_SRC + TF_TGT)
+    for name, p50 in (("graph", g50), ("eager", e50)):
+        print(f"{tag} {name}: p50 {p50 * 1e3:.4f} ms, {tokens / p50:.2f} "
+              f"target tokens/s, {both / p50:.2f} source + target tokens/s "
+              f"(the reference's transformer_big_tokens_per_sec_per_chip "
+              f"count), {both * flops / p50 / 1e12:.2f} TFLOP/s at 3 x "
+              f"transformer_flops_per_token a source + target token "
+              f"({100 * both * flops / p50 / PEAK_OPS_PER_S[torch.bfloat16]:.2f}% "
+              f"of the dense bf16 peak)", flush=True)
+    print(f"{tag}: graph vs eager p50 step {g50 * 1e3:.4f} vs "
+          f"{e50 * 1e3:.4f} ms ({e50 / g50:.3f}x); device ms a step {gdev} "
+          f"vs {edev}", flush=True)
+    return paths + [("transformer bf16 graph", DROPOUT_RATE,
+                     graph["counts"]),
+                    ("transformer bf16 eager", DROPOUT_RATE,
+                     eager["counts"])]
 
 
 def kernel_props(log, prefix):
@@ -3084,12 +3653,16 @@ def main():
     paths += resnet_phase(K, dev)
     torch.cuda.empty_cache()
     paths += session_phase(K, dev, main_rows)
+    torch.cuda.empty_cache()
+    paths += transformer_session_phase(K, dev, main_rows)
     # a kernel's launches over every path; the flash rows split by the
-    # path's dropout (the dropout branch runs only at rate > 0)
+    # path's dropout (the dropout branch runs only at rate > 0; the
+    # seed-pointer entries only with dropout)
     launches = {}
     for _, rate, counts in paths:
         for k, v in counts.items():
-            if k.startswith("flash_attention") and rate > 0:
+            if k.startswith("flash_attention") and rate > 0 and \
+                    not k.endswith("_device_seed"):
                 k += "_dropout"
             launches[k] = launches.get(k, 0) + v
     print(f"launches over the paths {[p for p, _, _ in paths]}: {launches}",
@@ -3123,6 +3696,16 @@ def main():
                              "dropout_residual.py:41"),
         "dropout_residual_bwd": ("dropout_residual.cu",
                                  "dropout_residual.py:99"),
+        "flash_attention_fwd_device_seed": ("flash_fwd_mma.cu",
+                                            "flash_attention.py:141"),
+        "flash_attention_dkdv_device_seed": ("flash_bwd_mma.cu",
+                                             "flash_attention.py:244"),
+        "flash_attention_dq_device_seed": ("flash_bwd_mma.cu",
+                                           "flash_attention.py:297"),
+        "dropout_residual_device_seed": ("dropout_residual.cu",
+                                         "dropout_residual.py:41"),
+        "dropout_residual_bwd_device_seed": ("dropout_residual.cu",
+                                             "dropout_residual.py:99"),
         "dropout": ("dropout.cu", "../nn_ops.py:388"),
         "dropout_device_key": ("dropout.cu", "../nn_ops.py:388"),
         "dropout_bwd": ("dropout.cu", "../nn_ops.py:388"),

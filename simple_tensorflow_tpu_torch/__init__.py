@@ -25,16 +25,17 @@ from .framework.graph import (Graph, GraphKeys, Operation, Tensor,
                               reset_default_graph)
 from .framework.random_seed import get_seed, set_random_seed
 from .framework.tensor_shape import Dimension, TensorShape
-from .ops.array_ops import (fill, identity, placeholder,
+from .ops.array_ops import (fill, gather, identity, ones, placeholder,
                             placeholder_with_default, reshape, stop_gradient,
-                            zeros)
+                            transpose, zeros)
 from .ops.control_flow_ops import group, no_op
-from .ops.init_ops import (glorot_uniform_initializer,
+from .ops.init_ops import (glorot_uniform_initializer, ones_initializer,
+                           random_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
 from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, matmul,
-                           multiply, reduce_mean, reduce_sum, subtract,
-                           truediv)
-from .ops.random_ops import random_uniform
+                           minimum, multiply, not_equal, pow, realdiv,
+                           reduce_mean, reduce_sum, subtract, truediv)
+from .ops.random_ops import random_normal, random_uniform
 from .ops.state_ops import assign, assign_add, assign_sub
 from .ops.variable_scope import (AUTO_REUSE, VariableScope, get_variable,
                                  get_variable_scope, variable_scope)

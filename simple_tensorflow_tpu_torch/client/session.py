@@ -41,14 +41,16 @@ reads (a fed ``keep_prob``) and whether the kernels' plain versions are
 on. As with JAX's jit, a (plan, key) runs eagerly the first time (the
 warm-up, on a side stream), is captured on its second run and replayed
 from then on; a replay stages the feeds and the random ops' keys (still
-derived on the host from the run counter) into the graph's static
-buffers. A store whose tensors moved since a capture (a load, a new
-variable, a rebuilt flat buffer; ``VariableStore.version``) makes the
-next run of that key a warm-up again. On the CPU the same executable runs
-the op list eagerly into its static buffers. ``ExecutionPlan.compile``
-warms up (dry: nothing committed) and captures ahead of traffic. The
-private ``_capture = False`` runs every step eagerly (the reference the
-smoke and the tests hold the graphs against).
+derived on the host from the run counter) and the dropout seeds drawn
+from them (``prng.randint``, for the flash and dropout-residual kernels'
+seed-pointer entries) into the graph's static buffers. A store whose
+tensors moved since a capture (a load, a new variable, a rebuilt flat
+buffer; ``VariableStore.version``) makes the next run of that key a
+warm-up again. On the CPU the same executable runs the op list eagerly
+into its static buffers. ``ExecutionPlan.compile`` warms up (dry:
+nothing committed) and captures ahead of traffic. The private ``_capture
+= False`` runs every step eagerly (the reference the smoke and the tests
+hold the graphs against).
 
 Left out: the graph optimizer, sharding, verification, telemetry,
 ``run_steps``, ``partial_run``, handles and ``RunOptions`` tracing.
@@ -358,12 +360,13 @@ class BaseSession:
         self.plan_cache_misses = 0
         self.captures = 0   # CUDA graphs captured (executables compiled)
         # private: False runs every step eagerly (the reference compiled
-        # steps are held against); _refresh_keys False skips the key
-        # buffer's refill before a replay (a planted fault: the replay
-        # draws the previous step's masks); _timings, a dict, collects
-        # host seconds by kind (execute_ops, _replay)
+        # steps are held against); _refresh_keys / _refresh_seeds False
+        # skip the key / seed buffer's refill before a replay (planted
+        # faults: the replay draws stale masks); _timings, a dict,
+        # collects host seconds by kind (execute_ops, _replay)
         self._capture = True
         self._refresh_keys = True
+        self._refresh_seeds = True
         self._timings = None
 
     @property
@@ -614,10 +617,13 @@ class BaseSession:
             ctx = self._context(plan, host_feeds, None)
             ctx.compiled = True
             ctx.key_buffer = exe.key_buffer
+            ctx.seed_buffer = exe.seed_buffer
             ctx.rng_slots = plan.rng_slots
             for t, buf in exe.feeds.items():
                 ctx.env[t] = ctx._maybe_leaf(t, buf.static)
-            return self._step(plan, ctx)
+            outs = self._step(plan, ctx)
+            exe.seeded = ctx.seeds_read
+            return outs
 
         specs = {t: (tuple(np.shape(feeds[t])),
                      t.dtype.base_dtype.torch_dtype)
@@ -634,12 +640,15 @@ class BaseSession:
         a dict, adds the host seconds of both (``"stage"``,
         ``"replay"``)."""
         t0 = time.perf_counter()
-        keys = None
+        keys = seeds = None
         if plan.uses_rng:
             root = self._rng_root(True)
+            op_keys = prng.fold_in(root, plan.rng_folds)
             if self._refresh_keys:
-                keys = prng.fold_in(root, plan.rng_folds)
-        exe.stage(feeds, keys)
+                keys = op_keys
+            if exe.seeded is not False and self._refresh_seeds:
+                seeds = prng.randint(op_keys, (1,), 0, prng.INT32_MAX)
+        exe.stage(feeds, keys, seeds)
         t1 = time.perf_counter()
         outs = exe.replay()
         if self._timings is not None:

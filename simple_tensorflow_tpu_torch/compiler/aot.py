@@ -178,6 +178,9 @@ class StepExecutable:
                       for t, (shape, dtype) in feed_specs.items()}
         self.keys = (StagedInput((n_keys, 2), torch.int32, self.device)
                      if n_keys else None)
+        self.seeds = (StagedInput((n_keys, 1), torch.int32, self.device)
+                      if n_keys else None)
+        self.seeded = None   # unknown until the step has run once
         self.feed_signature = feed_sig
         self.host_key = host_key
         self.store_version = store_version
@@ -188,6 +191,10 @@ class StepExecutable:
         return None if self.keys is None else self.keys.static
 
     @property
+    def seed_buffer(self) -> Optional[torch.Tensor]:
+        return None if self.seeds is None else self.seeds.static
+
+    @property
     def launches(self) -> Dict[str, int]:
         return self.graph.launches if self.graph is not None else {}
 
@@ -195,13 +202,17 @@ class StepExecutable:
     def outputs(self) -> Optional[list]:
         return self.graph.outputs if self.graph is not None else None
 
-    def stage(self, feeds: Dict[Any, Any], keys: Optional[np.ndarray]):
-        """Refill the feed buffers, and the key buffer when ``keys`` (the
-        ``(n_keys, 2)`` uint32 words) is given."""
+    def stage(self, feeds: Dict[Any, Any], keys: Optional[np.ndarray],
+              seeds: Optional[np.ndarray] = None):
+        """Refill the feed buffers, the key buffer when ``keys`` (the
+        ``(n_keys, 2)`` uint32 words) is given, and the seed buffer when
+        ``seeds`` (``(n_keys, 1)`` int32) is."""
         for t, buf in self.feeds.items():
             buf.stage(feeds[t])
         if keys is not None:
             self.keys.stage(np.asarray(keys, np.uint32).view(np.int32))
+        if seeds is not None:
+            self.seeds.stage(np.asarray(seeds, np.int32))
 
     def replay(self) -> list:
         return self.graph.replay()
@@ -211,6 +222,7 @@ class StepExecutable:
             self.graph.release()
         self.feeds.clear()
         self.keys = None
+        self.seeds = None
 
 
 def compile_step(step_fn: Callable[["StepExecutable"], Sequence[Any]],

@@ -320,8 +320,11 @@ def load_session_variables(sess, named: dict) -> None:
     """Load ``named`` (``{JAX variable store name: numpy array}``, e.g. a
     JAX session's ``_variable_store.values`` or :func:`load_stfz` of its
     checkpoint) into the port Session ``sess``'s ``VariableStore``, each
-    in its graph variable's dtype. A name no Variable of ``sess.graph``
-    has raises ``KeyError``."""
+    in its graph variable's dtype: the weights (bf16 Dense variables of a
+    bf16 graph included: bfloat16 numpy values, or their raw 2-byte bits,
+    widened exactly by :func:`bf16_to_f32`), the optimizer's flat Adam
+    slots and beta powers, and the global step. A name no Variable of
+    ``sess.graph`` has raises ``KeyError``."""
     from .ops import variables as variables_mod
 
     registry = variables_mod.variables_by_store_name(sess.graph)
@@ -330,4 +333,8 @@ def load_session_variables(sess, named: dict) -> None:
         raise KeyError(f"no variable named {missing[:5]} in the session's "
                        "graph")
     for name, value in named.items():
+        value = np.asarray(value)
+        if value.dtype.kind == "V" and value.dtype.itemsize == 2 and \
+                value.dtype.name != "bfloat16":
+            value = bf16_to_f32(value)
         sess._variable_store.load(name, value, registry[name])

@@ -120,6 +120,14 @@ __device__ __forceinline__ uint32_t keep_hash0(uint32_t seed, uint32_t salt) {
   return mix32(seed ^ (salt * 0x9E3779B9u));
 }
 
+// The dropout seed of a launch: read through `seed_ptr` (a device int32,
+// e.g. a row of the seed buffer a CUDA graph's replays refill) when it is
+// given, else the launch argument `seed`. Both give the same mask.
+__device__ __forceinline__ uint32_t dropout_seed(uint32_t seed,
+                                                 const uint32_t* seed_ptr) {
+  return seed_ptr != nullptr ? __ldg(seed_ptr) : seed;
+}
+
 __device__ __forceinline__ bool counter_keep(uint32_t h0, uint32_t row,
                                              uint32_t col,
                                              uint32_t threshold) {

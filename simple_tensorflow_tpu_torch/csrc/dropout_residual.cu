@@ -46,10 +46,10 @@ __global__ void __launch_bounds__(kDrThreads)
                             const T* __restrict__ residual,
                             const T* __restrict__ bias, T* __restrict__ out,
                             int rows, int n, uint32_t seed,
-                            uint32_t threshold, float scale) {
+                            const uint32_t* seed_ptr, uint32_t threshold, float scale) {
   const int c = blockIdx.x * kDrThreads + threadIdx.x;
   if (c >= n) return;
-  const uint32_t h0 = keep_hash0(seed, 0u);
+  const uint32_t h0 = keep_hash0(dropout_seed(seed, seed_ptr), 0u);
   const float b = bias != nullptr ? to_f32(bias[c]) : 0.0f;
   for (int r = blockIdx.y; r < rows; r += gridDim.y) {
     const long long i = static_cast<long long>(r) * n + c;
@@ -75,12 +75,12 @@ __global__ void __launch_bounds__(kDrThreads)
                                 const T* __restrict__ residual,
                                 const T* __restrict__ bias,
                                 T* __restrict__ out, int rows, int n,
-                                uint32_t seed, uint32_t threshold,
+                                uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                 float scale) {
   constexpr int kPer = 16 / sizeof(T);  // values a 16-byte vector
   const int lane = threadIdx.x & 31;
   const int nvec = n / kPer;
-  const uint32_t h0 = keep_hash0(seed, 0u);
+  const uint32_t h0 = keep_hash0(dropout_seed(seed, seed_ptr), 0u);
   uint4 bv[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -130,12 +130,12 @@ __global__ void __launch_bounds__(kDrThreads)
 template <typename T>
 cudaError_t launch_general(const void* x, const void* residual,
                            const void* bias, void* out, int rows, int n,
-                           uint32_t seed, uint32_t threshold, float scale,
+                           uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold, float scale,
                            cudaStream_t s) {
   const dim3 grid(cdiv(n, kDrThreads), rows < 65535 ? rows : 65535);
   dropout_residual_kernel<T><<<grid, kDrThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(residual),
-      static_cast<const T*>(bias), static_cast<T*>(out), rows, n, seed,
+      static_cast<const T*>(bias), static_cast<T*>(out), rows, n, seed, seed_ptr,
       threshold, scale);
   return cudaGetLastError();
 }
@@ -143,14 +143,14 @@ cudaError_t launch_general(const void* x, const void* residual,
 template <typename T, int NV, bool kRes, bool kBias>
 cudaError_t launch_vec(const void* x, const void* residual, const void* bias,
                        void* out, int rows, int n, uint32_t seed,
-                       uint32_t threshold, float scale, cudaStream_t s) {
+                       const uint32_t* seed_ptr, uint32_t threshold, float scale, cudaStream_t s) {
   // 8 rows a block, at most 8 blocks an SM of 132
   const int want = cdiv(rows, kDrWarps);
   const int blocks = want < 132 * 8 ? want : 132 * 8;
   dropout_residual_vec_kernel<T, NV, kRes, kBias><<<blocks, kDrThreads, 0,
                                                    s>>>(
       static_cast<const T*>(x), static_cast<const T*>(residual),
-      static_cast<const T*>(bias), static_cast<T*>(out), rows, n, seed,
+      static_cast<const T*>(bias), static_cast<T*>(out), rows, n, seed, seed_ptr,
       threshold, scale);
   return cudaGetLastError();
 }
@@ -158,40 +158,40 @@ cudaError_t launch_vec(const void* x, const void* residual, const void* bias,
 template <typename T, int NV>
 cudaError_t launch_vec(const void* x, const void* residual, const void* bias,
                        void* out, int rows, int n, uint32_t seed,
-                       uint32_t threshold, float scale, cudaStream_t s) {
+                       const uint32_t* seed_ptr, uint32_t threshold, float scale, cudaStream_t s) {
   if (residual != nullptr && bias != nullptr)
     return launch_vec<T, NV, true, true>(x, residual, bias, out, rows, n,
-                                         seed, threshold, scale, s);
+                                         seed, seed_ptr, threshold, scale, s);
   if (residual != nullptr)
     return launch_vec<T, NV, true, false>(x, residual, bias, out, rows, n,
-                                          seed, threshold, scale, s);
+                                          seed, seed_ptr, threshold, scale, s);
   if (bias != nullptr) return cudaErrorInvalidValue;  // no caller: dx
   return launch_vec<T, NV, false, false>(x, residual, bias, out, rows, n,
-                                         seed, threshold, scale, s);
+                                         seed, seed_ptr, threshold, scale, s);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* residual, const void* bias,
                    void* out, int rows, int n, uint32_t seed,
-                   uint32_t threshold, float scale, int nv, cudaStream_t s) {
+                   const uint32_t* seed_ptr, uint32_t threshold, float scale, int nv, cudaStream_t s) {
   // the vectors a lane of the shipped widths, d_model 512 and 1024: 2 and
   // 4 in bf16, 4 and 8 in f32
   constexpr bool kBf16 = sizeof(T) == 2;
   switch (nv) {
     case 0:
-      return launch_general<T>(x, residual, bias, out, rows, n, seed,
+      return launch_general<T>(x, residual, bias, out, rows, n, seed, seed_ptr,
                                threshold, scale, s);
     case 2:
       if constexpr (kBf16)
-        return launch_vec<T, 2>(x, residual, bias, out, rows, n, seed,
+        return launch_vec<T, 2>(x, residual, bias, out, rows, n, seed, seed_ptr,
                                 threshold, scale, s);
       break;
     case 4:
-      return launch_vec<T, 4>(x, residual, bias, out, rows, n, seed,
+      return launch_vec<T, 4>(x, residual, bias, out, rows, n, seed, seed_ptr,
                               threshold, scale, s);
     case 8:
       if constexpr (!kBf16)
-        return launch_vec<T, 8>(x, residual, bias, out, rows, n, seed,
+        return launch_vec<T, 8>(x, residual, bias, out, rows, n, seed, seed_ptr,
                                 threshold, scale, s);
       break;
   }
@@ -200,6 +200,26 @@ cudaError_t launch(const void* x, const void* residual, const void* bias,
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int dropout_residual_entry(const void* x, const void* residual,
+                           const void* bias, void* out, int rows, int n,
+                           uint32_t seed, const uint32_t* seed_ptr,
+                           uint32_t threshold, float scale, int nv, int dtype,
+                           cudaStream_t s) {
+  if (rows <= 0 || n <= 0) return cudaSuccess;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  if (nv != 0) {
+    const int per = dtype == kF32 ? 4 : 8;
+    if (n % per != 0 || n / per > 32 * nv || !aligned16(x) ||
+        !aligned16(residual) || !aligned16(bias) || !aligned16(out))
+      return cudaErrorInvalidValue;
+  }
+  if (dtype == kF32)
+    return launch<float>(x, residual, bias, out, rows, n, seed, seed_ptr,
+                         threshold, scale, nv, s);
+  return launch<__nv_bfloat16>(x, residual, bias, out, rows, n, seed,
+                               seed_ptr, threshold, scale, nv, s);
 }
 
 }  // namespace
@@ -217,19 +237,21 @@ extern "C" int stf_dropout_residual(const void* x, const void* residual,
                                     int n, unsigned seed, unsigned threshold,
                                     float scale, int nv, int dtype,
                                     void* stream) {
-  using namespace stf;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || n <= 0) return cudaSuccess;
-  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
-  if (nv != 0) {
-    const int per = dtype == kF32 ? 4 : 8;
-    if (n % per != 0 || n / per > 32 * nv || !aligned16(x) ||
-        !aligned16(residual) || !aligned16(bias) || !aligned16(out))
-      return cudaErrorInvalidValue;
-  }
-  if (dtype == kF32)
-    return launch<float>(x, residual, bias, out, rows, n, seed, threshold,
-                         scale, nv, s);
-  return launch<__nv_bfloat16>(x, residual, bias, out, rows, n, seed,
-                               threshold, scale, nv, s);
+  return stf::dropout_residual_entry(x, residual, bias, out, rows, n, seed,
+                                     nullptr, threshold, scale, nv, dtype,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// stf_dropout_residual with the seed read through `seed` (a device pointer
+// to the int32 seed) when the kernel starts: what a CUDA graph launches,
+// whose replays refill the seed buffer. The same kernels and mask.
+extern "C" int stf_dropout_residual_seed_ptr(
+    const void* x, const void* residual, const void* bias, void* out,
+    int rows, int n, const void* seed, unsigned threshold, float scale,
+    int nv, int dtype, void* stream) {
+  if (seed == nullptr) return cudaErrorInvalidValue;
+  return stf::dropout_residual_entry(
+      x, residual, bias, out, rows, n, 0u,
+      static_cast<const uint32_t*>(seed), threshold, scale, nv, dtype,
+      static_cast<cudaStream_t>(stream));
 }

@@ -52,7 +52,7 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                const float* bias, void* o, float* lse, int BH,
                                int q_len, int kv_len, int H, int D,
                                float scale, int causal, int dropout,
-                               uint32_t seed, uint32_t threshold,
+                               uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                float inv_keep, cudaStream_t s);
 
 // flash_bwd_mma.cu: the bf16 dK/dV (dkdv != 0) or dQ on tensor cores
@@ -62,7 +62,7 @@ cudaError_t flash_bwd_bf16_mma(int dkdv, const void* q, const void* k,
                                const float* bias, void* dq, void* dk,
                                void* dv, int BH, int q_len, int kv_len, int H,
                                int D, float scale, int causal, int dropout,
-                               uint32_t seed, uint32_t threshold,
+                               uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                float inv_keep, cudaStream_t s);
 
 namespace {
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(kFaThreads)
                      const float* __restrict__ bias, float* __restrict__ o,
                      float* __restrict__ lse, int q_len,
                      int kv_len, int H, float scale, int causal, int dropout,
-                     uint32_t seed, uint32_t threshold, float inv_keep) {
+                     uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold, float inv_keep) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -165,7 +165,7 @@ __global__ void __launch_bounds__(kFaThreads)
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
-  const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
+  const uint32_t h0 = dropout ? keep_hash0(dropout_seed(seed, seed_ptr), bh) : 0u;
   stage<D>(q_sh, qb, q0, q_len);
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -313,7 +313,7 @@ __global__ void __launch_bounds__(kFaThreads)
                       float* __restrict__ dk, float* __restrict__ dv,
                       int q_len, int kv_len, int H,
                       float scale, int causal, int dropout, uint32_t seed,
-                      uint32_t threshold, float inv_keep) {
+                      const uint32_t* seed_ptr, uint32_t threshold, float inv_keep) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -335,7 +335,7 @@ __global__ void __launch_bounds__(kFaThreads)
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
-  const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
+  const uint32_t h0 = dropout ? keep_hash0(dropout_seed(seed, seed_ptr), bh) : 0u;
   stage<D>(k_sh, k + ko * D, k0, kv_len);
   stage<D>(v_sh, v + ko * D, k0, kv_len);
   float dk_acc[4][DJ], dv_acc[4][DJ];
@@ -417,7 +417,7 @@ __global__ void __launch_bounds__(kFaThreads)
                     const float* __restrict__ delta,
                     const float* __restrict__ bias, float* __restrict__ dq,
                     int q_len, int kv_len, int H, float scale, int causal,
-                    int dropout, uint32_t seed, uint32_t threshold,
+                    int dropout, uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                     float inv_keep) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
@@ -439,7 +439,7 @@ __global__ void __launch_bounds__(kFaThreads)
       bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
                       : nullptr;
 
-  const uint32_t h0 = dropout ? keep_hash0(seed, bh) : 0u;
+  const uint32_t h0 = dropout ? keep_hash0(dropout_seed(seed, seed_ptr), bh) : 0u;
   stage<D>(q_sh, q + qo * D, q0, q_len);
   stage<D>(do_sh, dout + qo * D, q0, q_len);
   for (int r = threadIdx.x; r < kBq; r += kFaThreads) {
@@ -509,7 +509,9 @@ struct FaArgs {
   float scale;
   int causal;
   int dropout;
-  uint32_t seed, threshold;
+  uint32_t seed;
+  const uint32_t* seed_ptr;  // null: the launch argument `seed`
+  uint32_t threshold;
   float inv_keep;
   cudaStream_t s;
 };
@@ -524,7 +526,7 @@ cudaError_t run_fwd(const FaArgs& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.bias, static_cast<float*>(a.o),
       static_cast<float*>(a.lse), a.q_len, a.kv_len, a.H, a.scale, a.causal,
-      a.dropout, a.seed, a.threshold, a.inv_keep);
+      a.dropout, a.seed, a.seed_ptr, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -540,7 +542,7 @@ cudaError_t run_dkdv(const FaArgs& a) {
       static_cast<const float*>(a.lse_in),
       static_cast<const float*>(a.delta), a.bias, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.q_len, a.kv_len, a.H, a.scale, a.causal,
-      a.dropout, a.seed, a.threshold, a.inv_keep);
+      a.dropout, a.seed, a.seed_ptr, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -555,7 +557,7 @@ cudaError_t run_dq(const FaArgs& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse_in),
       static_cast<const float*>(a.delta), a.bias, static_cast<float*>(a.dq),
-      a.q_len, a.kv_len, a.H, a.scale, a.causal, a.dropout, a.seed,
+      a.q_len, a.kv_len, a.H, a.scale, a.causal, a.dropout, a.seed, a.seed_ptr,
       a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
@@ -579,13 +581,13 @@ int dispatch(int which, int dtype, int D, const FaArgs& a) {
       return flash_fwd_bf16_mma(a.q, a.k, a.v, a.bias, a.o,
                                 static_cast<float*>(a.lse), a.BH, a.q_len,
                                 a.kv_len, a.H, D, a.scale, a.causal,
-                                a.dropout, a.seed, a.threshold, a.inv_keep,
+                                a.dropout, a.seed, a.seed_ptr, a.threshold, a.inv_keep,
                                 a.s);
     return flash_bwd_bf16_mma(
         which == kDkdv, a.q, a.k, a.v, a.dout,
         static_cast<const float*>(a.lse_in),
         static_cast<const float*>(a.delta), a.bias, a.dq, a.dk, a.dv, a.BH,
-        a.q_len, a.kv_len, a.H, D, a.scale, a.causal, a.dropout, a.seed,
+        a.q_len, a.kv_len, a.H, D, a.scale, a.causal, a.dropout, a.seed, a.seed_ptr,
         a.threshold, a.inv_keep, a.s);
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
@@ -615,7 +617,7 @@ extern "C" int stf_flash_attention_fwd(const void* q, const void* k,
   stf::FaArgs a{q, k, v, nullptr, nullptr, nullptr,
                 static_cast<const float*>(bias), o, lse, nullptr, nullptr,
                 nullptr, BH, q_len, kv_len, H, scale, causal, dropout, seed,
-                threshold, inv_keep, static_cast<cudaStream_t>(stream)};
+                nullptr, threshold, inv_keep, static_cast<cudaStream_t>(stream)};
   return stf::dispatch(stf::kFwd, dtype, D, a);
 }
 
@@ -631,7 +633,7 @@ extern "C" int stf_flash_attention_dkdv(const void* q, const void* k,
                                         int dtype, void* stream) {
   stf::FaArgs a{q, k, v, dout, lse, delta, static_cast<const float*>(bias),
                 nullptr, nullptr, nullptr, dk, dv, BH, q_len, kv_len, H,
-                scale, causal, dropout, seed, threshold, inv_keep,
+                scale, causal, dropout, seed, nullptr, threshold, inv_keep,
                 static_cast<cudaStream_t>(stream)};
   return stf::dispatch(stf::kDkdv, dtype, D, a);
 }
@@ -648,7 +650,53 @@ extern "C" int stf_flash_attention_dq(const void* q, const void* k,
                                       void* stream) {
   stf::FaArgs a{q, k, v, dout, lse, delta, static_cast<const float*>(bias),
                 nullptr, nullptr, dq, nullptr, nullptr, BH, q_len, kv_len, H,
-                scale, causal, dropout, seed, threshold, inv_keep,
+                scale, causal, dropout, seed, nullptr, threshold, inv_keep,
                 static_cast<cudaStream_t>(stream)};
+  return stf::dispatch(stf::kDq, dtype, D, a);
+}
+
+// The three entry points above with dropout on and the seed read through
+// `seed` (a device pointer to the int32 seed) when the kernel starts, not
+// passed as a launch argument: what a CUDA graph launches, whose replays
+// refill the seed buffer. The same kernels; the masks are bit-identical.
+extern "C" int stf_flash_attention_fwd_seed_ptr(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    void* lse, int BH, int q_len, int kv_len, int H, int D, float scale,
+    int causal, const void* seed, unsigned threshold, float inv_keep,
+    int dtype, void* stream) {
+  if (seed == nullptr) return cudaErrorInvalidValue;
+  stf::FaArgs a{q, k, v, nullptr, nullptr, nullptr,
+                static_cast<const float*>(bias), o, lse, nullptr, nullptr,
+                nullptr, BH, q_len, kv_len, H, scale, causal, 1, 0u,
+                static_cast<const uint32_t*>(seed), threshold, inv_keep,
+                static_cast<cudaStream_t>(stream)};
+  return stf::dispatch(stf::kFwd, dtype, D, a);
+}
+
+extern "C" int stf_flash_attention_dkdv_seed_ptr(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* bias, void* dk, void* dv,
+    int BH, int q_len, int kv_len, int H, int D, float scale, int causal,
+    const void* seed, unsigned threshold, float inv_keep, int dtype,
+    void* stream) {
+  if (seed == nullptr) return cudaErrorInvalidValue;
+  stf::FaArgs a{q, k, v, dout, lse, delta, static_cast<const float*>(bias),
+                nullptr, nullptr, nullptr, dk, dv, BH, q_len, kv_len, H,
+                scale, causal, 1, 0u, static_cast<const uint32_t*>(seed),
+                threshold, inv_keep, static_cast<cudaStream_t>(stream)};
+  return stf::dispatch(stf::kDkdv, dtype, D, a);
+}
+
+extern "C" int stf_flash_attention_dq_seed_ptr(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* bias, void* dq, int BH,
+    int q_len, int kv_len, int H, int D, float scale, int causal,
+    const void* seed, unsigned threshold, float inv_keep, int dtype,
+    void* stream) {
+  if (seed == nullptr) return cudaErrorInvalidValue;
+  stf::FaArgs a{q, k, v, dout, lse, delta, static_cast<const float*>(bias),
+                nullptr, nullptr, dq, nullptr, nullptr, BH, q_len, kv_len, H,
+                scale, causal, 1, 0u, static_cast<const uint32_t*>(seed),
+                threshold, inv_keep, static_cast<cudaStream_t>(stream)};
   return stf::dispatch(stf::kDq, dtype, D, a);
 }

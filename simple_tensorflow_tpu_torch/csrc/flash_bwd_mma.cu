@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(kMmaThreads, dkdv_min_blocks<D>())
         const float* __restrict__ lse, const float* __restrict__ delta,
         const float* __restrict__ bias, bf16* __restrict__ dk,
         bf16* __restrict__ dv, int q_len, int kv_len, int H, float scale,
-        uint32_t seed, uint32_t threshold, float inv_keep) {
+        uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold, float inv_keep) {
   constexpr int KS = D / 16;    // k-steps of S^T, dP^T; d n-tile pairs
   constexpr int NT = kSub / 8;  // query n-tiles a sub-step
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -128,7 +128,7 @@ __global__ void __launch_bounds__(kMmaThreads, dkdv_min_blocks<D>())
     if (key_lo < kv_len) bl_lo = __ldg(bb + key_lo) * kLog2e;
     if (key_hi < kv_len) bl_hi = __ldg(bb + key_hi) * kLog2e;
   }
-  const uint32_t h0 = kDropout ? keep_hash0(seed, bh) : 0u;
+  const uint32_t h0 = kDropout ? keep_hash0(dropout_seed(seed, seed_ptr), bh) : 0u;
   const float scale_l2 = scale * kLog2e;
 
   // Q, dO, lse, delta of query tile qt into stage st (one commit group);
@@ -273,7 +273,7 @@ __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks<D>())
         const bf16* __restrict__ v, const bf16* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         const float* __restrict__ bias, bf16* __restrict__ dq, int q_len,
-        int kv_len, int H, float scale, uint32_t seed, uint32_t threshold,
+        int kv_len, int H, float scale, uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
         float inv_keep) {
   constexpr int KS = D / 16;    // k-steps of S, dP; d n-tile pairs of dQ
   constexpr int NT = kSub / 8;  // key n-tiles a sub-step
@@ -321,7 +321,7 @@ __global__ void __launch_bounds__(kMmaThreads, dq_min_blocks<D>())
   }
   uint32_t hr_lo = 0u, hr_hi = 0u;  // the two row hashes of K0
   if (kDropout) {
-    const uint32_t h0 = keep_hash0(seed, bh);
+    const uint32_t h0 = keep_hash0(dropout_seed(seed, seed_ptr), bh);
     hr_lo = mix32(h0 ^ static_cast<uint32_t>(row_lo));
     hr_hi = mix32(h0 ^ static_cast<uint32_t>(row_hi));
   }
@@ -430,7 +430,9 @@ struct BwdArgs {
   int BH, q_len, kv_len, H;
   float scale;
   int causal, dropout;
-  uint32_t seed, threshold;
+  uint32_t seed;
+  const uint32_t* seed_ptr;  // null: the launch argument `seed`
+  uint32_t threshold;
   float inv_keep;
   cudaStream_t s;
 };
@@ -452,7 +454,7 @@ cudaError_t launch_bwd(bool dkdv, const BwdArgs& a) {
     if (e != cudaSuccess) return e;
     kernel<<<grid, kMmaThreads, smem, a.s>>>(
         a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, a.dk, a.dv, a.q_len,
-        a.kv_len, a.H, a.scale, a.seed, a.threshold, a.inv_keep);
+        a.kv_len, a.H, a.scale, a.seed, a.seed_ptr, a.threshold, a.inv_keep);
   } else {
     constexpr int smem = bwd_tiles_bytes<D>();
     auto kernel = flash_bwd_dq_mma_kernel<D, kCausal, kDropout>;
@@ -460,7 +462,7 @@ cudaError_t launch_bwd(bool dkdv, const BwdArgs& a) {
     if (e != cudaSuccess) return e;
     kernel<<<grid, kMmaThreads, smem, a.s>>>(
         a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, a.dq, a.q_len,
-        a.kv_len, a.H, a.scale, a.seed, a.threshold, a.inv_keep);
+        a.kv_len, a.H, a.scale, a.seed, a.seed_ptr, a.threshold, a.inv_keep);
   }
   return cudaGetLastError();
 }
@@ -496,13 +498,13 @@ cudaError_t flash_bwd_bf16_mma(int dkdv, const void* q, const void* k,
                                const float* bias, void* dq, void* dk,
                                void* dv, int BH, int q_len, int kv_len, int H,
                                int D, float scale, int causal, int dropout,
-                               uint32_t seed, uint32_t threshold,
+                               uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                float inv_keep, cudaStream_t s) {
   const BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                   lse, delta, bias, static_cast<bf16*>(dq),
                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, q_len,
-                  kv_len, H, scale, causal, dropout, seed, threshold,
+                  kv_len, H, scale, causal, dropout, seed, seed_ptr, threshold,
                   inv_keep, s};
   return by_dim(dkdv != 0, D, a);
 }

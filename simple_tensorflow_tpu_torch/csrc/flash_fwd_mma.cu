@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>())
                          const bf16* __restrict__ v,
                          const float* __restrict__ bias, bf16* __restrict__ o,
                          float* __restrict__ lse, int q_len, int kv_len, int H,
-                         float scale, uint32_t seed, uint32_t threshold,
+                         float scale, uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                          float inv_keep) {
   constexpr int KS = D / 16;  // k-steps of Q.K^T, pairs of d n-tiles of P.V
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>())
   // slower on an H100
   auto keep_bits = [&](int k0) {
     uint32_t keep = 0u;
-    const uint32_t h0 = keep_hash0(seed, bh);
+    const uint32_t h0 = keep_hash0(dropout_seed(seed, seed_ptr), bh);
     const uint32_t hr_lo = mix32(h0 ^ row_lo), hr_hi = mix32(h0 ^ row_hi);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -264,7 +264,7 @@ template <int D, bool kCausal, bool kDropout>
 cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v,
                        const float* bias, bf16* o, float* lse, int BH,
                        int q_len, int kv_len, int H, float scale,
-                       uint32_t seed, uint32_t threshold, float inv_keep,
+                       uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold, float inv_keep,
                        cudaStream_t s) {
   constexpr int smem = mma_smem_bytes<D>();
   auto kernel = flash_fwd_mma_kernel<D, kCausal, kDropout>;
@@ -276,7 +276,7 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v,
     attr_set = true;
   }
   kernel<<<dim3(BH, cdiv(q_len, kTile)), kMmaThreads, smem, s>>>(
-      q, k, v, bias, o, lse, q_len, kv_len, H, scale, seed, threshold,
+      q, k, v, bias, o, lse, q_len, kv_len, H, scale, seed, seed_ptr, threshold,
       inv_keep);
   return cudaGetLastError();
 }
@@ -285,11 +285,11 @@ template <int D>
 cudaError_t by_flags(const bf16* q, const bf16* k, const bf16* v,
                      const float* bias, bf16* o, float* lse, int BH,
                      int q_len, int kv_len, int H, float scale, int causal,
-                     int dropout, uint32_t seed, uint32_t threshold,
+                     int dropout, uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                      float inv_keep, cudaStream_t s) {
 #define STF_MMA_LAUNCH(C, DR)                                              \
   return launch_mma<D, C, DR>(q, k, v, bias, o, lse, BH, q_len, kv_len, H, \
-                              scale, seed, threshold, inv_keep, s)
+                              scale, seed, seed_ptr, threshold, inv_keep, s)
   if (causal) {
     if (dropout) STF_MMA_LAUNCH(true, true);
     STF_MMA_LAUNCH(true, false);
@@ -307,7 +307,7 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                const float* bias, void* o, float* lse, int BH,
                                int q_len, int kv_len, int H, int D,
                                float scale, int causal, int dropout,
-                               uint32_t seed, uint32_t threshold,
+                               uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                float inv_keep, cudaStream_t s) {
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
@@ -317,7 +317,8 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
 #define STF_MMA_DIM(DD)                                                     \
   case DD:                                                                  \
     return by_flags<DD>(qp, kp, vp, bias, op, lse, BH, q_len, kv_len, H,    \
-                        scale, causal, dropout, seed, threshold, inv_keep, s)
+                        scale, causal, dropout, seed, seed_ptr, threshold,  \
+                        inv_keep, s)
     STF_MMA_DIM(16);
     STF_MMA_DIM(32);
     STF_MMA_DIM(64);

@@ -8,7 +8,7 @@ same value), ``ancestors_between`` (the gradient builder's path), the
 ``LoweringContext`` (:186) with the variable state, the value environment,
 ``read_var``/``write_var`` (staged, committed when the run ends, as the
 JAX program returns its new state), ``rng_for`` (:283, one key per op and
-step), ``host_value`` (:184) and ``execute_ops`` (:326). Where the JAX
+step) and the dropout seed drawn from it (``seed_for``), ``host_value`` (:184) and ``execute_ops`` (:326). Where the JAX
 package traces the op list into one XLA program, the port dispatches each
 op's lowering eagerly; the Session captures a repeated run's dispatch into
 a CUDA graph (``compiler/aot.py``), for which the context has a compiled
@@ -125,8 +125,9 @@ class LoweringContext:
     A compiled run (``compiled``: captured into a CUDA graph, or its CPU
     replay) may not read the device from the host: :meth:`host_value`
     takes only values known on the host, a random op draws its key from
-    row ``rng_slots[op]`` of the device ``key_buffer`` (:meth:`rng_key`),
-    and the commit copies into the store's tensors in place. A ``dry``
+    row ``rng_slots[op]`` of the device ``key_buffer`` (:meth:`rng_key`)
+    or its dropout seed from the same row of ``seed_buffer``
+    (:meth:`seed_for`), and the commit copies into the store's tensors in place. A ``dry``
     run (the warm-up of ``ExecutionPlan.compile``) commits nothing and
     runs in-place updates on copies."""
 
@@ -147,6 +148,8 @@ class LoweringContext:
         self.compiled = False
         self.dry = False
         self.key_buffer = None
+        self.seed_buffer = None
+        self.seeds_read = False
         self.rng_slots: Dict[Operation, int] = {}
         self.host_reads: List[Tensor] = []
         self.timings = None  # {category: host seconds} when measured
@@ -224,6 +227,19 @@ class LoweringContext:
         if self.compiled:
             return self.key_buffer[self.rng_slots[op]]
         return self.rng_for(op)
+
+    def seed_for(self, op: Operation):
+        """The op's int32 dropout seed, as the JAX lowerings of
+        ``FlashAttentionDropout`` and ``FusedDropoutBiasResidual`` draw it:
+        ``randint(rng_for(op), (1,), 0, 2**31 - 1)``. In a compiled run the
+        ``(1,)`` int32 row of the device ``seed_buffer`` the Session
+        refills before every replay (the kernels' seed-pointer entries read
+        it there), else the host int."""
+        if self.compiled:
+            self.seeds_read = True
+            return self.seed_buffer[self.rng_slots[op]]
+        return int(prng.randint(self.rng_for(op), (1,), 0,
+                                prng.INT32_MAX)[0])
 
     # -- values --------------------------------------------------------------
     def constant(self, op: Operation) -> torch.Tensor:

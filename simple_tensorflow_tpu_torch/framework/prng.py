@@ -18,7 +18,15 @@ package's dropout draws from:
   multiply-add (:func:`fma_f32_torch`);
 - ``randint(key, shape, lo, hi)``: int32, two draws from ``split(key)``
   combined with JAX's multiplier-mod algorithm in wrapping uint32
-  arithmetic.
+  arithmetic;
+- ``normal(key, shape, stddev, mean)``: ``jax.random.normal`` in f32
+  (``_normal_real``): a uniform on ``(nextafter(-1, 0), 1)`` by the rule
+  above, then ``f32(sqrt 2) * erf_inv(u)`` with the single-precision
+  ``erf_inv`` polynomial XLA uses (M. Giles' two-branch polynomial in
+  ``w = -log1p(-u * u)``; its multiply-adds fused, as XLA contracts them).
+  ``torch.erfinv`` rounds differently and is not used. XLA's ``log1p`` is
+  its own; the draw here agrees with JAX's to a few ulp (most values bit
+  for bit).
 
 The host form works on numpy ``uint32`` arrays and broadcasts a batch of
 keys (``(..., 2)``) against the drawn shape, so one call derives every
@@ -200,3 +208,61 @@ def fma_f32_torch(a, b, c) -> torch.Tensor:
     other = torch.nextafter(r, torch.where(s > rd, inf, -inf))
     tie = (s == (rd + other.double()) / 2) & (err != 0)
     return torch.where(tie & ((err > 0) == (other > r)), other, r)
+
+
+# Giles' single-precision erf_inv coefficients, highest power first, for
+# w < 5 and w >= 5 (XLA's ``ErfInv32`` and CHLO's ``erf_inv`` lowering)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv_f32_torch(x: torch.Tensor) -> torch.Tensor:
+    """``erf_inv`` of f32 ``x`` in (-1, 1) by XLA's polynomial;
+    ``+-1 -> +-inf`` (as ``x * FLT_MAX``)."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(
+            lt, torch.full((), _ERFINV_LT5[i], dtype=torch.float32,
+                           device=x.device),
+            torch.full((), _ERFINV_GE5[i], dtype=torch.float32,
+                       device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma_f32_torch(p, w, coef(i))
+    big = torch.full((), torch.finfo(torch.float32).max,
+                     dtype=torch.float32, device=x.device)
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+def normal_torch(key_, shape, device, stddev=1.0, mean=0.0) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32) * stddev + mean``
+    (module docstring) as an f32 tensor on ``device``; ``key_`` as for
+    :func:`uniform_torch` (a device tensor key draws without a host
+    sync). As XLA compiles it: the two constant factors folded into one
+    f32 product ``f32(sqrt 2) * f32(stddev)``, then one fused multiply-add
+    with ``mean``."""
+    u01 = uniform_torch(key_, shape, device)
+    lo = torch.full((), float(np.nextafter(np.float32(-1.0),
+                                           np.float32(0.0))),
+                    dtype=torch.float32, device=device)
+    hi = torch.ones((), dtype=torch.float32, device=device)
+    u = torch.maximum(lo, fma_f32_torch(u01, hi - lo, lo))
+    scale = np.float32(np.sqrt(2.0)) * np.float32(stddev)
+    return fma_f32_torch(
+        erf_inv_f32_torch(u),
+        torch.full((), float(scale), dtype=torch.float32, device=device),
+        torch.full((), float(np.float32(mean)), dtype=torch.float32,
+                   device=device))
+
+
+def normal(key_, shape, stddev=1.0, mean=0.0) -> np.ndarray:
+    """:func:`normal_torch` of one key on the host, as an f32 array."""
+    return normal_torch(key_, shape, "cpu", stddev, mean).numpy()

@@ -61,8 +61,9 @@ from ..ops.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from ..ops.kv_cache import KVCache
 from ..train.optimizers import FlatAdam
 from .common import resolve_device
-from .transformer import (DecoderStack, TransformerConfig, _attention,
-                          _embed, _ffn, _residual, block_decode,
+from .transformer import (DecoderStack, TransformerConfig,
+                          _eager_attention, _eager_embed, _eager_ffn,
+                          _eager_residual, block_decode,
                           build_int8_logits_weights, incremental_decode,
                           smoothed_xent)
 
@@ -98,13 +99,13 @@ def causal_lm_logits(stack: DecoderStack, ids, *, training=True,
     :func:`dropout_sites`) gives each random op its stream.
     Differentiable."""
     cfg = stack.cfg
-    h = _embed(stack, ids, compute_dtype, training, rng, scope)
+    h = _eager_embed(stack, ids, compute_dtype, training, rng, scope)
     for i, layer in enumerate(stack.layers):
         at = f"{scope}/decoder/layer_{i}"
-        a = _attention(layer, h, cfg, training, causal=True, rng=rng,
+        a = _eager_attention(layer, h, cfg, training, causal=True, rng=rng,
                        scope=f"{at}/self_attn")
-        h = layer.ln1(_residual(a, h, cfg, training, rng, at))
-        f = _ffn(layer, h, cfg, training, rng, f"{at}/ffn")
+        h = layer.ln1(_eager_residual(a, h, cfg, training, rng, at))
+        f = _eager_ffn(layer, h, cfg, training, rng, f"{at}/ffn")
         h = layer.ln3(h + f)
     b, s = ids.shape
     flat = h.reshape(b * s, cfg.d_model)

@@ -1,18 +1,34 @@
-"""The decoder-only pieces of the Transformer: serving and training.
+"""The Transformer of ``simple_tensorflow_tpu/models/transformer.py``:
+the seq2seq training graph, and the decoder-only eager pieces of
+serving and causal-LM training.
 
-Port of the parts of ``simple_tensorflow_tpu/models/transformer.py`` that
-paged causal-LM serving and causal-LM training run:
-``TransformerConfig`` (:35), ``sinusoidal_position_encoding`` (:131),
-``_incremental_decode`` (:438) and ``_block_decode`` (:512) with
-``cross_kv=None`` (no cross-attention sublayer, no ``ln2``),
-``build_int8_logits_weights`` (:743), and the training sublayers
-``_residual`` (:142), ``_attention`` (:152), ``_ffn`` (:181), ``_embed``
-(:189) and ``smoothed_xent`` (:263); ``_ln`` (:67) is the
-:class:`.common.LayerNorm` module. The seq2seq model and beam search come
-in later slices.
+**The training graph** (TF-1 front end), the JAX file's ``_init``,
+``_ln``, ``_dense`` (:63-72), ``_residual`` (:142), ``_attention`` (:152),
+``_ffn`` (:181), ``_embed`` (:189), ``_pad_bias`` (:206), ``encode``,
+``decode``, ``smoothed_xent`` (:263) and ``transformer_train_model``
+(:282), ``synthetic_wmt_batch`` (:1407) and
+``transformer_flops_per_token`` (:1417): the same user code builds the
+same graph op for op (names, types, inputs, seeds) and the same variables
+(``transformer/encoder/layer_0/self_attn/q/kernel``, …; Dense variables
+in the compute dtype, the embedding and the LayerNorm parameters f32),
+trained by ``stf.Session``. Not ported: ``recompute`` other than False
+(it needs ``stf.recompute_grad`` and the cost model,
+``framework/cost_model.py``) and ``data_parallel=True``; both raise
+``NotImplementedError``.
 
-In training with ``cfg.dropout > 0`` the sublayers drop as the JAX graph
-does, each random op drawing from a per-step
+**The eager pieces**: ``TransformerConfig`` (:35),
+``sinusoidal_position_encoding`` (:131), ``_incremental_decode`` (:438)
+and ``_block_decode`` (:512) with ``cross_kv=None`` (no cross-attention
+sublayer, no ``ln2``), ``build_int8_logits_weights`` (:743), and the
+causal-LM training sublayers. Where a private name of the JAX file is
+both, the graph function keeps it and the eager sublayer is
+``_eager_residual``, ``_eager_attention``, ``_eager_ffn`` or
+``_eager_embed``; ``smoothed_xent`` takes either (it builds graph ops for
+graph tensors). ``_ln`` is :class:`.common.LayerNorm` in the eager
+models.
+
+In eager training with ``cfg.dropout > 0`` the sublayers drop as the JAX
+graph does, each random op drawing from a per-step
 :class:`..framework.random_seed.StepRNG` under its JAX op name (``scope``
 is the op's variable scope): the embedding and the FFN activation through
 ``nn_ops._dropout_impl`` (threefry keys), the attention probabilities
@@ -34,11 +50,15 @@ import numpy as np
 import torch
 from torch import nn
 
+import simple_tensorflow_tpu_torch as stf
+
+from ..framework import graph as ops_mod
 from ..layers.core import DenseModule
 from ..ops import fused_ops, nn_ops
 from ..ops.embedding_ops import embedding_lookup
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.quant_matmul import div127
+from . import common
 from .common import LayerNorm, merge_heads, split_heads
 
 
@@ -216,7 +236,7 @@ def _dropping(cfg: TransformerConfig, training) -> bool:
     return bool(training) and cfg.dropout > 0
 
 
-def _residual(sub_out, h, cfg: TransformerConfig, training, rng=None,
+def _eager_residual(sub_out, h, cfg: TransformerConfig, training, rng=None,
               scope=""):
     """Sublayer tail ``h + dropout(sub_out)`` through the fused op (JAX op
     ``{scope}/fused_dropout_residual``); rate 0 is the plain add."""
@@ -227,7 +247,7 @@ def _residual(sub_out, h, cfg: TransformerConfig, training, rng=None,
         seed=rng.seed_for(f"{scope}/fused_dropout_residual"))
 
 
-def _attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
+def _eager_attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
                causal=True, rng=None, scope=""):
     """Self-attention of ``x (B, S, D)``: q/k/v projections, heads split
     to ``(B, H, S, hd)``, the flash-attention kernels (probability
@@ -248,7 +268,7 @@ def _attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
     return att["out"](merge_heads(ctx, b, s, d))
 
 
-def _ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training, rng=None,
+def _eager_ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training, rng=None,
          scope=""):
     """FFN in (ReLU), dropout of the activation (JAX op
     ``{scope}/dropout``), FFN out."""
@@ -259,7 +279,7 @@ def _ffn(layer: DecoderLayer, x, cfg: TransformerConfig, training, rng=None,
     return layer.ffn["out"](h)
 
 
-def _embed(stack: DecoderStack, ids, compute_dtype, training, rng=None,
+def _eager_embed(stack: DecoderStack, ids, compute_dtype, training, rng=None,
            scope=""):
     """Scaled shared-embedding rows plus sinusoidal positions, in the
     compute dtype: the lookup gathers in ``compute_dtype`` and its
@@ -280,7 +300,8 @@ def _embed(stack: DecoderStack, ids, compute_dtype, training, rng=None,
 
 def smoothed_xent(logits, labels, weights, cfg: TransformerConfig):
     """Label-smoothed cross entropy minus the smoothed target's entropy,
-    weight-masked mean (f32 loss math), through the fused xent kernels."""
+    weight-masked mean (f32 loss math), through the fused xent kernels;
+    graph ops for graph tensors (the JAX function's ops)."""
     vocab = cfg.vocab_size
     conf = 1.0 - cfg.label_smoothing
     low = cfg.label_smoothing / (vocab - 1)
@@ -289,5 +310,192 @@ def smoothed_xent(logits, labels, weights, cfg: TransformerConfig):
     norm = -(conf * math.log(conf) +
              (vocab - 1) * low * math.log(low + 1e-20))
     per_tok = per_tok - norm
+    if isinstance(per_tok, ops_mod.Tensor):
+        w = stf.cast(weights, stf.float32)
+        return stf.reduce_sum(per_tok * w) / (stf.reduce_sum(w) + 1e-9)
     w = weights.float()
     return (per_tok * w).sum() / (w.sum() + 1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The training graph (TF-1 front end)
+# ---------------------------------------------------------------------------
+
+def _init(cfg):
+    return stf.variance_scaling_initializer(1.0, "fan_avg", "uniform")
+
+
+def _ln(x, cfg, name):
+    return common.layer_norm(x, name, eps=cfg.layer_norm_eps)
+
+
+def _dense(x, units, cfg, name, activation=None):
+    return common.dense(x, units, _init(cfg), name, activation=activation)
+
+
+def _residual(sub_out, h, cfg, training):
+    """Sublayer tail ``h + dropout(sub_out)`` through the fused op; rate 0
+    builds the plain add."""
+    rate = cfg.dropout if training else 0.0
+    return stf.nn.fused_bias_dropout_residual(sub_out, h, rate=rate)
+
+
+def _attention(q_in, kv_in, bias, cfg, training, compute_dtype, name,
+               causal=False):
+    """q_in (B,Sq,D) attends over kv_in (B,Sk,D); ``bias`` the additive
+    (B,1,1,Sk) pad bias or None; the flash-attention op, probability
+    dropout inside it."""
+    b = int(q_in.shape[0])
+    sq, sk = int(q_in.shape[1]), int(kv_in.shape[1])
+    d, heads = cfg.d_model, cfg.num_heads
+    hd = d // heads
+    with stf.variable_scope(name):
+        q = _dense(q_in, d, cfg, "q")
+        k = _dense(kv_in, d, cfg, "k")
+        v = _dense(kv_in, d, cfg, "v")
+        q = common.split_heads(q, b, sq, heads, hd)
+        k = common.split_heads(k, b, sk, heads, hd)
+        v = common.split_heads(v, b, sk, heads, hd)
+        key_bias = stf.reshape(bias, [b, sk]) if bias is not None else None
+        ctx = stf.nn.fused_attention(
+            q, k, v, bias=key_bias, causal=causal,
+            dropout_rate=cfg.dropout if training else 0.0)
+        out = _dense(common.merge_heads(ctx, b, sq, d), d, cfg, "out")
+    return out
+
+
+def _ffn(x, cfg, training, name):
+    with stf.variable_scope(name):
+        h = _dense(x, cfg.d_ff, cfg, "in", activation=stf.nn.relu)
+        if training and cfg.dropout > 0:
+            h = stf.nn.dropout(h, keep_prob=1.0 - cfg.dropout)
+        return _dense(h, cfg.d_model, cfg, "out")
+
+
+def _embed(ids, cfg, compute_dtype, training):
+    """Shared embedding table (f32), scaled, plus sinusoidal positions, in
+    the compute dtype; then dropout."""
+    emb = stf.get_variable(
+        "shared_embedding", [cfg.vocab_size, cfg.d_model],
+        initializer=stf.random_normal_initializer(
+            stddev=cfg.d_model ** -0.5))
+    s = int(ids.shape[1])
+    h = stf.nn.embedding_lookup(emb, ids, compute_dtype=compute_dtype) \
+        * stf.cast(stf.constant(cfg.d_model ** 0.5), compute_dtype)
+    pos = sinusoidal_position_encoding(cfg.max_len, cfg.d_model)[:s]
+    h = h + stf.cast(stf.constant(pos[None, :, :]), compute_dtype)
+    if training and cfg.dropout > 0:
+        h = stf.nn.dropout(h, keep_prob=1.0 - cfg.dropout)
+    return h, emb
+
+
+def _pad_bias(ids, cfg):
+    """(B,S) ids -> additive bias (B,1,1,S): -1e9 on pad positions."""
+    b, s = int(ids.shape[0]), int(ids.shape[1])
+    is_pad = stf.cast(stf.equal(ids, cfg.pad_id), stf.float32)
+    return stf.reshape(is_pad, [b, 1, 1, s]) * -1e9
+
+
+def _no_recompute(recompute):
+    if recompute:
+        raise NotImplementedError(
+            "recompute is not ported (it needs stf.recompute_grad and the "
+            "cost model, framework/cost_model.py)")
+
+
+def encode(src_ids, cfg, training=True, compute_dtype=stf.bfloat16,
+           scope="transformer", recompute=False):
+    _no_recompute(recompute)
+    with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
+        h, _ = _embed(src_ids, cfg, compute_dtype, training)
+        bias = _pad_bias(src_ids, cfg)
+        with stf.variable_scope("encoder"):
+            for i in range(cfg.num_layers):
+                with stf.variable_scope(f"layer_{i}"):
+                    a = _attention(h, h, bias, cfg, training,
+                                   compute_dtype, "self_attn")
+                    h = _ln(_residual(a, h, cfg, training), cfg, "ln1")
+                    f = _ffn(h, cfg, training, "ffn")
+                    h = _ln(h + f, cfg, "ln2")
+    return h, bias
+
+
+def decode(tgt_ids, enc_out, enc_bias, cfg, training=True,
+           compute_dtype=stf.bfloat16, scope="transformer",
+           recompute=False):
+    """Returns logits (B, St, vocab); causal self-attention over
+    tgt_ids, cross-attention over ``enc_out``; the tied softmax weights in
+    the compute dtype."""
+    _no_recompute(recompute)
+    with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
+        h, emb = _embed(tgt_ids, cfg, compute_dtype, training)
+        with stf.variable_scope("decoder"):
+            for i in range(cfg.num_layers):
+                with stf.variable_scope(f"layer_{i}"):
+                    a = _attention(h, h, None, cfg, training,
+                                   compute_dtype, "self_attn", causal=True)
+                    h = _ln(_residual(a, h, cfg, training), cfg, "ln1")
+                    c = _attention(h, enc_out, enc_bias, cfg, training,
+                                   compute_dtype, "cross_attn")
+                    h = _ln(_residual(c, h, cfg, training), cfg, "ln2")
+                    f = _ffn(h, cfg, training, "ffn")
+                    h = _ln(h + f, cfg, "ln3")
+        b, s = int(tgt_ids.shape[0]), int(tgt_ids.shape[1])
+        flat = stf.reshape(h, [b * s, cfg.d_model])
+        logits = stf.matmul(flat, stf.cast(emb, h.dtype.base_dtype),
+                            transpose_b=True)
+        return stf.reshape(logits, [b, s, cfg.vocab_size])
+
+
+def transformer_train_model(batch_size=64, src_len=64, tgt_len=64,
+                            cfg: TransformerConfig | None = None,
+                            learning_rate=1.0, warmup_steps=4000,
+                            compute_dtype=stf.bfloat16, data_parallel=False,
+                            recompute=False):
+    """Training graph: src/tgt -> label-smoothed loss -> Adam (beta2
+    0.997, eps 1e-9) with the noam learning rate on the global step."""
+    cfg = cfg or TransformerConfig.big()
+    if data_parallel:
+        raise NotImplementedError("data_parallel is not ported")
+    _no_recompute(recompute)
+    src = stf.placeholder(stf.int32, [batch_size, src_len], "src_ids")
+    tgt_in = stf.placeholder(stf.int32, [batch_size, tgt_len], "tgt_in")
+    tgt_out = stf.placeholder(stf.int32, [batch_size, tgt_len], "tgt_out")
+    enc_out, enc_bias = encode(src, cfg, training=True,
+                               compute_dtype=compute_dtype)
+    logits = decode(tgt_in, enc_out, enc_bias, cfg, training=True,
+                    compute_dtype=compute_dtype)
+    weights = stf.cast(stf.not_equal(tgt_out, cfg.pad_id), stf.float32)
+    loss = smoothed_xent(logits, tgt_out, weights, cfg)
+
+    gs = stf.train.get_or_create_global_step()
+    # noam schedule: d^-0.5 * min(step^-0.5, step*warmup^-1.5)
+    step = stf.cast(gs, stf.float32) + 1.0
+    lr = (learning_rate * cfg.d_model ** -0.5 *
+          stf.minimum(stf.pow(step, -0.5), step * warmup_steps ** -1.5))
+    opt = stf.train.AdamOptimizer(lr, beta1=0.9, beta2=0.997, epsilon=1e-9)
+    train_op = opt.minimize(loss, global_step=gs)
+    acc = stf.reduce_sum(stf.cast(stf.equal(
+        stf.cast(stf.argmax(logits, -1, output_type=stf.int32), stf.int32),
+        tgt_out), stf.float32) * weights) / (stf.reduce_sum(weights) + 1e-9)
+    return {"src_ids": src, "tgt_in": tgt_in, "tgt_out": tgt_out,
+            "loss": loss, "train_op": train_op, "accuracy": acc,
+            "learning_rate": lr, "global_step": gs}
+
+
+def synthetic_wmt_batch(batch_size, src_len, tgt_len, vocab_size=32768,
+                        seed=0):
+    rng = np.random.RandomState(seed)
+    src = rng.randint(2, vocab_size, (batch_size, src_len)).astype(np.int32)
+    tgt = rng.randint(2, vocab_size, (batch_size, tgt_len)).astype(np.int32)
+    tgt_in = np.concatenate(
+        [np.full((batch_size, 1), 1, np.int32), tgt[:, :-1]], axis=1)
+    return {"src_ids": src, "tgt_in": tgt_in, "tgt_out": tgt}
+
+
+def transformer_flops_per_token(cfg: TransformerConfig, src_len, tgt_len):
+    d, ffn, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    enc = L * 2 * (4 * d * d + 2 * d * ffn + 2 * src_len * d)
+    dec = L * 2 * (8 * d * d + 2 * d * ffn + 2 * (src_len + tgt_len) * d)
+    emb = 2 * d * cfg.vocab_size
+    return (enc + dec) / 2 + emb  # rough per-token average

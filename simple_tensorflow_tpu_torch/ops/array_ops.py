@@ -1,11 +1,12 @@
 """Array ops of the port's graph front end.
 
 Port of the part of ``simple_tensorflow_tpu/ops/array_ops.py`` the MNIST
-graphs and the optimizers reach: ``Placeholder`` (:317),
+and transformer graphs and the optimizers reach: ``Placeholder`` (:317),
 ``PlaceholderWithDefault`` (:328), ``Identity``, ``StopGradient``,
-``Reshape`` (:373), ``Fill``, ``Slice`` and the constant-backed
-``zeros``. Each op lowers to a torch function of its inputs and
-static attrs. Left out: the other ~60 array ops (concat, gather, pad,
+``Reshape`` (:373), ``Transpose`` (:394), ``Gather`` (:644, ``jnp.take``
+along ``axis``), ``Fill``, ``Slice`` and the constant-backed ``zeros`` and
+``ones``. Each op lowers to a torch function of its inputs and
+static attrs. Left out: the other ~60 array ops (concat, pad,
 strided slices, ...).
 """
 
@@ -31,6 +32,13 @@ op_registry.register_pure("StopGradient", lambda x: x.detach())
 op_registry.register_pure("Reshape", lambda x, shape: torch.reshape(x, shape))
 op_registry.register_pure("Fill", lambda value, dims=None: value.expand(
     dims).clone())
+op_registry.register_pure(
+    "Transpose", lambda x, perm=None: x.permute(
+        *(perm if perm is not None else builtins.range(x.dim() - 1, -1, -1))))
+op_registry.register_pure(
+    "Gather", lambda params, indices, axis=0: torch.index_select(
+        params, axis, indices.reshape(-1).long()).reshape(
+        params.shape[:axis] + indices.shape + params.shape[axis + 1:]))
 op_registry.register_pure("Slice", lambda x, begin=None, size=None: x[
     tuple(builtins.slice(b, b + s) for b, s in zip(begin, size))])
 
@@ -88,6 +96,34 @@ def zeros(shape, dtype=dtypes_mod.float32, name=None):
     dt = dtypes_mod.as_dtype(dtype)
     sh = _static_shape_arg(shape, "zeros")
     return constant(np.zeros(sh, dtype=dt.np_dtype), name=name or "zeros")
+
+
+def ones(shape, dtype=dtypes_mod.float32, name=None):
+    dt = dtypes_mod.as_dtype(dtype)
+    sh = _static_shape_arg(shape, "ones")
+    return constant(np.ones(sh, dtype=dt.np_dtype), name=name or "ones")
+
+
+def transpose(a, perm=None, name=None):
+    x = ops_mod.convert_to_tensor(a)
+    if perm is not None:
+        perm = tuple(int(p) for p in (
+            constant_op.constant_value(perm) if isinstance(perm, Tensor)
+            else perm))
+    return make_op("Transpose", [x], attrs={"perm": perm}, name=name)
+
+
+def gather(params, indices, validate_indices=None, name=None, axis=0):
+    from . import variables as variables_mod
+
+    if isinstance(params, variables_mod.Variable):
+        params = params._ref
+    params = ops_mod.convert_to_tensor(params)
+    indices = ops_mod.convert_to_tensor(indices)
+    if isinstance(axis, Tensor):
+        axis = int(constant_op.constant_value(axis))
+    return make_op("Gather", [params, indices], attrs={"axis": int(axis)},
+                   name=name)
 
 
 def fill(dims, value, name=None):

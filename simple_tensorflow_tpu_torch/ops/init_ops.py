@@ -1,9 +1,11 @@
 """Initializers of the port (port of the part of ``simple_tensorflow_tpu/
-ops/init_ops.py`` the MNIST graphs reach: ``Zeros``, ``VarianceScaling``
-(:108) and ``glorot_uniform_initializer`` (:206)). Each returns a graph
-tensor, so initialization runs on the device inside the initializer run.
-Left out: the constant, normal, truncated-normal, orthogonal and identity
-initializers.
+ops/init_ops.py`` the MNIST and transformer graphs reach: ``Zeros``,
+``Ones`` (:38), ``RandomNormal`` (:74), ``VarianceScaling`` (:108) and
+``glorot_uniform_initializer`` (:206)). Each returns a graph tensor, so
+initialization runs on the device inside the initializer run. A
+``VarianceScaling`` uniform draw in bf16 is drawn in f32 and cast, as the
+JAX ``_ru`` does. Left out: the constant, truncated-normal, orthogonal and
+identity initializers.
 """
 
 from __future__ import annotations
@@ -27,6 +29,27 @@ class Zeros(Initializer):
         from . import array_ops
 
         return array_ops.zeros(shape, dtype or self.dtype)
+
+
+class Ones(Initializer):
+    def __init__(self, dtype=dtypes_mod.float32):
+        self.dtype = dtypes_mod.as_dtype(dtype)
+
+    def __call__(self, shape, dtype=None, partition_info=None):
+        from . import array_ops
+
+        return array_ops.ones(shape, dtype or self.dtype)
+
+
+class RandomNormal(Initializer):
+    def __init__(self, mean=0.0, stddev=1.0, seed=None,
+                 dtype=dtypes_mod.float32):
+        self.mean, self.stddev, self.seed = mean, stddev, seed
+        self.dtype = dtypes_mod.as_dtype(dtype)
+
+    def __call__(self, shape, dtype=None, partition_info=None):
+        return random_ops.random_normal(shape, self.mean, self.stddev,
+                                        dtype or self.dtype, seed=self.seed)
 
 
 class VarianceScaling(Initializer):
@@ -75,6 +98,8 @@ def _compute_fans(shape):
 
 
 zeros_initializer = Zeros
+ones_initializer = Ones
+random_normal_initializer = RandomNormal
 
 
 def variance_scaling_initializer(scale=1.0, mode="fan_in",

@@ -35,6 +35,9 @@ _U = ctypes.c_uint
 # the dropout arguments of the flash kernels: rate > 0 as 0/1, seed,
 # keep threshold, f32(1 / keep_prob)
 _DROP = [_I, _U, _U, _F]
+# the same after the causal flag in the seed-pointer entries: the seed's
+# device pointer, keep threshold, f32(1 / keep_prob)
+_DROP_PTR = [_P, _U, _F]
 # argtypes of every C entry point: pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
@@ -50,12 +53,20 @@ SIGNATURES = {
                                  _I, _I, _I, _F, _I, *_DROP, _I, _P],
     "stf_flash_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _F, _I, *_DROP, _I, _P],
+    "stf_flash_attention_fwd_seed_ptr": [_P] * 6 + [_I] * 5 + [
+        _F, _I, *_DROP_PTR, _I, _P],
+    "stf_flash_attention_dkdv_seed_ptr": [_P] * 9 + [_I] * 5 + [
+        _F, _I, *_DROP_PTR, _I, _P],
+    "stf_flash_attention_dq_seed_ptr": [_P] * 8 + [_I] * 5 + [
+        _F, _I, *_DROP_PTR, _I, _P],
     "stf_softmax_xent_fwd": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     "stf_softmax_xent_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     "stf_adam_update": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _P],
     "stf_momentum_update": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     "stf_dropout_residual": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _I,
                              _P],
+    "stf_dropout_residual_seed_ptr": [_P, _P, _P, _P, _I, _I, _P, _U, _F,
+                                      _I, _I, _P],
     "stf_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _I, _I, _P],
     "stf_dropout_key": [_P, _P, _P, _L, _P, _U, _F, _I, _I, _P],
     "stf_dropout_bwd": [_P, _P, _P, _L, _F, _I, _I, _P],

@@ -34,12 +34,19 @@ _LAUNCHES = {
     "flash_attention_fwd": 0,
     "flash_attention_dkdv": 0,
     "flash_attention_dq": 0,
+    # the seed-pointer entries of the flash and K4 kernels (the seed read
+    # on the device: what a captured Session step launches)
+    "flash_attention_fwd_device_seed": 0,
+    "flash_attention_dkdv_device_seed": 0,
+    "flash_attention_dq_device_seed": 0,
     "softmax_xent_fwd": 0,
     "softmax_xent_bwd": 0,
     "adam_update": 0,
     "momentum_update": 0,
     "dropout_residual": 0,
     "dropout_residual_bwd": 0,
+    "dropout_residual_device_seed": 0,
+    "dropout_residual_bwd_device_seed": 0,
     "dropout": 0,
     "dropout_device_key": 0,
     "dropout_bwd": 0,
@@ -87,8 +94,13 @@ def counter_keep_mask_plain(seed: int, salt, rows, cols, keep_prob: float):
     """Keep mask ``mix32(mix32(mix32(seed ^ salt * 0x9E3779B9) ^ row) ^
     col) < keep_threshold`` from GLOBAL indices: ``salt``, ``rows`` and
     ``cols`` int64 tensors (broadcast), ``seed`` an int (an int32 seed
-    wraps to uint32)."""
-    h0 = mix32_plain((int(seed) & _M32) ^ _mul32(salt & _M32, 0x9E3779B9))
+    wraps to uint32) or a one-element int32 tensor holding its bits (read
+    on its device without a sync)."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).to(torch.int64) & _M32
+    else:
+        seed = int(seed) & _M32
+    h0 = mix32_plain(seed ^ _mul32(salt & _M32, 0x9E3779B9))
     h = mix32_plain(h0 ^ (rows & _M32))
     h = mix32_plain(h ^ (cols & _M32))
     return h < keep_threshold(keep_prob)
@@ -103,10 +115,30 @@ def scale_kept(v, keep, keep_prob: float):
     return torch.where(keep, v * scale, torch.zeros_like(v))
 
 
-def seed_word(seed) -> int:
+def seed_word(seed):
     """An int32 dropout seed (int, numpy or CPU tensor scalar, or a
-    one-element array) as the uint32 word the kernels take."""
+    one-element array) as the uint32 word the kernels take. A one-element
+    int32 tensor (a row of the seed buffer a compiled Session step reads,
+    on the kernels' device) comes back as a ``(1,)`` view: the kernels'
+    seed-pointer entries read it on the device, so a CUDA graph replays
+    with the buffer's current seed."""
+    if isinstance(seed, torch.Tensor) and seed.dtype == torch.int32:
+        if seed.numel() != 1:
+            raise ValueError(f"a seed tensor holds one int32, got "
+                             f"{tuple(seed.shape)}")
+        return seed.reshape(1)
     return int(np.asarray(seed).reshape(-1)[0]) & _M32
+
+
+def device_seed(seed, device):
+    """True when ``seed`` (a :func:`seed_word`) is a tensor, which must
+    lie on ``device``: launch the seed-pointer entry."""
+    if not isinstance(seed, torch.Tensor):
+        return False
+    if seed.device != device:
+        raise ValueError(f"the seed tensor lies on {seed.device}, the "
+                         f"kernel's tensors on {device}")
+    return True
 
 
 def count_launch(name: str) -> None:

@@ -5,8 +5,10 @@ Replaces the TPU kernel ``simple_tensorflow_tpu/ops/pallas/
 dropout_residual.py:_kernel`` (called at :71) and its custom VJP
 (``_dbr_bwd_rule``, :99-115). The keep mask is K0, the counter hash of
 (seed, salt 0, global row, column) (``common.counter_keep_mask_plain``),
-so the backward regenerates it from the int32 seed and nothing is saved,
-as the JAX VJP saves nothing:
+so the backward regenerates it from the int32 seed and nothing is saved
+but the seed, as the JAX VJP saves nothing. The seed is a host int, or a
+one-element int32 tensor on the card (a row of a compiled Session step's
+seed buffer) that the kernel's seed-pointer entry reads there:
 
 - forward: ``out = (residual + where(keep, (x + bias) * f32(1/kp), 0))``
   in f32, rounded once to ``x``'s dtype;
@@ -30,8 +32,8 @@ import torch
 
 from . import _build
 from .common import (DTYPE_CODES, cdiv, check_cuda_arg, check_status,
-                     count_launch, counter_keep_mask_plain, keep_threshold,
-                     scale_kept, seed_word, uses_kernel)
+                     count_launch, counter_keep_mask_plain, device_seed,
+                     keep_threshold, scale_kept, seed_word, uses_kernel)
 
 # 16-byte vectors a lane the vector path holds: those of the shipped
 # widths, d_model 512 and 1024 (a row of at most 1024 values)
@@ -96,15 +98,23 @@ def _check(x, residual, bias):
 def launch(name, x, residual, bias, rate, seed, nv):
     """One launch on checked CUDA tensors, counted under ``name``: the
     vector path with ``nv`` vectors a lane, or the general path for ``nv
-    == 0``."""
+    == 0``. A seed tensor (:func:`.common.seed_word`) launches the
+    seed-pointer entry, counted under ``{name}_device_seed``."""
     rows, n = x.shape
     keep_prob = 1.0 - rate
     out = torch.empty_like(x)
-    status = _build.library().stf_dropout_residual(
+    seed = seed_word(seed)
+    on_device = device_seed(seed, x.device)
+    lib = _build.library()
+    entry = lib.stf_dropout_residual_seed_ptr if on_device \
+        else lib.stf_dropout_residual
+    status = entry(
         x.data_ptr(), None if residual is None else residual.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), rows, n,
-        seed_word(seed), keep_threshold(keep_prob), 1.0 / keep_prob, nv,
-        DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
+        seed.data_ptr() if on_device else seed, keep_threshold(keep_prob),
+        1.0 / keep_prob, nv, DTYPE_CODES[x.dtype],
+        _build.stream_handle(x.device))
+    name += "_device_seed" if on_device else ""
     check_status(name, status)
     count_launch(name)
     return out

@@ -11,7 +11,9 @@ differentiation. Ragged sequence lengths are masked inside the kernels;
 nothing is padded.
 
 Attention-probability dropout (``dropout_rate > 0`` with an int32
-``dropout_seed``) keeps the TPU kernels' order: the keep mask is K0, the
+``dropout_seed``: a host int, or a one-element int32 tensor on the card,
+which the kernels' seed-pointer entries read there, counted as
+``flash_attention_*_device_seed``: what a CUDA graph replays) keeps the TPU kernels' order: the keep mask is K0, the
 counter hash of (seed, salt = flattened head ``b * H + h``, global query
 row, global key column), so it does not depend on tiling and the backward
 regenerates it; the softmax denominator sums the undropped ``p``, only the
@@ -38,8 +40,8 @@ import torch
 
 from . import _build
 from .common import (DTYPE_CODES, NEG_INF, check_cuda_arg, check_status,
-                     count_launch, counter_keep_mask_plain, keep_threshold,
-                     scale_kept, seed_word, uses_kernel)
+                     count_launch, counter_keep_mask_plain, device_seed,
+                     keep_threshold, scale_kept, seed_word, uses_kernel)
 
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -194,16 +196,29 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _drop_args(dropout_rate, dropout_seed):
-    """The kernels' dropout arguments: (on, seed word, keep threshold,
-    f32(1/keep_prob))."""
+def _drop_args(dropout_rate, dropout_seed, device):
+    """The kernels' dropout arguments and the entry to launch: ``(entry
+    suffix, (on, seed word, keep threshold, f32(1/keep_prob)))``, or, for
+    a seed tensor (:func:`.common.seed_word`), the seed-pointer entry
+    ``_seed_ptr`` with ``(seed pointer, threshold, f32(1/keep_prob))``."""
     if dropout_rate == 0.0:
-        return 0, 0, 0, 1.0
+        return "", (0, 0, 0, 1.0)
     if dropout_seed is None:
         raise ValueError("flash attention dropout needs dropout_seed")
     keep_prob = 1.0 - dropout_rate
-    return (1, seed_word(dropout_seed), keep_threshold(keep_prob),
-            1.0 / keep_prob)
+    seed = seed_word(dropout_seed)
+    if device_seed(seed, device):
+        return "_seed_ptr", (seed.data_ptr(), keep_threshold(keep_prob),
+                             1.0 / keep_prob)
+    return "", (1, seed, keep_threshold(keep_prob), 1.0 / keep_prob)
+
+
+def _entry(name, suffix, status_args):
+    """Launch the C entry ``stf_{name}{suffix}`` and count it
+    (``{name}_device_seed`` for the seed-pointer entry)."""
+    status = getattr(_build.library(), f"stf_{name}{suffix}")(*status_args)
+    check_status(name + suffix, status)
+    count_launch(name + ("_device_seed" if suffix else ""))
 
 
 def flash_attention_fwd(q, k, v, *, heads, sm_scale, causal, bias=None,
@@ -219,14 +234,12 @@ def flash_attention_fwd(q, k, v, *, heads, sm_scale, causal, bias=None,
     bh, sq, sk, d = _check(q, k, v, bias, heads)
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    lib = _build.library()
-    status = lib.stf_flash_attention_fwd(
+    suffix, drop = _drop_args(dropout_rate, dropout_seed, q.device)
+    _entry("flash_attention_fwd", suffix, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
         lse.data_ptr(), bh, sq, sk, heads, d, float(sm_scale),
-        int(bool(causal)), *_drop_args(dropout_rate, dropout_seed),
-        DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
-    check_status("flash_attention_fwd", status)
-    count_launch("flash_attention_fwd")
+        int(bool(causal)), *drop, DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device)))
     return o, lse
 
 
@@ -253,15 +266,13 @@ def flash_attention_dkdv(q, k, v, dout, lse, delta, *, heads, sm_scale,
                            _bwd_extra(q, dout, lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.library()
-    status = lib.stf_flash_attention_dkdv(
+    suffix, drop = _drop_args(dropout_rate, dropout_seed, q.device)
+    _entry("flash_attention_dkdv", suffix, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dk.data_ptr(),
         dv.data_ptr(), bh, sq, sk, heads, d, float(sm_scale),
-        int(bool(causal)), *_drop_args(dropout_rate, dropout_seed),
-        DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
-    check_status("flash_attention_dkdv", status)
-    count_launch("flash_attention_dkdv")
+        int(bool(causal)), *drop, DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device)))
     return dk, dv
 
 
@@ -280,15 +291,12 @@ def flash_attention_dq(q, k, v, dout, lse, delta, *, heads, sm_scale,
     bh, sq, sk, d = _check(q, k, v, bias, heads,
                            _bwd_extra(q, dout, lse, delta))
     dq = torch.empty_like(q)
-    lib = _build.library()
-    status = lib.stf_flash_attention_dq(
+    suffix, drop = _drop_args(dropout_rate, dropout_seed, q.device)
+    _entry("flash_attention_dq", suffix, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dq.data_ptr(), bh, sq,
-        sk, heads, d, float(sm_scale), int(bool(causal)),
-        *_drop_args(dropout_rate, dropout_seed), DTYPE_CODES[q.dtype],
-        _build.stream_handle(q.device))
-    check_status("flash_attention_dq", status)
-    count_launch("flash_attention_dq")
+        sk, heads, d, float(sm_scale), int(bool(causal)), *drop,
+        DTYPE_CODES[q.dtype], _build.stream_handle(q.device)))
     return dq
 
 

@@ -1,9 +1,11 @@
 """Math ops of the port's graph front end.
 
 Port of the part of ``simple_tensorflow_tpu/ops/math_ops.py`` the MNIST
-graphs and the optimizers reach: ``Add``/``Sub``/``Mul``/``RealDiv``,
-``Cast`` (:587), ``AddN``, ``MatMul`` (:663), the reductions
-``Sum``/``Mean`` (:723), ``ArgMax`` (:777) and ``Equal`` (:541), with the
+and transformer graphs and the optimizers reach: ``Add``/``Sub``/``Mul``,
+``TrueDiv`` (what ``/``, ``truediv`` and ``divide`` build, :302-312) and
+``RealDiv`` (``realdiv``), ``Pow``, ``Minimum``, ``Cast`` (:587),
+``AddN``, ``MatMul`` (:663), the reductions ``Sum``/``Mean`` (:723),
+``ArgMax`` (:777), ``Equal`` (:541) and ``NotEqual``, with the
 JAX module's strictness on mixed-dtype binary ops (``TypeError``) and its
 64-bit rule (``argmax``'s default int64 output computes and fetches as
 int32). The Tensor operators (``+ - * / @``) are installed here on
@@ -34,8 +36,12 @@ def _narrow(dtype) -> torch.dtype:
 op_registry.register_pure("Add", torch.add)
 op_registry.register_pure("Sub", torch.sub)
 op_registry.register_pure("Mul", torch.mul)
+op_registry.register_pure("TrueDiv", torch.true_divide)
 op_registry.register_pure("RealDiv", torch.true_divide)
+op_registry.register_pure("Pow", torch.pow)
+op_registry.register_pure("Minimum", torch.minimum)
 op_registry.register_pure("Equal", torch.eq)
+op_registry.register_pure("NotEqual", torch.ne)
 op_registry.register_pure("Cast", lambda x, dtype: x.to(_narrow(dtype)))
 op_registry.register_pure("AddN", lambda *xs: builtins.sum(xs[1:], xs[0]))
 
@@ -88,15 +94,32 @@ def multiply(x, y, name=None):
 mul = multiply
 
 
+def divide(x, y, name=None):
+    return binary("TrueDiv", x, y, name)
+
+
 def truediv(x, y, name=None):
+    return binary("TrueDiv", x, y, name)
+
+
+def realdiv(x, y, name=None):
     return binary("RealDiv", x, y, name)
 
 
-divide = truediv
+def pow(x, y, name=None):  # noqa: A001
+    return binary("Pow", x, y, name)
+
+
+def minimum(x, y, name=None):
+    return binary("Minimum", x, y, name)
 
 
 def equal(x, y, name=None):
     return binary("Equal", x, y, name)
+
+
+def not_equal(x, y, name=None):
+    return binary("NotEqual", x, y, name)
 
 
 def cast(x, dtype, name=None):
@@ -171,6 +194,8 @@ def _install_operators():
     T.__rtruediv__ = lambda self, other: truediv(other, self)
     T.__matmul__ = lambda self, other: matmul(self, other)
     T.__rmatmul__ = lambda self, other: matmul(other, self)
+    T.__pow__ = lambda self, other: pow(self, other)
+    T.__rpow__ = lambda self, other: pow(other, self)
 
     from . import variables as variables_mod
 
@@ -182,7 +207,7 @@ def _install_operators():
 
     for dunder in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
                    "__rmul__", "__truediv__", "__rtruediv__", "__matmul__",
-                   "__rmatmul__"):
+                   "__rmatmul__", "__pow__", "__rpow__"):
         setattr(variables_mod.Variable, dunder, _mk(dunder))
 
 

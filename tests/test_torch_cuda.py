@@ -1313,3 +1313,192 @@ def test_serving_bucket_graphs_match_eager_on_card(cuda):
     for (ta, la), (tb, lb) in zip(*got):
         np.testing.assert_array_equal(ta, tb)
         np.testing.assert_array_equal(la, lb)
+
+
+SEED = 1234567
+
+
+def _seed_tensor(cuda, seed=SEED):
+    # a row of a seed buffer: the int32 bits of the seed on the card
+    return torch.tensor([seed], dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal,biased", [
+    (64, 64, True, False), (64, 64, False, True), (64, 96, False, True),
+    (200, 130, False, True)])
+def test_flash_seed_pointer_entries_match_launch_argument_on_card(
+        cuda, dtype, sq, sk, causal, biased):
+    # the three flash kernels with the seed read through a device pointer:
+    # bit-identical to the launch-argument entry; one *_device_seed count
+    # each and no launch-argument count; another seed in the buffer draws
+    # another mask
+    h, d = 4, 64
+    q, k, v, do, bias = _flash_inputs(cuda, dtype, 41, 2, h, sq, sk, d,
+                                      biased)
+    base = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias,
+                dropout_rate=0.1)
+    outs = []
+    for seed in (SEED, _seed_tensor(cuda)):
+        args = dict(base, dropout_seed=seed)
+        before = K.launch_counts()
+        o, lse = K.flash_attention_fwd(q, k, v, **args)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta, **args)
+        dq = K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        suffix = "_device_seed" if isinstance(seed, torch.Tensor) else ""
+        for name in ("fwd", "dkdv", "dq"):
+            name = f"flash_attention_{name}"
+            assert after[name + suffix] == before[name + suffix] + 1
+            other = name if suffix else name + "_device_seed"
+            assert after[other] == before[other]
+        outs.append((o, lse, dk, dv, dq))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    o2, _ = K.flash_attention_fwd(q, k, v, **dict(
+        base, dropout_seed=_seed_tensor(cuda, SEED + 1)))
+    assert not torch.equal(o2, outs[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n,biased", [(4096, 1024, False),
+                                           (37, 1000, True)])
+def test_dropout_residual_seed_pointer_entry_matches_on_card(
+        cuda, dtype, rows, n, biased):
+    # K4 and its dx with the seed read through a device pointer: bit for
+    # bit the launch-argument entry, on the vector and the general path;
+    # counted as dropout_residual(_bwd)_device_seed
+    dr = _kernel_module("dropout_residual")
+    x, res, bias = _k4_inputs(cuda, dtype, rows, n, biased)
+    want = dr.dropout_residual_fwd(x, res, bias, rate=0.1, seed=SEED)
+    want_dx = dr.dropout_residual_bwd(x, rate=0.1, seed=SEED)
+    before = K.launch_counts()
+    out = dr.dropout_residual_fwd(x, res, bias, rate=0.1,
+                                  seed=_seed_tensor(cuda))
+    dx = dr.dropout_residual_bwd(x, rate=0.1, seed=_seed_tensor(cuda))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("dropout_residual", "dropout_residual_bwd"):
+        assert after[name + "_device_seed"] == \
+            before[name + "_device_seed"] + 1
+        assert after[name] == before[name]
+    assert torch.equal(out, want) and torch.equal(dx, want_dx)
+    assert torch.equal(out, dr.dropout_residual_fwd_plain(
+        x, res, bias, rate=0.1, seed=_seed_tensor(cuda)))
+    assert not torch.equal(dr.dropout_residual_fwd(
+        x, res, bias, rate=0.1, seed=_seed_tensor(cuda, SEED + 1)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(64, 96), (96, 64), (64, 64)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_non_causal_pad_bias_at_sq_ne_sk_on_card(cuda, dtype, sq, sk,
+                                                       rate):
+    # the transformer's encoder and cross-attention case: non-causal, the
+    # (B, kv_len) pad bias (-1e9 on the last keys of one row, as
+    # _pad_bias builds it), Sq != Sk; forward and both backward kernels
+    # against the plain versions
+    h, d = 4, 64
+    q, k, v, do, _ = _flash_inputs(cuda, dtype, 43, 2, h, sq, sk, d, False)
+    bias = torch.zeros(2, sk, device=cuda)
+    bias[1, -7:] = -1e9
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=False, bias=bias,
+                dropout_rate=rate, dropout_seed=SEED if rate else None)
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _close(o, ro, 1e-5 if f32 else 2e-2)
+    _close(lse, rlse, 1e-5)
+    for out, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(out, ref, 1e-4 if f32 else 2e-2)
+    # the padded keys take no probability, so no dK/dV
+    pad = slice(h, 2 * h)
+    assert float(dk[pad, -7:].abs().max()) == 0.0
+    assert float(dv[pad, -7:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_transformer_session_graph_replays_match_eager_on_card(cuda):
+    # a tiny transformer_train_model (bf16, dropout 0.1, pads in src and
+    # tgt) through stf.Session: 4 steps captured (warm-up, capture, two
+    # replays) bit-identical to 4 eager steps, losses and every variable
+    # and Adam slot; the replays launch the seed-pointer entries; replays
+    # with the seed buffer left unfilled differ
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=64, num_heads=2,
+                               d_ff=128, num_layers=2, dropout=0.1,
+                               max_len=32)
+    b = tr.synthetic_wmt_batch(4, 16, 16, vocab_size=64, seed=0)
+    b["src_ids"][0, -3:] = 0
+    b["tgt_in"][1, -2:] = 0
+    b["tgt_out"][1, -3:] = 0
+    g = stf.Graph()
+    with g.as_default():
+        m = tr.transformer_train_model(4, 16, 16, cfg=cfg, warmup_steps=4)
+        init = stf.global_variables_initializer()
+    feeds = {m[k]: b[k] for k in ("src_ids", "tgt_in", "tgt_out")}
+    fetch = [m["loss"], m["train_op"]]
+    runs = []
+    for capture, refresh in ((True, True), (False, True), (True, False)):
+        with stf.Session(graph=g) as s:
+            s._capture = capture
+            s._refresh_seeds = refresh
+            s.run(init)
+            before = K.launch_counts()
+            losses = [s.run(fetch, feeds)[0] for _ in range(4)]
+            after = K.launch_counts()
+            state = {k: v.float().cpu().numpy()
+                     for k, v in s._variable_store.values.items()}
+            runs.append((losses, state, s.captures, {
+                k: after[k] - before[k] for k in after}))
+    (lg, sg, cg, ng), (le, se, ce, ne), (lf, _, _, _) = runs
+    assert cg == 1 and ce == 0
+    assert lg == le
+    for k in se:
+        np.testing.assert_array_equal(sg[k], se[k], err_msg=k)
+    # 2 layers x (enc self, dec self, cross) flash and K4 ops a step; the
+    # warm-up (step 1) passes its seeds as launch arguments, the replays
+    # (steps 2-4) read theirs on the device
+    assert ng["flash_attention_fwd"] == 6 and ng["dropout_residual"] == 6
+    for name in ("flash_attention_fwd", "flash_attention_dkdv",
+                 "flash_attention_dq", "dropout_residual",
+                 "dropout_residual_bwd"):
+        assert ng[name + "_device_seed"] == 3 * 6, name
+        assert ne[name + "_device_seed"] == 0 and ne[name] == 4 * 6, name
+    assert lf[0] == le[0] and all(a != b for a, b in zip(lf[1:], le[1:]))
+
+
+@pytest.mark.cuda
+def test_mixed_embedding_gradient_is_deterministic_on_card(cuda):
+    # the bf16 lookup's f32 gradient table, with many repeated ids, is the
+    # same bit for bit on every run (a captured step is held bit for bit
+    # against eager dispatch) and equal to the CPU's sum within f32 order
+    from simple_tensorflow_tpu_torch.ops.embedding_ops import embedding_lookup
+
+    rng = np.random.RandomState(5)
+    table = _t(rng.randn(512, 1024).astype(np.float32))
+    ids = _t(rng.randint(0, 40, (64, 64)).astype(np.int64))
+    g = _t(rng.randn(64, 64, 1024).astype(np.float32)).to(torch.bfloat16)
+
+    def grad(dev):
+        t = table.to(dev).requires_grad_()
+        out = embedding_lookup(t, ids.to(dev), compute_dtype=torch.bfloat16)
+        return torch.autograd.grad(out, t, g.to(dev))[0]
+
+    runs = [grad(cuda) for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    torch.testing.assert_close(runs[0].cpu(), grad("cpu"), rtol=1e-5,
+                               atol=1e-4)

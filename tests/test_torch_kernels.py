@@ -608,7 +608,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            "softmax_xent_bwd", "adam_update",
                            "momentum_update", "dropout_residual",
                            "dropout_residual_bwd", "dropout",
-                           "dropout_device_key", "dropout_bwd"}
+                           "dropout_device_key", "dropout_bwd",
+                           "flash_attention_fwd_device_seed",
+                           "flash_attention_dkdv_device_seed",
+                           "flash_attention_dq_device_seed",
+                           "dropout_residual_device_seed",
+                           "dropout_residual_bwd_device_seed"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -641,7 +646,10 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_flash_attention_dkdv", "stf_flash_attention_dq",
         "stf_softmax_xent_fwd", "stf_softmax_xent_bwd", "stf_adam_update",
         "stf_momentum_update", "stf_dropout_residual", "stf_dropout",
-        "stf_dropout_key", "stf_dropout_bwd"}
+        "stf_dropout_key", "stf_dropout_bwd",
+        "stf_flash_attention_fwd_seed_ptr",
+        "stf_flash_attention_dkdv_seed_ptr",
+        "stf_flash_attention_dq_seed_ptr", "stf_dropout_residual_seed_ptr"}
 
 
 def test_helpers_match_the_pallas_common_module():
