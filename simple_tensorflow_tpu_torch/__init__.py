@@ -6,8 +6,12 @@ The TF-1 front end: deferred graphs (``stf.placeholder``, ``stf.Variable``,
 NVIDIA H100 (or, with ``ConfigProto(device_count={"GPU": 0})``, on the
 CPU), beside the eager paths of the port: paged causal-LM serving and
 causal-LM and ResNet-50 training with hand-written CUDA kernels (see
-PERF.md). Importing the package loads no kernel library; the kernels are
-built and loaded at their first launch.
+PERF.md). The transformer, causal-LM and ResNet-50 training graphs
+(``models.transformer.transformer_train_model``,
+``models.causal_lm.causal_lm_train_model``,
+``models.resnet.resnet50_train_model``) train through the Session.
+Importing the package loads no kernel library; the kernels are built and
+loaded at their first launch.
 """
 
 from .framework import dtypes, errors
@@ -29,13 +33,15 @@ from .ops.array_ops import (fill, gather, identity, ones, placeholder,
                             placeholder_with_default, reshape, stop_gradient,
                             transpose, zeros)
 from .ops.control_flow_ops import group, no_op
+from .ops import init_ops
 from .ops.init_ops import (glorot_uniform_initializer, ones_initializer,
                            random_normal_initializer,
+                           truncated_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
 from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, matmul,
                            minimum, multiply, not_equal, pow, realdiv,
                            reduce_mean, reduce_sum, subtract, truediv)
-from .ops.random_ops import random_normal, random_uniform
+from .ops.random_ops import random_normal, random_uniform, truncated_normal
 from .ops.state_ops import assign, assign_add, assign_sub
 from .ops.variable_scope import (AUTO_REUSE, VariableScope, get_variable,
                                  get_variable_scope, variable_scope)
@@ -44,4 +50,4 @@ from .ops.variables import (Variable, global_variables,
                             initialize_all_variables, trainable_variables,
                             variables_initializer)
 from .client.session import Session, get_default_session
-from . import analysis, layers, nn, train
+from . import analysis, kernels, layers, nn, train

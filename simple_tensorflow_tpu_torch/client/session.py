@@ -44,10 +44,13 @@ from then on; a replay stages the feeds and the random ops' keys (still
 derived on the host from the run counter) and the dropout seeds drawn
 from them (``prng.randint``, for the flash and dropout-residual kernels'
 seed-pointer entries) into the graph's static buffers. A store whose
-tensors moved since a capture (a load, a new variable, a rebuilt flat
-buffer; ``VariableStore.version``) makes the next run of that key a
-warm-up again. On the CPU the same executable runs the op list eagerly
-into its static buffers. ``ExecutionPlan.compile`` warms up (dry:
+tensors moved since a capture or since the warm-up before it (a load, a
+new variable, a rebuilt flat buffer; ``VariableStore.version``) makes
+the next run of that key a warm-up again. On the CPU the same executable
+runs the op list eagerly into its static buffers. A run drops each value
+after its last use (``lowering.last_uses``), so activations autograd
+does not keep are freed during the forward, as in eager PyTorch.
+``ExecutionPlan.compile`` warms up (dry:
 nothing committed) and captures ahead of traffic. The private ``_capture
 = False`` runs every step eagerly (the reference the smoke and the tests
 hold the graphs against).
@@ -195,6 +198,7 @@ class _Plan:
         self.needs_grad = bool(grads)
         self.retain_graph = len(grads) > 1
         self.preserve = self._preserve(ops, fetch_tensors)
+        self.frees = lowering_mod.last_uses(ops, fetch_tensors)
         self.feed_tensors = list(feed_tensors)
         fed = set(feed_tensors)
         # the fetched tensors a step computes (a fed fetch is its feed)
@@ -204,7 +208,9 @@ class _Plan:
         # executables
         self.host_reads: Optional[List[Tensor]] = None
         self.executables: Dict[tuple, compiler.StepExecutable] = {}
-        self.warm: set = set()   # executable keys that have run eagerly
+        # executable key -> the store version its eager warm-up left: a
+        # store changed since (a load) warms up again before a capture
+        self.warm: Dict[tuple, int] = {}
 
     @staticmethod
     def _first_reads(ops):
@@ -552,7 +558,7 @@ class BaseSession:
         values (a value aliasing a store tensor the commit writes into is
         copied first)."""
         with torch.set_grad_enabled(plan.needs_grad):
-            lowering_mod.execute_ops(ctx, plan.ops)
+            lowering_mod.execute_ops(ctx, plan.ops, plan.frees)
         outs = [ctx.value_of(t) for t in plan.computed]
         targets = ctx.commit_targets()
         if targets:
@@ -582,11 +588,13 @@ class BaseSession:
                 exe.store_version != self._variable_store.version:
             del plan.executables[key]
             exe.release()
-            plan.warm.discard(key)
+            plan.warm.pop(key, None)
             exe = None
-        if exe is None and key not in plan.warm:
+        if exe is None and \
+                plan.warm.get(key) != self._variable_store.version:
             outs = self._run_eager(plan, feeds, warm_up=True)
-            plan.warm.add(self._exe_key(plan, feeds))
+            plan.warm[self._exe_key(plan, feeds)] = \
+                self._variable_store.version
             return self._values(plan, elements, feeds, outs)
         if exe is None:
             exe = self._capture_step(plan, key, feeds)
@@ -663,7 +671,7 @@ class BaseSession:
         self._run_eager(plan, feeds, warm_up=True, dry=True)
         key = self._exe_key(plan, feeds)
         exe = self._capture_step(plan, key, feeds)
-        plan.warm.add(key)
+        plan.warm[key] = self._variable_store.version
         return exe
 
     def _values(self, plan: _Plan, elements, feeds, outs):

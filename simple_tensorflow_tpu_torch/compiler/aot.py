@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..framework.constant_op import host_tensor
 from ..ops.kernels import common as kcommon
 
 
@@ -89,12 +90,7 @@ class StagedInput:
         if self._copied is not None:
             self._copied.synchronize()
         if not isinstance(value, torch.Tensor):
-            value = np.asarray(value)
-            if value.dtype.kind == "V":  # bfloat16: exact through f32
-                value = value.astype(np.float32)
-            if not value.flags.c_contiguous:
-                value = value.copy(order="C")
-            value = torch.from_numpy(value)
+            value = host_tensor(value)
         self._host.copy_(value)
         self.static.copy_(self._host, non_blocking=True)
         if self._copied is not None:

@@ -74,16 +74,26 @@ def constant_value(tensor):
     return None
 
 
+def host_tensor(arr) -> torch.Tensor:
+    """A CPU tensor over numpy ``arr``'s memory (bfloat16 values as their
+    2-byte bits, viewed); over a copy where the array is not contiguous or
+    not writable."""
+    arr = np.asarray(arr)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = np.array(arr, order="C")
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def to_torch(arr, device, dtype=None) -> torch.Tensor:
     """A numpy value as a new tensor on ``device``, of ``dtype`` (a torch
-    dtype) or else its own dtype narrowed (bfloat16 numpy values pass
-    through f32, which holds them exactly)."""
+    dtype) or else its own dtype narrowed (bfloat16 numpy values moved as
+    their bits)."""
     arr = np.asarray(arr)
     if dtype is None:
         dtype = dtypes_mod.as_dtype(arr.dtype).torch_dtype
-    if arr.dtype.kind == "V":
-        arr = arr.astype(np.float32)
-    return torch.tensor(arr).to(device=device, dtype=dtype)
+    return host_tensor(arr).to(device=device, dtype=dtype, copy=True)
 
 
 def _lower_const(ctx, op, inputs):

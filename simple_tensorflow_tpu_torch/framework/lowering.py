@@ -328,41 +328,72 @@ def _storages(ctx, op) -> Set[int]:
             for n in names if n in ctx.state}
 
 
-def execute_ops(ctx: LoweringContext, op_list: Sequence[Operation]):
-    """Run ``op_list`` in order, filling ``ctx.env``. With
-    ``ctx.timings`` a dict, adds the host seconds spent staging inputs
-    (``"feeds"``: the fed values' copies to the device), in
+def last_uses(op_list: Sequence[Operation], keep) -> Dict[Operation,
+                                                          List[Tensor]]:
+    """``{op: [tensor]}``: the values the run no longer needs once ``op``
+    has run (their last consumer in ``op_list``, or their producer when
+    nothing consumes them), the tensors of ``keep`` (the fetches) aside,
+    so that :func:`execute_ops` can drop them, as XLA frees a buffer
+    after its last use (what autograd saved for the backward stays alive
+    through its graph)."""
+    pos = {op: i for i, op in enumerate(op_list)}
+    last: Dict[Tensor, int] = {}
+    for i, op in enumerate(op_list):
+        for t in op.outputs:
+            last.setdefault(t, i)
+        for t in op.inputs:
+            if t.op in pos:
+                last[t] = max(last.get(t, -1), i)
+    keep = set(keep)
+    out: Dict[Operation, List[Tensor]] = {}
+    for t, i in last.items():
+        if t not in keep:
+            out.setdefault(op_list[i], []).append(t)
+    return out
+
+
+def execute_ops(ctx: LoweringContext, op_list: Sequence[Operation],
+                frees=None):
+    """Run ``op_list`` in order, filling ``ctx.env``; with ``frees``
+    (:func:`last_uses`), dropping each value from it after its last use.
+    With ``ctx.timings`` a dict, adds the host seconds spent staging
+    inputs (``"feeds"``: the fed values' copies to the device), in
     ``SymbolicGradient`` (``"autograd"``) and in every other lowering
     (``"dispatch"``)."""
     env = ctx.env
     timings = ctx.timings
     for op in op_list:
-        if timings is not None:
-            t0 = time.perf_counter()
-        opdef = op.op_def
-        if op.outputs and not opdef.is_stateful and \
-                all(o in env for o in op.outputs):
-            continue
-        if opdef.in_place and op in ctx.preserve:
-            written = _storages(ctx, op)
-            for t in ctx.preserve[op]:
-                v = env.get(t)
-                if isinstance(v, torch.Tensor) and \
-                        v.untyped_storage().data_ptr() in written:
-                    env[t] = v.detach().clone()
-        inputs = [env[t] if t in env else ctx.value_of(t)
-                  for t in op.inputs]
-        if timings is not None:
-            t1 = time.perf_counter()
-            timings["feeds"] = timings.get("feeds", 0.0) + t1 - t0
-        outputs = opdef.lower(ctx, op, inputs)
-        if timings is not None:
-            cat = "autograd" if op.type == "SymbolicGradient" \
-                else "dispatch"
-            timings[cat] = timings.get(cat, 0.0) + time.perf_counter() - t1
-        if len(outputs) != len(op.outputs):
-            raise RuntimeError(
-                f"Op {op.name} ({op.type}) lowered to {len(outputs)} "
-                f"outputs, graph says {len(op.outputs)}")
-        for t, v in zip(op.outputs, outputs):
-            env[t] = ctx._maybe_leaf(t, v) if ctx.grad_leaves else v
+        _run_op(ctx, op, env, timings)
+        if frees:
+            for t in frees.get(op, ()):
+                env.pop(t, None)
+
+
+def _run_op(ctx: LoweringContext, op: Operation, env, timings):
+    if timings is not None:
+        t0 = time.perf_counter()
+    opdef = op.op_def
+    if op.outputs and not opdef.is_stateful and \
+            all(o in env for o in op.outputs):
+        return
+    if opdef.in_place and op in ctx.preserve:
+        written = _storages(ctx, op)
+        for t in ctx.preserve[op]:
+            v = env.get(t)
+            if isinstance(v, torch.Tensor) and \
+                    v.untyped_storage().data_ptr() in written:
+                env[t] = v.detach().clone()
+    inputs = [env[t] if t in env else ctx.value_of(t) for t in op.inputs]
+    if timings is not None:
+        t1 = time.perf_counter()
+        timings["feeds"] = timings.get("feeds", 0.0) + t1 - t0
+    outputs = opdef.lower(ctx, op, inputs)
+    if timings is not None:
+        cat = "autograd" if op.type == "SymbolicGradient" else "dispatch"
+        timings[cat] = timings.get(cat, 0.0) + time.perf_counter() - t1
+    if len(outputs) != len(op.outputs):
+        raise RuntimeError(
+            f"Op {op.name} ({op.type}) lowered to {len(outputs)} "
+            f"outputs, graph says {len(op.outputs)}")
+    for t, v in zip(op.outputs, outputs):
+        env[t] = ctx._maybe_leaf(t, v) if ctx.grad_leaves else v

@@ -26,7 +26,11 @@ package's dropout draws from:
   ``w = -log1p(-u * u)``; its multiply-adds fused, as XLA contracts them).
   ``torch.erfinv`` rounds differently and is not used. XLA's ``log1p`` is
   its own; the draw here agrees with JAX's to a few ulp (most values bit
-  for bit).
+  for bit);
+- ``truncated_normal(key, shape, stddev, mean)``:
+  ``jax.random.truncated_normal(key, -2, 2, shape, float32)`` by the same
+  rules on ``(erf(-sqrt 2), erf(sqrt 2))``, clipped inside ``(-2, 2)``;
+  within 3 ulp of JAX's, as ``normal``.
 
 The host form works on numpy ``uint32`` arrays and broadcasts a batch of
 keys (``(..., 2)``) against the drawn shape, so one call derives every
@@ -266,3 +270,41 @@ def normal_torch(key_, shape, device, stddev=1.0, mean=0.0) -> torch.Tensor:
 def normal(key_, shape, stddev=1.0, mean=0.0) -> np.ndarray:
     """:func:`normal_torch` of one key on the host, as an f32 array."""
     return normal_torch(key_, shape, "cpu", stddev, mean).numpy()
+
+
+# erf(-2 / f32(sqrt 2)) and erf(2 / f32(sqrt 2)) in f32: the bounds of the
+# uniform that jax.random.truncated_normal(key, -2, 2, ...) draws, as
+# XLA's f32 erf computes them on the CPU under JAX 0.9.0 (bits 0xBF745A18
+# and 0x3F745A18; also the correctly rounded values of erf(-+sqrt 2)).
+TRUNC_ERF_LO = float(np.float32(-0.9544997))
+TRUNC_ERF_HI = float(np.float32(0.9544997))
+# the clip to the open interval (-2, 2): nextafter(-+2) towards 0 in f32
+TRUNC_LO = float(np.nextafter(np.float32(-2.0), np.float32(np.inf)))
+TRUNC_HI = float(np.nextafter(np.float32(2.0), np.float32(-np.inf)))
+
+
+def truncated_normal_torch(key_, shape, device, stddev=1.0,
+                           mean=0.0) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, -2, 2, shape, float32) * stddev +
+    mean`` (``_truncated_normal`` of JAX 0.9.0) as an f32 tensor on
+    ``device``: a uniform on ``(erf(-sqrt 2), erf(sqrt 2))`` by the rule of
+    :func:`uniform` (one fused multiply-add), ``f32(sqrt 2) * erf_inv(u)``
+    rounded, clipped to ``(nextafter(-2, inf), nextafter(2, -inf))``, then
+    one fused multiply-add with ``stddev`` and ``mean`` (the clip keeps XLA
+    from folding ``sqrt 2 * stddev`` as :func:`normal_torch` does)."""
+    def f32(v):
+        return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                          device=device)
+
+    u01 = uniform_torch(key_, shape, device)
+    lo, hi = f32(TRUNC_ERF_LO), f32(TRUNC_ERF_HI)
+    u = torch.maximum(lo, fma_f32_torch(u01, hi - lo, lo))
+    x = f32(np.sqrt(2.0)) * erf_inv_f32_torch(u)
+    x = torch.minimum(torch.maximum(x, f32(TRUNC_LO)), f32(TRUNC_HI))
+    return fma_f32_torch(x, f32(stddev), f32(mean))
+
+
+def truncated_normal(key_, shape, stddev=1.0, mean=0.0) -> np.ndarray:
+    """:func:`truncated_normal_torch` of one key on the host, as an f32
+    array."""
+    return truncated_normal_torch(key_, shape, "cpu", stddev, mean).numpy()

@@ -5,4 +5,5 @@ layers, and the eager ``nn.Module`` layers of the port's models
 from .base import Layer
 from .convolutional import Conv2D, conv2d
 from .core import Dense, Flatten, dense, flatten
+from .normalization import BatchNormalization, batch_normalization
 from .pooling import MaxPooling2D, max_pooling2d

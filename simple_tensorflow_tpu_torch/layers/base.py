@@ -2,7 +2,9 @@
 base.py``; ref: tensorflow/python/layers/base.py). Variables are created
 through ``get_variable`` under the layer's variable scope, so their names
 are the JAX package's (``convnet/conv1/kernel``); calling a layer builds
-graph ops."""
+graph ops. ``add_update`` and ``add_loss`` put a layer's update ops in
+``GraphKeys.UPDATE_OPS`` and its losses in ``REGULARIZATION_LOSSES``
+(:66-80), which nothing runs unless the user fetches them."""
 
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ class Layer:
         self.built = False
         self._trainable_weights = []
         self._non_trainable_weights = []
+        self._updates = []
+        self._losses = []
         self._scope_name = None
 
     @property
@@ -40,6 +44,14 @@ class Layer:
     def weights(self):
         return self.trainable_weights + self.non_trainable_weights
 
+    @property
+    def updates(self):
+        return list(self._updates)
+
+    @property
+    def losses(self):
+        return list(self._losses)
+
     def add_variable(self, name, shape, dtype=None, initializer=None,
                      trainable=True):
         v = vs.get_variable(name, shape=shape, dtype=dtype or self.dtype,
@@ -50,6 +62,22 @@ class Layer:
         else:
             self._non_trainable_weights.append(v)
         return v
+
+    def add_update(self, updates):
+        if not isinstance(updates, (list, tuple)):
+            updates = [updates]
+        self._updates.extend(updates)
+        g = ops_mod.get_default_graph()
+        for u in updates:
+            g.add_to_collection(GraphKeys.UPDATE_OPS, u)
+
+    def add_loss(self, losses):
+        if not isinstance(losses, (list, tuple)):
+            losses = [losses]
+        self._losses.extend(losses)
+        g = ops_mod.get_default_graph()
+        for loss in losses:
+            g.add_to_collection(GraphKeys.REGULARIZATION_LOSSES, loss)
 
     def build(self, input_shape):
         self.built = True

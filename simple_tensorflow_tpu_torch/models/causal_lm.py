@@ -1,13 +1,19 @@
 """Decoder-only causal LM: training and paged serving.
 
-Port of ``simple_tensorflow_tpu/models/causal_lm.py``, as eager PyTorch
-modules. Two halves, as there:
+Port of ``simple_tensorflow_tpu/models/causal_lm.py``. Two halves, as
+there:
 
-- :func:`causal_lm_logits` / :func:`causal_lm_train_model` (:50, :83): the
-  training forward through the flash-attention, LayerNorm and softmax-xent
-  kernels (and, at ``cfg.dropout > 0``, the dropout kernels with the JAX
-  program's masks), and a trainer that takes one Adam step (the fused
-  flat-group kernel) with the noam schedule per call.
+- training: :func:`causal_lm_logits` / :func:`causal_lm_train_model`
+  (:50, :83), the JAX code with the port's imports, build the training
+  graph for ``stf.Session`` (``transformer.py``'s graph helpers with
+  causal flash attention; the variable scopes of JAX, ``ln3`` and not
+  ``ln2`` after the FFN, which the serving model reads by name; Adam with
+  the noam schedule). Beside them, the same step as eager PyTorch:
+  :func:`causal_lm_trainer` and :class:`CausalLMTrainer` run the forward
+  through the flash-attention, LayerNorm and softmax-xent kernels (and,
+  at ``cfg.dropout > 0``, the dropout kernels with the JAX program's
+  masks) and take one Adam step (the fused flat-group kernel) with the
+  noam schedule per call.
 - ``build_causal_lm_program`` (:146) and ``CausalLMGenerativeModel`` (:325)
   with greedy ``_emit`` (:248): paged serving. Each layer keeps a
 K and a V :class:`..ops.kv_cache.KVCache` of ``(num_pages + 1, page_len,
@@ -51,6 +57,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+import simple_tensorflow_tpu_torch as stf
+
 from ..compiler import DeviceGraph, StagedInput, on_side_stream
 from ..framework.random_seed import StepRNG, fold_in_value
 from ..ops import fused_ops
@@ -61,15 +69,71 @@ from ..ops.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from ..ops.kv_cache import KVCache
 from ..train.optimizers import FlatAdam
 from .common import resolve_device
-from .transformer import (DecoderStack, TransformerConfig,
+from .transformer import (DecoderStack, TransformerConfig, _attention,
                           _eager_attention, _eager_embed, _eager_ffn,
-                          _eager_residual, block_decode,
+                          _eager_residual, _embed, _ffn, _ln, _no_recompute,
+                          _residual, block_decode,
                           build_int8_logits_weights, incremental_decode,
                           smoothed_xent)
 
 
 # ---------------------------------------------------------------------------
-# Training
+# The training graph (TF-1 front end)
+# ---------------------------------------------------------------------------
+
+def causal_lm_logits(ids, cfg: TransformerConfig, training=True,
+                     compute_dtype=stf.bfloat16, scope="causal_lm",
+                     recompute=False):
+    """Next-token logits (B, S, vocab) for token ids (B, S) (:50):
+    causal flash self-attention + FFN per layer, tied-embedding softmax.
+    Position ``j``'s logits predict token ``j+1``."""
+    _no_recompute(recompute)
+    with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
+        h, emb = _embed(ids, cfg, compute_dtype, training)
+        with stf.variable_scope("decoder"):
+            for i in range(cfg.num_layers):
+                with stf.variable_scope(f"layer_{i}"):
+                    a = _attention(h, h, None, cfg, training,
+                                   compute_dtype, "self_attn", causal=True)
+                    h = _ln(_residual(a, h, cfg, training), cfg, "ln1")
+                    f = _ffn(h, cfg, training, "ffn")
+                    # ln3, not ln2: the serving step reuses these
+                    # variables by name
+                    h = _ln(h + f, cfg, "ln3")
+        b, s = int(ids.shape[0]), int(ids.shape[1])
+        flat = stf.reshape(h, [b * s, cfg.d_model])
+        logits = stf.matmul(flat, stf.cast(emb, h.dtype.base_dtype),
+                            transpose_b=True)
+        return stf.reshape(logits, [b, s, cfg.vocab_size])
+
+
+def causal_lm_train_model(batch_size=8, seq_len=32,
+                          cfg: TransformerConfig | None = None,
+                          learning_rate=1.0, warmup_steps=4000,
+                          compute_dtype=stf.bfloat16, recompute=False):
+    """Training graph (:83): tok_in/tok_out -> label-smoothed LM loss ->
+    Adam with the noam schedule (the seq2seq transformer's recipe)."""
+    cfg = cfg or TransformerConfig.base()
+    tok_in = stf.placeholder(stf.int32, [batch_size, seq_len], "tok_in")
+    tok_out = stf.placeholder(stf.int32, [batch_size, seq_len], "tok_out")
+    logits = causal_lm_logits(tok_in, cfg, training=True,
+                              compute_dtype=compute_dtype,
+                              recompute=recompute)
+    weights = stf.cast(stf.not_equal(tok_out, cfg.pad_id), stf.float32)
+    loss = smoothed_xent(logits, tok_out, weights, cfg)
+    gs = stf.train.get_or_create_global_step()
+    step = stf.cast(gs, stf.float32) + 1.0
+    lr = (learning_rate * cfg.d_model ** -0.5 *
+          stf.minimum(stf.pow(step, -0.5), step * warmup_steps ** -1.5))
+    opt = stf.train.AdamOptimizer(lr, beta1=0.9, beta2=0.997,
+                                  epsilon=1e-9)
+    train_op = opt.minimize(loss, global_step=gs)
+    return {"tok_in": tok_in, "tok_out": tok_out, "loss": loss,
+            "train_op": train_op, "learning_rate": lr, "global_step": gs}
+
+
+# ---------------------------------------------------------------------------
+# Training, eager
 # ---------------------------------------------------------------------------
 
 def dropout_sites(cfg: TransformerConfig, scope="causal_lm"):
@@ -88,9 +152,9 @@ def dropout_sites(cfg: TransformerConfig, scope="causal_lm"):
     return sites
 
 
-def causal_lm_logits(stack: DecoderStack, ids, *, training=True,
-                     compute_dtype=torch.bfloat16, rng=None,
-                     scope="causal_lm"):
+def _eager_causal_lm_logits(stack: DecoderStack, ids, *, training=True,
+                            compute_dtype=torch.bfloat16, rng=None,
+                            scope="causal_lm"):
     """Next-token logits ``(B, S, vocab)`` in ``compute_dtype`` for token
     ids ``(B, S)``: causal flash self-attention + FFN per layer, ``ln1``
     after attention and ``ln3`` after the FFN, and the tied softmax
@@ -221,9 +285,9 @@ class CausalLMTrainer:
         rng = self._step_rng()
         with (fused_ops.plain_versions() if self.plain
               else contextlib.nullcontext()):
-            logits = causal_lm_logits(self.stack, tok_in, training=True,
-                                      compute_dtype=self.compute_dtype,
-                                      rng=rng, scope=self.scope)
+            logits = _eager_causal_lm_logits(
+                self.stack, tok_in, training=True,
+                compute_dtype=self.compute_dtype, rng=rng, scope=self.scope)
             weights = (tok_out != self.cfg.pad_id).float()
             return smoothed_xent(logits, tok_out, weights, self.cfg)
 
@@ -250,15 +314,16 @@ class CausalLMTrainer:
         self._step_t.fill_(int(step))
 
 
-def causal_lm_train_model(batch_size=8, seq_len=32,
-                          cfg: Optional[TransformerConfig] = None,
-                          learning_rate=1.0, warmup_steps=4000,
-                          compute_dtype=torch.bfloat16, *, params=None,
-                          checkpoint=None, seed=0, scope="causal_lm",
-                          device="cuda", plain=False):
-    """The training model: a :class:`CausalLMTrainer` for ``(batch_size,
-    seq_len)`` token batches with the JAX function's recipe
-    (label-smoothed LM loss, Adam, noam schedule).
+def causal_lm_trainer(batch_size=8, seq_len=32,
+                      cfg: Optional[TransformerConfig] = None,
+                      learning_rate=1.0, warmup_steps=4000,
+                      compute_dtype=torch.bfloat16, *, params=None,
+                      checkpoint=None, seed=0, scope="causal_lm",
+                      device="cuda", plain=False):
+    """The eager training model: a :class:`CausalLMTrainer` for
+    ``(batch_size, seq_len)`` token batches with the JAX function's recipe
+    (label-smoothed LM loss, Adam, noam schedule);
+    :func:`causal_lm_train_model` builds the same step as a graph.
 
     Weights come from ``checkpoint=`` (a JAX ``.stfz`` prefix; a training
     checkpoint also carries the global step, the beta powers, the flat

@@ -1,6 +1,16 @@
 """ResNet-50 v1.5 for ImageNet, trained with Momentum.
 
-Port of ``simple_tensorflow_tpu/models/resnet.py`` as eager PyTorch:
+Port of ``simple_tensorflow_tpu/models/resnet.py``, twice:
+
+- the training graph, the JAX code with the port's imports:
+  :func:`resnet_forward` (:56) and :func:`resnet50_train_model` (:120),
+  which return the JAX dict ``{images, labels, logits, loss, train_op,
+  accuracy, global_step}`` for ``stf.Session`` (``FusedBatchNorm`` with
+  its moving-average assigns in ``UPDATE_OPS``, which the ``train_op``
+  never runs; ``L2Loss`` over every ``kernel`` variable cast to f32;
+  ``add_n``; one ``FusedMomentumUpdate`` over two flat groups, the bf16
+  convolution kernels and the f32 BatchNorm and ``fc`` variables);
+- eager PyTorch, below.
 
 - :class:`ResNet` is ``resnet_forward`` (:56): NHWC activations (the JAX
   layout; in PyTorch's NCHW terms, channels_last memory), conv kernels and
@@ -13,7 +23,7 @@ Port of ``simple_tensorflow_tpu/models/resnet.py`` as eager PyTorch:
   creates ``proj_conv``/``proj_bn`` before ``conv1`` (:46-49), and
   ``parameters()`` keeps that creation order, which is the order of the
   optimizer's flat layout.
-- :func:`resnet50_train_model` (:126) and :class:`ResNetTrainer`, the
+- :func:`resnet50_trainer` and :class:`ResNetTrainer`, the
   counterpart of the JAX dict ``{loss, train_op, accuracy,
   global_step}``: the mean sparse softmax cross-entropy (through the
   softmax-xent kernels) plus ``weight_decay`` times the l2 of every
@@ -23,8 +33,9 @@ Port of ``simple_tensorflow_tpu/models/resnet.py`` as eager PyTorch:
 
 BatchNorm's moving statistics are not updated by a training step, as the
 JAX ``train_op`` leaves them (:mod:`..layers.normalization`).
-``data_parallel``, ``recompute`` and ``conv0_space_to_depth`` are not
-ported yet.
+``data_parallel``, ``recompute`` (``"auto"`` too) and
+``conv0_space_to_depth`` are not ported yet: both entry points raise
+``NotImplementedError`` when one is set.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+import simple_tensorflow_tpu_torch as stf
 
 from ..layers.convolutional import Conv2DModule
 from ..layers.core import DenseModule
@@ -54,12 +67,114 @@ _BLOCKS = {  # per-stage bottleneck counts
 }
 
 
-def _conv(in_ch, filters, ksize, stride, dtype, device):
+def _not_ported(data_parallel, recompute, conv0_space_to_depth, fn):
+    for flag, value in (("data_parallel", data_parallel),
+                        ("recompute", recompute),
+                        ("conv0_space_to_depth", conv0_space_to_depth)):
+        if value:
+            raise NotImplementedError(
+                f"{fn}({flag}={value!r}) is not ported yet: it comes with a "
+                "later slice of the port (data parallelism and "
+                "rematerialisation with the Graph front end, the "
+                "space-to-depth stem after it)")
+
+
+# ---------------------------------------------------------------------------
+# The training graph (TF-1 front end)
+# ---------------------------------------------------------------------------
+
+def _conv(x, filters, ksize, stride, name):
+    init = stf.init_ops.VarianceScaling(2.0, "fan_out", "truncated_normal")
+    return stf.layers.conv2d(
+        x, filters, ksize, strides=stride,
+        padding="same", use_bias=False, kernel_initializer=init, name=name)
+
+
+def _bn(x, training, name):
+    return stf.layers.batch_normalization(
+        x, momentum=0.9, epsilon=1e-5, training=training, fused=True,
+        name=name)
+
+
+def _bottleneck(x, filters, stride, training, projection, name):
+    with stf.variable_scope(name):
+        shortcut = x
+        if projection:
+            shortcut = _conv(x, 4 * filters, 1, stride, "proj_conv")
+            shortcut = _bn(shortcut, training, "proj_bn")
+        y = _conv(x, filters, 1, 1, "conv1")
+        y = stf.nn.relu(_bn(y, training, "bn1"))
+        y = _conv(y, filters, 3, stride, "conv2")  # v1.5: stride here
+        y = stf.nn.relu(_bn(y, training, "bn2"))
+        y = _conv(y, 4 * filters, 1, 1, "conv3")
+        y = _bn(y, training, "bn3")
+        return stf.nn.relu(y + shortcut)
+
+
+def resnet_forward(x, num_classes=1000, depth=50, training=True,
+                   recompute=False, conv0_space_to_depth=False):
+    """The forward graph (:56): NHWC ``x`` -> f32 logits."""
+    _not_ported(False, recompute, conv0_space_to_depth, "resnet_forward")
+    blocks = _BLOCKS[depth]
+    with stf.variable_scope("resnet", reuse=stf.AUTO_REUSE):
+        h = _conv(x, 64, 7, 2, "conv0")
+        h = stf.nn.relu(_bn(h, training, "bn0"))
+        h = stf.layers.max_pooling2d(h, 3, 2, padding="same", name="pool0")
+        for stage, n_blocks in enumerate(blocks):
+            filters = 64 * (2 ** stage)
+            for i in range(n_blocks):
+                stride = 2 if (stage > 0 and i == 0) else 1
+                h = _bottleneck(h, filters, stride, training,
+                                projection=(i == 0),
+                                name=f"stage{stage}_block{i}")
+        h = stf.reduce_mean(h, axis=[1, 2], name="global_pool")  # NHWC pool
+        h = stf.cast(h, stf.float32)
+        logits = stf.layers.dense(
+            h, num_classes,
+            kernel_initializer=stf.init_ops.RandomNormal(stddev=0.01),
+            name="fc")
+    return logits
+
+
+def resnet50_train_model(batch_size=64, image_size=224, num_classes=1000,
+                         dtype=stf.bfloat16, learning_rate=0.1,
+                         momentum=0.9, weight_decay=1e-4,
+                         data_parallel=False, recompute=False,
+                         conv0_space_to_depth=False):
+    """Full training graph (:120): images -> loss -> momentum-SGD update."""
+    _not_ported(data_parallel, recompute, conv0_space_to_depth,
+                "resnet50_train_model")
+    x = stf.placeholder(dtype, [batch_size, image_size, image_size, 3],
+                        name="images")
+    labels = stf.placeholder(stf.int32, [batch_size], name="labels")
+    logits = resnet_forward(x, num_classes=num_classes, training=True)
+    xent = stf.reduce_mean(stf.nn.sparse_softmax_cross_entropy_with_logits(
+        labels=labels, logits=logits))
+    # L2 on conv/fc kernels only (reference recipe: no BN params)
+    l2 = [stf.nn.l2_loss(stf.cast(v._ref, stf.float32))
+          for v in stf.trainable_variables()
+          if "kernel" in v.var_name]
+    loss = xent + weight_decay * stf.add_n(l2)
+    gs = stf.train.get_or_create_global_step()
+    opt = stf.train.MomentumOptimizer(learning_rate, momentum)
+    train_op = opt.minimize(loss, global_step=gs)
+    acc = stf.reduce_mean(stf.cast(
+        stf.equal(stf.cast(stf.argmax(logits, 1, output_type=stf.int32),
+                           stf.int32), labels), stf.float32))
+    return {"images": x, "labels": labels, "logits": logits, "loss": loss,
+            "train_op": train_op, "accuracy": acc, "global_step": gs}
+
+
+# ---------------------------------------------------------------------------
+# Eager PyTorch
+# ---------------------------------------------------------------------------
+
+def _conv_module(in_ch, filters, ksize, stride, dtype, device):
     return Conv2DModule(in_ch, filters, ksize, stride, padding="same",
                         use_bias=False, dtype=dtype, device=device)
 
 
-def _bn(channels, device):
+def _bn_module(channels, device):
     return BatchNormalizationModule(channels, epsilon=1e-5, device=device)
 
 
@@ -71,17 +186,18 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch, filters, stride, projection, dtype, device):
         super().__init__()
         if projection:
-            self.proj_conv = _conv(in_ch, 4 * filters, 1, stride, dtype,
-                                   device)
-            self.proj_bn = _bn(4 * filters, device)
+            self.proj_conv = _conv_module(in_ch, 4 * filters, 1, stride,
+                                          dtype, device)
+            self.proj_bn = _bn_module(4 * filters, device)
         else:
             self.proj_conv = self.proj_bn = None
-        self.conv1 = _conv(in_ch, filters, 1, 1, dtype, device)
-        self.bn1 = _bn(filters, device)
-        self.conv2 = _conv(filters, filters, 3, stride, dtype, device)
-        self.bn2 = _bn(filters, device)
-        self.conv3 = _conv(filters, 4 * filters, 1, 1, dtype, device)
-        self.bn3 = _bn(4 * filters, device)
+        self.conv1 = _conv_module(in_ch, filters, 1, 1, dtype, device)
+        self.bn1 = _bn_module(filters, device)
+        self.conv2 = _conv_module(filters, filters, 3, stride, dtype,
+                                  device)
+        self.bn2 = _bn_module(filters, device)
+        self.conv3 = _conv_module(filters, 4 * filters, 1, 1, dtype, device)
+        self.bn3 = _bn_module(4 * filters, device)
 
     def forward(self, x):
         shortcut = x
@@ -105,8 +221,8 @@ class ResNet(nn.Module):
         if depth not in _BLOCKS:
             raise ValueError(f"depth must be one of {sorted(_BLOCKS)}: "
                              f"{depth}")
-        self.conv0 = _conv(3, 64, 7, 2, dtype, device)
-        self.bn0 = _bn(64, device)
+        self.conv0 = _conv_module(3, 64, 7, 2, dtype, device)
+        self.bn0 = _bn_module(64, device)
         in_ch = 64
         self.blocks = []
         for stage, n_blocks in enumerate(_BLOCKS[depth]):
@@ -217,16 +333,17 @@ class ResNetTrainer:
                 == labels).float().mean()
 
 
-def resnet50_train_model(batch_size=64, image_size=224, num_classes=1000,
-                         dtype=torch.bfloat16, learning_rate=0.1,
-                         momentum=0.9, weight_decay=1e-4,
-                         data_parallel=False, recompute=False,
-                         conv0_space_to_depth=False, *, params=None,
-                         checkpoint: Optional[str] = None, seed=0,
-                         device="cuda", plain=False) -> ResNetTrainer:
-    """The training model: a :class:`ResNetTrainer` for NHWC ``(batch_size,
-    image_size, image_size, 3)`` image batches with the JAX function's
-    recipe (ResNet-50 v1.5, Momentum, weight decay on the kernels).
+def resnet50_trainer(batch_size=64, image_size=224, num_classes=1000,
+                     dtype=torch.bfloat16, learning_rate=0.1, momentum=0.9,
+                     weight_decay=1e-4, data_parallel=False, recompute=False,
+                     conv0_space_to_depth=False, *, params=None,
+                     checkpoint: Optional[str] = None, seed=0,
+                     device="cuda", plain=False) -> ResNetTrainer:
+    """The eager training model: a :class:`ResNetTrainer` for NHWC
+    ``(batch_size, image_size, image_size, 3)`` image batches with the JAX
+    function's recipe (ResNet-50 v1.5, Momentum, weight decay on the
+    kernels); :func:`resnet50_train_model` builds the same step as a
+    graph.
 
     Weights come from ``checkpoint=`` (a JAX ``.stfz`` prefix; a training
     checkpoint also carries the global step and the flat Momentum slots),
@@ -236,15 +353,8 @@ def resnet50_train_model(batch_size=64, image_size=224, num_classes=1000,
     CPU. ``plain=True`` runs them on any device."""
     from .. import convert
 
-    for flag, value in (("data_parallel", data_parallel),
-                        ("recompute", recompute),
-                        ("conv0_space_to_depth", conv0_space_to_depth)):
-        if value:
-            raise NotImplementedError(
-                f"resnet50_train_model({flag}={value!r}) is not ported yet: "
-                "it comes with a later slice of the port (data parallelism "
-                "and rematerialisation with the Graph front end, the "
-                "space-to-depth stem after it)")
+    _not_ported(data_parallel, recompute, conv0_space_to_depth,
+                "resnet50_trainer")
     device = resolve_device(device)
     named = None
     if checkpoint is not None:

@@ -23,8 +23,8 @@ graph tensors, told apart by its first argument:
 :func:`plain_versions` runs every one of them through the kernels' plain
 PyTorch versions on any device: the reference the kernels are held
 against on the card. A trainer built with ``plain=True``
-(:func:`..models.causal_lm.causal_lm_train_model`,
-:func:`..models.resnet.resnet50_train_model`) enters it and gives its
+(:func:`..models.causal_lm.causal_lm_trainer`,
+:func:`..models.resnet.resnet50_trainer`) enters it and gives its
 optimizer the plain Adam or Momentum update; nothing else enters it, and
 the kernel wrappers themselves never fall back.
 

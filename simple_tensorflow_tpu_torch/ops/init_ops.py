@@ -1,10 +1,13 @@
 """Initializers of the port (port of the part of ``simple_tensorflow_tpu/
-ops/init_ops.py`` the MNIST and transformer graphs reach: ``Zeros``,
-``Ones`` (:38), ``RandomNormal`` (:74), ``VarianceScaling`` (:108) and
-``glorot_uniform_initializer`` (:206)). Each returns a graph tensor, so
-initialization runs on the device inside the initializer run. A
-``VarianceScaling`` uniform draw in bf16 is drawn in f32 and cast, as the
-JAX ``_ru`` does. Left out: the constant, truncated-normal, orthogonal and
+ops/init_ops.py`` the MNIST, transformer and ResNet graphs reach:
+``Zeros``, ``Ones`` (:38), ``RandomNormal`` (:74), ``TruncatedNormal``
+(:84), ``VarianceScaling`` (:108) and ``glorot_uniform_initializer``
+(:206)). Each returns a graph tensor, so initialization runs on the
+device inside the initializer run. A draw in bf16 is drawn in f32 and
+cast, as the JAX ``_ru``/``_tn`` do. ``VarianceScaling`` with
+``"truncated_normal"`` (or ``"normal"``, which the JAX package maps to the
+same draw) divides its stddev by 0.87962566103423978, the stddev of a
+unit normal truncated to (-2, 2). Left out: the constant, orthogonal and
 identity initializers.
 """
 
@@ -52,9 +55,20 @@ class RandomNormal(Initializer):
                                         dtype or self.dtype, seed=self.seed)
 
 
+class TruncatedNormal(Initializer):
+    def __init__(self, mean=0.0, stddev=1.0, seed=None,
+                 dtype=dtypes_mod.float32):
+        self.mean, self.stddev, self.seed = mean, stddev, seed
+        self.dtype = dtypes_mod.as_dtype(dtype)
+
+    def __call__(self, shape, dtype=None, partition_info=None):
+        return random_ops.truncated_normal(shape, self.mean, self.stddev,
+                                           dtype or self.dtype,
+                                           seed=self.seed)
+
+
 class VarianceScaling(Initializer):
-    """(ref: init_ops.py ``variance_scaling_initializer``); only the
-    ``"uniform"`` distribution is ported."""
+    """(ref: init_ops.py ``variance_scaling_initializer``)."""
 
     def __init__(self, scale=1.0, mode="fan_in",
                  distribution="truncated_normal", seed=None,
@@ -74,10 +88,11 @@ class VarianceScaling(Initializer):
             scale /= max(1.0, fan_out)
         else:
             scale /= max(1.0, (fan_in + fan_out) / 2.0)
-        if self.distribution != "uniform":
-            raise NotImplementedError(
-                f"VarianceScaling distribution {self.distribution!r} is not "
-                "ported (only 'uniform')")
+        if self.distribution in ("truncated_normal", "normal"):
+            stddev = math.sqrt(scale) / 0.87962566103423978
+            return random_ops.truncated_normal(shape, 0.0, stddev,
+                                               dtype or self.dtype,
+                                               self.seed)
         limit = math.sqrt(3.0 * scale)
         return random_ops.random_uniform(shape, -limit, limit,
                                          dtype or self.dtype, self.seed)
@@ -100,6 +115,7 @@ def _compute_fans(shape):
 zeros_initializer = Zeros
 ones_initializer = Ones
 random_normal_initializer = RandomNormal
+truncated_normal_initializer = TruncatedNormal
 
 
 def variance_scaling_initializer(scale=1.0, mode="fan_in",

@@ -43,6 +43,10 @@ _LAUNCHES = {
     "softmax_xent_bwd": 0,
     "adam_update": 0,
     "momentum_update": 0,
+    # the same launches by parameter dtype (a graph MomentumOptimizer
+    # launches once per dtype group a step)
+    "momentum_update_bfloat16": 0,
+    "momentum_update_float32": 0,
     "dropout_residual": 0,
     "dropout_residual_bwd": 0,
     "dropout_residual_device_seed": 0,

@@ -105,4 +105,5 @@ def momentum_update(p, acc, g, lr, mu, *, use_nesterov=False):
         _build.stream_handle(p.device))
     check_status("momentum_update", status)
     count_launch("momentum_update")
+    count_launch("momentum_update_" + str(p.dtype)[len("torch."):])
     return p, acc

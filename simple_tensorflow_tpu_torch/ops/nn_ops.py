@@ -3,8 +3,9 @@ boundaries (NHWC activations, HWIO filters, TF ``SAME``/``VALID``
 padding).
 
 The graph functions mirror ``simple_tensorflow_tpu/ops/nn_ops.py``:
-``relu`` (:423), ``bias_add`` (:489), ``conv2d`` (:538), ``max_pool``
-(:665), ``dropout`` (:699), ``softmax_cross_entropy_with_logits`` (:496)
+``relu`` (:423), ``l2_loss`` (:485), ``bias_add`` (:489), ``conv2d``
+(:538), ``max_pool`` (:665), ``dropout`` (:699),
+``softmax_cross_entropy_with_logits`` (:496)
 and ``sparse_softmax_cross_entropy_with_logits`` (:509) build graph ops;
 their lowerings call the eager implementations below, as the JAX module's
 lowerings call its ``_conv2d_impl`` (:164) and ``_max_pool_impl`` (:352):
@@ -170,6 +171,7 @@ def _softmax_xent(logits, labels):
 
 
 op_registry.register_pure("Relu", _relu_impl)
+op_registry.register_pure("L2Loss", _l2_loss_impl)
 op_registry.register_pure("BiasAdd", _bias_add_op)
 op_registry.register_pure("Conv2D", _conv2d_op)
 op_registry.register_pure("MaxPool", _max_pool_op)
@@ -215,6 +217,10 @@ op_registry.register("Dropout", lower=_lower_dropout,
 
 def relu(features, name=None):
     return unary("Relu", features, name)
+
+
+def l2_loss(t, name=None):
+    return unary("L2Loss", t, name)
 
 
 def bias_add(value, bias, data_format="NHWC", name=None):

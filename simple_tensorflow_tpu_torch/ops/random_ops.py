@@ -1,6 +1,6 @@
 """Random ops of the port (port of the part of ``simple_tensorflow_tpu/
-ops/random_ops.py`` the initializers reach: ``RandomUniform`` and
-``RandomStandardNormal``).
+ops/random_ops.py`` the initializers reach: ``RandomUniform``,
+``RandomStandardNormal`` and ``TruncatedNormal``).
 
 No mutable generator state: each op folds its stream id
 (``framework/random_seed.fold_in_value``) into the run's root key, and
@@ -11,8 +11,12 @@ then ``max(minval, u * (maxval - minval) + minval)`` with both bounds in
 f32. ``RandomStandardNormal`` is ``_rn`` (:64): ``jax.random.normal`` in
 f32 (``prng.normal_torch``, drawn on the device), ``x * stddev + mean``
 as XLA compiles it (the constant factors folded, one fused multiply-add),
-then the cast to the op's dtype.
-Left out: ``truncated_normal``, shuffles and the other samplers.
+then the cast to the op's dtype. ``TruncatedNormal`` is ``_tn`` (:72):
+``jax.random.truncated_normal(key, -2, 2)`` in f32
+(``prng.truncated_normal_torch``), ``x * stddev + mean`` as one fused
+multiply-add, then the cast. Both consume the run's RNG chain as
+``RandomUniform`` does.
+Left out: shuffles and the other samplers.
 """
 
 from __future__ import annotations
@@ -67,6 +71,19 @@ op_registry.register(
     effects=op_registry.Effects(rng=True))
 
 
+def _tn(key, op, device):
+    a = op.attrs
+    return prng.truncated_normal_torch(
+        key, tuple(a["shape"]), device, a["stddev"],
+        a["mean"]).to(a["dtype"].torch_dtype)
+
+
+op_registry.register(
+    "TruncatedNormal",
+    lower=lambda ctx, op, inputs: [_tn(ctx.rng_key(op), op, ctx.device)],
+    effects=op_registry.Effects(rng=True))
+
+
 def _rand_op(op_type, shape, dtype, seed, name, extra):
     from .array_ops import _static_shape_arg
 
@@ -96,4 +113,10 @@ def random_uniform(shape, minval=0, maxval=None, dtype=dtypes_mod.float32,
 def random_normal(shape, mean=0.0, stddev=1.0, dtype=dtypes_mod.float32,
                   seed=None, name=None):
     return _rand_op("RandomStandardNormal", shape, dtype, seed, name,
+                    {"mean": float(mean), "stddev": float(stddev)})
+
+
+def truncated_normal(shape, mean=0.0, stddev=1.0, dtype=dtypes_mod.float32,
+                     seed=None, name=None):
+    return _rand_op("TruncatedNormal", shape, dtype, seed, name,
                     {"mean": float(mean), "stddev": float(stddev)})

@@ -3,18 +3,21 @@ optimizer.py``; ref: tensorflow/python/training/optimizer.py).
 
 ``minimize`` (:53) = ``compute_gradients`` (:69), one ``SymbolicGradient``
 op over the trainable variables, then ``apply_gradients`` (:79): the
-subclass's fused update op, or its per-variable ``_apply_dense`` ops
-grouped as ``update``, and with a ``global_step`` its ``AssignAdd``
-under a control dependency on the update. Ops are created in the JAX
-package's order and under its names. Left out: sparse (``IndexedSlices``)
-gradients and per-variable slot creation.
+subclass's fused update op, or (after ``_create_slots``) its
+per-variable ``_apply_dense`` ops grouped as ``update``,
+and with a ``global_step`` its ``AssignAdd`` under a control dependency on
+the update. Per-variable slots are zero-initialised variables named
+``{variable}/{optimizer}/{slot}`` in the update dtype (``slot_creator.
+create_zeros_slot``). Ops are created in the JAX package's order and under
+its names. Left out: sparse (``IndexedSlices``) gradients.
 """
 
 from __future__ import annotations
 
+from ..framework import dtypes as dtypes_mod
 from ..framework import gradients as gradients_mod
 from ..framework import graph as ops_mod
-from ..ops import control_flow_ops, state_ops
+from ..ops import array_ops, control_flow_ops, state_ops
 from ..ops import variables as variables_mod
 
 GATE_NONE = 0
@@ -32,6 +35,7 @@ class Optimizer:
             raise ValueError("Must specify optimizer name")
         self._use_locking = use_locking
         self._name = name
+        self._slots = {}  # slot name -> {var name: slot Variable}
         # the fused tail's per-variable slot views, flat slot variables and
         # their cache (train/optimizers.py:_flat_slot_layout)
         self._slot_views = {}
@@ -75,6 +79,8 @@ class Optimizer:
         with g.name_scope(name or self._name):
             finish = self._maybe_build_fused_update(grads_and_vars)
             if finish is None:
+                self._create_slots([v for grad, v in grads_and_vars
+                                    if grad is not None])
                 update_ops = [self._apply_dense(grad, var)
                               for grad, var in grads_and_vars
                               if grad is not None]
@@ -90,14 +96,32 @@ class Optimizer:
             return finish
 
     def get_slot(self, var, name):
-        """The per-variable view of a fused flat slot, or None."""
-        return self._slot_views.get(name, {}).get(_var_key(var))
+        """The per-variable view of a fused flat slot, or the per-variable
+        slot Variable, or None."""
+        view = self._slot_views.get(name, {}).get(_var_key(var))
+        if view is not None:
+            return view
+        return self._slots.get(name, {}).get(_var_key(var))
 
     def get_slot_names(self):
-        return sorted(self._slot_views)
+        return sorted(set(self._slots) | set(self._slot_views))
 
     def variables(self):
-        return list(self._fused_slot_vars)
+        out = [v for d in self._slots.values() for v in d.values()]
+        return out + list(self._fused_slot_vars)
+
+    def _zeros_slot(self, var, slot_name, op_name):
+        named = self._slots.setdefault(slot_name, {})
+        key = _var_key(var)
+        if key not in named:
+            named[key] = variables_mod.Variable(
+                array_ops.zeros([int(d) for d in var.shape.as_list()],
+                                dtype=update_dtype(var)),
+                trainable=False, name=f"{var.var_name}/{op_name}/{slot_name}")
+        return named[key]
+
+    def _create_slots(self, var_list):
+        pass
 
     def _maybe_build_fused_update(self, grads_and_vars):
         """One fused update op over every (grad, var) pair, or None for
@@ -112,6 +136,13 @@ class Optimizer:
 
     def _call_if_callable(self, param):
         return param() if callable(param) else param
+
+
+def update_dtype(var):
+    """The slot and update dtype of a graph variable (``slot_creator.
+    update_dtype``): f32 for low-precision floats, else its own."""
+    d = var.dtype.base_dtype
+    return dtypes_mod.float32 if d.name in ("bfloat16", "float16") else d
 
 
 def _var_key(var):

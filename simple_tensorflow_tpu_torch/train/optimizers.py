@@ -2,18 +2,24 @@
 
 The graph optimizers of ``simple_tensorflow_tpu/train/optimizers.py``:
 ``GradientDescentOptimizer`` (:294), whose update is one ``AssignSub``
-chain per variable, and ``AdamOptimizer`` (:367) on its fused path
-(``_maybe_build_fused_update`` :422): one ``FusedAdamUpdate`` op over
-per-group flat ``m``/``v`` slot variables with the JAX names
-(``Adam/Adam/fused_m_g0``; ``_build_groups`` :78, ``_flat_slot_layout``
-:89), lowered to one Adam kernel launch per group
-(``_lower_fused_adam`` :189-238). Where that lowering concatenates the
-group's parameters and splits the result (``_split_write_params`` :184),
-the Session's store keeps each parameter as a view into one flat buffer
-per group, built at the first update and rebuilt only after a load
-replaced a member (an assign copies into it), and the kernel updates it
-in place. Left out of the graph optimizers: Adam's per-variable path
-(the JAX kernel-registry mode "off"), Momentum and the other optimizers.
+chain per variable; ``MomentumOptimizer`` (:314) and ``AdamOptimizer``
+(:367) on their fused paths (``_maybe_build_fused_update`` :338, :422):
+one ``FusedMomentumUpdate`` or ``FusedAdamUpdate`` op over per-group
+flat slot variables with the JAX names (``Momentum/Momentum/
+fused_momentum_g0``, ``Adam/Adam/fused_m_g0``; ``_build_groups`` :78,
+``_flat_slot_layout`` :89), lowered to one Momentum or Adam kernel launch
+per group (``_lower_fused_momentum`` :241-265, ``_lower_fused_adam``
+:189-238). Where those lowerings concatenate the group's parameters and
+split the result (``_split_write_params`` :184), the Session's store keeps
+each parameter as a view into one flat buffer per group, built at the
+first update and rebuilt only after a load replaced a member (an assign
+copies into it), and the kernel updates it in place; the hyperparameters
+(``lr``, ``mu``, Adam's ``alpha``) stay device tensors the kernels read
+through pointers, so the step can be captured. Momentum's per-variable
+path (``_apply_dense`` :326, with per-variable slots) is built where JAX
+builds it: under ``stf.kernels`` mode ``"off"``, or for a subclass that
+overrides ``_apply_dense``. Left out of the graph optimizers: Adam's
+per-variable path (mode ``"off"`` raises) and the other optimizers.
 
 The eager ``FlatAdam`` and ``FlatMomentum`` are the same fused paths of
 ``AdamOptimizer`` and ``MomentumOptimizer`` (:314, ``_lower_fused_momentum``
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..framework import dtypes as dtypes_mod
 from ..framework import graph as ops_mod
 from ..framework import op_registry
@@ -61,8 +68,10 @@ from ..ops import array_ops, math_ops, state_ops
 from ..ops import variables as variables_mod
 from ..ops.fused_ops import using_plain_versions
 from ..ops.kernels.fused_update import (adam_update, adam_update_plain,
-                                        momentum_update)
+                                        momentum_update,
+                                        momentum_update_plain)
 from .optimizer import Optimizer, _var_key
+from .optimizer import update_dtype as _ud
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -246,13 +255,6 @@ class FlatMomentum(_FlatOptimizer):
 
 # -- graph optimizers --------------------------------------------------------
 
-def _ud(var):
-    """The update dtype of a graph variable: f32 for low-precision floats
-    (``slot_creator.update_dtype``)."""
-    d = var.dtype.base_dtype
-    return dtypes_mod.float32 if d.name in ("bfloat16", "float16") else d
-
-
 def _store_name(var):
     return var._ref.op.attrs["var_name"]
 
@@ -287,6 +289,13 @@ def _build_groups(pairs):
         groups.setdefault((var.dtype.base_dtype, _ud(var)), []).append(
             (grad, var))
     return groups
+
+
+def _fused_hypers(groups, *values):
+    """One constant per (hyperparameter, group), in the group's update
+    dtype (``_fused_hypers`` :135)."""
+    return [ops_mod.convert_to_tensor(value, dtype=ud)
+            for value in values for (_pdt, ud) in groups]
 
 
 def _flat_slot_layout(opt, slot_names, groups):
@@ -356,6 +365,13 @@ def flat_group(ctx, names):
     return flat
 
 
+def _group_grads(grads, n, dtype):
+    """One group's gradients concatenated in the parameters' dtype: the
+    kernels take them so and widen them themselves (JAX widens before the
+    call: the same values, bf16 -> f32 being exact)."""
+    return torch.cat([g.reshape(-1) for g in grads[:n]]).to(dtype)
+
+
 def _lower_fused_adam(ctx, op, inputs):
     """One Adam kernel launch per group over the flat parameters, the flat
     ``m``/``v`` slots and the concatenated gradients, in place; then the
@@ -378,11 +394,7 @@ def _lower_fused_adam(ctx, op, inputs):
             alpha = lrs[gi].to(ud) * torch.sqrt(1 - b2p.to(ud)) \
                 / (1 - b1p.to(ud))
             p_flat = flat_group(ctx, tuple(pnames))
-            # the kernel takes the gradients in the parameters' dtype and
-            # widens them itself (JAX widens before the call: the same
-            # values, bf16 -> f32 being exact)
-            g_flat = torch.cat([g.reshape(-1) for g in
-                                grads[lo:lo + len(pnames)]]).to(p_flat.dtype)
+            g_flat = _group_grads(grads[lo:], len(pnames), p_flat.dtype)
             lo += len(pnames)
             m = ctx.read_var(attrs["group_m"][gi], op)
             v = ctx.read_var(attrs["group_v"][gi], op)
@@ -404,6 +416,40 @@ op_registry.register(
     in_place=True)
 
 
+def _lower_fused_momentum(ctx, op, inputs):
+    """One Momentum kernel launch per group over the flat parameters, the
+    flat ``momentum`` slot and the concatenated gradients, in place, with
+    the group's f32 ``lr`` and ``mu`` constants as device scalars (as
+    :func:`_lower_fused_adam`: the last op of the plan; a dry run updates
+    copies)."""
+    attrs = op.attrs
+    n_groups = len(attrs["group_params"])
+    lrs = inputs[:n_groups]
+    mus = inputs[n_groups:2 * n_groups]
+    grads = inputs[2 * n_groups:]
+    nesterov = bool(attrs["use_nesterov"])
+    update = (momentum_update_plain if using_plain_versions()
+              else momentum_update)
+    lo = 0
+    with torch.no_grad():
+        for gi, pnames in enumerate(attrs["group_params"]):
+            p_flat = flat_group(ctx, tuple(pnames))
+            g_flat = _group_grads(grads[lo:], len(pnames), p_flat.dtype)
+            lo += len(pnames)
+            acc = ctx.read_var(attrs["group_momentum"][gi], op)
+            if ctx.dry:
+                p_flat, acc = p_flat.clone(), acc.clone()
+            update(p_flat, acc, g_flat, lrs[gi], mus[gi],
+                   use_nesterov=nesterov)
+    return []
+
+
+op_registry.register(
+    "FusedMomentumUpdate", lower=_lower_fused_momentum,
+    effects=op_registry.Effects(reads=("var_name",), writes=("var_name",)),
+    in_place=True)
+
+
 class GradientDescentOptimizer(Optimizer):
     """(ref: python/training/gradient_descent.py)."""
 
@@ -416,6 +462,61 @@ class GradientDescentOptimizer(Optimizer):
         grad = _g(grad, var)
         lr = _c(self._call_if_callable(self._learning_rate), var)
         return state_ops.assign_sub(var._ref, _back(lr * grad, var)).op
+
+
+class MomentumOptimizer(Optimizer):
+    """(ref: python/training/momentum.py): one ``FusedMomentumUpdate`` op
+    over flat ``momentum`` slots, or under ``stf.kernels`` mode ``"off"``
+    (or in a subclass overriding :meth:`_apply_dense`) the per-variable
+    chains ``acc = mu * acc + g; var -= lr * acc`` (Nesterov: ``lr * (g +
+    mu * acc)``) in the update dtype."""
+
+    def __init__(self, learning_rate, momentum, use_locking=False,
+                 name="Momentum", use_nesterov=False):
+        super().__init__(use_locking, name)
+        self._learning_rate = learning_rate
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_slots(self, var_list):
+        for v in var_list:
+            self._zeros_slot(v, "momentum", self._name)
+
+    def _apply_dense(self, grad, var):
+        grad = _g(grad, var)
+        mom = self.get_slot(var, "momentum")
+        lr = _c(self._call_if_callable(self._learning_rate), var)
+        mu = _c(self._call_if_callable(self._momentum), var)
+        new_acc = state_ops.assign(mom._ref, mu * mom._ref + grad)
+        if self._use_nesterov:
+            update = lr * (grad + mu * new_acc)
+        else:
+            update = lr * new_acc
+        return state_ops.assign_sub(var._ref, _back(update, var)).op
+
+    def _maybe_build_fused_update(self, grads_and_vars):
+        if kernels.current_mode() == "off" or \
+                type(self)._apply_dense is not MomentumOptimizer._apply_dense:
+            return None
+        pairs = [(g, v) for g, v in grads_and_vars if g is not None]
+        if not pairs:
+            return None
+        groups = _build_groups(pairs)
+        layout, group_params = _flat_slot_layout(self, ("momentum",), groups)
+        inputs = (_fused_hypers(
+            groups, self._call_if_callable(self._learning_rate),
+            self._call_if_callable(self._momentum))
+            + [g for pairs_g in groups.values() for g, _ in pairs_g])
+        all_params = [p for grp in group_params for p in grp]
+        g = ops_mod.get_default_graph()
+        return g.create_op(
+            "FusedMomentumUpdate", inputs,
+            attrs={"var_name": all_params + layout["momentum"],
+                   "group_params": tuple(group_params),
+                   "group_momentum": tuple(layout["momentum"]),
+                   "group_ud": tuple(ud.name for (_p, ud) in groups),
+                   "use_nesterov": bool(self._use_nesterov)},
+            name="fused_momentum_update", output_specs=[])
 
 
 class AdamOptimizer(Optimizer):
@@ -433,6 +534,10 @@ class AdamOptimizer(Optimizer):
         self._beta2_power = None
 
     def _maybe_build_fused_update(self, grads_and_vars):
+        if kernels.current_mode() == "off":
+            raise NotImplementedError(
+                "AdamOptimizer's per-variable path (stf.kernels mode 'off') "
+                "is not ported")
         if any(isinstance(h, ops_mod.Tensor) or callable(h)
                for h in (self._beta1, self._beta2, self._epsilon)):
             raise NotImplementedError("AdamOptimizer with tensor beta1, "
@@ -449,9 +554,7 @@ class AdamOptimizer(Optimizer):
                 name=self._name + "/beta2_power")
         groups = _build_groups(pairs)
         layout, group_params = _flat_slot_layout(self, ("m", "v"), groups)
-        lr_val = self._call_if_callable(self._lr)
-        inputs = ([ops_mod.convert_to_tensor(lr_val, dtype=ud)
-                   for (_pdt, ud) in groups]
+        inputs = (_fused_hypers(groups, self._call_if_callable(self._lr))
                   + [g for pairs_g in groups.values() for g, _ in pairs_g])
         all_params = [p for grp in group_params for p in grp]
         b1p = _store_name(self._beta1_power)

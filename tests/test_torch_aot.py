@@ -243,6 +243,34 @@ def test_store_load_forces_a_recapture():
     np.testing.assert_array_equal(got[True][1], got[False][1])
 
 
+def test_a_load_after_the_warm_up_warms_up_again():
+    """A load between a key's warm-up and its capture (here after run 1)
+    moves the store's tensors, and the fused update would have to rebuild
+    its flat buffer inside the capture: the run after the load warms up
+    again instead, the one after captures, with the eager session's
+    values."""
+    rng = np.random.RandomState(4)
+    xs = [rng.rand(2, 3).astype(np.float32) for _ in range(5)]
+    new_w = rng.rand(3, 1).astype(np.float32)
+    got = {}
+    for capture in (True, False):
+        with pstf.Graph().as_default():
+            x = pstf.placeholder(pstf.float32, [2, 3], name="x")
+            w = pstf.Variable(pstf.constant([[1.0], [0.5], [-1.0]]), name="w")
+            loss = pstf.reduce_sum(pstf.matmul(x, w) ** 2.0)
+            train = pstf.train.MomentumOptimizer(0.1, 0.9).minimize(loss)
+            with cpu_session(pstf) as s:
+                s._capture = capture
+                s.run(pstf.global_variables_initializer())
+                out = [s.run([train, loss], {x: xs[0]})[1]]
+                convert.load_session_variables(s, {"w": new_w})
+                out += [s.run([train, loss], {x: v})[1] for v in xs[1:]]
+                got[capture] = (out, s.run(w), s.captures)
+    assert got[True][2] == 1 and got[False][2] == 0
+    np.testing.assert_array_equal(got[True][0], got[False][0])
+    np.testing.assert_array_equal(got[True][1], got[False][1])
+
+
 def test_launch_accounting_moves_capture_counts_to_replays():
     """A capture's launches come off the global counters onto the graph;
     each replay adds them back."""

@@ -19,6 +19,8 @@ xent backward element by element (``_close_elementwise``): f32 1e-5,
 bf16 1e-2 (one bf16 rounding of the same f32 value).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -815,8 +817,8 @@ def test_resnet_trainer_steps_match_plain_on_card(cuda):
     params = convert.init_resnet_params(0, num_classes=10)
     kw = dict(batch_size=8, image_size=64, num_classes=10,
               dtype=torch.bfloat16, params=params, device=cuda)
-    plain = resnet.resnet50_train_model(plain=True, **kw)
-    trainer = resnet.resnet50_train_model(**kw)
+    plain = resnet.resnet50_trainer(plain=True, **kw)
+    trainer = resnet.resnet50_trainer(**kw)
     lp = plain.step(images, labels).item()
     before = K.launch_counts()
     opt = trainer.optimizer
@@ -1094,10 +1096,10 @@ def test_dropout_trainer_step_matches_plain_on_card(cuda):
     tok = np.random.RandomState(28).randint(2, cfg.vocab_size, (2, 32))
     runs = []
     for plain in (False, True):
-        t = clm.causal_lm_train_model(batch_size=2, seq_len=32, cfg=cfg,
-                                      compute_dtype=torch.float32,
-                                      warmup_steps=4, device="cuda",
-                                      plain=plain)
+        t = clm.causal_lm_trainer(batch_size=2, seq_len=32, cfg=cfg,
+                                  compute_dtype=torch.float32,
+                                  warmup_steps=4, device="cuda",
+                                  plain=plain)
         K.reset_launch_counts()
         loss = t.loss_and_grads(tok, tok).item()
         runs.append((t, loss, K.launch_counts()))
@@ -1502,3 +1504,195 @@ def test_mixed_embedding_gradient_is_deterministic_on_card(cuda):
     assert all(torch.equal(r, runs[0]) for r in runs[1:])
     torch.testing.assert_close(runs[0].cpu(), grad("cpu"), rtol=1e-5,
                                atol=1e-4)
+
+
+def _momentum_graph(stf, nesterov):
+    """Two groups (bf16 and f32 variables) under a quadratic loss, one
+    graph MomentumOptimizer step a run."""
+    rng = np.random.RandomState(9)
+    g = stf.Graph()
+    with g.as_default():
+        a = stf.Variable(stf.cast(stf.constant(rng.randn(300, 257).astype(
+            np.float32)), stf.bfloat16), name="a")
+        b = stf.Variable(stf.constant(rng.randn(1001).astype(np.float32)),
+                         name="b")
+        loss = (stf.reduce_sum(stf.cast(a._ref, stf.float32) ** 2.0)
+                + stf.reduce_sum(b._ref ** 3.0))
+        opt = stf.train.MomentumOptimizer(0.01, 0.9, use_nesterov=nesterov)
+        train = opt.minimize(loss)
+        init = stf.global_variables_initializer()
+    return g, init, [train, loss]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_graph_momentum_launches_k5_and_equals_plain_on_card(cuda,
+                                                             nesterov):
+    # the graph FusedMomentumUpdate through stf.Session (warm-up, capture,
+    # replays): one K5 launch per group a step, and every variable and
+    # flat slot bit for bit those of the same Session under
+    # plain_versions() (the plain Momentum update on the card)
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    g, init, fetch = _momentum_graph(stf, nesterov)
+    runs = []
+    for plain in (False, True):
+        with stf.Session(graph=g) as s:
+            s.run(init)
+            before = K.launch_counts()
+            with (fused_ops.plain_versions() if plain
+                  else contextlib.nullcontext()):
+                losses = [s.run(fetch)[1] for _ in range(4)]
+            after = K.launch_counts()
+            n = {k: after[k] - before[k] for k in (
+                "momentum_update", "momentum_update_bfloat16",
+                "momentum_update_float32")}
+            runs.append((losses, {k: v.float().cpu().numpy() for k, v in
+                                  s._variable_store.values.items()}, n,
+                         s.captures))
+    (lk, sk, nk, ck), (lp, sp, np_, _) = runs
+    assert nk == {"momentum_update": 2 * 4, "momentum_update_bfloat16": 4,
+                  "momentum_update_float32": 4}
+    assert not any(np_.values()) and ck == 1
+    assert lk == lp
+    assert any("fused_momentum_g1" in k for k in sk)
+    for k in sp:
+        np.testing.assert_array_equal(sk[k], sp[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_flash_seed_pointer_entries_under_a_capture_on_card(cuda,
+                                                                   dtype):
+    # the causal flash kernels captured in a CUDA graph through their
+    # seed-pointer entries: each replay reads the seed the buffer holds
+    # then, bit-identical to the launch-argument entries with that seed
+    h, s, d = 4, 256, 64
+    q, k, v, do, _ = _flash_inputs(cuda, dtype, 47, 2, h, s, s, d, False)
+    base = dict(heads=h, sm_scale=d ** -0.5, causal=True, bias=None,
+                dropout_rate=0.1)
+
+    def step(seed):
+        o, lse = K.flash_attention_fwd(q, k, v, dropout_seed=seed, **base)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                        dropout_seed=seed, **base)
+        dq = K.flash_attention_dq(q, k, v, do, lse, delta,
+                                  dropout_seed=seed, **base)
+        return o, lse, dk, dv, dq
+
+    buf = _seed_tensor(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(buf)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step(buf)
+    for seed in (SEED, SEED + 1, 77):
+        buf.fill_(seed)
+        graph.replay()
+        want = step(seed)
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(outs[0], step(SEED)[0])
+
+
+@pytest.mark.cuda
+def test_causal_lm_session_graph_replays_match_eager_on_card(cuda):
+    # a tiny causal_lm_train_model (bf16, dropout 0.1, pads in tok_out)
+    # through stf.Session: 4 steps captured bit-identical to 4 eager steps,
+    # losses and every variable and Adam slot; the replays launch the
+    # causal flash and K4 seed-pointer entries
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+
+    cfg = clm.TransformerConfig(vocab_size=64, d_model=64, num_heads=2,
+                                d_ff=128, num_layers=2, dropout=0.1,
+                                max_len=32)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(2, 64, (4, 17)).astype(np.int32)
+    tok_out = tok[:, 1:].copy()
+    tok_out[1, -3:] = 0
+    g = stf.Graph()
+    with g.as_default():
+        m = clm.causal_lm_train_model(4, 16, cfg=cfg, warmup_steps=4)
+        init = stf.global_variables_initializer()
+    feeds = {m["tok_in"]: tok[:, :-1], m["tok_out"]: tok_out}
+    runs = []
+    for capture in (True, False):
+        with stf.Session(graph=g) as s:
+            s._capture = capture
+            s.run(init)
+            before = K.launch_counts()
+            losses = [s.run([m["loss"], m["train_op"]], feeds)[0]
+                      for _ in range(4)]
+            after = K.launch_counts()
+            runs.append((losses, {k: v.float().cpu().numpy() for k, v in
+                                  s._variable_store.values.items()},
+                         s.captures, {k: after[k] - before[k]
+                                      for k in after}))
+    (lg, sg, cg, ng), (le, se, ce, ne) = runs
+    assert cg == 1 and ce == 0 and lg == le
+    for k in se:
+        np.testing.assert_array_equal(sg[k], se[k], err_msg=k)
+    for name in ("flash_attention_fwd", "flash_attention_dkdv",
+                 "flash_attention_dq", "dropout_residual",
+                 "dropout_residual_bwd"):
+        assert ng[name] == 2 and ng[name + "_device_seed"] == 3 * 2, name
+        assert ne[name] == 4 * 2, name
+    assert ng["dropout_device_key"] == 3 * 3
+    assert ng["adam_update"] == ne["adam_update"] == 4 * 2
+
+
+@pytest.mark.cuda
+def test_resnet_session_graph_replays_match_eager_on_card(cuda):
+    # a small resnet50_train_model (bf16, 4 x 64^2, 10 classes) through
+    # stf.Session with cuDNN's deterministic algorithms (its weight
+    # gradients may otherwise sum with atomics): 4 steps captured
+    # bit-identical to 4 eager steps; two K5 launches a step (the bf16
+    # convolution kernels, the f32 BatchNorm and fc variables); the moving
+    # statistics untouched
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import resnet
+
+    images, labels = resnet.synthetic_imagenet(4, 64)
+    g = stf.Graph()
+    with g.as_default():
+        m = resnet.resnet50_train_model(batch_size=4, image_size=64,
+                                        num_classes=10)
+        init = stf.global_variables_initializer()
+    feeds = {m["images"]: images, m["labels"]: labels % 10}
+    runs = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for capture in (True, False):
+            with stf.Session(graph=g) as s:
+                s._capture = capture
+                s.run(init)
+                before = K.launch_counts()
+                losses = [s.run([m["loss"], m["train_op"]], feeds)[0]
+                          for _ in range(4)]
+                after = K.launch_counts()
+                runs.append((losses, {k: v.float().cpu().numpy() for k, v
+                                      in s._variable_store.values.items()},
+                             s.captures,
+                             {k: after[k] - before[k] for k in (
+                                 "momentum_update",
+                                 "momentum_update_bfloat16",
+                                 "momentum_update_float32")}))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (lg, sg, cg, ng), (le, se, ce, ne) = runs
+    assert cg == 1 and ce == 0 and lg == le
+    assert ng == ne == {"momentum_update": 2 * 4,
+                        "momentum_update_bfloat16": 4,
+                        "momentum_update_float32": 4}
+    for k in se:
+        np.testing.assert_array_equal(sg[k], se[k], err_msg=k)
+        if k.endswith("moving_mean"):
+            assert not se[k].any(), k

@@ -448,8 +448,8 @@ def test_trainer_derives_each_step_of_a_block_as_one_step_alone():
 
     cfg = ptr.TransformerConfig.tiny()
     cfg.dropout = 0.1
-    tr = clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
-                                   device="cpu")
+    tr = clm.causal_lm_trainer(batch_size=2, seq_len=8, cfg=cfg,
+                               device="cpu")
     sites = (tr._key_sites, tr._seed_sites)
 
     def alone(counter):

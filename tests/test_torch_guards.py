@@ -68,8 +68,10 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.layers import base
         from simple_tensorflow_tpu_torch.train import (optimizer,
                                                        training_util)
-        from simple_tensorflow_tpu_torch.models import mnist
-        from simple_tensorflow_tpu_torch import nn, layers, train
+        from simple_tensorflow_tpu_torch.models import mnist, transformer
+        from simple_tensorflow_tpu_torch import kernels, nn, layers, train
+        from simple_tensorflow_tpu_torch.compiler import aot
+        from simple_tensorflow_tpu_torch.analysis import hazards
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -129,16 +131,16 @@ def test_trainer_defaults_to_the_gpu_and_refuses_dropout(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tr.TransformerConfig.tiny()
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg)
-    t = clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
-                                  device="cpu")
+        clm.causal_lm_trainer(batch_size=2, seq_len=8, cfg=cfg)
+    t = clm.causal_lm_trainer(batch_size=2, seq_len=8, cfg=cfg,
+                              device="cpu")
     assert t.stack.shared_embedding.device.type == "cpu"
     assert t.optimizer.flat_groups[0].m.device.type == "cpu"
     # dropout trains (slice 3); a rate the masks cannot take is refused
     cfg.dropout = 1.0
     with pytest.raises(ValueError, match="dropout"):
-        clm.causal_lm_train_model(batch_size=2, seq_len=8, cfg=cfg,
-                                  device="cpu")
+        clm.causal_lm_trainer(batch_size=2, seq_len=8, cfg=cfg,
+                              device="cpu")
 
 
 def test_session_defaults_to_the_gpu(monkeypatch):
@@ -162,8 +164,8 @@ def test_session_defaults_to_the_gpu(monkeypatch):
 def test_resnet_trainer_defaults_to_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        resnet.resnet50_train_model()
-    t = resnet.resnet50_train_model(batch_size=2, image_size=32,
-                                    num_classes=10, device="cpu")
+        resnet.resnet50_trainer()
+    t = resnet.resnet50_trainer(batch_size=2, image_size=32,
+                                num_classes=10, device="cpu")
     assert t.model.conv0.kernel.device.type == "cpu"
     assert t.optimizer.flat_groups[0].momentum.device.type == "cpu"

@@ -606,7 +606,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            "flash_attention_fwd", "flash_attention_dkdv",
                            "flash_attention_dq", "softmax_xent_fwd",
                            "softmax_xent_bwd", "adam_update",
-                           "momentum_update", "dropout_residual",
+                           "momentum_update", "momentum_update_bfloat16",
+                           "momentum_update_float32", "dropout_residual",
                            "dropout_residual_bwd", "dropout",
                            "dropout_device_key", "dropout_bwd",
                            "flash_attention_fwd_device_seed",

@@ -324,10 +324,10 @@ def jax_run(tmp_path_factory):
 
 
 def _port(ckpt, dtype=torch.float32):
-    return pres.resnet50_train_model(batch_size=B, image_size=SIZE,
-                                     num_classes=CLASSES, dtype=dtype,
-                                     learning_rate=LR, checkpoint=ckpt,
-                                     device="cpu")
+    return pres.resnet50_trainer(batch_size=B, image_size=SIZE,
+                                 num_classes=CLASSES, dtype=dtype,
+                                 learning_rate=LR, checkpoint=ckpt,
+                                 device="cpu")
 
 
 def _port_name(jax_name):
@@ -458,8 +458,8 @@ def test_bf16_graph_has_the_two_group_layout():
         layout = _jax_layout(g)
         sizes = {v.name.split(":")[0]: int(np.prod(v.shape.as_list()))
                  for v in stf.trainable_variables()}
-    trainer = pres.resnet50_train_model(batch_size=B, image_size=SIZE,
-                                        num_classes=CLASSES, device="cpu")
+    trainer = pres.resnet50_trainer(batch_size=B, image_size=SIZE,
+                                    num_classes=CLASSES, device="cpu")
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     groups = trainer.optimizer.flat_groups
     assert [(grp.p.dtype, grp.momentum.dtype) for grp in groups] == [
@@ -476,9 +476,9 @@ def test_bf16_graph_has_the_two_group_layout():
 def test_unported_options_raise():
     for flag in ("data_parallel", "recompute", "conv0_space_to_depth"):
         with pytest.raises(NotImplementedError, match="later slice"):
-            pres.resnet50_train_model(batch_size=2, image_size=32,
-                                      num_classes=10, device="cpu",
-                                      **{flag: True})
+            pres.resnet50_trainer(batch_size=2, image_size=32,
+                                  num_classes=10, device="cpu",
+                                  **{flag: True})
 
 
 def test_init_resnet_params_draws_the_jax_initializers():

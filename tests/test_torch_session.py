@@ -212,6 +212,47 @@ def test_plan_cache_hits_on_a_repeated_run():
     assert sizes["port"] == sizes["jax"] == 3
 
 
+def test_values_are_dropped_after_their_last_use():
+    """The run keeps an intermediate value only until its last consumer
+    has run (as XLA frees a buffer), the fetches to the end; the fetched
+    values and gradients are those of a run that keeps everything."""
+    import torch
+
+    from simple_tensorflow_tpu_torch.framework import lowering
+
+    stf = pstf
+    with stf.Graph().as_default():
+        x = stf.placeholder(stf.float32, [3], name="x")
+        w = stf.Variable(stf.constant([1.0, -2.0, 0.5]), name="w")
+        a = x * w
+        b = a + 1.0
+        c = b * b
+        loss = stf.reduce_sum(c)
+        (gw,) = stf.gradients(loss, [w])
+        with cpu_session(stf) as s:
+            s.run(stf.global_variables_initializer())
+            feed = {x: np.array([1.0, 2.0, 3.0], np.float32)}
+            got = s.run([loss, gw, b], feed)
+            plan = s._get_or_plan([loss, gw, b], s._normalize_feeds(feed))
+            ops = plan.ops
+            pos = {op: i for i, op in enumerate(ops)}
+            dropped = {t: op for op, ts in plan.frees.items() for t in ts}
+            assert loss not in dropped and gw not in dropped and \
+                b not in dropped
+            assert pos[dropped[a]] == max(pos[o] for o in a.consumers()
+                                          if o in pos)
+            assert pos[dropped[c]] > pos[c.op]
+            ctx = s._context(plan, s._normalize_feeds(feed), None)
+            with torch.enable_grad():
+                lowering.execute_ops(ctx, ops, plan.frees)
+            assert a not in ctx.env and c not in ctx.env
+            assert loss in ctx.env and b in ctx.env
+    np.testing.assert_allclose(got[0], np.sum(
+        (np.array([1.0, -4.0, 1.5]) + 1.0) ** 2), rtol=1e-6)
+    np.testing.assert_allclose(got[1], 2 * (np.array([2.0, -3.0, 2.5]))
+                               * np.array([1.0, 2.0, 3.0]), rtol=1e-6)
+
+
 def _rng_graph(stf):
     r = stf.random_uniform([4, 3], -1.0, 2.0, name="r")
     c = stf.Variable(stf.zeros([2]), name="c")

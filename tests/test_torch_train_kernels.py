@@ -311,7 +311,7 @@ def test_plain_versions_reach_the_adam_update(monkeypatch):
     cfg = tr.TransformerConfig.tiny()
     tok = np.random.RandomState(0).randint(2, cfg.vocab_size, (2, 8))
     for plain in (False, True):
-        trainer = clm.causal_lm_train_model(
+        trainer = clm.causal_lm_trainer(
             batch_size=2, seq_len=8, cfg=cfg, compute_dtype=torch.float32,
             device="cpu", plain=plain)
         want = K.adam_update_plain if plain else K.adam_update

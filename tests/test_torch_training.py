@@ -128,7 +128,7 @@ def jax_f32_dropout(tmp_path_factory):
 def _trainer(ckpt, dtype=torch.float32, dropout=0.0):
     cfg = ptr.TransformerConfig.tiny()
     cfg.dropout = dropout
-    return clm.causal_lm_train_model(
+    return clm.causal_lm_trainer(
         batch_size=B, seq_len=S, cfg=cfg, warmup_steps=WARMUP,
         compute_dtype=dtype, checkpoint=ckpt, device="cpu")
 
@@ -284,7 +284,7 @@ def test_dropout_plain_trainer_never_calls_a_kernel_wrapper(
             monkeypatch.setattr(module, name, refuse)
     cfg = ptr.TransformerConfig.tiny()
     cfg.dropout = 0.1
-    plain = clm.causal_lm_train_model(
+    plain = clm.causal_lm_trainer(
         batch_size=B, seq_len=S, cfg=cfg, warmup_steps=WARMUP,
         compute_dtype=torch.float32, checkpoint=jax_f32_dropout["ck0"],
         device="cpu", plain=True)
@@ -294,13 +294,13 @@ def test_dropout_plain_trainer_never_calls_a_kernel_wrapper(
 
 
 def test_trainer_checks_its_batch_shape_and_position_table():
-    tr = clm.causal_lm_train_model(batch_size=B, seq_len=S,
-                                   cfg=ptr.TransformerConfig.tiny(),
-                                   compute_dtype=torch.float32, seed=1,
-                                   device="cpu")
+    tr = clm.causal_lm_trainer(batch_size=B, seq_len=S,
+                               cfg=ptr.TransformerConfig.tiny(),
+                               compute_dtype=torch.float32, seed=1,
+                               device="cpu")
     with pytest.raises(ValueError, match="batch must be"):
         tr.step(np.ones((B, S + 1), np.int32), np.ones((B, S + 1), np.int32))
     with pytest.raises(ValueError, match="max_len"):
-        clm.causal_lm_train_model(batch_size=1, seq_len=33,
-                                  cfg=ptr.TransformerConfig.tiny(),
-                                  device="cpu")
+        clm.causal_lm_trainer(batch_size=1, seq_len=33,
+                              cfg=ptr.TransformerConfig.tiny(),
+                              device="cpu")
