@@ -205,6 +205,42 @@ beside another tree's package measures that tree's serving path.
    device ms a step from a ``torch.profiler`` window of 3 steps, the host
    ms a step and the host time by kind.
 
+7b. Training-loop phase: the same model and batch (bf16, 6 + 6 layers,
+   dropout 0.1) with ``stf.summary.scalar("loss", loss)`` under graph
+   seed 1, through the TF-1 training loop, all under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the ops
+   it warns about are printed). First 17 sequential captured
+   ``Session.run([train_op, loss])`` steps, the reference. Run A:
+   ``MonitoredTrainingSession(checkpoint_dir, save_checkpoint_steps=8,
+   save_summaries_steps=4, log_step_count_steps=4, loop_fusion_steps=4,
+   StopAtStepHook(last_step=16), Saver(max_to_keep=2))`` driven by
+   ``run_steps([train_op, loss, global_step], 4)`` until it stops: the
+   window sizes, checkpoint steps, summary steps of the JAX hooks
+   (``LOOP_WINDOWS``, ``LOOP_CKPT_STEPS``; the CPU tests hold the port's
+   hooks to JAX's), every fetched loss and the step-17 checkpoint
+   (every variable and Adam slot) bit-identical to the sequential runs,
+   the event files read back with the loss and ``global_step/sec``. Then
+   4 ``run_steps`` windows of 4 (``"stacked"``) from the initializer:
+   each window n replays of the compiled step; the 16 losses and the
+   state bit-identical to the sequential runs, launches exactly one dry
+   warm-up plus 16 x ``tf_per_step``, no fallback; the same windows with
+   the key and seed buffers not refilled between replays (a planted
+   fault) must differ; a restore of A's step-17 checkpoint into that live
+   session (in place: no capture anew) and its seconds; the p50 ms a
+   step of windows of 4 against that of the captured per-step runs, both
+   in this process; a ``torch.profiler`` trace of one window and of 4
+   runs (device and host ms a step, busy share, the longest device idle
+   gap; the one between two replays of the window must stay under
+   ``LOOP_GAP_MS``, in the best of up to ``LOOP_TRACES`` traces, as a
+   trace can drop kernel records). Run B stops at step 8;
+   run C, a new graph and session on B's directory, resumes from B's last
+   checkpoint and runs to the end: C's losses and step-17 checkpoint
+   bit-identical to A's and the sequential runs'. A copy of a checkpoint
+   with one payload byte flipped must raise ``DataLossError``. The blocking
+   save's seconds (D2H read, npz and sha256, commit) and bytes, and the
+   captures over the phase, are printed. The checkpoints live in a
+   temporary directory, removed at the end.
+
 8. Causal-LM Session phase: ``models/causal_lm.py``
    ``causal_lm_train_model`` built with the port's ``stf`` API and trained
    by ``stf.Session`` at ``TransformerConfig.big()``, batch 16 x 256,
@@ -246,7 +282,8 @@ beside another tree's package measures that tree's serving path.
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
 window, the Session's checked steps and its two windows, the transformer's,
-the causal LM's and ResNet's f32 checked steps and their two windows) is
+the causal LM's and ResNet's f32 checked steps and their two windows, the
+training loop's run A and its checked windows) is
 counted from zero just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
@@ -268,11 +305,14 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -3632,6 +3672,449 @@ def transformer_session_phase(K, dev, kernel_rows):
                      eager["counts"])]
 
 
+# -- training-loop phase (Session.run_steps, MonitoredTrainingSession, Saver,
+# summaries) -----------------------------------------------------------------
+
+LOOP_N = 4                  # run_steps windows: ConfigProto(loop_fusion_steps)
+LOOP_STEPS = 16             # 4 windows of 4 against 16 sequential runs
+LOOP_TIMED = 8              # windows (and runs) timed for the p50s
+LOOP_SAVE_STEPS, LOOP_SUMMARY_STEPS, LOOP_LOG_STEPS = 8, 4, 4
+LOOP_KEEP = 2               # Saver(max_to_keep=2): checkpoints of 1.76 GB
+# JAX's hooks on this graph (tests/test_torch_monitored_session.py holds
+# the port's equal to them): the hooks fetch global_step beside train_op,
+# before its increment, so StopAtStepHook(last_step=16) ends at step 17
+# and the checkpoint named -8 holds step 9; SummarySaverHook writes its
+# first summary (step 0) only and then votes windows of one step
+LOOP_WINDOWS = [1, 3] + [1] * 13
+LOOP_CKPT_STEPS = [0, 8, 16, 17]
+LOOP_B_WINDOWS = [1, 3, 1, 1, 1, 1, 1]          # StopAtStepHook(last_step=8)
+LOOP_GAP_MS = 0.1           # longest device idle gap between two replays
+LOOP_TRACES = 3             # traces of a window, the best kept
+
+
+def loop_build(stf, tr, cfg, saver=False):
+    """``transformer_train_model(TF_B, TF_SRC, TF_TGT, cfg, warmup_steps=
+    TF_WARMUP, compute_dtype=bf16)`` and ``stf.summary.scalar("loss",
+    loss)`` in a new graph under ``set_random_seed(1)``: ``(graph, model,
+    summary, initializer, Saver(max_to_keep=LOOP_KEEP) or None)``."""
+    g = stf.Graph()
+    with g.as_default():
+        stf.set_random_seed(1)
+        m = tr.transformer_train_model(TF_B, TF_SRC, TF_TGT, cfg=cfg,
+                                       warmup_steps=TF_WARMUP,
+                                       compute_dtype=stf.bfloat16)
+        summ = stf.summary.scalar("loss", m["loss"])
+        init = stf.global_variables_initializer()
+        sv = stf.train.Saver(max_to_keep=LOOP_KEEP) if saver else None
+    return g, m, summ, init, sv
+
+
+def store_bits(sess):
+    """``{store name: (dtype, shape, bytes)}``: the raw state (bf16 as its
+    2-byte values, as a checkpoint holds it)."""
+    from simple_tensorflow_tpu_torch.checkpoint import snapshot
+
+    out = {}
+    for k, v in sess._variable_store.values.items():
+        a = snapshot.host_array(v)
+        out[k] = (a.dtype.itemsize, a.shape, a.tobytes())
+    return out
+
+
+def ckpt_bits(prefix):
+    from simple_tensorflow_tpu_torch.train import saver as saver_mod
+
+    return {k: (a.dtype.itemsize, a.shape, a.tobytes())
+            for k, a in saver_mod.load_checkpoint_values(prefix).items()}
+
+
+def bits_differ(a, b):
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def no_recapture(tag, sess):
+    """Fail when a plan of ``sess`` was captured twice (a save or a
+    restore that moved a store tensor forces a capture anew)."""
+    live = sum(len(p.executables) for p in sess._cache.values())
+    if sess.captures != live:
+        fail(f"{tag}: {sess.captures} captures for {live} captured plans: "
+             "a plan was captured anew")
+    return sess.captures
+
+
+def loop_trace(fn, n):
+    """Run ``fn()`` (``n`` steps) under ``torch.profiler``: device ms a
+    step (kernels, copies, fills), the busy share of the host clock
+    around it, the longest idle gap between two device activities, that
+    next to a device-to-device copy (the staging before a replay of a
+    window: a replay boundary) and elsewhere, and the device-to-device
+    copies' ms a step; ``None`` when the trace saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, dev_us, d2d_us = [], 0.0, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            d2d = "DtoD" in e.name
+            spans.append((e.time_range.start, e.time_range.end, d2d))
+            dev_us += e.time_range.elapsed_us()
+            d2d_us += e.time_range.elapsed_us() if d2d else 0.0
+    if not spans:
+        return None
+    spans.sort()
+    busy, gaps, end, last_d2d = 0.0, {True: 0.0, False: 0.0}, \
+        spans[0][0], spans[0][2]
+    for s, e, d2d in spans:
+        if s > end:
+            edge = d2d or last_d2d
+            gaps[edge] = max(gaps[edge], s - end)
+            busy += e - s
+        elif e > end:
+            busy += e - end
+        if e >= end:
+            last_d2d = d2d
+        end = max(end, e)
+    return dict(dev_ms=dev_us / 1e3 / n, busy=busy / 1e3 / wall_ms,
+                gap_ms=max(gaps.values()) / 1e3,
+                edge_gap_ms=gaps[True] / 1e3, inner_gap_ms=gaps[False] / 1e3,
+                d2d_ms=d2d_us / 1e3 / n, wall_ms=wall_ms / n)
+
+
+def loop_monitored(stf, tr, cfg, feeds_of, directory, last_step):
+    """``MonitoredTrainingSession`` over a new graph (``loop_build``) on
+    ``directory`` with the phase's hooks, driven by ``run_steps([train_op,
+    loss, global_step], LOOP_N)`` until it stops: the window sizes, the
+    ``(loss, step)`` each ``run_steps`` returned, the global step the
+    session started at, the captures, the last save's statistics."""
+    g, m, summ, _, sv = loop_build(stf, tr, cfg, saver=True)
+    with g.as_default():
+        ms = stf.train.MonitoredTrainingSession(
+            checkpoint_dir=directory,
+            scaffold=stf.train.Scaffold(saver=sv),
+            save_checkpoint_steps=LOOP_SAVE_STEPS,
+            save_summaries_steps=LOOP_SUMMARY_STEPS,
+            log_step_count_steps=LOOP_LOG_STEPS,
+            config=stf.ConfigProto(loop_fusion_steps=LOOP_N),
+            hooks=[stf.train.StopAtStepHook(last_step=last_step)])
+        sess = ms.raw_session
+        start = int(sess.variable_value(m["global_step"]).item())
+        sizes, orig = [], ms._run_once
+
+        def run_once(*a, window=1, **k):
+            sizes.append(window)
+            return orig(*a, window=window, **k)
+
+        ms._run_once = run_once
+        fetched = []
+        with ms:
+            while not ms.should_stop():
+                out = ms.run_steps([m["train_op"], m["loss"],
+                                    m["global_step"]], LOOP_N,
+                                   feed_dict=feeds_of(m))
+                # the global step fetched beside train_op is the step's own
+                # number less one
+                fetched.append((float(out[1]), int(out[2]) + 1))
+            captures = no_recapture(f"monitored {directory}", sess)
+    return dict(sizes=sizes, fetched=fetched, start=start,
+                captures=captures, save=dict(sv.last_save_stats))
+
+
+def loop_events(directory):
+    """``[(step, tag, value)]`` of every event file of ``directory``, read
+    by the port's ``summary_iterator``."""
+    from simple_tensorflow_tpu_torch.summary import summary_iterator
+
+    out = []
+    for name in sorted(os.listdir(directory)):
+        if ".tfevents." in name:
+            for e in summary_iterator(os.path.join(directory, name)):
+                if e.summary is not None:
+                    out += [(e.step, v.tag, v.simple_value)
+                            for v in e.summary.value]
+    return sorted(out)
+
+
+def loop_phase(K, dev):
+    """The TF-1 training loop on the headline model (module docstring,
+    phase 7b). Returns ``[(path, dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.framework import errors
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig.big()
+    batch = tf_batch(TF_B, TF_SRC, TF_TGT, cfg.vocab_size, pads=False)
+
+    def feeds_of(m):
+        return tf_feeds(m, batch)
+
+    tag = f"loop[bf16 {TF_B}x{TF_SRC}/{TF_TGT}]"
+    print(f"{tag}: transformer_train_model(TransformerConfig.big()) as in "
+          f"phase 7 with stf.summary.scalar('loss', loss), graph seed 1, "
+          f"under torch.use_deterministic_algorithms(True, warn_only=True)"
+          f": 17 sequential captured runs; MonitoredTrainingSession("
+          f"save_checkpoint_steps={LOOP_SAVE_STEPS}, save_summaries_steps="
+          f"{LOOP_SUMMARY_STEPS}, log_step_count_steps={LOOP_LOG_STEPS}, "
+          f"loop_fusion_steps={LOOP_N}, StopAtStepHook(last_step=16), "
+          f"Saver(max_to_keep={LOOP_KEEP})) driven by run_steps(..., "
+          f"{LOOP_N}) (run A), stopped at 8 (run B) and resumed in a new "
+          f"graph (run C); {LOOP_STEPS // LOOP_N} run_steps windows of "
+          f"{LOOP_N} against the sequential runs, and with stale keys and "
+          f"seeds as a planted fault", flush=True)
+    root = tempfile.mkdtemp(prefix="stf_loop_")
+    prev_fill = torch.utils.deterministic.fill_uninitialized_memory
+    paths, captures = [], {}
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            paths = loop_checks(K, stf, tr, cfg, feeds_of, tag, root,
+                                errors, captures)
+        ops = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                      if "determinis" in str(w.message)})
+        print(f"{tag}: ops without a deterministic path (warnings under "
+              f"use_deterministic_algorithms): {ops or 'none'}", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = prev_fill
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag}: captures over the phase {sum(captures.values())} "
+          f"{captures}", flush=True)
+    return paths
+
+
+def loop_checks(K, stf, tr, cfg, feeds_of, tag, root, errors, captures):
+    """The checks and measurements of :func:`loop_phase`; returns its
+    paths."""
+    card = card_line()
+    paths = []
+    per = tf_per_step(cfg.num_layers, 2)
+    fetch_names = ("train_op", "loss")
+
+    # -- the reference: sequential captured runs --------------------------------
+    g, m, _, init, _ = loop_build(stf, tr, cfg)
+    sess = stf.Session(graph=g)
+    sess.run(init)
+    fetch = [m[k] for k in fetch_names]
+    seq, run_s = [], []
+    state16 = None
+    for i in range(17):
+        t0 = time.perf_counter()
+        seq.append(float(sess.run(fetch, feeds_of(m))[1]))
+        run_s.append(time.perf_counter() - t0)
+        if i == LOOP_STEPS - 1:
+            state16 = store_bits(sess)
+    state17 = store_bits(sess)
+    run_trace = loop_trace(
+        lambda: [sess.run(fetch, feeds_of(m)) for _ in range(LOOP_N)],
+        LOOP_N)
+    captures["sequential"] = no_recapture(f"{tag} sequential", sess)
+    sess.close()
+    torch.cuda.empty_cache()
+    run_p50 = statistics.median(run_s[2:])   # the captured replays
+
+    # -- run A: the monitored run -------------------------------------------
+    dir_a = os.path.join(root, "A")
+    K.reset_launch_counts()
+    a = loop_monitored(stf, tr, cfg, feeds_of, dir_a, 16)
+    paths.append(("transformer loop monitored A", DROPOUT_RATE,
+                  K.launch_counts()))
+    captures["A"] = a["captures"]
+    torch.cuda.empty_cache()
+    steps_a = [p for p in os.listdir(dir_a) if p.endswith(".stfz")]
+    kept = sorted(int(p[len("model.ckpt-"):-len(".stfz")]) for p in steps_a)
+    events = loop_events(dir_a)
+    loss_ev = [(s, v) for s, t, v in events if t == "loss"]
+    rate_ev = [s for s, t, _ in events if t == "global_step/sec"]
+    bad = []
+    if a["sizes"] != LOOP_WINDOWS:
+        bad.append(f"windows {a['sizes']} != {LOOP_WINDOWS}")
+    if kept != LOOP_CKPT_STEPS[-LOOP_KEEP:]:
+        bad.append(f"checkpoints kept {kept}")
+    if [(x, s) for x, s in a["fetched"]] != [(seq[s - 1], s)
+                                              for _, s in a["fetched"]]:
+        bad.append(f"losses {a['fetched']} off the sequential runs")
+    if loss_ev != [(0, np.float32(seq[0]))]:
+        bad.append(f"loss summaries {loss_ev}")
+    if rate_ev != [4, 8, 12, 16]:
+        bad.append(f"global_step/sec at {rate_ev}")
+    a17 = ckpt_bits(os.path.join(dir_a, "model.ckpt-17"))
+    differ = bits_differ(a17, state17)
+    if differ:
+        bad.append(f"step-17 checkpoint differs from the sequential state "
+                   f"in {differ[:5]} ({len(differ)} of {len(a17)})")
+    print(f"{tag} A: windows {a['sizes']}, (loss, step) a run_steps call "
+          f"{a['fetched']}; checkpoints kept {kept}; summaries: loss "
+          f"{loss_ev}, global_step/sec at steps {rate_ev}; step-17 "
+          f"checkpoint vs 17 sequential runs: {len(differ)} of {len(a17)} "
+          f"variables and slots differ; captures {a['captures']}", flush=True)
+    if bad:
+        fail(f"{tag} A: " + "; ".join(bad))
+    save = a["save"]
+    print(f"{card}: {tag} blocking save (model.ckpt-17): "
+          f"{save['seconds']:.4f} s, {save['bytes']} bytes: D2H read "
+          f"{save['d2h']:.4f} s, npz and sha256 {save['serialize']:.4f} s, "
+          f"commit (write, fsync, rename) {save['commit']:.4f} s", flush=True)
+
+    # -- windows of n replays against the sequential runs ---------------------
+    win = {}
+    for fault in (False, True):
+        g, m, _, init, sv = loop_build(stf, tr, cfg, saver=True)
+        sess = stf.Session(graph=g)
+        sess.run(init)
+        sess._refresh_keys = sess._refresh_seeds = not fault
+        fetch = [m[k] for k in fetch_names]
+        K.reset_launch_counts()
+        losses = []
+        for _ in range(LOOP_STEPS // LOOP_N):
+            out = sess.run_steps(fetch, LOOP_N, feed_dict=feeds_of(m),
+                                 output_mode="stacked")
+            losses += [float(x) for x in out[1]]
+        counts = K.launch_counts()
+        diff = bits_differ(store_bits(sess), state16)
+        same = [x == y for x, y in zip(losses, seq)]
+        win[fault] = (losses, diff, same)
+        print(f"{tag} window{' (stale keys and seeds)' if fault else ''}: "
+              f"{LOOP_STEPS // LOOP_N} run_steps windows of {LOOP_N}: losses "
+              f"{[round(x, 5) for x in losses]}; equal to the sequential "
+              f"runs' {sum(same)} of {len(same)}; state after step "
+              f"{LOOP_STEPS}: {len(diff)} variables and slots differ; "
+              f"fallbacks {sess.loop_fusion_fallbacks}", flush=True)
+        if not fault:
+            want = {k: v * (LOOP_STEPS + 1) for k, v in per.items()}
+            for k in SEEDED:
+                want[k] = per[k]
+                want[k + "_device_seed"] = per[k] * LOOP_STEPS
+            want["dropout"] = per["dropout"]
+            want["dropout_device_key"] = per["dropout"] * LOOP_STEPS
+            full = {k: 0 for k in counts}
+            full.update(want)
+            if counts != full:
+                fail(f"{tag} window: launches {counts}, expected {full} "
+                     f"(one dry warm-up, {LOOP_STEPS} replays)")
+            print(f"{tag} window: launches {counts} ({LOOP_STEPS} replays "
+                  f"x tf_per_step + one dry warm-up)", flush=True)
+            paths.append(("transformer loop window", DROPOUT_RATE, counts))
+            if not all(same) or diff or sess.loop_fusion_fallbacks or \
+                    sess.fused_steps != LOOP_STEPS:
+                fail(f"{tag} window: the windows are off the sequential runs")
+            # a restore into the live session: in place, nothing re-captured
+            t0 = time.perf_counter()
+            with g.as_default():
+                sv.restore(sess, os.path.join(dir_a, "model.ckpt-17"))
+            restore_s = time.perf_counter() - t0
+            off = bits_differ(store_bits(sess), state17)
+            if off:
+                fail(f"{tag}: the restored state is not the checkpoint's: "
+                     f"{off[:5]} ({len(off)} differ)")
+            # timed: windows and per-step runs alternate, both captured
+            win_s = []
+            for _ in range(LOOP_TIMED):
+                t0 = time.perf_counter()
+                sess.run_steps(fetch, LOOP_N, feed_dict=feeds_of(m))
+                win_s.append((time.perf_counter() - t0) / LOOP_N)
+            # a trace can drop kernel records (tests/test_torch_cuda.py's
+            # trace readers retry for it), which reads as an idle gap: the
+            # window is traced up to LOOP_TRACES times and the trace with
+            # the shortest gap at a replay boundary is kept
+            traces = []
+            for _ in range(LOOP_TRACES):
+                traces.append(loop_trace(lambda: sess.run_steps(
+                    fetch, LOOP_N, feed_dict=feeds_of(m)), LOOP_N))
+                if traces[-1] is None or \
+                        traces[-1]["edge_gap_ms"] <= LOOP_GAP_MS:
+                    break
+            win_trace = min(traces, key=lambda t: 0 if t is None
+                            else t["edge_gap_ms"])
+            print(f"{tag}: window traces (longest idle gap next to a "
+                  f"device-to-device copy, elsewhere; ms): "
+                  f"{[None if t is None else (round(t['edge_gap_ms'], 4), round(t['inner_gap_ms'], 4)) for t in traces]}",
+                  flush=True)
+            captures["window"] = no_recapture(f"{tag} window", sess)
+        else:
+            captures["stale"] = sess.captures
+        sess.close()
+        torch.cuda.empty_cache()
+    if all(win[True][2]) or not win[True][1]:
+        fail(f"{tag}: windows with stale keys and seeds pass the "
+             "sequential check")
+    win_p50 = statistics.median(win_s)
+    print(f"{card}: {tag} restore of model.ckpt-17 into the live session "
+          f"(read, sha256, copy into the store's tensors): {restore_s:.4f} s",
+          flush=True)
+    print(f"{card}: {tag} p50 ms a step: run_steps windows of {LOOP_N} "
+          f"{win_p50 * 1e3:.4f} ({LOOP_TIMED} windows), per-step run "
+          f"{run_p50 * 1e3:.4f} (15 captured runs), {run_p50 / win_p50:.4f}x",
+          flush=True)
+    for name, tr_ in (("run_steps window", win_trace),
+                      (f"{LOOP_N} runs", run_trace)):
+        if tr_ is None:
+            print(f"{card}: {tag} {name}: the profiler saw no device time: "
+                  "device and host ms not measured", flush=True)
+            continue
+        print(f"{card}: {tag} {name}: device {tr_['dev_ms']:.4f} ms a step, "
+              f"host {tr_['wall_ms'] - tr_['dev_ms']:.4f} ms a step (traced "
+              f"wall {tr_['wall_ms']:.4f} minus device), busy "
+              f"{100 * tr_['busy']:.2f}%, longest device idle gap "
+              f"{tr_['gap_ms']:.4f} ms (next to a device-to-device copy "
+              f"{tr_['edge_gap_ms']:.4f}, elsewhere "
+              f"{tr_['inner_gap_ms']:.4f}), device-to-device staging "
+              f"{tr_['d2d_ms']:.4f} ms a step", flush=True)
+    if win_trace is not None and win_trace["edge_gap_ms"] > max(
+            LOOP_GAP_MS, win_trace["d2d_ms"]):
+        fail(f"{tag}: the device idled {win_trace['edge_gap_ms']:.4f} ms "
+             "between two replays of a window: a replay waited for the host")
+
+    # -- runs B and C: stop at 8, resume in a new graph -------------------------
+    dir_b = os.path.join(root, "B")
+    b = loop_monitored(stf, tr, cfg, feeds_of, dir_b, 8)
+    captures["B"] = b["captures"]
+    torch.cuda.empty_cache()
+    latest_b = stf.train.latest_checkpoint(dir_b)
+    c = loop_monitored(stf, tr, cfg, feeds_of, dir_b, 16)
+    captures["C"] = c["captures"]
+    torch.cuda.empty_cache()
+    c17 = ckpt_bits(os.path.join(dir_b, "model.ckpt-17"))
+    differ = bits_differ(c17, a17)
+    c_off = [(x, s) for x, s in c["fetched"] if x != seq[s - 1]]
+    print(f"{tag} B: windows {b['sizes']}, (loss, step) {b['fetched']}, "
+          f"latest checkpoint {os.path.basename(latest_b)}; C: resumed at "
+          f"global_step {c['start']}, windows {c['sizes']}, (loss, step) "
+          f"{c['fetched']}; C's step-17 checkpoint vs A's: {len(differ)} of "
+          f"{len(c17)} variables and slots differ", flush=True)
+    if b["sizes"] != LOOP_B_WINDOWS or not latest_b.endswith("-9") or \
+            c["start"] != 9 or c["fetched"][-1][1] != 17 or differ or c_off:
+        fail(f"{tag}: the resumed run is off the uninterrupted one "
+             f"({differ[:5]}; losses off {c_off})")
+
+    # -- a flipped payload byte --------------------------------------------------
+    bad = os.path.join(root, "flipped")
+    for suffix in (".stfz", ".index.json"):
+        shutil.copyfile(os.path.join(dir_b, "model.ckpt-17") + suffix,
+                        bad + suffix)
+    with open(bad + ".stfz", "r+b") as f:
+        f.seek(os.path.getsize(bad + ".stfz") // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x01]))
+    g, _, _, _, sv = loop_build(stf, tr, cfg, saver=True)
+    with g.as_default(), stf.Session(graph=g) as sess:
+        try:
+            sv.restore(sess, bad)
+        except errors.DataLossError as e:
+            print(f"{tag}: a copy of model.ckpt-17 with one payload byte "
+                  f"flipped: DataLossError ({str(e)[:90]}...)", flush=True)
+        else:
+            fail(f"{tag}: a flipped payload byte restored without an error")
+    return paths
+
+
 # -- causal-LM Session phase --------------------------------------------------
 
 LM_CHECK_LAYERS, LM_CHECK_STEPS = 2, 2
@@ -4211,6 +4694,8 @@ def main():
     paths += session_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
     paths += transformer_session_phase(K, dev, main_rows)
+    torch.cuda.empty_cache()
+    paths += loop_phase(K, dev)
     torch.cuda.empty_cache()
     paths += lm_session_phase(K, dev, main_rows, notes)
     torch.cuda.empty_cache()

@@ -9,7 +9,9 @@ causal-LM and ResNet-50 training with hand-written CUDA kernels (see
 PERF.md). The transformer, causal-LM and ResNet-50 training graphs
 (``models.transformer.transformer_train_model``,
 ``models.causal_lm.causal_lm_train_model``,
-``models.resnet.resnet50_train_model``) train through the Session.
+``models.resnet.resnet50_train_model``) train through the Session, also
+as the TF-1 training loop: ``Session.run_steps``, ``stf.train.Saver``,
+the hooks and ``MonitoredTrainingSession``, and ``stf.summary``.
 Importing the package loads no kernel library; the kernels are built and
 loaded at their first launch.
 """
@@ -19,7 +21,7 @@ from .framework.config_pb import ConfigProto
 from .framework.constant_op import constant
 from .framework.dtypes import (DType, as_dtype, bfloat16, double, float16,
                                float32, float64, half, int8, int16, int32,
-                               int64, uint8)
+                               int64, string, uint8)
 from .framework.dtypes import bool_ as bool  # noqa: A001
 from .framework.gradients import gradients
 from .framework.graph import (Graph, GraphKeys, Operation, Tensor,
@@ -33,6 +35,7 @@ from .ops.array_ops import (fill, gather, identity, ones, placeholder,
                             placeholder_with_default, reshape, stop_gradient,
                             transpose, zeros)
 from .ops.control_flow_ops import group, no_op
+from .ops.logging_ops import Print
 from .ops import init_ops
 from .ops.init_ops import (glorot_uniform_initializer, ones_initializer,
                            random_normal_initializer,
@@ -47,7 +50,8 @@ from .ops.variable_scope import (AUTO_REUSE, VariableScope, get_variable,
                                  get_variable_scope, variable_scope)
 from .ops.variables import (Variable, global_variables,
                             global_variables_initializer,
-                            initialize_all_variables, trainable_variables,
+                            initialize_all_variables, local_variables,
+                            local_variables_initializer, trainable_variables,
                             variables_initializer)
 from .client.session import Session, get_default_session
-from . import analysis, kernels, layers, nn, train
+from . import analysis, checkpoint, kernels, layers, nn, summary, train

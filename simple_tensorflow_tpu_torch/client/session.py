@@ -20,7 +20,19 @@ session.py``:
   whose plan draws randomness advances the run counter ``c`` and draws
   from ``fold_in(key(graph seed or 0), c)``; a plan in which no op
   declares an RNG effect does not advance it (``_plan_uses_rng``, :300);
-- ``close``, the context manager and ``as_default``.
+- ``close``, the context manager and ``as_default``;
+- ``run_steps`` (:1566, ``_run_steps_body`` :1603, ``_run_steps_unfused``
+  :1980): n steps of one plan as one window (below), with the JAX
+  package's feeds (``feed_dict``, ``feed_iterator``, ``stacked_feeds``),
+  output modes (``"last"``, ``"stacked"``), validation errors and
+  loop-safety fallback (``analysis/loop_safety.py``: an unsafe plan runs
+  n sequential ``run`` calls, its reasons counted on
+  ``loop_fusion_fallbacks`` and logged once);
+- the post-host stage: ``runs_on_host`` ops (the summary ops) run after
+  the device step on the host values of their inputs, as the JAX
+  package's ``post_host_plan``;
+- ``snapshot_host_state`` (:1361) and ``variable_value`` (:1294), which
+  ``train.Saver`` and the MonitoredSession read.
 
 Device rule: ``Session()`` runs on ``"cuda"`` through
 :func:`..models.common.resolve_device` (which pins f32 matrix products and
@@ -55,8 +67,26 @@ nothing committed) and captures ahead of traffic. The private ``_capture
 = False`` runs every step eagerly (the reference the smoke and the tests
 hold the graphs against).
 
+A ``run_steps`` window of a loop-safe plan on the card is n replays of
+the plan's captured step (compiled ahead when the plan has none: a dry
+warm-up and a capture, ``ExecutionPlan.compile``): the window's per-step
+feeds, keys and seeds are staged once (``StepExecutable.stage_window``),
+a device copy moves row i into the static buffers before replay i, the
+run counter advances by n (the keys of n sequential runs), and nothing
+between two replays waits for the host. ``"last"`` reads the fetches
+back after the last replay; ``"stacked"`` copies each replay's fetches
+into a device buffer before the next replay overwrites them. On the CPU
+the same window runs each replay's op list eagerly into the executable's
+static buffers (the CPU form of a replay); with ``_capture`` off, or for
+a plan whose host scalars change within the window, the window is a loop
+of n runs. Either way the result equals n sequential ``run`` calls bit
+for bit.
+
+A plan with an op of declared ``io`` effect (``Print``) runs eagerly at
+every run: it reads the device from the host.
+
 Left out: the graph optimizer, sharding, verification, telemetry,
-``run_steps``, ``partial_run``, handles and ``RunOptions`` tracing.
+``partial_run``, handles, ``RunOptions`` tracing and ``RunMetadata``.
 """
 
 from __future__ import annotations
@@ -71,6 +101,7 @@ import torch
 
 from .. import analysis
 from .. import compiler
+from ..analysis import loop_safety
 from ..framework import constant_op
 from ..framework import dtypes as dtypes_mod
 from ..framework import graph as ops_mod
@@ -79,7 +110,7 @@ from ..framework import lowering as lowering_mod
 from ..framework import prng
 from ..framework import random_seed
 from ..framework.errors import (FailedPreconditionError,
-                                InvalidArgumentError)
+                                InvalidArgumentError, OutOfRangeError)
 from ..models.common import resolve_device
 from ..ops.fused_ops import using_plain_versions
 
@@ -183,8 +214,22 @@ class _Plan:
     before writing them, the gradient leaves, the values to keep across an
     in-place update), and its compiled executables."""
 
-    def __init__(self, ops, fetch_tensors, feed_tensors):
+    def __init__(self, all_ops, fetch_tensors, feed_tensors):
+        fed = set(feed_tensors)
+        ops = [op for op in all_ops if not op.op_def.runs_on_host]
+        self.post_ops = [op for op in all_ops if op.op_def.runs_on_host]
+        post_made = {t for op in self.post_ops for t in op.outputs}
+        for op in ops:
+            if any(t in post_made for t in op.inputs):
+                raise NotImplementedError(
+                    f"{op.name} ({op.type}) consumes the output of a host "
+                    "op; host stages before the device step are not "
+                    "ported")
+        # the post-host stage's inputs the device step computes
+        post_in = [t for op in self.post_ops for t in op.inputs
+                   if t not in post_made and t not in fed]
         self.ops = ops
+        self.io = any(op.op_def.effects.io for op in ops)
         self.rng_ops = [op for op in ops if op.op_def.effects.rng]
         self.uses_rng = bool(self.rng_ops)
         self.rng_slots = {op: i for i, op in enumerate(self.rng_ops)}
@@ -197,12 +242,18 @@ class _Plan:
             x for op in grads for x in gradients_mod.symbolic_gradient_xs(op))
         self.needs_grad = bool(grads)
         self.retain_graph = len(grads) > 1
-        self.preserve = self._preserve(ops, fetch_tensors)
-        self.frees = lowering_mod.last_uses(ops, fetch_tensors)
+        # the tensors a device step computes and returns: the fetches (a
+        # fed fetch is its feed; a host op's output comes from the post-host
+        # stage) and the post-host stage's inputs
+        self.computed = list(dict.fromkeys(
+            [t for t in fetch_tensors
+             if t not in fed and t not in post_made] + post_in))
+        self.preserve = self._preserve(ops, self.computed)
+        self.frees = lowering_mod.last_uses(ops, self.computed)
         self.feed_tensors = list(feed_tensors)
-        fed = set(feed_tensors)
-        # the fetched tensors a step computes (a fed fetch is its feed)
-        self.computed = [t for t in fetch_tensors if t not in fed]
+        # run_steps: (plan-static loop-safety diagnostics, variables the
+        # plan writes), made at the first window
+        self.fusion_diags = None
         # the tensors whose host value the run read (Dropout's fed
         # keep_prob), learned at the first run: their values key the
         # executables
@@ -374,6 +425,13 @@ class BaseSession:
         self._refresh_keys = True
         self._refresh_seeds = True
         self._timings = None
+        # run_steps: windows refused by reason (the JAX package's
+        # /stf/session/loop_fusion_fallbacks counter), the steps run as
+        # windows (/stf/session/fused_steps_amortized), the (plan, reasons)
+        # already logged
+        self.loop_fusion_fallbacks: Dict[str, int] = {}
+        self.fused_steps = 0
+        self._fusion_warned = set()
 
     @property
     def graph(self):
@@ -530,13 +588,18 @@ class BaseSession:
         from the next counter without advancing it."""
         if not consume:
             return None
+        base = self._ensure_base_key()
+        if dry:
+            return prng.fold_in(base, self._run_counter + 1)
+        self._run_counter += 1
+        return prng.fold_in(base, self._run_counter)
+
+    def _ensure_base_key(self):
+        """``key(graph seed or 0)``, made once."""
         if self._base_key is None:
             seed = self._graph.seed if self._graph.seed is not None else 0
             self._base_key = prng.key(seed)
-        if dry:
-            return prng.fold_in(self._base_key, self._run_counter + 1)
-        self._run_counter += 1
-        return prng.fold_in(self._base_key, self._run_counter)
+        return self._base_key
 
     def _check_initialized(self, plan: _Plan):
         """Fail the run before any op executes when a variable it reads
@@ -579,7 +642,7 @@ class BaseSession:
         key, or with ``_capture`` off), captured (its second run) or
         replayed (module docstring)."""
         self._check_initialized(plan)
-        if not (self._capture and plan.ops):
+        if not (self._capture and plan.ops and not plan.io):
             outs = self._run_eager(plan, feeds)
             return self._values(plan, elements, feeds, outs)
         key = self._exe_key(plan, feeds)
@@ -675,20 +738,309 @@ class BaseSession:
         return exe
 
     def _values(self, plan: _Plan, elements, feeds, outs):
+        """The fetched values on the host: the device step's ``outs``, the
+        feeds, and the post-host stage's outputs (run here on the host
+        values of its inputs)."""
         computed = dict(zip(plan.computed, outs))
+        host = self._post_host(plan, feeds, computed)
         out = []
         for e in elements:
             if isinstance(e, Operation):
                 out.append(None)
-            elif e in feeds and not isinstance(feeds[e], torch.Tensor):
-                out.append(np.asarray(feeds[e]).astype(
-                    dtypes_mod.narrowed_if_no_x64(e.dtype).np_dtype))
+            elif e in host:
+                out.append(host[e])
             elif e in feeds:
-                out.append(_to_numpy(feeds[e].to(
-                    e.dtype.base_dtype.torch_dtype)))
+                out.append(_feed_value(e, feeds[e]))
             else:
                 out.append(_to_numpy(computed[e]))
         return out
+
+    @staticmethod
+    def _post_host(plan: _Plan, feeds, computed) -> Dict[Tensor, Any]:
+        """Run the plan's host ops (summary serialization) on numpy values:
+        ``{tensor: value}`` of their outputs."""
+        if not plan.post_ops:
+            return {}
+        env: Dict[Tensor, Any] = {}
+        for op in plan.post_ops:
+            inputs = []
+            for t in op.inputs:
+                if t not in env:
+                    env[t] = _feed_value(t, feeds[t]) if t in feeds \
+                        else _to_numpy(computed[t])
+                inputs.append(env[t])
+            for t, v in zip(op.outputs, op.op_def.lower(None, op, inputs)):
+                env[t] = v
+        return env
+
+    # -- run_steps -----------------------------------------------------------
+    def snapshot_host_state(self) -> Dict[str, Any]:
+        """The host half of a training-state checkpoint: the session's RNG
+        position (the run counter; the key is (graph seed, counter)). The
+        JAX package adds data iterator positions when the graph has
+        iterators; the port has none."""
+        return {"rng_run_counter": self._run_counter}
+
+    def variable_value(self, var_or_name) -> torch.Tensor:
+        """The store tensor of a variable (its Variable, ref or read tensor,
+        or store name), read without a run. ``KeyError`` when it is not
+        initialized."""
+        name = var_or_name if isinstance(var_or_name, str) else \
+            getattr(var_or_name, "var_name", None) or var_or_name.op.name
+        store = self._variable_store.values
+        if name in store:
+            return store[name]
+        stripped = name.split(":")[0]
+        if stripped.endswith("/read"):
+            stripped = stripped[:-len("/read")]
+        if stripped in store:
+            return store[stripped]
+        from ..ops import variables as variables_mod
+
+        var = variables_mod.variables_by_store_name(self._graph).get(
+            stripped)
+        if var is not None and var.var_name in store:
+            return store[var.var_name]
+        raise KeyError(
+            f"No variable state named {name!r} (a Variable, its read "
+            "tensor or a store name); initialized variables: "
+            f"{sorted(store)[:10]}...")
+
+    def run_steps(self, fetches, n=None, feed_dict=None, feed_iterator=None,
+                  stacked_feeds=None, output_mode="last", options=None,
+                  run_metadata=None):
+        """Run ``fetches`` for ``n`` consecutive steps as one window
+        (module docstring), the same as ``n`` sequential ``run`` calls:
+        the same per-step RNG counters, variable updates and results.
+
+        Feeds, combinable: ``feed_dict`` fed alike at every step;
+        ``feed_iterator``, an iterable of per-step feed dicts (``n`` are
+        pulled; ``OutOfRangeError`` when it runs out); ``stacked_feeds``,
+        ``{tensor: array}`` with a leading axis of ``n``.
+        ``output_mode``: ``"last"`` returns each fetch's value at the last
+        step, ``"stacked"`` every step's with a leading axis of ``n``. ``n``
+        defaults to ``ConfigProto(loop_fusion_steps=)``.
+
+        A plan that is not loop-safe (``analysis.loop_safety``: an op with
+        a host ``io`` effect such as ``Print``; a host sink under
+        ``"stacked"``; a write to a variable not yet initialized) runs as
+        ``n`` sequential ``run`` calls, its reasons counted on
+        ``loop_fusion_fallbacks`` and logged once."""
+        self._check_open()
+        if output_mode not in ("last", "stacked"):
+            raise ValueError(f"output_mode must be 'last' or 'stacked', "
+                             f"got {output_mode!r}")
+        if n is None:
+            n = getattr(self._config, "loop_fusion_steps", 1) \
+                if self._config is not None else 1
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"run_steps needs n >= 1, got {n}")
+        mapper = _FetchMapper(self._graph, fetches)
+        const_feeds = self._normalize_feeds(feed_dict)
+        superbatch = self._superbatch(n, feed_iterator, stacked_feeds)
+        overlap = set(const_feeds) & set(superbatch)
+        if overlap:
+            raise ValueError(
+                "run_steps: tensors fed both per-window (feed_dict) and "
+                f"per-step: {sorted(t.name for t in overlap)}")
+        all_feeds: Dict[Tensor, Any] = dict(const_feeds)
+        all_feeds.update({t: None for t in superbatch})
+        steps = []
+        for i in range(n):
+            fd = dict(const_feeds)
+            fd.update((t, v[i]) for t, v in superbatch.items())
+            steps.append(fd)
+        stacked = output_mode == "stacked"
+        with self._lock:
+            plan = self._get_or_plan(mapper.elements, all_feeds)
+            diags = self._fusion_diags(plan, n, stacked)
+            if diags and n > 1:
+                self._note_fallback(plan, n, diags)
+            if diags or n == 1:
+                vals = [self._run_plan(plan, mapper.elements, fd)
+                        for fd in steps]
+                return mapper.rebuild(_stack_steps(vals) if stacked
+                                      else vals[-1])
+            vals = self._run_window(plan, mapper.elements, steps,
+                                    superbatch, stacked)
+            self.fused_steps += n
+        return mapper.rebuild(vals)
+
+    def _superbatch(self, n, feed_iterator, stacked_feeds):
+        """``{tensor: (n, ...) array}`` of the per-step feeds, validated as
+        the JAX ``_run_steps_body`` validates them."""
+        superbatch: Dict[Tensor, Any] = {}
+        for k, v in (stacked_feeds or {}).items():
+            t = self._graph.as_graph_element(k, allow_tensor=True,
+                                             allow_operation=False)
+            if not isinstance(v, torch.Tensor):
+                v = np.asarray(v, dtype=t.dtype.base_dtype.np_dtype)
+            if v.ndim < 1 or v.shape[0] != n:
+                raise ValueError(
+                    f"run_steps: stacked feed for {t.name} must have "
+                    f"leading dim n={n}, got shape {tuple(v.shape)}")
+            if not t.shape.is_compatible_with(tuple(v.shape[1:])):
+                raise ValueError(
+                    f"run_steps: per-step slice shape {tuple(v.shape[1:])} "
+                    f"incompatible with tensor {t.name} shape {t.shape}")
+            superbatch[t] = v
+        if feed_iterator is None:
+            return superbatch
+        it = iter(feed_iterator)
+        step_feeds = []
+        for i in range(n):
+            try:
+                fd = next(it)
+            except StopIteration:
+                raise OutOfRangeError(
+                    None, None, f"run_steps: feed_iterator exhausted after "
+                    f"{i} of {n} per-step feeds") from None
+            step_feeds.append(self._normalize_feeds(fd))
+        keys0 = set(step_feeds[0])
+        for i, fd in enumerate(step_feeds[1:], 1):
+            if set(fd) != keys0:
+                raise ValueError(
+                    "run_steps: feed_iterator must feed the same tensors "
+                    f"every step (step 0 fed "
+                    f"{sorted(t.name for t in keys0)}, step {i} fed "
+                    f"{sorted(t.name for t in fd)})")
+        dup = keys0 & set(superbatch)
+        if dup:
+            raise ValueError(
+                "run_steps: tensors fed both via stacked_feeds and "
+                f"feed_iterator: {sorted(t.name for t in dup)}")
+        for t in keys0:
+            rows = [fd[t] for fd in step_feeds]
+            superbatch[t] = torch.stack(rows) \
+                if isinstance(rows[0], torch.Tensor) else np.stack(rows)
+        return superbatch
+
+    def _fusion_diags(self, plan: _Plan, n: int, stacked: bool):
+        """The loop-safety diagnostics of a window of ``plan``: the
+        plan-static ones (cached on the plan), a write to a variable not
+        in the store, and host sinks under ``"stacked"``."""
+        if plan.fusion_diags is None:
+            plan.fusion_diags = (
+                loop_safety.certify_plan(plan.ops, [], plan.post_ops,
+                                         variable_store=None),
+                loop_safety.written_var_names(plan.ops))
+        static, written = plan.fusion_diags
+        diags = list(static)
+        missing = sorted(written - set(self._variable_store.values))
+        if missing:
+            diags.append(loop_safety.uninitialized_write_diag(missing))
+        if n > 1 and stacked and any(op.op_def.host_sink_pure
+                                     for op in plan.post_ops):
+            diags.append(loop_safety.stacked_host_sink_diag(plan.post_ops))
+        return diags
+
+    def _note_fallback(self, plan: _Plan, n: int, diags) -> None:
+        reasons = loop_safety.fallback_reasons(diags)
+        for r in reasons:
+            self.loop_fusion_fallbacks[r] = \
+                self.loop_fusion_fallbacks.get(r, 0) + 1
+        key = (id(plan), tuple(reasons))
+        if key not in self._fusion_warned:
+            self._fusion_warned.add(key)
+            _log.warning("run_steps: falling back to %d sequential runs:\n%s",
+                         n, "\n".join(d.format() for d in diags))
+
+    def _run_window(self, plan: _Plan, elements, steps, superbatch,
+                    stacked: bool):
+        """A loop-safe window of ``len(steps)`` steps (``steps``: each
+        step's feeds): replays of the compiled step, else a loop of
+        runs."""
+        n = len(steps)
+        self._check_initialized(plan)
+        exe = None
+        if self._capture and plan.ops and not plan.io:
+            exe = self._window_executable(plan, steps[0])
+            if exe is not None and any(t in superbatch
+                                       for t in plan.host_reads or ()):
+                exe = None  # host scalars fed per step key the graph
+        if exe is None:
+            vals = [self._run_plan(plan, elements, fd) for fd in steps]
+            return _stack_steps(vals) if stacked else vals[-1]
+        t0 = time.perf_counter()
+        keys = seeds = None
+        if plan.uses_rng:
+            ctrs = np.arange(self._run_counter + 1,
+                             self._run_counter + 1 + n, dtype=np.uint32)
+            self._run_counter += n
+            op_keys = prng.fold_in(
+                prng.fold_in(self._ensure_base_key(), ctrs)[:, None, :],
+                plan.rng_folds[None, :])
+            keys = op_keys
+            if exe.seeded is not False:
+                seeds = prng.randint(op_keys, (1,), 0, prng.INT32_MAX)
+        for t, buf in exe.feeds.items():
+            if t not in superbatch:
+                buf.stage(steps[0][t])
+        exe.stage_window(n, {t: v for t, v in superbatch.items()
+                             if t in exe.feeds}, keys, seeds)
+        t1 = time.perf_counter()
+        outs, per_step = None, None
+        for i in range(n):
+            exe.load_step(i, keys=self._refresh_keys or i == 0,
+                          seeds=self._refresh_seeds or i == 0)
+            outs = exe.replay()
+            if stacked:
+                if per_step is None:
+                    per_step = [None if o is None else
+                                o.new_empty((n,) + tuple(o.shape))
+                                for o in outs]
+                for buf, o in zip(per_step, outs):
+                    if buf is not None:
+                        buf[i].copy_(o)
+        if self._timings is not None:
+            for k, dt in (("stage", t1 - t0),
+                          ("replay", time.perf_counter() - t1)):
+                self._timings[k] = self._timings.get(k, 0.0) + dt
+        if not stacked:
+            return self._values(plan, elements, steps[-1], outs)
+        computed = dict(zip(plan.computed, per_step))
+        out = []
+        for e in elements:
+            if isinstance(e, Operation):
+                out.append(None)
+            elif e in steps[0]:
+                out.append(np.stack([_feed_value(e, fd[e]) for fd in steps]))
+            else:
+                out.append(_to_numpy(computed[e]))
+        return out
+
+    def _window_executable(self, plan: _Plan, feeds):
+        """The plan's captured step for ``feeds``' bucket, compiled ahead
+        (dry warm-up and capture) when it has none or the store moved
+        since its capture."""
+        if plan.host_reads is not None:
+            key = self._exe_key(plan, feeds)
+            exe = plan.executables.get(key)
+            if exe is not None and \
+                    exe.store_version == self._variable_store.version:
+                return exe
+            if exe is not None:
+                del plan.executables[key]
+                exe.release()
+        return self._compile(plan, feeds)
+
+
+def _feed_value(t: Tensor, v) -> np.ndarray:
+    """A fed value as the run returns it: in the tensor's dtype (64-bit
+    narrowed)."""
+    if isinstance(v, torch.Tensor):
+        return _to_numpy(v.to(t.dtype.base_dtype.torch_dtype))
+    return np.asarray(v).astype(
+        dtypes_mod.narrowed_if_no_x64(t.dtype).np_dtype)
+
+
+def _stack_steps(per_step: List[list]) -> list:
+    """Per-step fetch lists stacked into one list of ``(n, ...)`` values
+    (None for Operations)."""
+    return [None if col[0] is None else
+            np.stack([np.asarray(v) for v in col])
+            for col in zip(*per_step)]
 
 
 class Session(BaseSession):

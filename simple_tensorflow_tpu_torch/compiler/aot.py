@@ -25,6 +25,14 @@ What a capture fixes, and what this module keeps static around it:
   counters onto the graph, and each replay adds them back
   (:class:`DeviceGraph`).
 
+A ``run_steps`` window (:meth:`StepExecutable.stage_window`) is n
+replays of one executable: the window's per-step feeds (its superbatch),
+keys and seeds are staged once, one pinned H2D copy each into a device
+buffer with a leading axis n (:class:`StagedInput` too, kept per window
+length); before replay i a device-to-device copy moves row i into the
+static buffers (:meth:`StepExecutable.load_step`). Nothing between two
+replays waits for the host.
+
 Capture needs the usual preconditions: the same function ran eagerly
 first, on a side stream (:func:`on_side_stream`: kernel library loads,
 cuBLAS/cuDNN handles, lazily built buffers), and nothing inside syncs
@@ -181,6 +189,13 @@ class StepExecutable:
         self.host_key = host_key
         self.store_version = store_version
         self.graph: Optional[DeviceGraph] = None
+        # (feed tensor, "keys" or "seeds"; window length) -> the window's
+        # rows; the staged window: (static buffer, rows) of each per-step
+        # feed, the key and seed rows
+        self._window: Dict[tuple, StagedInput] = {}
+        self._rows: list = []
+        self._row_keys: Optional[StagedInput] = None
+        self._row_seeds: Optional[StagedInput] = None
 
     @property
     def key_buffer(self) -> Optional[torch.Tensor]:
@@ -210,6 +225,45 @@ class StepExecutable:
         if seeds is not None:
             self.seeds.stage(np.asarray(seeds, np.int32))
 
+    def _window_input(self, what, n, like: StagedInput) -> StagedInput:
+        buf = self._window.get((what, n))
+        if buf is None:
+            buf = self._window[(what, n)] = StagedInput(
+                (n,) + tuple(like.static.shape), like.static.dtype,
+                self.device)
+        return buf
+
+    def stage_window(self, n: int, rows: Dict[Any, Any],
+                     keys: Optional[np.ndarray] = None,
+                     seeds: Optional[np.ndarray] = None) -> None:
+        """Stage a window of ``n`` replays: ``rows`` ``{feed tensor:
+        (n, ...) values}`` (the other feeds stay as :meth:`stage` left
+        them), ``keys`` ``(n, n_keys, 2)`` uint32 and ``seeds`` ``(n,
+        n_keys, 1)`` int32, each in one copy to the device."""
+        self._rows = []
+        for t, v in rows.items():
+            buf = self._window_input(t, n, self.feeds[t])
+            buf.stage(v)
+            self._rows.append((self.feeds[t], buf))
+        self._row_keys = self._row_seeds = None
+        if keys is not None:
+            self._row_keys = self._window_input("keys", n, self.keys)
+            self._row_keys.stage(np.asarray(keys, np.uint32).view(np.int32))
+        if seeds is not None:
+            self._row_seeds = self._window_input("seeds", n, self.seeds)
+            self._row_seeds.stage(np.asarray(seeds, np.int32))
+
+    def load_step(self, i: int, keys: bool = True,
+                  seeds: bool = True) -> None:
+        """Copy row ``i`` of the staged window into the static feed, key
+        (``keys``) and seed (``seeds``) buffers, on the device."""
+        for buf, rows in self._rows:
+            buf.static.copy_(rows.static[i])
+        if keys and self._row_keys is not None:
+            self.keys.static.copy_(self._row_keys.static[i])
+        if seeds and self._row_seeds is not None:
+            self.seeds.static.copy_(self._row_seeds.static[i])
+
     def replay(self) -> list:
         return self.graph.replay()
 
@@ -217,6 +271,9 @@ class StepExecutable:
         if self.graph is not None:
             self.graph.release()
         self.feeds.clear()
+        self._window.clear()
+        self._rows = []
+        self._row_keys = self._row_seeds = None
         self.keys = None
         self.seeds = None
 

@@ -19,7 +19,8 @@ _HAZARD_MODES = ("off", "warn", "raise", "auto_deps")
 
 
 class ConfigProto:
-    def __init__(self, device_count=None, variable_hazard_mode=None):
+    def __init__(self, device_count=None, variable_hazard_mode=None,
+                 loop_fusion_steps=1, numerics=None):
         self.device_count = dict(device_count or {})
         if variable_hazard_mode is not None and \
                 variable_hazard_mode not in _HAZARD_MODES:
@@ -27,6 +28,12 @@ class ConfigProto:
                 "variable_hazard_mode must be None|off|warn|raise|"
                 f"auto_deps, got {variable_hazard_mode!r}")
         self.variable_hazard_mode = variable_hazard_mode
+        loop_fusion_steps = int(loop_fusion_steps)
+        if loop_fusion_steps < 1:
+            raise ValueError(
+                f"loop_fusion_steps must be >= 1, got {loop_fusion_steps}")
+        self.loop_fusion_steps = loop_fusion_steps
+        self.numerics = numerics
 
     def device(self) -> str:
         """``"cpu"`` when ``device_count`` asks for no GPU, else

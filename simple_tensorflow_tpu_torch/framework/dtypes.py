@@ -6,8 +6,10 @@ The JAX package runs with ``jax_enable_x64`` off, so a 64-bit request
 computes in its 32-bit sibling (``narrowed_if_no_x64``, :255). The port
 fixes that rule on: int64/uint64/float64 tensors compute and fetch as
 int32/uint32/float32, and :attr:`DType.torch_dtype` is already narrowed.
-Left out: the quantized and fp8 names, the string dtype's host-only ops and
-the once-per-process narrowing warning.
+``string`` (numpy ``object``) types the host-only tensors: the serialized
+protos summary ops produce, which never live on the device (its
+``torch_dtype`` raises). Left out: the quantized and fp8 names and the
+once-per-process narrowing warning.
 """
 
 from __future__ import annotations
@@ -83,7 +85,10 @@ class DType:
     @property
     def torch_dtype(self) -> torch.dtype:
         """The torch dtype this type computes in (64-bit narrowed)."""
-        return _TORCH[narrowed_if_no_x64(self).name]
+        name = narrowed_if_no_x64(self).name
+        if name == "string":
+            raise TypeError("string tensors live on the host only")
+        return _TORCH[name]
 
     @property
     def size(self) -> int:
@@ -129,9 +134,10 @@ uint8 = DType("uint8", np.dtype(np.uint8))
 uint32 = DType("uint32", np.dtype(np.uint32))
 uint64 = DType("uint64", np.dtype(np.uint64))
 bool_ = DType("bool", np.dtype(np.bool_))
+string = DType("string", np.dtype(object))
 
 _ALL = [float16, bfloat16, float32, float64, int8, int16, int32, int64,
-        uint8, uint32, uint64, bool_]
+        uint8, uint32, uint64, bool_, string]
 _BY_NAME = {d.name: d for d in _ALL}
 _BY_NAME.update({d.name + "_ref": d._ref for d in _ALL})
 _BY_NAME["half"] = float16

@@ -1,6 +1,9 @@
 """The subset of ``simple_tensorflow_tpu/framework/errors.py`` that the
-serving engine and the Session raise: the same class names, codes and
-constructor (``Error(node_def, op, message)`` or ``Error("message")``)."""
+serving engine, the Session (``OutOfRangeError``: an exhausted
+``run_steps`` feed iterator), the checkpoint readers (``DataLossError``: a
+checksum or record CRC that does not match) and the training loop raise:
+the same class names, codes and constructor (``Error(node_def, op,
+message)`` or ``Error("message")``)."""
 
 from __future__ import annotations
 
@@ -9,7 +12,9 @@ DEADLINE_EXCEEDED = 4
 NOT_FOUND = 5
 RESOURCE_EXHAUSTED = 8
 FAILED_PRECONDITION = 9
+OUT_OF_RANGE = 11
 UNAVAILABLE = 14
+DATA_LOSS = 15
 
 
 class OpError(Exception):
@@ -63,3 +68,8 @@ ResourceExhaustedError = _make("ResourceExhaustedError", RESOURCE_EXHAUSTED,
                                "exhausted.")
 UnavailableError = _make("UnavailableError", UNAVAILABLE,
                          "Runtime currently unavailable.")
+OutOfRangeError = _make("OutOfRangeError", OUT_OF_RANGE,
+                        "Operation tried to iterate past the valid input "
+                        "range.")
+DataLossError = _make("DataLossError", DATA_LOSS,
+                      "Unrecoverable data loss or corruption.")

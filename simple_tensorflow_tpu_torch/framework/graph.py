@@ -40,6 +40,8 @@ class GraphKeys:
     LOSSES = "losses"
     GLOBAL_STEP = "global_step"
     TRAIN_OP = "train_op"
+    SAVERS = "savers"
+    SAVEABLE_OBJECTS = "saveable_objects"
     VARIABLES = GLOBAL_VARIABLES  # deprecated alias
 
 

@@ -14,8 +14,12 @@ Kernel-backed ops (the softmax-xent and Dropout wrappers test the device)
 pass an ``infer_fn`` or explicit output specs, never a meta launch.
 Effects resolve against an op's attrs into concrete resources
 (``Effects._resolve`` :75) for the variable-hazard detector
-(``analysis/hazards.py``). Left out: sharding rules and ``runs_on_host``
-staging.
+(``analysis/hazards.py``). ``runs_on_host`` ops (the summary ops) run
+after the device step on the host values of their inputs (the JAX
+package's post-host stage); ``host_sink_pure`` marks those that only
+observe device values, which ``Session.run_steps`` under ``"last"``
+defers to once a window (``analysis/loop_safety.py``). Left out:
+sharding rules and host-stage ops that device ops consume.
 """
 
 from __future__ import annotations
@@ -102,19 +106,24 @@ class OpDef:
     input_tensors) -> [(TensorShape, DType)]`` overrides the meta-tensor
     inference. ``in_place``: the lowering updates variable storage in
     place (the fused Adam update), so the Session keeps a copy of any value
-    aliasing that storage that the run still needs afterwards."""
+    aliasing that storage that the run still needs afterwards.
+    ``runs_on_host``: lowered on numpy values after the device step;
+    ``host_sink_pure``: such an op only observes its inputs."""
 
     __slots__ = ("name", "lower", "pure_fn", "infer_fn", "is_stateful",
-                 "effects", "in_place")
+                 "effects", "in_place", "runs_on_host", "host_sink_pure")
 
     def __init__(self, name, lower=None, pure_fn=None, infer_fn=None,
-                 is_stateful=False, effects=None, in_place=False):
+                 is_stateful=False, effects=None, in_place=False,
+                 runs_on_host=False, host_sink_pure=False):
         self.name = name
         self.pure_fn = pure_fn
         self.infer_fn = infer_fn
         self.effects = effects if effects is not None else NO_EFFECTS
         self.is_stateful = bool(is_stateful or self.effects)
         self.in_place = bool(in_place)
+        self.runs_on_host = bool(runs_on_host)
+        self.host_sink_pure = bool(host_sink_pure)
         if lower is None:
             if pure_fn is None:
                 raise ValueError(f"Op {name}: need lower or pure_fn")
@@ -188,11 +197,13 @@ _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(name, lower=None, pure_fn=None, infer_fn=None,
-             is_stateful=False, effects=None, in_place=False):
+             is_stateful=False, effects=None, in_place=False,
+             runs_on_host=False, host_sink_pure=False):
     if name in _REGISTRY:
         raise ValueError(f"Op {name} already registered")
     od = OpDef(name, lower=lower, pure_fn=pure_fn, infer_fn=infer_fn,
-               is_stateful=is_stateful, effects=effects, in_place=in_place)
+               is_stateful=is_stateful, effects=effects, in_place=in_place,
+               runs_on_host=runs_on_host, host_sink_pure=host_sink_pure)
     _REGISTRY[name] = od
     return od
 

@@ -5,7 +5,8 @@ graph metadata plus a named entry of the Session's ``VariableStore``. The
 graph holds a ``VariableV2`` read op (its output is the "ref" tensor, as in
 TF-1.0), an initializer ``Assign`` and the ``read`` snapshot, created in
 the JAX package's order and with its names. ``trainable_variables``
-(:287) and ``global_variables_initializer`` (:308) as there. Left out:
+(:287), ``global_variables_initializer`` (:308) and
+``local_variables_initializer`` (:316) as there. Left out:
 sharding metadata, constraints, ``ResourceVariable``,
 ``PartitionedVariable``, proto round trips and the uninitialized-variable
 report ops.
@@ -172,6 +173,11 @@ def global_variables():
         GraphKeys.GLOBAL_VARIABLES)
 
 
+def local_variables():
+    return ops_mod.get_default_graph().get_collection(
+        GraphKeys.LOCAL_VARIABLES)
+
+
 def trainable_variables():
     return ops_mod.get_default_graph().get_collection(
         GraphKeys.TRAINABLE_VARIABLES)
@@ -191,3 +197,7 @@ def global_variables_initializer():
 
 
 initialize_all_variables = global_variables_initializer
+
+
+def local_variables_initializer():
+    return variables_initializer(local_variables(), "init_local")

@@ -1696,3 +1696,145 @@ def test_resnet_session_graph_replays_match_eager_on_card(cuda):
         np.testing.assert_array_equal(sg[k], se[k], err_msg=k)
         if k.endswith("moving_mean"):
             assert not se[k].any(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refresh", [True, False])
+def test_run_steps_window_equals_sequential_runs_on_card(cuda, refresh):
+    # Session.run_steps on the MNIST convnet (keep_prob 0.5 fed alike at
+    # every step, a batch a step through stacked_feeds): two windows of 4
+    # replays of the captured step, "stacked" then "last", bit-identical
+    # to 8 sequential runs (losses, fc1's Dropout output, every variable
+    # and slot); the window is compiled ahead, so its 8 steps are 8
+    # replays (the device-key Dropout entry 8 times; the launch-argument
+    # one once, the dry warm-up); no fallback. With the key buffer not
+    # refilled between replays (_refresh_keys off) the windows' later
+    # steps draw stale masks and differ.
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import mnist
+
+    n, windows = 4, 2
+    x, labels, _ = mnist.synthetic_mnist(32 * n * windows, seed=0)
+    x = x.reshape(n * windows, 32, 28, 28, 1)
+    labels = labels.reshape(n * windows, 32)
+    g = stf.Graph()
+    with g.as_default():
+        m = mnist.convnet_model()
+        init = stf.global_variables_initializer()
+    fetch = [m["train_op"], m["loss"], "convnet/dropout:0"]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with stf.Session(graph=g) as s:
+            s.run(init)
+            seq = [s.run(fetch, {m["x"]: x[i], m["y_"]: labels[i],
+                                 m["keep_prob"]: 0.5})
+                   for i in range(n * windows)]
+            want = {k: v.float().cpu().numpy() for k, v in
+                    s._variable_store.values.items()}
+        with stf.Session(graph=g) as s:
+            s.run(init)
+            s._refresh_keys = refresh
+            K.reset_launch_counts()
+            got = []
+            for w, mode in enumerate(("stacked", "last")):
+                rows = slice(w * n, (w + 1) * n)
+                got.append(s.run_steps(
+                    fetch, n, feed_dict={m["keep_prob"]: 0.5},
+                    stacked_feeds={m["x"]: x[rows], m["y_"]: labels[rows]},
+                    output_mode=mode))
+            counts = K.launch_counts()
+            state = {k: v.float().cpu().numpy() for k, v in
+                     s._variable_store.values.items()}
+            fallbacks, fused = s.loop_fusion_fallbacks, s.fused_steps
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert fallbacks == {} and fused == n * windows
+    stacked, last = got
+    same = [float(stacked[1][i]) == float(seq[i][1]) and
+            np.array_equal(stacked[2][i], seq[i][2]) for i in range(n)]
+    same.append(float(last[1]) == float(seq[-1][1]) and
+                np.array_equal(last[2], seq[-1][2]))
+    same_state = all(np.array_equal(state[k], want[k]) for k in want)
+    if refresh:
+        assert all(same) and same_state
+        assert counts["dropout_device_key"] == n * windows
+        # two plans ("stacked" and "last" share the fetches: one plan), one
+        # dry warm-up through the launch-argument entry
+        assert counts["dropout"] == 1
+        assert counts["adam_update"] == n * windows + 1
+    else:
+        assert same[0] and not any(same[1:n]) and not same_state
+
+
+@pytest.mark.cuda
+def test_saver_round_trip_on_card(cuda, tmp_path):
+    # train.Saver on a captured Session: a save reads the store only (its
+    # version stays, the next run replays), a restore into the live
+    # session copies into the store's tensors (addresses stay; no
+    # re-capture) and brings back every variable, the flat Adam slots and
+    # the RNG run counter bit for bit; a fresh session restores the same
+    # values; a flipped payload byte raises DataLossError
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.framework import errors
+    from simple_tensorflow_tpu_torch.models import mnist
+
+    x, labels, _ = mnist.synthetic_mnist(32, seed=0)
+    g = stf.Graph()
+    with g.as_default():
+        m = mnist.convnet_model(dtype=stf.bfloat16)
+        init = stf.global_variables_initializer()
+        saver = stf.train.Saver(max_to_keep=2)
+    feeds = {m["x"]: x.reshape(-1, 28, 28, 1), m["y_"]: labels,
+             m["keep_prob"]: 0.5}
+    fetch = [m["train_op"], m["loss"]]
+
+    def state(s):
+        return {k: v.float().cpu().numpy()
+                for k, v in s._variable_store.values.items()}
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with stf.Session(graph=g) as s:
+            s.run(init)
+            for _ in range(3):
+                s.run(fetch, feeds)
+            version, captures = s._variable_store.version, s.captures
+            ptrs = {k: v.data_ptr() for k, v in s._variable_store.values.items()}
+            prefix = saver.save(s, str(tmp_path / "model.ckpt"),
+                                global_step=m["global_step"])
+            assert prefix.endswith("model.ckpt-3")
+            assert s._variable_store.version == version
+            saved, counter = state(s), s._run_counter
+            after_save = s.run(fetch, feeds)[1]
+            assert s.captures == captures
+            saver.restore(s, prefix)
+            assert s._variable_store.version == version
+            assert {k: v.data_ptr() for k, v in
+                    s._variable_store.values.items()} == ptrs
+            restored = state(s)
+            assert s._run_counter == counter
+            assert float(s.run(fetch, feeds)[1]) == float(after_save)
+            assert s.captures == captures
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert set(restored) == set(saved)
+    for k in saved:
+        np.testing.assert_array_equal(restored[k], saved[k], err_msg=k)
+    with stf.Session(graph=g) as s2:
+        saver.restore(s2, prefix)
+        fresh = state(s2)
+        assert s2._run_counter == counter
+    for k in saved:
+        np.testing.assert_array_equal(fresh[k], saved[k], err_msg=k)
+    bad = str(tmp_path / "bad")
+    for suffix in (".stfz", ".index.json"):
+        (tmp_path / ("bad" + suffix)).write_bytes(
+            (tmp_path / ("model.ckpt-3" + suffix)).read_bytes())
+    raw = bytearray((tmp_path / "bad.stfz").read_bytes())
+    raw[len(raw) // 2] ^= 0x01
+    (tmp_path / "bad.stfz").write_bytes(bytes(raw))
+    with stf.Session(graph=g) as s3:
+        with pytest.raises(errors.DataLossError, match="checksum"):
+            saver.restore(s3, bad)

@@ -72,6 +72,19 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch import kernels, nn, layers, train
         from simple_tensorflow_tpu_torch.compiler import aot
         from simple_tensorflow_tpu_torch.analysis import hazards
+        from simple_tensorflow_tpu_torch import checkpoint, summary
+        from simple_tensorflow_tpu_torch.analysis import loop_safety
+        from simple_tensorflow_tpu_torch.checkpoint import (atomic,
+                                                            preemption,
+                                                            snapshot)
+        from simple_tensorflow_tpu_torch.lib import crc32c, proto
+        from simple_tensorflow_tpu_torch.lib.io import tf_record
+        from simple_tensorflow_tpu_torch.ops import logging_ops
+        from simple_tensorflow_tpu_torch.summary import (summary_iterator,
+                                                         writer)
+        from simple_tensorflow_tpu_torch.train import (
+            basic_session_run_hooks, checkpoint_utils, coordinator,
+            monitored_session, saver, session_run_hook)
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -86,6 +99,19 @@ def test_importing_the_port_loads_no_jax():
     os.path.relpath(p, REPO) for p in _port_sources()))
 def test_port_source_imports_no_jax(path):
     assert not _imported_roots(os.path.join(REPO, path)) & set(FORBIDDEN)
+
+
+def test_the_training_loop_modules_are_guarded():
+    # the training loop's modules are among the files the guard reads
+    guarded = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"lib/crc32c.py", "lib/io/tf_record.py", "lib/proto.py",
+            "summary/summary.py", "summary/summary_iterator.py",
+            "summary/writer/writer.py", "checkpoint/atomic.py",
+            "checkpoint/snapshot.py", "checkpoint/preemption.py",
+            "train/saver.py", "train/checkpoint_utils.py",
+            "train/session_run_hook.py", "train/basic_session_run_hooks.py",
+            "train/monitored_session.py", "train/coordinator.py",
+            "analysis/loop_safety.py", "ops/logging_ops.py"} <= guarded
 
 
 def test_chip_smoke_imports_nothing_of_jax():
