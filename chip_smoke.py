@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (``simple_tensorflow_tpu_torch``) on one
 NVIDIA GPU and check every kernel of its serving and training paths
 (causal LM and ResNet-50) and of its TF-1 front end (``stf.Session``
-training the MNIST convnet, the seq2seq transformer, the causal LM and
-ResNet-50).
+training the MNIST convnet, the seq2seq transformer, the causal LM,
+ResNet-50 and BERT-base, with and without per-layer recompute).
 
     python3 chip_smoke.py [--serving]
 
@@ -278,17 +278,51 @@ beside another tree's package measures that tree's serving path.
    memory beside the eager trainer's. Last, Momentum at the Session's two
    flat groups and the xent at f32 256 x 1000, against their plain
    versions, with their times, bounds and library calls.
+10. BERT phase: ``models/bert.py`` ``bert_pretrain_model`` at
+   ``BertConfig.base()`` as ``bench.py`` measures it (bf16, batch 32 x
+   512, 76 predictions, ``use_input_mask``, Adam lr 1e-4), fed
+   ``synthetic_pretrain_batch(..., input_mask=True)`` (row lengths from
+   the seed in [384, 512]). First its kernel shapes against their plain
+   versions: the bf16 flash kernels at 32 x 12 heads of S = 512 with the
+   batch's key bias and dropout 0.1 through both entries; LayerNorm at n =
+   768 (16384 and 2432 rows) on its vector path, forward and backward,
+   beside the general path forced on the same inputs and
+   ``F.layer_norm``/aten; the MLM xent at bf16 2432 x 30522 and the NSP
+   xent at f32 32 x 2; Adam over BERT's two groups (85,608,192 bf16 Dense
+   parameters, 24,498,236 f32); the threefry Dropout at bf16 (32, 512,
+   768) with its device-key entry and backward. Then ``BERT_CHECK_STEPS``
+   f32 steps at ``BertConfig.base()`` widths cut to ``BERT_CHECK_LAYERS``
+   layers, batch 4 x 128, through the kernels against
+   ``plain_versions()`` (the transformer check's limits; a seed planted on
+   layer 1's flash op must fail), and the same size with ``recompute=True``
+   rematerializing against ``function.without_rematerialization()`` (the
+   same limits; a re-forward that draws fresh dropout seeds, planted, must
+   fail). Then, for ``recompute`` False and True: ``BERT_GRAPH_STEPS``
+   steps captured against eager, bit for bit (stale seeds planted must
+   differ); a graph and an eager window of ``BERT_STEPS`` steps (exact
+   launches a step: 12 of each flash kernel, 26 + 26 LayerNorm, 25 + 25
+   Dropout, 2 + 2 xent, 2 Adam; with recompute 24 flash forwards, 50
+   LayerNorm and 49 Dropout forwards), p50, tokens/s (the bench's count),
+   the share of the dense bf16 peak at 3 x ``bert_flops_per_token``,
+   device and host ms a step, the memory, each figure counted above what
+   the process held just before the window's Session was built (the peak
+   over the first two steps and over the rest, what stays allocated
+   between steps, what is reserved: with a captured step, its pool). Last
+   ``recompute=True`` at batch 40 (the bench's ``recompute_bigger_batch``):
+   a graph window's tokens/s and memory. Recompute must lower an eager
+   step's peak and a captured step's reserved memory at batch 32.
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
 window, the Session's checked steps and its two windows, the transformer's,
 the causal LM's and ResNet's f32 checked steps and their two windows, the
-training loop's run A and its checked windows) is
+training loop's run A and its checked windows, BERT's two checks and its
+five windows) is
 counted from zero just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
-(``@causal_lm``, ``@session_*``, ``@resnet_session``) count that path's
-launches alone. Prints a
+(``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``) count
+that path's launches alone (``@bert``: the shipped-config windows). Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
 failure, when no CUDA device is available, or without the package
@@ -300,6 +334,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import faulthandler
+import gc
 import importlib
 import json
 import math
@@ -389,6 +424,7 @@ EARLIER_MS = {"dropout": (0.07672, "redesigned"),
 # (the same run)
 EARLIER_TRAIN_DEVICE_MS = {0.1: 10.9258, 0.0: 9.5895}
 L2_BYTES = 50 * 2 ** 20
+GIB = 2 ** 30
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 SRC = "simple_tensorflow_tpu_torch/csrc/"
 TPU = "simple_tensorflow_tpu/ops/pallas/"
@@ -2924,21 +2960,36 @@ def check_session_graph(K, stf, mnist, feeds):
         fail(f"{tag}: the check passes replays with stale keys: {fault}")
 
 
-def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3):
+def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3,
+                   peaks=False):
     """``steps`` steps of ``sess.run(fetch, feeds)`` (``fetch[0]`` the
     loss), the step captured as a CUDA graph or (``capture`` False)
     dispatched eagerly, then a ``torch.profiler`` window of ``n_prof``
     steps: losses, step seconds, launches (counted from zero just before
     the window), plan-cache misses and captures after the first step, the
     host seconds a step by kind (``Session._timings``) and the device ms a
-    step by kernel."""
+    step by kernel. With ``peaks``, the peak allocated device memory (GiB)
+    over the first two steps (the warm-up, which builds the optimizer's
+    flat buffers, and the capture) and over the rest (``peak_first_gib``,
+    ``peak_gib``; a replay allocates nothing, its memory is the capture's
+    pool) and the memory reserved at the end, idle cached blocks released
+    (``reserved_gib``: a captured step's pool and what is allocated), all
+    of the process."""
     from torch.profiler import ProfilerActivity, profile
 
     sess._capture = capture
     losses, times = [], []
     sess._timings = {}
     K.reset_launch_counts()
+    out = {}
+    if peaks:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
+        if peaks and i == 2:
+            torch.cuda.synchronize()
+            out["peak_first_gib"] = torch.cuda.max_memory_allocated() / GIB
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         loss = sess.run(fetch, feeds)[0]
         times.append(time.perf_counter() - t0)
@@ -2946,6 +2997,11 @@ def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3):
         if i == 0:
             misses, captures = sess.plan_cache_misses, sess.captures
     counts = K.launch_counts()
+    if peaks:
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+        torch.cuda.empty_cache()   # what a step holds: no idle cache
+        out["reserved_gib"] = torch.cuda.memory_reserved() / GIB
     split = {k: v / steps for k, v in sess._timings.items()}
     sess._timings = None
     late = (sess.plan_cache_misses - misses, sess.captures - captures)
@@ -2955,7 +3011,7 @@ def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3):
             sess.run(fetch, feeds)
         torch.cuda.synchronize()
     by_name = {k: ms / n_prof for k, (ms, _) in device_times(prof).items()}
-    return dict(losses=losses, times=times, counts=counts, split=split,
+    return dict(out, losses=losses, times=times, counts=counts, split=split,
                 late=late, by_name=by_name, captures=sess.captures,
                 steps=steps + n_prof)
 
@@ -3364,17 +3420,19 @@ def check_transformer_graph(K, stf, tr, cfg, batch):
          at + "fused_dropout_residual:0"], TF_GRAPH_STEPS)
 
 
-def flash_seed_ptr_rows(K, gen, dev, B, s, causal, label):
-    """The bf16 flash kernels at B x 16 heads of S = ``s``, D = 64, dropout
+def flash_seed_ptr_rows(K, gen, dev, B, s, causal, label, H=16,
+                        lengths=None):
+    """The bf16 flash kernels at B x H heads of S = ``s``, D = 64, dropout
     0.1, through the launch-argument entry and the seed-pointer entry
     (bit-identical, both timed in the same call) against their plain
     versions, with the next seed's mask as a planted fault; causal, or
-    non-causal with a (B, S) pad bias (-1e9 on padded keys; the
-    transformer's encoder and cross-attention case). Returns ``{part:
+    non-causal with a (B, S) pad bias (-1e9 on padded keys: the ends of
+    every third row, or past ``lengths[b]`` in row b; the transformer's
+    encoder and cross-attention case, BERT's attention). Returns ``{part:
     (launch-argument row, seed-pointer row)}``."""
     import torch.nn.functional as F
 
-    H, D = 16, 64
+    D = 64
     bh, rate = B * H, DROPOUT_RATE
     dtype, elem = torch.bfloat16, 2
     seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device=dev)
@@ -3385,7 +3443,11 @@ def flash_seed_ptr_rows(K, gen, dev, B, s, causal, label):
         bias = mask = None
     else:
         bias = torch.zeros((B, s), device=dev)
-        bias[::3, -11:] = -1e9
+        if lengths is None:
+            bias[::3, -11:] = -1e9
+        else:
+            for b, n in enumerate(lengths):
+                bias[b, n:] = -1e9
         mask = bias.view(B, 1, 1, s).to(dtype)
     args = dict(heads=H, sm_scale=D ** -0.5, causal=causal, bias=bias,
                 dropout_rate=rate)
@@ -4559,6 +4621,589 @@ def resnet_session_phase(K, dev, kernel_rows, notes):
                     ("resnet session bf16 eager", 0.0, eager["counts"])]
 
 
+# -- BERT phase (phase 10): bert_pretrain_model through stf.Session ----------
+
+BERT_B, BERT_S, BERT_P = 32, 512, 76   # bench.py _measure_bert's setup
+BERT_BIG_B = 40                        # its recompute_bigger_batch
+BERT_LR = 1e-4                         # bert_pretrain_model's default
+BERT_CHECK_B, BERT_CHECK_S, BERT_CHECK_P = 4, 128, 20
+BERT_CHECK_LAYERS, BERT_CHECK_STEPS = 2, 2
+BERT_GRAPH_STEPS = 5                   # a warm-up, a capture, then 3 replays
+BERT_STEPS = 16
+
+
+def bert_per_step(layers, recompute, adam_groups):
+    """Launches a ``bert_pretrain_model`` step with ``layers`` encoder
+    layers at dropout 0.1: a flash op, 2 LayerNorms and 2 Dropouts a layer,
+    the embeddings' LayerNorm and Dropout, the MLM head's LayerNorm, the
+    MLM and the NSP xent, one Adam a group (at bf16 compute two: the bf16
+    Dense variables of the layers and the MLM transform, and the f32
+    rest; at f32 one). With ``recompute`` the backward runs each layer's
+    forward again: its flash forward, 2 LayerNorm forwards and 2 Dropout
+    forwards once more."""
+    per = {k: layers for k in FLASH_PARTS}
+    per.update(layer_norm=2 * layers + 2, layer_norm_bwd=2 * layers + 2,
+               dropout=2 * layers + 1, dropout_bwd=2 * layers + 1,
+               softmax_xent_fwd=2, softmax_xent_bwd=2,
+               adam_update=adam_groups)
+    if recompute:
+        per["flash_attention_fwd"] += layers
+        per["layer_norm"] += 2 * layers
+        per["dropout"] += 2 * layers
+    return per
+
+
+def bert_graph_counts(per, steps):
+    """The launches of a graph window of ``steps`` steps: step 1 eager
+    (the launch-argument entries), the replays through the seed-pointer
+    flash entries and the device-key Dropout."""
+    want = {k: v * steps for k, v in per.items()}
+    for k in FLASH_PARTS:
+        want[k] = per[k]
+        want[k + "_device_seed"] = per[k] * (steps - 1)
+    want["dropout"] = per["dropout"]
+    want["dropout_device_key"] = per["dropout"] * (steps - 1)
+    return want
+
+
+def bert_batch(b, s, p, vocab, seed=0):
+    """``synthetic_pretrain_batch(b, s, p, seed=seed, input_mask=True)``:
+    row lengths from the seed in [3 s / 4, s], so the key bias masks real
+    positions."""
+    from simple_tensorflow_tpu_torch.models import bert
+
+    return bert.synthetic_pretrain_batch(b, s, p, vocab_size=vocab,
+                                         seed=seed, input_mask=True)
+
+
+def bert_session(stf, bert, cfg, b, s, p, dtype, recompute, same_seed=None):
+    """``bert_pretrain_model(b, s, p, cfg, compute_dtype=dtype,
+    use_input_mask=True, recompute=recompute)`` in a
+    :func:`seeded_session`."""
+    return seeded_session(
+        stf, lambda: bert.bert_pretrain_model(
+            b, s, p, cfg=cfg, learning_rate=BERT_LR, compute_dtype=dtype,
+            use_input_mask=True, recompute=recompute),
+        same_seed=same_seed)
+
+
+def bert_feeds(m, batch):
+    return {m[k]: v for k, v in batch.items()}
+
+
+def bert_adam_groups(cfg):
+    """The element counts of ``bert_pretrain_model``'s two Adam groups at
+    bf16 compute: the Dense kernels and biases the bf16 activations reach
+    (each layer's six, the MLM transform), in bf16; and the f32 rest (the
+    embeddings, the LayerNorms, the pooler on the f32 first token, the
+    MLM output bias, NSP). At f32 compute, one group of their sum."""
+    h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    dense = 4 * (h * h + h) + (h * f + f) + (f * h + h)
+    bf16 = L * dense + (h * h + h)
+    f32 = (cfg.vocab_size + cfg.max_position + cfg.type_vocab_size) * h \
+        + 2 * h + L * 2 * 2 * h + (h * h + h) + 2 * h + cfg.vocab_size \
+        + (2 * h + 2)
+    return bf16, f32
+
+
+def bert_kernel_rows(K, gen, dev, cfg, batch):
+    """BERT's kernel shapes against their plain versions: the bf16 flash
+    kernels at 32 x 12 heads of S = 512, D = 64, with the batch's key bias,
+    dropout 0.1, through both entries (:func:`flash_seed_ptr_rows`);
+    LayerNorm at n = 768 on its vector path (16384 and 2432 rows, forward
+    and backward), beside the general path forced on the same inputs;
+    the MLM xent at bf16 2432 x 30522 and the NSP xent at f32 32 x 2;
+    Adam over BERT's two groups (bf16 Dense variables and f32 ones, f32
+    m and v); the threefry Dropout at bf16 (32, 512,
+    768), keep_prob 0.9, with its device-key entry."""
+    import torch.nn.functional as F
+
+    kln = importlib.import_module(KMOD + "layer_norm")
+    kdo = importlib.import_module(KMOD + "dropout")
+    main = {}
+    lengths = batch["input_mask"].sum(1).tolist()
+    for part, (host_row, ptr_row) in flash_seed_ptr_rows(
+            K, gen, dev, BERT_B, BERT_S, False, "bert", H=cfg.num_heads,
+            lengths=lengths).items():
+        main[f"flash_attention_{part}@bert"] = host_row
+        main[f"flash_attention_{part}_device_seed@bert"] = ptr_row
+
+    n, dtype, elem, eps = cfg.hidden_size, torch.bfloat16, 2, \
+        cfg.layer_norm_eps
+    for rows in (BERT_B * BERT_S, BERT_B * BERT_P):
+        copies = [(torch.randn((rows, n), generator=gen, device=dev)
+                   .mul(2).add(0.5).to(dtype),
+                   torch.randn((rows, n), generator=gen, device=dev)
+                   .to(dtype))
+                  for _ in range(n_copies(3 * rows * n * elem))]
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(n, generator=gen, device=dev)
+        stats = [K.layer_norm_plain(x, gamma, beta, eps=eps,
+                                    return_stats=True) for x, _ in copies]
+        (x, dy), (ry, mean, rstd) = copies[0], stats[0]
+        nv = kln.vectors_per_lane(n, dtype, x, dy, gamma, beta)
+        if nv != 3:
+            fail(f"layer_norm bf16 n={n}: vectors_per_lane {nv}, expected "
+                 "the vector path's 3")
+        name = f"layer_norm bfloat16 rows={rows} n={n} eps={eps} (bert)"
+        ts, errs = {}, {}
+        for path, v in (("vector", nv), ("general", 0)):
+            y, mu, rs = kln.launch_fwd(x, gamma, beta, eps, True, v)
+            dx, dg, db = kln.launch_bwd(x, gamma, mean, rstd, dy, v)
+            again = kln.launch_bwd(x, gamma, mean, rstd, dy, v)
+            rdx, rdg, rdb = K.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((dx, dg, db),
+                                                         again)):
+                fail(f"{name} {path} path: the backward differs between "
+                     "two runs")
+            errs[path] = (
+                max(check_close(f"{name} {path}", y, ry, dtype),
+                    check_close(f"{name} {path} mean", mu, mean,
+                                torch.float32),
+                    check_close(f"{name} {path} rstd", rs, rstd,
+                                torch.float32)),
+                max(check_scaled(f"{name} {path} dx", dx, rdx, 2e-2),
+                    check_scaled(f"{name} {path} dgamma", dg, rdg, 1e-4),
+                    check_scaled(f"{name} {path} dbeta", db, rdb, 1e-4)))
+            ts[path] = (
+                device_ms([lambda c=c, v=v: kln.launch_fwd(
+                    c[0], gamma, beta, eps, True, v) for c in copies]),
+                device_ms([lambda c=c, st=st, v=v: kln.launch_bwd(
+                    c[0], gamma, st[1], st[2], c[1], v)
+                    for c, st in zip(copies, stats)]))
+        plain_f = device_ms([lambda c=c: K.layer_norm_plain(
+            c[0], gamma, beta, eps=eps, return_stats=True) for c in copies])
+        plain_b = device_ms([lambda c=c, st=st: K.layer_norm_bwd_plain(
+            c[0], gamma, st[1], st[2], c[1])
+            for c, st in zip(copies, stats)])
+        g_t, b_t = gamma.to(dtype), beta.to(dtype)
+        lib_f = device_ms([lambda c=c: F.layer_norm(c[0], (n,), g_t, b_t,
+                                                    eps=eps)
+                           for c in copies])
+        lib_b = device_ms([
+            lambda c=c, st=st: torch.ops.aten.native_layer_norm_backward(
+                c[1], c[0], [n], st[1][:, None], st[2][:, None], g_t, b_t,
+                [True, True, True]) for c, st in zip(copies, stats)])
+        bnd_f = bound_ms(2 * rows * n * elem + 2 * n * 4 + 8 * rows,
+                         8 * rows * n, torch.float32)
+        bnd_b = bound_ms(3 * rows * n * elem + 12 * n + 8 * rows,
+                         12 * rows * n, torch.float32)
+        for path in ("vector", "general"):
+            report(f"{name} forward ({path} path)", errs[path][0],
+                   ts[path][0], plain_f, bnd_f, lib_f)
+            report(f"{name} backward ({path} path)", errs[path][1],
+                   ts[path][1], plain_b, bnd_b, lib_b)
+        print(f"  {name}: vector path {ts['vector'][0]:.5f} / "
+              f"{ts['vector'][1]:.5f} ms (forward / backward) vs the general "
+              f"path {ts['general'][0]:.5f} / {ts['general'][1]:.5f} ms, "
+              f"F.layer_norm {lib_f:.5f} ms, aten backward {lib_b:.5f} ms "
+              "(same call)", flush=True)
+        if rows == BERT_B * BERT_S:
+            main["layer_norm@bert"] = kernel_row(
+                errs["vector"][0], ts["vector"][0], plain_f, bnd_f, lib_f,
+                f"layer_norm {name}")
+            main["layer_norm_bwd@bert"] = kernel_row(
+                errs["vector"][1], ts["vector"][1], plain_b, bnd_b, lib_b,
+                f"layer_norm_bwd {name}")
+        del copies, stats
+    torch.cuda.empty_cache()
+
+    main.update(xent_case(K, gen, dev, BERT_B * BERT_P, cfg.vocab_size,
+                          (torch.bfloat16,), (0.0,), "@bert"))
+    xent_case(K, gen, dev, BERT_B, 2, (torch.float32,), (0.0,), "@bert_nsp")
+    torch.cuda.empty_cache()
+
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    alpha = torch.tensor(BERT_LR, device=dev)
+    for pdt, n in zip((torch.bfloat16, torch.float32), bert_adam_groups(cfg)):
+        p = (0.02 * torch.randn(n, generator=gen, device=dev)).to(pdt)
+        m = 0.01 * torch.randn(n, generator=gen, device=dev)
+        v = 1e-4 * torch.rand(n, generator=gen, device=dev)
+        g = (0.01 * torch.randn(n, generator=gen, device=dev)).to(pdt)
+        got = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha, **kw)
+        ref = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g, alpha,
+                                  **kw)
+        torch.cuda.synchronize()
+        name = (f"adam_update {str(pdt)[6:]} params n={n} f32 m/v (bert "
+                f"{'Dense' if pdt == torch.bfloat16 else 'f32'} group)")
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{name}: kernel is not bit-exact with its plain version")
+        del got, ref
+        ms = device_ms([lambda: K.adam_update(p, m, v, g, alpha, **kw)])
+        plain_ms = device_ms([lambda: K.adam_update_plain(p, m, v, g, alpha,
+                                                          **kw)])
+        pt = torch.nn.Parameter(p.clone())
+        pt.grad = g.clone()
+        opt = torch.optim.Adam([pt], lr=BERT_LR, fused=True)
+        lib_ms = event_ms(opt.step)
+        # p, g read and p written in their dtype; m, v f32 read and written
+        bnd = bound_ms((3 * p.element_size() + 16) * n, 12 * n,
+                       torch.float32)
+        report(name, 0.0, ms, plain_ms, bnd, lib_ms)
+        if pdt == torch.bfloat16:
+            main["adam_update@bert"] = kernel_row(0.0, ms, plain_ms, bnd,
+                                                  lib_ms, name)
+        del p, m, v, g, pt, opt
+        torch.cuda.empty_cache()
+    print("  (adam library: Adam(fused=True) keeps bf16 m/v for bf16 "
+          "parameters, another function; the f32 group's is the same "
+          "function)", flush=True)
+
+    kp, key = 1.0 - cfg.hidden_dropout, DROPOUT_KEY
+    shape = (BERT_B, BERT_S, cfg.hidden_size)
+    numel = math.prod(shape)
+    copies = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+              for _ in range(n_copies(4 * numel))]
+    x = copies[0]
+    tag = f"bfloat16 {shape} keep_prob {kp} (bert)"
+    if not kdo.vector_path(numel, x):
+        fail(f"dropout {tag}: not on the vector path")
+    out, bits = K.dropout_fwd(x, kp, key, return_bits=True)
+    err_f = check_exact(f"dropout {tag}", out, K.dropout_plain(x, kp, key))
+    check_exact(f"dropout {tag} bits", bits, kdo.pack_keep_bits_plain(
+        kdo.keep_mask_plain(shape, kp, key, dev)))
+    err_b = check_exact(f"dropout_bwd {tag}", K.dropout_bwd(x, kp, bits),
+                        K.dropout_plain(x, kp, key))
+    kkey = device_key_row(K, kdo, "dropout@bert", tag, copies, kp, dtype,
+                          dev, main)
+    saved = [K.dropout_fwd(c, kp, key, return_bits=True)[1] for c in copies]
+    ms_f = device_ms([lambda c=c: K.dropout_fwd(c, kp, key, return_bits=True)
+                      for c in copies])
+    plain_f = device_ms([lambda c=c: K.dropout_plain(c, kp, key)
+                         for c in copies])
+    ms_b = device_ms([lambda c=c, b=b: K.dropout_bwd(c, kp, b)
+                      for c, b in zip(copies, saved)])
+    plain_b = device_ms([lambda c=c, b=b: kdo.dropout_bwd_bits_plain(
+        c, b, kp) for c, b in zip(copies, saved)])
+    lib_f = event_ms(lambda: F.dropout(x, 1.0 - kp), reps=20)
+    masks = [torch.rand(shape, generator=gen, device=dev) < kp
+             for _ in copies]
+    lib_b = device_ms([
+        lambda c=c, mk=mk: torch.ops.aten.native_dropout_backward(
+            c, mk, 1.0 / kp) for c, mk in zip(copies, masks)])
+    bits_bytes = -(-numel // 8)
+    bnd_f = bound_ms(4 * numel + bits_bytes, 0, torch.float32,
+                     THREEFRY_OPS * numel, THREEFRY_ALU_OPS * numel)
+    bnd_b = bound_ms(4 * numel + bits_bytes, numel, torch.float32)
+    report(f"dropout {tag}", err_f, ms_f, plain_f, bnd_f, lib_f)
+    report(f"dropout_bwd {tag} (from the bits)", err_b, ms_b, plain_b, bnd_b,
+           lib_b)
+    main["dropout@bert"] = kernel_row(err_f, ms_f, plain_f, bnd_f, lib_f,
+                                      f"dropout {tag}")
+    main["dropout_bwd@bert"] = kernel_row(err_b, ms_b, plain_b, bnd_b,
+                                          lib_b, f"dropout_bwd {tag}")
+    report_device_key(main, kkey, bnd_f, lib_f)
+    del copies, saved, masks
+    torch.cuda.empty_cache()
+    return main
+
+
+def bert_check_cfg(bert):
+    """``BertConfig.base()`` widths cut to ``BERT_CHECK_LAYERS`` layers."""
+    return dataclasses.replace(bert.BertConfig.base(),
+                               num_layers=BERT_CHECK_LAYERS)
+
+
+def check_bert_f32(K, stf, bert):
+    """:func:`check_f32_session` over ``BERT_CHECK_STEPS`` f32 steps of
+    ``bert_pretrain_model`` at ``BertConfig.base()`` widths cut to
+    ``BERT_CHECK_LAYERS`` layers, batch ``BERT_CHECK_B`` x
+    ``BERT_CHECK_S`` with padded rows, dropout 0.1; the planted fault
+    draws layer 1's flash op with layer 0's seed."""
+    cfg = bert_check_cfg(bert)
+    batch = bert_batch(BERT_CHECK_B, BERT_CHECK_S, BERT_CHECK_P,
+                       cfg.vocab_size)
+    at = "bert/encoder/layer_{}/attention/flash_attention"
+    return check_f32_session(
+        K, f"bert[f32 {BERT_CHECK_LAYERS} layers {BERT_CHECK_B}x"
+        f"{BERT_CHECK_S}]",
+        lambda fault: bert_session(
+            stf, bert, cfg, BERT_CHECK_B, BERT_CHECK_S, BERT_CHECK_P,
+            stf.float32, False,
+            same_seed=(at.format(1), at.format(0)) if fault else None),
+        lambda m: bert_feeds(m, batch), BERT_CHECK_STEPS,
+        bert_per_step(BERT_CHECK_LAYERS, False, 1),
+        "layer 1's flash op drawn with layer 0's seed")
+
+
+@contextlib.contextmanager
+def fresh_reforward_seeds():
+    """A planted fault: a recompute's second run of a body draws each
+    dropout seed anew (the seed + 1), not the forward's."""
+    from simple_tensorflow_tpu_torch.framework import function, lowering
+
+    cls, ctx_cls = function._Recompute, lowering.LoweringContext
+    backward, seed_for = cls.__dict__["backward"], ctx_cls.seed_for
+    state = {"on": False}
+
+    def planted_backward(fctx, *grads):
+        state["on"] = True
+        try:
+            return backward.__func__(fctx, *grads)
+        finally:
+            state["on"] = False
+
+    def planted_seed_for(self, op):
+        seed = seed_for(self, op)
+        return seed + 1 if state["on"] else seed
+
+    cls.backward = staticmethod(planted_backward)
+    ctx_cls.seed_for = planted_seed_for
+    try:
+        yield
+    finally:
+        cls.backward = backward
+        ctx_cls.seed_for = seed_for
+
+
+def check_bert_recompute(K, stf, bert):
+    """At the f32 check's size, ``recompute=True`` against the same graph
+    run under ``function.without_rematerialization()`` (each body once,
+    its intermediates kept by autograd: the same ops, names and masks),
+    both through the kernels and dispatched eagerly, cuDNN deterministic:
+    the losses within ``TF_LOSS_RTOL``, the parameters within
+    ``TF_STATE_TOL`` and the Adam slots within the f32 gradient limit
+    (:func:`tf_group_errs`); the launches of ``bert_per_step(...,
+    recompute=True)`` a step (the second forwards counted). The planted
+    fault (:func:`fresh_reforward_seeds`) must fail. Returns the
+    rematerializing run's launches."""
+    from simple_tensorflow_tpu_torch.framework import function
+
+    cfg = bert_check_cfg(bert)
+    batch = bert_batch(BERT_CHECK_B, BERT_CHECK_S, BERT_CHECK_P,
+                       cfg.vocab_size)
+    tag = (f"bert recompute[f32 {BERT_CHECK_LAYERS} layers "
+           f"{BERT_CHECK_B}x{BERT_CHECK_S}]")
+
+    def run(mode):
+        m, sess = bert_session(stf, bert, cfg, BERT_CHECK_B, BERT_CHECK_S,
+                               BERT_CHECK_P, stf.float32, True)
+        sess._capture = False
+        with mode:
+            outs = [float(sess.run([m["loss"], m["train_op"]],
+                                   bert_feeds(m, batch))[0])
+                    for _ in range(BERT_CHECK_STEPS)]
+        state = session_state(sess)
+        sess.close()
+        return outs, state
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_state = run(function.without_rematerialization())
+        K.reset_launch_counts()
+        got, state = run(contextlib.nullcontext())
+        counts = K.launch_counts()
+        bad, bad_state = run(fresh_reforward_seeds())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    want = {k: 0 for k in counts}
+    want.update({k: v * BERT_CHECK_STEPS for k, v in bert_per_step(
+        BERT_CHECK_LAYERS, True, 1).items()})
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+
+    def judge(outs, st):
+        losses = [(a, b) for a, b in zip(outs, ref)
+                  if not abs(a - b) <= TF_LOSS_RTOL * abs(b)]
+        errs = tf_group_errs(st, ref_state)
+        ok = not losses and all(
+            v <= (F32_GRAD_TOL[DROPOUT_RATE] if "/fused_" in k
+                  else TF_STATE_TOL) for k, v in errs.items())
+        return ok, losses, errs
+
+    def txt(errs):
+        return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+
+    ok, losses, errs = judge(got, state)
+    fok, flosses, ferrs = judge(bad, bad_state)
+    print(f"{tag}: {BERT_CHECK_STEPS} steps rematerializing vs the bodies "
+          f"kept: losses {got} vs {ref}; bad losses {losses}; relative "
+          f"norms: {txt(errs)}", flush=True)
+    print(f"{tag}: planted fault (the re-forward draws fresh dropout "
+          f"seeds): losses {bad}; bad losses {flosses}; {txt(ferrs)}",
+          flush=True)
+    if not ok:
+        fail(f"{tag}: the rematerializing steps are off the kept bodies'")
+    if fok:
+        fail(f"{tag}: the check passes the planted fresh-seed fault")
+    return counts
+
+
+def bert_probes(cfg, recompute):
+    """Two root-graph tensors that the step's dropout seeds reach (and not
+    only its Dropout keys): the first layer's attention (the flash op, or
+    the layer's call) and the last layer's output."""
+    last = cfg.num_layers - 1
+    if recompute:
+        return ["bert/encoder/layer_0_rc:0",
+                f"bert/encoder/layer_{last}_rc:0"]
+    return ["bert/encoder/layer_0/attention/flash_attention:0",
+            f"bert/encoder/layer_{last}/ln_ffn/fused_layer_norm:0"]
+
+
+def bert_window(K, stf, bert, cfg, b, batch, recompute, capture, steps):
+    """A :func:`session_window` of ``steps`` shipped-config steps at batch
+    ``b`` in a new Session, with its memory peaks, the memory still
+    allocated after it and the memory reserved at its end (GiB), each
+    counted above what the process held just before the Session was built
+    (``base_gib``: allocated, reserved); checks the global step after
+    it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated() / GIB
+    res0 = torch.cuda.memory_reserved() / GIB
+    m, sess = bert_session(stf, bert, cfg, b, BERT_S, BERT_P, stf.bfloat16,
+                           recompute)
+    w = session_window(K, sess, [m["loss"], m["train_op"]],
+                       bert_feeds(m, batch), steps, capture, peaks=True)
+    # what stays allocated between steps: weights, the flat gradient and
+    # Adam buffers, a captured step's outputs
+    w["held_gib"] = torch.cuda.memory_allocated() / GIB - alloc0
+    w["peak_first_gib"] -= alloc0
+    w["peak_gib"] -= alloc0
+    w["reserved_gib"] -= res0
+    w["base_gib"] = (alloc0, res0)
+    gs = int(sess.run(m["global_step"]))
+    sess.close()
+    if gs != w["steps"]:
+        fail(f"bert: global_step {gs} after {w['steps']} steps")
+    torch.cuda.empty_cache()
+    return w
+
+
+def bert_phase(K, dev, kernel_rows):
+    """BERT-base pretraining through the TF-1 front end (module docstring,
+    phase 10). Returns ``[(path, dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    batch = bert_batch(BERT_B, BERT_S, BERT_P, cfg.vocab_size)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    print("BERT kernels at the bert_pretrain_model shapes:", flush=True)
+    kernel_rows.update(bert_kernel_rows(K, gen, dev, cfg, batch))
+    paths = [("check bert f32", DROPOUT_RATE, check_bert_f32(K, stf, bert))]
+    torch.cuda.empty_cache()
+    paths.append(("check bert recompute", DROPOUT_RATE,
+                  check_bert_recompute(K, stf, bert)))
+    torch.cuda.empty_cache()
+    lengths = batch["input_mask"].sum(1)
+    flops = 3 * bert.bert_flops_per_token(cfg, BERT_S)
+    print(f"bert: bert_pretrain_model(BertConfig.base()) as bench.py "
+          f"measures it ({cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+          f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, dropouts "
+          f"{cfg.hidden_dropout}/{cfg.attention_dropout}, bf16, "
+          f"use_input_mask, Adam lr {BERT_LR}, groups of "
+          f"{bert_adam_groups(cfg)} bf16 and f32 parameters); "
+          f"synthetic_pretrain_batch({BERT_B}, {BERT_S}, "
+          f"{BERT_P}, seed=0) with row lengths {lengths.min()}-"
+          f"{lengths.max()} fed as numpy; 3 x bert_flops_per_token = "
+          f"{flops / 1e6:.2f} MFLOP a token", flush=True)
+    out = {}
+    for recompute in (False, True):
+        tag = f"bert{' recompute' if recompute else ''}[bf16 {BERT_B}x" \
+              f"{BERT_S}]"
+        check_graph_replays(
+            f"{tag} graph",
+            lambda: bert_session(stf, bert, cfg, BERT_B, BERT_S, BERT_P,
+                                 stf.bfloat16, recompute),
+            lambda m: bert_feeds(m, batch), bert_probes(cfg, recompute),
+            BERT_GRAPH_STEPS)
+        torch.cuda.empty_cache()
+        per = bert_per_step(cfg.num_layers, recompute, 2)
+        windows = {c: bert_window(K, stf, bert, cfg, BERT_B, batch,
+                                  recompute, c, BERT_STEPS)
+                   for c in (True, False)}
+        graph, eager = windows[True], windows[False]
+        if graph["late"][1] != 1 or graph["captures"] != 1:
+            fail(f"{tag}: captures {graph['captures']} (after the first "
+                 f"step {graph['late'][1]}), expected exactly 1")
+        if eager["captures"]:
+            fail(f"{tag}: the eager window captured {eager['captures']} "
+                 "times")
+        tokens = BERT_B * BERT_S
+        half = BERT_STEPS // 2
+        res = {}
+        for w, name, want in (
+                (graph, "graph", bert_graph_counts(per, BERT_STEPS)),
+                (eager, "eager", {k: v * BERT_STEPS
+                                  for k, v in per.items()})):
+            p50, dev_ms = report_window(
+                f"{tag} {name}", w, want, tokens, "tokens",
+                first=slice(0, half), last=slice(-half, None),
+                last_below_first=False)
+            if w["by_name"]:
+                check_traced(f"{tag} {name}", w["by_name"], (
+                    "flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+                    "flash_bwd_dq_mma_kernel", "layer_norm_fwd_vec_kernel",
+                    "layer_norm_bwd_vec_kernel", "dropout_vec_kernel"))
+            tps = tokens / p50
+            res[name] = (p50, dev_ms, w)
+            print(f"{tag} {name}: p50 {p50 * 1e3:.4f} ms, {tps:.2f} tokens/s "
+                  f"(bench.py's bert_base_tokens_per_sec_per_chip count), "
+                  f"{tps * flops / 1e12:.2f} TFLOP/s at 3 x "
+                  f"bert_flops_per_token, "
+                  f"{100 * tps * flops / PEAK_OPS_PER_S[torch.bfloat16]:.2f}%"
+                  f" of the dense bf16 peak; {mem_txt(w)}", flush=True)
+        print(f"{tag}: graph vs eager p50 step {res['graph'][0] * 1e3:.4f} "
+              f"vs {res['eager'][0] * 1e3:.4f} ms; device ms a step "
+              f"{res['graph'][1]} vs {res['eager'][1]}", flush=True)
+        out[recompute] = res
+        name = "bert recompute" if recompute else "bert"
+        paths += [(f"{name} bf16 graph", DROPOUT_RATE, graph["counts"]),
+                  (f"{name} bf16 eager", DROPOUT_RATE, eager["counts"])]
+    big = bert_batch(BERT_BIG_B, BERT_S, BERT_P, cfg.vocab_size)
+    w = bert_window(K, stf, bert, cfg, BERT_BIG_B, big, True, True,
+                    BERT_STEPS)
+    tag = f"bert recompute[bf16 {BERT_BIG_B}x{BERT_S}]"
+    p50, _ = report_window(
+        f"{tag} graph", w, bert_graph_counts(
+            bert_per_step(cfg.num_layers, True, 2), BERT_STEPS),
+        BERT_BIG_B * BERT_S, "tokens", first=slice(0, BERT_STEPS // 2),
+        last=slice(-(BERT_STEPS // 2), None), last_below_first=False)
+    tps = BERT_BIG_B * BERT_S / p50
+    print(f"{tag} graph: p50 {p50 * 1e3:.4f} ms, {tps:.2f} tokens/s, "
+          f"{100 * tps * flops / PEAK_OPS_PER_S[torch.bfloat16]:.2f}% of the "
+          f"dense bf16 peak; {mem_txt(w)}", flush=True)
+    paths.append(("bert recompute bf16 graph b40", DROPOUT_RATE,
+                  w["counts"]))
+    wins = (out[False]["eager"][2], out[True]["eager"][2],
+            out[False]["graph"][2], out[True]["graph"][2], w)
+    print(f"bert: a step's peak device memory (eager windows, steps 3-16, "
+          f"above what the process held before the Session) batch {BERT_B} "
+          f"{wins[0]['peak_gib']:.3f} GiB, with recompute "
+          f"{wins[1]['peak_gib']:.3f} GiB; reserved by the Session after "
+          f"the graph windows (its variables, Adam slots and the capture's "
+          f"pool) {wins[2]['reserved_gib']:.3f} and "
+          f"{wins[3]['reserved_gib']:.3f} GiB, batch {BERT_BIG_B} with "
+          f"recompute {wins[4]['reserved_gib']:.3f} GiB (its first two "
+          f"steps' peak {wins[4]['peak_first_gib']:.3f}); tokens/s "
+          f"{BERT_B * BERT_S / out[False]['graph'][0]:.2f}, "
+          f"{BERT_B * BERT_S / out[True]['graph'][0]:.2f}, {tps:.2f}",
+          flush=True)
+    if not wins[1]["peak_gib"] < wins[0]["peak_gib"]:
+        fail(f"bert: recompute does not lower a step's peak memory at batch "
+             f"{BERT_B}")
+    if not wins[3]["reserved_gib"] < wins[2]["reserved_gib"]:
+        fail(f"bert: recompute does not lower a captured step's reserved "
+             f"memory at batch {BERT_B}")
+    return paths
+
+
+def mem_txt(w):
+    """A window's memory (:func:`bert_window`) as text."""
+    return (f"peak device memory {w['peak_first_gib']:.3f} GiB over the "
+            f"first two steps (warm-up, capture), {w['peak_gib']:.3f} GiB "
+            f"over the rest, {w['held_gib']:.3f} GiB held between steps, "
+            f"{w['reserved_gib']:.3f} GiB reserved (above the "
+            f"{w['base_gib'][0]:.3f} GiB allocated and "
+            f"{w['base_gib'][1]:.3f} GiB reserved before the Session)")
+
+
 def kernel_props(log, prefix):
     """``[(kernel<template args>, "N registers, spill stores/loads")]`` of
     the kernels whose name starts with ``prefix``, from ``ptxas -v``."""
@@ -4700,6 +5345,8 @@ def main():
     paths += lm_session_phase(K, dev, main_rows, notes)
     torch.cuda.empty_cache()
     paths += resnet_session_phase(K, dev, main_rows, notes)
+    torch.cuda.empty_cache()
+    paths += bert_phase(K, dev, main_rows)
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -4724,6 +5371,30 @@ def main():
         "softmax_xent_bwd@resnet_session": (
             "softmax_xent.cu", "softmax_xent.py:78", "softmax_xent_bwd",
             "softmax_xent_bwd", "resnet session bf16")})
+    # BERT's rows: its shipped-config paths (those named "bert ...")
+    session_where.update({
+        f"{name}@bert": (src, tpu, name, name, "bert")
+        for name, src, tpu in (
+            ("flash_attention_fwd", "flash_fwd_mma.cu",
+             "flash_attention.py:141"),
+            ("flash_attention_dkdv", "flash_bwd_mma.cu",
+             "flash_attention.py:244"),
+            ("flash_attention_dq", "flash_bwd_mma.cu",
+             "flash_attention.py:297"),
+            ("flash_attention_fwd_device_seed", "flash_fwd_mma.cu",
+             "flash_attention.py:141"),
+            ("flash_attention_dkdv_device_seed", "flash_bwd_mma.cu",
+             "flash_attention.py:244"),
+            ("flash_attention_dq_device_seed", "flash_bwd_mma.cu",
+             "flash_attention.py:297"),
+            ("layer_norm", "layer_norm.cu", "layer_norm.py:29"),
+            ("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:42"),
+            ("softmax_xent_fwd", "softmax_xent.cu", "softmax_xent.py:32"),
+            ("softmax_xent_bwd", "softmax_xent.cu", "softmax_xent.py:78"),
+            ("adam_update", "fused_update.cu", "fused_update.py:59"),
+            ("dropout", "dropout.cu", "../nn_ops.py:388"),
+            ("dropout_device_key", "dropout.cu", "../nn_ops.py:388"),
+            ("dropout_bwd", "dropout.cu", "../nn_ops.py:388"))})
     # (the general row's counter, the path) pairs a Session row takes over
     claimed = {(c, p) for _, _, _, c, p in session_where.values()}
     # a kernel's launches over every path; the flash rows split by the

@@ -32,8 +32,8 @@ from .framework.graph import (Graph, GraphKeys, Operation, Tensor,
 from .framework.random_seed import get_seed, set_random_seed
 from .framework.tensor_shape import Dimension, TensorShape
 from .ops.array_ops import (fill, gather, identity, ones, placeholder,
-                            placeholder_with_default, reshape, stop_gradient,
-                            transpose, zeros)
+                            placeholder_with_default, reshape, slice,
+                            squeeze, stop_gradient, transpose, zeros)
 from .ops.control_flow_ops import group, no_op
 from .ops.logging_ops import Print
 from .ops import init_ops
@@ -42,8 +42,9 @@ from .ops.init_ops import (glorot_uniform_initializer, ones_initializer,
                            truncated_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
 from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, matmul,
-                           minimum, multiply, not_equal, pow, realdiv,
-                           reduce_mean, reduce_sum, subtract, truediv)
+                           minimum, multiply, not_equal, pow, range,
+                           realdiv, reduce_mean, reduce_sum, subtract, tanh,
+                           truediv)
 from .ops.random_ops import random_normal, random_uniform, truncated_normal
 from .ops.state_ops import assign, assign_add, assign_sub
 from .ops.variable_scope import (AUTO_REUSE, VariableScope, get_variable,
@@ -53,5 +54,7 @@ from .ops.variables import (Variable, global_variables,
                             initialize_all_variables, local_variables,
                             local_variables_initializer, trainable_variables,
                             variables_initializer)
+from .framework import function
+from .framework.function import Defun, recompute_grad
 from .client.session import Session, get_default_session
 from . import analysis, checkpoint, kernels, layers, nn, summary, train

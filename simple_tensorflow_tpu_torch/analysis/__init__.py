@@ -10,11 +10,12 @@ the sharding analyses and the monitoring counters.
 
 from . import loop_safety
 from .diagnostics import ERROR, NOTE, WARNING, Diagnostic
-from .effects import ResolvedEffects, commuting_writes, op_effects
+from .effects import (ResolvedEffects, commuting_writes, op_effects,
+                      rng_ops)
 from .hazards import (MODES, Hazard, check_plan, find_hazards,
                       get_hazard_mode, set_hazard_mode)
 
 __all__ = ["loop_safety", "ERROR", "NOTE", "WARNING", "Diagnostic", "ResolvedEffects",
-           "commuting_writes", "op_effects", "MODES", "Hazard",
+           "commuting_writes", "op_effects", "rng_ops", "MODES", "Hazard",
            "check_plan", "find_hazards", "get_hazard_mode",
            "set_hazard_mode"]

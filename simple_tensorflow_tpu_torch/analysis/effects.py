@@ -1,12 +1,19 @@
 """Per-op effect resolution (port of ``simple_tensorflow_tpu/analysis/
 effects.py``): an op's declared ``Effects`` (``framework/op_registry.py``)
 resolved against its attrs, e.g. an ``Assign`` with ``var_name == "w"``
-writes ``{"var_name=w"}``."""
+writes ``{"var_name=w"}``. A graph function call (``framework/
+function.py``) has the effects of the body ops its outputs run, and reads
+what the producers of its captures read (a captured variable).
+:func:`rng_ops` lists a plan's random ops with those of every call body,
+as the JAX Session's ``_plan_uses_rng`` (``client/session.py:300``)
+recurses into bodies."""
 
 from __future__ import annotations
 
-from typing import FrozenSet, Optional
+from typing import FrozenSet, List, Optional
 
+from ..framework import function as function_mod
+from ..framework import lowering as lowering_mod
 from ..framework import op_registry
 
 _EMPTY: FrozenSet[str] = frozenset()
@@ -26,9 +33,38 @@ class ResolvedEffects:
         self.update = update
 
 
+def _call_effects(op) -> ResolvedEffects:
+    fg = op.attrs["func_graph"]
+    reads, writes, rng, io = set(), set(), False, False
+    for inner in lowering_mod.func_graph_ops(fg):
+        e = op_effects(inner)
+        reads |= e.reads
+        writes |= e.writes
+        rng, io = rng or e.rng, io or e.io
+    for outer, _ in fg.captures:
+        reads |= op_effects(outer.op).reads
+    return ResolvedEffects(frozenset(reads), frozenset(writes), rng, io,
+                           None)
+
+
+def rng_ops(ops) -> List:
+    """The ops of ``ops`` that draw randomness, followed, at each call op,
+    by every op of its body that draws (nested bodies too), in order."""
+    out = []
+    for op in ops:
+        if op.type in function_mod.CALL_OPS:
+            out.extend(inner for inner in function_mod.body_ops(op)
+                       if inner.op_def.effects.rng)
+        elif op.op_def.effects.rng:
+            out.append(op)
+    return list(dict.fromkeys(out))
+
+
 def op_effects(op) -> ResolvedEffects:
     """The resolved effect set of one Operation (an unregistered op type
     resolves as pure)."""
+    if op.type in function_mod.CALL_OPS:
+        return _call_effects(op)
     try:
         eff = op_registry.get(op.type).effects
     except KeyError:

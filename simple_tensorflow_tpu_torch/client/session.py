@@ -49,11 +49,13 @@ every optimizer plan.
 Where the JAX package compiles a planned run into one XLA program per
 feed-shape bucket, the port captures one CUDA graph (``compiler/aot.py``)
 per plan and executable key: the feed signature, the host scalars the run
-reads (a fed ``keep_prob``) and whether the kernels' plain versions are
-on. As with JAX's jit, a (plan, key) runs eagerly the first time (the
-warm-up, on a side stream), is captured on its second run and replayed
-from then on; a replay stages the feeds and the random ops' keys (still
-derived on the host from the run counter) and the dropout seeds drawn
+reads (a fed ``keep_prob``), whether the kernels' plain versions are
+on and whether recompute bodies rematerialize
+(``function.without_rematerialization``). As with JAX's jit, a (plan,
+key) runs eagerly the first time (the warm-up, on a side stream), is
+captured on its second run and replayed from then on; a replay stages
+the feeds and the random ops' keys (still derived on the host from the
+run counter) and the dropout seeds drawn
 from them (``prng.randint``, for the flash and dropout-residual kernels'
 seed-pointer entries) into the graph's static buffers. A store whose
 tensors moved since a capture or since the warm-up before it (a load, a
@@ -104,6 +106,7 @@ from .. import compiler
 from ..analysis import loop_safety
 from ..framework import constant_op
 from ..framework import dtypes as dtypes_mod
+from ..framework import function as function_mod
 from ..framework import graph as ops_mod
 from ..framework import gradients as gradients_mod
 from ..framework import lowering as lowering_mod
@@ -229,8 +232,10 @@ class _Plan:
         post_in = [t for op in self.post_ops for t in op.inputs
                    if t not in post_made and t not in fed]
         self.ops = ops
-        self.io = any(op.op_def.effects.io for op in ops)
-        self.rng_ops = [op for op in ops if op.op_def.effects.rng]
+        self.io = any(analysis.op_effects(op).io for op in ops)
+        # every op that draws, call bodies' too: each has its own row of a
+        # compiled step's key and seed buffers
+        self.rng_ops = analysis.rng_ops(ops)
         self.uses_rng = bool(self.rng_ops)
         self.rng_slots = {op: i for i, op in enumerate(self.rng_ops)}
         self.rng_folds = np.array(
@@ -635,7 +640,7 @@ class BaseSession:
         host = tuple(lowering_mod.host_scalar(t, feeds)
                      for t in plan.host_reads or ())
         return (compiler.feed_signature(feeds), host,
-                using_plain_versions())
+                using_plain_versions(), function_mod.rematerializing())
 
     def _run_plan(self, plan: _Plan, elements, feeds):
         """One run of ``plan``: eagerly (the first run of an executable

@@ -19,10 +19,11 @@
 // and takes about eight (forward) or twelve (backward) flops, far below the
 // H100's 295 flops per byte ridge.
 //
-// Forward, vector path (n = 32 lanes x 16 bytes x nv with nv in {1, 2, 4}
-// bf16, {1, 2, 4, 8} f32: at most 32 values a lane, 16-byte aligned x, y,
-// gamma and beta; n in {256, 512, 1024} bf16, {128, ..., 1024} f32): a warp
-// per row. Lane l reads its share of the row as 16-byte vectors (bf16
+// Forward, vector path (n = 32 lanes x 16 bytes x nv with nv in 1..4 bf16,
+// 1..8 f32: at most 32 values a lane, 16-byte aligned x, y, gamma and beta;
+// n in {256, 512, 768, 1024} bf16, {128, 256, ..., 1024} f32): a warp per
+// row. The row means divide by n (an IEEE division, as jnp.mean does: n =
+// 768, BERT's width, is not a power of two). Lane l reads its share of the row as 16-byte vectors (bf16
 // columns 8 l + 256 j + e) and keeps them in registers: the mean and then
 // the centred variance are two passes over the registers with warp
 // shuffles (no re-read, no barrier, not E[x^2] - E[x]^2), and y goes out
@@ -37,7 +38,8 @@
 // arithmetic in the same order per element; only the sums' order differs.
 //
 // Backward, vector path (n a multiple of 32 lanes x 16 bytes, at most 32
-// values a lane: n in {256, 512, 1024} bf16, {128, ..., 1024} f32, 16-byte
+// values a lane: n in {256, 512, 768, 1024} bf16, {128, 256, ..., 1024}
+// f32, 16-byte
 // aligned pointers; the wrapper picks it): a warp per row. Lane l reads its
 // share of x and dO as 16-byte vectors, neighbouring lanes on neighbouring
 // chunks (bf16: columns 8 l + 256 j + e), and keeps them in registers across
@@ -176,7 +178,7 @@ __global__ void __launch_bounds__(kLnVecThreads, 2)
                               float* __restrict__ rstd_out, int rows,
                               float eps) {
   constexpr int V = 16 / sizeof(T);  // values in 16 bytes
-  constexpr int n = 32 * NV * V;     // a power of two: / n is exact
+  constexpr int n = 32 * NV * V;     // / n: an IEEE division
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = blockIdx.x * kLnVecWarps + warp; r < rows;
        r += gridDim.x * kLnVecWarps) {
@@ -354,6 +356,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// the vector paths' register cap: 32 values a lane (bf16 nv 4, f32 nv 8)
+template <typename T>
+constexpr int kMaxNv = 32 / (16 / sizeof(T));
+
 template <typename T, int NV>
 cudaError_t launch_bwd_vec(const T* x, const float* gamma, const float* mean,
                            const float* rstd, const T* dout, T* dx,
@@ -385,7 +391,7 @@ cudaError_t run_bwd(const void* x, const float* gamma, const float* mean,
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(dout);
   T* dt = static_cast<T*>(dx);
-  cudaError_t e;
+  cudaError_t e = cudaErrorInvalidValue;
   if (nv == 0) {
     const size_t smem = 2 * static_cast<size_t>(n) * sizeof(float);
     auto kernel = layer_norm_bwd_kernel<T>;
@@ -398,25 +404,23 @@ cudaError_t run_bwd(const void* x, const float* gamma, const float* mean,
     kernel<<<cdiv(rows, rpb), kLnThreads, smem, s>>>(
         xt, gamma, mean, rstd, gt, dt, part, rows, n, rpb);
     e = cudaGetLastError();
-  } else if (n != 32 * nv * static_cast<int>(16 / sizeof(T))) {
+  } else if (n != 32 * nv * static_cast<int>(16 / sizeof(T)) ||
+             nv > kMaxNv<T>) {
     return cudaErrorInvalidValue;
-  } else if (nv == 1) {
-    e = launch_bwd_vec<T, 1>(xt, gamma, mean, rstd, gt, dt, part, rows, rpb,
-                             s);
-  } else if (nv == 2) {
-    e = launch_bwd_vec<T, 2>(xt, gamma, mean, rstd, gt, dt, part, rows, rpb,
-                             s);
-  } else if (nv == 4) {
-    e = launch_bwd_vec<T, 4>(xt, gamma, mean, rstd, gt, dt, part, rows, rpb,
-                             s);
-  } else if (nv == 8) {
-    if constexpr (sizeof(T) == 4)  // 32 f32 a lane; bf16 stops at nv 4
-      e = launch_bwd_vec<T, 8>(xt, gamma, mean, rstd, gt, dt, part, rows,
-                               rpb, s);
-    else
-      return cudaErrorInvalidValue;
   } else {
-    return cudaErrorInvalidValue;
+#define STF_LN_BWD(NV)                                                     \
+  case NV:                                                                 \
+    if constexpr (NV <= kMaxNv<T>)                                         \
+      e = launch_bwd_vec<T, NV>(xt, gamma, mean, rstd, gt, dt, part, rows, \
+                                rpb, s);                                   \
+    break;
+    switch (nv) {
+      STF_LN_BWD(1) STF_LN_BWD(2) STF_LN_BWD(3) STF_LN_BWD(4)
+      STF_LN_BWD(5) STF_LN_BWD(6) STF_LN_BWD(7) STF_LN_BWD(8)
+      default:
+        return cudaErrorInvalidValue;
+    }
+#undef STF_LN_BWD
   }
   if (e != cudaSuccess) return e;
   layer_norm_bwd_reduce_kernel<<<dim3(cdiv(n, 32), 2), 256, 0, s>>>(
@@ -425,16 +429,13 @@ cudaError_t run_bwd(const void* x, const float* gamma, const float* mean,
 }
 
 // 16-byte vectors a lane of the vector paths for rows of n values of T,
-// or 0 (the general path): n == 32 nv 16 / sizeof(T) with nv in {1, 2, 4}
-// (at most 32 values a lane), or 8 for f32, and every pointer 16-byte
-// aligned
+// or 0 (the general path): n == 32 nv 16 / sizeof(T) with 1 <= nv <=
+// kMaxNv (at most 32 values a lane), and every pointer 16-byte aligned
 template <typename T>
 int vectors_per_lane(int n, uintptr_t ptrs) {
   constexpr int per = 32 * (16 / sizeof(T));
   const int nv = n % per == 0 ? n / per : 0;
-  const bool ok =
-      nv == 1 || nv == 2 || nv == 4 || (nv == 8 && sizeof(T) == 4);
-  return ok && ptrs % 16 == 0 ? nv : 0;
+  return nv >= 1 && nv <= kMaxNv<T> && ptrs % 16 == 0 ? nv : 0;
 }
 
 int sm_count() {
@@ -456,13 +457,17 @@ constexpr int kLnFwdBlocksPerSm = 2;
 template <typename T>
 cudaError_t run_fwd(const void* x, const float* gamma, const float* beta,
                     void* y, float* mean, float* rstd, int rows, int n,
-                    float eps, cudaStream_t s) {
+                    float eps, int nv, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  const int nv = vectors_per_lane<T>(
-      n, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
-             reinterpret_cast<uintptr_t>(gamma) |
-             reinterpret_cast<uintptr_t>(beta));
+  // a vector path only where the rule admits it (the general path takes
+  // any row)
+  if (nv != 0 && vectors_per_lane<T>(
+                     n, reinterpret_cast<uintptr_t>(x) |
+                            reinterpret_cast<uintptr_t>(y) |
+                            reinterpret_cast<uintptr_t>(gamma) |
+                            reinterpret_cast<uintptr_t>(beta)) != nv)
+    return cudaErrorInvalidValue;
   const int blocks =
       std::min(cdiv(rows, kLnVecWarps), kLnFwdBlocksPerSm * sm_count());
   switch (nv) {
@@ -470,22 +475,15 @@ cudaError_t run_fwd(const void* x, const float* gamma, const float* beta,
       layer_norm_fwd_kernel<T><<<rows, kLnThreads, 0, s>>>(
           xt, gamma, beta, yt, mean, rstd, n, eps);
       break;
-    case 1:
-      layer_norm_fwd_vec_kernel<T, 1><<<blocks, kLnVecThreads, 0, s>>>(
-          xt, gamma, beta, yt, mean, rstd, rows, eps);
-      break;
-    case 2:
-      layer_norm_fwd_vec_kernel<T, 2><<<blocks, kLnVecThreads, 0, s>>>(
-          xt, gamma, beta, yt, mean, rstd, rows, eps);
-      break;
-    case 4:
-      layer_norm_fwd_vec_kernel<T, 4><<<blocks, kLnVecThreads, 0, s>>>(
-          xt, gamma, beta, yt, mean, rstd, rows, eps);
-      break;
-    default:  // 8: f32 only (32 values a lane)
-      if constexpr (sizeof(T) == 4)
-        layer_norm_fwd_vec_kernel<T, 8><<<blocks, kLnVecThreads, 0, s>>>(
-            xt, gamma, beta, yt, mean, rstd, rows, eps);
+#define STF_LN_FWD(NV)                                              \
+  case NV:                                                          \
+    if constexpr (NV <= kMaxNv<T>)                                  \
+      layer_norm_fwd_vec_kernel<T, NV><<<blocks, kLnVecThreads, 0, s>>>( \
+          xt, gamma, beta, yt, mean, rstd, rows, eps);              \
+    break;
+      STF_LN_FWD(1) STF_LN_FWD(2) STF_LN_FWD(3) STF_LN_FWD(4)
+      STF_LN_FWD(5) STF_LN_FWD(6) STF_LN_FWD(7) STF_LN_FWD(8)
+#undef STF_LN_FWD
   }
   return cudaGetLastError();
 }
@@ -494,14 +492,14 @@ cudaError_t run_fwd(const void* x, const float* gamma, const float* beta,
 }  // namespace stf
 
 // x, y (rows, n); gamma, beta (n,) f32; mean, rstd (rows,) f32, or both null
-// when the caller needs no statistics. Rows of 32 nv 16-byte vectors (nv in
-// {1, 2, 4}, or 8 for f32) with x, y, gamma and beta 16-byte aligned take
-// the vector path (layer_norm.py vectors_per_lane makes the same choice);
-// any other n or alignment the general path.
+// when the caller needs no statistics. nv > 0: the vector path with nv
+// 16-byte vectors a lane (n == 32 nv 16 / elem, nv in 1..4 bf16, 1..8 f32,
+// x, y, gamma and beta 16-byte aligned: layer_norm.py vectors_per_lane's
+// rule, refused otherwise); nv == 0: the general path, any n.
 extern "C" int stf_layer_norm_fwd(const void* x, const void* gamma,
                                   const void* beta, void* y, void* mean,
                                   void* rstd, int rows, int n, float eps,
-                                  int dtype, void* stream) {
+                                  int nv, int dtype, void* stream) {
   using namespace stf;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0) return cudaSuccess;
@@ -510,16 +508,17 @@ extern "C" int stf_layer_norm_fwd(const void* x, const void* gamma,
   float* mo = static_cast<float*>(mean);
   float* ro = static_cast<float*>(rstd);
   if (dtype == kF32)
-    return run_fwd<float>(x, g, b, y, mo, ro, rows, n, eps, s);
+    return run_fwd<float>(x, g, b, y, mo, ro, rows, n, eps, nv, s);
   if (dtype == kBF16)
-    return run_fwd<__nv_bfloat16>(x, g, b, y, mo, ro, rows, n, eps, s);
+    return run_fwd<__nv_bfloat16>(x, g, b, y, mo, ro, rows, n, eps, nv,
+                                  s);
   return cudaErrorInvalidValue;
 }
 
 // x, dout, dx (rows, n); gamma (n,) f32; mean, rstd (rows,) f32; part a
 // (2, cdiv(rows, rpb), n) f32 workspace; dgamma, dbeta (n,) f32. nv > 0:
 // the vector path with nv 16-byte vectors a lane (n == 32 nv 16 / elem,
-// every pointer 16-byte aligned, nv in {1, 2, 4}, or 8 for f32); nv == 0:
+// every pointer 16-byte aligned, nv in 1..4 bf16, 1..8 f32); nv == 0:
 // the general path.
 extern "C" int stf_layer_norm_bwd(const void* x, const void* gamma,
                                   const void* mean, const void* rstd,

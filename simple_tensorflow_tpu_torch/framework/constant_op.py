@@ -3,9 +3,12 @@
 Port of ``simple_tensorflow_tpu/framework/constant_op.py``: ``constant``
 (:102) keeps its value as a numpy array in the op's attrs; the Session
 copies it to its device once and keeps the tensor for later runs (the JAX
-package bakes it into the compiled program). ``constant_value`` reads a
-static value through ``Const``, ``Identity`` and ``Cast``. Left out:
-string constants and the shape-op cases of ``constant_value``.
+package bakes it into the compiled program). ``FuncArg`` and
+``CapturedInput`` (:140-153) are a graph function body's bound values:
+the call's lowering binds them, and lowering one alone is an error.
+``constant_value`` reads a static value through ``Const``, ``Identity``
+and ``Cast``. Left out: string constants and the shape-op cases of
+``constant_value``.
 """
 
 from __future__ import annotations
@@ -119,3 +122,18 @@ def _lower_placeholder_with_default(ctx, op, inputs):
 
 op_registry.register("PlaceholderWithDefault",
                      lower=_lower_placeholder_with_default)
+
+
+def _lower_unbound(kind):
+    def lower(ctx, op, inputs):
+        raise RuntimeError(
+            f"{kind} {op.name} lowered outside its binding context — "
+            "an internal graph-function lowering bug.")
+
+    return lower
+
+
+op_registry.register("CapturedInput", lower=_lower_unbound("CapturedInput"),
+                     is_stateful=True)
+op_registry.register("FuncArg", lower=_lower_unbound("FuncArg"),
+                     is_stateful=True)

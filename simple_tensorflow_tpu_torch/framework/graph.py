@@ -353,14 +353,13 @@ class Graph:
         else:
             name = self.unique_name(name or op_type)
         opdef = op_registry.get(op_type)
+        checked = []
         for i, t in enumerate(inputs):
             if not isinstance(t, Tensor):
                 raise TypeError(f"Input {i} of op {name!r} ({op_type}) is "
                                 f"not a Tensor: {t!r}")
-            if t.graph is not self:
-                raise ValueError(
-                    f"Input {t.name} of {name!r} is from a different graph.")
-        inputs = tuple(inputs)
+            checked.append(self._maybe_capture(t, name))
+        inputs = tuple(checked)
         if output_specs is None:
             output_specs = opdef.infer(self, attrs, inputs)
         ctrl = list(control_inputs) + [
@@ -374,6 +373,19 @@ class Graph:
             for t in inputs:
                 self._consumers_map.setdefault(t, []).append(op)
         return op
+
+    def _maybe_capture(self, t: Tensor, for_op: str) -> Tensor:
+        """Same-graph tensors pass through; in a FuncGraph, an outer
+        graph's tensor is captured (through every graph between)."""
+        if t.graph is self:
+            return t
+        if isinstance(self, FuncGraph):
+            og = self.outer_graph
+            if t.graph is og:
+                return self.capture(t)
+            return self.capture(og._maybe_capture(t, for_op))
+        raise ValueError(
+            f"Input {t.name} of {for_op!r} is from a different graph.")
 
     # -- lookup --------------------------------------------------------------
     def get_operations(self) -> List[Operation]:
@@ -434,6 +446,45 @@ class Graph:
         return f"<stf.Graph with {len(self._ops_in_order)} ops>"
 
 
+class FuncGraph(Graph):
+    """A nested graph with captures: the body of a graph function (ref:
+    the JAX package's ``FuncGraph``, the TF-2 one). ``captures``: (outer
+    tensor, inner ``CapturedInput`` output) pairs; ``inputs``: the
+    ``FuncArg`` outputs; ``outputs``: set by the tracer."""
+
+    def __init__(self, name: str, outer_graph: Graph):
+        super().__init__()
+        self.func_name = name
+        self.outer_graph = outer_graph
+        self.captures: List[Tuple[Tensor, Tensor]] = []
+        self.inputs: List[Tensor] = []
+        self.outputs: List[Tensor] = []
+        self._seed = outer_graph.seed
+
+    def capture(self, outer_tensor: Tensor) -> Tensor:
+        for ext, internal in self.captures:
+            if ext is outer_tensor:
+                return internal
+        op = self.create_op(
+            "CapturedInput", [],
+            attrs={"dtype": outer_tensor.dtype, "shape": outer_tensor.shape},
+            name=f"captured_{len(self.captures)}",
+            output_specs=[(outer_tensor.shape, outer_tensor.dtype)])
+        internal = op.outputs[0]
+        self.captures.append((outer_tensor, internal))
+        return internal
+
+    def add_input(self, dtype, shape, name="arg") -> Tensor:
+        op = self.create_op("FuncArg", [],
+                            attrs={"dtype": dtypes_mod.as_dtype(dtype),
+                                   "shape": shape_mod.as_shape(shape),
+                                   "index": len(self.inputs)},
+                            name=name, output_specs=[(shape, dtype)])
+        t = op.outputs[0]
+        self.inputs.append(t)
+        return t
+
+
 _default_graph_stack = threading.local()
 _global_default_graph: Optional[Graph] = None
 _global_lock = threading.Lock()
@@ -454,6 +505,16 @@ def get_default_graph() -> Graph:
         if _global_default_graph is None:
             _global_default_graph = Graph()
         return _global_default_graph
+
+
+def _root_graph(g: Optional[Graph] = None) -> Graph:
+    """The outermost (non-FuncGraph) graph around ``g`` (default: the
+    default graph), where variables live: a variable made while a body is
+    traced belongs to the root graph and is captured into the body."""
+    g = g or get_default_graph()
+    while isinstance(g, FuncGraph):
+        g = g.outer_graph
+    return g
 
 
 def reset_default_graph():
@@ -524,8 +585,8 @@ def convert_to_tensor(value, dtype=None, name=None, preferred_dtype=None):
             from ..ops import math_ops
 
             return math_ops.cast(value, dtype)
-        if value.graph is g:
-            return value
+        if value.graph is g or isinstance(g, FuncGraph):
+            return g._maybe_capture(value, name or "convert_to_tensor")
         raise ValueError(f"Tensor {value.name} belongs to a different graph.")
     for _, base_type, func in _tensor_conversion_funcs:
         if isinstance(value, base_type):

@@ -12,14 +12,17 @@ step) and the dropout seed drawn from it (``seed_for``), ``host_value`` (:184) a
 package traces the op list into one XLA program, the port dispatches each
 op's lowering eagerly; the Session captures a repeated run's dispatch into
 a CUDA graph (``compiler/aot.py``), for which the context has a compiled
-mode (no host reads of the device, keys from a device buffer). Left out:
-the native C++ pruner, ``FuncGraph`` bodies and the plan-time CSE alias
-map.
+mode (no host reads of the device, keys from a device buffer).
+``lower_func_graph`` (:368) runs a ``FuncGraph`` body (a graph function
+call, ``framework/function.py``) in a child context: its args and
+captures bound, pruned to its outputs. Left out: the native C++ pruner
+and the plan-time optimizer's body plans and CSE alias map.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Any, Dict, List, Sequence, Set, Tuple
 
 import numpy as np
@@ -241,6 +244,12 @@ class LoweringContext:
         return int(prng.randint(self.rng_for(op), (1,), 0,
                                 prng.INT32_MAX)[0])
 
+    def child(self, env) -> "LoweringContext":
+        """A context for a graph function body: this run's state, keys,
+        staged writes and host reads, over its own value environment
+        ``env`` (the body's bound args and captures)."""
+        return _BodyContext(self, env)
+
     # -- values --------------------------------------------------------------
     def constant(self, op: Operation) -> torch.Tensor:
         """A Const op's value on the device, copied there once per
@@ -367,6 +376,63 @@ def execute_ops(ctx: LoweringContext, op_list: Sequence[Operation],
         if frees:
             for t in frees.get(op, ()):
                 env.pop(t, None)
+
+
+class _BodyContext(LoweringContext):
+    """A graph function body's context: its own ``env``, no grad leaves,
+    and every other attribute its parent's, read and written through, so
+    a flag a body op sets (``seeds_read``) is the run's."""
+
+    _OWN = frozenset({"parent", "env", "grad_leaves"})
+
+    def __init__(self, parent, env):
+        object.__setattr__(self, "parent", parent)
+        object.__setattr__(self, "env", env)
+        object.__setattr__(self, "grad_leaves", frozenset())
+
+    def __getattr__(self, name):
+        return getattr(self.parent, name)
+
+    def __setattr__(self, name, value):
+        if name in self._OWN:
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.parent, name, value)
+
+
+def lower_func_graph(ctx: LoweringContext, fg, arg_values,
+                     capture_values) -> list:
+    """Run a FuncGraph body given values for its declared inputs and its
+    captures, in a child context (its own environment; a second run of
+    the body, as a recompute's, computes everything anew); returns the
+    values of ``fg.outputs``. Only the ops the outputs need run."""
+    if len(arg_values) != len(fg.inputs):
+        raise RuntimeError(
+            f"FuncGraph {fg.func_name}: {len(arg_values)} args for "
+            f"{len(fg.inputs)} inputs")
+    env: Dict[Tensor, Any] = {}
+    for t, v in zip(fg.inputs, arg_values):
+        env[t] = v
+    for (_, inner), v in zip(fg.captures, capture_values):
+        env[inner] = v
+    child = ctx.child(env)
+    execute_ops(child, func_graph_ops(fg))
+    return [child.value_of(t) for t in fg.outputs]
+
+
+_BODY_OPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def func_graph_ops(fg) -> List[Operation]:
+    """The ops of a FuncGraph body that its outputs need, in execution
+    order, its bound args and captures aside (pruned once per body)."""
+    ops = _BODY_OPS.get(fg)
+    if ops is None:
+        bound = set(fg.inputs) | {inner for _, inner in fg.captures}
+        ops = _BODY_OPS[fg] = [
+            op for op in prune([t.op for t in fg.outputs], bound)
+            if op.type not in ("FuncArg", "CapturedInput")]
+    return ops
 
 
 def _run_op(ctx: LoweringContext, op: Operation, env, timings):

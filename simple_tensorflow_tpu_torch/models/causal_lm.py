@@ -68,11 +68,12 @@ from ..ops.kernels.layer_norm import layer_norm_plain
 from ..ops.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from ..ops.kv_cache import KVCache
 from ..train.optimizers import FlatAdam
+from . import common
 from .common import resolve_device
 from .transformer import (DecoderStack, TransformerConfig, _attention,
                           _eager_attention, _eager_embed, _eager_ffn,
-                          _eager_residual, _embed, _ffn, _ln, _no_recompute,
-                          _residual, block_decode,
+                          _eager_residual, _embed, _ffn, _ln,
+                          _no_auto_recompute, _residual, block_decode,
                           build_int8_logits_weights, incremental_decode,
                           smoothed_xent)
 
@@ -87,19 +88,22 @@ def causal_lm_logits(ids, cfg: TransformerConfig, training=True,
     """Next-token logits (B, S, vocab) for token ids (B, S) (:50):
     causal flash self-attention + FFN per layer, tied-embedding softmax.
     Position ``j``'s logits predict token ``j+1``."""
-    _no_recompute(recompute)
+    _no_auto_recompute(recompute)
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         h, emb = _embed(ids, cfg, compute_dtype, training)
         with stf.variable_scope("decoder"):
-            for i in range(cfg.num_layers):
+            def lm_layer(hh, i):
                 with stf.variable_scope(f"layer_{i}"):
-                    a = _attention(h, h, None, cfg, training,
+                    a = _attention(hh, hh, None, cfg, training,
                                    compute_dtype, "self_attn", causal=True)
-                    h = _ln(_residual(a, h, cfg, training), cfg, "ln1")
-                    f = _ffn(h, cfg, training, "ffn")
+                    hh = _ln(_residual(a, hh, cfg, training), cfg, "ln1")
+                    f = _ffn(hh, cfg, training, "ffn")
                     # ln3, not ln2: the serving step reuses these
                     # variables by name
-                    h = _ln(h + f, cfg, "ln3")
+                    return _ln(hh + f, cfg, "ln3")
+
+            for i in range(cfg.num_layers):
+                h = common.maybe_recompute(lm_layer, h, i, recompute, "lm")
         b, s = int(ids.shape[0]), int(ids.shape[1])
         flat = stf.reshape(h, [b * s, cfg.d_model])
         logits = stf.matmul(flat, stf.cast(emb, h.dtype.base_dtype),

@@ -1,6 +1,6 @@
 """Building blocks of the port's transformer models.
 
-Port of ``simple_tensorflow_tpu/models/common.py`` (:13-35) and the port's
+Port of ``simple_tensorflow_tpu/models/common.py`` (:13-55) and the port's
 device rule. The graph helpers ``layer_norm`` (f32 ``gamma``/``beta``
 variables and the ``FusedLayerNorm`` op) and ``dense`` (``stf.layers.dense``)
 build graph ops, as the JAX functions do; ``split_heads`` and
@@ -11,6 +11,8 @@ names follow the JAX variables, so a module's ``state_dict`` key is the
 JAX variable path with ``.`` for ``/`` (``…/ln1/gamma``, ``…/q/kernel``,
 ``…/q/bias``). Dense kernels are ``(in, out)`` as in JAX. Parameters are
 trainable; the serving model switches their gradients off.
+:func:`maybe_recompute` puts a layer under ``stf.recompute_grad``, as the
+graph models' ``recompute=True`` asks.
 """
 
 from __future__ import annotations
@@ -91,3 +93,18 @@ def merge_heads(x, b, s, hidden):
         return array_ops.reshape(array_ops.transpose(x, [0, 2, 1, 3]),
                                  [b, s, hidden])
     return x.permute(0, 2, 1, 3).reshape(b, s, hidden)
+
+
+def maybe_recompute(layer_fn, h, i, recompute, tag):
+    """``layer_fn(h, i)``, under ``stf.recompute_grad`` when ``recompute``
+    (:37-55). The throwaway call first creates the layer's variables in
+    the root graph (its ops are pruned: nothing fetches them); the loop
+    index binds as a default argument, so each layer's lambda is its own
+    object (the trace cache keys on the function object)."""
+    if not recompute:
+        return layer_fn(h, i)
+    from ..framework.function import recompute_grad
+
+    layer_fn(h, i)
+    return recompute_grad(lambda hh, i=i: layer_fn(hh, i),
+                          name=f"{tag}_{i}_rc")(h)

@@ -33,9 +33,12 @@ Port of ``simple_tensorflow_tpu/models/resnet.py``, twice:
 
 BatchNorm's moving statistics are not updated by a training step, as the
 JAX ``train_op`` leaves them (:mod:`..layers.normalization`).
-``data_parallel``, ``recompute`` (``"auto"`` too) and
-``conv0_space_to_depth`` are not ported yet: both entry points raise
-``NotImplementedError`` when one is set.
+``recompute=True`` puts each bottleneck block of the graph under
+``stf.recompute_grad`` (``common.maybe_recompute``); the bodies'
+moving-average assigns never run, as in JAX. ``data_parallel``,
+``recompute="auto"`` and ``conv0_space_to_depth`` are not ported yet:
+both entry points raise ``NotImplementedError`` when one is set (the
+eager trainer takes no ``recompute`` either).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ..layers.pooling import _max_pooling2d_impl
 from ..ops import fused_ops, nn_ops
 from ..ops.kernels.fused_update import momentum_update, momentum_update_plain
 from ..train.optimizers import FlatMomentum
+from . import common
 from .common import resolve_device
 
 _BLOCKS = {  # per-stage bottleneck counts
@@ -68,15 +72,18 @@ _BLOCKS = {  # per-stage bottleneck counts
 
 
 def _not_ported(data_parallel, recompute, conv0_space_to_depth, fn):
+    if recompute == "auto":
+        raise NotImplementedError(
+            f'{fn}(recompute="auto") is not ported: it waits for the static '
+            "cost model, framework/cost_model.py")
     for flag, value in (("data_parallel", data_parallel),
                         ("recompute", recompute),
                         ("conv0_space_to_depth", conv0_space_to_depth)):
         if value:
             raise NotImplementedError(
                 f"{fn}({flag}={value!r}) is not ported yet: it comes with a "
-                "later slice of the port (data parallelism and "
-                "rematerialisation with the Graph front end, the "
-                "space-to-depth stem after it)")
+                "later slice of the port (data parallelism with the Graph "
+                "front end, the space-to-depth stem after it)")
 
 
 # ---------------------------------------------------------------------------
@@ -114,19 +121,29 @@ def _bottleneck(x, filters, stride, training, projection, name):
 def resnet_forward(x, num_classes=1000, depth=50, training=True,
                    recompute=False, conv0_space_to_depth=False):
     """The forward graph (:56): NHWC ``x`` -> f32 logits."""
-    _not_ported(False, recompute, conv0_space_to_depth, "resnet_forward")
+    # the graph takes recompute=True; "auto" raises
+    _not_ported(False, "auto" if recompute == "auto" else False,
+                conv0_space_to_depth, "resnet_forward")
     blocks = _BLOCKS[depth]
     with stf.variable_scope("resnet", reuse=stf.AUTO_REUSE):
         h = _conv(x, 64, 7, 2, "conv0")
         h = stf.nn.relu(_bn(h, training, "bn0"))
         h = stf.layers.max_pooling2d(h, 3, 2, padding="same", name="pool0")
+        block_idx = 0
         for stage, n_blocks in enumerate(blocks):
             filters = 64 * (2 ** stage)
             for i in range(n_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                h = _bottleneck(h, filters, stride, training,
-                                projection=(i == 0),
-                                name=f"stage{stage}_block{i}")
+
+                def block_fn(hh, _bi, filters=filters, stride=stride,
+                             projection=(i == 0),
+                             name=f"stage{stage}_block{i}"):
+                    return _bottleneck(hh, filters, stride, training,
+                                       projection=projection, name=name)
+
+                h = common.maybe_recompute(block_fn, h, block_idx,
+                                           recompute, "resnet_block")
+                block_idx += 1
         h = stf.reduce_mean(h, axis=[1, 2], name="global_pool")  # NHWC pool
         h = stf.cast(h, stf.float32)
         logits = stf.layers.dense(
@@ -142,12 +159,13 @@ def resnet50_train_model(batch_size=64, image_size=224, num_classes=1000,
                          data_parallel=False, recompute=False,
                          conv0_space_to_depth=False):
     """Full training graph (:120): images -> loss -> momentum-SGD update."""
-    _not_ported(data_parallel, recompute, conv0_space_to_depth,
-                "resnet50_train_model")
+    _not_ported(data_parallel, "auto" if recompute == "auto" else False,
+                conv0_space_to_depth, "resnet50_train_model")
     x = stf.placeholder(dtype, [batch_size, image_size, image_size, 3],
                         name="images")
     labels = stf.placeholder(stf.int32, [batch_size], name="labels")
-    logits = resnet_forward(x, num_classes=num_classes, training=True)
+    logits = resnet_forward(x, num_classes=num_classes, training=True,
+                            recompute=recompute)
     xent = stf.reduce_mean(stf.nn.sparse_softmax_cross_entropy_with_logits(
         labels=labels, logits=logits))
     # L2 on conv/fc kernels only (reference recipe: no BN params)

@@ -11,8 +11,9 @@ serving and causal-LM training.
 same graph op for op (names, types, inputs, seeds) and the same variables
 (``transformer/encoder/layer_0/self_attn/q/kernel``, …; Dense variables
 in the compute dtype, the embedding and the LayerNorm parameters f32),
-trained by ``stf.Session``. Not ported: ``recompute`` other than False
-(it needs ``stf.recompute_grad`` and the cost model,
+trained by ``stf.Session``. ``recompute=True`` puts every layer under
+``stf.recompute_grad`` (``common.maybe_recompute``). Not ported:
+``recompute="auto"`` (it waits for the cost model,
 ``framework/cost_model.py``) and ``data_parallel=True``; both raise
 ``NotImplementedError``.
 
@@ -396,27 +397,30 @@ def _pad_bias(ids, cfg):
     return stf.reshape(is_pad, [b, 1, 1, s]) * -1e9
 
 
-def _no_recompute(recompute):
-    if recompute:
+def _no_auto_recompute(recompute):
+    if recompute == "auto":
         raise NotImplementedError(
-            "recompute is not ported (it needs stf.recompute_grad and the "
-            "cost model, framework/cost_model.py)")
+            'recompute="auto" is not ported: it waits for the static cost '
+            "model, framework/cost_model.py")
 
 
 def encode(src_ids, cfg, training=True, compute_dtype=stf.bfloat16,
            scope="transformer", recompute=False):
-    _no_recompute(recompute)
+    _no_auto_recompute(recompute)
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         h, _ = _embed(src_ids, cfg, compute_dtype, training)
         bias = _pad_bias(src_ids, cfg)
         with stf.variable_scope("encoder"):
-            for i in range(cfg.num_layers):
+            def enc_layer(hh, i):
                 with stf.variable_scope(f"layer_{i}"):
-                    a = _attention(h, h, bias, cfg, training,
+                    a = _attention(hh, hh, bias, cfg, training,
                                    compute_dtype, "self_attn")
-                    h = _ln(_residual(a, h, cfg, training), cfg, "ln1")
-                    f = _ffn(h, cfg, training, "ffn")
-                    h = _ln(h + f, cfg, "ln2")
+                    hh = _ln(_residual(a, hh, cfg, training), cfg, "ln1")
+                    f = _ffn(hh, cfg, training, "ffn")
+                    return _ln(hh + f, cfg, "ln2")
+
+            for i in range(cfg.num_layers):
+                h = common.maybe_recompute(enc_layer, h, i, recompute, "enc")
     return h, bias
 
 
@@ -426,20 +430,23 @@ def decode(tgt_ids, enc_out, enc_bias, cfg, training=True,
     """Returns logits (B, St, vocab); causal self-attention over
     tgt_ids, cross-attention over ``enc_out``; the tied softmax weights in
     the compute dtype."""
-    _no_recompute(recompute)
+    _no_auto_recompute(recompute)
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         h, emb = _embed(tgt_ids, cfg, compute_dtype, training)
         with stf.variable_scope("decoder"):
-            for i in range(cfg.num_layers):
+            def dec_layer(hh, i):
                 with stf.variable_scope(f"layer_{i}"):
-                    a = _attention(h, h, None, cfg, training,
+                    a = _attention(hh, hh, None, cfg, training,
                                    compute_dtype, "self_attn", causal=True)
-                    h = _ln(_residual(a, h, cfg, training), cfg, "ln1")
-                    c = _attention(h, enc_out, enc_bias, cfg, training,
+                    hh = _ln(_residual(a, hh, cfg, training), cfg, "ln1")
+                    c = _attention(hh, enc_out, enc_bias, cfg, training,
                                    compute_dtype, "cross_attn")
-                    h = _ln(_residual(c, h, cfg, training), cfg, "ln2")
-                    f = _ffn(h, cfg, training, "ffn")
-                    h = _ln(h + f, cfg, "ln3")
+                    hh = _ln(_residual(c, hh, cfg, training), cfg, "ln2")
+                    f = _ffn(hh, cfg, training, "ffn")
+                    return _ln(hh + f, cfg, "ln3")
+
+            for i in range(cfg.num_layers):
+                h = common.maybe_recompute(dec_layer, h, i, recompute, "dec")
         b, s = int(tgt_ids.shape[0]), int(tgt_ids.shape[1])
         flat = stf.reshape(h, [b * s, cfg.d_model])
         logits = stf.matmul(flat, stf.cast(emb, h.dtype.base_dtype),
@@ -457,14 +464,15 @@ def transformer_train_model(batch_size=64, src_len=64, tgt_len=64,
     cfg = cfg or TransformerConfig.big()
     if data_parallel:
         raise NotImplementedError("data_parallel is not ported")
-    _no_recompute(recompute)
+    _no_auto_recompute(recompute)
     src = stf.placeholder(stf.int32, [batch_size, src_len], "src_ids")
     tgt_in = stf.placeholder(stf.int32, [batch_size, tgt_len], "tgt_in")
     tgt_out = stf.placeholder(stf.int32, [batch_size, tgt_len], "tgt_out")
     enc_out, enc_bias = encode(src, cfg, training=True,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype,
+                               recompute=recompute)
     logits = decode(tgt_in, enc_out, enc_bias, cfg, training=True,
-                    compute_dtype=compute_dtype)
+                    compute_dtype=compute_dtype, recompute=recompute)
     weights = stf.cast(stf.not_equal(tgt_out, cfg.pad_id), stf.float32)
     loss = smoothed_xent(logits, tgt_out, weights, cfg)
 

@@ -1,13 +1,13 @@
 """Array ops of the port's graph front end.
 
-Port of the part of ``simple_tensorflow_tpu/ops/array_ops.py`` the MNIST
-and transformer graphs and the optimizers reach: ``Placeholder`` (:317),
-``PlaceholderWithDefault`` (:328), ``Identity``, ``StopGradient``,
-``Reshape`` (:373), ``Transpose`` (:394), ``Gather`` (:644, ``jnp.take``
-along ``axis``), ``Fill``, ``Slice`` and the constant-backed ``zeros`` and
-``ones``. Each op lowers to a torch function of its inputs and
-static attrs. Left out: the other ~60 array ops (concat, pad,
-strided slices, ...).
+Port of the part of ``simple_tensorflow_tpu/ops/array_ops.py`` the MNIST,
+transformer and BERT graphs and the optimizers reach: ``Placeholder``
+(:317), ``PlaceholderWithDefault`` (:328), ``Identity``, ``StopGradient``,
+``Reshape`` (:373), ``Squeeze`` (:420), ``Transpose`` (:394), ``Gather``
+(:644, ``jnp.take`` along ``axis``), ``Fill``, ``Slice`` and the
+constant-backed ``zeros`` and ``ones``. Each op lowers to a torch function
+of its inputs and static attrs. Left out: the other ~60 array ops
+(concat, pad, strided slices, ...).
 """
 
 from __future__ import annotations
@@ -30,15 +30,21 @@ constant = constant_op.constant
 op_registry.register_pure("Identity", lambda x: x)
 op_registry.register_pure("StopGradient", lambda x: x.detach())
 op_registry.register_pure("Reshape", lambda x, shape: torch.reshape(x, shape))
+op_registry.register_pure(
+    "Squeeze", lambda x, axis=None: x.squeeze() if axis is None
+    else x.squeeze(tuple(axis)))
 op_registry.register_pure("Fill", lambda value, dims=None: value.expand(
     dims).clone())
 op_registry.register_pure(
     "Transpose", lambda x, perm=None: x.permute(
         *(perm if perm is not None else builtins.range(x.dim() - 1, -1, -1))))
+# advanced indexing, not index_select: its gradient is index_put_ with
+# accumulate, which sums a repeated index's rows in one order on every run
+# (it sorts); index_select's is index_add_, whose atomics on the card sum
+# them in another order each run (BERT's MLM gather repeats positions)
 op_registry.register_pure(
-    "Gather", lambda params, indices, axis=0: torch.index_select(
-        params, axis, indices.reshape(-1).long()).reshape(
-        params.shape[:axis] + indices.shape + params.shape[axis + 1:]))
+    "Gather", lambda params, indices, axis=0: params[
+        (builtins.slice(None),) * axis + (indices.long(),)])
 op_registry.register_pure("Slice", lambda x, begin=None, size=None: x[
     tuple(builtins.slice(b, b + s) for b, s in zip(begin, size))])
 
@@ -90,6 +96,18 @@ def reshape(tensor, shape, name=None):
     return make_op("Reshape", [x],
                    attrs={"shape": _static_shape_arg(shape, "reshape")},
                    name=name)
+
+
+def squeeze(input, axis=None, name=None,  # noqa: A002
+            squeeze_dims=None):
+    if squeeze_dims is not None and axis is None:
+        axis = squeeze_dims
+    x = ops_mod.convert_to_tensor(input)
+    if axis is not None and not isinstance(axis, (list, tuple)):
+        axis = [axis]
+    return make_op("Squeeze", [x], attrs={
+        "axis": tuple(int(a) for a in axis) if axis is not None else None},
+        name=name)
 
 
 def zeros(shape, dtype=dtypes_mod.float32, name=None):

@@ -41,7 +41,8 @@ _DROP_PTR = [_P, _U, _F]
 # argtypes of every C entry point: pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
-    "stf_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "stf_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
+                           _P],
     "stf_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P],
     "stf_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -9,9 +9,9 @@ output when asked, as ``_fwd`` does, and the backward reads them.
 (the JAX ``custom_vjp``). Bounded by bytes on the card: each element is
 read and written once. Both kernels have a vector path, a warp per row
 holding the row in registers as 16-byte vectors, for the rows
-:func:`vectors_per_lane` admits (the model widths 256-1024), and a
-general strided path for any other width or a misaligned view; the
-source note in ``csrc/layer_norm.cu`` says more.
+:func:`vectors_per_lane` admits (the model widths 256-1024, BERT's 768
+among them), and a general strided path for any other width or a
+misaligned view; the source note in ``csrc/layer_norm.cu`` says more.
 """
 
 from __future__ import annotations
@@ -29,8 +29,9 @@ from .common import (DTYPE_CODES, cdiv, check_cuda_arg, check_status,
 BWD_ROWS_PER_BLOCK = 32
 BWD_VEC_ROWS_PER_BLOCK = 16
 # 16-byte vectors a lane the vector paths (forward and backward) hold: at
-# most 32 values a lane
-VEC_NV = {torch.bfloat16: (1, 2, 4), torch.float32: (1, 2, 4, 8)}
+# most 32 values a lane (kMaxNv in the .cu)
+VEC_NV = {torch.bfloat16: (1, 2, 3, 4),
+          torch.float32: (1, 2, 3, 4, 5, 6, 7, 8)}
 
 
 def layer_norm_plain(x, gamma, beta, *, eps=1e-6, return_stats=False):
@@ -77,8 +78,7 @@ def layer_norm_fwd(x, gamma, beta, *, eps=1e-6, return_stats=False):
     (n,)``: ``y`` or, with ``return_stats``, ``(y, mean, rstd)``. CPU
     tensors take the plain version; CUDA tensors launch the kernel: the
     vector path (a warp per row) where :func:`vectors_per_lane` of ``x``,
-    ``y``, ``gamma`` and ``beta`` is not 0, else the general path (the C
-    entry point makes that choice by the same rule)."""
+    ``y``, ``gamma`` and ``beta`` is not 0, else the general path."""
     if not uses_kernel(x, gamma, beta):
         return layer_norm_plain(x, gamma, beta, eps=eps,
                                 return_stats=return_stats)
@@ -86,26 +86,34 @@ def layer_norm_fwd(x, gamma, beta, *, eps=1e-6, return_stats=False):
     x2 = x.reshape(-1, n)
     check_cuda_arg("x", x2, DTYPE_CODES, 2)
     _check_affine(n, gamma, beta)
-    rows = x2.shape[0]
+    out = launch_fwd(x2, gamma, beta, eps, return_stats,
+                     vectors_per_lane(n, x2.dtype, x2, gamma, beta))
+    if return_stats:
+        y, mean, rstd = out
+        lead = x.shape[:-1]
+        return y.reshape(x.shape), mean.reshape(lead), rstd.reshape(lead)
+    return out.reshape(x.shape)
+
+
+def launch_fwd(x2, gamma, beta, eps, return_stats, nv):
+    """One forward on checked CUDA tensors ``x2 (rows, n)``: the vector
+    path with ``nv`` vectors a lane, or the general path for ``nv == 0``
+    (the output is allocated 16-byte aligned, as ``nv`` assumes)."""
+    rows, n = x2.shape
     y = torch.empty_like(x2)
     mean = rstd = None
     if return_stats:
-        mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-        rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    status = lib.stf_layer_norm_fwd(
+        mean = torch.empty(rows, dtype=torch.float32, device=x2.device)
+        rstd = torch.empty(rows, dtype=torch.float32, device=x2.device)
+    status = _build.library().stf_layer_norm_fwd(
         x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         mean.data_ptr() if return_stats else None,
         rstd.data_ptr() if return_stats else None,
-        rows, n, float(eps), DTYPE_CODES[x2.dtype],
+        rows, n, float(eps), nv, DTYPE_CODES[x2.dtype],
         _build.stream_handle(x2.device))
     check_status("layer_norm", status)
     count_launch("layer_norm")
-    y = y.reshape(x.shape)
-    if return_stats:
-        lead = x.shape[:-1]
-        return y, mean.reshape(lead), rstd.reshape(lead)
-    return y
+    return (y, mean, rstd) if return_stats else y
 
 
 def vectors_per_lane(n, dtype, *tensors) -> int:

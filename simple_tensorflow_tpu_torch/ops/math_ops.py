@@ -4,7 +4,8 @@ Port of the part of ``simple_tensorflow_tpu/ops/math_ops.py`` the MNIST
 and transformer graphs and the optimizers reach: ``Add``/``Sub``/``Mul``,
 ``TrueDiv`` (what ``/``, ``truediv`` and ``divide`` build, :302-312) and
 ``RealDiv`` (``realdiv``), ``Pow``, ``Minimum``, ``Cast`` (:587),
-``AddN``, ``MatMul`` (:663), the reductions ``Sum``/``Mean`` (:723),
+``AddN``, ``Tanh`` (:65), ``range`` (:886, a ``Const`` built with
+numpy), ``MatMul`` (:663), the reductions ``Sum``/``Mean`` (:723),
 ``ArgMax`` (:777), ``Equal`` (:541) and ``NotEqual``, with the
 JAX module's strictness on mixed-dtype binary ops (``TypeError``) and its
 64-bit rule (``argmax``'s default int64 output computes and fetches as
@@ -21,10 +22,13 @@ import builtins
 
 import torch
 
+import numpy as np
+
+from ..framework import constant_op
 from ..framework import dtypes as dtypes_mod
 from ..framework import graph as ops_mod
 from ..framework import op_registry
-from .op_util import binary, make_op, norm_axis, promote_args
+from .op_util import binary, make_op, norm_axis, promote_args, unary
 
 Tensor = ops_mod.Tensor
 
@@ -43,6 +47,7 @@ op_registry.register_pure("Minimum", torch.minimum)
 op_registry.register_pure("Equal", torch.eq)
 op_registry.register_pure("NotEqual", torch.ne)
 op_registry.register_pure("Cast", lambda x, dtype: x.to(_narrow(dtype)))
+op_registry.register_pure("Tanh", torch.tanh)
 op_registry.register_pure("AddN", lambda *xs: builtins.sum(xs[1:], xs[0]))
 
 
@@ -128,6 +133,30 @@ def cast(x, dtype, name=None):
     if x.dtype.base_dtype == dtype.base_dtype:
         return x
     return make_op("Cast", [x], attrs={"dtype": dtype.base_dtype}, name=name)
+
+
+def tanh(x, name=None):
+    return unary("Tanh", x, name)
+
+
+def range(start, limit=None, delta=1, dtype=None,  # noqa: A001
+          name="range"):
+    """A ``Const`` of ``np.arange(start, limit, delta)`` (static bounds;
+    int64 narrowed to int32, float64 to float32, as in JAX)."""
+    if limit is None:
+        start, limit = 0, start
+    sv, lv, dv = (constant_op.constant_value(ops_mod.convert_to_tensor(v))
+                  for v in (start, limit, delta))
+    if sv is None or lv is None or dv is None:
+        raise ValueError("stf.range bounds must be static")
+    arr = np.arange(sv, lv, dv)
+    if dtype is not None:
+        arr = arr.astype(dtypes_mod.as_dtype(dtype).np_dtype)
+    elif arr.dtype == np.int64:
+        arr = arr.astype(np.int32)
+    elif arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return constant_op.constant(arr, name=name)
 
 
 def add_n(inputs, name=None):

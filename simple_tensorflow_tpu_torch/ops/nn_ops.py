@@ -3,7 +3,10 @@ boundaries (NHWC activations, HWIO filters, TF ``SAME``/``VALID``
 padding).
 
 The graph functions mirror ``simple_tensorflow_tpu/ops/nn_ops.py``:
-``relu`` (:423), ``l2_loss`` (:485), ``bias_add`` (:489), ``conv2d``
+``relu`` (:423), ``gelu`` (:439; ``Gelu``, default the tanh form of
+``jax.nn.gelu``, which ``F.gelu(approximate="tanh")`` computes in one
+kernel where XLA rounds a bf16 input after each step of it), ``l2_loss``
+(:485), ``bias_add`` (:489), ``conv2d``
 (:538), ``max_pool`` (:665), ``dropout`` (:699),
 ``softmax_cross_entropy_with_logits`` (:496)
 and ``sparse_softmax_cross_entropy_with_logits`` (:509) build graph ops;
@@ -172,6 +175,8 @@ def _softmax_xent(logits, labels):
 
 op_registry.register_pure("Relu", _relu_impl)
 op_registry.register_pure("L2Loss", _l2_loss_impl)
+op_registry.register_pure("Gelu", lambda x, approximate=True: F.gelu(
+    x, approximate="tanh" if approximate else "none"))
 op_registry.register_pure("BiasAdd", _bias_add_op)
 op_registry.register_pure("Conv2D", _conv2d_op)
 op_registry.register_pure("MaxPool", _max_pool_op)
@@ -217,6 +222,10 @@ op_registry.register("Dropout", lower=_lower_dropout,
 
 def relu(features, name=None):
     return unary("Relu", features, name)
+
+
+def gelu(features, approximate=True, name=None):
+    return unary("Gelu", features, name, attrs={"approximate": approximate})
 
 
 def l2_loss(t, name=None):

@@ -21,11 +21,14 @@ _VARS = "__variable_store__"
 _SCOPE = "__variable_scope_stack__"
 
 
+# the variable store and the scope stack belong to the root graph, also
+# while a FuncGraph body is traced
 def _graph_vars(g) -> dict:
-    return g._scoped_state.setdefault(_VARS, {})
+    return ops_mod._root_graph(g)._scoped_state.setdefault(_VARS, {})
 
 
 def _scope_stack(g) -> list:
+    g = ops_mod._root_graph(g)
     st = g._scoped_state.get(_SCOPE)
     if st is None:
         st = [VariableScope("")]

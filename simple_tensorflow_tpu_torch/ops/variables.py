@@ -26,9 +26,10 @@ class Variable:
                  validate_shape=True, name=None, dtype=None):
         if initial_value is None:
             raise ValueError("initial_value must be specified.")
-        g = ops_mod.get_default_graph()
+        g = ops_mod._root_graph()  # variables live in the root graph
         self._graph = g
-        with g.name_scope(name or "Variable") as scope:
+        with ops_mod._as_current(g), \
+                g.name_scope(name or "Variable") as scope:
             base = scope[:-1] if scope else g.unique_name("Variable")
             if callable(initial_value):
                 with g.name_scope("Initializer"):

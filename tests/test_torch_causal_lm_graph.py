@@ -121,10 +121,12 @@ def test_graph_builders_return_the_jax_dict_keys():
 
 
 def test_recompute_raises():
+    # recompute=True is ported (tests/test_torch_recompute_models.py);
+    # "auto" waits for the cost model
     with pstf.Graph().as_default():
-        with pytest.raises(NotImplementedError, match="recompute"):
+        with pytest.raises(NotImplementedError, match="cost_model"):
             pclm.causal_lm_train_model(B, S, cfg=_cfg(pclm),
-                                       recompute=True)
+                                       recompute="auto")
 
 
 def _session(stf):

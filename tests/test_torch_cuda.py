@@ -274,7 +274,8 @@ def test_layer_norm_fwd_picks_its_path_on_card(cuda):
              (torch.bfloat16, 256, 1, False), (torch.float32, 512, 4, False),
              (torch.bfloat16, 1000, 0, False), (torch.float32, 96, 0, False),
              (torch.bfloat16, 2048, 0, False), (torch.bfloat16, 1024, 0, True),
-             (torch.float32, 1024, 0, True)]
+             (torch.float32, 1024, 0, True), (torch.bfloat16, 768, 3, False),
+             (torch.float32, 768, 6, False), (torch.bfloat16, 768, 0, True)]
     for dtype, n, nv, shifted in cases:
         x, g, b, _ = _ln_bwd_inputs(cuda, dtype, 33, n)
         if shifted:  # rows start one element past a 16-byte boundary
@@ -585,9 +586,6 @@ def test_flash_bwd_dtype_picks_its_kernel_on_card(cuda):
     # bf16 runs the tensor-core dK/dV and dQ kernels, f32 keeps the
     # CUDA-core kernels (its 1e-4 limit rules out TF32); read from the
     # kernels' names in a trace
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     args = dict(heads=4, sm_scale=0.125, causal=True)
     names = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -601,13 +599,10 @@ def test_flash_bwd_dtype_picks_its_kernel_on_card(cuda):
             return dk, dv, K.flash_attention_dq(q, k, v, do, rlse, delta,
                                                 **args)
 
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            outs = run()
-            torch.cuda.synchronize()
-        names[dtype] = [e.name for e in prof.events()
-                        if e.device_type == DeviceType.CUDA]
+        # a trace can drop a kernel's record: three calls a trace, and
+        # the trace taken again while it holds no device record
+        names[dtype] = _trace_names(run)
+        outs = run()
         rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta,
                                                 **args)
         rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
@@ -699,28 +694,21 @@ def test_layer_norm_bwd_picks_its_path_on_card(cuda):
     # the vector path (a warp per row) where n is 32 lanes x 16 bytes x
     # nv; the general path elsewhere and on a misaligned view; read from
     # the kernels' names in a trace
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     kln = _kernel_module("layer_norm")
     cases = [(torch.bfloat16, 1024, 4, False), (torch.float32, 1024, 8, False),
              (torch.bfloat16, 512, 2, False), (torch.float32, 128, 1, False),
              (torch.bfloat16, 96, 0, False), (torch.float32, 1000, 0, False),
-             (torch.bfloat16, 4096, 0, False), (torch.bfloat16, 1024, 0, True)]
+             (torch.bfloat16, 4096, 0, False), (torch.bfloat16, 1024, 0, True),
+             (torch.bfloat16, 768, 3, False), (torch.float32, 768, 6, False),
+             (torch.float32, 896, 7, False)]
     for dtype, n, nv, shifted in cases:
         x, g, b, dy = _ln_bwd_inputs(cuda, dtype, 33, n)
         if shifted:  # rows start 2 bytes past a 16-byte boundary
             x = torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(33, n)
         _, mean, rstd = K.layer_norm_plain(x, g, b, return_stats=True)
         assert kln.vectors_per_lane(n, dtype, x, dy, g) == nv
-        K.layer_norm_bwd(x, g, mean, rstd, dy)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):  # a trace can drop a kernel's record
-                dx, dg, db = K.layer_norm_bwd(x, g, mean, rstd, dy)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        names = _trace_names(lambda: K.layer_norm_bwd(x, g, mean, rstd, dy))
+        dx, dg, db = K.layer_norm_bwd(x, g, mean, rstd, dy)
         vec = any("layer_norm_bwd_vec_kernel" in nm for nm in names)
         gen = any("layer_norm_bwd_kernel<" in nm for nm in names)
         assert (vec, gen) == (nv > 0, nv == 0), (dtype, n, names)
@@ -741,6 +729,39 @@ def test_layer_norm_bwd_is_bitwise_reproducible_on_card(cuda, dtype, n):
     second = K.layer_norm_bwd(x, g, mean, rstd, dy)
     torch.cuda.synchronize()
     for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [16384, 2432])
+def test_layer_norm_at_bert_width_on_card(cuda, dtype, rows):
+    # BERT-base's LayerNorms: (32 x 512) and (32 x 76) rows of 768, eps
+    # 1e-12. n = 768 takes the vector path (bf16 nv 3, f32 nv 6: not a
+    # power of two, the means divide by n) forward and backward, held
+    # against the plain versions at the tolerances above and against the
+    # general path (forced) at the same ones
+    kln = _kernel_module("layer_norm")
+    x, g, b, dy = _ln_bwd_inputs(cuda, dtype, rows, 768, seed=31)
+    f32 = dtype == torch.float32
+    assert kln.vectors_per_lane(768, dtype, x, dy, g, b) == (6 if f32 else 3)
+    y, mean, rstd = K.layer_norm_fwd(x, g, b, eps=1e-12, return_stats=True)
+    ry, rmean, rrstd = K.layer_norm_plain(x, g, b, eps=1e-12,
+                                          return_stats=True)
+    dx, dg, db = K.layer_norm_bwd(x, g, rmean, rrstd, dy)
+    gdx, gdg, gdb = kln.launch_bwd(x, g, rmean, rrstd, dy, 0)
+    rdx, rdg, rdb = K.layer_norm_bwd_plain(x, g, rmean, rrstd, dy)
+    torch.cuda.synchronize()
+    _close(mean, rmean, 1e-5)
+    _close(rstd, rrstd, 1e-5)
+    _close(y, ry, 1e-5 if f32 else 2e-2)
+    for got in (dx, gdx):
+        _close(got, rdx, 1e-4 if f32 else 2e-2)
+    for got, ref in ((dg, rdg), (db, rdb), (gdg, rdg), (gdb, rdb)):
+        _close(got, ref, 1e-4)
+    again = K.layer_norm_bwd(x, g, rmean, rrstd, dy)
+    torch.cuda.synchronize()
+    for a, c in zip((dx, dg, db), again):
         assert torch.equal(a, c)
 
 

@@ -8,6 +8,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -85,6 +86,8 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.train import (
             basic_session_run_hooks, checkpoint_utils, coordinator,
             monitored_session, saver, session_run_hook)
+        from simple_tensorflow_tpu_torch.framework import function
+        from simple_tensorflow_tpu_torch.models import bert, common
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -112,6 +115,40 @@ def test_the_training_loop_modules_are_guarded():
             "train/session_run_hook.py", "train/basic_session_run_hooks.py",
             "train/monitored_session.py", "train/coordinator.py",
             "analysis/loop_safety.py", "ops/logging_ops.py"} <= guarded
+
+
+def test_the_bert_slice_modules_are_guarded():
+    # graph functions (FuncGraph, Defun, recompute_grad) and BERT are among
+    # the files the guard reads, and a BERT Session runs on the card
+    # unless the caller asks for the CPU
+    guarded = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"framework/function.py", "framework/graph.py",
+            "framework/lowering.py", "analysis/effects.py",
+            "models/bert.py", "models/common.py"} <= guarded
+
+
+def test_a_bert_session_defaults_to_the_gpu(monkeypatch):
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import bert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with stf.Graph().as_default():
+        m = bert.bert_pretrain_model(2, 8, 2, cfg=bert.BertConfig.tiny(),
+                                     use_input_mask=True, recompute=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stf.Session()
+        with stf.Session(config=stf.ConfigProto(
+                device_count={"GPU": 0})) as s:
+            s.run(stf.global_variables_initializer())
+            batch = bert.synthetic_pretrain_batch(2, 8, 2, vocab_size=99,
+                                                  input_mask=True)
+            loss = s.run(m["loss"], {m[k]: v for k, v in batch.items()})
+            assert s.device.type == "cpu" and np.isfinite(loss)
+        for kw in ({"recompute": "auto"}, {"data_parallel": True}):
+            with pytest.raises(NotImplementedError,
+                               match="cost_model|parallel/"):
+                bert.bert_pretrain_model(2, 8, 2, cfg=bert.BertConfig.tiny(),
+                                         **kw)
 
 
 def test_chip_smoke_imports_nothing_of_jax():

@@ -370,14 +370,16 @@ def test_layer_norm_eps_and_constant_row():
 @pytest.mark.parametrize("dtype,n,nv", [
     (torch.bfloat16, 1024, 4), (torch.bfloat16, 512, 2),
     (torch.bfloat16, 256, 1), (torch.float32, 1024, 8),
-    (torch.float32, 128, 1), (torch.bfloat16, 768, 0),
+    (torch.float32, 128, 1), (torch.bfloat16, 768, 3),
+    (torch.float32, 768, 6), (torch.float32, 384, 3),
     (torch.bfloat16, 2048, 0), (torch.bfloat16, 4096, 0),
     (torch.float32, 4096, 0), (torch.bfloat16, 96, 0),
     (torch.float32, 1000, 0), (torch.bfloat16, 1000, 0)])
 def test_layer_norm_bwd_path_by_shape(dtype, n, nv):
     # the vector path (a warp per row, nv 16-byte vectors a lane) where n
-    # is 32 lanes x 16 bytes x nv, nv a supported count; else the general
-    # path (0). The choice is the wrapper's, made before the launch.
+    # is 32 lanes x 16 bytes x nv, nv up to the register cap of 32 values
+    # a lane (BERT's 768: bf16 nv 3, f32 nv 6); else the general path (0).
+    # The choice is the wrapper's, made before the launch.
     x = torch.zeros(3, n, dtype=dtype)
     assert kln.vectors_per_lane(n, dtype, x, x) == nv
 
@@ -388,7 +390,10 @@ def test_layer_norm_bwd_path_by_shape(dtype, n, nv):
     (torch.float32, 512, 4), (torch.float32, 256, 2),
     (torch.float32, 128, 1), (torch.bfloat16, 1000, 0),
     (torch.float32, 1000, 0), (torch.bfloat16, 2048, 0),
-    (torch.float32, 2048, 0), (torch.bfloat16, 128, 0)])
+    (torch.float32, 2048, 0), (torch.bfloat16, 128, 0),
+    (torch.bfloat16, 768, 3), (torch.float32, 768, 6),
+    (torch.float32, 896, 7), (torch.bfloat16, 1280, 0),
+    (torch.float32, 1152, 0)])
 def test_layer_norm_fwd_path_by_shape(dtype, n, nv):
     # the forward's vector path (a warp per row) for rows of 32 lanes x 16
     # bytes x nv; any other n takes the general path (0); x, gamma and beta

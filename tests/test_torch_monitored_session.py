@@ -308,13 +308,18 @@ def test_sigterm_from_a_hook_saves_stops_and_resumes(monitored, start_ckpt,
     full = monitored["port"][0]
     d = str(tmp_path / "preempted")
     _start("port", d, start_ckpt)
-    before = signal.getsignal(signal.SIGTERM)
+    # the run starts from the default disposition: the port's handler
+    # chains to the one before it, and a handler that ends the process
+    # (the JAX package's telemetry dump re-raises with the default) would
+    # end this one
+    outer = signal.signal(signal.SIGTERM, signal.SIG_DFL)
     try:
         sizes, fetched = _monitored("port", d, 16, [_SigtermAt(6)])
         assert pckpt.preemption_requested()
     finally:
         pckpt.reset_preemption_state()
-    assert signal.getsignal(signal.SIGTERM) is before
+        after = signal.signal(signal.SIGTERM, outer)
+    assert after is signal.SIG_DFL
     # the SIGTERM came after the run ending at step 6 (a window of 1: the
     # summary hook's vote); the handler saved at that run's end
     assert fetched[-1][1] + 1 == 6
