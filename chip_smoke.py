@@ -3,7 +3,8 @@
 NVIDIA GPU and check every kernel of its serving and training paths
 (causal LM and ResNet-50) and of its TF-1 front end (``stf.Session``
 training the MNIST convnet, the seq2seq transformer, the causal LM,
-ResNet-50 and BERT-base, with and without per-layer recompute).
+ResNet-50 and BERT-base, with and without per-layer recompute, and the
+two RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq).
 
     python3 chip_smoke.py [--serving]
 
@@ -311,18 +312,51 @@ beside another tree's package measures that tree's serving path.
    ``recompute=True`` at batch 40 (the bench's ``recompute_bigger_batch``):
    a graph window's tokens/s and memory. Recompute must lower an eager
    step's peak and a captured step's reserved memory at batch 32.
+11. RNN phase: ``models/ptb_lstm.py`` ``ptb_lm_model`` at
+   ``PTBConfig.medium()`` as shipped (vocab 10000, hidden 650, 2 layers,
+   35 steps, keep_prob 0.5, f32, clip 5.0, SGD lr 1.0) at batch
+   ``PTB_B``, truncated BPTT (the LSTM state fetched from each run and fed
+   to the next), and ``models/rnn_seq2seq.py`` ``seq2seq_model`` at
+   ``Seq2SeqConfig()`` (hidden 64, vocab 120, lengths 12, Adam 0.01) at
+   batch ``S2S_B``, fetching the greedy ``decoded`` ids, both under graph
+   seed 1 on one repeated synthetic batch. First their kernel shapes
+   against the plain versions: the xent at f32 700 x 10000 and 768 x 120
+   (seq2seq's [64, 12, 120] logits as rows), the Dropout at f32 (20,
+   650), a body Dropout's (70 a run, through the device-key entry in a
+   replay), and (20, 35, 650), the embedding's, keep_prob 0.5, both
+   entries and the backward from the bits, 0 mismatches on x = ones and
+   the next key as a planted fault; Adam over seq2seq's f32 group of
+   113,784. Then ``RNN_CHECK_STEPS`` f32 PTB runs through the kernels
+   against ``plain_versions()`` (losses within ``RNN_TOL``, fetched states
+   and every variable within ``RNN_TOL`` by relative norm, the embedding
+   mask equal, exactly 71 + 71 Dropout and 1 + 1 xent launches a run: the
+   probe cell that ``dynamic_rnn`` builds outside its loop stays out of
+   the plan), with two planted faults that must fail (a body Dropout
+   drawing a fresh key at every step; SGD at lr x 0.5 through
+   ``lr_update``); ``RNN_GRAPH_STEPS`` runs captured against eager, bit
+   for bit, stale keys caught; ``lr_update`` to ``PTB_NEW_LR`` scaling the
+   next step; a graph and an eager window of ``RNN_STEPS`` runs (exact
+   launches, the mean loss of the last 4 below that of the first 4, p50,
+   words/s, device and host ms, busy share, device operations a run,
+   memory). The same for seq2seq (the f32 check with Adam's beta1 x (1 +
+   1e-4) planted, captured vs eager with ``decoded`` int-exact, the two
+   windows in target tokens/s), then ``S2S_TRAIN_STEPS`` captured steps
+   after which the loss is below half its start and the greedy decode is
+   right on more than half of the real target tokens.
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
 window, the Session's checked steps and its two windows, the transformer's,
 the causal LM's and ResNet's f32 checked steps and their two windows, the
 training loop's run A and its checked windows, BERT's two checks and its
-five windows) is
+five windows, the RNN graphs' checks, windows and seq2seq's 60 steps) is
 counted from zero just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
-(``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``) count
-that path's launches alone (``@bert``: the shipped-config windows). Prints a
+(``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``,
+``@ptb``, ``@seq2seq``) count that path's launches alone (``@bert``: the
+shipped-config windows; ``@ptb``, ``@seq2seq``: the windows and the 60
+steps). Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
 failure, when no CUDA device is available, or without the package
@@ -2963,12 +2997,15 @@ def check_session_graph(K, stf, mnist, feeds):
 def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3,
                    peaks=False):
     """``steps`` steps of ``sess.run(fetch, feeds)`` (``fetch[0]`` the
-    loss), the step captured as a CUDA graph or (``capture`` False)
+    loss; ``feeds`` a dict, or a function of the previous run's fetched
+    values, None before the first, for a state carried from run to run),
+    the step captured as a CUDA graph or (``capture`` False)
     dispatched eagerly, then a ``torch.profiler`` window of ``n_prof``
     steps: losses, step seconds, launches (counted from zero just before
     the window), plan-cache misses and captures after the first step, the
-    host seconds a step by kind (``Session._timings``) and the device ms a
-    step by kernel. With ``peaks``, the peak allocated device memory (GiB)
+    host seconds a step by kind (``Session._timings``), the device ms a
+    step by kernel and the device operations (kernels, copies, fills) a
+    step in the trace (``device_ops``). With ``peaks``, the peak allocated device memory (GiB)
     over the first two steps (the warm-up, which builds the optimizer's
     flat buffers, and the capture) and over the rest (``peak_first_gib``,
     ``peak_gib``; a replay allocates nothing, its memory is the capture's
@@ -2985,15 +3022,20 @@ def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3,
     if peaks:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    got = None
+
+    def feed():
+        return feeds(got) if callable(feeds) else feeds
+
     for i in range(steps):
         if peaks and i == 2:
             torch.cuda.synchronize()
             out["peak_first_gib"] = torch.cuda.max_memory_allocated() / GIB
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss = sess.run(fetch, feeds)[0]
+        got = sess.run(fetch, feed())
         times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+        losses.append(float(got[0]))
         if i == 0:
             misses, captures = sess.plan_cache_misses, sess.captures
     counts = K.launch_counts()
@@ -3008,9 +3050,12 @@ def session_window(K, sess, fetch, feeds, steps, capture, n_prof=3,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
-            sess.run(fetch, feeds)
+            got = sess.run(fetch, feed())
         torch.cuda.synchronize()
-    by_name = {k: ms / n_prof for k, (ms, _) in device_times(prof).items()}
+    traced = device_times(prof)
+    by_name = {k: ms / n_prof for k, (ms, _) in traced.items()}
+    # device kernels, copies and fills a step in the trace
+    out["device_ops"] = sum(k for _, k in traced.values()) / n_prof
     return dict(out, losses=losses, times=times, counts=counts, split=split,
                 late=late, by_name=by_name, captures=sess.captures,
                 steps=steps + n_prof)
@@ -5194,6 +5239,625 @@ def bert_phase(K, dev, kernel_rows):
     return paths
 
 
+# -- phase 11: the RNN graphs ------------------------------------------------
+
+PTB_B = 20                 # the ptb_word_lm medium recipe's batch
+S2S_B = 64                 # the largest examples/train_seq2seq.py allows
+RNN_CHECK_STEPS = 2        # f32 runs, kernels vs plain_versions()
+RNN_GRAPH_STEPS = 5        # a warm-up, a capture, then 3 replays
+RNN_STEPS = 16
+S2S_TRAIN_STEPS = 60       # test_rnn_seq2seq_trains_and_decodes' count
+RNN_TOL = 1e-5             # losses rtol; variables and states rel norm
+PTB_NEW_LR = 0.25
+S2S_PER_STEP = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                "adam_update": 1}
+
+
+def ptb_per_step(cfg):
+    """Launches a ``ptb_lm_model`` training run: the embedding's Dropout
+    and the two body Dropouts at each of the ``seq_len`` steps, forward
+    and backward from the bits (the probe cell's two stay out of the
+    plan: ``lowering.shape_only``), the xent forward and backward; the
+    SGD update is plain PyTorch (the JAX package has no kernel for it)."""
+    n = 1 + cfg.layers * cfg.seq_len
+    return {"dropout": n, "dropout_bwd": n, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+
+
+def rnn_dropout_rows(K, kdo, gen, dev, shape, suffix, main):
+    """The threefry Dropout at f32 ``shape``, keep_prob 0.5 (PTB medium's):
+    the forward's values and keep bits bit-exact with the plain version,
+    0 mismatches on x = ones, the next key (a planted fault) differing in
+    values, bits and backward; the device-key entry (:func:`device_key_row`)
+    and the backward from the bits; each timed with its plain version and
+    ``F.dropout`` / ``native_dropout_backward``."""
+    import torch.nn.functional as F
+
+    kp, key = 0.5, DROPOUT_KEY
+    other = (key[0], key[1] + 1)
+    numel = math.prod(shape)
+    copies = [torch.randn(shape, generator=gen, device=dev)
+              for _ in range(n_copies(8 * numel))]
+    x = copies[0]
+    tag = f"float32 {shape} keep_prob {kp} (ptb)"
+    if not kdo.vector_path(numel, x):
+        fail(f"dropout {tag}: not on the vector path")
+    out, bits = K.dropout_fwd(x, kp, key, return_bits=True)
+    err_f = check_exact(f"dropout {tag}", out, K.dropout_plain(x, kp, key))
+    check_exact(f"dropout {tag} bits", bits, kdo.pack_keep_bits_plain(
+        kdo.keep_mask_plain(shape, kp, key, dev)))
+    err_b = check_exact(f"dropout_bwd {tag}", K.dropout_bwd(x, kp, bits),
+                        K.dropout_plain(x, kp, key))
+    ones = torch.ones(shape, device=dev)
+    got, got_bits = K.dropout_fwd(ones, kp, key, return_bits=True)
+    miss = mismatches(got, K.dropout_plain(ones, kp, key))
+    miss_b = mismatches(K.dropout_bwd(ones, kp, got_bits),
+                        K.dropout_plain(ones, kp, key))
+    bad_bits = kdo.pack_keep_bits_plain(kdo.keep_mask_plain(shape, kp,
+                                                            other, dev))
+    faults = (mismatches(got, K.dropout_plain(ones, kp, other)),
+              mismatches(got_bits, bad_bits),
+              mismatches(K.dropout_bwd(ones, kp, got_bits),
+                         kdo.dropout_bwd_bits_plain(ones, bad_bits, kp)))
+    print(f"  dropout {tag}: x = ones, kernel vs plain mismatches fwd "
+          f"{miss} bwd {miss_b}; against the next key: values, mask bytes, "
+          f"backward {faults}; kept {(got != 0).float().mean().item():.5f}",
+          flush=True)
+    if miss or miss_b or not all(faults):
+        fail(f"dropout {tag}: mask mismatches {miss}/{miss_b}, next-key "
+             f"faults {faults}")
+    kkey = device_key_row(K, kdo, "dropout" + suffix, tag, copies, kp,
+                          torch.float32, dev, main)
+    saved = [K.dropout_fwd(c, kp, key, return_bits=True)[1] for c in copies]
+    ms_f = device_ms([lambda c=c: K.dropout_fwd(c, kp, key, return_bits=True)
+                      for c in copies])
+    plain_f = device_ms([lambda c=c: K.dropout_plain(c, kp, key)
+                         for c in copies])
+    ms_b = device_ms([lambda c=c, b=b: K.dropout_bwd(c, kp, b)
+                      for c, b in zip(copies, saved)])
+    plain_b = device_ms([lambda c=c, b=b: kdo.dropout_bwd_bits_plain(
+        c, b, kp) for c, b in zip(copies, saved)])
+    lib_f = event_ms(lambda: F.dropout(x, 1.0 - kp), reps=20)
+    masks = [torch.rand(shape, generator=gen, device=dev) < kp
+             for _ in copies]
+    lib_b = device_ms([
+        lambda c=c, mk=mk: torch.ops.aten.native_dropout_backward(
+            c, mk, 1.0 / kp) for c, mk in zip(copies, masks)])
+    bits_bytes = -(-numel // 8)
+    bnd_f = bound_ms(8 * numel + bits_bytes, 0, torch.float32,
+                     THREEFRY_OPS * numel, THREEFRY_ALU_OPS * numel)
+    bnd_b = bound_ms(8 * numel + bits_bytes, numel, torch.float32)
+    report(f"dropout {tag}", err_f, ms_f, plain_f, bnd_f, lib_f)
+    report(f"dropout_bwd {tag} (from the bits)", err_b, ms_b, plain_b, bnd_b,
+           lib_b)
+    main["dropout" + suffix] = kernel_row(err_f, ms_f, plain_f, bnd_f, lib_f,
+                                          f"dropout {tag}")
+    main["dropout_bwd" + suffix] = kernel_row(
+        err_b, ms_b, plain_b, bnd_b, lib_b, f"dropout_bwd {tag}")
+    report_device_key(main, kkey, bnd_f, lib_f)
+
+
+def rnn_kernel_rows(K, gen, dev, ptb_cfg, s2s_cfg, n):
+    """The RNN graphs' kernel shapes against their plain versions: the
+    xent at f32 700 x 10000 (PTB's 20 x 35 words) and 768 x 120
+    (seq2seq's [64, 12, 120] logits as rows), the Dropout at f32 (20,
+    650) (a body Dropout: 70 a run) and (20, 35, 650) (the embedding's),
+    Adam over seq2seq's one f32 group of ``n`` (yardstick
+    ``Adam(fused=True)``, the same function in f32)."""
+    kdo = importlib.import_module(KMOD + "dropout")
+    main = {}
+    main.update(xent_case(K, gen, dev, PTB_B * ptb_cfg.seq_len,
+                          ptb_cfg.vocab_size, (torch.float32,), (0.0,),
+                          "@ptb"))
+    main.update(xent_case(K, gen, dev, S2S_B * s2s_cfg.tgt_len,
+                          s2s_cfg.tgt_vocab, (torch.float32,), (0.0,),
+                          "@seq2seq"))
+    torch.cuda.empty_cache()
+    rnn_dropout_rows(K, kdo, gen, dev, (PTB_B, ptb_cfg.hidden), "@ptb", main)
+    rnn_dropout_rows(K, kdo, gen, dev,
+                     (PTB_B, ptb_cfg.seq_len, ptb_cfg.hidden),
+                     "@ptb_embedding", main)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    lr = s2s_cfg.learning_rate
+    alpha = torch.tensor(lr, device=dev)
+    p = 0.08 * torch.randn(n, generator=gen, device=dev)
+    m = 0.01 * torch.randn(n, generator=gen, device=dev)
+    v = 1e-4 * torch.rand(n, generator=gen, device=dev)
+    g = 0.01 * torch.randn(n, generator=gen, device=dev)
+    got = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha, **kw)
+    ref = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g, alpha,
+                              **kw)
+    torch.cuda.synchronize()
+    name = f"adam_update float32 params n={n} f32 m/v (seq2seq)"
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        fail(f"{name}: kernel is not bit-exact with its plain version")
+    ms = device_ms([lambda: K.adam_update(p, m, v, g, alpha, **kw)])
+    plain_ms = device_ms([lambda: K.adam_update_plain(p, m, v, g, alpha,
+                                                      **kw)])
+    pt = torch.nn.Parameter(p.clone())
+    pt.grad = g.clone()
+    opt = torch.optim.Adam([pt], lr=lr, fused=True)
+    lib_ms = event_ms(opt.step)
+    bnd = bound_ms(28 * n, 12 * n, torch.float32)
+    report(name, 0.0, ms, plain_ms, bnd, lib_ms)
+    main["adam_update@seq2seq"] = kernel_row(0.0, ms, plain_ms, bnd, lib_ms,
+                                             name)
+    return main
+
+
+def ptb_batch(cfg):
+    from simple_tensorflow_tpu_torch.models import ptb_lstm
+
+    return ptb_lstm.synthetic_ptb_batch(PTB_B, cfg.seq_len, cfg.vocab_size,
+                                        seed=0)
+
+
+def ptb_fetch(m):
+    """``[loss, train_op, c0, h0, c1, ...]``: the loss, the update and the
+    LSTM state the next run is fed."""
+    return [m["loss"], m["train_op"]] + [t for st in m["state_out"]
+                                         for t in st]
+
+
+def ptb_feeds(m, cfg, batch):
+    """The feeds of a run given the previous run's fetches (None: the
+    zero state), as truncated BPTT carries the state."""
+    from simple_tensorflow_tpu_torch.models import ptb_lstm
+
+    def feeds(prev):
+        flat = None if prev is None else prev[2:2 + 2 * cfg.layers]
+        st = ptb_lstm.zero_state(PTB_B, cfg) if flat is None else \
+            list(zip(flat[0::2], flat[1::2]))
+        fd = {m["input_ids"]: batch[0], m["target_ids"]: batch[1]}
+        fd.update(ptb_lstm.state_feed(m, st))
+        return fd
+
+    return feeds
+
+
+@contextlib.contextmanager
+def per_step_body_keys():
+    """Planted fault: a Dropout inside a loop body draws a fresh key at
+    every step (``fold_in(its run key, step)``) where the reference
+    applies one mask to all steps. Eager runs only (a host key)."""
+    from simple_tensorflow_tpu_torch.framework import graph as ops_mod
+    from simple_tensorflow_tpu_torch.framework import op_registry, prng
+    from simple_tensorflow_tpu_torch.ops import nn_ops
+
+    calls = {}
+
+    def wrap(lower):
+        def per_step(ctx, op, inputs):
+            if not isinstance(op.graph, ops_mod.FuncGraph):
+                return lower(ctx, op, inputs)
+            n = calls[op] = calls.get(op, -1) + 1
+            key = prng.fold_in(ctx.rng_for(op), n)
+            return [nn_ops._dropout_impl(inputs[0], op.attrs["keep_prob"],
+                                         key)]
+        return per_step
+
+    with planted(op_registry.get("Dropout"), "lower", wrap):
+        yield
+
+
+def rnn_state_errs(state, ref):
+    """``(worst relative norm over the store, its name)``, 0 for two zero
+    tensors."""
+    errs = {}
+    for k in ref:
+        a, b = state[k].double(), ref[k].double()
+        d = (a - b).norm().item()
+        errs[k] = 0.0 if d == 0 else d / max(b.norm().item(), 1e-30)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def check_ptb_f32(K, stf, ptb, cfg, batch):
+    """``RNN_CHECK_STEPS`` f32 ``ptb_lm_model`` runs (the state carried)
+    through the kernels against the same runs under ``plain_versions()``,
+    eager, from one initializer run (the same run counter, so the same
+    masks): each loss within ``RNN_TOL``, the fetched states and every
+    variable within ``RNN_TOL`` by relative norm, the embedding Dropout's
+    output equal; exactly ``ptb_per_step`` launches a run. Two planted
+    faults must fail: a body Dropout drawing a fresh key at every step
+    (:func:`per_step_body_keys`) and SGD at lr x 0.5 set through
+    ``lr_update``. Returns the kernel runs' launches."""
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    fetch_extra = ["dropout:0"]
+
+    def run(plain=False, fault=None):
+        m, sess = seeded_session(stf, lambda: ptb.ptb_lm_model(PTB_B, cfg))
+        sess._capture = False
+        if fault == "lr x 0.5":
+            sess.run(m["lr_update"], {m["new_lr"]: cfg.learning_rate * 0.5})
+        feeds = ptb_feeds(m, cfg, batch)
+        fetch = ptb_fetch(m) + fetch_extra
+        outs, prev = [], None
+        with (fused_ops.plain_versions() if plain
+              else contextlib.nullcontext()), \
+                (per_step_body_keys() if fault == "per-step body keys"
+                 else contextlib.nullcontext()):
+            for _ in range(RNN_CHECK_STEPS):
+                prev = sess.run(fetch, feeds(prev))
+                outs.append(prev)
+        state = session_state(sess)
+        sess.close()
+        return outs, state
+
+    def compare(got, ref):
+        outs, state = got
+        routs, rstate = ref
+        bad = [(float(a[0]), float(b[0])) for a, b in zip(outs, routs)
+               if not abs(a[0] - b[0]) <= RNN_TOL * abs(b[0])]
+        st = max(np.linalg.norm(x.astype(np.float64) - y)
+                 / max(np.linalg.norm(y.astype(np.float64)), 1e-30)
+                 for a, b in zip(outs, routs)
+                 for x, y in zip(a[2:-1], b[2:-1]))
+        masks = sum(int(((a[-1] == 0) != (b[-1] == 0)).sum())
+                    for a, b in zip(outs, routs))
+        return bad, st, rnn_state_errs(state, rstate), masks
+
+    ref = run(plain=True)
+    K.reset_launch_counts()
+    got = compare(run(), ref)
+    counts = K.launch_counts()
+    faults = {f: compare(run(fault=f), ref)
+              for f in ("per-step body keys", "lr x 0.5")}
+    want = {k: 0 for k in counts}
+    want.update({k: v * RNN_CHECK_STEPS for k, v in ptb_per_step(cfg).items()})
+    if counts != want:
+        fail(f"ptb f32 check: launches {counts}, expected {want}")
+
+    def ok(r):
+        return not r[0] and r[1] <= RNN_TOL and r[2][0] <= RNN_TOL \
+            and not r[3]
+
+    tag = f"ptb[f32 {PTB_B}x{cfg.seq_len}]"
+    print(f"{tag}: {RNN_CHECK_STEPS} runs (state carried), kernels vs "
+          f"plain: losses {[float(o[0]) for o in ref[0]]} (plain); off the "
+          f"plain runs: losses {got[0]}, fed-back states {got[1]:.3e}, the "
+          f"worst variable {got[2][0]:.3e} ({got[2][1]}), embedding mask "
+          f"mismatches {got[3]}; launches {counts}", flush=True)
+    for f, r in faults.items():
+        print(f"{tag}: planted fault ({f}): bad losses {r[0]}, states "
+              f"{r[1]:.3e}, worst variable {r[2][0]:.3e} ({r[2][1]}), "
+              f"mask mismatches {r[3]}", flush=True)
+        if ok(r):
+            fail(f"{tag}: the check passes the planted fault {f}: {r}")
+    if not ok(got):
+        fail(f"{tag}: the kernels' runs are off the plain runs: {got}")
+    return counts
+
+
+def check_ptb_graph(stf, ptb, cfg, batch):
+    """``RNN_GRAPH_STEPS`` runs with the state carried, the step captured
+    (run 1 eager, run 2 captured, then replays) against the same runs
+    with ``_capture`` off: losses, fetched states, the embedding Dropout's
+    output and every variable bit-identical, one capture. The planted
+    fault replays without refilling the key buffer (``_refresh_keys``
+    off): the replayed runs must differ."""
+    def run(capture, refresh=True):
+        m, sess = seeded_session(stf, lambda: ptb.ptb_lm_model(PTB_B, cfg))
+        sess._capture = capture
+        sess._refresh_keys = refresh
+        feeds = ptb_feeds(m, cfg, batch)
+        outs, prev = [], None
+        for _ in range(RNN_GRAPH_STEPS):
+            prev = sess.run(ptb_fetch(m) + ["dropout:0"], feeds(prev))
+            outs.append(prev)
+        state = session_state(sess)
+        captures = sess.captures
+        sess.close()
+        return outs, state, captures
+
+    def diffs(outs, ref):
+        return [sum(int(not np.array_equal(x, y)) for i, (x, y) in
+                    enumerate(zip(a, b)) if i != 1)
+                for a, b in zip(outs, ref)]
+
+    ref, ref_state, _ = run(False)
+    got, state, captures = run(True)
+    stale, _, _ = run(True, refresh=False)
+    d_got, d_stale = diffs(got, ref), diffs(stale, ref)
+    bad_vars = [k for k in ref_state
+                if not torch.equal(state[k], ref_state[k])]
+    tag = f"ptb graph[f32 {PTB_B}x{cfg.seq_len}]"
+    print(f"{tag}: {RNN_GRAPH_STEPS} runs (eager warm-up, capture, "
+          f"{RNN_GRAPH_STEPS - 2} replays; the state carried) vs eager: "
+          f"losses {[float(a[0]) for a in got]}; fetches differing by run "
+          f"{d_got}; variables differing {bad_vars[:5]} ({len(bad_vars)} "
+          f"of {len(ref_state)}); captures {captures}", flush=True)
+    print(f"{tag}: planted fault, the key buffer not refilled before the "
+          f"replays: fetches differing by run {d_stale}", flush=True)
+    if any(d_got) or bad_vars or captures != 1:
+        fail(f"{tag}: the replayed runs are off the eager runs")
+    if not all(d_stale[2:]):
+        fail(f"{tag}: the check passes replays with stale keys: {d_stale}")
+
+
+def check_ptb_lr_update(stf, ptb, cfg, batch):
+    """``lr_update`` fed ``PTB_NEW_LR``: the next run moves every variable
+    by ``PTB_NEW_LR`` / lr of what the same run (the same initializer, run
+    counter, masks and clipped gradients) moves it at the shipped lr,
+    within 1e-2 by relative norm (the f32 rounding of the subtraction,
+    relative to small steps); a run after ``new_lr`` = lr x 0.5, planted,
+    must miss it."""
+    def delta(lr):
+        m, sess = seeded_session(stf, lambda: ptb.ptb_lm_model(PTB_B, cfg))
+        if lr is not None:
+            sess.run(m["lr_update"], {m["new_lr"]: lr})
+        before = session_state(sess)
+        sess.run(ptb_fetch(m), ptb_feeds(m, cfg, batch)(None))
+        got = float(sess.run(m["lr"]))
+        after = session_state(sess)
+        sess.close()
+        return got, {k: after[k].double() - before[k].double()
+                     for k in before if k not in ("lr", "global_step")}
+
+    _, base = delta(None)
+    errs = {}
+    scale = PTB_NEW_LR / cfg.learning_rate
+    for lr in (PTB_NEW_LR, cfg.learning_rate * 0.5):
+        got, d = delta(lr)
+        errs[lr] = (got, max(
+            ((d[k] - scale * base[k]).norm()
+             / (scale * base[k]).norm().clamp_min(1e-30)).item()
+            for k in base))
+    (lr_got, err), (_, fault) = errs[PTB_NEW_LR], \
+        errs[cfg.learning_rate * 0.5]
+    print(f"ptb lr_update: the run after new_lr {PTB_NEW_LR} against "
+          f"{PTB_NEW_LR} / {cfg.learning_rate} of the shipped run's step: "
+          f"lr read back {lr_got}, the worst variable {err:.3e}; planted, "
+          f"a step at lr {cfg.learning_rate * 0.5} against the same: "
+          f"{fault:.3e}", flush=True)
+    if lr_got != PTB_NEW_LR or err > 1e-2 or fault <= 1e-2:
+        fail(f"ptb lr_update: {errs}")
+
+
+def rnn_window(K, stf, build, fetch, feeds, steps, capture):
+    """A :func:`session_window` of ``steps`` runs of a new seeded Session
+    (``build()`` the model dict; ``fetch(m)``, ``feeds(m)`` its fetches
+    and feeds), with its memory counted above what the process held before
+    the Session (``base_gib``), as :func:`bert_window` does."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated() / GIB
+    res0 = torch.cuda.memory_reserved() / GIB
+    m, sess = seeded_session(stf, build)
+    w = session_window(K, sess, fetch(m), feeds(m), steps, capture,
+                       peaks=True)
+    w["held_gib"] = torch.cuda.memory_allocated() / GIB - alloc0
+    w["peak_first_gib"] -= alloc0
+    w["peak_gib"] -= alloc0
+    w["reserved_gib"] -= res0
+    w["base_gib"] = (alloc0, res0)
+    sess.close()
+    torch.cuda.empty_cache()
+    return w
+
+
+def rnn_windows(K, stf, tag, build, fetch, feeds, per, items, unit):
+    """A graph and an eager :func:`rnn_window` of ``RNN_STEPS`` runs:
+    exact launches (``per`` a run), one capture, the mean loss of the
+    last 4 runs below that of the first 4, p50, ``items`` ``unit`` a run,
+    device and host ms, the busy share, the device operations a run and
+    the memory. Returns ``{"graph"|"eager": (p50, device ms, window)}``."""
+    res = {}
+    for capture, name in ((True, "graph"), (False, "eager")):
+        w = rnn_window(K, stf, build, fetch, feeds, RNN_STEPS, capture)
+        if capture and (w["late"][1] != 1 or w["captures"] != 1):
+            fail(f"{tag}: captures {w['captures']} (after the first run "
+                 f"{w['late'][1]}), expected exactly 1")
+        if not capture and w["captures"]:
+            fail(f"{tag}: the eager window captured {w['captures']} times")
+        want = graph_window_counts(per, RNN_STEPS) if capture else \
+            {k: v * RNN_STEPS for k, v in per.items()}
+        p50, dev_ms = report_window(f"{tag} {name}", w, want, items, unit,
+                                    last_below_first=False)
+        busy = "not measured" if dev_ms is None else \
+            f"{100 * dev_ms / (p50 * 1e3):.1f}%"
+        print(f"{tag} {name}: p50 {p50 * 1e3:.4f} ms, {items / p50:.2f} "
+              f"{unit}/s; device ops a run {w['device_ops']:.1f}; busy "
+              f"{busy}; {mem_txt(w)}", flush=True)
+        res[name] = (p50, dev_ms, w)
+    print(f"{tag}: graph vs eager p50 {res['graph'][0] * 1e3:.4f} vs "
+          f"{res['eager'][0] * 1e3:.4f} ms; device ms a run "
+          f"{res['graph'][1]} vs {res['eager'][1]}", flush=True)
+    return res
+
+
+def s2s_feeds(m, cfg):
+    from simple_tensorflow_tpu_torch.models import rnn_seq2seq
+
+    src, lens, tin, tout = rnn_seq2seq.synthetic_copy_batch(S2S_B, cfg,
+                                                            seed=0)
+    return {m["src"]: src, m["src_len"]: lens, m["tgt_in"]: tin,
+            m["tgt_out"]: tout}
+
+
+def check_s2s_f32(K, stf, s2s, cfg):
+    """``RNN_CHECK_STEPS`` f32 ``seq2seq_model`` Adam steps through the
+    kernels against the same steps under ``plain_versions()``, eager:
+    each loss within ``RNN_TOL``, every variable and the flat Adam slots
+    within ``RNN_TOL`` by relative norm, ``decoded`` int-exact; exactly
+    ``S2S_PER_STEP`` launches a step. Adam's beta1 x (1 + 1e-4), planted,
+    must fail. Returns the kernel steps' launches."""
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    def run(plain=False, fault=False):
+        m, sess = seeded_session(stf, lambda: s2s.seq2seq_model(S2S_B, cfg))
+        sess._capture = False
+        if fault:
+            op = [o for o in sess.graph.get_operations()
+                  if o.type == "FusedAdamUpdate"][0]
+            op.attrs["beta1"] = op.attrs["beta1"] * (1 + 1e-4)
+        feeds = s2s_feeds(m, cfg)
+        with (fused_ops.plain_versions() if plain
+              else contextlib.nullcontext()):
+            outs = [sess.run([m["loss"], m["train_op"], m["decoded"]],
+                             feeds) for _ in range(RNN_CHECK_STEPS)]
+        state = session_state(sess)
+        sess.close()
+        return outs, state
+
+    def compare(got, ref):
+        bad = [(float(a[0]), float(b[0])) for a, b in zip(got[0], ref[0])
+               if not abs(a[0] - b[0]) <= RNN_TOL * abs(b[0])]
+        dec = sum(int((a[2] != b[2]).sum()) for a, b in zip(got[0], ref[0]))
+        return bad, rnn_state_errs(got[1], ref[1]), dec
+
+    ref = run(plain=True)
+    K.reset_launch_counts()
+    got = compare(run(), ref)
+    counts = K.launch_counts()
+    fault = compare(run(fault=True), ref)
+    want = {k: 0 for k in counts}
+    want.update({k: v * RNN_CHECK_STEPS for k, v in S2S_PER_STEP.items()})
+    if counts != want:
+        fail(f"seq2seq f32 check: launches {counts}, expected {want}")
+    tag = f"seq2seq[f32 {S2S_B}x{cfg.src_len}/{cfg.tgt_len}]"
+    print(f"{tag}: {RNN_CHECK_STEPS} Adam steps, kernels vs plain: losses "
+          f"{[float(o[0]) for o in ref[0]]} (plain); off the plain steps: "
+          f"losses {got[0]}, the worst variable or slot {got[1][0]:.3e} "
+          f"({got[1][1]}), decoded ids differing {got[2]}", flush=True)
+    print(f"{tag}: planted fault (Adam beta1 x (1 + 1e-4)): bad losses "
+          f"{fault[0]}, worst {fault[1][0]:.3e} ({fault[1][1]})", flush=True)
+    if got[0] or got[1][0] > RNN_TOL or got[2]:
+        fail(f"{tag}: the kernels' steps are off the plain steps: {got}")
+    if not fault[0] and fault[1][0] <= RNN_TOL:
+        fail(f"{tag}: the check passes the planted Adam fault: {fault}")
+    return counts
+
+
+def check_s2s_graph(stf, s2s, cfg):
+    """``RNN_GRAPH_STEPS`` steps captured (step 1 eager, step 2 captured,
+    then replays) against the same steps with ``_capture`` off: losses,
+    ``decoded`` and every variable and slot bit-identical, one capture
+    (no random op: no stale-key fault to plant)."""
+    def run(capture):
+        m, sess = seeded_session(stf, lambda: s2s.seq2seq_model(S2S_B, cfg))
+        sess._capture = capture
+        feeds = s2s_feeds(m, cfg)
+        outs = [sess.run([m["loss"], m["train_op"], m["decoded"]], feeds)
+                for _ in range(RNN_GRAPH_STEPS)]
+        state = session_state(sess)
+        captures = sess.captures
+        sess.close()
+        return outs, state, captures
+
+    ref, ref_state, _ = run(False)
+    got, state, captures = run(True)
+    d = [(int(a[0] != b[0]), int((a[2] != b[2]).sum()))
+         for a, b in zip(got, ref)]
+    bad_vars = [k for k in ref_state
+                if not torch.equal(state[k], ref_state[k])]
+    tag = f"seq2seq graph[f32 {S2S_B}x{cfg.src_len}/{cfg.tgt_len}]"
+    print(f"{tag}: {RNN_GRAPH_STEPS} steps (eager warm-up, capture, "
+          f"{RNN_GRAPH_STEPS - 2} replays) vs eager: losses "
+          f"{[float(a[0]) for a in got]}; (loss differs, decoded ids "
+          f"differing) by step {d}; variables and slots differing "
+          f"{bad_vars[:5]} ({len(bad_vars)} of {len(ref_state)}); captures "
+          f"{captures}", flush=True)
+    if any(any(x) for x in d) or bad_vars or captures != 1:
+        fail(f"{tag}: the replayed steps are off the eager steps")
+
+
+def s2s_trains(K, stf, s2s, cfg):
+    """``S2S_TRAIN_STEPS`` captured Adam steps on one batch, as JAX's
+    ``test_rnn_seq2seq_trains_and_decodes`` takes them: the loss below
+    half its start, the greedy ``decoded`` ids right on more than half of
+    the real (non-pad) target tokens. Returns the launches."""
+    m, sess = seeded_session(stf, lambda: s2s.seq2seq_model(S2S_B, cfg))
+    feeds = s2s_feeds(m, cfg)
+    K.reset_launch_counts()
+    l0 = float(sess.run(m["loss"], feeds))
+    for _ in range(S2S_TRAIN_STEPS):
+        sess.run(m["train_op"], feeds)
+    l1 = float(sess.run(m["loss"], feeds))
+    dec = sess.run(m["decoded"], feeds)
+    counts = K.launch_counts()
+    sess.close()
+    tout = feeds[m["tgt_out"]]
+    real = tout > 0
+    acc = float((dec[real] == tout[real]).mean())
+    print(f"seq2seq trains: loss {l0:.5f} -> {l1:.5f} after "
+          f"{S2S_TRAIN_STEPS} steps; greedy decoded accuracy on the "
+          f"{int(real.sum())} real target tokens {acc:.4f}", flush=True)
+    if not (l1 < 0.5 * l0 and acc > 0.5):
+        fail(f"seq2seq: loss {l0} -> {l1}, decoded accuracy {acc}")
+    return counts
+
+
+def rnn_phase(K, dev, kernel_rows):
+    """The reference's two RNN graphs through the TF-1 front end (module
+    docstring, phase 11). Returns ``[(path, dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import ptb_lstm, rnn_seq2seq
+
+    t0 = time.perf_counter()
+    pcfg = ptb_lstm.PTBConfig.medium()
+    scfg = rnn_seq2seq.Seq2SeqConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    # seq2seq's trainable parameters: its one f32 Adam group
+    n = sum(int(np.prod(v.shape.as_list())) for v in seeded_graph_vars(
+        stf, lambda: rnn_seq2seq.seq2seq_model(S2S_B, scfg)))
+    print("RNN kernels at the ptb_lm_model and seq2seq_model shapes:",
+          flush=True)
+    kernel_rows.update(rnn_kernel_rows(K, gen, dev, pcfg, scfg, n))
+    batch = ptb_batch(pcfg)
+    print(f"ptb: ptb_lm_model(PTBConfig.medium()) as shipped (vocab "
+          f"{pcfg.vocab_size}, hidden {pcfg.hidden}, {pcfg.layers} layers, "
+          f"{pcfg.seq_len} steps, keep_prob {pcfg.keep_prob}, clip "
+          f"{pcfg.max_grad_norm}, SGD lr {pcfg.learning_rate}, f32), batch "
+          f"{PTB_B}, graph seed 1, synthetic_ptb_batch(seed=0), the LSTM "
+          f"state fetched and fed back (truncated BPTT)", flush=True)
+    paths = [("check ptb f32", 1 - pcfg.keep_prob,
+              check_ptb_f32(K, stf, ptb_lstm, pcfg, batch))]
+    check_ptb_graph(stf, ptb_lstm, pcfg, batch)
+    check_ptb_lr_update(stf, ptb_lstm, pcfg, batch)
+    words = PTB_B * pcfg.seq_len
+    res = rnn_windows(
+        K, stf, f"ptb[f32 {PTB_B}x{pcfg.seq_len}]",
+        lambda: ptb_lstm.ptb_lm_model(PTB_B, pcfg), ptb_fetch,
+        lambda m: ptb_feeds(m, pcfg, batch), ptb_per_step(pcfg), words,
+        "words")
+    paths += [("ptb graph", 1 - pcfg.keep_prob, res["graph"][2]["counts"]),
+              ("ptb eager", 1 - pcfg.keep_prob, res["eager"][2]["counts"])]
+    print(f"seq2seq: seq2seq_model(Seq2SeqConfig()) as shipped (hidden "
+          f"{scfg.hidden}, vocab {scfg.src_vocab}/{scfg.tgt_vocab}, lengths "
+          f"{scfg.src_len}/{scfg.tgt_len}, Adam {scfg.learning_rate}, clip "
+          f"{scfg.max_grad_norm}, f32, one Adam group of {n}), batch "
+          f"{S2S_B}, graph seed 1, synthetic_copy_batch(seed=0), fetching "
+          f"loss, train_op and the greedy decoded ids", flush=True)
+    paths.append(("check seq2seq f32", 0.0,
+                  check_s2s_f32(K, stf, rnn_seq2seq, scfg)))
+    check_s2s_graph(stf, rnn_seq2seq, scfg)
+    res2 = rnn_windows(
+        K, stf, f"seq2seq[f32 {S2S_B}x{scfg.src_len}/{scfg.tgt_len}]",
+        lambda: rnn_seq2seq.seq2seq_model(S2S_B, scfg),
+        lambda m: [m["loss"], m["train_op"], m["decoded"]],
+        lambda m: s2s_feeds(m, scfg), S2S_PER_STEP, S2S_B * scfg.tgt_len,
+        "target tokens")
+    paths += [("seq2seq graph", 0.0, res2["graph"][2]["counts"]),
+              ("seq2seq eager", 0.0, res2["eager"][2]["counts"]),
+              ("seq2seq trains", 0.0, s2s_trains(K, stf, rnn_seq2seq,
+                                                 scfg))]
+    print(f"rnn phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def seeded_graph_vars(stf, build):
+    """The trainable variables of ``build()`` in a new graph."""
+    g = stf.Graph()
+    with g.as_default():
+        stf.set_random_seed(1)
+        build()
+        return stf.trainable_variables()
+
+
 def mem_txt(w):
     """A window's memory (:func:`bert_window`) as text."""
     return (f"peak device memory {w['peak_first_gib']:.3f} GiB over the "
@@ -5244,6 +5908,7 @@ HANG_DUMP_S = 1140
 
 
 def main():
+    smoke_t0 = time.perf_counter()
     faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     serving_only = sys.argv[1:] == ["--serving"]
     if sys.argv[1:] and not serving_only:
@@ -5347,6 +6012,8 @@ def main():
     paths += resnet_session_phase(K, dev, main_rows, notes)
     torch.cuda.empty_cache()
     paths += bert_phase(K, dev, main_rows)
+    torch.cuda.empty_cache()
+    paths += rnn_phase(K, dev, main_rows)
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -5395,6 +6062,22 @@ def main():
             ("dropout", "dropout.cu", "../nn_ops.py:388"),
             ("dropout_device_key", "dropout.cu", "../nn_ops.py:388"),
             ("dropout_bwd", "dropout.cu", "../nn_ops.py:388"))})
+    # the RNN graphs' rows: their windows and seq2seq's 60 steps (paths
+    # "ptb ..." and "seq2seq ..."; the f32 checks fall in the general rows)
+    rnn_src = {"softmax_xent_fwd": ("softmax_xent.cu", "softmax_xent.py:32"),
+               "softmax_xent_bwd": ("softmax_xent.cu", "softmax_xent.py:78"),
+               "dropout": ("dropout.cu", "../nn_ops.py:388"),
+               "dropout_device_key": ("dropout.cu", "../nn_ops.py:388"),
+               "dropout_bwd": ("dropout.cu", "../nn_ops.py:388"),
+               "adam_update": ("fused_update.cu", "fused_update.py:59")}
+    session_where.update({
+        f"{name}@{model}": (*rnn_src[name], name, name, model)
+        for model, names in (
+            ("ptb", ("softmax_xent_fwd", "softmax_xent_bwd", "dropout",
+                     "dropout_device_key", "dropout_bwd")),
+            ("seq2seq", ("softmax_xent_fwd", "softmax_xent_bwd",
+                         "adam_update")))
+        for name in names})
     # (the general row's counter, the path) pairs a Session row takes over
     claimed = {(c, p) for _, _, _, c, p in session_where.values()}
     # a kernel's launches over every path; the flash rows split by the
@@ -5491,6 +6174,8 @@ def main():
         print(f"{what} {name} ({r['shape']}): before {before}, now "
               f"{r['ms']:.5f} ms{ratio}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), library {lib} ms", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - smoke_t0:.1f} s in all",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ PERF.md). The transformer, causal-LM and ResNet-50 training graphs
 ``models.causal_lm.causal_lm_train_model``,
 ``models.resnet.resnet50_train_model``) train through the Session, also
 as the TF-1 training loop: ``Session.run_steps``, ``stf.train.Saver``,
-the hooks and ``MonitoredTrainingSession``, and ``stf.summary``.
+the hooks and ``MonitoredTrainingSession``, and ``stf.summary``; BERT
+with per-layer recompute (``models.bert``), and the RNN graphs
+(``models.ptb_lstm``, ``models.rnn_seq2seq``) on ``stf.scan`` and
+``stf.nn.rnn_cell``.
 Importing the package loads no kernel library; the kernels are built and
 loaded at their first launch.
 """
@@ -31,19 +34,29 @@ from .framework.graph import (Graph, GraphKeys, Operation, Tensor,
                               reset_default_graph)
 from .framework.random_seed import get_seed, set_random_seed
 from .framework.tensor_shape import Dimension, TensorShape
-from .ops.array_ops import (fill, gather, identity, ones, placeholder,
-                            placeholder_with_default, reshape, slice,
-                            squeeze, stop_gradient, transpose, zeros)
-from .ops.control_flow_ops import group, no_op
+from .ops.array_ops import (concat, expand_dims, fill, gather, identity,
+                            ones, ones_like, placeholder,
+                            placeholder_with_default, reshape, reverse,
+                            sequence_mask, slice, squeeze, stop_gradient,
+                            strided_slice, transpose, where, zeros,
+                            zeros_like)
+from .ops.clip_ops import (clip_by_global_norm, clip_by_norm, clip_by_value,
+                           global_norm)
+from .ops.control_flow_ops import case, cond, group, no_op, while_loop
+from .ops.functional_ops import foldl, foldr, map_fn, py_func, scan
 from .ops.logging_ops import Print
 from .ops import init_ops
-from .ops.init_ops import (glorot_uniform_initializer, ones_initializer,
+from .ops.init_ops import (constant_initializer,
+                           glorot_uniform_initializer, ones_initializer,
                            random_normal_initializer,
+                           random_uniform_initializer,
                            truncated_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
-from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, matmul,
-                           minimum, multiply, not_equal, pow, range,
-                           realdiv, reduce_mean, reduce_sum, subtract, tanh,
+from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, greater,
+                           greater_equal, less, less_equal, logical_not,
+                           matmul, maximum, minimum, multiply, negative,
+                           not_equal, pow, range, realdiv, reduce_mean,
+                           reduce_sum, sigmoid, sqrt, square, subtract, tanh,
                            truediv)
 from .ops.random_ops import random_normal, random_uniform, truncated_normal
 from .ops.state_ops import assign, assign_add, assign_sub

@@ -2,11 +2,14 @@
 effects.py``): an op's declared ``Effects`` (``framework/op_registry.py``)
 resolved against its attrs, e.g. an ``Assign`` with ``var_name == "w"``
 writes ``{"var_name=w"}``. A graph function call (``framework/
-function.py``) has the effects of the body ops its outputs run, and reads
-what the producers of its captures read (a captured variable).
-:func:`rng_ops` lists a plan's random ops with those of every call body,
-as the JAX Session's ``_plan_uses_rng`` (``client/session.py:300``)
-recurses into bodies."""
+function.py``) or a loop op (``Scan``, ``MapFn``, ``Foldl``) has the
+effects of the body ops its outputs run. A captured variable is read by
+the op that made the captured value, in the outer graph at its own place
+in the run, not by the call: so fetching the greedy decoder's output
+beside ``train_op`` is no hazard when the same reads feed the loss, as in
+JAX, whose call and loop ops declare no effect. :func:`rng_ops` lists a
+plan's random ops with those of every body, as the JAX Session's
+``_plan_uses_rng`` (``client/session.py:300``) recurses into bodies."""
 
 from __future__ import annotations
 
@@ -34,25 +37,25 @@ class ResolvedEffects:
 
 
 def _call_effects(op) -> ResolvedEffects:
-    fg = op.attrs["func_graph"]
+    fg = function_mod.body_graph(op)
     reads, writes, rng, io = set(), set(), False, False
     for inner in lowering_mod.func_graph_ops(fg):
         e = op_effects(inner)
         reads |= e.reads
         writes |= e.writes
         rng, io = rng or e.rng, io or e.io
-    for outer, _ in fg.captures:
-        reads |= op_effects(outer.op).reads
     return ResolvedEffects(frozenset(reads), frozenset(writes), rng, io,
                            None)
 
 
 def rng_ops(ops) -> List:
-    """The ops of ``ops`` that draw randomness, followed, at each call op,
-    by every op of its body that draws (nested bodies too), in order."""
+    """The ops of ``ops`` that draw randomness, followed, at each call or
+    loop op, by every op of its body that draws (nested bodies too), in
+    order: one row each of a compiled step's key and seed buffers, which
+    every iteration of a loop body reads."""
     out = []
     for op in ops:
-        if op.type in function_mod.CALL_OPS:
+        if op.type in function_mod.BODY_OPS:
             out.extend(inner for inner in function_mod.body_ops(op)
                        if inner.op_def.effects.rng)
         elif op.op_def.effects.rng:
@@ -63,7 +66,7 @@ def rng_ops(ops) -> List:
 def op_effects(op) -> ResolvedEffects:
     """The resolved effect set of one Operation (an unregistered op type
     resolves as pure)."""
-    if op.type in function_mod.CALL_OPS:
+    if op.type in function_mod.BODY_OPS:
         return _call_effects(op)
     try:
         eff = op_registry.get(op.type).effects

@@ -48,6 +48,10 @@ from . import op_registry
 from ..ops import fused_ops
 
 CALL_OPS = ("GraphFunctionCall", "RecomputeGradCall")
+# the loop ops of ``ops/functional_ops.py``: their body is the ``body``
+# attr, run once per element
+LOOP_OPS = ("Scan", "MapFn", "Foldl")
+BODY_OPS = CALL_OPS + LOOP_OPS
 
 
 def _lower_function_call(ctx, op, inputs):
@@ -266,10 +270,19 @@ def recompute_grad(func, name=None):
     return wrapper
 
 
+def body_graph(op):
+    """The FuncGraph body of a call or loop op, or None for another op."""
+    if op.type in CALL_OPS:
+        return op.attrs.get("func_graph")
+    if op.type in LOOP_OPS:
+        return op.attrs.get("body")
+    return None
+
+
 def body_ops(op):
-    """The ops of a call op's body (every op of its FuncGraph, nested
-    bodies included), or [] for another op."""
-    fg = op.attrs.get("func_graph") if op.type in CALL_OPS else None
+    """The ops of a call or loop op's body (every op of its FuncGraph,
+    nested bodies included), or [] for another op."""
+    fg = body_graph(op)
     if fg is None:
         return []
     out = []

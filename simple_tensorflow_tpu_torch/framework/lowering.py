@@ -14,9 +14,15 @@ op's lowering eagerly; the Session captures a repeated run's dispatch into
 a CUDA graph (``compiler/aot.py``), for which the context has a compiled
 mode (no host reads of the device, keys from a device buffer).
 ``lower_func_graph`` (:368) runs a ``FuncGraph`` body (a graph function
-call, ``framework/function.py``) in a child context: its args and
-captures bound, pruned to its outputs. Left out: the native C++ pruner
-and the plan-time optimizer's body plans and CSE alias map.
+call, ``framework/function.py``, or one iteration of a loop op,
+``ops/functional_ops.py``) in a child context: its args and captures
+bound, pruned to its outputs; a body that assigns a variable raises, as
+the JAX context's ``in_control_flow`` does (:268-276). ``ZerosLike`` and
+``OnesLike`` of a fully static shape are :func:`shape_only`: the pruner
+does not follow their input, as XLA drops a value that only gives a
+shape (``dynamic_rnn``'s probe cell step, ``rnn.py:45-46``). Left out:
+the native C++ pruner and the plan-time optimizer's body plans and CSE
+alias map.
 """
 
 from __future__ import annotations
@@ -38,6 +44,16 @@ Operation = ops_mod.Operation
 Tensor = ops_mod.Tensor
 
 
+_SHAPE_ONLY = ("ZerosLike", "OnesLike")
+
+
+def shape_only(op: Operation) -> bool:
+    """Whether ``op`` needs no input value: a ``ZerosLike``/``OnesLike``
+    whose output shape is fully static."""
+    return op.type in _SHAPE_ONLY and \
+        op.outputs[0].shape.is_fully_defined()
+
+
 def prune(target_ops: Sequence[Operation],
           fed_tensors: Set[Tensor]) -> List[Operation]:
     """The ops needed to compute ``target_ops`` when ``fed_tensors`` are
@@ -47,9 +63,10 @@ def prune(target_ops: Sequence[Operation],
     state: Dict[Operation, int] = {}  # 0 = visiting, 1 = done
 
     def deps(op: Operation):
-        for t in op.inputs:
-            if t not in fed_tensors:
-                yield t.op
+        if not shape_only(op):
+            for t in op.inputs:
+                if t not in fed_tensors:
+                    yield t.op
         yield from op.control_inputs
 
     for root in target_ops:
@@ -344,7 +361,8 @@ def last_uses(op_list: Sequence[Operation], keep) -> Dict[Operation,
     nothing consumes them), the tensors of ``keep`` (the fetches) aside,
     so that :func:`execute_ops` can drop them, as XLA frees a buffer
     after its last use (what autograd saved for the backward stays alive
-    through its graph)."""
+    through its graph). A call or loop op's captures are its inputs, so
+    every iteration of a loop body reads them before they can go."""
     pos = {op: i for i, op in enumerate(op_list)}
     last: Dict[Tensor, int] = {}
     for i, op in enumerate(op_list):
@@ -399,6 +417,13 @@ class _BodyContext(LoweringContext):
         else:
             setattr(self.parent, name, value)
 
+    def write_var(self, name: str, value):
+        raise InvalidArgumentError(
+            None, None,
+            f"Variable {name!r} is assigned inside a graph function or "
+            "loop body, which cannot write state across steps; carry the "
+            "value as a loop variable and assign it after the loop.")
+
 
 def lower_func_graph(ctx: LoweringContext, fg, arg_values,
                      capture_values) -> list:
@@ -449,7 +474,8 @@ def _run_op(ctx: LoweringContext, op: Operation, env, timings):
             if isinstance(v, torch.Tensor) and \
                     v.untyped_storage().data_ptr() in written:
                 env[t] = v.detach().clone()
-    inputs = [env[t] if t in env else ctx.value_of(t) for t in op.inputs]
+    inputs = [] if shape_only(op) else \
+        [env[t] if t in env else ctx.value_of(t) for t in op.inputs]
     if timings is not None:
         t1 = time.perf_counter()
         timings["feeds"] = timings.get("feeds", 0.0) + t1 - t0

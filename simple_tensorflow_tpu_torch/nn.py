@@ -1,5 +1,6 @@
 """stf.nn of the port (ref: tensorflow/python/ops/nn.py): the graph ops the
-MNIST, transformer and ResNet graphs reach, and the fused ops
+MNIST, transformer, ResNet, BERT and RNN graphs reach (``rnn_cell``,
+``dynamic_rnn`` and the other RNN loops among them), and the fused ops
 (``fused_attention``, ``fused_bias_dropout_residual``,
 ``fused_layer_norm``, ``fused_softmax_cross_entropy``), which take graph
 tensors or, from the eager models, torch tensors (``ops/fused_ops.py``).
@@ -10,14 +11,21 @@ from .ops.fused_ops import (fused_attention, fused_bias_dropout_residual,
                             fused_layer_norm, fused_softmax_cross_entropy)
 from .ops.nn_impl import fused_batch_norm
 from .ops.nn_ops import (bias_add, conv2d, dropout, gelu, l2_loss, max_pool,
-                         relu, softmax_cross_entropy_with_logits,
+                         relu, softmax, softmax_cross_entropy_with_logits,
                          softmax_cross_entropy_with_logits_v2,
                          sparse_softmax_cross_entropy_with_logits)
+from .ops import rnn_cell
+from .ops.rnn import (bidirectional_dynamic_rnn, dynamic_rnn, raw_rnn,
+                      static_rnn)
+from .ops.math_ops import sigmoid, tanh
 
-__all__ = ["bias_add", "conv2d", "dropout", "embedding_lookup",
+__all__ = ["bias_add", "bidirectional_dynamic_rnn", "conv2d", "dropout",
+           "dynamic_rnn", "embedding_lookup",
            "fused_attention", "fused_bias_dropout_residual",
            "fused_batch_norm", "fused_layer_norm",
            "fused_softmax_cross_entropy", "gelu", "l2_loss", "max_pool",
-           "relu", "softmax_cross_entropy_with_logits",
+           "raw_rnn", "relu", "rnn_cell", "sigmoid", "softmax",
+           "softmax_cross_entropy_with_logits",
            "softmax_cross_entropy_with_logits_v2",
-           "sparse_softmax_cross_entropy_with_logits"]
+           "sparse_softmax_cross_entropy_with_logits", "static_rnn",
+           "tanh"]

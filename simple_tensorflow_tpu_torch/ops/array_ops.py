@@ -5,9 +5,16 @@ transformer and BERT graphs and the optimizers reach: ``Placeholder``
 (:317), ``PlaceholderWithDefault`` (:328), ``Identity``, ``StopGradient``,
 ``Reshape`` (:373), ``Squeeze`` (:420), ``Transpose`` (:394), ``Gather``
 (:644, ``jnp.take`` along ``axis``), ``Fill``, ``Slice`` and the
-constant-backed ``zeros`` and ``ones``. Each op lowers to a torch function
-of its inputs and static attrs. Left out: the other ~60 array ops
-(concat, pad, strided slices, ...).
+constant-backed ``zeros`` and ``ones``; for the RNN graphs ``Concat``,
+``ExpandDims``, ``ZerosLike``/``OnesLike``, ``Select`` (``where``, which
+broadcasts as ``jnp.where``), ``SequenceMask``, ``Reverse`` and
+``StridedSlice``, which ``Tensor.__getitem__`` builds (:603-641: static
+indices, slices with any step, ``None`` and ``...``). Each op lowers to a
+torch function of its inputs and static attrs. ``ZerosLike`` and
+``OnesLike`` of a fully static shape need no input value
+(``lowering.shape_only``): a plan does not run the op that makes their
+input, as XLA drops it from the JAX program. Left out: the other ~50
+array ops (pad, split, tile, scatters, ...).
 """
 
 from __future__ import annotations
@@ -47,6 +54,76 @@ op_registry.register_pure(
         (builtins.slice(None),) * axis + (indices.long(),)])
 op_registry.register_pure("Slice", lambda x, begin=None, size=None: x[
     tuple(builtins.slice(b, b + s) for b, s in zip(begin, size))])
+op_registry.register_pure("ExpandDims", lambda x, axis: x.unsqueeze(axis))
+op_registry.register_pure("Concat", lambda *xs, axis: torch.cat(xs, dim=axis))
+op_registry.register_pure("Select", lambda cond, x, y: torch.where(cond, x, y))
+op_registry.register_pure("Reverse", lambda x, axis: torch.flip(x, axis))
+op_registry.register_pure(
+    "SequenceMask", lambda lengths, maxlen=None, dtype=None: (
+        torch.arange(maxlen, device=lengths.device)[None, :]
+        < lengths[..., None]).to(dtype.torch_dtype if dtype else torch.bool))
+
+
+def _fill_like(value):
+    """The lowering of ``ZerosLike``/``OnesLike``: from the static output
+    shape when the plan gave no input value (``lowering.shape_only``),
+    else like the input."""
+    def lower(ctx, op, inputs):
+        if inputs:
+            return [torch.full_like(inputs[0], value)]
+        out = op.outputs[0]
+        return [torch.full(tuple(out.shape.as_list()), value,
+                           dtype=out.dtype.base_dtype.torch_dtype,
+                           device=ctx.device)]
+
+    return lower
+
+
+op_registry.register("ZerosLike", lower=_fill_like(0),
+                     infer_fn=lambda g, attrs, ins: [(ins[0].shape,
+                                                      ins[0].dtype)])
+op_registry.register("OnesLike", lower=_fill_like(1),
+                     infer_fn=lambda g, attrs, ins: [(ins[0].shape,
+                                                      ins[0].dtype)])
+
+
+def _strided_impl(x, dyn_inputs, spec):
+    """``x[spec]`` with numpy's semantics, one axis at a time: an index
+    drops its axis, a slice keeps it (a negative step takes the rows by
+    an index tensor: torch slices only forward), ``newaxis`` adds one,
+    ``ellipsis`` skips the axes the other items leave; a ``tensor_idx``
+    indexes by a dynamic int tensor (its backward sorts, as ``Gather``'s
+    does)."""
+    used = builtins.sum(1 for it in spec
+                        if it[0] in ("idx", "tensor_idx", "slice"))
+    dyn = iter(dyn_inputs)
+    out, dim = x, 0
+    for item in spec:
+        kind = item[0]
+        if kind == "ellipsis":
+            dim += x.dim() - used
+        elif kind == "newaxis":
+            out = out.unsqueeze(dim)
+            dim += 1
+        elif kind == "idx":
+            out = out.select(dim, item[1])
+        elif kind == "tensor_idx":
+            out = out[(builtins.slice(None),) * dim + (next(dyn).long(),)]
+        else:
+            start, stop, step = builtins.slice(*item[1:]).indices(
+                out.shape[dim])
+            if step > 0:
+                out = out[(builtins.slice(None),) * dim
+                          + (builtins.slice(start, stop, step),)]
+            else:
+                rows = torch.arange(start, stop, step, device=out.device)
+                out = out[(builtins.slice(None),) * dim + (rows,)]
+            dim += 1
+    return out
+
+
+op_registry.register_pure("StridedSlice", lambda x, *dyn, spec:
+                          _strided_impl(x, dyn, spec))
 
 
 def placeholder(dtype, shape=None, name=None):
@@ -164,3 +241,158 @@ def slice(input_, begin, size, name=None):  # noqa: A001
             for i, s in enumerate(size)]
     return make_op("Slice", [x], attrs={"begin": tuple(begin),
                                         "size": tuple(size)}, name=name)
+
+
+def expand_dims(input, axis=None, name=None, dim=None):  # noqa: A002
+    if dim is not None and axis is None:
+        axis = dim
+    x = ops_mod.convert_to_tensor(input)
+    return make_op("ExpandDims", [x], attrs={"axis": int(axis)}, name=name)
+
+
+def zeros_like(tensor, dtype=None, name=None, optimize=True):
+    x = ops_mod.convert_to_tensor(tensor)
+    out = unary("ZerosLike", x, name)
+    if dtype is not None and dtypes_mod.as_dtype(dtype) != x.dtype.base_dtype:
+        from . import math_ops
+
+        out = math_ops.cast(out, dtype)
+    return out
+
+
+def ones_like(tensor, dtype=None, name=None, optimize=True):
+    x = ops_mod.convert_to_tensor(tensor)
+    out = unary("OnesLike", x, name)
+    if dtype is not None and dtypes_mod.as_dtype(dtype) != x.dtype.base_dtype:
+        from . import math_ops
+
+        out = math_ops.cast(out, dtype)
+    return out
+
+
+def concat(values, axis, name="concat"):
+    if not isinstance(values, (list, tuple)):
+        values = [values]
+    tensors = [ops_mod.convert_to_tensor(v) for v in values]
+    if len(tensors) == 1:
+        return identity(tensors[0], name=name)
+    if isinstance(axis, Tensor):
+        axis = int(constant_op.constant_value(axis))
+    return make_op("Concat", tensors, attrs={"axis": int(axis)}, name=name)
+
+
+def strided_slice(input_, begin, end, strides=None, begin_mask=0, end_mask=0,
+                  ellipsis_mask=0, new_axis_mask=0, shrink_axis_mask=0,
+                  name=None):
+    """(ref: array_ops.py ``strided_slice``): static bounds and masks as
+    the ``StridedSlice`` op's spec."""
+    bv = constant_op.constant_value(ops_mod.convert_to_tensor(begin))
+    ev = constant_op.constant_value(ops_mod.convert_to_tensor(end))
+    strv = (constant_op.constant_value(ops_mod.convert_to_tensor(strides))
+            if strides is not None else np.ones_like(bv))
+    if bv is None or ev is None or strv is None:
+        raise ValueError("strided_slice bounds must be static")
+    spec = []
+    for i, (b, e, s) in enumerate(zip(np.ravel(bv), np.ravel(ev),
+                                      np.ravel(strv))):
+        if shrink_axis_mask & (1 << i):
+            spec.append(("idx", int(b)))
+        elif new_axis_mask & (1 << i):
+            spec.append(("newaxis",))
+        elif ellipsis_mask & (1 << i):
+            spec.append(("ellipsis",))
+        else:
+            bb = None if begin_mask & (1 << i) else int(b)
+            ee = None if end_mask & (1 << i) else int(e)
+            spec.append(("slice", bb, ee, int(s)))
+    x = ops_mod.convert_to_tensor(input_)
+    return make_op("StridedSlice", [x], attrs={"spec": tuple(spec)},
+                   name=name)
+
+
+def _slice_helper(tensor, sl):
+    """``Tensor.__getitem__`` (ref: array_ops.py:478 ``_SliceHelper``)."""
+    if not isinstance(sl, tuple):
+        sl = (sl,)
+    spec = []
+    dyn = []
+    for item in sl:
+        if isinstance(item, builtins.slice):
+            def stat(v):
+                if v is None:
+                    return None
+                if isinstance(v, Tensor):
+                    c = constant_op.constant_value(v)
+                    if c is None:
+                        raise ValueError(
+                            "Slice bounds must be static; for dynamic "
+                            "windows use stf.gather.")
+                    return int(c)
+                return int(v)
+
+            spec.append(("slice", stat(item.start), stat(item.stop),
+                         stat(item.step)))
+        elif item is Ellipsis:
+            spec.append(("ellipsis",))
+        elif item is None:
+            spec.append(("newaxis",))
+        elif isinstance(item, Tensor):
+            c = constant_op.constant_value(item)
+            if c is not None and c.ndim == 0:
+                spec.append(("idx", int(c)))
+            else:
+                spec.append(("tensor_idx",))
+                dyn.append(item)
+        else:
+            spec.append(("idx", int(item)))
+    return make_op("StridedSlice", [tensor] + dyn,
+                   attrs={"spec": tuple(spec)})
+
+
+Tensor.__getitem__ = _slice_helper
+
+
+def where(condition, x=None, y=None, name=None):
+    """``Select`` of ``x`` where ``condition``, else ``y``, broadcasting
+    as ``jnp.where`` (a ``[B, 1]`` condition against ``[B, H]``); with
+    neither ``x`` nor ``y``, the indices of a static condition."""
+    condition = ops_mod.convert_to_tensor(condition)
+    if x is None and y is None:
+        cv = constant_op.constant_value(condition)
+        if cv is None:
+            raise ValueError(
+                "stf.where(cond) with one argument has a data-dependent "
+                "output shape; use where(cond, x, y) or a static "
+                "condition.")
+        return constant(np.argwhere(cv).astype(np.int64),
+                        name=name or "Where")
+    if x is None or y is None:
+        raise ValueError("x and y must both be set or both None")
+    from .op_util import promote_args
+
+    x, y = promote_args(x, y, "Select")
+    return make_op("Select", [condition, x, y], name=name)
+
+
+
+def reverse(tensor, axis, name=None):
+    x = ops_mod.convert_to_tensor(tensor)
+    if isinstance(axis, Tensor):
+        axis = constant_op.constant_value(axis)
+    axis = tuple(int(a) for a in np.ravel(axis))
+    return make_op("Reverse", [x], attrs={"axis": axis}, name=name)
+
+
+
+def sequence_mask(lengths, maxlen=None, dtype=dtypes_mod.bool_, name=None):
+    lengths = ops_mod.convert_to_tensor(lengths)
+    if maxlen is None:
+        v = constant_op.constant_value(lengths)
+        if v is None:
+            raise ValueError("sequence_mask needs a static maxlen")
+        maxlen = int(np.max(v))
+    elif isinstance(maxlen, Tensor):
+        maxlen = int(constant_op.constant_value(maxlen))
+    return make_op("SequenceMask", [lengths],
+                   attrs={"maxlen": int(maxlen),
+                          "dtype": dtypes_mod.as_dtype(dtype)}, name=name)

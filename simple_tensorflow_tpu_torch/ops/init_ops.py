@@ -1,20 +1,25 @@
 """Initializers of the port (port of the part of ``simple_tensorflow_tpu/
-ops/init_ops.py`` the MNIST, transformer and ResNet graphs reach:
-``Zeros``, ``Ones`` (:38), ``RandomNormal`` (:74), ``TruncatedNormal``
-(:84), ``VarianceScaling`` (:108) and ``glorot_uniform_initializer``
-(:206)). Each returns a graph tensor, so initialization runs on the
-device inside the initializer run. A draw in bf16 is drawn in f32 and
-cast, as the JAX ``_ru``/``_tn`` do. ``VarianceScaling`` with
-``"truncated_normal"`` (or ``"normal"``, which the JAX package maps to the
-same draw) divides its stddev by 0.87962566103423978, the stddev of a
-unit normal truncated to (-2, 2). Left out: the constant, orthogonal and
-identity initializers.
+ops/init_ops.py`` the MNIST, transformer, ResNet and RNN graphs reach:
+``Zeros``, ``Ones`` (:38), ``Constant`` (:48), ``RandomUniform`` (:63),
+``RandomNormal`` (:74), ``TruncatedNormal`` (:84), ``VarianceScaling``
+(:108) and ``glorot_uniform_initializer`` (:206)). Each returns a graph
+tensor, so initialization runs on the device inside the initializer run.
+A draw in bf16 is drawn in f32 and cast, as the JAX ``_ru``/``_tn`` do.
+``VarianceScaling`` with ``"truncated_normal"`` (or ``"normal"``, which
+the JAX package maps to the same draw) divides its stddev by
+0.87962566103423978, the stddev of a unit normal truncated to (-2, 2).
+``Constant`` is a ``Const`` of the value, filled or reshaped to the
+shape. Left out: the orthogonal, identity and uniform-unit-scaling
+initializers.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
+
+from ..framework import constant_op
 from ..framework import dtypes as dtypes_mod
 from . import random_ops
 
@@ -42,6 +47,35 @@ class Ones(Initializer):
         from . import array_ops
 
         return array_ops.ones(shape, dtype or self.dtype)
+
+
+class Constant(Initializer):
+    def __init__(self, value=0, dtype=dtypes_mod.float32,
+                 verify_shape=False):
+        self.value = value
+        self.dtype = dtypes_mod.as_dtype(dtype)
+
+    def __call__(self, shape, dtype=None, partition_info=None):
+        dt = dtypes_mod.as_dtype(dtype or self.dtype)
+        arr = np.asarray(self.value, dtype=dt.np_dtype)
+        if arr.shape == ():
+            arr = np.full(tuple(int(s) for s in shape), arr,
+                          dtype=dt.np_dtype)
+        else:
+            arr = arr.reshape(tuple(int(s) for s in shape))
+        return constant_op.constant(arr)
+
+
+class RandomUniform(Initializer):
+    def __init__(self, minval=-0.05, maxval=0.05, seed=None,
+                 dtype=dtypes_mod.float32):
+        self.minval, self.maxval, self.seed = minval, maxval, seed
+        self.dtype = dtypes_mod.as_dtype(dtype)
+
+    def __call__(self, shape, dtype=None, partition_info=None):
+        return random_ops.random_uniform(shape, self.minval, self.maxval,
+                                         dtype or self.dtype,
+                                         seed=self.seed)
 
 
 class RandomNormal(Initializer):
@@ -114,6 +148,8 @@ def _compute_fans(shape):
 
 zeros_initializer = Zeros
 ones_initializer = Ones
+constant_initializer = Constant
+random_uniform_initializer = RandomUniform
 random_normal_initializer = RandomNormal
 truncated_normal_initializer = TruncatedNormal
 

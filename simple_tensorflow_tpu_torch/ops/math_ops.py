@@ -9,11 +9,16 @@ numpy), ``MatMul`` (:663), the reductions ``Sum``/``Mean`` (:723),
 ``ArgMax`` (:777), ``Equal`` (:541) and ``NotEqual``, with the
 JAX module's strictness on mixed-dtype binary ops (``TypeError``) and its
 64-bit rule (``argmax``'s default int64 output computes and fetches as
-int32). The Tensor operators (``+ - * / @``) are installed here on
-``Tensor`` and ``Variable``. A plain f32 matrix product is left to
-``torch.matmul`` (full f32 on the card: the Session pins TF32 off). Left
-out: the other elementwise, comparison, reduction, segment, scan and
-linear-algebra ops.
+int32); for the RNN graphs ``Maximum``, ``Sigmoid``, ``Sqrt``,
+``Square``, ``Neg``, the comparisons ``Less``/``LessEqual``/``Greater``/
+``GreaterEqual``, ``LogicalNot``, ``ClipByValue`` and ``BatchMatMul``
+(what ``matmul`` builds for a rank-3 operand, :671-680). The Tensor
+operators (``+ - * / @ **``, and of :973-994 unary ``-`` and ``~`` and
+``< <= > >=``) are installed here on ``Tensor`` and ``Variable``.
+A plain f32 matrix product, batched or not, is left to ``torch.matmul``
+(full f32 on the card: the Session pins TF32 off), as the JAX package
+leaves it to XLA. Left out: the other elementwise, reduction, segment,
+scan and linear-algebra ops.
 """
 
 from __future__ import annotations
@@ -49,6 +54,18 @@ op_registry.register_pure("NotEqual", torch.ne)
 op_registry.register_pure("Cast", lambda x, dtype: x.to(_narrow(dtype)))
 op_registry.register_pure("Tanh", torch.tanh)
 op_registry.register_pure("AddN", lambda *xs: builtins.sum(xs[1:], xs[0]))
+op_registry.register_pure("Maximum", torch.maximum)
+op_registry.register_pure("Sigmoid", torch.sigmoid)
+op_registry.register_pure("Sqrt", torch.sqrt)
+op_registry.register_pure("Square", torch.square)
+op_registry.register_pure("Neg", torch.neg)
+op_registry.register_pure("Less", torch.lt)
+op_registry.register_pure("LessEqual", torch.le)
+op_registry.register_pure("Greater", torch.gt)
+op_registry.register_pure("GreaterEqual", torch.ge)
+op_registry.register_pure("LogicalNot", torch.logical_not)
+op_registry.register_pure("ClipByValue", lambda x, lo, hi: torch.minimum(
+    torch.maximum(x, lo), hi))
 
 
 def _matmul_impl(a, b, transpose_a=False, transpose_b=False):
@@ -60,6 +77,9 @@ def _matmul_impl(a, b, transpose_a=False, transpose_b=False):
 
 
 op_registry.register_pure("MatMul", _matmul_impl)
+op_registry.register_pure(
+    "BatchMatMul", lambda a, b, adj_x=False, adj_y=False: _matmul_impl(
+        a, b, adj_x, adj_y))
 
 
 def _reducer(fn):
@@ -127,6 +147,47 @@ def not_equal(x, y, name=None):
     return binary("NotEqual", x, y, name)
 
 
+def maximum(x, y, name=None):
+    return binary("Maximum", x, y, name)
+
+
+def negative(x, name=None):
+    return unary("Neg", x, name)
+
+
+
+def square(x, name=None):
+    return unary("Square", x, name)
+
+
+def sqrt(x, name=None):
+    return unary("Sqrt", x, name)
+
+
+def sigmoid(x, name=None):
+    return unary("Sigmoid", x, name)
+
+
+def less(x, y, name=None):
+    return binary("Less", x, y, name)
+
+
+def less_equal(x, y, name=None):
+    return binary("LessEqual", x, y, name)
+
+
+def greater(x, y, name=None):
+    return binary("Greater", x, y, name)
+
+
+def greater_equal(x, y, name=None):
+    return binary("GreaterEqual", x, y, name)
+
+
+def logical_not(x, name=None):
+    return unary("LogicalNot", x, name)
+
+
 def cast(x, dtype, name=None):
     dtype = dtypes_mod.as_dtype(dtype)
     x = ops_mod.convert_to_tensor(x)
@@ -170,7 +231,10 @@ def matmul(a, b, transpose_a=False, transpose_b=False, adjoint_a=False,
            adjoint_b=False, a_is_sparse=False, b_is_sparse=False, name=None):
     a, b = promote_args(a, b, "MatMul")
     if a.shape.rank is not None and a.shape.rank > 2:
-        raise NotImplementedError("batched matmul is not ported")
+        return make_op("BatchMatMul", [a, b],
+                       attrs={"adj_x": transpose_a or adjoint_a,
+                              "adj_y": transpose_b or adjoint_b},
+                       name=name)
     return make_op("MatMul", [a, b],
                    attrs={"transpose_a": transpose_a or adjoint_a,
                           "transpose_b": transpose_b or adjoint_b},
@@ -225,6 +289,12 @@ def _install_operators():
     T.__rmatmul__ = lambda self, other: matmul(other, self)
     T.__pow__ = lambda self, other: pow(self, other)
     T.__rpow__ = lambda self, other: pow(other, self)
+    T.__neg__ = lambda self: negative(self)
+    T.__invert__ = lambda self: logical_not(self)
+    T.__lt__ = lambda self, other: less(self, other)
+    T.__le__ = lambda self, other: less_equal(self, other)
+    T.__gt__ = lambda self, other: greater(self, other)
+    T.__ge__ = lambda self, other: greater_equal(self, other)
 
     from . import variables as variables_mod
 
@@ -236,7 +306,8 @@ def _install_operators():
 
     for dunder in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
                    "__rmul__", "__truediv__", "__rtruediv__", "__matmul__",
-                   "__rmatmul__", "__pow__", "__rpow__"):
+                   "__rmatmul__", "__pow__", "__rpow__", "__neg__",
+                   "__lt__", "__le__", "__gt__", "__ge__"):
         setattr(variables_mod.Variable, dunder, _mk(dunder))
 
 

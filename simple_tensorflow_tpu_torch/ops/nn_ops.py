@@ -26,7 +26,10 @@ lowerings call its ``_conv2d_impl`` (:164) and ``_max_pool_impl`` (:352):
 - ``_relu_impl``, ``_l2_loss_impl`` (:53) and
   ``_sparse_softmax_xent_impl`` (:67-109), the last through the
   softmax-xent kernels without smoothing: the function the JAX registry's
-  routed lowering computes (:92-104).
+  routed lowering computes (:92-104); logits of any rank go to the
+  kernels as rows (``[B, T, V]`` with ``[B, T]`` labels: one ``[B*T,
+  V]`` view, copied only when not contiguous).
+- ``Softmax`` (:49, ``softmax``): ``torch.softmax`` along its axis.
 
 Left out of the graph ops: NCHW data formats, dilations, the other
 activations, pools and convolutions.
@@ -181,6 +184,8 @@ op_registry.register_pure("BiasAdd", _bias_add_op)
 op_registry.register_pure("Conv2D", _conv2d_op)
 op_registry.register_pure("MaxPool", _max_pool_op)
 op_registry.register_pure("SoftmaxCrossEntropyWithLogits", _softmax_xent)
+op_registry.register_pure("Softmax", lambda x, axis=-1: torch.softmax(
+    x, dim=axis))
 
 
 def _lower_sparse_xent(ctx, op, inputs):
@@ -222,6 +227,12 @@ op_registry.register("Dropout", lower=_lower_dropout,
 
 def relu(features, name=None):
     return unary("Relu", features, name)
+
+
+def softmax(logits, axis=-1, name=None, dim=None):
+    if dim is not None:
+        axis = dim
+    return unary("Softmax", logits, name, attrs={"axis": int(axis)})
 
 
 def gelu(features, approximate=True, name=None):

@@ -1859,3 +1859,122 @@ def test_saver_round_trip_on_card(cuda, tmp_path):
     with stf.Session(graph=g) as s3:
         with pytest.raises(errors.DataLossError, match="checksum"):
             saver.restore(s3, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,vocab", [(700, 10000), (768, 120)])
+def test_softmax_xent_at_the_rnn_shapes_on_card(cuda, rows, vocab):
+    # PTB medium's logits (20 x 35 rows of its 10000 words) and seq2seq's
+    # (64 x 12 of 120) in f32; seq2seq hands the wrapper [B, T, V] logits
+    # with [B, T] labels, which it runs as rows
+    from simple_tensorflow_tpu_torch.ops.kernels.softmax_xent import (
+        softmax_cross_entropy)
+
+    x, labels, g = _xent_inputs(cuda, torch.float32, vocab, rows=rows)
+    loss, lse = K.softmax_xent_fwd(x, labels)
+    rloss, rlse = K.softmax_xent_fwd_plain(x, labels)
+    dx = K.softmax_xent_bwd(x, labels, rlse, g)
+    rdx = K.softmax_xent_bwd_plain(x, labels, rlse, g)
+    torch.cuda.synchronize()
+    _close(loss, rloss, 1e-5)
+    _close(lse, rlse, 1e-5)
+    _close_elementwise(dx, rdx, 1e-5)
+    b = 64 if rows == 768 else 20
+    x3 = x.reshape(b, rows // b, vocab).detach().requires_grad_()
+    lab3 = labels.reshape(b, rows // b)
+    before = K.launch_counts()
+    out = softmax_cross_entropy(x3, lab3)
+    (gk,) = torch.autograd.grad(out, x3, g.reshape(out.shape))
+    counts = K.launch_counts()
+    assert counts["softmax_xent_fwd"] - before["softmax_xent_fwd"] == 1
+    assert counts["softmax_xent_bwd"] - before["softmax_xent_bwd"] == 1
+    ref = softmax_cross_entropy(x3, lab3, plain=True)
+    (gp,) = torch.autograd.grad(ref, x3, g.reshape(out.shape))
+    assert out.shape == (b, rows // b)
+    _close(out, ref, 1e-5)
+    _close_elementwise(gk, gp, 1e-5)
+
+
+def _scan_session(stf, capture, steps=4, dropout=True):
+    """A graph whose ``Scan`` body (``steps`` steps over (20, 650) rows)
+    runs a seeded Dropout at keep_prob 0.5 on its carry and a product
+    with a captured variable, and the gradient of a loss through it, in
+    a Session on the card: ``(fetches, session)``."""
+    g = stf.Graph()
+    with g.as_default():
+        stf.set_random_seed(3)
+        w = stf.get_variable("w", [650, 650], initializer=(
+            stf.random_uniform_initializer(-0.05, 0.05, seed=1)))
+        xs = stf.constant(np.random.RandomState(0).randn(
+            steps, 20, 650).astype(np.float32))
+
+        def body(c, x):
+            h = stf.tanh(stf.matmul(c, w) + x)
+            return stf.nn.dropout(h, keep_prob=0.5, seed=11) \
+                if dropout else h
+
+        first = stf.nn.dropout(stf.ones([20, 650]), keep_prob=0.5, seed=11)
+        hs = stf.scan(body, xs, initializer=first * 0.0)
+        masks = stf.scan(lambda c, x: stf.nn.dropout(
+            stf.ones_like(x), keep_prob=0.5, seed=11), xs,
+            initializer=first)
+        loss = stf.reduce_sum(hs * hs)
+        grad = stf.gradients(loss, [w])[0]
+        init = stf.global_variables_initializer()
+    s = stf.Session(graph=g)
+    s._capture = capture
+    s.run(init)
+    return [hs, masks, grad, loss], s
+
+
+@pytest.mark.cuda
+def test_a_scan_body_dropout_under_a_capture_on_card(cuda):
+    # a seeded Dropout in a Scan body at (20, 650): a captured step draws
+    # it through the device-key entry from its row of the key buffer,
+    # the same mask at every step of a run and the eager step's mask
+    import simple_tensorflow_tpu_torch as stf
+
+    outs = {}
+    for capture in (False, True):
+        fetch, s = _scan_session(stf, capture)
+        K.reset_launch_counts()
+        outs[capture] = [s.run(fetch) for _ in range(4)]
+        counts = K.launch_counts()
+        assert s.captures == (1 if capture else 0)
+        s.close()
+        # each run: 4 + 4 body Dropouts and the outer one; 4 backwards
+        assert counts["dropout_bwd"] == 4 * 4
+        if capture:
+            assert counts["dropout"] == 9
+            assert counts["dropout_device_key"] == 9 * 3
+        else:
+            assert counts["dropout"] == 9 * 4
+    for (h0, m0, g0, l0), (h1, m1, g1, l1) in zip(outs[False], outs[True]):
+        assert l0 == l1
+        np.testing.assert_array_equal(h0, h1)
+        np.testing.assert_array_equal(m0, m1)
+        np.testing.assert_array_equal(g0, g1)
+        kept = m1 != 0
+        assert 0.45 < kept.mean() < 0.55
+        for t in range(1, 4):
+            np.testing.assert_array_equal(kept[t], kept[0])
+    # the next run draws another mask
+    assert not np.array_equal(outs[True][1][1], outs[True][2][1])
+
+
+@pytest.mark.cuda
+def test_a_captured_scan_gradient_equals_eager_on_card(cuda):
+    # a 2-step Scan without randomness: the captured step's gradient of a
+    # captured variable equals the eager step's bit for bit
+    import simple_tensorflow_tpu_torch as stf
+
+    outs = {}
+    for capture in (False, True):
+        fetch, s = _scan_session(stf, capture, steps=2, dropout=False)
+        outs[capture] = [s.run([fetch[0], fetch[2]]) for _ in range(3)]
+        assert s.captures == (1 if capture else 0)
+        s.close()
+    for (h0, g0), (h1, g1) in zip(outs[False], outs[True]):
+        np.testing.assert_array_equal(h0, h1)
+        np.testing.assert_array_equal(g0, g1)
+        assert np.abs(g1).max() > 0

@@ -88,6 +88,11 @@ def test_importing_the_port_loads_no_jax():
             monitored_session, saver, session_run_hook)
         from simple_tensorflow_tpu_torch.framework import function
         from simple_tensorflow_tpu_torch.models import bert, common
+        from simple_tensorflow_tpu_torch.ops import (clip_ops,
+                                                     functional_ops, rnn,
+                                                     rnn_cell)
+        from simple_tensorflow_tpu_torch.models import (ptb_lstm,
+                                                        rnn_seq2seq)
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -125,6 +130,36 @@ def test_the_bert_slice_modules_are_guarded():
     assert {"framework/function.py", "framework/graph.py",
             "framework/lowering.py", "analysis/effects.py",
             "models/bert.py", "models/common.py"} <= guarded
+
+
+def test_the_rnn_slice_modules_are_guarded():
+    # the loops (Scan, MapFn, Foldl), the RNN library and the two RNN
+    # graphs are among the files the guard reads
+    guarded = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"ops/functional_ops.py", "ops/rnn.py", "ops/rnn_cell.py",
+            "ops/clip_ops.py", "ops/control_flow_ops.py",
+            "models/ptb_lstm.py", "models/rnn_seq2seq.py"} <= guarded
+
+
+def test_an_rnn_session_defaults_to_the_gpu(monkeypatch):
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import ptb_lstm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ptb_lstm.PTBConfig.tiny()
+    with stf.Graph().as_default():
+        m = ptb_lstm.ptb_lm_model(2, cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stf.Session()
+        with stf.Session(config=stf.ConfigProto(
+                device_count={"GPU": 0})) as s:
+            s.run(stf.global_variables_initializer())
+            x, y = ptb_lstm.synthetic_ptb_batch(2, cfg.seq_len,
+                                                cfg.vocab_size)
+            feeds = {m["input_ids"]: x, m["target_ids"]: y}
+            feeds.update(ptb_lstm.state_feed(m, ptb_lstm.zero_state(2, cfg)))
+            loss = s.run(m["loss"], feeds)
+            assert s.device.type == "cpu" and np.isfinite(loss)
 
 
 def test_a_bert_session_defaults_to_the_gpu(monkeypatch):
