@@ -3,8 +3,9 @@
 NVIDIA GPU and check every kernel of its serving and training paths
 (causal LM and ResNet-50) and of its TF-1 front end (``stf.Session``
 training the MNIST convnet, the seq2seq transformer, the causal LM,
-ResNet-50 and BERT-base, with and without per-layer recompute, and the
-two RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq).
+ResNet-50 and BERT-base, with and without per-layer recompute, the two
+RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq, and
+the transformer's beam search on ``stf.while_loop``).
 
     python3 chip_smoke.py [--serving]
 
@@ -343,20 +344,50 @@ beside another tree's package measures that tree's serving path.
    windows in target tokens/s), then ``S2S_TRAIN_STEPS`` captured steps
    after which the loss is below half its start and the greedy decode is
    right on more than half of the real target tokens.
+12. Beam phase: TF-1 control flow on the card and the reference's
+   inference path, ``models/transformer.py`` ``beam_search_decode`` (one
+   ``stf.while_loop``) at ``TransformerConfig.big()``, batch ``BEAM_B`` x
+   beam ``BEAM_K``, a source of ``BEAM_SRC`` tokens whose last
+   ``BEAM_PADS`` are padding, weights from the initializers under graph
+   seed 1. First K6 (the single-query DecodeAttention) at the beam shapes
+   (B = 16, L = 64, 16 x 64 heads; self-attention at lengths 1, 32 and
+   64, the cross-attention with the pad bias; f32 and bf16) against its
+   plain version, each with a planted fault that must fail (the reference
+   at lengths - 1, or without its bias), its bound from the positions the
+   lengths admit and SDPA's time; the conditional-node setter
+   (``csrc/control_flow.cu``) against the host read of its predicates
+   over 64 IF nodes. Then a control-flow probe (a data-dependent
+   ``while_loop``, a ``cond`` whose untaken branch is NaN, the gradient of
+   a bounded loop whose body is NaN past its exit), eager against
+   captured, bit for bit, no host predicate read in a replay. Then f32 at
+   ``decode_len`` ``BEAM_LEN``: the KV-cached search against the naive
+   re-forward in one graph, ids int-exact and scores within 1e-4, which a
+   planted cache fault (lengths ``i`` for ``i + 1``) must fail. Then the
+   bf16 cached search: an eager and a captured window of ``BEAM_RUNS``
+   decodes, bit for bit equal, column 0 EOS, exactly 2 x 6 x 63
+   DecodeAttention launches and, eager, 64 host predicate reads a decode
+   (captured: none), p50, output tokens/s (batch x (decode_len - 1) a
+   decode), device ms and operations a decode, the captured graph's nodes
+   (its WHILE body's included); last the default ``decode_len``
+   (``cfg.max_len`` = 256: 255 iterations) captured and replayed, each
+   replay equal to the eager decode.
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
 window, the Session's checked steps and its two windows, the transformer's,
 the causal LM's and ResNet's f32 checked steps and their two windows, the
 training loop's run A and its checked windows, BERT's two checks and its
-five windows, the RNN graphs' checks, windows and seq2seq's 60 steps) is
-counted from zero just before it; a kernel's ``launches`` sum over the
+five windows, the RNN graphs' checks, windows and seq2seq's 60 steps,
+the beam search's f32 check and its bf16 windows) is counted from zero
+just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
 (``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``,
-``@ptb``, ``@seq2seq``) count that path's launches alone (``@bert``: the
-shipped-config windows; ``@ptb``, ``@seq2seq``: the windows and the 60
-steps). Prints a
+``@ptb``, ``@seq2seq``, ``@beam``) count that path's launches alone
+(``@bert``: the shipped-config windows; ``@ptb``, ``@seq2seq``: the
+windows and the 60 steps; ``@beam``: the f32 check for the f32 rows, the
+bf16 windows for the bf16 rows). A kernel in a conditional node's body
+counts once per run of the body (``DeviceGraph.settle``). Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
 failure, when no CUDA device is available, or without the package
@@ -5849,6 +5880,442 @@ def rnn_phase(K, dev, kernel_rows):
     return paths
 
 
+# -- phase 12: control flow and the Transformer's beam search ---------------
+
+BEAM_B, BEAM_K, BEAM_SRC = 4, 4, 64      # batch x beam = 16 decode rows
+BEAM_PADS = 9                            # the source's last 9 positions pad
+BEAM_LEN = 64                            # decode_len of the checks and rows
+BEAM_RUNS = 5                            # timed decodes of a window
+
+
+def beam_src(cfg):
+    """The phase's source batch: ``synthetic_wmt_batch(seed=0)`` ids with
+    the last ``BEAM_PADS`` positions of every row padded."""
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    src = tr.synthetic_wmt_batch(BEAM_B, BEAM_SRC, BEAM_SRC,
+                                 vocab_size=cfg.vocab_size,
+                                 seed=0)["src_ids"].copy()
+    src[:, -BEAM_PADS:] = cfg.pad_id
+    return src
+
+
+def beam_kernel_rows(K, rng, dev):
+    """K6 (the single-query DecodeAttention) at the beam shapes, f32 and
+    bf16: self-attention at B = 16, L = 64, lengths 1, 32 and 64, and the
+    cross-attention at L = 64 over the padded source with its pad bias.
+    Each row against its plain version, a planted fault (the reference at
+    lengths - 1; the cross row without its bias) that must disagree, its
+    bound from the positions the lengths admit, and SDPA's time."""
+    import torch.nn.functional as F
+
+    H, D, B, L = 16, 64, BEAM_B * BEAM_K, BEAM_LEN
+    main = {}
+    pad_bias = torch.zeros(B, L, device=dev)
+    pad_bias[:, -BEAM_PADS:] = -1e9
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        for n, cross in ((1, False), (32, False), (64, False), (64, True)):
+            per_call = (2 * B * L * H * D + 2 * B * H * D) * \
+                torch.tensor([], dtype=dtype).element_size()
+            copies = []
+            for _ in range(n_copies(per_call)):
+                copies.append(tuple(
+                    torch.from_numpy(rng.standard_normal(s)).to(dev, dtype)
+                    for s in ((B, H, D), (B, L, H, D), (B, L, H, D))))
+            lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+            bias = pad_bias if cross else None
+            q, k, v = copies[0]
+            out = K.decode_attention(q, k, v, lengths, bias=bias)
+            ref = K.decode_attention_plain(q, k, v, lengths, bias=bias)
+            wrong = (K.decode_attention_plain(q, k, v, lengths)
+                     if cross else K.decode_attention_plain(
+                         q, k, v, lengths - 1))
+            torch.cuda.synchronize()
+            name = (f"decode_attention@beam {tag} B={B} L={L} "
+                    f"{'cross pad bias' if cross else 'self'} length {n}")
+            err = check_close(name, out, ref, dtype)
+            rtol, atol = TOL[dtype]
+            if torch.allclose(out.float(), wrong.float(), rtol=rtol,
+                              atol=atol):
+                fail(f"{name}: the planted fault (the reference "
+                     f"{'without its bias' if cross else 'at lengths - 1'})"
+                     " passes the check")
+            span = torch.arange(L, device=dev).view(1, 1, L)
+            add = torch.where(span < lengths.view(B, 1, 1).long(), 0.0,
+                              float("-inf"))
+            if bias is not None:
+                add = add + bias.view(B, 1, L)
+            add = add.view(B, 1, 1, L).to(dtype)
+
+            def kern(c):
+                return lambda: K.decode_attention(c[0], c[1], c[2], lengths,
+                                                  bias=bias)
+
+            def plain(c):
+                return lambda: K.decode_attention_plain(
+                    c[0], c[1], c[2], lengths, bias=bias)
+
+            def lib(c):
+                return lambda: F.scaled_dot_product_attention(
+                    c[0].view(B, 1, H, D).transpose(1, 2),
+                    c[1].transpose(1, 2), c[2].transpose(1, 2),
+                    attn_mask=add)
+
+            ms = device_ms([kern(c) for c in copies])
+            plain_ms = device_ms([plain(c) for c in copies])
+            lib_ms = device_ms([lib(c) for c in copies])
+            elem = q.element_size()
+            # the positions the lengths admit, K and V rows of each read
+            # once; q, the output, lengths and the bias
+            moved = (B * n * H * D * 2 * elem + 2 * q.numel() * elem
+                     + B * 4 + (B * L * 4 if cross else 0))
+            bnd = bound_ms(moved, 4 * B * n * H * D, dtype)
+            report(name, err, ms, plain_ms, bnd, lib_ms)
+            key = f"decode_attention@beam_{tag}_" + (
+                "cross" if cross else f"len{n}")
+            main[key] = kernel_row(err, ms, plain_ms, bnd, lib_ms, name)
+    return main
+
+
+def cond_set_row(K, dev):
+    """The conditional-node setter (``csrc/control_flow.cu``) against its
+    plain version, the predicate read on the host: a graph of 64 IF nodes,
+    each adding its index to a sum when its predicate holds, replayed for
+    two predicate patterns and held to the host loop's sums; its time a
+    node, the host read's, and its bound (one byte)."""
+    from simple_tensorflow_tpu_torch.ops.kernels import control_flow as cf
+
+    n = 64
+    preds = torch.zeros(n, dtype=torch.bool, device=dev)
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+    cf.ensure_counters(dev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launch_counts()
+    with cf.collect_bodies() as (pools, frames), torch.cuda.graph(graph):
+        for i in range(n):
+            cf.run_if(preds[i], lambda i=i: acc.add_(float(i)))
+    if K.launch_counts()["cond_set"] != n:
+        fail(f"cond_set: {K.launch_counts()['cond_set']} setter launches "
+             f"captured for {n} IF nodes")
+    K.reset_launch_counts()
+    worst = 0.0
+    for pattern in (np.arange(n) % 3 == 0, np.arange(n) % 2 == 1):
+        preds.copy_(torch.from_numpy(pattern))
+        acc.zero_()
+        graph.replay()
+        got = acc.item()
+        want = 0.0
+        for i in range(n):   # the plain version: each predicate on the host
+            if bool(preds[i].item()):
+                want += float(i)
+        worst = max(worst, abs(got - want))
+        if got != want:
+            fail(f"cond_set: IF nodes summed {got}, the host loop {want}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(5):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    ms = statistics.median(times)
+
+    def plain():
+        for i in range(n):
+            if bool(preds[i].item()):
+                acc.add_(float(i))
+
+    plain_ms = event_ms(plain) / n
+    bnd = bound_ms(1, 0, torch.float32)
+    name = "cond_set (an IF node, its setter and a one-kernel body)"
+    report(name, worst, ms, plain_ms, bnd, None)
+    torch.cuda.synchronize()
+    del graph
+    cf.release_pools(dev, pools)
+    cf.release_frames(dev, frames)
+    return {"cond_set": kernel_row(worst, ms, plain_ms, bnd, None, name)}
+
+
+def cf_probe(stf, dev):
+    """A data-dependent ``while_loop`` (a tanh layer applied until the
+    squared sum passes 400), a ``cond`` whose untaken branch is NaN, and
+    the gradient of a bounded loop whose body is NaN past its exit, eager
+    and captured, for 4 feeds: equal bit for bit, finite, the trip counts
+    differing, no host predicate read in a replay."""
+    feeds = [np.random.RandomState(5).randn(8).astype(np.float32) * s
+             for s in (0.1, 1.0, -3.0, 0.02)]
+    outs, reads = {}, {}
+    for capture in (False, True):
+        g = stf.Graph()
+        with g.as_default():
+            x = stf.placeholder(stf.float32, [8], name="x")
+            w = stf.get_variable("w", [8, 8], initializer=(
+                stf.constant_initializer(np.eye(8, dtype=np.float32) * 1.5)))
+            i, v = stf.while_loop(
+                lambda i, v: stf.less(stf.reduce_sum(v * v), 400.0),
+                lambda i, v: (i + 1, stf.reshape(stf.tanh(stf.matmul(
+                    stf.reshape(v, [1, 8]), w)), [8]) * 2.0 + v),
+                [stf.constant(0), x])
+            s = stf.reduce_sum(x)
+            c = stf.cond(stf.greater(s, 0.0), lambda: stf.sqrt(s),
+                         lambda: stf.sqrt(-s) * 2.0)
+            _, a = stf.while_loop(lambda j, a: stf.greater(a, 1.0),
+                                  lambda j, a: (j + 1, stf.sqrt(a - 1.0)),
+                                  [stf.constant(0), s * s + 1.5],
+                                  maximum_iterations=6)
+            gx = stf.gradients(a + c, [x])[0]
+            fetch = [i, v, c, a, gx]
+            sess = stf.Session()
+            sess._capture = capture
+            sess.run(stf.global_variables_initializer())
+            sess.run(fetch, {x: feeds[0]})
+            sess.host_predicate_reads = 0
+            outs[capture] = [sess.run(fetch, {x: f}) for f in feeds]
+            reads[capture] = sess.host_predicate_reads
+            if sess.captures != (1 if capture else 0):
+                fail(f"control-flow probe: {sess.captures} captures")
+            sess.close()
+    for e, c in zip(outs[False], outs[True]):
+        for a, b in zip(e, c):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                fail("control-flow probe: a captured run differs from the "
+                     "eager run")
+            if not np.isfinite(np.asarray(b)).all():
+                fail("control-flow probe: a non-finite value or gradient "
+                     "(a guarded body ran past its exit)")
+    trips = [int(o[0]) for o in outs[True]]
+    if len(set(trips)) < 2 or reads[True] or not reads[False]:
+        fail(f"control-flow probe: trip counts {trips}, host predicate "
+             f"reads eager {reads[False]} captured {reads[True]}")
+    print(f"control-flow probe: a data-dependent while_loop ({trips} "
+          f"iterations), a cond with a NaN untaken branch and the gradient "
+          f"of a bounded loop NaN past its exit: captured = eager bit for "
+          f"bit over 4 feeds; host predicate reads eager {reads[False]}, "
+          f"captured {reads[True]}", flush=True)
+
+
+def beam_session(stf, tr, cfg, dtype, L, caches=(True,), fault=False):
+    """``beam_search_decode`` of the phase's batch in a new graph under
+    graph seed 1, for each ``use_cache`` in ``caches``, and a Session on
+    the card after its initializer run: ``(src, [(ids, scores)],
+    session)``. ``fault``: the cache accessor's lengths ``i`` instead of
+    ``i + 1`` (the new position unread)."""
+    g = stf.Graph()
+    orig = tr._BeamCaches.append_and_gather
+
+    def short(self, layer, k_new, v_new):
+        k_all, v_all, _ = orig(self, layer, k_new, v_new)
+        return k_all, v_all, stf.fill([self._b], self._i)
+
+    if fault:
+        tr._BeamCaches.append_and_gather = short
+    try:
+        with g.as_default():
+            stf.set_random_seed(1)
+            src = stf.placeholder(stf.int32, [BEAM_B, BEAM_SRC], "src")
+            outs = [tr.beam_search_decode(src, cfg, beam_size=BEAM_K,
+                                          decode_len=L, compute_dtype=dtype,
+                                          use_cache=c) for c in caches]
+            init = stf.global_variables_initializer()
+    finally:
+        tr._BeamCaches.append_and_gather = orig
+    sess = stf.Session(graph=g)
+    sess.run(init)
+    return src, outs, sess
+
+
+def beam_agree(ids, scores, ref_ids, ref_scores):
+    """``(ok, first differing column or None, max score difference)``."""
+    diff = np.argwhere(ids != ref_ids)
+    col = int(diff[:, 2].min()) if len(diff) else None
+    err = float(np.abs(scores - ref_scores).max())
+    return col is None and err <= 1e-4, col, err
+
+
+def check_beam_f32(K, stf, tr, cfg, src_ids):
+    """f32 at ``decode_len`` 64: the cached search against the naive one
+    in one graph (shared weights), ids int-exact and scores within 1e-4
+    (the JAX suite's bar for the pair); then with the planted cache
+    fault, which must fail it. Returns the launches of the checked run."""
+    src, (naive, cached), sess = beam_session(
+        stf, tr, cfg, stf.float32, BEAM_LEN, caches=(False, True))
+    sess._capture = False
+    K.reset_launch_counts()
+    (n_ids, n_sc), (c_ids, c_sc) = sess.run([naive, cached],
+                                            {src: src_ids})
+    counts = K.launch_counts()
+    sess.close()
+    ok, col, err = beam_agree(c_ids, c_sc, n_ids, n_sc)
+    if not ok:
+        fail(f"beam f32: cached against naive: first differing column "
+             f"{col}, max score difference {err:.3e} (limit 1e-4)")
+    src, (naive, cached), sess = beam_session(
+        stf, tr, cfg, stf.float32, BEAM_LEN, caches=(False, True),
+        fault=True)
+    sess._capture = False
+    (fn_ids, fn_sc), (fc_ids, fc_sc) = sess.run([naive, cached],
+                                                {src: src_ids})
+    sess.close()
+    f_ok, f_col, f_err = beam_agree(fc_ids, fc_sc, fn_ids, fn_sc)
+    if f_ok:
+        fail("beam f32: the planted fault (lengths i, not i + 1, in the "
+             "cache accessor) passes the cached-against-naive check")
+    print(f"beam f32 (decode_len {BEAM_LEN}): cached = naive ids over "
+          f"{c_ids.size} tokens, max score difference {err:.3e} (limit "
+          f"1e-4); the planted fault fails it (first differing column "
+          f"{f_col}, max score difference {f_err:.3e})", flush=True)
+    return counts
+
+
+def beam_window(K, sess, fetch, feeds, capture):
+    """``BEAM_RUNS`` decodes after a warm-up (and with ``capture`` the
+    capture), then a profiler window of 2: ids and scores, host seconds,
+    launches a decode (counted from zero around the timed runs), host
+    predicate reads a decode, device ms and operations a decode, captures
+    and the graph's nodes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sess._capture = capture
+    sess.run(fetch, feeds)
+    if capture:
+        sess.run(fetch, feeds)
+    sess.host_predicate_reads = 0
+    K.reset_launch_counts()
+    outs, times = [], []
+    for _ in range(BEAM_RUNS):
+        t0 = time.perf_counter()
+        outs.append(sess.run(fetch, feeds))
+        times.append(time.perf_counter() - t0)
+    counts = {k: v / BEAM_RUNS for k, v in K.launch_counts().items() if v}
+    reads = sess.host_predicate_reads / BEAM_RUNS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            sess.run(fetch, feeds)
+        torch.cuda.synchronize()
+    traced = device_times(prof)
+    dev_ms = sum(ms for ms, _ in traced.values()) / 2
+    ops = sum(k for _, k in traced.values()) / 2
+    top = sorted(((ms / 2, k / 2, name) for name, (ms, k) in traced.items()),
+                 reverse=True)[:8]
+    nodes = None
+    if capture:
+        plan = [p for p in sess._cache.values() if p.executables][-1]
+        nodes = list(plan.executables.values())[0].graph.node_count()
+    return dict(outs=outs, times=times, counts=counts, reads=reads,
+                dev_ms=dev_ms if ops else None, ops=ops, nodes=nodes, top=top,
+                captures=sess.captures, raw_counts={
+                    k: int(round(v * BEAM_RUNS)) for k, v in counts.items()})
+
+
+def beam_phase(K, dev, kernel_rows):
+    """Phase 12: control flow on the card and the reference's beam search
+    (module docstring). Returns ``[(path, dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = tr.TransformerConfig.big()
+    rng = np.random.RandomState(12)
+    print("beam search kernels (K6 at the beam shapes, the node setter):",
+          flush=True)
+    kernel_rows.update(beam_kernel_rows(K, rng, dev))
+    kernel_rows.update(cond_set_row(K, dev))
+    cf_probe(stf, dev)
+    src_ids = beam_src(cfg)
+    print(f"beam: beam_search_decode at TransformerConfig.big() (vocab "
+          f"{cfg.vocab_size}, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_layers} + {cfg.num_layers} layers), batch {BEAM_B} x "
+          f"beam {BEAM_K}, source {BEAM_SRC} with its last {BEAM_PADS} "
+          f"positions padded, weights from the initializers under graph "
+          f"seed 1; {card}", flush=True)
+    paths = [("beam f32 check", 0.0, check_beam_f32(K, stf, tr, cfg,
+                                                     src_ids))]
+    src, (cached,), sess = beam_session(stf, tr, cfg, stf.bfloat16,
+                                        BEAM_LEN)
+    feeds = {src: src_ids}
+    res = {}
+    for capture, name in ((False, "eager"), (True, "captured")):
+        res[name] = beam_window(K, sess, cached, feeds, capture)
+    sess.close()
+    eager, graph = res["eager"], res["captured"]
+    for a, b in zip(eager["outs"], graph["outs"]):
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            fail("beam bf16: a captured decode differs from the eager one")
+    ids, scores = graph["outs"][-1]
+    if not (ids[:, :, 0] == cfg.eos_id).all() or \
+            not np.isfinite(scores).all():
+        fail("beam bf16: column 0 is not EOS everywhere or a score is not "
+             "finite")
+    steps = BEAM_LEN - 1
+    per = 2 * cfg.num_layers * steps
+    for tag, w in (("eager", eager), ("captured", graph)):
+        got = w["counts"].get("decode_attention", 0)
+        if got != per:
+            fail(f"beam bf16 {tag}: {got} DecodeAttention launches a "
+                 f"decode, expected {per} (2 x {cfg.num_layers} layers x "
+                 f"{steps} iterations)")
+    if graph["reads"] or eager["reads"] != steps + 1:
+        fail(f"beam bf16: host predicate reads a decode eager "
+             f"{eager['reads']} (expected {steps + 1}), captured "
+             f"{graph['reads']} (expected 0)")
+    tokens = BEAM_B * steps
+    for tag, w in (("eager", eager), ("captured", graph)):
+        p50 = statistics.median(w["times"])
+        # the traced kernels' summed time, which CUPTI inflates: a busy
+        # share only where it stays under the wall time
+        busy = "not measured" if w["dev_ms"] is None or \
+            w["dev_ms"] > p50 * 1e3 else \
+            f"{100 * w['dev_ms'] / (p50 * 1e3):.1f}%"
+        dev_txt = "not measured" if w["dev_ms"] is None else \
+            f"{w['dev_ms']:.4f}"
+        print(f"beam bf16 {tag} (decode_len {BEAM_LEN}, {steps} "
+              f"iterations): p50 {p50 * 1e3:.4f} ms a decode, "
+              f"{tokens / p50:.2f} output tokens/s ({BEAM_B} x {steps} a "
+              f"decode), device ms a decode {dev_txt} (busy {busy}), "
+              f"device operations a decode {w['ops']:.1f}, host predicate "
+              f"reads a decode {w['reads']:.0f}, launches a decode "
+              f"{w['counts']}, graph nodes {w['nodes']}; {card}",
+              flush=True)
+    print("beam bf16 captured: the traced device time a decode by kernel "
+          "(ms, launches): " + "; ".join(
+              f"{name[:60]} {ms:.4f} ({k:.0f})" for ms, k, name in
+              graph["top"]), flush=True)
+    print(f"beam bf16: captured = eager bit for bit over {BEAM_RUNS} "
+          f"decodes; column 0 EOS; scores finite; {card}", flush=True)
+    paths += [("beam bf16 eager", 0.0, eager["raw_counts"]),
+              ("beam bf16 captured", 0.0, graph["raw_counts"])]
+    # the default decode_len, cfg.max_len: 255 iterations
+    src, (cached,), sess = beam_session(stf, tr, cfg, stf.bfloat16, None)
+    feeds = {src: src_ids}
+    sess._capture = False
+    ref = sess.run(cached, feeds)
+    long = beam_window(K, sess, cached, feeds, True)
+    sess.close()
+    for got in long["outs"]:
+        if not (np.array_equal(got[0], ref[0]) and
+                np.array_equal(got[1], ref[1])):
+            fail(f"beam bf16 decode_len {cfg.max_len}: a replay differs "
+                 "from the eager decode")
+    p50 = statistics.median(long["times"])
+    steps = cfg.max_len - 1
+    print(f"beam bf16 captured (decode_len {cfg.max_len}, {steps} "
+          f"iterations, captured and replayed {BEAM_RUNS} times, each "
+          f"equal to the eager decode): p50 {p50 * 1e3:.4f} ms, "
+          f"{BEAM_B * steps / p50:.2f} output tokens/s, device ms a decode "
+          f"{long['dev_ms']}, device operations a decode "
+          f"{long['ops']:.1f}, DecodeAttention launches a decode "
+          f"{long['counts'].get('decode_attention')}, graph nodes "
+          f"{long['nodes']}; {card}", flush=True)
+    paths.append(("beam bf16 long", 0.0, long["raw_counts"]))
+    print(f"beam phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
 def seeded_graph_vars(stf, build):
     """The trainable variables of ``build()`` in a new graph."""
     g = stf.Graph()
@@ -6014,6 +6481,8 @@ def main():
     paths += bert_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
     paths += rnn_phase(K, dev, main_rows)
+    torch.cuda.empty_cache()
+    paths += beam_phase(K, dev, main_rows)
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -6078,6 +6547,14 @@ def main():
             ("seq2seq", ("softmax_xent_fwd", "softmax_xent_bwd",
                          "adam_update")))
         for name in names})
+    # K6 at the beam shapes: the f32 check's and the bf16 decodes' launches
+    session_where.update({
+        f"decode_attention@beam_{t}_{s}": (
+            "decode_attention.cu", "decode_attention.py:57",
+            "decode_attention", "decode_attention",
+            "beam f32" if t == "float32" else "beam bf16")
+        for t in ("float32", "bfloat16")
+        for s in ("len1", "len32", "len64", "cross")})
     # (the general row's counter, the path) pairs a Session row takes over
     claimed = {(c, p) for _, _, _, c, p in session_where.values()}
     # a kernel's launches over every path; the flash rows split by the
@@ -6136,6 +6613,9 @@ def main():
         "dropout": ("dropout.cu", "../nn_ops.py:388"),
         "dropout_device_key": ("dropout.cu", "../nn_ops.py:388"),
         "dropout_bwd": ("dropout.cu", "../nn_ops.py:388"),
+        # not a Pallas kernel: the setter of the conditional nodes that
+        # take the place of lax.while_loop's and lax.cond's predicates
+        "cond_set": ("control_flow.cu", "../control_flow_ops.py:337"),
     }
     missing = [k for k in where if not launches.get(k)]
     if missing:

@@ -14,7 +14,9 @@ as the TF-1 training loop: ``Session.run_steps``, ``stf.train.Saver``,
 the hooks and ``MonitoredTrainingSession``, and ``stf.summary``; BERT
 with per-layer recompute (``models.bert``), and the RNN graphs
 (``models.ptb_lstm``, ``models.rnn_seq2seq``) on ``stf.scan`` and
-``stf.nn.rnn_cell``.
+``stf.nn.rnn_cell``; TF-1 control flow (``stf.cond``, ``stf.case``,
+``stf.while_loop``, ``stf.TensorArray``, ``stf.nn.raw_rnn``) and the
+transformer's beam search (``models.transformer.beam_search_decode``).
 Importing the package loads no kernel library; the kernels are built and
 loaded at their first launch.
 """
@@ -35,14 +37,15 @@ from .framework.graph import (Graph, GraphKeys, Operation, Tensor,
 from .framework.random_seed import get_seed, set_random_seed
 from .framework.tensor_shape import Dimension, TensorShape
 from .ops.array_ops import (concat, expand_dims, fill, gather, identity,
-                            ones, ones_like, placeholder,
+                            one_hot, ones, ones_like, placeholder,
                             placeholder_with_default, reshape, reverse,
                             sequence_mask, slice, squeeze, stop_gradient,
-                            strided_slice, transpose, where, zeros,
+                            strided_slice, tile, transpose, where, zeros,
                             zeros_like)
 from .ops.clip_ops import (clip_by_global_norm, clip_by_norm, clip_by_value,
                            global_norm)
-from .ops.control_flow_ops import case, cond, group, no_op, while_loop
+from .ops.control_flow_ops import (case, cond, group, no_op, smart_cond,
+                                   while_loop)
 from .ops.functional_ops import foldl, foldr, map_fn, py_func, scan
 from .ops.logging_ops import Print
 from .ops import init_ops
@@ -52,14 +55,16 @@ from .ops.init_ops import (constant_initializer,
                            random_uniform_initializer,
                            truncated_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
-from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, greater,
-                           greater_equal, less, less_equal, logical_not,
+from .ops.math_ops import (add, add_n, argmax, cast, divide, equal,
+                           floordiv, floormod, greater, greater_equal, less,
+                           less_equal, logical_and, logical_not, logical_or,
                            matmul, maximum, minimum, multiply, negative,
-                           not_equal, pow, range, realdiv, reduce_mean,
-                           reduce_sum, sigmoid, sqrt, square, subtract, tanh,
-                           truediv)
+                           not_equal, pow, range, realdiv, reduce_all,
+                           reduce_mean, reduce_sum, sigmoid, sqrt, square,
+                           subtract, tanh, truediv)
 from .ops.random_ops import random_normal, random_uniform, truncated_normal
 from .ops.state_ops import assign, assign_add, assign_sub
+from .ops.tensor_array_ops import TensorArray
 from .ops.variable_scope import (AUTO_REUSE, VariableScope, get_variable,
                                  get_variable_scope, variable_scope)
 from .ops.variables import (Variable, global_variables,

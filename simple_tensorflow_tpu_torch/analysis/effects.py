@@ -2,8 +2,9 @@
 effects.py``): an op's declared ``Effects`` (``framework/op_registry.py``)
 resolved against its attrs, e.g. an ``Assign`` with ``var_name == "w"``
 writes ``{"var_name=w"}``. A graph function call (``framework/
-function.py``) or a loop op (``Scan``, ``MapFn``, ``Foldl``) has the
-effects of the body ops its outputs run. A captured variable is read by
+function.py``), a loop op (``Scan``, ``MapFn``, ``Foldl``) or a control
+flow op (``Cond``, ``While``) has the effects of the body ops its outputs
+run, in every branch. A captured variable is read by
 the op that made the captured value, in the outer graph at its own place
 in the run, not by the call: so fetching the greedy decoder's output
 beside ``train_op`` is no hazard when the same reads feed the loss, as in
@@ -37,13 +38,13 @@ class ResolvedEffects:
 
 
 def _call_effects(op) -> ResolvedEffects:
-    fg = function_mod.body_graph(op)
     reads, writes, rng, io = set(), set(), False, False
-    for inner in lowering_mod.func_graph_ops(fg):
-        e = op_effects(inner)
-        reads |= e.reads
-        writes |= e.writes
-        rng, io = rng or e.rng, io or e.io
+    for fg in function_mod.body_graphs(op):
+        for inner in lowering_mod.func_graph_ops(fg):
+            e = op_effects(inner)
+            reads |= e.reads
+            writes |= e.writes
+            rng, io = rng or e.rng, io or e.io
     return ResolvedEffects(frozenset(reads), frozenset(writes), rng, io,
                            None)
 

@@ -421,6 +421,9 @@ class BaseSession:
         self.plan_cache_hits = 0
         self.plan_cache_misses = 0
         self.captures = 0   # CUDA graphs captured (executables compiled)
+        # predicates of Cond and While ops read on the host (eager runs;
+        # a captured step reads none)
+        self.host_predicate_reads = 0
         # private: False runs every step eagerly (the reference compiled
         # steps are held against); _refresh_keys / _refresh_seeds False
         # skip the key / seed buffer's refill before a replay (planted
@@ -701,6 +704,8 @@ class BaseSession:
             exe.seeded = ctx.seeds_read
             return outs
 
+        lowering_mod.stage_constants(self._context(plan, {}, None),
+                                     plan.ops)
         specs = {t: (tuple(np.shape(feeds[t])),
                      t.dtype.base_dtype.torch_dtype)
                  for t in plan.feed_tensors}

@@ -23,7 +23,13 @@ What a capture fixes, and what this module keeps static around it:
 - the launch counters: ``count_launch`` runs in Python, which a replay
   does not, so the counts made while capturing are taken off the global
   counters onto the graph, and each replay adds them back
-  (:class:`DeviceGraph`).
+  (:class:`DeviceGraph`); a kernel in a conditional node's body (a
+  ``cond`` branch, a ``while_loop`` body: ``ops/kernels/control_flow.py``)
+  runs as often as the node runs the body, which the body counts on the
+  device, and reading the counters settles the difference
+  (:meth:`DeviceGraph.settle`, a sync);
+- the branches and loops: conditional nodes, whose bodies' memory pools
+  live as long as the graph.
 
 A ``run_steps`` window (:meth:`StepExecutable.stage_window`) is n
 replays of one executable: the window's per-step feeds (its superbatch),
@@ -48,6 +54,7 @@ programs of frozen graphs).
 from __future__ import annotations
 
 import warnings
+import weakref
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -55,6 +62,7 @@ import torch
 
 from ..framework.constant_op import host_tensor
 from ..ops.kernels import common as kcommon
+from ..ops.kernels import control_flow
 
 
 def feed_signature(feeds: Dict[Any, Any]) -> tuple:
@@ -116,6 +124,11 @@ class DeviceGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[list] = None
         self.launches: Dict[str, int] = {}
+        # the memory pools and run counters (control_flow.BodyFrame) of its
+        # conditional nodes' bodies, and the replays not yet settled
+        self._pools: list = []
+        self._bodies: list = []
+        self._replays = 0
 
     def capture(self) -> None:
         """Record ``fn`` into a CUDA graph (nothing executes). The launch
@@ -123,18 +136,40 @@ class DeviceGraph:
         CPU, nothing: the first replay allocates the outputs."""
         if self.device.type != "cuda":
             return
-        graph = torch.cuda.CUDAGraph()
+        # the graph kept after its instantiation: its nodes can be counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        control_flow.ensure_counters(self.device)
         before = kcommon.launch_counts()
         try:
-            with warnings.catch_warnings():
+            with warnings.catch_warnings(), \
+                    control_flow.collect_bodies() as (pools, bodies):
                 # a step of reads only captures no kernel: fine here
                 warnings.filterwarnings("ignore", "The CUDA Graph is empty")
                 with torch.cuda.graph(graph):
                     outs = list(self._fn())
         finally:
             self.launches = kcommon.take_launches(before)
+            self._pools, self._bodies = pools, bodies
+        graph.instantiate()
+        for frame in bodies:
+            frame.runs.zero_()
+        if bodies:
+            _with_bodies.add(self)
         self.graph = graph
         self.outputs = outs
+
+    def node_count(self) -> int:
+        """The graph's nodes, its conditional nodes' bodies' included (the
+        card only)."""
+        return control_flow.node_count(self.graph.raw_cuda_graph()) + sum(
+            control_flow.node_count(f.graph) for f in self._bodies)
+
+    def settle(self) -> None:
+        """Count the launches its replays made in conditional-node bodies
+        beyond the once each that a replay counts (a sync)."""
+        if self._bodies:
+            control_flow.settle(self._bodies, self._replays)
+        self._replays = 0
 
     def release(self) -> None:
         """Drop the graph, its outputs and the function now (after the
@@ -143,8 +178,13 @@ class DeviceGraph:
         capture would free memory inside it."""
         if self.graph is not None:
             torch.cuda.synchronize(self.device)
+            self.settle()
         self.graph = None
         self.outputs = None
+        if self._pools:
+            control_flow.release_pools(self.device, self._pools)
+        if self._bodies:
+            control_flow.release_frames(self.device, self._bodies)
         self._fn = None
         self.launches = {}
 
@@ -153,6 +193,7 @@ class DeviceGraph:
         if self.graph is not None:
             self.graph.replay()
             kcommon.add_launches(self.launches)
+            self._replays += 1
             return self.outputs
         outs = list(self._fn())
         if self.outputs is None:
@@ -163,6 +204,19 @@ class DeviceGraph:
                 if buf is not None:
                     buf.copy_(o)
         return self.outputs
+
+
+# the graphs with conditional-node bodies, whose launch counts settle
+# when the counters are read (kcommon.launch_counts)
+_with_bodies: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def settle_launches() -> None:
+    for graph in list(_with_bodies):
+        graph.settle()
+
+
+kcommon._SETTLERS.append(settle_launches)
 
 
 class StepExecutable:

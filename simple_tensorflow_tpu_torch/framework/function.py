@@ -51,7 +51,11 @@ CALL_OPS = ("GraphFunctionCall", "RecomputeGradCall")
 # the loop ops of ``ops/functional_ops.py``: their body is the ``body``
 # attr, run once per element
 LOOP_OPS = ("Scan", "MapFn", "Foldl")
-BODY_OPS = CALL_OPS + LOOP_OPS
+# the control flow ops of ``ops/control_flow_ops.py`` and the attrs of
+# their graphs: a Cond's two branches, a While's cond and body
+CONTROL_OPS = {"Cond": ("true_graph", "false_graph"),
+               "While": ("cond_graph", "body_graph")}
+BODY_OPS = CALL_OPS + LOOP_OPS + tuple(CONTROL_OPS)
 
 
 def _lower_function_call(ctx, op, inputs):
@@ -270,23 +274,24 @@ def recompute_grad(func, name=None):
     return wrapper
 
 
-def body_graph(op):
-    """The FuncGraph body of a call or loop op, or None for another op."""
+def body_graphs(op):
+    """The FuncGraph bodies of a call, loop or control flow op, or [] for
+    another op."""
     if op.type in CALL_OPS:
-        return op.attrs.get("func_graph")
-    if op.type in LOOP_OPS:
-        return op.attrs.get("body")
-    return None
+        names = ("func_graph",)
+    elif op.type in LOOP_OPS:
+        names = ("body",)
+    else:
+        names = CONTROL_OPS.get(op.type, ())
+    return [op.attrs[n] for n in names if op.attrs.get(n) is not None]
 
 
 def body_ops(op):
-    """The ops of a call or loop op's body (every op of its FuncGraph,
-    nested bodies included), or [] for another op."""
-    fg = body_graph(op)
-    if fg is None:
-        return []
+    """The ops of a call, loop or control flow op's bodies (every op of
+    each FuncGraph, nested bodies included), or [] for another op."""
     out = []
-    for inner in fg.get_operations():
-        out.append(inner)
-        out.extend(body_ops(inner))
+    for fg in body_graphs(op):
+        for inner in fg.get_operations():
+            out.append(inner)
+            out.extend(body_ops(inner))
     return out

@@ -12,8 +12,13 @@ leaves as the forward makes them (``LoweringContext.grad_leaves``), the
 forward runs once, and the op lowers to ``torch.autograd.grad(ys, xs,
 grad_ys)``: the kernels' ``autograd.Function`` backwards run (the xent
 backward kernel, the Dropout backward from the forward's saved mask bits,
-where JAX re-draws the mask from the same key). Left out:
-``stop_gradients``, gradient override maps, ``hessians`` and
+where JAX re-draws the mask from the same key). A ``While`` without
+``maximum_iterations`` on a differentiable path to the ys raises
+``InvalidArgumentError`` here, at graph construction, with JAX's message
+(:262-280; ``_while_reaches_ys_differentiably`` :153); a path that a
+``StopGradient`` cuts or that carries only integers does not. A bounded
+``While`` and a ``Cond`` differentiate (``ops/control_flow_ops.py``).
+Left out: ``stop_gradients``, gradient override maps, ``hessians`` and
 ``GradientTape``.
 """
 
@@ -26,12 +31,37 @@ import torch
 from . import graph as ops_mod
 from . import lowering as lowering_mod
 from . import op_registry
+from .errors import InvalidArgumentError
 
 Tensor = ops_mod.Tensor
 
 
 def _as_tensor_list(x):
     return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _while_reaches_ys_differentiably(while_op, ys):
+    """True iff a While op's output can carry a nonzero cotangent from ys:
+    a path cut by a StopGradient op, or passing only through non-floating
+    tensors (argmax or sampled indices feeding a gather), does not."""
+    yset = set(ys)
+    seen = set()
+    work = [t for t in while_op.outputs
+            if t.dtype.is_floating or t.dtype.is_complex]
+    while work:
+        t = work.pop()
+        if t in seen:
+            continue
+        seen.add(t)
+        if t in yset:
+            return True
+        for consumer in t.consumers():
+            if consumer.type == "StopGradient":
+                continue
+            for out in consumer.outputs:
+                if out.dtype.is_floating or out.dtype.is_complex:
+                    work.append(out)
+    return False
 
 
 class _ReadIndex:
@@ -94,7 +124,19 @@ def gradients(ys, xs, grad_ys=None, name="gradients",
     else:
         grad_ys = [None] * len(ys)
 
-    _, connected = lowering_mod.ancestors_between(xs, ys)
+    path_ops, connected = lowering_mod.ancestors_between(xs, ys)
+    while_on_path = [o.name for o in path_ops if o.type == "While"
+                     and o.attrs.get("max_iterations") is None
+                     and _while_reaches_ys_differentiably(o, ys)]
+    if while_on_path:
+        raise InvalidArgumentError(
+            None, None,
+            "Reverse-mode gradients cannot cross an UNBOUNDED while_loop "
+            f"on TPU (XLA cannot differentiate it; on path: "
+            f"{while_on_path[:3]}). Pass maximum_iterations= to "
+            "while_loop (the bounded loop replays as a masked, "
+            "differentiable lax.scan in the backward pass), or use "
+            "stf.scan / stf.foldl / dynamic_rnn (lax.scan-based).")
     with g.name_scope(name):
         connected_xs = [x for x in xs if x in connected
                         and (x.dtype.is_floating or x.dtype.is_complex)]

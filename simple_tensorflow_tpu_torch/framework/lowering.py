@@ -319,6 +319,22 @@ class LoweringContext:
         return value
 
 
+def stage_constants(ctx: LoweringContext, ops: Sequence[Operation]) -> None:
+    """Copy every ``Const`` of ``ops`` and of their bodies (nested
+    included) to the device, into the Session's cache: a capture runs
+    branches that the eager run before it did not take, and a constant
+    first made inside a capture would be a copy from pageable host
+    memory, which a capture refuses."""
+    from . import function as function_mod
+
+    for op in ops:
+        if op.type == "Const":
+            ctx.constant(op)
+        for inner in function_mod.body_ops(op):
+            if inner.type == "Const":
+                ctx.constant(inner)
+
+
 def uninitialized_message(name: str) -> str:
     return (f"Attempting to use uninitialized variable {name!r}. "
             "Run stf.global_variables_initializer() first.")

@@ -6,7 +6,10 @@ serving and causal-LM training.
 ``_ln``, ``_dense`` (:63-72), ``_residual`` (:142), ``_attention`` (:152),
 ``_ffn`` (:181), ``_embed`` (:189), ``_pad_bias`` (:206), ``encode``,
 ``decode``, ``smoothed_xent`` (:263) and ``transformer_train_model``
-(:282), ``synthetic_wmt_batch`` (:1407) and
+(:282), the beam search (``_BeamCaches`` :348, ``_decode_cross_kv`` :416,
+the graph ``_incremental_decode`` :438 with cross-attention and
+``beam_search_decode`` :584, naive and KV-cached on DecodeAttention, one
+``stf.while_loop``), ``synthetic_wmt_batch`` (:1407) and
 ``transformer_flops_per_token`` (:1417): the same user code builds the
 same graph op for op (names, types, inputs, seeds) and the same variables
 (``transformer/encoder/layer_0/self_attn/q/kernel``, …; Dense variables
@@ -18,8 +21,9 @@ trained by ``stf.Session``. ``recompute=True`` puts every layer under
 ``NotImplementedError``.
 
 **The eager pieces**: ``TransformerConfig`` (:35),
-``sinusoidal_position_encoding`` (:131), ``_incremental_decode`` (:438)
-and ``_block_decode`` (:512) with ``cross_kv=None`` (no cross-attention
+``sinusoidal_position_encoding`` (:131), ``incremental_decode`` (the
+JAX ``_incremental_decode`` :438) and ``block_decode`` (:512) with
+``cross_kv=None`` (no cross-attention
 sublayer, no ``ln2``), ``build_int8_logits_weights`` (:743), and the
 causal-LM training sublayers. Where a private name of the JAX file is
 both, the graph function keeps it and the eager sublayer is
@@ -489,6 +493,257 @@ def transformer_train_model(batch_size=64, src_len=64, tgt_len=64,
     return {"src_ids": src, "tgt_in": tgt_in, "tgt_out": tgt_out,
             "loss": loss, "train_op": train_op, "accuracy": acc,
             "learning_rate": lr, "global_step": gs}
+
+
+# ---------------------------------------------------------------------------
+# Beam search (graph): the naive re-forward and the KV-cached decode
+# ---------------------------------------------------------------------------
+
+class _BeamCaches:
+    """Loop-carried caches of the cached beam search: one (k, v) pair per
+    decoder layer, each (B, L, H, hd), updated functionally through a
+    one-hot position mask (static shapes: the whole search is one loop)."""
+
+    def __init__(self, flat_arrays, i, b, max_len):
+        self._arrays = list(flat_arrays)
+        self._i = i
+        self._b = b
+        self._L = max_len
+        self.updated = list(flat_arrays)
+
+    def append_and_gather(self, layer, k_new, v_new):
+        mask = stf.cast(stf.reshape(
+            stf.one_hot(self._i, self._L, dtype=stf.float32),
+            [1, self._L, 1, 1]), k_new.dtype.base_dtype)
+        k_all = self._arrays[2 * layer] * (1.0 - mask) + k_new * mask
+        v_all = self._arrays[2 * layer + 1] * (1.0 - mask) + v_new * mask
+        self.updated[2 * layer] = k_all
+        self.updated[2 * layer + 1] = v_all
+        lengths = stf.fill([self._b], self._i + 1)
+        return k_all, v_all, lengths
+
+
+def _decode_cross_kv(enc_out, cfg, compute_dtype, scope):
+    """Per-layer cross-attention K/V projections of the encoder output,
+    made once per sequence: [(ck, cv)] each (B, S_src, H, hd), the
+    DecodeAttention cache layout."""
+    b, s = int(enc_out.shape[0]), int(enc_out.shape[1])
+    d, heads = cfg.d_model, cfg.num_heads
+    hd = d // heads
+    out = []
+    with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
+        with stf.variable_scope("decoder"):
+            for i in range(cfg.num_layers):
+                with stf.variable_scope(f"layer_{i}"):
+                    with stf.variable_scope("cross_attn"):
+                        ck = stf.reshape(_dense(enc_out, d, cfg, "k"),
+                                         [b, s, heads, hd])
+                        cv = stf.reshape(_dense(enc_out, d, cfg, "v"),
+                                         [b, s, heads, hd])
+                out.append((ck, cv))
+    return out
+
+
+def _incremental_decode(tok, pos, caches, cross_kv, cross_bias, cross_len,
+                        cfg, compute_dtype, scope):
+    """ONE decoder position for B sequences against cached state (graph):
+    tok (B,) int32, pos a scalar int32 position, caches a
+    :class:`_BeamCaches`, cross_kv [(ck, cv)] per layer, cross_bias (B,
+    S_src) f32, cross_len (B,) int32. Returns (h (B, d_model), emb); the
+    caller owns the logits. Self-attention reads the cache through
+    ``stf.nn.decode_attention`` (the single-query kernel), and so does
+    the cross-attention, with the pad bias."""
+    b = int(tok.shape[0])
+    d, heads = cfg.d_model, cfg.num_heads
+    hd = d // heads
+    with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
+        emb = stf.get_variable(
+            "shared_embedding", [cfg.vocab_size, cfg.d_model],
+            initializer=stf.random_normal_initializer(
+                stddev=cfg.d_model ** -0.5))
+        h = stf.nn.embedding_lookup(emb, tok, compute_dtype=compute_dtype) \
+            * stf.cast(stf.constant(cfg.d_model ** 0.5), compute_dtype)
+        pos_table = stf.constant(
+            sinusoidal_position_encoding(cfg.max_len, cfg.d_model))
+        h = h + stf.cast(stf.gather(pos_table, pos), compute_dtype)
+        with stf.variable_scope("decoder"):
+            for i in range(cfg.num_layers):
+                with stf.variable_scope(f"layer_{i}"):
+                    with stf.variable_scope("self_attn"):
+                        q = stf.reshape(_dense(h, d, cfg, "q"),
+                                        [b, heads, hd])
+                        k_new = stf.reshape(_dense(h, d, cfg, "k"),
+                                            [b, 1, heads, hd])
+                        v_new = stf.reshape(_dense(h, d, cfg, "v"),
+                                            [b, 1, heads, hd])
+                        k_all, v_all, lengths = caches.append_and_gather(
+                            i, k_new, v_new)
+                        a = stf.nn.decode_attention(q, k_all, v_all,
+                                                    lengths)
+                        a = _dense(stf.reshape(a, [b, d]), d, cfg, "out")
+                    h = _ln(_residual(a, h, cfg, False), cfg, "ln1")
+                    with stf.variable_scope("cross_attn"):
+                        qc = stf.reshape(_dense(h, d, cfg, "q"),
+                                         [b, heads, hd])
+                        ck, cv = cross_kv[i]
+                        c = stf.nn.decode_attention(
+                            qc, ck, cv, cross_len, bias=cross_bias)
+                        c = _dense(stf.reshape(c, [b, d]), d, cfg, "out")
+                    h = _ln(_residual(c, h, cfg, False), cfg, "ln2")
+                    f = _ffn(h, cfg, False, "ffn")
+                    h = _ln(h + f, cfg, "ln3")
+    return h, emb
+
+
+def beam_search_decode(src, cfg: TransformerConfig | None = None,
+                       beam_size=4, decode_len=None, alpha=0.6,
+                       compute_dtype=stf.bfloat16, scope="transformer",
+                       use_cache=False):
+    """Beam search over the decoder; returns (ids (B, beam, L), scores
+    (B, beam)).
+
+    ``decode_len - 1`` iterations of one ``stf.while_loop``; finished
+    beams (EOS emitted) are extended only by EOS at zero cost, so their
+    scores freeze. ``use_cache=False`` re-scores the full prefix each step
+    (the flash kernels over (B*beam, L)); ``use_cache=True`` carries
+    per-layer KV caches through the loop and decodes ONE position a step
+    through the DecodeAttention kernel: token for token the same search
+    (int-exact ids, scores to float round-off)."""
+    cfg = cfg or TransformerConfig.big()
+    b = int(src.shape[0])
+    L = decode_len or cfg.max_len
+    if L > cfg.max_len:
+        # the position table has cfg.max_len rows; a longer decode would
+        # clamp the gather silently on the cached path
+        raise ValueError(
+            f"decode_len={L} exceeds cfg.max_len={cfg.max_len}")
+    k = beam_size
+    vocab = cfg.vocab_size
+    neg_inf = -1e9
+    heads = cfg.num_heads
+    hd = cfg.d_model // heads
+
+    enc_out, enc_bias = encode(src, cfg, training=False,
+                               compute_dtype=compute_dtype, scope=scope)
+    # encoder outputs tiled over beams: (B,S,D) -> (B*k,S,D)
+    s_src, d = int(enc_out.shape[1]), int(enc_out.shape[2])
+    enc_tiled = stf.reshape(
+        stf.tile(stf.expand_dims(enc_out, 1), [1, k, 1, 1]),
+        [b * k, s_src, d])
+    bias_tiled = stf.reshape(
+        stf.tile(stf.expand_dims(enc_bias, 1), [1, k, 1, 1, 1]),
+        [b * k, 1, 1, s_src])
+
+    # state: i, seq (B,k,L) started with EOS column 0, logp (B,k)
+    seq0 = stf.concat([
+        stf.fill([b, k, 1], cfg.eos_id),
+        stf.fill([b, k, L - 1], cfg.pad_id)], axis=2)
+    # only beam 0 alive at first, so the k first expansions differ
+    logp0 = stf.constant(
+        np.tile(np.array([[0.0] + [neg_inf] * (k - 1)], np.float32), (b, 1)))
+    i0 = stf.constant(0)
+
+    eos_row = stf.constant(
+        np.array([0.0 if t == cfg.eos_id else neg_inf
+                  for t in range(vocab)], np.float32).reshape(1, 1, vocab))
+    offs = stf.reshape(stf.constant(
+        np.arange(b, dtype=np.int32) * k), [b, 1])
+
+    def select(i, seq, logp, step_logits):
+        """Beam expansion shared by both paths: score position ``i``'s
+        logits, pick the top-k continuations, write the token at column
+        i+1. Returns (new_seq, new_logp, parent (B*k,) row indices)."""
+        logprobs = stf.nn.log_softmax(step_logits, axis=-1)
+        logprobs = stf.reshape(logprobs, [b, k, vocab])
+
+        # finished beams (EOS emitted after t=0) extend only with EOS at
+        # zero cost
+        emitted = stf.reduce_sum(stf.cast(stf.equal(
+            stf.slice(seq, [0, 0, 1], [b, k, L - 1]), cfg.eos_id),
+            stf.float32), axis=2)
+        finished = stf.greater(emitted, 0.0)  # (B,k)
+        fin_f = stf.reshape(stf.cast(finished, stf.float32), [b, k, 1])
+        logprobs = logprobs * (1.0 - fin_f) + eos_row * fin_f
+
+        total = stf.reshape(logp, [b, k, 1]) + logprobs  # (B,k,vocab)
+        flat_total = stf.reshape(total, [b, k * vocab])
+        new_logp, flat_idx = stf.nn.top_k(flat_total, k=k)  # (B,k)
+        beam_idx = stf.cast(flat_idx // vocab, stf.int32)  # (B,k)
+        tok = stf.cast(flat_idx % vocab, stf.int32)  # (B,k)
+
+        # parent rows: batch offsets into (B*k, L)
+        parent = stf.reshape(beam_idx + offs, [-1])
+        new_seq = stf.gather(stf.reshape(seq, [b * k, L]), parent)
+        # the token written at column i+1 through a one_hot mask
+        col = stf.one_hot(i + 1, L, dtype=stf.int32)  # (L,)
+        new_seq = (new_seq * (1 - stf.reshape(col, [1, L])) +
+                   stf.reshape(tok, [-1, 1]) * stf.reshape(col, [1, L]))
+        return stf.reshape(new_seq, [b, k, L]), new_logp, parent
+
+    def cond(i, seq, logp, *caches):
+        return stf.less(i, L - 1)
+
+    def body_naive(i, seq, logp):
+        flat = stf.reshape(seq, [b * k, L])
+        # decode() gives logits in the compute dtype; beam math is f32
+        logits = stf.cast(
+            decode(flat, enc_tiled, bias_tiled, cfg, training=False,
+                   compute_dtype=compute_dtype, scope=scope), stf.float32)
+        # the logits at position i predict token i+1: a one_hot select
+        sel = stf.one_hot(i, L, dtype=stf.float32)  # (L,)
+        step_logits = stf.reduce_sum(
+            logits * stf.reshape(sel, [1, L, 1]), axis=1)  # (B*k, vocab)
+        new_seq, new_logp, _ = select(i, seq, logp, step_logits)
+        return i + 1, new_seq, new_logp
+
+    if use_cache:
+        cross_kv = _decode_cross_kv(enc_tiled, cfg, compute_dtype, scope)
+        cross_bias = stf.reshape(bias_tiled, [b * k, s_src])
+        cross_len = stf.fill([b * k], s_src)
+        caches0 = []
+        for _ in range(cfg.num_layers):
+            caches0.append(stf.zeros([b * k, L, heads, hd],
+                                     dtype=compute_dtype))
+            caches0.append(stf.zeros([b * k, L, heads, hd],
+                                     dtype=compute_dtype))
+
+        def body_cached(i, seq, logp, *flat_caches):
+            # the current input token: column i of every beam row
+            coli = stf.one_hot(i, L, dtype=stf.int32)
+            tok = stf.reduce_sum(seq * stf.reshape(coli, [1, 1, L]),
+                                 axis=2)  # (B,k)
+            flat_tok = stf.reshape(tok, [b * k])
+            cache = _BeamCaches(flat_caches, i, b * k, L)
+            h, emb = _incremental_decode(
+                flat_tok, i, cache, cross_kv, cross_bias, cross_len,
+                cfg, compute_dtype, scope)
+            logits = stf.matmul(h, stf.cast(emb, h.dtype.base_dtype),
+                                transpose_b=True)
+            step_logits = stf.cast(logits, stf.float32)
+            new_seq, new_logp, parent = select(i, seq, logp, step_logits)
+            # the caches reorder with their beams
+            new_caches = [stf.gather(c, parent) for c in cache.updated]
+            return (i + 1, new_seq, new_logp, *new_caches)
+
+        out = stf.while_loop(cond, body_cached,
+                             [i0, seq0, logp0] + caches0)
+        _, seq, logp = out[0], out[1], out[2]
+    else:
+        _, seq, logp = stf.while_loop(cond, body_naive, [i0, seq0, logp0])
+    # GNMT length penalty, then a re-sort: penalties vary with beam
+    # length, so the raw-logp order need not be the penalized order
+    lengths = stf.reduce_sum(stf.cast(stf.logical_and(
+        stf.not_equal(seq, cfg.pad_id), stf.not_equal(seq, cfg.eos_id)),
+        stf.float32), axis=2) + 1.0
+    penalty = stf.pow((5.0 + lengths) / 6.0, alpha)
+    scores = logp / penalty
+    scores, order = stf.nn.top_k(scores, k=k)  # (B,k) descending
+    offs = stf.reshape(stf.constant(np.arange(b, dtype=np.int32) * k),
+                       [b, 1])
+    flat_order = stf.reshape(stf.cast(order, stf.int32) + offs, [-1])
+    seq = stf.reshape(stf.gather(stf.reshape(seq, [b * k, L]), flat_order),
+                      [b, k, L])
+    return seq, scores
 
 
 def synthetic_wmt_batch(batch_size, src_len, tgt_len, vocab_size=32768,

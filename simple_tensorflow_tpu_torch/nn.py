@@ -1,6 +1,7 @@
 """stf.nn of the port (ref: tensorflow/python/ops/nn.py): the graph ops the
-MNIST, transformer, ResNet, BERT and RNN graphs reach (``rnn_cell``,
-``dynamic_rnn`` and the other RNN loops among them), and the fused ops
+MNIST, transformer, ResNet, BERT and RNN graphs and beam search reach
+(``rnn_cell``, ``dynamic_rnn``, ``raw_rnn`` and the other RNN loops,
+``log_softmax``, ``top_k`` and ``decode_attention`` among them), and the fused ops
 (``fused_attention``, ``fused_bias_dropout_residual``,
 ``fused_layer_norm``, ``fused_softmax_cross_entropy``), which take graph
 tensors or, from the eager models, torch tensors (``ops/fused_ops.py``).
@@ -10,22 +11,25 @@ from .ops.embedding_ops import embedding_lookup
 from .ops.fused_ops import (fused_attention, fused_bias_dropout_residual,
                             fused_layer_norm, fused_softmax_cross_entropy)
 from .ops.nn_impl import fused_batch_norm
-from .ops.nn_ops import (bias_add, conv2d, dropout, gelu, l2_loss, max_pool,
-                         relu, softmax, softmax_cross_entropy_with_logits,
+from .ops.kv_cache_ops import decode_attention
+from .ops.nn_ops import (bias_add, conv2d, dropout, gelu, l2_loss,
+                         log_softmax, max_pool, relu, softmax,
+                         softmax_cross_entropy_with_logits,
                          softmax_cross_entropy_with_logits_v2,
-                         sparse_softmax_cross_entropy_with_logits)
+                         sparse_softmax_cross_entropy_with_logits, top_k)
 from .ops import rnn_cell
 from .ops.rnn import (bidirectional_dynamic_rnn, dynamic_rnn, raw_rnn,
                       static_rnn)
 from .ops.math_ops import sigmoid, tanh
 
-__all__ = ["bias_add", "bidirectional_dynamic_rnn", "conv2d", "dropout",
-           "dynamic_rnn", "embedding_lookup",
+__all__ = ["bias_add", "bidirectional_dynamic_rnn", "conv2d",
+           "decode_attention", "dropout", "dynamic_rnn", "embedding_lookup",
            "fused_attention", "fused_bias_dropout_residual",
            "fused_batch_norm", "fused_layer_norm",
-           "fused_softmax_cross_entropy", "gelu", "l2_loss", "max_pool",
+           "fused_softmax_cross_entropy", "gelu", "l2_loss", "log_softmax",
+           "max_pool",
            "raw_rnn", "relu", "rnn_cell", "sigmoid", "softmax",
            "softmax_cross_entropy_with_logits",
            "softmax_cross_entropy_with_logits_v2",
            "sparse_softmax_cross_entropy_with_logits", "static_rnn",
-           "tanh"]
+           "tanh", "top_k"]

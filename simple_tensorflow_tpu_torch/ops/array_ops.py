@@ -13,8 +13,9 @@ indices, slices with any step, ``None`` and ``...``). Each op lowers to a
 torch function of its inputs and static attrs. ``ZerosLike`` and
 ``OnesLike`` of a fully static shape need no input value
 (``lowering.shape_only``): a plan does not run the op that makes their
-input, as XLA drops it from the JAX program. Left out: the other ~50
-array ops (pad, split, tile, scatters, ...).
+input, as XLA drops it from the JAX program. For beam search ``Tile``
+(:65, :550, ``torch.tile``) and ``OneHot`` (:78, :671). Left out: the
+other ~50 array ops (pad, split, scatters, ...).
 """
 
 from __future__ import annotations
@@ -49,15 +50,57 @@ op_registry.register_pure(
 # accumulate, which sums a repeated index's rows in one order on every run
 # (it sorts); index_select's is index_add_, whose atomics on the card sum
 # them in another order each run (BERT's MLM gather repeats positions)
-op_registry.register_pure(
-    "Gather", lambda params, indices, axis=0: params[
-        (builtins.slice(None),) * axis + (indices.long(),)])
+def _infer_gather(graph, attrs, inputs):
+    """``params.shape[:axis] + indices.shape + params.shape[axis + 1:]``
+    (a meta tensor cannot index, so the generic probe cannot tell)."""
+    params, indices = inputs
+    axis = attrs.get("axis", 0)
+    if params.shape.rank is None or indices.shape.rank is None:
+        return [(shape_mod.TensorShape(None), params.dtype.base_dtype)]
+    dims = params.shape.as_list()
+    return [(shape_mod.TensorShape(dims[:axis] + indices.shape.as_list()
+                                   + dims[axis + 1:]), params.dtype.base_dtype)]
+
+
+def _gather(params, indices, axis=0):
+    # a 0-d index as a (1,) index, the axis then squeezed: indexing with a
+    # 0-d tensor reads it on the host (``.item()``), which a captured step
+    # cannot
+    idx = indices.long()
+    if idx.dim() == 0:
+        return params[(builtins.slice(None),) * axis + (
+            idx.reshape(1),)].squeeze(axis)
+    return params[(builtins.slice(None),) * axis + (idx,)]
+
+
+op_registry.register_pure("Gather", _gather, infer_fn=_infer_gather)
 op_registry.register_pure("Slice", lambda x, begin=None, size=None: x[
     tuple(builtins.slice(b, b + s) for b, s in zip(begin, size))])
 op_registry.register_pure("ExpandDims", lambda x, axis: x.unsqueeze(axis))
 op_registry.register_pure("Concat", lambda *xs, axis: torch.cat(xs, dim=axis))
 op_registry.register_pure("Select", lambda cond, x, y: torch.where(cond, x, y))
 op_registry.register_pure("Reverse", lambda x, axis: torch.flip(x, axis))
+op_registry.register_pure("Tile", lambda x, multiples: torch.tile(
+    x, multiples))
+
+
+def _one_hot_impl(indices, depth=None, on_value=1.0, off_value=0.0,
+                  axis=-1, dtype=None):
+    """``jax.nn.one_hot`` along ``axis`` (an index outside ``[0, depth)``
+    gives a row of ``off_value``), then ``on_value``/``off_value``."""
+    dt = dtypes_mod.narrowed_if_no_x64(
+        dtype or dtypes_mod.float32).torch_dtype
+    ax = axis if axis >= 0 else indices.dim() + 1 + axis
+    shape = [1] * (indices.dim() + 1)
+    shape[ax] = depth
+    oh = (indices.unsqueeze(ax).long() == torch.arange(
+        depth, device=indices.device).reshape(shape)).to(dt)
+    if on_value != 1.0 or off_value != 0.0:
+        oh = (oh * (on_value - off_value) + off_value).to(dt)
+    return oh
+
+
+op_registry.register_pure("OneHot", _one_hot_impl)
 op_registry.register_pure(
     "SequenceMask", lambda lengths, maxlen=None, dtype=None: (
         torch.arange(maxlen, device=lengths.device)[None, :]
@@ -218,6 +261,34 @@ def gather(params, indices, validate_indices=None, name=None, axis=0):
     if isinstance(axis, Tensor):
         axis = int(constant_op.constant_value(axis))
     return make_op("Gather", [params, indices], attrs={"axis": int(axis)},
+                   name=name)
+
+
+def tile(input, multiples, name=None):  # noqa: A002
+    x = ops_mod.convert_to_tensor(input)
+    if isinstance(multiples, Tensor):
+        v = constant_op.constant_value(multiples)
+        if v is None:
+            raise ValueError("multiples must be static on TPU")
+        multiples = v
+    return make_op("Tile", [x], attrs={
+        "multiples": tuple(int(m) for m in np.ravel(multiples))}, name=name)
+
+
+def one_hot(indices, depth, on_value=None, off_value=None, axis=None,
+            dtype=None, name=None):
+    indices = ops_mod.convert_to_tensor(indices)
+    if isinstance(depth, Tensor):
+        depth = int(constant_op.constant_value(depth))
+    dt = dtypes_mod.as_dtype(dtype) if dtype is not None \
+        else dtypes_mod.float32
+    return make_op("OneHot", [indices],
+                   attrs={"depth": int(depth),
+                          "on_value": 1.0 if on_value is None else on_value,
+                          "off_value": 0.0 if off_value is None
+                          else off_value,
+                          "axis": -1 if axis is None else int(axis),
+                          "dtype": dt},
                    name=name)
 
 

@@ -71,6 +71,11 @@ SIGNATURES = {
     "stf_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _I, _I, _P],
     "stf_dropout_key": [_P, _P, _P, _L, _P, _U, _F, _I, _I, _P],
     "stf_dropout_bwd": [_P, _P, _P, _L, _F, _I, _I, _P],
+    "stf_cond_set": [_P, ctypes.c_ulonglong, _P, _I],
+    "stf_cond_node_begin": [_P, _I, _P, _I, _P, _P],
+    "stf_capture_to_graph_begin": [_P, _P],
+    "stf_capture_to_graph_end": [_P],
+    "stf_graph_node_count": [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -54,6 +54,9 @@ _LAUNCHES = {
     "dropout": 0,
     "dropout_device_key": 0,
     "dropout_bwd": 0,
+    # the conditional-node predicate setter (csrc/control_flow.cu): once
+    # a node and once at the end of every WHILE body, per capture
+    "cond_set": 0,
 }
 
 _M32 = 0xFFFFFFFF
@@ -149,14 +152,36 @@ def count_launch(name: str) -> None:
     _LAUNCHES[name] += 1
 
 
+# callables that add the launches replays made but the counters do not
+# hold yet (kernels in a conditional node's body run as often as the node
+# runs its body, which the device counts): ``compiler.aot`` registers one
+_SETTLERS: list = []
+
+
+def _settle() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return  # a capture under way: nothing may sync
+    for settle in _SETTLERS:
+        settle()
+
+
 def launch_counts() -> dict:
-    """A copy of the per-kernel launch counters."""
+    """A copy of the per-kernel launch counters (the launches of replayed
+    loop and branch bodies settled first)."""
+    _settle()
     return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
+    _settle()
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def counts_now() -> dict:
+    """A copy of the counters as they stand, nothing settled (inside a
+    capture)."""
+    return dict(_LAUNCHES)
 
 
 def take_launches(before: dict) -> dict:

@@ -12,9 +12,12 @@ JAX module's strictness on mixed-dtype binary ops (``TypeError``) and its
 int32); for the RNN graphs ``Maximum``, ``Sigmoid``, ``Sqrt``,
 ``Square``, ``Neg``, the comparisons ``Less``/``LessEqual``/``Greater``/
 ``GreaterEqual``, ``LogicalNot``, ``ClipByValue`` and ``BatchMatMul``
-(what ``matmul`` builds for a rank-3 operand, :671-680). The Tensor
-operators (``+ - * / @ **``, and of :973-994 unary ``-`` and ``~`` and
-``< <= > >=``) are installed here on ``Tensor`` and ``Variable``.
+(what ``matmul`` builds for a rank-3 operand, :671-680); for beam search
+and ``raw_rnn`` ``FloorDiv`` (:319) and ``FloorMod`` (:331) with floor
+semantics on negative ints (``torch.floor_divide``, ``torch.remainder``),
+``LogicalAnd``, ``LogicalOr`` and ``All`` (``reduce_all``). The Tensor
+operators (``+ - * / // % @ **``, and of :973-994 unary ``-`` and ``~``,
+``&``, ``|`` and ``< <= > >=``) are installed here on ``Tensor`` and ``Variable``.
 A plain f32 matrix product, batched or not, is left to ``torch.matmul``
 (full f32 on the card: the Session pins TF32 off), as the JAX package
 leaves it to XLA. Left out: the other elementwise, reduction, segment,
@@ -64,6 +67,12 @@ op_registry.register_pure("LessEqual", torch.le)
 op_registry.register_pure("Greater", torch.gt)
 op_registry.register_pure("GreaterEqual", torch.ge)
 op_registry.register_pure("LogicalNot", torch.logical_not)
+op_registry.register_pure("LogicalAnd", torch.logical_and)
+op_registry.register_pure("LogicalOr", torch.logical_or)
+# floor semantics, as jnp.floor_divide and jnp.mod: a negative int
+# quotient rounds down and the remainder takes the divisor's sign
+op_registry.register_pure("FloorDiv", torch.floor_divide)
+op_registry.register_pure("FloorMod", torch.remainder)
 op_registry.register_pure("ClipByValue", lambda x, lo, hi: torch.minimum(
     torch.maximum(x, lo), hi))
 
@@ -94,6 +103,7 @@ def _reducer(fn):
 
 op_registry.register_pure("Sum", _reducer(torch.sum))
 op_registry.register_pure("Mean", _reducer(torch.mean))
+op_registry.register_pure("All", _reducer(torch.all))
 op_registry.register_pure(
     "ArgMax", lambda x, axis=0, output_type=None: torch.argmax(
         x, dim=axis).to(_narrow(output_type or dtypes_mod.int64)))
@@ -184,6 +194,22 @@ def greater_equal(x, y, name=None):
     return binary("GreaterEqual", x, y, name)
 
 
+def floordiv(x, y, name=None):
+    return binary("FloorDiv", x, y, name)
+
+
+def floormod(x, y, name=None):
+    return binary("FloorMod", x, y, name)
+
+
+def logical_and(x, y, name=None):
+    return binary("LogicalAnd", x, y, name)
+
+
+def logical_or(x, y, name=None):
+    return binary("LogicalOr", x, y, name)
+
+
 def logical_not(x, name=None):
     return unary("LogicalNot", x, name)
 
@@ -265,6 +291,12 @@ def reduce_mean(input_tensor, axis=None, keepdims=False, name=None,
                    reduction_indices, keep_dims)
 
 
+def reduce_all(input_tensor, axis=None, keepdims=False, name=None,
+               reduction_indices=None, keep_dims=None):
+    return _reduce("All", input_tensor, axis, keepdims, name,
+                   reduction_indices, keep_dims)
+
+
 def argmax(input, axis=None, name=None, dimension=None,  # noqa: A002
            output_type=dtypes_mod.int64):
     if dimension is not None and axis is None:
@@ -285,6 +317,14 @@ def _install_operators():
     T.__rmul__ = lambda self, other: multiply(other, self)
     T.__truediv__ = lambda self, other: truediv(self, other)
     T.__rtruediv__ = lambda self, other: truediv(other, self)
+    T.__floordiv__ = lambda self, other: floordiv(self, other)
+    T.__rfloordiv__ = lambda self, other: floordiv(other, self)
+    T.__mod__ = lambda self, other: floormod(self, other)
+    T.__rmod__ = lambda self, other: floormod(other, self)
+    T.__and__ = lambda self, other: logical_and(self, other)
+    T.__rand__ = lambda self, other: logical_and(other, self)
+    T.__or__ = lambda self, other: logical_or(self, other)
+    T.__ror__ = lambda self, other: logical_or(other, self)
     T.__matmul__ = lambda self, other: matmul(self, other)
     T.__rmatmul__ = lambda self, other: matmul(other, self)
     T.__pow__ = lambda self, other: pow(self, other)
@@ -305,7 +345,8 @@ def _install_operators():
         return fwd
 
     for dunder in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
-                   "__rmul__", "__truediv__", "__rtruediv__", "__matmul__",
+                   "__rmul__", "__truediv__", "__rtruediv__", "__floordiv__",
+                   "__rfloordiv__", "__mod__", "__rmod__", "__matmul__",
                    "__rmatmul__", "__pow__", "__rpow__", "__neg__",
                    "__lt__", "__le__", "__gt__", "__ge__"):
         setattr(variables_mod.Variable, dunder, _mk(dunder))

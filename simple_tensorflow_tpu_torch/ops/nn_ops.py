@@ -29,7 +29,11 @@ lowerings call its ``_conv2d_impl`` (:164) and ``_max_pool_impl`` (:352):
   routed lowering computes (:92-104); logits of any rank go to the
   kernels as rows (``[B, T, V]`` with ``[B, T]`` labels: one ``[B*T,
   V]`` view, copied only when not contiguous).
-- ``Softmax`` (:49, ``softmax``): ``torch.softmax`` along its axis.
+- ``Softmax`` (:49, ``softmax``): ``torch.softmax`` along its axis;
+  ``LogSoftmax`` (:50, ``log_softmax`` :479) as ``jax.nn.log_softmax``
+  computes it; ``TopKV2`` (:417, ``top_k`` :761) as ``lax.top_k``
+  orders it, ties to the lower index (beam search's bf16 logits tie
+  often).
 
 Left out of the graph ops: NCHW data formats, dilations, the other
 activations, pools and convolutions.
@@ -184,6 +188,26 @@ op_registry.register_pure("BiasAdd", _bias_add_op)
 op_registry.register_pure("Conv2D", _conv2d_op)
 op_registry.register_pure("MaxPool", _max_pool_op)
 op_registry.register_pure("SoftmaxCrossEntropyWithLogits", _softmax_xent)
+
+
+def _log_softmax_impl(x, axis=-1):
+    """``jax.nn.log_softmax``'s arithmetic: the max-shifted input less the
+    log of its exponentials' sum."""
+    shifted = x - x.amax(dim=axis, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=axis,
+                                                       keepdim=True))
+
+
+def _top_k_impl(x, k=1, sorted=True):  # noqa: A002 (the TF name)
+    """``lax.top_k``: the k largest along the last axis, descending, a
+    tie taking the lower index first (a stable descending sort, not
+    ``torch.topk``, which orders no ties); int32 indices."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return [values[..., :k], indices[..., :k].to(torch.int32)]
+
+
+op_registry.register_pure("LogSoftmax", _log_softmax_impl)
+op_registry.register_pure("TopKV2", _top_k_impl)
 op_registry.register_pure("Softmax", lambda x, axis=-1: torch.softmax(
     x, dim=axis))
 
@@ -233,6 +257,20 @@ def softmax(logits, axis=-1, name=None, dim=None):
     if dim is not None:
         axis = dim
     return unary("Softmax", logits, name, attrs={"axis": int(axis)})
+
+
+def log_softmax(logits, axis=-1, name=None, dim=None):
+    if dim is not None:
+        axis = dim
+    return unary("LogSoftmax", logits, name, attrs={"axis": int(axis)})
+
+
+def top_k(input, k=1, sorted=True, name=None):  # noqa: A002
+    x = ops_mod.convert_to_tensor(input)
+    values, indices = make_op("TopKV2", [x], attrs={"k": int(k),
+                                                    "sorted": sorted},
+                              name=name, n_out=2)
+    return values, indices
 
 
 def gelu(features, approximate=True, name=None):

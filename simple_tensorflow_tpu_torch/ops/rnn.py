@@ -7,7 +7,8 @@ second on the reversed inputs. As in JAX, ``dynamic_rnn`` calls the cell
 once outside the loop (the probe) so that its variables are made in the
 root graph and captured into the body; the probe's output feeds only a
 ``ZerosLike`` of static shape, so a run does not compute it
-(``lowering.shape_only``). ``raw_rnn`` raises ``NotImplementedError``.
+(``lowering.shape_only``). ``raw_rnn`` is the JAX function's
+``while_loop`` with a ``TensorArray`` of ``maximum_iterations`` slots.
 """
 
 from __future__ import annotations
@@ -118,10 +119,83 @@ def bidirectional_dynamic_rnn(cell_fw, cell_bw, inputs, sequence_length=None,
 
 def raw_rnn(cell, loop_fn, parallel_iterations=None, swap_memory=False,
             scope=None, maximum_iterations=None):
-    """(ref: rnn.py ``raw_rnn``): not ported. Its emit-driven loop is a
-    ``while_loop`` with a ``TensorArray``, whose trip count depends on the
-    data (ROADMAP Queue 1, front-end item 1)."""
-    raise NotImplementedError(
-        "raw_rnn is not ported: it needs while_loop and TensorArray on "
-        "FuncGraph bodies, ROADMAP Queue 1, front-end item 1 (cond, "
-        "while_loop, raw_rnn); dynamic_rnn runs on stf.scan")
+    """(ref: rnn.py ``raw_rnn``): the emit-driven RNN loop over
+    ``while_loop`` and a ``TensorArray``, as the JAX function (rnn.py
+    :116-205) builds it.
+
+    loop_fn(time, cell_output, cell_state, loop_state) ->
+        (finished, next_input, next_cell_state, emit_output, next_loop_state)
+
+    ``maximum_iterations`` is required: the emit TensorArray has exactly
+    that many slots, and the loop stops early when every sequence reports
+    finished. The bound also makes the loop differentiable. Returns
+    (emit_ta, final_state, final_loop_state).
+    """
+    from . import control_flow_ops as cf
+    from . import tensor_array_ops as ta_ops
+
+    if maximum_iterations is None:
+        raise ValueError(
+            "raw_rnn on TPU needs maximum_iterations= (XLA loops are "
+            "bounded; the reference grows TensorArrays dynamically)")
+    T = int(maximum_iterations)
+
+    with vs.variable_scope(scope or "rnn", reuse=vs.AUTO_REUSE):
+        time0 = constant_op.constant(0, dtype="int32")
+        finished0, input0, state0, emit0, loop_state0 = loop_fn(
+            time0, None, None, None)
+        finished0 = ops_mod.convert_to_tensor(finished0)
+        # the cell traced once outside the loop: its variables are made in
+        # the enclosing scope, and the emit structure is known when
+        # loop_fn(0) returned None for it
+        out_probe, _ = cell(input0, state0)
+        if emit0 is None:
+            emit0 = array_ops.zeros_like(out_probe)
+        has_loop_state = loop_state0 is not None
+
+        emit_ta0 = ta_ops.TensorArray(emit0.dtype, size=T,
+                                      element_shape=emit0.shape)
+        carry0 = [time0, finished0, input0, state0, emit_ta0._buffer]
+        if has_loop_state:
+            carry0.append(loop_state0)
+
+        def _cond(t, finished, *_rest):
+            return math_ops.logical_and(
+                t < T, math_ops.logical_not(math_ops.reduce_all(finished)))
+
+        def _body(t, finished, inp, state, emit_buf, *maybe_ls):
+            ls = maybe_ls[0] if has_loop_state else None
+            # traced inside the enclosing AUTO_REUSE scope: the cell reuses
+            # the probe's variables
+            output, new_state = cell(inp, state)
+            (next_finished, next_input, next_state, emit,
+             next_ls) = loop_fn(t + 1, output, new_state, ls)
+            if emit is None:
+                emit = array_ops.zeros_like(output)
+            # finished sequences emit zeros and freeze their state, by
+            # select, so a NaN the cell makes past the end cannot leak
+            live = array_ops.reshape(math_ops.logical_not(finished),
+                                     [-1] + [1] * (emit.shape.rank - 1))
+            emit = array_ops.where(live, emit, array_ops.zeros_like(emit))
+            frozen = []
+            for old, new in zip(_flatten(state), _flatten(next_state)):
+                m = array_ops.reshape(
+                    math_ops.logical_not(finished),
+                    [-1] + [1] * (new.shape.rank - 1))
+                frozen.append(array_ops.where(m, new, old))
+            next_state = _pack_like(next_state, frozen)
+            ta = ta_ops.TensorArray(emit.dtype, size=T, _buffer=emit_buf)
+            new_buf = ta.write(t, emit)._buffer
+            next_finished = math_ops.logical_or(
+                finished, ops_mod.convert_to_tensor(next_finished))
+            out = [t + 1, next_finished, next_input, next_state, new_buf]
+            if has_loop_state:
+                out.append(next_ls)
+            return out
+
+        final = cf.while_loop(_cond, _body, carry0, maximum_iterations=T)
+        _, _, _, state_f, emit_buf_f = final[:5]
+        loop_state_f = final[5] if has_loop_state else None
+        emit_ta = ta_ops.TensorArray(emit0.dtype, size=T,
+                                     _buffer=emit_buf_f)
+        return emit_ta, state_f, loop_state_f

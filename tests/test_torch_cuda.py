@@ -1978,3 +1978,141 @@ def test_a_captured_scan_gradient_equals_eager_on_card(cuda):
         np.testing.assert_array_equal(h0, h1)
         np.testing.assert_array_equal(g0, g1)
         assert np.abs(g1).max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length,biased", [(1, False), (32, False),
+                                           (64, False), (64, True)])
+def test_decode_attention_at_the_beam_shapes_on_card(cuda, dtype, length,
+                                                     biased):
+    # beam search at batch 4 x beam 4: B = 16, L = 64, 16 heads of 64;
+    # self-attention at lengths i + 1, cross-attention over the padded
+    # source with the pad bias
+    rng = np.random.RandomState(length)
+    q = _t(rng.randn(16, 16, 64).astype(np.float32)).to(cuda, dtype)
+    k = _t(rng.randn(16, 64, 16, 64).astype(np.float32)).to(cuda, dtype)
+    v = _t(rng.randn(16, 64, 16, 64).astype(np.float32)).to(cuda, dtype)
+    lens = torch.full((16,), length, dtype=torch.int32, device=cuda)
+    bias = None
+    if biased:
+        b = np.zeros((16, 64), np.float32)
+        b[:, -9:] = -1e9
+        bias = _t(b).to(cuda)
+    before = K.launch_counts()["decode_attention"]
+    out = K.decode_attention(q, k, v, lens, bias=bias)
+    ref = K.decode_attention_plain(q, k, v, lens, bias=bias)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert K.launch_counts()["decode_attention"] == before + 1
+
+
+def _control_flow_graph(stf):
+    """A data-dependent loop (doubling through a tanh layer until the
+    squared sum passes 400), a cond whose untaken branch is NaN, and the
+    gradients of a bounded loop whose body is NaN past its exit."""
+    x = stf.placeholder(stf.float32, [8], name="x")
+    w = stf.get_variable("w", [8, 8], initializer=stf.constant_initializer(
+        np.eye(8, dtype=np.float32) * 1.5))
+    i, v = stf.while_loop(
+        lambda i, v: stf.less(stf.reduce_sum(v * v), 400.0),
+        lambda i, v: (i + 1, stf.reshape(stf.tanh(stf.matmul(
+            stf.reshape(v, [1, 8]), w)), [8]) * 2.0 + v),
+        [stf.constant(0), x])
+    s = stf.reduce_sum(x)
+    # each branch is NaN where it is not taken
+    c = stf.cond(stf.greater(s, 0.0), lambda: stf.sqrt(s),
+                 lambda: stf.sqrt(-s) * 2.0)
+    _, a = stf.while_loop(lambda j, a: stf.greater(a, 1.0),
+                          lambda j, a: (j + 1, stf.sqrt(a - 1.0)),
+                          [stf.constant(0), s * s + 1.5],
+                          maximum_iterations=6)
+    g = stf.gradients(a + c, [x])[0]
+    return [i, v, c, a, g]
+
+
+@pytest.mark.cuda
+def test_a_captured_while_and_cond_equal_eager_on_card(cuda):
+    # values and the gradient of a bounded loop: captured replays (WHILE
+    # and IF conditional nodes, guarded steps) equal the eager runs bit
+    # for bit; a replay reads no predicate on the host; the setter's
+    # launches settle to one a node and one a WHILE body run
+    import simple_tensorflow_tpu_torch as stf
+
+    rng = np.random.RandomState(0)
+    feeds = [rng.randn(8).astype(np.float32) * s for s in (0.1, 1.0, -3.0,
+                                                           0.02)]
+    outs = {}
+    for capture in (False, True):
+        g = stf.Graph()
+        with g.as_default():
+            fetch = _control_flow_graph(stf)
+            s = stf.Session()
+            s._capture = capture
+            s.run(stf.global_variables_initializer())
+            x = g.get_tensor_by_name("x:0")
+            s.run(fetch, {x: feeds[0]})       # warm-up
+            s.host_predicate_reads = 0
+            K.reset_launch_counts()
+            outs[capture] = [s.run(fetch, {x: f}) for f in feeds]
+            counts = K.launch_counts()
+            if capture:
+                assert s.captures == 1 and s.host_predicate_reads == 0
+                assert counts["cond_set"] > 0
+            else:
+                assert s.host_predicate_reads > 0
+            s.close()
+    for eager, cap in zip(outs[False], outs[True]):
+        for a, b in zip(eager, cap):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert len({int(o[0]) for o in outs[True]}) > 1   # trip counts differ
+    assert all(np.isfinite(np.asarray(v)).all() for o in outs[True]
+               for v in o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_beam_search_captured_equals_eager_on_card(cuda, dtype):
+    # tiny width, batch 2 x beam 3, decode_len 8, padded source: the
+    # captured naive and cached searches equal their eager runs bit for
+    # bit, and every DecodeAttention of the cached loop is counted
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig.tiny()
+    src_ids = tr.synthetic_wmt_batch(2, 8, 8, vocab_size=cfg.vocab_size)[
+        "src_ids"].copy()
+    src_ids[:, -2:] = cfg.pad_id
+    outs = {}
+    for capture in (False, True):
+        g = stf.Graph()
+        with g.as_default():
+            stf.set_random_seed(3)
+            src = stf.placeholder(stf.int32, [2, 8], "src")
+            dt = getattr(stf, dtype)
+            fetch = [tr.beam_search_decode(src, cfg, beam_size=3,
+                                           decode_len=8, compute_dtype=dt,
+                                           use_cache=c)
+                     for c in (False, True)]
+            s = stf.Session()
+            s._capture = capture
+            s.run(stf.global_variables_initializer())
+            s.run(fetch[1], {src: src_ids})
+            K.reset_launch_counts()
+            outs[capture] = [s.run(fetch, {src: src_ids}) for _ in range(3)]
+            counts = K.launch_counts()
+            # 2 layers x (self + cross) a step, 7 steps a search
+            assert counts["decode_attention"] == 3 * 2 * 2 * 7
+            assert s.captures == (1 if capture else 0)
+            s.close()
+    for eager, cap in zip(outs[False], outs[True]):
+        for (ei, es), (ci, cs) in zip(eager, cap):
+            np.testing.assert_array_equal(ei, ci)
+            np.testing.assert_array_equal(es, cs)
+    naive, cached = outs[True][0]
+    assert (cached[0][:, :, 0] == cfg.eos_id).all()
+    assert np.isfinite(cached[1]).all()
+    if dtype == "float32":
+        np.testing.assert_array_equal(naive[0], cached[0])
+        np.testing.assert_allclose(naive[1], cached[1], atol=1e-4)

@@ -17,8 +17,8 @@ Session and once in a port Session from JAX's initial values
   (``analysis.rng_ops``), and a captured step (its CPU replay) draws it
   as the eager step does;
 - a body that assigns a variable raises ``InvalidArgumentError`` in both
-  packages; ``cond``, ``while_loop``, ``case``, ``py_func`` and
-  ``raw_rnn`` raise ``NotImplementedError`` naming their ROADMAP item.
+  packages; ``py_func`` raises ``NotImplementedError`` naming its ROADMAP
+  item (``cond``, ``while_loop`` and ``case`` build their ops).
 """
 
 import collections
@@ -243,19 +243,15 @@ def test_a_variable_assigned_in_a_body_raises(name):
 
 
 def test_unported_control_flow_raises_naming_its_roadmap_item():
-    from simple_tensorflow_tpu_torch.ops import rnn
-
+    # py_func is still unported; cond, while_loop and case now build their
+    # ops (tests/test_torch_control_flow.py holds them to JAX)
     with pstf.Graph().as_default():
         x = pstf.constant(np.ones(3, np.float32))
-        calls = [
-            lambda: pstf.cond(x[0] > 0, lambda: x, lambda: -x),
-            lambda: pstf.while_loop(lambda i: i < 3, lambda i: i + 1, [0]),
-            lambda: pstf.case([(x[0] > 0, lambda: x)], default=lambda: x),
-            lambda: rnn.raw_rnn(None, None, maximum_iterations=3)]
-        for call in calls:
-            with pytest.raises(NotImplementedError,
-                               match="front-end item 1"):
-                call()
+        built = [
+            pstf.cond(x[0] > 0, lambda: x, lambda: -x),
+            pstf.while_loop(lambda i: i < 3, lambda i: i + 1, [0]),
+            pstf.case([(x[0] > 0, lambda: x)], default=lambda: x)]
+        assert [t.op.type for t in built] == ["Cond", "While", "Cond"]
         with pytest.raises(NotImplementedError, match="front-end item 2"):
             pstf.py_func(lambda a: a, [x], pstf.float32)
 

@@ -93,6 +93,9 @@ def test_importing_the_port_loads_no_jax():
                                                      rnn_cell)
         from simple_tensorflow_tpu_torch.models import (ptb_lstm,
                                                         rnn_seq2seq)
+        from simple_tensorflow_tpu_torch.ops import (kv_cache_ops,
+                                                     tensor_array_ops)
+        from simple_tensorflow_tpu_torch.ops.kernels import control_flow
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -139,6 +142,39 @@ def test_the_rnn_slice_modules_are_guarded():
     assert {"ops/functional_ops.py", "ops/rnn.py", "ops/rnn_cell.py",
             "ops/clip_ops.py", "ops/control_flow_ops.py",
             "models/ptb_lstm.py", "models/rnn_seq2seq.py"} <= guarded
+
+
+def test_the_control_flow_slice_modules_are_guarded():
+    # control flow, TensorArray, the DecodeAttention op and the
+    # conditional-node plumbing are among the files the guard reads, and
+    # the node setter's source exists beside the other kernels
+    guarded = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"ops/control_flow_ops.py", "ops/tensor_array_ops.py",
+            "ops/kv_cache_ops.py", "ops/kernels/control_flow.py",
+            "models/transformer.py"} <= guarded
+    src = open(os.path.join(PKG, "csrc", "control_flow.cu")).read()
+    assert "cudaGraphSetConditional" in src
+    assert not any(w in src for w in FORBIDDEN[:2])
+
+
+def test_a_beam_search_session_defaults_to_the_gpu(monkeypatch):
+    import simple_tensorflow_tpu_torch as stf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tr.TransformerConfig.tiny()
+    with stf.Graph().as_default():
+        src = stf.placeholder(stf.int32, [1, 6], "src")
+        ids, scores = tr.beam_search_decode(src, cfg, beam_size=2,
+                                            decode_len=4,
+                                            compute_dtype=stf.float32,
+                                            use_cache=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stf.Session()
+        with stf.Session(config=stf.ConfigProto(
+                device_count={"GPU": 0})) as s:
+            s.run(stf.global_variables_initializer())
+            out = s.run(ids, {src: np.full((1, 6), 5, np.int32)})
+            assert s.device.type == "cpu" and out.shape == (1, 2, 4)
 
 
 def test_an_rnn_session_defaults_to_the_gpu(monkeypatch):

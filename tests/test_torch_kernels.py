@@ -619,7 +619,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            "flash_attention_dkdv_device_seed",
                            "flash_attention_dq_device_seed",
                            "dropout_residual_device_seed",
-                           "dropout_residual_bwd_device_seed"}
+                           "dropout_residual_bwd_device_seed", "cond_set"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -642,7 +642,8 @@ def test_build_key_covers_every_source_and_the_flags():
     assert {"decode_attention.cu", "layer_norm.cu", "quant_matmul.cu",
             "flash_attention.cu", "softmax_xent.cu", "fused_update.cu",
             "dropout_residual.cu", "dropout.cu", "flash_fwd_mma.cu",
-            "flash_bwd_mma.cu", "common.cuh", "mma.cuh"} <= set(srcs)
+            "flash_bwd_mma.cu", "common.cuh", "mma.cuh",
+            "control_flow.cu"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16
@@ -655,7 +656,9 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_dropout_key", "stf_dropout_bwd",
         "stf_flash_attention_fwd_seed_ptr",
         "stf_flash_attention_dkdv_seed_ptr",
-        "stf_flash_attention_dq_seed_ptr", "stf_dropout_residual_seed_ptr"}
+        "stf_flash_attention_dq_seed_ptr", "stf_dropout_residual_seed_ptr",
+        "stf_cond_set", "stf_cond_node_begin", "stf_capture_to_graph_begin",
+        "stf_capture_to_graph_end", "stf_graph_node_count"}
 
 
 def test_helpers_match_the_pallas_common_module():
