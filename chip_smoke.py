@@ -4,8 +4,9 @@ NVIDIA GPU and check every kernel of its serving and training paths
 (causal LM and ResNet-50) and of its TF-1 front end (``stf.Session``
 training the MNIST convnet, the seq2seq transformer, the causal LM,
 ResNet-50 and BERT-base, with and without per-layer recompute, the two
-RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq, and
-the transformer's beam search on ``stf.while_loop``).
+RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq, the
+transformer's beam search on ``stf.while_loop``, and BERT and the MNIST
+journey fed by ``stf.data`` from TFRecord shards).
 
     python3 chip_smoke.py [--serving]
 
@@ -371,6 +372,42 @@ beside another tree's package measures that tree's serving path.
    (its WHILE body's included); last the default ``decode_len``
    (``cfg.max_len`` = 256: 255 iterations) captured and replayed, each
    replay equal to the eager decode.
+13. Data phase: the input pipeline. 512 BERT pretraining Examples
+   (``synthetic_pretrain_batch(32, 512, 76, input_mask=True)``, seeds
+   0-15) written as 8 TFRecord shards (``bert.write_pretrain_records``);
+   the stream ``TFRecordDataset(files, num_parallel_reads=AUTOTUNE)
+   .repeat().batch(32).parse_example(spec)``, the int64 features cast to
+   int32, ``.prefetch_to_device(2, superbatch=4)`` for two epochs, every
+   superbatch int-exact against the arrays written, the native parser's
+   batch count above 0 and the Python parser's 0 (a native runtime that
+   does not build fails the phase); the same with each copy queued behind
+   a GPU sleep on the pipeline's stream (still exact), and with slots
+   reused without waiting for their copies (a planted fault that must
+   corrupt a superbatch). The pipeline alone in records/s, the sequential
+   chain against the parallel one as ``bench.py _measure_input_pipeline``
+   builds them. Then BERT-base as phase 10 trains it (bf16, 32 x 512,
+   dropout 0.1, Adam lr 1e-4), ``DATA_WINDOWS`` ``run_steps`` windows of 4
+   (captured, ``"stacked"``), fed the shuffled training stream's
+   superbatches by a one-shot iterator (``prefetch_to_device``, a
+   device-to-device copy into the window's buffers), a ``train.Saver``
+   checkpoint after window 4; the same windows fed the same superbatches
+   as numpy in a second Session, and in a third fed by the pipeline with
+   every superbatch taken before the first window (no pipeline thread
+   running during the windows): losses, every variable and Adam slot bit
+   for bit, exact launches; p50 a step, tokens/s, device and host ms a
+   step, the busy share and the longest device idle gap of a traced
+   window, for each. A new graph and Session restored from the checkpoint
+   (its iterator at position 4) runs windows 5 on to the uninterrupted
+   run's losses and state bit for bit; the restore with its position
+   reset to 0 and the numpy batches fed one step shifted are planted
+   faults that must differ. Last the port's
+   ``examples/train_mnist_end_to_end.py`` steps 1-4
+   (``models.mnist.records_model``): ``get_next()`` in the graph as the
+   host stage of a captured step under ``MonitoredTrainingSession`` with
+   checkpoints and summaries, 40 steps against 20 and a resumed 20 whose
+   losses equal the uninterrupted run's bit for bit (cuDNN
+   deterministic), the resumed session at the saved step and iterator
+   position, one xent forward and backward and one Adam launch a step.
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
@@ -378,13 +415,15 @@ window, the Session's checked steps and its two windows, the transformer's,
 the causal LM's and ResNet's f32 checked steps and their two windows, the
 training loop's run A and its checked windows, BERT's two checks and its
 five windows, the RNN graphs' checks, windows and seq2seq's 60 steps,
-the beam search's f32 check and its bf16 windows) is counted from zero
+the beam search's f32 check and its bf16 windows, the data phase's BERT
+runs and its MNIST journey) is counted from zero
 just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
 (``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``,
 ``@ptb``, ``@seq2seq``, ``@beam``) count that path's launches alone
-(``@bert``: the shipped-config windows; ``@ptb``, ``@seq2seq``: the
+(``@bert``: the shipped-config windows, the data phase's included;
+``@ptb``, ``@seq2seq``: the
 windows and the 60 steps; ``@beam``: the f32 check for the f32 rows, the
 bf16 windows for the bf16 rows). A kernel in a conditional node's body
 counts once per run of the body (``DeviceGraph.settle``). Prints a
@@ -6316,6 +6355,521 @@ def beam_phase(K, dev, kernel_rows):
     print(f"beam phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
+
+# -- phase 13: the input pipeline ---------------------------------------------
+
+DATA_SHARDS = 8
+DATA_BATCHES = 16           # 512 records of BERT's 32 x 512 batches
+DATA_SB = 4                 # superbatches of 4: run_steps windows of 4
+DATA_WINDOWS = 12           # three epochs of the stream
+DATA_SAVE_AFTER = 4         # the checkpoint the resumed run starts from
+DATA_SHUFFLE = (512, 13)    # the training stream's record shuffle
+DATA_DELAY_CYCLES = 200_000_000  # GPU sleep (~0.1 s) before each staged copy
+DATA_RATE_ROUNDS = 3
+MNIST_DATA_B = 32           # the example's batch
+MNIST_DATA_STEPS, MNIST_DATA_SPLIT = 40, 20
+
+
+@contextlib.contextmanager
+def data_slot_fault(wait, delay):
+    """Within the block, every ``prefetch_to_device`` pool waits for its
+    copies or (``wait`` False, a planted fault) reuses a slot at once, and
+    with ``delay`` each element's copies queue behind a GPU sleep on the
+    pipeline's stream (the host runs ahead of its copies)."""
+    from simple_tensorflow_tpu_torch.data import staging
+
+    def pool_init(orig):
+        def init(self, *a, **k):
+            orig(self, *a, **k)
+            self.wait_copies = wait
+        return init
+
+    def slow(orig):
+        def to_device(x, device, stream):
+            if delay and stream is not None:
+                with staging._cuda_lock(device), torch.cuda.stream(stream):
+                    torch.cuda._sleep(DATA_DELAY_CYCLES)
+            return orig(x, device, stream)
+        return to_device
+
+    with planted(staging.PinnedPool, "__init__", pool_init), \
+            planted(staging, "to_device", slow):
+        yield
+
+
+def data_parse_counts():
+    from simple_tensorflow_tpu_torch.platform import monitoring
+
+    m = monitoring.get_metric("/stf/data/parse_example_batches")
+    cells = m.snapshot()["cells"] if m is not None else {}
+    return cells.get("native", 0), cells.get("python", 0)
+
+
+def data_superbatches(stream, n):
+    """``n`` superbatches of ``stream`` on the host, as numpy."""
+    out = []
+    for _ in range(n):
+        sb = next(stream)
+        out.append({k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+                    else v for k, v in sb.items()})
+    return out
+
+
+def data_stream_check(stf, bert, files, batches, tag, dev, wait=True,
+                      delay=False):
+    """The stream of the module docstring (``bert.pretrain_dataset`` then
+    ``prefetch_to_device(2, superbatch=DATA_SB)``) for two epochs against
+    the arrays written: the superbatches that differ (0 when right)."""
+    ds = bert.pretrain_dataset(files, BERT_B, BERT_S, BERT_P) \
+        .prefetch_to_device(2, superbatch=DATA_SB, device=dev)
+    n = 2 * DATA_BATCHES // DATA_SB
+    with data_slot_fault(wait, delay):
+        it = iter(ds)
+        # the consumer takes every superbatch before any sync, so the
+        # host runs as far ahead of the copies as the rings allow
+        got = [next(it) for _ in range(n)]
+        data_sync(dev)
+        it.close()
+    bad = 0
+    for i, sb in enumerate(got):
+        for j in range(DATA_SB):
+            want = bert.to_feed_dtypes(
+                batches[(i * DATA_SB + j) % DATA_BATCHES])
+            if sorted(sb) != sorted(want) or not all(
+                    sb[k].device.type == dev.type
+                    and sb[k].dtype == torch.from_numpy(
+                        want[k]).dtype and np.array_equal(
+                        sb[k][j].cpu().numpy(), want[k]) for k in want):
+                bad += 1
+                break
+    print(f"data {tag}: {n} superbatches of {DATA_SB} x {BERT_B} records "
+          f"from {len(files)} shards, {bad} differ from the arrays written",
+          flush=True)
+    return bad
+
+
+def data_rates(stf, bert, files):
+    """Records/s of the pipeline alone over one epoch, as
+    ``bench.py _measure_input_pipeline`` builds its two chains: the
+    sequential one (shard after shard, one parse a record, then batch)
+    and the parallel one (AUTOTUNE shard reads, batch, one native parse a
+    batch, AUTOTUNE prefetch); the medians of ``DATA_RATE_ROUNDS``
+    interleaved rounds."""
+    spec = bert.pretrain_spec(BERT_S, BERT_P)
+    D = stf.data
+
+    def seq():
+        return D.TFRecordDataset(files).parse_example(spec).batch(BERT_B)
+
+    def par():
+        return (D.TFRecordDataset(files, num_parallel_reads=D.AUTOTUNE)
+                .batch(BERT_B).parse_example(spec).prefetch(D.AUTOTUNE))
+
+    def rate(mk):
+        n = 0
+        t0 = time.perf_counter()
+        for b in mk():
+            n += len(b["nsp_labels"])
+        return n / (time.perf_counter() - t0)
+
+    rates = {"sequential": [], "parallel": []}
+    for _ in range(DATA_RATE_ROUNDS):
+        rates["sequential"].append(rate(seq))
+        rates["parallel"].append(rate(par))
+    return {k: statistics.median(v) for k, v in rates.items()}
+
+
+def data_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def data_bert_graph(stf, bert, cfg, files, pipeline, dev):
+    """``bert_pretrain_model`` as phase 10 trains it, in a new graph under
+    ``set_random_seed(1)``; with ``pipeline``, the shuffled training
+    stream's one-shot iterator (``prefetch_to_device(2, superbatch=
+    DATA_SB)``) and a ``train.Saver``: ``(model, session, iterator,
+    saver)``."""
+    g = stf.Graph()
+    with g.as_default():
+        stf.set_random_seed(1)
+        m = bert.bert_pretrain_model(
+            BERT_B, BERT_S, BERT_P, cfg=cfg, learning_rate=BERT_LR,
+            compute_dtype=stf.bfloat16, use_input_mask=True)
+        it = saver = None
+        if pipeline:
+            it = bert.pretrain_dataset(
+                files, BERT_B, BERT_S, BERT_P, shuffle=DATA_SHUFFLE) \
+                .prefetch_to_device(2, superbatch=DATA_SB, device=dev) \
+                .make_one_shot_iterator()
+            saver = stf.train.Saver(max_to_keep=1)
+        init = stf.global_variables_initializer()
+    sess = stf.Session(graph=g, config=None if dev.type == "cuda" else
+                       stf.ConfigProto(device_count={"GPU": 0}))
+    sess.run(init)
+    return m, sess, it, saver
+
+
+def data_windows(K, sess, m, next_sb, windows, after=None,
+                 trace_last=True):
+    """``windows`` ``run_steps([loss, train_op], DATA_SB, stacked_feeds=
+    next_sb(), output_mode="stacked")`` windows: the losses, each window's
+    host seconds (the superbatch's pull included), the launches counted
+    from zero, and a ``loop_trace`` of the last window (with
+    ``trace_last``). ``after(i)`` runs after window i (1-based)."""
+    losses, secs, trace = [], [], None
+    K.reset_launch_counts()
+    for i in range(1, windows + 1):
+        def window():
+            sb = next_sb()
+            out = sess.run_steps(
+                [m["loss"], m["train_op"]], DATA_SB,
+                stacked_feeds={m[k]: v for k, v in sb.items()},
+                output_mode="stacked")
+            losses.extend(float(v) for v in out[0])
+
+        if trace_last and i == windows and sess.device.type == "cuda":
+            trace = loop_trace(window, DATA_SB)
+        else:
+            t0 = time.perf_counter()
+            window()
+            secs.append(time.perf_counter() - t0)
+        if after is not None:
+            after(i)
+    return dict(losses=losses, secs=secs, counts=K.launch_counts(),
+                trace=trace, captures=sess.captures,
+                fused=sess.fused_steps,
+                fallbacks=dict(sess.loop_fusion_fallbacks))
+
+
+def data_report(tag, w, card):
+    """Print a run's step numbers; returns its p50 step (s)."""
+    p50 = statistics.median(w["secs"][1:]) / DATA_SB   # window 1 captures
+    tps = BERT_B * BERT_S / p50
+    tr = w["trace"]
+    if tr is None:
+        print(f"{card}: data {tag}: p50 step {p50 * 1e3:.4f} ms, {tps:.2f} "
+              "tokens/s; the profiler saw no device time: device and host "
+              "ms a step, busy share and idle gap not measured", flush=True)
+        return p50, None
+    print(f"{card}: data {tag}: p50 step {p50 * 1e3:.4f} ms (windows 2-"
+          f"{len(w['secs'])}, host clock around the superbatch's pull and "
+          f"run_steps), {tps:.2f} tokens/s; traced window: device "
+          f"{tr['dev_ms']:.4f} ms a step, host {p50 * 1e3 - tr['dev_ms']:.4f}"
+          f" ms a step (p50 minus device), busy {100 * tr['busy']:.2f}% of "
+          f"{tr['wall_ms']:.4f} ms a step, longest device idle gap "
+          f"{tr['gap_ms']:.4f} ms (at a replay boundary "
+          f"{tr['edge_gap_ms']:.4f}, inside a step {tr['inner_gap_ms']:.4f}),"
+          f" device-to-device copies {tr['d2d_ms']:.4f} ms a step; "
+          f"captures {w['captures']}, fused steps {w['fused']}", flush=True)
+    return p50, tr
+
+
+def data_bert(K, stf, bert, cfg, files, root, card, dev):
+    """Phase 13's BERT runs (module docstring): pipeline-fed with a save
+    after window ``DATA_SAVE_AFTER``, numpy-fed, resumed, and the two
+    planted faults. Returns its paths."""
+    paths = []
+    per = bert_per_step(cfg.num_layers, False, 2)
+    want = bert_graph_counts(per, 1 + DATA_WINDOWS * DATA_SB)
+    ckpt = os.path.join(root, "ckpt", "model.ckpt")
+
+    # the stream the numpy-fed runs take: the training chain, sequential,
+    # superbatched on the host
+    ref = iter(bert.pretrain_dataset(files, BERT_B, BERT_S, BERT_P,
+                                     shuffle=DATA_SHUFFLE)
+               .superbatch(DATA_SB))
+    host_sbs = [next(ref) for _ in range(DATA_WINDOWS + 1)]
+    ref.close()
+
+    # -- pipeline-fed, saved after window DATA_SAVE_AFTER --------------------
+    m, sess, it, saver = data_bert_graph(stf, bert, cfg, files, True, dev)
+    saved = {}
+
+    def save(i):
+        if i == DATA_SAVE_AFTER:
+            saved["path"] = saver.save(sess, ckpt)
+            saved["position"] = it.save_state()["position"]
+
+    fed = data_windows(K, sess, m, lambda: next(it), DATA_WINDOWS, save)
+    fed["bits"] = store_bits(sess)
+    it.close()
+    sess.close()
+    del sess, m
+    data_sync(dev)
+    paths.append(("bert data pipeline-fed", DROPOUT_RATE, fed["counts"]))
+
+    # -- numpy-fed, the same batches -----------------------------------------
+    m, sess, _, _ = data_bert_graph(stf, bert, cfg, files, False, dev)
+    sbs = iter(host_sbs)
+    host = data_windows(K, sess, m, lambda: next(sbs), DATA_WINDOWS)
+    host["bits"] = store_bits(sess)
+    sess.close()
+    del sess, m
+    data_sync(dev)
+    paths.append(("bert data numpy-fed", DROPOUT_RATE, host["counts"]))
+
+    # -- pipeline-fed, every superbatch taken before the first window: no
+    # pipeline thread runs during the windows ------------------------------
+    m, sess, it, _ = data_bert_graph(stf, bert, cfg, files, True, dev)
+    ahead = [next(it) for _ in range(DATA_WINDOWS)]
+    pre = iter(ahead)
+    drained = data_windows(K, sess, m, lambda: next(pre), DATA_WINDOWS)
+    drained["bits"] = store_bits(sess)
+    it.close()
+    sess.close()
+    del sess, m, ahead, pre
+    data_sync(dev)
+    paths.append(("bert data drained", DROPOUT_RATE, drained["counts"]))
+
+    bad = []
+    for tag, w in (("pipeline-fed", fed), ("numpy-fed", host),
+                   ("drained", drained)):
+        if w["counts"] != {**{k: 0 for k in w["counts"]}, **want}:
+            bad.append(f"{tag} launches {w['counts']}, expected {want}")
+        if w["fallbacks"] or w["fused"] != DATA_WINDOWS * DATA_SB:
+            bad.append(f"{tag}: fused steps {w['fused']}, fallbacks "
+                       f"{w['fallbacks']}")
+        if w["captures"] != 1:
+            bad.append(f"{tag}: {w['captures']} captures")
+        if not all(math.isfinite(v) for v in w["losses"]):
+            bad.append(f"{tag}: non-finite losses")
+    differ = bits_differ(fed["bits"], host["bits"])
+    if fed["losses"] != host["losses"] or differ:
+        bad.append(f"pipeline-fed vs numpy-fed: losses {fed['losses']} vs "
+                   f"{host['losses']}; {len(differ)} variables and slots "
+                   f"differ ({differ[:5]})")
+    if drained["losses"] != host["losses"] or bits_differ(drained["bits"],
+                                                          host["bits"]):
+        bad.append("the drained pipeline's run differs from the numpy-fed")
+    half = len(fed["losses"]) // 2
+    if not statistics.mean(fed["losses"][half:]) < statistics.mean(
+            fed["losses"][:half]):
+        bad.append(f"the loss does not fall: {fed['losses']}")
+    print(f"data bert: {DATA_WINDOWS} windows of {DATA_SB} steps, "
+          f"pipeline-fed vs numpy-fed: {len(fed['losses'])} losses equal "
+          f"bit for bit: {fed['losses'] == host['losses']}, "
+          f"{len(differ)} of {len(fed['bits'])} variables and Adam slots "
+          f"differ; losses {[round(v, 5) for v in fed['losses']]}; "
+          f"launches {fed['counts']}", flush=True)
+    if bad:
+        fail("data bert: " + "; ".join(bad))
+    p_fed, _ = data_report("bert pipeline-fed", fed, card)
+    p_host, _ = data_report("bert numpy-fed", host, card)
+    p_drained, _ = data_report("bert pipeline-fed, drained ahead", drained,
+                               card)
+    print(f"{card}: data bert: p50 step pipeline-fed {p_fed * 1e3:.4f}, "
+          f"numpy-fed {p_host * 1e3:.4f}, pipeline drained ahead "
+          f"{p_drained * 1e3:.4f} ms ({p_fed / p_host:.4f}x and "
+          f"{p_drained / p_host:.4f}x the numpy-fed)", flush=True)
+
+    # -- resumed from the checkpoint in a new graph and session --------------
+    def resumed(reset):
+        m, sess, it, saver = data_bert_graph(stf, bert, cfg, files, True,
+                                             dev)
+        t0 = time.perf_counter()
+        saver.restore(sess, saved["path"])
+        restore_s = time.perf_counter() - t0
+        pos = it.save_state()["position"]
+        if reset:   # the planted fault: the stream from its start
+            it.restore_state({"position": 0})
+        n = 1 if reset else DATA_WINDOWS - DATA_SAVE_AFTER
+        w = data_windows(K, sess, m, lambda: next(it), n, trace_last=False)
+        w.update(bits=store_bits(sess), position=pos, restore_s=restore_s)
+        it.close()
+        sess.close()
+        del sess, m
+        data_sync(dev)
+        return w
+
+    res = resumed(False)
+    paths.append(("bert data resumed", DROPOUT_RATE, res["counts"]))
+    tail = fed["losses"][DATA_SAVE_AFTER * DATA_SB:]
+    differ = bits_differ(res["bits"], fed["bits"])
+    ok = (res["position"] == saved["position"] == DATA_SAVE_AFTER
+          and res["losses"] == tail and not differ)
+    print(f"data bert resumed: restored {saved['path']} in "
+          f"{res['restore_s']:.4f} s at iterator position {res['position']}"
+          f" (saved {saved['position']}); windows "
+          f"{DATA_SAVE_AFTER + 1}-{DATA_WINDOWS} losses equal the "
+          f"uninterrupted run's bit for bit: {res['losses'] == tail}; "
+          f"{len(differ)} variables and slots differ at the end", flush=True)
+    if not ok:
+        fail(f"data bert resumed: position {res['position']}, losses "
+             f"{res['losses']} vs {tail}, differ {differ[:5]}")
+    zero = resumed(True)
+    head = fed["losses"][DATA_SAVE_AFTER * DATA_SB:][:DATA_SB]
+    print(f"data bert planted fault (the restored position reset to 0): "
+          f"window {DATA_SAVE_AFTER + 1} losses {zero['losses']} vs "
+          f"{head}: the check "
+          f"{'fails, as it must' if zero['losses'] != head else 'PASSES'}",
+          flush=True)
+    if zero["losses"] == head:
+        fail("data bert: a restore with its iterator reset to 0 passed the "
+             "resume check")
+
+    # -- the batches fed one step shifted ------------------------------------
+    m, sess, _, _ = data_bert_graph(stf, bert, cfg, files, False, dev)
+    rows = {k: np.concatenate([host_sbs[0][k][1:], host_sbs[1][k][:1]])
+            for k in host_sbs[0]}
+    shifted = data_windows(K, sess, m, lambda: rows, 1, trace_last=False)
+    sess.close()
+    del sess, m
+    data_sync(dev)
+    first = fed["losses"][:DATA_SB]
+    print(f"data bert planted fault (the numpy batches one step shifted): "
+          f"window 1 losses {shifted['losses']} vs {first}: the check "
+          f"{'fails, as it must' if shifted['losses'] != first else 'PASSES'}",
+          flush=True)
+    if shifted["losses"] == first:
+        fail("data bert: batches fed one step shifted passed the check")
+    return paths
+
+
+def data_mnist(K, stf, mnist, root, card, dev):
+    """The port's ``examples/train_mnist_end_to_end.py`` steps 1-4 on the
+    card (module docstring); returns its path."""
+    os.makedirs(os.path.join(root, "mnist"))
+    _, _, files = mnist.write_records(os.path.join(root, "mnist",
+                                                   "train.tfrecord"))
+
+    def monitored(directory, last_step):
+        g = stf.Graph()
+        with g.as_default():
+            stf.set_random_seed(42)
+            m = mnist.records_model(files, MNIST_DATA_B, device=dev)
+            losses = []
+            with stf.train.MonitoredTrainingSession(
+                    checkpoint_dir=directory, save_checkpoint_steps=20,
+                    save_summaries_steps=10, config=None
+                    if dev.type == "cuda" else stf.ConfigProto(
+                        device_count={"GPU": 0}),
+                    hooks=[stf.train.StopAtStepHook(last_step=last_step)]) \
+                    as ms:
+                raw = ms.raw_session
+                start = int(raw.variable_value(m["global_step"]).item())
+                pos = m["iterator"].save_state()["position"]
+                while not ms.should_stop():
+                    losses.append(float(ms.run([m["train_op"],
+                                                m["loss"]])[1]))
+                captures = raw.captures
+        m["iterator"].close()
+        return dict(start=start, position=pos, losses=losses,
+                    captures=captures)
+
+    # cuDNN's deterministic convolutions: the resumed run is held to the
+    # uninterrupted one bit for bit
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = monitored(os.path.join(root, "mnist", "full"),
+                         MNIST_DATA_STEPS)
+        full_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        split = os.path.join(root, "mnist", "split")
+        first = monitored(split, MNIST_DATA_SPLIT)
+        res = monitored(split, MNIST_DATA_STEPS)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    n = len(first["losses"])
+    print(f"{card}: data mnist journey: {len(full['losses'])} monitored "
+          f"steps (get_next in the graph, batch {MNIST_DATA_B}) in "
+          f"{full_s:.4f} s with its checkpoints and summaries, captures "
+          f"{full['captures']}, losses {full['losses'][0]:.5f} -> "
+          f"{full['losses'][-1]:.5f}; resumed at global step "
+          f"{res['start']} and position {res['position']} after {n} steps, "
+          f"its {len(res['losses'])} losses equal the uninterrupted run's: "
+          f"{first['losses'] + res['losses'] == full['losses']}; launches "
+          f"{counts}", flush=True)
+    bad = []
+    if not statistics.mean(full["losses"][-5:]) < statistics.mean(
+            full["losses"][:5]):
+        bad.append(f"the loss does not fall: {full['losses']}")
+    if (res["start"], res["position"]) != (n, n):
+        bad.append(f"resumed at step {res['start']}, position "
+                   f"{res['position']}, after {n} steps")
+    if first["losses"] + res["losses"] != full["losses"]:
+        bad.append("the resumed losses differ from the uninterrupted run's")
+    # the example's graph has no Dropout: a step's xent forward and
+    # backward and one Adam launch (f32, one flat group), replayed or not
+    steps = len(full["losses"])
+    want = {k: 0 for k in counts}
+    want.update(softmax_xent_fwd=steps, softmax_xent_bwd=steps,
+                adam_update=steps)
+    if full["captures"] < 1 or counts != want:
+        bad.append(f"captures {full['captures']}, launches {counts}, "
+                   f"expected {want}")
+    if bad:
+        fail("data mnist journey: " + "; ".join(bad))
+    return ("mnist data journey", 0.0, counts)
+
+
+def data_phase(K, dev):
+    """The input pipeline (module docstring, phase 13). Returns
+    ``[(path, dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import bert, mnist
+    from simple_tensorflow_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    card = card_line()
+    if not native.available():
+        fail("data: the native runtime (runtime_cc/libstf_runtime.so) did "
+             "not build or load")
+    cfg = bert.BertConfig.base()
+    root = tempfile.mkdtemp(prefix="stf_data_phase_")
+    try:
+        t1 = time.perf_counter()
+        files, batches = bert.write_pretrain_records(
+            os.path.join(root, "bert"), DATA_BATCHES, BERT_B, BERT_S, BERT_P,
+            cfg.vocab_size, shards=DATA_SHARDS)
+        size = sum(os.path.getsize(f) for f in files)
+        print(f"data: {DATA_BATCHES * BERT_B} BERT pretraining Examples "
+              f"(synthetic_pretrain_batch({BERT_B}, {BERT_S}, {BERT_P}, "
+              f"input_mask=True), seeds 0-{DATA_BATCHES - 1}) in "
+              f"{DATA_SHARDS} TFRecord shards, {size} bytes, written in "
+              f"{time.perf_counter() - t1:.2f} s; native runtime "
+              f"{native.version()}", flush=True)
+        before = data_parse_counts()
+        bad = data_stream_check(stf, bert, files, batches, "stream", dev)
+        parsed = tuple(a - b for a, b in zip(data_parse_counts(), before))
+        print(f"data stream: parse_example batches by path: native "
+              f"{parsed[0]}, python {parsed[1]}", flush=True)
+        if bad or parsed[0] <= 0 or parsed[1] != 0:
+            fail(f"data stream: {bad} superbatches differ; parse paths "
+                 f"{parsed}")
+        slow = data_stream_check(stf, bert, files, batches,
+                                 "stream, copies delayed", dev, delay=True)
+        fault = data_stream_check(stf, bert, files, batches,
+                                  "planted fault: a slot reused without "
+                                  "waiting for its copy", dev, wait=False,
+                                  delay=True)
+        if dev.type == "cuda" and (slow or not fault):
+            fail(f"data stream: delayed copies {slow} bad superbatches (0 "
+                 f"expected), slots reused without a wait {fault} (some "
+                 "expected)")
+        rates = data_rates(stf, bert, files)
+        print(f"{card}: data: the pipeline alone over {DATA_BATCHES * BERT_B}"
+              f" records: sequential chain {rates['sequential']:.2f} "
+              f"records/s, parallel chain {rates['parallel']:.2f} records/s "
+              f"({rates['parallel'] / rates['sequential']:.2f}x; medians of "
+              f"{DATA_RATE_ROUNDS} interleaved rounds, {os.cpu_count()} host "
+              f"cores)", flush=True)
+        paths = data_bert(K, stf, bert, cfg, files, root, card, dev)
+        paths.append(data_mnist(K, stf, mnist, root, card, dev))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"data phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def seeded_graph_vars(stf, build):
     """The trainable variables of ``build()`` in a new graph."""
     g = stf.Graph()
@@ -6483,6 +7037,8 @@ def main():
     paths += rnn_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
     paths += beam_phase(K, dev, main_rows)
+    torch.cuda.empty_cache()
+    paths += data_phase(K, dev)
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)

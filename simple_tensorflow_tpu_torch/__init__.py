@@ -16,9 +16,12 @@ with per-layer recompute (``models.bert``), and the RNN graphs
 (``models.ptb_lstm``, ``models.rnn_seq2seq``) on ``stf.scan`` and
 ``stf.nn.rnn_cell``; TF-1 control flow (``stf.cond``, ``stf.case``,
 ``stf.while_loop``, ``stf.TensorArray``, ``stf.nn.raw_rnn``) and the
-transformer's beam search (``models.transformer.beam_search_decode``).
-Importing the package loads no kernel library; the kernels are built and
-loaded at their first launch.
+transformer's beam search (``models.transformer.beam_search_decode``);
+the input pipeline (``stf.data``: TFRecord shards, ``parse_example``,
+``prefetch_to_device`` onto the card, ``iterator.get_next()`` run by the
+Session in its host stage before the device step). Importing the package
+loads no kernel library; the kernels are built and loaded at their first
+launch, the native host runtime (``runtime_cc/``) at its first use.
 """
 
 from .framework import dtypes, errors
@@ -48,6 +51,12 @@ from .ops.control_flow_ops import (case, cond, group, no_op, smart_cond,
                                    while_loop)
 from .ops.functional_ops import foldl, foldr, map_fn, py_func, scan
 from .ops.logging_ops import Print
+from .ops import parsing_ops
+from .ops.parsing_ops import (FixedLenFeature, FixedLenSequenceFeature,
+                              RaggedFeature, SparseFeature, VarLenFeature,
+                              decode_csv, decode_json_example, decode_raw,
+                              parse_example, parse_single_example,
+                              parse_tensor, serialize_tensor)
 from .ops import init_ops
 from .ops.init_ops import (constant_initializer,
                            glorot_uniform_initializer, ones_initializer,
@@ -75,4 +84,5 @@ from .ops.variables import (Variable, global_variables,
 from .framework import function
 from .framework.function import Defun, recompute_grad
 from .client.session import Session, get_default_session
-from . import analysis, checkpoint, kernels, layers, nn, summary, train
+from . import (analysis, checkpoint, data, kernels, layers, nn, summary,
+               train)

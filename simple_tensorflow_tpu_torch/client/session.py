@@ -28,10 +28,15 @@ session.py``:
   loop-safety fallback (``analysis/loop_safety.py``: an unsafe plan runs
   n sequential ``run`` calls, its reasons counted on
   ``loop_fusion_fallbacks`` and logged once);
-- the post-host stage: ``runs_on_host`` ops (the summary ops) run after
-  the device step on the host values of their inputs, as the JAX
-  package's ``post_host_plan``;
-- ``snapshot_host_state`` (:1361) and ``variable_value`` (:1294), which
+- the host stages (:3063-3160): a ``runs_on_host`` op (or a string
+  ``Const``) that reads only feeds, constants and other host outputs
+  (``IteratorGetNext``, ``ParseExample``) runs before the device step, its
+  outputs entering the step as feeds; one that reads a device output (the
+  summary ops) runs after it on the host values of its inputs, as the JAX
+  package's ``post_host_plan``; a device op that reads a post-host output
+  raises ``InvalidArgumentError``;
+- ``snapshot_host_state`` (:1361, the RNG position and the data
+  iterators' positions) and ``variable_value`` (:1294), which
   ``train.Saver`` and the MonitoredSession read.
 
 Device rule: ``Session()`` runs on ``"cuda"`` through
@@ -85,7 +90,13 @@ of n runs. Either way the result equals n sequential ``run`` calls bit
 for bit.
 
 A plan with an op of declared ``io`` effect (``Print``) runs eagerly at
-every run: it reads the device from the host.
+every run: it reads the device from the host. The host stage before the
+device step runs at every run, outside the CUDA graph: a captured step is
+still one replay a run, its host-stage feeds staged into the static
+buffers like any feed (a tensor already on the card by a device-to-device
+copy). A ``run_steps`` window over a plan with a host stage falls back to
+sequential runs (``host_stage_op``); a superbatch fed by ``stacked_feeds``
+stays one window.
 
 Left out: the graph optimizer, sharding, verification, telemetry,
 ``partial_run``, handles, ``RunOptions`` tracing and ``RunMetadata``.
@@ -219,18 +230,17 @@ class _Plan:
 
     def __init__(self, all_ops, fetch_tensors, feed_tensors):
         fed = set(feed_tensors)
-        ops = [op for op in all_ops if not op.op_def.runs_on_host]
-        self.post_ops = [op for op in all_ops if op.op_def.runs_on_host]
+        self.pre_ops, ops, self.post_ops = _split_host_stages(all_ops, fed)
+        pre_made = {t for op in self.pre_ops for t in op.outputs}
         post_made = {t for op in self.post_ops for t in op.outputs}
-        for op in ops:
-            if any(t in post_made for t in op.inputs):
-                raise NotImplementedError(
-                    f"{op.name} ({op.type}) consumes the output of a host "
-                    "op; host stages before the device step are not "
-                    "ported")
+        device_in = {t for op in ops for t in op.inputs}
+        # the host stage's outputs the device step reads: fed into it
+        self.pre_feeds = list(dict.fromkeys(
+            t for op in ops for t in op.inputs if t in pre_made))
         # the post-host stage's inputs the device step computes
         post_in = [t for op in self.post_ops for t in op.inputs
-                   if t not in post_made and t not in fed]
+                   if t not in post_made and t not in fed
+                   and t not in pre_made]
         self.ops = ops
         self.io = any(analysis.op_effects(op).io for op in ops)
         # every op that draws, call bodies' too: each has its own row of a
@@ -248,14 +258,19 @@ class _Plan:
         self.needs_grad = bool(grads)
         self.retain_graph = len(grads) > 1
         # the tensors a device step computes and returns: the fetches (a
-        # fed fetch is its feed; a host op's output comes from the post-host
+        # fed fetch is its feed; a host op's output comes from its host
         # stage) and the post-host stage's inputs
         self.computed = list(dict.fromkeys(
             [t for t in fetch_tensors
-             if t not in fed and t not in post_made] + post_in))
+             if t not in fed and t not in post_made and t not in pre_made]
+            + post_in))
         self.preserve = self._preserve(ops, self.computed)
         self.frees = lowering_mod.last_uses(ops, self.computed)
-        self.feed_tensors = list(feed_tensors)
+        # the device step's feeds: the fed tensors its ops read (a string
+        # feed the host stage parses never reaches it) and the host
+        # stage's outputs
+        self.feed_tensors = [t for t in feed_tensors if t in device_in] \
+            + self.pre_feeds
         # run_steps: (plan-static loop-safety diagnostics, variables the
         # plan writes), made at the first window
         self.fusion_diags = None
@@ -307,6 +322,54 @@ class _Plan:
         return {ops[i]: [t for t, last in last_use.items()
                          if t.op in pos and pos[t.op] < i < last]
                 for i in in_place}
+
+
+def _split_host_stages(pruned, fed):
+    """``(pre-host, device, post-host)`` ops of a pruned plan, in plan
+    order (the JAX package's split, ``client/session.py:3063-3160``): a
+    ``runs_on_host`` op or a string ``Const`` with no device op among its
+    ancestors (feeds and constants aside) runs in the host stage before
+    the device step (``IteratorGetNext``, ``ParseExample``); one with a
+    device ancestor runs after it (the summary ops). A device op that
+    reads a post-host output raises ``InvalidArgumentError``."""
+    device, pre, post = [], [], []
+    device_set, post_set, has_dev_anc = set(), set(), set()
+    for op in pruned:
+        dev_anc = any(
+            (t.op in device_set or t.op in has_dev_anc)
+            and t not in fed and t.op.type != "Const"
+            for t in op.inputs) or any(
+            c in device_set or c in has_dev_anc for c in op.control_inputs)
+        string_const = op.type == "Const" and any(
+            o.dtype.base_dtype == dtypes_mod.string for o in op.outputs)
+        if op.op_def.runs_on_host or string_const:
+            if dev_anc:
+                post.append(op)
+                post_set.add(op)
+                has_dev_anc.add(op)
+            else:
+                pre.append(op)
+            continue
+        if any(t.op in post_set for t in op.inputs):
+            raise InvalidArgumentError(
+                None, op,
+                f"Device op {op.name} consumes output of host sink op; use "
+                "stf.py_func (pure_callback) to re-enter the device "
+                "program.")
+        device.append(op)
+        device_set.add(op)
+        if dev_anc:
+            has_dev_anc.add(op)
+    pre_set = set(pre)
+    for op in pre:
+        for t in op.inputs:
+            if t in fed or t.op.type == "Const" or t.op in pre_set:
+                continue
+            raise InvalidArgumentError(
+                None, op,
+                f"Host op {op.name} consumes device tensor {t.name} "
+                "without a device ancestor path — internal staging bug.")
+    return pre, device, post
 
 
 def _var_names(resources) -> List[str]:
@@ -650,9 +713,13 @@ class BaseSession:
         key, or with ``_capture`` off), captured (its second run) or
         replayed (module docstring)."""
         self._check_initialized(plan)
+        pre = self._host_stage(plan, feeds)
+        if pre:
+            feeds = dict(feeds)
+            feeds.update((t, pre[t]) for t in plan.pre_feeds)
         if not (self._capture and plan.ops and not plan.io):
             outs = self._run_eager(plan, feeds)
-            return self._values(plan, elements, feeds, outs)
+            return self._values(plan, elements, feeds, outs, pre)
         key = self._exe_key(plan, feeds)
         exe = plan.executables.get(key)
         if exe is not None and \
@@ -666,11 +733,42 @@ class BaseSession:
             outs = self._run_eager(plan, feeds, warm_up=True)
             plan.warm[self._exe_key(plan, feeds)] = \
                 self._variable_store.version
-            return self._values(plan, elements, feeds, outs)
+            return self._values(plan, elements, feeds, outs, pre)
         if exe is None:
             exe = self._capture_step(plan, key, feeds)
         return self._values(plan, elements, feeds,
-                            self._replay(plan, exe, feeds))
+                            self._replay(plan, exe, feeds), pre)
+
+    def _host_stage(self, plan: _Plan, feeds) -> Dict[Tensor, Any]:
+        """Run the plan's host stage before the device step (the JAX
+        package's ``host_plan``): its ops lowered on host values of the
+        feeds, constants and each other's outputs. Returns ``{tensor:
+        value}`` of their outputs, those the device step reads checked
+        against their static shapes and cast to their dtypes as feeds are
+        (a torch tensor, on the card after ``prefetch_to_device``, stays
+        where it is)."""
+        if not plan.pre_ops:
+            return {}
+        env: Dict[Tensor, Any] = {}
+        for op in plan.pre_ops:
+            if op.type == "Const":
+                outs = [op.attrs["value"]]
+            else:
+                inputs = [env[t] if t in env else feeds[t] if t in feeds
+                          else t.op.attrs["value"] for t in op.inputs]
+                outs = op.op_def.lower(None, op, inputs)
+            for t, v in zip(op.outputs, outs):
+                env[t] = v
+        for t in plan.pre_feeds:
+            v = env[t]
+            if not isinstance(v, torch.Tensor):
+                v = env[t] = np.asarray(v, dtype=t.dtype.base_dtype.np_dtype)
+            if not t.shape.is_compatible_with(tuple(v.shape)):
+                raise ValueError(
+                    f"{t.op.name} ({t.op.type}) produced a value of shape "
+                    f"{tuple(v.shape)} for tensor {t.name} with shape "
+                    f"{t.shape}")
+        return env
 
     def _run_eager(self, plan: _Plan, feeds, warm_up=False, dry=False):
         """The op list dispatched eagerly (a warm-up on a side stream);
@@ -741,24 +839,35 @@ class BaseSession:
     def _compile(self, plan: _Plan, feeds):
         """:meth:`ExecutionPlan.compile` under the lock."""
         self._check_initialized(plan)
+        if plan.pre_feeds:
+            raise InvalidArgumentError(
+                None, plan.pre_feeds[0].op,
+                "compile: the step reads the host stage's "
+                f"{plan.pre_feeds[0].op.type} op, whose value a dry warm-up "
+                "cannot draw; the step is captured at its second run")
         self._run_eager(plan, feeds, warm_up=True, dry=True)
         key = self._exe_key(plan, feeds)
         exe = self._capture_step(plan, key, feeds)
         plan.warm[key] = self._variable_store.version
         return exe
 
-    def _values(self, plan: _Plan, elements, feeds, outs):
+    def _values(self, plan: _Plan, elements, feeds, outs, pre=None):
         """The fetched values on the host: the device step's ``outs``, the
-        feeds, and the post-host stage's outputs (run here on the host
-        values of its inputs)."""
+        feeds, the host stage's outputs (``pre``) and the post-host stage's
+        outputs (run here on the host values of its inputs)."""
         computed = dict(zip(plan.computed, outs))
-        host = self._post_host(plan, feeds, computed)
+        pre = pre or {}
+        host = self._post_host(plan, feeds, computed, pre)
         out = []
         for e in elements:
             if isinstance(e, Operation):
                 out.append(None)
             elif e in host:
                 out.append(host[e])
+            elif e in pre:
+                v = pre[e]
+                out.append(_to_numpy(v) if isinstance(v, torch.Tensor)
+                           else v)
             elif e in feeds:
                 out.append(_feed_value(e, feeds[e]))
             else:
@@ -766,16 +875,20 @@ class BaseSession:
         return out
 
     @staticmethod
-    def _post_host(plan: _Plan, feeds, computed) -> Dict[Tensor, Any]:
-        """Run the plan's host ops (summary serialization) on numpy values:
-        ``{tensor: value}`` of their outputs."""
+    def _post_host(plan: _Plan, feeds, computed, pre) -> Dict[Tensor, Any]:
+        """Run the plan's post-host ops (summary serialization) on numpy
+        values: ``{tensor: value}`` of their outputs."""
         if not plan.post_ops:
             return {}
         env: Dict[Tensor, Any] = {}
         for op in plan.post_ops:
             inputs = []
             for t in op.inputs:
-                if t not in env:
+                if t not in env and t in pre:
+                    v = pre[t]
+                    env[t] = _to_numpy(v) if isinstance(v, torch.Tensor) \
+                        else v
+                elif t not in env:
                     env[t] = _feed_value(t, feeds[t]) if t in feeds \
                         else _to_numpy(computed[t])
                 inputs.append(env[t])
@@ -785,11 +898,18 @@ class BaseSession:
 
     # -- run_steps -----------------------------------------------------------
     def snapshot_host_state(self) -> Dict[str, Any]:
-        """The host half of a training-state checkpoint: the session's RNG
-        position (the run counter; the key is (graph seed, counter)). The
-        JAX package adds data iterator positions when the graph has
-        iterators; the port has none."""
-        return {"rng_run_counter": self._run_counter}
+        """The host half of a training-state checkpoint (the JAX package's
+        :1361-1376): the session's RNG position (the run counter; the key
+        is (graph seed, counter)) and, when the graph has data iterators,
+        their positions (``iterators``: name -> ``save_state()``)."""
+        state = {"rng_run_counter": self._run_counter}
+        from ..data import dataset as dataset_mod
+
+        its = dataset_mod.iterator_registry(self._graph)
+        if its:
+            state["iterators"] = {name: it.save_state()
+                                  for name, it in its.items()}
+        return state
 
     def variable_value(self, var_or_name) -> torch.Tensor:
         """The store tensor of a variable (its Variable, ref or read tensor,
@@ -932,8 +1052,8 @@ class BaseSession:
         in the store, and host sinks under ``"stacked"``."""
         if plan.fusion_diags is None:
             plan.fusion_diags = (
-                loop_safety.certify_plan(plan.ops, [], plan.post_ops,
-                                         variable_store=None),
+                loop_safety.certify_plan(plan.ops, plan.pre_ops,
+                                         plan.post_ops, variable_store=None),
                 loop_safety.written_var_names(plan.ops))
         static, written = plan.fusion_diags
         diags = list(static)

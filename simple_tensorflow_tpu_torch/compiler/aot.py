@@ -14,7 +14,9 @@ What a capture fixes, and what this module keeps static around it:
 - the addresses the kernels read and write: each feed has a static
   device buffer (:class:`StagedInput`), refilled before every replay from
   pinned host staging by one ``non_blocking`` copy, the staging guarded by
-  an event so a copy still in flight is never overwritten;
+  an event so a copy still in flight is never overwritten; a feed already
+  on the card (``Dataset.prefetch_to_device``) is copied device to device
+  on the step's stream, with no pass through the host and no sync;
 - the launch arguments: a value that changes between runs must be read
   on the device. The random ops' keys are one ``(n, 2)`` int32 key
   buffer (the uint32 words' bits), refilled like a feed;
@@ -42,10 +44,13 @@ replays waits for the host.
 Capture needs the usual preconditions: the same function ran eagerly
 first, on a side stream (:func:`on_side_stream`: kernel library loads,
 cuBLAS/cuDNN handles, lazily built buffers), and nothing inside syncs
-with the host. A capture that fails raises; nothing falls back to eager
-dispatch. On the CPU (a tensor on the CPU, which a caller asks for) the
-same objects run the function eagerly into the same static buffers at
-every replay: everything but the ``CUDAGraph`` itself.
+with the host. A capture holds :data:`CAPTURE_LOCK`, which the input
+pipeline's threads hold around their own CUDA calls (a pinned
+allocation, a copy, an event wait): no other thread calls CUDA while a
+graph is being captured. A capture that fails raises; nothing falls
+back to eager dispatch. On the CPU (a tensor on the CPU, which a caller
+asks for) the same objects run the function eagerly into the same
+static buffers at every replay: everything but the ``CUDAGraph`` itself.
 
 Left out: the persistent compile cache and ``compile_fetches`` (XLA
 programs of frozen graphs).
@@ -53,6 +58,7 @@ programs of frozen graphs).
 
 from __future__ import annotations
 
+import threading
 import warnings
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -63,6 +69,11 @@ import torch
 from ..framework.constant_op import host_tensor
 from ..ops.kernels import common as kcommon
 from ..ops.kernels import control_flow
+
+
+# held while a CUDA graph is captured, and by other threads around their
+# CUDA calls (data/staging.py)
+CAPTURE_LOCK = threading.RLock()
 
 
 def feed_signature(feeds: Dict[Any, Any]) -> tuple:
@@ -94,7 +105,8 @@ class StagedInput:
     """A static device tensor and the pinned host staging it is refilled
     from. :meth:`stage` waits for the previous copy out of the staging
     (its event), writes the new value there and copies it to the device
-    without a sync."""
+    without a sync; a value already on the device is copied device to
+    device on the current stream (the staging untouched)."""
 
     def __init__(self, shape, dtype, device):
         self.static = torch.zeros(tuple(shape), dtype=dtype, device=device)
@@ -103,6 +115,11 @@ class StagedInput:
         self._copied = torch.cuda.Event() if cuda else None
 
     def stage(self, value) -> None:
+        if isinstance(value, torch.Tensor) and \
+                value.device == self.static.device and \
+                self._copied is not None:
+            self.static.copy_(value)
+            return
         if self._copied is not None:
             self._copied.synchronize()
         if not isinstance(value, torch.Tensor):
@@ -140,17 +157,19 @@ class DeviceGraph:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         control_flow.ensure_counters(self.device)
         before = kcommon.launch_counts()
-        try:
-            with warnings.catch_warnings(), \
-                    control_flow.collect_bodies() as (pools, bodies):
-                # a step of reads only captures no kernel: fine here
-                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
-                with torch.cuda.graph(graph):
-                    outs = list(self._fn())
-        finally:
-            self.launches = kcommon.take_launches(before)
-            self._pools, self._bodies = pools, bodies
-        graph.instantiate()
+        with CAPTURE_LOCK:
+            try:
+                with warnings.catch_warnings(), \
+                        control_flow.collect_bodies() as (pools, bodies):
+                    # a step of reads only captures no kernel: fine here
+                    warnings.filterwarnings("ignore",
+                                            "The CUDA Graph is empty")
+                    with torch.cuda.graph(graph):
+                        outs = list(self._fn())
+            finally:
+                self.launches = kcommon.take_launches(before)
+                self._pools, self._bodies = pools, bodies
+            graph.instantiate()
         for frame in bodies:
             frame.runs.zero_()
         if bodies:

@@ -7,8 +7,10 @@ package bakes it into the compiled program). ``FuncArg`` and
 ``CapturedInput`` (:140-153) are a graph function body's bound values:
 the call's lowering binds them, and lowering one alone is an error.
 ``constant_value`` reads a static value through ``Const``, ``Identity``
-and ``Cast``. Left out: string constants and the shape-op cases of
-``constant_value``.
+and ``Cast``. A string constant is a numpy ``object`` array of bytes that
+never becomes a torch tensor: the Session runs it in the host stage
+before the device step, as the JAX package does. Left out: the shape-op
+cases of ``constant_value``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,11 @@ from . import tensor_shape as shape_mod
 def _to_numpy(value, dtype=None):
     if dtype is not None:
         dtype = dtypes_mod.as_dtype(dtype)
+    if dtype is not None and dtype.name == "string":
+        return np.asarray(value, dtype=object)
     arr = value if isinstance(value, np.ndarray) else np.asarray(value)
+    if arr.dtype.kind in "USO":
+        return np.asarray(arr, dtype=object)
     if dtype is not None:
         arr = arr.astype(dtype.np_dtype)
     elif arr.dtype == np.float64 and not isinstance(value, np.ndarray):
@@ -51,8 +57,12 @@ def constant(value, dtype=None, shape=None, name="Const",
             raise TypeError(f"Expected shape {shape}, got {list(arr.shape)}")
         else:
             arr = arr.reshape(shape.as_list())
-    dt = dtypes_mod.as_dtype(dtype) if dtype is not None \
-        else dtypes_mod.as_dtype(arr.dtype)
+    if dtype is not None:
+        dt = dtypes_mod.as_dtype(dtype)
+    elif arr.dtype == object:
+        dt = dtypes_mod.string
+    else:
+        dt = dtypes_mod.as_dtype(arr.dtype)
     op = g.create_op("Const", [], attrs={"value": arr, "dtype": dt},
                      name=name,
                      output_specs=[(shape_mod.TensorShape(list(arr.shape)),
@@ -100,6 +110,8 @@ def to_torch(arr, device, dtype=None) -> torch.Tensor:
 
 
 def _lower_const(ctx, op, inputs):
+    if op.attrs["dtype"].name == "string":
+        return [op.attrs["value"]]  # a host value: never a torch tensor
     return [ctx.constant(op)]
 
 

@@ -1,7 +1,10 @@
 """The subset of ``simple_tensorflow_tpu/framework/errors.py`` that the
 serving engine, the Session (``OutOfRangeError``: an exhausted
 ``run_steps`` feed iterator), the checkpoint readers (``DataLossError``: a
-checksum or record CRC that does not match) and the training loop raise:
+checksum or record CRC that does not match), the training loop and the
+input pipeline (``UnimplementedError``, ``InternalError``, and
+:func:`exception_type_from_error_code` for the native runtime's codes)
+raise:
 the same class names, codes and constructor (``Error(node_def, op,
 message)`` or ``Error("message")``)."""
 
@@ -13,6 +16,8 @@ NOT_FOUND = 5
 RESOURCE_EXHAUSTED = 8
 FAILED_PRECONDITION = 9
 OUT_OF_RANGE = 11
+UNIMPLEMENTED = 12
+INTERNAL = 13
 UNAVAILABLE = 14
 DATA_LOSS = 15
 
@@ -73,3 +78,21 @@ OutOfRangeError = _make("OutOfRangeError", OUT_OF_RANGE,
                         "range.")
 DataLossError = _make("DataLossError", DATA_LOSS,
                       "Unrecoverable data loss or corruption.")
+UnimplementedError = _make("UnimplementedError", UNIMPLEMENTED,
+                            "Operation is not implemented or supported.")
+InternalError = _make("InternalError", INTERNAL, "Internal error.")
+
+_CODE_TO_EXC = {INVALID_ARGUMENT: InvalidArgumentError,
+                DEADLINE_EXCEEDED: DeadlineExceededError,
+                NOT_FOUND: NotFoundError,
+                RESOURCE_EXHAUSTED: ResourceExhaustedError,
+                FAILED_PRECONDITION: FailedPreconditionError,
+                OUT_OF_RANGE: OutOfRangeError,
+                UNIMPLEMENTED: UnimplementedError, INTERNAL: InternalError,
+                UNAVAILABLE: UnavailableError, DATA_LOSS: DataLossError}
+
+
+def exception_type_from_error_code(code):
+    """The class of a canonical error code (``KeyError`` for a code the
+    port does not raise)."""
+    return _CODE_TO_EXC[code]

@@ -14,12 +14,13 @@ Kernel-backed ops (the softmax-xent and Dropout wrappers test the device)
 pass an ``infer_fn`` or explicit output specs, never a meta launch.
 Effects resolve against an op's attrs into concrete resources
 (``Effects._resolve`` :75) for the variable-hazard detector
-(``analysis/hazards.py``). ``runs_on_host`` ops (the summary ops) run
-after the device step on the host values of their inputs (the JAX
-package's post-host stage); ``host_sink_pure`` marks those that only
-observe device values, which ``Session.run_steps`` under ``"last"``
-defers to once a window (``analysis/loop_safety.py``). Left out:
-sharding rules and host-stage ops that device ops consume.
+(``analysis/hazards.py``). ``runs_on_host`` ops run on host values in
+the Session's host stages: before the device step when they read no
+device output (``IteratorGetNext``, ``ParseExample``: their outputs feed
+the step), after it otherwise (the summary ops, the JAX package's
+post-host stage); ``host_sink_pure`` marks those that only observe device
+values, which ``Session.run_steps`` under ``"last"`` defers to once a
+window (``analysis/loop_safety.py``). Left out: sharding rules.
 """
 
 from __future__ import annotations
@@ -220,3 +221,7 @@ def get(name) -> OpDef:
     except KeyError:
         raise KeyError(f"Op type {name!r} is not registered "
                        f"({len(_REGISTRY)} ops known)") from None
+
+
+def exists(name) -> bool:
+    return name in _REGISTRY

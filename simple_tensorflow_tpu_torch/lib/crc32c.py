@@ -1,7 +1,7 @@
 """CRC32-C (Castagnoli) and the TFRecord mask (ref: tensorflow/core/lib/
 hash/crc32c.h); the port's copy of ``simple_tensorflow_tpu/lib/
-crc32c.py``: the table implementation (the JAX package's native C++
-fast path is not ported)."""
+crc32c.py``: the table implementation, and for a record of 64 bytes or
+more the native library's (``runtime/native.py``) when it is built."""
 
 from __future__ import annotations
 
@@ -16,7 +16,22 @@ for _i in range(256):
 _MASK_DELTA = 0xA282EAD8
 
 
+def _native_crc():
+    try:
+        from ..runtime import native
+
+        if native.available():
+            return native
+    except Exception:
+        pass
+    return None
+
+
 def crc32c(data: bytes, crc: int = 0) -> int:
+    if crc == 0 and len(data) >= 64:
+        native = _native_crc()
+        if native is not None:
+            return native.crc32c(bytes(data))
     crc = crc ^ 0xFFFFFFFF
     for b in data:
         crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)

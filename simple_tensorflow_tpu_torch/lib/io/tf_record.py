@@ -4,8 +4,10 @@ record_reader.cc, python/lib/io/tf_record.py); the port's copy of
 
 Format-identical to the reference: [len u64][masked crc32c(len) u32]
 [data][masked crc32c(data) u32]; a record is byte-identical to the JAX
-writer's for the same payload. Left out: the native C++ reader and the
-chunked reader of the data pipeline.
+writer's for the same payload. The reader side is the JAX module's:
+``tf_record_chunks`` (lists of records, one a batched native C++ call
+when ``runtime/native.py`` is built, else the Python reader's), GZIP
+containers and ``buffer_size``.
 """
 
 from __future__ import annotations
@@ -75,14 +77,12 @@ class TFRecordWriter:
         return False
 
 
-def tf_record_iterator(path, options: Optional[TFRecordOptions] = None,
-                       buffer_size: Optional[int] = None
-                       ) -> Iterator[bytes]:
-    """(ref: python/lib/io/tf_record.py:43 ``tf_record_iterator``): the
-    records of ``path``, checking both CRCs of each (``DataLossError``
-    on a truncated or corrupted record). A GZIP container is read as
-    such whatever ``options`` say (its magic is sniffed)."""
-    compression = TFRecordOptions.get_compression_type_string(options)
+def _read_records_py(path, compression="",
+                     buffer_size: Optional[int] = None) -> Iterator[bytes]:
+    """The records of ``path``, checking both CRCs of each
+    (``DataLossError`` on a truncated or corrupted record). A GZIP
+    container is read as such whatever ``compression`` says (its magic
+    is sniffed, as the native reader decompresses transparently)."""
     with open(path, "rb") as probe:
         magic = probe.read(2)
     with contextlib.ExitStack() as stack:
@@ -112,3 +112,52 @@ def tf_record_iterator(path, options: Optional[TFRecordOptions] = None,
                 raise errors.DataLossError(
                     None, None, f"corrupted data crc in {path}")
             yield data
+
+
+def tf_record_chunks(path, compression: str = "",
+                     buffer_size: Optional[int] = None,
+                     chunk_records: int = 256) -> Iterator[list]:
+    """Lists of records, one a batched native call (the pipeline's shard
+    readers move whole chunks through their rings). The native reader
+    serves both compression modes; without it, the Python reader's
+    records are grouped alike. On a corruption mid-chunk the good prefix
+    is yielded first, then the ``DataLossError`` raises."""
+    from ...runtime import native
+
+    # only the probe is guarded: once the native reader is chosen its
+    # errors propagate (falling back mid-stream would re-deliver records)
+    try:
+        use_native = native.available()
+    except Exception:
+        use_native = False
+    if use_native:
+        yield from native.read_tfrecord_chunks(
+            path, batch=chunk_records, buffer_size=buffer_size)
+        return
+    gen = _read_records_py(path, compression, buffer_size)
+    while True:
+        chunk: list = []
+        err = None
+        try:
+            for rec in gen:
+                chunk.append(rec)
+                if len(chunk) >= chunk_records:
+                    break
+        except Exception as e:
+            err = e
+        if chunk:
+            yield chunk
+        if err is not None:
+            raise err
+        if len(chunk) < chunk_records:
+            return
+
+
+def tf_record_iterator(path, options: Optional[TFRecordOptions] = None,
+                       buffer_size: Optional[int] = None
+                       ) -> Iterator[bytes]:
+    """(ref: python/lib/io/tf_record.py:43 ``tf_record_iterator``): the
+    records of ``path`` through :func:`tf_record_chunks`."""
+    comp = TFRecordOptions.get_compression_type_string(options)
+    for chunk in tf_record_chunks(path, comp, buffer_size):
+        yield from chunk

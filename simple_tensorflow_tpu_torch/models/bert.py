@@ -16,6 +16,10 @@ from its input. Not ported: ``recompute="auto"`` (it waits for
 ``parallel/``); both raise ``NotImplementedError``.
 :func:`synthetic_pretrain_batch` takes ``input_mask=True`` to add padded
 rows (lengths from the seed), which the JAX function does not make.
+:func:`write_pretrain_records` writes such batches as ``tf.Example``
+TFRecord shards and :func:`pretrain_dataset` reads them back through
+``stf.data`` (sharded parallel reads, one native parse a batch), the
+batches fed to the model as they were written.
 """
 
 from __future__ import annotations
@@ -321,3 +325,74 @@ def synthetic_pretrain_batch(batch_size, seq_len, max_predictions,
         batch["input_mask"] = (np.arange(seq_len)[None, :]
                                < lengths[:, None]).astype(np.int32)
     return batch
+
+
+# the int features of a pretraining Example (int64 on the wire, int32
+# placeholders), and the float one
+PRETRAIN_INT_FEATURES = ("input_ids", "token_type_ids", "input_mask",
+                         "mlm_positions", "mlm_ids", "nsp_labels")
+
+
+def write_pretrain_records(prefix, n_batches, batch_size, seq_len,
+                           max_predictions, vocab_size=30522, shards=8,
+                           seed=0):
+    """``n_batches`` batches ``synthetic_pretrain_batch(batch_size, seq_len,
+    max_predictions, vocab_size, seed=seed + k, input_mask=True)`` as
+    ``tf.Example`` records, one a row, in ``shards`` TFRecord files of
+    consecutive records (a reader in strict shard order gives them back in
+    the order written). Returns ``(files, batches)``."""
+    from ..lib.example import make_example
+    from ..lib.io.tf_record import TFRecordWriter
+
+    batches = [synthetic_pretrain_batch(batch_size, seq_len,
+                                        max_predictions, vocab_size,
+                                        seed=seed + k, input_mask=True)
+               for k in range(n_batches)]
+    rows = [{k: v[i] for k, v in b.items()}
+            for b in batches for i in range(batch_size)]
+    per = -(-len(rows) // shards)
+    files = [f"{prefix}-{s:05d}-of-{shards:05d}" for s in range(shards)]
+    for s, f in enumerate(files):
+        with TFRecordWriter(f) as w:
+            for row in rows[s * per:(s + 1) * per]:
+                feats = {k: np.ravel(row[k]).astype(np.int64).tolist()
+                         for k in PRETRAIN_INT_FEATURES}
+                feats["mlm_weights"] = np.ravel(
+                    row["mlm_weights"]).astype(np.float32).tolist()
+                w.write(make_example(**feats).SerializeToString())
+    return files, batches
+
+
+def pretrain_spec(seq_len, max_predictions):
+    """The ``parse_example`` spec of :func:`write_pretrain_records`'s
+    Examples."""
+    width = {"input_ids": [seq_len], "token_type_ids": [seq_len],
+             "input_mask": [seq_len], "mlm_positions": [max_predictions],
+             "mlm_ids": [max_predictions], "nsp_labels": []}
+    spec = {k: stf.FixedLenFeature(width[k], stf.int64)
+            for k in PRETRAIN_INT_FEATURES}
+    spec["mlm_weights"] = stf.FixedLenFeature([max_predictions],
+                                              stf.float32)
+    return spec
+
+
+def to_feed_dtypes(batch):
+    """A parsed batch in the model's feed dtypes: the int64 features as
+    int32."""
+    return {k: v.astype(np.int32) if k in PRETRAIN_INT_FEATURES else v
+            for k, v in batch.items()}
+
+
+def pretrain_dataset(files, batch_size, seq_len, max_predictions,
+                     shuffle=None):
+    """``TFRecordDataset(files, num_parallel_reads=AUTOTUNE)`` (with
+    ``shuffle``, ``(buffer, seed)``, a seeded shuffle of the records),
+    ``.repeat().batch(batch_size).parse_example(spec)`` and the casts of
+    :func:`to_feed_dtypes`: an endless stream of feed dicts."""
+    ds = stf.data.TFRecordDataset(files,
+                                  num_parallel_reads=stf.data.AUTOTUNE)
+    if shuffle is not None:
+        ds = ds.shuffle(shuffle[0], seed=shuffle[1])
+    return (ds.repeat().batch(batch_size)
+            .parse_example(pretrain_spec(seq_len, max_predictions))
+            .map(to_feed_dtypes))

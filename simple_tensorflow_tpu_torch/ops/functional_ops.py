@@ -230,8 +230,8 @@ def foldr(fn, elems, initializer=None, parallel_iterations=10, back_prop=True,
 
 
 def py_func(func, inp, Tout, stateful=True, name=None):
-    """Not ported: a host function inside the step is a host stage before
-    the device step (``client/session.py``'s ``_Plan``)."""
+    """Not ported: a host function called in the middle of the device
+    step, which one CUDA graph replay cannot hold."""
     raise NotImplementedError(
-        "py_func is not ported: host stages before the device step are "
-        "ROADMAP Queue 1, front-end item 2 (client/session.py _Plan)")
+        "py_func is not ported: a host callback in the middle of the "
+        "device step is ROADMAP Queue 1, front-end item 2")

@@ -9,8 +9,8 @@ data file, its size, the host state), and the ``checkpoint`` state file
 reads the other's checkpoints: the same keys (the variables' store names,
 the optimizer's flat slots ``Adam/Adam/fused_m_g0`` ... included), the
 same dtypes (64-bit variables narrowed, bf16 as raw 2-byte values), the
-same host state (``rng_run_counter``, and ``iterators`` when the graph
-has data iterators, which the port has not).
+same host state (``rng_run_counter``, and ``iterators``, the positions
+of the graph's data iterators, when it has any).
 
 With no ``var_list``, a Saver saves and restores the global variables of
 the session's graph (the JAX saver takes the default graph's: the same
@@ -135,14 +135,46 @@ def resolve_global_step(sess, global_step):
     return int(np.asarray(sess.run(target)))
 
 
+def _iter_ordinal(name):
+    """Creation ordinal of an auto-named iterator ('dataset_iterator_7'
+    -> 7); unparseable names sort last, stably."""
+    tail = name.rsplit("_", 1)[-1]
+    return (0, int(tail)) if tail.isdigit() else (1, 0)
+
+
 def _restore_host_state(sess, host_state):
-    """The session's RNG run counter from a checkpoint's host state, so a
-    resumed run draws the same dropout masks. Data iterator positions
-    are not restored: the port has no data iterators (an iterator saved
-    by the JAX package is, as there, skipped when the graph has none of
-    that name)."""
-    if host_state and "rng_run_counter" in host_state:
+    """The session's RNG run counter and its graph's data iterator
+    positions from a checkpoint's host state (the JAX package's
+    :151-187), so a resumed run draws the same dropout masks and the
+    same batches. Iterator names come from a process-wide counter: when
+    a saved name is missing and the counts match, saved and live
+    iterators are paired by creation order; a saved iterator with no live
+    one is skipped."""
+    if not host_state:
+        return
+    if "rng_run_counter" in host_state:
         sess._run_counter = int(host_state["rng_run_counter"])
+    iterators = host_state.get("iterators") or {}
+    if not iterators:
+        return
+    from ..data import dataset as dataset_mod
+
+    reg = dataset_mod.iterator_registry(sess.graph)
+    mapping = {}
+    if any(n not in reg for n in iterators) and len(iterators) == len(reg):
+        saved = sorted(iterators, key=_iter_ordinal)
+        live = sorted(reg, key=_iter_ordinal)
+        mapping = dict(zip(saved, live))
+        if any(a != b for a, b in mapping.items()):
+            _log.info("Saver.restore: aligning %d data iterator(s) by "
+                      "creation order (checkpoint names %s -> live names "
+                      "%s)", len(mapping), saved, live)
+    for name, st in iterators.items():
+        # an alignment, when made, is used alone: a mix of exact and
+        # mapped lookups could pair one live iterator with two states
+        it = reg.get(mapping[name]) if mapping else reg.get(name)
+        if it is not None:
+            it.restore_state(st)
 
 
 class Saver:

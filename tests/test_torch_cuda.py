@@ -2116,3 +2116,105 @@ def test_beam_search_captured_equals_eager_on_card(cuda, dtype):
     if dtype == "float32":
         np.testing.assert_array_equal(naive[0], cached[0])
         np.testing.assert_allclose(naive[1], cached[1], atol=1e-4)
+
+
+# -- the input pipeline's device staging --------------------------------------
+
+def _delayed_copies(monkeypatch, cycles):
+    """Queue ``cycles`` of GPU sleep on the pipeline's side stream before
+    each element's copies, so a copy runs well after the host issued it."""
+    from simple_tensorflow_tpu_torch.data import staging
+
+    orig = staging.to_device
+
+    def slow(x, device, stream):
+        if stream is not None:
+            with staging._cuda_lock(device), torch.cuda.stream(stream):
+                torch.cuda._sleep(cycles)
+        return orig(x, device, stream)
+
+    monkeypatch.setattr(staging, "to_device", slow)
+
+
+def _batches(n=12, rows=64):
+    rng = np.random.RandomState(7)
+    return [{"a": rng.randint(-2**30, 2**30, (rows, 33)).astype(np.int32),
+             "b": rng.randn(rows, 7).astype(np.float32)} for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", [None, False])
+def test_prefetch_to_device_orders_the_consumer_after_its_copy(cuda,
+                                                               monkeypatch,
+                                                               arena):
+    import simple_tensorflow_tpu_torch as stf
+
+    _delayed_copies(monkeypatch, 2_000_000)
+    batches = _batches()
+    # arena_staging: pinned slots (the default) or pageable copies
+    ds = stf.data.Dataset.from_generator(lambda: iter(batches)) \
+        .prefetch_to_device(2, arena_staging=arena)
+    # the consumer reads each batch at once on its own stream: only the
+    # wait on the copy's event orders it after the delayed copy
+    sums = [(x["a"].double().sum(), x["b"].double().sum(), x["a"].is_cuda)
+            for x in ds]
+    assert len(sums) == len(batches)
+    for (sa, sb, on_card), w in zip(sums, batches):
+        assert on_card
+        assert sa.item() == w["a"].astype(np.float64).sum()
+        np.testing.assert_allclose(sb.item(), w["b"].astype(np.float64)
+                                   .sum(), rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wait", [True, False])
+def test_pinned_slots_wait_for_their_copies(cuda, monkeypatch, wait):
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.data import staging
+
+    # ~10 ms of GPU sleep before each copy: the host assembles the next
+    # slots' batches long before the queued copies read theirs
+    _delayed_copies(monkeypatch, 20_000_000)
+    orig_init = staging.PinnedPool.__init__
+
+    def init(self, *a, **k):
+        orig_init(self, *a, **k)
+        self.wait_copies = wait   # False: the planted fault
+
+    monkeypatch.setattr(staging.PinnedPool, "__init__", init)
+    rows = [{k: v[i] for k, v in b.items()}
+            for b in _batches(16, 4) for i in range(4)]
+    ds = stf.data.Dataset.from_generator(lambda: iter(rows)).batch(4) \
+        .prefetch_to_device(2)
+    got = list(ds)   # no sync: the host runs ahead of the delayed copies
+    torch.cuda.synchronize()
+    want = list(stf.data.Dataset.from_generator(lambda: iter(rows)).batch(4))
+    same = [all(np.array_equal(g[k].cpu().numpy(), w[k]) for k in w)
+            for g, w in zip(got, want)]
+    if wait:
+        assert all(same)
+    else:
+        assert not all(same)
+
+
+@pytest.mark.cuda
+def test_staged_input_copies_a_card_value_on_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_tensorflow_tpu_torch.compiler import aot
+
+    buf = aot.StagedInput((256, 64), torch.int32, cuda)
+    host_before = buf._host.clone()
+    value = torch.arange(256 * 64, dtype=torch.int64,
+                         device=cuda).reshape(256, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(50_000_000)     # tens of ms of queued work
+        buf.stage(value)
+        # stage returned with the sleep still queued: no host sync
+        assert not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not any("HtoD" in n for n in names)
+    assert torch.equal(buf.static, value.int())
+    assert torch.equal(buf._host, host_before)   # staging untouched

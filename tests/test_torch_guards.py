@@ -96,6 +96,15 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.ops import (kv_cache_ops,
                                                      tensor_array_ops)
         from simple_tensorflow_tpu_torch.ops.kernels import control_flow
+        from simple_tensorflow_tpu_torch import data, platform, runtime
+        from simple_tensorflow_tpu_torch.data import (dataset, pipeline,
+                                                      staging)
+        from simple_tensorflow_tpu_torch.ops import parsing_ops
+        from simple_tensorflow_tpu_torch.runtime import native
+        from simple_tensorflow_tpu_torch.platform import monitoring, sync
+        from simple_tensorflow_tpu_torch.lib import example
+        from simple_tensorflow_tpu_torch.lib.io import file_io
+        from simple_tensorflow_tpu_torch.framework import sparse_tensor
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -155,6 +164,28 @@ def test_the_control_flow_slice_modules_are_guarded():
     src = open(os.path.join(PKG, "csrc", "control_flow.cu")).read()
     assert "cudaGraphSetConditional" in src
     assert not any(w in src for w in FORBIDDEN[:2])
+
+
+def test_the_input_pipeline_modules_are_guarded():
+    # the input pipeline, the parse ops, the native binding and the
+    # platform helpers are among the files the guard reads
+    guarded = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"data/__init__.py", "data/dataset.py", "data/pipeline.py",
+            "data/staging.py", "ops/parsing_ops.py", "runtime/native.py",
+            "platform/monitoring.py", "platform/sync.py", "lib/example.py",
+            "lib/io/file_io.py", "framework/sparse_tensor.py"} <= guarded
+
+
+def test_prefetch_to_device_defaults_to_the_gpu(monkeypatch):
+    import simple_tensorflow_tpu_torch as stf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = stf.data.Dataset.from_tensor_slices(
+        np.arange(8, dtype=np.float32)).batch(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        list(ds.prefetch_to_device(2))
+    got = list(ds.prefetch_to_device(2, device="cpu"))
+    assert [t.device.type for t in got] == ["cpu"] * 4
 
 
 def test_a_beam_search_session_defaults_to_the_gpu(monkeypatch):
