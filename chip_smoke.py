@@ -239,9 +239,10 @@ beside another tree's package measures that tree's serving path.
    run C, a new graph and session on B's directory, resumes from B's last
    checkpoint and runs to the end: C's losses and step-17 checkpoint
    bit-identical to A's and the sequential runs'. A copy of a checkpoint
-   with one payload byte flipped must raise ``DataLossError``. The blocking
-   save's seconds (D2H read, npz and sha256, commit) and bytes, and the
-   captures over the phase, are printed. The checkpoints live in a
+   with one payload byte flipped must raise ``DataLossError``. The hook's
+   last save (async, as the JAX hook's): its step-loop cost, the writer's
+   seconds (D2H read, npz and sha256, commit) and bytes, and the captures
+   over the phase, are printed. The checkpoints live in a
    temporary directory, removed at the end.
 
 8. Causal-LM Session phase: ``models/causal_lm.py``
@@ -408,6 +409,33 @@ beside another tree's package measures that tree's serving path.
    losses equal the uninterrupted run's bit for bit (cuDNN
    deterministic), the resumed session at the saved step and iterator
    position, one xent forward and backward and one Adam launch a step.
+14. Checkpoint and numerics phase: phase 7b's transformer cell (bf16,
+   dropout 0.1, graph seed 1, windows of 4, deterministic algorithms).
+   One Session runs windows with the numerics plane off and in
+   ``metrics`` (the process default; both plans captured), alternating:
+   their p50 steps, the taps a step and the ``numeric_summary`` launches
+   (one a step); the tapped tensors of the first metrics step, and a copy
+   of one with NaN, +-Inf and zeros planted, hold the kernel to its plain
+   version (counts and max_abs exact, l2_norm and zero_fraction within
+   1e-6, the same bits twice), and a max_abs over nonfinite values (a
+   planted fault built from the plain version) must fail. Then in that
+   Session a blocking save, an async save with the writer's copy to the
+   host not waiting for the snapshot's event (a planted fault: the
+   snapshot held back ~3 s behind a GPU sleep; its data file must differ)
+   and an async save (held back ~0.1 s; its data file's sha256 must equal
+   the blocking one's): the blocking stall against the async save's
+   step-loop cost, the writer's seconds, the device memory during the
+   write, the p50 step of windows while the writer works against after.
+   Run A: ``MonitoredTrainingSession`` (numerics ``metrics``, async
+   ``CheckpointSaverHook`` every 32 steps, ``StopAtStepHook(last_step=
+   40)``). Run B: the same with a ``PreemptionHandler(manager=)`` and a
+   SIGTERM after step 20: it drains, saves and stops. C: a new graph
+   ``restore_or_initialize``-d from B's directory trains on to A's last
+   step, bit for bit A's state; D: B's checkpoint's ``.meta`` imported
+   into a fresh graph and restored trains one window bit for bit as C's
+   first. Last a step poisoned by a ``Log`` of -1: ``raise`` names the
+   tap's op, ``dump`` the first bad op ``poison_log``, in a captured run
+   and in a window (index 2).
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
@@ -416,7 +444,8 @@ the causal LM's and ResNet's f32 checked steps and their two windows, the
 training loop's run A and its checked windows, BERT's two checks and its
 five windows, the RNN graphs' checks, windows and seq2seq's 60 steps,
 the beam search's f32 check and its bf16 windows, the data phase's BERT
-runs and its MNIST journey) is counted from zero
+runs and its MNIST journey, the checkpoint phase's metrics windows and
+run A) is counted from zero
 just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
@@ -439,12 +468,14 @@ import contextlib
 import dataclasses
 import faulthandler
 import gc
+import hashlib
 import importlib
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -4134,10 +4165,13 @@ def loop_checks(K, stf, tr, cfg, feeds_of, tag, root, errors, captures):
     if bad:
         fail(f"{tag} A: " + "; ".join(bad))
     save = a["save"]
-    print(f"{card}: {tag} blocking save (model.ckpt-17): "
-          f"{save['seconds']:.4f} s, {save['bytes']} bytes: D2H read "
-          f"{save['d2h']:.4f} s, npz and sha256 {save['serialize']:.4f} s, "
-          f"commit (write, fsync, rename) {save['commit']:.4f} s", flush=True)
+    # the hook saves asynchronously (phase 14 times a blocking
+    # save beside it): the step loop's cost, then the writer's seconds
+    print(f"{card}: {tag} async save (model.ckpt-17): step-loop cost "
+          f"{save['stall'] * 1e3:.4f} ms, {save['bytes']} bytes; the writer "
+          f"{save['write']:.4f} s: D2H {save['d2h']:.4f} s, npz and sha256 "
+          f"{save['serialize']:.4f} s, commit (fsync, rename, index) "
+          f"{save['commit']:.4f} s", flush=True)
 
     # -- windows of n replays against the sequential runs ---------------------
     win = {}
@@ -6870,6 +6904,542 @@ def data_phase(K, dev):
     return paths
 
 
+# -- phase 14: async checkpoints, the numerics plane, meta graphs -------------
+
+CK_N = 4                   # run_steps windows of 4 (phase 7b's)
+CK_STEPS = 40              # the monitored runs' last step (the loop ends at 41)
+CK_SAVE_STEPS = 32         # async checkpoints at 0, 32, then 41 at the end
+CK_KEEP = 2
+CK_SIGTERM_AT = 20         # run B: SIGTERM after the run that ends at step 20
+CK_TIMED = 6               # windows a numerics mode, timed, alternating
+# GPU sleep before the planted-fault save (~3 s: longer than the writer
+# takes to reach its first copy to the host)
+CK_FAULT_CYCLES = 6_000_000_000
+CK_L2_RTOL = 1e-6          # l2_norm and zero_fraction: sums in other orders
+CK_POISON = (np.array([1.0, 2.0, 0.5, 3.0], np.float32),
+             np.array([1.0, 2.0, -1.0, 3.0], np.float32))
+
+
+def sha256_of(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def summary_check(out, ref):
+    """The numeric_summary tolerances: counts and max_abs exact, l2_norm
+    and zero_fraction within CK_L2_RTOL, every value finite. Returns
+    ``(passes, max abs error, largest relative error of the sums)``."""
+    out, ref = out.double().cpu(), ref.double().cpu()
+    exact = torch.equal(out[:, :2], ref[:, :2])
+    rel = ((out[:, 2:] - ref[:, 2:]).abs()
+           / ref[:, 2:].abs().clamp_min(1e-300)).max().item()
+    ok = exact and rel <= CK_L2_RTOL and bool(torch.isfinite(out).all())
+    return ok, (out - ref).abs().max().item(), rel
+
+
+def ck_kernel_row(K, taps, kernel_rows):
+    """``numeric_summary`` on the tapped tensors of one transformer step
+    (their dtypes and shapes as the step made them) and on a copy of one
+    with NaN, +-Inf and zeros planted: kernel against plain version; the
+    unmasked max_abs (a planted fault) must fail the check; times."""
+    kns = importlib.import_module(KMOD + "numeric_summary")
+    planted = taps[0].clone().reshape(-1)
+    idx = torch.randperm(planted.numel(), device=planted.device,
+                         generator=torch.Generator(planted.device).manual_seed(
+                             5))
+    planted[idx[:7]] = float("nan")
+    planted[idx[7:9]] = float("inf")
+    planted[idx[9:11]] = -float("inf")
+    planted[idx[11:1000]] = 0
+    tensors = list(taps) + [planted.reshape(taps[0].shape)]
+    out = kns.numeric_summary(tensors)
+    again = kns.numeric_summary(tensors)
+    ref = kns.numeric_summary_plain(tensors)
+    ok, err, rel = summary_check(out, ref)
+    if not ok or not torch.equal(out, again):
+        fail(f"numeric_summary: kernel vs plain version: counts and max_abs "
+             f"exact {torch.equal(out[:, :2].cpu(), ref[:, :2].cpu())}, "
+             f"l2/zero-fraction rel {rel:.3e} (limit {CK_L2_RTOL}), "
+             f"repeatable {torch.equal(out, again)}")
+    if out[-1, 0].item() != 11 or not math.isfinite(out[-1, 1].item()):
+        fail(f"numeric_summary: the planted tensor reads {out[-1].tolist()}")
+
+    def unmasked(ts):
+        rows = kns.numeric_summary_plain(ts)
+        rows[:, 1] = torch.stack([t.float().abs().max() for t in ts])
+        return rows
+
+    if summary_check(out, unmasked(tensors))[0]:
+        fail("numeric_summary: a max_abs over nonfinite values (planted "
+             "fault) passes the check")
+    nbytes = sum(t.numel() * t.element_size() for t in taps)
+    ms = device_ms([lambda: kns.numeric_summary(taps)])
+    plain = device_ms([lambda: kns.numeric_summary_plain(taps)])
+
+    def library():
+        for t in taps:
+            torch.linalg.vector_norm(t.float())
+            t.abs().amax()
+            torch.isfinite(t).sum()
+
+    lib = device_ms([library])
+    bnd = bound_ms(nbytes + 16 * len(taps), 0, torch.float32)
+    dts = sorted({str(t.dtype).replace("torch.", "") for t in taps})
+    shape = (f"{len(taps)} taps of one transformer step, {nbytes} bytes "
+             f"({'/'.join(dts)})")
+    report("numeric_summary", err, ms, plain, bnd, lib)
+    print(f"  numeric_summary: the planted tensor {out[-1].tolist()}; the "
+          "unmasked max_abs (planted fault) fails the check", flush=True)
+    kernel_rows["numeric_summary"] = kernel_row(err, ms, plain, bnd, lib,
+                                                shape)
+
+
+def ck_spy_taps(stf):
+    """A context manager recording the inputs of ``NumericSummaries``
+    launches (the tapped tensors) while it is open."""
+    from simple_tensorflow_tpu_torch.framework import op_registry
+
+    od = op_registry.get("NumericSummaries")
+    seen = []
+
+    @contextlib.contextmanager
+    def spy():
+        orig = od.lower
+
+        def lower(ctx, op, inputs):
+            seen.append([x.detach().clone() for x in inputs])
+            return orig(ctx, op, inputs)
+
+        od.lower = lower
+        try:
+            yield seen
+        finally:
+            od.lower = orig
+
+    return spy()
+
+
+def ck_overhead(K, stf, tr, cfg, feeds_of, num, kernel_rows, tag, card):
+    """Windows of CK_N with the plane off and in ``metrics`` (the process
+    default, so one Session holds both plans), alternating; the tapped
+    tensors of the first metrics step feed the kernel row. Returns
+    ``(session pieces, launches of the metrics windows, p50s, taps)``."""
+    g, m, _, init, sv = loop_build(stf, tr, cfg, saver=True)
+    sess = stf.Session(graph=g)
+    sess.run(init)
+    fetch = [m["train_op"], m["loss"]]
+    times = {"off": [], "metrics": []}
+    counts = {}
+    for i in range(CK_TIMED + 1):
+        for mode in (("off", "metrics") if i % 2 == 0 else
+                     ("metrics", "off")):
+            num.set_numerics_mode(mode)
+            if i == 0 and mode == "metrics":
+                with ck_spy_taps(stf) as seen:
+                    sess.run(fetch, feeds_of(m))   # the eager warm-up
+                taps = seen[0]
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run_steps(fetch, CK_N, feed_dict=feeds_of(m))
+            dt = (time.perf_counter() - t0) / CK_N
+            if i > 0:       # the first window of a mode compiles it
+                times[mode].append(dt)
+                if mode == "metrics":
+                    for k, v in K.launch_counts().items():
+                        counts[k] = counts.get(k, 0) + v
+    num.set_numerics_mode(None)
+    table = num.get_plane().info()["taps"]
+    if counts.get("numeric_summary") != CK_TIMED * CK_N or \
+            len(taps) != len(table):
+        fail(f"{tag}: numeric_summary launches {counts.get('numeric_summary')}"
+             f" over {CK_TIMED * CK_N} metrics steps; {len(taps)} tapped "
+             f"tensors for {len(table)} taps")
+    ck_kernel_row(K, taps, kernel_rows)
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    print(f"{card}: {tag} p50 ms a step, windows of {CK_N} (host clock, "
+          f"synced): numerics off {p50['off'] * 1e3:.4f}, metrics "
+          f"{p50['metrics'] * 1e3:.4f} ({100 * (p50['metrics'] / p50['off'] - 1):+.3f}%); "
+          f"{len(table)} taps a step ({sorted({t['kind'] for t in table})}),"
+          f" {counts['numeric_summary']} numeric_summary launches over "
+          f"{CK_TIMED * CK_N} steps", flush=True)
+    return (g, m, sess, sv), counts, p50, table
+
+
+def ck_saves(stf, snapshot, pckpt, g, m, sess, feeds_of, root, tag, card):
+    """A blocking save, a planted-fault async save (the writer's copy to
+    the host not waiting for the snapshot's event, the snapshot's copies
+    held back behind a GPU sleep) and an async save, all of one step: the
+    good async data file equals the blocking one (sha256), the faulty one
+    must not; the blocking stall against the async save's step-loop cost,
+    the writer's seconds, the device memory during the write, and the p50
+    step of windows while the writer works against windows before it."""
+    with g.as_default():
+        blocking = stf.train.Saver(max_to_keep=1)
+        asyn = stf.train.Saver(backend="async", max_to_keep=1)
+    fetch = [m["train_op"], m["loss"]]
+    writer = pckpt.get_writer()
+    shas = {}
+    t0 = time.perf_counter()
+    p = blocking.save(sess, os.path.join(root, "blocking", "m"),
+                      global_step=0, write_meta_graph=False)
+    stall_blk = time.perf_counter() - t0
+    blk = dict(blocking.last_save_stats)
+    shas["blocking"] = sha256_of(p + ".stfz")
+    snapshot._wait_for_snapshot = False
+    try:
+        torch.cuda._sleep(CK_FAULT_CYCLES)
+        p = asyn.save(sess, os.path.join(root, "fault", "m"), global_step=0,
+                      write_meta_graph=False)
+        asyn.wait_until_finished()
+    finally:
+        snapshot._wait_for_snapshot = True
+    shas["fault"] = sha256_of(p + ".stfz")
+    shutil.rmtree(os.path.join(root, "fault"), ignore_errors=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda._sleep(CK_FAULT_CYCLES // 30)   # copies held back ~0.1 s
+    t0 = time.perf_counter()
+    p = asyn.save(sess, os.path.join(root, "async", "m"), global_step=0,
+                  write_meta_graph=False)
+    stall_async = time.perf_counter() - t0
+    over = []
+    while not writer._idle.is_set() and len(over) < 4 * CK_TIMED:
+        t0 = time.perf_counter()
+        sess.run_steps(fetch, CK_N, feed_dict=feeds_of(m))
+        if not writer._idle.is_set():
+            over.append((time.perf_counter() - t0) / CK_N)
+    asyn.wait_until_finished()
+    peak = torch.cuda.max_memory_allocated() - base
+    st = dict(asyn.last_save_stats)
+    shas["async"] = sha256_of(p + ".stfz")
+    free = []
+    for _ in range(CK_TIMED):
+        t0 = time.perf_counter()
+        sess.run_steps(fetch, CK_N, feed_dict=feeds_of(m))
+        free.append((time.perf_counter() - t0) / CK_N)
+    for d in ("blocking", "async"):
+        shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+    print(f"{tag}: data file sha256: blocking {shas['blocking'][:16]}, async "
+          f"{shas['async'][:16]} (copies held behind a GPU sleep), planted "
+          f"fault (no wait on the snapshot's event) {shas['fault'][:16]}",
+          flush=True)
+    if shas["async"] != shas["blocking"]:
+        fail(f"{tag}: the async checkpoint's data file differs from the "
+             "blocking save's")
+    if shas["fault"] == shas["blocking"]:
+        fail(f"{tag}: an async save whose host copy does not wait for the "
+             "snapshot (planted fault) wrote the right bytes")
+    if not over:
+        fail(f"{tag}: no window ran while the writer worked")
+    p50_over, p50_free = statistics.median(over), statistics.median(free)
+    print(f"{card}: {tag} checkpoint of {blk['bytes']} bytes: blocking save "
+          f"stalls the step loop {stall_blk * 1e3:.2f} ms (D2H {blk['d2h']:.4f}"
+          f" s, npz and sha256 {blk['serialize']:.4f} s, commit "
+          f"{blk['commit']:.4f} s); async save's step-loop cost "
+          f"{stall_async * 1e3:.4f} ms (snapshot {st['snapshot'] * 1e3:.4f} "
+          f"ms, put {st['put'] * 1e3:.4f} ms); the writer thread "
+          f"{st['write']:.4f} s to commit (D2H {st['d2h']:.4f} s, npz and "
+          f"sha256 {st['serialize']:.4f} s, commit {st['commit']:.4f} s); "
+          f"device memory during the write +{peak / GIB:.3f} GiB over "
+          f"{base / GIB:.3f} GiB (the snapshot: {st['snapshot_bytes'] / GIB:.3f}"
+          f" GiB)", flush=True)
+    print(f"{card}: {tag} p50 ms a step, windows of {CK_N}: while the writer "
+          f"works {p50_over * 1e3:.4f} ({len(over)} windows, the slowest "
+          f"{max(over) * 1e3:.4f}), after it {p50_free * 1e3:.4f} "
+          f"({len(free)} windows, the slowest {max(free) * 1e3:.4f}), "
+          f"{p50_over / p50_free:.4f}x", flush=True)
+    return dict(stall_blocking_ms=stall_blk * 1e3,
+                stall_async_ms=stall_async * 1e3, write_s=st["write"],
+                peak_gib=peak / GIB, p50_over_ms=p50_over * 1e3,
+                p50_free_ms=p50_free * 1e3)
+
+
+def ck_sigterm_hook(stf, step):
+    """A hook that sends this process SIGTERM after the run that ends at
+    ``step`` (the global step fetched beside train_op, plus one), its
+    windows split there."""
+
+    class SigtermAt(stf.train.SessionRunHook):
+        def begin(self):
+            self._gs = stf.train.get_global_step()
+
+        def before_run(self, run_context):
+            return stf.train.SessionRunArgs(self._gs._ref)
+
+        def after_run(self, run_context, run_values):
+            if int(run_values.results) + 1 == step:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        def until_next_trigger(self, global_step):
+            return max(1, step - 1 - int(global_step))
+
+    return SigtermAt()
+
+
+def ck_monitored(stf, pckpt, tr, cfg, feeds_of, directory, preempt):
+    """``MonitoredTrainingSession`` (``loop_fusion_steps=CK_N``,
+    ``numerics="metrics"``, async ``CheckpointSaverHook`` every
+    CK_SAVE_STEPS, ``Saver(max_to_keep=CK_KEEP)``, ``StopAtStepHook(
+    last_step=CK_STEPS)``) driven by ``run_steps(.., CK_N)``; with
+    ``preempt``, a ``PreemptionHandler(manager=)`` (a
+    ``CheckpointManager`` that writes the meta graph) and a SIGTERM after
+    step CK_SIGTERM_AT. Returns the window sizes, the saves' statistics,
+    the final state and global step, and the handler."""
+    g, m, _, _, sv = loop_build(stf, tr, cfg, saver=True)
+    stats = []
+
+    class Stats(stf.train.CheckpointSaverListener):
+        def after_save(self, session, step):
+            stats.append(sv.last_save_stats)
+
+    with g.as_default():
+        hooks = [stf.train.StopAtStepHook(last_step=CK_STEPS),
+                 stf.train.CheckpointSaverHook(
+                     directory, save_steps=CK_SAVE_STEPS, saver=sv,
+                     listeners=[Stats()])]
+        handler = None
+        if preempt:
+            mgr = pckpt.CheckpointManager(directory, saver=sv,
+                                          write_meta_graph=True)
+            handler = pckpt.PreemptionHandler(manager=mgr)
+            hooks += [handler, ck_sigterm_hook(stf, CK_SIGTERM_AT)]
+        ms = stf.train.MonitoredTrainingSession(
+            scaffold=stf.train.Scaffold(saver=sv), hooks=hooks,
+            save_summaries_steps=None, log_step_count_steps=None,
+            config=stf.ConfigProto(loop_fusion_steps=CK_N,
+                                   numerics="metrics"))
+        sizes, orig = [], ms._run_once
+
+        def run_once(*a, window=1, **k):
+            sizes.append(window)
+            return orig(*a, window=window, **k)
+
+        ms._run_once = run_once
+        with ms:
+            while not ms.should_stop():
+                ms.run_steps([m["train_op"], m["loss"]], CK_N,
+                             feed_dict=feeds_of(m))
+            final = store_bits(ms.raw_session)
+            step = int(ms.raw_session.variable_value(m["global_step"]).item())
+    return dict(sizes=sizes, stats=stats, final=final, step=step,
+                handler=handler)
+
+
+def ck_resume(stf, pckpt, tr, cfg, batch, directory, until, names=None):
+    """A new graph and Session on ``directory``: ``restore_or_initialize``,
+    then windows of CK_N up to global step ``until``. Returns ``(restored
+    prefix, (losses, state) after the first window, final state, the
+    graph's tensor names)``. With ``names`` (those of a built graph), the
+    graph is the restored checkpoint's ``.meta`` imported into a fresh
+    graph instead, and it runs the first window only."""
+    if names is None:
+        g, m, _, init, sv = loop_build(stf, tr, cfg, saver=True)
+        names = {k: m[k].name for k in ("train_op", "loss", "global_step",
+                                        "src_ids", "tgt_in", "tgt_out")}
+        meta = False
+    else:
+        g = stf.Graph()
+        with g.as_default():
+            stf.set_random_seed(1)
+            sv = stf.train.import_meta_graph(
+                stf.train.latest_checkpoint(directory) + ".meta")
+            init = stf.global_variables_initializer()
+        meta = True
+    with g.as_default():
+        mgr = pckpt.CheckpointManager(directory, saver=sv)
+        sess = stf.Session(graph=g,
+                           config=stf.ConfigProto(numerics="metrics"))
+        restored = mgr.restore_or_initialize(sess, init_op=init)
+        fetch = [g.as_graph_element(names["train_op"]),
+                 g.as_graph_element(names["loss"])]
+        feeds = {g.as_graph_element(names[k]): batch[k]
+                 for k in ("src_ids", "tgt_in", "tgt_out")}
+        step = int(sess.variable_value(names["global_step"]).item())
+        out = sess.run_steps(fetch, CK_N, feed_dict=feeds,
+                             output_mode="stacked")
+        first = ([float(x) for x in out[1]], store_bits(sess))
+        step += CK_N
+        final = None
+        if not meta:
+            while step < until:
+                n = min(CK_N, until - step)
+                sess.run_steps(fetch, n, feed_dict=feeds)
+                step += n
+            final = store_bits(sess)
+        sess.close()
+    return restored, first, final, names
+
+
+def ckpt_numerics_phase(K, dev, kernel_rows):
+    """Async checkpoints, the numerics plane and meta graphs on the
+    headline model (module docstring, phase 14). Returns ``[(path,
+    dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch import checkpoint as pckpt
+    from simple_tensorflow_tpu_torch.checkpoint import snapshot
+    from simple_tensorflow_tpu_torch.debug import numerics as num
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = tr.TransformerConfig.big()
+    batch = tf_batch(TF_B, TF_SRC, TF_TGT, cfg.vocab_size, pads=False)
+
+    def feeds_of(m):
+        return tf_feeds(m, batch)
+
+    tag = f"ckpt[bf16 {TF_B}x{TF_SRC}/{TF_TGT}]"
+    print(f"{tag}: transformer_train_model(TransformerConfig.big()) as in "
+          f"phase 7b (graph seed 1, dropout 0.1, windows of {CK_N}), under "
+          "torch.use_deterministic_algorithms(True, warn_only=True)",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="stf_ckpt_phase_")
+    prev_fill = torch.utils.deterministic.fill_uninitialized_memory
+    writer = pckpt.get_writer()
+    paths = []
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            (g, m, sess, _), counts, p50, table = ck_overhead(
+                K, stf, tr, cfg, feeds_of, num, kernel_rows, tag, card)
+            paths.append(("ckpt numerics metrics windows", DROPOUT_RATE,
+                          counts))
+            ck_saves(stf, snapshot, pckpt, g, m, sess, feeds_of, root, tag,
+                     card)
+            sess.close()
+            del g, m, sess
+            gc.collect()
+            torch.cuda.empty_cache()
+            # run A: uninterrupted
+            K.reset_launch_counts()
+            a = ck_monitored(stf, pckpt, tr, cfg, feeds_of,
+                             os.path.join(root, "A"), False)
+            paths.append(("ckpt monitored A", DROPOUT_RATE,
+                          K.launch_counts()))
+            torch.cuda.empty_cache()
+            kept = sorted(f for f in os.listdir(os.path.join(root, "A"))
+                          if f.endswith(".stfz"))
+            print(f"{tag} A: windows {a['sizes']}, ended at global step "
+                  f"{a['step']}, checkpoints kept {kept}", flush=True)
+            for i, st in enumerate(a["stats"]):
+                print(f"{card}: {tag} A async save {i}: step-loop cost "
+                      f"{st['stall'] * 1e3:.4f} ms (snapshot "
+                      f"{st['snapshot'] * 1e3:.4f} ms, put "
+                      f"{st['put'] * 1e3:.4f} ms), writer {st['write']:.4f} s"
+                      f" (D2H {st['d2h']:.4f}, npz and sha256 "
+                      f"{st['serialize']:.4f}, commit {st['commit']:.4f})",
+                      flush=True)
+            # run B: preempted by SIGTERM, drained and saved through the
+            # manager; C: resumed by restore_or_initialize; D: the meta graph
+            outer = signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            try:
+                b = ck_monitored(stf, pckpt, tr, cfg, feeds_of,
+                                 os.path.join(root, "B"), True)
+                if not pckpt.preemption_requested():
+                    fail(f"{tag} B: the SIGTERM was not seen")
+            finally:
+                pckpt.reset_preemption_state()
+                signal.signal(signal.SIGTERM, outer)
+            torch.cuda.empty_cache()
+            pre = b["handler"].last_saved_prefix
+            if pre is None or b["step"] >= CK_STEPS or \
+                    stf.train.latest_checkpoint(os.path.join(root, "B")) \
+                    != pre or writer._q.unfinished_tasks:
+                fail(f"{tag} B: the preempted run did not drain and save "
+                     f"(saved {pre}, stopped at {b['step']})")
+            print(f"{tag} B: SIGTERM after step {CK_SIGTERM_AT}: drained, "
+                  f"saved {os.path.basename(pre)} through the "
+                  f"CheckpointManager, stopped at global step {b['step']} "
+                  f"(windows {b['sizes']})", flush=True)
+            restored, c_first, c_final, names = ck_resume(
+                stf, pckpt, tr, cfg, batch, os.path.join(root, "B"),
+                a["step"])
+            torch.cuda.empty_cache()
+            off = bits_differ(c_final, a["final"])
+            print(f"{tag} C: restore_or_initialize -> "
+                  f"{os.path.basename(restored or 'None')}; at global step "
+                  f"{a['step']} {len(off)} of {len(c_final)} variables and "
+                  "slots differ from run A", flush=True)
+            if restored != pre or off:
+                fail(f"{tag} C: the resumed run is off the uninterrupted one "
+                     f"({off[:5]})")
+            _, d_first, _, _ = ck_resume(stf, pckpt, tr, cfg, batch,
+                                         os.path.join(root, "B"), None,
+                                         names)
+            torch.cuda.empty_cache()
+            off = bits_differ(d_first[1], c_first[1])
+            print(f"{tag} D: {os.path.basename(pre)}.meta imported into a "
+                  f"fresh graph and restored: window losses {d_first[0]} "
+                  f"vs the built graph's {c_first[0]}; {len(off)} variables "
+                  "and slots differ after the window", flush=True)
+            if d_first[0] != c_first[0] or off:
+                fail(f"{tag} D: the re-imported meta graph trains off the "
+                     "built graph")
+            ck_poison(stf, num, tag)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = prev_fill
+        num.set_numerics_mode(None)
+        pckpt.wait_until_finished(timeout=120.0)
+        pckpt.shutdown_writer(timeout=30.0)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag}: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
+def ck_poison(stf, num, tag):
+    """A step whose loss goes through ``Log``, fed a negative value: in
+    ``raise`` the error names the tap and its op (``loss``); in ``dump`` the
+    bisector names ``poison_log``, in a captured run and in a window (its
+    index 2)."""
+    clean, poison = CK_POISON
+    found = {}
+    for mode in ("raise", "dump"):
+        for fused in (False, True):
+            g = stf.Graph()
+            with g.as_default():
+                x = stf.placeholder(stf.float32, [4], name="x")
+                w = stf.Variable(np.ones(4, np.float32), name="w")
+                loss = stf.reduce_sum(stf.log(x, name="poison_log") * w,
+                                      name="loss")
+                train = stf.train.AdamOptimizer(0.1).minimize(loss)
+                init = stf.global_variables_initializer()
+            with g.as_default(), stf.Session(
+                    graph=g, config=stf.ConfigProto(numerics=mode)) as sess:
+                sess.run(init)
+                try:
+                    if fused:
+                        sess.run_steps([loss, train], 4, stacked_feeds={
+                            x: np.stack([clean, clean, poison, clean])})
+                    else:
+                        for f in (clean, clean, clean, poison):
+                            sess.run([loss, train], {x: f})
+                except stf.errors.InvalidArgumentError as e:
+                    msg = str(e)
+                else:
+                    fail(f"{tag}: a planted NaN ({mode}, "
+                         f"{'window' if fused else 'run'}) did not raise")
+                captured = sess.captures
+            first = re.search(r"first bad op: (\S+)", msg)
+            found[(mode, fused)] = (
+                "from op loss (Sum)" in msg,
+                "fused window index 2" in msg if fused else True,
+                first.group(1) if first else None, captured)
+    print(f"{tag}: a planted Log of -1: (tap named, window index, first bad "
+          f"op, captures) {found}", flush=True)
+    if not all(v[0] and v[1] for v in found.values()) or \
+            found[("dump", False)][2] != "poison_log" or \
+            found[("dump", True)][2] != "poison_log":
+        fail(f"{tag}: the planted NaN was not named: {found}")
+
+
 def seeded_graph_vars(stf, build):
     """The trainable variables of ``build()`` in a new graph."""
     g = stf.Graph()
@@ -7039,6 +7609,8 @@ def main():
     paths += beam_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
     paths += data_phase(K, dev)
+    torch.cuda.empty_cache()
+    paths += ckpt_numerics_phase(K, dev, main_rows)
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -7172,6 +7744,9 @@ def main():
         # not a Pallas kernel: the setter of the conditional nodes that
         # take the place of lax.while_loop's and lax.cond's predicates
         "cond_set": ("control_flow.cu", "../control_flow_ops.py:337"),
+        # not a Pallas kernel: the numerics plane's NumericSummary, which
+        # XLA fuses in the JAX package (ops/numerics.py:23)
+        "numeric_summary": ("numeric_summary.cu", "../numerics.py:23"),
     }
     missing = [k for k in where if not launches.get(k)]
     if missing:

@@ -64,9 +64,10 @@ from .ops.init_ops import (constant_initializer,
                            random_uniform_initializer,
                            truncated_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
-from .ops.math_ops import (add, add_n, argmax, cast, divide, equal,
+from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, exp,
                            floordiv, floormod, greater, greater_equal, less,
-                           less_equal, logical_and, logical_not, logical_or,
+                           less_equal, log, logical_and, logical_not,
+                           logical_or,
                            matmul, maximum, minimum, multiply, negative,
                            not_equal, pow, range, realdiv, reduce_all,
                            reduce_mean, reduce_sum, sigmoid, sqrt, square,
@@ -84,5 +85,7 @@ from .ops.variables import (Variable, global_variables,
 from .framework import function
 from .framework.function import Defun, recompute_grad
 from .client.session import Session, get_default_session
-from . import (analysis, checkpoint, data, kernels, layers, nn, summary,
-               train)
+from .ops.numerics import (add_check_numerics_ops, check_numerics,
+                           verify_tensor_all_finite)
+from . import (analysis, checkpoint, data, debug, kernels, layers, nn,
+               summary, train)

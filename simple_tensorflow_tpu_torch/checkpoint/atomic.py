@@ -68,6 +68,14 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool = True,
     concurrent readers, not against power loss) — used only by paths
     that explicitly opt out, never by checkpoint commits.
     """
+    atomic_write(path, lambda f: f.write(data), fsync=fsync, label=label)
+
+
+def atomic_write(path: str, write: Callable, fsync: bool = True,
+                 label: Optional[str] = None) -> None:
+    """:func:`atomic_write_bytes` of what ``write(f)`` writes into ``f``,
+    a seekable binary file on the temp file: a large payload is streamed
+    to disk rather than held in memory whole."""
     label = label if label is not None else os.path.basename(path)
     d = os.path.dirname(path) or "."
     # dotfile temp name: directory listings / GC / ckpt_inspect ignore it
@@ -78,7 +86,7 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool = True,
         _fault(f"{label}:open_tmp")
         try:
             with os.fdopen(fd, "wb", closefd=False) as f:
-                f.write(data)
+                write(f)
                 _fault(f"{label}:wrote_tmp")
                 f.flush()
                 if fsync:

@@ -8,15 +8,16 @@ of ``simple_tensorflow_tpu/checkpoint/preemption.py``.
    captured step) finishes: its end is the consistent state a checkpoint
    needs.
 3. ``PreemptionHandler`` (a SessionRunHook) sees the flag at the next
-   ``after_run``, saves through the blocking ``Saver`` and requests a
-   stop; once the flag is up its fusion vote is 1, so the drain adds at
-   most one step.
+   ``after_run``, waits for the async saves already queued, saves (through
+   its ``CheckpointManager``, else a ``Saver``) and waits for that save
+   too, and requests a stop; once the flag is up its fusion vote is 1, so
+   the drain adds at most one step.
 4. On restart ``MonitoredTrainingSession(checkpoint_dir=...)`` restores
    that checkpoint: variables, optimizer slots, ``global_step`` and the
    RNG run counter.
 
-Left out: the flight recorder's dump and the monitoring counters
-(telemetry is not ported), and ``CheckpointManager`` saves.
+Left out: the flight recorder's dump and its ``checkpoint`` events
+(telemetry is not ported).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from typing import Optional
 
 from ..train.session_run_hook import SessionRunHook
+from . import metrics as _m
 
 _log = logging.getLogger(__name__)
 
@@ -112,21 +114,20 @@ def uninstall_preemption_handler() -> None:
 
 class PreemptionHandler(SessionRunHook):
     """The hook half of the flow (also appended by
-    ``MonitoredTrainingSession(checkpoint_dir=...)``). Saves through an
-    explicit ``saver``, the scaffold's, the graph's first, else a new
-    ``train.Saver``, always blocking, to
-    ``checkpoint_dir/checkpoint_basename-<global_step>``."""
+    ``MonitoredTrainingSession(checkpoint_dir=...)``). Saves through, in
+    order: an explicit ``manager``, an explicit ``saver``, the scaffold's,
+    the graph's first, else a new ``train.Saver`` (to
+    ``checkpoint_dir/checkpoint_basename-<global_step>``), and waits for
+    the write: the process is about to stop."""
 
     def __init__(self, checkpoint_dir=None, manager=None, saver=None,
                  scaffold=None, checkpoint_basename="model.ckpt",
                  install: bool = True):
-        if manager is not None:
-            raise NotImplementedError(
-                "PreemptionHandler(manager=...): CheckpointManager is not "
-                "ported (ROADMAP Queue 1 item 10); pass checkpoint_dir")
-        if checkpoint_dir is None:
-            raise ValueError("PreemptionHandler needs a checkpoint_dir")
+        if manager is None and checkpoint_dir is None:
+            raise ValueError("PreemptionHandler needs a checkpoint_dir or "
+                             "a CheckpointManager")
         self._checkpoint_dir = checkpoint_dir
+        self._manager = manager
         self._saver = saver
         self._scaffold = scaffold
         self._basename = checkpoint_basename
@@ -165,11 +166,23 @@ class PreemptionHandler(SessionRunHook):
     def _drain_and_save(self, session):
         from ..train.saver import resolve_global_step
 
+        from . import writer as writer_mod
+
         self._saved = True
+        # the async saves queued before the signal commit first, so the
+        # state file ends at this save
+        writer_mod.wait_until_finished()
         step = resolve_global_step(session, self._global_step_tensor)
-        prefix = self._resolve_saver().save(
-            session, os.path.join(self._checkpoint_dir, self._basename),
-            global_step=step)
+        if self._manager is not None:
+            prefix = self._manager.save(session, global_step=step,
+                                        blocking=True)
+        else:
+            saver = self._resolve_saver()
+            prefix = saver.save(
+                session, os.path.join(self._checkpoint_dir, self._basename),
+                global_step=step)
+            saver.wait_until_finished()
+        _m.preemptions.get_cell().increase_by(1)
         self.last_saved_prefix = prefix
         _log.info("PreemptionHandler: drained and saved %s at "
                   "global_step=%s; requesting stop.", prefix, step)

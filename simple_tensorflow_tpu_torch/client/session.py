@@ -36,8 +36,9 @@ session.py``:
   package's ``post_host_plan``; a device op that reads a post-host output
   raises ``InvalidArgumentError``;
 - ``snapshot_host_state`` (:1361, the RNG position and the data
-  iterators' positions) and ``variable_value`` (:1294), which
-  ``train.Saver`` and the MonitoredSession read.
+  iterators' positions), ``snapshot_device_state`` (:1322, the barrier
+  snapshot of the async checkpoint plane) and ``variable_value`` (:1294),
+  which ``train.Saver`` and the MonitoredSession read;
 
 Device rule: ``Session()`` runs on ``"cuda"`` through
 :func:`..models.common.resolve_device` (which pins f32 matrix products and
@@ -279,6 +280,11 @@ class _Plan:
         # executables
         self.host_reads: Optional[List[Tensor]] = None
         self.executables: Dict[tuple, compiler.StepExecutable] = {}
+        # the numerics-health plane: {"mode", "taps", "tensor"} of an
+        # instrumented plan (debug/numerics.py), and the health tensor's
+        # index among the computed values
+        self.numerics: Optional[Dict[str, Any]] = None
+        self.health_index: Optional[int] = None
         # executable key -> the store version its eager warm-up left: a
         # store changed since (a load) warms up again before a capture
         self.warm: Dict[tuple, int] = {}
@@ -620,8 +626,17 @@ class BaseSession:
                       for e in elements),
                 tuple(sorted(t.name for t in feed_tensors)))
 
+    def _numerics_mode(self) -> str:
+        """The numerics-health mode of this Session's plans:
+        ``ConfigProto(numerics=)``, else the process default
+        (``train.health.resolved_mode``: ``STF_NUMERICS`` alone while
+        ``debug.numerics`` is not imported)."""
+        from ..train import health
+
+        return health.resolved_mode(self._config)
+
     def _get_or_plan(self, elements, feeds) -> _Plan:
-        key = self._cache_key(elements, feeds)
+        key = self._cache_key(elements, feeds) + (self._numerics_mode(),)
         plan = self._cache.get(key)
         if plan is None:
             self.plan_cache_misses += 1
@@ -651,7 +666,25 @@ class BaseSession:
         for d in diags:
             if d.severity == analysis.WARNING:
                 _log.warning("plan analysis: %s", d.format())
-        return _Plan(ops, fetch_tensors, list(feeds))
+        numerics = None
+        mode = self._numerics_mode()
+        if mode != "off":
+            from ..debug import numerics as numerics_mod
+
+            patterns = tuple(getattr(self._config, "numerics_taps", ())
+                             or ())
+            ops, table, health = numerics_mod.instrument_plan(
+                self._graph, ops, fed, fetch_tensors, patterns)
+            if table:
+                numerics = {"mode": mode, "taps": table, "tensor": health}
+                numerics_mod.get_plane().set_taps(table)
+        plan = _Plan(ops, fetch_tensors + ([numerics["tensor"]]
+                                           if numerics else []),
+                     list(feeds))
+        if numerics:
+            plan.numerics = numerics
+            plan.health_index = plan.computed.index(numerics["tensor"])
+        return plan
 
     def _rng_root(self, consume: bool, dry: bool = False):
         """The run's root key, advancing the run counter, or None for a
@@ -717,9 +750,23 @@ class BaseSession:
         if pre:
             feeds = dict(feeds)
             feeds.update((t, pre[t]) for t in plan.pre_feeds)
+        retained = self._retain_for_dump(plan)
+        # the step's number, as the JAX plane counts it: the run counter it
+        # draws from (the next one for a plan that draws nothing)
+        counter = self._run_counter + 1
+        outs = self._dispatch(plan, feeds)
+        values = self._values(plan, elements, feeds, outs, pre)
+        if plan.numerics is not None:
+            self._observe_numerics(plan, outs[plan.health_index][None],
+                                   [feeds], [counter], retained,
+                                   window=False)
+        return values
+
+    def _dispatch(self, plan: _Plan, feeds) -> list:
+        """The device step's computed values: eagerly, captured or
+        replayed (:meth:`_run_plan`)."""
         if not (self._capture and plan.ops and not plan.io):
-            outs = self._run_eager(plan, feeds)
-            return self._values(plan, elements, feeds, outs, pre)
+            return self._run_eager(plan, feeds)
         key = self._exe_key(plan, feeds)
         exe = plan.executables.get(key)
         if exe is not None and \
@@ -733,11 +780,59 @@ class BaseSession:
             outs = self._run_eager(plan, feeds, warm_up=True)
             plan.warm[self._exe_key(plan, feeds)] = \
                 self._variable_store.version
-            return self._values(plan, elements, feeds, outs, pre)
+            return outs
         if exe is None:
             exe = self._capture_step(plan, key, feeds)
-        return self._values(plan, elements, feeds,
-                            self._replay(plan, exe, feeds), pre)
+        return self._replay(plan, exe, feeds)
+
+    # -- the numerics-health plane (debug/numerics.py) -----------------------
+    def _retain_for_dump(self, plan: _Plan):
+        """In ``dump`` mode, a device copy of the store before a run or a
+        window (a flat optimizer group copied once), for the bisector;
+        else None."""
+        if plan.numerics is None or plan.numerics["mode"] != "dump":
+            return None
+        from ..checkpoint import snapshot as snapshot_mod
+
+        return snapshot_mod.device_copies(self._variable_store.values,
+                                          self._flat_groups.values())
+
+    def _observe_numerics(self, plan: _Plan, health, steps, counters,
+                          retained, window: bool) -> None:
+        """After the commit: the ``(n, T, 4)`` rows of ``n`` steps into the
+        process ``HealthPlane`` (the ``/stf/train/*`` metrics); on an
+        anomaly, the mode's escalation for the first bad step: the
+        bisector and its dump (``dump``), the raise (``raise``,
+        ``dump``)."""
+        from ..debug import numerics as numerics_mod
+
+        info = plan.numerics
+        rows = health.detach().float().cpu().numpy()
+        plane = numerics_mod.get_plane()
+        first = bad_index = None
+        for i in range(rows.shape[0]):
+            anomaly = plane.record_step(
+                info["taps"], rows[i], step=counters[i],
+                window_index=i if window else None)
+            if anomaly is not None and first is None:
+                first, bad_index = anomaly, i
+        if first is None or info["mode"] == "metrics":
+            return
+        bad_op = dump_root = None
+        if info["mode"] == "dump":
+            bad_op, dump_root = numerics_mod.bisect_and_dump(
+                self, plan, steps, retained, counters, bad_index, first,
+                window_index=bad_index if window else None)
+            plane.note_forensics(
+                first_bad_op=bad_op.name if bad_op is not None else None,
+                dump_root=dump_root)
+        numerics_mod.raise_anomaly(first, bad_op=bad_op,
+                                   dump_root=dump_root)
+
+    def _scratch_replay(self, retained):
+        """Eager replays over a scratch store made of ``retained`` (the
+        bisector's): nothing of this Session's state moves."""
+        return _ScratchReplay(self, retained)
 
     def _host_stage(self, plan: _Plan, feeds) -> Dict[Tensor, Any]:
         """Run the plan's host stage before the device step (the JAX
@@ -896,7 +991,34 @@ class BaseSession:
                 env[t] = v
         return env
 
-    # -- run_steps -----------------------------------------------------------
+    # -- barrier snapshots (the async checkpoint plane) ----------------------
+    def snapshot_device_state(self, names=None):
+        """A point-in-time device copy of variable state, for async
+        checkpointing (the JAX package's :1322-1360): ``({store name:
+        device copy}, host_state)``, under the session's lock, so it never
+        interleaves with a step. The copies are enqueued on the current
+        stream, which ran the last step's replays, after them and before
+        the next step: no host sync. A flat optimizer group is copied once
+        and its variables are views of that copy; the copies' event
+        (``copies.ready``) completes after them (``checkpoint/
+        snapshot.py``). ``host_state`` is :meth:`snapshot_host_state` at
+        the same point."""
+        from ..checkpoint import snapshot as snapshot_mod
+
+        with self._lock:
+            store = self._variable_store.values
+            wanted = sorted(store) if names is None else list(names)
+            missing = [n for n in wanted if n not in store]
+            if missing:
+                raise FailedPreconditionError(
+                    None, None,
+                    f"snapshot_device_state: variable(s) {sorted(missing)} "
+                    "uninitialized")
+            copies = snapshot_mod.device_copies(
+                {n: store[n] for n in wanted}, self._flat_groups.values())
+            host_state = self.snapshot_host_state()
+        return copies, host_state
+
     def snapshot_host_state(self) -> Dict[str, Any]:
         """The host half of a training-state checkpoint (the JAX package's
         :1361-1376): the session's RNG position (the run counter; the key
@@ -1093,13 +1215,17 @@ class BaseSession:
             vals = [self._run_plan(plan, elements, fd) for fd in steps]
             return _stack_steps(vals) if stacked else vals[-1]
         t0 = time.perf_counter()
+        retained = self._retain_for_dump(plan)
+        # the steps' run counters (a plan that draws nothing keeps the
+        # counter; the numerics plane numbers its steps by them all the
+        # same)
+        counters = np.arange(self._run_counter + 1,
+                             self._run_counter + 1 + n, dtype=np.uint32)
         keys = seeds = None
         if plan.uses_rng:
-            ctrs = np.arange(self._run_counter + 1,
-                             self._run_counter + 1 + n, dtype=np.uint32)
             self._run_counter += n
             op_keys = prng.fold_in(
-                prng.fold_in(self._ensure_base_key(), ctrs)[:, None, :],
+                prng.fold_in(self._ensure_base_key(), counters)[:, None, :],
                 plan.rng_folds[None, :])
             keys = op_keys
             if exe.seeded is not False:
@@ -1110,11 +1236,19 @@ class BaseSession:
         exe.stage_window(n, {t: v for t, v in superbatch.items()
                              if t in exe.feeds}, keys, seeds)
         t1 = time.perf_counter()
-        outs, per_step = None, None
+        outs, per_step, health = None, None, None
+        hidx = plan.health_index
         for i in range(n):
             exe.load_step(i, keys=self._refresh_keys or i == 0,
                           seeds=self._refresh_seeds or i == 0)
             outs = exe.replay()
+            if hidx is not None:
+                # each replay rewrites the static rows: a device copy into
+                # the window's buffer, no sync
+                if health is None:
+                    health = outs[hidx].new_empty(
+                        (n,) + tuple(outs[hidx].shape))
+                health[i].copy_(outs[hidx])
             if stacked:
                 if per_step is None:
                     per_step = [None if o is None else
@@ -1128,16 +1262,22 @@ class BaseSession:
                           ("replay", time.perf_counter() - t1)):
                 self._timings[k] = self._timings.get(k, 0.0) + dt
         if not stacked:
-            return self._values(plan, elements, steps[-1], outs)
-        computed = dict(zip(plan.computed, per_step))
-        out = []
-        for e in elements:
-            if isinstance(e, Operation):
-                out.append(None)
-            elif e in steps[0]:
-                out.append(np.stack([_feed_value(e, fd[e]) for fd in steps]))
-            else:
-                out.append(_to_numpy(computed[e]))
+            out = self._values(plan, elements, steps[-1], outs)
+        else:
+            computed = dict(zip(plan.computed, per_step))
+            out = []
+            for e in elements:
+                if isinstance(e, Operation):
+                    out.append(None)
+                elif e in steps[0]:
+                    out.append(np.stack([_feed_value(e, fd[e])
+                                         for fd in steps]))
+                else:
+                    out.append(_to_numpy(computed[e]))
+        if health is not None:
+            self._observe_numerics(plan, health, steps,
+                                   [int(c) for c in counters], retained,
+                                   window=True)
         return out
 
     def _window_executable(self, plan: _Plan, feeds):
@@ -1154,6 +1294,47 @@ class BaseSession:
                 del plan.executables[key]
                 exe.release()
         return self._compile(plan, feeds)
+
+
+class _ScratchSession:
+    """A Session's stand-in for the bisector's eager replays: its own
+    flat optimizer groups (the scratch store's), every other attribute
+    read through to the Session (its constants, graph, device)."""
+
+    def __init__(self, session):
+        self._session = session
+        self._flat_groups: Dict[tuple, torch.Tensor] = {}
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+
+class _ScratchReplay:
+    """Eager runs of a plan over a scratch store made of a retained device
+    copy of the store (``Session._retain_for_dump``)."""
+
+    def __init__(self, session, retained):
+        self._session = session
+        self._shim = _ScratchSession(session)
+        self.store = VariableStore(session.device)
+        self.store.values.update(retained)
+
+    def context(self, plan: _Plan, feeds, counter):
+        """A context for one step of ``plan`` with ``feeds``, drawing from
+        the run counter ``counter`` as that step did."""
+        sess = self._session
+        root = prng.fold_in(sess._ensure_base_key(), int(counter)) \
+            if plan.uses_rng else None
+        return lowering_mod.LoweringContext(
+            self.store, sess.device, rng_root=root, feeds=feeds,
+            session=self._shim, grad_leaves=plan.grad_leaves,
+            retain_graph=plan.retain_graph, preserve=plan.preserve)
+
+    def step(self, plan: _Plan, ctx) -> None:
+        """Run the step in ``ctx`` and commit it to the scratch store."""
+        with torch.set_grad_enabled(plan.needs_grad):
+            lowering_mod.execute_ops(ctx, plan.ops, plan.frees)
+        ctx.commit()
 
 
 def _feed_value(t: Tensor, v) -> np.ndarray:

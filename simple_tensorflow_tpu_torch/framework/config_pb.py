@@ -8,9 +8,13 @@ idiom for a CPU session (the JAX package's ``ConfigProto`` accepts it too,
 ``variable_hazard_mode`` (:57, :193): None (the process default of
 ``stf.analysis``, ``"raise"`` unless ``STF_HAZARD_MODE`` or
 ``set_hazard_mode`` says otherwise) or one of ``off|warn|raise|
-auto_deps``. Left out: the other fields (thread pools, GPU options,
-transfer guards, graph analysis, kernel registry, telemetry, memory
-budget).
+auto_deps``; ``loop_fusion_steps`` (``run_steps``' default window);
+``numerics`` (:177-192), None (the process default of
+``debug.numerics``) or one of ``off|metrics|raise|dump``, the
+numerics-health plane's mode, and ``numerics_taps``, regexes of op names
+whose outputs the plane taps beside its automatic choice. Left out: the
+other fields (thread pools, GPU options, transfer guards, graph analysis,
+kernel registry, telemetry, memory budget).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ _HAZARD_MODES = ("off", "warn", "raise", "auto_deps")
 
 class ConfigProto:
     def __init__(self, device_count=None, variable_hazard_mode=None,
-                 loop_fusion_steps=1, numerics=None):
+                 loop_fusion_steps=1, numerics=None, numerics_taps=None):
         self.device_count = dict(device_count or {})
         if variable_hazard_mode is not None and \
                 variable_hazard_mode not in _HAZARD_MODES:
@@ -33,7 +37,13 @@ class ConfigProto:
             raise ValueError(
                 f"loop_fusion_steps must be >= 1, got {loop_fusion_steps}")
         self.loop_fusion_steps = loop_fusion_steps
+        if numerics is not None and numerics not in (
+                "off", "metrics", "raise", "dump"):
+            raise ValueError(
+                f"numerics must be None|off|metrics|raise|dump, "
+                f"got {numerics!r}")
         self.numerics = numerics
+        self.numerics_taps = list(numerics_taps or [])
 
     def device(self) -> str:
         """``"cpu"`` when ``device_count`` asks for no GPU, else

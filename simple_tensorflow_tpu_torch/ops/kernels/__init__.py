@@ -15,6 +15,7 @@ from .flash_attention import (flash_attention, flash_attention_dkdv,
                               flash_attention_fwd_plain)
 from .fused_update import (adam_update, adam_update_plain, momentum_update,
                            momentum_update_plain)
+from .numeric_summary import numeric_summary, numeric_summary_plain
 from .layer_norm import (layer_norm, layer_norm_bwd, layer_norm_bwd_plain,
                          layer_norm_fwd, layer_norm_plain)
 from .quant_matmul import (quant_matmul, quant_matmul_plain,
@@ -34,6 +35,7 @@ __all__ = [
     "flash_attention_fwd_plain", "launch_counts", "layer_norm",
     "layer_norm_bwd", "layer_norm_bwd_plain", "layer_norm_fwd",
     "layer_norm_plain", "momentum_update", "momentum_update_plain",
+    "numeric_summary", "numeric_summary_plain",
     "quant_matmul", "quant_matmul_plain",
     "quantize_rowwise_plain", "reset_launch_counts", "softmax_cross_entropy",
     "softmax_xent_bwd", "softmax_xent_bwd_plain", "softmax_xent_fwd",

@@ -76,6 +76,7 @@ SIGNATURES = {
     "stf_capture_to_graph_begin": [_P, _P],
     "stf_capture_to_graph_end": [_P],
     "stf_graph_node_count": [_P, _P],
+    "stf_numeric_summary": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

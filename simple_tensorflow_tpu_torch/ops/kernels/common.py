@@ -57,6 +57,9 @@ _LAUNCHES = {
     # the conditional-node predicate setter (csrc/control_flow.cu): once
     # a node and once at the end of every WHILE body, per capture
     "cond_set": 0,
+    # the numerics-health plane's multi-tensor summary (csrc/
+    # numeric_summary.cu): once a step of an instrumented plan
+    "numeric_summary": 0,
 }
 
 _M32 = 0xFFFFFFFF

@@ -15,9 +15,11 @@ int32); for the RNN graphs ``Maximum``, ``Sigmoid``, ``Sqrt``,
 (what ``matmul`` builds for a rank-3 operand, :671-680); for beam search
 and ``raw_rnn`` ``FloorDiv`` (:319) and ``FloorMod`` (:331) with floor
 semantics on negative ints (``torch.floor_divide``, ``torch.remainder``),
-``LogicalAnd``, ``LogicalOr`` and ``All`` (``reduce_all``). The Tensor
-operators (``+ - * / // % @ **``, and of :973-994 unary ``-`` and ``~``,
-``&``, ``|`` and ``< <= > >=``) are installed here on ``Tensor`` and ``Variable``.
+``LogicalAnd``, ``LogicalOr`` and ``All`` (``reduce_all``); ``Log`` and
+``Exp`` (the numerics plane's tests poison a step through ``Log``). The
+Tensor operators (``+ - * / // % @ **``, and of :973-994 unary ``-`` and
+``~``, ``&``, ``|`` and ``< <= > >=``) are installed here on ``Tensor``
+and ``Variable``.
 A plain f32 matrix product, batched or not, is left to ``torch.matmul``
 (full f32 on the card: the Session pins TF32 off), as the JAX package
 leaves it to XLA. Left out: the other elementwise, reduction, segment,
@@ -60,6 +62,8 @@ op_registry.register_pure("AddN", lambda *xs: builtins.sum(xs[1:], xs[0]))
 op_registry.register_pure("Maximum", torch.maximum)
 op_registry.register_pure("Sigmoid", torch.sigmoid)
 op_registry.register_pure("Sqrt", torch.sqrt)
+op_registry.register_pure("Log", torch.log)
+op_registry.register_pure("Exp", torch.exp)
 op_registry.register_pure("Square", torch.square)
 op_registry.register_pure("Neg", torch.neg)
 op_registry.register_pure("Less", torch.lt)
@@ -172,6 +176,14 @@ def square(x, name=None):
 
 def sqrt(x, name=None):
     return unary("Sqrt", x, name)
+
+
+def log(x, name=None):
+    return unary("Log", x, name)
+
+
+def exp(x, name=None):
+    return unary("Exp", x, name)
 
 
 def sigmoid(x, name=None):

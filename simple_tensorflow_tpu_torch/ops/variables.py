@@ -6,10 +6,11 @@ graph holds a ``VariableV2`` read op (its output is the "ref" tensor, as in
 TF-1.0), an initializer ``Assign`` and the ``read`` snapshot, created in
 the JAX package's order and with its names. ``trainable_variables``
 (:287), ``global_variables_initializer`` (:308) and
-``local_variables_initializer`` (:316) as there. Left out:
-sharding metadata, constraints, ``ResourceVariable``,
-``PartitionedVariable``, proto round trips and the uninitialized-variable
-report ops.
+``local_variables_initializer`` (:316) as there; ``to_proto`` and
+``from_proto`` (:200-245), the meta graph's form of a variable
+(``framework/graph_io.py``). Left out: sharding metadata, constraints,
+``ResourceVariable``, ``PartitionedVariable`` and the
+uninitialized-variable report ops.
 """
 
 from __future__ import annotations
@@ -147,6 +148,47 @@ class Variable:
 
     def _as_graph_element(self):
         return self._ref
+
+    def to_proto(self, export_scope=None):
+        return {"variable_name": self.name,
+                "initial_value_name": self._initial_value.name,
+                "initializer_name": self._initializer_op.name,
+                "snapshot_name": self._snapshot.name,
+                "trainable": self._trainable}
+
+    @classmethod
+    def from_proto(cls, proto, import_scope=None, graph=None):
+        """A Variable bound to ops already imported into ``graph`` (ref:
+        variables.py ``Variable.from_proto``); makes no op."""
+        g = graph or ops_mod.get_default_graph()
+
+        def _scoped(name):
+            return f"{import_scope}/{name}" if import_scope else name
+
+        self = cls.__new__(cls)
+        ref = g.as_graph_element(_scoped(proto["variable_name"]),
+                                 allow_tensor=True, allow_operation=False)
+        self._graph = g
+        self._ref = ref
+        self._op = ref.op
+        self._var_name = ref.op.attrs.get(
+            "var_name", _scoped(proto["variable_name"]).split(":")[0])
+        self._trainable = bool(proto.get("trainable", True))
+        self._initializer_op = g.as_graph_element(
+            _scoped(proto["initializer_name"]), allow_tensor=False,
+            allow_operation=True)
+        self._snapshot = g.as_graph_element(
+            _scoped(proto["snapshot_name"]), allow_tensor=True,
+            allow_operation=False)
+        try:
+            self._initial_value = g.as_graph_element(
+                _scoped(proto["initial_value_name"]), allow_tensor=True,
+                allow_operation=False)
+        except (KeyError, ValueError):
+            self._initial_value = None
+        g._scoped_state.setdefault("__vars_by_store_name__",
+                                   {})[self._var_name] = self
+        return self
 
     def __repr__(self):
         return (f"<stf.Variable '{self.name}' shape={self.shape} "

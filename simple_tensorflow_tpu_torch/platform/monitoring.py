@@ -1,31 +1,59 @@
 """Process-global metrics and trace spans; the part of
-``simple_tensorflow_tpu/platform/monitoring.py`` that the input pipeline
-and the parse ops report through: ``Counter`` (:310), ``IntGauge``
-(:319), ``get_metric``, and the trace half (``TraceBuffer`` :580,
-``trace_collection`` :624, ``traceme`` :654, ``active_trace_buffers``).
+``simple_tensorflow_tpu/platform/monitoring.py`` that the input pipeline,
+the parse ops, the checkpoint plane and the numerics-health plane report
+through: ``Counter`` (:310), ``IntGauge`` (:319), ``Sampler`` (:342) over
+``ExponentialBuckets`` (:73), ``get_metric``, and the trace half
+(``TraceBuffer`` :580, ``trace_collection`` :624, ``traceme`` :654,
+``active_trace_buffers``).
 
-Metric names are the JAX package's (``/stf/data/*``), so a counter reads
-the same in both packages. A metric family owns labeled cells made on
-demand (``get_cell(*labels)``); re-creating a family of the same name and
-shape returns the existing cells. ``traceme(name, **meta)`` records a span
-into every trace buffer active on the current thread and costs one
-thread-local read when there is none. Left out: samplers, string and bool
-gauges, the exporters, ``record_span`` and the lock-witness metrics.
+Metric names are the JAX package's (``/stf/data/*``, ``/stf/checkpoint/*``,
+``/stf/train/*``), so a counter reads the same in both packages. A metric
+family owns labeled cells made on demand (``get_cell(*labels)``);
+re-creating a family of the same name and shape returns the existing
+cells. ``traceme(name, **meta)`` records a span into every trace buffer
+active on the current thread and costs one thread-local read when there
+is none. Left out: percentile samplers, string and bool gauges, the
+exporters, ``record_span`` and the lock-witness metrics.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from . import sync as _sync
 
-__all__ = ["Counter", "IntGauge", "get_metric", "traceme",
+__all__ = ["Counter", "IntGauge", "Sampler", "Buckets",
+           "ExponentialBuckets", "get_metric", "traceme",
            "trace_collection", "TraceBuffer", "active_trace_buffers"]
 
 _registry_lock = _sync.Lock("monitoring/registry", rank=_sync.LEAF)
 _registry: Dict[str, "Metric"] = {}
+
+
+class Buckets:
+    """Bucket boundaries of a :class:`Sampler`: ``boundaries[i]`` is the
+    inclusive upper edge of bucket i; a last +inf bucket is implicit."""
+
+    def __init__(self, boundaries: Sequence[float]):
+        bs = [float(b) for b in boundaries]
+        if any(b2 <= b1 for b1, b2 in zip(bs, bs[1:])):
+            raise ValueError(f"bucket boundaries must increase: {bs}")
+        self.boundaries: List[float] = bs
+
+
+def ExponentialBuckets(scale: float, growth_factor: float,
+                       bucket_count: int) -> Buckets:
+    """(ref: monitoring/sampler.h ``Buckets::Exponential``): the edges
+    ``scale * growth_factor ** i`` for i < ``bucket_count``."""
+    if scale <= 0 or growth_factor <= 1 or bucket_count < 1:
+        raise ValueError(
+            f"ExponentialBuckets(scale={scale}, growth_factor="
+            f"{growth_factor}, bucket_count={bucket_count}): need "
+            "scale>0, growth_factor>1, bucket_count>=1")
+    return Buckets([scale * growth_factor ** i for i in range(bucket_count)])
 
 
 class CounterCell:
@@ -60,6 +88,43 @@ class GaugeCell:
     def value(self):
         with self._lock:
             return self._value
+
+
+class SamplerCell:
+    """Histogram cell: counts per bucket, sum, count, min and max."""
+
+    __slots__ = ("_buckets", "_counts", "_sum", "_count", "_min", "_max",
+                 "_lock")
+
+    def __init__(self, buckets: Buckets):
+        self._buckets = buckets
+        self._counts = [0] * (len(buckets.boundaries) + 1)
+        self._sum = 0.0
+        self._count = 0
+        self._min = float("inf")
+        self._max = float("-inf")
+        self._lock = threading.Lock()
+
+    def add(self, value: float):
+        v = float(value)
+        # a sample equal to an edge counts in the bucket it closes
+        idx = bisect.bisect_left(self._buckets.boundaries, v)
+        with self._lock:
+            self._counts[idx] += 1
+            self._sum += v
+            self._count += 1
+            self._min = min(self._min, v)
+            self._max = max(self._max, v)
+
+    def value(self) -> Dict[str, Any]:
+        """``{count, sum, min, max, buckets}``; ``buckets`` pairs each
+        upper edge (the last +inf) with its count."""
+        with self._lock:
+            edges = self._buckets.boundaries + [float("inf")]
+            return {"count": self._count, "sum": self._sum,
+                    "min": self._min if self._count else None,
+                    "max": self._max if self._count else None,
+                    "buckets": list(zip(edges, list(self._counts)))}
 
 
 class Metric:
@@ -127,6 +192,20 @@ class IntGauge(Metric):
 
     def _new_cell(self):
         return GaugeCell(0)
+
+
+class Sampler(Metric):
+    """(ref: monitoring/sampler.h): a histogram over fixed buckets."""
+
+    metric_type = "Sampler"
+
+    def __init__(self, name: str, buckets: Buckets, description: str,
+                 *label_names: str):
+        self.buckets = buckets
+        super().__init__(name, description, *label_names)
+
+    def _new_cell(self):
+        return SamplerCell(self.buckets)
 
 
 def get_metric(name: str) -> Optional[Metric]:

@@ -1,6 +1,7 @@
 """Named, rank-ordered locks; the part of ``simple_tensorflow_tpu/
 platform/sync.py`` (``Lock`` :315, ``Condition`` :507, the rank bands
-:64-71) that the input pipeline takes.
+:64-71) that the input pipeline, the checkpoint writer and manager, and
+the numerics-health plane take.
 
 A lock has a *name* (many instances may share one) and a *rank* (lower =
 acquired first, outer): they document the order in which the pipeline
@@ -14,13 +15,16 @@ import threading
 from typing import Optional
 
 __all__ = ["Lock", "Condition", "RANK_LIFECYCLE", "RANK_SESSION",
-           "RANK_ENGINE", "RANK_QUEUE", "RANK_STATE", "LEAF"]
+           "RANK_ENGINE", "RANK_QUEUE", "RANK_STATE", "RANK_TELEMETRY",
+           "RANK_METRICS", "LEAF"]
 
-RANK_LIFECYCLE = 100   # open-close of process-wide resources
+RANK_LIFECYCLE = 100   # open-close of process-wide resources, writers
 RANK_SESSION = 200     # Session/Graph state
-RANK_ENGINE = 300      # pipeline runs
-RANK_QUEUE = 400       # ring buffers
-RANK_STATE = 500       # small per-object state
+RANK_ENGINE = 300      # pipeline runs, checkpoint manager
+RANK_QUEUE = 400       # ring buffers, the checkpoint writer's queue
+RANK_STATE = 500       # small per-object state (registries, modes)
+RANK_TELEMETRY = 600   # the numerics-health plane's history
+RANK_METRICS = 700     # monitoring registry + family locks
 LEAF = 900             # nothing nests under these
 
 

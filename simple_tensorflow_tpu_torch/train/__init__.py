@@ -3,7 +3,8 @@ the graph optimizers and the global step, the eager flat-group optimizers
 of the port's ``nn.Module`` trainers (``optimizers.FlatAdam``,
 ``optimizers.FlatMomentum``), and the training loop: ``Saver`` and the
 checkpoint state helpers, the session-run hooks and
-``MonitoredTrainingSession``."""
+``MonitoredTrainingSession``, meta-graph I/O (``import_meta_graph``,
+``export_meta_graph``) and the numerics-health hook (``health``)."""
 
 from .optimizer import Optimizer
 from .optimizers import (AdamOptimizer, GradientDescentOptimizer,
@@ -23,8 +24,10 @@ from .monitored_session import (ChiefSessionCreator, MonitoredSession,
                                 SessionCreator, SessionManager,
                                 SingularMonitoredSession,
                                 WorkerSessionCreator)
-from .saver import (Saver, checkpoint_exists, get_checkpoint_state,
+from .saver import (Saver, checkpoint_exists, export_meta_graph,
+                    get_checkpoint_state, import_meta_graph,
                     latest_checkpoint, load_checkpoint_values,
                     update_checkpoint_state)
+from .health import NumericsHealthHook
 from .session_run_hook import (SessionRunArgs, SessionRunContext,
                                SessionRunHook, SessionRunValues)

@@ -9,11 +9,14 @@ its behaviour step for step (the window sizes a MonitoredSession picks
 and the steps hooks save at are the JAX package's; ``tests/
 test_torch_monitored_session.py`` holds them equal).
 
+``CheckpointSaverHook`` saves asynchronously by default, as in JAX
+(``save_async=True``: ``checkpoint/manager.py`` ``AsyncSaverEngine``; the
+trigger step pays the barrier snapshot and the writer thread commits
+while the next window runs); its save at ``end`` waits for every write.
+
 Differences: a hook closes at ``end`` the ``FileWriter`` it made for its
-``output_dir`` (the JAX hooks leave theirs open); ``CheckpointSaverHook``
-saves blocking whatever
-``save_async`` says (the async plane waits for ROADMAP Queue 1 item 10;
-the files and the steps are the same); ``StepCounterHook``'s MFU report is
+``output_dir`` (the JAX hooks leave theirs open); ``StepCounterHook``'s
+MFU report is
 None (``framework/cost_model.py`` is not ported; the JAX hook's report is
 best-effort and None where the cost model fails); ``ProfilerHook`` raises
 ``NotImplementedError`` until ``RunOptions`` tracing is ported (ROADMAP
@@ -135,8 +138,9 @@ class StopAtStepHook(SessionRunHook):
 
 class CheckpointSaverHook(SessionRunHook):
     """(ref: basic_session_run_hooks.py:404): a save when the session is
-    created, at the timer's triggers and at ``end``; each save is
-    blocking (module docstring)."""
+    created, at the timer's triggers and at ``end``. Async by default
+    (module docstring); ``save_async=False``, or a Saver of another
+    backend, saves in line. Windows split at save steps either way."""
 
     def __init__(self, checkpoint_dir, save_secs=None, save_steps=None,
                  saver=None, checkpoint_basename="model.ckpt", scaffold=None,
@@ -148,6 +152,8 @@ class CheckpointSaverHook(SessionRunHook):
         self._timer = SecondOrStepTimer(every_secs=save_secs,
                                         every_steps=save_steps)
         self._listeners = listeners or []
+        self._save_async = save_async
+        self._async_engine = None
 
     def begin(self):
         self._global_step_tensor = training_util.get_global_step()
@@ -185,13 +191,36 @@ class CheckpointSaverHook(SessionRunHook):
         return self._timer.steps_until_trigger(global_step)
 
     def end(self, session):
+        # the last save waits: the process may exit right after end()
         self._save(session, int(np.asarray(
-            session.run(self._global_step_tensor._ref))))
+            session.run(self._global_step_tensor._ref))), blocking=True)
 
-    def _save(self, session, step):
+    def _engine_for(self, saver):
+        """The async engine of this hook's saver, or None to save through
+        ``saver.save`` (``save_async=False``, another backend, or a
+        ``backend="async"`` Saver, its own engine)."""
+        if not self._save_async or \
+                getattr(saver, "_backend", None) != "native":
+            return None
+        if self._async_engine is None:
+            from ..checkpoint.manager import AsyncSaverEngine
+
+            self._async_engine = AsyncSaverEngine(saver)
+        return self._async_engine
+
+    def _save(self, session, step, blocking=False):
         for lis in self._listeners:
             lis.before_save(session, step)
-        self._get_saver().save(session, self._save_path, global_step=step)
+        saver = self._get_saver()
+        engine = self._engine_for(saver)
+        if engine is not None:
+            engine.save(session, self._save_path, global_step=step)
+            if blocking:
+                engine.wait_until_finished()
+        else:
+            saver.save(session, self._save_path, global_step=step)
+            if blocking:
+                saver.wait_until_finished()
         for lis in self._listeners:
             lis.after_save(session, step)
 

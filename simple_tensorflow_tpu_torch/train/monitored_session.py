@@ -16,9 +16,9 @@ whose plan is loop-safe is n replays of the step's CUDA graph.
 Differences: ``Scaffold`` builds no ``report_uninitialized_variables``
 op (not ported): after a restore, only the variables the checkpoint did
 not cover (none, with the scaffold's own ``Saver``) are initialized,
-where the JAX session manager runs the whole initializer again; a
-``ConfigProto`` whose ``numerics`` mode is not off raises
-``NotImplementedError`` (``train/health.py`` is not ported).
+where the JAX session manager runs the whole initializer again. When the
+resolved numerics mode is not off, a ``NumericsHealthHook`` is added
+(``train/health.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -367,14 +367,15 @@ def MonitoredTrainingSession(master="", is_chief=True, checkpoint_dir=None,
     a ``StepCounterHook`` and a ``SummarySaverHook``; on a restart the
     same call restores the latest checkpoint (variables, optimizer slots,
     ``global_step``, the RNG run counter)."""
-    numerics = getattr(config, "numerics", None)
-    if numerics not in (None, "off"):
-        raise NotImplementedError(
-            f"ConfigProto(numerics={numerics!r}): the numerics-health "
-            "plane (train/health.py) is not ported (ROADMAP Queue 1 "
-            "item 10)")
     scaffold = scaffold or Scaffold()
     all_hooks = list(hooks or [])
+    # the numerics plane runs in the Session; the hook adds its log
+    from . import health as health_mod
+
+    if health_mod.resolved_mode(config) != "off" and not any(
+            isinstance(h, health_mod.NumericsHealthHook)
+            for h in all_hooks):
+        all_hooks.append(health_mod.NumericsHealthHook())
     if is_chief:
         session_creator = ChiefSessionCreator(scaffold, master, config,
                                               checkpoint_dir)

@@ -22,11 +22,20 @@ tensors in place where shape and dtype match (addresses stay), and loads
 new entries otherwise. A checkpoint whose data file does not match its
 recorded checksum raises ``DataLossError`` before anything is loaded.
 
-Not ported: ``backend="orbax"`` and ``backend="async"`` (the async
-plane, ``checkpoint/{manager,writer}.py``, ROADMAP Queue 1 item 10) raise
-``NotImplementedError``; ``write_meta_graph`` writes nothing until
-``graph_io`` is ported (logged once); ``import_meta_graph`` /
-``export_meta_graph``.
+``backend="async"`` saves through the async plane
+(``checkpoint/manager.py`` ``AsyncSaverEngine``): ``save`` returns once
+the barrier snapshot is taken and the ``stf_ckpt_writer`` thread commits
+the same bytes a blocking save writes; ``wait_until_finished`` waits for
+the writes and re-raises the first failure. ``save`` writes the graph's
+meta graph beside the checkpoint (``<prefix>.meta``, the JAX package's
+JSON format, ``framework/graph_io.py``) unless ``write_meta_graph`` is
+False; ``import_meta_graph`` and ``export_meta_graph`` read and write
+one. A graph's meta graph can be gigabytes (its constants: the flat Adam
+slots' zero initial values), so a Saver whose graph has not changed
+since its last ``.meta`` links the new one to that file (a copy where
+links fail): the same bytes, written once. Not ported:
+``backend="orbax"`` (sharded saves, ROADMAP Queue 1 item 11) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,12 +52,12 @@ import numpy as np
 import torch
 
 from ..checkpoint import atomic as atomic_io
+from ..checkpoint import metrics as ckpt_metrics
 from ..checkpoint import snapshot as snapshot_mod
 from ..framework import errors
 from ..framework import graph as ops_mod
 
 _log = logging.getLogger(__name__)
-_META_GRAPH_NOTED = []
 
 
 class CheckpointState:
@@ -185,27 +194,28 @@ class Saver:
                  name=None, restore_sequentially=False, saver_def=None,
                  builder=None, defer_build=False, allow_empty=False,
                  write_version=2, pad_step_number=False, backend="native"):
-        if backend == "async":
-            raise NotImplementedError(
-                "Saver(backend='async') is not ported: the async "
-                "checkpoint plane (checkpoint/manager.py, writer.py) waits "
-                "for ROADMAP Queue 1 item 10; use backend='native'")
         if backend == "orbax":
             raise NotImplementedError(
                 "Saver(backend='orbax') is not ported (sharded saves, "
-                "ROADMAP Queue 1 item 11); use backend='native'")
-        if backend != "native":
+                "ROADMAP Queue 1 item 11); use backend='native' or 'async'")
+        if backend not in ("native", "async"):
             raise ValueError(f"Unknown Saver backend {backend!r}")
         self._var_list = var_list
         self._max_to_keep = max_to_keep
         self._keep_every_s = keep_checkpoint_every_n_hours * 3600.0
         self._backend = backend
+        self._async_engine = None
+        # (the graph's signature, the .meta file) of the last meta graph
+        # written: an unchanged graph's next .meta is a link to it
+        self._last_meta = None
         # (prefix, save time): keep_checkpoint_every_n_hours decides on the
         # checkpoint's own timestamp, as the reference does
         self._last_checkpoints: List[tuple] = []
         self._next_keep_time = time.time() + self._keep_every_s
-        # seconds and bytes of the last save: d2h, serialize, commit,
-        # bytes (the data file)
+        # seconds and bytes of the last save. Blocking: d2h, serialize,
+        # commit, bytes (the data file), seconds (the whole save). Async:
+        # the step loop's snapshot, put and stall, then, once the writer
+        # committed, its d2h, serialize, commit, write and bytes
         self.last_save_stats: Dict[str, float] = {}
         ops_mod.get_default_graph().add_to_collection(
             ops_mod.GraphKeys.SAVERS, self)
@@ -230,7 +240,17 @@ class Saver:
              write_state=True):
         """(ref: saver.py:1453 ``Saver.save``): read every variable from
         the store (no run, no version move), serialize, commit; returns
-        the prefix ``save_path[-step]``."""
+        the prefix ``save_path[-step]``. ``backend="async"`` returns once
+        the barrier snapshot is taken (module docstring)."""
+        if self._backend == "async":
+            if self._async_engine is None:
+                from ..checkpoint.manager import AsyncSaverEngine
+
+                self._async_engine = AsyncSaverEngine(self)
+            return self._async_engine.save(
+                sess, save_path, global_step=global_step,
+                latest_filename=latest_filename,
+                write_meta_graph=write_meta_graph, write_state=write_state)
         t0 = time.perf_counter()
         step_val = resolve_global_step(sess, global_step)
         prefix = f"{save_path}-{step_val}" if step_val is not None \
@@ -253,11 +273,8 @@ class Saver:
         doc = snapshot_mod.write_native_checkpoint(prefix, arrays, index,
                                                    host_state, stats)
         stats["bytes"] = doc["data_bytes"]
-        if write_meta_graph and not _META_GRAPH_NOTED:
-            _META_GRAPH_NOTED.append(True)
-            _log.warning("Saver: no %s.%s written: meta-graph export "
-                         "(graph_io) is not ported; checkpoint tensors "
-                         "were saved.", prefix, meta_graph_suffix)
+        if write_meta_graph:
+            self._write_meta_graph(prefix, sess.graph, meta_graph_suffix)
         self._manage_old(prefix)
         if write_state:
             update_checkpoint_state(os.path.dirname(prefix) or ".", prefix,
@@ -265,7 +282,41 @@ class Saver:
                                     latest_filename)
         stats["seconds"] = time.perf_counter() - t0
         self.last_save_stats = stats
+        ckpt_metrics.saves.get_cell("blocking").increase_by(1)
+        ckpt_metrics.save_stall_seconds.get_cell("blocking").add(
+            stats["seconds"])
+        ckpt_metrics.bytes_written.get_cell().increase_by(stats["bytes"])
         return prefix
+
+    def _write_meta_graph(self, prefix, graph, suffix="meta"):
+        """``graph``'s meta graph as ``<prefix>.<suffix>``; a link to the
+        last one this Saver wrote when the graph is unchanged since (the
+        graph is append-only: its op count and collection sizes say).
+        The checkpoint's tensors are saved already: a graph that does not
+        serialize is logged, as in the JAX package
+        (``train/saver.py:299-310``)."""
+        from ..framework import graph_io
+
+        path = f"{prefix}.{suffix}"
+        sig = (id(graph), len(graph.get_operations()),
+               tuple(sorted((k, len(v))
+                            for k, v in graph._collections.items())))
+        try:
+            if os.path.lexists(path):
+                os.remove(path)
+            last = self._last_meta
+            if last is not None and last[0] == sig and \
+                    os.path.exists(last[1]):
+                try:
+                    os.link(last[1], path)
+                except OSError:
+                    shutil.copyfile(last[1], path)
+            else:
+                graph_io.export_meta_graph(path, graph=graph)
+            self._last_meta = (sig, path)
+        except (OSError, TypeError, ValueError) as e:
+            _log.warning("Saver: meta-graph export to %s failed (%s); "
+                         "checkpoint tensors were saved.", path, e)
 
     def _manage_old(self, new_prefix):
         self._last_checkpoints.append((new_prefix, time.time()))
@@ -335,11 +386,43 @@ class Saver:
                                   if checkpoint_exists(p)]
 
     def wait_until_finished(self, timeout=None):
-        """Nothing to wait for: every save of the native backend has
-        committed when ``save`` returns."""
+        """Block until every async save of this Saver has committed (a
+        blocking save has when ``save`` returns); re-raises the first
+        failure of a background write."""
+        if self._async_engine is not None:
+            self._async_engine.wait_until_finished(timeout)
 
     def as_saver_def(self):
         return {"format": "stf-bundle-v1"}
+
+    def to_proto(self, export_scope=None):
+        return self.as_saver_def()
+
+    @staticmethod
+    def from_proto(saver_def, import_scope=None):
+        return Saver()
+
+
+def import_meta_graph(meta_graph_or_file, clear_devices=False,
+                      import_scope=None, **kwargs):
+    """(ref: saver.py ``import_meta_graph``): rebuild a meta graph's
+    nodes, collections and variables into the default graph; returns a
+    ``Saver`` over the rebuilt variables."""
+    from ..framework import graph_io
+
+    graph_io.import_meta_graph(meta_graph_or_file,
+                               import_scope=import_scope)
+    return Saver()
+
+
+def export_meta_graph(filename=None, meta_info_def=None, graph_def=None,
+                      saver_def=None, collection_list=None, as_text=False,
+                      graph=None, **kwargs):
+    """(ref: saver.py ``export_meta_graph``)."""
+    from ..framework import graph_io
+
+    return graph_io.export_meta_graph(filename, graph=graph,
+                                      collection_list=collection_list)
 
 
 def _load_in_place(store, name, value: torch.Tensor, variable):

@@ -2218,3 +2218,100 @@ def test_staged_input_copies_a_card_value_on_the_card(cuda):
     assert not any("HtoD" in n for n in names)
     assert torch.equal(buf.static, value.int())
     assert torch.equal(buf._host, host_before)   # staging untouched
+
+
+def _summary_taps(dev, sizes, dtypes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for n, dt in zip(sizes, dtypes):
+        x = torch.randn(n, device=dev, generator=g) * 3
+        if n >= 16:
+            idx = torch.randperm(n, device=dev, generator=g)
+            x[idx[:3]] = float("nan")
+            x[idx[3:5]] = float("inf")
+            x[idx[5:6]] = -float("inf")
+            x[idx[6:16]] = 0
+        out.append(x.to(dt))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 7, 130])
+def test_numeric_summary_kernel_matches_plain_on_card(cuda, count):
+    """Counts and max_abs exact, l2 and zero fraction within rtol 1e-6 (a
+    sum in another order), the same bits at every launch, one launch a
+    128 taps."""
+    from simple_tensorflow_tpu_torch.ops.kernels import common
+    import importlib
+
+    ns = importlib.import_module(
+        "simple_tensorflow_tpu_torch.ops.kernels.numeric_summary")
+    dtypes = [torch.float32, torch.bfloat16, torch.float16]
+    sizes = [1 + (i * 7919) % 300000 for i in range(count)]
+    taps = _summary_taps(cuda, sizes, [dtypes[i % 3] for i in range(count)],
+                         count)
+    taps.append(torch.empty(0, device=cuda))
+    before = common.launch_counts()["numeric_summary"]
+    out = K.numeric_summary(taps)
+    again = K.numeric_summary(taps)
+    ref = ns.numeric_summary_plain(taps)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["numeric_summary"] - before == \
+        2 * -(-len(taps) // ns.MAX_TAPS_PER_LAUNCH)
+    assert torch.equal(out, again)
+    assert torch.equal(out[:, :2], ref[:, :2])
+    torch.testing.assert_close(out[:, 2:], ref[:, 2:], rtol=1e-6, atol=0)
+    assert torch.equal(out[-1], torch.zeros(4, device=cuda))
+
+
+@pytest.mark.cuda
+def test_numeric_summary_kernel_in_a_cuda_graph(cuda):
+    taps = _summary_taps(cuda, [5000, 123457],
+                         [torch.bfloat16, torch.float32], 3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = K.numeric_summary(taps)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.numeric_summary(taps)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    taps[1].mul_(2)          # a replay reads the tensors as they are
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[1, :2], (eager[1, :2] * torch.tensor(
+        [1.0, 2.0], device=cuda)))
+
+
+@pytest.mark.cuda
+def test_async_snapshot_reaches_the_host_through_the_bounce_buffers(
+        cuda, monkeypatch):
+    """A barrier snapshot's copy to the host, chunk by chunk through the
+    two pinned buffers (a chunk of 1000 bytes here: several chunks a
+    buffer, a buffer's last chunk partly filled), equals a plain copy of
+    every entry, views of a flat group included."""
+    from simple_tensorflow_tpu_torch.checkpoint import snapshot
+
+    monkeypatch.setattr(snapshot, "D2H_CHUNK", 1000)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    flat = torch.randn(5003, device=cuda, generator=g)
+    values = {"a": flat[:3000].view(30, 100), "b": flat[3000:],
+              "c": torch.randn(7, 9, device=cuda,
+                               generator=g).to(torch.bfloat16).t(),
+              "d": torch.arange(333, device=cuda),
+              "e": torch.rand(50, device=cuda, generator=g) > 0.5,
+              "f": torch.empty(0, device=cuda)}
+    copies = snapshot.device_copies(values, [flat])
+    assert len(copies.bases) == 5
+    snap = snapshot.TrainingStateSnapshot(
+        copies, {k: k for k in values}, {}, {})
+    arrays = snap.materialize()
+    for k, v in values.items():
+        want = snapshot.host_array(v)
+        assert arrays[k].shape == want.shape and arrays[k].dtype == want.dtype
+        assert arrays[k].tobytes() == want.tobytes(), k
+    snap.release_device_state()

@@ -38,6 +38,18 @@ from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import bert as pbert
 from simple_tensorflow_tpu_torch.models import mnist as pmnist
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _stop_the_port_writer():
+    """The port's ``stf_ckpt_writer`` thread (its async saves) drained and
+    stopped when the module ends."""
+    yield
+    from simple_tensorflow_tpu_torch import checkpoint as port_ckpt
+
+    port_ckpt.wait_until_finished(timeout=10.0)
+    assert port_ckpt.shutdown_writer(timeout=5.0)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 16
 STEPS = 3

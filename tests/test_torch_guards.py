@@ -105,6 +105,16 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.lib import example
         from simple_tensorflow_tpu_torch.lib.io import file_io
         from simple_tensorflow_tpu_torch.framework import sparse_tensor
+        from simple_tensorflow_tpu_torch import debug
+        from simple_tensorflow_tpu_torch.checkpoint import (manager,
+                                                            metrics,
+                                                            writer)
+        from simple_tensorflow_tpu_torch.debug import (analyzer, io_utils,
+                                                       numerics)
+        from simple_tensorflow_tpu_torch.framework import graph_io
+        from simple_tensorflow_tpu_torch.ops import numerics
+        from simple_tensorflow_tpu_torch.ops.kernels import numeric_summary
+        from simple_tensorflow_tpu_torch.train import health
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)

@@ -605,6 +605,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            seed=3)
     K.momentum_update(torch.ones(4), torch.ones(4), torch.ones(4),
                       torch.tensor(0.1), torch.tensor(0.9))
+    K.numeric_summary([torch.ones(2, 8), torch.zeros(3)])
     assert K.launch_counts() == before
     assert set(before) == {"decode_attention", "decode_attention_block",
                            "layer_norm", "quant_matmul", "layer_norm_bwd",
@@ -619,7 +620,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            "flash_attention_dkdv_device_seed",
                            "flash_attention_dq_device_seed",
                            "dropout_residual_device_seed",
-                           "dropout_residual_bwd_device_seed", "cond_set"}
+                           "dropout_residual_bwd_device_seed", "cond_set",
+                           "numeric_summary"}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -643,7 +645,7 @@ def test_build_key_covers_every_source_and_the_flags():
             "flash_attention.cu", "softmax_xent.cu", "fused_update.cu",
             "dropout_residual.cu", "dropout.cu", "flash_fwd_mma.cu",
             "flash_bwd_mma.cu", "common.cuh", "mma.cuh",
-            "control_flow.cu"} <= set(srcs)
+            "control_flow.cu", "numeric_summary.cu"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16
@@ -658,7 +660,8 @@ def test_build_key_covers_every_source_and_the_flags():
         "stf_flash_attention_dkdv_seed_ptr",
         "stf_flash_attention_dq_seed_ptr", "stf_dropout_residual_seed_ptr",
         "stf_cond_set", "stf_cond_node_begin", "stf_capture_to_graph_begin",
-        "stf_capture_to_graph_end", "stf_graph_node_count"}
+        "stf_capture_to_graph_end", "stf_graph_node_count",
+        "stf_numeric_summary"}
 
 
 def test_helpers_match_the_pallas_common_module():

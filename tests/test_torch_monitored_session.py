@@ -56,6 +56,18 @@ from simple_tensorflow_tpu_torch.summary import summary_iterator as events
 from simple_tensorflow_tpu_torch.summary.writer import writer as pwriter
 from simple_tensorflow_tpu_torch.train import saver as psaver
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _stop_the_port_writer():
+    """The port's ``stf_ckpt_writer`` thread (its async saves) drained and
+    stopped when the module ends."""
+    yield
+    from simple_tensorflow_tpu_torch import checkpoint as port_ckpt
+
+    port_ckpt.wait_until_finished(timeout=10.0)
+    assert port_ckpt.shutdown_writer(timeout=5.0)
+
+
 PKGS = {"jax": (jstf, jtr), "port": (pstf, ptr)}
 LOSS_RTOL = 1e-5
 
@@ -225,6 +237,22 @@ def _events(directory, iterator):
     return sorted(out)
 
 
+def _jax_writers_flush_at_end_only(mp):
+    """The JAX hooks leave their FileWriters open, and the step counter's
+    writer shares its file name with the summary writer's: its periodic
+    flush, ``flush_secs`` (120 s) after it opened, writes its buffered
+    records over the start of that file. A run slower than that (a loaded
+    machine) would lose JAX's loss summary by the clock alone, so the JAX
+    writers made here flush only when asked (the summary hook's ``end``)."""
+    init = jwriter.FileWriter.__init__
+
+    def no_timed_flush(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._flush_secs = float("inf")
+
+    mp.setattr(jwriter.FileWriter, "__init__", no_timed_flush)
+
+
 @pytest.fixture(scope="module")
 def monitored(tmp_path_factory, start_ckpt):
     root = tmp_path_factory.mktemp("monitored")
@@ -232,7 +260,10 @@ def monitored(tmp_path_factory, start_ckpt):
     for name in PKGS:
         d = str(root / name)
         _start(name, d, start_ckpt)
-        out[name] = (d,) + _monitored(name, d, 16)
+        with pytest.MonkeyPatch.context() as mp:
+            if name == "jax":
+                _jax_writers_flush_at_end_only(mp)
+            out[name] = (d,) + _monitored(name, d, 16)
     return out
 
 
@@ -332,11 +363,17 @@ def test_sigterm_from_a_hook_saves_stops_and_resumes(monitored, start_ckpt,
 
 
 def test_numerics_modes_other_than_off_are_refused():
+    """Since the numerics plane is ported, a mode other than off, metrics,
+    raise and dump is what ``ConfigProto`` refuses; "raise" adds the
+    health hook (``tests/test_torch_numerics.py`` tests the plane)."""
+    with pytest.raises(ValueError, match="numerics"):
+        pstf.ConfigProto(numerics="loud")
     with pstf.Graph().as_default():
         pstf.train.get_or_create_global_step()
-        with pytest.raises(NotImplementedError, match="health"):
-            pstf.train.MonitoredTrainingSession(
-                config=pstf.ConfigProto(numerics="raise"))
+        with pstf.train.MonitoredTrainingSession(config=pstf.ConfigProto(
+                device_count={"GPU": 0}, numerics="raise")) as ms:
+            assert any(isinstance(h, pstf.train.NumericsHealthHook)
+                       for h in ms._hooks)
 
 
 def test_profiler_hook_waits_for_tracing():

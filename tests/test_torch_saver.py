@@ -15,7 +15,8 @@
   the JAX saver's after the same saves;
 - a flipped payload byte raises ``DataLossError`` in either package's
   file; ``verify_checkpoint`` names it;
-- the backends that are not ported raise ``NotImplementedError``.
+- the backend that is not ported (orbax) raises ``NotImplementedError``
+  (``backend="async"``: ``tests/test_torch_checkpoint.py``).
 """
 
 import io
@@ -299,7 +300,7 @@ def test_flipped_payload_byte_raises_data_loss(typed, tmp_path, writer):
         assert "w_f32" not in s._variable_store.values
 
 
-@pytest.mark.parametrize("backend", ["async", "orbax"])
+@pytest.mark.parametrize("backend", ["orbax"])
 def test_unported_backends_raise(backend):
     with pstf.Graph().as_default():
         with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
