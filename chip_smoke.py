@@ -436,6 +436,35 @@ beside another tree's package measures that tree's serving path.
    first. Last a step poisoned by a ``Log`` of -1: ``raise`` names the
    tap's op, ``dump`` the first bad op ``poison_log``, in a captured run
    and in a window (index 2).
+15. The static cost model and the single-card graphs: what
+   ``recompute="auto"`` resolves to for the five graph entry points at
+   the smoke's cells (the graphs built, no step run). The long-context
+   LM's kernels at ``LongContextConfig()`` (d_model 1024, 8 heads of 128,
+   vocab 32000), seq 32768, bf16: the flash forward, dK/dV and dQ at (8,
+   32768, 128) causal, rate 0, against their plain versions a head at a
+   time (bf16 2e-2 scaled; the non-causal kernel, planted, must fail),
+   timed beside SDPA ``is_causal=True`` (the same function here); the
+   LayerNorm at 32768 x 1024; the xent at bf16 32768 x 32000; Adam over
+   the model's two flat groups (bit-exact). ``lm_train_model`` cut to 2
+   layers and seq 2048, f32 and bf16: 2 steps through the kernels against
+   ``plain_versions()`` (losses rtol 1e-5, variables and slots 1e-4 by
+   relative norm, exact launches; the causal flag dropped in the
+   ``RingAttention`` lowering, planted, must fail). At the full cell
+   (batch 1, seq 32768, 8 layers, bf16, Adam 3e-4): the cost model's
+   estimate, 3 runs captured (warm-up, capture, replay) against eager bit
+   for bit, ``run_steps`` windows of 4 (p50 a step, tokens/s, device and
+   host ms, busy share, peak memory, the share of the dense bf16 peak at
+   3 x the cost model's forward FLOPs), and a ``MonitoredTrainingSession``
+   whose ``StepCounterHook.last_perf`` must equal
+   ``cost_model.predicted_vs_measured`` at its measured seconds. word2vec
+   at ``skipgram_model()``'s defaults (vocab 50000, 128 wide, batch 128,
+   64 sampled, SGD 1.0): 3 runs captured against eager bit for bit (loss,
+   sampled ids, variables), new ids every run; the sampler drawing from a
+   host key taken once, planted, must fail; windows. DLRM at
+   ``dlrm_model()``'s defaults on Zipf batches: 2 SGD steps through the
+   fused lookup against a plain gather (1e-6; the scatter-add dropping
+   duplicate ids, planted, must fail), 3 runs captured against eager bit
+   for bit, windows.
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
@@ -445,12 +474,14 @@ training loop's run A and its checked windows, BERT's two checks and its
 five windows, the RNN graphs' checks, windows and seq2seq's 60 steps,
 the beam search's f32 check and its bf16 windows, the data phase's BERT
 runs and its MNIST journey, the checkpoint phase's metrics windows and
-run A) is counted from zero
+run A, the long-context checks, captured run and windows, the word2vec
+and DLRM windows) is counted from zero
 just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
 (``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``,
-``@ptb``, ``@seq2seq``, ``@beam``) count that path's launches alone
+``@ptb``, ``@seq2seq``, ``@beam``, ``@long_context``) count that path's
+launches alone
 (``@bert``: the shipped-config windows, the data phase's included;
 ``@ptb``, ``@seq2seq``: the
 windows and the 60 steps; ``@beam``: the f32 check for the f32 rows, the
@@ -7440,6 +7471,782 @@ def ck_poison(stf, num, tag):
         fail(f"{tag}: the planted NaN was not named: {found}")
 
 
+# -- phase 15: the cost model and the single-card graphs ---------------------
+
+LC_S = 32768                 # LongContextConfig().max_len, batch 1: the cell
+LC_CUT_S, LC_CUT_LAYERS = 2048, 2   # kernels vs plain: the plain attention's
+                             # (BH, S, S) f32 scores take 34 GB a layer at
+                             # 32768, so that check runs at a cut length
+LC_CHECK_STEPS = 2           # f32 and bf16 runs, kernels vs plain_versions()
+# kernels vs plain at the cut length: (losses rtol, gradients and, at f32,
+# variables and slots by relative norm). bf16 holds its gradients to the
+# bf16 kernel rows' 2e-2; its parameters are not held: Adam turns bf16
+# roundoff in near-zero gradients into whole +-lr steps (an H100 80GB HBM3
+# at 700 W read 1.101e-1 on a LayerNorm beta after 2 steps, f32 3.4e-5)
+LC_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-4, 2e-2)}
+SC_GRAPH_STEPS = 3           # a warm-up, a capture, one replay
+SC_WINDOW_N = 4              # run_steps windows of 4
+SC_WINDOWS = 3               # timed windows, after one that warms up
+SC_HOOK_STEPS = 8            # the monitored run of the StepCounterHook
+DLRM_B = 32                  # dlrm_model's defaults
+W2V_B = 128                  # skipgram_model's defaults
+SC_TOL = 1e-6                # DLRM: the fused lookup vs a plain gather
+BF16_PEAK = 989e12           # H100 SXM dense bf16 (data sheet, utils/perf)
+
+
+def lc_per_step(cfg, groups):
+    """Launches a long-context training step: the flash forward, dK/dV and
+    dQ a layer (rate 0: the launch-argument entries), two LayerNorms a
+    layer and the final one, forward and backward, the xent forward and
+    backward, one Adam launch a flat group."""
+    n = cfg.num_layers
+    return {"flash_attention_fwd": n, "flash_attention_dkdv": n,
+            "flash_attention_dq": n, "layer_norm": 2 * n + 1,
+            "layer_norm_bwd": 2 * n + 1, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1, "adam_update": groups}
+
+
+def lc_build(lc, cfg, s, dtype, recompute=False):
+    return lambda: lc.lm_train_model(1, s, cfg, compute_dtype=dtype,
+                                     recompute=recompute)
+
+
+def lc_feeds(lc, cfg, m, s):
+    ids, tgt = lc.synthetic_lm_batch(1, s, cfg.vocab_size, seed=0)
+    return {m["input_ids"]: ids, m["targets"]: tgt}
+
+
+def lc_groups(stf, lc, cfg, dtype):
+    """The flat Adam groups of ``lm_train_model`` at ``dtype``: element
+    counts by parameter dtype (the Dense variables take the activations'
+    dtype; the embedding and the LayerNorms stay f32)."""
+    by = {}
+    for v in seeded_graph_vars(stf, lc_build(lc, cfg, 8, dtype)):
+        by[v.dtype.base_dtype.name] = by.get(v.dtype.base_dtype.name, 0) \
+            + int(np.prod(v.shape.as_list()))
+    return by
+
+
+def lc_flash_rows(K, gen, dev, B, H, s, D):
+    """The bf16 flash kernels at B x H heads of S = ``s``, D = ``D``,
+    causal, rate 0 (the long-context LM's attention) against their plain
+    versions run a head at a time (the plain score tensor of all heads
+    does not fit), timed beside SDPA ``is_causal=True``, which computes
+    the same function here (no bias, no dropout). Returns ``{part:
+    row}``."""
+    import torch.nn.functional as F
+
+    bh, dtype, elem = B * H, torch.bfloat16, 2
+    args = dict(heads=H, sm_scale=D ** -0.5, causal=True)
+    q, k, v, do = (torch.randn((bh, s, D), generator=gen, device=dev).to(
+        dtype) for _ in range(4))
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+    torch.cuda.synchronize()
+    one = dict(args, heads=1)
+    errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+    tag = f"bf16 BH={bh} S={s} D={D} causal rate 0 (long_context)"
+    for h in range(bh):
+        sl = slice(h, h + 1)
+        ro, rlse = K.flash_attention_fwd_plain(q[sl], k[sl], v[sl], **one)
+        errs["fwd"] = max(errs["fwd"], check_scaled(
+            f"flash fwd o {tag} head {h}", o[sl], ro, 2e-2),
+            check_scaled(f"flash fwd lse {tag} head {h}", lse[sl], rlse,
+                         1e-5))
+        rdk, rdv = K.flash_attention_dkdv_plain(
+            q[sl], k[sl], v[sl], do[sl], lse[sl], delta[sl], **one)
+        errs["dkdv"] = max(errs["dkdv"], check_scaled(
+            f"flash dk {tag} head {h}", dk[sl], rdk, 2e-2),
+            check_scaled(f"flash dv {tag} head {h}", dv[sl], rdv, 2e-2))
+        rdq = K.flash_attention_dq_plain(q[sl], k[sl], v[sl], do[sl],
+                                         lse[sl], delta[sl], **one)
+        errs["dq"] = max(errs["dq"], check_scaled(
+            f"flash dq {tag} head {h}", dq[sl], rdq, 2e-2))
+        del ro, rlse, rdk, rdv, rdq
+        torch.cuda.empty_cache()
+    # planted fault: the non-causal kernel's output must fail the check
+    bad = K.flash_attention_fwd(q[:1], k[:1], v[:1],
+                                **dict(args, heads=1, causal=False))[0]
+    ro = K.flash_attention_fwd_plain(q[:1], k[:1], v[:1], **one)[0]
+    bad_err = (bad.float() - ro.float()).abs().max().item()
+    if bad_err <= 2e-2 * max(1.0, ro.float().abs().max().item()):
+        fail(f"flash {tag}: the check passes the non-causal kernel "
+             f"({bad_err:.3e})")
+    del bad, ro
+    torch.cuda.empty_cache()
+
+    def heads(fn):
+        return lambda: [fn(h) for h in range(bh)]
+
+    def pl(h, part):
+        sl = slice(h, h + 1)
+        if part == "fwd":
+            return K.flash_attention_fwd_plain(q[sl], k[sl], v[sl], **one)
+        if part == "dkdv":
+            return K.flash_attention_dkdv_plain(
+                q[sl], k[sl], v[sl], do[sl], lse[sl], delta[sl], **one)
+        return K.flash_attention_dq_plain(q[sl], k[sl], v[sl], do[sl],
+                                          lse[sl], delta[sl], **one)
+
+    kern = {"fwd": lambda: K.flash_attention_fwd(q, k, v, **args),
+            "dkdv": lambda: K.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                                   **args),
+            "dq": lambda: K.flash_attention_dq(q, k, v, do, lse, delta,
+                                               **args)}
+    q4, k4, v4, do4 = (t.view(B, H, s, D) for t in (q, k, v, do))
+    lib_f = event_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=10)
+    lib_b = event_ms(sdpa_bwd((q, k, v, do), B, H, s, D, True), reps=5)
+    pairs = bh * (s * (s + 1) // 2)
+    io = bh * s * D * elem
+    bnds = {"fwd": bound_ms(4 * io + bh * s * 4, 4 * D * pairs, dtype),
+            "dkdv": bound_ms(6 * io + 2 * bh * s * 4, 8 * D * pairs, dtype),
+            "dq": bound_ms(5 * io + 2 * bh * s * 4, 6 * D * pairs, dtype)}
+    libs = {"fwd": lib_f, "dkdv": lib_b, "dq": lib_b}
+    rows = {}
+    for part in ("fwd", "dkdv", "dq"):
+        ms = device_ms([kern[part]], min_calls=4)
+        plain_ms = event_ms(heads(lambda h, p=part: pl(h, p)), reps=1)
+        torch.cuda.empty_cache()
+        name = f"flash_attention_{part} {tag}"
+        report(name, errs[part], ms, plain_ms, bnds[part], libs[part])
+        rows[part] = kernel_row(
+            errs[part], ms, plain_ms, bnds[part], libs[part],
+            f"{name}; library SDPA is_causal=True, the same function "
+            f"({'forward' if part == 'fwd' else 'its flash backward alone'})"
+            "; plain a head at a time")
+    print(f"  (flash at the long-context shape: kernel / SDPA is_causal "
+          f"forward {rows['fwd']['ms'] / lib_f:.3f}x, dK/dV + dQ "
+          f"{(rows['dkdv']['ms'] + rows['dq']['ms']) / lib_b:.3f}x SDPA's "
+          "flash backward, same call)", flush=True)
+    del q, k, v, do, o, lse, delta, dk, dv, dq
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lc_ln_rows(K, gen, dev, rows, n, eps):
+    """LayerNorm forward and backward at bf16 ``rows x n`` (f32 gamma,
+    beta, statistics) against their plain versions and F.layer_norm /
+    aten's backward."""
+    import torch.nn.functional as F
+
+    dtype, elem = torch.bfloat16, 2
+    x = torch.randn((rows, n), generator=gen, device=dev).mul(2).add(
+        0.5).to(dtype)
+    dy = torch.randn((rows, n), generator=gen, device=dev).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(n, generator=gen, device=dev)
+    ry, mean, rstd = K.layer_norm_plain(x, gamma, beta, eps=eps,
+                                        return_stats=True)
+    y, mu, rs = K.layer_norm_fwd(x, gamma, beta, eps=eps, return_stats=True)
+    dx, dg, db = K.layer_norm_bwd(x, gamma, mean, rstd, dy)
+    rdx, rdg, rdb = K.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)
+    torch.cuda.synchronize()
+    name = f"bfloat16 rows={rows} n={n} eps={eps} (long_context)"
+    err_f = max(check_close(f"layer_norm {name}", y, ry, dtype),
+                check_close(f"layer_norm {name} mean", mu, mean,
+                            torch.float32),
+                check_close(f"layer_norm {name} rstd", rs, rstd,
+                            torch.float32))
+    err_b = max(check_scaled(f"layer_norm_bwd {name} dx", dx, rdx, 2e-2),
+                check_scaled(f"layer_norm_bwd {name} dgamma", dg, rdg, 1e-4),
+                check_scaled(f"layer_norm_bwd {name} dbeta", db, rdb, 1e-4))
+    del y, mu, rs, dx, dg, db, rdx, rdg, rdb, ry
+    ms_f = device_ms([lambda: K.layer_norm_fwd(x, gamma, beta, eps=eps,
+                                               return_stats=True)])
+    ms_b = device_ms([lambda: K.layer_norm_bwd(x, gamma, mean, rstd, dy)])
+    plain_f = device_ms([lambda: K.layer_norm_plain(
+        x, gamma, beta, eps=eps, return_stats=True)])
+    plain_b = device_ms([lambda: K.layer_norm_bwd_plain(x, gamma, mean,
+                                                        rstd, dy)])
+    g_t, b_t = gamma.to(dtype), beta.to(dtype)
+    lib_f = device_ms([lambda: F.layer_norm(x, (n,), g_t, b_t, eps=eps)])
+    lib_b = device_ms([lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [n], mean[:, None], rstd[:, None], g_t, b_t,
+        [True, True, True])])
+    bnd_f = bound_ms(2 * rows * n * elem + 2 * n * 4 + 8 * rows,
+                     8 * rows * n, torch.float32)
+    bnd_b = bound_ms(3 * rows * n * elem + 12 * n + 8 * rows,
+                     12 * rows * n, torch.float32)
+    report(f"layer_norm {name}", err_f, ms_f, plain_f, bnd_f, lib_f)
+    report(f"layer_norm_bwd {name}", err_b, ms_b, plain_b, bnd_b, lib_b)
+    return {"layer_norm@long_context": kernel_row(
+                err_f, ms_f, plain_f, bnd_f, lib_f, f"layer_norm {name}"),
+            "layer_norm_bwd@long_context": kernel_row(
+                err_b, ms_b, plain_b, bnd_b, lib_b,
+                f"layer_norm_bwd {name}")}
+
+
+def lc_adam_rows(K, gen, dev, groups, lr):
+    """Adam over the long-context LM's flat groups (bf16 Dense parameters,
+    f32 others; f32 m and v), bit-exact with the plain version, timed
+    beside ``Adam(fused=True)``; the row is the larger group's."""
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    alpha = torch.tensor(lr, device=dev)
+    main = {}
+    big = max(groups, key=groups.get)
+    for gname, n in sorted(groups.items()):
+        pdt = getattr(torch, gname)
+        p = (0.02 * torch.randn(n, generator=gen, device=dev)).to(pdt)
+        m = 0.01 * torch.randn(n, generator=gen, device=dev)
+        v = 1e-4 * torch.rand(n, generator=gen, device=dev)
+        g = (0.01 * torch.randn(n, generator=gen, device=dev)).to(pdt)
+        got = K.adam_update(p.clone(), m.clone(), v.clone(), g, alpha, **kw)
+        ref = K.adam_update_plain(p.clone(), m.clone(), v.clone(), g, alpha,
+                                  **kw)
+        torch.cuda.synchronize()
+        name = (f"adam_update {gname} params n={n} f32 m/v (long_context "
+                f"{gname} group)")
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{name}: kernel is not bit-exact with its plain version")
+        del got, ref
+        ms = device_ms([lambda: K.adam_update(p, m, v, g, alpha, **kw)])
+        plain_ms = device_ms([lambda: K.adam_update_plain(p, m, v, g, alpha,
+                                                          **kw)])
+        pt = torch.nn.Parameter(p.clone())
+        pt.grad = g.clone()
+        opt = torch.optim.Adam([pt], lr=lr, fused=True)
+        lib_ms = event_ms(opt.step)
+        bnd = bound_ms((3 * p.element_size() + 16) * n, 12 * n,
+                       torch.float32)
+        report(name, 0.0, ms, plain_ms, bnd, lib_ms)
+        if gname == big:
+            main["adam_update@long_context"] = kernel_row(
+                0.0, ms, plain_ms, bnd, lib_ms, name)
+        del p, m, v, g, pt, opt
+        torch.cuda.empty_cache()
+    return main
+
+
+def lc_kernel_rows(K, gen, dev, cfg, groups, lr):
+    """The long-context LM's kernel shapes against their plain versions
+    (module docstring, phase 15)."""
+    main = {}
+    hd = cfg.d_model // cfg.num_heads
+    for part, row in lc_flash_rows(K, gen, dev, 1, cfg.num_heads, LC_S,
+                                   hd).items():
+        main[f"flash_attention_{part}@long_context"] = row
+    main.update(lc_ln_rows(K, gen, dev, LC_S, cfg.d_model,
+                           cfg.layer_norm_eps))
+    torch.cuda.empty_cache()
+    main.update(xent_case(K, gen, dev, LC_S, cfg.vocab_size,
+                          (torch.bfloat16,), (0.0,), "@long_context"))
+    torch.cuda.empty_cache()
+    main.update(lc_adam_rows(K, gen, dev, groups, lr))
+    return main
+
+
+@contextlib.contextmanager
+def ring_not_causal():
+    """Planted fault: the ``RingAttention`` lowering drops the causal
+    flag."""
+    from simple_tensorflow_tpu_torch.framework import op_registry
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    def wrap(lower):
+        def no_causal(ctx, op, inputs):
+            return [fused_ops.fused_attention(
+                *inputs, causal=False, sm_scale=op.attrs["sm_scale"])]
+        return no_causal
+
+    with planted(op_registry.get("RingAttention"), "lower", wrap):
+        yield
+
+
+def check_lc_plain(K, stf, lc, dtype):
+    """``lm_train_model`` at the full width cut to ``LC_CUT_LAYERS`` layers
+    and seq ``LC_CUT_S``, through the kernels against the same runs under
+    ``plain_versions()``, eager, from one initializer: the gradients of
+    every variable (one run before any update), then ``LC_CHECK_STEPS``
+    Adam steps, each loss, each gradient and (f32) every variable and Adam
+    slot within ``LC_TOL``; exactly ``lc_per_step`` launches a step. The
+    causal flag dropped in the ``RingAttention`` lowering, planted, must
+    fail. Returns the kernel steps' launches."""
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    cfg = dataclasses.replace(lc.LongContextConfig(),
+                              num_layers=LC_CUT_LAYERS)
+    groups = len(lc_groups(stf, lc, cfg, dtype))
+    loss_tol, rel_tol = LC_TOL[dtype.name]
+
+    def build():
+        m = lc_build(lc, cfg, LC_CUT_S, dtype)()
+        tvars = stf.trainable_variables()
+        m["grad_names"] = [v.var_name for v in tvars]
+        m["grads"] = stf.gradients(m["loss"], tvars)
+        return m
+
+    def run(plain=False, fault=False, counts=None):
+        m, sess = seeded_session(stf, build)
+        sess._capture = False
+        feeds = lc_feeds(lc, cfg, m, LC_CUT_S)
+        with (fused_ops.plain_versions() if plain
+              else contextlib.nullcontext()), \
+                (ring_not_causal() if fault else contextlib.nullcontext()):
+            grads = dict(zip(m["grad_names"], sess.run(m["grads"], feeds)))
+            if counts is not None:
+                K.reset_launch_counts()
+            losses = [float(sess.run([m["loss"], m["train_op"]], feeds)[0])
+                      for _ in range(LC_CHECK_STEPS)]
+            if counts is not None:
+                counts.update(K.launch_counts())
+        state = session_state(sess)
+        sess.close()
+        return losses, grads, state
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        d = np.linalg.norm(a - b)
+        return 0.0 if d == 0 else d / max(np.linalg.norm(b), 1e-30)
+
+    def compare(got, ref):
+        bad = [(a, b) for a, b in zip(got[0], ref[0])
+               if not abs(a - b) <= loss_tol * abs(b)]
+        g = {k: rel(got[1][k], ref[1][k]) for k in ref[1]}
+        worst = max(g, key=g.get)
+        return bad, (g[worst], worst), session_errs(got[2], ref[2])
+
+    ref = run(plain=True)
+    counts = {}
+    got = compare(run(counts=counts), ref)
+    fault = compare(run(fault=True), ref)
+    want = {k: 0 for k in counts}
+    want.update({k: v * LC_CHECK_STEPS
+                 for k, v in lc_per_step(cfg, groups).items()})
+    if counts != want:
+        fail(f"long_context check: launches {counts}, expected {want}")
+    tag = f"long_context[{dtype.name} 1x{LC_CUT_S}, {LC_CUT_LAYERS} layers]"
+
+    def txt(r):
+        return (f"bad losses {r[0]}, the worst gradient {r[1][0]:.3e} "
+                f"({r[1][1]}), the worst variable or slot {r[2][0]:.3e} "
+                f"({r[2][1]})")
+
+    print(f"{tag}: gradients, then {LC_CHECK_STEPS} Adam steps, kernels vs "
+          f"plain (losses rtol {loss_tol}, gradients{' and variables' if dtype.name == 'float32' else ''} "
+          f"rel norm {rel_tol}): losses {ref[0]} (plain); off the plain "
+          f"runs: {txt(got)}; launches of the steps {counts}", flush=True)
+    print(f"{tag}: planted fault (RingAttention not causal): {txt(fault)}",
+          flush=True)
+
+    def ok(r):
+        return not r[0] and r[1][0] <= rel_tol and (
+            dtype.name != "float32" or r[2][0] <= rel_tol)
+
+    if not ok(got):
+        fail(f"{tag}: the kernels' runs are off the plain runs: {got}")
+    if ok(fault):
+        fail(f"{tag}: the check passes the planted causal fault: {fault}")
+    return counts
+
+
+def graph_vs_eager(K, stf, tag, build, fetch, feeds_at, steps, fault=None):
+    """``steps`` runs of a new seeded Session, the step captured (run 1
+    eager, run 2 captured, then replays) against the same runs with
+    ``_capture`` off: every fetch (but the train op) and every variable
+    and slot bit-identical, one capture. ``feeds_at(m, i)``: run i's
+    feeds. ``fault``: a context manager planted in a third, captured run,
+    whose fetches must then differ. Returns ``(fetches, launches)`` of
+    the captured run."""
+    def run(capture, planted_fault=False):
+        m, sess = seeded_session(stf, build)
+        sess._capture = capture
+        K.reset_launch_counts()
+        with (fault[1]() if planted_fault else contextlib.nullcontext()):
+            outs = [sess.run(fetch(m), feeds_at(m, i)) for i in range(steps)]
+        counts = K.launch_counts()
+        state = session_state(sess)
+        captures = sess.captures
+        sess.close()
+        torch.cuda.empty_cache()
+        return outs, state, captures, counts
+
+    def diffs(outs, ref):
+        return [sum(int(not np.array_equal(x, y)) for i, (x, y) in
+                    enumerate(zip(a, b)) if i != 1)
+                for a, b in zip(outs, ref)]
+
+    ref, ref_state, _, ref_counts = run(False)
+    got, state, captures, counts = run(True)
+    d_got = diffs(got, ref)
+    bad_vars = [k for k in ref_state
+                if not torch.equal(state[k], ref_state[k])]
+    print(f"{tag}: {steps} runs (eager warm-up, capture, {steps - 2} "
+          f"replays) vs eager: losses {[float(a[0]) for a in got]}; fetches "
+          f"differing by run {d_got}; variables and slots differing "
+          f"{bad_vars[:5]} ({len(bad_vars)} of {len(ref_state)}); captures "
+          f"{captures}; launches {counts} (eager {ref_counts})", flush=True)
+    if any(d_got) or bad_vars or captures != 1 or counts != ref_counts:
+        fail(f"{tag}: the captured runs are off the eager runs")
+    if fault is not None:
+        stale, _, _, _ = run(True, planted_fault=True)
+        d_stale = diffs(stale, ref)
+        print(f"{tag}: planted fault ({fault[0]}): fetches differing by "
+              f"run {d_stale}", flush=True)
+        if not all(d_stale[1:]):
+            fail(f"{tag}: the check passes the planted fault: {d_stale}")
+    return got, counts
+
+
+def sc_windows(K, stf, tag, build, fetch, feeds, items, unit, fwd_fetch=None):
+    """A new seeded Session trained by ``run_steps`` windows of
+    ``SC_WINDOW_N`` (one that warms up and captures, then ``SC_WINDOWS``
+    timed ones) and one window traced: p50 a step, ``items`` ``unit`` a
+    second, device and host ms a step, the busy share, peak allocated
+    memory over the first window and over the rest (above what the
+    process held before), the launches of the timed windows; with
+    ``fwd_fetch`` the share of the dense bf16 peak at 3 x the cost
+    model's forward FLOPs. Returns ``(p50 s, launches, fetches, sess,
+    m)`` with the Session still open."""
+    from simple_tensorflow_tpu_torch.framework import cost_model
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / GIB
+    torch.cuda.reset_peak_memory_stats()
+    m, sess = seeded_session(stf, build)
+    fd = feeds(m)
+    f = fetch(m)
+    sess.run_steps(f, SC_WINDOW_N, feed_dict=fd)
+    torch.cuda.synchronize()
+    peak_first = torch.cuda.max_memory_allocated() / GIB - base
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(SC_WINDOWS):
+        t0 = time.perf_counter()
+        out = sess.run_steps(f, SC_WINDOW_N, feed_dict=fd,
+                             output_mode="stacked")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / SC_WINDOW_N)
+        losses += [float(x) for x in out[0]]
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / GIB - base
+    tr = loop_trace(lambda: sess.run_steps(f, SC_WINDOW_N, feed_dict=fd),
+                    SC_WINDOW_N)
+    p50 = statistics.median(times)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: non-finite loss in the windows: {losses}")
+    dev_txt = "device ms a step not measured (no device time traced)" \
+        if tr is None else (
+            f"device {tr['dev_ms']:.4f} ms a step, host {p50 * 1e3 - tr['dev_ms']:.4f} "
+            f"ms (p50 minus device), busy {100 * tr['busy']:.1f}% of the "
+            f"traced window")
+    print(f"{tag}: run_steps windows of {SC_WINDOW_N}: losses "
+          f"{[round(x, 5) for x in losses]}; p50 {p50 * 1e3:.4f} ms a step "
+          f"(min {min(times) * 1e3:.4f}, max {max(times) * 1e3:.4f}), "
+          f"{items / p50:.2f} {unit}/s; {dev_txt}; peak allocated "
+          f"{peak_first:.3f} GiB over the first window (warm-up, capture), "
+          f"{peak:.3f} GiB over the timed ones (above {base:.3f} GiB held "
+          f"before); launches {counts}", flush=True)
+    if fwd_fetch is not None:
+        est = cost_model.estimate(fwd_fetch(m), feeds=list(fd))
+        share = 3 * est.flops / p50 / BF16_PEAK
+        print(f"{tag}: the cost model's forward {est.flops / 1e12:.4f} TFLOP "
+              f"a step; 3 x that at the p50: {3 * est.flops / p50 / 1e12:.2f} "
+              f"TFLOP/s, {100 * share:.2f}% of the dense bf16 peak "
+              f"({BF16_PEAK / 1e12:.0f} TFLOP/s, data sheet)", flush=True)
+    return p50, counts, out, sess, m
+
+
+def lc_hook_check(stf, lc, cfg, card):
+    """A ``MonitoredTrainingSession`` of ``SC_HOOK_STEPS`` long-context
+    steps with a ``StepCounterHook(every_n_steps=4)``: its ``last_perf``
+    (the MFU report) must equal ``cost_model.predicted_vs_measured`` of the
+    same fetches at the hook's measured seconds a step, and carry ``mfu``
+    on the card."""
+    from simple_tensorflow_tpu_torch.framework import cost_model
+
+    g = stf.Graph()
+    with g.as_default():
+        stf.set_random_seed(1)
+        m = lc_build(lc, cfg, LC_S, stf.bfloat16)()
+        hook = stf.train.StepCounterHook(every_n_steps=4)
+        fetch = [m["train_op"], m["loss"]]
+        with stf.train.MonitoredTrainingSession(
+                hooks=[hook], save_summaries_steps=None) as ms:
+            fd = lc_feeds(lc, cfg, m, LC_S)
+            for _ in range(SC_HOOK_STEPS):
+                ms.run(fetch, fd)
+        perf = hook.last_perf
+        if not perf or "mfu" not in perf:
+            fail(f"long_context StepCounterHook: last_perf {perf}")
+        ref = cost_model.predicted_vs_measured(
+            fetch, measured_seconds=perf["measured_sec_per_step"])
+    # the hook's measured figures come from its unrounded seconds, ref's
+    # from the 4 significant digits the hook reports
+    measured = ("mfu", "measured_over_predicted")
+    off = {k: (perf.get(k), v) for k, v in ref.items()
+           if k not in measured and perf.get(k) != v}
+    rel = max(abs(perf[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+              for k in measured)
+    print(f"{card}: long_context StepCounterHook.last_perf {perf}; "
+          f"predicted_vs_measured at its measured s a step {ref}; steps/s "
+          f"{hook.last_steps_per_sec:.4f}", flush=True)
+    if off or rel > 1e-3:
+        fail(f"long_context StepCounterHook: last_perf off "
+             f"predicted_vs_measured: {off}, measured figures rel {rel:.3e}")
+    return perf
+
+
+def recompute_auto_report(stf, card):
+    """What ``recompute="auto"`` resolves to on this card for the five
+    graph entry points at the smoke's cells, read off the graphs built
+    (a ``RecomputeGradCall`` op a layer when it resolves to True)."""
+    from simple_tensorflow_tpu_torch.models import bert, long_context, resnet
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+    from simple_tensorflow_tpu_torch.utils import perf
+
+    cells = {
+        "transformer_train_model big 64x64/64 bf16": lambda:
+            tr.transformer_train_model(64, 64, 64, recompute="auto"),
+        "bert_pretrain_model base 32x512 bf16": lambda:
+            bert.bert_pretrain_model(BERT_B, BERT_S, BERT_P,
+                                     recompute="auto"),
+        "bert_encoder base 32x512 bf16": lambda: bert.bert_encoder(
+            stf.placeholder(stf.int32, [BERT_B, BERT_S]),
+            stf.placeholder(stf.int32, [BERT_B, BERT_S]), None,
+            bert.BertConfig.base(), recompute="auto"),
+        "resnet50_train_model 256x224 bf16": lambda:
+            resnet.resnet50_train_model(256, 224, recompute="auto"),
+        "lm_train_model LongContextConfig() 1x32768 bf16": lambda:
+            long_context.lm_train_model(1, LC_S, recompute="auto"),
+    }
+    out = {}
+    for name, build in cells.items():
+        g = stf.Graph()
+        with g.as_default():
+            build()
+        out[name] = any(op.type == "RecomputeGradCall"
+                        for op in g.get_operations())
+    flops, bw = perf.chip_spec()
+    print(f"{card}: recompute=\"auto\" resolves (cost model against "
+          f"{torch.cuda.get_device_name(0)}: {flops / 1e12:.0f} TFLOP/s, "
+          f"{bw / 1e12:.2f} TB/s, HBM {perf.chip_hbm_bytes() / GIB:.2f} GiB) "
+          f"to {out}", flush=True)
+    if out["lm_train_model LongContextConfig() 1x32768 bf16"]:
+        fail("long_context: recompute=\"auto\" resolves to True on this "
+             "card; the cost model expects False")
+    return out
+
+
+@contextlib.contextmanager
+def sampler_host_key_once():
+    """Planted fault: the sampler draws from a host key taken once, at its
+    first run, so every captured replay draws the same ids."""
+    from simple_tensorflow_tpu_torch.framework import op_registry
+
+    first = {}
+
+    class Fixed:
+        def __init__(self, ctx, key):
+            self._ctx, self._key = ctx, key
+
+        def rng_key(self, op):
+            return self._key
+
+        def __getattr__(self, name):
+            return getattr(self._ctx, name)
+
+    def wrap(lower):
+        def once(ctx, op, inputs):
+            if op not in first:
+                first[op] = ctx.rng_for(op)
+            return lower(Fixed(ctx, first[op]), op, inputs)
+        return once
+
+    with planted(op_registry.get("LogUniformCandidateSampler"), "lower",
+                 wrap):
+        yield
+
+
+@contextlib.contextmanager
+def dlrm_plain_lookup():
+    """The reference of the DLRM check: ``EmbeddingLookupFused`` as a plain
+    clipped gather, differentiated by PyTorch's indexing backward."""
+    from simple_tensorflow_tpu_torch.framework import dtypes as dtypes_mod
+    from simple_tensorflow_tpu_torch.framework import op_registry
+
+    def wrap(lower):
+        def plain(ctx, op, inputs):
+            table, ids = inputs
+            dt = dtypes_mod.as_dtype(op.attrs["compute_dtype"]).torch_dtype
+            return [table[ids.long().clamp(0, table.shape[0] - 1)].to(dt)]
+        return plain
+
+    with planted(op_registry.get("EmbeddingLookupFused"), "lower", wrap):
+        yield
+
+
+@contextlib.contextmanager
+def dlrm_drop_duplicates():
+    """Planted fault: the scatter-add without the inverse segment sum: a
+    duplicate id's cotangents are written, not added, so all but one
+    drop."""
+    from simple_tensorflow_tpu_torch.ops import embedding_ops
+
+    def wrap(_):
+        def first_only(gm, inv, n):
+            out = torch.zeros((n,) + tuple(gm.shape[1:]), dtype=gm.dtype,
+                              device=gm.device)
+            return out.index_put_((inv,), gm)
+        return first_only
+
+    with planted(embedding_ops, "_segment_sum", wrap):
+        yield
+
+
+def dlrm_feeds(dlrm, m, i):
+    return dlrm.feed_dict_for(m, dlrm.synthetic_dlrm_batch(DLRM_B, seed=i))
+
+
+def check_dlrm_reference(stf, dlrm):
+    """2 eager DLRM steps on Zipf batches (duplicate ids: the dedup merges
+    them) through the fused lookup against the same steps with the lookup
+    a plain gather (:func:`dlrm_plain_lookup`): losses within ``SC_TOL``,
+    the tables and MLPs within ``SC_TOL`` by relative norm. The scatter-add
+    that drops duplicates (:func:`dlrm_drop_duplicates`), planted, must
+    fail."""
+    def run(ctx):
+        m, sess = seeded_session(stf, dlrm.dlrm_model)
+        sess._capture = False
+        with ctx():
+            losses = [float(sess.run([m["loss"], m["train_op"]],
+                                     dlrm_feeds(dlrm, m, i))[0])
+                      for i in range(2)]
+        state = session_state(sess)
+        sess.close()
+        return losses, state
+
+    def compare(got, ref):
+        bad = [(a, b) for a, b in zip(got[0], ref[0])
+               if not abs(a - b) <= SC_TOL * abs(b)]
+        return bad, session_errs(got[1], ref[1])
+
+    ref = run(dlrm_plain_lookup)
+    got = compare(run(contextlib.nullcontext), ref)
+    fault = compare(run(dlrm_drop_duplicates), ref)
+    batch = dlrm.synthetic_dlrm_batch(DLRM_B, seed=0)
+    dup = [(int((ids >= 0).sum()), len(np.unique(np.maximum(ids, 0))))
+           for ids in batch["cat_ids"]]
+    tag = f"dlrm[f32 {DLRM_B}]"
+    print(f"{tag}: 2 SGD steps, the fused lookup vs a plain gather: losses "
+          f"{ref[0]} (plain); off them: losses {got[0]}, the worst variable "
+          f"{got[1][0]:.3e} ({got[1][1]}); batch 0's (ids, distinct after "
+          f"the -1 clip) a table {dup}", flush=True)
+    print(f"{tag}: planted fault (duplicates dropped in the scatter-add): "
+          f"bad losses {fault[0]}, worst {fault[1][0]:.3e} "
+          f"({fault[1][1]})", flush=True)
+    if got[0] or got[1][0] > SC_TOL:
+        fail(f"{tag}: the fused lookup's steps are off the plain ones: {got}")
+    if fault[1][0] <= SC_TOL:
+        fail(f"{tag}: the check passes the planted duplicate drop: {fault}")
+
+
+def single_card_phase(K, dev, kernel_rows):
+    """The static cost model and the three single-card graphs (module
+    docstring, phase 15). Returns ``[(path, dropout, launches)]``."""
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.framework import cost_model
+    from simple_tensorflow_tpu_torch.models import dlrm, long_context as lc
+    from simple_tensorflow_tpu_torch.models import word2vec
+
+    t0 = time.perf_counter()
+    card = card_line()
+    recompute_auto_report(stf, card)
+    cfg = lc.LongContextConfig()
+    groups = lc_groups(stf, lc, cfg, stf.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    print(f"long-context kernels at LongContextConfig() (d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.d_model // cfg.num_heads}, "
+          f"vocab {cfg.vocab_size}), seq {LC_S}, bf16; Adam groups "
+          f"{groups}:", flush=True)
+    kernel_rows.update(lc_kernel_rows(K, gen, dev, cfg, groups, 3e-4))
+    torch.cuda.empty_cache()
+    paths = []
+    for dtype in (stf.float32, stf.bfloat16):
+        paths.append((f"long_context check {dtype.name}", 0.0,
+                      check_lc_plain(K, stf, lc, dtype)))
+        torch.cuda.empty_cache()
+    # the full cell: LongContextConfig(), batch 1, seq 32768, bf16
+    g = stf.Graph()
+    with g.as_default():
+        m = lc_build(lc, cfg, LC_S, stf.bfloat16)()
+        est = cost_model.estimate([m["loss"], m["train_op"]],
+                                  feeds=[m["input_ids"], m["targets"]])
+    print(f"{card}: long_context[bf16 1x{LC_S}] the cost model: "
+          f"{est.summary()}, resident {est.resident_bytes / GIB:.3f} GiB, "
+          f"peak {est.peak_bytes / GIB:.3f} GiB (its liveness sweep of the "
+          f"op list; autograd keeps what the backward needs, not counted "
+          "there)", flush=True)
+    del g, m
+    tag = f"long_context[bf16 1x{LC_S}]"
+    per = lc_per_step(cfg, len(groups))
+    _, counts = graph_vs_eager(
+        K, stf, f"{tag} graph", lc_build(lc, cfg, LC_S, stf.bfloat16),
+        lambda m: [m["loss"], m["train_op"]],
+        lambda m, i: lc_feeds(lc, cfg, m, LC_S), SC_GRAPH_STEPS)
+    want = {k: 0 for k in counts}
+    want.update({k: v * SC_GRAPH_STEPS for k, v in per.items()})
+    if counts != want:
+        fail(f"{tag} graph: launches {counts}, expected {want}")
+    paths.append(("long_context graph", 0.0, counts))
+    p50, counts, _, sess, _ = sc_windows(
+        K, stf, tag, lc_build(lc, cfg, LC_S, stf.bfloat16),
+        lambda m: [m["loss"], m["train_op"]],
+        lambda m: lc_feeds(lc, cfg, m, LC_S), LC_S, "tokens",
+        fwd_fetch=lambda m: m["loss"])
+    sess.close()
+    torch.cuda.empty_cache()
+    if any(counts.get(k, 0) < v * SC_WINDOWS * SC_WINDOW_N
+           for k, v in per.items()):
+        fail(f"{tag} windows: launches {counts} below {per} a step")
+    paths.append(("long_context windows", 0.0, counts))
+    lc_hook_check(stf, lc, cfg, card)
+    torch.cuda.empty_cache()
+
+    # word2vec at skipgram_model()'s defaults: no kernel on this path
+    wtag = f"word2vec[f32 {W2V_B}, vocab 50000, 64 sampled]"
+    wx, wy = word2vec.synthetic_skipgram_batch(W2V_B, seed=0)
+
+    def w2v_feeds(m, i=0):
+        return {m["train_inputs"]: wx, m["train_labels"]: wy}
+
+    got, _ = graph_vs_eager(
+        K, stf, f"{wtag} graph", word2vec.skipgram_model,
+        lambda m: [m["loss"], m["train_op"], "LogUniformCandidateSampler:0"],
+        w2v_feeds, SC_GRAPH_STEPS,
+        fault=("the sampler's host key taken once", sampler_host_key_once))
+    ids = [np.asarray(o[2]) for o in got]
+    if any(np.array_equal(ids[i], ids[i + 1]) for i in range(len(ids) - 1)) \
+            or any(len(np.unique(x)) != 64 for x in ids):
+        fail(f"{wtag}: the sampled ids repeat across runs or within one")
+    _, counts, _, sess, _ = sc_windows(
+        K, stf, wtag, word2vec.skipgram_model,
+        lambda m: [m["loss"], m["train_op"]], w2v_feeds, W2V_B, "examples")
+    sess.close()
+    paths.append(("word2vec windows", 0.0, counts))
+
+    # DLRM at dlrm_model()'s defaults on Zipf batches
+    check_dlrm_reference(stf, dlrm)
+    dtag = f"dlrm[f32 {DLRM_B}, tables (1000, 1000, 500, 200) x 16]"
+    graph_vs_eager(K, stf, f"{dtag} graph", dlrm.dlrm_model,
+                   lambda m: [m["loss"], m["train_op"], m["prediction"]],
+                   lambda m, i: dlrm_feeds(dlrm, m, i), SC_GRAPH_STEPS)
+    _, counts, _, sess, _ = sc_windows(
+        K, stf, dtag, dlrm.dlrm_model, lambda m: [m["loss"], m["train_op"]],
+        lambda m: dlrm_feeds(dlrm, m, 0), DLRM_B, "examples")
+    sess.close()
+    paths.append(("dlrm windows", 0.0, counts))
+    torch.cuda.empty_cache()
+    print(f"single-card phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def seeded_graph_vars(stf, build):
     """The trainable variables of ``build()`` in a new graph."""
     g = stf.Graph()
@@ -7535,8 +8342,8 @@ def main():
             spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
-    for prefix in ("flash_bwd_", "qmm_", "layer_norm_", "decode_one",
-                   "dropout"):
+    for prefix in ("flash_fwd_mma", "flash_bwd_", "qmm_", "layer_norm_",
+                   "decode_one", "dropout"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
 
@@ -7611,6 +8418,8 @@ def main():
     paths += data_phase(K, dev)
     torch.cuda.empty_cache()
     paths += ckpt_numerics_phase(K, dev, main_rows)
+    torch.cuda.empty_cache()
+    paths += single_card_phase(K, dev, main_rows)
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -7683,6 +8492,21 @@ def main():
             "beam f32" if t == "float32" else "beam bf16")
         for t in ("float32", "bfloat16")
         for s in ("len1", "len32", "len64", "cross")})
+    # the long-context LM's rows: its checks, captured runs and windows
+    session_where.update({
+        f"{name}@long_context": (src, tpu, name, name, "long_context")
+        for name, src, tpu in (
+            ("flash_attention_fwd", "flash_fwd_mma.cu",
+             "flash_attention.py:102"),
+            ("flash_attention_dkdv", "flash_bwd_mma.cu",
+             "flash_attention.py:210"),
+            ("flash_attention_dq", "flash_bwd_mma.cu",
+             "flash_attention.py:264"),
+            ("layer_norm", "layer_norm.cu", "layer_norm.py:29"),
+            ("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:42"),
+            ("softmax_xent_fwd", "softmax_xent.cu", "softmax_xent.py:32"),
+            ("softmax_xent_bwd", "softmax_xent.cu", "softmax_xent.py:78"),
+            ("adam_update", "fused_update.cu", "fused_update.py:59"))})
     # (the general row's counter, the path) pairs a Session row takes over
     claimed = {(c, p) for _, _, _, c, p in session_where.values()}
     # a kernel's launches over every path; the flash rows split by the

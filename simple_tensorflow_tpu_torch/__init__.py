@@ -19,7 +19,10 @@ with per-layer recompute (``models.bert``), and the RNN graphs
 transformer's beam search (``models.transformer.beam_search_decode``);
 the input pipeline (``stf.data``: TFRecord shards, ``parse_example``,
 ``prefetch_to_device`` onto the card, ``iterator.get_next()`` run by the
-Session in its host stage before the device step). Importing the package
+Session in its host stage before the device step); the static cost model
+(``framework/cost_model.py``: ``recompute="auto"``, the MFU report) and
+the long-context LM, word2vec and DLRM graphs (``models.long_context``,
+``models.word2vec``, ``models.dlrm``). Importing the package
 loads no kernel library; the kernels are built and loaded at their first
 launch, the native host runtime (``runtime_cc/``) at its first use.
 """
@@ -64,9 +67,9 @@ from .ops.init_ops import (constant_initializer,
                            random_uniform_initializer,
                            truncated_normal_initializer,
                            variance_scaling_initializer, zeros_initializer)
-from .ops.math_ops import (add, add_n, argmax, cast, divide, equal, exp,
+from .ops.math_ops import (abs, add, add_n, argmax, cast, divide, equal, exp,
                            floordiv, floormod, greater, greater_equal, less,
-                           less_equal, log, logical_and, logical_not,
+                           less_equal, log, log1p, logical_and, logical_not,
                            logical_or,
                            matmul, maximum, minimum, multiply, negative,
                            not_equal, pow, range, realdiv, reduce_all,
@@ -88,4 +91,4 @@ from .client.session import Session, get_default_session
 from .ops.numerics import (add_check_numerics_ops, check_numerics,
                            verify_tensor_all_finite)
 from . import (analysis, checkpoint, data, debug, kernels, layers, nn,
-               summary, train)
+               parallel, summary, train, utils)

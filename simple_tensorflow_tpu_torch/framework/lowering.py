@@ -55,15 +55,18 @@ def shape_only(op: Operation) -> bool:
 
 
 def prune(target_ops: Sequence[Operation],
-          fed_tensors: Set[Tensor]) -> List[Operation]:
+          fed_tensors: Set[Tensor],
+          follow_shape_only: bool = False) -> List[Operation]:
     """The ops needed to compute ``target_ops`` when ``fed_tensors`` are
     given, in the JAX package's deterministic topological order (an
-    iterative DFS postorder over data and control edges)."""
+    iterative DFS postorder over data and control edges).
+    ``follow_shape_only``: follow the inputs of :func:`shape_only` ops
+    too, as the JAX pruner does (the cost model prices that op list)."""
     order: List[Operation] = []
     state: Dict[Operation, int] = {}  # 0 = visiting, 1 = done
 
     def deps(op: Operation):
-        if not shape_only(op):
+        if follow_shape_only or not shape_only(op):
             for t in op.inputs:
                 if t not in fed_tensors:
                     yield t.op
@@ -99,10 +102,12 @@ def prune(target_ops: Sequence[Operation],
     return order
 
 
-def ancestors_between(xs: Sequence[Tensor], ys: Sequence[Tensor]
+def ancestors_between(xs: Sequence[Tensor], ys: Sequence[Tensor],
+                      follow_shape_only: bool = False
                       ) -> Tuple[List[Operation], Set[Tensor]]:
     """Ops on a data path from any x to any y, in topological order, and
-    the subset of ``xs`` connected to ``ys``."""
+    the subset of ``xs`` connected to ``ys`` (``follow_shape_only`` as in
+    :func:`prune`)."""
     desc: Set[Operation] = set()
     work: List[Operation] = []
     for t in xs:
@@ -114,7 +119,8 @@ def ancestors_between(xs: Sequence[Tensor], ys: Sequence[Tensor]
         desc.add(op)
         for out in op.outputs:
             work.extend(out.consumers())
-    anc_order = prune([y.op for y in ys], fed_tensors=set(xs))
+    anc_order = prune([y.op for y in ys], fed_tensors=set(xs),
+                      follow_shape_only=follow_shape_only)
     path = [op for op in anc_order if op in desc]
     path_set = set(path)
     connected = {x for x in xs

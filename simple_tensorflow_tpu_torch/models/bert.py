@@ -11,9 +11,11 @@ projection only at those rows), the NSP loss a sparse softmax
 cross-entropy through the same kernels, and Adam one fused f32 group.
 ``recompute=True`` runs each encoder layer under ``stf.recompute_grad``
 (``common.maybe_recompute``): the backward re-runs the layer's forward
-from its input. Not ported: ``recompute="auto"`` (it waits for
-``framework/cost_model.py``) and ``data_parallel=True`` (it waits for
-``parallel/``); both raise ``NotImplementedError``.
+from its input; ``recompute="auto"`` resolves it from the static cost
+model against the attached device (``framework/cost_model.py``
+``resolve_recompute``), as the JAX functions do. Not ported:
+``data_parallel=True`` (it waits for the mesh of ``parallel/``); it raises
+``NotImplementedError``.
 :func:`synthetic_pretrain_batch` takes ``input_mask=True`` to add padded
 rows (lengths from the seed), which the JAX function does not make.
 :func:`write_pretrain_records` writes such batches as ``tf.Example``
@@ -58,11 +60,7 @@ class BertConfig:
                           hidden_dropout=0.0, attention_dropout=0.0)
 
 
-def _not_ported(data_parallel, recompute):
-    if recompute == "auto":
-        raise NotImplementedError(
-            'recompute="auto" is not ported: it waits for the static cost '
-            "model, framework/cost_model.py")
+def _not_ported(data_parallel):
     if data_parallel:
         raise NotImplementedError(
             "data_parallel=True is not ported: it waits for the mesh and "
@@ -136,10 +134,24 @@ def bert_encoder(input_ids, token_type_ids, input_mask, cfg,
     the backward pass (stf.recompute_grad): what a layer keeps for the
     backward shrinks from every intermediate to its [B,S,H] input, for
     one more forward of the layer.
-    recompute="auto" is not ported (:func:`_not_ported`)."""
+    recompute="auto" resolves from the static cost model."""
     b = int(input_ids.shape[0])
     s = int(input_ids.shape[1])
-    _not_ported(False, recompute)
+    if recompute == "auto":
+        # bert_encoder cannot know whether b is a per-chip or a global
+        # batch (the caller's data_parallel decision: bert_pretrain_model
+        # resolves "auto" before calling here), so the raw estimate treats
+        # b as per-chip. No remat without a backward pass.
+        from ..framework import cost_model as _cm
+
+        recompute = training and _cm.resolve_recompute(
+            "auto",
+            _cm.transformer_activation_bytes(
+                b, s, cfg.hidden_size, cfg.num_layers,
+                dtype_bytes=compute_dtype.size),
+            forward_flops=_cm.transformer_forward_flops(
+                b, s, cfg.hidden_size, cfg.num_layers,
+                d_ff=cfg.intermediate_size))
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         with stf.variable_scope("embeddings"):
             word_emb = stf.get_variable(
@@ -238,10 +250,21 @@ def bert_pretrain_model(batch_size=32, seq_len=128, max_predictions=20,
                         data_parallel=False, recompute=False):
     """Full MLM+NSP pretraining graph (ref BERT pretraining recipe).
     recompute="auto" resolves here (where data_parallel is known) from
-    the PER-CHIP activation estimate — global divided by the dp mesh
-    size when the batch is dp-sharded (not ported: :func:`_not_ported`)."""
+    the PER-CHIP activation estimate (one card: the global one)."""
     cfg = cfg or BertConfig.base()
-    _not_ported(data_parallel, recompute)
+    _not_ported(data_parallel)
+    if recompute == "auto":
+        from ..framework import cost_model as _cm
+
+        _shards = _cm.mesh_shard_factor(["dp"] if data_parallel else [])
+        recompute = _cm.resolve_recompute(
+            "auto",
+            _cm.transformer_activation_bytes(
+                batch_size, seq_len, cfg.hidden_size, cfg.num_layers,
+                dtype_bytes=compute_dtype.size) / _shards,
+            forward_flops=_cm.transformer_forward_flops(
+                batch_size, seq_len, cfg.hidden_size, cfg.num_layers,
+                d_ff=cfg.intermediate_size) / _shards)
     input_ids = stf.placeholder(stf.int32, [batch_size, seq_len], "input_ids")
     token_type = stf.placeholder(stf.int32, [batch_size, seq_len],
                                  "token_type_ids")

@@ -73,7 +73,7 @@ from .common import resolve_device
 from .transformer import (DecoderStack, TransformerConfig, _attention,
                           _eager_attention, _eager_embed, _eager_ffn,
                           _eager_residual, _embed, _ffn, _ln,
-                          _no_auto_recompute, _residual, block_decode,
+                          _residual, block_decode,
                           build_int8_logits_weights, incremental_decode,
                           smoothed_xent)
 
@@ -87,8 +87,8 @@ def causal_lm_logits(ids, cfg: TransformerConfig, training=True,
                      recompute=False):
     """Next-token logits (B, S, vocab) for token ids (B, S) (:50):
     causal flash self-attention + FFN per layer, tied-embedding softmax.
-    Position ``j``'s logits predict token ``j+1``."""
-    _no_auto_recompute(recompute)
+    Position ``j``'s logits predict token ``j+1``. ``recompute="auto"``
+    is truthy here, as in the JAX function: every layer recomputes."""
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         h, emb = _embed(ids, cfg, compute_dtype, training)
         with stf.variable_scope("decoder"):

@@ -35,10 +35,12 @@ BatchNorm's moving statistics are not updated by a training step, as the
 JAX ``train_op`` leaves them (:mod:`..layers.normalization`).
 ``recompute=True`` puts each bottleneck block of the graph under
 ``stf.recompute_grad`` (``common.maybe_recompute``); the bodies'
-moving-average assigns never run, as in JAX. ``data_parallel``,
-``recompute="auto"`` and ``conv0_space_to_depth`` are not ported yet:
-both entry points raise ``NotImplementedError`` when one is set (the
-eager trainer takes no ``recompute`` either).
+moving-average assigns never run, as in JAX;
+``resnet50_train_model(recompute="auto")`` resolves it from the static
+cost model against the attached device (``framework/cost_model.py``).
+``data_parallel`` and ``conv0_space_to_depth`` are not ported yet: both
+entry points raise ``NotImplementedError`` when one is set (the eager
+trainer takes no ``recompute`` either).
 """
 
 from __future__ import annotations
@@ -72,10 +74,6 @@ _BLOCKS = {  # per-stage bottleneck counts
 
 
 def _not_ported(data_parallel, recompute, conv0_space_to_depth, fn):
-    if recompute == "auto":
-        raise NotImplementedError(
-            f'{fn}(recompute="auto") is not ported: it waits for the static '
-            "cost model, framework/cost_model.py")
     for flag, value in (("data_parallel", data_parallel),
                         ("recompute", recompute),
                         ("conv0_space_to_depth", conv0_space_to_depth)):
@@ -121,9 +119,8 @@ def _bottleneck(x, filters, stride, training, projection, name):
 def resnet_forward(x, num_classes=1000, depth=50, training=True,
                    recompute=False, conv0_space_to_depth=False):
     """The forward graph (:56): NHWC ``x`` -> f32 logits."""
-    # the graph takes recompute=True; "auto" raises
-    _not_ported(False, "auto" if recompute == "auto" else False,
-                conv0_space_to_depth, "resnet_forward")
+    # the graph takes recompute=True (and "auto", truthy, as in JAX)
+    _not_ported(False, False, conv0_space_to_depth, "resnet_forward")
     blocks = _BLOCKS[depth]
     with stf.variable_scope("resnet", reuse=stf.AUTO_REUSE):
         h = _conv(x, 64, 7, 2, "conv0")
@@ -158,12 +155,23 @@ def resnet50_train_model(batch_size=64, image_size=224, num_classes=1000,
                          momentum=0.9, weight_decay=1e-4,
                          data_parallel=False, recompute=False,
                          conv0_space_to_depth=False):
-    """Full training graph (:120): images -> loss -> momentum-SGD update."""
-    _not_ported(data_parallel, "auto" if recompute == "auto" else False,
-                conv0_space_to_depth, "resnet50_train_model")
+    """Full training graph (:120): images -> loss -> momentum-SGD update.
+    recompute="auto" resolves from the static per-chip activation estimate
+    against the attached device (framework/cost_model.py)."""
+    _not_ported(data_parallel, False, conv0_space_to_depth,
+                "resnet50_train_model")
     x = stf.placeholder(dtype, [batch_size, image_size, image_size, 3],
                         name="images")
     labels = stf.placeholder(stf.int32, [batch_size], name="labels")
+    from ..framework import cost_model as _cm
+
+    _shards = _cm.mesh_shard_factor(["dp"] if data_parallel else [])
+    recompute = _cm.resolve_recompute(
+        recompute,
+        _cm.resnet_activation_bytes(batch_size, image_size,
+                                    dtype_bytes=dtype.size) / _shards,
+        forward_flops=resnet_flops_per_image(50, image_size)
+        * batch_size / _shards)
     logits = resnet_forward(x, num_classes=num_classes, training=True,
                             recompute=recompute)
     xent = stf.reduce_mean(stf.nn.sparse_softmax_cross_entropy_with_logits(

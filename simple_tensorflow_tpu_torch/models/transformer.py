@@ -15,10 +15,10 @@ same graph op for op (names, types, inputs, seeds) and the same variables
 (``transformer/encoder/layer_0/self_attn/q/kernel``, …; Dense variables
 in the compute dtype, the embedding and the LayerNorm parameters f32),
 trained by ``stf.Session``. ``recompute=True`` puts every layer under
-``stf.recompute_grad`` (``common.maybe_recompute``). Not ported:
-``recompute="auto"`` (it waits for the cost model,
-``framework/cost_model.py``) and ``data_parallel=True``; both raise
-``NotImplementedError``.
+``stf.recompute_grad`` (``common.maybe_recompute``);
+``transformer_train_model(recompute="auto")`` resolves it from the static
+cost model against the attached device (``framework/cost_model.py``).
+Not ported: ``data_parallel=True``; it raises ``NotImplementedError``.
 
 **The eager pieces**: ``TransformerConfig`` (:35),
 ``sinusoidal_position_encoding`` (:131), ``incremental_decode`` (the
@@ -401,16 +401,8 @@ def _pad_bias(ids, cfg):
     return stf.reshape(is_pad, [b, 1, 1, s]) * -1e9
 
 
-def _no_auto_recompute(recompute):
-    if recompute == "auto":
-        raise NotImplementedError(
-            'recompute="auto" is not ported: it waits for the static cost '
-            "model, framework/cost_model.py")
-
-
 def encode(src_ids, cfg, training=True, compute_dtype=stf.bfloat16,
            scope="transformer", recompute=False):
-    _no_auto_recompute(recompute)
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         h, _ = _embed(src_ids, cfg, compute_dtype, training)
         bias = _pad_bias(src_ids, cfg)
@@ -434,7 +426,6 @@ def decode(tgt_ids, enc_out, enc_bias, cfg, training=True,
     """Returns logits (B, St, vocab); causal self-attention over
     tgt_ids, cross-attention over ``enc_out``; the tied softmax weights in
     the compute dtype."""
-    _no_auto_recompute(recompute)
     with stf.variable_scope(scope, reuse=stf.AUTO_REUSE):
         h, emb = _embed(tgt_ids, cfg, compute_dtype, training)
         with stf.variable_scope("decoder"):
@@ -464,11 +455,31 @@ def transformer_train_model(batch_size=64, src_len=64, tgt_len=64,
                             compute_dtype=stf.bfloat16, data_parallel=False,
                             recompute=False):
     """Training graph: src/tgt -> label-smoothed loss -> Adam (beta2
-    0.997, eps 1e-9) with the noam learning rate on the global step."""
+    0.997, eps 1e-9) with the noam learning rate on the global step.
+    recompute="auto" resolves against the attached device's memory via the
+    static cost model (framework/cost_model.py resolve_recompute)."""
     cfg = cfg or TransformerConfig.big()
     if data_parallel:
         raise NotImplementedError("data_parallel is not ported")
-    _no_auto_recompute(recompute)
+    from ..framework import cost_model as _cm
+
+    # encoder layers see src_len, decoder layers tgt_len (cross-attn
+    # keys add a little on top; the heuristic ignores it)
+    _shards = _cm.mesh_shard_factor(["dp"] if data_parallel else [])
+    _act = (_cm.transformer_activation_bytes(
+                batch_size, src_len, cfg.d_model, cfg.num_layers,
+                dtype_bytes=compute_dtype.size)
+            + _cm.transformer_activation_bytes(
+                batch_size, tgt_len, cfg.d_model, cfg.num_layers,
+                dtype_bytes=compute_dtype.size))
+    _flops = (_cm.transformer_forward_flops(
+                  batch_size, src_len, cfg.d_model, cfg.num_layers,
+                  d_ff=cfg.d_ff)
+              + _cm.transformer_forward_flops(
+                  batch_size, tgt_len, cfg.d_model, cfg.num_layers,
+                  d_ff=cfg.d_ff))
+    recompute = _cm.resolve_recompute(recompute, _act / _shards,
+                                      forward_flops=_flops / _shards)
     src = stf.placeholder(stf.int32, [batch_size, src_len], "src_ids")
     tgt_in = stf.placeholder(stf.int32, [batch_size, tgt_len], "tgt_in")
     tgt_out = stf.placeholder(stf.int32, [batch_size, tgt_len], "tgt_out")

@@ -16,7 +16,8 @@ int32); for the RNN graphs ``Maximum``, ``Sigmoid``, ``Sqrt``,
 and ``raw_rnn`` ``FloorDiv`` (:319) and ``FloorMod`` (:331) with floor
 semantics on negative ints (``torch.floor_divide``, ``torch.remainder``),
 ``LogicalAnd``, ``LogicalOr`` and ``All`` (``reduce_all``); ``Log`` and
-``Exp`` (the numerics plane's tests poison a step through ``Log``). The
+``Exp`` (the numerics plane's tests poison a step through ``Log``);
+``Abs`` and ``Log1p`` (``weighted_cross_entropy_with_logits``). The
 Tensor operators (``+ - * / // % @ **``, and of :973-994 unary ``-`` and
 ``~``, ``&``, ``|`` and ``< <= > >=``) are installed here on ``Tensor``
 and ``Variable``.
@@ -64,6 +65,14 @@ op_registry.register_pure("Sigmoid", torch.sigmoid)
 op_registry.register_pure("Sqrt", torch.sqrt)
 op_registry.register_pure("Log", torch.log)
 op_registry.register_pure("Exp", torch.exp)
+def abs_impl(x):
+    """``|x|`` with ``lax.abs``'s gradient: 1 at 0, where ``torch.abs``
+    gives 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+op_registry.register_pure("Abs", abs_impl)
+op_registry.register_pure("Log1p", torch.log1p)
 op_registry.register_pure("Square", torch.square)
 op_registry.register_pure("Neg", torch.neg)
 op_registry.register_pure("Less", torch.lt)
@@ -180,6 +189,14 @@ def sqrt(x, name=None):
 
 def log(x, name=None):
     return unary("Log", x, name)
+
+
+def log1p(x, name=None):
+    return unary("Log1p", x, name)
+
+
+def abs(x, name=None):  # noqa: A001 (the TF name)
+    return unary("Abs", x, name)
 
 
 def exp(x, name=None):

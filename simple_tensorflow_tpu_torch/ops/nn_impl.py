@@ -22,6 +22,13 @@ JAX program's. Here, op for op as in ``_bn_train_fwd_impl``/``_bn_train_bwd``:
 ``BatchNormalization`` layer: it builds the three-output ``FusedBatchNorm``
 op, whose lowering is the same function and whose gradient is autograd's
 through :class:`FusedBatchNormFunction`). NHWC only.
+
+The sampled losses of the word2vec graph, :272-343 there:
+``_sampled_logits`` (the true and the sampled logits from one gather of
+the weights and one of the biases, the log expected counts subtracted),
+``nce_loss`` (sigmoid cross entropy over them) and
+``sampled_softmax_loss``; ``remove_accidental_hits`` is taken and, as
+there, not applied.
 """
 
 from __future__ import annotations
@@ -135,3 +142,76 @@ def fused_batch_norm(x, scale, offset, mean=None, variance=None,
         attrs={"epsilon": float(epsilon), "is_training": is_training,
                "data_format": data_format}, name=name, n_out=3)
     return y, m, v
+
+
+def _sampled_logits(weights, biases, labels, inputs, num_sampled, num_classes,
+                    num_true, sampled_values, subtract_log_q, name):
+    """Shared by nce_loss / sampled_softmax_loss
+    (ref: nn_impl.py ``_compute_sampled_logits``)."""
+    from . import array_ops, candidate_sampling_ops, embedding_ops, math_ops
+
+    if not isinstance(weights, (list, tuple)):
+        weights = [weights]
+    if len(weights) != 1:
+        raise NotImplementedError("a sharded weight list is not ported")
+    inputs = ops_mod.convert_to_tensor(inputs)
+    labels = math_ops.cast(ops_mod.convert_to_tensor(labels), "int32")
+    if sampled_values is None:
+        sampled_values = candidate_sampling_ops.log_uniform_candidate_sampler(
+            true_classes=math_ops.cast(labels, "int64"), num_true=num_true,
+            num_sampled=num_sampled, unique=True, range_max=num_classes)
+    sampled, true_expected, sampled_expected = sampled_values
+    sampled = math_ops.cast(sampled, "int32")
+    labels_flat = array_ops.reshape(labels, [-1])
+    all_ids = array_ops.concat([labels_flat, sampled], 0)
+    all_w = embedding_ops.embedding_lookup(weights[0], all_ids)
+    all_b = embedding_ops.embedding_lookup(biases, all_ids)
+    n_true_total = labels_flat.shape[0].value
+    true_w = all_w[:n_true_total]
+    sampled_w = all_w[n_true_total:]
+    true_b = all_b[:n_true_total]
+    sampled_b = all_b[n_true_total:]
+    dim = inputs.shape[-1].value
+    true_w = array_ops.reshape(true_w, [-1, num_true, dim])
+    true_logits = math_ops.reduce_sum(
+        array_ops.expand_dims(inputs, 1) * true_w, axis=2)
+    true_logits += array_ops.reshape(true_b, [-1, num_true])
+    sampled_logits = math_ops.matmul(inputs, sampled_w, transpose_b=True)
+    sampled_logits += sampled_b
+    if subtract_log_q:
+        true_logits -= math_ops.log(true_expected)
+        sampled_logits -= math_ops.log(sampled_expected)
+    out_logits = array_ops.concat([true_logits, sampled_logits], 1)
+    out_labels = array_ops.concat([
+        array_ops.ones_like(true_logits) / num_true,
+        array_ops.zeros_like(sampled_logits)], 1)
+    return out_logits, out_labels
+
+
+def nce_loss(weights, biases, labels, inputs, num_sampled, num_classes,
+             num_true=1, sampled_values=None, remove_accidental_hits=False,
+             partition_strategy="mod", name="nce_loss"):
+    """(ref: nn_impl.py ``nce_loss``)."""
+    from . import math_ops, nn_ops
+
+    logits, labels_out = _sampled_logits(
+        weights, biases, labels, inputs, num_sampled, num_classes, num_true,
+        sampled_values, subtract_log_q=True, name=name)
+    xent = nn_ops.sigmoid_cross_entropy_with_logits(labels=labels_out,
+                                                    logits=logits)
+    return math_ops.reduce_sum(xent, axis=1)
+
+
+def sampled_softmax_loss(weights, biases, labels, inputs, num_sampled,
+                         num_classes, num_true=1, sampled_values=None,
+                         remove_accidental_hits=True,
+                         partition_strategy="mod",
+                         name="sampled_softmax_loss"):
+    """(ref: nn_impl.py ``sampled_softmax_loss``)."""
+    from . import nn_ops
+
+    logits, labels_out = _sampled_logits(
+        weights, biases, labels, inputs, num_sampled, num_classes, num_true,
+        sampled_values, subtract_log_q=True, name=name)
+    return nn_ops.softmax_cross_entropy_with_logits(labels=labels_out,
+                                                    logits=logits)

@@ -8,8 +8,11 @@ The graph functions mirror ``simple_tensorflow_tpu/ops/nn_ops.py``:
 kernel where XLA rounds a bf16 input after each step of it), ``l2_loss``
 (:485), ``bias_add`` (:489), ``conv2d``
 (:538), ``max_pool`` (:665), ``dropout`` (:699),
-``softmax_cross_entropy_with_logits`` (:496)
-and ``sparse_softmax_cross_entropy_with_logits`` (:509) build graph ops;
+``softmax_cross_entropy_with_logits`` (:496),
+``sparse_softmax_cross_entropy_with_logits`` (:509) and
+``sigmoid_cross_entropy_with_logits`` (:519; ``SigmoidCrossEntropyWithLogits``
+with the JAX lowering's arithmetic, :158-161) build graph ops, and
+``weighted_cross_entropy_with_logits`` (:526) composes them;
 their lowerings call the eager implementations below, as the JAX module's
 lowerings call its ``_conv2d_impl`` (:164) and ``_max_pool_impl`` (:352):
 
@@ -53,6 +56,7 @@ from ..framework import random_seed as random_seed_mod
 from .fused_ops import using_plain_versions
 from .kernels.dropout import DropoutFunction
 from .kernels.softmax_xent import softmax_cross_entropy
+from .math_ops import abs_impl
 from .op_util import make_op, unary
 
 Tensor = ops_mod.Tensor
@@ -188,6 +192,13 @@ op_registry.register_pure("BiasAdd", _bias_add_op)
 op_registry.register_pure("Conv2D", _conv2d_op)
 op_registry.register_pure("MaxPool", _max_pool_op)
 op_registry.register_pure("SoftmaxCrossEntropyWithLogits", _softmax_xent)
+op_registry.register_pure(
+    "SigmoidCrossEntropyWithLogits",
+    # torch.maximum splits a tie's gradient in halves, as lax.max does;
+    # |x| differentiates as lax.abs does, to 1 at 0
+    lambda logits, labels: (torch.maximum(logits, torch.zeros_like(logits))
+                            - logits * labels
+                            + torch.log1p(torch.exp(-abs_impl(logits)))))
 
 
 def _log_softmax_impl(x, axis=-1):
@@ -300,6 +311,28 @@ def softmax_cross_entropy_with_logits(labels=None, logits=None, dim=-1,
 
 
 softmax_cross_entropy_with_logits_v2 = softmax_cross_entropy_with_logits
+
+
+def sigmoid_cross_entropy_with_logits(labels=None, logits=None, name=None,
+                                      _sentinel=None):
+    logits = ops_mod.convert_to_tensor(logits)
+    labels = ops_mod.convert_to_tensor(labels, dtype=logits.dtype.base_dtype)
+    return make_op("SigmoidCrossEntropyWithLogits", [logits, labels],
+                   name=name)
+
+
+def weighted_cross_entropy_with_logits(targets, logits, pos_weight,
+                                       name=None):
+    from . import math_ops
+
+    logits = ops_mod.convert_to_tensor(logits)
+    targets = ops_mod.convert_to_tensor(targets,
+                                        dtype=logits.dtype.base_dtype)
+    log_weight = 1 + (pos_weight - 1) * targets
+    return math_ops.add(
+        (1 - targets) * logits,
+        log_weight * (math_ops.log1p(math_ops.exp(-math_ops.abs(logits)))
+                      + relu(-logits)), name=name)
 
 
 def sparse_softmax_cross_entropy_with_logits(labels=None, logits=None,

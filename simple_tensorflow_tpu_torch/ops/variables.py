@@ -8,7 +8,8 @@ the JAX package's order and with its names. ``trainable_variables``
 (:287), ``global_variables_initializer`` (:308) and
 ``local_variables_initializer`` (:316) as there; ``to_proto`` and
 ``from_proto`` (:200-245), the meta graph's form of a variable
-(``framework/graph_io.py``). Left out: sharding metadata, constraints,
+(``framework/graph_io.py``); ``set_sharding`` records a spec. Left out:
+constraints,
 ``ResourceVariable``, ``PartitionedVariable`` and the
 uninitialized-variable report ops.
 """
@@ -108,6 +109,11 @@ class Variable:
     @property
     def initializer(self):
         return self._initializer_op
+
+    def set_sharding(self, spec):
+        """Record a PartitionSpec-like sharding (``parallel.shard_variable``);
+        with no mesh nothing reads it."""
+        self._op.attrs["sharding"] = spec
 
     def value(self):
         return self._snapshot

@@ -14,11 +14,13 @@ test_torch_monitored_session.py`` holds them equal).
 trigger step pays the barrier snapshot and the writer thread commits
 while the next window runs); its save at ``end`` waits for every write.
 
+``StepCounterHook.last_perf`` is the JAX hook's MFU report:
+``cost_model.predicted_vs_measured`` of the run's fetches at the measured
+seconds a step, the static estimate cached by fetches, and None
+where the cost model cannot price the fetches.
+
 Differences: a hook closes at ``end`` the ``FileWriter`` it made for its
-``output_dir`` (the JAX hooks leave theirs open); ``StepCounterHook``'s
-MFU report is
-None (``framework/cost_model.py`` is not ported; the JAX hook's report is
-best-effort and None where the cost model fails); ``ProfilerHook`` raises
+``output_dir`` (the JAX hooks leave theirs open); ``ProfilerHook`` raises
 ``NotImplementedError`` until ``RunOptions`` tracing is ported (ROADMAP
 Queue 1, front-end item 2).
 """
@@ -239,10 +241,20 @@ class CheckpointSaverListener:
         pass
 
 
+def _flatten(structure):
+    """The leaves of nested lists, tuples and dicts (dicts by sorted
+    key)."""
+    if isinstance(structure, dict):
+        return [x for k in sorted(structure) for x in _flatten(structure[k])]
+    if isinstance(structure, (list, tuple)):
+        return [x for item in structure for x in _flatten(item)]
+    return [structure]
+
+
 class StepCounterHook(SessionRunHook):
     """(ref: basic_session_run_hooks.py:547): steps a second at each
     trigger, logged and written as ``global_step/sec``; ``last_perf``
-    (the MFU report) stays None (module docstring)."""
+    the MFU report (module docstring)."""
 
     def __init__(self, every_n_steps=100, every_n_secs=None, output_dir=None,
                  summary_writer=None, report_mfu=True):
@@ -253,6 +265,7 @@ class StepCounterHook(SessionRunHook):
         self._output_dir = output_dir
         self._report_mfu = report_mfu
         self._own_writer = False
+        self._est_cache = None  # (key, CostEstimate): graph walk done once
         self.last_steps_per_sec = None
         self.last_perf = None
 
@@ -270,8 +283,29 @@ class StepCounterHook(SessionRunHook):
         return self._timer.steps_until_trigger(global_step)
 
     def _perf_report(self, run_context, sec_per_step):
-        """The MFU report: None until the cost model is ported."""
-        return None
+        """Best-effort: the caller's fetches drive the cost model; a
+        fetch the model can't cost must never break the training loop."""
+        try:
+            from ..framework import cost_model
+            from ..framework import graph as ops_mod
+
+            items = [f for f in _flatten(run_context.original_args.fetches)
+                     if isinstance(f, (ops_mod.Tensor, ops_mod.Operation))
+                     or hasattr(f, "_ref")]
+            if not items:
+                return None
+            # the static estimate is a full graph walk: cached per fetches,
+            # so every trigger only pays the measured side
+            key = tuple(id(i) for i in items)
+            if self._est_cache is None or self._est_cache[0] != key:
+                self._est_cache = (key, cost_model.estimate(items))
+            return cost_model.predicted_vs_measured(
+                items, measured_seconds=sec_per_step,
+                est=self._est_cache[1])
+        except Exception:
+            _log.debug("StepCounterHook: no MFU report for these fetches",
+                       exc_info=True)
+            return None
 
     def after_run(self, run_context, run_values):
         step = int(np.asarray(run_values.results))
@@ -282,8 +316,10 @@ class StepCounterHook(SessionRunHook):
             return
         self.last_steps_per_sec = steps / secs
         _log.info("global_step/sec: %.4g", self.last_steps_per_sec)
-        if self._report_mfu:
-            self.last_perf = self._perf_report(run_context, secs / steps)
+        perf_report = (self._perf_report(run_context, secs / steps)
+                       if self._report_mfu else None)
+        if perf_report is not None:
+            self.last_perf = perf_report
         if self._summary_writer is not None:
             self._summary_writer.add_summary_value(
                 "global_step/sec", self.last_steps_per_sec, step)

@@ -122,11 +122,16 @@ def test_graph_builders_return_the_jax_dict_keys():
 
 def test_recompute_raises():
     # recompute=True is ported (tests/test_torch_recompute_models.py);
-    # "auto" waits for the cost model
-    with pstf.Graph().as_default():
-        with pytest.raises(NotImplementedError, match="cost_model"):
-            pclm.causal_lm_train_model(B, S, cfg=_cfg(pclm),
-                                       recompute="auto")
+    # "auto" no longer raises: the JAX function passes it on, truthy, so
+    # every layer recomputes there and here
+    n = {}
+    for name, stf, M in (("jax", jstf, jclm), ("port", pstf, pclm)):
+        g = stf.Graph()
+        with g.as_default():
+            M.causal_lm_train_model(B, S, cfg=_cfg(M), recompute="auto")
+        n[name] = sum(op.type == "RecomputeGradCall"
+                      for op in g.get_operations())
+    assert n["port"] == n["jax"] == _cfg(pclm).num_layers
 
 
 def _session(stf):

@@ -2315,3 +2315,89 @@ def test_async_snapshot_reaches_the_host_through_the_bounce_buffers(
         assert arrays[k].shape == want.shape and arrays[k].dtype == want.dtype
         assert arrays[k].tobytes() == want.tobytes(), k
     snap.release_device_state()
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d128_causal_matches_plain_on_card(cuda, dtype):
+    """The flash kernels at head dim 128 (the long-context LM's), causal,
+    rate 0, S = 512: forward, dK/dV and dQ against the plain versions."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    bh, s, d = 4, 512, 128
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=cuda).to(
+        dtype) for _ in range(4))
+    args = dict(heads=2, sm_scale=d ** -0.5, causal=True)
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in ((o, ro), (dk, rdk), (dv, rdv), (dq, rdq)):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * max(1.0, ref.float().abs().max().item())
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    # the causal mask: query 0 sees key 0 alone
+    torch.testing.assert_close(o[:, 0].float(), v[:, 0].float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_sampler_device_draw_replays_as_eager_on_card(cuda):
+    """The log-uniform sampler (unique) in a captured step reads the
+    device key buffer: the replays draw what eager runs draw, anew each
+    run."""
+    import simple_tensorflow_tpu_torch as stf
+
+    labels = np.array([[1], [5], [40000], [7]], np.int64)
+    got = {}
+    for capture in (False, True):
+        g = stf.Graph()
+        with g.as_default():
+            stf.set_random_seed(2)
+            out = stf.nn.log_uniform_candidate_sampler(
+                true_classes=stf.constant(labels), num_true=1,
+                num_sampled=64, unique=True, range_max=50000)
+            with stf.Session(graph=g) as s:
+                s._capture = capture
+                got[capture] = [s.run(list(out)) for _ in range(4)]
+                assert s.captures == (1 if capture else 0)
+    for a, b in zip(got[True], got[False]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    ids = [r[0] for r in got[True]]
+    assert all(len(np.unique(x)) == 64 for x in ids)
+    assert all(not np.array_equal(x, y) for x, y in zip(ids, ids[1:]))
+
+
+@pytest.mark.cuda
+def test_fused_embedding_gradient_is_deterministic_on_card(cuda):
+    """The fused lookup's table gradient (dedup, segment sum over the
+    inverse, scatter-add) on Zipf ids with many duplicates: bitwise the
+    same over two runs, and within 1e-6 of a float64 one-hot product."""
+    from simple_tensorflow_tpu_torch.ops import embedding_ops
+
+    rng = np.random.RandomState(0)
+    ids = torch.as_tensor(np.minimum(rng.zipf(1.2, (64, 32)) - 1, 999),
+                          device=cuda)
+    g = torch.randn((64, 32, 16), device=cuda)
+    runs = [embedding_ops.scatter_add_grad(ids, g, (1000, 16),
+                                           torch.float32)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    onehot = torch.nn.functional.one_hot(ids.reshape(-1).long(),
+                                         1000).double()
+    ref = onehot.t() @ g.reshape(-1, 16).double()
+    assert _rel(runs[0], ref) <= 1e-6
+    table = torch.randn((1000, 16), device=cuda, requires_grad=True)
+    out = embedding_ops._FusedLookup.apply(table, ids, torch.bfloat16, True)
+    torch.testing.assert_close(out.float(), table[ids].bfloat16().float())

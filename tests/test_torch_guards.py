@@ -115,6 +115,14 @@ def test_importing_the_port_loads_no_jax():
         from simple_tensorflow_tpu_torch.ops import numerics
         from simple_tensorflow_tpu_torch.ops.kernels import numeric_summary
         from simple_tensorflow_tpu_torch.train import health
+        from simple_tensorflow_tpu_torch import parallel, utils
+        from simple_tensorflow_tpu_torch.framework import cost_model
+        from simple_tensorflow_tpu_torch.utils import perf
+        from simple_tensorflow_tpu_torch.parallel import (api, mesh,
+                                                          ring_attention)
+        from simple_tensorflow_tpu_torch.ops import candidate_sampling_ops
+        from simple_tensorflow_tpu_torch.models import (dlrm, long_context,
+                                                        word2vec)
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in {FORBIDDEN!r})
         print("BAD", bad)
@@ -184,6 +192,35 @@ def test_the_input_pipeline_modules_are_guarded():
             "data/staging.py", "ops/parsing_ops.py", "runtime/native.py",
             "platform/monitoring.py", "platform/sync.py", "lib/example.py",
             "lib/io/file_io.py", "framework/sparse_tensor.py"} <= guarded
+
+
+def test_the_single_card_slice_modules_are_guarded():
+    # the cost model, the chip table, the no-mesh parallel surface, the
+    # samplers and the three graphs are among the files the guard reads
+    guarded = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {"framework/cost_model.py", "utils/__init__.py", "utils/perf.py",
+            "parallel/__init__.py", "parallel/api.py", "parallel/mesh.py",
+            "parallel/ring_attention.py", "ops/candidate_sampling_ops.py",
+            "ops/embedding_ops.py", "ops/nn_impl.py",
+            "models/long_context.py", "models/word2vec.py",
+            "models/dlrm.py"} <= guarded
+
+
+def test_the_single_card_graphs_default_to_the_gpu(monkeypatch):
+    import simple_tensorflow_tpu_torch as stf
+    from simple_tensorflow_tpu_torch.models import dlrm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with stf.Graph().as_default():
+        m = dlrm.dlrm_model(batch_size=4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stf.Session()
+        with stf.Session(config=stf.ConfigProto(
+                device_count={"GPU": 0})) as s:
+            s.run(stf.global_variables_initializer())
+            loss = s.run(m["loss"], dlrm.feed_dict_for(
+                m, dlrm.synthetic_dlrm_batch(4)))
+            assert s.device.type == "cpu" and np.isfinite(loss)
 
 
 def test_prefetch_to_device_defaults_to_the_gpu(monkeypatch):
@@ -256,11 +293,16 @@ def test_a_bert_session_defaults_to_the_gpu(monkeypatch):
                                                   input_mask=True)
             loss = s.run(m["loss"], {m[k]: v for k, v in batch.items()})
             assert s.device.type == "cpu" and np.isfinite(loss)
-        for kw in ({"recompute": "auto"}, {"data_parallel": True}):
-            with pytest.raises(NotImplementedError,
-                               match="cost_model|parallel/"):
-                bert.bert_pretrain_model(2, 8, 2, cfg=bert.BertConfig.tiny(),
-                                         **kw)
+        with pytest.raises(NotImplementedError, match="parallel/"):
+            bert.bert_pretrain_model(2, 8, 2, cfg=bert.BertConfig.tiny(),
+                                     data_parallel=True)
+    # recompute="auto" resolves on the CPU's nominal figures: no remat
+    g = stf.Graph()
+    with g.as_default():
+        bert.bert_pretrain_model(2, 8, 2, cfg=bert.BertConfig.tiny(),
+                                 recompute="auto")
+    assert not any(op.type == "RecomputeGradCall"
+                   for op in g.get_operations())
 
 
 def test_chip_smoke_imports_nothing_of_jax():
