@@ -8,11 +8,15 @@ RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq, the
 transformer's beam search on ``stf.while_loop``, and BERT and the MNIST
 journey fed by ``stf.data`` from TFRecord shards).
 
-    python3 chip_smoke.py [--serving]
+    python3 chip_smoke.py [--serving | --lc-attribution]
 
 ``--serving`` runs only phase 3 (no kernel phases, no ``{"ok": ...}``
 line) and asks its traces for no kernel by name, so this script placed
 beside another tree's package measures that tree's serving path.
+``--lc-attribution`` runs only phase 15's bf16 check of the long-context
+LM cut to 2 layers (no ``{"ok": ...}`` line), adding the same run with the
+flash path alone on its plain versions: how much of the check's gaps the
+flash kernels own.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    hand-written CUDA kernels from ``simple_tensorflow_tpu_torch/csrc/``
@@ -441,20 +445,30 @@ beside another tree's package measures that tree's serving path.
    the smoke's cells (the graphs built, no step run). The long-context
    LM's kernels at ``LongContextConfig()`` (d_model 1024, 8 heads of 128,
    vocab 32000), seq 32768, bf16: the flash forward, dK/dV and dQ at (8,
-   32768, 128) causal, rate 0, against their plain versions a head at a
-   time (bf16 2e-2 scaled; the non-causal kernel, planted, must fail),
-   timed beside SDPA ``is_causal=True`` (the same function here); the
-   LayerNorm at 32768 x 1024; the xent at bf16 32768 x 32000; Adam over
-   the model's two flat groups (bit-exact). ``lm_train_model`` cut to 2
-   layers and seq 2048, f32 and bf16: 2 steps through the kernels against
-   ``plain_versions()`` (losses rtol 1e-5, variables and slots 1e-4 by
-   relative norm, exact launches; the causal flag dropped in the
-   ``RingAttention`` lowering, planted, must fail). At the full cell
-   (batch 1, seq 32768, 8 layers, bf16, Adam 3e-4): the cost model's
+   32768, 128) causal, rate 0 (the forward and dK/dV on the wgmma
+   kernels), against their plain versions a head at a time (bf16 2e-2
+   scaled and each block of 128 rows within 2e-2 of its norm, lse
+   1e-5; planted, these must fail: the non-causal kernel, and the wgmma
+   pipelines built from copies of their sources with the diagonal key
+   tile of each query tile but the first, the diagonal query sub-tile of
+   each key tile, or the last, skipped), timed beside SDPA
+   ``is_causal=True`` (the same
+   function here), with the TFLOP/s and the share of the bound; the
+   wgmma kernels at a ragged length (S = 4000 - 40, 2 x 4 heads,
+   non-causal with a key bias, rate 0 and 0.1) against their plain
+   versions; the LayerNorm at 32768 x 1024; the xent at bf16 32768 x
+   32000; Adam over the model's two flat groups (bit-exact).
+   ``lm_train_model`` cut to 2 layers and seq 2048, f32 and bf16: 2 steps
+   through the kernels against ``plain_versions()`` (losses rtol 1e-5,
+   variables and slots 1e-4 by relative norm, exact launches; the causal
+   flag dropped in the ``RingAttention`` lowering, planted, must fail).
+   At the full
+   cell (batch 1, seq 32768, 8 layers, bf16, Adam 3e-4): the cost model's
    estimate, 3 runs captured (warm-up, capture, replay) against eager bit
    for bit, ``run_steps`` windows of 4 (p50 a step, tokens/s, device and
    host ms, busy share, peak memory, the share of the dense bf16 peak at
-   3 x the cost model's forward FLOPs), and a ``MonitoredTrainingSession``
+   3 x the cost model's forward FLOPs and with the attention FLOPs
+   counted from the shapes added), and a ``MonitoredTrainingSession``
    whose ``StepCounterHook.last_perf`` must equal
    ``cost_model.predicted_vs_measured`` at its measured seconds. word2vec
    at ``skipgram_model()``'s defaults (vocab 50000, 128 wide, batch 128,
@@ -3987,7 +4001,8 @@ def loop_trace(fn, n):
     around it, the longest idle gap between two device activities, that
     next to a device-to-device copy (the staging before a replay of a
     window: a replay boundary) and elsewhere, and the device-to-device
-    copies' ms a step; ``None`` when the trace saw no device time."""
+    copies' ms a step, and the device ms a step by name (``kernels``);
+    ``None`` when the trace saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3997,13 +4012,15 @@ def loop_trace(fn, n):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, dev_us, d2d_us = [], 0.0, 0.0
+    spans, dev_us, d2d_us, by_name = [], 0.0, 0.0, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             d2d = "DtoD" in e.name
             spans.append((e.time_range.start, e.time_range.end, d2d))
             dev_us += e.time_range.elapsed_us()
             d2d_us += e.time_range.elapsed_us() if d2d else 0.0
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / n
     if not spans:
         return None
     spans.sort()
@@ -4022,7 +4039,8 @@ def loop_trace(fn, n):
     return dict(dev_ms=dev_us / 1e3 / n, busy=busy / 1e3 / wall_ms,
                 gap_ms=max(gaps.values()) / 1e3,
                 edge_gap_ms=gaps[True] / 1e3, inner_gap_ms=gaps[False] / 1e3,
-                d2d_ms=d2d_us / 1e3 / n, wall_ms=wall_ms / n)
+                d2d_ms=d2d_us / 1e3 / n, wall_ms=wall_ms / n,
+                kernels=by_name)
 
 
 def loop_monitored(stf, tr, cfg, feeds_of, directory, last_step):
@@ -7478,6 +7496,8 @@ LC_CUT_S, LC_CUT_LAYERS = 2048, 2   # kernels vs plain: the plain attention's
                              # (BH, S, S) f32 scores take 34 GB a layer at
                              # 32768, so that check runs at a cut length
 LC_CHECK_STEPS = 2           # f32 and bf16 runs, kernels vs plain_versions()
+LC_RAGGED_S = 4000 - 40      # the wgmma kernels' ragged check: no multiple
+                             # of their 128-row tiles or 64-query sub-tiles
 # kernels vs plain at the cut length: (losses rtol, gradients and, at f32,
 # variables and slots by relative norm). bf16 holds its gradients to the
 # bf16 kernel rows' 2e-2; its parameters are not held: Adam turns bf16
@@ -7492,6 +7512,9 @@ DLRM_B = 32                  # dlrm_model's defaults
 W2V_B = 128                  # skipgram_model's defaults
 SC_TOL = 1e-6                # DLRM: the fused lookup vs a plain gather
 BF16_PEAK = 989e12           # H100 SXM dense bf16 (data sheet, utils/perf)
+# the flash kernels' FLOP a live (query, key) pair, times D: the forward's
+# two products, dK/dV's four, dQ's three
+FLASH_FLOP_PER_PAIR = {"fwd": 4, "dkdv": 8, "dq": 6}
 
 
 def lc_per_step(cfg, groups):
@@ -7527,13 +7550,228 @@ def lc_groups(stf, lc, cfg, dtype):
     return by
 
 
-def lc_flash_rows(K, gen, dev, B, H, s, D):
+# Planted faults in the wgmma pipelines at D = 128: copies of their sources
+# with one walk cut short in the producer and the consumers alike (so no
+# barrier waits forever), each with a C entry appended and its namespace
+# renamed, built beside the kernels into a library of their own. The last
+# one moves only the last 64 queries' share of each key's dK and dV: off by
+# 1.2e-2 at S = 32768, under the limit scaled by max |ref|, so it shows
+# that the limit a 128-key block holds the keys whose gradients are small.
+# (what, source, text, mutated text, occurrences)
+SM90_MUTANTS = (
+    ("forward without its diagonal key tile", "flash_fwd_sm90.cu",
+     "n_kt = min(n_kt, qi + 1);", "n_kt = min(n_kt, qi + 1) - (qi > 0);", 1),
+    ("dK/dV without its diagonal query sub-tile", "flash_dkdv_sm90.cu",
+     "const int qs0 = kCausal ? k0 / kBM : 0;",
+     "const int qs0 = kCausal ? k0 / kBM + 1 : 0;", 1),
+    ("dK/dV without its last query sub-tile", "flash_dkdv_sm90.cu",
+     "const int n_sub = cdiv(q_len, kBM) - qs0;",
+     "const int n_sub = cdiv(q_len, kBM) - qs0 - 1;", 1))
+# the C entry of mutant i: causal, rate 0, no bias; the forward writes o and
+# lse to out0 and out1, dK/dV dk and dv
+SM90_ENTRY = r"""
+extern "C" int stf_mutant_%(i)d(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* out0, void* out1, int bh,
+    int s, float scale, void* stream) {
+  return %(call)s;
+}
+"""
+SM90_CALLS = {
+    "flash_fwd_sm90.cu":
+        "stf::flash_fwd_sm90(q, k, v, nullptr, out0, "
+        "static_cast<float*>(out1), bh, s, s, 1, scale, 1, 0, 0u, nullptr, "
+        "0u, 1.0f, static_cast<cudaStream_t>(stream))",
+    "flash_dkdv_sm90.cu":
+        "stf::flash_dkdv_sm90(q, k, v, dout, static_cast<const float*>(lse), "
+        "static_cast<const float*>(delta), nullptr, out0, out1, bh, s, s, 1, "
+        "scale, 1, 0, 0u, nullptr, 0u, 1.0f, "
+        "static_cast<cudaStream_t>(stream))"}
+
+
+def sm90_mutant_start():
+    """Starts the build of the planted-fault library (``SM90_MUTANTS``) in
+    a temporary directory: one nvcc a mutant, all at once. Returns the
+    handle ``sm90_mutant_lib`` takes."""
+    from simple_tensorflow_tpu_torch.ops.kernels import _build
+
+    tmp = tempfile.mkdtemp(prefix="stf_sm90_mutant_")
+    for f in os.listdir(_build.SRC_DIR):
+        if f.endswith(".cuh"):
+            shutil.copy(os.path.join(_build.SRC_DIR, f), tmp)
+    srcs = []
+    for i, (_, name, text, bad, n) in enumerate(SM90_MUTANTS):
+        src = open(os.path.join(_build.SRC_DIR, name)).read()
+        if src.count(text) != n:
+            fail(f"planted sm90 fault: {name} holds {text!r} "
+                 f"{src.count(text)} times, expected {n}")
+        with open(os.path.join(tmp, f"mutant{i}.cu"), "w") as fh:
+            fh.write(src.replace(text, bad)
+                     + SM90_ENTRY % {"i": i, "call": SM90_CALLS[name]})
+        srcs.append(f"mutant{i}.cu")
+    nvcc = _build._nvcc()
+    # each copy in a namespace of its own: two copies of one source link
+    procs = [subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, f"-Dstf=stf_mutant{i}", "-c",
+         os.path.join(tmp, f), "-o", os.path.join(tmp, f + ".o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, f in enumerate(srcs)]
+    return tmp, srcs, procs, nvcc
+
+
+def sm90_mutant_lib(handle):
+    """The planted-fault library of ``sm90_mutant_start``, once built."""
+    import ctypes
+
+    tmp, srcs, procs, nvcc = handle
+    for f, proc in zip(srcs, procs):
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"planted sm90 fault: nvcc failed on {f}:\n{out}")
+    so = os.path.join(tmp, "libmutant.so")
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+         so, *(os.path.join(tmp, f + ".o") for f in srcs)],
+        capture_output=True, text=True, timeout=300)
+    if link.returncode != 0:
+        fail(f"planted sm90 fault: link failed:\n{link.stdout}"
+             f"{link.stderr}")
+    lib = ctypes.CDLL(so)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for i in range(len(SM90_MUTANTS)):
+        fn = getattr(lib, f"stf_mutant_{i}")
+        fn.argtypes = [P] * 8 + [I, I, F, P]
+        fn.restype = I
+    return lib
+
+
+def block_ratio(out, ref, tol, rows=128):
+    """The largest ||out - ref|| / (tol ||ref||) over blocks of ``rows``
+    consecutive rows (queries or keys) of each head of (..., S, D)
+    outputs: each block held to ``tol`` of its own size. Above 1 fails."""
+    def block_sq(x):
+        x = x.float().reshape(-1, x.shape[-2], x.shape[-1]).square().sum(-1)
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % rows))
+        return x.view(x.shape[0], -1, rows).sum(-1)
+
+    d2, r2 = block_sq(out.float() - ref.float()), block_sq(ref)
+    return ((d2 / r2.clamp_min(torch.finfo(torch.float32).tiny)).sqrt()
+            / tol).max().item()
+
+
+def flash_limits(out, ref, tol):
+    """The flash rows' limits on one output: ``(max abs err, within tol x
+    max(1, max |ref|), worst block ratio)``. The scaled limit alone misses
+    a wrong dK or dV at S = 32768, where the first keys' values (~3.8) set
+    it above most keys' own (~1e-2), so each block of 128 queries or keys
+    is also held to ``tol`` of its own norm (``block_ratio`` within 1).
+    Not element by element: an early query's output cancels to near zero
+    while its error scales with its terms (~1)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return (err, err <= tol * max(1.0, ref.float().abs().max().item()),
+            block_ratio(out, ref, tol))
+
+
+def check_flash(name, out, ref, tol):
+    """Fails unless ``out`` is within both of ``flash_limits``; returns the
+    max abs error and the worst block ratio."""
+    err, scaled, ratio = flash_limits(out, ref, tol)
+    if not (scaled and ratio <= 1.0):
+        fail(f"{name}: kernel disagrees with its plain version (max abs err "
+             f"{err:.3e} against {tol} x max(1, max |ref|); worst 128-row "
+             f"block at {ratio:.3e} of its bound)")
+    return err, ratio
+
+
+def lc_sm90_faults(K, lib, q, k, v, do, lse, delta, tag):
+    """The planted pipeline faults of ``SM90_MUTANTS`` on head 0 of the
+    long-context inputs: each must fail the limits the kernels are held
+    to (o, dK, dV ``check_flash`` at 2e-2; lse 1e-5 scaled)."""
+    sl = slice(0, 1)
+    h = [t[sl].contiguous() for t in (q, k, v, do)]
+    hl, hd = lse[sl].contiguous(), delta[sl].contiguous()
+    s, D = q.shape[1], q.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    one = dict(heads=1, sm_scale=D ** -0.5, causal=True)
+    refs = {"flash_fwd_sm90.cu": K.flash_attention_fwd_plain(*h[:3], **one),
+            "flash_dkdv_sm90.cu": K.flash_attention_dkdv_plain(*h, hl, hd,
+                                                               **one)}
+    txt = []
+    for i, (what, name, *_) in enumerate(SM90_MUTANTS):
+        fwd = name == "flash_fwd_sm90.cu"
+        outs = ((torch.empty_like(h[0]), torch.empty_like(hl)) if fwd
+                else (torch.empty_like(h[1]), torch.empty_like(h[2])))
+        rc = getattr(lib, f"stf_mutant_{i}")(
+            *(t.data_ptr() for t in h), hl.data_ptr(), hd.data_ptr(),
+            *(t.data_ptr() for t in outs), 1, s, D ** -0.5, stream)
+        torch.cuda.synchronize()
+        if rc:
+            fail(f"planted sm90 fault ({what}): the launch returned {rc}")
+        # (error, within the scaled limit, worst block ratio)
+        lims = [flash_limits(outs[0], refs[name][0], 2e-2),
+                flash_limits(outs[1], refs[name][1], 2e-2)]
+        if fwd:  # lse: 1e-5 scaled only
+            lims[1] = flash_limits(outs[1], refs[name][1], 1e-5)[:2] + (0.0,)
+        scaled = all(x[1] for x in lims)
+        ratio = max(x[2] for x in lims)
+        txt.append(f"{what}: off by {lims[0][0]:.3e} and {lims[1][0]:.3e} "
+                   f"(the scaled limit alone "
+                   f"{'passes' if scaled else 'fails'} it), worst 128-row "
+                   f"block at {ratio:.3e} of its bound")
+        if scaled and ratio <= 1.0:
+            fail(f"flash {tag}: the check passes the planted fault "
+                 f"({what})")
+        del outs
+    print(f"  planted faults in the wgmma pipelines ({tag}, head 0): "
+          + "; ".join(txt), flush=True)
+
+
+def lc_ragged_check(K, gen, dev):
+    """The wgmma forward and dK/dV at a ragged length (S = 4000 - 40, 2 x 4
+    heads of D = 128, non-causal with a (batch, key) bias, rate 0 and 0.1)
+    against their plain versions: o, dK, dV, dQ ``check_flash`` at 2e-2,
+    lse 1e-5 scaled."""
+    b, h, s, D = 2, 4, LC_RAGGED_S, 128
+    q, k, v, do = (torch.randn((b * h, s, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    bias = torch.randn((b, s), generator=gen, device=dev)
+    for rate in (0.0, 0.1):
+        args = dict(heads=h, sm_scale=D ** -0.5, causal=False, bias=bias)
+        if rate:
+            args.update(dropout_rate=rate, dropout_seed=FLASH_SEED)
+        tag = (f"bf16 BH={b * h} S={s} D={D} non-causal, key bias, rate "
+               f"{rate} (long_context ragged)")
+        o, lse = K.flash_attention_fwd(q, k, v, **args)
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+        delta = (do.float() * ro.float()).sum(-1)
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+        dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+        rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta,
+                                                **args)
+        rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+        torch.cuda.synchronize()
+        errs = [check_flash(f"flash fwd o {tag}", o, ro, 2e-2),
+                (check_scaled(f"flash fwd lse {tag}", lse, rlse, 1e-5), 0.0),
+                check_flash(f"flash dk {tag}", dk, rdk, 2e-2),
+                check_flash(f"flash dv {tag}", dv, rdv, 2e-2),
+                check_flash(f"flash dq {tag}", dq, rdq, 2e-2)]
+        print(f"  flash {tag}: max abs err o {errs[0][0]:.3e}, lse "
+              f"{errs[1][0]:.3e}, dk {errs[2][0]:.3e}, dv {errs[3][0]:.3e}, "
+              f"dq {errs[4][0]:.3e} against the plain versions; worst "
+              f"128-row block at {max(e[1] for e in errs):.3e} of its bound",
+              flush=True)
+        del o, lse, ro, rlse, dk, dv, dq, rdk, rdv, rdq
+        torch.cuda.empty_cache()
+
+
+def lc_flash_rows(K, gen, dev, B, H, s, D, mutant=None):
     """The bf16 flash kernels at B x H heads of S = ``s``, D = ``D``,
     causal, rate 0 (the long-context LM's attention) against their plain
     versions run a head at a time (the plain score tensor of all heads
     does not fit), timed beside SDPA ``is_causal=True``, which computes
-    the same function here (no bias, no dropout). Returns ``{part:
-    row}``."""
+    the same function here (no bias, no dropout); with ``mutant`` (the
+    handle of ``sm90_mutant_start``) the planted pipeline faults must fail
+    the same limits. Returns ``{part: row}``."""
     import torch.nn.functional as F
 
     bh, dtype, elem = B * H, torch.bfloat16, 2
@@ -7546,26 +7784,35 @@ def lc_flash_rows(K, gen, dev, B, H, s, D):
     dq = K.flash_attention_dq(q, k, v, do, lse, delta, **args)
     torch.cuda.synchronize()
     one = dict(args, heads=1)
-    errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+    # (max abs err, worst block ratio) a part, over the heads
+    errs = {"fwd": [0.0, 0.0], "dkdv": [0.0, 0.0], "dq": [0.0, 0.0]}
     tag = f"bf16 BH={bh} S={s} D={D} causal rate 0 (long_context)"
+
+    def held(part, *results):
+        for err, ratio in results:
+            errs[part] = [max(errs[part][0], err), max(errs[part][1], ratio)]
+
     for h in range(bh):
         sl = slice(h, h + 1)
         ro, rlse = K.flash_attention_fwd_plain(q[sl], k[sl], v[sl], **one)
-        errs["fwd"] = max(errs["fwd"], check_scaled(
-            f"flash fwd o {tag} head {h}", o[sl], ro, 2e-2),
-            check_scaled(f"flash fwd lse {tag} head {h}", lse[sl], rlse,
-                         1e-5))
+        held("fwd", check_flash(f"flash fwd o {tag} head {h}", o[sl], ro,
+                                2e-2),
+             (check_scaled(f"flash fwd lse {tag} head {h}", lse[sl], rlse,
+                           1e-5), 0.0))
         rdk, rdv = K.flash_attention_dkdv_plain(
             q[sl], k[sl], v[sl], do[sl], lse[sl], delta[sl], **one)
-        errs["dkdv"] = max(errs["dkdv"], check_scaled(
-            f"flash dk {tag} head {h}", dk[sl], rdk, 2e-2),
-            check_scaled(f"flash dv {tag} head {h}", dv[sl], rdv, 2e-2))
+        held("dkdv",
+             check_flash(f"flash dk {tag} head {h}", dk[sl], rdk, 2e-2),
+             check_flash(f"flash dv {tag} head {h}", dv[sl], rdv, 2e-2))
         rdq = K.flash_attention_dq_plain(q[sl], k[sl], v[sl], do[sl],
                                          lse[sl], delta[sl], **one)
-        errs["dq"] = max(errs["dq"], check_scaled(
-            f"flash dq {tag} head {h}", dq[sl], rdq, 2e-2))
+        held("dq", check_flash(f"flash dq {tag} head {h}", dq[sl], rdq,
+                               2e-2))
         del ro, rlse, rdk, rdv, rdq
         torch.cuda.empty_cache()
+    print(f"  flash {tag}, every head: worst 128-row block at " + ", ".join(
+        f"{errs[p][1]:.3e} ({p})" for p in errs) + " of its bound (2e-2 of "
+        "its norm)", flush=True)
     # planted fault: the non-causal kernel's output must fail the check
     bad = K.flash_attention_fwd(q[:1], k[:1], v[:1],
                                 **dict(args, heads=1, causal=False))[0]
@@ -7576,6 +7823,10 @@ def lc_flash_rows(K, gen, dev, B, H, s, D):
              f"({bad_err:.3e})")
     del bad, ro
     torch.cuda.empty_cache()
+    if mutant is not None:
+        lc_sm90_faults(K, sm90_mutant_lib(mutant), q, k, v, do, lse, delta,
+                       tag)
+        torch.cuda.empty_cache()
 
     def heads(fn):
         return lambda: [fn(h) for h in range(bh)]
@@ -7601,9 +7852,10 @@ def lc_flash_rows(K, gen, dev, B, H, s, D):
     lib_b = event_ms(sdpa_bwd((q, k, v, do), B, H, s, D, True), reps=5)
     pairs = bh * (s * (s + 1) // 2)
     io = bh * s * D * elem
-    bnds = {"fwd": bound_ms(4 * io + bh * s * 4, 4 * D * pairs, dtype),
-            "dkdv": bound_ms(6 * io + 2 * bh * s * 4, 8 * D * pairs, dtype),
-            "dq": bound_ms(5 * io + 2 * bh * s * 4, 6 * D * pairs, dtype)}
+    flops = {p: n * D * pairs for p, n in FLASH_FLOP_PER_PAIR.items()}
+    bnds = {"fwd": bound_ms(4 * io + bh * s * 4, flops["fwd"], dtype),
+            "dkdv": bound_ms(6 * io + 2 * bh * s * 4, flops["dkdv"], dtype),
+            "dq": bound_ms(5 * io + 2 * bh * s * 4, flops["dq"], dtype)}
     libs = {"fwd": lib_f, "dkdv": lib_b, "dq": lib_b}
     rows = {}
     for part in ("fwd", "dkdv", "dq"):
@@ -7611,16 +7863,19 @@ def lc_flash_rows(K, gen, dev, B, H, s, D):
         plain_ms = event_ms(heads(lambda h, p=part: pl(h, p)), reps=1)
         torch.cuda.empty_cache()
         name = f"flash_attention_{part} {tag}"
-        report(name, errs[part], ms, plain_ms, bnds[part], libs[part])
+        report(name, errs[part][0], ms, plain_ms, bnds[part], libs[part])
         rows[part] = kernel_row(
-            errs[part], ms, plain_ms, bnds[part], libs[part],
+            errs[part][0], ms, plain_ms, bnds[part], libs[part],
             f"{name}; library SDPA is_causal=True, the same function "
             f"({'forward' if part == 'fwd' else 'its flash backward alone'})"
             "; plain a head at a time")
-    print(f"  (flash at the long-context shape: kernel / SDPA is_causal "
-          f"forward {rows['fwd']['ms'] / lib_f:.3f}x, dK/dV + dQ "
-          f"{(rows['dkdv']['ms'] + rows['dq']['ms']) / lib_b:.3f}x SDPA's "
-          "flash backward, same call)", flush=True)
+    print("  (flash at the long-context shape: " + ", ".join(
+        f"{part} {flops[part] / rows[part]['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * rows[part]['bound_ms'] / rows[part]['ms']:.1f}% of its "
+        "bound" for part in ("fwd", "dkdv", "dq"))
+        + f"; kernel / SDPA is_causal forward {rows['fwd']['ms'] / lib_f:.3f}x"
+        f", dK/dV + dQ {(rows['dkdv']['ms'] + rows['dq']['ms']) / lib_b:.3f}"
+        "x SDPA's flash backward, same call)", flush=True)
     del q, k, v, do, o, lse, delta, dk, dv, dq
     torch.cuda.empty_cache()
     return rows
@@ -7720,14 +7975,16 @@ def lc_adam_rows(K, gen, dev, groups, lr):
     return main
 
 
-def lc_kernel_rows(K, gen, dev, cfg, groups, lr):
+def lc_kernel_rows(K, gen, dev, cfg, groups, lr, mutant=None):
     """The long-context LM's kernel shapes against their plain versions
     (module docstring, phase 15)."""
     main = {}
     hd = cfg.d_model // cfg.num_heads
     for part, row in lc_flash_rows(K, gen, dev, 1, cfg.num_heads, LC_S,
-                                   hd).items():
+                                   hd, mutant).items():
         main[f"flash_attention_{part}@long_context"] = row
+    lc_ragged_check(K, gen, dev)
+    torch.cuda.empty_cache()
     main.update(lc_ln_rows(K, gen, dev, LC_S, cfg.d_model,
                            cfg.layer_norm_eps))
     torch.cuda.empty_cache()
@@ -7755,7 +8012,24 @@ def ring_not_causal():
         yield
 
 
-def check_lc_plain(K, stf, lc, dtype):
+@contextlib.contextmanager
+def ring_plain_flash():
+    """The ``RingAttention`` lowering on the flash kernels' plain versions
+    (forward and backward), every other kernel launched as it is."""
+    from simple_tensorflow_tpu_torch.framework import op_registry
+    from simple_tensorflow_tpu_torch.ops import fused_ops
+
+    def wrap(lower):
+        def plain_flash(ctx, op, inputs):
+            with fused_ops.plain_versions():
+                return lower(ctx, op, inputs)
+        return plain_flash
+
+    with planted(op_registry.get("RingAttention"), "lower", wrap):
+        yield
+
+
+def check_lc_plain(K, stf, lc, dtype, attribution=False):
     """``lm_train_model`` at the full width cut to ``LC_CUT_LAYERS`` layers
     and seq ``LC_CUT_S``, through the kernels against the same runs under
     ``plain_versions()``, eager, from one initializer: the gradients of
@@ -7763,7 +8037,9 @@ def check_lc_plain(K, stf, lc, dtype):
     Adam steps, each loss, each gradient and (f32) every variable and Adam
     slot within ``LC_TOL``; exactly ``lc_per_step`` launches a step. The
     causal flag dropped in the ``RingAttention`` lowering, planted, must
-    fail. Returns the kernel steps' launches."""
+    fail. With ``attribution`` (``--lc-attribution``), the same run with
+    the flash path alone on its plain versions says how much of the gaps
+    the flash kernels own. Returns the kernel steps' launches."""
     from simple_tensorflow_tpu_torch.ops import fused_ops
 
     cfg = dataclasses.replace(lc.LongContextConfig(),
@@ -7778,13 +8054,15 @@ def check_lc_plain(K, stf, lc, dtype):
         m["grads"] = stf.gradients(m["loss"], tvars)
         return m
 
-    def run(plain=False, fault=False, counts=None):
+    def run(plain=False, fault=False, counts=None, plain_flash=False):
         m, sess = seeded_session(stf, build)
         sess._capture = False
         feeds = lc_feeds(lc, cfg, m, LC_CUT_S)
         with (fused_ops.plain_versions() if plain
               else contextlib.nullcontext()), \
-                (ring_not_causal() if fault else contextlib.nullcontext()):
+                (ring_not_causal() if fault else contextlib.nullcontext()), \
+                (ring_plain_flash() if plain_flash
+                 else contextlib.nullcontext()):
             grads = dict(zip(m["grad_names"], sess.run(m["grads"], feeds)))
             if counts is not None:
                 K.reset_launch_counts()
@@ -7808,9 +8086,17 @@ def check_lc_plain(K, stf, lc, dtype):
         worst = max(g, key=g.get)
         return bad, (g[worst], worst), session_errs(got[2], ref[2])
 
+    def gaps(got, ref, var):
+        """The largest relative loss gap, and ``var``'s relative-norm
+        gap after the steps."""
+        loss = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+        a, b = got[2][var].double(), ref[2][var].double()
+        return loss, ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
     ref = run(plain=True)
     counts = {}
-    got = compare(run(counts=counts), ref)
+    got_run = run(counts=counts)
+    got = compare(got_run, ref)
     fault = compare(run(fault=True), ref)
     want = {k: 0 for k in counts}
     want.update({k: v * LC_CHECK_STEPS
@@ -7830,6 +8116,22 @@ def check_lc_plain(K, stf, lc, dtype):
           f"runs: {txt(got)}; launches of the steps {counts}", flush=True)
     print(f"{tag}: planted fault (RingAttention not causal): {txt(fault)}",
           flush=True)
+    if attribution:
+        # which share of the gaps the flash kernels own: the kernel run,
+        # and the kernel run with the flash path on its plain versions,
+        # each off the plain run
+        fp = run(plain_flash=True)
+        var = got[2][1]
+        (l_all, v_all), (l_fp, v_fp) = (gaps(r, ref, var)
+                                        for r in (got_run, fp))
+        print(f"{tag}: the flash path alone on its plain versions: "
+              f"{txt(compare(fp, ref))}; largest relative loss gap "
+              f"{l_all:.3e} (all kernels) vs {l_fp:.3e} (flash plain), "
+              f"{var} after {LC_CHECK_STEPS} steps {v_all:.3e} vs "
+              f"{v_fp:.3e}; the gradients before Adam, worst "
+              f"{got[1][0]:.3e} ({got[1][1]}) vs "
+              f"{compare(fp, ref)[1][0]:.3e} ({compare(fp, ref)[1][1]})",
+              flush=True)
 
     def ok(r):
         return not r[0] and r[1][0] <= rel_tol and (
@@ -7890,7 +8192,8 @@ def graph_vs_eager(K, stf, tag, build, fetch, feeds_at, steps, fault=None):
     return got, counts
 
 
-def sc_windows(K, stf, tag, build, fetch, feeds, items, unit, fwd_fetch=None):
+def sc_windows(K, stf, tag, build, fetch, feeds, items, unit, fwd_fetch=None,
+               attn_flops=0.0, want_kernels=()):
     """A new seeded Session trained by ``run_steps`` windows of
     ``SC_WINDOW_N`` (one that warms up and captures, then ``SC_WINDOWS``
     timed ones) and one window traced: p50 a step, ``items`` ``unit`` a
@@ -7898,8 +8201,12 @@ def sc_windows(K, stf, tag, build, fetch, feeds, items, unit, fwd_fetch=None):
     memory over the first window and over the rest (above what the
     process held before), the launches of the timed windows; with
     ``fwd_fetch`` the share of the dense bf16 peak at 3 x the cost
-    model's forward FLOPs. Returns ``(p50 s, launches, fetches, sess,
-    m)`` with the Session still open."""
+    model's forward FLOPs, and beside it with ``attn_flops`` (the
+    attention FLOPs a step counted from the shapes, which the cost model
+    does not price) added; each of ``want_kernels`` (kernel names) must
+    show in the traced window, and its device ms a step is printed.
+    Returns ``(p50 s, launches, fetches, sess, m)`` with the Session still
+    open."""
     from simple_tensorflow_tpu_torch.framework import cost_model
 
     gc.collect()
@@ -7942,6 +8249,17 @@ def sc_windows(K, stf, tag, build, fetch, feeds, items, unit, fwd_fetch=None):
           f"{peak_first:.3f} GiB over the first window (warm-up, capture), "
           f"{peak:.3f} GiB over the timed ones (above {base:.3f} GiB held "
           f"before); launches {counts}", flush=True)
+    if want_kernels:
+        names = {} if tr is None else tr["kernels"]
+        got = {w: sum(v for k, v in names.items() if w + "<" in k)
+               for w in want_kernels}
+        missing = [w for w, v in got.items() if not v]
+        if missing:
+            fail(f"{tag}: the traced window shows no {missing}")
+        print(f"{tag}: the traced window's device ms a step by kernel: "
+              + ", ".join(f"{w} {v:.4f}" for w, v in got.items())
+              + f" ({100 * sum(got.values()) / tr['dev_ms']:.1f}% of the "
+              "device time)", flush=True)
     if fwd_fetch is not None:
         est = cost_model.estimate(fwd_fetch(m), feeds=list(fd))
         share = 3 * est.flops / p50 / BF16_PEAK
@@ -7949,6 +8267,14 @@ def sc_windows(K, stf, tag, build, fetch, feeds, items, unit, fwd_fetch=None):
               f"a step; 3 x that at the p50: {3 * est.flops / p50 / 1e12:.2f} "
               f"TFLOP/s, {100 * share:.2f}% of the dense bf16 peak "
               f"({BF16_PEAK / 1e12:.0f} TFLOP/s, data sheet)", flush=True)
+        if attn_flops:
+            total = 3 * est.flops + attn_flops
+            print(f"{tag}: the attention FLOPs counted from the shapes "
+                  f"(forward 4 x D, backward 10 x D a live causal pair, "
+                  f"every layer) {attn_flops / 1e12:.4f} TFLOP a step; "
+                  f"with them {total / p50 / 1e12:.2f} TFLOP/s, "
+                  f"{100 * total / p50 / BF16_PEAK:.2f}% of the dense bf16 "
+                  "peak", flush=True)
     return p50, counts, out, sess, m
 
 
@@ -8155,6 +8481,7 @@ def single_card_phase(K, dev, kernel_rows):
     from simple_tensorflow_tpu_torch.models import word2vec
 
     t0 = time.perf_counter()
+    mutant = sm90_mutant_start()  # built while the phase runs
     card = card_line()
     recompute_auto_report(stf, card)
     cfg = lc.LongContextConfig()
@@ -8165,7 +8492,15 @@ def single_card_phase(K, dev, kernel_rows):
           f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.d_model // cfg.num_heads}, "
           f"vocab {cfg.vocab_size}), seq {LC_S}, bf16; Adam groups "
           f"{groups}:", flush=True)
-    kernel_rows.update(lc_kernel_rows(K, gen, dev, cfg, groups, 3e-4))
+    try:
+        kernel_rows.update(lc_kernel_rows(K, gen, dev, cfg, groups, 3e-4,
+                                          mutant))
+    finally:
+        for proc in mutant[2]:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(mutant[0], ignore_errors=True)
     torch.cuda.empty_cache()
     paths = []
     for dtype in (stf.float32, stf.bfloat16):
@@ -8195,11 +8530,17 @@ def single_card_phase(K, dev, kernel_rows):
     if counts != want:
         fail(f"{tag} graph: launches {counts}, expected {want}")
     paths.append(("long_context graph", 0.0, counts))
+    hd = cfg.d_model // cfg.num_heads
+    attn = cfg.num_layers * cfg.num_heads * (LC_S * (LC_S + 1) // 2) * \
+        (4 + 10) * hd
     p50, counts, _, sess, _ = sc_windows(
         K, stf, tag, lc_build(lc, cfg, LC_S, stf.bfloat16),
         lambda m: [m["loss"], m["train_op"]],
         lambda m: lc_feeds(lc, cfg, m, LC_S), LC_S, "tokens",
-        fwd_fetch=lambda m: m["loss"])
+        fwd_fetch=lambda m: m["loss"], attn_flops=attn,
+        want_kernels=[importlib.import_module(
+            KMOD + "flash_attention").kernel_name(part, torch.bfloat16, hd)
+            for part in ("fwd", "dkdv", "dq")])
     sess.close()
     torch.cuda.empty_cache()
     if any(counts.get(k, 0) < v * SC_WINDOWS * SC_WINDOW_N
@@ -8266,6 +8607,21 @@ def mem_txt(w):
             f"{w['base_gib'][1]:.3f} GiB reserved before the Session)")
 
 
+def demangled_kernel(sym, prefix):
+    """``kernel<template args>`` of a mangled kernel symbol whose name
+    starts with ``prefix``, else None."""
+    # the kernel's name follows its length in the mangled symbol
+    k = re.search(r"\d(" + prefix + r"\w*?kernel)I(\w*?)EE", sym)
+    if not k:
+        return None
+    targs = re.findall(r"L[ib](\d+)", k.group(2))
+    if "__nv_bfloat16" in k.group(2):
+        targs.insert(0, "bf16")
+    elif k.group(2).startswith("f"):
+        targs.insert(0, "f32")
+    return f"{k.group(1)}<{', '.join(targs)}>"
+
+
 def kernel_props(log, prefix):
     """``[(kernel<template args>, "N registers, spill stores/loads")]`` of
     the kernels whose name starts with ``prefix``, from ``ptxas -v``."""
@@ -8273,17 +8629,7 @@ def kernel_props(log, prefix):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            sym = m.group(1)
-            # the kernel's name follows its length in the mangled symbol
-            k = re.search(r"\d(" + prefix + r"\w*?kernel)I(\w*?)EE", sym)
-            name = None
-            if k:
-                targs = re.findall(r"L[ib](\d+)", k.group(2))
-                if "__nv_bfloat16" in k.group(2):
-                    targs.insert(0, "bf16")
-                elif k.group(2).startswith("f"):
-                    targs.insert(0, "f32")
-                name = f"{k.group(1)}<{', '.join(targs)}>"
+            name = demangled_kernel(m.group(1), prefix)
             spill = None
         elif name and "spill" in ln:
             spill = ln.strip()
@@ -8309,8 +8655,9 @@ def main():
     smoke_t0 = time.perf_counter()
     faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     serving_only = sys.argv[1:] == ["--serving"]
-    if sys.argv[1:] and not serving_only:
-        fail(f"usage: {sys.argv[0]} [--serving]")
+    lc_only = sys.argv[1:] == ["--lc-attribution"]
+    if sys.argv[1:] and not (serving_only or lc_only):
+        fail(f"usage: {sys.argv[0]} [--serving | --lc-attribution]")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures "
              "the port on an NVIDIA GPU")
@@ -8342,8 +8689,9 @@ def main():
             spills.append(f"{entry}: {ln.strip()}")
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
-    for prefix in ("flash_fwd_mma", "flash_bwd_", "qmm_", "layer_norm_",
-                   "decode_one", "dropout"):
+    for prefix in ("flash_fwd_mma", "flash_bwd_", "flash_fwd_sm90",
+                   "flash_dkdv_sm90", "qmm_", "layer_norm_", "decode_one",
+                   "dropout"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
 
@@ -8355,6 +8703,13 @@ def main():
         for int8 in (False, True):
             serve(params, cfg, int8, make_prompts(cfg.vocab_size), dev, ())[0]
         print("chip_smoke: the serving phase passed (--serving)", flush=True)
+        return
+    if lc_only:
+        import simple_tensorflow_tpu_torch as stf
+        from simple_tensorflow_tpu_torch.models import long_context as lc
+        check_lc_plain(K, stf, lc, stf.bfloat16, attribution=True)
+        print("chip_smoke: the long-context bf16 check passed "
+              "(--lc-attribution)", flush=True)
         return
     rng = np.random.RandomState(0)
     print("kernel phases (times are per call, on the card):", flush=True)
@@ -8493,12 +8848,13 @@ def main():
         for t in ("float32", "bfloat16")
         for s in ("len1", "len32", "len64", "cross")})
     # the long-context LM's rows: its checks, captured runs and windows
+    # (the forward and dK/dV at D = 128 on the wgmma kernels)
     session_where.update({
         f"{name}@long_context": (src, tpu, name, name, "long_context")
         for name, src, tpu in (
-            ("flash_attention_fwd", "flash_fwd_mma.cu",
+            ("flash_attention_fwd", "flash_fwd_sm90.cu",
              "flash_attention.py:102"),
-            ("flash_attention_dkdv", "flash_bwd_mma.cu",
+            ("flash_attention_dkdv", "flash_dkdv_sm90.cu",
              "flash_attention.py:210"),
             ("flash_attention_dq", "flash_bwd_mma.cu",
              "flash_attention.py:264"),

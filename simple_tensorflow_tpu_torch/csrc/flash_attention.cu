@@ -2,7 +2,9 @@
 // kernels simple_tensorflow_tpu/ops/pallas/flash_attention.py:_fwd_kernel
 // (:102, called at :180), _bwd_dkdv_kernel (:210, called at :352) and
 // _bwd_dq_kernel (:264, called at :383), with their dropout branch, and the
-// C entry points of all flash kernels. bf16 runs on tensor cores: the
+// C entry points of all flash kernels. bf16 runs on tensor cores: at
+// D = 128 the forward in flash_fwd_sm90.cu and dK/dV in flash_dkdv_sm90.cu
+// (wgmma, TMA, warp-specialised), dQ in flash_bwd_mma.cu; at D <= 64 the
 // forward in flash_fwd_mma.cu, dK/dV and dQ in flash_bwd_mma.cu. The
 // CUDA-core kernels here run f32: TF32 tensor cores would fail the f32
 // training check's limits (1e-5 on the loss, 1e-4 on the gradients).
@@ -55,7 +57,25 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                float inv_keep, cudaStream_t s);
 
-// flash_bwd_mma.cu: the bf16 dK/dV (dkdv != 0) or dQ on tensor cores
+// flash_fwd_sm90.cu, flash_dkdv_sm90.cu: the bf16 forward and dK/dV at
+// D = 128 on wgmma and TMA
+cudaError_t flash_fwd_sm90(const void* q, const void* k, const void* v,
+                           const float* bias, void* o, float* lse, int BH,
+                           int q_len, int kv_len, int H, float scale,
+                           int causal, int dropout, uint32_t seed,
+                           const uint32_t* seed_ptr, uint32_t threshold,
+                           float inv_keep, cudaStream_t s);
+cudaError_t flash_dkdv_sm90(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const float* bias, void* dk,
+                            void* dv, int BH, int q_len, int kv_len, int H,
+                            float scale, int causal, int dropout,
+                            uint32_t seed, const uint32_t* seed_ptr,
+                            uint32_t threshold, float inv_keep,
+                            cudaStream_t s);
+
+// flash_bwd_mma.cu: the bf16 dK/dV (dkdv != 0, D <= 64) or dQ on tensor
+// cores
 cudaError_t flash_bwd_bf16_mma(int dkdv, const void* q, const void* k,
                                const void* v, const void* dout,
                                const float* lse, const float* delta,
@@ -571,12 +591,27 @@ cudaError_t run_f32(int which, const FaArgs& a) {
   return run_dq<D>(a);
 }
 
-// bf16 on tensor cores (flash_fwd_mma.cu, flash_bwd_mma.cu: each checks
-// D), f32 on the CUDA-core kernels above
+// bf16 on tensor cores: the forward and dK/dV at D = 128 on wgmma and TMA
+// (flash_fwd_sm90.cu, flash_dkdv_sm90.cu), dQ at D = 128 and everything at
+// D <= 64 on mma.sync (flash_fwd_mma.cu, flash_bwd_mma.cu: each checks D);
+// f32 on the CUDA-core kernels above. ops/kernels/flash_attention.py
+// kernel_name() states the same rule.
 int dispatch(int which, int dtype, int D, const FaArgs& a) {
   if (a.BH <= 0 || a.q_len <= 0) return cudaSuccess;
   if (a.kv_len <= 0) return cudaErrorInvalidValue;
   if (dtype == kBF16) {
+    if (D == 128 && which == kFwd)
+      return flash_fwd_sm90(a.q, a.k, a.v, a.bias, a.o,
+                            static_cast<float*>(a.lse), a.BH, a.q_len,
+                            a.kv_len, a.H, a.scale, a.causal, a.dropout,
+                            a.seed, a.seed_ptr, a.threshold, a.inv_keep, a.s);
+    if (D == 128 && which == kDkdv)
+      return flash_dkdv_sm90(a.q, a.k, a.v, a.dout,
+                             static_cast<const float*>(a.lse_in),
+                             static_cast<const float*>(a.delta), a.bias,
+                             a.dk, a.dv, a.BH, a.q_len, a.kv_len, a.H,
+                             a.scale, a.causal, a.dropout, a.seed,
+                             a.seed_ptr, a.threshold, a.inv_keep, a.s);
     if (which == kFwd)
       return flash_fwd_bf16_mma(a.q, a.k, a.v, a.bias, a.o,
                                 static_cast<float*>(a.lse), a.BH, a.q_len,

@@ -2,7 +2,9 @@
 // TPU kernels simple_tensorflow_tpu/ops/pallas/flash_attention.py:
 // _bwd_dkdv_kernel (:210, called at :352) and _bwd_dq_kernel (:264, called
 // at :383) for bf16 inputs, dropout branches (:244-253, :297-301) included.
-// flash_attention.cu routes every bf16 backward here and keeps its f32
+// flash_attention.cu routes every bf16 dQ and the bf16 dK/dV at D <= 64
+// here (dK/dV at D = 128 runs flash_dkdv_sm90.cu's wgmma kernel) and keeps
+// its f32
 // CUDA-core kernels for f32 inputs (TF32 would break the f32 training
 // check's 1e-4 on the gradients).
 //
@@ -444,10 +446,10 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D, bool kCausal, bool kDropout>
-cudaError_t launch_bwd(bool dkdv, const BwdArgs& a) {
-  const dim3 grid(a.BH, cdiv(dkdv ? a.kv_len : a.q_len, kTile));
-  if (dkdv) {
+template <int D, bool kCausal, bool kDropout, bool kDkdv>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  const dim3 grid(a.BH, cdiv(kDkdv ? a.kv_len : a.q_len, kTile));
+  if constexpr (kDkdv) {
     constexpr int smem = dkdv_smem_bytes<D>();
     auto kernel = flash_bwd_dkdv_mma_kernel<D, kCausal, kDropout>;
     cudaError_t e = allow_smem(kernel, smem);
@@ -467,22 +469,29 @@ cudaError_t launch_bwd(bool dkdv, const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t by_flags(bool dkdv, const BwdArgs& a) {
+template <int D, bool kDkdv>
+cudaError_t by_flags(const BwdArgs& a) {
   if (a.causal) {
-    if (a.dropout) return launch_bwd<D, true, true>(dkdv, a);
-    return launch_bwd<D, true, false>(dkdv, a);
+    if (a.dropout) return launch_bwd<D, true, true, kDkdv>(a);
+    return launch_bwd<D, true, false, kDkdv>(a);
   }
-  if (a.dropout) return launch_bwd<D, false, true>(dkdv, a);
-  return launch_bwd<D, false, false>(dkdv, a);
+  if (a.dropout) return launch_bwd<D, false, true, kDkdv>(a);
+  return launch_bwd<D, false, false, kDkdv>(a);
 }
 
+template <int D>
+cudaError_t both(bool dkdv, const BwdArgs& a) {
+  return dkdv ? by_flags<D, true>(a) : by_flags<D, false>(a);
+}
+
+// dK/dV at D = 128 is flash_dkdv_sm90.cu's
 cudaError_t by_dim(bool dkdv, int D, const BwdArgs& a) {
   switch (D) {
-    case 16: return by_flags<16>(dkdv, a);
-    case 32: return by_flags<32>(dkdv, a);
-    case 64: return by_flags<64>(dkdv, a);
-    case 128: return by_flags<128>(dkdv, a);
+    case 16: return both<16>(dkdv, a);
+    case 32: return both<32>(dkdv, a);
+    case 64: return both<64>(dkdv, a);
+    case 128:
+      return dkdv ? cudaErrorInvalidValue : by_flags<128, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,8 @@
 // The bf16 FlashAttention forward on Hopper tensor cores: the port of the TPU
 // kernel simple_tensorflow_tpu/ops/pallas/flash_attention.py:_fwd_kernel
-// (:102, called at :180) for bf16 inputs, dropout branch included.
-// flash_attention.cu routes every bf16 forward here and keeps its f32
+// (:102, called at :180) for bf16 inputs at D <= 64, dropout branch
+// included. flash_attention.cu routes every bf16 forward at D <= 64 here
+// (D = 128 runs flash_fwd_sm90.cu's wgmma kernel) and keeps its f32
 // CUDA-core kernel for f32 inputs (TF32 would break the f32 training
 // check's 1e-5 on the loss).
 //
@@ -322,7 +323,6 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
     STF_MMA_DIM(16);
     STF_MMA_DIM(32);
     STF_MMA_DIM(64);
-    STF_MMA_DIM(128);
 #undef STF_MMA_DIM
     default:
       return cudaErrorInvalidValue;

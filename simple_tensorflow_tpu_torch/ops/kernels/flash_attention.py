@@ -26,10 +26,13 @@ The kernel-level functions work on ``(B*H, S, D)``-contiguous tensors:
 ``(dk, dv)``, ``flash_attention_dq`` -> ``dq``, each beside its
 ``*_plain`` version. ``delta = rowsum(dO * O)`` (minus the lse cotangent)
 is plain PyTorch, as it sits outside Pallas in JAX. bf16 runs on tensor
-cores: the forward in ``csrc/flash_fwd_mma.cu``, dK/dV and dQ in
-``csrc/flash_bwd_mma.cu``; f32 runs the CUDA-core kernels of
-``csrc/flash_attention.cu``. The source notes of the three files say what
-bounds each kernel and what its design does about it.
+cores: at head_dim 128 the forward in ``csrc/flash_fwd_sm90.cu`` and dK/dV
+in ``csrc/flash_dkdv_sm90.cu`` (wgmma, TMA, warp-specialised), dQ in
+``csrc/flash_bwd_mma.cu``; below 128 the forward in
+``csrc/flash_fwd_mma.cu``, dK/dV and dQ in ``csrc/flash_bwd_mma.cu``; f32
+runs the CUDA-core kernels of ``csrc/flash_attention.cu``
+(:func:`kernel_name`). The source notes of the files say what bounds each
+kernel and what its design does about it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,33 @@ from .common import (DTYPE_CODES, NEG_INF, check_cuda_arg, check_status,
                      keep_threshold, scale_kept, seed_word, uses_kernel)
 
 HEAD_DIMS = (16, 32, 64, 128)
+# the CUDA kernel each launch runs, by (part, dtype, head dim at 128): the
+# rule of csrc/flash_attention.cu ``dispatch``
+_KERNELS = {
+    ("fwd", torch.float32, False): "flash_fwd_kernel",
+    ("dkdv", torch.float32, False): "flash_dkdv_kernel",
+    ("dq", torch.float32, False): "flash_dq_kernel",
+    ("fwd", torch.bfloat16, False): "flash_fwd_mma_kernel",
+    ("dkdv", torch.bfloat16, False): "flash_bwd_dkdv_mma_kernel",
+    ("dq", torch.bfloat16, False): "flash_bwd_dq_mma_kernel",
+    ("fwd", torch.bfloat16, True): "flash_fwd_sm90_kernel",
+    ("dkdv", torch.bfloat16, True): "flash_dkdv_sm90_kernel",
+    ("dq", torch.bfloat16, True): "flash_bwd_dq_mma_kernel",
+}
+
+
+def kernel_name(part, dtype, head_dim):
+    """The name of the CUDA kernel that ``part`` (``"fwd"``, ``"dkdv"`` or
+    ``"dq"``) launches for ``dtype`` inputs of ``head_dim``, causal or not,
+    with or without dropout: f32 takes the CUDA-core kernels at every head
+    dim, bf16 the wgmma kernels for the forward and dK/dV at 128 and the
+    mma.sync kernels otherwise."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got "
+                         f"{head_dim}")
+    f32 = dtype == torch.float32
+    return _KERNELS[(part, torch.float32 if f32 else torch.bfloat16,
+                     head_dim == 128 and not f32)]
 
 
 def _scores(q, k, bias, heads, sm_scale, causal):

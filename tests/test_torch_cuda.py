@@ -485,12 +485,11 @@ def test_flash_fwd_bf16_tensor_core_kernel_on_card(cuda, d, sq, sk, causal,
     assert K.launch_counts()["flash_attention_fwd"] == before + 1
 
 
-def _flash_fwd_keep_mask(cuda, bh, s, causal, seed):
+def _flash_fwd_keep_mask(cuda, bh, s, causal, seed, d=64):
     """The keep mask the bf16 forward applied, read off its output: with
-    q = 0 every live score is 0, so p = 1; v is one-hot over a 64-key
-    block, so o[:, r, d] is nonzero exactly where key 64 * blk + d of row r
+    q = 0 every live score is 0, so p = 1; v is one-hot over a d-key
+    block, so o[:, r, i] is nonzero exactly where key d * blk + i of row r
     was live and kept."""
-    d = 64
     q = torch.zeros((bh, s, d), device=cuda, dtype=torch.bfloat16)
     k = torch.randn((bh, s, d), device=cuda).to(torch.bfloat16)
     parts = []
@@ -505,13 +504,15 @@ def _flash_fwd_keep_mask(cuda, bh, s, causal, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s,causal", [(128, True), (100, True),
-                                      (192, False)])
-def test_flash_fwd_bf16_dropout_mask_on_card(cuda, s, causal):
-    # the tensor-core forward's dropout mask is K0's, bit for bit: 0
+                                      (192, False), (300, True)])
+def test_flash_fwd_bf16_dropout_mask_on_card(cuda, s, causal, d):
+    # the tensor-core forward's dropout mask is K0's, bit for bit, on the
+    # mma.sync kernel (D = 64) and the wgmma kernel (D = 128): 0
     # mismatches; the mask of the next seed differs (a planted fault)
     bh, seed = 6, 424242
-    got = _flash_fwd_keep_mask(cuda, bh, s, causal, seed)
+    got = _flash_fwd_keep_mask(cuda, bh, s, causal, seed, d)
     live = torch.ones(s, s, dtype=torch.bool, device=cuda)
     if causal:
         live = live.tril()
@@ -617,13 +618,15 @@ def test_flash_bwd_dtype_picks_its_kernel_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s,causal", [(128, True), (100, True),
-                                      (192, False)])
-def test_flash_bwd_bf16_dropout_mask_on_card(cuda, s, causal):
+                                      (192, False), (300, True)])
+def test_flash_bwd_bf16_dropout_mask_on_card(cuda, s, causal, d):
     # the tensor-core backward's dropout mask is K0's, bit for bit, read
-    # off each of dV, dK and dQ (keep_mask_readoff): 0 mismatches; the mask
-    # of the next seed differs (a planted fault)
-    bh, seed, d = 6, 424242, 64
+    # off each of dV, dK and dQ (keep_mask_readoff; dK/dV on the wgmma
+    # kernel at D = 128): 0 mismatches; the mask of the next seed differs
+    # (a planted fault)
+    bh, seed = 6, 424242
     args = dict(heads=1, sm_scale=0.125, causal=causal, dropout_rate=0.1,
                 dropout_seed=seed)
 
@@ -641,6 +644,80 @@ def test_flash_bwd_bf16_dropout_mask_on_card(cuda, s, causal):
         torch.cuda.synchronize()
         assert int((got != want).sum()) == 0
         assert int((got != bad).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,causal,biased,rate", [
+    (200, 200, True, False, 0.0), (1000, 1000, True, False, 0.0),
+    (3960, 3960, False, True, 0.0), (3960, 3960, False, True, 0.1),
+    (3960, 3960, True, False, 0.1), (100, 171, False, True, 0.1),
+    (300, 130, False, True, 0.0), (129, 129, True, True, 0.0)])
+def test_flash_sm90_kernels_on_ragged_shapes_on_card(cuda, sq, sk, causal,
+                                                     biased, rate):
+    # the wgmma forward and dK/dV (bf16, D = 128) at lengths that are no
+    # multiple of the 128-row tile or the 64-query sub-tile, Sq != Sk with
+    # a key bias, B * H = 8 heads, with and without dropout: every output
+    # against its plain version, one launch each
+    h, d = 4, 128
+    q, k, v, do, bias = _flash_inputs(cuda, torch.bfloat16, 45, 2, h, sq, sk,
+                                      d, biased)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    if rate:
+        args.update(dropout_rate=rate, dropout_seed=SEED)
+    before = K.launch_counts()
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do.float() * ro.float()).sum(-1)
+    dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    _close(o, ro, 2e-2)
+    _close(lse, rlse, 1e-5)
+    _close(dk, rdk, 2e-2)
+    _close(dv, rdv, 2e-2)
+    for name in ("flash_attention_fwd", "flash_attention_dkdv"):
+        assert after[name] == before[name] + 1
+    # planted fault: the plain versions under the other causal flag fail
+    # the limits
+    bad = dict(args, causal=not causal)
+    bo, _ = K.flash_attention_fwd_plain(q, k, v, **bad)
+    bdk, bdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **bad)
+    for out, ref in ((o, bo), (dk, bdk), (dv, bdv)):
+        with pytest.raises(AssertionError):
+            _close(out, ref, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernel_names_follow_the_routing_rule_on_card(cuda, d, rate):
+    # the kernels a trace shows for the bf16 and f32 forward, dK/dV and dQ
+    # are the ones flash_attention.kernel_name names: at D = 128 the bf16
+    # forward and dK/dV run the wgmma kernels, dQ mma.sync
+    fa = _kernel_module("flash_attention")
+    args = dict(heads=4, sm_scale=d ** -0.5, causal=True)
+    if rate:
+        args.update(dropout_rate=rate, dropout_seed=SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, _ = _flash_inputs(cuda, dtype, 46, 2, 4, 96, 96, d,
+                                       False)
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+        delta = (do.float() * ro.float()).sum(-1)
+        parts = {
+            "fwd": lambda: K.flash_attention_fwd(q, k, v, **args),
+            "dkdv": lambda: K.flash_attention_dkdv(q, k, v, do, rlse, delta,
+                                                   **args),
+            "dq": lambda: K.flash_attention_dq(q, k, v, do, rlse, delta,
+                                               **args)}
+        for part, fn in parts.items():
+            names = _trace_names(fn)
+            want = fa.kernel_name(part, dtype, d)
+            assert any(want + "<" in n for n in names), (part, want, names)
+            others = {fa.kernel_name(p, t, dd) for p in parts
+                      for t in (torch.float32, torch.bfloat16)
+                      for dd in (64, 128)} - {want}
+            assert not any(o + "<" in n for n in names for o in others)
 
 
 @pytest.mark.cuda
@@ -1347,17 +1424,18 @@ def _seed_tensor(cuda, seed=SEED):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,causal,biased", [
     (64, 64, True, False), (64, 64, False, True), (64, 96, False, True),
-    (200, 130, False, True)])
+    (200, 130, False, True), (300, 300, True, False)])
 def test_flash_seed_pointer_entries_match_launch_argument_on_card(
-        cuda, dtype, sq, sk, causal, biased):
+        cuda, dtype, sq, sk, causal, biased, d):
     # the three flash kernels with the seed read through a device pointer:
-    # bit-identical to the launch-argument entry; one *_device_seed count
-    # each and no launch-argument count; another seed in the buffer draws
-    # another mask
-    h, d = 4, 64
+    # bit-identical to the launch-argument entry (bf16 at D = 128: the
+    # wgmma forward and dK/dV); one *_device_seed count each and no
+    # launch-argument count; another seed in the buffer draws another mask
+    h = 4
     q, k, v, do, bias = _flash_inputs(cuda, dtype, 41, 2, h, sq, sk, d,
                                       biased)
     base = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias,
@@ -1417,16 +1495,19 @@ def test_dropout_residual_seed_pointer_entry_matches_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,sk", [(64, 96), (96, 64), (64, 64)])
+@pytest.mark.parametrize("sq,sk", [(64, 96), (96, 64), (64, 64),
+                                   (130, 300)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_non_causal_pad_bias_at_sq_ne_sk_on_card(cuda, dtype, sq, sk,
-                                                       rate):
+                                                       rate, d):
     # the transformer's encoder and cross-attention case: non-causal, the
     # (B, kv_len) pad bias (-1e9 on the last keys of one row, as
     # _pad_bias builds it), Sq != Sk; forward and both backward kernels
-    # against the plain versions
-    h, d = 4, 64
+    # against the plain versions (bf16 at D = 128: the wgmma forward and
+    # dK/dV)
+    h = 4
     q, k, v, do, _ = _flash_inputs(cuda, dtype, 43, 2, h, sq, sk, d, False)
     bias = torch.zeros(2, sk, device=cuda)
     bias[1, -7:] = -1e9

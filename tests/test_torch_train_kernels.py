@@ -98,6 +98,63 @@ def test_flash_attention_and_vjp_match_jax(dtype, sq, sk, causal, biased):
                                    **(GRAD if f32 else BF16))
 
 
+@pytest.mark.parametrize("sq,sk,causal,biased", [
+    (13, 13, True, False), (9, 13, False, True)])
+def test_flash_attention_head_dim_128_matches_jax(sq, sk, causal, biased):
+    # head_dim 128 in bf16, the shape class the wgmma kernels take on the
+    # card (here the plain versions): forward, lse and the three gradients
+    # against the Pallas kernels in interpret mode
+    rng = np.random.RandomState(40 + sq + sk)
+    b, h, d = 1, 2, 128
+    q, k, v = (rng.randn(b, h, n, d).astype(np.float32)
+               for n in (sq, sk, sk))
+    go = rng.randn(b, h, sq, d).astype(np.float32)
+    bias = (rng.randn(b, sk) * 2).astype(np.float32) if biased else None
+    jd = jnp.bfloat16
+
+    def jfn(q_, k_, v_):
+        return jfa.flash_attention(
+            q_, k_, v_, causal=causal,
+            bias=None if bias is None else jnp.asarray(bias))
+
+    jo, vjp = jax.vjp(jfn, *(jnp.asarray(a, jd) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(go, jd))
+    tq, tk, tv = (_t(a).to(torch.bfloat16).requires_grad_()
+                  for a in (q, k, v))
+    o = K.flash_attention(tq, tk, tv, causal=causal,
+                          bias=None if bias is None else _t(bias))
+    grads = torch.autograd.grad(
+        (o.float() * _t(go).to(torch.bfloat16).float()).sum(), (tq, tk, tv))
+    np.testing.assert_allclose(o.detach().float().numpy(), _np(jo), **BF16)
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(got.float().numpy(), _np(want), **BF16)
+
+
+def test_flash_kernel_routing_rule():
+    # which CUDA kernel each (part, dtype, head dim) launches: bf16 at
+    # head_dim 128 takes the wgmma forward and dK/dV, and dQ stays on
+    # mma.sync; below 128 bf16 takes mma.sync throughout; f32 the CUDA-core
+    # kernels at every head dim (test_torch_cuda.py holds a trace's kernel
+    # names to this table on the card)
+    fa = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                                 "flash_attention")
+    for d in (16, 32, 64):
+        assert [fa.kernel_name(p, torch.bfloat16, d)
+                for p in ("fwd", "dkdv", "dq")] == [
+            "flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+            "flash_bwd_dq_mma_kernel"]
+    assert [fa.kernel_name(p, torch.bfloat16, 128)
+            for p in ("fwd", "dkdv", "dq")] == [
+        "flash_fwd_sm90_kernel", "flash_dkdv_sm90_kernel",
+        "flash_bwd_dq_mma_kernel"]
+    for d in fa.HEAD_DIMS:
+        assert [fa.kernel_name(p, torch.float32, d)
+                for p in ("fwd", "dkdv", "dq")] == [
+            "flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel"]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.kernel_name("fwd", torch.bfloat16, 96)
+
+
 def test_flash_attention_kernel_functions_match_the_pallas_pieces():
     """The three kernel-level plain versions against the Pallas forward
     and the two backward kernels, fed the same (o, lse, delta)."""
