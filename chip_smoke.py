@@ -218,7 +218,7 @@ flash kernels own.
    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the ops
    it warns about are printed). First 17 sequential captured
    ``Session.run([train_op, loss])`` steps, the reference. Run A:
-   ``MonitoredTrainingSession(checkpoint_dir, save_checkpoint_steps=8,
+   ``MonitoredTrainingSession(checkpoint_dir, save_checkpoint_steps=16,
    save_summaries_steps=4, log_step_count_steps=4, loop_fusion_steps=4,
    StopAtStepHook(last_step=16), Saver(max_to_keep=2))`` driven by
    ``run_steps([train_op, loss, global_step], 4)`` until it stops: the
@@ -431,9 +431,10 @@ flash kernels own.
    step-loop cost, the writer's seconds, the device memory during the
    write, the p50 step of windows while the writer works against after.
    Run A: ``MonitoredTrainingSession`` (numerics ``metrics``, async
-   ``CheckpointSaverHook`` every 32 steps, ``StopAtStepHook(last_step=
-   40)``). Run B: the same with a ``PreemptionHandler(manager=)`` and a
-   SIGTERM after step 20: it drains, saves and stops. C: a new graph
+   ``CheckpointSaverHook`` every 32 steps, so at step 0 and at the end,
+   ``StopAtStepHook(last_step=24)``). Run B: the same with a
+   ``PreemptionHandler(manager=)`` and a SIGTERM after step 12: it
+   drains, saves and stops. C: a new graph
    ``restore_or_initialize``-d from B's directory trains on to A's last
    step, bit for bit A's state; D: B's checkpoint's ``.meta`` imported
    into a fresh graph and restored trains one window bit for bit as C's
@@ -445,13 +446,14 @@ flash kernels own.
    the smoke's cells (the graphs built, no step run). The long-context
    LM's kernels at ``LongContextConfig()`` (d_model 1024, 8 heads of 128,
    vocab 32000), seq 32768, bf16: the flash forward, dK/dV and dQ at (8,
-   32768, 128) causal, rate 0 (the forward and dK/dV on the wgmma
-   kernels), against their plain versions a head at a time (bf16 2e-2
-   scaled and each block of 128 rows within 2e-2 of its norm, lse
-   1e-5; planted, these must fail: the non-causal kernel, and the wgmma
-   pipelines built from copies of their sources with the diagonal key
-   tile of each query tile but the first, the diagonal query sub-tile of
-   each key tile, or the last, skipped), timed beside SDPA
+   32768, 128) causal, rate 0 (all three on the wgmma kernels), against
+   their plain versions a head at a time (bf16 2e-2 scaled and each block
+   of 128 rows within 2e-2 of its norm, lse 1e-5; planted, these must
+   fail: the non-causal kernel, and the wgmma pipelines built from copies
+   of their sources with the diagonal key tile of each query tile but the
+   first, the diagonal query sub-tile of each key tile, or the last,
+   skipped in the forward and dK/dV, and dQ's two diagonal key tiles or
+   its first key tile skipped), timed beside SDPA
    ``is_causal=True`` (the same
    function here), with the TFLOP/s and the share of the bound; the
    wgmma kernels at a ragged length (S = 4000 - 40, 2 x 4 heads,
@@ -3931,15 +3933,17 @@ def transformer_session_phase(K, dev, kernel_rows):
 LOOP_N = 4                  # run_steps windows: ConfigProto(loop_fusion_steps)
 LOOP_STEPS = 16             # 4 windows of 4 against 16 sequential runs
 LOOP_TIMED = 8              # windows (and runs) timed for the p50s
-LOOP_SAVE_STEPS, LOOP_SUMMARY_STEPS, LOOP_LOG_STEPS = 8, 4, 4
+# run A saves at 0 (twice: at the session's creation and at its timer's
+# first trigger), 16 and the end; the windows do not depend on the save steps
+LOOP_SAVE_STEPS, LOOP_SUMMARY_STEPS, LOOP_LOG_STEPS = 16, 4, 4
 LOOP_KEEP = 2               # Saver(max_to_keep=2): checkpoints of 1.76 GB
 # JAX's hooks on this graph (tests/test_torch_monitored_session.py holds
 # the port's equal to them): the hooks fetch global_step beside train_op,
 # before its increment, so StopAtStepHook(last_step=16) ends at step 17
-# and the checkpoint named -8 holds step 9; SummarySaverHook writes its
+# and the checkpoint named -16 holds step 17; SummarySaverHook writes its
 # first summary (step 0) only and then votes windows of one step
 LOOP_WINDOWS = [1, 3] + [1] * 13
-LOOP_CKPT_STEPS = [0, 8, 16, 17]
+LOOP_CKPT_STEPS = [0, 16, 17]
 LOOP_B_WINDOWS = [1, 3, 1, 1, 1, 1, 1]          # StopAtStepHook(last_step=8)
 LOOP_GAP_MS = 0.1           # longest device idle gap between two replays
 LOOP_TRACES = 3             # traces of a window, the best kept
@@ -6956,10 +6960,10 @@ def data_phase(K, dev):
 # -- phase 14: async checkpoints, the numerics plane, meta graphs -------------
 
 CK_N = 4                   # run_steps windows of 4 (phase 7b's)
-CK_STEPS = 40              # the monitored runs' last step (the loop ends at 41)
-CK_SAVE_STEPS = 32         # async checkpoints at 0, 32, then 41 at the end
+CK_STEPS = 24              # the monitored runs' last step (the loop ends at 25)
+CK_SAVE_STEPS = 32         # past CK_STEPS: async checkpoints at 0 and at 25
 CK_KEEP = 2
-CK_SIGTERM_AT = 20         # run B: SIGTERM after the run that ends at step 20
+CK_SIGTERM_AT = 12         # run B: SIGTERM after the run that ends at step 12
 CK_TIMED = 6               # windows a numerics mode, timed, alternating
 # GPU sleep before the planted-fault save (~3 s: longer than the writer
 # takes to reach its first copy to the host)
@@ -7351,6 +7355,11 @@ def ckpt_numerics_phase(K, dev, kernel_rows):
     prev_fill = torch.utils.deterministic.fill_uninitialized_memory
     writer = pckpt.get_writer()
     paths = []
+
+    def lap(what):  # where the phase's time goes
+        print(f"{tag}: {what} done at {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
     try:
         torch.use_deterministic_algorithms(True, warn_only=True)
         torch.utils.deterministic.fill_uninitialized_memory = False
@@ -7360,8 +7369,10 @@ def ckpt_numerics_phase(K, dev, kernel_rows):
                 K, stf, tr, cfg, feeds_of, num, kernel_rows, tag, card)
             paths.append(("ckpt numerics metrics windows", DROPOUT_RATE,
                           counts))
+            lap("the numerics windows")
             ck_saves(stf, snapshot, pckpt, g, m, sess, feeds_of, root, tag,
                      card)
+            lap("the three saves")
             sess.close()
             del g, m, sess
             gc.collect()
@@ -7373,6 +7384,7 @@ def ckpt_numerics_phase(K, dev, kernel_rows):
             paths.append(("ckpt monitored A", DROPOUT_RATE,
                           K.launch_counts()))
             torch.cuda.empty_cache()
+            lap("run A")
             kept = sorted(f for f in os.listdir(os.path.join(root, "A"))
                           if f.endswith(".stfz"))
             print(f"{tag} A: windows {a['sizes']}, ended at global step "
@@ -7397,6 +7409,7 @@ def ckpt_numerics_phase(K, dev, kernel_rows):
                 pckpt.reset_preemption_state()
                 signal.signal(signal.SIGTERM, outer)
             torch.cuda.empty_cache()
+            lap("run B")
             pre = b["handler"].last_saved_prefix
             if pre is None or b["step"] >= CK_STEPS or \
                     stf.train.latest_checkpoint(os.path.join(root, "B")) \
@@ -7411,6 +7424,7 @@ def ckpt_numerics_phase(K, dev, kernel_rows):
                 stf, pckpt, tr, cfg, batch, os.path.join(root, "B"),
                 a["step"])
             torch.cuda.empty_cache()
+            lap("run C")
             off = bits_differ(c_final, a["final"])
             print(f"{tag} C: restore_or_initialize -> "
                   f"{os.path.basename(restored or 'None')}; at global step "
@@ -7423,6 +7437,7 @@ def ckpt_numerics_phase(K, dev, kernel_rows):
                                          os.path.join(root, "B"), None,
                                          names)
             torch.cuda.empty_cache()
+            lap("run D")
             off = bits_differ(d_first[1], c_first[1])
             print(f"{tag} D: {os.path.basename(pre)}.meta imported into a "
                   f"fresh graph and restored: window losses {d_first[0]} "
@@ -7557,6 +7572,8 @@ def lc_groups(stf, lc, cfg, dtype):
 # one moves only the last 64 queries' share of each key's dK and dV: off by
 # 1.2e-2 at S = 32768, under the limit scaled by max |ref|, so it shows
 # that the limit a 128-key block holds the keys whose gradients are small.
+# The dQ mutants drop the two key tiles of the diagonal (both consumers'
+# last) or shift the walk one tile up (key tile 0 never added).
 # (what, source, text, mutated text, occurrences)
 SM90_MUTANTS = (
     ("forward without its diagonal key tile", "flash_fwd_sm90.cu",
@@ -7566,9 +7583,15 @@ SM90_MUTANTS = (
      "const int qs0 = kCausal ? k0 / kBM + 1 : 0;", 1),
     ("dK/dV without its last query sub-tile", "flash_dkdv_sm90.cu",
      "const int n_sub = cdiv(q_len, kBM) - qs0;",
-     "const int n_sub = cdiv(q_len, kBM) - qs0 - 1;", 1))
+     "const int n_sub = cdiv(q_len, kBM) - qs0 - 1;", 1),
+    ("dQ without its diagonal key tiles", "flash_dq_sm90.cu",
+     "if (kCausal) n_kt = min(n_kt, cdiv(q0 + kBM, kBN));",
+     "if (kCausal) n_kt = min(n_kt, cdiv(q0 + kBM, kBN) - 2 * (qi > 0));",
+     1),
+    ("dQ without its first key tile", "flash_dq_sm90.cu",
+     "const int k0 = i * kBN;", "const int k0 = (i + 1) * kBN;", 2))
 # the C entry of mutant i: causal, rate 0, no bias; the forward writes o and
-# lse to out0 and out1, dK/dV dk and dv
+# lse to out0 and out1, dK/dV dk and dv, dQ dq to out0
 SM90_ENTRY = r"""
 extern "C" int stf_mutant_%(i)d(
     const void* q, const void* k, const void* v, const void* dout,
@@ -7585,6 +7608,11 @@ SM90_CALLS = {
     "flash_dkdv_sm90.cu":
         "stf::flash_dkdv_sm90(q, k, v, dout, static_cast<const float*>(lse), "
         "static_cast<const float*>(delta), nullptr, out0, out1, bh, s, s, 1, "
+        "scale, 1, 0, 0u, nullptr, 0u, 1.0f, "
+        "static_cast<cudaStream_t>(stream))",
+    "flash_dq_sm90.cu":
+        "stf::flash_dq_sm90(q, k, v, dout, static_cast<const float*>(lse), "
+        "static_cast<const float*>(delta), nullptr, out0, bh, s, s, 1, "
         "scale, 1, 0, 0u, nullptr, 0u, 1.0f, "
         "static_cast<cudaStream_t>(stream))"}
 
@@ -7686,7 +7714,7 @@ def check_flash(name, out, ref, tol):
 def lc_sm90_faults(K, lib, q, k, v, do, lse, delta, tag):
     """The planted pipeline faults of ``SM90_MUTANTS`` on head 0 of the
     long-context inputs: each must fail the limits the kernels are held
-    to (o, dK, dV ``check_flash`` at 2e-2; lse 1e-5 scaled)."""
+    to (o, dK, dV, dQ ``check_flash`` at 2e-2; lse 1e-5 scaled)."""
     sl = slice(0, 1)
     h = [t[sl].contiguous() for t in (q, k, v, do)]
     hl, hd = lse[sl].contiguous(), delta[sl].contiguous()
@@ -7695,27 +7723,32 @@ def lc_sm90_faults(K, lib, q, k, v, do, lse, delta, tag):
     one = dict(heads=1, sm_scale=D ** -0.5, causal=True)
     refs = {"flash_fwd_sm90.cu": K.flash_attention_fwd_plain(*h[:3], **one),
             "flash_dkdv_sm90.cu": K.flash_attention_dkdv_plain(*h, hl, hd,
-                                                               **one)}
+                                                               **one),
+            "flash_dq_sm90.cu": (K.flash_attention_dq_plain(*h, hl, hd,
+                                                            **one),)}
     txt = []
     for i, (what, name, *_) in enumerate(SM90_MUTANTS):
         fwd = name == "flash_fwd_sm90.cu"
         outs = ((torch.empty_like(h[0]), torch.empty_like(hl)) if fwd
+                else (torch.empty_like(h[0]),) if name == "flash_dq_sm90.cu"
                 else (torch.empty_like(h[1]), torch.empty_like(h[2])))
+        ptrs = [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
         rc = getattr(lib, f"stf_mutant_{i}")(
             *(t.data_ptr() for t in h), hl.data_ptr(), hd.data_ptr(),
-            *(t.data_ptr() for t in outs), 1, s, D ** -0.5, stream)
+            *ptrs, 1, s, D ** -0.5, stream)
         torch.cuda.synchronize()
         if rc:
             fail(f"planted sm90 fault ({what}): the launch returned {rc}")
         # (error, within the scaled limit, worst block ratio)
-        lims = [flash_limits(outs[0], refs[name][0], 2e-2),
-                flash_limits(outs[1], refs[name][1], 2e-2)]
+        lims = [flash_limits(out, ref, 2e-2)
+                for out, ref in zip(outs, refs[name])]
         if fwd:  # lse: 1e-5 scaled only
             lims[1] = flash_limits(outs[1], refs[name][1], 1e-5)[:2] + (0.0,)
         scaled = all(x[1] for x in lims)
         ratio = max(x[2] for x in lims)
-        txt.append(f"{what}: off by {lims[0][0]:.3e} and {lims[1][0]:.3e} "
-                   f"(the scaled limit alone "
+        txt.append(f"{what}: off by "
+                   + " and ".join(f"{x[0]:.3e}" for x in lims)
+                   + f" (the scaled limit alone "
                    f"{'passes' if scaled else 'fails'} it), worst 128-row "
                    f"block at {ratio:.3e} of its bound")
         if scaled and ratio <= 1.0:
@@ -7862,7 +7895,9 @@ def lc_flash_rows(K, gen, dev, B, H, s, D, mutant=None):
         ms = device_ms([kern[part]], min_calls=4)
         plain_ms = event_ms(heads(lambda h, p=part: pl(h, p)), reps=1)
         torch.cuda.empty_cache()
-        name = f"flash_attention_{part} {tag}"
+        kname = importlib.import_module(KMOD + "flash_attention").kernel_name(
+            part, dtype, D)
+        name = f"flash_attention_{part} ({kname}) {tag}"
         report(name, errs[part][0], ms, plain_ms, bnds[part], libs[part])
         rows[part] = kernel_row(
             errs[part][0], ms, plain_ms, bnds[part], libs[part],
@@ -8690,7 +8725,8 @@ def main():
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
     for prefix in ("flash_fwd_mma", "flash_bwd_", "flash_fwd_sm90",
-                   "flash_dkdv_sm90", "qmm_", "layer_norm_", "decode_one",
+                   "flash_dkdv_sm90", "flash_dq_sm90", "qmm_", "layer_norm_",
+                   "decode_one",
                    "dropout"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
@@ -8711,6 +8747,11 @@ def main():
         print("chip_smoke: the long-context bf16 check passed "
               "(--lc-attribution)", flush=True)
         return
+    def mark(what):  # where the smoke's time goes, phase by phase
+        print(f"chip_smoke: {what} ended at "
+              f"{time.perf_counter() - smoke_t0:.1f} s", flush=True)
+
+    mark("the build")
     rng = np.random.RandomState(0)
     print("kernel phases (times are per call, on the card):", flush=True)
     main_rows = {}
@@ -8727,6 +8768,7 @@ def main():
     main_rows.update(phase_adam(K, gen, dev, cfg))
     main_rows.update(phase_momentum(K, gen, dev))
     torch.cuda.empty_cache()
+    mark("the kernel phases")
 
     params = convert.init_params(cfg, seed=0)
     prompts = make_prompts(cfg.vocab_size)
@@ -8748,33 +8790,47 @@ def main():
           f"traced (device ms, host p50 ms) a decode step {g['traced']} vs "
           f"{eager['traced']}", flush=True)
     torch.cuda.empty_cache()
+    mark("serving")
     notes = {}
     paths += train_phase(K, cfg, params, dev, main_rows, notes)
     del params
     torch.cuda.empty_cache()
+    mark("training")
     paths += resnet_phase(K, dev, notes)
     torch.cuda.empty_cache()
+    mark("resnet")
     paths += session_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
+    mark("session")
     paths += transformer_session_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
+    mark("transformer session")
     paths += loop_phase(K, dev)
     torch.cuda.empty_cache()
+    mark("loop")
     paths += lm_session_phase(K, dev, main_rows, notes)
     torch.cuda.empty_cache()
+    mark("causal-lm session")
     paths += resnet_session_phase(K, dev, main_rows, notes)
     torch.cuda.empty_cache()
+    mark("resnet session")
     paths += bert_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
+    mark("bert")
     paths += rnn_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
+    mark("rnn")
     paths += beam_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
+    mark("beam")
     paths += data_phase(K, dev)
     torch.cuda.empty_cache()
+    mark("data")
     paths += ckpt_numerics_phase(K, dev, main_rows)
     torch.cuda.empty_cache()
+    mark("checkpoint")
     paths += single_card_phase(K, dev, main_rows)
+    mark("single-card")
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -8848,7 +8904,7 @@ def main():
         for t in ("float32", "bfloat16")
         for s in ("len1", "len32", "len64", "cross")})
     # the long-context LM's rows: its checks, captured runs and windows
-    # (the forward and dK/dV at D = 128 on the wgmma kernels)
+    # (the three flash kernels at D = 128 on the wgmma kernels)
     session_where.update({
         f"{name}@long_context": (src, tpu, name, name, "long_context")
         for name, src, tpu in (
@@ -8856,7 +8912,7 @@ def main():
              "flash_attention.py:102"),
             ("flash_attention_dkdv", "flash_dkdv_sm90.cu",
              "flash_attention.py:210"),
-            ("flash_attention_dq", "flash_bwd_mma.cu",
+            ("flash_attention_dq", "flash_dq_sm90.cu",
              "flash_attention.py:264"),
             ("layer_norm", "layer_norm.cu", "layer_norm.py:29"),
             ("layer_norm_bwd", "layer_norm.cu", "layer_norm.py:42"),

@@ -3,9 +3,9 @@
 // (:102, called at :180), _bwd_dkdv_kernel (:210, called at :352) and
 // _bwd_dq_kernel (:264, called at :383), with their dropout branch, and the
 // C entry points of all flash kernels. bf16 runs on tensor cores: at
-// D = 128 the forward in flash_fwd_sm90.cu and dK/dV in flash_dkdv_sm90.cu
-// (wgmma, TMA, warp-specialised), dQ in flash_bwd_mma.cu; at D <= 64 the
-// forward in flash_fwd_mma.cu, dK/dV and dQ in flash_bwd_mma.cu. The
+// D = 128 the forward in flash_fwd_sm90.cu, dK/dV in flash_dkdv_sm90.cu
+// and dQ in flash_dq_sm90.cu (wgmma, TMA, warp-specialised); at D <= 64
+// the forward in flash_fwd_mma.cu, dK/dV and dQ in flash_bwd_mma.cu. The
 // CUDA-core kernels here run f32: TF32 tensor cores would fail the f32
 // training check's limits (1e-5 on the loss, 1e-4 on the gradients).
 //
@@ -57,8 +57,8 @@ cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
                                uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold,
                                float inv_keep, cudaStream_t s);
 
-// flash_fwd_sm90.cu, flash_dkdv_sm90.cu: the bf16 forward and dK/dV at
-// D = 128 on wgmma and TMA
+// flash_fwd_sm90.cu, flash_dkdv_sm90.cu, flash_dq_sm90.cu: the bf16
+// forward, dK/dV and dQ at D = 128 on wgmma and TMA
 cudaError_t flash_fwd_sm90(const void* q, const void* k, const void* v,
                            const float* bias, void* o, float* lse, int BH,
                            int q_len, int kv_len, int H, float scale,
@@ -73,9 +73,16 @@ cudaError_t flash_dkdv_sm90(const void* q, const void* k, const void* v,
                             uint32_t seed, const uint32_t* seed_ptr,
                             uint32_t threshold, float inv_keep,
                             cudaStream_t s);
+cudaError_t flash_dq_sm90(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const float* bias, void* dq,
+                          int BH, int q_len, int kv_len, int H, float scale,
+                          int causal, int dropout, uint32_t seed,
+                          const uint32_t* seed_ptr, uint32_t threshold,
+                          float inv_keep, cudaStream_t s);
 
-// flash_bwd_mma.cu: the bf16 dK/dV (dkdv != 0, D <= 64) or dQ on tensor
-// cores
+// flash_bwd_mma.cu: the bf16 dK/dV (dkdv != 0) or dQ on tensor cores at
+// D <= 64
 cudaError_t flash_bwd_bf16_mma(int dkdv, const void* q, const void* k,
                                const void* v, const void* dout,
                                const float* lse, const float* delta,
@@ -591,8 +598,8 @@ cudaError_t run_f32(int which, const FaArgs& a) {
   return run_dq<D>(a);
 }
 
-// bf16 on tensor cores: the forward and dK/dV at D = 128 on wgmma and TMA
-// (flash_fwd_sm90.cu, flash_dkdv_sm90.cu), dQ at D = 128 and everything at
+// bf16 on tensor cores: every part at D = 128 on wgmma and TMA
+// (flash_fwd_sm90.cu, flash_dkdv_sm90.cu, flash_dq_sm90.cu), everything at
 // D <= 64 on mma.sync (flash_fwd_mma.cu, flash_bwd_mma.cu: each checks D);
 // f32 on the CUDA-core kernels above. ops/kernels/flash_attention.py
 // kernel_name() states the same rule.
@@ -612,6 +619,13 @@ int dispatch(int which, int dtype, int D, const FaArgs& a) {
                              a.dk, a.dv, a.BH, a.q_len, a.kv_len, a.H,
                              a.scale, a.causal, a.dropout, a.seed,
                              a.seed_ptr, a.threshold, a.inv_keep, a.s);
+    if (D == 128)
+      return flash_dq_sm90(a.q, a.k, a.v, a.dout,
+                           static_cast<const float*>(a.lse_in),
+                           static_cast<const float*>(a.delta), a.bias, a.dq,
+                           a.BH, a.q_len, a.kv_len, a.H, a.scale, a.causal,
+                           a.dropout, a.seed, a.seed_ptr, a.threshold,
+                           a.inv_keep, a.s);
     if (which == kFwd)
       return flash_fwd_bf16_mma(a.q, a.k, a.v, a.bias, a.o,
                                 static_cast<float*>(a.lse), a.BH, a.q_len,

@@ -2,11 +2,10 @@
 // TPU kernels simple_tensorflow_tpu/ops/pallas/flash_attention.py:
 // _bwd_dkdv_kernel (:210, called at :352) and _bwd_dq_kernel (:264, called
 // at :383) for bf16 inputs, dropout branches (:244-253, :297-301) included.
-// flash_attention.cu routes every bf16 dQ and the bf16 dK/dV at D <= 64
-// here (dK/dV at D = 128 runs flash_dkdv_sm90.cu's wgmma kernel) and keeps
-// its f32
-// CUDA-core kernels for f32 inputs (TF32 would break the f32 training
-// check's 1e-4 on the gradients).
+// flash_attention.cu routes the bf16 dK/dV and dQ at D <= 64 here (D = 128
+// runs the wgmma kernels of flash_dkdv_sm90.cu and flash_dq_sm90.cu) and
+// keeps its f32 CUDA-core kernels for f32 inputs (TF32 would break the f32
+// training check's 1e-4 on the gradients).
 //
 // What they compute is flash_attention.cu's backward up to the summation
 // order, the mask bit for bit, per head bh (bias row bh / H):
@@ -46,7 +45,7 @@
 //   mix32(mix32(h0 ^ row) ^ key) with the two row hashes held.
 // - Each tile is walked in sub-steps of kSub = 32 columns, so S and dP take
 //   16 + 16 f32 registers a lane beside the accumulators (dK + dV: 64 at
-//   D = 64, 128 at D = 128).
+//   D = 64).
 // - exp is ex2(s * scale * log2e - lse * log2e) on the special-function
 //   unit; P and dS round to nearest-even bf16 where the TPU kernels cast.
 // - causal and dropout are template parameters (the rate-0 kernels carry
@@ -74,25 +73,18 @@ constexpr int dkdv_smem_bytes() {
   return bwd_tiles_bytes<D>() + 2 * 3 * kTile * 4;
 }
 
-// blocks an SM must hold: 3 at D <= 64 caps a thread at 168 registers
-// (dK + dV take 64 of them), 2 at D = 128 (128 for dK + dV)
-template <int D>
-constexpr int dkdv_min_blocks() {
-  return D <= 64 ? 3 : 2;
-}
+// blocks an SM must hold: 3 caps a thread at 168 registers (dK + dV take
+// 64 of them at D = 64)
+constexpr int kDkdvMinBlocks = 3;
 
-// dQ holds one accumulator: the forward's 4 blocks (128 registers) at
-// D <= 64
-template <int D>
-constexpr int dq_min_blocks() {
-  return D <= 64 ? 4 : 2;
-}
+// dQ holds one accumulator: the forward's 4 blocks (128 registers)
+constexpr int kDqMinBlocks = 4;
 
 // Lane (g, t) = (lane / 4, lane % 4) holds accumulator elements (rows g and
 // g + 8 of its warp's 16) x (columns 2t, 2t + 1 of every 8-column n-tile);
 // here the rows are keys and the columns queries.
 template <int D, bool kCausal, bool kDropout>
-__global__ void __launch_bounds__(kMmaThreads, dkdv_min_blocks<D>())
+__global__ void __launch_bounds__(kMmaThreads, kDkdvMinBlocks)
     flash_bwd_dkdv_mma_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -269,7 +261,7 @@ __global__ void __launch_bounds__(kMmaThreads, dkdv_min_blocks<D>())
 
 // Rows are queries and columns keys, as in the forward.
 template <int D, bool kCausal, bool kDropout>
-__global__ void __launch_bounds__(kMmaThreads, dq_min_blocks<D>())
+__global__ void __launch_bounds__(kMmaThreads, kDqMinBlocks)
     flash_bwd_dq_mma_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -484,22 +476,20 @@ cudaError_t both(bool dkdv, const BwdArgs& a) {
   return dkdv ? by_flags<D, true>(a) : by_flags<D, false>(a);
 }
 
-// dK/dV at D = 128 is flash_dkdv_sm90.cu's
+// D = 128 is flash_dkdv_sm90.cu's and flash_dq_sm90.cu's
 cudaError_t by_dim(bool dkdv, int D, const BwdArgs& a) {
   switch (D) {
     case 16: return both<16>(dkdv, a);
     case 32: return both<32>(dkdv, a);
     case 64: return both<64>(dkdv, a);
-    case 128:
-      return dkdv ? cudaErrorInvalidValue : by_flags<128, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Called by flash_attention.cu for bf16 backwards: dK, dV when `dkdv`,
-// else dQ, with the arguments of stf_flash_attention_dkdv / _dq (q, k, v,
+// Called by flash_attention.cu for bf16 backwards at D <= 64: dK, dV when
+// `dkdv`, else dQ, with the arguments of stf_flash_attention_dkdv / _dq (q, k, v,
 // dout and the outputs bf16; the unused outputs null).
 cudaError_t flash_bwd_bf16_mma(int dkdv, const void* q, const void* k,
                                const void* v, const void* dout,

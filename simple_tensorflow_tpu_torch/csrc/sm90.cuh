@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks of the warp-specialised bf16 flash
-// kernels at head dim 128 (flash_fwd_sm90.cu, flash_dkdv_sm90.cu):
+// kernels at head dim 128 (flash_fwd_sm90.cu, flash_dkdv_sm90.cu,
+// flash_dq_sm90.cu):
 // mbarriers with phase bits, TMA tile loads from a 3-D tensor map into
 // 128-byte-swizzled shared memory, the wgmma shared-memory descriptors and
 // the m64nNk16 bf16 -> f32 products, setmaxnreg, and on the host the
 // tensor-map encoder, taken from the driver through the runtime so the
 // library links without -lcuda.
 //
-// Tile layout (both kernels): a (rows, 128) bf16 tile sits in shared memory
+// Tile layout (all three kernels): a (rows, 128) bf16 tile sits in shared memory
 // as two TMA boxes of (rows, 64 columns), one after the other, each row 128
 // bytes with its 16-byte chunks XOR-swizzled by (row % 8), which is what
 // CU_TENSOR_MAP_SWIZZLE_128B writes and what a wgmma descriptor of layout

@@ -26,9 +26,9 @@ The kernel-level functions work on ``(B*H, S, D)``-contiguous tensors:
 ``(dk, dv)``, ``flash_attention_dq`` -> ``dq``, each beside its
 ``*_plain`` version. ``delta = rowsum(dO * O)`` (minus the lse cotangent)
 is plain PyTorch, as it sits outside Pallas in JAX. bf16 runs on tensor
-cores: at head_dim 128 the forward in ``csrc/flash_fwd_sm90.cu`` and dK/dV
-in ``csrc/flash_dkdv_sm90.cu`` (wgmma, TMA, warp-specialised), dQ in
-``csrc/flash_bwd_mma.cu``; below 128 the forward in
+cores: at head_dim 128 the forward in ``csrc/flash_fwd_sm90.cu``, dK/dV
+in ``csrc/flash_dkdv_sm90.cu`` and dQ in ``csrc/flash_dq_sm90.cu`` (wgmma,
+TMA, warp-specialised); below 128 the forward in
 ``csrc/flash_fwd_mma.cu``, dK/dV and dQ in ``csrc/flash_bwd_mma.cu``; f32
 runs the CUDA-core kernels of ``csrc/flash_attention.cu``
 (:func:`kernel_name`). The source notes of the files say what bounds each
@@ -58,7 +58,7 @@ _KERNELS = {
     ("dq", torch.bfloat16, False): "flash_bwd_dq_mma_kernel",
     ("fwd", torch.bfloat16, True): "flash_fwd_sm90_kernel",
     ("dkdv", torch.bfloat16, True): "flash_dkdv_sm90_kernel",
-    ("dq", torch.bfloat16, True): "flash_bwd_dq_mma_kernel",
+    ("dq", torch.bfloat16, True): "flash_dq_sm90_kernel",
 }
 
 
@@ -66,8 +66,7 @@ def kernel_name(part, dtype, head_dim):
     """The name of the CUDA kernel that ``part`` (``"fwd"``, ``"dkdv"`` or
     ``"dq"``) launches for ``dtype`` inputs of ``head_dim``, causal or not,
     with or without dropout: f32 takes the CUDA-core kernels at every head
-    dim, bf16 the wgmma kernels for the forward and dK/dV at 128 and the
-    mma.sync kernels otherwise."""
+    dim, bf16 the wgmma kernels at 128 and the mma.sync kernels below."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got "
                          f"{head_dim}")

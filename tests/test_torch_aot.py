@@ -25,6 +25,7 @@ from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.framework import errors as perrors
 from simple_tensorflow_tpu_torch.models import mnist as pmnist
 from simple_tensorflow_tpu_torch.ops.kernels import common as kcommon
+from torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 4
 STEPS = 4

@@ -30,6 +30,7 @@ import simple_tensorflow_tpu_torch as pstf
 from simple_tensorflow_tpu.models import transformer as jtr
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import transformer as ptr
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jtr), "port": (pstf, ptr)}
 B, S, BEAM, LEN = 2, 8, 3, 8

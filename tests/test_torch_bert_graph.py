@@ -36,6 +36,7 @@ import simple_tensorflow_tpu_torch as pstf
 from simple_tensorflow_tpu.models import bert as jbert
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import bert as pbert
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jbert), "port": (pstf, pbert)}
 B, S, P = 2, 16, 4

@@ -18,6 +18,7 @@ import pytest
 
 import simple_tensorflow_tpu as jstf
 import simple_tensorflow_tpu_torch as pstf
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": jstf, "port": pstf}
 RUNS = 5

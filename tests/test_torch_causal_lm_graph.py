@@ -32,6 +32,7 @@ import simple_tensorflow_tpu_torch as pstf
 from simple_tensorflow_tpu.models import causal_lm as jclm
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import causal_lm as pclm
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jclm), "port": (pstf, pclm)}
 SEED = 5

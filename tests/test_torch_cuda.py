@@ -654,8 +654,8 @@ def test_flash_bwd_bf16_dropout_mask_on_card(cuda, s, causal, d):
     (300, 130, False, True, 0.0), (129, 129, True, True, 0.0)])
 def test_flash_sm90_kernels_on_ragged_shapes_on_card(cuda, sq, sk, causal,
                                                      biased, rate):
-    # the wgmma forward and dK/dV (bf16, D = 128) at lengths that are no
-    # multiple of the 128-row tile or the 64-query sub-tile, Sq != Sk with
+    # the wgmma forward, dK/dV and dQ (bf16, D = 128) at lengths that are
+    # no multiple of the 128-row tile or the 64-row sub-tile, Sq != Sk with
     # a key bias, B * H = 8 heads, with and without dropout: every output
     # against its plain version, one launch each
     h, d = 4, 128
@@ -669,21 +669,26 @@ def test_flash_sm90_kernels_on_ragged_shapes_on_card(cuda, sq, sk, causal,
     ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
     delta = (do.float() * ro.float()).sum(-1)
     dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+    dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
     rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
     torch.cuda.synchronize()
     after = K.launch_counts()
     _close(o, ro, 2e-2)
     _close(lse, rlse, 1e-5)
     _close(dk, rdk, 2e-2)
     _close(dv, rdv, 2e-2)
-    for name in ("flash_attention_fwd", "flash_attention_dkdv"):
+    _close(dq, rdq, 2e-2)
+    for name in ("flash_attention_fwd", "flash_attention_dkdv",
+                 "flash_attention_dq"):
         assert after[name] == before[name] + 1
     # planted fault: the plain versions under the other causal flag fail
     # the limits
     bad = dict(args, causal=not causal)
     bo, _ = K.flash_attention_fwd_plain(q, k, v, **bad)
     bdk, bdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **bad)
-    for out, ref in ((o, bo), (dk, bdk), (dv, bdv)):
+    bdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **bad)
+    for out, ref in ((o, bo), (dk, bdk), (dv, bdv), (dq, bdq)):
         with pytest.raises(AssertionError):
             _close(out, ref, 2e-2)
 
@@ -694,7 +699,7 @@ def test_flash_sm90_kernels_on_ragged_shapes_on_card(cuda, sq, sk, causal,
 def test_flash_kernel_names_follow_the_routing_rule_on_card(cuda, d, rate):
     # the kernels a trace shows for the bf16 and f32 forward, dK/dV and dQ
     # are the ones flash_attention.kernel_name names: at D = 128 the bf16
-    # forward and dK/dV run the wgmma kernels, dQ mma.sync
+    # forward, dK/dV and dQ run the wgmma kernels, below it mma.sync
     fa = _kernel_module("flash_attention")
     args = dict(heads=4, sm_scale=d ** -0.5, causal=True)
     if rate:
@@ -1433,7 +1438,7 @@ def test_flash_seed_pointer_entries_match_launch_argument_on_card(
         cuda, dtype, sq, sk, causal, biased, d):
     # the three flash kernels with the seed read through a device pointer:
     # bit-identical to the launch-argument entry (bf16 at D = 128: the
-    # wgmma forward and dK/dV); one *_device_seed count each and no
+    # wgmma forward, dK/dV and dQ); one *_device_seed count each and no
     # launch-argument count; another seed in the buffer draws another mask
     h = 4
     q, k, v, do, bias = _flash_inputs(cuda, dtype, 41, 2, h, sq, sk, d,
@@ -2429,6 +2434,31 @@ def test_flash_d128_causal_matches_plain_on_card(cuda, dtype):
     # the causal mask: query 0 sees key 0 alone
     torch.testing.assert_close(o[:, 0].float(), v[:, 0].float(),
                                rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,rate", [(True, 0.0), (False, 0.1)])
+def test_flash_d128_dq_is_deterministic_on_card(cuda, causal, rate):
+    """The wgmma dQ (bf16, D = 128) has one owner a query tile and no
+    atomics: two calls on the same inputs give the same bits, a key bias,
+    a ragged length and Sq != Sk included; a changed dO changes them."""
+    h, d = 2, 128
+    q, k, v, do, bias = _flash_inputs(cuda, torch.bfloat16, 47, 2, h, 700,
+                                      900, d, True)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    if rate:
+        args.update(dropout_rate=rate, dropout_seed=SEED)
+    _, lse = K.flash_attention_fwd(q, k, v, **args)
+    delta = torch.randn(lse.shape, device=cuda)
+    before = K.launch_counts()["flash_attention_dq"]
+    a = K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+    b = K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention_dq"] == before + 2
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    c = K.flash_attention_dq(q, k, v, do.flip(1).contiguous(), lse, delta,
+                             **args)
+    assert not torch.equal(a, c)
 
 
 @pytest.mark.cuda

@@ -37,6 +37,7 @@ from simple_tensorflow_tpu.platform import monitoring as jmonitoring
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import bert as pbert
 from simple_tensorflow_tpu_torch.models import mnist as pmnist
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -42,6 +42,7 @@ from simple_tensorflow_tpu_torch.framework import prng
 from simple_tensorflow_tpu_torch.framework import random_seed as prs
 from simple_tensorflow_tpu_torch.ops import kernels as K
 from simple_tensorflow_tpu_torch.ops import nn_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 jcommon = importlib.import_module("simple_tensorflow_tpu.ops.pallas.common")
 jdr = importlib.import_module("simple_tensorflow_tpu.ops.pallas."

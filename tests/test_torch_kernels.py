@@ -646,7 +646,7 @@ def test_build_key_covers_every_source_and_the_flags():
             "dropout_residual.cu", "dropout.cu", "flash_fwd_mma.cu",
             "flash_bwd_mma.cu", "common.cuh", "mma.cuh",
             "control_flow.cu", "numeric_summary.cu", "flash_fwd_sm90.cu",
-            "flash_dkdv_sm90.cu", "sm90.cuh"} <= set(srcs)
+            "flash_dkdv_sm90.cu", "flash_dq_sm90.cu", "sm90.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16

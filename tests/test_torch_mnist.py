@@ -25,6 +25,7 @@ import simple_tensorflow_tpu_torch as pstf
 from simple_tensorflow_tpu.models import mnist as jmnist
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import mnist as pmnist
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jmnist), "port": (pstf, pmnist)}
 BATCH = 8

@@ -55,6 +55,7 @@ from simple_tensorflow_tpu_torch.models import transformer as ptr
 from simple_tensorflow_tpu_torch.summary import summary_iterator as events
 from simple_tensorflow_tpu_torch.summary.writer import writer as pwriter
 from simple_tensorflow_tpu_torch.train import saver as psaver
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -55,6 +55,7 @@ from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import causal_lm as pclm
 from simple_tensorflow_tpu_torch.models import resnet as pres
 from simple_tensorflow_tpu_torch.models import transformer as ptr
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 5
 B, S = 2, 8

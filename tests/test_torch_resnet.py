@@ -52,6 +52,7 @@ from simple_tensorflow_tpu_torch.models import resnet as pres
 from simple_tensorflow_tpu_torch.ops import kernels as K
 from simple_tensorflow_tpu_torch.ops import nn_impl, nn_ops
 from simple_tensorflow_tpu_torch.train import optimizers as popt
+from torch_threads import one_thread
 
 jfu = importlib.import_module("simple_tensorflow_tpu.ops.pallas."
                               "fused_update")
@@ -324,10 +325,13 @@ def jax_run(tmp_path_factory):
 
 
 def _port(ckpt, dtype=torch.float32):
-    return pres.resnet50_trainer(batch_size=B, image_size=SIZE,
-                                 num_classes=CLASSES, dtype=dtype,
-                                 learning_rate=LR, checkpoint=ckpt,
-                                 device="cpu")
+    # built in one thread (torch_threads); its steps run at the default
+    # count, whose sums the free-run bound above was measured with
+    with one_thread():
+        return pres.resnet50_trainer(batch_size=B, image_size=SIZE,
+                                     num_classes=CLASSES, dtype=dtype,
+                                     learning_rate=LR, checkpoint=ckpt,
+                                     device="cpu")
 
 
 def _port_name(jax_name):
@@ -458,8 +462,9 @@ def test_bf16_graph_has_the_two_group_layout():
         layout = _jax_layout(g)
         sizes = {v.name.split(":")[0]: int(np.prod(v.shape.as_list()))
                  for v in stf.trainable_variables()}
-    trainer = pres.resnet50_trainer(batch_size=B, image_size=SIZE,
-                                    num_classes=CLASSES, device="cpu")
+    with one_thread():
+        trainer = pres.resnet50_trainer(batch_size=B, image_size=SIZE,
+                                        num_classes=CLASSES, device="cpu")
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     groups = trainer.optimizer.flat_groups
     assert [(grp.p.dtype, grp.momentum.dtype) for grp in groups] == [
@@ -482,7 +487,9 @@ def test_unported_options_raise():
 
 
 def test_init_resnet_params_draws_the_jax_initializers():
-    state = convert.init_resnet_params(seed=3)
+    with one_thread():
+        state = convert.init_resnet_params(seed=3)
+        again = convert.init_resnet_params(seed=3)
     k = state["stage2_block0.conv2.kernel"].numpy()      # (256, 256, 3, 3)
     std = np.sqrt(2.0 / (3 * 3 * 256)) / 0.87962566103423978
     assert k.shape == (256, 256, 3, 3)
@@ -493,6 +500,5 @@ def test_init_resnet_params_draws_the_jax_initializers():
     assert not state["fc.bias"].any()
     assert state["bn0.gamma"].eq(1).all() and state["bn0.beta"].eq(0).all()
     assert state["bn0.moving_variance"].eq(1).all()
-    for a, b in zip(state.values(), convert.init_resnet_params(seed=3)
-                    .values()):
+    for a, b in zip(state.values(), again.values()):
         assert torch.equal(a, b)

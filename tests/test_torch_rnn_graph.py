@@ -33,6 +33,7 @@ from simple_tensorflow_tpu.models import rnn_seq2seq as js2s
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import ptb_lstm as pptb
 from simple_tensorflow_tpu_torch.models import rnn_seq2seq as ps2s
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jptb, js2s), "port": (pstf, pptb, ps2s)}
 OTHER = {"jax": "port", "port": "jax"}

@@ -32,6 +32,7 @@ from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.analysis import loop_safety as pls
 from simple_tensorflow_tpu_torch.models import mnist as pmnist
 from simple_tensorflow_tpu_torch.models import transformer as ptr
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jmnist, jtr), "port": (pstf, pmnist, ptr)}
 LOSS_RTOL = 1e-5

@@ -37,6 +37,7 @@ from simple_tensorflow_tpu_torch.framework import errors as perrors
 from simple_tensorflow_tpu_torch.models import mnist as pmnist
 from simple_tensorflow_tpu_torch.models import transformer as ptr
 from simple_tensorflow_tpu_torch.train import saver as psaver
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, jmnist, jtr), "port": (pstf, pmnist, ptr)}
 OTHER = {"jax": "port", "port": "jax"}

@@ -33,6 +33,7 @@ from simple_tensorflow_tpu_torch.ops.kv_cache import KVCache
 from simple_tensorflow_tpu_torch.serving import _queue
 from simple_tensorflow_tpu_torch.serving import policy as ppolicy
 from simple_tensorflow_tpu_torch.serving import prefix_cache as pprefix
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAGE_LEN, PAGES_PER_SEQ, NUM_PAGES, MAX_LIVE = 4, 4, 16, 4
 GEOMETRY = dict(page_len=PAGE_LEN, pages_per_seq=PAGES_PER_SEQ,

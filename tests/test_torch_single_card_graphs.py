@@ -38,6 +38,7 @@ from simple_tensorflow_tpu_torch.models import dlrm as pdlrm
 from simple_tensorflow_tpu_torch.models import long_context as plc
 from simple_tensorflow_tpu_torch.models import word2vec as pw2v
 from simple_tensorflow_tpu_torch.ops import embedding_ops as pemb
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"jax": (jstf, dict(lc=jlc, w2v=jw2v, dlrm=jdlrm)),
         "port": (pstf, dict(lc=plc, w2v=pw2v, dlrm=pdlrm))}

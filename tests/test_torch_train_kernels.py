@@ -98,12 +98,16 @@ def test_flash_attention_and_vjp_match_jax(dtype, sq, sk, causal, biased):
                                    **(GRAD if f32 else BF16))
 
 
-@pytest.mark.parametrize("sq,sk,causal,biased", [
-    (13, 13, True, False), (9, 13, False, True)])
-def test_flash_attention_head_dim_128_matches_jax(sq, sk, causal, biased):
+@pytest.mark.parametrize("sq,sk,causal,biased,rate", [
+    pytest.param(13, 13, True, False, 0.0, id="13-13-True-False"),
+    pytest.param(9, 13, False, True, 0.0, id="9-13-False-True"),
+    pytest.param(16, 16, True, False, 0.1, id="16-16-True-False-dropout")])
+def test_flash_attention_head_dim_128_matches_jax(sq, sk, causal, biased,
+                                                  rate):
     # head_dim 128 in bf16, the shape class the wgmma kernels take on the
     # card (here the plain versions): forward, lse and the three gradients
-    # against the Pallas kernels in interpret mode
+    # against the Pallas kernels in interpret mode, with the K0 dropout
+    # mask in the last case
     rng = np.random.RandomState(40 + sq + sk)
     b, h, d = 1, 2, 128
     q, k, v = (rng.randn(b, h, n, d).astype(np.float32)
@@ -111,18 +115,23 @@ def test_flash_attention_head_dim_128_matches_jax(sq, sk, causal, biased):
     go = rng.randn(b, h, sq, d).astype(np.float32)
     bias = (rng.randn(b, sk) * 2).astype(np.float32) if biased else None
     jd = jnp.bfloat16
+    seed = 31337
+    drop = dict(dropout_rate=rate, dropout_seed=seed) if rate else {}
 
     def jfn(q_, k_, v_):
         return jfa.flash_attention(
             q_, k_, v_, causal=causal,
-            bias=None if bias is None else jnp.asarray(bias))
+            bias=None if bias is None else jnp.asarray(bias),
+            **(dict(dropout_rate=rate,
+                    dropout_seed=jnp.asarray([seed], jnp.int32))
+               if rate else {}))
 
     jo, vjp = jax.vjp(jfn, *(jnp.asarray(a, jd) for a in (q, k, v)))
     jgrads = vjp(jnp.asarray(go, jd))
     tq, tk, tv = (_t(a).to(torch.bfloat16).requires_grad_()
                   for a in (q, k, v))
     o = K.flash_attention(tq, tk, tv, causal=causal,
-                          bias=None if bias is None else _t(bias))
+                          bias=None if bias is None else _t(bias), **drop)
     grads = torch.autograd.grad(
         (o.float() * _t(go).to(torch.bfloat16).float()).sum(), (tq, tk, tv))
     np.testing.assert_allclose(o.detach().float().numpy(), _np(jo), **BF16)
@@ -132,8 +141,8 @@ def test_flash_attention_head_dim_128_matches_jax(sq, sk, causal, biased):
 
 def test_flash_kernel_routing_rule():
     # which CUDA kernel each (part, dtype, head dim) launches: bf16 at
-    # head_dim 128 takes the wgmma forward and dK/dV, and dQ stays on
-    # mma.sync; below 128 bf16 takes mma.sync throughout; f32 the CUDA-core
+    # head_dim 128 takes the wgmma forward, dK/dV and dQ; below 128 bf16
+    # takes mma.sync throughout; f32 the CUDA-core
     # kernels at every head dim (test_torch_cuda.py holds a trace's kernel
     # names to this table on the card)
     fa = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
@@ -146,7 +155,7 @@ def test_flash_kernel_routing_rule():
     assert [fa.kernel_name(p, torch.bfloat16, 128)
             for p in ("fwd", "dkdv", "dq")] == [
         "flash_fwd_sm90_kernel", "flash_dkdv_sm90_kernel",
-        "flash_bwd_dq_mma_kernel"]
+        "flash_dq_sm90_kernel"]
     for d in fa.HEAD_DIMS:
         assert [fa.kernel_name(p, torch.float32, d)
                 for p in ("fwd", "dkdv", "dq")] == [

@@ -51,6 +51,7 @@ from simple_tensorflow_tpu.models import transformer as jtr
 from simple_tensorflow_tpu_torch import convert
 from simple_tensorflow_tpu_torch.models import causal_lm as clm
 from simple_tensorflow_tpu_torch.models import transformer as ptr
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S, WARMUP, STEPS = 2, 16, 4, 3
 
