@@ -8,7 +8,7 @@ RNN graphs on ``stf.scan``: the PTB LSTM and the attention seq2seq, the
 transformer's beam search on ``stf.while_loop``, and BERT and the MNIST
 journey fed by ``stf.data`` from TFRecord shards).
 
-    python3 chip_smoke.py [--serving | --lc-attribution]
+    python3 chip_smoke.py [--serving | --lc-attribution | --seq2seq]
 
 ``--serving`` runs only phase 3 (no kernel phases, no ``{"ok": ...}``
 line) and asks its traces for no kernel by name, so this script placed
@@ -481,6 +481,42 @@ flash kernels own.
    fused lookup against a plain gather (1e-6; the scatter-add dropping
    duplicate ids, planted, must fail), 3 runs captured against eager bit
    for bit, windows.
+16. Encoder-decoder serving: ``GenerativeEngine`` over
+   ``TransformerGenerativeModel(TransformerConfig.big())`` (6 + 6 layers,
+   d_model 1024, 16 heads, vocab 32768), random f32 weights from a seed,
+   src_len 64, 16 slots, max_decode_len 128, decode buckets {1, 4, 16},
+   prefill {1, 4}, every program captured (``aot_warmup``); the target
+   built with ``speculative_k=4`` serves the plain arm too. First the
+   kernels at this path's shapes against their plain versions, with
+   bounds and SDPA with the same mask: the one-query DecodeAttention on the
+   slot cache (L = 128) and over the source with its pad bias (L = 64), the
+   query block of 4 with ``causal_offset`` and with the bias and no
+   offset, at B = 1, 4, 16; the f32 and bf16 flash forward at the
+   encoder's (4 x 16, 64, 64) with the pad bias, one row all padding
+   (finite). Then 24 sources of 8-64 tokens with budgets staggered 8-120,
+   served plain, with a self-draft (the target's weights) and with a
+   one-layer draft from its own seed, its table drawn 1000x smaller, so
+   that it proposes a token of the position rather than echo its input as
+   random tied-embedding models do (``draft_steps=3``), at 16 slots and
+   (the first 8) at 1 slot; then the int8 head, plain and with its
+   self-draft, at 16 slots. Each run's launches are held exactly to its
+   engine steps and to the prefill runs of the engine's admissions (one
+   a prefill bucket the admitted rows fill) (a decode step 12 one-query DecodeAttention and
+   18 LayerNorms, + 1 QuantMatMul with int8; a verify 12 query-block
+   DecodeAttention and 18 LayerNorms, + 1; a draft call 3 steps of the
+   draft's layers; a prefill 6 flash forwards and 12 LayerNorms and the
+   draft's share), and every emitted token, teacher-forced on the stream,
+   to the plain re-forward (``seq2seq_hidden_plain``) under the serving
+   rule; printed: tokens/s, p50 decode step, p50 time to first token, p50
+   prefill, acceptance, the tokens equal to the plain stream, speculative
+   against plain tokens/s, and the device ms of a decode step at bucket 16
+   from a profiler window. Planted, the token check must fail: verify's
+   self-attention without ``causal_offset``, the cross bias dropped (both
+   on a target dispatched eagerly) and the bonus token taken from the
+   one-layer draft's proposal.
+
+``python3 chip_smoke.py --seq2seq`` runs phase 16 alone (no ``{"ok": ...}``
+line).
 
 Each path (the three serving runs, the two f32 kernel steps, the two
 causal-LM bf16 windows, the ResNet f32 kernel steps, the ResNet bf16
@@ -491,17 +527,21 @@ five windows, the RNN graphs' checks, windows and seq2seq's 60 steps,
 the beam search's f32 check and its bf16 windows, the data phase's BERT
 runs and its MNIST journey, the checkpoint phase's metrics windows and
 run A, the long-context checks, captured run and windows, the word2vec
-and DLRM windows) is counted from zero
+and DLRM windows, phase 16's runs) is counted from zero
 just before it; a kernel's ``launches`` sum over the
 paths, the flash rows split by the path's dropout rate (the seed-pointer
 entries are rows of their own). The rows at a Session path's own shape
 (``@causal_lm``, ``@session_*``, ``@resnet_session``, ``@bert``,
-``@ptb``, ``@seq2seq``, ``@beam``, ``@long_context``) count that path's
-launches alone
+``@ptb``, ``@seq2seq``, ``@beam``, ``@long_context``, ``@s2s_*``) count
+that path's launches alone
 (``@bert``: the shipped-config windows, the data phase's included;
 ``@ptb``, ``@seq2seq``: the
 windows and the 60 steps; ``@beam``: the f32 check for the f32 rows, the
-bf16 windows for the bf16 rows). A kernel in a conditional node's body
+bf16 windows for the bf16 rows; ``@s2s_self`` / ``@s2s_cross``: all of
+phase 16's one-query or query-block launches, self- and cross-attention
+alike, each row timed at its role's shape; ``quant_matmul@s2s``: all of
+the int8 runs' launches, decode, verify and draft steps, timed at
+verify's m = 64). A kernel in a conditional node's body
 counts once per run of the body (``DeviceGraph.settle``). Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
@@ -947,7 +987,7 @@ def phase_quant_matmul(K, rng, dev):
               f"{str(e)[:60]}...", flush=True)
     else:
         fail("quant_matmul: the kernel took a row-major weight")
-    for m in (1, 4, 16, 32):
+    for m in (1, 4, 16, 32, 64):
         x = torch.from_numpy(rng.standard_normal((m, k))).to(
             dev, torch.float32)
         wq = copies[0]
@@ -976,9 +1016,9 @@ def phase_quant_matmul(K, rng, dev):
         bnd = bound_ms(x.numel() * 4 + k * n + n * 4 + m * n * 4,
                        2 * m * k * n, torch.int8)
         report(name, err, ms, plain_ms, bnd, lib_ms)
-        if m == 16:
-            main["quant_matmul"] = kernel_row(err, ms, plain_ms, bnd,
-                                              lib_ms, name)
+        if m in (16, 64):
+            main["quant_matmul" + ("" if m == 16 else "@s2s")] = \
+                kernel_row(err, ms, plain_ms, bnd, lib_ms, name)
     del copies
     return main
 
@@ -1932,21 +1972,18 @@ def make_prompts(vocab, seed=1):
     return prompts
 
 
-def check_stream(model, prompt, result, int8):
-    """Teacher-forced check of one request against the plain re-forward
-    on the card: every emitted token is an argmax of the plain logits
+def stream_errors(h, model, result, int8):
+    """The teacher-forced rule on the plain hidden states ``h (T, d)`` of a
+    request's stream: every emitted token is an argmax of the plain logits
     within rel 1e-4 of the largest |logit|, and its log-prob is within
     1e-3 of the plain one. With the int8 head, one activation element
     that rounds the other way (the hidden states differ by f32 round-off)
     moves a logit by up to x_scale * max|w_scale * wq|, so each bound
-    also takes twice that step."""
-    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+    also takes twice that step. Returns ``(steps not argmax, steps whose
+    log-prob is off, max log-prob error)``."""
     from simple_tensorflow_tpu_torch.ops import kernels as K
 
     toks = [int(t) for t in result["tokens"]]
-    seq = list(prompt) + toks
-    ids = torch.tensor([seq[:-1]], dtype=torch.long, device=model.device)
-    h = clm.causal_lm_hidden_plain(model.stack, ids)[0, len(prompt) - 1:]
     if int8:
         logits = K.quant_matmul_plain(h, model.wq, model.w_scale).float()
         _, xs = K.quantize_rowwise_plain(h)
@@ -1966,11 +2003,23 @@ def check_stream(model, prompt, result, int8):
     lp_err = (logp - logp_ref).abs()
     bad_arg = (chosen < top - arg_tol).nonzero().flatten().tolist()
     bad_lp = (lp_err > 1e-3 + extra).nonzero().flatten().tolist()
+    return bad_arg, bad_lp, lp_err.max().item()
+
+
+def check_stream(model, prompt, result, int8):
+    """Teacher-forced check of one request against the plain re-forward
+    on the card (``stream_errors``)."""
+    from simple_tensorflow_tpu_torch.models import causal_lm as clm
+
+    seq = list(prompt) + [int(t) for t in result["tokens"]]
+    ids = torch.tensor([seq[:-1]], dtype=torch.long, device=model.device)
+    h = clm.causal_lm_hidden_plain(model.stack, ids)[0, len(prompt) - 1:]
+    bad_arg, bad_lp, err = stream_errors(h, model, result, int8)
     if bad_arg or bad_lp:
         fail(f"token stream disagrees with the plain re-forward "
              f"(int8={int8}): not argmax at steps {bad_arg}, logp off at "
-             f"steps {bad_lp} (max logp err {lp_err.max().item():.3e})")
-    return lp_err.max().item()
+             f"steps {bad_lp} (max logp err {err:.3e})")
+    return err
 
 
 def wait_for(cond, what, timeout=120.0):
@@ -8680,6 +8729,506 @@ def kernel_props(log, prefix):
 SERVING_KERNELS = ("decode_one_kernel", "layer_norm_fwd_vec_kernel")
 
 
+# -- encoder-decoder serving phase (phase 16) ------------------------------------
+
+S2S_SRC, S2S_SLOTS, S2S_DECODE_LEN = 64, 16, 128
+S2S_REQUESTS = 24
+S2S_ONE_SLOT_REQUESTS = 8       # the 1-slot runs serve the first 8
+S2S_SPEC_K, S2S_DRAFT_STEPS = 4, 3
+S2S_FAULT_REQUESTS, S2S_FAULT_NEW = 4, 16
+
+
+class Lent:
+    """A model lent to one engine, whose ``close`` (the engine's, as it
+    closes) leaves the model to the phase; ``admitted`` holds the rows of
+    each prefill the engine asked of it."""
+
+    def __init__(self, model):
+        self._model = model
+        self.admitted = []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def prefill(self, src_rows, slots):
+        self.admitted.append(len(slots))
+        return self._model.prefill(src_rows, slots)
+
+    def close(self):
+        pass
+
+
+class ProposalTap(Lent):
+    """A draft that keeps its last proposals (for ``BonusFromDraft``)."""
+
+    def decode_k(self, tokens, positions, slots):
+        props, bucket = self._model.decode_k(tokens, positions, slots)
+        self.last = props
+        return props, bucket
+
+
+class BonusFromDraft(Lent):
+    """A planted fault: the target's pick at the first rejected position
+    (the bonus token) replaced by the draft's proposal there."""
+
+    def __init__(self, model, tap):
+        super().__init__(model)
+        self._tap = tap
+
+    def verify(self, tok_blocks, positions, slots):
+        toks, lps, bucket = self._model.verify(tok_blocks, positions, slots)
+        toks, props = toks.copy(), self._tap.last
+        for i in range(len(toks)):
+            a = 0
+            while a < props.shape[1] and props[i, a] == toks[i, a]:
+                a += 1
+            if a < props.shape[1]:
+                toks[i, a] = props[i, a]
+        return toks, lps, bucket
+
+
+def s2s_requests(vocab, seed=11):
+    """24 sources of 8-64 real tokens (the engine pads each to 64) and
+    budgets staggered from 8 to 120 new tokens, so slots retire and
+    refill."""
+    rng = np.random.RandomState(seed)
+    lens = np.linspace(8, S2S_SRC, S2S_REQUESTS).astype(int)
+    rng.shuffle(lens)
+    sources = [list(rng.randint(2, vocab, n)) for n in lens]
+    budgets = [int(x) for x in np.linspace(8, 120, S2S_REQUESTS)]
+    return sources, budgets
+
+
+def s2s_errors(model, sources, results, int8):
+    """``stream_errors`` of every request against the encoder-decoder's
+    plain re-forward on the card, teacher-forced on the engine's stream
+    (decoder inputs: EOS, then the emitted tokens). Returns ``(requests
+    that break the rule, max log-prob error)``."""
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = model.cfg
+    bad, worst = [], 0.0
+    for i, (src, r) in enumerate(zip(sources, results)):
+        toks = [int(t) for t in r["tokens"]]
+        row = torch.full((1, S2S_SRC), cfg.pad_id, dtype=torch.long,
+                         device=model.device)
+        row[0, :len(src)] = torch.tensor(src)
+        tgt_in = torch.tensor([[cfg.eos_id] + toks[:-1]], dtype=torch.long,
+                              device=model.device)
+        h = tr.seq2seq_hidden_plain(model.stack, row, tgt_in)[0]
+        bad_arg, bad_lp, err = stream_errors(h, model, r, int8)
+        worst = max(worst, err)
+        if bad_arg or bad_lp:
+            bad.append((i, bad_arg[:4], bad_lp[:4]))
+    return bad, worst
+
+
+def s2s_launch_check(tag, counts, steps, prefills, draft_layers, int8,
+                     layers):
+    """The launches of one run of ``steps`` engine steps and ``prefills``
+    prefill bucket runs, exactly: a decode step 2L one-query
+    DecodeAttention (self and cross) and 3L LayerNorms (+ 1 QuantMatMul
+    with int8); a verify 2L query-block DecodeAttention and 3L LayerNorms
+    (+ 1); a draft call ``draft_steps`` decode steps of the draft's
+    layers; a prefill L flash forwards and 2L LayerNorms for the target
+    (and the draft's layers for the draft)."""
+    da, blk = counts["decode_attention"], counts["decode_attention_block"]
+    ln, fl = counts["layer_norm"], counts["flash_attention_fwd"]
+    qmm = counts["quant_matmul"]
+    per_prefill = layers + (draft_layers or 0)
+    if draft_layers is None:
+        want = {"decode_attention": 2 * layers * steps,
+                "decode_attention_block": 0,
+                "layer_norm": 3 * layers * steps + 2 * layers * prefills,
+                "quant_matmul": steps if int8 else 0}
+    else:
+        kd = S2S_DRAFT_STEPS
+        want = {"decode_attention": 2 * draft_layers * kd * steps,
+                "decode_attention_block": 2 * layers * steps,
+                "layer_norm": (3 * layers + 3 * draft_layers * kd) * steps
+                + 2 * per_prefill * prefills,
+                "quant_matmul": (1 + kd) * steps if int8 else 0}
+    want["flash_attention_fwd"] = per_prefill * prefills
+    got = {"decode_attention": da, "decode_attention_block": blk,
+           "layer_norm": ln, "quant_matmul": qmm, "flash_attention_fwd": fl}
+    if not prefills or got != want:
+        fail(f"{tag}: launches {got} do not match {steps} steps and "
+             f"{prefills} prefill runs: expected {want}")
+
+
+def s2s_serve(K, tag, target, sources, budgets, slots, draft=None,
+              draft_layers=None, trace=False, check=True):
+    """Serve ``sources`` with ``budgets`` through ``GenerativeEngine`` at
+    ``slots`` slots (``draft``: speculative). Launch counters are zeroed
+    just before the requests and read just after. Returns ``(results,
+    launches, numbers)``; with ``check``, the launches are held to the
+    run's steps and every token to the plain re-forward."""
+    from simple_tensorflow_tpu_torch import serving
+
+    buckets = [b for b in (1, 4, 16) if b <= slots]
+    policy = serving.DecodePolicy(num_slots=slots,
+                                  max_decode_len=S2S_DECODE_LEN,
+                                  bucket_sizes=buckets, max_new_tokens=120)
+    first = [None] * len(sources)
+
+    def on_token(i):
+        def cb(tok, lp):
+            if first[i] is None:
+                first[i] = time.perf_counter()
+        return cb
+
+    lent = None if draft is None else (
+        draft if isinstance(draft, Lent) else Lent(draft))
+    tgt = target if isinstance(target, Lent) else Lent(target)
+    with serving.GenerativeEngine(f"s2s_{tag}", tgt, policy,
+                                  draft=lent) as eng:
+        # warm-up: one unrelated request
+        eng.generate(list(range(2, 12)), max_new_tokens=4).result(600)
+        torch.cuda.synchronize()
+        met = eng.metrics
+        steps0, n0, p0 = met.steps, len(met.step_seconds), \
+            len(met.prefill_seconds)
+        a0 = len(tgt.admitted)
+        spec0 = (met.spec_proposed, met.spec_accepted)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [eng.generate(s, max_new_tokens=b, on_token=on_token(i))
+                for i, (s, b) in enumerate(zip(sources, budgets))]
+        results = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        steps = met.steps - steps0
+        step_s = list(met.step_seconds)[n0:]
+        prefill_s = list(met.prefill_seconds)[p0:]
+        admitted = tgt.admitted[a0:]
+        proposed = met.spec_proposed - spec0[0]
+        accepted = met.spec_accepted - spec0[1]
+        traced = (trace_decode(eng, target.cfg.vocab_size, f"s2s {tag}",
+                               SERVING_KERNELS) if trace else None)
+    emitted = sum(len(r["tokens"]) for r in results)
+    stats = {"tokens_s": emitted / wall, "tokens": emitted, "steps": steps,
+             "p50_ms": statistics.median(step_s) * 1e3,
+             "ttft_ms": statistics.median(f - t0 for f in first
+                                          if f is not None) * 1e3,
+             "prefill_ms": statistics.median(prefill_s) * 1e3,
+             "acceptance": accepted / proposed if proposed else None,
+             "traced": traced}
+    if not check:
+        return results, counts, stats
+    # the prefill runs the engine made: each of its admissions (one
+    # prefill time each) covers its rows with the model's prefill buckets,
+    # the largest first; the draft prefills what the target does
+    if len(admitted) != len(prefill_s) or (
+            lent is not None and lent.admitted[-len(admitted):] != admitted):
+        fail(f"s2s {tag}: {len(prefill_s)} admissions timed, prefills of "
+             f"{admitted} rows asked of the target and "
+             f"{None if lent is None else lent.admitted} of the draft")
+    largest = target.prefill_buckets[-1]
+    prefills = sum(-(-n // largest) for n in admitted)
+    s2s_launch_check(tag, counts, steps, prefills, draft_layers, target.int8,
+                     target.cfg.num_layers)
+    for r in results:
+        if r["outcome"] not in ("eos", "length") or not len(r["tokens"]) \
+                or not np.all(np.isfinite(r["logprobs"])):
+            fail(f"s2s {tag}: bad result {r}")
+    bad, worst = s2s_errors(target, sources, results, target.int8)
+    if bad:
+        fail(f"s2s {tag}: token streams off the plain re-forward "
+             f"(request, steps not argmax, steps logp off): {bad[:4]}")
+    acc = ("" if stats["acceptance"] is None else
+           f", acceptance {stats['acceptance']:.4f} ({accepted} of "
+           f"{proposed} proposals)")
+    print(f"s2s[{tag}]: {len(results)} requests at {slots} slots, {emitted} "
+          f"tokens in {wall:.4f} s = {stats['tokens_s']:.2f} tokens/s, "
+          f"{steps} engine steps (p50 {stats['p50_ms']:.4f} ms), p50 time to"
+          f" first token {stats['ttft_ms']:.4f} ms, p50 prefill "
+          f"{stats['prefill_ms']:.4f} ms ({prefills} prefill runs){acc}; "
+          f"every token within the rule (max logp err {worst:.3e}); "
+          f"launches {dict((k, v) for k, v in counts.items() if v)}",
+          flush=True)
+    return results, counts, stats
+
+
+def equal_tokens(a, b):
+    """Tokens of streams ``a`` equal to ``b``'s, request by request, up
+    to their first difference; and the tokens of ``a``."""
+    same = total = 0
+    for x, y in zip(a, b):
+        total += len(x["tokens"])
+        for p, q in zip(x["tokens"], y["tokens"]):
+            if p != q:
+                break
+            same += 1
+    return same, total
+
+
+def s2s_kernel_rows(K, rng, dev):
+    """The kernels at this path's shapes (f32, 16 heads of 64,
+    ``S2S_DECODE_LEN`` self positions, ``S2S_SRC`` source positions with
+    a pad bias), each against its plain version with its bound and one
+    SDPA call with the same mask: the one-query kernel on the slot cache
+    at B = 1, 4, 16; cross-attention with the bias at B = 1, 4, 16; the
+    query block of ``S2S_SPEC_K`` with ``causal_offset`` and with the bias
+    and no offset at B = 1, 4, 16; the f32 and bf16 flash forward at the
+    encoder's (4 x 16, 64, 64) with the pad bias, non-causal."""
+    import torch.nn.functional as F
+
+    H, D = 16, 64
+    main = {}
+    for kq in (1, S2S_SPEC_K):
+        for role, L in (("self", S2S_DECODE_LEN), ("cross", S2S_SRC)):
+            for b in (1, 4, 16):
+                causal = role == "self" and kq > 1
+                qshape = (b, H, D) if kq == 1 else (b, kq, H, D)
+                if role == "self":
+                    lens = rng.randint(1, L - kq + 1, size=b)
+                    lens[0] = L - kq
+                    bias = None
+                else:
+                    lens = np.full(b, L)
+                    real = rng.randint(8, L + 1, size=b)
+                    real[0] = 8
+                    bias = torch.from_numpy(
+                        (np.arange(L)[None, :] >= real[:, None]).astype(
+                            np.float32) * -1e9).to(dev)
+                lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+                per_call = (2 * b * L * H * D + 2 * int(np.prod(qshape))) * 4
+                copies = [tuple(torch.from_numpy(rng.standard_normal(
+                    shape).astype(np.float32)).to(dev)
+                    for shape in (qshape, (b, L, H, D), (b, L, H, D)))
+                    for _ in range(n_copies(per_call))]
+                kw = dict(bias=bias, causal_offset=causal)
+                q, k, v = copies[0]
+                err = check_close(f"s2s decode {role} B={b} Kq={kq}",
+                                  K.decode_attention(q, k, v, lengths, **kw),
+                                  K.decode_attention_plain(q, k, v, lengths,
+                                                           **kw),
+                                  torch.float32)
+                span = torch.arange(L, device=dev).view(1, 1, L)
+                allowed = lengths.view(b, 1, 1).long()
+                if causal:
+                    allowed = allowed + 1 + torch.arange(
+                        kq, device=dev).view(1, kq, 1)
+                add = torch.where(span < allowed, 0.0, float("-inf"))
+                if bias is not None:
+                    add = add + bias.view(b, 1, L)
+                add = add.expand(b, kq, L).reshape(b, 1, kq, L)
+
+                def lib(c):
+                    qv = (c[0].view(b, 1, H, D) if kq == 1
+                          else c[0]).transpose(1, 2)
+                    return lambda: F.scaled_dot_product_attention(
+                        qv, c[1].transpose(1, 2), c[2].transpose(1, 2),
+                        attn_mask=add)
+
+                ms = device_ms([lambda c=c: K.decode_attention(
+                    *c, lengths, **kw) for c in copies])
+                plain_ms = device_ms([lambda c=c: K.decode_attention_plain(
+                    *c, lengths, **kw) for c in copies])
+                lib_ms = device_ms([lib(c) for c in copies])
+                # this run's lengths: each query reads its allowed positions
+                reach = np.minimum(lens + (kq if causal else 0), L)
+                allowed_pos = sum(min(int(n) + (j + 1 if causal else 0), L)
+                                  for n in lens for j in range(kq))
+                moved = (int(reach.sum()) * H * D * 2 * 4
+                         + 2 * int(np.prod(qshape)) * 4 + b * 4
+                         + (b * L * 4 if bias is not None else 0))
+                bnd = bound_ms(moved, 4 * allowed_pos * H * D, torch.float32)
+                kind = "decode_attention" + ("" if kq == 1 else "_block")
+                name = (f"{kind} f32 B={b} Kq={kq} L={L} {role}"
+                        f"{' causal' if causal else ''}"
+                        f"{' bias' if bias is not None else ''} (s2s)")
+                report(name, err, ms, plain_ms, bnd, lib_ms)
+                if b == 16:
+                    main[f"{kind}@s2s_{role}"] = kernel_row(
+                        err, ms, plain_ms, bnd, lib_ms, name)
+    B, s = 4, S2S_SRC
+    bh = B * H
+    for dtype in (torch.float32, torch.bfloat16):
+        elem = elem_size(dtype)
+        copies = [tuple(torch.from_numpy(rng.standard_normal(
+            (bh, s, D)).astype(np.float32)).to(dev, dtype) for _ in range(3))
+            for _ in range(n_copies(3 * bh * s * D * elem))]
+        pads = np.zeros((B, s), np.float32)
+        for i, n in enumerate((64, 40, 8, 0)):    # the last all padding
+            pads[i, n:] = 1.0
+        bias = torch.from_numpy(pads * -1e9).to(dev)
+        args = dict(heads=H, sm_scale=D ** -0.5, causal=False, bias=bias)
+        q, k, v = copies[0]
+        o, lse = K.flash_attention_fwd(q, k, v, **args)
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+        torch.cuda.synchronize()
+        tag = f"flash_attention_fwd {str(dtype)[6:]} BH={bh} S={s} D={D} " \
+              "pad bias, one row all padding (s2s encoder)"
+        if not torch.isfinite(o).all():
+            fail(f"{tag}: non-finite output")
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err = max(check_scaled(f"{tag} o", o, ro, tol),
+                  check_scaled(f"{tag} lse", lse, rlse, 1e-5))
+        ms = device_ms([lambda c=c: K.flash_attention_fwd(*c, **args)
+                        for c in copies])
+        plain_ms = device_ms([lambda c=c: K.flash_attention_fwd_plain(
+            *c, **args) for c in copies])
+        mask = bias.view(B, 1, 1, s).to(dtype)
+        lib_ms = device_ms([lambda c=c: F.scaled_dot_product_attention(
+            *(t.view(B, H, s, D) for t in c), attn_mask=mask)
+            for c in copies])
+        io = bh * s * D * elem
+        bnd = bound_ms(4 * io + bh * s * 4 + B * s * 4, 4 * D * bh * s * s,
+                       dtype)
+        report(tag, err, ms, plain_ms, bnd, lib_ms)
+        if dtype == torch.float32:
+            main["flash_attention_fwd@s2s_encoder"] = kernel_row(
+                err, ms, plain_ms, bnd, lib_ms, tag)
+    return main
+
+
+def s2s_faults(K, tr, cfg, params, target, self_draft, small, sources,
+               dev):
+    """The three planted faults, each of which the token check must fail:
+    verify's self-attention without ``causal_offset`` and the cross bias
+    dropped (a target dispatched eagerly, so the planted function runs),
+    and the bonus token taken from the one-layer draft's proposal."""
+    src = sources[:S2S_FAULT_REQUESTS]
+    bud = [S2S_FAULT_NEW] * len(src)
+    eager = tr.TransformerGenerativeModel(
+        cfg, S2S_SRC, num_slots=S2S_SLOTS, max_decode_len=S2S_DECODE_LEN,
+        decode_bucket_sizes=[1, 4, 16], prefill_bucket_sizes=[1, 4],
+        params=params, speculative_k=S2S_SPEC_K, aot_warmup=False,
+        device=dev)
+
+    def no_offset(f):
+        return lambda q, k, v, lengths, **kw: f(
+            q, k, v, lengths, **{**kw, "causal_offset": False})
+
+    def no_bias(f):
+        return lambda q, k, v, lengths, bias=None, **kw: f(q, k, v, lengths,
+                                                            **kw)
+
+    runs = []
+    with planted(tr, "decode_attention", no_offset):
+        out, _, _ = s2s_serve(K, "fault no causal_offset", eager, src, bud,
+                              S2S_SLOTS, draft=self_draft, check=False)
+    runs.append(("verify without causal_offset", out))
+    with planted(tr, "decode_attention", no_bias):
+        out, _, _ = s2s_serve(K, "fault no cross bias", eager, src, bud,
+                              S2S_SLOTS, check=False)
+    runs.append(("cross bias dropped", out))
+    tap = ProposalTap(small)
+    out, _, _ = s2s_serve(K, "fault bonus from draft",
+                          BonusFromDraft(target, tap), src, bud, S2S_SLOTS,
+                          draft=tap, check=False)
+    runs.append(("bonus token from the draft", out))
+    eager.close()
+    for what, out in runs:
+        bad, _ = s2s_errors(target, src, out, False)
+        print(f"s2s fault ({what}): {len(bad)} of {len(out)} requests "
+              f"break the rule {bad[:2]}", flush=True)
+        if not bad:
+            fail(f"s2s: the planted fault ({what}) passes the token check")
+
+
+def s2s_phase(K, dev, kernel_rows):
+    """Encoder-decoder serving (module docstring, phase 16). Returns
+    ``[(path, dropout, launches)]``."""
+    from simple_tensorflow_tpu_torch import convert
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = tr.TransformerConfig.big()
+    small_cfg = dataclasses.replace(cfg, num_layers=1)
+    kernel_rows.update(s2s_kernel_rows(K, np.random.RandomState(16), dev))
+    params = convert.init_seq2seq_params(cfg, seed=0)
+    sources, budgets = s2s_requests(cfg.vocab_size)
+    geo = dict(num_slots=S2S_SLOTS, max_decode_len=S2S_DECODE_LEN,
+               decode_bucket_sizes=[1, 4, 16], prefill_bucket_sizes=[1, 4],
+               device=dev)
+    print(f"s2s: TransformerGenerativeModel(TransformerConfig.big(), src_len "
+          f"{S2S_SRC}, {S2S_SLOTS} slots, max_decode_len {S2S_DECODE_LEN}, "
+          f"decode buckets [1, 4, 16], prefill [1, 4], speculative_k "
+          f"{S2S_SPEC_K}), random f32 weights (seed 0); drafts with "
+          f"draft_steps {S2S_DRAFT_STEPS}: the target's weights, and one "
+          f"layer from seed 1 (its table 1000x smaller); {S2S_REQUESTS} "
+          f"sources of 8-64 tokens, "
+          f"budgets 8-120 (1 slot: the first {S2S_ONE_SLOT_REQUESTS})",
+          flush=True)
+    t0 = time.perf_counter()
+    target = tr.TransformerGenerativeModel(
+        cfg, S2S_SRC, params=params, speculative_k=S2S_SPEC_K, **geo)
+    self_draft = tr.TransformerGenerativeModel(
+        cfg, S2S_SRC, params=params, draft_steps=S2S_DRAFT_STEPS, **geo)
+    # random tied-embedding models echo their input token (the target
+    # does): a one-layer draft drawn as the init draws it proposes what the
+    # target picks (acceptance 0.94 on an H100). Its table drawn 1000x
+    # smaller leaves the position in its residual stream, not the token:
+    # it proposes a token of the position, which the target rejects
+    small_params = convert.init_seq2seq_params(small_cfg, 1)
+    small_params["shared_embedding"] *= 1e-3
+    small = tr.TransformerGenerativeModel(
+        small_cfg, S2S_SRC, params=small_params,
+        draft_steps=S2S_DRAFT_STEPS, **geo)
+    torch.cuda.synchronize()
+    print(f"s2s: the target and the two drafts built, every bucket "
+          f"captured, in {time.perf_counter() - t0:.3f} s", flush=True)
+    paths, res, stats = [], {}, {}
+    arms = (("plain", None, None), ("self-draft", self_draft, cfg.num_layers),
+            ("one-layer draft", small, 1))
+    for slots in (S2S_SLOTS, 1):
+        n = len(sources) if slots > 1 else S2S_ONE_SLOT_REQUESTS
+        for arm, draft, layers in arms:
+            tag = f"f32 {arm}, {slots} slot{'s' if slots > 1 else ''}"
+            res[arm, slots], counts, stats[arm, slots] = s2s_serve(
+                K, tag, target, sources[:n], budgets[:n], slots,
+                draft=draft, draft_layers=layers,
+                trace=slots > 1 and draft is None)
+            paths.append((f"s2s {tag}", 0.0, counts))
+        plain = stats["plain", slots]
+        for arm, _, _ in arms[1:]:
+            same, total = equal_tokens(res[arm, slots], res["plain", slots])
+            st = stats[arm, slots]
+            print(f"{card}: s2s {arm} at {slots} slot(s): acceptance "
+                  f"{st['acceptance']:.4f}, {st['tokens_s']:.2f} tokens/s "
+                  f"against plain {plain['tokens_s']:.2f} "
+                  f"({st['tokens_s'] / plain['tokens_s']:.3f}x); {same} of "
+                  f"{total} tokens equal to the plain stream", flush=True)
+    st = stats["plain", S2S_SLOTS]
+    traced = ("not measured" if st["traced"] is None else
+              f"device {st['traced'][0]:.4f} ms a decode step at bucket 16 "
+              f"(host p50 {st['traced'][1]:.4f} ms in the traced window)")
+    print(f"{card}: s2s f32 plain, {S2S_SLOTS} slots: {st['tokens_s']:.2f} "
+          f"tokens/s over the mix, p50 decode step {st['p50_ms']:.4f} ms, "
+          f"p50 time to first token {st['ttft_ms']:.4f} ms, p50 prefill "
+          f"{st['prefill_ms']:.4f} ms; {traced}", flush=True)
+    s2s_faults(K, tr, cfg, params, target, self_draft, small, sources, dev)
+    for m in (self_draft, small):
+        m.close()
+    target.close()
+    del target, self_draft, small
+    torch.cuda.empty_cache()
+    # the int8 head, plain and with its self-draft (verify's QuantMatMul at
+    # m = bucket x speculative_k, up to 64)
+    target = tr.TransformerGenerativeModel(
+        cfg, S2S_SRC, params=params, speculative_k=S2S_SPEC_K, int8=True,
+        **geo)
+    draft = tr.TransformerGenerativeModel(
+        cfg, S2S_SRC, params=params, draft_steps=S2S_DRAFT_STEPS, int8=True,
+        **geo)
+    for arm, d, layers in (("plain", None, None),
+                           ("self-draft", draft, cfg.num_layers)):
+        tag = f"int8 {arm}, {S2S_SLOTS} slots"
+        _, counts, _ = s2s_serve(K, tag, target, sources, budgets,
+                                 S2S_SLOTS, draft=d, draft_layers=layers)
+        paths.append((f"s2s {tag}", 0.0, counts))
+    target.close()
+    draft.close()
+    del target, draft
+    torch.cuda.empty_cache()
+    print(f"s2s: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 # a hang (a kernel or a capture that never returns) dumps every thread's
 # stack and exits non-zero this long after the start, inside the 1200 s
 # the run is given
@@ -8691,8 +9240,10 @@ def main():
     faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     serving_only = sys.argv[1:] == ["--serving"]
     lc_only = sys.argv[1:] == ["--lc-attribution"]
-    if sys.argv[1:] and not (serving_only or lc_only):
-        fail(f"usage: {sys.argv[0]} [--serving | --lc-attribution]")
+    s2s_only = sys.argv[1:] == ["--seq2seq"]
+    if sys.argv[1:] and not (serving_only or lc_only or s2s_only):
+        fail(f"usage: {sys.argv[0]} [--serving | --lc-attribution | "
+             "--seq2seq]")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures "
              "the port on an NVIDIA GPU")
@@ -8746,6 +9297,12 @@ def main():
         check_lc_plain(K, stf, lc, stf.bfloat16, attribution=True)
         print("chip_smoke: the long-context bf16 check passed "
               "(--lc-attribution)", flush=True)
+        return
+    if s2s_only:
+        print(f"chip_smoke: phase 16 launches "
+              f"{s2s_phase(K, dev, {})}", flush=True)
+        print("chip_smoke: the encoder-decoder serving phase passed "
+              "(--seq2seq)", flush=True)
         return
     def mark(what):  # where the smoke's time goes, phase by phase
         print(f"chip_smoke: {what} ended at "
@@ -8831,6 +9388,8 @@ def main():
     mark("checkpoint")
     paths += single_card_phase(K, dev, main_rows)
     mark("single-card")
+    paths += s2s_phase(K, dev, main_rows)
+    mark("seq2seq serving")
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
     # launches the row takes from the general row)
@@ -8919,6 +9478,24 @@ def main():
             ("softmax_xent_fwd", "softmax_xent.cu", "softmax_xent.py:32"),
             ("softmax_xent_bwd", "softmax_xent.cu", "softmax_xent.py:78"),
             ("adam_update", "fused_update.cu", "fused_update.py:59"))})
+    # phase 16's rows: the slot path's DecodeAttention timed at each
+    # role's shape (each row counts all of the path's launches of its
+    # kernel, as the beam rows do), the f32 encoder flash forward, the int8
+    # runs' QuantMatMul timed at verify's m = 64
+    session_where.update({
+        f"{kind}@s2s_{role}": ("decode_attention.cu", tpu, kind, kind,
+                               "s2s")
+        for kind, tpu in (("decode_attention", "decode_attention.py:57"),
+                          ("decode_attention_block",
+                           "decode_attention.py:108"))
+        for role in ("self", "cross")})
+    session_where.update({
+        "flash_attention_fwd@s2s_encoder": (
+            "flash_attention.cu", "flash_attention.py:102",
+            "flash_attention_fwd", "flash_attention_fwd", "s2s"),
+        "quant_matmul@s2s": (
+            "quant_matmul.cu", "quant_matmul.py:45", "quant_matmul",
+            "quant_matmul", "s2s int8")})
     # (the general row's counter, the path) pairs a Session row takes over
     claimed = {(c, p) for _, _, _, c, p in session_where.values()}
     # a kernel's launches over every path; the flash rows split by the

@@ -27,6 +27,10 @@
   trainer draws the JAX session's next dropout masks.
 - :func:`init_params` makes numpy-seeded weights of the same shapes and
   initializers as the JAX model, so the card can run without JAX.
+- :func:`seq2seq_params_from_jax` and :func:`init_seq2seq_params` do the
+  same for the encoder-decoder (``transformer/encoder/...``,
+  ``transformer/decoder/...`` with ``cross_attn``), a
+  :class:`..models.transformer.Seq2SeqStack` ``state_dict``.
 
 ResNet (:mod:`.models.resnet`): :func:`resnet_params_from_jax` maps
 ``resnet/...`` variables to a :class:`..models.resnet.ResNet`
@@ -47,10 +51,6 @@ import numpy as np
 import torch
 
 from .models.transformer import TransformerConfig
-
-_DENSE = [("self_attn", "q"), ("self_attn", "k"), ("self_attn", "v"),
-          ("self_attn", "out"), ("ffn", "in"), ("ffn", "out")]
-
 
 def _prefix(prefix: str) -> str:
     return prefix[:-len(".stfz")] if prefix.endswith(".stfz") else prefix
@@ -101,32 +101,47 @@ def bf16_to_f32(raw: np.ndarray) -> np.ndarray:
     return bits.view(np.float32)
 
 
-def _shapes(cfg: TransformerConfig) -> dict:
-    """Port parameter name -> shape."""
+def _layer_shapes(out: dict, base: str, cfg: TransformerConfig, attns,
+                  lns) -> None:
+    """One layer's parameters: the attention Denses of each of ``attns``,
+    the FFN, then the LayerNorms ``lns``."""
     d, ff = cfg.d_model, cfg.d_ff
-    out = {"shared_embedding": (cfg.vocab_size, d)}
+    dense = [(sub, name) for sub in attns
+             for name in ("q", "k", "v", "out")]
+    for sub, name in dense + [("ffn", "in"), ("ffn", "out")]:
+        shape = {"in": (d, ff), "out": (ff, d)}[name] \
+            if sub == "ffn" else (d, d)
+        out[f"{base}.{sub}.{name}.kernel"] = shape
+        out[f"{base}.{sub}.{name}.bias"] = (shape[1],)
+    for ln in lns:
+        out[f"{base}.{ln}.gamma"] = (d,)
+        out[f"{base}.{ln}.beta"] = (d,)
+
+
+def _shapes(cfg: TransformerConfig) -> dict:
+    """Port parameter name -> shape of the causal LM."""
+    out = {"shared_embedding": (cfg.vocab_size, cfg.d_model)}
     for i in range(cfg.num_layers):
-        base = f"decoder.layer_{i}"
-        for sub, name in _DENSE:
-            shape = {"in": (d, ff), "out": (ff, d)}[name] \
-                if sub == "ffn" else (d, d)
-            out[f"{base}.{sub}.{name}.kernel"] = shape
-            out[f"{base}.{sub}.{name}.bias"] = (shape[1],)
-        for ln in ("ln1", "ln3"):
-            out[f"{base}.{ln}.gamma"] = (d,)
-            out[f"{base}.{ln}.beta"] = (d,)
+        _layer_shapes(out, f"decoder.layer_{i}", cfg, ("self_attn",),
+                      ("ln1", "ln3"))
     return out
 
 
-def params_from_jax(named: dict, cfg: TransformerConfig,
-                    scope: str = "causal_lm",
-                    compute_dtype=torch.float32) -> dict:
-    """Map JAX variable names to the port's ``state_dict`` (CPU tensors):
-    Dense kernels and biases in ``compute_dtype``, the embedding and the
-    LayerNorm parameters f32. Raises on a missing variable or a shape
-    mismatch."""
+def _seq2seq_shapes(cfg: TransformerConfig) -> dict:
+    """Port parameter name -> shape of the encoder-decoder."""
+    out = {"shared_embedding": (cfg.vocab_size, cfg.d_model)}
+    for i in range(cfg.num_layers):
+        _layer_shapes(out, f"encoder.layer_{i}", cfg, ("self_attn",),
+                      ("ln1", "ln2"))
+    for i in range(cfg.num_layers):
+        _layer_shapes(out, f"decoder.layer_{i}", cfg,
+                      ("self_attn", "cross_attn"), ("ln1", "ln2", "ln3"))
+    return out
+
+
+def _from_jax(named: dict, shapes: dict, scope: str, compute_dtype) -> dict:
     state = {}
-    for name, shape in _shapes(cfg).items():
+    for name, shape in shapes.items():
         jax_name = f"{scope}/" + name.replace(".", "/")
         if jax_name not in named:
             raise KeyError(f"checkpoint has no variable {jax_name!r}")
@@ -139,6 +154,27 @@ def params_from_jax(named: dict, cfg: TransformerConfig,
             t = t.to(compute_dtype)
         state[name] = t
     return state
+
+
+def params_from_jax(named: dict, cfg: TransformerConfig,
+                    scope: str = "causal_lm",
+                    compute_dtype=torch.float32) -> dict:
+    """Map JAX variable names to the port's ``state_dict`` (CPU tensors):
+    Dense kernels and biases in ``compute_dtype``, the embedding and the
+    LayerNorm parameters f32. Raises on a missing variable or a shape
+    mismatch."""
+    return _from_jax(named, _shapes(cfg), scope, compute_dtype)
+
+
+def seq2seq_params_from_jax(named: dict, cfg: TransformerConfig,
+                            scope: str = "transformer",
+                            compute_dtype=torch.float32) -> dict:
+    """:func:`params_from_jax` for the encoder-decoder: ``transformer/
+    shared_embedding``, ``transformer/encoder/layer_{i}/{self_attn/{q,k,v,
+    out},ffn/{in,out}}/{kernel,bias}``, ``…/ln1|ln2/{gamma,beta}``, and
+    ``transformer/decoder/layer_{i}/…`` with ``cross_attn`` and ``ln3``, to
+    a :class:`..models.transformer.Seq2SeqStack` ``state_dict``."""
+    return _from_jax(named, _seq2seq_shapes(cfg), scope, compute_dtype)
 
 
 def _one(named: dict, pattern: str) -> str:
@@ -183,14 +219,10 @@ def load_training_state(trainer, named: dict, host_state=None,
             getattr(grp, slot).copy_(torch.from_numpy(value).to(dev))
 
 
-def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
-    """Random weights from ``numpy.random.RandomState(seed)`` with the JAX
-    model's initializers: embedding ~ N(0, d_model**-0.5), dense kernels
-    variance-scaling (fan_avg, uniform), biases and LN beta 0, LN gamma 1.
-    Returns a ``state_dict`` of CPU f32 tensors."""
+def _init(shapes: dict, cfg: TransformerConfig, seed: int) -> dict:
     rng = np.random.RandomState(seed)
     state = {}
-    for name, shape in _shapes(cfg).items():
+    for name, shape in shapes.items():
         if name == "shared_embedding":
             v = rng.standard_normal(shape) * cfg.d_model ** -0.5
         elif name.endswith(".kernel"):
@@ -202,6 +234,20 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
             v = np.zeros(shape)
         state[name] = torch.from_numpy(v.astype(np.float32))
     return state
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0) -> dict:
+    """Random weights from ``numpy.random.RandomState(seed)`` with the JAX
+    model's initializers: embedding ~ N(0, d_model**-0.5), dense kernels
+    variance-scaling (fan_avg, uniform), biases and LN beta 0, LN gamma 1.
+    Returns a ``state_dict`` of CPU f32 tensors."""
+    return _init(_shapes(cfg), cfg, seed)
+
+
+def init_seq2seq_params(cfg: TransformerConfig, seed: int = 0) -> dict:
+    """:func:`init_params` for the encoder-decoder
+    (:func:`seq2seq_params_from_jax`'s names)."""
+    return _init(_seq2seq_shapes(cfg), cfg, seed)
 
 
 # -- ResNet ----------------------------------------------------------------------

@@ -59,7 +59,6 @@ import torch
 
 import simple_tensorflow_tpu_torch as stf
 
-from ..compiler import DeviceGraph, StagedInput, on_side_stream
 from ..framework.random_seed import StepRNG, fold_in_value
 from ..ops import fused_ops
 from ..ops.kernels.common import NEG_INF
@@ -69,7 +68,7 @@ from ..ops.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from ..ops.kv_cache import KVCache
 from ..train.optimizers import FlatAdam
 from . import common
-from .common import resolve_device
+from .common import BucketProgram, greedy_emit, resolve_device
 from .transformer import (DecoderStack, TransformerConfig, _attention,
                           _eager_attention, _eager_embed, _eager_ffn,
                           _eager_residual, _embed, _ffn, _ln,
@@ -385,41 +384,6 @@ class _PagedCaches:
         return self._one(kc, k_new), self._one(vc, v_new), self._base
 
 
-def greedy_emit(logits):
-    """Greedy pick and its log-probability: ``(tok (n,), logp (n,))``.
-    Ties go to the first maximal index, as ``argmax`` does in JAX."""
-    logp_all = torch.log_softmax(logits, dim=-1)
-    tok = torch.argmax(logits, dim=-1)
-    return tok, logp_all.gather(-1, tok[:, None])[:, 0]
-
-
-class _BucketProgram:
-    """One bucket's program over static inputs (``{name: (shape,
-    dtype)}``), captured as a CUDA graph: :meth:`build` warms it up on
-    ``pad`` rows and captures it, :meth:`run` stages a bucket's rows and
-    replays it, returning the static outputs."""
-
-    def __init__(self, fn, specs, device):
-        self.inputs = {k: StagedInput(shape, dtype, device)
-                       for k, (shape, dtype) in specs.items()}
-        self._fn = fn
-        self.graph = DeviceGraph(self._call, device)
-
-    def _call(self):
-        return self._fn(**{k: v.static for k, v in self.inputs.items()})
-
-    def build(self, pad):
-        for k, v in pad.items():
-            self.inputs[k].stage(v)
-        on_side_stream(self._call, self.graph.device)
-        self.graph.capture()
-
-    def run(self, values):
-        for k, v in values.items():
-            self.inputs[k].stage(v)
-        return self.graph.replay()
-
-
 class CausalLMGenerativeModel:
     """Paged causal-LM decode programs for the engine's prefix-cache path
     (module docstring).
@@ -509,7 +473,7 @@ class CausalLMGenerativeModel:
         i64, i32 = torch.int64, torch.int32
         pps, pl = self.pages_per_seq, self.page_len
         for sb in self._decode_buckets:
-            prog = _BucketProgram(self._decode_step, {
+            prog = BucketProgram(self._decode_step, {
                 "tok": ((sb,), i64), "pos": ((sb,), i32),
                 "tbl": ((sb, pps), i64), "dst": ((sb,), i64),
                 "off": ((sb,), i64)}, self.device)
@@ -518,7 +482,7 @@ class CausalLMGenerativeModel:
                 np.zeros((sb,), np.int32), self._scratch_tables(sb)))
             self._decode_programs[sb] = prog
         for pb in self._prefill_buckets:
-            prog = _BucketProgram(self._prefill_step, {
+            prog = BucketProgram(self._prefill_step, {
                 "tok": ((pb, pl), i64), "base": ((pb,), i32),
                 "tbl": ((pb, pps), i64), "dst": ((pb,), i64),
                 "off": ((pb,), i64)}, self.device)

@@ -12,7 +12,9 @@ JAX variable path with ``.`` for ``/`` (``…/ln1/gamma``, ``…/q/kernel``,
 ``…/q/bias``). Dense kernels are ``(in, out)`` as in JAX. Parameters are
 trainable; the serving model switches their gradients off.
 :func:`maybe_recompute` puts a layer under ``stf.recompute_grad``, as the
-graph models' ``recompute=True`` asks.
+graph models' ``recompute=True`` asks. The two generative models share
+:func:`greedy_emit` and :class:`BucketProgram` (one captured program a
+serving bucket).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..compiler import DeviceGraph, StagedInput, on_side_stream
 from ..layers import core
 from ..ops import array_ops, init_ops
 from ..ops import variable_scope as vs
@@ -58,6 +61,42 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return fused_layer_norm(x, self.gamma, self.beta, eps=self.eps)
+
+
+def greedy_emit(logits):
+    """Greedy pick and its log-probability: ``(tok (n,), logp (n,))``.
+    Ties go to the first maximal index, as ``argmax`` does in JAX."""
+    logp_all = torch.log_softmax(logits, dim=-1)
+    tok = torch.argmax(logits, dim=-1)
+    return tok, logp_all.gather(-1, tok[:, None])[:, 0]
+
+
+class BucketProgram:
+    """One serving bucket's program over static inputs (``{name: (shape,
+    dtype)}``), captured as a CUDA graph: :meth:`build` warms it up on
+    ``pad`` rows and captures it, :meth:`run` stages a bucket's rows and
+    replays it, returning the static outputs. On the CPU every run calls
+    the function into the same outputs."""
+
+    def __init__(self, fn, specs, device):
+        self.inputs = {k: StagedInput(shape, dtype, device)
+                       for k, (shape, dtype) in specs.items()}
+        self._fn = fn
+        self.graph = DeviceGraph(self._call, device)
+
+    def _call(self):
+        return self._fn(**{k: v.static for k, v in self.inputs.items()})
+
+    def build(self, pad):
+        for k, v in pad.items():
+            self.inputs[k].stage(v)
+        on_side_stream(self._call, self.graph.device)
+        self.graph.capture()
+
+    def run(self, values):
+        for k, v in values.items():
+            self.inputs[k].stage(v)
+        return self.graph.replay()
 
 
 def layer_norm(x, name, eps=1e-6):

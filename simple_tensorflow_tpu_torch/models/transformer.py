@@ -1,6 +1,7 @@
 """The Transformer of ``simple_tensorflow_tpu/models/transformer.py``:
-the seq2seq training graph, and the decoder-only eager pieces of
-serving and causal-LM training.
+the seq2seq training graph, the eager encoder-decoder and its serving
+model, and the decoder-only eager pieces of causal-LM serving and
+training.
 
 **The training graph** (TF-1 front end), the JAX file's ``_init``,
 ``_ln``, ``_dense`` (:63-72), ``_residual`` (:142), ``_attention`` (:152),
@@ -22,15 +23,23 @@ Not ported: ``data_parallel=True``; it raises ``NotImplementedError``.
 
 **The eager pieces**: ``TransformerConfig`` (:35),
 ``sinusoidal_position_encoding`` (:131), ``incremental_decode`` (the
-JAX ``_incremental_decode`` :438) and ``block_decode`` (:512) with
-``cross_kv=None`` (no cross-attention
-sublayer, no ``ln2``), ``build_int8_logits_weights`` (:743), and the
-causal-LM training sublayers. Where a private name of the JAX file is
-both, the graph function keeps it and the eager sublayer is
-``_eager_residual``, ``_eager_attention``, ``_eager_ffn`` or
-``_eager_embed``; ``smoothed_xent`` takes either (it builds graph ops for
-graph tensors). ``_ln`` is :class:`.common.LayerNorm` in the eager
-models.
+JAX ``_incremental_decode`` :438) and ``block_decode`` (:512), whose
+``cross_kv, cross_bias, cross_len`` add the cross-attention sublayer and
+its ``ln2`` (``None``: the decoder-only step), ``build_int8_logits_weights``
+(:743), and the causal-LM training sublayers. Where a private name of the
+JAX file is both, the graph function keeps it and the eager sublayer is
+``_eager_residual``, ``_eager_attention``, ``_eager_ffn``,
+``_eager_embed``, ``_eager_encode`` (``encode`` :214 at eval, with
+``_pad_bias`` :207) or ``_eager_decode_cross_kv`` (:416);
+``smoothed_xent`` takes either (it builds graph ops for graph tensors).
+``_ln`` is :class:`.common.LayerNorm` in the eager models.
+
+**Serving** (JAX :770-1405): :class:`TransformerGenerativeModel` on slot
+caches (:class:`..ops.kv_cache.SlotKVCache`, ``_SlotCaches`` :373),
+with the speculative verify and draft programs, ``generative_cache_bytes``
+(:1047), and :func:`seq2seq_hidden_plain` / :func:`seq2seq_logits_plain`,
+the plain full re-forward the engine's tokens are checked against (on
+neither path).
 
 In eager training with ``cfg.dropout > 0`` the sublayers drop as the JAX
 graph does, each random op drawing from a per-step
@@ -40,16 +49,18 @@ is the op's variable scope): the embedding and the FFN activation through
 inside the flash kernels and the attention tail through the fused
 dropout-residual kernel (int32 seeds of the counter-hash mask).
 
-A :class:`DecoderStack`'s ``state_dict`` keys are the JAX variable paths
-under the model scope with ``.`` for ``/`` (``shared_embedding``,
-``decoder.layer_0.self_attn.q.kernel``, ``decoder.layer_0.ln1.gamma``, …);
-:mod:`..convert` maps between the two.
+A :class:`DecoderStack`'s (and a :class:`Seq2SeqStack`'s) ``state_dict``
+keys are the JAX variable paths under the model scope with ``.`` for
+``/`` (``shared_embedding``, ``decoder.layer_0.self_attn.q.kernel``,
+``encoder.layer_0.ln2.gamma``, …); :mod:`..convert` maps between the
+two.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,10 +72,15 @@ from ..framework import graph as ops_mod
 from ..layers.core import DenseModule
 from ..ops import fused_ops, nn_ops
 from ..ops.embedding_ops import embedding_lookup
+from ..ops.kernels.common import NEG_INF
 from ..ops.kernels.decode_attention import decode_attention
-from ..ops.kernels.quant_matmul import div127
+from ..ops.kernels.layer_norm import layer_norm_plain
+from ..ops.kernels.quant_matmul import (div127, quant_matmul,
+                                        quant_matmul_plain)
+from ..ops.kv_cache import SlotKVCache
 from . import common
-from .common import LayerNorm, merge_heads, split_heads
+from .common import (BucketProgram, LayerNorm, greedy_emit, merge_heads,
+                     split_heads)
 
 
 @dataclasses.dataclass
@@ -107,46 +123,77 @@ def sinusoidal_position_encoding(max_len, d_model):
     return enc
 
 
-class DecoderLayer(nn.Module):
+def _attention_denses(d, dtype, device):
+    return nn.ModuleDict({name: DenseModule(d, d, dtype=dtype, device=device)
+                          for name in ("q", "k", "v", "out")})
+
+
+def _ffn_denses(cfg: TransformerConfig, dtype, device):
+    return nn.ModuleDict({
+        "in": DenseModule(cfg.d_model, cfg.d_ff, activation=torch.relu,
+                          dtype=dtype, device=device),
+        "out": DenseModule(cfg.d_ff, cfg.d_model, dtype=dtype,
+                           device=device)})
+
+
+class EncoderLayer(nn.Module):
     """Self-attention (q, k, v, out), ``ln1``, FFN (in with ReLU, out),
-    ``ln3`` — the causal-LM layer, named as in the JAX graph. ``dtype`` is
-    the Dense parameters' dtype (the compute dtype in training); the
-    LayerNorm parameters stay f32."""
+    ``ln2``: the encoder layer, named as in the JAX graph."""
 
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
                  device=None):
         super().__init__()
         d = cfg.d_model
-        self.self_attn = nn.ModuleDict(
-            {name: DenseModule(d, d, dtype=dtype, device=device)
-             for name in ("q", "k", "v", "out")})
+        self.self_attn = _attention_denses(d, dtype, device)
         self.ln1 = LayerNorm(d, cfg.layer_norm_eps, device=device)
-        self.ffn = nn.ModuleDict({
-            "in": DenseModule(d, cfg.d_ff, activation=torch.relu,
-                              dtype=dtype, device=device),
-            "out": DenseModule(cfg.d_ff, d, dtype=dtype, device=device)})
+        self.ffn = _ffn_denses(cfg, dtype, device)
+        self.ln2 = LayerNorm(d, cfg.layer_norm_eps, device=device)
+
+
+class DecoderLayer(nn.Module):
+    """Self-attention (q, k, v, out), ``ln1``, with ``cross`` the
+    cross-attention (q, k, v, out) and ``ln2``, then FFN (in with ReLU,
+    out), ``ln3`` — named as in the JAX graph; without ``cross`` the
+    causal-LM layer. ``dtype`` is the Dense parameters' dtype (the compute
+    dtype); the LayerNorm parameters stay f32."""
+
+    def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
+                 device=None, cross=False):
+        super().__init__()
+        d = cfg.d_model
+        self.self_attn = _attention_denses(d, dtype, device)
+        self.ln1 = LayerNorm(d, cfg.layer_norm_eps, device=device)
+        if cross:
+            self.cross_attn = _attention_denses(d, dtype, device)
+            self.ln2 = LayerNorm(d, cfg.layer_norm_eps, device=device)
+        self.ffn = _ffn_denses(cfg, dtype, device)
         self.ln3 = LayerNorm(d, cfg.layer_norm_eps, device=device)
 
 
 class DecoderStack(nn.Module):
     """The tied embedding (f32), the sinusoidal position table and the
-    decoder layers of one causal LM; ``dtype`` as in
-    :class:`DecoderLayer`."""
+    decoder layers of one causal LM (``cross=True``: the encoder-decoder's
+    decoder, see :class:`Seq2SeqStack`); ``dtype`` as in
+    :class:`DecoderLayer`, kept as :attr:`compute_dtype`."""
 
     def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, cross=False):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype
         self.shared_embedding = nn.Parameter(
             torch.zeros(cfg.vocab_size, cfg.d_model, device=device))
         self.decoder = nn.ModuleDict(
-            {f"layer_{i}": DecoderLayer(cfg, dtype=dtype, device=device)
+            {f"layer_{i}": DecoderLayer(cfg, dtype=dtype, device=device,
+                                        cross=cross)
              for i in range(cfg.num_layers)})
-        self.register_buffer(
-            "pos_table",
-            torch.from_numpy(sinusoidal_position_encoding(
-                cfg.max_len, cfg.d_model)).to(device),
-            persistent=False)
+        # one row of NaN past the table: what the JAX gather (jnp.take)
+        # reads at an out-of-bounds position
+        table = np.concatenate([
+            sinusoidal_position_encoding(cfg.max_len, cfg.d_model),
+            np.full((1, cfg.d_model), np.nan, np.float32)])
+        self.register_buffer("pos_table", torch.from_numpy(table).to(device),
+                             persistent=False)
         self.register_buffer(
             "emb_scale", torch.tensor(math.sqrt(cfg.d_model),
                                       dtype=torch.float32, device=device),
@@ -157,13 +204,47 @@ class DecoderStack(nn.Module):
         return list(self.decoder.values())
 
     def embed(self, tok, positions):
-        """Scaled embedding rows plus position encodings (f32)."""
-        return (self.shared_embedding[tok] * self.emb_scale
-                + self.pos_table[positions])
+        """Scaled embedding rows plus position encodings in the compute
+        dtype (f32: the JAX f32 step's values; else the lookup, the scale
+        and the position rows each cast to it, as the JAX step casts them).
+        A position at or past ``cfg.max_len`` reads NaN, as the JAX gather
+        does there."""
+        rows = self.pos_table[positions.clamp(max=self.cfg.max_len)]
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return self.shared_embedding[tok] * self.emb_scale + rows
+        return (embedding_lookup(self.shared_embedding, tok,
+                                 compute_dtype=dt)
+                * self.emb_scale.to(dt) + rows.to(dt))
+
+
+class Seq2SeqStack(DecoderStack):
+    """The encoder-decoder: the tied ``shared_embedding``, ``encoder.
+    layer_i`` (:class:`EncoderLayer`) and ``decoder.layer_i``
+    (:class:`DecoderLayer` with cross-attention)."""
+
+    def __init__(self, cfg: TransformerConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__(cfg, dtype=dtype, device=device, cross=True)
+        self.encoder = nn.ModuleDict(
+            {f"layer_{i}": EncoderLayer(cfg, dtype=dtype, device=device)
+             for i in range(cfg.num_layers)})
 
 
 def _self_attention_out(layer, a, shape):
     return layer.self_attn["out"](a.reshape(shape))
+
+
+def _cross_attention(layer, h, q_shape, out_shape, kv, bias, lengths):
+    """The cross-attention sublayer and its ``ln2``: the queries of ``h``
+    over one layer's cached source K/V ``kv`` with the source's pad
+    ``bias``, every position below ``lengths`` visible (decode attention,
+    no causal offset)."""
+    att = layer.cross_attn
+    ck, cv = kv
+    c = decode_attention(att["q"](h).reshape(q_shape), ck, cv, lengths,
+                         bias=bias)
+    return layer.ln2(h + att["out"](c.reshape(out_shape)))
 
 
 def _ffn_tail(layer, h):
@@ -171,13 +252,17 @@ def _ffn_tail(layer, h):
     return layer.ln3(h + f)
 
 
-def incremental_decode(stack: DecoderStack, tok, pos, caches):
+def incremental_decode(stack: DecoderStack, tok, pos, caches, cross_kv=None,
+                       cross_bias=None, cross_len=None):
     """ONE decoder position for B sequences against cached state.
 
     ``tok (B,)`` int input tokens at absolute positions ``pos (B,)``;
     ``caches``: an accessor with ``append_and_gather(layer, k_new,
-    v_new) -> (k_all, v_all, lengths)``. Returns the hidden state
-    ``h (B, d_model)``; the caller owns the logits head."""
+    v_new) -> (k_all, v_all, lengths)``. ``cross_kv`` (a ``(ck, cv)``
+    pair ``(B, S_src, H, hd)`` per layer), ``cross_bias (B, S_src)`` f32
+    and ``cross_len (B,)`` int32 add the cross-attention sublayer of the
+    encoder-decoder; ``None`` builds the decoder-only step. Returns the
+    hidden state ``h (B, d_model)``; the caller owns the logits head."""
     cfg = stack.cfg
     b = tok.shape[0]
     d, heads = cfg.d_model, cfg.num_heads
@@ -191,16 +276,23 @@ def incremental_decode(stack: DecoderStack, tok, pos, caches):
         k_all, v_all, lengths = caches.append_and_gather(i, k_new, v_new)
         a = decode_attention(q, k_all, v_all, lengths)
         h = layer.ln1(h + _self_attention_out(layer, a, (b, d)))
+        if cross_kv is not None:
+            h = _cross_attention(layer, h, (b, heads, hd), (b, d),
+                                 cross_kv[i], cross_bias, cross_len)
         h = _ffn_tail(layer, h)
     return h
 
 
-def block_decode(stack: DecoderStack, tok_block, pos, caches):
+def block_decode(stack: DecoderStack, tok_block, pos, caches, cross_kv=None,
+                 cross_bias=None, cross_len=None):
     """A BLOCK of Kq consecutive positions for B sequences: ``tok_block
     (B, Kq)`` at positions ``pos[b] .. pos[b] + Kq - 1``; ``caches``: an
     accessor with ``append_and_gather_block`` returning the committed
     prefix BEFORE the block as lengths (query-block decode attention with
-    ``causal_offset=True``). Returns ``h (B, Kq, d_model)``."""
+    ``causal_offset=True``); the cross arguments as in
+    :func:`incremental_decode` (every query of the block sees the whole
+    source). The speculative verify shape and the page-block prefill.
+    Returns ``h (B, Kq, d_model)``."""
     cfg = stack.cfg
     b, kq = tok_block.shape
     d, heads = cfg.d_model, cfg.num_heads
@@ -215,6 +307,9 @@ def block_decode(stack: DecoderStack, tok_block, pos, caches):
         k_all, v_all, base = caches.append_and_gather_block(i, k_new, v_new)
         a = decode_attention(q, k_all, v_all, base, causal_offset=True)
         h = layer.ln1(h + _self_attention_out(layer, a, (b, kq, d)))
+        if cross_kv is not None:
+            h = _cross_attention(layer, h, (b, kq, heads, hd), (b, kq, d),
+                                 cross_kv[i], cross_bias, cross_len)
         h = _ffn_tail(layer, h)
     return h
 
@@ -253,11 +348,11 @@ def _eager_residual(sub_out, h, cfg: TransformerConfig, training, rng=None,
 
 
 def _eager_attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
-               causal=True, rng=None, scope=""):
+               causal=True, rng=None, scope="", bias=None):
     """Self-attention of ``x (B, S, D)``: q/k/v projections, heads split
-    to ``(B, H, S, hd)``, the flash-attention kernels (probability
-    dropout from JAX op ``{scope}/flash_attention``), heads merged, the
-    output projection."""
+    to ``(B, H, S, hd)``, the flash-attention kernels (an additive ``(B,
+    S)`` key ``bias``; probability dropout from JAX op
+    ``{scope}/flash_attention``), heads merged, the output projection."""
     b, s, d = x.shape
     heads = cfg.num_heads
     hd = d // heads
@@ -268,7 +363,7 @@ def _eager_attention(layer: DecoderLayer, x, cfg: TransformerConfig, training,
     rate, seed = 0.0, None
     if _dropping(cfg, training):
         rate, seed = cfg.dropout, rng.seed_for(f"{scope}/flash_attention")
-    ctx = fused_ops.fused_attention(q, k, v, causal=causal,
+    ctx = fused_ops.fused_attention(q, k, v, bias=bias, causal=causal,
                                     dropout_rate=rate, seed=seed)
     return att["out"](merge_heads(ctx, b, s, d))
 
@@ -755,6 +850,521 @@ def beam_search_decode(src, cfg: TransformerConfig | None = None,
     seq = stf.reshape(stf.gather(stf.reshape(seq, [b * k, L]), flat_order),
                       [b, k, L])
     return seq, scores
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder serving on slot caches (eager)
+# ---------------------------------------------------------------------------
+
+def _eager_encode(stack: Seq2SeqStack, src, compute_dtype=torch.float32):
+    """The encoder at eval (JAX ``encode`` :214, ``training=False``):
+    ``(enc_out (B, S, d_model), bias (B, S))``, the f32 pad bias -1e9 on
+    pad tokens (``_pad_bias`` :207), which every layer's flash
+    self-attention reads as its key bias (non-causal, rate 0)."""
+    cfg = stack.cfg
+    h = _eager_embed(stack, src, compute_dtype, False)
+    bias = (src == cfg.pad_id).to(torch.float32) * -1e9
+    for layer in stack.encoder.values():
+        a = _eager_attention(layer, h, cfg, False, causal=False, bias=bias)
+        h = layer.ln1(_eager_residual(a, h, cfg, False))
+        h = layer.ln2(h + _eager_ffn(layer, h, cfg, False))
+    return h, bias
+
+
+def _eager_decode_cross_kv(stack: Seq2SeqStack, enc_out):
+    """Per-layer cross-attention K/V of the encoder output, made once a
+    sequence (JAX :416): ``[(ck, cv)]`` each ``(B, S_src, H, hd)``."""
+    b, s, d = enc_out.shape
+    heads = stack.cfg.num_heads
+    return [(layer.cross_attn["k"](enc_out).reshape(b, s, heads, d // heads),
+             layer.cross_attn["v"](enc_out).reshape(b, s, heads, d // heads))
+            for layer in stack.layers]
+
+
+class _SlotCaches:
+    """Cache accessor for one decode, verify or draft step (JAX :373):
+    appends land at ``(slots[b], positions[b] + j)`` of each layer's
+    :class:`..ops.kv_cache.SlotKVCache`, the gather reads the slots'
+    rows."""
+
+    def __init__(self, caches, slots, positions):
+        self._caches = caches        # [(SlotKVCache k, SlotKVCache v)]
+        self._slots = slots
+        self._pos = positions
+
+    def _one(self, cache, new):
+        cache.append(new, self._slots, self._pos)
+        return cache.gather(self._slots)
+
+    def append_and_gather(self, layer, k_new, v_new):
+        kc, vc = self._caches[layer]
+        return (self._one(kc, k_new), self._one(vc, v_new),
+                self._pos + 1)
+
+    def append_and_gather_block(self, layer, k_new, v_new):
+        """The block's ``(B, Kq, H, hd)`` at ``pos .. pos + Kq - 1``;
+        the lengths returned are the committed prefix BEFORE the block
+        (``causal_offset=True``)."""
+        kc, vc = self._caches[layer]
+        return self._one(kc, k_new), self._one(vc, v_new), self._pos
+
+
+def _torch_dtype(dtype):
+    """A torch dtype from a torch or a port dtype."""
+    return getattr(dtype, "torch_dtype", dtype)
+
+
+def generative_cache_bytes(cfg, src_len, num_slots, max_decode_len,
+                           compute_dtype, cross=True):
+    """(total_bytes, unsharded_bytes) of the generative cache set (JAX
+    :1047): the self-attention K/V, with ``cross`` the source K/V and the
+    f32 source-bias cache (the unsharded part), each with the scratch
+    slot."""
+    heads = cfg.num_heads
+    hd = cfg.d_model // heads
+    ts = int(num_slots) + 1
+    per = torch.empty((), dtype=_torch_dtype(compute_dtype)).element_size()
+    total = 2 * cfg.num_layers * ts * max_decode_len * heads * hd * per
+    unsharded = 0
+    if cross:
+        total += 2 * cfg.num_layers * ts * src_len * heads * hd * per
+        unsharded = ts * src_len * 4          # src-bias cache, rank 2
+    return total + unsharded, unsharded
+
+
+# the staged inputs of the bucket programs, by name
+_INPUT_DTYPES = {"tok": torch.int64, "pos": torch.int32,
+                 "slots": torch.int64, "src": torch.int64}
+
+
+class TransformerGenerativeModel:
+    """The encoder-decoder's decode programs for the serving engine's slot
+    path (JAX :1132-1405).
+
+    Interface: ``prefill(src_rows, slots)``, ``decode(tokens, positions,
+    slots) -> (next_tok, logp, bucket)``, with ``speculative_k`` the
+    target's ``verify(tok_blocks, positions, slots) -> (toks, logps,
+    bucket)``, with ``draft_steps`` the draft's ``decode_k(tokens,
+    positions, slots) -> (props, bucket)``, ``close()``, and the
+    ``eos_id / pad_id / num_slots / max_decode_len / src_len / spec_k /
+    draft_steps / decode_buckets / prefill_buckets / scratch_slot``
+    attributes the engine schedules against.
+
+    State: per decoder layer a self-attention K and V
+    :class:`..ops.kv_cache.SlotKVCache` ``(num_slots + 1, max_decode_len,
+    H, hd)`` and a cross-attention K and V ``(num_slots + 1, src_len, H,
+    hd)``, and one f32 source-bias cache ``(num_slots + 1, src_len)``, in
+    the compute dtype; the last row of each is the scratch slot that bucket
+    padding writes into and reads. Programs, one a bucket (JAX
+    ``build_generative_program`` :770-1044):
+
+    - prefill ``(pb, src_len)``: the encoder (flash attention with the pad
+      bias), the cross K/V and the bias written at position 0 of the slots;
+    - decode: one position (self-attention over the slot cache, then
+      cross-attention over the source with its bias), the logits head and
+      the greedy pick;
+    - verify ``(sb, speculative_k)``: the block through
+      :func:`block_decode`, every position's greedy pick;
+    - draft: ``draft_steps`` chained greedy decode positions in one
+      program, each step reading the appends of the one before.
+
+    Weights come from ``checkpoint=`` (a JAX ``.stfz`` prefix, read by
+    :func:`..convert.load_stfz`), ``params=`` (a ``state_dict``), or
+    ``init_fresh=True`` (:func:`..convert.init_seq2seq_params` with
+    ``seed``). ``device`` defaults to ``"cuda"`` and raises without a
+    card; pass ``device="cpu"`` to run the kernels' plain versions on the
+    CPU. ``aot_warmup`` (default True) captures every program as a CUDA
+    graph at build, after a warm-up on all-padding rows aimed at the
+    scratch slot; False dispatches every call eagerly. Sampling and decode
+    tensor parallelism (``mesh``, ``tp``) come in later slices and
+    raise."""
+
+    def __init__(self, cfg: TransformerConfig, src_len, *, num_slots=8,
+                 max_decode_len=32, decode_bucket_sizes=None,
+                 prefill_bucket_sizes=(1,), compute_dtype=torch.float32,
+                 int8=False, checkpoint=None, params=None, init_fresh=False,
+                 scope="transformer", aot_warmup=True, seed=0,
+                 sampling=None, speculative_k=None, draft_steps=None,
+                 mesh=None, tp=None, device="cuda"):
+        from .. import convert
+        from ..serving.policy import _pow2_buckets
+
+        if sampling is not None:
+            raise NotImplementedError(
+                "sampling decode comes in a later slice of the PyTorch "
+                "port; this slice serves greedy decode")
+        if mesh is not None or tp not in (None, 0, 1):
+            raise NotImplementedError(
+                "decode tensor parallelism (mesh=, tp=) comes in a later "
+                "slice of the PyTorch port")
+        if checkpoint is None and params is None and not init_fresh:
+            raise ValueError("pass checkpoint=..., params=... or "
+                             "init_fresh=True")
+        if max_decode_len > cfg.max_len:
+            raise ValueError(
+                f"max_decode_len={max_decode_len} exceeds "
+                f"cfg.max_len={cfg.max_len} (the position-encoding table); "
+                "raise cfg.max_len or shorten the cache")
+        if src_len > cfg.max_len:
+            raise ValueError(f"src_len={src_len} exceeds cfg.max_len="
+                             f"{cfg.max_len} (the position-encoding table)")
+        self.device = common.resolve_device(device)
+        self.cfg = cfg
+        self.src_len = int(src_len)
+        self.num_slots = int(num_slots)
+        self.max_decode_len = int(max_decode_len)
+        self.eos_id = cfg.eos_id
+        self.pad_id = cfg.pad_id
+        self.int8 = bool(int8)
+        self.sampling = None
+        self.spec_k = int(speculative_k) if speculative_k else 0
+        self.draft_steps = int(draft_steps) if draft_steps else 0
+        self.tp_degree = 1
+        self.compute_dtype = _torch_dtype(compute_dtype)
+        self._scratch = self.num_slots
+        self._decode_buckets = sorted(set(int(x) for x in (
+            decode_bucket_sizes or _pow2_buckets(self.num_slots))))
+        self._prefill_buckets = sorted(set(
+            int(x) for x in prefill_bucket_sizes))
+
+        if checkpoint is not None:
+            state = convert.seq2seq_params_from_jax(
+                convert.load_stfz(checkpoint), cfg, scope=scope)
+        elif params is not None:
+            state = params
+        else:
+            state = convert.init_seq2seq_params(cfg, seed)
+        self.stack = Seq2SeqStack(cfg, dtype=self.compute_dtype,
+                                  device=self.device)
+        self.stack.load_state_dict(state)
+        self.stack.requires_grad_(False)
+        self.stack.eval()
+        heads = cfg.num_heads
+        inner = (heads, cfg.d_model // heads)
+
+        def cache(length, shape=inner, dtype=self.compute_dtype):
+            return SlotKVCache(self.num_slots, length, shape, dtype=dtype,
+                               device=self.device)
+
+        self.self_caches = [(cache(self.max_decode_len),
+                             cache(self.max_decode_len))
+                            for _ in range(cfg.num_layers)]
+        self.cross_caches = [(cache(self.src_len), cache(self.src_len))
+                             for _ in range(cfg.num_layers)]
+        self.bias_cache = cache(self.src_len, (), torch.float32)
+        self.wq = self.w_scale = None
+        if self.int8:
+            with torch.inference_mode():
+                self.wq, self.w_scale = build_int8_logits_weights(
+                    self.stack.shared_embedding)
+        self.aot_warmup = bool(aot_warmup)
+        self._programs = {}          # (kind, bucket) -> BucketProgram
+        if self.aot_warmup:
+            self._build_programs()
+
+    # -- programs --------------------------------------------------------------
+    def _kinds(self):
+        """(kind, function, bucket sizes, {input: shape at bucket n})."""
+        out = [("decode", self._decode_step, self._decode_buckets,
+                lambda n: {"tok": (n,), "pos": (n,), "slots": (n,)}),
+               ("prefill", self._prefill_step, self._prefill_buckets,
+                lambda n: {"src": (n, self.src_len), "slots": (n,)})]
+        if self.spec_k:
+            out.append(("verify", self._verify_step, self._decode_buckets,
+                        lambda n: {"tok": (n, self.spec_k), "pos": (n,),
+                                   "slots": (n,)}))
+        if self.draft_steps:
+            out.append(("draft", self._draft_step, self._decode_buckets,
+                        lambda n: {"tok": (n,), "pos": (n,), "slots": (n,)}))
+        return out
+
+    def _padding(self, shapes):
+        """All-padding rows: the pad token (a pad source), position 0, the
+        scratch slot."""
+        fill = {"tok": self.pad_id, "src": self.pad_id, "pos": 0,
+                "slots": self._scratch}
+        return {k: np.full(shape, fill[k], np.int32)
+                for k, shape in shapes.items()}
+
+    @torch.inference_mode()
+    def _build_programs(self):
+        """Warm up and capture every bucket's program on all-padding rows
+        (which write only the scratch slot)."""
+        for kind, fn, buckets, shapes_of in self._kinds():
+            for n in buckets:
+                shapes = shapes_of(n)
+                prog = BucketProgram(fn, {
+                    k: (shape, _INPUT_DTYPES[k])
+                    for k, shape in shapes.items()}, self.device)
+                prog.build(self._padding(shapes))
+                self._programs[(kind, n)] = prog
+
+    def _cross(self, slots):
+        """The slots' source K/V, pad bias and lengths (every source
+        position visible; the bias masks the pads)."""
+        cross_kv = [(ck.gather(slots), cv.gather(slots))
+                    for ck, cv in self.cross_caches]
+        lengths = torch.full((slots.shape[0],), self.src_len,
+                             dtype=torch.int32, device=slots.device)
+        return cross_kv, self.bias_cache.gather(slots), lengths
+
+    def _prefill_step(self, src, slots):
+        enc_out, bias = _eager_encode(self.stack, src, self.compute_dtype)
+        zeros = torch.zeros_like(slots)
+        for (ckc, cvc), (ck, cv) in zip(
+                self.cross_caches,
+                _eager_decode_cross_kv(self.stack, enc_out)):
+            ckc.append(ck, slots, zeros)
+            cvc.append(cv, slots, zeros)
+        self.bias_cache.append(bias, slots, zeros)
+        return ()
+
+    def _decode_hidden(self, tok, pos, slots):
+        return incremental_decode(
+            self.stack, tok, pos, _SlotCaches(self.self_caches, slots, pos),
+            *self._cross(slots))
+
+    def _verify_hidden(self, tok, pos, slots):
+        return block_decode(
+            self.stack, tok, pos, _SlotCaches(self.self_caches, slots, pos),
+            *self._cross(slots))
+
+    def _decode_step(self, tok, pos, slots):
+        return greedy_emit(self.logits_head(
+            self._decode_hidden(tok, pos, slots)))
+
+    def _verify_step(self, tok, pos, slots):
+        sb, k = tok.shape
+        h = self._verify_hidden(tok, pos, slots)
+        t, lp = greedy_emit(self.logits_head(
+            h.reshape(sb * k, self.cfg.d_model)))
+        return t.reshape(sb, k), lp.reshape(sb, k)
+
+    def _draft_step(self, tok, pos, slots):
+        """``draft_steps`` chained greedy steps: step j + 1 reads step j's
+        appends (stream order) and takes its argmax as input."""
+        cross = self._cross(slots)
+        cur, props = tok, []
+        for j in range(self.draft_steps):
+            at = pos + j
+            h = incremental_decode(
+                self.stack, cur, at,
+                _SlotCaches(self.self_caches, slots, at), *cross)
+            cur = torch.argmax(self.logits_head(h), dim=-1)
+            props.append(cur)
+        return (torch.stack(props, dim=1),)
+
+    def logits_head(self, h):
+        """Tied-softmax logits, f32: the int8 QuantMatMul kernel when built
+        with ``int8=True``, else a matmul against the table in the compute
+        dtype."""
+        if self.int8:
+            logits = quant_matmul(h, self.wq, self.w_scale)
+        else:
+            logits = torch.matmul(
+                h, self.stack.shared_embedding.to(h.dtype).t())
+        return logits.float()
+
+    # -- engine interface ------------------------------------------------------
+    @property
+    def decode_buckets(self):
+        return list(self._decode_buckets)
+
+    @property
+    def prefill_buckets(self):
+        return list(self._prefill_buckets)
+
+    @property
+    def scratch_slot(self):
+        return self._scratch
+
+    def _bucket(self, buckets, n):
+        for b in buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"{n} rows exceed the largest bucket "
+                         f"{buckets[-1]}")
+
+    def _run(self, kind, fn, bucket, rows):
+        """One bucket program on padded numpy rows: its captured graph, or
+        the function dispatched eagerly."""
+        prog = self._programs.get((kind, bucket))
+        if prog is not None:
+            return prog.run(rows)
+        return fn(**self._tensors(rows))
+
+    def _tensors(self, rows):
+        return {k: torch.as_tensor(v, dtype=_INPUT_DTYPES[k]).to(self.device)
+                for k, v in rows.items()}
+
+    def _rows(self, bucket, width, tokens, positions, slots):
+        """Live rows padded to ``bucket``: pad tokens, position 0, the
+        scratch slot."""
+        n = len(slots)
+        tok = np.full((bucket,) + width, self.pad_id, np.int32)
+        pos = np.zeros((bucket,), np.int32)
+        slt = np.full((bucket,), self._scratch, np.int32)
+        tok[:n], pos[:n], slt[:n] = tokens, positions, slots
+        return {"tok": tok, "pos": pos, "slots": slt}
+
+    @staticmethod
+    def _host(t, n, dtype=None):
+        # copies: on the CPU a static output would be returned as a view
+        return t[:n].to("cpu", dtype, copy=True).numpy()
+
+    @torch.inference_mode()
+    def prefill(self, src_rows, slots):
+        """Encode ``src_rows (n, src_len)`` into cache rows ``slots``: the
+        rows covered by buckets, largest first."""
+        src_rows = np.asarray(src_rows, np.int32).reshape(-1, self.src_len)
+        slots = np.asarray(slots, np.int32)
+        n = len(slots)
+        done = 0
+        while done < n:
+            take = min(n - done, self._prefill_buckets[-1])
+            pb = self._bucket(self._prefill_buckets, take)
+            src = np.full((pb, self.src_len), self.pad_id, np.int32)
+            slt = np.full((pb,), self._scratch, np.int32)
+            src[:take] = src_rows[done:done + take]
+            slt[:take] = slots[done:done + take]
+            self._run("prefill", self._prefill_step, pb,
+                      {"src": src, "slots": slt})
+            done += take
+
+    @torch.inference_mode()
+    def decode(self, tokens, positions, slots):
+        """One decode position for n live sequences; returns (next_tok
+        (n,), logp (n,), bucket)."""
+        n = len(slots)
+        sb = self._bucket(self._decode_buckets, n)
+        tok, lp = self._run("decode", self._decode_step, sb,
+                            self._rows(sb, (), tokens, positions, slots))
+        return self._host(tok, n, torch.int32), self._host(lp, n), sb
+
+    @torch.inference_mode()
+    def verify(self, tok_blocks, positions, slots):
+        """Score ``tok_blocks (n, spec_k)`` starting at the committed
+        ``positions``: the target's choice at each of the K positions,
+        (toks (n, K), logps (n, K), bucket). The block's cache rows are
+        written; rows of rejected proposals stay unread (the lengths mask
+        them) until the next append at that position overwrites them."""
+        if not self.spec_k:
+            raise RuntimeError("model built without speculative_k")
+        n = len(slots)
+        sb = self._bucket(self._decode_buckets, n)
+        tok, lp = self._run("verify", self._verify_step, sb,
+                            self._rows(sb, (self.spec_k,), tok_blocks,
+                                       positions, slots))
+        return self._host(tok, n, torch.int32), self._host(lp, n), sb
+
+    @torch.inference_mode()
+    def decode_k(self, tokens, positions, slots):
+        """Draft side: ``draft_steps`` greedy positions in one program;
+        returns (props (n, draft_steps), bucket)."""
+        if not self.draft_steps:
+            raise RuntimeError("model built without draft_steps")
+        n = len(slots)
+        sb = self._bucket(self._decode_buckets, n)
+        (props,) = self._run("draft", self._draft_step, sb,
+                             self._rows(sb, (), tokens, positions, slots))
+        return self._host(props, n, torch.int32), sb
+
+    @torch.inference_mode()
+    def decode_hidden(self, tokens, positions, slots):
+        """The decode step's hidden state ``(sb, d_model)`` for one
+        bucket-padded batch (numpy rows), appending K/V on the way."""
+        return self._decode_hidden(**self._tensors(
+            self._rows(len(slots), (), tokens, positions, slots)))
+
+    @torch.inference_mode()
+    def verify_hidden(self, tok_blocks, positions, slots):
+        """The verify block's hidden state ``(sb, K, d_model)`` for one
+        bucket-padded batch, appending K/V on the way."""
+        tok_blocks = np.asarray(tok_blocks, np.int32)
+        return self._verify_hidden(**self._tensors(self._rows(
+            len(slots), tok_blocks.shape[1:], tok_blocks, positions, slots)))
+
+    def close(self):
+        for prog in self._programs.values():
+            prog.graph.release()
+        self._programs.clear()
+        self.self_caches, self.cross_caches = [], []
+
+    def statusz_info(self):
+        return {"decode_buckets": self.decode_buckets,
+                "prefill_buckets": self.prefill_buckets,
+                "num_slots": self.num_slots,
+                "max_decode_len": self.max_decode_len,
+                "src_len": self.src_len, "int8": self.int8,
+                "sampling": self.sampling, "spec_k": self.spec_k,
+                "draft_steps": self.draft_steps,
+                "aot_warmup": self.aot_warmup, "device": str(self.device)}
+
+
+@torch.inference_mode()
+def seq2seq_hidden_plain(stack: Seq2SeqStack, src, tgt_in):
+    """Plain full re-forward of the encoder-decoder: the last decoder
+    layer's hidden state ``(B, T, d_model)`` for source ids ``(B, S)`` and
+    decoder inputs ``(B, T)``. Softmax attention (the pad bias on the
+    source keys, the causal mask on the decoder's) and LayerNorm in
+    PyTorch ops only: no kernel of the port runs here."""
+    cfg = stack.cfg
+    d, heads = cfg.d_model, cfg.num_heads
+    hd = d // heads
+    dt = stack.compute_dtype
+
+    def ln(mod, x):
+        return layer_norm_plain(x, mod.gamma, mod.beta, eps=mod.eps)
+
+    def attend(att, x, kv, bias=None, causal=False):
+        b, sq, _ = x.shape
+        sk = kv.shape[1]
+        q = att["q"](x).reshape(b, sq, heads, hd).float()
+        k = att["k"](kv).reshape(b, sk, heads, hd).float()
+        v = att["v"](kv).reshape(b, sk, heads, hd).float()
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        if bias is not None:
+            sc = sc + bias[:, None, None, :]
+        if causal:
+            keep = torch.ones(sq, sk, dtype=torch.bool,
+                              device=x.device).tril()
+            sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+        p = torch.softmax(sc, dim=-1)
+        a = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, sq, d)
+        return att["out"](a.to(dt))
+
+    def embed(ids):
+        return stack.embed(ids, torch.arange(ids.shape[1], device=ids.device))
+
+    bias = (src == cfg.pad_id).to(torch.float32) * -1e9
+    e = embed(src)
+    for layer in stack.encoder.values():
+        e = ln(layer.ln1, e + attend(layer.self_attn, e, e, bias))
+        e = ln(layer.ln2, e + layer.ffn["out"](layer.ffn["in"](e)))
+    h = embed(tgt_in)
+    for layer in stack.layers:
+        h = ln(layer.ln1, h + attend(layer.self_attn, h, h, causal=True))
+        h = ln(layer.ln2, h + attend(layer.cross_attn, h, e, bias))
+        h = ln(layer.ln3, h + layer.ffn["out"](layer.ffn["in"](h)))
+    return h
+
+
+@torch.inference_mode()
+def seq2seq_logits_plain(stack: Seq2SeqStack, src, tgt_in, *,
+                         int8_weights: Optional[tuple] = None):
+    """Next-token logits ``(B, T, vocab)`` (f32) of the plain re-forward
+    (:func:`seq2seq_hidden_plain`) and the logits head
+    (``int8_weights=(wq, w_scale)`` for the int8 head) in PyTorch ops
+    only; what the engine's tokens are checked against."""
+    h = seq2seq_hidden_plain(stack, src, tgt_in)
+    b, t, d = h.shape
+    flat = h.reshape(b * t, d)
+    if int8_weights is not None:
+        logits = quant_matmul_plain(flat, *int8_weights)
+    else:
+        logits = torch.matmul(flat,
+                              stack.shared_embedding.to(flat.dtype).t())
+    return logits.float().reshape(b, t, stack.cfg.vocab_size)
 
 
 def synthetic_wmt_batch(batch_size, src_len, tgt_len, vocab_size=32768,

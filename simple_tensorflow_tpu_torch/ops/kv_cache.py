@@ -1,11 +1,17 @@
-"""Paged KV cache on the device.
+"""KV caches on the device: paged and per slot.
 
-Port of the paged half of ``simple_tensorflow_tpu/ops/kv_cache_ops.py``
-(the ``KVCacheAlloc/Append/Gather/PageCopy`` lowerings, :138-214, and the
-``KVCache`` handle, :235). A cache is one tensor ``(num_pages + 1,
-page_len, H, hd)``; the last page is the scratch page that bucket-padding
-rows write into and read from, so a padded row never touches a live
-sequence's pages.
+Port of ``simple_tensorflow_tpu/ops/kv_cache_ops.py`` (the
+``KVCacheAlloc/Append/Gather/PageCopy`` lowerings, :138-214, and the
+``KVCache`` handle, :235-366), in two classes:
+
+- :class:`KVCache`, the paged cache of the causal LM: one tensor
+  ``(num_pages + 1, page_len, H, hd)``; the last page is the scratch page
+  that bucket-padding rows write into and read from, so a padded row never
+  touches a live sequence's pages.
+- :class:`SlotKVCache`, the slot cache of the encoder-decoder: rows
+  ``(num_slots + 1, max_len, *inner)``, one slot a sequence, the last the
+  scratch slot; ``inner`` is ``(H, hd)`` for K/V and ``()`` for the
+  source-bias cache.
 
 The JAX package threads the cache through each step as a donated value
 (functional ``.at[].set``); here the methods update the tensor IN PLACE,
@@ -46,3 +52,43 @@ class KVCache:
     def copy_page(self, dst: int, src: int):
         """Copy-on-write: duplicate physical page ``src`` into ``dst``."""
         self.data[dst].copy_(self.data[src])
+
+
+class SlotKVCache:
+    """One cache row a slot (``slots (B,)`` index whole rows), the last row
+    the scratch slot. Appends whose position reaches ``max_len`` are
+    dropped, as the JAX scatter drops out-of-bounds updates (``.at[].set``,
+    :183): the storage holds one more position a row, a sink that such
+    writes land in and no gather reads, so the drop needs no data-dependent
+    shape (a captured step can hold it). :attr:`data` is the
+    ``(num_slots + 1, max_len, *inner)`` view without the sink."""
+
+    def __init__(self, num_slots: int, max_len: int, inner=(),
+                 dtype=torch.float32, device="cpu"):
+        self.max_len = int(max_len)
+        self._store = torch.zeros(
+            (int(num_slots) + 1, self.max_len + 1) + tuple(inner),
+            dtype=dtype, device=device)
+        self._rows = torch.arange(self.max_len, device=self._store.device)
+
+    @property
+    def data(self):
+        return self._store[:, :self.max_len]
+
+    def alloc(self):
+        """Zero-fill every row (the engine's start)."""
+        self._store.zero_()
+
+    def append(self, value, slots, positions):
+        """Write ``value (B, P, *inner)`` at rows ``positions[b] + j`` of
+        slot ``slots[b]``; positions at or past ``max_len`` are dropped."""
+        p = value.shape[1]
+        rows = positions.to(torch.long)[:, None] + torch.arange(
+            p, device=value.device)[None, :]
+        self._store[slots.to(torch.long)[:, None],
+                    rows.clamp(max=self.max_len)] = value.to(
+                        self._store.dtype)
+
+    def gather(self, slots):
+        """The slots' rows ``(B, max_len, *inner)`` (a contiguous copy)."""
+        return self._store[slots.to(torch.long)[:, None], self._rows]

@@ -1,5 +1,6 @@
-"""Paged causal-LM serving of the PyTorch port: the continuous-batching
-engine, its policy and the shared-prefix prompt cache."""
+"""Generative serving of the PyTorch port: the continuous-batching engine
+(slot models, speculative decoding, paged models with the shared-prefix
+prompt cache), its policy and the prefix cache."""
 
 from .generative import (CacheSlotPool, GenerateFuture, GenerateRequest,
                          GenerativeEngine)

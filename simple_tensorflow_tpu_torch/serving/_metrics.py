@@ -1,6 +1,8 @@
-"""Plain per-engine counters: the subset of the ``/stf/serving/decode_*``
-and ``prefix_cache_*`` metrics of ``simple_tensorflow_tpu/serving/
-generative.py`` that the paged path updates, plus ``WindowedRate`` from
+"""Plain per-engine counters: the subset of the ``/stf/serving/decode_*``,
+``prefix_cache_*`` and ``spec_*`` metrics of ``simple_tensorflow_tpu/
+serving/generative.py`` (:81-138) that the engine's paths update (the
+prefill seconds of slot and paged admissions alike), plus
+``WindowedRate`` from
 ``simple_tensorflow_tpu/platform/monitoring.py``. No registry and no
 telemetry server: an engine owns one :class:`EngineMetrics` and
 ``snapshot()`` reads it."""
@@ -60,6 +62,8 @@ class EngineMetrics:
         self.prefix_hits = 0
         self.prefix_evictions = 0
         self.prefix_shared_pages = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self.slots_active = 0
         self.queue_depth = 0
         self.queue_stall_us = {"produce": 0, "consume": 0}
@@ -75,13 +79,24 @@ class EngineMetrics:
             with self._lock:
                 self.queue_stall_us[kind] += us
 
-    def step(self, seconds: float, live: int, bucket: int) -> None:
+    def step(self, seconds: float, live: int, bucket: int,
+             tokens: Optional[int] = None) -> None:
+        """One engine step over ``live`` sequences at ``bucket``; it
+        emitted ``tokens`` (one a sequence unless given)."""
+        tokens = live if tokens is None else tokens
         with self._lock:
             self.steps += 1
-            self.tokens += live
+            self.tokens += tokens
             self.step_seconds.append(seconds)
             self.fill.append(live / max(bucket, 1))
-        self.rate.add(live)
+        self.rate.add(tokens)
+
+    def speculative(self, proposed: int, accepted: int) -> None:
+        """Draft proposals verified in one step, and how many the target
+        accepted (the ``spec_*`` counters)."""
+        with self._lock:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -101,6 +116,12 @@ class EngineMetrics:
                 "prefix_cache_hits": self.prefix_hits,
                 "prefix_cache_evictions": self.prefix_evictions,
                 "prefix_cache_shared_pages": self.prefix_shared_pages,
+                "spec_proposed_tokens": self.spec_proposed,
+                "spec_accepted_tokens": self.spec_accepted,
+                # the lifetime acceptance rate, in percent (JAX's gauge)
+                "spec_acceptance_rate_pct": (
+                    int(100 * self.spec_accepted / self.spec_proposed)
+                    if self.spec_proposed else 0),
                 "slots_active": self.slots_active,
                 "queue_depth": self.queue_depth,
                 "queue_stall_us": dict(self.queue_stall_us),

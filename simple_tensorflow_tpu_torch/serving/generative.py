@@ -1,32 +1,47 @@
-"""Token-level continuous batching over a paged causal LM.
+"""Token-level continuous batching: the generative engine.
 
-Port of the paged (shared-prefix prompt cache) path of
-``simple_tensorflow_tpu/serving/generative.py``: ``GenerativeEngine`` with
-``_admit_paged``, ``_step_paged``, ``_retire``, ``statusz_info`` and
-``close``, plus ``CacheSlotPool``, ``GenerateFuture``, ``GenerateRequest``
-and ``_Sequence``. One engine owns one paged model (e.g.
-:class:`..models.causal_lm.CausalLMGenerativeModel`) and one scheduler
-thread:
+Port of ``simple_tensorflow_tpu/serving/generative.py``:
+``GenerativeEngine`` with its slot path (``_admit_batch`` :542-598,
+``_step`` :725-762, ``_finish_single_step`` :764-800), its speculative
+path (``_step_speculative`` :857-929, the draft/target checks :301-333),
+its paged path (``_admit_paged``, ``_step_paged``), ``_retire``,
+``statusz_info`` and ``close``, plus ``CacheSlotPool``,
+``GenerateFuture``, ``GenerateRequest`` and ``_Sequence``. One engine
+owns one model and one scheduler thread:
 
 - requests enqueue on a bounded admission queue (backpressure, deadlines,
   close semantics);
-- admission walks the prefix trie (serving/prefix_cache.py): matched
+- a slot model (e.g. :class:`..models.transformer.
+  TransformerGenerativeModel`): a joining request takes a cache slot from
+  the free-list, pays one prefill (the encoder and the cross K/V written
+  into its slot) and rides the next decode step from EOS at position 0;
+  each step pads the live set to the policy's bucket with rows aimed at
+  the model's scratch slot;
+- a paged model (e.g. :class:`..models.causal_lm.CausalLMGenerativeModel`):
+  admission walks the prefix trie (serving/prefix_cache.py): matched
   prompt chunks reuse refcounted shared pages with zero prefill, missing
-  chunks prefill page by page, batched by chunk position across joiners, and
-  a partial tail that a resident chunk extends is built by copy-on-write;
-- every engine step runs ONE decode position over the live set; the model
-  pads to its decode bucket with rows aimed at the scratch page;
+  chunks prefill page by page, batched by chunk position across joiners,
+  and a partial tail that a resident chunk extends is built by
+  copy-on-write;
+- speculative decoding (``draft=``, slot models only): each step the draft
+  proposes ``draft_steps`` greedy tokens in one program (``decode_k``),
+  the target re-scores the ``spec_k``-token block in one pass
+  (``verify``) and each sequence commits the longest prefix of proposals
+  equal to the target's own picks plus one bonus target token: every
+  emitted token is the target's, so the stream equals plain greedy decode;
 - a sequence retires when it emits EOS, exhausts its budget or blows its
-  deadline; its trie chain is released and its private pages freed.
+  deadline (checked every token); its slot returns to the free-list (a
+  paged sequence also releases its trie chain and private pages).
 
-Model interface (duck-typed, the JAX engine's): ``prefill_chunk``,
-``decode``, ``copy_page``, ``close``; attributes ``page_len``,
-``num_pages``, ``pages_per_seq``, ``scratch_page``, ``num_slots``,
-``max_decode_len``, ``max_seq_len``, ``eos_id``, ``pad_id``,
-``decode_buckets``.
+Model interface (duck-typed, the JAX engine's): ``decode``, ``close``,
+``eos_id``, ``pad_id``, ``num_slots``, ``max_decode_len``,
+``decode_buckets``; slot models ``prefill``, ``src_len``,
+``scratch_slot`` (and ``verify``/``spec_k`` or ``decode_k``/
+``draft_steps``); paged models ``prefill_chunk``, ``copy_page``,
+``page_len``, ``num_pages``, ``pages_per_seq``, ``scratch_page``,
+``max_seq_len``.
 
-Speculative decoding (``draft=``), the non-paged slot models and decode
-tensor parallelism belong to later slices of the port and raise
+Decode tensor parallelism belongs to a later slice of the port and raises
 ``NotImplementedError`` here.
 """
 
@@ -158,32 +173,33 @@ class _Sequence:
 
 
 class GenerativeEngine:
-    """Scheduler thread + slot pool + prefix cache for one paged model
-    (module docstring)."""
+    """Scheduler thread + slot pool (+ the prefix cache of a paged model,
+    the draft of speculative decoding) for one generative model (module
+    docstring)."""
 
     def __init__(self, name: str, model, policy, draft=None):
-        if draft is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft=) comes in a later slice of "
-                "the PyTorch port")
-        if getattr(model, "page_len", None) is None:
-            raise NotImplementedError(
-                "non-paged (slot) generative models come in a later slice "
-                "of the PyTorch port; pass a paged model such as "
-                "models.causal_lm.CausalLMGenerativeModel")
         if int(getattr(model, "tp_degree", 1) or 1) > 1:
             raise NotImplementedError(
                 "decode tensor parallelism comes in a later slice of the "
                 "PyTorch port")
-        if not getattr(policy, "use_prefix_cache", True):
+        self._draft = draft
+        self._spec_enabled = (draft is not None
+                              and getattr(policy, "speculative", True))
+        # paged models (page_len attr) route through the shared-prefix
+        # prompt cache; slot models through per-sequence cache rows
+        self._paged = getattr(model, "page_len", None) is not None
+        if self._paged and not getattr(policy, "use_prefix_cache", True):
             raise ValueError(
                 "paged models require the prefix cache "
                 "(DecodePolicy.use_prefix_cache=False unsupported)")
+        if self._spec_enabled:
+            self._check_draft(model, draft, policy)
         if policy.num_slots > model.num_slots:
             raise ValueError(
                 f"policy.num_slots={policy.num_slots} exceeds the "
                 f"model's {model.num_slots} cache slots")
         model_buckets = getattr(model, "decode_buckets", None)
+        self._scratch_slot = getattr(model, "scratch_slot", None)
         if model_buckets is not None:
             missing = [b for b in policy.bucket_sizes
                        if b not in model_buckets]
@@ -196,7 +212,8 @@ class GenerativeEngine:
         self.name = name
         self._model = model
         self._policy = policy
-        self._prefix = PrefixCache(model.num_pages, model.page_len)
+        self._prefix = (PrefixCache(model.num_pages, model.page_len)
+                        if self._paged else None)
         self._holdback: List[GenerateRequest] = []
         self.metrics = EngineMetrics()
         self._pool = CacheSlotPool(policy.num_slots)
@@ -208,6 +225,40 @@ class GenerativeEngine:
             target=self._loop, name=f"stf_serving_decode_{name}",
             daemon=True)
         self._thread.start()
+
+    @staticmethod
+    def _check_draft(model, draft, policy):
+        """The draft/target geometry speculative decoding needs (JAX
+        :302-332)."""
+        if getattr(model, "page_len", None) is not None:
+            raise ValueError(
+                "speculative decoding is not supported on the "
+                "paged (prefix-cache) path")
+        spec_k = getattr(model, "spec_k", 0)
+        kd = getattr(draft, "draft_steps", 0)
+        if spec_k < 2 or kd < 1:
+            raise ValueError(
+                f"speculative decoding needs a target built with "
+                f"speculative_k >= 2 (got {spec_k}) and a draft "
+                f"built with draft_steps >= 1 (got {kd})")
+        if spec_k != kd + 1:
+            raise ValueError(
+                f"target speculative_k={spec_k} must equal draft "
+                f"draft_steps+1={kd + 1} (one bonus target token "
+                "per verified block)")
+        for attr in ("src_len", "eos_id", "pad_id"):
+            if getattr(draft, attr) != getattr(model, attr):
+                raise ValueError(
+                    f"draft/target {attr} mismatch: "
+                    f"{getattr(draft, attr)} != {getattr(model, attr)}")
+        if draft.num_slots < policy.num_slots:
+            raise ValueError(
+                f"draft has {draft.num_slots} slots < "
+                f"policy.num_slots={policy.num_slots}")
+        if draft.max_decode_len < model.max_decode_len:
+            raise ValueError(
+                f"draft max_decode_len={draft.max_decode_len} < "
+                f"target's {model.max_decode_len}")
 
     # -- submission ----------------------------------------------------------
     @property
@@ -226,19 +277,36 @@ class GenerativeEngine:
                  timeout_ms: Optional[float] = None,
                  on_token: Optional[Callable[[int, float], None]] = None
                  ) -> GenerateFuture:
-        """Submit one prompt ``src`` (1-D token ids, unpadded).
-        ``on_token(token, logprob)`` streams from the engine thread.
-        Returns a :class:`GenerateFuture`."""
+        """Submit one prompt ``src`` (1-D token ids; a slot model pads it
+        to its ``src_len`` with the pad id). ``on_token(token, logprob)``
+        streams from the engine thread. Returns a
+        :class:`GenerateFuture`."""
         fut = GenerateFuture(self.name)
         src = np.asarray(src, np.int32).reshape(-1)
-        max_seq_len = self._model.max_seq_len
-        # the prompt must leave at least one decode position
-        limit = max_seq_len - 1
-        if not 1 <= len(src) <= limit:
-            return self._fail(fut, "rejected", errors.InvalidArgumentError(
-                None, None,
-                f"prompt length {len(src)} outside [1, {limit}] "
-                f"(max_seq_len {max_seq_len} minus one decode position)"))
+        if self._paged:
+            # the prompt rides unpadded (the page program is sized per
+            # request); it must leave at least one decode position
+            max_seq_len = self._model.max_seq_len
+            limit = max_seq_len - 1
+            if not 1 <= len(src) <= limit:
+                return self._fail(fut, "rejected",
+                                  errors.InvalidArgumentError(
+                                      None, None,
+                                      f"prompt length {len(src)} outside "
+                                      f"[1, {limit}] (max_seq_len "
+                                      f"{max_seq_len} minus one decode "
+                                      "position)"))
+        else:
+            src_len = self._model.src_len
+            if len(src) > src_len:
+                return self._fail(fut, "rejected",
+                                  errors.InvalidArgumentError(
+                                      None, None,
+                                      f"prompt length {len(src)} exceeds "
+                                      f"the model's src_len {src_len}"))
+            row = np.full((src_len,), self._model.pad_id, np.int32)
+            row[:len(src)] = src
+            src = row
         if timeout_ms is None and self._policy.default_timeout_ms > 0:
             timeout_ms = self._policy.default_timeout_ms
         deadline = (time.perf_counter() + float(timeout_ms) / 1000.0
@@ -250,8 +318,9 @@ class GenerativeEngine:
                 None, None,
                 f"max_new_tokens must be >= 0, got {max_new_tokens}"))
         budget = min(int(max_new_tokens), self._model.max_decode_len)
-        # emitted tokens occupy positions len(src)..max_seq_len-1
-        budget = min(budget, max_seq_len - len(src))
+        if self._paged:
+            # emitted tokens occupy positions len(src)..max_seq_len-1
+            budget = min(budget, self._model.max_seq_len - len(src))
         if budget == 0:
             fut._set_result({"tokens": np.zeros(0, np.int32),
                              "logprobs": np.zeros(0, np.float32),
@@ -320,8 +389,37 @@ class GenerativeEngine:
                                  "admission queue"))
                 continue
             live.append(req)
-        if live:
+        if not live:
+            return
+        if self._paged:
             self._admit_paged(live)
+            return
+        slots = []
+        for req in live:
+            slot = self._pool.acquire()
+            assert slot is not None, "admission exceeded free slots"
+            slots.append(slot)
+        rows = np.stack([r.src for r in live])
+        slot_ids = np.asarray(slots, np.int32)
+        t0 = time.perf_counter()
+        try:
+            self._model.prefill(rows, slot_ids)
+            if self._spec_enabled:
+                # the draft keeps its own caches: it needs the same
+                # prompts resident to propose from
+                self._draft.prefill(rows, slot_ids)
+        except Exception as e:  # noqa: BLE001 — fail these requests, keep serving
+            for req, slot in zip(live, slots):
+                self._pool.release(slot)
+                self._reject(req, "error", e)
+            return
+        self.metrics.prefill_seconds.append(time.perf_counter() - t0)
+        eos = self._model.eos_id
+        for req, slot in zip(live, slots):
+            # the decoder starts from EOS at position 0, as beam search
+            self._active.append(_Sequence(req, slot, eos,
+                                          req.max_new_tokens))
+        self.metrics.slots_active = len(self._active)
 
     def _sync_prefix_metrics(self):
         pc = self._prefix
@@ -436,7 +534,28 @@ class GenerativeEngine:
         if not self._active:
             self.metrics.slots_active = 0
             return
-        self._step_paged()
+        if self._spec_enabled:
+            self._step_speculative()
+            return
+        if self._paged:
+            self._step_paged()
+            return
+        n = len(self._active)
+        tokens = [s.last_tok for s in self._active]
+        positions = [s.pos for s in self._active]
+        slots = [s.slot for s in self._active]
+        if self._scratch_slot is not None:
+            # the policy's bucket, padded with rows aimed at the model's
+            # scratch slot (a live slot id here would corrupt that
+            # sequence's cache)
+            pad = self._policy.bucket_for(n) - n
+            tokens += [self._model.pad_id] * pad
+            positions += [0] * pad
+            slots += [self._scratch_slot] * pad
+        t0 = time.perf_counter()
+        next_tok, logp, bucket = self._model.decode(tokens, positions,
+                                                    slots)
+        self._finish_single_step(next_tok, logp, bucket, n, t0)
 
     def _out_of_pages(self, s: _Sequence, e: PagesExhaustedError):
         self._retire(s, "error", exc=errors.ResourceExhaustedError(
@@ -483,22 +602,29 @@ class GenerativeEngine:
             [s.last_tok for s in self._active],
             [s.pos for s in self._active],
             np.stack([s.pages for s in self._active]))
+        self._finish_single_step(next_tok, logp, bucket, n, t0)
+
+    def _emit(self, s: _Sequence, tok: int, lp: float) -> None:
+        s.tokens.append(tok)
+        s.logps.append(lp)
+        s.pos += 1
+        s.last_tok = tok
+        if s.req.on_token is not None:
+            try:
+                s.req.on_token(tok, lp)
+            except Exception:  # noqa: BLE001 — a client callback must not kill the engine
+                pass
+
+    def _finish_single_step(self, next_tok, logp, bucket, n, t0):
+        """The one-token-a-sequence commit the slot and paged steps share:
+        metrics, streaming, EOS and budget retirement."""
         self.metrics.step(time.perf_counter() - t0, n, bucket)
         eos = self._model.eos_id
         max_pos = self._model.max_decode_len - 1
         still = []
         for i, s in enumerate(self._active):
             tok = int(next_tok[i])
-            lp = float(logp[i])
-            s.tokens.append(tok)
-            s.logps.append(lp)
-            s.pos += 1
-            s.last_tok = tok
-            if s.req.on_token is not None:
-                try:
-                    s.req.on_token(tok, lp)
-                except Exception:  # noqa: BLE001 — a client callback must not kill the engine
-                    pass
+            self._emit(s, tok, float(logp[i]))
             if tok == eos:
                 self._retire(s, "eos")
             elif len(s.tokens) >= s.budget or s.pos > max_pos:
@@ -507,6 +633,53 @@ class GenerativeEngine:
                 still.append(s)
         self._active = still
         self.metrics.slots_active = len(still)
+
+    def _step_speculative(self):
+        """One speculative cycle: the draft proposes ``draft_steps``
+        greedy tokens in one program, the target verifies the
+        ``spec_k``-token block in one pass, and each sequence commits the
+        longest matching prefix plus one bonus target token. Rows of
+        rejected proposals are dead (length-masked) until the next cycle
+        overwrites them."""
+        n = len(self._active)
+        tokens = [s.last_tok for s in self._active]
+        positions = [s.pos for s in self._active]
+        slots = [s.slot for s in self._active]
+        kd = self._draft.draft_steps
+        t0 = time.perf_counter()
+        props, _ = self._draft.decode_k(tokens, positions, slots)
+        blk = np.concatenate(
+            [np.asarray(tokens, np.int32).reshape(n, 1), props], axis=1)
+        tgt, lps, bucket = self._model.verify(blk, positions, slots)
+        dur = time.perf_counter() - t0
+        eos = self._model.eos_id
+        max_pos = self._model.max_decode_len - 1
+        emitted = accepted = 0
+        still = []
+        for i, s in enumerate(self._active):
+            a = 0
+            while a < kd and int(props[i, a]) == int(tgt[i, a]):
+                a += 1
+            accepted += a
+            outcome = None
+            for j in range(a + 1):
+                tok = int(tgt[i, j])
+                self._emit(s, tok, float(lps[i, j]))
+                emitted += 1
+                if tok == eos:
+                    outcome = "eos"
+                    break
+                if len(s.tokens) >= s.budget or s.pos > max_pos:
+                    outcome = "length"
+                    break
+            if outcome is not None:
+                self._retire(s, outcome)
+            else:
+                still.append(s)
+        self._active = still
+        self.metrics.slots_active = len(still)
+        self.metrics.step(dur, n, bucket, tokens=emitted)
+        self.metrics.speculative(kd * n, accepted)
 
     def _retire(self, s: _Sequence, outcome: str,
                 exc: Optional[BaseException] = None):
@@ -550,15 +723,23 @@ class GenerativeEngine:
         model_info = getattr(self._model, "statusz_info", None)
         if callable(model_info):
             info.update(model_info())
-        info["prefix_cache"] = self._prefix.statusz_info()
-        info["holdback"] = len(self._holdback)
+        if self._prefix is not None:
+            info["prefix_cache"] = self._prefix.statusz_info()
+            info["holdback"] = len(self._holdback)
+        if self._spec_enabled:
+            prop, acc = self.metrics.spec_proposed, self.metrics.spec_accepted
+            info["speculative"] = {
+                "spec_k": self._model.spec_k,
+                "draft_steps": self._draft.draft_steps,
+                "proposed_tokens": prop, "accepted_tokens": acc,
+                "acceptance_rate": (acc / prop) if prop else 0.0}
         info["metrics"] = self.metrics.snapshot()
         return info
 
     def close(self, timeout: float = 30.0):
         """Close admission and drain: new submits fail Unavailable;
         queued requests and active sequences run to completion; then the
-        model closes."""
+        model (and the draft) close."""
         self._closed = True
         self._queue.close()
         if self._thread.is_alive() and \
@@ -569,6 +750,8 @@ class GenerativeEngine:
                     f"GenerativeEngine.close({self.name}): the engine "
                     f"thread did not finish within {timeout}s")
         self._model.close()
+        if self._draft is not None:
+            self._draft.close()
 
     def __enter__(self):
         return self

@@ -2512,3 +2512,110 @@ def test_fused_embedding_gradient_is_deterministic_on_card(cuda):
     table = torch.randn((1000, 16), device=cuda, requires_grad=True)
     out = embedding_ops._FusedLookup.apply(table, ids, torch.bfloat16, True)
     torch.testing.assert_close(out.float(), table[ids].bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_decode_attention_block_with_bias_no_offset_on_card(cuda, dtype, b):
+    """The speculative verify's cross-attention: a query block of 4 over
+    the source's 64 positions with its pad bias (-1e9 on pads) and no
+    causal offset, every position below the lengths visible."""
+    rng = np.random.RandomState(31)
+    L, H, D = 64, 16, 64
+    q = _t(rng.randn(b, 4, H, D).astype(np.float32)).to(cuda, dtype)
+    k = _t(rng.randn(b, L, H, D).astype(np.float32)).to(cuda, dtype)
+    v = _t(rng.randn(b, L, H, D).astype(np.float32)).to(cuda, dtype)
+    real = rng.randint(8, L + 1, size=b)
+    real[0] = 20                         # a short source
+    bias = _t((np.arange(L)[None, :] >= real[:, None]).astype(np.float32)
+              * -1e9).to(cuda)
+    lens = torch.full((b,), L, dtype=torch.int32, device=cuda)
+    before = K.launch_counts()["decode_attention_block"]
+    out = K.decode_attention(q, k, v, lens, bias=bias)
+    ref = K.decode_attention_plain(q, k, v, lens, bias=bias)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert K.launch_counts()["decode_attention_block"] == before + 1
+    # the bias matters: without it the pads are attended
+    assert not torch.allclose(K.decode_attention(q, k, v, lens).float(),
+                              ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_slot_cache_drops_appends_past_the_end_on_card(cuda):
+    """A verify block that starts at the last position writes rows past
+    the end: no device assert, those rows dropped, the rest written."""
+    from simple_tensorflow_tpu_torch.ops.kv_cache import SlotKVCache
+
+    c = SlotKVCache(3, 8, (2, 4), device=cuda)
+    new = torch.arange(2 * 4 * 2 * 4, dtype=torch.float32,
+                       device=cuda).reshape(2, 4, 2, 4) + 1
+    c.append(new, torch.tensor([0, 3], device=cuda),
+             torch.tensor([6, 7], dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    data = c.data.cpu()
+    torch.testing.assert_close(data[0, 6:], new[0, :2].cpu())
+    torch.testing.assert_close(data[3, 7], new[1, 0].cpu())
+    assert (data[1:3] == 0).all() and (data[0, :6] == 0).all()
+    assert (data[3, :7] == 0).all()
+    g = c.gather(torch.tensor([3, 0], device=cuda))
+    torch.testing.assert_close(g.cpu(), data[[3, 0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_on_an_all_padding_row_on_card(cuda, dtype):
+    """The encoder prefill's padding rows: every key of a row carries the
+    -1e9 pad bias. The forward stays finite and equals its plain
+    version (a uniform softmax over the row)."""
+    rng = np.random.RandomState(32)
+    b, h, s, d = 4, 16, 64, 64
+    q, k, v = (_t(rng.randn(b, h, s, d).astype(np.float32)).to(cuda, dtype)
+               for _ in range(3))
+    pads = np.zeros((b, s), np.float32)
+    pads[0, 20:] = 1.0
+    pads[2:] = 1.0                       # two all-padding rows
+    bias = _t(pads * -1e9).to(cuda)
+    out = K.flash_attention(q, k, v, bias=bias)
+    ref = K.flash_attention(q, k, v, bias=bias, plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_seq2seq_programs_captured_equal_eager_on_card(cuda):
+    """The encoder-decoder's captured verify and draft programs (and
+    prefill and decode) against eager dispatch at a small width: the same
+    tokens and bit-identical log-probs on one script of calls."""
+    from simple_tensorflow_tpu_torch import convert
+    from simple_tensorflow_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig.tiny()
+    params = convert.init_seq2seq_params(cfg, seed=0)
+    rng = np.random.RandomState(6)
+    src = rng.randint(2, cfg.vocab_size, (3, 8)).astype(np.int32)
+    src[1, 5:] = cfg.pad_id
+    got = []
+    for aot in (True, False):
+        model = tr.TransformerGenerativeModel(
+            cfg, 8, num_slots=4, max_decode_len=8, params=params,
+            speculative_k=3, draft_steps=2, aot_warmup=aot)
+        model.prefill(src, [0, 1, 2])
+        last, pos = np.ones(3, np.int32), np.zeros(3, np.int32)
+        out = []
+        for rows in (3, 1, 2):
+            t, lp, _ = model.decode(last[:rows], pos[:rows], np.arange(rows))
+            out += [t, lp]
+            last[:rows], pos[:rows] = t, pos[:rows] + 1
+        props, _ = model.decode_k(last, pos, [0, 1, 2])
+        blk = np.concatenate([last[:, None], props], axis=1)
+        t, lp, _ = model.verify(blk, pos, [0, 1, 2])
+        out += [props, t, lp]
+        model.close()
+        got.append(out)
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(a, b)

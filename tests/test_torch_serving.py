@@ -284,10 +284,15 @@ def test_engine_refuses_what_later_slices_port():
         **GEOMETRY)
     pol = serving.DecodePolicy(num_slots=MAX_LIVE, max_decode_len=16,
                                bucket_sizes=[1, MAX_LIVE])
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # a draft on the paged model: JAX's ValueError
+    with pytest.raises(ValueError, match="not supported on the paged"):
         serving.GenerativeEngine("d", model, pol, draft=model)
-    with pytest.raises(NotImplementedError, match="non-paged"):
-        serving.GenerativeEngine("s", object(), pol)
+    # a non-paged (slot) model is served
+    slot_model = tr.TransformerGenerativeModel(
+        tr.TransformerConfig.tiny(), 8, num_slots=MAX_LIVE,
+        max_decode_len=16, decode_bucket_sizes=[1, MAX_LIVE],
+        init_fresh=True, aot_warmup=False, device="cpu")
+    serving.GenerativeEngine("s", slot_model, pol).close()
     model.tp_degree = 2
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         serving.GenerativeEngine("t", model, pol)
@@ -303,6 +308,10 @@ def test_engine_refuses_what_later_slices_port():
         clm.CausalLMGenerativeModel(tr.TransformerConfig.tiny(),
                                     init_fresh=True, device="cpu",
                                     sampling={"temperature": 1.0})
+    with pytest.raises(NotImplementedError, match="sampling"):
+        tr.TransformerGenerativeModel(tr.TransformerConfig.tiny(), 8,
+                                      init_fresh=True, device="cpu",
+                                      sampling={"temperature": 1.0})
 
 
 # ---------------------------------------------------------------------------
@@ -398,11 +407,16 @@ def test_admission_queue_close_and_deadline_semantics(impl):
     assert q.get() is done
 
 
-def test_default_device_needs_a_card(monkeypatch):
+@pytest.mark.parametrize("model", ["causal_lm", "seq2seq"])
+def test_default_device_needs_a_card(monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        clm.CausalLMGenerativeModel(tr.TransformerConfig.tiny(),
-                                    init_fresh=True, **GEOMETRY)
+        if model == "causal_lm":
+            clm.CausalLMGenerativeModel(tr.TransformerConfig.tiny(),
+                                        init_fresh=True, **GEOMETRY)
+        else:
+            tr.TransformerGenerativeModel(tr.TransformerConfig.tiny(), 8,
+                                          init_fresh=True)
 
 
 def test_int8_head_weights_follow_the_embedding():
