@@ -64,10 +64,11 @@ flash kernels own.
    dropout-residual (K4) on both of its paths at four shapes; the threefry
    Dropout forward (values and keep bits) and its backward from those
    bits at both training shapes, the next key's values, bits and backward
-   as planted faults. The registers and spills ``ptxas`` reports for the
-   tensor-core backward kernels, QuantMatMul, the LayerNorm kernels, the
-   Kq = 1 DecodeAttention and the dropout kernels are printed after the
-   build. The redesigned kernels (the Dropout and K4) and
+   as planted faults. The registers, static shared memory and spills
+   ``ptxas`` reports for the tensor-core backward kernels, the f32 flash
+   forward, the xent forward, QuantMatMul, the LayerNorm kernels, the Kq =
+   1 DecodeAttention and the dropout kernels are printed after the build,
+   and the f32 flash forward's dynamic shared memory at its paths' shapes. The redesigned kernels (the Dropout and K4) and
    those that must hold their times get one line each at the end: the
    time before the redesign (``EARLIER_MS``), this run's, the bound and
    the library call's; the LM training phase prints its device time a
@@ -491,9 +492,14 @@ flash kernels own.
    bounds and SDPA with the same mask: the one-query DecodeAttention on the
    slot cache (L = 128) and over the source with its pad bias (L = 64), the
    query block of 4 with ``causal_offset`` and with the bias and no
-   offset, at B = 1, 4, 16; the f32 and bf16 flash forward at the
-   encoder's (4 x 16, 64, 64) with the pad bias, one row all padding
-   (finite). Then 24 sources of 8-64 tokens with budgets staggered 8-120,
+   offset, at B = 1, 4, 16; the f32 flash forward at the encoder's
+   (B x 16, 64, 64) for B = 1, 4, 16 (the prefill buckets' head counts,
+   each beside SDPA f32 with the same mask) and the bf16 one at B = 4,
+   with the pad bias, one row all padding (finite); planted, two copies
+   of the f32 forward's source, one leaving each block's last 4-query
+   sub-tile unstored and one dropping the bias, must fail its check. The
+   p50 prefill and time to first token of the f32 plain arm print beside
+   their times before the f32 forward's redesign. Then 24 sources of 8-64 tokens with budgets staggered 8-120,
    served plain, with a self-draft (the target's weights) and with a
    one-layer draft from its own seed, its table drawn 1000x smaller, so
    that it proposes a token of the position rather than echo its input as
@@ -551,7 +557,9 @@ beside it.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import ctypes
 import dataclasses
 import faulthandler
 import gc
@@ -601,10 +609,16 @@ K0_OPS = 19
 THREEFRY_ALU_OPS = 22
 THREEFRY_OPS = 69
 DROPOUT_RATE = 0.1               # TransformerConfig.big() as it ships
-# times before the redesign of the threefry Dropout and the fused
-# dropout-residual (K4), and of the kernels that must hold theirs within 5%
-# (this script's run 4 of the previous redesign on an NVIDIA H100 80GB
-# HBM3 at 700 W, PERF.md §6); the ragged K4 rows come from the same run
+# times before a redesign ("redesigned") and of the kernels that must hold
+# theirs within 5% ("unchanged"): this script's runs on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §6). The threefry Dropout and K4 rows are from
+# run 4 before their redesign; the f32 flash forward (@f32: 256 x 256 x 64
+# causal; @s2s_encoder: the prefill's 64 heads of 64) and the xent forward
+# at small and middle vocabularies (@mnist 512 x 10, @seq2seq 768 x 120,
+# @resnet and @resnet_session 256 x 1000, @ptb 700 x 10000) from the runs
+# PERF.md §6 names before theirs; its large vocabularies (the LM's bf16
+# 4096 x 32768, @bert 2432 x 30522, @long_context 32768 x 32000) must hold
+# theirs. Any row more than 5% over its earlier time prints "OUTSIDE 5%"
 EARLIER_MS = {"dropout": (0.07672, "redesigned"),
               "dropout_bwd": (0.07645, "redesigned"),
               "dropout@embedding": (0.02124, "redesigned"),
@@ -632,13 +646,22 @@ EARLIER_MS = {"dropout": (0.07672, "redesigned"),
               "flash_attention_dq_dropout": (0.03524, "unchanged"),
               "flash_attention_fwd": (0.03059, "unchanged"),
               "flash_attention_fwd_dropout": (0.03430, "unchanged"),
-              "flash_attention_fwd@f32": (0.16162, "unchanged"),
+              "flash_attention_fwd@f32": (0.16322, "redesigned"),
+              "flash_attention_fwd@s2s_encoder": (0.01653, "redesigned"),
+              "flash_attention_fwd@s2s_encoder_bh16": (None, "redesigned"),
+              "flash_attention_fwd@s2s_encoder_bh256": (None, "redesigned"),
               "flash_attention_dkdv@f32": (0.27513, "unchanged"),
               "flash_attention_dq@f32": (0.22393, "unchanged"),
               "decode_attention_block": (0.01416, "unchanged"),
-              "softmax_xent_fwd": (0.15245, "unchanged"),
+              "softmax_xent_fwd": (0.15316, "unchanged"),
+              "softmax_xent_fwd@bert": (0.08708, "unchanged"),
+              "softmax_xent_fwd@long_context": (1.14551, "unchanged"),
               "softmax_xent_bwd": (0.20225, "unchanged"),
-              "softmax_xent_fwd@resnet": (0.00388, "unchanged"),
+              "softmax_xent_fwd@resnet": (0.00390, "redesigned"),
+              "softmax_xent_fwd@resnet_session": (0.00392, "redesigned"),
+              "softmax_xent_fwd@mnist": (0.00322, "redesigned"),
+              "softmax_xent_fwd@seq2seq": (0.00453, "redesigned"),
+              "softmax_xent_fwd@ptb": (0.01770, "redesigned"),
               "softmax_xent_bwd@resnet": (0.00309, "unchanged"),
               "adam_update": (0.70266, "unchanged"),
               "momentum_update": (0.13832, "unchanged")}
@@ -7666,25 +7689,63 @@ SM90_CALLS = {
         "static_cast<cudaStream_t>(stream))"}
 
 
+# The planted faults of the f32 forward (flash_fwd_f32.cu), built as the
+# wgmma ones are and checked at the encoder prefill's shape (phase 16): the
+# block's last 4-query sub-tile never stored, and the bias dropped.
+# (what, source, text, mutated text, occurrences)
+F32_MUTANTS = (
+    ("forward without its last query sub-tile", "flash_fwd_f32.cu",
+     "    if (qg >= q_len) continue;",
+     "    if (qg >= q_len || ty == BQ / TM - 1) continue;", 1),
+    ("forward without its bias", "flash_fwd_f32.cu",
+     "if (bb != nullptr && kg < kv_len) x += bb[kg];",
+     "if (false && bb != nullptr && kg < kv_len) x += bb[kg];", 1))
+# the C entry of mutant i: non-causal, rate 0, the (B, S) bias
+F32_ENTRY = r"""
+extern "C" int stf_mutant_%(i)d(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    void* lse, int bh, int s, int heads, int d, float scale, void* stream) {
+  return stf::flash_fwd_f32(q, k, v, static_cast<const float*>(bias), o,
+                            static_cast<float*>(lse), bh, s, s, heads, d,
+                            scale, 0, 0, 0u, nullptr, 0u, 1.0f,
+                            static_cast<cudaStream_t>(stream));
+}
+"""
+
+
 def sm90_mutant_start():
-    """Starts the build of the planted-fault library (``SM90_MUTANTS``) in
-    a temporary directory: one nvcc a mutant, all at once. Returns the
-    handle ``sm90_mutant_lib`` takes."""
+    """Starts the build of the wgmma pipelines' planted faults
+    (``SM90_MUTANTS``); ``sm90_mutant_lib`` takes the handle."""
+    return mutant_start(SM90_MUTANTS,
+                        lambda i, name: SM90_ENTRY % {
+                            "i": i, "call": SM90_CALLS[name]})
+
+
+def f32_mutant_start():
+    """Starts the build of the f32 forward's planted faults
+    (``F32_MUTANTS``)."""
+    return mutant_start(F32_MUTANTS, lambda i, name: F32_ENTRY % {"i": i})
+
+
+def mutant_start(mutants, entry):
+    """Starts the build of a planted-fault library in a temporary
+    directory: each mutant a copy of its source with one text replaced and
+    the C entry ``entry(i, source)`` appended, one nvcc a mutant, all at
+    once. Returns the handle ``mutant_lib`` takes."""
     from simple_tensorflow_tpu_torch.ops.kernels import _build
 
-    tmp = tempfile.mkdtemp(prefix="stf_sm90_mutant_")
+    tmp = tempfile.mkdtemp(prefix="stf_mutant_")
     for f in os.listdir(_build.SRC_DIR):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(_build.SRC_DIR, f), tmp)
     srcs = []
-    for i, (_, name, text, bad, n) in enumerate(SM90_MUTANTS):
+    for i, (_, name, text, bad, n) in enumerate(mutants):
         src = open(os.path.join(_build.SRC_DIR, name)).read()
         if src.count(text) != n:
-            fail(f"planted sm90 fault: {name} holds {text!r} "
+            fail(f"planted fault: {name} holds {text!r} "
                  f"{src.count(text)} times, expected {n}")
         with open(os.path.join(tmp, f"mutant{i}.cu"), "w") as fh:
-            fh.write(src.replace(text, bad)
-                     + SM90_ENTRY % {"i": i, "call": SM90_CALLS[name]})
+            fh.write(src.replace(text, bad) + entry(i, name))
         srcs.append(f"mutant{i}.cu")
     nvcc = _build._nvcc()
     # each copy in a namespace of its own: two copies of one source link
@@ -7693,32 +7754,44 @@ def sm90_mutant_start():
          os.path.join(tmp, f), "-o", os.path.join(tmp, f + ".o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for i, f in enumerate(srcs)]
+
+    def stop():  # at exit, a failed run's builds too
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
     return tmp, srcs, procs, nvcc
 
 
 def sm90_mutant_lib(handle):
-    """The planted-fault library of ``sm90_mutant_start``, once built."""
-    import ctypes
+    """The wgmma planted-fault library of ``sm90_mutant_start``."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return mutant_lib(handle, [P] * 8 + [I, I, F, P])
 
+
+def mutant_lib(handle, argtypes):
+    """The planted-fault library of ``mutant_start``, once built, its
+    entries ``stf_mutant_<i>`` taking ``argtypes``."""
     tmp, srcs, procs, nvcc = handle
     for f, proc in zip(srcs, procs):
         out, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            fail(f"planted sm90 fault: nvcc failed on {f}:\n{out}")
+            fail(f"planted fault: nvcc failed on {f}:\n{out}")
     so = os.path.join(tmp, "libmutant.so")
     link = subprocess.run(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
          so, *(os.path.join(tmp, f + ".o") for f in srcs)],
         capture_output=True, text=True, timeout=300)
     if link.returncode != 0:
-        fail(f"planted sm90 fault: link failed:\n{link.stdout}"
-             f"{link.stderr}")
+        fail(f"planted fault: link failed:\n{link.stdout}{link.stderr}")
     lib = ctypes.CDLL(so)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for i in range(len(SM90_MUTANTS)):
+    for i in range(len(srcs)):
         fn = getattr(lib, f"stf_mutant_{i}")
-        fn.argtypes = [P] * 8 + [I, I, F, P]
-        fn.restype = I
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -8695,7 +8768,7 @@ def demangled_kernel(sym, prefix):
     """``kernel<template args>`` of a mangled kernel symbol whose name
     starts with ``prefix``, else None."""
     # the kernel's name follows its length in the mangled symbol
-    k = re.search(r"\d(" + prefix + r"\w*?kernel)I(\w*?)EE", sym)
+    k = re.search(r"\d(" + prefix + r"(?:\w*?kernel)?)I(\w*?)EE", sym)
     if not k:
         return None
     targs = re.findall(r"L[ib](\d+)", k.group(2))
@@ -8707,8 +8780,9 @@ def demangled_kernel(sym, prefix):
 
 
 def kernel_props(log, prefix):
-    """``[(kernel<template args>, "N registers, spill stores/loads")]`` of
-    the kernels whose name starts with ``prefix``, from ``ptxas -v``."""
+    """``[(kernel<template args>, "N registers, M bytes static shared
+    memory; spill stores/loads")]`` of the kernels whose name starts with
+    ``prefix``, from ``ptxas -v``."""
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -8719,8 +8793,34 @@ def kernel_props(log, prefix):
             spill = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append((name, f"{regs} registers; {spill}"))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append((name, f"{regs} registers, "
+                              f"{smem.group(1) if smem else 0} bytes static "
+                              f"shared memory; {spill}"))
             name = None
+    return out
+
+
+def f32_fwd_smem_lines():
+    """The dynamic shared memory of the f32 flash forward at the shapes its
+    paths run (csrc/flash_fwd_f32.cu ``f32_smem_floats``: q, then K and V
+    in one or two stages, then p, rows padded by 4 floats), which ``ptxas
+    -v`` does not see."""
+    fa = importlib.import_module(KMOD + "flash_attention")
+    out = []
+    for what, bh, s, d, causal in (
+            ("prefill batch 1", 16, 64, 64, False),
+            ("prefill batch 4", 64, 64, 64, False),
+            ("prefill batch 16", 256, 64, 64, False),
+            ("the f32 checks", 256, 256, 64, True),
+            ("the long-context f32 check", 8, 2048, 128, True)):
+        bq, tm = fa.fwd_tile_f32(bh, s, causal)
+        bk = 32 if d == 128 else 64
+        stages = 2 if s > bk else 1
+        floats = bq * (d + 4) + 2 * stages * bk * (d + 4) + bq * (bk + 4)
+        out.append(f"flash_fwd_kernel<{d}, {bq}, {tm}> at {what} (BH {bh}, "
+                   f"S {s}): {4 * floats} bytes of dynamic shared memory, "
+                   f"{stages} K/V stage{'s' if stages > 1 else ''}")
     return out
 
 
@@ -8736,6 +8836,10 @@ S2S_REQUESTS = 24
 S2S_ONE_SLOT_REQUESTS = 8       # the 1-slot runs serve the first 8
 S2S_SPEC_K, S2S_DRAFT_STEPS = 4, 3
 S2S_FAULT_REQUESTS, S2S_FAULT_NEW = 4, 16
+# the f32 plain arm at 16 slots before the f32 flash forward's redesign:
+# this phase's p50 prefill and time to first token on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §5)
+EARLIER_S2S_MS = {"prefill": 0.6579, "ttft": 11.7897}
 
 
 class Lent:
@@ -8963,15 +9067,17 @@ def equal_tokens(a, b):
     return same, total
 
 
-def s2s_kernel_rows(K, rng, dev):
+def s2s_kernel_rows(K, rng, dev, mutant):
     """The kernels at this path's shapes (f32, 16 heads of 64,
     ``S2S_DECODE_LEN`` self positions, ``S2S_SRC`` source positions with
     a pad bias), each against its plain version with its bound and one
     SDPA call with the same mask: the one-query kernel on the slot cache
     at B = 1, 4, 16; cross-attention with the bias at B = 1, 4, 16; the
     query block of ``S2S_SPEC_K`` with ``causal_offset`` and with the bias
-    and no offset at B = 1, 4, 16; the f32 and bf16 flash forward at the
-    encoder's (4 x 16, 64, 64) with the pad bias, non-causal."""
+    and no offset at B = 1, 4, 16; the f32 flash forward at the encoder's
+    (B x 16, 64, 64), B = 1, 4, 16, and the bf16 one at B = 4, with the pad
+    bias, non-causal, where the planted faults of the f32 forward (the
+    handle of ``f32_mutant_start``) must fail at B = 4."""
     import torch.nn.functional as F
 
     H, D = 16, 64
@@ -9043,15 +9149,20 @@ def s2s_kernel_rows(K, rng, dev):
                 if b == 16:
                     main[f"{kind}@s2s_{role}"] = kernel_row(
                         err, ms, plain_ms, bnd, lib_ms, name)
-    B, s = 4, S2S_SRC
-    bh = B * H
-    for dtype in (torch.float32, torch.bfloat16):
+    s = S2S_SRC
+    # the encoder's flash forward at the prefill buckets' head counts: f32
+    # at batch 1, 4 and 16 (16, 64 and 256 heads: 16, 32 and 64 query rows
+    # a block, 2, 2 and 4 a thread), bf16 at 4
+    for dtype, B in ((torch.float32, 1), (torch.float32, 4),
+                     (torch.float32, 16), (torch.bfloat16, 4)):
+        bh = B * H
         elem = elem_size(dtype)
         copies = [tuple(torch.from_numpy(rng.standard_normal(
             (bh, s, D)).astype(np.float32)).to(dev, dtype) for _ in range(3))
             for _ in range(n_copies(3 * bh * s * D * elem))]
         pads = np.zeros((B, s), np.float32)
-        for i, n in enumerate((64, 40, 8, 0)):    # the last all padding
+        # real lengths 64, 40, 8, 0 (the last row all padding) in turn
+        for i, n in enumerate((40,) if B == 1 else (64, 40, 8, 0) * (B // 4)):
             pads[i, n:] = 1.0
         bias = torch.from_numpy(pads * -1e9).to(dev)
         args = dict(heads=H, sm_scale=D ** -0.5, causal=False, bias=bias)
@@ -9059,13 +9170,17 @@ def s2s_kernel_rows(K, rng, dev):
         o, lse = K.flash_attention_fwd(q, k, v, **args)
         ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
         torch.cuda.synchronize()
-        tag = f"flash_attention_fwd {str(dtype)[6:]} BH={bh} S={s} D={D} " \
-              "pad bias, one row all padding (s2s encoder)"
+        f32 = dtype == torch.float32
+        tag = (f"flash_attention_fwd {str(dtype)[6:]} BH={bh} S={s} D={D} "
+               f"pad bias{', one row all padding' if B > 1 else ''} "
+               "(s2s encoder)")
         if not torch.isfinite(o).all():
             fail(f"{tag}: non-finite output")
-        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        tol = 1e-5 if f32 else 2e-2
         err = max(check_scaled(f"{tag} o", o, ro, tol),
                   check_scaled(f"{tag} lse", lse, rlse, 1e-5))
+        if f32 and B == 4:
+            s2s_f32_faults(K, mutant, q, k, v, bias, ro, rlse, tag)
         ms = device_ms([lambda c=c: K.flash_attention_fwd(*c, **args)
                         for c in copies])
         plain_ms = device_ms([lambda c=c: K.flash_attention_fwd_plain(
@@ -9078,10 +9193,43 @@ def s2s_kernel_rows(K, rng, dev):
         bnd = bound_ms(4 * io + bh * s * 4 + B * s * 4, 4 * D * bh * s * s,
                        dtype)
         report(tag, err, ms, plain_ms, bnd, lib_ms)
-        if dtype == torch.float32:
-            main["flash_attention_fwd@s2s_encoder"] = kernel_row(
-                err, ms, plain_ms, bnd, lib_ms, tag)
+        if f32:
+            print(f"  {tag}: {ms / lib_ms:.3f}x SDPA f32 with the same mask",
+                  flush=True)
+            key = "flash_attention_fwd@s2s_encoder" + (
+                "" if B == 4 else f"_bh{bh}")
+            main[key] = kernel_row(err, ms, plain_ms, bnd, lib_ms, tag)
+        del copies, o, lse, ro, rlse
     return main
+
+
+def s2s_f32_faults(K, handle, q, k, v, bias, ro, rlse, tag):
+    """The planted faults of ``F32_MUTANTS`` (the f32 forward built from a
+    copy of its source with the block's last 4-query sub-tile left
+    unstored, or the bias dropped) at the encoder prefill's inputs: each
+    must fail the limits the kernel is held to (o and lse 1e-5 scaled)."""
+    lib = mutant_lib(handle, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p])
+    bh, s, D = q.shape
+    txt = []
+    for i, (what, *_) in enumerate(F32_MUTANTS):
+        o, lse = torch.zeros_like(q), torch.zeros_like(rlse)
+        rc = getattr(lib, f"stf_mutant_{i}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, s, bh // bias.shape[0], D,
+            D ** -0.5, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc:
+            fail(f"planted f32 fault ({what}): the launch returned {rc}")
+        err_o = (o - ro).abs().max().item()
+        err_l = (lse - rlse).abs().max().item()
+        passes = (err_o <= 1e-5 * max(1.0, ro.abs().max().item()) and
+                  err_l <= 1e-5 * max(1.0, rlse.abs().max().item()))
+        if passes:
+            fail(f"{tag}: the check passes the planted fault ({what})")
+        txt.append(f"{what}: o off by {err_o:.3e}, lse by {err_l:.3e}")
+    print(f"  planted faults in the f32 forward ({tag}): " + "; ".join(txt),
+          flush=True)
 
 
 def s2s_faults(K, tr, cfg, params, target, self_draft, small, sources,
@@ -9129,9 +9277,10 @@ def s2s_faults(K, tr, cfg, params, target, self_draft, small, sources,
             fail(f"s2s: the planted fault ({what}) passes the token check")
 
 
-def s2s_phase(K, dev, kernel_rows):
+def s2s_phase(K, dev, kernel_rows, f32_mutant=None):
     """Encoder-decoder serving (module docstring, phase 16). Returns
-    ``[(path, dropout, launches)]``."""
+    ``[(path, dropout, launches)]``. ``f32_mutant``: the handle of
+    ``f32_mutant_start`` (started here if not given)."""
     from simple_tensorflow_tpu_torch import convert
     from simple_tensorflow_tpu_torch.models import transformer as tr
 
@@ -9139,7 +9288,10 @@ def s2s_phase(K, dev, kernel_rows):
     card = card_line()
     cfg = tr.TransformerConfig.big()
     small_cfg = dataclasses.replace(cfg, num_layers=1)
-    kernel_rows.update(s2s_kernel_rows(K, np.random.RandomState(16), dev))
+    if f32_mutant is None:
+        f32_mutant = f32_mutant_start()
+    kernel_rows.update(s2s_kernel_rows(K, np.random.RandomState(16), dev,
+                                       f32_mutant))
     params = convert.init_seq2seq_params(cfg, seed=0)
     sources, budgets = s2s_requests(cfg.vocab_size)
     geo = dict(num_slots=S2S_SLOTS, max_decode_len=S2S_DECODE_LEN,
@@ -9201,6 +9353,13 @@ def s2s_phase(K, dev, kernel_rows):
           f"tokens/s over the mix, p50 decode step {st['p50_ms']:.4f} ms, "
           f"p50 time to first token {st['ttft_ms']:.4f} ms, p50 prefill "
           f"{st['prefill_ms']:.4f} ms; {traced}", flush=True)
+    print(f"{card}: s2s f32 plain, {S2S_SLOTS} slots, before the f32 "
+          f"forward's redesign: p50 prefill {EARLIER_S2S_MS['prefill']:.4f} "
+          f"ms, now {st['prefill_ms']:.4f} "
+          f"({st['prefill_ms'] / EARLIER_S2S_MS['prefill']:.3f}x); p50 time "
+          f"to first token {EARLIER_S2S_MS['ttft']:.4f} ms, now "
+          f"{st['ttft_ms']:.4f} "
+          f"({st['ttft_ms'] / EARLIER_S2S_MS['ttft']:.3f}x)", flush=True)
     s2s_faults(K, tr, cfg, params, target, self_draft, small, sources, dev)
     for m in (self_draft, small):
         m.close()
@@ -9276,11 +9435,13 @@ def main():
     print(f"  ptxas: {len(spills)} kernels spill registers {spills}",
           flush=True)
     for prefix in ("flash_fwd_mma", "flash_bwd_", "flash_fwd_sm90",
-                   "flash_dkdv_sm90", "flash_dq_sm90", "qmm_", "layer_norm_",
-                   "decode_one",
+                   "flash_dkdv_sm90", "flash_dq_sm90", "flash_fwd_kernel",
+                   "xent_fwd", "qmm_", "layer_norm_", "decode_one",
                    "dropout"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
+    for line in f32_fwd_smem_lines():
+        print(f"  {line}", flush=True)
 
     cfg = tr.TransformerConfig.big()
     if serving_only:
@@ -9309,6 +9470,8 @@ def main():
               f"{time.perf_counter() - smoke_t0:.1f} s", flush=True)
 
     mark("the build")
+    # the f32 forward's planted faults (phase 16), built while phases run
+    f32_mutant = f32_mutant_start()
     rng = np.random.RandomState(0)
     print("kernel phases (times are per call, on the card):", flush=True)
     main_rows = {}
@@ -9388,7 +9551,7 @@ def main():
     mark("checkpoint")
     paths += single_card_phase(K, dev, main_rows)
     mark("single-card")
-    paths += s2s_phase(K, dev, main_rows)
+    paths += s2s_phase(K, dev, main_rows, f32_mutant)
     mark("seq2seq serving")
     # rows of a kernel at a Session path's own shape: (source, TPU kernel,
     # the row's counter, the general row's counter, the paths whose
@@ -9491,7 +9654,7 @@ def main():
         for role in ("self", "cross")})
     session_where.update({
         "flash_attention_fwd@s2s_encoder": (
-            "flash_attention.cu", "flash_attention.py:102",
+            "flash_fwd_f32.cu", "flash_attention.py:102",
             "flash_attention_fwd", "flash_attention_fwd", "s2s"),
         "quant_matmul@s2s": (
             "quant_matmul.cu", "quant_matmul.py:45", "quant_matmul",
@@ -9592,7 +9755,7 @@ def main():
         r = main_rows[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
         ratio = "" if old is None else f" ({r['ms'] / old:.3f}x)"
-        if old is not None and what == "unchanged" and r["ms"] > 1.05 * old:
+        if old is not None and r["ms"] > 1.05 * old:
             ratio += " OUTSIDE 5%"
         before = "n/a" if old is None else f"{old:.5f} ms"
         print(f"{what} {name} ({r['shape']}): before {before}, now "

@@ -5,9 +5,11 @@
 // C entry points of all flash kernels. bf16 runs on tensor cores: at
 // D = 128 the forward in flash_fwd_sm90.cu, dK/dV in flash_dkdv_sm90.cu
 // and dQ in flash_dq_sm90.cu (wgmma, TMA, warp-specialised); at D <= 64
-// the forward in flash_fwd_mma.cu, dK/dV and dQ in flash_bwd_mma.cu. The
-// CUDA-core kernels here run f32: TF32 tensor cores would fail the f32
-// training check's limits (1e-5 on the loss, 1e-4 on the gradients).
+// the forward in flash_fwd_mma.cu, dK/dV and dQ in flash_bwd_mma.cu. f32
+// runs on the CUDA cores: the forward in flash_fwd_f32.cu (register-
+// blocked, cp.async, the query rows a block sized to fill the card), dK/dV
+// and dQ here. TF32 tensor cores would fail the f32 training check's
+// limits (1e-5 on the loss, 1e-4 on the gradients).
 //
 // What they compute, per head bh (bias row b = bh / H):
 //   s = (q . k) * sm_scale (+ bias[b, key]), then NEG_INF where key >= kv_len
@@ -29,16 +31,16 @@
 // All sums are f32 (the TPU's preferred_element_type=f32 /
 // Precision.HIGHEST).
 //
-// What bounds them on the card: operations. At the training shape (S=256,
-// D=64, causal) a head's Q, K, V are 192 KB in f32 and take 8.6 MFLOP in
-// the forward: ~45 flops a byte, above the ~20 of f32 CUDA cores. The
-// TPU walked k-blocks as a sequential grid axis with (m, l, acc) in VMEM;
-// CUDA blocks run in no order, so here the sequential axis is a loop in
-// the block:
-//   forward and dq: one block per (bh, 64-query tile) loops over 64-key
-//   tiles up to the causal diagonal (the TPU's `live` predicate);
+// What bounds the f32 backward kernels on the card: operations. At the
+// training shape (S=256, D=64, causal) a head's Q, K, V are 192 KB in f32
+// and take 29 MFLOP in dK/dV and dQ: well above the ~20 flops a byte of
+// f32 CUDA cores. The TPU walked k-blocks as a sequential grid axis with
+// its sums in VMEM; CUDA blocks run in no order, so here the sequential
+// axis is a loop in the block:
 //   dkdv: one block per (bh, 64-key tile) loops over query tiles from the
-//   diagonal down.
+//   diagonal down;
+//   dq: one block per (bh, 64-query tile) loops over 64-key tiles up to the
+//   causal diagonal (the TPU's `live` predicate).
 // No atomics: each output tile has one owner, so the gradients are
 // deterministic. Tiles sit in shared memory as f32 with rows padded to an
 // odd stride (bank-conflict free); each of the 256 threads owns a 4 x 4
@@ -48,6 +50,14 @@
 #include "common.cuh"
 
 namespace stf {
+
+// flash_fwd_f32.cu: the f32 forward on the CUDA cores
+cudaError_t flash_fwd_f32(const void* q, const void* k, const void* v,
+                          const float* bias, void* o, float* lse, int BH,
+                          int q_len, int kv_len, int H, int D, float scale,
+                          int causal, int dropout, uint32_t seed,
+                          const uint32_t* seed_ptr, uint32_t threshold,
+                          float inv_keep, cudaStream_t s);
 
 // flash_fwd_mma.cu: the bf16 forward on tensor cores
 cudaError_t flash_fwd_bf16_mma(const void* q, const void* k, const void* v,
@@ -142,142 +152,6 @@ __device__ __forceinline__ float masked_score(float dot, float scale,
   if (bias != nullptr && kg < kv_len) s += bias[kg];
   const bool ok = kg < kv_len && qg < q_len && (!causal || qg >= kg);
   return ok ? s : kNegInf;
-}
-
-// sum / max over the 16 threads (tx) that share a row group (ty)
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid (q tiles, B*H)
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t fwd_smem_floats() {
-  return 2 * kBq * (D + 1) + kBk * D + kBq * kPs;  // q, k | v | p
-}
-
-template <int D>
-__global__ void __launch_bounds__(kFaThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias, float* __restrict__ o,
-                     float* __restrict__ lse, int q_len,
-                     int kv_len, int H, float scale, int causal, int dropout,
-                     uint32_t seed, const uint32_t* seed_ptr, uint32_t threshold, float inv_keep) {
-  constexpr int DP = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* q_sh = smem;
-  float* k_sh = q_sh + kBq * DP;
-  float* v_sh = k_sh + kBk * DP;
-  float* p_sh = v_sh + kBk * D;
-
-  const int qi = blockIdx.x, bh = blockIdx.y;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = qi * kBq;
-  const float* qb = q + static_cast<long long>(bh) * q_len * D;
-  const float* kb = k + static_cast<long long>(bh) * kv_len * D;
-  const float* vb = v + static_cast<long long>(bh) * kv_len * D;
-  const float* bb =
-      bias != nullptr ? bias + static_cast<long long>(bh / H) * kv_len
-                      : nullptr;
-
-  const uint32_t h0 = dropout ? keep_hash0(dropout_seed(seed, seed_ptr), bh) : 0u;
-  stage<D>(q_sh, qb, q0, q_len);
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
-  }
-
-  int n_kb = cdiv(kv_len, kBk);
-  if (causal) n_kb = min(n_kb, cdiv(q0 + kBq, kBk));  // the `live` tiles
-  for (int kt = 0; kt < n_kb; ++kt) {
-    const int k0 = kt * kBk;
-    __syncthreads();  // the previous tile's k, v, p are consumed
-    stage<D>(k_sh, kb, k0, kv_len);
-    for (int i = threadIdx.x; i < kBk * D; i += kFaThreads) {
-      const int r = i / D, d = i - r * D;
-      v_sh[i] = k0 + r < kv_len
-                    ? vb[static_cast<long long>(k0 + r) * D + d]
-                    : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4] = {};
-    patch_dot<D>(s, q_sh, k_sh, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qg = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked_score(s[i][j], scale, bb, qg, k0 + tx + 16 * j,
-                               q_len, kv_len, causal);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row16_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        const int c = tx + 16 * j;
-        float pv = p;
-        if (dropout)
-          pv = counter_keep(h0, qg, k0 + c, threshold)
-                   ? __fmul_rn(p, inv_keep)
-                   : 0.0f;
-        p_sh[(ty * 4 + i) * kPs + c] = pv;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + row16_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    const int nk = min(kBk, kv_len - k0);
-    for (int c = 0; c < nk; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = v_sh[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = p_sh[(ty * 4 + i) * kPs + c];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] += p * vv[j];
-      }
-    }
-  }
-
-  float* ob = o + static_cast<long long>(bh) * q_len * D;
-  float* lb = lse + static_cast<long long>(bh) * q_len;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qg = q0 + ty * 4 + i;
-    if (qg >= q_len) continue;
-    const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      ob[static_cast<long long>(qg) * D + tx + 16 * j] =
-          acc[i][j] / l_safe;
-    if (tx == 0) lb[qg] = m[i] + logf(l_safe);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -544,20 +418,6 @@ struct FaArgs {
 };
 
 template <int D>
-cudaError_t run_fwd(const FaArgs& a) {
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<D>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(cdiv(a.q_len, kBq), a.BH), kFaThreads, smem, a.s>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.bias, static_cast<float*>(a.o),
-      static_cast<float*>(a.lse), a.q_len, a.kv_len, a.H, a.scale, a.causal,
-      a.dropout, a.seed, a.seed_ptr, a.threshold, a.inv_keep);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t run_dkdv(const FaArgs& a) {
   const size_t smem = dkdv_smem_floats<D>() * sizeof(float);
   auto kernel = flash_dkdv_kernel<D>;
@@ -592,8 +452,7 @@ cudaError_t run_dq(const FaArgs& a) {
 enum FaWhich { kFwd = 0, kDkdv = 1, kDq = 2 };
 
 template <int D>
-cudaError_t run_f32(int which, const FaArgs& a) {
-  if (which == kFwd) return run_fwd<D>(a);
+cudaError_t run_f32_bwd(int which, const FaArgs& a) {
   if (which == kDkdv) return run_dkdv<D>(a);
   return run_dq<D>(a);
 }
@@ -601,8 +460,9 @@ cudaError_t run_f32(int which, const FaArgs& a) {
 // bf16 on tensor cores: every part at D = 128 on wgmma and TMA
 // (flash_fwd_sm90.cu, flash_dkdv_sm90.cu, flash_dq_sm90.cu), everything at
 // D <= 64 on mma.sync (flash_fwd_mma.cu, flash_bwd_mma.cu: each checks D);
-// f32 on the CUDA-core kernels above. ops/kernels/flash_attention.py
-// kernel_name() states the same rule.
+// f32 on the CUDA cores (the forward in flash_fwd_f32.cu, the backward
+// above). ops/kernels/flash_attention.py kernel_name() states the same
+// rule.
 int dispatch(int which, int dtype, int D, const FaArgs& a) {
   if (a.BH <= 0 || a.q_len <= 0) return cudaSuccess;
   if (a.kv_len <= 0) return cudaErrorInvalidValue;
@@ -640,11 +500,16 @@ int dispatch(int which, int dtype, int D, const FaArgs& a) {
         a.threshold, a.inv_keep, a.s);
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
+  if (which == kFwd)
+    return flash_fwd_f32(a.q, a.k, a.v, a.bias, a.o,
+                         static_cast<float*>(a.lse), a.BH, a.q_len, a.kv_len,
+                         a.H, D, a.scale, a.causal, a.dropout, a.seed,
+                         a.seed_ptr, a.threshold, a.inv_keep, a.s);
   switch (D) {
-    case 16: return run_f32<16>(which, a);
-    case 32: return run_f32<32>(which, a);
-    case 64: return run_f32<64>(which, a);
-    case 128: return run_f32<128>(which, a);
+    case 16: return run_f32_bwd<16>(which, a);
+    case 32: return run_f32_bwd<32>(which, a);
+    case 64: return run_f32_bwd<64>(which, a);
+    case 128: return run_f32_bwd<128>(which, a);
     default: return cudaErrorInvalidValue;
   }
 }

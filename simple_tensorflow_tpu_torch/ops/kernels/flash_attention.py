@@ -30,8 +30,9 @@ cores: at head_dim 128 the forward in ``csrc/flash_fwd_sm90.cu``, dK/dV
 in ``csrc/flash_dkdv_sm90.cu`` and dQ in ``csrc/flash_dq_sm90.cu`` (wgmma,
 TMA, warp-specialised); below 128 the forward in
 ``csrc/flash_fwd_mma.cu``, dK/dV and dQ in ``csrc/flash_bwd_mma.cu``; f32
-runs the CUDA-core kernels of ``csrc/flash_attention.cu``
-(:func:`kernel_name`). The source notes of the files say what bounds each
+runs on the CUDA cores, the forward in ``csrc/flash_fwd_f32.cu`` (its
+tile by :func:`fwd_tile_f32`), dK/dV and dQ in
+``csrc/flash_attention.cu`` (:func:`kernel_name`). The source notes of the files say what bounds each
 kernel and what its design does about it.
 """
 
@@ -60,6 +61,30 @@ _KERNELS = {
     ("dkdv", torch.bfloat16, True): "flash_dkdv_sm90_kernel",
     ("dq", torch.bfloat16, True): "flash_dq_sm90_kernel",
 }
+
+
+# the f32 forward's tile (csrc/flash_fwd_f32.cu ``flash_fwd_f32_tile``,
+# the kernel's template arguments ``BQ`` and ``TM``): the query rows a
+# block, the largest of 64 and 32 whose blocks make about one an SM of the
+# H100's 132 (two when causal), else 16; and the rows a thread, 2 where the
+# blocks still leave SMs without one (and BQ < 64), else 4
+H100_SMS = 132
+F32_FILL_BLOCKS = 128
+F32_FILL_BLOCKS_CAUSAL = 2 * H100_SMS
+
+
+def fwd_tile_f32(bh, q_len, causal):
+    """``(query rows a block, query rows a thread)`` of the f32 forward for
+    ``bh`` heads of ``q_len`` queries: (64, 4), (32, 4), (32, 2), (16, 4)
+    or (16, 2)."""
+    fill = F32_FILL_BLOCKS_CAUSAL if causal else F32_FILL_BLOCKS
+    rows = 16
+    for r in (64, 32):
+        if -(-q_len // r) * bh >= fill:
+            rows = r
+            break
+    blocks = -(-q_len // rows) * bh
+    return rows, 2 if blocks < H100_SMS and rows < 64 else 4
 
 
 def kernel_name(part, dtype, head_dim):

@@ -21,6 +21,25 @@ from .common import (DTYPE_CODES, check_cuda_arg, check_status, count_launch,
                      uses_kernel)
 
 
+# threads a block of the forward kernel (csrc/softmax_xent.cu kXeBlock)
+FWD_BLOCK = 256
+
+
+def fwd_threads_per_row(vocab, dtype):
+    """Threads of the forward kernel a row of ``vocab`` logits of ``dtype``
+    takes (csrc/softmax_xent.cu ``xent_fwd_threads``): a warp, one column a
+    lane, up to 32 columns; past them one thread a 16-byte vector of the
+    row, as a power of two from 8 to ``FWD_BLOCK``. Up to 32 a row is a
+    group of a warp's lanes, above it warps of one block."""
+    if vocab <= 32:
+        return 32
+    vecs = -(-vocab * (2 if dtype == torch.bfloat16 else 4) // 16)
+    tpr = 8
+    while tpr < FWD_BLOCK and tpr < vecs:
+        tpr *= 2
+    return tpr
+
+
 def _constants(smoothing, vocab):
     """``(conf, low, conf - low)`` as the TPU kernel forms them: Python
     floats, each rounded to f32 where it meets the f32 math."""

@@ -485,17 +485,19 @@ def test_flash_fwd_bf16_tensor_core_kernel_on_card(cuda, d, sq, sk, causal,
     assert K.launch_counts()["flash_attention_fwd"] == before + 1
 
 
-def _flash_fwd_keep_mask(cuda, bh, s, causal, seed, d=64):
-    """The keep mask the bf16 forward applied, read off its output: with
-    q = 0 every live score is 0, so p = 1; v is one-hot over a d-key
-    block, so o[:, r, i] is nonzero exactly where key d * blk + i of row r
-    was live and kept."""
-    q = torch.zeros((bh, s, d), device=cuda, dtype=torch.bfloat16)
-    k = torch.randn((bh, s, d), device=cuda).to(torch.bfloat16)
+def _flash_fwd_keep_mask(cuda, bh, s, causal, seed, d=64,
+                         dtype=torch.bfloat16):
+    """The keep mask the forward applied, read off its output: with q = 0
+    every live score is 0, so p = 1; v is one-hot over a d-key block, so
+    o[:, r, i] is nonzero exactly where key d * blk + i of row r was live
+    and kept. ``seed`` an int (the launch-argument entry) or a one-element
+    int32 tensor on the card (the seed-pointer entry)."""
+    q = torch.zeros((bh, s, d), device=cuda, dtype=dtype)
+    k = torch.randn((bh, s, d), device=cuda).to(dtype)
     parts = []
     for blk in range(-(-s // d)):
         keys = torch.arange(s, device=cuda)[:, None] - blk * d
-        v = (keys == torch.arange(d, device=cuda)[None, :]).to(torch.bfloat16)
+        v = (keys == torch.arange(d, device=cuda)[None, :]).to(dtype)
         o, _ = K.flash_attention_fwd(
             q, k, v.expand(bh, s, d).contiguous(), heads=1, sm_scale=0.125,
             causal=causal, dropout_rate=0.1, dropout_seed=seed)
@@ -528,27 +530,116 @@ def test_flash_fwd_bf16_dropout_mask_on_card(cuda, s, causal, d):
 def test_flash_fwd_dtype_picks_its_kernel_on_card(cuda):
     # bf16 runs the tensor-core kernel, f32 keeps the CUDA-core kernel (its
     # 1e-5 limit rules out TF32); read from the kernels' names in a trace
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # (retaken if a trace window loses its kernel records)
     names = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, _, _ = _flash_inputs(cuda, dtype, 33, 2, 4, 96, 96, 64,
                                       False)
-        K.flash_attention_fwd(q, k, v, heads=4, sm_scale=0.125, causal=True)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            o, lse = K.flash_attention_fwd(q, k, v, heads=4, sm_scale=0.125,
-                                           causal=True)
-            torch.cuda.synchronize()
-        names[dtype] = [e.name for e in prof.events()
-                        if e.device_type == DeviceType.CUDA]
+        names[dtype] = _trace_names(lambda: K.flash_attention_fwd(
+            q, k, v, heads=4, sm_scale=0.125, causal=True))
+        o, lse = K.flash_attention_fwd(q, k, v, heads=4, sm_scale=0.125,
+                                       causal=True)
         ro, rlse = K.flash_attention_fwd_plain(q, k, v, heads=4,
                                                sm_scale=0.125, causal=True)
         _close(o, ro, 1e-5 if dtype == torch.float32 else 2e-2)
     assert any("flash_fwd_kernel<" in n for n in names[torch.float32])
     assert not any("mma" in n for n in names[torch.float32])
     assert any("flash_fwd_mma_kernel" in n for n in names[torch.bfloat16])
+
+
+def _pad_bias(b, s):
+    """The encoder prefill's -1e9 pad bias over ``(b, s)`` keys: batch row
+    0 padded past its first 3/4 (one key at least live), the last row all
+    padding."""
+    pads = np.zeros((b, s), np.float32)
+    pads[0, max(1, 3 * s // 4):] = 1.0
+    pads[-1, :] = 1.0
+    return _t(pads * -1e9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh", [16, 64, 256])
+@pytest.mark.parametrize("s", [1, 17, 64, 200, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_fwd_f32_kernel_on_card(cuda, d, s, bh, causal):
+    # the f32 CUDA-core forward at every head dim, short and ragged S and
+    # the encoder prefill's three head counts (16 heads at batch 1, 4, 16),
+    # which between them take each query-tile height (fwd_tile_f32: 16, 32
+    # and 64 rows a block at S = 64, the first two at 2 rows a thread):
+    # non-causal with the pad bias and an all-padding row, causal without a
+    # bias. o within 1e-5 (scaled), lse within rtol 1e-5 (the padded rows'
+    # lse is ~-1e9); a second launch gives the same bits; one count a call
+    h = 16
+    rng = np.random.RandomState(61 + s + d)
+    q, k, v = (_t(rng.randn(bh, s, d).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    bias = None if causal else _pad_bias(bh // h, s).to(cuda)
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    before = K.launch_counts()["flash_attention_fwd"]
+    o, lse = K.flash_attention_fwd(q, k, v, **args)
+    o2, lse2 = K.flash_attention_fwd(q, k, v, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all()
+    _close(o, ro, 1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert K.launch_counts()["flash_attention_fwd"] == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_fwd_f32_query_tile_follows_the_rule_on_card(cuda):
+    # the tile the f32 forward takes (its template arguments BQ and TM, read
+    # off a trace's kernel names) follows fwd_tile_f32, and the prefill's
+    # head counts and the causal training shape take all of (16, 2),
+    # (32, 2), (64, 4) and (32, 4)
+    fa = _kernel_module("flash_attention")
+    seen = set()
+    for bh, s, causal in ((16, 64, False), (64, 64, False), (256, 64, False),
+                          (64, 256, True)):
+        q, k, v, _, _ = _flash_inputs(cuda, torch.float32, 34, bh // 16, 16,
+                                      s, s, 64, False)
+        names = _trace_names(lambda: K.flash_attention_fwd(
+            q, k, v, heads=16, sm_scale=0.125, causal=causal))
+        bq, tm = fa.fwd_tile_f32(bh, s, causal)
+        assert any(f"flash_fwd_kernel<64, {bq}, {tm}>" in n
+                   for n in names), (bh, s, names)
+        seen.add((bq, tm))
+    assert seen == {(16, 2), (32, 2), (64, 4), (32, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["seed", "seed_ptr"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_fwd_f32_dropout_on_card(cuda, d, entry):
+    # dropout 0.1 through the launch-argument and the seed-pointer entries
+    # (counted apart): o and lse within 1e-5 of the plain version, and the
+    # mask read off the output equal to the plain K0 mask (0 mismatches);
+    # the next seed's mask differs (a planted fault)
+    bh, s, seed = 64, 200, 424242
+    sd = (seed if entry == "seed" else
+          torch.tensor([seed], dtype=torch.int32, device=cuda))
+    rng = np.random.RandomState(70 + d)
+    q, k, v = (_t(rng.randn(bh, s, d).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    args = dict(heads=16, sm_scale=d ** -0.5, causal=True, dropout_rate=0.1)
+    name = "flash_attention_fwd" + ("" if entry == "seed" else "_device_seed")
+    before = K.launch_counts()[name]
+    o, lse = K.flash_attention_fwd(q, k, v, dropout_seed=sd, **args)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, dropout_seed=seed, **args)
+    torch.cuda.synchronize()
+    _close(o, ro, 1e-5)
+    _close(lse, rlse, 1e-5)
+    assert K.launch_counts()[name] == before + 1
+    got = _flash_fwd_keep_mask(cuda, 6, s, True, sd, d, torch.float32)
+    live = torch.ones(s, s, dtype=torch.bool, device=cuda).tril()
+    fa = _kernel_module("flash_attention")
+    want = fa.keep_mask_plain(6, s, s, 0.1, seed, cuda) & live
+    bad = fa.keep_mask_plain(6, s, s, 0.1, seed + 1, cuda) & live
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+    assert int((got != bad).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -849,17 +940,27 @@ def test_layer_norm_at_bert_width_on_card(cuda, dtype, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("vocab", [32768, 1000])
+@pytest.mark.parametrize("vocab", [2, 10, 120, 1000, 10000, 30522, 32768])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_softmax_xent_kernels_on_card(cuda, dtype, vocab, smoothing):
-    x, labels, g = _xent_inputs(cuda, dtype, vocab)
+    # the forward's rows on a warp, one column a lane (V <= 32), on a
+    # group of a warp's lanes (up to 32 threads a row: V <= 128 in f32, 256
+    # in bf16) and on a block's warps, on every side of the switches
+    # (fwd_threads_per_row); 67 rows, no multiple of a
+    # block's rows; bf16 rows of 30522 are not 16-byte aligned; labels past
+    # the vocabulary, at it and negative match no column. A second forward
+    # gives the same bits
+    x, labels, g = _xent_inputs(cuda, dtype, vocab, rows=67)
+    labels[5], labels[7] = -1, vocab
     loss, lse = K.softmax_xent_fwd(x, labels, smoothing=smoothing)
+    loss2, lse2 = K.softmax_xent_fwd(x, labels, smoothing=smoothing)
     rloss, rlse = K.softmax_xent_fwd_plain(x, labels, smoothing=smoothing)
     dx = K.softmax_xent_bwd(x, labels, rlse, g, smoothing=smoothing)
     rdx = K.softmax_xent_bwd_plain(x, labels, rlse, g, smoothing=smoothing)
     torch.cuda.synchronize()
     _close(loss, rloss, 1e-5)
     _close(lse, rlse, 1e-5)
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
     _close_elementwise(dx, rdx, 1e-5 if dtype == torch.float32 else 1e-2)
 
 
@@ -1948,11 +2049,13 @@ def test_saver_round_trip_on_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,vocab", [(700, 10000), (768, 120)])
+@pytest.mark.parametrize("rows,vocab", [(700, 10000), (768, 120), (512, 10),
+                                        (256, 1000)])
 def test_softmax_xent_at_the_rnn_shapes_on_card(cuda, rows, vocab):
     # PTB medium's logits (20 x 35 rows of its 10000 words) and seq2seq's
     # (64 x 12 of 120) in f32; seq2seq hands the wrapper [B, T, V] logits
-    # with [B, T] labels, which it runs as rows
+    # with [B, T] labels, which it runs as rows; the MNIST head's 512 x 10
+    # and ResNet's 256 x 1000 as [B, T, V] too
     from simple_tensorflow_tpu_torch.ops.kernels.softmax_xent import (
         softmax_cross_entropy)
 
@@ -1965,7 +2068,7 @@ def test_softmax_xent_at_the_rnn_shapes_on_card(cuda, rows, vocab):
     _close(loss, rloss, 1e-5)
     _close(lse, rlse, 1e-5)
     _close_elementwise(dx, rdx, 1e-5)
-    b = 64 if rows == 768 else 20
+    b = {768: 64, 700: 20, 512: 32, 256: 16}[rows]
     x3 = x.reshape(b, rows // b, vocab).detach().requires_grad_()
     lab3 = labels.reshape(b, rows // b)
     before = K.launch_counts()
@@ -2566,12 +2669,14 @@ def test_slot_cache_drops_appends_past_the_end_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_fwd_on_an_all_padding_row_on_card(cuda, dtype):
+@pytest.mark.parametrize("b", [4, 16])
+def test_flash_fwd_on_an_all_padding_row_on_card(cuda, dtype, b):
     """The encoder prefill's padding rows: every key of a row carries the
     -1e9 pad bias. The forward stays finite and equals its plain
-    version (a uniform softmax over the row)."""
+    version (a uniform softmax over the row); at batch 4 and 16, which the
+    f32 forward runs at 32 and 64 query rows a block."""
     rng = np.random.RandomState(32)
-    b, h, s, d = 4, 16, 64, 64
+    h, s, d = 16, 64, 64
     q, k, v = (_t(rng.randn(b, h, s, d).astype(np.float32)).to(cuda, dtype)
                for _ in range(3))
     pads = np.zeros((b, s), np.float32)

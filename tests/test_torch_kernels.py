@@ -42,6 +42,10 @@ kdr = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                               "dropout_residual")
 kdo = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
                               "dropout")
+kfa = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "flash_attention")
+kxe = importlib.import_module("simple_tensorflow_tpu_torch.ops.kernels."
+                              "softmax_xent")
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -365,6 +369,42 @@ def test_layer_norm_eps_and_constant_row():
                                      block_rows=8))
     np.testing.assert_allclose(got, want, **F32)
     np.testing.assert_allclose(got, np.broadcast_to(b, (2, 16)), **F32)
+
+
+@pytest.mark.parametrize("bh,q_len,causal,tile", [
+    (16, 64, False, (16, 2)), (64, 64, False, (32, 2)),
+    (256, 64, False, (64, 4)), (128, 64, False, (64, 4)),
+    (16, 1, False, (16, 2)), (256, 256, True, (64, 4)),
+    (8, 2048, True, (32, 4)), (132, 64, True, (32, 4)),
+    (4, 4096, True, (32, 4)), (4, 8192, True, (64, 4)),
+    (8, 2048, False, (64, 4)), (100, 64, False, (32, 4)),
+    (40, 64, True, (16, 4))])
+def test_flash_fwd_f32_tile_by_shape(bh, q_len, causal, tile):
+    # the f32 forward's (query rows a block, rows a thread): the largest
+    # of 64 and 32 rows whose blocks still make about one an SM of the
+    # H100 (128; causal: two, 264), else 16; 2 rows a thread where the
+    # blocks still leave SMs without one. The encoder prefill at batch 1,
+    # 4 and 16 (16, 64 and 256 heads of S = 64) takes (16, 2), (32, 2) and
+    # (64, 4); the training checks' causal 256 x 256 (64, 4), the
+    # long-context f32 check (8 heads of 2048) (32, 4)
+    assert kfa.fwd_tile_f32(bh, q_len, causal) == tile
+
+
+@pytest.mark.parametrize("vocab,dtype,tpr", [
+    (2, torch.float32, 32), (10, torch.float32, 32),
+    (32, torch.bfloat16, 32), (33, torch.float32, 16),
+    (33, torch.bfloat16, 8), (120, torch.float32, 32),
+    (128, torch.float32, 32), (129, torch.float32, 64),
+    (1000, torch.float32, 256), (10000, torch.float32, 256),
+    (256, torch.bfloat16, 32), (257, torch.bfloat16, 64),
+    (30522, torch.bfloat16, 256), (32768, torch.bfloat16, 256),
+    (32000, torch.bfloat16, 256), (32768, torch.float32, 256)])
+def test_xent_fwd_threads_a_row_by_vocab(vocab, dtype, tpr):
+    # threads of the xent forward a row: a warp, one column a lane, up to
+    # 32 columns; past them one a 16-byte vector of the row, 8 to a
+    # 256-thread block; up to 32 a row is a group of a warp's lanes (V <=
+    # 128 in f32, 256 in bf16), above it warps of one block
+    assert kxe.fwd_threads_per_row(vocab, dtype) == tpr
 
 
 @pytest.mark.parametrize("dtype,n,nv", [

@@ -61,10 +61,13 @@ def _jdt(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,causal,biased", [
-    (13, 13, True, False), (16, 16, True, True), (9, 13, False, True)])
+    (13, 13, True, False), (16, 16, True, True), (9, 13, False, True),
+    (1, 1, False, "pad"), (64, 64, False, "pad")])
 def test_flash_attention_and_vjp_match_jax(dtype, sq, sk, causal, biased):
     # 13 is no multiple of the 8-row interpret blocks: the ragged tails
-    # are masked on both sides
+    # are masked on both sides. "pad": the encoder prefill's -1e9 pad bias,
+    # batch row 0 padded past half its keys, row 1 all padding (a uniform,
+    # finite softmax on both sides)
     rng = np.random.RandomState(30 + sq + sk)
     b, h, d = 2, 2, 8
     q = rng.randn(b, h, sq, d).astype(np.float32)
@@ -73,6 +76,10 @@ def test_flash_attention_and_vjp_match_jax(dtype, sq, sk, causal, biased):
     go = rng.randn(b, h, sq, d).astype(np.float32)
     glse = rng.randn(b, h, sq).astype(np.float32)
     bias = (rng.randn(b, sk) * 2).astype(np.float32) if biased else None
+    if biased == "pad":
+        bias = np.zeros((b, sk), np.float32)
+        bias[0, sk // 2 + 1:] = -1e9
+        bias[1, :] = -1e9
     jd = _jdt(dtype)
 
     def jfn(q_, k_, v_):
@@ -279,6 +286,29 @@ def test_softmax_xent_vjp_matches_jax(dtype, smoothing):
     np.testing.assert_allclose(loss.detach().numpy(), ref, **FWD)
     np.testing.assert_allclose(dx.float().numpy(), _np(jdx),
                                **(FWD if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vocab", [2, 10, 120])
+def test_softmax_xent_forward_at_small_vocab_matches_jax(vocab, dtype):
+    # the vocabularies the forward kernel gives a group of a warp's lanes a
+    # row (NSP's 2 classes, MNIST's 10, seq2seq's 120), smoothing on, one
+    # label past the vocabulary and one negative (matching no column): the
+    # forward's loss and lse against the Pallas forward in interpret mode.
+    # The label past the vocabulary lies past the Pallas kernel's 128-column
+    # block too: one in [vocab, 128) meets a masked NEG_INF column there
+    rng = np.random.RandomState(36 + vocab)
+    rows, smoothing = 16, 0.1
+    x = (rng.randn(rows, vocab) * 3).astype(np.float32)
+    lab = rng.randint(0, vocab, rows).astype(np.int32)
+    lab[2], lab[5] = vocab + 1000, -1
+    jd = _jdt(dtype)
+    jloss, jlse = jxe._fwd(jnp.asarray(x, jd), jnp.asarray(lab)[:, None], 8,
+                           128, smoothing)
+    loss, lse = K.softmax_xent_fwd(_t(x).to(dtype), _t(lab),
+                                   smoothing=smoothing)
+    np.testing.assert_allclose(loss.numpy(), _np(jloss)[:, 0], **FWD)
+    np.testing.assert_allclose(lse.numpy(), _np(jlse)[:, 0], **FWD)
 
 
 def test_softmax_xent_is_not_torch_label_smoothing():
