@@ -45,9 +45,17 @@ flash kernels own.
    inputs are read cold as the paths read them; library calls that run
    an optimizer or PyTorch's dropout RNG are timed with CUDA events around
    repeated calls instead. The flash backward kernels' yardstick is SDPA's
-   backward alone (its flash backward on a saved forward, which computes
-   dq, dk and dv in one call), graph-timed, beside SDPA forward +
-   backward captured in a graph. The bf16 flash forward's dropout mask is
+   backward alone (on a saved forward, one call computing dq, dk and dv:
+   its flash backward in bf16, its memory-efficient backward in f32),
+   graph-timed, beside SDPA forward + backward captured in a graph; the
+   f32 dK/dV + dQ print their sum beside it. The f32 dK/dV and dQ
+   (``csrc/flash_bwd_f32.cu``) also run at the long-context f32 check's
+   shape (``@f32_d128``: 8 heads of 2048, D 128, causal) and the
+   transformer f32 check's (``@f32_s64``: 128 heads of 64, the pad bias
+   with a row all padding, dropout 0.1), each row counting the launches
+   of its paths (``F32_BWD_PATHS``), and two planted faults of the f32
+   backward (``F32_MUTANTS``: dK/dV without its last query tile, dQ
+   without the bias) must fail their limits. The bf16 flash forward's dropout mask is
    also read off its output (q = 0, v one-hot) at the training shape, and
    the bf16 backward's off each of dV, dK and dQ (``keep_mask_readoff``):
    0 mismatches with the plain mask, and the next seed's mask must differ.
@@ -66,9 +74,10 @@ flash kernels own.
    bits at both training shapes, the next key's values, bits and backward
    as planted faults. The registers, static shared memory and spills
    ``ptxas`` reports for the tensor-core backward kernels, the f32 flash
-   forward, the xent forward, QuantMatMul, the LayerNorm kernels, the Kq =
-   1 DecodeAttention and the dropout kernels are printed after the build,
-   and the f32 flash forward's dynamic shared memory at its paths' shapes. The redesigned kernels (the Dropout and K4) and
+   forward, dK/dV and dQ, the xent forward, QuantMatMul, the LayerNorm
+   kernels, the Kq = 1 DecodeAttention and the dropout kernels are printed
+   after the build, and the f32 flash kernels' tiles and dynamic shared
+   memory at their paths' shapes. The redesigned kernels (the Dropout and K4) and
    those that must hold their times get one line each at the end: the
    time before the redesign (``EARLIER_MS``), this run's, the bound and
    the library call's; the LM training phase prints its device time a
@@ -547,7 +556,10 @@ bf16 windows for the bf16 rows; ``@s2s_self`` / ``@s2s_cross``: all of
 phase 16's one-query or query-block launches, self- and cross-attention
 alike, each row timed at its role's shape; ``quant_matmul@s2s``: all of
 the int8 runs' launches, decode, verify and draft steps, timed at
-verify's m = 64). A kernel in a conditional node's body
+verify's m = 64; the f32 dK/dV and dQ rows ``@f32``, ``@f32_d128`` and
+``@f32_s64``: both entries' launches on the f32 training steps, the
+long-context f32 check and the transformer f32 check, which the other rows
+leave out). A kernel in a conditional node's body
 counts once per run of the body (``DeviceGraph.settle``). Prints a
 ``{"kernels": [...]}`` line and ends with ``{"ok": true, "device":
 {...}}``. Exits non-zero, without that last line, on any
@@ -650,8 +662,12 @@ EARLIER_MS = {"dropout": (0.07672, "redesigned"),
               "flash_attention_fwd@s2s_encoder": (0.01653, "redesigned"),
               "flash_attention_fwd@s2s_encoder_bh16": (None, "redesigned"),
               "flash_attention_fwd@s2s_encoder_bh256": (None, "redesigned"),
-              "flash_attention_dkdv@f32": (0.27513, "unchanged"),
-              "flash_attention_dq@f32": (0.22393, "unchanged"),
+              "flash_attention_dkdv@f32": (0.27737, "redesigned"),
+              "flash_attention_dq@f32": (0.22444, "redesigned"),
+              "flash_attention_dkdv@f32_d128": (None, "redesigned"),
+              "flash_attention_dq@f32_d128": (None, "redesigned"),
+              "flash_attention_dkdv@f32_s64": (None, "redesigned"),
+              "flash_attention_dq@f32_s64": (None, "redesigned"),
               "decode_attention_block": (0.01416, "unchanged"),
               "softmax_xent_fwd": (0.15316, "unchanged"),
               "softmax_xent_fwd@bert": (0.08708, "unchanged"),
@@ -1185,7 +1201,11 @@ def phase_flash_attention(K, gen, dev):
             else:
                 lib_fwd = device_ms([sdpa(c) for c in copies])
                 lib_fb = device_ms([sdpa_fb(c) for c in copies])
-                if not f32 and not biased:
+                if f32:
+                    lib_bwd = device_ms([sdpa_bwd_f32(c, B, H, s, D, causal,
+                                                      bias, 0.0)
+                                         for c in copies])
+                elif not biased:
                     lib_bwd = device_ms([sdpa_bwd(c, B, H, s, D, causal)
                                          for c in copies])
             # the work these inputs need: live (query, key) pairs only
@@ -1219,16 +1239,20 @@ def phase_flash_attention(K, gen, dev):
                   flush=True)
             if lib_bwd is not None and s == 256 and causal:
                 c = copies[0]
+                alone = (sdpa_bwd_f32(c, B, H, s, D, causal, bias, 0.0) if f32
+                         else sdpa_bwd(c, B, H, s, D, causal))
                 print(f"  flash library {tag}: kernels of SDPA forward + "
                       f"backward {device_kernels(sdpa_fb(c))}; of the "
-                      f"backward alone "
-                      f"{device_kernels(sdpa_bwd(c, B, H, s, D, causal))}",
-                      flush=True)
-            if not f32 and s == 256 and causal and not rate:
+                      f"backward alone {device_kernels(alone)}", flush=True)
+            if s == 256 and causal and not rate:
                 pair = times["dkdv"][0] + times["dq"][0]
+                shares = ", ".join(
+                    f"{part} {bnds[part][0] / times[part][0]:.1%}"
+                    for part in ("dkdv", "dq"))
                 print(f"  flash bwd {tag}: dK/dV + dQ {pair:.5f} ms, "
                       f"{pair / lib_bwd:.3f}x SDPA's backward alone "
-                      f"({lib_bwd:.5f} ms)", flush=True)
+                      f"({lib_bwd:.5f} ms); of their bounds {shares}",
+                      flush=True)
             if not f32 and s == 256 and causal and rate:
                 check_flash_fwd_mask(K, dev, bh, s, rate)
                 check_flash_bwd_mask(K, dev, bh, s, rate)
@@ -1239,10 +1263,11 @@ def phase_flash_attention(K, gen, dev):
                           f"{ratio:.3f}x the rate-0 kernel", flush=True)
             del copies, stats
         print("  (flash library: fwd = SDPA forward; dkdv/dq = SDPA's "
-              "backward alone where it runs (bf16, no bias, rate 0), else "
-              "SDPA forward + backward: one call computes dq, dk and dv "
-              "together; with dropout, SDPA's dropout_p: similar work, "
-              "another mask)", flush=True)
+              "backward alone at rate 0 (bf16 without a bias: its flash "
+              "backward; f32: its memory-efficient backward, what autograd "
+              "runs for f32), else SDPA forward + backward: one call "
+              "computes dq, dk and dv together; with dropout, SDPA's "
+              "dropout_p: similar work, another mask)", flush=True)
     return main
 
 
@@ -1271,6 +1296,194 @@ def sdpa_bwd(c, B, H, s, D, causal):
     return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
         do4, q4, k4, v4, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
         scale=D ** -0.5)
+
+
+def sdpa_bwd_f32(c, B, H, s, D, causal, bias, rate):
+    """SDPA's f32 backward alone: its memory-efficient attention backward
+    (what ``torch.autograd.grad`` of an f32 SDPA runs, beside a few
+    elementwise kernels) on the saved output, logsumexp and dropout seed of
+    one forward call over the (BH, S, D) tensors ``c`` (q, k, v, dO), with
+    the key bias (B, S) as its attention bias. A captured
+    ``torch.autograd.grad`` of a forward made outside the capture fails
+    (its saved state), so the backward op is called as autograd calls
+    it."""
+    q4, k4, v4, do4 = (t.view(B, H, s, D) for t in c)
+    mask = None if bias is None else bias.view(B, 1, 1, s).expand(
+        B, H, s, s).contiguous()
+    out, lse, seed, off = \
+        torch.ops.aten._scaled_dot_product_efficient_attention(
+            q4, k4, v4, mask, True, rate, causal, scale=D ** -0.5)[:4]
+    return lambda: \
+        torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            do4, q4, k4, v4, mask, out, lse, seed, off, rate,
+            [True, True, True, False], causal, scale=D ** -0.5)
+
+
+# the f32 backward's other path shapes: (tag, B, H, S, D, causal, pad
+# bias, dropout rate): the long-context f32 check (2 layers x 2048, D 128)
+# and the transformer f32 check (8 x 64/64, the pad bias, dropout 0.1; its
+# decoder's self- and cross-attention run the same kernels at the same S)
+F32_BWD_SHAPES = (("f32_d128", 1, 8, 2048, 128, True, False, 0.0),
+                  ("f32_s64", 8, 16, 64, 64, False, True, DROPOUT_RATE))
+# the paths whose launches the f32 backward rows count, by row
+F32_BWD_PATHS = {"f32": "train f32", "f32_d128": "long_context check float32",
+                 "f32_s64": "transformer f32 check"}
+
+
+def phase_flash_f32_bwd(K, gen, dev, f32_mutant):
+    """The f32 dK/dV and dQ (csrc/flash_bwd_f32.cu) at the long-context
+    and transformer f32 checks' shapes (``F32_BWD_SHAPES``): each against
+    its plain version (1e-4 of max |ref|; at D = 128 also each 128-row
+    block to 1e-4 of its norm, ``check_flash``), timed beside the plain
+    version, its bound and SDPA's f32 backward alone; then the planted
+    faults of ``F32_MUTANTS`` in the backward, each of which the limits
+    must fail: dK/dV without its last query tile at the training shape
+    (256 heads of 256, causal), dQ without the bias at the transformer
+    check's (the pad bias)."""
+    main = {}
+    fault_inputs = {}
+    for tag, B, H, s, D, causal, padded, rate in F32_BWD_SHAPES:
+        bh = B * H
+        copies = [tuple(torch.randn((bh, s, D), generator=gen, device=dev)
+                        for _ in range(4))
+                  for _ in range(n_copies(4 * bh * s * D * 4))]
+        bias = None
+        if padded:
+            pads = torch.zeros((B, s), device=dev)
+            pads[0, 3 * s // 4:] = 1.0
+            pads[-1, :] = 1.0          # a row of nothing but padding
+            bias = pads * -1e9
+        args = dict(heads=H, sm_scale=D ** -0.5, causal=causal, bias=bias)
+        if rate:
+            args.update(dropout_rate=rate, dropout_seed=FLASH_SEED)
+        stats = []
+        for q, k, v, do in copies:
+            ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+            stats.append((rlse, (do * ro).sum(-1)))
+        q, k, v, do = copies[0]
+        rlse, delta = stats[0]
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args)
+        dq = K.flash_attention_dq(q, k, v, do, rlse, delta, **args)
+        rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta,
+                                                **args)
+        rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+        torch.cuda.synchronize()
+        name = (f"f32 BH={bh} S={s} D={D}{' causal' if causal else ''}"
+                f"{' pad bias' if padded else ''}"
+                f"{f' dropout {rate}' if rate else ''}")
+        err = {}
+        for part, outs in (("dkdv", ((dk, rdk), (dv, rdv))),
+                           ("dq", ((dq, rdq),))):
+            err[part] = 0.0
+            for out, ref in outs:
+                if not bool(torch.isfinite(out).all()):
+                    fail(f"flash {part} {name}: non-finite output")
+                if D == 128:
+                    e, _ = check_flash(f"flash {part} {name}", out, ref,
+                                       1e-4)
+                else:
+                    e = check_scaled(f"flash {part} {name}", out, ref, 1e-4)
+                err[part] = max(err[part], e)
+        if padded:
+            fault_inputs["dq"] = (q, k, v, do, bias, H)
+        del dk, dv, dq, rdk, rdv, rdq
+        times = {}
+        for part, kern, plain in (
+                ("dkdv", K.flash_attention_dkdv, K.flash_attention_dkdv_plain),
+                ("dq", K.flash_attention_dq, K.flash_attention_dq_plain)):
+            times[part] = tuple(device_ms([
+                lambda f=f, c=c, st=st: f(*c, *st, **args)
+                for c, st in zip(copies, stats)]) for f in (kern, plain))
+        if rate:
+            # a capture of its backward reads the dropout seed and offset a
+            # forward outside the capture left on the host: an illegal
+            # address on the card, so it is timed eagerly
+            lib_bwd = event_ms(sdpa_bwd_f32(copies[0], B, H, s, D, causal,
+                                            bias, rate), reps=20)
+            how = "CUDA events, eager"
+        else:
+            lib_bwd = device_ms([sdpa_bwd_f32(c, B, H, s, D, causal, bias,
+                                              rate) for c in copies])
+            how = "graph-timed"
+        pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+        io = bh * s * D * 4
+        extra = B * s * 4 if padded else 0
+        hashes = K0_OPS * pairs if rate else 0
+        bnds = {"dkdv": bound_ms(6 * io + 2 * bh * s * 4 + extra,
+                                 8 * D * pairs, torch.float32, hashes),
+                "dq": bound_ms(5 * io + 2 * bh * s * 4 + extra,
+                               6 * D * pairs, torch.float32, hashes)}
+        for part in ("dkdv", "dq"):
+            row_name = f"flash_attention_{part} {name}"
+            report(row_name, err[part], times[part][0], times[part][1],
+                   bnds[part], lib_bwd)
+            main[f"flash_attention_{part}@{tag}"] = kernel_row(
+                err[part], times[part][0], times[part][1], bnds[part],
+                lib_bwd, row_name)
+            print(f"  flash {part} {name}: {bnds[part][0] / times[part][0]:.1%}"
+                  f" of its bound", flush=True)
+        pair = times["dkdv"][0] + times["dq"][0]
+        print(f"  flash bwd {name}: dK/dV + dQ {pair:.5f} ms, "
+              f"{pair / lib_bwd:.3f}x SDPA's f32 backward alone "
+              f"({lib_bwd:.5f} ms, {how}; with dropout its own mask)",
+              flush=True)
+        del copies, stats
+    f32_bwd_faults(K, gen, dev, f32_mutant, fault_inputs["dq"])
+    return main
+
+
+def f32_bwd_faults(K, gen, dev, handle, dq_inputs):
+    """The backward's planted faults of ``F32_MUTANTS``: dK/dV without its
+    last query tile at the training shape (causal, 256 heads of 256, D 64)
+    and dQ without the bias at the transformer check's (the pad bias);
+    each must fail the limit the kernel rows hold it to (1e-4 of max
+    |ref|)."""
+    lib = f32_mutant_lib(handle)
+    bh, s, D = TRAIN_B * TRAIN_H, TRAIN_S, TRAIN_D
+    q, k, v, do = (torch.randn((bh, s, D), generator=gen, device=dev)
+                   for _ in range(4))
+    args = dict(heads=TRAIN_H, sm_scale=D ** -0.5, causal=True)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do * ro).sum(-1)
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    # the transformer check's inputs at rate 0, as the mutants run
+    q2, k2, v2, do2, bias, heads = dq_inputs
+    args2 = dict(heads=heads, sm_scale=D ** -0.5, causal=False, bias=bias)
+    ro2, rlse2 = K.flash_attention_fwd_plain(q2, k2, v2, **args2)
+    delta2 = (do2 * ro2).sum(-1)
+    rdq = K.flash_attention_dq_plain(q2, k2, v2, do2, rlse2, delta2, **args2)
+    cases = {"dK/dV": ((q, k, v, do, rlse, delta, None, TRAIN_H, True),
+                       (rdk, rdv)),
+             "dQ": ((q2, k2, v2, do2, rlse2, delta2, bias, heads, False),
+                    (rdq,))}
+    txt = []
+    for i, (what, src, *_) in enumerate(F32_MUTANTS):
+        if src != "flash_bwd_f32.cu":
+            continue
+        (q_, k_, v_, do_, lse_, delta_, bias_, heads, causal), refs = \
+            cases[what.split()[0]]
+        outs = [torch.zeros_like(r) for r in refs]
+        rc = getattr(lib, f"stf_mutant_{i}")(
+            q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), do_.data_ptr(),
+            lse_.data_ptr(), delta_.data_ptr(),
+            None if bias_ is None else bias_.data_ptr(), outs[0].data_ptr(),
+            outs[-1].data_ptr(), q_.shape[0], q_.shape[1], heads, D,
+            D ** -0.5, int(causal), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc:
+            fail(f"planted f32 fault ({what}): the launch returned {rc}")
+        # a non-finite output (the padded keys' p without their bias
+        # overflows) is as far off as can be
+        ratios = [(o - r).abs().max().item()
+                  / (1e-4 * max(1.0, r.abs().max().item()))
+                  if bool(torch.isfinite(o).all()) else math.inf
+                  for o, r in zip(outs, refs)]
+        if not max(ratios) > 1.0:
+            fail(f"flash f32 backward: the check passes the planted fault "
+                 f"({what})")
+        txt.append(f"{what}: {max(ratios):.3e}x its limit")
+    print("  planted faults in the f32 backward: " + "; ".join(txt),
+          flush=True)
 
 
 def check_flash_fwd_mask(K, dev, bh, s, rate):
@@ -7689,18 +7902,27 @@ SM90_CALLS = {
         "static_cast<cudaStream_t>(stream))"}
 
 
-# The planted faults of the f32 forward (flash_fwd_f32.cu), built as the
-# wgmma ones are and checked at the encoder prefill's shape (phase 16): the
-# block's last 4-query sub-tile never stored, and the bias dropped.
-# (what, source, text, mutated text, occurrences)
+# The planted faults of the f32 flash kernels, built as the wgmma ones are:
+# the forward's (flash_fwd_f32.cu), checked at the encoder prefill's shape
+# (phase 16): the block's last 4-query sub-tile never stored, and the bias
+# dropped; the backward's (flash_bwd_f32.cu), checked in the kernel phase
+# (phase_flash_f32_bwd): dK/dV without its last query tile, and dQ without
+# the bias. (what, source, text, mutated text, occurrences)
 F32_MUTANTS = (
     ("forward without its last query sub-tile", "flash_fwd_f32.cu",
      "    if (qg >= q_len) continue;",
      "    if (qg >= q_len || ty == BQ / TM - 1) continue;", 1),
     ("forward without its bias", "flash_fwd_f32.cu",
      "if (bb != nullptr && kg < kv_len) x += bb[kg];",
-     "if (false && bb != nullptr && kg < kv_len) x += bb[kg];", 1))
-# the C entry of mutant i: non-causal, rate 0, the (B, S) bias
+     "if (false && bb != nullptr && kg < kv_len) x += bb[kg];", 1),
+    ("dK/dV without its last query tile", "flash_bwd_f32.cu",
+     "int t0 = 0, n_t = cdiv(n_cols, BS);",
+     "int t0 = 0, n_t = cdiv(n_cols, BS) - (kDkdv ? 1 : 0);", 1),
+    ("dQ without its bias", "flash_bwd_f32.cu",
+     "if (!kDkdv && bb != nullptr && col < kv_len) c_bias[j] = __ldg(bb + col);",
+     "if (false && bb != nullptr && col < kv_len) c_bias[j] = __ldg(bb + col);",
+     1))
+# the C entry of a forward mutant: non-causal, rate 0, the (B, S) bias
 F32_ENTRY = r"""
 extern "C" int stf_mutant_%(i)d(
     const void* q, const void* k, const void* v, const void* bias, void* o,
@@ -7711,6 +7933,27 @@ extern "C" int stf_mutant_%(i)d(
                             static_cast<cudaStream_t>(stream));
 }
 """
+# the C entry of a backward mutant: rate 0, the bias or null; dK/dV writes
+# dk and dv to out0 and out1, dQ dq to out0
+F32_BWD_ENTRY = r"""
+extern "C" int stf_mutant_%(i)d(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* bias, void* out0,
+    void* out1, int bh, int s, int heads, int d, float scale, int causal,
+    void* stream) {
+  return stf::flash_bwd_f32(%(dkdv)d, q, k, v, dout,
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(delta),
+                            static_cast<const float*>(bias), out0, out0,
+                            out1, bh, s, s, heads, d, scale, causal, 0, 0u,
+                            nullptr, 0u, 1.0f,
+                            static_cast<cudaStream_t>(stream));
+}
+"""
+F32_FWD_TYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_void_p]
+F32_BWD_TYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def sm90_mutant_start():
@@ -7722,9 +7965,27 @@ def sm90_mutant_start():
 
 
 def f32_mutant_start():
-    """Starts the build of the f32 forward's planted faults
-    (``F32_MUTANTS``)."""
-    return mutant_start(F32_MUTANTS, lambda i, name: F32_ENTRY % {"i": i})
+    """Starts the build of the f32 flash kernels' planted faults
+    (``F32_MUTANTS``); ``f32_mutant_lib`` takes the handle."""
+    def entry(i, name):
+        if name == "flash_fwd_f32.cu":
+            return F32_ENTRY % {"i": i}
+        return F32_BWD_ENTRY % {"i": i, "dkdv": int(
+            F32_MUTANTS[i][0].startswith("dK/dV"))}
+    return mutant_start(F32_MUTANTS, entry)
+
+
+_F32_MUTANT_LIBS = {}
+
+
+def f32_mutant_lib(handle):
+    """The f32 planted-fault library of ``f32_mutant_start`` (built once;
+    each entry takes its source's arguments)."""
+    if handle[0] not in _F32_MUTANT_LIBS:
+        _F32_MUTANT_LIBS[handle[0]] = mutant_lib(handle, [
+            F32_FWD_TYPES if src == "flash_fwd_f32.cu" else F32_BWD_TYPES
+            for _, src, *_ in F32_MUTANTS])
+    return _F32_MUTANT_LIBS[handle[0]]
 
 
 def mutant_start(mutants, entry):
@@ -7774,7 +8035,8 @@ def sm90_mutant_lib(handle):
 
 def mutant_lib(handle, argtypes):
     """The planted-fault library of ``mutant_start``, once built, its
-    entries ``stf_mutant_<i>`` taking ``argtypes``."""
+    entries ``stf_mutant_<i>`` taking ``argtypes`` (one list for all, or a
+    list of them, one an entry)."""
     tmp, srcs, procs, nvcc = handle
     for f, proc in zip(srcs, procs):
         out, _ = proc.communicate(timeout=600)
@@ -7790,7 +8052,8 @@ def mutant_lib(handle, argtypes):
     lib = ctypes.CDLL(so)
     for i in range(len(srcs)):
         fn = getattr(lib, f"stf_mutant_{i}")
-        fn.argtypes = argtypes
+        fn.argtypes = (argtypes[i] if isinstance(argtypes[0], list)
+                       else argtypes)
         fn.restype = ctypes.c_int
     return lib
 
@@ -8824,6 +9087,28 @@ def f32_fwd_smem_lines():
     return out
 
 
+def f32_bwd_smem_lines():
+    """The f32 dK/dV's and dQ's tile and dynamic shared memory at the
+    shapes their paths run (csrc/flash_bwd_f32.cu ``bwd_smem_floats``: the
+    block's two row tiles, the streamed pair in one or two stages, dS and,
+    in dK/dV, p'; rows padded by 4 or 8 floats)."""
+    fa = importlib.import_module(KMOD + "flash_attention")
+    out = []
+    for what, bh, s, d in (("the f32 checks", 256, 256, 64),
+                           ("the long-context f32 check", 8, 2048, 128),
+                           ("the transformer f32 check", 128, 64, 64)):
+        for part in ("dkdv", "dq"):
+            rows, cols = fa.bwd_tile_f32(part, bh, s, d)
+            stages = 2 if s > cols else 1
+            floats = (2 * rows * (d + 4) + 2 * stages * cols * (d + 4)
+                      + (2 if part == "dkdv" else 1) * rows * (cols + 8))
+            out.append(f"flash_{part}_f32_kernel<{d}, {rows // 16}> at "
+                       f"{what} (BH {bh}, S {s}): {rows} rows a block, "
+                       f"{4 * floats} bytes of dynamic shared memory, "
+                       f"{stages} stage{'s' if stages > 1 else ''}")
+    return out
+
+
 # kernels the serving traces must show: the Kq = 1 DecodeAttention and the
 # LayerNorm forward on its vector path
 SERVING_KERNELS = ("decode_one_kernel", "layer_norm_fwd_vec_kernel")
@@ -9208,11 +9493,12 @@ def s2s_f32_faults(K, handle, q, k, v, bias, ro, rlse, tag):
     copy of its source with the block's last 4-query sub-tile left
     unstored, or the bias dropped) at the encoder prefill's inputs: each
     must fail the limits the kernel is held to (o and lse 1e-5 scaled)."""
-    lib = mutant_lib(handle, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p])
+    lib = f32_mutant_lib(handle)
     bh, s, D = q.shape
     txt = []
-    for i, (what, *_) in enumerate(F32_MUTANTS):
+    for i, (what, src, *_) in enumerate(F32_MUTANTS):
+        if src != "flash_fwd_f32.cu":
+            continue
         o, lse = torch.zeros_like(q), torch.zeros_like(rlse)
         rc = getattr(lib, f"stf_mutant_{i}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -9436,11 +9722,11 @@ def main():
           flush=True)
     for prefix in ("flash_fwd_mma", "flash_bwd_", "flash_fwd_sm90",
                    "flash_dkdv_sm90", "flash_dq_sm90", "flash_fwd_kernel",
-                   "xent_fwd", "qmm_", "layer_norm_", "decode_one",
-                   "dropout"):
+                   "flash_dkdv_f32", "flash_dq_f32", "xent_fwd", "qmm_",
+                   "layer_norm_", "decode_one", "dropout"):
         for name, props in kernel_props(build_log, prefix):
             print(f"  ptxas {name}: {props}", flush=True)
-    for line in f32_fwd_smem_lines():
+    for line in f32_fwd_smem_lines() + f32_bwd_smem_lines():
         print(f"  {line}", flush=True)
 
     cfg = tr.TransformerConfig.big()
@@ -9481,6 +9767,7 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     main_rows.update(phase_flash_attention(K, gen, dev))
+    main_rows.update(phase_flash_f32_bwd(K, gen, dev, f32_mutant))
     main_rows.update(phase_dropout_residual(K, gen, dev))
     main_rows.update(phase_dropout(K, gen, dev))
     main_rows.update(phase_layer_norm_bwd(K, gen, dev))
@@ -9659,8 +9946,24 @@ def main():
         "quant_matmul@s2s": (
             "quant_matmul.cu", "quant_matmul.py:45", "quant_matmul",
             "quant_matmul", "s2s int8")})
+    # the f32 dK/dV and dQ (csrc/flash_bwd_f32.cu) at their paths' shapes:
+    # each row counts both entries' launches on its paths (F32_BWD_PATHS),
+    # which the general and Session rows then leave out
+    f32_where = {
+        f"flash_attention_{part}@{tag}": (
+            "flash_bwd_f32.cu", tpu, (f"flash_attention_{part}",
+                                      f"flash_attention_{part}_device_seed"),
+            F32_BWD_PATHS[tag])
+        for tag in F32_BWD_PATHS
+        for part, tpu in (
+            ("dkdv", "flash_attention.py:244" if tag == "f32_s64"
+             else "flash_attention.py:210"),
+            ("dq", "flash_attention.py:297" if tag == "f32_s64"
+             else "flash_attention.py:264"))}
+    f32_paths = tuple(F32_BWD_PATHS.values())
     # (the general row's counter, the path) pairs a Session row takes over
     claimed = {(c, p) for _, _, _, c, p in session_where.values()}
+    claimed |= {(c, p) for _, _, cs, p in f32_where.values() for c in cs}
     # a kernel's launches over every path; the flash rows split by the
     # path's dropout (the dropout branch runs only at rate > 0; the
     # seed-pointer entries only with dropout)
@@ -9739,7 +10042,8 @@ def main():
                      "library_ms": r["library_ms"], "shape": r["shape"]})
     for name, (src, tpu, counter, _, prefix) in session_where.items():
         n = sum(counts.get(counter, 0) for path, _, counts in paths
-                if path.startswith(prefix))
+                if path.startswith(prefix)
+                and not path.startswith(f32_paths))
         if not n:
             fail(f"{name}: the kernel was not launched on the "
                  f"{prefix} paths")
@@ -9751,6 +10055,21 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
+    for name, (src, tpu, counters, prefix) in f32_where.items():
+        n = sum(counts.get(c, 0) for path, _, counts in paths
+                if path.startswith(prefix) for c in counters)
+        if not n:
+            fail(f"{name}: the kernel was not launched on the "
+                 f"{prefix} paths")
+        r = main_rows[name]
+        rows.append({"name": name, "route": "cuda", "source": SRC + src,
+                     "replaces": os.path.normpath(TPU + tpu),
+                     "launches": n,
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "shape": r["shape"]})
+        print(f"{name}: {n} launches on the {prefix} paths", flush=True)
     for name, (old, what) in EARLIER_MS.items():
         r = main_rows[name]
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f}"

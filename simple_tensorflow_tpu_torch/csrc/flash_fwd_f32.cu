@@ -61,7 +61,7 @@
 // - one launch a call, no atomics, no split-K merge: each output row has
 //   one owner, so two launches give the same bits; the heaviest causal
 //   query tiles launch first.
-#include "mma.cuh"
+#include "f32_tile.cuh"
 
 namespace stf {
 namespace {
@@ -100,57 +100,6 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows [row0, row0 + n) of a (rows, D) f32 slice into shared memory rows of
-// D + 4 floats, 16 bytes a copy; rows at or past `limit` are zero
-template <int D, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int row0, int n, int limit) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < n * kChunks; i += NT) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool ok = row0 + r < limit;
-    cp_async16(dst + r * (D + 4) + c * 4,
-               src + (ok ? static_cast<long long>(row0 + r) * D : 0) + c * 4,
-               ok);
-  }
-}
-
-// The D / 16 columns of a D-wide row that thread tx of a row group owns:
-// float4s at 64 g + 4 tx (D >= 64; 16 threads read 256 contiguous bytes),
-// else D / 16 contiguous floats at tx D / 16.
-template <int D>
-__device__ __forceinline__ void load_cols(const float* row, int tx,
-                                          float (&v)[D / 16]) {
-  if constexpr (D >= 64) {
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const float4 t = *reinterpret_cast<const float4*>(row + g * 64 + tx * 4);
-      v[4 * g] = t.x, v[4 * g + 1] = t.y, v[4 * g + 2] = t.z,
-            v[4 * g + 3] = t.w;
-    }
-  } else if constexpr (D == 32) {
-    const float2 t = *reinterpret_cast<const float2*>(row + tx * 2);
-    v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = row[tx];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_cols(float* row, int tx,
-                                           const float (&v)[D / 16]) {
-  if constexpr (D >= 64) {
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-      *reinterpret_cast<float4*>(row + g * 64 + tx * 4) =
-          make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
-  } else if constexpr (D == 32) {
-    *reinterpret_cast<float2*>(row + tx * 2) = make_float2(v[0], v[1]);
-  } else {
-    row[tx] = v[0];
-  }
-}
-
 // sum / max over the 16 threads (tx) of a row group
 __device__ __forceinline__ float group16_sum(float v) {
 #pragma unroll
@@ -162,18 +111,6 @@ __device__ __forceinline__ float group16_max(float v) {
   for (int o = 8; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ float fma4(const float4& a, const float4& b,
-                                      float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float lane4(const float4& a, int e) {
-  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
 }
 
 // grid (B*H, query tiles of BQ rows), the heaviest tile first; BQ / TM
@@ -212,16 +149,16 @@ __global__ void __launch_bounds__(BQ / TM * 16)
   if (causal) n_kt = min(n_kt, cdiv(q0 + BQ, BK));  // the `live` tiles
   // a tile is two copy groups, K then V, so S = Q K^T starts while V is
   // still in flight
-  auto stage_tile = [&](int kt, int st) {
+  auto stage_kv = [&](int kt, int st) {
     float* ks = kv_sh + st * 2 * BK * DS;
-    stage_rows<D, NT>(ks, kb, kt * BK, BK, kv_len);
+    stage_tile<D, NT, BK>(ks, kb, kt * BK, kv_len);
     cp_async_commit();
-    stage_rows<D, NT>(ks + BK * DS, vb, kt * BK, BK, kv_len);
+    stage_tile<D, NT, BK>(ks + BK * DS, vb, kt * BK, kv_len);
     cp_async_commit();
   };
-  stage_rows<D, NT>(q_sh, qb, q0, BQ, q_len);  // in tile 0's K group
-  stage_tile(0, 0);
-  if (stages == 2 && n_kt > 1) stage_tile(1, 1);
+  stage_tile<D, NT, BQ>(q_sh, qb, q0, q_len);  // in tile 0's K group
+  stage_kv(0, 0);
+  if (stages == 2 && n_kt > 1) stage_kv(1, 1);
 
   const uint32_t h0 =
       dropout ? keep_hash0(dropout_seed(seed, seed_ptr), bh) : 0u;
@@ -315,7 +252,7 @@ __global__ void __launch_bounds__(BQ / TM * 16)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float vv[CW];
-        load_cols<D>(vs + (c4 * 4 + e) * DS, tx, vv);
+        group_cols<D, 16>(vs + (c4 * 4 + e) * DS, tx, vv);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float p = lane4(pq[i], e);
@@ -326,7 +263,7 @@ __global__ void __launch_bounds__(BQ / TM * 16)
     }
     __syncthreads();  // this stage and p are consumed
     if (stages == 2 ? kt + 2 < n_kt : kt + 1 < n_kt)
-      stage_tile(kt + stages, st);
+      stage_kv(kt + stages, st);
   }
 
   float* ob = o + static_cast<long long>(bh) * q_len * D;
@@ -339,7 +276,7 @@ __global__ void __launch_bounds__(BQ / TM * 16)
     float out[CW];
 #pragma unroll
     for (int c = 0; c < CW; ++c) out[c] = acc[i][c] / l_safe;
-    store_cols<D>(ob + static_cast<long long>(qg) * D, tx, out);
+    store_group_cols<D, 16>(ob + static_cast<long long>(qg) * D, tx, out);
     if (tx == 0) lb[qg] = m[i] + logf(l_safe);
   }
 }

@@ -31,9 +31,10 @@ in ``csrc/flash_dkdv_sm90.cu`` and dQ in ``csrc/flash_dq_sm90.cu`` (wgmma,
 TMA, warp-specialised); below 128 the forward in
 ``csrc/flash_fwd_mma.cu``, dK/dV and dQ in ``csrc/flash_bwd_mma.cu``; f32
 runs on the CUDA cores, the forward in ``csrc/flash_fwd_f32.cu`` (its
-tile by :func:`fwd_tile_f32`), dK/dV and dQ in
-``csrc/flash_attention.cu`` (:func:`kernel_name`). The source notes of the files say what bounds each
-kernel and what its design does about it.
+tile by :func:`fwd_tile_f32`), dK/dV and dQ in ``csrc/flash_bwd_f32.cu``
+(its tile by :func:`bwd_tile_f32`); :func:`kernel_name` states the rule
+``csrc/flash_attention.cu`` routes by. The source notes of the files say
+what bounds each kernel and what its design does about it.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 # rule of csrc/flash_attention.cu ``dispatch``
 _KERNELS = {
     ("fwd", torch.float32, False): "flash_fwd_kernel",
-    ("dkdv", torch.float32, False): "flash_dkdv_kernel",
-    ("dq", torch.float32, False): "flash_dq_kernel",
+    ("dkdv", torch.float32, False): "flash_dkdv_f32_kernel",
+    ("dq", torch.float32, False): "flash_dq_f32_kernel",
     ("fwd", torch.bfloat16, False): "flash_fwd_mma_kernel",
     ("dkdv", torch.bfloat16, False): "flash_bwd_dkdv_mma_kernel",
     ("dq", torch.bfloat16, False): "flash_bwd_dq_mma_kernel",
@@ -85,6 +86,25 @@ def fwd_tile_f32(bh, q_len, causal):
             break
     blocks = -(-q_len // rows) * bh
     return rows, 2 if blocks < H100_SMS and rows < 64 else 4
+
+
+# the f32 backward's tile (csrc/flash_bwd_f32.cu ``flash_bwd_f32_rows``,
+# the kernels' template argument ``WR`` = rows / 16): the rows a block
+# (keys of dK/dV, queries of dQ), 64 for dK/dV and for dQ at head_dim 128,
+# 32 for dQ below, halved while the blocks would not reach
+# F32_BWD_FILL_BLOCKS, down to 16; 32 streamed rows a tile
+F32_BWD_FILL_BLOCKS = 128
+F32_BWD_STREAMED_ROWS = 32
+
+
+def bwd_tile_f32(part, bh, rows, head_dim):
+    """``(rows a block, streamed rows a tile)`` of the f32 ``part``
+    (``"dkdv"``: ``rows`` = kv_len; ``"dq"``: ``rows`` = q_len) for ``bh``
+    heads: (64 | 32 | 16, 32)."""
+    block = 64 if part == "dkdv" or head_dim == 128 else 32
+    while block > 16 and -(-rows // block) * bh < F32_BWD_FILL_BLOCKS:
+        block //= 2
+    return block, F32_BWD_STREAMED_ROWS
 
 
 def kernel_name(part, dtype, head_dim):

@@ -26,7 +26,10 @@ def adam_update_plain(p, m, v, g, alpha, *, beta1, beta2, eps):
     """The kernel's arithmetic in PyTorch ops, in ``_adam_kernel``'s
     order, each step one rounded f32 operation; constants are f32 tensors
     (a Python-scalar divisor would become a product with its reciprocal
-    on CUDA)."""
+    on CUDA). The square root is the correctly rounded one (taken in f64,
+    then rounded), as the kernel's ``__fsqrt_rn`` and XLA's: PyTorch's CPU
+    f32 ``torch.sqrt`` is not (torch 2.13; ``tests/host_spread.py``
+    counts the inputs it rounds 1 ulp off)."""
     ud = m.dtype
     # filled on the device (no host copy: the call may be graph-captured)
     b1, b2, e = (torch.full((), c, dtype=ud, device=m.device)
@@ -34,7 +37,8 @@ def adam_update_plain(p, m, v, g, alpha, *, beta1, beta2, eps):
     gu = g.to(ud)
     new_m = b1 * m + (1 - b1) * gu
     new_v = b2 * v + (1 - b2) * (gu * gu)
-    upd = alpha.to(ud) * new_m / (torch.sqrt(new_v) + e)
+    root = torch.sqrt(new_v.double()).to(ud)
+    upd = alpha.to(ud) * new_m / (root + e)
     p.copy_(p - upd.to(p.dtype))
     m.copy_(new_m)
     v.copy_(new_v)

@@ -701,11 +701,115 @@ def test_flash_bwd_dtype_picks_its_kernel_on_card(cuda):
         for out, ref in zip(outs, (rdk, rdv, rdq)):
             _close(out, ref, 1e-4 if dtype == torch.float32 else 2e-2)
     f32, bf16 = names[torch.float32], names[torch.bfloat16]
-    assert any("flash_dkdv_kernel<" in n for n in f32)
-    assert any("flash_dq_kernel<" in n for n in f32)
+    assert any("flash_dkdv_f32_kernel<" in n for n in f32)
+    assert any("flash_dq_f32_kernel<" in n for n in f32)
     assert not any("mma" in n for n in f32)
     assert any("flash_bwd_dkdv_mma_kernel" in n for n in bf16)
     assert any("flash_bwd_dq_mma_kernel" in n for n in bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,entry", [(0.0, "seed"), (0.1, "seed"),
+                                        (0.1, "seed_ptr")])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("b,h,sq,sk,causal,biased", [
+    (4, 16, 256, 256, True, False), (2, 4, 200, 200, True, False),
+    (2, 4, 256, 256, False, False), (8, 16, 64, 64, False, True),
+    (2, 4, 200, 200, False, True), (2, 4, 100, 171, False, True)])
+def test_flash_bwd_f32_kernels_on_card(cuda, d, b, h, sq, sk, causal,
+                                       biased, rate, entry):
+    # the f32 dK/dV and dQ (csrc/flash_bwd_f32.cu) at every head dim:
+    # causal and not, ragged S (200, q_len != kv_len), the pad bias with a
+    # row fully padded (-1e9 at every key), the transformer check's 64 x 64
+    # heads, dropout 0.1 through the launch-argument and the seed-pointer
+    # entries (counted apart). Within 1e-4 (scaled) of the plain versions,
+    # finite; a second launch gives the same bits
+    q, k, v, do, _ = _flash_inputs(cuda, torch.float32, 81 + d, b, h, sq,
+                                   sk, d, False)
+    bias = _pad_bias(b, sk).to(cuda) if biased else None
+    seed = 424242
+    args = dict(heads=h, sm_scale=d ** -0.5, causal=causal, bias=bias)
+    if rate:
+        args.update(dropout_rate=rate, dropout_seed=seed)
+    ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+    delta = (do * ro).sum(-1)
+    if entry == "seed_ptr":
+        args["dropout_seed"] = torch.tensor([seed], dtype=torch.int32,
+                                            device=cuda)
+    suffix = "_device_seed" if entry == "seed_ptr" else ""
+    before = K.launch_counts()
+    outs = [(*K.flash_attention_dkdv(q, k, v, do, rlse, delta, **args),
+             K.flash_attention_dq(q, k, v, do, rlse, delta, **args))
+            for _ in range(2)]
+    args["dropout_seed"] = seed
+    rdk, rdv = K.flash_attention_dkdv_plain(q, k, v, do, rlse, delta, **args)
+    rdq = K.flash_attention_dq_plain(q, k, v, do, rlse, delta, **args)
+    torch.cuda.synchronize()
+    for out, again, ref in zip(outs[0], outs[1], (rdk, rdv, rdq)):
+        assert torch.isfinite(out).all()
+        _close(out, ref, 1e-4)
+        assert torch.equal(out, again)
+    counts = K.launch_counts()
+    for part in ("dkdv", "dq"):
+        name = f"flash_attention_{part}{suffix}"
+        assert counts[name] == before[name] + 2
+
+
+@pytest.mark.cuda
+def test_flash_bwd_f32_tile_follows_the_rule_on_card(cuda):
+    # the rows a block the f32 dK/dV and dQ take (their template argument
+    # WR = rows / 16, read off a trace's kernel names) follow
+    # bwd_tile_f32, and the shapes below take 64, 32 and 16 rows
+    fa = _kernel_module("flash_attention")
+    seen = set()
+    for b, s, d, causal in ((16, 256, 64, True), (8, 64, 64, False),
+                            (1, 64, 64, False), (1, 2048, 128, True)):
+        h = 8 if d == 128 else 16
+        q, k, v, do, _ = _flash_inputs(cuda, torch.float32, 35, b, h, s, s,
+                                       d, False)
+        args = dict(heads=h, sm_scale=d ** -0.5, causal=causal)
+        ro, rlse = K.flash_attention_fwd_plain(q, k, v, **args)
+        delta = (do * ro).sum(-1)
+        for part, fn in (("dkdv", K.flash_attention_dkdv),
+                         ("dq", K.flash_attention_dq)):
+            rows, _ = fa.bwd_tile_f32(part, b * h, s, d)
+            names = _trace_names(lambda: fn(q, k, v, do, rlse, delta,
+                                            **args))
+            want = f"flash_{part}_f32_kernel<{d}, {rows // 16}>"
+            assert any(want in n for n in names), (want, names)
+            seen.add(rows)
+    assert seen == {64, 32, 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["seed", "seed_ptr"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,causal", [(128, True), (100, True),
+                                      (192, False)])
+def test_flash_bwd_f32_dropout_mask_on_card(cuda, s, causal, d, entry):
+    # the f32 backward's dropout mask is K0's, bit for bit, read off each
+    # of dV, dK and dQ (keep_mask_readoff), through both entries: 0
+    # mismatches; the mask of the next seed differs (a planted fault)
+    bh, seed = 6, 424242
+    sd = (seed if entry == "seed" else
+          torch.tensor([seed], dtype=torch.int32, device=cuda))
+    args = dict(heads=1, sm_scale=0.125, causal=causal, dropout_rate=0.1,
+                dropout_seed=sd)
+
+    def bwd(q, k, v, do, lse, delta):
+        dk, dv = K.flash_attention_dkdv(q, k, v, do, lse, delta, **args)
+        return dk, dv, K.flash_attention_dq(q, k, v, do, lse, delta, **args)
+
+    fa = _kernel_module("flash_attention")
+    live = torch.ones(s, s, dtype=torch.bool, device=cuda)
+    if causal:
+        live = live.tril()
+    want = fa.keep_mask_plain(bh, s, s, 0.1, seed, cuda) & live
+    bad = fa.keep_mask_plain(bh, s, s, 0.1, seed + 1, cuda) & live
+    for got in fa.keep_mask_readoff(bwd, bh, s, d, torch.float32, cuda):
+        torch.cuda.synchronize()
+        assert int((got != want).sum()) == 0
+        assert int((got != bad).sum()) > 0
 
 
 @pytest.mark.cuda

@@ -7,10 +7,12 @@ JAX package's, on the CPU.
   within the body), inputs, captures (outer and inner names) and the
   call ops in the outer graph.
 - ``Defun`` called at two signatures (two traces, one per signature) with
-  a captured variable: values within 1e-6 of JAX's, gradients too.
-- ``recompute_grad`` over a body with a captured variable: the value and
-  the gradients of the input and the variable within 1e-6 of JAX's, and
-  equal to the same body built inline in the port (the same arithmetic).
+  a captured variable: values within 1e-6 of JAX's, gradients within
+  ``GRAD_TOL`` (5e-6: the host spread measured below).
+- ``recompute_grad`` over a body with a captured variable: the value
+  within 1e-6 of JAX's and the gradients of the input and the variable
+  within ``GRAD_TOL``, and equal to the same body built inline in the
+  port (the same arithmetic).
 - The recompute body keeps for the backward only the call's inputs and
   captures: ``torch.autograd.graph.saved_tensors_hooks`` around the call's
   forward counts exactly those tensors (the same graph under
@@ -40,6 +42,14 @@ from simple_tensorflow_tpu_torch.framework import op_registry
 
 PKGS = {"jax": jstf, "port": pstf}
 TOL = 1e-6
+# the gradients against JAX's: the JAX reference's own gradients of this
+# graph move by up to 1.67e-6 (max |grad| 7.6) between two host code paths
+# of one AVX-512 box (ONEDNN_MAX_CPU_ISA unset and AVX2), and each package
+# sits up to 2.5e-6 from a float64 evaluation (JAX 1.73e-6 / 2.47e-6 on the
+# input and weight gradients, the port 1.96e-6 / 1.41e-6: tanh and matmul
+# round differently in XLA and PyTorch), so the two differ by up to their
+# sum (3.46e-6 measured): 3x the reference's own spread
+GRAD_TOL = 5e-6
 
 
 def _session(stf):
@@ -141,7 +151,8 @@ def test_defun_and_recompute_match_jax(runs):
                                    err_msg=k)
     for k in ("rc", "inline", "defun"):
         for a, b in zip(p["grads"][k], j["grads"][k]):
-            np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL, err_msg=k)
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=GRAD_TOL,
+                                       err_msg=k)
 
 
 def test_recompute_equals_the_inline_body(runs):

@@ -390,6 +390,28 @@ def test_flash_fwd_f32_tile_by_shape(bh, q_len, causal, tile):
     assert kfa.fwd_tile_f32(bh, q_len, causal) == tile
 
 
+@pytest.mark.parametrize("part,bh,rows,d,tile", [
+    ("dkdv", 256, 256, 64, (64, 32)), ("dq", 256, 256, 64, (32, 32)),
+    ("dkdv", 8, 2048, 128, (64, 32)), ("dq", 8, 2048, 128, (64, 32)),
+    ("dkdv", 128, 64, 64, (64, 32)), ("dq", 128, 64, 64, (32, 32)),
+    ("dkdv", 384, 128, 64, (64, 32)), ("dq", 384, 128, 64, (32, 32)),
+    ("dkdv", 64, 64, 64, (32, 32)), ("dq", 64, 64, 64, (32, 32)),
+    ("dkdv", 16, 64, 64, (16, 32)), ("dq", 16, 64, 128, (16, 32)),
+    ("dkdv", 6, 200, 16, (16, 32)), ("dq", 2, 2048, 32, (32, 32)),
+    ("dkdv", 127, 64, 64, (32, 32)), ("dq", 64, 64, 128, (32, 32))])
+def test_flash_bwd_f32_tile_by_shape(part, bh, rows, d, tile):
+    # the f32 dK/dV's and dQ's (rows a block, streamed rows a tile): 64
+    # rows a block for dK/dV and for dQ at head dim 128, 32 for dQ below,
+    # halved while the blocks would not make about one an SM of the H100
+    # (128), down to 16; 32 streamed rows. The paths' shapes: the LM's
+    # causal 256 heads of 256 (64, 32), the long-context f32 check's 8
+    # heads of 2048 at D = 128 (64, 64), the transformer check's 128 heads
+    # of 64 (64, 32), BERT's 384 heads of 128 (64, 32)
+    assert kfa.bwd_tile_f32(part, bh, rows, d) == tile
+    assert kfa.kernel_name(part, torch.float32, d) == \
+        f"flash_{part}_f32_kernel"
+
+
 @pytest.mark.parametrize("vocab,dtype,tpr", [
     (2, torch.float32, 32), (10, torch.float32, 32),
     (32, torch.bfloat16, 32), (33, torch.float32, 16),
@@ -686,7 +708,8 @@ def test_build_key_covers_every_source_and_the_flags():
             "dropout_residual.cu", "dropout.cu", "flash_fwd_mma.cu",
             "flash_bwd_mma.cu", "common.cuh", "mma.cuh",
             "control_flow.cu", "numeric_summary.cu", "flash_fwd_sm90.cu",
-            "flash_dkdv_sm90.cu", "flash_dq_sm90.cu", "sm90.cuh"} <= set(srcs)
+            "flash_dkdv_sm90.cu", "flash_dq_sm90.cu", "sm90.cuh",
+            "flash_fwd_f32.cu", "flash_bwd_f32.cu", "f32_tile.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert len(_build._key()) == 16

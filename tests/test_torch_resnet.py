@@ -18,11 +18,20 @@ Momentum kernel in interpret mode). Stated tolerances:
   the JAX session's ``.stfz`` checkpoints. Its f32 gradients are only
   good to a few per cent: the BatchNorm backward cancels most of every
   upstream gradient, so the JAX and the port's f32 gradients each differ
-  from a float64 evaluation by 2-4% in the early layers (measured); at lr
-  1e-2 that difference grows chaotically from step to step. So a free
-  run from the initial checkpoint is held to the loss only: step 1 rtol
-  1e-5 (a forward of the same weights), steps 2-3 rtol 1e-2 (measured
-  worst 3.5e-3). The exact chain runs from the after-step-1 checkpoint,
+  from a float64 evaluation by 2-4% in the early layers (measured), and
+  this recipe overshoots on its one repeated batch: a free run amplifies
+  that difference from step to step (JAX's own third loss is 4.0840 or
+  3.8835 on one AVX-512 box, by the oneDNN code path, ONEDNN_MAX_CPU_ISA
+  unset or AVX2; ``tests/host_spread.py`` records it). So the run is
+  teacher-forced: each of steps 1-3 through ``trainer.step`` starts from
+  the JAX session's state before it (the initial checkpoint, then its
+  parameters and Momentum slot after steps 1 and 2) and gives JAX's loss
+  within rtol 1e-5 (a forward of the same weights), and the update it
+  makes matches JAX's by relative norm, each parameter within 0.1 and the
+  fc's within 1e-3: the gradients behind it were measured at worst 5.9%
+  and 1.3e-4 (4.9% on the AVX2 path), where the two paths move JAX's own
+  step-1 gradients by up to 3.2% (``tests/host_spread.py``).
+  The exact chain runs from the after-step-1 checkpoint,
   whose global step and non-zero Momentum slot the port carries. At each
   of steps 2 and 3: the loss of the carried state rtol 1e-5; the
   gradient the JAX step used, read back from its slots (``g = acc_new -
@@ -262,9 +271,9 @@ def test_one_pass_variance_for_half_precision_only():
 # ---------------------------------------------------------------------------
 
 B, SIZE, CLASSES, LR = 4, 64, 10, 1e-2
-# f32 bounds (module docstring): losses of a free run after an update;
-# gradients by relative norm per parameter, all and the fc's
-TRAJ_LOSS, GRAD_COND, GRAD_FC = 1e-2, 1e-1, 1e-3
+# f32 bounds (module docstring): gradients and a step's update by relative
+# norm per parameter, all and the fc's
+GRAD_COND, GRAD_FC = 1e-1, 1e-3
 
 
 def _batch():
@@ -345,14 +354,14 @@ def _as_jax_layout(value):
 
 def _state(trainer):
     """``{JAX name: (parameter, its slot)}`` of the port, in the JAX
-    layout."""
+    layout: copies, which a later step leaves as they were."""
     (grp,) = trainer.optimizer.flat_groups
-    acc = grp.momentum.numpy()
+    acc = grp.momentum.numpy().copy()
     out = {}
     for (name, p), off, size in zip(
             trainer.model.named_parameters(), grp.offsets, grp.sizes):
         out["resnet/" + name.replace(".", "/")] = (
-            _as_jax_layout(p.detach().float().numpy()),
+            _as_jax_layout(p.detach().float().numpy().copy()),
             _as_jax_layout(acc[off:off + size].reshape(p.shape)).reshape(-1))
     return out
 
@@ -364,15 +373,30 @@ def _slot_segments(values, layout, sizes):
 
 
 def test_resnet_trains_like_jax_from_one_checkpoint(jax_run):
+    # teacher-forced (module docstring): each of the three steps through
+    # trainer.step starts from the JAX session's state before it
     trainer = _port(jax_run["ck0"])
     images, labels = _batch()
     assert trainer.accuracy(images, labels).item() == jax_run["acc0"]
-    losses = [trainer.step(images, labels).item() for _ in range(3)]
-    want = jax_run["losses"]
-    # the first loss is a forward of the same weights
-    np.testing.assert_allclose(losses[0], want[0], rtol=1e-5)
-    np.testing.assert_allclose(losses[1:], want[1:], rtol=TRAJ_LOSS)
-    assert trainer.global_step == 3
+    values = jax_run["values"]
+    for k in range(3):
+        if k:
+            _load_state(trainer, values[k])
+        before = _state(trainer)
+        loss = trainer.step(images, labels).item()
+        # a forward of the JAX session's weights
+        np.testing.assert_allclose(loss, jax_run["losses"][k], rtol=1e-5)
+        assert trainer.global_step == k + 1
+        # the update the step made against the JAX step's, each parameter
+        # by relative norm (f64 differences of f32 values: exact)
+        errs = {}
+        for name, (p, _) in _state(trainer).items():
+            p0 = before[name][0].astype(np.float64)
+            errs[name] = _rel(p.astype(np.float64) - p0,
+                              values[k + 1][name].astype(np.float64) - p0)
+        assert max(errs.values()) <= GRAD_COND, errs
+        assert max(errs["resnet/fc/kernel"], errs["resnet/fc/bias"]) <= \
+            GRAD_FC, errs
     # BatchNorm's moving statistics: never updated, on either side
     values = jax_run["values"][3]
     for name, buf in trainer.model.named_buffers():

@@ -13,13 +13,15 @@ dtype=f32, learning_rate=1e-2)``, graph seed set, one
   ulp of JAX's (3 ulp of the draw, as ``prng.normal``'s, and one rounding
   of the product with the stddev) and the normal ``fc`` kernel within 3
   ulp, most values bit-equal; the constant ones bit-exact;
-- from the JAX session's initial state (``convert.load_session_variables``,
-  the flat ``momentum`` slot and the global step included): step 1's loss
-  within rtol 1e-5 (a forward of the same weights), free steps 2-3 within
-  rtol 1e-2. The reason for the looser bound is
-  ``tests/test_torch_resnet.py``'s: BatchNorm's backward cancels most of
-  every f32 gradient, so both packages' gradients sit 2-4% from a float64
-  evaluation, which lr 1e-2 grows from step to step;
+- teacher-forced steps: from the JAX session's initial state and again
+  from its state after steps 1 and 2 (``convert.load_session_variables``,
+  the flat ``momentum`` slot and the global step included), each port
+  step gives JAX's loss within rtol 1e-5 (a forward of the same weights)
+  and each variable's update within relative norm 0.1 of JAX's (the
+  moving statistics untouched on both sides). The reason and the measured
+  spread are ``tests/test_torch_resnet.py``'s: a free run amplifies the
+  gradients' roundoff, which moves with the host's oneDNN code path
+  (JAX's third loss 4.0840 or 3.8835 on one box);
 - the exact chain: from JAX's state after step 1, and again after step 2,
   one port step each gives JAX's next loss within rtol 1e-5 and carries
   the loaded Momentum slot (the port's new slot minus ``mu`` times the
@@ -44,7 +46,6 @@ SEED = 5
 B, SIZE, CLASSES, LR, MU = 4, 64, 10, 1e-2, 0.9
 STEPS = 3
 LOSS_RTOL = 1e-5
-FREE_RTOL = 1e-2
 GRAD_REL = 0.1
 SLOT = "Momentum/Momentum/fused_momentum_g0"
 
@@ -141,27 +142,24 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def port_run(jax_run):
-    """One port session: its own initial state, then the free run of 3
-    steps from JAX's initial state, then one step from JAX's state after
-    step 1 and one after step 2 (state and fetches after each)."""
+    """One port session: its own initial state, then one step from JAX's
+    initial state, one from JAX's state after step 1 and one after step 2
+    (fetches and state after each), and the state after the last."""
     states, _ = jax_run
     g, m = _graph(pstf, pres)
     images, labels = _batch()
     feeds = {m["images"]: images, m["labels"]: labels}
     with g.as_default(), _session(pstf) as s:
         # the initializer in one thread (torch_threads); the steps at the
-        # default count, whose sums the free-run bound was measured with
+        # default count
         with one_thread():
             s.run(pstf.global_variables_initializer())
         init = _state(s)
-        convert.load_session_variables(s, states[0])
-        free = [s.run(_fetches(m), feeds) for _ in range(STEPS)]
-        free_state = _state(s)
         chain = []
-        for k in (1, 2):
+        for k in range(STEPS):
             convert.load_session_variables(s, states[k])
             chain.append((s.run(_fetches(m), feeds), _state(s)))
-    return init, free, free_state, chain
+    return init, chain, chain[-1][1]
 
 
 def _ulps(a, b):
@@ -191,12 +189,26 @@ def test_init_matches_jax(jax_run, port_run):
 
 
 def test_free_steps_match_jax(jax_run, port_run):
-    jout, free = jax_run[1], port_run[1]
-    for i, (a, b) in enumerate(zip(free, jout)):
-        assert a["train"] is None
-        assert int(a["gs"]) == int(b["gs"]) == i
-        rtol = LOSS_RTOL if i == 0 else FREE_RTOL
-        np.testing.assert_allclose(a["loss"], b["loss"], rtol=rtol)
+    # teacher-forced (module docstring): each step from JAX's state before
+    # it gives JAX's loss and, variable by variable, JAX's update
+    states, jout = jax_run
+    for k, (out, state) in enumerate(port_run[1]):
+        assert out["train"] is None
+        assert int(out["gs"]) == int(jout[k]["gs"]) == k
+        np.testing.assert_allclose(out["loss"], jout[k]["loss"],
+                                   rtol=LOSS_RTOL)
+        errs = {}
+        for name, before in states[k].items():
+            if before.dtype.kind != "f":
+                continue
+            before = before.astype(np.float64)
+            step_port = state[name].astype(np.float64) - before
+            step_jax = states[k + 1][name].astype(np.float64) - before
+            if np.any(step_jax):
+                errs[name] = _rel(step_port, step_jax)
+            else:     # the moving statistics
+                assert not np.any(step_port), name
+        assert max(errs.values()) <= GRAD_REL, errs
 
 
 def _rel(a, b):
@@ -206,7 +218,7 @@ def _rel(a, b):
 
 def test_the_chain_from_jax_states_matches_step_by_step(jax_run, port_run):
     states, jout = jax_run
-    chain = port_run[3]
+    chain = port_run[1][1:]
     for k, (out, state) in zip((1, 2), chain):
         assert int(out["gs"]) == int(jout[k]["gs"]) == k
         np.testing.assert_allclose(out["loss"], jout[k]["loss"],

@@ -166,7 +166,8 @@ def test_flash_kernel_routing_rule():
     for d in fa.HEAD_DIMS:
         assert [fa.kernel_name(p, torch.float32, d)
                 for p in ("fwd", "dkdv", "dq")] == [
-            "flash_fwd_kernel", "flash_dkdv_kernel", "flash_dq_kernel"]
+            "flash_fwd_kernel", "flash_dkdv_f32_kernel",
+            "flash_dq_f32_kernel"]
     with pytest.raises(ValueError, match="head_dim"):
         fa.kernel_name("fwd", torch.bfloat16, 96)
 
